@@ -1,0 +1,101 @@
+"""RIFF/WAVE audio I/O in numpy (the port's subset of ``utils/audio_io.py``).
+
+``read(path) -> (data, fs)`` with data float64 in [-1, 1), shape (T,) mono or
+(T, C); ``info(path) -> (frames, fs)`` from the header; ``write(path, data,
+fs, subtype)`` with subtype PCM_16 (default), PCM_24 or FLOAT.  Reads PCM
+16/24/32-bit and IEEE float 32/64, including WAVE_FORMAT_EXTENSIBLE.  FLAC
+and compressed formats are not handled here.
+"""
+
+from __future__ import annotations
+
+import struct
+from typing import Optional
+
+import numpy as np
+
+__all__ = ["read", "info", "write"]
+
+_PCM, _FLOAT, _EXTENSIBLE = 0x0001, 0x0003, 0xFFFE
+
+
+def _chunks(buf: bytes) -> dict[bytes, tuple[int, int]]:
+    if buf[:4] != b"RIFF" or buf[8:12] != b"WAVE":
+        raise ValueError("not a RIFF/WAVE file")
+    pos, out = 12, {}
+    while pos + 8 <= len(buf):
+        cid = buf[pos : pos + 4]
+        size = struct.unpack_from("<I", buf, pos + 4)[0]
+        out[cid] = (pos + 8, size)
+        pos += 8 + size + (size & 1)
+    return out
+
+
+def _fmt(buf: bytes, chunks) -> tuple[int, int, int, int, int]:
+    off, _ = chunks[b"fmt "]
+    fmt, n_ch, fs, _, block_align, bits = struct.unpack_from("<HHIIHH", buf, off)
+    if fmt == _EXTENSIBLE:
+        fmt = struct.unpack_from("<H", buf, off + 24)[0]
+    return fmt, n_ch, fs, block_align, bits
+
+
+def read(path: str, dtype: str = "float64"):
+    """(data, fs); data (T,) or (T, C) in [-1, 1)."""
+    with open(path, "rb") as f:
+        buf = f.read()
+    chunks = _chunks(buf)
+    fmt, n_ch, fs, _, bits = _fmt(buf, chunks)
+    off, size = chunks[b"data"]
+    raw = buf[off : off + size]
+    if fmt == _PCM and bits == 16:
+        data = np.frombuffer(raw, "<i2").astype(np.float64) / 32768.0
+    elif fmt == _PCM and bits == 24:
+        b = np.frombuffer(raw, np.uint8).reshape(-1, 3).astype(np.int32)
+        i = b[:, 0] | (b[:, 1] << 8) | (b[:, 2] << 16)
+        data = np.where(i >= 1 << 23, i - (1 << 24), i).astype(np.float64) / 8388608.0
+    elif fmt == _PCM and bits == 32:
+        data = np.frombuffer(raw, "<i4").astype(np.float64) / 2147483648.0
+    elif fmt == _FLOAT and bits in (32, 64):
+        data = np.frombuffer(raw, "<f4" if bits == 32 else "<f8").astype(np.float64)
+    else:
+        raise ValueError(f"unsupported WAVE format tag {fmt:#x} with {bits} bits")
+    if n_ch > 1:
+        data = data.reshape(-1, n_ch)
+    return data.astype(dtype), fs
+
+
+def info(path: str) -> tuple[int, int]:
+    """(frames, samplerate) from the header."""
+    with open(path, "rb") as f:
+        head = f.read(65536)
+    chunks = _chunks(head)
+    _, _, fs, block_align, _ = _fmt(head, chunks)
+    _, size = chunks[b"data"]  # the size field is in the header even when truncated here
+    return size // block_align, fs
+
+
+def write(path: str, data: np.ndarray, samplerate: int,
+          subtype: Optional[str] = None) -> None:
+    """Write (T,) or (T, C) samples in [-1, 1) as a RIFF/WAVE file."""
+    data = np.asarray(data)
+    n_ch = 1 if data.ndim == 1 else data.shape[1]
+    subtype = subtype or "PCM_16"
+    if subtype == "PCM_16":
+        raw = np.clip(np.round(data * 32768.0), -32768, 32767).astype("<i2").tobytes()
+        fmt, bits = _PCM, 16
+    elif subtype == "PCM_24":
+        i = np.clip(np.round(data * 8388608.0), -8388608, 8388607).astype("<i4").reshape(-1)
+        raw = i.view(np.uint8).reshape(-1, 4)[:, :3].tobytes()
+        fmt, bits = _PCM, 24
+    elif subtype == "FLOAT":
+        raw = data.astype("<f4").tobytes()
+        fmt, bits = _FLOAT, 32
+    else:
+        raise ValueError(f"unsupported subtype {subtype}")
+    block_align = n_ch * bits // 8
+    hdr = b"RIFF" + struct.pack("<I", 36 + len(raw)) + b"WAVE"
+    hdr += b"fmt " + struct.pack("<IHHIIHH", 16, fmt, n_ch, samplerate,
+                                 samplerate * block_align, block_align, bits)
+    hdr += b"data" + struct.pack("<I", len(raw))
+    with open(path, "wb") as f:
+        f.write(hdr + raw)
