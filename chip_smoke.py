@@ -3,18 +3,24 @@
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero):
+Phases (any failure exits non-zero; each prints its seconds):
   1. build the CUDA kernels from ``urgent2026_challenge_track1_tpu_torch/csrc``
      with nvcc and print the card's name, power limit and the build time;
   2. hold every kernel against its plain PyTorch version on the card at the
-     main path's shapes, in float32 (TF32 off) and bfloat16;
-  3. drive the main path through the port's inference CLI at full width
-     (196 channels x 6 layers, random seeded weights) on 8-48 kHz WAVs:
-     single-utterance, batched and long-form, and check that every kernel ran;
-  4. compare a float32 forward on the card (kernels) with the same forward
-     on the CPU (plain versions);
-  5. time each kernel, its plain version and (for K1) cuDNN's LSTM, and the
-     end-to-end forward at the JAX bench geometry.
+     main paths' shapes, in float32 (TF32 off) and bfloat16: the inference
+     kernels K1-K3, then the training kernels K4-K7 (h, gates, c, dx_proj,
+     dW);
+  3. drive the inference path through the port's CLI at full width (196
+     channels x 6 layers, random seeded weights) on 8-48 kHz WAVs, and the
+     training path through the port's ``train_se.run`` (196 x 6, batch 4,
+     2 s at 48 kHz, 2 epochs of 2 steps with validation and checkpoints,
+     then a resumed third epoch); check that every kernel of each path ran;
+  4. compare a float32 forward, and one float32 train step's gradients, on
+     the card (kernels) with the same on the CPU (plain versions);
+  5. time each kernel, its plain version and (for K1) cuDNN's LSTM, the
+     end-to-end forward at the JAX bench geometry, and the train step at the
+     baseline geometry in float32 and bfloat16 with its peak memory and
+     launches per step.
 
 The second line from the end is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or without the port
@@ -24,6 +30,7 @@ package beside this file, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -35,13 +42,19 @@ REPO = Path(__file__).resolve().parent
 PKG = "urgent2026_challenge_track1_tpu_torch"
 
 F32_TOL, BF16_TOL = 2e-4, 5e-2  # scripts/check_pallas_tpu.py:29-34
-E2E_TOL = 1e-3                  # card (kernels) vs CPU (plain), float32 waveform
+GRAD_TOL = 1e-3                 # f32 gradients, relative (max|d| / max|ref|), same source
+E2E_TOL = 1e-3                  # card (kernels) vs CPU (plain), float32 waveform and grads
 N_IN, HID = 196, 392            # BSRNN_baseline: num_channel 196, H = 2N
 # main-path shapes (rows, steps) at 48 kHz (K = 34 bands): 4 s at B=1 and
 # 2 s at B=4; time path rows B*K over the frames, band path rows B*frames
 # over the bands
 TIME_SHAPES = ((34, 401), (136, 201))
 BAND_SHAPES = ((401, 34), (804, 34))
+# the training step at the baseline geometry (B=4, 2 s at 48 kHz): time
+# path rows 4 x 34 bands over 201 frames, band path rows 4 x 201 frames
+# over 34 bands
+TRAIN_TIME, TRAIN_BAND = (136, 201), (804, 34)
+TRAIN_SECONDS = (2.0, 1.9, 1.8, 1.7)  # one batch of the training phase's data
 PEAK_BF16_FLOPS = 989e12        # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12            # HBM3
 
@@ -111,13 +124,15 @@ def _err(a, b, valid=None):
     return float(d.max())
 
 
+INFERENCE_KERNELS = ("fusedin_bilstm", "lstm_scan", "lstm_revmasked")
+
+
 def phase_kernels(device):
     """max|kernel - plain| per kernel and dtype over the main-path shapes."""
     import torch
     from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
 
-    errs = {(k, dt): 0.0 for k in ("fusedin_bilstm", "lstm_scan", "lstm_revmasked")
-            for dt in ("float32", "bfloat16")}
+    errs = {(k, dt): 0.0 for k in INFERENCE_KERNELS for dt in ("float32", "bfloat16")}
     for dt_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         for R, T in TIME_SHAPES + BAND_SHAPES:
             x, w_ih_t, w_hh_t, bias, xp, lengths = _kernel_inputs(R, T, dtype, device, R * 1000 + T)
@@ -147,6 +162,78 @@ def phase_kernels(device):
         tol = F32_TOL if dt_name == "float32" else BF16_TOL
         if not e < tol:
             fail(f"{name} {dt_name}: max|kernel - plain| {e:.3e} >= {tol}")
+    return errs
+
+
+def _rel(a, b):
+    """max|a - b| / max|b|."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / (b.abs().max() + 1e-12))
+
+
+def _frames_lengths(R, T, device):
+    """Valid frames of each time-path row for the training batch
+    (TRAIN_SECONDS at 48 kHz, hop 480), each utterance over its bands."""
+    import torch
+
+    frames = [1 + int(sec * 48000) // 480 for sec in TRAIN_SECONDS]
+    per_row = torch.tensor(frames, dtype=torch.int32).repeat_interleave(R // len(frames))
+    return per_row.clamp(max=T).to(device)
+
+
+def phase_train_kernels(device):
+    """K4-K7 against their plain versions at the training step's shapes:
+    max abs error of h, gates, c (forward) and max relative error of dx_proj
+    and dW (backward, each run on the plain forward's residuals).  Returns
+    {(kernel, dtype): (abs error, relative error)}."""
+    import torch
+    from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
+
+    errs = {}
+
+    def note(name, dt_name, e_abs, e_rel):
+        old = errs.get((name, dt_name), (0.0, 0.0))
+        errs[name, dt_name] = (max(old[0], e_abs), max(old[1], e_rel))
+
+    for dt_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        for R, T in (TRAIN_TIME, TRAIN_BAND):
+            _, _, w_hh_t, _, xp, _ = _kernel_inputs(R, T, dtype, device, R * 7 + T)
+            gen = torch.Generator().manual_seed(R + T)
+            dout = torch.randn((R, T, HID), generator=gen).to(device, dtype)
+            for reverse in (False, True):
+                got = K.lstm_train_fwd(xp, w_hh_t[0], reverse)
+                ref = K.lstm_train_fwd_plain(xp, w_hh_t[0], reverse)
+                torch.cuda.synchronize()
+                note("lstm_train_fwd", dt_name, max(_err(g, r) for g, r in zip(got, ref)), 0.0)
+                got = K.lstm_train_bwd(*ref, dout, w_hh_t[0], reverse)
+                want = K.lstm_train_bwd_plain(*ref, dout, w_hh_t[0], reverse)
+                torch.cuda.synchronize()
+                note("lstm_train_bwd", dt_name, max(_err(g, r) for g, r in zip(got, want)),
+                     max(_rel(g, r) for g, r in zip(got, want)))
+            if (R, T) != TRAIN_TIME:
+                continue  # K6/K7 run on the time path only
+            lengths = _frames_lengths(R, T, device)
+            valid = torch.arange(T, device=device)[None, :] < lengths[:, None]
+            dmask = dout * valid[..., None]
+            got = K.lstm_revmasked_train_fwd(xp, w_hh_t[1], lengths)
+            ref = K.lstm_revmasked_train_fwd_plain(xp, w_hh_t[1], lengths)
+            torch.cuda.synchronize()
+            note("lstm_revmasked_train_fwd", dt_name,
+                 max(_err(g, r, valid) for g, r in zip(got, ref)), 0.0)
+            got = K.lstm_revmasked_bwd(*ref, lengths, dmask, w_hh_t[1])
+            want = K.lstm_revmasked_bwd_plain(*ref, lengths, dmask, w_hh_t[1])
+            torch.cuda.synchronize()
+            note("lstm_revmasked_bwd", dt_name, max(_err(g, r) for g, r in zip(got, want)),
+                 max(_rel(g, r) for g, r in zip(got, want)))
+    for (name, dt_name), (e_abs, e_rel) in sorted(errs.items()):
+        backward = name.endswith("bwd")
+        tol = BF16_TOL if dt_name == "bfloat16" else (GRAD_TOL if backward else F32_TOL)
+        e = e_rel if backward else e_abs
+        kind = "max rel|d| (dx_proj, dW)" if backward else "max|d| (h, gates, c)"
+        print(f"[train kernels] {name} {dt_name}: {kind}={e:.3e} (tolerance {tol}), "
+              f"max|d|={e_abs:.3e}")
+        if not e < tol:
+            fail(f"{name} {dt_name}: kernel vs plain {e:.3e} >= {tol}")
     return errs
 
 
@@ -221,10 +308,105 @@ def phase_main_path(workdir: Path):
         delta = {k: v - before[k] for k, v in K.launch_counts().items()}
         print(f"[main path] {name}: {len(items)} files in {seconds:.2f} s, launches {delta}")
     counts = K.launch_counts()
-    for name, n in counts.items():
-        if n <= 0:
+    for name in INFERENCE_KERNELS:
+        if counts[name] <= 0:
             fail(f"kernel {name} was not launched on the main path")
     print(f"[main path] launches over the three runs: {counts}")
+    return counts
+
+
+def _write_split(root: Path, seconds, seed: int) -> Path:
+    """A pre-simulated set at 48 kHz (spk1.scp, wav.scp, utt2fs,
+    speech_length.scp) of synthetic clean/noisy pairs."""
+    import numpy as np
+    from urgent2026_challenge_track1_tpu_torch.utils import audio_io
+
+    root.mkdir(parents=True)
+    rng = np.random.default_rng(seed)
+    fs = 48000
+    lines = {k: [] for k in ("spk1.scp", "wav.scp", "utt2fs", "speech_length.scp")}
+    for i, sec in enumerate(seconds):
+        n = int(sec * fs)
+        t = np.arange(n) / fs
+        clean = 0.3 * np.sin(2 * np.pi * rng.uniform(120, 400) * t) + 0.02 * rng.standard_normal(n)
+        noisy = clean + 0.1 * rng.standard_normal(n)
+        uid = f"{root.name}{i:02d}"
+        for name, wav in (("spk1.scp", clean), ("wav.scp", noisy)):
+            path = root / f"{uid}_{name[:3]}.wav"
+            audio_io.write(str(path), wav, fs)
+            lines[name].append(f"{uid} {path}")
+        lines["utt2fs"].append(f"{uid} {fs}")
+        lines["speech_length.scp"].append(f"{uid} {n}")
+    for name, ls in lines.items():
+        (root / name).write_text("\n".join(ls) + "\n")
+    return root
+
+
+def _train_config(workdir: Path, **over):
+    from urgent2026_challenge_track1_tpu_torch.config import Config
+
+    base = dict(  # the optimizer values of conf/models/BSRNN_baseline.yaml
+        train_set_path=str(workdir / "train"), valid_set_path=str(workdir / "valid"),
+        train_set_dynamic_mixing=False, batch_size=4, num_worker=2, max_duration=96000,
+        learning_rate=1e-3, lr_step_size=1, lr_gamma=0.85, gradient_clip=0.5,
+        weight_decay=1e-6, adam_epsilon=1e-8, seed=2024, save_top_k=5,
+        model_configs={"num_channel": N_IN, "num_layer": 6}, device="cuda",
+        num_train_epochs=2, val_check_interval=2, log_every_steps=1,
+        train_tag="chip_smoke", train_name="baseline")
+    base.update(over)
+    return Config(**base)
+
+
+def phase_training(workdir: Path):
+    """The port's training entry point at the baseline geometry: 2 epochs of
+    2 steps with validation and checkpoints every 2 steps, then a second
+    run that resumes into a third epoch.  Returns the first run's launch
+    counts."""
+    import torch
+    from urgent2026_challenge_track1_tpu_torch import train_se
+    from urgent2026_challenge_track1_tpu_torch.models.bsrnn import BSRNNConfig, init_bsrnn
+    from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
+
+    _write_split(workdir / "train", TRAIN_SECONDS + (1.6, 1.5, 1.4, 1.3), 10)
+    _write_split(workdir / "valid", (2.0, 1.75, 1.5, 1.25), 11)
+    cwd = os.getcwd()
+    os.chdir(workdir)  # the trainer writes exp/ under the working directory
+    try:
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        state = train_se.run(_train_config(workdir))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = K.launch_counts()
+        print(f"[training] 2 epochs x 2 steps (+ 2 validations, 2 saves) in {seconds:.1f} s, "
+              f"launches {counts}")
+        if (state.step, state.epoch) != (4, 2):
+            fail(f"training ended at step {state.step}, epoch {state.epoch}; expected 4, 2")
+        init = init_bsrnn(BSRNNConfig(num_channel=N_IN, num_layer=6), seed=2024)
+        trained = state.model.state_dict()
+        changed = sum(not torch.equal(v, trained[k].cpu()) for k, v in init.state_dict().items())
+        print(f"[training] {changed} of {len(trained)} parameter tensors changed")
+        if changed < len(trained) // 2:
+            fail("training left most parameters unchanged")
+        exp = workdir / "exp" / "chip_smoke" / "baseline" / "version_0"
+        records = [json.loads(line) for line in (exp / "metrics.jsonl").read_text().splitlines()]
+        train_losses = [r["train_loss"] for r in records if "train_loss" in r]
+        val_losses = [r["val_loss"] for r in records if "val_loss" in r]
+        print(f"[training] train losses {train_losses}, val losses {val_losses}")
+        if len(train_losses) != 4 or len(val_losses) != 2 or None in train_losses + val_losses:
+            fail("training logged missing or non-finite losses")
+        t0 = time.perf_counter()
+        resumed = train_se.run(_train_config(workdir, num_train_epochs=3))
+        print(f"[training] resumed run in {time.perf_counter() - t0:.1f} s: step "
+              f"{resumed.step}, epoch {resumed.epoch}")
+        if (resumed.step, resumed.epoch) != (6, 3):
+            fail(f"the resumed run ended at step {resumed.step}, epoch {resumed.epoch}; "
+                 "expected 6, 3")
+    finally:
+        os.chdir(cwd)
+    for name, n in counts.items():
+        if n <= 0:
+            fail(f"kernel {name} was not launched on the training path")
     return counts
 
 
@@ -257,6 +439,46 @@ def phase_card_vs_cpu(device) -> float:
     if not err < E2E_TOL:
         fail(f"card and CPU forwards differ by {err:.3e} >= {E2E_TOL}")
     return err
+
+
+def phase_grads_card_vs_cpu(device) -> float:
+    """One float32 train step's gradients at full width (196 x 6) on a short
+    input, card (K1-K7) against CPU (plain versions): the largest of
+    max|d| / max|cpu| over the parameter tensors."""
+    import copy
+
+    import torch
+    from urgent2026_challenge_track1_tpu_torch.config import Config
+    from urgent2026_challenge_track1_tpu_torch.models.bsrnn import BSRNNConfig, init_bsrnn
+    from urgent2026_challenge_track1_tpu_torch.train import trainer
+
+    fs, n = 16000, 8000
+    bundle = trainer.build_model(Config(model_configs={"num_channel": N_IN, "num_layer": 6}))
+    cpu_model = init_bsrnn(BSRNNConfig(num_channel=N_IN, num_layer=6), seed=6)
+    card_model = copy.deepcopy(cpu_model).to(device)
+    gen = torch.Generator().manual_seed(7)
+    clean = 0.1 * torch.randn((2, n), generator=gen)
+    noisy = clean + 0.05 * torch.randn((2, n), generator=gen)
+    lengths = torch.tensor([n, 6000], dtype=torch.int32)
+    noisy[1, 6000:] = 0.0
+    for model, dev in ((card_model, device), (cpu_model, torch.device("cpu"))):
+        loss, _ = trainer.loss_and_metrics(bundle, fs, model, clean.to(dev), noisy.to(dev),
+                                           lengths.to(dev))
+        loss.backward()
+    cpu_grads = dict(cpu_model.named_parameters())
+    worst, worst_name = 0.0, ""
+    for name, p in card_model.named_parameters():
+        ref = cpu_grads[name].grad
+        if float(ref.abs().max()) == 0.0:
+            continue
+        e = _rel(p.grad.cpu(), ref)
+        if e > worst:
+            worst, worst_name = e, name
+    print(f"[card vs cpu] float32 196x6 train-step gradients, 0.5 s at 16 kHz: "
+          f"max rel|d|={worst:.3e} ({worst_name}; tolerance {E2E_TOL})")
+    if not worst < E2E_TOL:
+        fail(f"card and CPU gradients differ by {worst:.3e} >= {E2E_TOL}")
+    return worst
 
 
 # ---------------------------------------------------------------------------
@@ -306,6 +528,83 @@ def _bounds(R, T, lengths_sum):
     }
 
 
+def _train_bounds(R, T, valid_steps):
+    """Least time (ms) for each training kernel's bf16 work: forward 2 H 4H
+    operations per valid (row, step), reading x_proj and W_hh and writing h,
+    gates and c; backward 4 H 4H (the dh and dW products), reading gates, c,
+    h, dout and W_hh and writing dx_proj and dW in f32.  The masked pair
+    (K6, K7) counts the valid steps only, as K3; unmasked valid_steps = R T."""
+    H, b = HID, 2
+    out = {}
+    for name, n, lens in (("lstm_train_fwd", R * T, 0), ("lstm_train_bwd", R * T, 0),
+                          ("lstm_revmasked_train_fwd", valid_steps, 4 * R),
+                          ("lstm_revmasked_bwd", valid_steps, 4 * R)):
+        if name.endswith("fwd"):
+            flops = 2 * n * H * 4 * H
+            nbytes = b * (n * 4 * H + H * 4 * H + n * H + n * 4 * H + n * H) + lens
+        else:
+            flops = 4 * n * H * 4 * H
+            nbytes = b * (n * 4 * H + 3 * n * H + H * 4 * H + n * 4 * H) + 4 * H * 4 * H + lens
+        out[name] = _bound(flops, nbytes)
+    return out
+
+
+def _train_batch(device, B=4, fs=48000):
+    """A training batch at the baseline geometry: 2 s buckets, TRAIN_SECONDS
+    of signal."""
+    import torch
+
+    gen = torch.Generator().manual_seed(12)
+    T = 2 * fs
+    clean = torch.zeros((B, T))
+    noisy = torch.zeros((B, T))
+    lengths = torch.tensor([int(sec * fs) for sec in TRAIN_SECONDS], dtype=torch.int32)
+    for i, n in enumerate(lengths.tolist()):
+        clean[i, :n] = 0.1 * torch.randn(n, generator=gen)
+        noisy[i, :n] = clean[i, :n] + 0.05 * torch.randn(n, generator=gen)
+    return clean.to(device), noisy.to(device), lengths.to(device)
+
+
+def _train_step_times(device):
+    """Median host-clock time of the train step (B=4, 2 s at 48 kHz, 196 x
+    6) over 5 steps after 2 warm-up steps, in float32 and bfloat16, with the
+    peak device memory and the kernel launches of one step."""
+    import torch
+    from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
+    from urgent2026_challenge_track1_tpu_torch.train import trainer
+
+    out = {}
+    for compute_dtype in ("float32", "bfloat16"):
+        cfg = _train_config(Path("."), compute_dtype=compute_dtype)
+        bundle = trainer.build_model(cfg)
+        model = trainer.init_params(cfg.seed, bundle, device)
+        opt = trainer.make_optimizer(cfg, model)
+        step = trainer.make_train_step(bundle, cfg, 48000)
+        batch = _train_batch(device)
+        K.reset_launch_counts()
+        step(model, opt, *batch)
+        per_step = K.launch_counts()
+        step(model, opt, *batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            m = step(model, opt, *batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if m["nan_grad"]:
+                fail("the timed train step hit a non-finite gradient")
+        out[compute_dtype] = {"median_ms": statistics.median(times), "ms": times,
+                              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                              "launches_per_step": per_step}
+        print(f"[times] train step {compute_dtype} (B=4, 2 s at 48 kHz, 196x6): median "
+              f"{out[compute_dtype]['median_ms']:.1f} ms of {[round(t, 1) for t in times]}, "
+              f"peak {out[compute_dtype]['peak_memory_gb']:.2f} GB, launches per step {per_step}")
+        del model, opt
+    return out
+
+
 def _row_tile_sweep(device):
     """K2 at the time path's B=1 and B=64 row counts with each row tile
     forced, beside the tile the wrapper picks (from R and the SM count)."""
@@ -329,7 +628,7 @@ def _row_tile_sweep(device):
     return out
 
 
-def phase_times(device, main_counts, errs):
+def phase_times(device, main_counts, train_counts, errs, train_errs):
     import torch
     from urgent2026_challenge_track1_tpu_torch.dsp.stft import STFTConfig
     from urgent2026_challenge_track1_tpu_torch.models.bsrnn import (
@@ -425,6 +724,73 @@ def phase_times(device, main_counts, errs):
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"[times] end-to-end forward B={B} x {sec} s at {fs} Hz, 192x6 bf16: {e2e_ms:.1f} ms, "
           f"RTF {B * sec / (e2e_ms / 1e3):.1f}x real time, peak memory {peak_gb:.2f} GB")
+    del model, wav
+
+    steps = _train_step_times(device)
+    per_step = steps["bfloat16"]["launches_per_step"]
+    for rec in records:
+        rec["launches_per_train_step"] = per_step[rec["name"]]
+    records += _train_kernel_times(device, train_counts, train_errs, per_step)
+    print("[times] " + json.dumps({"train_step": steps}))
+    return records
+
+
+def _train_kernel_times(device, train_counts, train_errs, per_step):
+    """K4-K7 at the training step's shapes, bf16: kernel, plain version,
+    bound.  K4/K5 are timed on the time path and on the band path (the
+    record holds the time path; the band path is printed beside it)."""
+    import torch
+    from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
+
+    bf16 = torch.bfloat16
+    records = []
+    for R, T in (TRAIN_TIME, TRAIN_BAND):
+        _, _, wh, _, xp, _ = _kernel_inputs(R, T, bf16, device, 13)
+        dout = (0.1 * torch.randn((R, T, HID), device=device)).to(bf16)
+        res = K.lstm_train_fwd(xp, wh[0])
+        lengths = _frames_lengths(R, T, device) if (R, T) == TRAIN_TIME else None
+        timed = {
+            "lstm_train_fwd": (lambda: K.lstm_train_fwd(xp, wh[0]),
+                               lambda: K.lstm_train_fwd_plain(xp, wh[0])),
+            "lstm_train_bwd": (lambda: K.lstm_train_bwd(*res, dout, wh[0]),
+                               lambda: K.lstm_train_bwd_plain(*res, dout, wh[0])),
+        }
+        if lengths is not None:
+            res_m = K.lstm_revmasked_train_fwd(xp, wh[1], lengths)
+            timed["lstm_revmasked_train_fwd"] = (
+                lambda: K.lstm_revmasked_train_fwd(xp, wh[1], lengths),
+                lambda: K.lstm_revmasked_train_fwd_plain(xp, wh[1], lengths))
+            timed["lstm_revmasked_bwd"] = (
+                lambda: K.lstm_revmasked_bwd(*res_m, lengths, dout, wh[1]),
+                lambda: K.lstm_revmasked_bwd_plain(*res_m, lengths, dout, wh[1]))
+        valid = int(lengths.sum()) if lengths is not None else R * T
+        bounds = _train_bounds(R, T, valid)
+        with torch.no_grad():
+            for name, (kern, plain) in timed.items():
+                ms = _time_ms(kern)
+                plain_ms = _time_ms(plain, reps=3, warmup=1)
+                bound_ms, bound_by = bounds[name]
+                print(f"[times] {name} R={R} T={T} bf16: kernel {ms:.3f} ms, plain "
+                      f"{plain_ms:.3f} ms, library none, bound {bound_ms:.4f} ms ({bound_by})")
+                if (R, T) != TRAIN_TIME:
+                    continue
+                e_abs, e_rel = train_errs[name, "bfloat16"]
+                records.append({
+                    "name": name, "route": "cuda",
+                    "source": f"{PKG}/csrc/lstm_kernels.cu",
+                    "replaces": REPLACES[name],
+                    "launches": train_counts[name],
+                    "max_abs_err": e_abs, "max_rel_err": e_rel,
+                    "max_abs_err_f32": train_errs[name, "float32"][0],
+                    "max_rel_err_f32": train_errs[name, "float32"][1],
+                    "tolerance": BF16_TOL,
+                    "tolerance_f32": GRAD_TOL if name.endswith("bwd") else F32_TOL,
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": None,
+                    "shape": {"R": R, "T": T, "H": HID, "valid_steps": valid},
+                    "dtype": "bfloat16", "launches_per_train_step": per_step[name],
+                })
+        del xp, dout, res
     return records
 
 
@@ -432,6 +798,10 @@ REPLACES = {
     "fusedin_bilstm": "urgent2026_challenge_track1_tpu/ops/pallas_lstm.py:196",
     "lstm_scan": "urgent2026_challenge_track1_tpu/ops/pallas_lstm.py:82",
     "lstm_revmasked": "urgent2026_challenge_track1_tpu/ops/pallas_lstm.py:1051",
+    "lstm_train_fwd": "urgent2026_challenge_track1_tpu/ops/pallas_lstm.py:563",
+    "lstm_train_bwd": "urgent2026_challenge_track1_tpu/ops/pallas_lstm.py:647",
+    "lstm_revmasked_train_fwd": "urgent2026_challenge_track1_tpu/ops/pallas_lstm.py:1105",
+    "lstm_revmasked_bwd": "urgent2026_challenge_track1_tpu/ops/pallas_lstm.py:1189",
 }
 
 
@@ -450,12 +820,22 @@ def main() -> int:
     torch.manual_seed(0)  # the timing inputs drawn on the card
     device = torch.device("cuda", 0)
     t0 = time.perf_counter()
-    phase_build()
-    errs = phase_kernels(device)
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        print(f"[phase] {name}: {time.perf_counter() - t:.1f} s")
+        return out
+
+    timed("build", phase_build)
+    errs = timed("inference kernels", phase_kernels, device)
+    train_errs = timed("training kernels", phase_train_kernels, device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=REPO) as tmp:
-        counts = phase_main_path(Path(tmp))
-    phase_card_vs_cpu(device)
-    records = phase_times(device, counts, errs)
+        counts = timed("inference path", phase_main_path, Path(tmp))
+        train_counts = timed("training path", phase_training, Path(tmp))
+    timed("card vs cpu forward", phase_card_vs_cpu, device)
+    timed("card vs cpu gradients", phase_grads_card_vs_cpu, device)
+    records = timed("times", phase_times, device, counts, train_counts, errs, train_errs)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(gpu_name_and_power())
     print(json.dumps({"kernels": records}))

@@ -96,3 +96,64 @@ def test_padding_does_not_change_valid_output(models):
         padded, _ = tbsrnn.bsrnn_se_apply(model, STFTConfig(), torch.from_numpy(x),
                                           fs, torch.from_numpy(lengths))
     np.testing.assert_allclose(padded[1, :n].numpy(), alone[0].numpy(), atol=1e-5, rtol=0)
+
+
+def _bf16_np(a: torch.Tensor) -> np.ndarray:
+    """a rounded to bfloat16, as float64 numpy."""
+    return a.to(torch.bfloat16).double().numpy()
+
+
+@pytest.mark.parametrize("eq, a_shape, b_shape", [
+    ("mm", (5, 7, 96), (96, 24)),                         # fc after each BLSTM
+    ("btkw,kwc->btkc", (2, 6, 5, 20), (5, 20, 24)),       # band split
+    ("btkc,kcd->btkd", (2, 6, 5, 24), (5, 24, 96)),       # mask decoder, first conv
+    ("btkd,kdw->btkw", (2, 6, 5, 96), (5, 96, 20)),       # mask decoder, value/gate
+])
+def test_bfloat16_products_have_float32_outputs(eq, a_shape, b_shape):
+    """A bf16 x bf16 product sums in f32 and is not rounded to bf16 after
+    (JAX: preferred_element_type=float32).  Reference: the float64 product of
+    the bf16-rounded operands; rounding the output to bf16 would miss it by
+    ~2e-3 relative."""
+    rng = np.random.default_rng(11)
+    a = torch.from_numpy(rng.standard_normal(a_shape).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal(b_shape).astype(np.float32))
+    if eq == "mm":
+        bias = torch.from_numpy(rng.standard_normal(b_shape[-1]).astype(np.float32))
+        got = tbsrnn._mm(a, b, bias, torch.bfloat16)
+        ref = _bf16_np(a) @ _bf16_np(b) + bias.double().numpy()
+    else:
+        got = tbsrnn._einsum(eq, a, b, torch.bfloat16)
+        ref = np.einsum(eq, _bf16_np(a), _bf16_np(b))
+    assert got.dtype == torch.float32
+    err = np.abs(got.double().numpy() - ref).max() / np.abs(ref).max()
+    assert err <= 1e-5
+    rounded = got.to(torch.bfloat16).double().numpy()
+    assert np.abs(rounded - ref).max() / np.abs(ref).max() > 1e-4  # the old fault
+
+
+def test_band_split_bfloat16_has_float32_outputs(models, monkeypatch):
+    """The band-split module in bf16 equals its norm output times the
+    weights, both rounded to bf16, summed in float64."""
+    _, model = models
+    bs = tbsrnn.BandSplit(tbsrnn.BSRNNConfig(num_channel=16, num_layer=2,
+                                             compute_dtype="bfloat16"))
+    bs.load_state_dict(model.band_split.state_dict())
+    rng = np.random.default_rng(12)
+    F, T = 161, 9  # 16 kHz bins
+    spec = torch.complex(*(torch.from_numpy(rng.standard_normal((2, T, F)).astype(np.float32))
+                           for _ in range(2)))
+    K = tbsrnn.band_count(481, 48000, 16000, F)
+    captured = {}
+    real_norm = tbsrnn.masked_group_norm
+
+    def spy(*a, **kw):
+        captured["h"] = real_norm(*a, **kw)
+        return captured["h"]
+
+    monkeypatch.setattr(tbsrnn, "masked_group_norm", spy)
+    with torch.no_grad():
+        got = bs(spec, K)
+    ref = np.einsum("btkw,kwc->btkc", _bf16_np(captured["h"]), _bf16_np(bs.w[:K].detach()))
+    ref = ref + bs.b[:K].detach().double().numpy()[None, None]
+    assert got.dtype == torch.float32
+    assert np.abs(got.double().numpy() - ref).max() / np.abs(ref).max() <= 1e-5

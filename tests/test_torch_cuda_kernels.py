@@ -79,6 +79,82 @@ def test_revmasked_matches_plain_at_valid_steps(dev, dtype, rows):
     assert _err(got, cuda_lstm.lstm_revmasked_plain(xp, wh, lengths)[valid]) < TOLS[dtype]
 
 
+def _train_inputs(rng, dev, dtype):
+    return (_t(rng, dev, dtype, R, T, 4 * H), _t(rng, dev, dtype, H, 4 * H),
+            _t(rng, dev, dtype, R, T, H))
+
+
+def _rel(a, b):
+    torch.cuda.synchronize()
+    return float((a.float() - b.float()).abs().max() / (b.float().abs().max() + 1e-12))
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_train_fwd_bwd_match_plain(dev, dtype, reverse, rows):
+    """K4 (h, gates, c) and K5 (dxp, dW) against their plain versions; K5
+    runs on the plain forward's residuals so that each kernel is held alone."""
+    rng = np.random.default_rng(6)
+    xp, wh, dout = _train_inputs(rng, dev, dtype)
+    got = cuda_lstm.lstm_train_fwd(xp, wh, reverse)
+    ref = cuda_lstm.lstm_train_fwd_plain(xp, wh, reverse)
+    for g, r in zip(got, ref):
+        assert g.dtype == dtype and _err(g, r) < TOLS[dtype]
+    dxp, dw = cuda_lstm.lstm_train_bwd(*ref, dout, wh, reverse)
+    rdxp, rdw = cuda_lstm.lstm_train_bwd_plain(*ref, dout, wh, reverse)
+    grad_tol = 1e-3 if dtype == torch.float32 else TOLS[dtype]
+    assert dxp.dtype == dtype and dw.dtype == dtype
+    assert _rel(dxp, rdxp) < grad_tol and _rel(dw, rdw) < grad_tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_revmasked_train_fwd_bwd_match_plain(dev, dtype, rows):
+    rng = np.random.default_rng(7)
+    xp, wh, dout = _train_inputs(rng, dev, dtype)
+    lengths = _lengths(dev)
+    valid = torch.arange(T, device=dev)[None, :] < lengths[:, None]
+    dout = dout * valid[..., None]
+    got = cuda_lstm.lstm_revmasked_train_fwd(xp, wh, lengths)
+    ref = cuda_lstm.lstm_revmasked_train_fwd_plain(xp, wh, lengths)
+    for g, r in zip(got, ref):
+        assert _err(g[valid], r[valid]) < TOLS[dtype]
+    dxp, dw = cuda_lstm.lstm_revmasked_bwd(*ref, lengths, dout, wh)
+    rdxp, rdw = cuda_lstm.lstm_revmasked_bwd_plain(*ref, lengths, dout, wh)
+    grad_tol = 1e-3 if dtype == torch.float32 else TOLS[dtype]
+    assert _rel(dxp, rdxp) < grad_tol and _rel(dw, rdw) < grad_tol
+
+
+def test_train_backward_is_deterministic(dev):
+    """The dW reduction sums in one fixed order: two runs are bitwise equal."""
+    rng = np.random.default_rng(8)
+    xp, wh, dout = _train_inputs(rng, dev, torch.float32)
+    res = cuda_lstm.lstm_train_fwd(xp, wh)
+    a = cuda_lstm.lstm_train_bwd(*res, dout, wh)
+    b = cuda_lstm.lstm_train_bwd(*res, dout, wh)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_autograd_functions_launch_the_training_kernels(dev):
+    rng = np.random.default_rng(9)
+    xp, wh, dout = _train_inputs(rng, dev, torch.float32)
+    lengths = _lengths(dev)
+    cuda_lstm.reset_launch_counts()
+    x1, w1 = xp.clone().requires_grad_(), wh.clone().requires_grad_()
+    cuda_lstm.lstm_dir(x1, w1, True).backward(dout)
+    x2, w2 = xp.clone().requires_grad_(), wh.clone().requires_grad_()
+    cuda_lstm.lstm_dir_revmasked(x2, w2, lengths).backward(dout)
+    with torch.no_grad():
+        cuda_lstm.lstm_dir(x1, w1)
+        cuda_lstm.lstm_dir_revmasked(x2, w2, lengths)
+    assert cuda_lstm.launch_counts() == {
+        "fusedin_bilstm": 0, "lstm_scan": 1, "lstm_revmasked": 1, "lstm_train_fwd": 1,
+        "lstm_train_bwd": 1, "lstm_revmasked_train_fwd": 1, "lstm_revmasked_bwd": 1}
+    ref = xp.cpu().clone().requires_grad_()
+    cuda_lstm.lstm_dir(ref, wh.cpu(), True).backward(dout.cpu())
+    assert _rel(x1.grad.cpu(), ref.grad) < 1e-3
+
+
 def test_each_launch_counts_once(dev):
     rng = np.random.default_rng(3)
     xp, wh = _t(rng, dev, torch.float32, R, T, 4 * H), _t(rng, dev, torch.float32, H, 4 * H)
@@ -87,8 +163,9 @@ def test_each_launch_counts_once(dev):
     cuda_lstm.lstm_scan(xp, wh, True)
     cuda_lstm.lstm_revmasked(xp, wh, _lengths(dev))
     cuda_lstm.lstm_scan_plain(xp, wh)  # the plain version is no launch
-    assert cuda_lstm.launch_counts() == {"fusedin_bilstm": 0, "lstm_scan": 2,
-                                         "lstm_revmasked": 1}
+    counts = cuda_lstm.launch_counts()
+    assert counts.pop("lstm_scan") == 2 and counts.pop("lstm_revmasked") == 1
+    assert set(counts.values()) == {0}
 
 
 def test_wrappers_reject_bad_inputs(dev):
@@ -123,6 +200,8 @@ def test_small_forward_card_matches_cpu(dev):
         ref, _ = bsrnn_se_apply(cpu_model, STFTConfig(), x, 16000, lengths)
         cuda_lstm.reset_launch_counts()
         got, _ = bsrnn_se_apply(card_model, STFTConfig(), x.to(dev), 16000, lengths.to(dev))
-    assert all(n == 2 for n in cuda_lstm.launch_counts().values())  # one per layer
+    counts = cuda_lstm.launch_counts()
+    inference = {k: counts.pop(k) for k in ("fusedin_bilstm", "lstm_scan", "lstm_revmasked")}
+    assert set(inference.values()) == {2} and set(counts.values()) == {0}  # one per layer
     for b, n in enumerate(lengths.tolist()):
         assert _err(got[b, :n].cpu(), ref[b, :n]) < 1e-4

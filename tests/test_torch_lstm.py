@@ -125,6 +125,7 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
     cuda_lstm.lstm_scan(torch.from_numpy(xp), torch.from_numpy(whh))
     cuda_lstm.lstm_revmasked(torch.from_numpy(xp), torch.from_numpy(whh),
                              torch.from_numpy(_lengths()))
-    assert cuda_lstm.launch_counts() == {
-        "fusedin_bilstm": 0, "lstm_scan": 0, "lstm_revmasked": 0}
+    counts = cuda_lstm.launch_counts()
+    assert {"fusedin_bilstm", "lstm_scan", "lstm_revmasked"} <= set(counts)
+    assert set(counts.values()) == {0}
 

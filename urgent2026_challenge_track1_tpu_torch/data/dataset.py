@@ -1,0 +1,298 @@
+"""The pre-simulated dataset, fs-grouped length-bucketed batching and a
+prefetching loader (counterpart of ``data/dataset.py``).
+
+Batches are numpy on the host; the trainer moves them to the device.
+``collate_fn`` pads each batch's time axis up to a bucket length (the next
+multiple of ``pad_quantum_ms``) and carries the true lengths, which the
+length-exact model and losses use.  Loading runs in a thread pool (WAV
+reading is file I/O and numpy).  Dynamic mixing is not part of the port yet
+and raises (ROADMAP A13).
+"""
+
+from __future__ import annotations
+
+import itertools
+import queue
+import random
+import threading
+from collections import defaultdict, deque
+from concurrent.futures import ThreadPoolExecutor
+from typing import Iterator
+
+import numpy as np
+
+from urgent2026_challenge_track1_tpu_torch.data.scp import read_kv_scp
+from urgent2026_challenge_track1_tpu_torch.utils import audio_io
+
+__all__ = [
+    "read_audio",
+    "PreSimulatedDataset",
+    "GroupedBatchSampler",
+    "bucket_length",
+    "collate_fn",
+    "PrefetchLoader",
+    "AudioDataModule",
+]
+
+
+def read_audio(path: str):
+    """(channels, T) float64 and fs."""
+    audio, fs = audio_io.read(path)
+    audio = audio[None, :] if audio.ndim == 1 else audio.T
+    return audio, fs
+
+
+class PreSimulatedDataset:
+    """Paired clean/noisy scp dataset with random ``max_duration`` cropping;
+    crops are keyed by (uid, epoch), so a mid-epoch resume reproduces them."""
+
+    def __init__(self, clean_speech, noisy_speech, utt2fs, speech_length, max_duration=-1):
+        self.clean_speech = read_kv_scp(clean_speech)
+        self.noisy_speech = read_kv_scp(noisy_speech)
+        self.utt2fs = {k: int(v) for k, v in read_kv_scp(utt2fs).items()}
+        self.speech_length = {k: int(v) for k, v in read_kv_scp(speech_length).items()}
+        self.uid = list(self.clean_speech.keys())
+        self.max_duration = max_duration
+        self.epoch = 0
+        n = len(self.clean_speech)
+        if not n == len(self.noisy_speech) == len(self.utt2fs) == len(self.speech_length):
+            raise ValueError(f"scp files of {clean_speech} list different utterance counts")
+
+    def get_source_length(self):
+        if self.max_duration > 0:
+            return [min(self.speech_length[k], self.max_duration) for k in self.uid]
+        return [self.speech_length[k] for k in self.uid]
+
+    def get_srs(self):
+        return [self.utt2fs[k] for k in self.uid]
+
+    def __len__(self):
+        return len(self.clean_speech)
+
+    def __getitem__(self, index):
+        uid = self.uid[index]
+        audio, fs = read_audio(self.clean_speech[uid])
+        noisy, nfs = read_audio(self.noisy_speech[uid])
+        if not fs == nfs == self.utt2fs[uid]:
+            raise ValueError(f"{uid}: rates {fs} / {nfs} differ from utt2fs {self.utt2fs[uid]}")
+        if 0 < self.max_duration < audio.shape[1]:
+            rng = random.Random(f"{uid}:{self.epoch}")
+            start = rng.randint(0, audio.shape[1] - self.max_duration)
+            audio = audio[:, start : start + self.max_duration]
+            noisy = noisy[:, start : start + self.max_duration]
+        return audio, noisy, fs, audio.shape[1]
+
+    def set_epoch(self, epoch: int):
+        self.epoch = int(epoch)
+
+
+class GroupedBatchSampler:
+    """Groups by fs, sorts by length, rank-slices, buckets of
+    ``batch_size * bucket_size_mult``, then shuffles bucket order, in-bucket
+    order and batch order with ``random.Random(epoch + rank)``: the JAX
+    package's sampler (and the reference's), so an epoch gives the same
+    batch order in both.  As there, the configured seed does not enter."""
+
+    def __init__(self, dataset, batch_size: int, rank: int = 0, world_size: int = 1,
+                 drop_last: bool = False, bucket_size_mult: int = 100):
+        self.batch_size = batch_size
+        self.drop_last = drop_last
+        self.bucket_size = batch_size * bucket_size_mult
+        self.epoch = 0
+        self.rank = rank
+        sr_groups = defaultdict(list)
+        for idx, sr in enumerate(dataset.get_srs()):
+            sr_groups[sr].append(idx)
+        source_length = dataset.get_source_length()
+        self.buckets = []
+        for indices in sr_groups.values():
+            ordered = sorted(indices, key=lambda x: source_length[x])[rank::world_size]
+            for i in range(0, len(ordered), self.bucket_size):
+                self.buckets.append(ordered[i : i + self.bucket_size])
+
+    def set_epoch(self, epoch: int):
+        self.epoch = epoch
+
+    def __iter__(self) -> Iterator[list[int]]:
+        rng = random.Random(self.epoch + self.rank)
+        buckets = [list(b) for b in self.buckets]
+        rng.shuffle(buckets)
+        all_batches = []
+        for bucket in buckets:
+            rng.shuffle(bucket)
+            for i in range(0, len(bucket), self.batch_size):
+                batch = bucket[i : i + self.batch_size]
+                if len(batch) < self.batch_size and self.drop_last:
+                    continue
+                all_batches.append(batch)
+        rng.shuffle(all_batches)
+        return iter(all_batches)
+
+    def __len__(self):
+        total = 0
+        for bucket in self.buckets:
+            n = len(bucket)
+            total += n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+        return total
+
+
+def bucket_length(T: int, fs: int, pad_quantum_ms: int = 1000) -> int:
+    """Round T up to a bucket boundary of ``pad_quantum_ms`` at rate fs."""
+    if pad_quantum_ms <= 0:
+        return T
+    q = max(1, fs * pad_quantum_ms // 1000)
+    return -(-T // q) * q
+
+
+def collate_fn(batch, pad_quantum_ms: int = 1000):
+    """Right-zero-pad to the batch's bucket length; one fs per batch.
+    Returns (clean (B, 1, T), noisy (B, 1, T), fs, lengths (B,) int32)."""
+    srs = {int(item[2]) for item in batch}
+    if len(srs) != 1:
+        raise ValueError(f"mixed sampling rates {sorted(srs)} in one batch")
+    sr = srs.pop()
+    T = bucket_length(max(item[0].shape[1] for item in batch), sr, pad_quantum_ms)
+
+    def pad(x):
+        # truncate, then pad: a noisy file a few samples longer than its
+        # clean pair gives no negative pad width
+        x = np.asarray(x, np.float32)[:, :T]
+        return np.pad(x, ((0, 0), (0, T - x.shape[1])))
+
+    clean = np.stack([pad(item[0]) for item in batch])
+    noisy = np.stack([pad(item[1]) for item in batch])
+    lengths = np.asarray([item[3] for item in batch], np.int32)
+    return clean, noisy, sr, lengths
+
+
+class _LoaderError:
+    """A producer failure forwarded through the prefetch queue."""
+
+    def __init__(self, exc: BaseException):
+        self.exc = exc
+
+
+class PrefetchLoader:
+    """Thread-pool dataset loader with bounded batch prefetch."""
+
+    def __init__(self, dataset, batch_sampler, num_workers: int = 4,
+                 pad_quantum_ms: int = 1000, prefetch: int = 4):
+        self.dataset = dataset
+        self.batch_sampler = batch_sampler
+        self.num_workers = max(1, num_workers)
+        self.pad_quantum_ms = pad_quantum_ms
+        self.prefetch = prefetch
+
+    def __len__(self):
+        return len(self.batch_sampler)
+
+    def __iter__(self):
+        batches = list(iter(self.batch_sampler))
+        q: queue.Queue = queue.Queue(maxsize=self.prefetch)
+        stop = threading.Event()
+
+        def put_bounded(item) -> bool:
+            # a plain put could block this thread forever once the consumer
+            # has stopped reading
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.5)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def produce():
+            try:
+                with ThreadPoolExecutor(self.num_workers) as pool:
+                    pending: deque = deque()
+                    it = iter(batches)
+                    while not stop.is_set():
+                        for idxs in itertools.islice(it, max(2, self.prefetch) - len(pending)):
+                            pending.append([pool.submit(self.dataset.__getitem__, i)
+                                            for i in idxs])
+                        if not pending:
+                            break
+                        items = [f.result() for f in pending.popleft()]
+                        if not put_bounded(collate_fn(items, self.pad_quantum_ms)):
+                            return
+                put_bounded(None)
+            except BaseException as e:  # a dead producer must not hang the consumer
+                put_bounded(_LoaderError(e))
+
+        t = threading.Thread(target=produce, daemon=True)
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is None:
+                    return
+                if isinstance(item, _LoaderError):
+                    raise RuntimeError("PrefetchLoader producer failed") from item.exc
+                yield item
+        finally:
+            stop.set()
+            t.join(timeout=10)
+
+
+class _SkipSampler:
+    """Skips the first ``skip`` index-batches of a deterministic sampler
+    (mid-epoch resume)."""
+
+    def __init__(self, sampler, skip: int):
+        self.sampler = sampler
+        self.skip = skip
+
+    def __iter__(self):
+        return itertools.islice(iter(self.sampler), self.skip, None)
+
+    def __len__(self):
+        return max(0, len(self.sampler) - self.skip)
+
+
+class AudioDataModule:
+    """Train and validation datasets and loaders from a Config: the
+    pre-simulated branch of the JAX package's module (``spk1.scp``,
+    ``wav.scp``, ``utt2fs``, ``speech_length.scp`` in each set's folder)."""
+
+    def __init__(self, config):
+        if config.train_set_dynamic_mixing:
+            raise NotImplementedError(
+                "train_set_dynamic_mixing=True: dynamic mixing is not ported to "
+                "the PyTorch package yet (ROADMAP A13); use pre-simulated data"
+            )
+        self.batch_size = config.batch_size
+        self.num_worker = config.num_worker
+        self.pad_quantum_ms = config.length_bucket_ms
+        self.train_dataset = self._dataset(config.train_set_path, config.max_duration)
+        self.val_dataset = self._dataset(config.valid_set_path)
+
+    @staticmethod
+    def _dataset(root: str, max_duration: int = -1) -> PreSimulatedDataset:
+        return PreSimulatedDataset(
+            clean_speech=f"{root}/spk1.scp", noisy_speech=f"{root}/wav.scp",
+            utt2fs=f"{root}/utt2fs", speech_length=f"{root}/speech_length.scp",
+            max_duration=max_duration,
+        )
+
+    def train_dataloader(self, rank: int = 0, world_size: int = 1, epoch: int = 0,
+                         skip_batches: int = 0) -> PrefetchLoader:
+        """``skip_batches`` fast-forwards the (deterministic, epoch-seeded)
+        sampler on mid-epoch resume without loading the skipped items."""
+        if world_size != 1:
+            raise NotImplementedError(
+                "multi-process training is not ported yet (ROADMAP A14)")
+        sampler = GroupedBatchSampler(self.train_dataset, batch_size=self.batch_size,
+                                      rank=rank, world_size=world_size, drop_last=True)
+        sampler.set_epoch(epoch)
+        self.train_dataset.set_epoch(epoch)
+        if skip_batches:
+            sampler = _SkipSampler(sampler, skip_batches)
+        return PrefetchLoader(self.train_dataset, sampler, self.num_worker,
+                              self.pad_quantum_ms)
+
+    def val_dataloader(self) -> PrefetchLoader:
+        sampler = GroupedBatchSampler(self.val_dataset, batch_size=self.batch_size,
+                                      drop_last=True)
+        return PrefetchLoader(self.val_dataset, sampler, self.num_worker,
+                              self.pad_quantum_ms)

@@ -31,6 +31,7 @@ from typing import Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from urgent2026_challenge_track1_tpu_torch.dsp import stft as dsp
 from urgent2026_challenge_track1_tpu_torch.ops import lstm as lstm_ops
@@ -90,6 +91,8 @@ class BSRNNConfig:
     norm_eps: float = 1e-8        # espnet choose_norm GN eps
     compute_dtype: str = "float32"  # "bfloat16": matmuls and recurrences in
     #                                 bf16, f32 norms/residual/cell state
+    remat: bool = True            # under autograd, recompute each dual-path
+    #                               layer in the backward pass
 
     @property
     def subbands(self) -> tuple[int, ...]:
@@ -141,9 +144,22 @@ def _maps_on(subbands, n_bins_in, n_bands, device):
             torch.from_numpy(flat_valid).to(device))
 
 
+def _rounded(x: torch.Tensor, dtype) -> torch.Tensor:
+    """x rounded to ``dtype``, as float32: a product of two such operands in
+    float32 (TF32 off, PyTorch's default for matmuls) is exact per term and
+    sums in float32, which is a ``dtype`` x ``dtype`` -> float32 product."""
+    return x.to(dtype).float()
+
+
 def _mm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dtype) -> torch.Tensor:
-    """(..., I) x (I, O) in ``dtype``, result float32 plus the f32 bias."""
-    return (x.to(dtype) @ w.to(dtype)).float() + b
+    """(..., I) x (I, O) of operands rounded to ``dtype``, float32 result
+    plus the f32 bias (JAX: ``preferred_element_type=float32``)."""
+    return _rounded(x, dtype) @ _rounded(w, dtype) + b
+
+
+def _einsum(eq: str, x: torch.Tensor, w: torch.Tensor, dtype) -> torch.Tensor:
+    """``torch.einsum`` of operands rounded to ``dtype``, float32 result."""
+    return torch.einsum(eq, _rounded(x, dtype), _rounded(w, dtype))
 
 
 def _frame_mask4(fm: Optional[torch.Tensor]):
@@ -186,9 +202,8 @@ class BandSplit(nn.Module):
         h = masked_group_norm(blocks, self.norm_scale[:n_bands][None, None],
                               self.norm_bias[:n_bands][None, None], mask,
                               axes=(1, 3), eps=cfg.norm_eps)
-        dt = cfg.dtype
-        z = torch.einsum("btkw,kwc->btkc", h.to(dt), self.w[:n_bands].to(dt))
-        return z.float() + self.b[:n_bands][None, None]
+        z = _einsum("btkw,kwc->btkc", h, self.w[:n_bands], cfg.dtype)
+        return z + self.b[:n_bands][None, None]
 
 
 def _lstm_params(input_size: int, hidden: int) -> nn.ParameterDict:
@@ -283,12 +298,10 @@ class MaskDecoderHead(nn.Module):
         h = (z - mean) / torch.sqrt(var + cfg.norm_eps)
         h = h * self.norm_scale[:n_bands][None, None] + self.norm_bias[:n_bands][None, None]
         dt = cfg.dtype
-        h = torch.einsum("btkc,kcd->btkd", h.to(dt), self.w1[:n_bands].to(dt))
-        h = torch.tanh(h.float() + self.b1[:n_bands][None, None]).to(dt)
-        val = torch.einsum("btkd,kdw->btkw", h, self.wv[:n_bands].to(dt)).float()
-        gate = torch.einsum("btkd,kdw->btkw", h, self.wg[:n_bands].to(dt)).float()
-        val = val + self.bv[:n_bands][None, None]
-        gate = gate + self.bg[:n_bands][None, None]
+        h = torch.tanh(_einsum("btkc,kcd->btkd", h, self.w1[:n_bands], dt)
+                       + self.b1[:n_bands][None, None])
+        val = _einsum("btkd,kdw->btkw", h, self.wv[:n_bands], dt) + self.bv[:n_bands][None, None]
+        gate = _einsum("btkd,kdw->btkw", h, self.wg[:n_bands], dt) + self.bg[:n_bands][None, None]
         out = val * torch.sigmoid(gate) * chan_mask[None, None]
         cplx = out.reshape(B, T, K, cfg.max_sub, 2)
         cplx = torch.complex(cplx[..., 0], cplx[..., 1]).reshape(B, T, K * cfg.max_sub)
@@ -315,8 +328,16 @@ class BSRNN(nn.Module):
         K = band_count(cfg.input_dim, cfg.target_fs, fs, F)
         fm = None if frames is None else dsp.frames_mask(frames, T)
         z = self.band_split(spec, K, fm)
+        remat = cfg.remat and torch.is_grad_enabled()
         for layer in self.layers:
-            z = layer(z, frames, fm)
+            if remat:
+                # reentrant mode: the first pass runs under no_grad on the
+                # lean kernels (K1-K3) and keeps only the layer's input; the
+                # backward recomputes the layer with the training kernels
+                z = checkpoint(layer, z, frames, fm, use_reentrant=True,
+                               preserve_rng_state=False)
+            else:
+                z = layer(z, frames, fm)
         m = self.mask_decoder["mask"](z, K, F, fm)
         r = self.mask_decoder["residual"](z, K, F, fm)
         return m * spec + r

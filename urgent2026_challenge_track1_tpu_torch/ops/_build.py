@@ -36,6 +36,10 @@ _SIGNATURES = {
     "lstm_fusedin_bilstm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "lstm_scan": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "lstm_revmasked": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "lstm_train_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "lstm_revmasked_train_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "lstm_train_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "lstm_revmasked_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 

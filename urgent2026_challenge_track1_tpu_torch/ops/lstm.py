@@ -7,6 +7,11 @@ backward direction; the two biases are summed at apply time.  The
 recurrences go through the kernel wrappers of ``ops/cuda_lstm.py``: hand
 written CUDA kernels for tensors on the card, their plain versions on the
 CPU.  Every function runs in the dtype of ``x``; h and c stay float32.
+
+All three layers are differentiable.  When autograd records, the
+recurrences run the residual-storing training kernels and their backward
+kernels (``LSTMDirTrain``, ``LSTMRevMaskedTrain``); otherwise the lean
+inference kernels.
 """
 
 from __future__ import annotations
@@ -35,14 +40,24 @@ def _w_hh_t(params: Mapping[str, torch.Tensor], sfx: str, dtype) -> torch.Tensor
 def lstm(params: Mapping[str, torch.Tensor], x: torch.Tensor, reverse: bool = False,
          suffix: str = "") -> torch.Tensor:
     """Unidirectional LSTM.  x: (B, T, I) -> (B, T, H)."""
-    return cuda_lstm.lstm_scan(_proj(params, x, suffix).contiguous(),
-                               _w_hh_t(params, suffix, x.dtype), reverse)
+    return cuda_lstm.lstm_dir(_proj(params, x, suffix).contiguous(),
+                              _w_hh_t(params, suffix, x.dtype), reverse)
 
 
 def bilstm(params: Mapping[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     """Bidirectional LSTM.  x: (B, T, I) -> (B, T, 2H), forward ++ backward.
-    One fused-input kernel runs both directions (``fusedin_bilstm``)."""
+
+    Without autograd one fused-input kernel runs both directions
+    (``fusedin_bilstm``).  Under autograd the input projection is hoisted
+    (its gradients are plain GEMMs) and each direction runs ``lstm_dir``, as
+    the VJP of the JAX fused-input kernel does (``_fusedin_fwd``)."""
     dtype = x.dtype
+    if cuda_lstm.needs_grad(x, *params.values()):
+        fwd = cuda_lstm.lstm_dir(_proj(params, x, "").contiguous(),
+                                 _w_hh_t(params, "", dtype), False)
+        bwd = cuda_lstm.lstm_dir(_proj(params, x, "_reverse").contiguous(),
+                                 _w_hh_t(params, "_reverse", dtype), True)
+        return torch.cat([fwd, bwd], dim=-1)
     w_ih_t = torch.stack([params["w_ih"].t(), params["w_ih_reverse"].t()]).to(dtype)
     w_hh_t = torch.stack([params["w_hh"].t(), params["w_hh_reverse"].t()]).to(dtype)
     bias = torch.stack([params["b_ih"] + params["b_hh"],
@@ -70,11 +85,12 @@ def bilstm_masked(params: Mapping[str, torch.Tensor], x: torch.Tensor,
 
     The forward direction is a plain scan (padding follows the valid
     prefix); the backward direction is the reverse walk that zeroes its
-    state at padded steps (``lstm_revmasked``), so no gathers are needed."""
+    state at padded steps (``lstm_dir_revmasked``), so no gathers are
+    needed."""
     dtype = x.dtype
-    fwd = cuda_lstm.lstm_scan(_proj(params, x, "").contiguous(),
-                              _w_hh_t(params, "", dtype), False)
-    bwd = cuda_lstm.lstm_revmasked(_proj(params, x, "_reverse").contiguous(),
-                                   _w_hh_t(params, "_reverse", dtype),
-                                   lengths.to(x.device, torch.int32).contiguous())
+    fwd = cuda_lstm.lstm_dir(_proj(params, x, "").contiguous(),
+                             _w_hh_t(params, "", dtype), False)
+    bwd = cuda_lstm.lstm_dir_revmasked(_proj(params, x, "_reverse").contiguous(),
+                                       _w_hh_t(params, "_reverse", dtype),
+                                       lengths.to(x.device, torch.int32).contiguous())
     return torch.cat([fwd, bwd], dim=-1)

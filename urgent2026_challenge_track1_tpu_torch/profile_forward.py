@@ -1,40 +1,68 @@
-"""Profile one forward of the port on the card: device time by kernel and the
-device's idle share.
+"""Profile one forward, or one train step, of the port on the card: device
+time by kernel and the device's idle share.
 
-    python -m urgent2026_challenge_track1_tpu_torch.profile_forward \\
-        [--batch 64] [--seconds 4] [--fs 48000] [--channels 192] [--lengths 0.925]
+    python -m urgent2026_challenge_track1_tpu_torch.profile_forward \
+        [--batch 64] [--seconds 4] [--fs 48000] [--channels 192] [--lengths 0.925] \
+        [--train] [--dtype bfloat16]
 
-Builds a seeded random model (6 layers, bfloat16 compute), runs one warm-up
-forward, then one forward under ``torch.profiler``.  ``--lengths f`` gives
-every row the length ``f * seconds * fs`` (the length-exact path with the
-masked time recurrence); without it the unmasked path runs.  Prints a table
-of device time per kernel group and, as the last line, a JSON record.  Fails
-if the profiler saw no device time.
+Builds a seeded random model (6 layers, ``--dtype`` compute), runs one
+warm-up, then one forward (or, with ``--train``, one step of the trainer:
+forward, backward, clipping and AdamW) under ``torch.profiler``.
+``--lengths f`` gives every row the length ``f * seconds * fs`` (the
+length-exact path with the masked time recurrence); without it the unmasked
+path runs (a train step always passes lengths, as the trainer does).  Prints
+a table of device time per kernel group and, as the last line, a JSON
+record.  Fails if the profiler saw no device time.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import time
 
 import torch
 
 from urgent2026_challenge_track1_tpu_torch import resolve_device
+from urgent2026_challenge_track1_tpu_torch.config import Config
 from urgent2026_challenge_track1_tpu_torch.dsp.stft import STFTConfig
-from urgent2026_challenge_track1_tpu_torch.models.bsrnn import (
-    BSRNNConfig, bsrnn_se_apply, init_bsrnn)
+from urgent2026_challenge_track1_tpu_torch.models.bsrnn import bsrnn_se_apply
+from urgent2026_challenge_track1_tpu_torch.train import trainer
 
 __all__ = ["main"]
 
 
+def _names(name: str, kernel: str) -> bool:
+    """Whether a device kernel's name, mangled or demangled, is one of ours
+    (``(anonymous namespace)::kernel<...>`` or ``..._<len>kernelI...``), not
+    a library kernel whose name merely ends the same way."""
+    return re.search(rf"(?:::|\d){kernel}[<I]", name) is not None
+
+
+def _flags(name: str, kernel: str) -> list[bool]:
+    """The bool template arguments of a kernel name, mangled (Lb0E / Lb1E)
+    or demangled (false / true), in order."""
+    tail = name[re.search(rf"(?:::|\d){kernel}[<I]", name).end():]
+    found = re.findall(r"Lb([01])E|\b(true|false)\b", tail.split("(")[0])
+    return [m[0] == "1" or m[1] == "true" for m in found]
+
+
 def _group(name: str) -> str:
     """Kernel name -> the port kernel it belongs to, or its own name."""
-    if "fusedin_kernel" in name:
+    if _names(name, "fusedin_kernel"):
         return "K1 fusedin_bilstm"
-    if "recurrence_kernel" in name:
-        masked = "Lb1E" in name or ", true>" in name  # mangled or demangled MASKED
-        return "K3 lstm_revmasked" if masked else "K2 lstm_scan"
+    if _names(name, "recurrence_kernel"):
+        masked, store = _flags(name, "recurrence_kernel")
+        return {(False, False): "K2 lstm_scan", (True, False): "K3 lstm_revmasked",
+                (False, True): "K4 lstm_train_fwd",
+                (True, True): "K6 lstm_revmasked_train_fwd"}[masked, store]
+    if _names(name, "backward_kernel"):
+        masked, = _flags(name, "backward_kernel")
+        return "K7 lstm_revmasked_bwd (walk)" if masked else "K5 lstm_train_bwd (walk)"
+    if _names(name, "dw_kernel"):
+        masked, = _flags(name, "dw_kernel")
+        return "K7 lstm_revmasked_bwd (dW)" if masked else "K5 lstm_train_bwd (dW)"
     return name[:80]
 
 
@@ -57,26 +85,42 @@ def main(argv=None) -> dict:
     p.add_argument("--lengths", type=float, default=None,
                    help="valid fraction of every row (length-exact path)")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--train", action="store_true", help="profile one train step")
+    p.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
     args = p.parse_args(argv)
 
     dev = resolve_device("cuda")
-    model = init_bsrnn(BSRNNConfig(num_channel=args.channels, num_layer=6,
-                                   compute_dtype="bfloat16"), seed=args.seed, device=dev)
+    cfg = Config(model_configs={"num_channel": args.channels, "num_layer": 6},
+                 compute_dtype=args.dtype, seed=args.seed)
+    bundle = trainer.build_model(cfg)
+    model = trainer.init_params(args.seed, bundle, dev)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     n = int(args.seconds * args.fs)
     wav = 0.1 * torch.randn((args.batch, n), generator=gen, device=dev)
     lengths = None
-    if args.lengths is not None:
-        lengths = torch.full((args.batch,), int(args.lengths * n), dtype=torch.int32, device=dev)
+    if args.lengths is not None or args.train:
+        valid = int((args.lengths or 1.0) * n)
+        lengths = torch.full((args.batch,), valid, dtype=torch.int32, device=dev)
+    if args.train:
+        opt = trainer.make_optimizer(cfg, model)
+        train_step = trainer.make_train_step(bundle, cfg, args.fs)
+        clean = 0.8 * wav
+
+        def run():
+            train_step(model, opt, clean, wav, lengths)
+    else:
+        def run():
+            with torch.inference_mode():
+                bsrnn_se_apply(model, STFTConfig(), wav, args.fs, lengths)
+
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.inference_mode():
-        bsrnn_se_apply(model, STFTConfig(), wav, args.fs, lengths)  # warm-up
+    run()  # warm-up
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        run()
         torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            bsrnn_se_apply(model, STFTConfig(), wav, args.fs, lengths)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
+        wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
         raise RuntimeError("torch.profiler recorded no device time")
@@ -91,8 +135,10 @@ def main(argv=None) -> dict:
         print(f"{g:60s} {us / 1e3:10.3f} {us / total:7.1%}")
     record = {
         "device": torch.cuda.get_device_name(0),
+        "what": "train step" if args.train else "forward",
         "geometry": {"batch": args.batch, "seconds": args.seconds, "fs": args.fs,
-                     "channels": args.channels, "lengths": args.lengths},
+                     "channels": args.channels, "lengths": args.lengths,
+                     "dtype": args.dtype},
         "wall_ms_profiled": wall_us / 1e3,
         "device_busy_ms": busy_us / 1e3,
         "device_idle_share": 1.0 - busy_us / wall_us,
