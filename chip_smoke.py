@@ -9,18 +9,31 @@ Phases (any failure exits non-zero; each prints its seconds):
   2. hold every kernel against its plain PyTorch version on the card at the
      main paths' shapes, in float32 (TF32 off) and bfloat16: the inference
      kernels K1-K3, then the training kernels K4-K7 (h, gates, c, dx_proj,
-     dW);
+     dW), at the discriminative width (H = 392) and at the flow model's
+     (H = 768); then K8-K10 at both widths' training shapes, and K9/K10
+     against K4/K5 run per direction (bitwise equal);
   3. drive the inference path through the port's CLI at full width (196
      channels x 6 layers, random seeded weights) on 8-48 kHz WAVs, and the
      training path through the port's ``train_se.run`` (196 x 6, batch 4,
      2 s at 48 kHz, 2 epochs of 2 steps with validation and checkpoints,
-     then a resumed third epoch); check that every kernel of each path ran;
-  4. compare a float32 forward, and one float32 train step's gradients, on
-     the card (kernels) with the same on the CPU (plain versions);
-  5. time each kernel, its plain version and (for K1) cuDNN's LSTM, the
-     end-to-end forward at the JAX bench geometry, and the train step at the
+     then a resumed third epoch); then the flow-matching family: ``train_se.run``
+     with model_type=flowse at 384 x 6 (batch 2, 2 s at 48 kHz, validation
+     with the N = 10 sampler, EMA, a resume) and the inference CLI on its
+     checkpoint with the euler and heun solvers; check that every kernel of
+     each path ran;
+  4. the A/B arms of the two experiment toggles (default, STREAM_INPUT_TRAIN,
+     FUSED_BIDIR_TRAIN, both, in alternating order) on one train step of
+     each family: launches per kernel, loss and gradients against the
+     default arm, step times; K8-K10 run here;
+  5. compare a float32 forward, and one float32 train step's gradients, on
+     the card (kernels) with the same on the CPU (plain versions), for both
+     families;
+  6. time each kernel, its plain version and (for K1) cuDNN's LSTM, the
+     end-to-end forward at the JAX bench geometry, the train step at the
      baseline geometry in float32 and bfloat16 with its peak memory and
-     launches per step.
+     launches per step, K1-K7 at the flow shapes, K8-K10 at the
+     discriminative training shapes, the flow train step and one flow
+     enhancement.
 
 The second line from the end is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or without the port
@@ -55,6 +68,13 @@ BAND_SHAPES = ((401, 34), (804, 34))
 # over 34 bands
 TRAIN_TIME, TRAIN_BAND = (136, 201), (804, 34)
 TRAIN_SECONDS = (2.0, 1.9, 1.8, 1.7)  # one batch of the training phase's data
+# the flow model (conf/models/BSRNN_flowse.yaml): bsrnn_hidden 384, H = 2N;
+# at 48 kHz n_fft 1536, hop 384, K = 48 bands; its training batch B=2 of 2 s
+# buckets (T = 251 frames): time path rows 2 x 48 over 251 frames, band
+# path rows 2 x 251 over 48 bands
+FLOW_N, FLOW_H = 384, 768
+FLOW_TIME, FLOW_BAND = (96, 251), (502, 48)
+FLOW_SECONDS = (2.0, 1.9)  # one batch of the flow training phase's data
 PEAK_BF16_FLOPS = 989e12        # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12            # HBM3
 
@@ -104,14 +124,16 @@ def _lstm_weights(gen, n_in, hid, dtype, device):
     return u(2, n_in, 4 * hid), u(2, hid, 4 * hid), u(2, 4 * hid)
 
 
-def _kernel_inputs(R, T, dtype, device, seed):
-    """Inputs of all three kernels at one shape, and lengths with 1 and T."""
+def _kernel_inputs(R, T, dtype, device, seed, n_in=None, hid=None):
+    """Inputs of all three kernels at one shape (the discriminative widths
+    unless given), and lengths with 1 and T."""
     import torch
 
+    n_in, hid = n_in or N_IN, hid or HID
     gen = torch.Generator().manual_seed(seed)
-    x = (0.3 * torch.randn((R, T, N_IN), generator=gen)).to(device, dtype)
-    w_ih_t, w_hh_t, bias = _lstm_weights(gen, N_IN, HID, dtype, device)
-    xp = (0.3 * torch.randn((R, T, 4 * HID), generator=gen)).to(device, dtype)
+    x = (0.3 * torch.randn((R, T, n_in), generator=gen)).to(device, dtype)
+    w_ih_t, w_hh_t, bias = _lstm_weights(gen, n_in, hid, dtype, device)
+    xp = (0.3 * torch.randn((R, T, 4 * hid), generator=gen)).to(device, dtype)
     lengths = torch.randint(1, T + 1, (R,), generator=gen, dtype=torch.int32)
     lengths[0], lengths[-1] = 1, T
     return x, w_ih_t, w_hh_t, bias, xp, lengths.to(device)
@@ -127,22 +149,23 @@ def _err(a, b, valid=None):
 INFERENCE_KERNELS = ("fusedin_bilstm", "lstm_scan", "lstm_revmasked")
 
 
-def phase_kernels(device):
+def phase_kernels(device, n_in=N_IN, hid=HID, time_shapes=TIME_SHAPES, band_shapes=BAND_SHAPES):
     """max|kernel - plain| per kernel and dtype over the main-path shapes."""
     import torch
     from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
 
     errs = {(k, dt): 0.0 for k in INFERENCE_KERNELS for dt in ("float32", "bfloat16")}
     for dt_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-        for R, T in TIME_SHAPES + BAND_SHAPES:
-            x, w_ih_t, w_hh_t, bias, xp, lengths = _kernel_inputs(R, T, dtype, device, R * 1000 + T)
+        for R, T in time_shapes + band_shapes:
+            x, w_ih_t, w_hh_t, bias, xp, lengths = _kernel_inputs(R, T, dtype, device,
+                                                                  R * 1000 + T, n_in, hid)
             got = K.fusedin_bilstm(x, w_ih_t, w_hh_t, bias)
             ref = K.fusedin_bilstm_plain(x, w_ih_t, w_hh_t, bias)
             torch.cuda.synchronize()
             e = _err(got, ref)
             errs["fusedin_bilstm", dt_name] = max(errs["fusedin_bilstm", dt_name], e)
-            print(f"[kernels] fusedin_bilstm {dt_name} R={R} T={T}: max|d|={e:.3e}")
-            if (R, T) in BAND_SHAPES:
+            print(f"[kernels] fusedin_bilstm {dt_name} R={R} T={T} H={hid}: max|d|={e:.3e}")
+            if (R, T) in band_shapes:
                 continue  # K2/K3 run on the time path only
             for reverse in (False, True):
                 got = K.lstm_scan(xp, w_hh_t[0], reverse)
@@ -171,55 +194,65 @@ def _rel(a, b):
     return float((a - b).abs().max() / (b.abs().max() + 1e-12))
 
 
-def _frames_lengths(R, T, device):
-    """Valid frames of each time-path row for the training batch
-    (TRAIN_SECONDS at 48 kHz, hop 480), each utterance over its bands."""
+def _frames_lengths(R, T, device, seconds=TRAIN_SECONDS, hop=480):
+    """Valid frames of each time-path row for a training batch (``seconds``
+    at 48 kHz, ``hop``), each utterance over its bands."""
     import torch
 
-    frames = [1 + int(sec * 48000) // 480 for sec in TRAIN_SECONDS]
+    frames = [1 + int(sec * 48000) // hop for sec in seconds]
     per_row = torch.tensor(frames, dtype=torch.int32).repeat_interleave(R // len(frames))
     return per_row.clamp(max=T).to(device)
 
 
-def phase_train_kernels(device):
+def _error_table():
+    """{(kernel, dtype): (max abs error, max relative error or None)} and the
+    function that folds one comparison into it; forward kernels measure no
+    relative error, so theirs stays None."""
+    errs = {}
+
+    def note(name, dt_name, e_abs, e_rel=None):
+        old_abs, old_rel = errs.get((name, dt_name), (0.0, None))
+        rel = old_rel if e_rel is None else max(old_rel or 0.0, e_rel)
+        errs[name, dt_name] = (max(old_abs, e_abs), rel)
+
+    return errs, note
+
+
+def phase_train_kernels(device, hid=HID, shapes=(TRAIN_TIME, TRAIN_BAND),
+                        seconds=TRAIN_SECONDS, hop=480):
     """K4-K7 against their plain versions at the training step's shapes:
     max abs error of h, gates, c (forward) and max relative error of dx_proj
     and dW (backward, each run on the plain forward's residuals).  Returns
-    {(kernel, dtype): (abs error, relative error)}."""
+    {(kernel, dtype): (abs error, relative error or None)}."""
     import torch
     from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
 
-    errs = {}
-
-    def note(name, dt_name, e_abs, e_rel):
-        old = errs.get((name, dt_name), (0.0, 0.0))
-        errs[name, dt_name] = (max(old[0], e_abs), max(old[1], e_rel))
-
+    errs, note = _error_table()
     for dt_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-        for R, T in (TRAIN_TIME, TRAIN_BAND):
-            _, _, w_hh_t, _, xp, _ = _kernel_inputs(R, T, dtype, device, R * 7 + T)
+        for R, T in shapes:
+            _, _, w_hh_t, _, xp, _ = _kernel_inputs(R, T, dtype, device, R * 7 + T, hid=hid)
             gen = torch.Generator().manual_seed(R + T)
-            dout = torch.randn((R, T, HID), generator=gen).to(device, dtype)
+            dout = torch.randn((R, T, hid), generator=gen).to(device, dtype)
             for reverse in (False, True):
                 got = K.lstm_train_fwd(xp, w_hh_t[0], reverse)
                 ref = K.lstm_train_fwd_plain(xp, w_hh_t[0], reverse)
                 torch.cuda.synchronize()
-                note("lstm_train_fwd", dt_name, max(_err(g, r) for g, r in zip(got, ref)), 0.0)
+                note("lstm_train_fwd", dt_name, max(_err(g, r) for g, r in zip(got, ref)))
                 got = K.lstm_train_bwd(*ref, dout, w_hh_t[0], reverse)
                 want = K.lstm_train_bwd_plain(*ref, dout, w_hh_t[0], reverse)
                 torch.cuda.synchronize()
                 note("lstm_train_bwd", dt_name, max(_err(g, r) for g, r in zip(got, want)),
                      max(_rel(g, r) for g, r in zip(got, want)))
-            if (R, T) != TRAIN_TIME:
+            if (R, T) != shapes[0]:
                 continue  # K6/K7 run on the time path only
-            lengths = _frames_lengths(R, T, device)
+            lengths = _frames_lengths(R, T, device, seconds, hop)
             valid = torch.arange(T, device=device)[None, :] < lengths[:, None]
             dmask = dout * valid[..., None]
             got = K.lstm_revmasked_train_fwd(xp, w_hh_t[1], lengths)
             ref = K.lstm_revmasked_train_fwd_plain(xp, w_hh_t[1], lengths)
             torch.cuda.synchronize()
             note("lstm_revmasked_train_fwd", dt_name,
-                 max(_err(g, r, valid) for g, r in zip(got, ref)), 0.0)
+                 max(_err(g, r, valid) for g, r in zip(got, ref)))
             got = K.lstm_revmasked_bwd(*ref, lengths, dmask, w_hh_t[1])
             want = K.lstm_revmasked_bwd_plain(*ref, lengths, dmask, w_hh_t[1])
             torch.cuda.synchronize()
@@ -230,7 +263,7 @@ def phase_train_kernels(device):
         tol = BF16_TOL if dt_name == "bfloat16" else (GRAD_TOL if backward else F32_TOL)
         e = e_rel if backward else e_abs
         kind = "max rel|d| (dx_proj, dW)" if backward else "max|d| (h, gates, c)"
-        print(f"[train kernels] {name} {dt_name}: {kind}={e:.3e} (tolerance {tol}), "
+        print(f"[train kernels] {name} {dt_name} H={hid}: {kind}={e:.3e} (tolerance {tol}), "
               f"max|d|={e_abs:.3e}")
         if not e < tol:
             fail(f"{name} {dt_name}: kernel vs plain {e:.3e} >= {tol}")
@@ -404,9 +437,9 @@ def phase_training(workdir: Path):
                  "expected 6, 3")
     finally:
         os.chdir(cwd)
-    for name, n in counts.items():
-        if n <= 0:
-            fail(f"kernel {name} was not launched on the training path")
+    for fn in K.KERNELS[:7]:  # K1-K7; K8-K10 run under the toggles (phase_ab_arms)
+        if counts[fn.__name__] <= 0:
+            fail(f"kernel {fn.__name__} was not launched on the training path")
     return counts
 
 
@@ -510,12 +543,12 @@ def _bound(flops: float, nbytes: float):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def _bounds(R, T, lengths_sum):
+def _bounds(R, T, lengths_sum, n_in=N_IN, hid=HID):
     """Least time (ms) for each kernel's bf16 work at one shape (each input
     byte read once, each output byte written once, the recurrent and input
     products as operations); K3 counts only the valid steps its outputs
     need."""
-    N, H, b = N_IN, HID, 2
+    N, H, b = n_in, hid, 2
     return {
         "fusedin_bilstm": _bound(2 * 2 * R * (N + H) * 4 * H * T,
                                  b * (R * T * N + 2 * (N + H) * 4 * H + 2 * 4 * H
@@ -528,13 +561,13 @@ def _bounds(R, T, lengths_sum):
     }
 
 
-def _train_bounds(R, T, valid_steps):
+def _train_bounds(R, T, valid_steps, hid=HID):
     """Least time (ms) for each training kernel's bf16 work: forward 2 H 4H
     operations per valid (row, step), reading x_proj and W_hh and writing h,
     gates and c; backward 4 H 4H (the dh and dW products), reading gates, c,
     h, dout and W_hh and writing dx_proj and dW in f32.  The masked pair
     (K6, K7) counts the valid steps only, as K3; unmasked valid_steps = R T."""
-    H, b = HID, 2
+    H, b = hid, 2
     out = {}
     for name, n, lens in (("lstm_train_fwd", R * T, 0), ("lstm_train_bwd", R * T, 0),
                           ("lstm_revmasked_train_fwd", valid_steps, 4 * R),
@@ -558,7 +591,7 @@ def _train_batch(device, B=4, fs=48000):
     T = 2 * fs
     clean = torch.zeros((B, T))
     noisy = torch.zeros((B, T))
-    lengths = torch.tensor([int(sec * fs) for sec in TRAIN_SECONDS], dtype=torch.int32)
+    lengths = torch.tensor([int(sec * fs) for sec in TRAIN_SECONDS[:B]], dtype=torch.int32)
     for i, n in enumerate(lengths.tolist()):
         clean[i, :n] = 0.1 * torch.randn(n, generator=gen)
         noisy[i, :n] = clean[i, :n] + 0.05 * torch.randn(n, generator=gen)
@@ -616,7 +649,7 @@ def _row_tile_sweep(device):
     for R in (TIME_SHAPES[0][0], 64 * TIME_SHAPES[0][0]):
         T = TIME_SHAPES[0][1]
         _, _, wh, _, xp, _ = _kernel_inputs(R, T, torch.bfloat16, device, R)
-        picked = chooser(R, 1, device)
+        picked = chooser(R, 1, device, HID)
         for rows in (1, 2, 4, 8):
             K.rows_per_block = lambda *_, r=rows: r
             try:
@@ -684,7 +717,7 @@ def phase_times(device, main_counts, train_counts, errs, train_errs):
                 "name": name, "route": "cuda",
                 "source": f"{PKG}/csrc/lstm_kernels.cu",
                 "replaces": REPLACES[name],
-                "launches": main_counts[name],
+                "launches": main_counts[name], "launches_run": "inference path",
                 "max_abs_err": errs[name, "bfloat16"],
                 "max_abs_err_f32": errs[name, "float32"],
                 "tolerance": BF16_TOL, "tolerance_f32": F32_TOL,
@@ -779,7 +812,7 @@ def _train_kernel_times(device, train_counts, train_errs, per_step):
                     "name": name, "route": "cuda",
                     "source": f"{PKG}/csrc/lstm_kernels.cu",
                     "replaces": REPLACES[name],
-                    "launches": train_counts[name],
+                    "launches": train_counts[name], "launches_run": "training path",
                     "max_abs_err": e_abs, "max_rel_err": e_rel,
                     "max_abs_err_f32": train_errs[name, "float32"][0],
                     "max_rel_err_f32": train_errs[name, "float32"][1],
@@ -794,6 +827,544 @@ def _train_kernel_times(device, train_counts, train_errs, per_step):
     return records
 
 
+# ---------------------------------------------------------------------------
+# K8-K10 against plain (phase 2)
+# ---------------------------------------------------------------------------
+
+NEW_KERNELS = ("lstm_train_fwd_streamin", "lstm_train_fwd2", "lstm_train_bwd2")
+
+
+def phase_new_kernels(device):
+    """K8-K10 against their plain versions at the discriminative training
+    shapes (N = 196, H = 392) and the flow training shapes (N = 384,
+    H = 768), float32 and bfloat16: max abs error of the forward outputs,
+    max relative error of the backward's (each on the plain forward's
+    residuals).  K9 and K10 must equal K4 and K5 run per direction bit for
+    bit.  Returns {(kernel, dtype): (abs error, relative error or None)}."""
+    import torch
+    from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
+
+    errs, note = _error_table()
+    for dt_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        for n_in, hid, shapes in ((N_IN, HID, (TRAIN_TIME, TRAIN_BAND)),
+                                  (FLOW_N, FLOW_H, (FLOW_TIME, FLOW_BAND))):
+            for R, T in shapes:
+                x, w_ih_t, w_hh_t, bias, xp, _ = _kernel_inputs(R, T, dtype, device, R + 3 * T,
+                                                                n_in, hid)
+                gen = torch.Generator().manual_seed(R * 3 + T)
+                xp_b = (0.3 * torch.randn((R, T, 4 * hid), generator=gen)).to(device, dtype)
+                dout = torch.randn((2, R, T, hid), generator=gen).to(device, dtype)
+                for reverse in (False, True):
+                    got = K.lstm_train_fwd_streamin(x, w_ih_t[0], bias[0], w_hh_t[0], reverse)
+                    ref = K.lstm_train_fwd_streamin_plain(x, w_ih_t[0], bias[0], w_hh_t[0],
+                                                          reverse)
+                    torch.cuda.synchronize()
+                    note(NEW_KERNELS[0], dt_name, max(_err(g, r) for g, r in zip(got, ref)))
+                got = K.lstm_train_fwd2(xp, xp_b, w_hh_t[0], w_hh_t[1])
+                ref = K.lstm_train_fwd2_plain(xp, xp_b, w_hh_t[0], w_hh_t[1])
+                single = (*K.lstm_train_fwd(xp, w_hh_t[0], False),
+                          *K.lstm_train_fwd(xp_b, w_hh_t[1], True))
+                torch.cuda.synchronize()
+                note(NEW_KERNELS[1], dt_name, max(_err(g, r) for g, r in zip(got, ref)))
+                if not all(torch.equal(a, b) for a, b in zip(got, single)):
+                    fail(f"lstm_train_fwd2 {dt_name} R={R} T={T}: not bitwise K4 per direction")
+                got = K.lstm_train_bwd2(ref[:3], ref[3:], dout[0], dout[1], w_hh_t[0], w_hh_t[1])
+                want = K.lstm_train_bwd2_plain(ref[:3], ref[3:], dout[0], dout[1], w_hh_t[0],
+                                               w_hh_t[1])
+                single = (*K.lstm_train_bwd(*ref[:3], dout[0], w_hh_t[0], False),
+                          *K.lstm_train_bwd(*ref[3:], dout[1], w_hh_t[1], True))
+                torch.cuda.synchronize()
+                note(NEW_KERNELS[2], dt_name, max(_err(g, r) for g, r in zip(got, want)),
+                     max(_rel(g, r) for g, r in zip(got, want)))
+                if not all(torch.equal(a, b) for a, b in zip(got, single)):
+                    fail(f"lstm_train_bwd2 {dt_name} R={R} T={T}: not bitwise K5 per direction")
+                print(f"[new kernels] {dt_name} R={R} T={T} N={n_in} H={hid}: K9 == K4 x 2 and "
+                      "K10 == K5 x 2 bit for bit")
+    for (name, dt_name), (e_abs, e_rel) in sorted(errs.items()):
+        backward = name.endswith("bwd2")
+        tol = BF16_TOL if dt_name == "bfloat16" else (GRAD_TOL if backward else F32_TOL)
+        e = e_rel if backward else e_abs
+        kind = "max rel|d| (dx_proj, dW)" if backward else "max|d| (h, gates, c)"
+        print(f"[new kernels] {name} {dt_name}: {kind}={e:.3e} (tolerance {tol}), "
+              f"max|d|={e_abs:.3e}")
+        if not e < tol:
+            fail(f"{name} {dt_name}: kernel vs plain {e:.3e} >= {tol}")
+    return errs
+
+
+# ---------------------------------------------------------------------------
+# the flow-matching family (phase 3)
+# ---------------------------------------------------------------------------
+
+FLOW_UTTERANCES = (("f48", 48000, 0.9), ("f16", 16000, 0.8))  # one 1 s bucket each
+
+
+def _flow_config(workdir: Path, **over):
+    from urgent2026_challenge_track1_tpu_torch.config import Config
+
+    base = dict(  # the values of conf/models/BSRNN_flowse.yaml, 2 steps an epoch
+        model_type="flowse", train_set_path=str(workdir / "flow_train"),
+        valid_set_path=str(workdir / "flow_valid"), train_set_dynamic_mixing=False,
+        batch_size=2, num_worker=2, max_duration=96000, learning_rate=1e-4, lr_step_size=1,
+        lr_gamma=0.85, gradient_clip=0.5, weight_decay=1e-6, adam_epsilon=1e-8, seed=20250,
+        save_top_k=5, ema_decay=0.999, bsrnn_hidden=FLOW_N, num_layer=6, device="cuda",
+        num_train_epochs=2, val_check_interval=2, log_every_steps=1, train_tag="chip_smoke",
+        train_name="flow")
+    base.update(over)
+    return Config(**base)
+
+
+def phase_flow_training(workdir: Path):
+    """``train_se.run`` with model_type=flowse at 384 x 6: 2 epochs of 2 steps
+    (B=2, 2 s at 48 kHz) with validation (the N = 10 sampler) and checkpoints
+    every 2 steps, then a run that resumes into a third epoch.  Checks the
+    EMA, the frozen t_proj_w and the resume.  Returns the first run's launch
+    counts and the newest checkpoint."""
+    import torch
+    from urgent2026_challenge_track1_tpu_torch import train_se
+    from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
+    from urgent2026_challenge_track1_tpu_torch.train import trainer
+
+    _write_split(workdir / "flow_train", FLOW_SECONDS + (1.8, 1.7), 20)
+    _write_split(workdir / "flow_valid", (2.0, 1.75), 21)
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        state = train_se.run(_flow_config(workdir))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = K.launch_counts()
+        print(f"[flow training] 2 epochs x 2 steps (+ 2 validations with the sampler, 2 saves) "
+              f"in {seconds:.1f} s, launches {counts}")
+        if (state.step, state.epoch) != (4, 2):
+            fail(f"flow training ended at step {state.step}, epoch {state.epoch}; expected 4, 2")
+        cfg = _flow_config(workdir)
+        init = trainer.init_params(cfg.seed, trainer.build_model(cfg), "cpu").state_dict()
+        params = {k: v.cpu() for k, v in state.model.state_dict().items()}
+        ema = {k: v.cpu() for k, v in state.ema.state_dict().items()}
+        frozen = [k for k in params if k.endswith("t_proj_w")]
+        trained = [k for k in params if k not in frozen]
+        moved = sum(not torch.equal(params[k], init[k]) for k in trained)
+        ema_moved = sum(not torch.equal(ema[k], init[k]) for k in trained)
+        ema_differs = sum(not torch.equal(ema[k], params[k]) for k in trained)
+        print(f"[flow training] of {len(trained)} trained tensors: {moved} moved, EMA moved "
+              f"{ema_moved} and differs from the parameters in {ema_differs}; "
+              f"{len(frozen)} t_proj_w unchanged: "
+              f"{all(torch.equal(params[k], init[k]) for k in frozen)}")
+        if moved < len(trained) // 2 or ema_moved < len(trained) // 2 or ema_differs < moved:
+            fail("flow training: the parameters or the EMA did not move as expected")
+        if not frozen or not all(torch.equal(params[k], init[k]) for k in frozen):
+            fail("flow training changed the frozen t_proj_w")
+        exp = workdir / "exp" / "chip_smoke" / "flow" / "version_0"
+        records = [json.loads(line) for line in (exp / "metrics.jsonl").read_text().splitlines()]
+        train_losses = [r["train_loss"] for r in records if "train_loss" in r]
+        vals = [(r["val_loss"], r.get("val_sisnr")) for r in records if "val_loss" in r]
+        print(f"[flow training] train losses {train_losses}, val (loss, sampler SI-SNR) {vals}")
+        if len(train_losses) != 4 or len(vals) != 2 or None in train_losses + sum(map(list, vals), []):
+            fail("flow training logged missing or non-finite losses")
+        t0 = time.perf_counter()
+        resumed = train_se.run(_flow_config(workdir, num_train_epochs=3))
+        print(f"[flow training] resumed run in {time.perf_counter() - t0:.1f} s: step "
+              f"{resumed.step}, epoch {resumed.epoch}")
+        if (resumed.step, resumed.epoch) != (6, 3):
+            fail(f"the resumed flow run ended at step {resumed.step}, epoch {resumed.epoch}; "
+                 "expected 6, 3")
+    finally:
+        os.chdir(cwd)
+    for fn in K.KERNELS[:7]:
+        if counts[fn.__name__] <= 0:
+            fail(f"kernel {fn.__name__} was not launched on the flow training path")
+    return counts, exp / "checkpoints" / "step_6.pt"
+
+
+def phase_flow_cli(workdir: Path, ckpt: Path):
+    """The port's inference CLI on the flow training's checkpoint (its EMA
+    weights), with the default solver (euler, 15 steps) and with heun (8
+    steps, 16 network calls)."""
+    from urgent2026_challenge_track1_tpu_torch import inference
+    from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
+
+    scp = _write_inputs(workdir, FLOW_UTTERANCES, "flow.scp", 2)
+    K.reset_launch_counts()
+    for name, extra in (("euler", []), ("heun", ["--solver", "heun", "--nfe", "8"])):
+        before = K.launch_counts()
+        out_dir = workdir / f"out_flow_{name}"
+        t0 = time.perf_counter()
+        inference.main(["--input_scp", str(scp), "--ckpt_path", str(ckpt),
+                        "--output_dir", str(out_dir), "--device", "cuda", *extra])
+        seconds = time.perf_counter() - t0
+        _check_outputs(out_dir, FLOW_UTTERANCES)
+        delta = {k: v - before[k] for k, v in K.launch_counts().items() if v - before[k]}
+        print(f"[flow cli] {name}: {len(FLOW_UTTERANCES)} files in {seconds:.2f} s, "
+              f"launches {delta}")
+    counts = K.launch_counts()
+    for name in INFERENCE_KERNELS:
+        if counts[name] <= 0:
+            fail(f"kernel {name} was not launched by the flow inference CLI")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# the A/B arms of the experiment toggles (phase 4)
+# ---------------------------------------------------------------------------
+
+ARMS = {"default": (False, False), "stream": (True, False), "fused": (False, True),
+        "both": (True, True)}
+ARM_ORDER = ("default", "stream", "fused", "both", "both", "fused", "stream", "default")
+AB_LAYERS = 6  # both families' depth in the A/B arms
+
+
+def _ab_model(device, family):
+    """(bundle, cfg, model, batch) of one A/B family: the discriminative
+    baseline (B=4, 2 s buckets at 48 kHz, 196 x 6, bf16; the geometry of
+    scripts/bench_band_fused_ab.py) or the flow model (B=2, 2 s, 384 x 6,
+    float32, the config's dtype)."""
+    import torch
+    from urgent2026_challenge_track1_tpu_torch.train import trainer
+
+    if family == "disc":
+        cfg = _train_config(Path("."), compute_dtype="bfloat16")
+        batch = _train_batch(device)
+    else:
+        cfg = _flow_config(Path("."))
+        clean, noisy, _ = _train_batch(device, B=2)
+        batch = (clean, noisy, torch.tensor([int(s * 48000) for s in FLOW_SECONDS],
+                                            dtype=torch.int32, device=device))
+    bundle = trainer.build_model(cfg)
+    return bundle, cfg, trainer.init_params(cfg.seed, bundle, device), batch
+
+
+def phase_ab_arms(device):
+    """One train step per visit of each arm, arms in alternating order, for
+    each family; the toggles are restored whatever happens.  The launch
+    counts are set to 0 once at the start of the phase: each step's
+    launches are the counts' growth over it, and must be
+    ``TRAIN_LAUNCHES_PER_LAYER`` times the depth.  Returns {family: {arm:
+    {...}}} and the counts read at the end of the phase (its 2 warm-up and
+    16 arm steps)."""
+    import torch
+    from urgent2026_challenge_track1_tpu_torch.models.bsrnn import TRAIN_LAUNCHES_PER_LAYER
+    from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
+    from urgent2026_challenge_track1_tpu_torch.train import trainer
+
+    expected = {arm: {k: v * AB_LAYERS for k, v in per_layer.items()}
+                for arm, per_layer in TRAIN_LAUNCHES_PER_LAYER.items()}
+    out = {}
+    saved = (K.STREAM_INPUT_TRAIN, K.FUSED_BIDIR_TRAIN)
+    K.reset_launch_counts()
+    try:
+        for family in ("disc", "flow"):
+            bundle, cfg, model, batch = _ab_model(device, family)
+            init = {k: v.clone() for k, v in model.state_dict().items()}
+            step = trainer.make_train_step(bundle, cfg, 48000)
+            step(model, trainer.make_optimizer(cfg, model), *batch,
+                 generator=trainer.step_generator(cfg.seed, 0))  # warm-up, default arm
+            arms = {}
+            for arm in ARM_ORDER:
+                K.STREAM_INPUT_TRAIN, K.FUSED_BIDIR_TRAIN = ARMS[arm]
+                model.load_state_dict(init)
+                opt = trainer.make_optimizer(cfg, model)
+                before = K.launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m = step(model, opt, *batch, generator=trainer.step_generator(cfg.seed, 0))
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                counts = {k: v - before[k] for k, v in K.launch_counts().items() if v - before[k]}
+                rec = arms.setdefault(arm, {"ms": [], "launches": counts,
+                                            "loss": float(m["loss"]),
+                                            "grads": [p.grad.float().clone()
+                                                      for p in model.parameters()]})
+                rec["ms"].append(ms)
+                if counts != expected[arm]:
+                    fail(f"{family} {arm}: launches {counts}, expected {expected[arm]}")
+            grads = {arm: rec.pop("grads") for arm, rec in arms.items()}
+            ref = arms["default"]
+            tol = BF16_TOL if cfg.compute_dtype == "bfloat16" else GRAD_TOL
+            for arm, rec in arms.items():
+                rec["median_ms"] = statistics.median(rec["ms"])
+                rec["loss_rel_err"] = abs(rec["loss"] - ref["loss"]) / abs(ref["loss"])
+                rec["grad_rel_err"] = max(_rel(g, r) for g, r in zip(grads[arm], grads["default"])
+                                          if float(r.abs().max()) > 0)
+                print(f"[a/b] {family} {cfg.compute_dtype} {arm}: step {rec['ms']} ms (median "
+                      f"{rec['median_ms']:.1f}), loss {rec['loss']:.6g} (rel d vs default "
+                      f"{rec['loss_rel_err']:.2e}), grads max rel d {rec['grad_rel_err']:.2e}, "
+                      f"launches {rec['launches']}")
+                if not (rec["loss_rel_err"] < tol and rec["grad_rel_err"] < tol):
+                    fail(f"{family} {arm}: loss or gradients differ from the default arm by more "
+                         f"than {tol}")
+            out[family] = {"compute_dtype": cfg.compute_dtype, "arms": arms}
+            del model
+    finally:
+        K.STREAM_INPUT_TRAIN, K.FUSED_BIDIR_TRAIN = saved
+    total = K.launch_counts()
+    print(f"[a/b] launches over the phase: {total}")
+    for name in NEW_KERNELS:
+        if total[name] <= 0:
+            fail(f"kernel {name} was not launched by the A/B arms")
+    return out, total
+
+
+# ---------------------------------------------------------------------------
+# flow card vs CPU (phase 5)
+# ---------------------------------------------------------------------------
+
+
+def phase_flow_card_vs_cpu(device):
+    """The flow vector field's float32 forward and one flow train step's
+    gradients at 384 x 6 on 0.5 s at 16 kHz (B=2, one row shorter), the
+    CFM noise and t fixed: card (kernels) against CPU (plain versions)."""
+    import copy
+
+    import torch
+    from urgent2026_challenge_track1_tpu_torch.dsp import stft as dsp
+    from urgent2026_challenge_track1_tpu_torch.models import bsrnn_flowse as F
+
+    fcfg = F.FlowSEConfig()
+    fs, n = 16000, 8000
+    cpu_model = F.init_flowse(fcfg, seed=9)
+    card_model = copy.deepcopy(cpu_model).to(device)
+    gen = torch.Generator().manual_seed(10)
+    clean = 0.1 * torch.randn((2, n), generator=gen)
+    noisy = clean + 0.05 * torch.randn((2, n), generator=gen)
+    lengths = torch.tensor([n, 6000], dtype=torch.int32)
+    noisy[1, 6000:] = clean[1, 6000:] = 0.0
+    n_fft, _, hop = fcfg.stft_cfg.geometry(fs)
+    y = dsp.stft_encode(noisy, fs, fcfg.stft_cfg)
+    z = F.complex_normal_like(y, gen)
+    t = torch.tensor([0.8, 0.3])
+    frames = dsp.valid_frames(lengths, n_fft, hop)
+    with torch.no_grad():
+        got = F.vector_field(card_model, (y + 0.5 * z).to(device), t.to(device), y.to(device),
+                             fs, frames.to(device)).cpu()
+        ref = F.vector_field(cpu_model, y + 0.5 * z, t, y, fs, frames)
+    valid = dsp.frames_mask(frames, y.shape[1]).bool()
+    err = float((got - ref).abs()[valid].max())
+    print(f"[card vs cpu] flow float32 384x6 vector field, 0.5 s at 16 kHz: max|d|={err:.3e} "
+          f"(tolerance {E2E_TOL}, peak {float(ref.abs().max()):.3f})")
+    if not err < E2E_TOL:
+        fail(f"flow: card and CPU vector fields differ by {err:.3e} >= {E2E_TOL}")
+    for model, dev in ((card_model, device), (cpu_model, torch.device("cpu"))):
+        loss = F.flowse_loss(model, fcfg, clean.to(dev), noisy.to(dev), fs, lengths.to(dev),
+                             noise=z.to(dev), t=t.to(dev))
+        loss.backward()
+    cpu_grads = dict(cpu_model.named_parameters())
+    worst, worst_name = 0.0, ""
+    for name, p in card_model.named_parameters():
+        ref_g = cpu_grads[name].grad
+        if float(ref_g.abs().max()) == 0.0:
+            continue
+        e = _rel(p.grad.cpu(), ref_g)
+        if e > worst:
+            worst, worst_name = e, name
+    print(f"[card vs cpu] flow float32 384x6 train-step gradients: max rel|d|={worst:.3e} "
+          f"({worst_name}; tolerance {E2E_TOL})")
+    if not worst < E2E_TOL:
+        fail(f"flow: card and CPU gradients differ by {worst:.3e} >= {E2E_TOL}")
+    return err, worst
+
+
+# ---------------------------------------------------------------------------
+# flow and new-kernel times (phase 6)
+# ---------------------------------------------------------------------------
+
+
+def _new_kernel_bounds(R, T, n_in, hid):
+    """Least time (ms) of K8-K10's bf16 work: K8 2 R T (N + H) 4H operations,
+    reading x (N wide, not x_proj), W_ih, b and W_hh and writing h, gates and
+    c; K9 and K10 twice the work of K4 and K5, so twice their bounds."""
+    H, N, b = hid, n_in, 2
+    train = _train_bounds(R, T, R * T, hid)
+    (k4_ms, k4_by), (k5_ms, k5_by) = train["lstm_train_fwd"], train["lstm_train_bwd"]
+    return {
+        "lstm_train_fwd_streamin": _bound(
+            2 * R * T * (N + H) * 4 * H,
+            b * (R * T * N + N * 4 * H + 4 * H + H * 4 * H + 2 * R * T * H + R * T * 4 * H)),
+        "lstm_train_fwd2": (2 * k4_ms, k4_by),
+        "lstm_train_bwd2": (2 * k5_ms, k5_by),
+    }
+
+
+def _new_kernel_times(device, ab, ab_counts, new_errs):
+    """K8 at the discriminative time path (R = 136, T = 201; the band path
+    printed beside it) and K9/K10 at its band path (R = 804, T = 34), bf16:
+    kernel, plain version and bound; no PyTorch call computes a
+    residual-storing recurrence, so the library time is none.  ``launches``
+    is the A/B phase's count (one reset, one read), and the launches of one
+    train step are those measured in each family's first visit of each arm."""
+    import torch
+    from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
+
+    bf16 = torch.bfloat16
+    records = []
+    for name, (R, T) in (("lstm_train_fwd_streamin", TRAIN_TIME),
+                         ("lstm_train_fwd_streamin", TRAIN_BAND),
+                         ("lstm_train_fwd2", TRAIN_BAND), ("lstm_train_bwd2", TRAIN_BAND)):
+        x, wi, wh, b, xp, _ = _kernel_inputs(R, T, bf16, device, R + T)
+        xp_b = xp.flip(1).contiguous()
+        res = K.lstm_train_fwd2(xp, xp_b, wh[0], wh[1])
+        dout = (0.1 * torch.randn((2, R, T, HID), device=device)).to(bf16)
+        kern, plain = {
+            "lstm_train_fwd_streamin": (lambda: K.lstm_train_fwd_streamin(x, wi[0], b[0], wh[0]),
+                                        lambda: K.lstm_train_fwd_streamin_plain(x, wi[0], b[0],
+                                                                                wh[0])),
+            "lstm_train_fwd2": (lambda: K.lstm_train_fwd2(xp, xp_b, wh[0], wh[1]),
+                                lambda: K.lstm_train_fwd2_plain(xp, xp_b, wh[0], wh[1])),
+            "lstm_train_bwd2": (lambda: K.lstm_train_bwd2(res[:3], res[3:], dout[0], dout[1],
+                                                          wh[0], wh[1]),
+                                lambda: K.lstm_train_bwd2_plain(res[:3], res[3:], dout[0],
+                                                                dout[1], wh[0], wh[1])),
+        }[name]
+        with torch.no_grad():
+            ms = _time_ms(kern)
+            plain_ms = _time_ms(plain, reps=3, warmup=1)
+        bound_ms, bound_by = _new_kernel_bounds(R, T, N_IN, HID)[name]
+        print(f"[times] {name} R={R} T={T} bf16: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"library none, bound {bound_ms:.4f} ms ({bound_by})")
+        if name == "lstm_train_fwd_streamin" and (R, T) != TRAIN_TIME:
+            continue
+        e_abs, e_rel = new_errs[name, "bfloat16"]
+        records.append({
+            "name": name, "route": "cuda", "source": f"{PKG}/csrc/lstm_kernels.cu",
+            "replaces": REPLACES[name], "launches": ab_counts[name],
+            "launches_run": "a/b arms phase",
+            "max_abs_err": e_abs, "max_rel_err": e_rel,
+            "max_abs_err_f32": new_errs[name, "float32"][0],
+            "max_rel_err_f32": new_errs[name, "float32"][1],
+            "tolerance": BF16_TOL,
+            "tolerance_f32": GRAD_TOL if name.endswith("bwd2") else F32_TOL,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "shape": {"R": R, "T": T, "N": N_IN, "H": HID},
+            "dtype": "bfloat16",
+            "launches_per_train_step": {
+                family: {arm: rec["launches"].get(name, 0) for arm, rec in fam["arms"].items()}
+                for family, fam in ab.items()},
+        })
+        del x, wi, wh, b, xp, xp_b, res, dout
+    return records
+
+
+def _flow_kernel_times(device, records, flow_counts, wide_errs, wide_train_errs):
+    """K1-K7 at the flow training shapes (N = 384, H = 768), bf16: kernel,
+    plain version and bound, added to the K1-K7 records as flow_* keys."""
+    import torch
+    from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
+
+    bf16 = torch.bfloat16
+    (tR, tT), (bR, bT) = FLOW_TIME, FLOW_BAND
+    xb, wi, wh, b, _, _ = _kernel_inputs(bR, bT, bf16, device, 31, FLOW_N, FLOW_H)
+    _, _, _, _, xp, _ = _kernel_inputs(tR, tT, bf16, device, 32, FLOW_N, FLOW_H)
+    lengths = _frames_lengths(tR, tT, device, FLOW_SECONDS, 384)
+    res = K.lstm_train_fwd(xp, wh[0])
+    res_m = K.lstm_revmasked_train_fwd(xp, wh[1], lengths)
+    dout = (0.1 * torch.randn((tR, tT, FLOW_H), device=device)).to(bf16)
+    valid = int(lengths.sum())
+    timed = {
+        "fusedin_bilstm": (lambda: K.fusedin_bilstm(xb, wi, wh, b),
+                           lambda: K.fusedin_bilstm_plain(xb, wi, wh, b), (bR, bT)),
+        "lstm_scan": (lambda: K.lstm_scan(xp, wh[0]), lambda: K.lstm_scan_plain(xp, wh[0]),
+                      (tR, tT)),
+        "lstm_revmasked": (lambda: K.lstm_revmasked(xp, wh[1], lengths),
+                           lambda: K.lstm_revmasked_plain(xp, wh[1], lengths), (tR, tT)),
+        "lstm_train_fwd": (lambda: K.lstm_train_fwd(xp, wh[0]),
+                           lambda: K.lstm_train_fwd_plain(xp, wh[0]), (tR, tT)),
+        "lstm_train_bwd": (lambda: K.lstm_train_bwd(*res, dout, wh[0]),
+                           lambda: K.lstm_train_bwd_plain(*res, dout, wh[0]), (tR, tT)),
+        "lstm_revmasked_train_fwd": (lambda: K.lstm_revmasked_train_fwd(xp, wh[1], lengths),
+                                     lambda: K.lstm_revmasked_train_fwd_plain(xp, wh[1], lengths),
+                                     (tR, tT)),
+        "lstm_revmasked_bwd": (lambda: K.lstm_revmasked_bwd(*res_m, lengths, dout, wh[1]),
+                               lambda: K.lstm_revmasked_bwd_plain(*res_m, lengths, dout, wh[1]),
+                               (tR, tT)),
+    }
+    bounds = {**_bounds(bR, bT, 0, FLOW_N, FLOW_H),
+              **_train_bounds(tR, tT, valid, FLOW_H)}
+    bounds.update({k: v for k, v in _bounds(tR, tT, valid, FLOW_N, FLOW_H).items()
+                   if k != "fusedin_bilstm"})
+    by_name = {rec["name"]: rec for rec in records}
+    with torch.no_grad():
+        for name, (kern, plain, (R, T)) in timed.items():
+            ms = _time_ms(kern, reps=3, warmup=1)
+            plain_ms = _time_ms(plain, reps=1, warmup=1)
+            bound_ms, bound_by = bounds[name]
+            errs = wide_errs if name in INFERENCE_KERNELS else wide_train_errs
+            e = errs[name, "bfloat16"]
+            by_name[name].update({
+                "flow_ms": ms, "flow_plain_ms": plain_ms, "flow_bound_ms": bound_ms,
+                "flow_bound_by": bound_by, "flow_launches": flow_counts[name],
+                "flow_shape": {"R": R, "T": T, "N": FLOW_N, "H": FLOW_H},
+                "flow_max_abs_err": e if name in INFERENCE_KERNELS else e[0],
+            })
+            print(f"[times] {name} flow R={R} T={T} H={FLOW_H} bf16: kernel {ms:.3f} ms, plain "
+                  f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+
+
+def _flow_step_and_enhance_times(device):
+    """The flow train step (B=2, 2 s at 48 kHz, 384 x 6) in float32 and
+    bfloat16: median of 3 after 1 warm-up, peak memory, launches per step;
+    then one enhancement (B=1, 4 s at 48 kHz, N = 15 euler, bf16 as the
+    inference loader runs it on the card)."""
+    import torch
+    from urgent2026_challenge_track1_tpu_torch.models import bsrnn_flowse as F
+    from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
+    from urgent2026_challenge_track1_tpu_torch.train import trainer
+
+    out = {}
+    for compute_dtype in ("float32", "bfloat16"):
+        cfg = _flow_config(Path("."), compute_dtype=compute_dtype)
+        bundle = trainer.build_model(cfg)
+        model = trainer.init_params(cfg.seed, bundle, device)
+        opt = trainer.make_optimizer(cfg, model)
+        step = trainer.make_train_step(bundle, cfg, 48000)
+        clean, noisy, _ = _train_batch(device, B=2)
+        lengths = torch.tensor([int(s * 48000) for s in FLOW_SECONDS], dtype=torch.int32,
+                               device=device)
+        K.reset_launch_counts()
+        step(model, opt, clean, noisy, lengths, generator=trainer.step_generator(cfg.seed, 0))
+        per_step = {k: v for k, v in K.launch_counts().items() if v}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for i in range(3):
+            t0 = time.perf_counter()
+            m = step(model, opt, clean, noisy, lengths,
+                     generator=trainer.step_generator(cfg.seed, i + 1))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if m["nan_grad"]:
+                fail("the timed flow train step hit a non-finite gradient")
+        out[compute_dtype] = {"median_ms": statistics.median(times), "ms": times,
+                              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                              "launches_per_step": per_step}
+        print(f"[times] flow train step {compute_dtype} (B=2, 2 s at 48 kHz, 384x6): median "
+              f"{out[compute_dtype]['median_ms']:.1f} ms of {[round(t, 1) for t in times]}, "
+              f"peak {out[compute_dtype]['peak_memory_gb']:.2f} GB, launches per step "
+              f"{per_step}")
+        del model, opt
+    fcfg = F.FlowSEConfig(compute_dtype="bfloat16")
+    model = F.init_flowse(fcfg, seed=11, device=device).eval()
+    wav = 0.1 * torch.randn((1, 4 * 48000), device=device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    with torch.inference_mode():
+        K.reset_launch_counts()
+        F.flowse_enhance(model, fcfg, wav, 48000, N=15, generator=gen)
+        launches = {k: v for k, v in K.launch_counts().items() if v}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = F.flowse_enhance(model, fcfg, wav, 48000, N=15, generator=gen)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    if not bool(torch.isfinite(y).all()) or y.shape != wav.shape:
+        fail("the timed flow enhancement is not finite or has the wrong shape")
+    out["enhance"] = {"ms": ms, "B": 1, "seconds": 4, "fs": 48000, "N": 15, "solver": "euler",
+                      "dtype": "bfloat16", "launches": launches}
+    print(f"[times] flow enhance B=1, 4 s at 48 kHz, N=15 euler, 384x6 bf16: {ms:.1f} ms "
+          f"(RTF {4 / (ms / 1e3):.2f}x real time), launches {launches}")
+    return out
+
+
 REPLACES = {
     "fusedin_bilstm": "urgent2026_challenge_track1_tpu/ops/pallas_lstm.py:196",
     "lstm_scan": "urgent2026_challenge_track1_tpu/ops/pallas_lstm.py:82",
@@ -802,6 +1373,9 @@ REPLACES = {
     "lstm_train_bwd": "urgent2026_challenge_track1_tpu/ops/pallas_lstm.py:647",
     "lstm_revmasked_train_fwd": "urgent2026_challenge_track1_tpu/ops/pallas_lstm.py:1105",
     "lstm_revmasked_bwd": "urgent2026_challenge_track1_tpu/ops/pallas_lstm.py:1189",
+    "lstm_train_fwd_streamin": "urgent2026_challenge_track1_tpu/ops/pallas_lstm.py:491",
+    "lstm_train_fwd2": "urgent2026_challenge_track1_tpu/ops/pallas_lstm.py:765",
+    "lstm_train_bwd2": "urgent2026_challenge_track1_tpu/ops/pallas_lstm.py:865",
 }
 
 
@@ -830,12 +1404,26 @@ def main() -> int:
     timed("build", phase_build)
     errs = timed("inference kernels", phase_kernels, device)
     train_errs = timed("training kernels", phase_train_kernels, device)
+    wide_errs = timed("inference kernels H=768", phase_kernels, device, FLOW_N, FLOW_H,
+                      (FLOW_TIME,), (FLOW_BAND,))
+    wide_train_errs = timed("training kernels H=768", phase_train_kernels, device, FLOW_H,
+                            (FLOW_TIME, FLOW_BAND), FLOW_SECONDS, 384)
+    new_errs = timed("K8-K10", phase_new_kernels, device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=REPO) as tmp:
         counts = timed("inference path", phase_main_path, Path(tmp))
         train_counts = timed("training path", phase_training, Path(tmp))
+        flow_counts, flow_ckpt = timed("flow training path", phase_flow_training, Path(tmp))
+        timed("flow inference path", phase_flow_cli, Path(tmp), flow_ckpt)
+    ab, ab_counts = timed("a/b arms", phase_ab_arms, device)
     timed("card vs cpu forward", phase_card_vs_cpu, device)
     timed("card vs cpu gradients", phase_grads_card_vs_cpu, device)
+    timed("flow card vs cpu", phase_flow_card_vs_cpu, device)
     records = timed("times", phase_times, device, counts, train_counts, errs, train_errs)
+    records += timed("times K8-K10", _new_kernel_times, device, ab, ab_counts, new_errs)
+    timed("times K1-K7 flow shapes", _flow_kernel_times, device, records, flow_counts,
+          wide_errs, wide_train_errs)
+    flow_times = timed("times flow", _flow_step_and_enhance_times, device)
+    print("[times] " + json.dumps({"ab_arms": ab, "flow": flow_times}))
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(gpu_name_and_power())
     print(json.dumps({"kernels": records}))

@@ -69,7 +69,10 @@ def test_numpy_tree_round_trip():
 
 
 def test_flow_checkpoint_is_refused(tmp_path):
+    """A FlowSE checkpoint loads (tests/test_torch_flowse.py); one whose EMA
+    record does not match its parameters is refused, not half applied."""
     path = tmp_path / "flow.ckpt"
-    torch.save({"state_dict": {"dnn.condition_fc.bias": torch.zeros(4)}}, path)
-    with pytest.raises(NotImplementedError, match="flow-matching"):
+    torch.save({"state_dict": {"dnn.condition_fc.bias": torch.zeros(4)},
+                "ema": {"shadow_params": [torch.zeros(4)] * 2}}, path)
+    with pytest.raises(ValueError, match="EMA shadow_params"):
         tckpt.load_model_for_inference(str(path), device="cpu")

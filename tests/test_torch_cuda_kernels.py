@@ -36,8 +36,9 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _t(rng, dev, dtype, *shape):
-    return torch.from_numpy((0.3 * rng.standard_normal(shape)).astype(np.float32)).to(dev, dtype)
+def _t(rng, dev, dtype, *shape, scale=0.3):
+    return torch.from_numpy((scale * rng.standard_normal(shape)).astype(np.float32)).to(
+        dev, dtype)
 
 
 def _lengths(dev):
@@ -149,7 +150,8 @@ def test_autograd_functions_launch_the_training_kernels(dev):
         cuda_lstm.lstm_dir_revmasked(x2, w2, lengths)
     assert cuda_lstm.launch_counts() == {
         "fusedin_bilstm": 0, "lstm_scan": 1, "lstm_revmasked": 1, "lstm_train_fwd": 1,
-        "lstm_train_bwd": 1, "lstm_revmasked_train_fwd": 1, "lstm_revmasked_bwd": 1}
+        "lstm_train_bwd": 1, "lstm_revmasked_train_fwd": 1, "lstm_revmasked_bwd": 1,
+        "lstm_train_fwd_streamin": 0, "lstm_train_fwd2": 0, "lstm_train_bwd2": 0}
     ref = xp.cpu().clone().requires_grad_()
     cuda_lstm.lstm_dir(ref, wh.cpu(), True).backward(dout.cpu())
     assert _rel(x1.grad.cpu(), ref.grad) < 1e-3
@@ -179,9 +181,9 @@ def test_wrappers_reject_bad_inputs(dev):
         cuda_lstm.lstm_scan(xp, wh.cpu())
     with pytest.raises(TypeError):
         cuda_lstm.lstm_revmasked(xp, wh, _lengths(dev).long())
-    big = _t(rng, dev, torch.float32, 2, 3, 4 * 520)
+    big = _t(rng, dev, torch.float32, 2, 3, 4 * 1040)
     with pytest.raises(ValueError):
-        cuda_lstm.lstm_scan(big, _t(rng, dev, torch.float32, 520, 4 * 520))
+        cuda_lstm.lstm_scan(big, _t(rng, dev, torch.float32, 1040, 4 * 1040))
 
 
 def test_small_forward_card_matches_cpu(dev):
@@ -205,3 +207,128 @@ def test_small_forward_card_matches_cpu(dev):
     assert set(inference.values()) == {2} and set(counts.values()) == {0}  # one per layer
     for b, n in enumerate(lengths.tolist()):
         assert _err(got[b, :n].cpu(), ref[b, :n]) < 1e-4
+
+
+# --- H = 768 (two units per thread), the flow model's width ---------------
+
+RW, TW, NW, HW = 5, 6, 48, 768
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_kernels_match_plain(dev, dtype, rows):
+    """K1-K7 at H = 768 against their plain versions, every row tile."""
+    rng = np.random.default_rng(10)
+    x, wi, wh, b = (_t(rng, dev, dtype, RW, TW, NW), _t(rng, dev, dtype, 2, NW, 4 * HW),
+                    _t(rng, dev, dtype, 2, HW, 4 * HW), _t(rng, dev, dtype, 2, 4 * HW))
+    xp, dout = _t(rng, dev, dtype, RW, TW, 4 * HW), _t(rng, dev, dtype, RW, TW, HW)
+    lengths = torch.tensor([1, TW, 3, 4, 2], dtype=torch.int32, device=dev)
+    valid = torch.arange(TW, device=dev)[None, :] < lengths[:, None]
+    tol, grad_tol = TOLS[dtype], (1e-3 if dtype == torch.float32 else TOLS[dtype])
+    assert _err(cuda_lstm.fusedin_bilstm(x, wi, wh, b),
+                cuda_lstm.fusedin_bilstm_plain(x, wi, wh, b)) < tol
+    assert _err(cuda_lstm.lstm_scan(xp, wh[0], True),
+                cuda_lstm.lstm_scan_plain(xp, wh[0], True)) < tol
+    assert _err(cuda_lstm.lstm_revmasked(xp, wh[1], lengths)[valid],
+                cuda_lstm.lstm_revmasked_plain(xp, wh[1], lengths)[valid]) < tol
+    ref = cuda_lstm.lstm_train_fwd_plain(xp, wh[0])
+    for g, r in zip(cuda_lstm.lstm_train_fwd(xp, wh[0]), ref):
+        assert _err(g, r) < tol
+    for g, r in zip(cuda_lstm.lstm_train_bwd(*ref, dout, wh[0]),
+                    cuda_lstm.lstm_train_bwd_plain(*ref, dout, wh[0])):
+        assert _rel(g, r) < grad_tol
+    ref = cuda_lstm.lstm_revmasked_train_fwd_plain(xp, wh[1], lengths)
+    for g, r in zip(cuda_lstm.lstm_revmasked_train_fwd(xp, wh[1], lengths), ref):
+        assert _err(g[valid], r[valid]) < tol
+    dmask = dout * valid[..., None]
+    for g, r in zip(cuda_lstm.lstm_revmasked_bwd(*ref, lengths, dmask, wh[1]),
+                    cuda_lstm.lstm_revmasked_bwd_plain(*ref, lengths, dmask, wh[1])):
+        assert _rel(g, r) < grad_tol
+
+
+# --- K8-K10 --------------------------------------------------------------
+
+
+@pytest.mark.parametrize("hid", [H, HW])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_streamin_matches_plain(dev, dtype, reverse, hid, rows):
+    rng = np.random.default_rng(11)
+    w = hid ** -0.5  # the LSTM init's scale: 4H-wide sums of N + H products
+    x, wi = _t(rng, dev, dtype, R, T, N), _t(rng, dev, dtype, N, 4 * hid, scale=w)
+    b, wh = _t(rng, dev, dtype, 4 * hid, scale=w), _t(rng, dev, dtype, hid, 4 * hid, scale=w)
+    got = cuda_lstm.lstm_train_fwd_streamin(x, wi, b, wh, reverse)
+    ref = cuda_lstm.lstm_train_fwd_streamin_plain(x, wi, b, wh, reverse)
+    for g, r in zip(got, ref):
+        assert g.dtype == dtype and g.shape == r.shape and _err(g, r) < TOLS[dtype]
+
+
+def _two_directions(rng, dev, dtype, hid):
+    return (_t(rng, dev, dtype, R, T, 4 * hid), _t(rng, dev, dtype, R, T, 4 * hid),
+            _t(rng, dev, dtype, hid, 4 * hid), _t(rng, dev, dtype, hid, 4 * hid),
+            _t(rng, dev, dtype, R, T, hid), _t(rng, dev, dtype, R, T, hid))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_bidir_matches_plain(dev, dtype, rows):
+    rng = np.random.default_rng(12)
+    xf, xb, wf, wb, df, db = _two_directions(rng, dev, dtype, H)
+    ref = cuda_lstm.lstm_train_fwd2_plain(xf, xb, wf, wb)
+    for g, r in zip(cuda_lstm.lstm_train_fwd2(xf, xb, wf, wb), ref):
+        assert _err(g, r) < TOLS[dtype]
+    grad_tol = 1e-3 if dtype == torch.float32 else TOLS[dtype]
+    got = cuda_lstm.lstm_train_bwd2(ref[:3], ref[3:], df, db, wf, wb)
+    want = cuda_lstm.lstm_train_bwd2_plain(ref[:3], ref[3:], df, db, wf, wb)
+    for g, r in zip(got, want):
+        assert _rel(g, r) < grad_tol
+
+
+@pytest.mark.parametrize("hid", [H, HW])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_bidir_equals_per_direction_bitwise(dev, dtype, hid):
+    """K9 = K4 forward + K4 reverse and K10 = K5 per direction, bit for bit
+    (the same device code), at the wrapper's own row tiles."""
+    rng = np.random.default_rng(13)
+    xf, xb, wf, wb, df, db = _two_directions(rng, dev, dtype, hid)
+    fused = cuda_lstm.lstm_train_fwd2(xf, xb, wf, wb)
+    single = (*cuda_lstm.lstm_train_fwd(xf, wf, False), *cuda_lstm.lstm_train_fwd(xb, wb, True))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(fused, single))
+    fused = cuda_lstm.lstm_train_bwd2(single[:3], single[3:], df, db, wf, wb)
+    single = (*cuda_lstm.lstm_train_bwd(*single[:3], df, wf, False),
+              *cuda_lstm.lstm_train_bwd(*single[3:], db, wb, True))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(fused, single))
+
+
+@pytest.mark.parametrize("stream,fused,expect", [
+    (False, False, {"lstm_train_fwd": 2, "lstm_train_bwd": 2}),
+    (False, True, {"lstm_train_fwd2": 1, "lstm_train_bwd2": 1}),
+    (True, False, {"lstm_train_fwd_streamin": 2, "lstm_train_bwd": 2}),
+    (True, True, {"lstm_train_fwd_streamin": 2, "lstm_train_bwd": 2}),
+])
+def test_bilstm_train_follows_the_toggles(dev, monkeypatch, stream, fused, expect):
+    """BiLSTMTrain's launches under each toggle setting, and its gradients
+    against the CPU (plain versions)."""
+    from urgent2026_challenge_track1_tpu_torch.ops import lstm as tlstm
+
+    monkeypatch.setattr(cuda_lstm, "STREAM_INPUT_TRAIN", stream)
+    monkeypatch.setattr(cuda_lstm, "FUSED_BIDIR_TRAIN", fused)
+    rng = np.random.default_rng(14)
+    names = [f"{w}{s}" for s in ("", "_reverse") for w in ("w_ih", "w_hh", "b_ih", "b_hh")]
+    shapes = {"w_ih": (4 * H, N), "w_hh": (4 * H, H), "b_ih": (4 * H,), "b_hh": (4 * H,)}
+    params = {k: torch.from_numpy((0.2 * rng.standard_normal(shapes[k.split("_r")[0]])
+                                   ).astype(np.float32)) for k in names}
+    x = torch.from_numpy((0.5 * rng.standard_normal((R, T, N))).astype(np.float32))
+    cot = torch.from_numpy(rng.standard_normal((R, T, 2 * H)).astype(np.float32))
+    grads = []
+    for device in (dev, torch.device("cpu")):
+        tp = {k: v.to(device).requires_grad_() for k, v in params.items()}
+        xt = x.to(device).requires_grad_()
+        cuda_lstm.reset_launch_counts()
+        tlstm.bilstm(tp, xt).backward(cot.to(device))
+        if device == dev:
+            counts = {k: v for k, v in cuda_lstm.launch_counts().items() if v}
+            assert counts == expect
+        grads.append([xt.grad.cpu()] + [tp[k].grad.cpu() for k in names])
+    for g, r in zip(*grads):
+        assert _rel(g, r) < 1e-3

@@ -40,6 +40,32 @@ def test_importing_every_module_loads_no_jax():
     assert {PKG + ".inference", PKG + ".train_se", PKG + ".train.trainer"} <= set(loaded)
 
 
+def test_flow_family_imports_no_jax():
+    """The flow-matching modules and the entry points' flow branches (trainer,
+    checkpoint loader, serving) run a flow model without loading JAX."""
+    code = (
+        "import json, sys, torch\n"
+        f"from {PKG}.models import bsrnn_flowse as F\n"
+        f"from {PKG}.sampling import sample_flow\n"
+        f"from {PKG}.models.odes import FlowMatching\n"
+        f"from {PKG}.serving import make_enhance_fn\n"
+        f"from {PKG}.train import trainer\n"
+        f"from {PKG}.config import Config\n"
+        "cfg = F.FlowSEConfig(n_fft=960, hop_length=480, bsrnn_hidden=4, num_layer=1)\n"
+        "model = F.init_flowse(cfg, seed=0)\n"
+        "enhance = make_enhance_fn('flowse', model, cfg, cfg.stft_cfg, nfe=2)\n"
+        "out = enhance(torch.zeros((1, 800)) + 0.1, 8000, None)\n"
+        "bundle = trainer.build_model(Config(model_type='flowse', bsrnn_hidden=4, num_layer=1))\n"
+        "assert bundle.kind == 'flowse' and out.shape == (1, 800)\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, check=True)
+    loaded = json.loads(out.stdout.splitlines()[-1])
+    assert not [m for m in loaded if m.split(".")[0] in FORBIDDEN]
+    assert {PKG + ".models.odes", PKG + ".sampling", PKG + ".models.bsrnn_flowse"} <= set(loaded)
+
+
 def test_sources_import_no_jax():
     for path in (REPO / PKG).rglob("*.py"):
         for node in ast.walk(ast.parse(path.read_text())):

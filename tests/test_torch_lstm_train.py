@@ -161,12 +161,12 @@ def test_bilstm_grads_match_bilstm_pallas_train():
 
 def test_bilstm_without_grad_stays_on_the_fused_kernel(monkeypatch):
     """Routing: outside autograd the band path runs K1's wrapper, under
-    autograd the two per-direction training Functions."""
+    autograd the bidirectional training Function (``BiLSTMTrain``)."""
     calls = []
     monkeypatch.setattr(cuda_lstm, "fusedin_bilstm",
                         lambda *a: calls.append("k1") or cuda_lstm.fusedin_bilstm_plain(*a))
-    monkeypatch.setattr(cuda_lstm.LSTMDirTrain, "apply",
-                        lambda *a: calls.append("train") or cuda_lstm.lstm_scan_plain(*a))
+    monkeypatch.setattr(cuda_lstm.BiLSTMTrain, "apply",
+                        lambda *a: calls.append("train") or torch.zeros(()))
     jp = jlstm.init_lstm(jax.random.PRNGKey(6), N, H, bidirectional=True)
     tp = {k: _t(v).requires_grad_() for k, v in jp.items()}
     x = _t(np.random.default_rng(6).standard_normal((B, T, N)))
@@ -174,4 +174,4 @@ def test_bilstm_without_grad_stays_on_the_fused_kernel(monkeypatch):
         tlstm.bilstm(tp, x)
     assert calls == ["k1"]
     tlstm.bilstm(tp, x)
-    assert calls == ["k1", "train", "train"]
+    assert calls == ["k1", "train"]

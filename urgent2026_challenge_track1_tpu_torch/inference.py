@@ -56,10 +56,11 @@ def _enhance_bucketed(enhance, wavs, lengths, bucket: int, fs: int, device) -> n
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    kind, model, _, stft_cfg = load_model_for_inference(args.ckpt_path, args.device)
+    kind, model, model_cfg, stft_cfg = load_model_for_inference(args.ckpt_path, args.device)
     device = next(model.parameters()).device
     print(f"Loaded {kind} model from {args.ckpt_path} on {device}")
-    enhance = make_enhance_fn(kind, model, stft_cfg)
+    enhance = make_enhance_fn(kind, model, model_cfg, stft_cfg, nfe=args.nfe,
+                              solver=args.solver)
 
     input_audios = {}
     with open(args.input_scp) as f:
@@ -130,16 +131,18 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--output_dir", "--output", type=str, default="./tmp/se",
                         help="Output directory for enhanced speech")
     parser.add_argument("--ckpt_path", type=str, required=True,
-                        help="Reference Lightning .ckpt or a file from "
-                             "utils.checkpoint.save_model")
+                        help="Reference Lightning .ckpt (SEModel or "
+                             "FlowSEModel), a file from "
+                             "utils.checkpoint.save_model or a checkpoint "
+                             "of the port's trainer")
     parser.add_argument("--device", type=str, default="cuda",
                         help="'cuda' (default) or 'cpu'")
     parser.add_argument("--batch_size", type=int, default=1,
                         help=">1 groups utterances by (fs, length bucket) "
                              "and enhances them in batches")
     parser.add_argument("--nfe", type=int, default=15,
-                        help="flow-model sampler steps; flow-matching "
-                             "checkpoints are not supported by the port yet")
+                        help="flow-model sampler steps (ignored by the "
+                             "discriminative model)")
     parser.add_argument("--solver", type=str, default="euler",
                         choices=["euler", "midpoint", "heun"],
                         help="flow-model ODE solver; see --nfe")

@@ -18,8 +18,10 @@ the matrix products run in ``cfg.compute_dtype``.
 
 With ``frames`` the forward is length-exact: masked norm statistics and the
 length-masked time recurrence make outputs at valid frames independent of
-the padding.  The causal, cumulative-norm and conditional variants of the
-JAX model are not part of this module yet.
+the padding.  With ``cfg.with_condition`` each dual-path layer adds the
+Gaussian-Fourier embedding of the flow time t after its time-path norm
+(the conditional network of ``models/bsrnn_flowse.py``).  The causal and
+cumulative-norm variants of the JAX model are not part of this module yet.
 """
 
 from __future__ import annotations
@@ -46,6 +48,8 @@ __all__ = [
     "DualPathLayer",
     "MaskDecoderHead",
     "init_bsrnn",
+    "TRAIN_LAUNCHES_PER_LAYER",
+    "run_layers",
     "bsrnn_apply",
     "bsrnn_se_apply",
 ]
@@ -93,6 +97,8 @@ class BSRNNConfig:
     #                                 bf16, f32 norms/residual/cell state
     remat: bool = True            # under autograd, recompute each dual-path
     #                               layer in the backward pass
+    with_condition: bool = False  # flow matching: per-layer t-embedding
+    sub_channel: int = 16         # GradDecoder intermediate channels (flow)
 
     @property
     def subbands(self) -> tuple[int, ...]:
@@ -236,6 +242,11 @@ class DualPathLayer(nn.Module):
         self.rnn_freq = _lstm_params(N, hdim)
         self.fc_freq_w = _zeros(4 * N, N)
         self.fc_freq_b = _zeros(N)
+        if cfg.with_condition:
+            # GaussianFourierProjection W (N/2,): a fixed buffer in the
+            # reference; a parameter here whose gradient the trainer counts
+            # in the clip and the grad norm but never applies (optax's mask)
+            self.t_proj_w = _zeros(N // 2)
 
     def _norm(self, z, scale, bias, fm):
         if fm is None:
@@ -244,11 +255,16 @@ class DualPathLayer(nn.Module):
                                  eps=self.cfg.norm_eps)
 
     def forward(self, z: torch.Tensor, frames: Optional[torch.Tensor] = None,
-                fm: Optional[torch.Tensor] = None) -> torch.Tensor:
+                fm: Optional[torch.Tensor] = None,
+                t: Optional[torch.Tensor] = None) -> torch.Tensor:
         B, T, K, N = z.shape
         dt = self.cfg.dtype
         # --- time path (rows b-major: row = b*K + k) ---
         out = self._norm(z, self.norm_time_scale, self.norm_time_bias, fm)
+        if t is not None:
+            # random Fourier embedding of t (B,) -> (B, N), over (T, K)
+            proj = t[:, None] * self.t_proj_w[None, :] * (2.0 * np.pi)
+            out = out + torch.cat([torch.sin(proj), torch.cos(proj)], dim=-1)[:, None, None, :]
         seq = out.permute(0, 2, 1, 3).reshape(B * K, T, N).to(dt)
         if frames is None:
             h = lstm_ops.bilstm(self.rnn_time, seq)
@@ -308,6 +324,39 @@ class MaskDecoderHead(nn.Module):
         return cplx[..., flat_valid]
 
 
+# Kernel launches of one training step per dual-path layer with reentrant
+# remat (a lean pass, then the recorded pass and its backward), for each
+# setting of the toggles of ops/cuda_lstm.py: default, STREAM_INPUT_TRAIN,
+# FUSED_BIDIR_TRAIN, both.  The same for either model family.
+TRAIN_LAUNCHES_PER_LAYER = {
+    "default": {"fusedin_bilstm": 1, "lstm_scan": 1, "lstm_revmasked": 1, "lstm_train_fwd": 3,
+                "lstm_train_bwd": 3, "lstm_revmasked_train_fwd": 1, "lstm_revmasked_bwd": 1},
+    "stream": {"fusedin_bilstm": 1, "lstm_train_fwd_streamin": 6, "lstm_train_bwd": 4},
+    "fused": {"fusedin_bilstm": 1, "lstm_scan": 1, "lstm_revmasked": 1, "lstm_train_fwd": 1,
+              "lstm_train_bwd": 1, "lstm_revmasked_train_fwd": 1, "lstm_revmasked_bwd": 1,
+              "lstm_train_fwd2": 1, "lstm_train_bwd2": 1},
+}
+TRAIN_LAUNCHES_PER_LAYER["both"] = TRAIN_LAUNCHES_PER_LAYER["stream"]
+
+
+def run_layers(layers: nn.ModuleList, z: torch.Tensor, cfg: BSRNNConfig,
+               frames: Optional[torch.Tensor] = None, fm: Optional[torch.Tensor] = None,
+               t: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The dual-path stack on (B, T, K, N); ``t`` (B,) is the flow time of
+    the conditional network."""
+    remat = cfg.remat and torch.is_grad_enabled()
+    for layer in layers:
+        if remat:
+            # reentrant mode: the first pass runs under no_grad on the lean
+            # kernels (K1-K3) and keeps only the layer's input; the backward
+            # recomputes the layer with the training kernels
+            z = checkpoint(layer, z, frames, fm, t, use_reentrant=True,
+                           preserve_rng_state=False)
+        else:
+            z = layer(z, frames, fm, t)
+    return z
+
+
 class BSRNN(nn.Module):
     """Discriminative BSRNN; ``forward(spec, fs, frames=None)`` returns
     mask * spec + residual for a (B, T, F) complex spectrum at rate fs."""
@@ -327,17 +376,7 @@ class BSRNN(nn.Module):
         cfg = self.cfg
         K = band_count(cfg.input_dim, cfg.target_fs, fs, F)
         fm = None if frames is None else dsp.frames_mask(frames, T)
-        z = self.band_split(spec, K, fm)
-        remat = cfg.remat and torch.is_grad_enabled()
-        for layer in self.layers:
-            if remat:
-                # reentrant mode: the first pass runs under no_grad on the
-                # lean kernels (K1-K3) and keeps only the layer's input; the
-                # backward recomputes the layer with the training kernels
-                z = checkpoint(layer, z, frames, fm, use_reentrant=True,
-                               preserve_rng_state=False)
-            else:
-                z = layer(z, frames, fm)
+        z = run_layers(self.layers, self.band_split(spec, K, fm), cfg, frames, fm)
         m = self.mask_decoder["mask"](z, K, F, fm)
         r = self.mask_decoder["residual"](z, K, F, fm)
         return m * spec + r
@@ -348,33 +387,50 @@ class BSRNN(nn.Module):
 # ---------------------------------------------------------------------------
 
 
+def init_band_split(bs: BandSplit, u) -> None:
+    """The JAX init's band-split draws, from the uniform sampler ``u``."""
+    C = bs.cfg.num_channel
+    for i, sub in enumerate(bs.cfg.subbands):
+        cw = 2 * sub
+        bs.norm_scale[i, :cw] = 1.0
+        bs.w[i, :cw] = u((cw, C), cw)
+        bs.b[i] = u((C,), cw)
+
+
+def init_layers(layers: nn.ModuleList, u, gen: torch.Generator) -> None:
+    """The JAX init's dual-path layer draws (t_proj_w ~ N(0, 1))."""
+    for layer in layers:
+        C = layer.cfg.num_channel
+        hdim = 2 * C
+        for rnn in (layer.rnn_time, layer.rnn_freq):
+            for p in rnn.values():
+                p.copy_(u(p.shape, hdim))
+        layer.fc_time_w.copy_(u(layer.fc_time_w.shape, 2 * hdim))
+        layer.fc_time_b.copy_(u(layer.fc_time_b.shape, 2 * hdim))
+        layer.fc_freq_w.copy_(u(layer.fc_freq_w.shape, 4 * C))
+        layer.fc_freq_b.copy_(u(layer.fc_freq_b.shape, 4 * C))
+        if layer.cfg.with_condition:
+            layer.t_proj_w.copy_(torch.randn(layer.t_proj_w.shape, generator=gen))
+
+
+def uniform_sampler(gen: torch.Generator):
+    """u(shape, fan_in): U(-1/sqrt(fan_in), 1/sqrt(fan_in)) from ``gen``."""
+    def u(shape, fan_in):
+        bound = 1.0 / float(np.sqrt(fan_in))
+        return (torch.rand(shape, generator=gen) * 2 - 1) * bound
+    return u
+
+
 def init_bsrnn(cfg: BSRNNConfig, seed: int = 0, device="cpu") -> BSRNN:
     """A randomly initialised model (uniform fan-in bounds as the JAX
     ``init_bsrnn``; the draws differ from JAX's, the distributions do not)."""
     gen = torch.Generator().manual_seed(seed)
     model = BSRNN(cfg)
-
-    def u(shape, fan_in):
-        bound = 1.0 / float(np.sqrt(fan_in))
-        return (torch.rand(shape, generator=gen) * 2 - 1) * bound
-
+    u = uniform_sampler(gen)
     C = cfg.num_channel
-    bs = model.band_split
     with torch.no_grad():
-        for i, sub in enumerate(cfg.subbands):
-            cw = 2 * sub
-            bs.norm_scale[i, :cw] = 1.0
-            bs.w[i, :cw] = u((cw, C), cw)
-            bs.b[i] = u((C,), cw)
-        hdim = 2 * C
-        for layer in model.layers:
-            for rnn in (layer.rnn_time, layer.rnn_freq):
-                for p in rnn.values():
-                    p.copy_(u(p.shape, hdim))
-            layer.fc_time_w.copy_(u(layer.fc_time_w.shape, 2 * hdim))
-            layer.fc_time_b.copy_(u(layer.fc_time_b.shape, 2 * hdim))
-            layer.fc_freq_w.copy_(u(layer.fc_freq_w.shape, 4 * C))
-            layer.fc_freq_b.copy_(u(layer.fc_freq_b.shape, 4 * C))
+        init_band_split(model.band_split, u)
+        init_layers(model.layers, u, gen)
         for head in model.mask_decoder.values():
             for i, sub in enumerate(cfg.subbands):
                 cw = 2 * sub

@@ -20,11 +20,19 @@ bfloat16, h and c always float32):
   lstm_train_bwd            (K5) h, gates, c, dout (R, T, H), w_hh_t
                                                    -> dx_proj, dW_hh^T (H, 4H)
   lstm_revmasked_bwd        (K7) as K5, with lengths
+  lstm_train_fwd_streamin   (K8) x (R, T, N), w_ih_t (N, 4H), bias (4H,),
+                                 w_hh_t            -> h, gates, c as K4
+  lstm_train_fwd2           (K9) K4 for both directions in one launch
+  lstm_train_bwd2           (K10) K5 for both directions in one launch
 
 Index 0 of the stacked K1 weights is the forward direction, 1 the backward.
 ``LSTMDirTrain`` (K4/K5) and ``LSTMRevMaskedTrain`` (K6/K7) are the autograd
 Functions of the training path; ``lstm_dir`` and ``lstm_dir_revmasked``
 route to them when autograd records and to the lean K2/K3 otherwise.
+``BiLSTMTrain`` is the differentiable bidirectional layer of the band path
+and ``LSTMDirStreamIn`` the differentiable raw-input direction; both read
+the two experiment toggles below at call time, as the JAX VJP rules read
+``pallas_lstm.STREAM_INPUT_TRAIN`` and ``FUSED_BIDIR_TRAIN``.
 """
 
 from __future__ import annotations
@@ -49,10 +57,21 @@ __all__ = [
     "lstm_train_bwd_plain",
     "lstm_revmasked_train_fwd_plain",
     "lstm_revmasked_bwd_plain",
+    "lstm_train_fwd_streamin",
+    "lstm_train_fwd2",
+    "lstm_train_bwd2",
+    "lstm_train_fwd_streamin_plain",
+    "lstm_train_fwd2_plain",
+    "lstm_train_bwd2_plain",
     "LSTMDirTrain",
     "LSTMRevMaskedTrain",
+    "LSTMDirStreamIn",
+    "BiLSTMTrain",
     "lstm_dir",
     "lstm_dir_revmasked",
+    "lstm_dir_streamin",
+    "STREAM_INPUT_TRAIN",
+    "FUSED_BIDIR_TRAIN",
     "needs_grad",
     "KERNELS",
     "reset_launch_counts",
@@ -60,7 +79,19 @@ __all__ = [
 ]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HIDDEN = 512  # one thread per hidden unit, at most 512 threads a block
+MAX_HIDDEN = 1024  # at most 512 threads a block, each owning 1 or 2 units
+WIDE_HIDDEN = 512  # above it each thread owns 2 units (twice the registers)
+WIDE_MAX_ROWS = 4  # the largest row tile that fits without spilling there
+
+# Experiment toggles (the port's copies of pallas_lstm.py's), off by default
+# and read at call time.  STREAM_INPUT_TRAIN: the training forward of the
+# band layer (BiLSTMTrain) and both directions of ``ops/lstm.bilstm_masked``
+# stream the raw input into K8 (in-kernel x W_ih^T, no (R, T, 4H)
+# projection); the backward is K5 per direction.  FUSED_BIDIR_TRAIN: the
+# band layer's training forward runs both directions in one K9 launch and,
+# unless STREAM_INPUT_TRAIN is set, its backward in one K10 launch.
+STREAM_INPUT_TRAIN = False
+FUSED_BIDIR_TRAIN = False
 
 
 # ---------------------------------------------------------------------------
@@ -76,22 +107,24 @@ def _cell(gates: torch.Tensor, c: torch.Tensor):
     return o * torch.tanh(c), c, torch.cat([i, f, g, o], dim=-1)
 
 
-def _walk_plain(x_proj, w_hh_t, reverse, lengths=None):
-    """Shared loop of K2/K3 and K4/K6: gates = x_proj_t + round(h) W_hh^T in
-    f32; returns h, the post-activation gates and c, stored in x_proj's
-    dtype (h and c unmasked).  Differentiable by autograd."""
+def _walk_plain(x_proj, w_hh_t, reverse, lengths=None, bias=None, dtype=None):
+    """Shared loop of K2/K3, K4/K6 and K8: gates = x_proj_t + round(h) W_hh^T
+    (+ bias) in f32; returns h, the post-activation gates and c, stored in
+    ``dtype`` (x_proj's by default; h and c unmasked).  Differentiable by
+    autograd."""
     R, T, G = x_proj.shape
     H = G // 4
-    dtype = x_proj.dtype
+    dtype = dtype or x_proj.dtype
     w = w_hh_t.float()
     h = x_proj.new_zeros((R, H), dtype=torch.float32)
     c = torch.zeros_like(h)
-    out = x_proj.new_empty((R, T, H))
-    gates = x_proj.new_empty((R, T, G))
-    cs = x_proj.new_empty((R, T, H))
+    out = x_proj.new_empty((R, T, H), dtype=dtype)
+    gates = x_proj.new_empty((R, T, G), dtype=dtype)
+    cs = x_proj.new_empty((R, T, H), dtype=dtype)
     for s in range(T):
         t = T - 1 - s if reverse else s
-        h, c, act = _cell(x_proj[:, t].float() + h.to(dtype).float() @ w, c)
+        pre = x_proj[:, t].float() + h.to(dtype).float() @ w
+        h, c, act = _cell(pre if bias is None else pre + bias, c)
         out[:, t] = h.to(dtype)
         gates[:, t] = act.to(dtype)
         cs[:, t] = c.to(dtype)
@@ -175,6 +208,30 @@ def lstm_revmasked_bwd_plain(h: torch.Tensor, gates: torch.Tensor, c: torch.Tens
     return _backward_plain(h, gates, c, dout, w_hh_t, True, lengths.to(gates.device))
 
 
+def lstm_train_fwd_streamin_plain(x: torch.Tensor, w_ih_t: torch.Tensor, bias: torch.Tensor,
+                                  w_hh_t: torch.Tensor, reverse: bool = False):
+    """Plain version of ``lstm_train_fwd_streamin``: (h, gates, c) of the walk
+    whose step is (x_t W_ih^T + round(h) W_hh^T) + b, the input product kept
+    in f32 (not rounded to x's dtype as a hoisted projection is)."""
+    return _walk_plain(x.float() @ w_ih_t.float(), w_hh_t, reverse,
+                       bias=bias.to(x.dtype).float(), dtype=x.dtype)
+
+
+def lstm_train_fwd2_plain(xp_f: torch.Tensor, xp_b: torch.Tensor, w_hh_f_t: torch.Tensor,
+                          w_hh_b_t: torch.Tensor):
+    """Plain version of ``lstm_train_fwd2``: K4's plain version forward on
+    xp_f and reverse on xp_b -> (h_f, gates_f, c_f, h_b, gates_b, c_b)."""
+    return (*_walk_plain(xp_f, w_hh_f_t, False), *_walk_plain(xp_b, w_hh_b_t, True))
+
+
+def lstm_train_bwd2_plain(res_f, res_b, dout_f: torch.Tensor, dout_b: torch.Tensor,
+                          w_hh_f_t: torch.Tensor, w_hh_b_t: torch.Tensor):
+    """Plain version of ``lstm_train_bwd2``: K5's plain version per direction
+    -> (dx_proj_f, dW_hh_f^T, dx_proj_b, dW_hh_b^T)."""
+    return (*_backward_plain(*res_f, dout_f, w_hh_f_t, False),
+            *_backward_plain(*res_b, dout_b, w_hh_b_t, True))
+
+
 def fusedin_bilstm_plain(x: torch.Tensor, w_ih_t: torch.Tensor,
                          w_hh_t: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """Plain version of ``fusedin_bilstm``: x W_ih^T + b in f32 for every step,
@@ -229,13 +286,16 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def rows_per_block(R: int, grid_y: int, device: torch.device) -> int:
+def rows_per_block(R: int, grid_y: int, device: torch.device, H: int) -> int:
     """The largest row tile (8, 4, 2, 1) whose grid still covers every SM:
     few rows (the batch-1 time path) go to many small blocks, many rows to
-    fewer blocks that share each weight read over more rows."""
+    fewer blocks that share each weight read over more rows.  Above
+    ``WIDE_HIDDEN`` units the tile is at most ``WIDE_MAX_ROWS``: each thread
+    holds the accumulators of two units, and the larger tile spills."""
     sms = _sm_count(device.index if device.index is not None else torch.cuda.current_device())
+    cap = WIDE_MAX_ROWS if H > WIDE_HIDDEN else 8
     for rows in (8, 4, 2):
-        if -(-R // rows) * grid_y >= sms:
+        if rows <= cap and -(-R // rows) * grid_y >= sms:
             return rows
     return 1
 
@@ -264,7 +324,7 @@ def fusedin_bilstm(x: torch.Tensor, w_ih_t: torch.Tensor, w_hh_t: torch.Tensor,
 
     err = load_library().lstm_fusedin_bilstm(
         x.data_ptr(), w_ih_t.data_ptr(), w_hh_t.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), R, T, N, H, dtype, rows_per_block(R, 2, x.device), stream,
+        out.data_ptr(), R, T, N, H, dtype, rows_per_block(R, 2, x.device, H), stream,
     )
     _raise_on(err, "fusedin_bilstm")
     fusedin_bilstm.launches += 1
@@ -288,7 +348,7 @@ def lstm_scan(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
 
     err = load_library().lstm_scan(
         x_proj.data_ptr(), w_hh_t.data_ptr(), out.data_ptr(), R, T, H,
-        int(bool(reverse)), dtype, rows_per_block(R, 1, x_proj.device), stream,
+        int(bool(reverse)), dtype, rows_per_block(R, 1, x_proj.device, H), stream,
     )
     _raise_on(err, "lstm_scan")
     lstm_scan.launches += 1
@@ -315,7 +375,7 @@ def lstm_revmasked(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
 
     err = load_library().lstm_revmasked(
         x_proj.data_ptr(), w_hh_t.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        R, T, H, dtype, rows_per_block(R, 1, x_proj.device), stream,
+        R, T, H, dtype, rows_per_block(R, 1, x_proj.device, H), stream,
     )
     _raise_on(err, "lstm_revmasked")
     lstm_revmasked.launches += 1
@@ -347,7 +407,7 @@ def lstm_train_fwd(x_proj: torch.Tensor, w_hh_t: torch.Tensor, reverse: bool = F
 
     err = load_library().lstm_train_fwd(
         x_proj.data_ptr(), w_hh_t.data_ptr(), out.data_ptr(), gates.data_ptr(), c.data_ptr(),
-        R, T, H, int(bool(reverse)), dtype, rows_per_block(R, 1, x_proj.device), stream,
+        R, T, H, int(bool(reverse)), dtype, rows_per_block(R, 1, x_proj.device, H), stream,
     )
     _raise_on(err, "lstm_train_fwd")
     lstm_train_fwd.launches += 1
@@ -374,7 +434,7 @@ def lstm_revmasked_train_fwd(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
     err = load_library().lstm_revmasked_train_fwd(
         x_proj.data_ptr(), w_hh_t.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         gates.data_ptr(), c.data_ptr(), R, T, H, dtype,
-        rows_per_block(R, 1, x_proj.device), stream,
+        rows_per_block(R, 1, x_proj.device, H), stream,
     )
     _raise_on(err, "lstm_revmasked_train_fwd")
     lstm_revmasked_train_fwd.launches += 1
@@ -410,7 +470,7 @@ def lstm_train_bwd(h: torch.Tensor, gates: torch.Tensor, c: torch.Tensor,
     err = load_library().lstm_train_bwd(
         gates.data_ptr(), c.data_ptr(), h.data_ptr(), dout.data_ptr(), w4h.data_ptr(),
         dxp.data_ptr(), dw.data_ptr(), R, T, H, int(bool(reverse)), dtype,
-        rows_per_block(R, 1, gates.device), stream,
+        rows_per_block(R, 1, gates.device, H), stream,
     )
     _raise_on(err, "lstm_train_bwd")
     lstm_train_bwd.launches += 1
@@ -431,11 +491,95 @@ def lstm_revmasked_bwd(h: torch.Tensor, gates: torch.Tensor, c: torch.Tensor,
     err = load_library().lstm_revmasked_bwd(
         gates.data_ptr(), c.data_ptr(), h.data_ptr(), lengths.data_ptr(), dout.data_ptr(),
         w4h.data_ptr(), dxp.data_ptr(), dw.data_ptr(), R, T, H, dtype,
-        rows_per_block(R, 1, gates.device), stream,
+        rows_per_block(R, 1, gates.device, H), stream,
     )
     _raise_on(err, "lstm_revmasked_bwd")
     lstm_revmasked_bwd.launches += 1
     return dxp, dw.to(w_hh_t.dtype)
+
+
+def lstm_train_fwd_streamin(x: torch.Tensor, w_ih_t: torch.Tensor, bias: torch.Tensor,
+                            w_hh_t: torch.Tensor, reverse: bool = False):
+    """K8: ``lstm_train_fwd`` on the raw input, the input product inside the
+    kernel; x (R, T, N), w_ih_t (N, 4H), bias (4H,), w_hh_t (H, 4H) ->
+    (h, gates, c) in x's dtype."""
+    if x.device.type == "cpu":
+        return lstm_train_fwd_streamin_plain(x, w_ih_t, bias, w_hh_t, reverse)
+    R, T, N = x.shape
+    H = w_hh_t.shape[0]
+    dtype, stream = _kernel_args(x, H)
+    _check("x", x, (R, T, N), x.dtype, x.device)
+    _check("w_ih_t", w_ih_t, (N, 4 * H), x.dtype, x.device)
+    _check("bias", bias, (4 * H,), x.dtype, x.device)
+    _check("w_hh_t", w_hh_t, (H, 4 * H), x.dtype, x.device)
+    out, gates, c = _train_outputs(x, H)
+    if R == 0 or T == 0:
+        return out, gates, c
+    from urgent2026_challenge_track1_tpu_torch.ops._build import load_library
+
+    err = load_library().lstm_train_fwd_streamin(
+        x.data_ptr(), w_ih_t.data_ptr(), bias.data_ptr(), w_hh_t.data_ptr(), out.data_ptr(),
+        gates.data_ptr(), c.data_ptr(), R, T, N, H, int(bool(reverse)), dtype,
+        rows_per_block(R, 1, x.device, H), stream,
+    )
+    _raise_on(err, "lstm_train_fwd_streamin")
+    lstm_train_fwd_streamin.launches += 1
+    return out, gates, c
+
+
+def lstm_train_fwd2(xp_f: torch.Tensor, xp_b: torch.Tensor, w_hh_f_t: torch.Tensor,
+                    w_hh_b_t: torch.Tensor):
+    """K9: ``lstm_train_fwd`` forward on xp_f and reverse on xp_b in one
+    launch -> (h_f, gates_f, c_f, h_b, gates_b, c_b), bitwise K4's."""
+    if xp_f.device.type == "cpu":
+        return lstm_train_fwd2_plain(xp_f, xp_b, w_hh_f_t, w_hh_b_t)
+    R, T, G = xp_f.shape
+    H = G // 4
+    dtype, stream = _kernel_args(xp_f, H)
+    for name, t, shape in (("xp_f", xp_f, (R, T, G)), ("xp_b", xp_b, (R, T, G)),
+                           ("w_hh_f_t", w_hh_f_t, (H, G)), ("w_hh_b_t", w_hh_b_t, (H, G))):
+        _check(name, t, shape, xp_f.dtype, xp_f.device)
+    res_f, res_b = _train_outputs(xp_f, H), _train_outputs(xp_f, H)
+    if R == 0 or T == 0:
+        return (*res_f, *res_b)
+    from urgent2026_challenge_track1_tpu_torch.ops._build import load_library
+
+    err = load_library().lstm_train_fwd2(
+        xp_f.data_ptr(), w_hh_f_t.data_ptr(), *(t.data_ptr() for t in res_f),
+        xp_b.data_ptr(), w_hh_b_t.data_ptr(), *(t.data_ptr() for t in res_b),
+        R, T, H, dtype, rows_per_block(R, 2, xp_f.device, H), stream,
+    )
+    _raise_on(err, "lstm_train_fwd2")
+    lstm_train_fwd2.launches += 1
+    return (*res_f, *res_b)
+
+
+def lstm_train_bwd2(res_f, res_b, dout_f: torch.Tensor, dout_b: torch.Tensor,
+                    w_hh_f_t: torch.Tensor, w_hh_b_t: torch.Tensor):
+    """K10: ``lstm_train_bwd`` for both directions in one launch; res_* =
+    (h, gates, c) of the forward (K9's or K4's) and reverse direction ->
+    (dx_proj_f, dW_hh_f^T, dx_proj_b, dW_hh_b^T), bitwise K5's."""
+    if res_f[1].device.type == "cpu":
+        return lstm_train_bwd2_plain(res_f, res_b, dout_f, dout_b, w_hh_f_t, w_hh_b_t)
+    R, T, H, dtype, stream, w4h_f, dxp_f, dw_f = _check_residuals(*res_f, dout_f, w_hh_f_t)
+    _, _, _, _, _, w4h_b, dxp_b, dw_b = _check_residuals(*res_b, dout_b, w_hh_b_t)
+    if res_b[1].dtype != res_f[1].dtype or res_b[1].shape != res_f[1].shape:
+        raise ValueError("the two directions' residuals differ in dtype or shape")
+    if R == 0 or T == 0:
+        return dxp_f, dw_f.to(w_hh_f_t.dtype), dxp_b, dw_b.to(w_hh_b_t.dtype)
+    from urgent2026_challenge_track1_tpu_torch.ops._build import load_library
+
+    (h_f, g_f, c_f), (h_b, g_b, c_b) = res_f, res_b
+    err = load_library().lstm_train_bwd2(
+        g_f.data_ptr(), c_f.data_ptr(), h_f.data_ptr(), dout_f.data_ptr(), w4h_f.data_ptr(),
+        dxp_f.data_ptr(), dw_f.data_ptr(),
+        g_b.data_ptr(), c_b.data_ptr(), h_b.data_ptr(), dout_b.data_ptr(), w4h_b.data_ptr(),
+        dxp_b.data_ptr(), dw_b.data_ptr(),
+        R, T, H, dtype, rows_per_block(R, 2, g_f.device, H), stream,
+    )
+    _raise_on(err, "lstm_train_bwd2")
+    lstm_train_bwd2.launches += 1
+    return dxp_f, dw_f.to(w_hh_f_t.dtype), dxp_b, dw_b.to(w_hh_b_t.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -481,6 +625,86 @@ class LSTMRevMaskedTrain(torch.autograd.Function):
         return dxp, dw, None
 
 
+def _input_grads(x: torch.Tensor, dxps, w_ih_ts):
+    """VJP of the input projections x W_ih^T + b of one or two directions
+    (pallas_lstm.py:340-346, plain GEMMs in x's dtype): dx = sum_d dxp_d
+    W_ih_d and, per direction, (dW_ih_d^T = x^T dxp_d, db_d = sum dxp_d)."""
+    x2 = x.reshape(-1, x.shape[-1])
+    dx, grads = None, []
+    for dxp, w_ih_t in zip(dxps, w_ih_ts):
+        d2 = dxp.reshape(-1, dxp.shape[-1])
+        term = d2 @ w_ih_t.t()
+        dx = term if dx is None else dx + term
+        grads.append((x2.t() @ d2, d2.sum(0)))
+    return dx.reshape(x.shape), grads
+
+
+class LSTMDirStreamIn(torch.autograd.Function):
+    """One forward direction on the raw input, x (R, T, N), w_ih_t (N, 4H),
+    bias (4H,), w_hh_t (H, 4H) -> (R, T, H); forward K8, backward K5 and the
+    input-projection GEMMs (``lstm_dir_pallas_streamin``'s VJP)."""
+
+    @staticmethod
+    def forward(ctx, x, w_ih_t, bias, w_hh_t):
+        out, gates, c = lstm_train_fwd_streamin(x, w_ih_t, bias, w_hh_t)
+        ctx.save_for_backward(x, out, gates, c, w_ih_t, w_hh_t)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, out, gates, c, w_ih_t, w_hh_t = ctx.saved_tensors
+        dxp, dw_hh = lstm_train_bwd(out, gates, c, dout.to(out.dtype).contiguous(), w_hh_t)
+        dx, ((dw_ih, db),) = _input_grads(x, (dxp,), (w_ih_t,))
+        return dx, dw_ih, db, dw_hh
+
+
+class BiLSTMTrain(torch.autograd.Function):
+    """Bidirectional layer on the raw input under autograd (the VJP of
+    ``lstm_pallas_bidir_fusedin``: ``_fusedin_fwd`` / ``_fusedin_bwd``).
+    x (R, T, N), w_ih_*_t (N, 4H), w_hh_*_t (H, 4H), b_* (4H,), all in x's
+    dtype -> (R, T, 2H), forward || backward.
+
+    Forward: K8 per direction under ``STREAM_INPUT_TRAIN``, else the hoisted
+    projections and K9 under ``FUSED_BIDIR_TRAIN``, else K4 per direction.
+    Backward: K10 under ``FUSED_BIDIR_TRAIN and not STREAM_INPUT_TRAIN``,
+    else K5 per direction; then the input-projection GEMMs."""
+
+    @staticmethod
+    def forward(ctx, x, w_ih_f_t, w_ih_b_t, w_hh_f_t, w_hh_b_t, b_f, b_b):
+        if STREAM_INPUT_TRAIN:
+            res_f = lstm_train_fwd_streamin(x, w_ih_f_t, b_f, w_hh_f_t, False)
+            res_b = lstm_train_fwd_streamin(x, w_ih_b_t, b_b, w_hh_b_t, True)
+        else:
+            x2 = x.reshape(-1, x.shape[-1])
+            xp_f = torch.addmm(b_f, x2, w_ih_f_t).reshape(x.shape[:-1] + (-1,))
+            xp_b = torch.addmm(b_b, x2, w_ih_b_t).reshape(x.shape[:-1] + (-1,))
+            if FUSED_BIDIR_TRAIN:
+                both = lstm_train_fwd2(xp_f, xp_b, w_hh_f_t, w_hh_b_t)
+                res_f, res_b = both[:3], both[3:]
+            else:
+                res_f = lstm_train_fwd(xp_f, w_hh_f_t, False)
+                res_b = lstm_train_fwd(xp_b, w_hh_b_t, True)
+        ctx.save_for_backward(x, *res_f, *res_b, w_ih_f_t, w_ih_b_t, w_hh_f_t, w_hh_b_t)
+        return torch.cat([res_f[0], res_b[0]], dim=-1)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, h_f, g_f, c_f, h_b, g_b, c_b, w_ih_f_t, w_ih_b_t, w_hh_f_t, w_hh_b_t = \
+            ctx.saved_tensors
+        H = h_f.shape[-1]
+        dout = dout.to(h_f.dtype)
+        do_f, do_b = dout[..., :H].contiguous(), dout[..., H:].contiguous()
+        if FUSED_BIDIR_TRAIN and not STREAM_INPUT_TRAIN:
+            dxp_f, dw_hh_f, dxp_b, dw_hh_b = lstm_train_bwd2(
+                (h_f, g_f, c_f), (h_b, g_b, c_b), do_f, do_b, w_hh_f_t, w_hh_b_t)
+        else:
+            dxp_f, dw_hh_f = lstm_train_bwd(h_f, g_f, c_f, do_f, w_hh_f_t, False)
+            dxp_b, dw_hh_b = lstm_train_bwd(h_b, g_b, c_b, do_b, w_hh_b_t, True)
+        dx, ((dw_ih_f, db_f), (dw_ih_b, db_b)) = _input_grads(
+            x, (dxp_f, dxp_b), (w_ih_f_t, w_ih_b_t))
+        return dx, dw_ih_f, dw_ih_b, dw_hh_f, dw_hh_b, db_f, db_b
+
+
 def needs_grad(*tensors: torch.Tensor) -> bool:
     """Whether autograd records an op on any of ``tensors``."""
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
@@ -503,8 +727,19 @@ def lstm_dir_revmasked(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
     return lstm_revmasked(x_proj, w_hh_t, lengths)
 
 
+def lstm_dir_streamin(x: torch.Tensor, w_ih_t: torch.Tensor, bias: torch.Tensor,
+                      w_hh_t: torch.Tensor) -> torch.Tensor:
+    """One forward direction on the raw input, K8 with or without autograd
+    (``LSTMDirStreamIn`` when autograd records), as the JAX primal
+    ``lstm_dir_pallas_streamin`` runs the residual-storing kernel too."""
+    if needs_grad(x, w_ih_t, bias, w_hh_t):
+        return LSTMDirStreamIn.apply(x, w_ih_t, bias, w_hh_t)
+    return lstm_train_fwd_streamin(x, w_ih_t, bias, w_hh_t)[0]
+
+
 KERNELS = (fusedin_bilstm, lstm_scan, lstm_revmasked, lstm_train_fwd, lstm_train_bwd,
-           lstm_revmasked_train_fwd, lstm_revmasked_bwd)
+           lstm_revmasked_train_fwd, lstm_revmasked_bwd, lstm_train_fwd_streamin,
+           lstm_train_fwd2, lstm_train_bwd2)
 for _fn in KERNELS:
     _fn.launches = 0
 

@@ -10,8 +10,10 @@ CPU.  Every function runs in the dtype of ``x``; h and c stay float32.
 
 All three layers are differentiable.  When autograd records, the
 recurrences run the residual-storing training kernels and their backward
-kernels (``LSTMDirTrain``, ``LSTMRevMaskedTrain``); otherwise the lean
-inference kernels.
+kernels (``BiLSTMTrain``, ``LSTMDirTrain``, ``LSTMRevMaskedTrain``);
+otherwise the lean inference kernels.  The experiment toggles of
+``ops/cuda_lstm.py`` (``STREAM_INPUT_TRAIN``, ``FUSED_BIDIR_TRAIN``) are read
+at call time, as ``ops/lstm.py`` reads those of ``pallas_lstm.py``.
 """
 
 from __future__ import annotations
@@ -37,6 +39,15 @@ def _w_hh_t(params: Mapping[str, torch.Tensor], sfx: str, dtype) -> torch.Tensor
     return params[f"w_hh{sfx}"].to(dtype).t().contiguous()
 
 
+def _w_ih_t(params: Mapping[str, torch.Tensor], sfx: str, dtype) -> torch.Tensor:
+    return params[f"w_ih{sfx}"].to(dtype).t().contiguous()
+
+
+def _bias(params: Mapping[str, torch.Tensor], sfx: str, dtype) -> torch.Tensor:
+    """b_ih + b_hh summed in f32, then in ``dtype``."""
+    return (params[f"b_ih{sfx}"] + params[f"b_hh{sfx}"]).to(dtype)
+
+
 def lstm(params: Mapping[str, torch.Tensor], x: torch.Tensor, reverse: bool = False,
          suffix: str = "") -> torch.Tensor:
     """Unidirectional LSTM.  x: (B, T, I) -> (B, T, H)."""
@@ -48,16 +59,15 @@ def bilstm(params: Mapping[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     """Bidirectional LSTM.  x: (B, T, I) -> (B, T, 2H), forward ++ backward.
 
     Without autograd one fused-input kernel runs both directions
-    (``fusedin_bilstm``).  Under autograd the input projection is hoisted
-    (its gradients are plain GEMMs) and each direction runs ``lstm_dir``, as
-    the VJP of the JAX fused-input kernel does (``_fusedin_fwd``)."""
+    (``fusedin_bilstm``).  Under autograd ``BiLSTMTrain`` runs the training
+    kernels the toggles select, as the VJP of the JAX fused-input kernel
+    does (``_fusedin_fwd``, ``_fusedin_bwd``)."""
     dtype = x.dtype
     if cuda_lstm.needs_grad(x, *params.values()):
-        fwd = cuda_lstm.lstm_dir(_proj(params, x, "").contiguous(),
-                                 _w_hh_t(params, "", dtype), False)
-        bwd = cuda_lstm.lstm_dir(_proj(params, x, "_reverse").contiguous(),
-                                 _w_hh_t(params, "_reverse", dtype), True)
-        return torch.cat([fwd, bwd], dim=-1)
+        return cuda_lstm.BiLSTMTrain.apply(
+            x.contiguous(), _w_ih_t(params, "", dtype), _w_ih_t(params, "_reverse", dtype),
+            _w_hh_t(params, "", dtype), _w_hh_t(params, "_reverse", dtype),
+            _bias(params, "", dtype), _bias(params, "_reverse", dtype))
     w_ih_t = torch.stack([params["w_ih"].t(), params["w_ih_reverse"].t()]).to(dtype)
     w_hh_t = torch.stack([params["w_hh"].t(), params["w_hh_reverse"].t()]).to(dtype)
     bias = torch.stack([params["b_ih"] + params["b_hh"],
@@ -86,8 +96,21 @@ def bilstm_masked(params: Mapping[str, torch.Tensor], x: torch.Tensor,
     The forward direction is a plain scan (padding follows the valid
     prefix); the backward direction is the reverse walk that zeroes its
     state at padded steps (``lstm_dir_revmasked``), so no gathers are
-    needed."""
+    needed.
+
+    Under ``cuda_lstm.STREAM_INPUT_TRAIN`` both directions stream the raw
+    input into K8 (``lstm_dir_streamin``, with or without autograd): the
+    backward direction is a forward walk over the length-reversed N-wide
+    input, un-reversed afterwards (JAX ``ops/lstm.py:170-187``)."""
     dtype = x.dtype
+    if cuda_lstm.STREAM_INPUT_TRAIN:
+        x_rev = length_reverse(x, lengths).contiguous()
+        fwd = cuda_lstm.lstm_dir_streamin(x.contiguous(), _w_ih_t(params, "", dtype),
+                                          _bias(params, "", dtype), _w_hh_t(params, "", dtype))
+        bwd = cuda_lstm.lstm_dir_streamin(x_rev, _w_ih_t(params, "_reverse", dtype),
+                                          _bias(params, "_reverse", dtype),
+                                          _w_hh_t(params, "_reverse", dtype))
+        return torch.cat([fwd, length_reverse(bwd, lengths)], dim=-1)
     fwd = cuda_lstm.lstm_dir(_proj(params, x, "").contiguous(),
                              _w_hh_t(params, "", dtype), False)
     bwd = cuda_lstm.lstm_dir_revmasked(_proj(params, x, "_reverse").contiguous(),

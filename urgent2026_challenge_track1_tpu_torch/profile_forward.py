@@ -3,11 +3,14 @@ time by kernel and the device's idle share.
 
     python -m urgent2026_challenge_track1_tpu_torch.profile_forward \
         [--batch 64] [--seconds 4] [--fs 48000] [--channels 192] [--lengths 0.925] \
-        [--train] [--dtype bfloat16]
+        [--train] [--dtype bfloat16] [--flow [--nfe 15]]
 
 Builds a seeded random model (6 layers, ``--dtype`` compute), runs one
 warm-up, then one forward (or, with ``--train``, one step of the trainer:
-forward, backward, clipping and AdamW) under ``torch.profiler``.
+forward, backward, clipping and AdamW) under ``torch.profiler``.  With
+``--flow`` the model is the flow-matching one (``--channels`` is its
+``bsrnn_hidden``) and the forward is one ``flowse_enhance`` of ``--nfe``
+euler steps.
 ``--lengths f`` gives every row the length ``f * seconds * fs`` (the
 length-exact path with the masked time recurrence); without it the unmasked
 path runs (a train step always passes lengths, as the trainer does).  Prints
@@ -27,6 +30,7 @@ import torch
 from urgent2026_challenge_track1_tpu_torch import resolve_device
 from urgent2026_challenge_track1_tpu_torch.config import Config
 from urgent2026_challenge_track1_tpu_torch.dsp.stft import STFTConfig
+from urgent2026_challenge_track1_tpu_torch.models import bsrnn_flowse as flow_mod
 from urgent2026_challenge_track1_tpu_torch.models.bsrnn import bsrnn_se_apply
 from urgent2026_challenge_track1_tpu_torch.train import trainer
 
@@ -51,7 +55,8 @@ def _flags(name: str, kernel: str) -> list[bool]:
 def _group(name: str) -> str:
     """Kernel name -> the port kernel it belongs to, or its own name."""
     if _names(name, "fusedin_kernel"):
-        return "K1 fusedin_bilstm"
+        stream = _flags(name, "fusedin_kernel") == [True]
+        return "K8 lstm_train_fwd_streamin" if stream else "K1 fusedin_bilstm"
     if _names(name, "recurrence_kernel"):
         masked, store = _flags(name, "recurrence_kernel")
         return {(False, False): "K2 lstm_scan", (True, False): "K3 lstm_revmasked",
@@ -87,11 +92,17 @@ def main(argv=None) -> dict:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--train", action="store_true", help="profile one train step")
     p.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
+    p.add_argument("--flow", action="store_true", help="the flow-matching model")
+    p.add_argument("--nfe", type=int, default=15, help="euler steps of a flow forward")
     args = p.parse_args(argv)
 
     dev = resolve_device("cuda")
-    cfg = Config(model_configs={"num_channel": args.channels, "num_layer": 6},
-                 compute_dtype=args.dtype, seed=args.seed)
+    if args.flow:
+        cfg = Config(model_type="flowse", bsrnn_hidden=args.channels, num_layer=6,
+                     compute_dtype=args.dtype, seed=args.seed)
+    else:
+        cfg = Config(model_configs={"num_channel": args.channels, "num_layer": 6},
+                     compute_dtype=args.dtype, seed=args.seed)
     bundle = trainer.build_model(cfg)
     model = trainer.init_params(args.seed, bundle, dev)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -107,7 +118,13 @@ def main(argv=None) -> dict:
         clean = 0.8 * wav
 
         def run():
-            train_step(model, opt, clean, wav, lengths)
+            train_step(model, opt, clean, wav, lengths,
+                       generator=trainer.step_generator(args.seed, 0) if args.flow else None)
+    elif args.flow:
+        def run():
+            with torch.inference_mode():
+                flow_mod.flowse_enhance(model, bundle.model_cfg, wav, args.fs, N=args.nfe,
+                                        lengths=lengths, generator=gen)
     else:
         def run():
             with torch.inference_mode():
@@ -135,10 +152,10 @@ def main(argv=None) -> dict:
         print(f"{g:60s} {us / 1e3:10.3f} {us / total:7.1%}")
     record = {
         "device": torch.cuda.get_device_name(0),
-        "what": "train step" if args.train else "forward",
+        "what": ("flow " if args.flow else "") + ("train step" if args.train else "forward"),
         "geometry": {"batch": args.batch, "seconds": args.seconds, "fs": args.fs,
                      "channels": args.channels, "lengths": args.lengths,
-                     "dtype": args.dtype},
+                     "dtype": args.dtype, "nfe": args.nfe if args.flow and not args.train else None},
         "wall_ms_profiled": wall_us / 1e3,
         "device_busy_ms": busy_us / 1e3,
         "device_idle_share": 1.0 - busy_us / wall_us,

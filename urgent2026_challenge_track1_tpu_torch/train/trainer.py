@@ -1,22 +1,33 @@
-"""Training loop of the discriminative BSRNN (counterpart of
+"""Training loop of both BSRNN families (counterpart of
 ``train/trainer.py``): the train and validation steps, the NaN guard,
-AdamW with per-epoch StepLR and optax's global-norm clipping, top-k
-checkpoints with a "latest" tree, and exact mid-epoch resume.
+AdamW with per-epoch StepLR and optax's global-norm clipping, the flow
+model's EMA, top-k checkpoints with a "latest" tree, and exact mid-epoch
+resume.
 
-One step: ``bsrnn_se_apply(lengths=...)`` -> ``multi_res_l1_spec_loss``
-(a non-finite loss becomes 0) -> backward (the LSTM kernels' backward on the
-card, their plain versions on the CPU) -> the weighted grad norm of the
-reference (sum of ||g_p|| * numel(p) over sum of numel); a non-finite norm
-skips the update whole, so the parameters, the AdamW moments and its step
-count stay as they were -> clip -> AdamW.
+One discriminative step: ``bsrnn_se_apply(lengths=...)`` ->
+``multi_res_l1_spec_loss`` (a non-finite loss becomes 0); one flow step:
+``flowse_loss(lengths=...)`` with the CFM noise and t drawn from a generator
+seeded by (seed, step), so a resume draws what the uninterrupted run would.
+Then backward (the LSTM kernels' backward on the card, their plain versions
+on the CPU) -> the weighted grad norm of the reference (sum of ||g_p|| *
+numel(p) over sum of numel); a non-finite norm skips the update whole, so
+the parameters, the AdamW moments and its step count stay as they were ->
+clip -> AdamW -> (flow) ema = d * ema + (1 - d) * params, every step.
 
-Not ported yet, and raising where asked for: the flow-matching model and
-its EMA (ROADMAP A9), causal models (A10), dynamic mixing and the rendered
-step (A13), dp/mp meshes and multi-process training (A14), ``init_from``.
+The flow model's ``t_proj_w`` (the reference's frozen Fourier projection)
+gets a gradient that counts in the clip and the grad norm, as optax's chain
+clips before its mask, but AdamW never updates or decays it.  Validation of
+a flow model runs on the EMA weights and adds the N = 10 Euler sampler's
+SI-SNR on the first batch of each sampling rate.
+
+Not ported yet, and raising where asked for: causal models (ROADMAP A10),
+dynamic mixing and the rendered step (A13), dp/mp meshes and multi-process
+training (A14), ``init_from``.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import math
@@ -30,15 +41,20 @@ import torch
 from urgent2026_challenge_track1_tpu_torch import resolve_device
 from urgent2026_challenge_track1_tpu_torch.config import Config
 from urgent2026_challenge_track1_tpu_torch.dsp.stft import STFTConfig
+from urgent2026_challenge_track1_tpu_torch.models import bsrnn_flowse as flow_mod
 from urgent2026_challenge_track1_tpu_torch.models.bsrnn import (
-    BSRNN, BSRNNConfig, bsrnn_se_apply, init_bsrnn)
+    BSRNNConfig, bsrnn_se_apply, init_bsrnn)
 from urgent2026_challenge_track1_tpu_torch.train import losses
+from urgent2026_challenge_track1_tpu_torch.utils.checkpoint import TRAIN_FORMAT
 
 __all__ = [
     "ModelBundle",
     "build_model",
     "init_params",
     "make_optimizer",
+    "trainable_parameters",
+    "update_ema",
+    "step_generator",
     "lr_for_epoch",
     "clip_by_global_norm",
     "TrainState",
@@ -62,14 +78,20 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 @dataclasses.dataclass(frozen=True)
 class ModelBundle:
-    kind: str  # "discriminative"
-    model_cfg: BSRNNConfig
+    kind: str  # "discriminative" | "flowse"
+    model_cfg: Any  # BSRNNConfig | FlowSEConfig
     stft_cfg: STFTConfig
 
 
 def build_model(cfg: Config) -> ModelBundle:
     if cfg.model_type == "flowse":
-        raise _not_ported("model_type=flowse (flow matching, EMA)", "ROADMAP A9")
+        fcfg = flow_mod.FlowSEConfig(
+            n_fft=cfg.n_fft, hop_length=cfg.hop_length,
+            spec_abs_exponent=cfg.spec_abs_exponent, spec_factor=cfg.spec_factor,
+            bsrnn_hidden=cfg.bsrnn_hidden, num_layer=cfg.num_layer, sigma_min=cfg.sigma_min,
+            sigma_max=cfg.sigma_max, t_eps=cfg.t_eps, T_rev=cfg.T_rev,
+            loss_type=cfg.loss_type, compute_dtype=cfg.compute_dtype)
+        return ModelBundle("flowse", fcfg, fcfg.stft_cfg)
     if cfg.model_type != "discriminative":
         raise ValueError(f"model_type={cfg.model_type!r}: expected discriminative or flowse")
     mc = cfg.model_configs or {}
@@ -80,8 +102,11 @@ def build_model(cfg: Config) -> ModelBundle:
     return ModelBundle("discriminative", mcfg, STFTConfig(n_fft=960, hop_length=480))
 
 
-def init_params(seed: int, bundle: ModelBundle, device) -> BSRNN:
-    """A randomly initialised model (the JAX init's distributions)."""
+def init_params(seed: int, bundle: ModelBundle, device) -> torch.nn.Module:
+    """A randomly initialised model (the JAX init's distributions): a
+    ``BSRNN``, or the flow model's ``FlowDNN``."""
+    if bundle.kind == "flowse":
+        return flow_mod.init_flowse(bundle.model_cfg, seed=seed, device=device)
     return init_bsrnn(bundle.model_cfg, seed=seed, device=device)
 
 
@@ -90,11 +115,32 @@ def init_params(seed: int, bundle: ModelBundle, device) -> BSRNN:
 # ---------------------------------------------------------------------------
 
 
+def trainable_parameters(model: torch.nn.Module) -> list[torch.nn.Parameter]:
+    """Every parameter but the frozen ``t_proj_w`` of the flow model."""
+    return [p for name, p in model.named_parameters() if not name.endswith("t_proj_w")]
+
+
 def make_optimizer(cfg: Config, model: torch.nn.Module) -> torch.optim.AdamW:
-    """AdamW(eps, weight_decay) on every parameter, as optax.adamw (decoupled
-    decay, bias-corrected moments); the learning rate is set per epoch."""
-    return torch.optim.AdamW(model.parameters(), lr=cfg.learning_rate, betas=(0.9, 0.999),
-                             eps=cfg.adam_epsilon, weight_decay=cfg.weight_decay)
+    """AdamW(eps, weight_decay) on every trainable parameter, as optax.adamw
+    (decoupled decay, bias-corrected moments); the learning rate is set per
+    epoch."""
+    return torch.optim.AdamW(trainable_parameters(model), lr=cfg.learning_rate,
+                             betas=(0.9, 0.999), eps=cfg.adam_epsilon,
+                             weight_decay=cfg.weight_decay)
+
+
+@torch.no_grad()
+def update_ema(ema: torch.nn.Module, model: torch.nn.Module, decay: float) -> None:
+    """ema = decay * ema + (1 - decay) * params, parameter by parameter."""
+    for e, p in zip(ema.parameters(), model.parameters()):
+        e.copy_(decay * e + (1.0 - decay) * p)
+
+
+def step_generator(seed: int, step: int) -> torch.Generator:
+    """The CPU generator of one flow step's draws (t, then the CFM noise):
+    seeded by (seed, step), so a resumed run draws what the uninterrupted
+    run drew at that step."""
+    return torch.Generator().manual_seed((seed + 1) * 2 ** 32 + step)
 
 
 def lr_for_epoch(cfg: Config, epoch: int) -> float:
@@ -120,11 +166,12 @@ def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float) -> None:
 
 @dataclasses.dataclass
 class TrainState:
-    model: BSRNN
+    model: torch.nn.Module
     optimizer: torch.optim.AdamW
     step: int = 0
     epoch: int = 0
     batch_in_epoch: int = 0  # loader position for mid-epoch resume
+    ema: Optional[torch.nn.Module] = None  # flow only: the EMA weights
 
 
 def _weighted_grad_norm(grads: list[torch.Tensor]) -> torch.Tensor:
@@ -147,13 +194,22 @@ def loss_and_metrics(bundle: ModelBundle, fs: int, model, clean, noisy, lengths)
 
 
 def make_train_step(bundle: ModelBundle, cfg: Config, fs: int):
-    """(model, optimizer, clean (B, T), noisy (B, T), lengths (B,)) ->
-    metrics; updates the model and the optimizer in place."""
+    """(model, optimizer, clean (B, T), noisy (B, T), lengths (B,), ema=,
+    generator=, noise=, t=) -> metrics; updates the model, the optimizer and
+    (flow) the EMA model in place.  A flow step draws t and the CFM noise
+    from ``generator`` unless ``t`` (B,) and ``noise`` (B, T, F) are given."""
     max_norm = float(cfg.gradient_clip)
+    decay = float(cfg.ema_decay)
 
-    def step(model: BSRNN, optimizer: torch.optim.AdamW, clean, noisy, lengths) -> dict:
+    def step(model, optimizer: torch.optim.AdamW, clean, noisy, lengths, ema=None,
+             generator=None, noise=None, t=None) -> dict:
         optimizer.zero_grad(set_to_none=False)
-        loss, extra = loss_and_metrics(bundle, fs, model, clean, noisy, lengths)
+        if bundle.kind == "flowse":
+            loss = flow_mod.flowse_loss(model, bundle.model_cfg, clean, noisy, fs, lengths,
+                                        noise=noise, t=t, generator=generator)
+            extra = {}
+        else:
+            loss, extra = loss_and_metrics(bundle, fs, model, clean, noisy, lengths)
         loss.backward()
         params = list(model.parameters())
         for p in params:
@@ -166,14 +222,21 @@ def make_train_step(bundle: ModelBundle, cfg: Config, fs: int):
         if not bad:
             clip_by_global_norm(grads, max_norm)
             optimizer.step()
+        if ema is not None:
+            update_ema(ema, model, decay)
         return {"loss": loss.detach(), "grad_norm": gnorm, "nan_grad": bad, **extra}
 
     return step
 
 
 def make_val_step(bundle: ModelBundle, fs: int):
-    def step(model: BSRNN, clean, noisy, lengths) -> dict:
+    """(model, clean, noisy, lengths, generator=None) -> metrics: the loss
+    (the flow loss draws from ``generator``) and, discriminative, SI-SNR."""
+    def step(model, clean, noisy, lengths, generator=None) -> dict:
         with torch.no_grad():
+            if bundle.kind == "flowse":
+                return {"loss": flow_mod.flowse_loss(model, bundle.model_cfg, clean, noisy,
+                                                     fs, lengths, generator=generator)}
             wav, _ = bsrnn_se_apply(model, bundle.stft_cfg, noisy, fs, lengths)
             return {"loss": losses.multi_res_l1_spec_loss(clean, wav, lengths).mean(),
                     "sisnr": losses.si_snr(clean, wav, lengths).mean()}
@@ -190,7 +253,8 @@ class CheckpointIO:
     """Top-k checkpoints on ``metric`` plus one "latest" checkpoint.
 
     Each save writes ``step_<N>.pt`` (``torch.save`` of the parameters, the
-    optimizer state, step, epoch and ``batch_in_epoch``) and a
+    optimizer state, the EMA weights of a flow model, step, epoch,
+    ``batch_in_epoch`` and the config, which the inference loader reads) and a
     ``step_<N>.json`` meta file into ``directory``, then keeps the
     ``save_top_k`` best by ``metric`` in the given ``mode`` ("min" or "max";
     a checkpoint without the metric ranks worst, ties keep the newer).  With
@@ -255,10 +319,13 @@ class CheckpointIO:
                    self.metric: float(vm.get(self.metric, self._worst))}
         meta = {"step": step, "val_loss": metrics["val_loss"], "metrics": metrics,
                 "config": config_dict}
-        payload = {"params": state.model.state_dict(),
+        payload = {"format": TRAIN_FORMAT, "config": config_dict,
+                   "params": state.model.state_dict(),
                    "opt_state": state.optimizer.state_dict(),
                    "step": state.step, "epoch": state.epoch,
                    "batch_in_epoch": state.batch_in_epoch}
+        if state.ema is not None:
+            payload["ema"] = state.ema.state_dict()
         self._write(self.directory, step, payload, meta)
         sign = 1.0 if self.mode == "min" else -1.0
         ranked = sorted(self._steps(self.directory),
@@ -292,6 +359,8 @@ class CheckpointIO:
             meta = json.load(f)
         state.model.load_state_dict(payload["params"])
         state.optimizer.load_state_dict(payload["opt_state"])
+        if state.ema is not None:
+            state.ema.load_state_dict(payload["ema"])
         state.step = int(payload["step"])
         state.epoch = int(payload["epoch"])
         state.batch_in_epoch = int(payload["batch_in_epoch"])
@@ -357,7 +426,10 @@ class Trainer:
 
     def init_state(self) -> TrainState:
         model = init_params(self.cfg.seed, self.bundle, self.device)
-        return TrainState(model, make_optimizer(self.cfg, model))
+        ema = None
+        if self.bundle.kind == "flowse":
+            ema = copy.deepcopy(model).requires_grad_(False)
+        return TrainState(model, make_optimizer(self.cfg, model), ema=ema)
 
     def maybe_resume(self, state: TrainState) -> TrainState:
         if not self.cfg.resume:
@@ -393,21 +465,39 @@ class Trainer:
     # -- loops -------------------------------------------------------------
 
     def validate(self, state: TrainState) -> dict:
+        """Validation metrics; a flow model is evaluated with its EMA weights,
+        and the first batch of each sampling rate also runs the N = 10 Euler
+        sampler (``val_sisnr`` is the first batch's value, not a mean)."""
+        flow = self.bundle.kind == "flowse"
+        model = state.ema if state.ema is not None else state.model
+        generator = torch.Generator().manual_seed(0)
         totals: dict[str, float] = {}
         count = 0
         fs_totals: dict[int, float] = {}
         fs_counts: dict[int, int] = {}
+        first_flow_sisnr = None
         for clean, noisy, fs, lengths in self.dm.val_dataloader():
-            m = self._get_val_step(fs)(state.model, *self._to_device(clean[:, 0], noisy[:, 0],
-                                                                     lengths))
+            batch = self._to_device(clean[:, 0], noisy[:, 0], lengths)
+            m = self._get_val_step(fs)(model, *batch, generator=generator)
+            if flow and fs not in fs_totals:
+                with torch.no_grad():
+                    enhanced = flow_mod.flowse_enhance(
+                        model, self.bundle.model_cfg, batch[1], fs, N=10, lengths=batch[2],
+                        generator=generator)
+                    m["sisnr"] = losses.si_snr(batch[0], enhanced, batch[2]).mean()
+                if first_flow_sisnr is None:
+                    first_flow_sisnr = float(m["sisnr"])
             for k, v in m.items():
                 totals[k] = totals.get(k, 0.0) + float(v)
-            fs_totals[fs] = fs_totals.get(fs, 0.0) + float(m["sisnr"])
-            fs_counts[fs] = fs_counts.get(fs, 0) + 1
+            if "sisnr" in m:
+                fs_totals[fs] = fs_totals.get(fs, 0.0) + float(m["sisnr"])
+                fs_counts[fs] = fs_counts.get(fs, 0) + 1
             count += 1
         if count == 0:
             return {"val_loss": float("inf")}
         out = {f"val_{k}": v / count for k, v in totals.items()}
+        if flow and "val_sisnr" in out:
+            out["val_sisnr"] = first_flow_sisnr
         for fs, tot in fs_totals.items():
             out[f"val_sisnr_{fs}"] = tot / fs_counts[fs]
         return out
@@ -424,13 +514,15 @@ class Trainer:
                 t0 = time.perf_counter()
                 metrics = self._get_train_step(fs)(
                     state.model, state.optimizer,
-                    *self._to_device(clean[:, 0], noisy[:, 0], lengths))
+                    *self._to_device(clean[:, 0], noisy[:, 0], lengths), ema=state.ema,
+                    generator=step_generator(cfg.seed, state.step))
                 state.step += 1
                 state.batch_in_epoch += 1
                 if state.step % cfg.log_every_steps == 0:
                     logd = {f"train_{k}": float(v) for k, v in metrics.items()}
                     logd["step_time"] = time.perf_counter() - t0
-                    logd[f"train_sisnr_{fs}"] = logd["train_sisnr"]
+                    if "train_sisnr" in logd:  # the flow step has no SI-SNR
+                        logd[f"train_sisnr_{fs}"] = logd["train_sisnr"]
                     self.logger.log(state.step, logd)
                 if state.step % cfg.val_check_interval == 0:
                     vm = self.validate(state)

@@ -1,20 +1,24 @@
 """Reference Lightning ``state_dict`` -> JAX-shaped parameter tree (numpy),
-discriminative model only (the port's copy of the mapping in
+for both model families (the port's copy of the mapping in
 ``utils/convert.py``).
 
 Key structure of the reference SEModel (espnet BSRNNSeparator):
 ``se_model.bsrnn.bsrnn.{band_split,norm_time,rnn_time,fc_time,norm_freq,
-rnn_freq,fc_freq,mask_decoder}...``.  Per-band tensors go into the
-band-stacked padded layout of ``models/bsrnn.py``; torch LSTM tensors (gates
-i, f, g, o) copy through unchanged.  ``utils/params.from_jax_params`` turns
-the tree into a ``BSRNN``.
+rnn_freq,fc_freq,mask_decoder}...``; of the FlowSEModel:
+``dnn.{band_split_x,band_split_y,condition_fc,t_cond,norm_time,rnn_time,...,
+grad_decoder}...`` with its EMA weights in ``ckpt["ema"]``.  Per-band
+tensors go into the band-stacked padded layout of ``models/bsrnn.py``; torch
+LSTM tensors (gates i, f, g, o) copy through unchanged.
+``utils/params.from_jax_params`` turns the tree into a ``BSRNN`` or a
+``FlowDNN``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["convert_discriminative_state_dict", "load_torch_checkpoint"]
+__all__ = ["convert_discriminative_state_dict", "convert_flowse_state_dict",
+           "apply_ema_record", "load_torch_checkpoint"]
 
 
 def _np(t) -> np.ndarray:
@@ -40,7 +44,7 @@ def _convert_band_split(sd, prefix, subbands, C):
     return out
 
 
-def _convert_layers(sd, prefix, num_layer):
+def _convert_layers(sd, prefix, num_layer, with_t_cond=False):
     def stack(fmt, post=lambda x: x):
         return np.stack([post(_np(sd[fmt.format(i=i)])) for i in range(num_layer)])
 
@@ -52,7 +56,7 @@ def _convert_layers(sd, prefix, num_layer):
                 p[f"{dst}{sfx}"] = stack(f"{prefix}{name}.{{i}}.{src}{sfx}")
         return p
 
-    return {
+    layers = {
         "norm_time_scale": stack(f"{prefix}norm_time.{{i}}.weight"),
         "norm_time_bias": stack(f"{prefix}norm_time.{{i}}.bias"),
         "rnn_time": lstm_params("rnn_time"),
@@ -64,6 +68,9 @@ def _convert_layers(sd, prefix, num_layer):
         "fc_freq_w": stack(f"{prefix}fc_freq.{{i}}.weight", post=lambda x: x.T),
         "fc_freq_b": stack(f"{prefix}fc_freq.{{i}}.bias"),
     }
+    if with_t_cond:
+        layers["t_proj_w"] = stack(f"{prefix}t_cond.{{i}}.W")
+    return layers
 
 
 def _convert_mask_decoder_head(sd, prefix, subbands, C):
@@ -92,6 +99,63 @@ def _convert_mask_decoder_head(sd, prefix, subbands, C):
         out["wg"][i, :, :cw] = w2[cw:].T
         out["bv"][i, :cw] = b2[:cw]
         out["bg"][i, :cw] = b2[cw:]
+    return out
+
+
+def _convert_grad_decoder_head(sd, mlp_prefix, conv_prefix, subbands, C, sc):
+    """GradDecoder head: per band [GN(C), Conv1d(C, sub*sc, 1), tanh] (output
+    channel s_c * sub + s_b), then the shared Conv2d(sc, 4, 5, 1, 2)."""
+    K, SM = len(subbands), max(subbands)
+    out = {
+        "norm_scale": np.zeros((K, C), np.float32),
+        "norm_bias": np.zeros((K, C), np.float32),
+        "w": np.zeros((K, C, sc, SM), np.float32),
+        "b": np.zeros((K, sc, SM), np.float32),
+    }
+    for i, sub in enumerate(subbands):
+        out["norm_scale"][i] = _np(sd[f"{mlp_prefix}.{i}.0.weight"]).reshape(-1)
+        out["norm_bias"][i] = _np(sd[f"{mlp_prefix}.{i}.0.bias"]).reshape(-1)
+        wf = _np(sd[f"{mlp_prefix}.{i}.1.weight"])[:, :, 0].reshape(sc, sub, C)
+        out["w"][i, :, :, :sub] = wf.transpose(2, 0, 1)
+        out["b"][i, :, :sub] = _np(sd[f"{mlp_prefix}.{i}.1.bias"]).reshape(sc, sub)
+    out["conv_w"] = _np(sd[f"{conv_prefix}.0.weight"]).transpose(2, 3, 1, 0)  # OIHW -> HWIO
+    out["conv_b"] = _np(sd[f"{conv_prefix}.0.bias"])
+    return out
+
+
+def convert_flowse_state_dict(sd, cfg, prefix="dnn."):
+    """FlowSEModel state_dict -> JAX ``init_flowse``-shaped tree of numpy
+    arrays; ``cfg`` is the conditional network's BSRNNConfig."""
+    subs, C = cfg.subbands, cfg.num_channel
+    return {
+        "band_split": _convert_band_split(sd, f"{prefix}band_split_x.", subs, C),
+        "band_split_y": _convert_band_split(sd, f"{prefix}band_split_y.", subs, C),
+        "condition_fc_w": _np(sd[f"{prefix}condition_fc.weight"]).T.copy(),
+        "condition_fc_b": _np(sd[f"{prefix}condition_fc.bias"]),
+        "layers": _convert_layers(sd, prefix, cfg.num_layer, with_t_cond=True),
+        "grad_decoder": {
+            head: _convert_grad_decoder_head(
+                sd, f"{prefix}grad_decoder.mlp_{head}",
+                f"{prefix}grad_decoder.conv_after_{head}", subs, C, cfg.sub_channel)
+            for head in ("mask", "residual")
+        },
+    }
+
+
+def apply_ema_record(sd: dict, ema_state: dict) -> dict:
+    """The state_dict with its trainable tensors replaced by the torch_ema
+    shadow parameters (the reference evaluates with its EMA weights).
+    ``shadow_params`` follows ``parameters()`` with requires_grad: the
+    state-dict order without the frozen ``dnn.t_cond.{i}.W`` buffers."""
+    import re
+
+    shadow = ema_state["shadow_params"]
+    trainable = [k for k in sd if not re.fullmatch(r"dnn\.t_cond\.\d+\.W", k)]
+    if len(shadow) != len(trainable):
+        raise ValueError(f"EMA shadow_params count {len(shadow)} != trainable parameter "
+                         f"count {len(trainable)}: not a FlowSEModel EMA record")
+    out = dict(sd)
+    out.update(zip(trainable, shadow))
     return out
 
 

@@ -1,9 +1,11 @@
-"""Bridge between the JAX parameter tree and the port's ``BSRNN`` module.
+"""Bridge between the JAX parameter tree and the port's ``BSRNN`` and
+``FlowDNN`` modules.
 
 The JAX package keeps the dual-path layers stacked on a leading layer axis
 (``params["layers"][name][i]``); the port keeps one ``DualPathLayer`` per
 layer.  Every other leaf has the same name, shape and layout in both, so the
-bridge only unstacks (or restacks) the layer axis.
+bridge only unstacks (or restacks) the layer axis.  A tree with a
+``grad_decoder`` (the JAX ``init_flowse``) becomes a ``FlowDNN``.
 """
 
 from __future__ import annotations
@@ -13,7 +15,10 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from torch import nn
+
 from urgent2026_challenge_track1_tpu_torch.models.bsrnn import BSRNN, BSRNNConfig
+from urgent2026_challenge_track1_tpu_torch.models.bsrnn_flowse import FlowDNN
 
 __all__ = ["from_jax_params", "to_numpy_tree", "config_from_tree"]
 
@@ -31,19 +36,23 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> dict[str, Any]:
 
 
 def config_from_tree(tree: Mapping[str, Any], compute_dtype: str = "float32") -> BSRNNConfig:
-    """The BSRNN configuration that the shapes of a discriminative tree imply."""
+    """The BSRNN configuration that the shapes of a tree imply (the
+    conditional network's when the tree has a ``grad_decoder``)."""
     K, C = np.shape(tree["band_split"]["b"])
+    flow = "grad_decoder" in tree
     return BSRNNConfig(
         input_dim=_INPUT_DIM_BY_BANDS[K], num_channel=C,
         num_layer=np.shape(tree["layers"]["norm_time_scale"])[0],
-        compute_dtype=compute_dtype,
+        compute_dtype=compute_dtype, with_condition=flow,
+        sub_channel=np.shape(tree["grad_decoder"]["mask"]["w"])[2] if flow else 16,
     )
 
 
 def from_jax_params(tree: Mapping[str, Any], compute_dtype: str = "float32",
-                    device="cpu") -> BSRNN:
-    """A ``BSRNN`` holding the leaves of a JAX ``init_bsrnn``-shaped tree
-    (numpy or JAX arrays); the layer axis of ``tree["layers"]`` is unstacked."""
+                    device="cpu") -> nn.Module:
+    """A ``BSRNN`` (``FlowDNN`` for a flow tree) holding the leaves of a JAX
+    ``init_bsrnn``- or ``init_flowse``-shaped tree (numpy or JAX arrays); the
+    layer axis of ``tree["layers"]`` is unstacked."""
     cfg = config_from_tree(tree, compute_dtype)
     sd = {}
     for key, leaf in _flatten(tree).items():
@@ -53,13 +62,14 @@ def from_jax_params(tree: Mapping[str, Any], compute_dtype: str = "float32",
                 sd[f"layers.{i}.{key[len('layers.'):]}"] = torch.from_numpy(arr[i].copy())
         else:
             sd[key] = torch.from_numpy(arr.copy())
-    model = BSRNN(cfg)
+    model = FlowDNN(cfg) if cfg.with_condition else BSRNN(cfg)
     model.load_state_dict(sd, strict=True)
     return model.to(device)
 
 
-def to_numpy_tree(model: BSRNN) -> dict[str, Any]:
-    """The JAX-shaped tree (numpy leaves, layers stacked) of a ``BSRNN``."""
+def to_numpy_tree(model: nn.Module) -> dict[str, Any]:
+    """The JAX-shaped tree (numpy leaves, layers stacked) of a ``BSRNN`` or
+    ``FlowDNN``."""
     tree: dict[str, Any] = {}
     per_layer: dict[str, list[np.ndarray]] = {}
     for key, t in model.state_dict().items():
