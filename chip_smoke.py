@@ -8,10 +8,13 @@ Phases (any failure exits non-zero; each prints its seconds):
      with nvcc and print the card's name, power limit and the build time;
   2. hold every kernel against its plain PyTorch version on the card at the
      main paths' shapes, in float32 (TF32 off) and bfloat16: the inference
-     kernels K1-K3, then the training kernels K4-K7 (h, gates, c, dx_proj,
-     dW), at the discriminative width (H = 392) and at the flow model's
-     (H = 768); then K8-K10 at both widths' training shapes, and K9/K10
-     against K4/K5 run per direction (bitwise equal);
+     kernels K1 (its walk) - K3, then the training kernels K4-K7 (h, gates,
+     c, dx_proj, dW), at the discriminative width (H = 392) and at the flow
+     model's (H = 768); then K8-K10 at both widths' training shapes, and
+     K9/K10 against K4/K5 run per direction (bitwise equal); then K1p, K1's
+     persistent bfloat16 route, against the plain version and the walk at
+     the seven shapes where K1 runs, with its plan and its, the walk's and
+     cuDNN's times (the k1_routes phase);
   3. drive the inference path through the port's CLI at full width (196
      channels x 6 layers, random seeded weights) on 8-48 kHz WAVs, and the
      training path through the port's ``train_se.run`` (196 x 6, batch 4,
@@ -20,7 +23,8 @@ Phases (any failure exits non-zero; each prints its seconds):
      with model_type=flowse at 384 x 6 (batch 2, 2 s at 48 kHz, validation
      with the N = 10 sampler, EMA, a resume) and the inference CLI on its
      checkpoint with the euler and heun solvers; check that every kernel of
-     each path ran;
+     each path ran, and that K1 took K1p on the bfloat16 paths (the CLIs)
+     and the walk on the float32 ones (the training runs);
   4. the A/B arms of the two experiment toggles (default, STREAM_INPUT_TRAIN,
      FUSED_BIDIR_TRAIN, both, in alternating order) on one train step of
      each family: launches per kernel, loss and gradients against the
@@ -31,9 +35,9 @@ Phases (any failure exits non-zero; each prints its seconds):
   6. time each kernel, its plain version and (for K1) cuDNN's LSTM, the
      end-to-end forward at the JAX bench geometry, the train step at the
      baseline geometry in float32 and bfloat16 with its peak memory and
-     launches per step, K1-K7 at the flow shapes, K8-K10 at the
-     discriminative training shapes, the flow train step and one flow
-     enhancement.
+     launches per step and K1's route per dtype, K1-K7 at the flow shapes,
+     K8-K10 at both widths' training shapes, the flow train step and one
+     flow enhancement.
 
 The second line from the end is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or without the port
@@ -55,6 +59,9 @@ REPO = Path(__file__).resolve().parent
 PKG = "urgent2026_challenge_track1_tpu_torch"
 
 F32_TOL, BF16_TOL = 2e-4, 5e-2  # scripts/check_pallas_tpu.py:29-34
+# K1p against the plain version and the walk: this many bf16 ulps at the
+# outputs' largest magnitude (_k1p_limit)
+K1P_ULPS = 4
 GRAD_TOL = 1e-3                 # f32 gradients, relative (max|d| / max|ref|), same source
 E2E_TOL = 1e-3                  # card (kernels) vs CPU (plain), float32 waveform and grads
 N_IN, HID = 196, 392            # BSRNN_baseline: num_channel 196, H = 2N
@@ -159,12 +166,13 @@ def phase_kernels(device, n_in=N_IN, hid=HID, time_shapes=TIME_SHAPES, band_shap
         for R, T in time_shapes + band_shapes:
             x, w_ih_t, w_hh_t, bias, xp, lengths = _kernel_inputs(R, T, dtype, device,
                                                                   R * 1000 + T, n_in, hid)
-            got = K.fusedin_bilstm(x, w_ih_t, w_hh_t, bias)
+            got = K.fusedin_bilstm_walk(x, w_ih_t, w_hh_t, bias)
             ref = K.fusedin_bilstm_plain(x, w_ih_t, w_hh_t, bias)
             torch.cuda.synchronize()
             e = _err(got, ref)
             errs["fusedin_bilstm", dt_name] = max(errs["fusedin_bilstm", dt_name], e)
-            print(f"[kernels] fusedin_bilstm {dt_name} R={R} T={T} H={hid}: max|d|={e:.3e}")
+            print(f"[kernels] fusedin_bilstm (walk) {dt_name} R={R} T={T} H={hid}: "
+                  f"max|d|={e:.3e}")
             if (R, T) in band_shapes:
                 continue  # K2/K3 run on the time path only
             for reverse in (False, True):
@@ -186,6 +194,40 @@ def phase_kernels(device, n_in=N_IN, hid=HID, time_shapes=TIME_SHAPES, band_shap
         if not e < tol:
             fail(f"{name} {dt_name}: max|kernel - plain| {e:.3e} >= {tol}")
     return errs
+
+
+def _k1p_limit(ref) -> float:
+    """K1P_ULPS bf16 ulps at max|ref| (bf16 keeps 8 significant bits)."""
+    import math
+
+    return K1P_ULPS * 2.0 ** (math.floor(math.log2(float(ref.float().abs().max()))) - 7)
+
+
+def _plain_stale_h(x, w_ih_t, w_hh_t, bias):
+    """A planted barrier fault: K1's plain version fed h one step stale
+    (h_{t-2} where h_{t-1} is due), as a step that reads the exchange
+    buffer before the previous step's writes land.  The K1p limit must see
+    it."""
+    import torch
+    from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
+
+    R, T, _ = x.shape
+    H = w_hh_t.shape[1]
+    outs = []
+    for d in range(2):
+        xw = x.float() @ w_ih_t[d].float() + bias[d].float()
+        w = w_hh_t[d].float()
+        stale = h = xw.new_zeros((R, H))
+        c = torch.zeros_like(h)
+        out = x.new_empty((R, T, H))
+        for s in range(T):
+            t = T - 1 - s if d else s
+            h_new, c, _ = K._cell(xw[:, t] + stale.to(x.dtype).float() @ w, c)
+            stale, h = h, h_new
+            out[:, t] = h_new.to(x.dtype)
+        outs.append(out)
+        del xw
+    return torch.cat(outs, dim=-1)
 
 
 def _rel(a, b):
@@ -271,6 +313,97 @@ def phase_train_kernels(device, hid=HID, shapes=(TRAIN_TIME, TRAIN_BAND),
 
 
 # ---------------------------------------------------------------------------
+# K1's two routes (phase 2)
+# ---------------------------------------------------------------------------
+
+# the shapes where K1 runs, (what, R, T, N, H): one utterance's band path
+# (B=1, 4 s at 48 kHz), the band path of the discriminative train step's
+# remat pass (B=4, 2 s), the bench forward's band and time paths (B=64, 4 s,
+# 192 channels, no lengths), the flow train step's band path (B=2, 2 s), one
+# flow enhancement's band and time paths (B=1, 4 s)
+K1_ROUTE_SHAPES = (("disc band B=1", 401, 34, N_IN, HID),
+                   ("disc train band B=4", 804, 34, N_IN, HID),
+                   ("bench band B=64", 64 * 401, 34, 192, 384),
+                   ("bench time B=64", 64 * 34, 401, 192, 384),
+                   ("flow train band B=2", 502, 48, FLOW_N, FLOW_H),
+                   ("flow enhance band B=1", 501, 48, FLOW_N, FLOW_H),
+                   ("flow enhance time B=1", 48, 501, FLOW_N, FLOW_H))
+
+
+def phase_k1_routes(device):
+    """K1p against the plain version and against the walk (itself held
+    against the plain version) at the seven shapes where K1 runs, bfloat16:
+    max abs differences, the plan (S, G, U, shared memory, checked against
+    the kernel's own reckoning), K1p, walk and cuDNN bfloat16 ``nn.LSTM``
+    ms (medians of ``_time_ms``), the weight pack's ms, the bound, and the
+    route the rule takes.  Fails if K1p differs from either by the K1p limit
+    (``_k1p_limit`` of the plain output) or more, if the walk differs from
+    the plain version by BF16_TOL or more, or if the planted fault (a stale
+    h, ``_plain_stale_h``) stays under the limit."""
+    import torch
+    from urgent2026_challenge_track1_tpu_torch.ops import _build
+    from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
+
+    bf16 = torch.bfloat16
+    sms = _sm_count(device)
+    lib = _build.load_library()
+    out = []
+    for what, R, T, N, H in K1_ROUTE_SHAPES:
+        x, wi, wh, b, _, _ = _kernel_inputs(R, T, bf16, device, R + T, N, H)
+        plan = K.plan_persistent(R, N, H, sms)
+        if plan is None:
+            fail(f"K1p: no plan at {what} (R={R}, N={N}, H={H})")
+        kernel_smem = lib.lstm_persistent_smem(N, H, plan.U, plan.rows, plan.chunk,
+                                                int(plan.c_in_smem))
+        if kernel_smem != plan.smem:
+            fail(f"K1p plan at {what}: {plan.smem} bytes, the kernel reckons {kernel_smem}")
+        route = K.k1_route(bf16, R, N, H, sms)
+        with torch.inference_mode():
+            got = K.fusedin_bilstm_persistent(x, wi, wh, b, plan)
+            walk = K.fusedin_bilstm_walk(x, wi, wh, b)
+            ref = K.fusedin_bilstm_plain(x, wi, wh, b)
+            torch.cuda.synchronize()
+            e_plain, e_walk, e_walk_plain = _err(got, ref), _err(got, walk), _err(walk, ref)
+            limit = _k1p_limit(ref)
+            del got, walk
+            e_stale = _err(_plain_stale_h(x, wi, wh, b), ref)
+            del ref
+            k1p_ms = _time_ms(lambda: K.fusedin_bilstm_persistent(x, wi, wh, b, plan))
+            pack_ms = _time_ms(lambda: K.pack_persistent_weights(wi, wh, b, plan))
+            walk_ms = _time_ms(lambda: K.fusedin_bilstm_walk(x, wi, wh, b))
+            lstm = torch.nn.LSTM(N, H, batch_first=True, bidirectional=True).to(device, bf16)
+            cudnn_ms = _time_ms(lambda: lstm(x))
+        bound_ms, bound_by = _bounds(R, T, 0, N, H)["fusedin_bilstm"]
+        rec = {"what": what, "R": R, "T": T, "N": N, "H": H,
+               "plan": {"S": plan.S, "G": plan.G, "U": plan.U, "rows": plan.rows,
+                        "chunk": plan.chunk, "c_in_smem": plan.c_in_smem,
+                        "smem_bytes": plan.smem, "ctas": plan.ctas},
+               "route": "persistent" if route is not None else "walk",
+               "max_abs_err_vs_plain": e_plain, "max_abs_err_vs_walk": e_walk,
+               "walk_max_abs_err_vs_plain": e_walk_plain, "k1p_limit": limit,
+               "planted_stale_h_err": e_stale,
+               "k1p_ms": k1p_ms, "walk_ms": walk_ms, "cudnn_ms": cudnn_ms, "pack_ms": pack_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        print(f"[k1 routes] {what} R={R} T={T} N={N} H={H}: plan S={plan.S} G={plan.G} "
+              f"U={plan.U} chunk={plan.chunk} smem={plan.smem} B ({plan.ctas} CTAs); K1p "
+              f"{k1p_ms:.3f} ms (its weight pack {pack_ms:.4f} ms), walk {walk_ms:.3f} ms, "
+              f"cuDNN {cudnn_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+              f"max|K1p - plain| {e_plain:.3e}, max|K1p - walk| {e_walk:.3e} (limit "
+              f"{limit:.3e}), max|walk - plain| {e_walk_plain:.3e} (limit {BF16_TOL}); "
+              f"planted stale h: max|d| {e_stale:.3e}; rule: {rec['route']}")
+        for name, e, tol in (("K1p vs plain", e_plain, limit), ("K1p vs walk", e_walk, limit),
+                             ("walk vs plain", e_walk_plain, BF16_TOL)):
+            if not e < tol:
+                fail(f"{what}: {name} {e:.3e} >= {tol:.3e}")
+        if not e_stale >= limit:
+            fail(f"{what}: a stale h moves the output by {e_stale:.3e}, under the K1p "
+                 f"limit {limit:.3e}: the check cannot see a barrier fault")
+        out.append(rec)
+        del x, wi, wh, b, lstm
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 3
 # ---------------------------------------------------------------------------
 
@@ -340,12 +473,14 @@ def phase_main_path(workdir: Path):
         _check_outputs(out_dir, items)
         delta = {k: v - before[k] for k, v in K.launch_counts().items()}
         print(f"[main path] {name}: {len(items)} files in {seconds:.2f} s, launches {delta}")
-    counts = K.launch_counts()
+    counts, routes = K.launch_counts(), K.route_counts()
     for name in INFERENCE_KERNELS:
         if counts[name] <= 0:
             fail(f"kernel {name} was not launched on the main path")
-    print(f"[main path] launches over the three runs: {counts}")
-    return counts
+    print(f"[main path] launches over the three runs: {counts}, K1 routes {routes}")
+    if routes != {"persistent": counts["fusedin_bilstm"], "walk": 0}:
+        fail(f"the bfloat16 inference path took K1's routes {routes}, expected K1p only")
+    return counts, routes
 
 
 def _write_split(root: Path, seconds, seed: int) -> Path:
@@ -410,9 +545,9 @@ def phase_training(workdir: Path):
         state = train_se.run(_train_config(workdir))
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        counts = K.launch_counts()
+        counts, routes = K.launch_counts(), K.route_counts()
         print(f"[training] 2 epochs x 2 steps (+ 2 validations, 2 saves) in {seconds:.1f} s, "
-              f"launches {counts}")
+              f"launches {counts}, K1 routes {routes}")
         if (state.step, state.epoch) != (4, 2):
             fail(f"training ended at step {state.step}, epoch {state.epoch}; expected 4, 2")
         init = init_bsrnn(BSRNNConfig(num_channel=N_IN, num_layer=6), seed=2024)
@@ -440,7 +575,9 @@ def phase_training(workdir: Path):
     for fn in K.KERNELS[:7]:  # K1-K7; K8-K10 run under the toggles (phase_ab_arms)
         if counts[fn.__name__] <= 0:
             fail(f"kernel {fn.__name__} was not launched on the training path")
-    return counts
+    if routes != {"persistent": 0, "walk": counts["fusedin_bilstm"]}:
+        fail(f"the float32 training path took K1's routes {routes}, expected the walk only")
+    return counts, routes
 
 
 # ---------------------------------------------------------------------------
@@ -538,6 +675,12 @@ def _time_ms(fn, reps: int = 5, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def _sm_count(device) -> int:
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _bound(flops: float, nbytes: float):
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -598,6 +741,13 @@ def _train_batch(device, B=4, fs=48000):
     return clean.to(device), noisy.to(device), lengths.to(device)
 
 
+def _check_routes(what, dtype_name, routes):
+    """K1 took K1p only in bfloat16 and the walk only in float32."""
+    want = "persistent" if dtype_name == "bfloat16" else "walk"
+    if routes[want] <= 0 or sum(routes.values()) != routes[want]:
+        fail(f"{what}: K1 routes {routes}, expected {want} only")
+
+
 def _train_step_times(device):
     """Median host-clock time of the train step (B=4, 2 s at 48 kHz, 196 x
     6) over 5 steps after 2 warm-up steps, in float32 and bfloat16, with the
@@ -616,7 +766,8 @@ def _train_step_times(device):
         batch = _train_batch(device)
         K.reset_launch_counts()
         step(model, opt, *batch)
-        per_step = K.launch_counts()
+        per_step, routes = K.launch_counts(), K.route_counts()
+        _check_routes(f"train step {compute_dtype}", compute_dtype, routes)
         step(model, opt, *batch)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -630,10 +781,11 @@ def _train_step_times(device):
                 fail("the timed train step hit a non-finite gradient")
         out[compute_dtype] = {"median_ms": statistics.median(times), "ms": times,
                               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-                              "launches_per_step": per_step}
+                              "launches_per_step": per_step, "k1_routes_per_step": routes}
         print(f"[times] train step {compute_dtype} (B=4, 2 s at 48 kHz, 196x6): median "
               f"{out[compute_dtype]['median_ms']:.1f} ms of {[round(t, 1) for t in times]}, "
-              f"peak {out[compute_dtype]['peak_memory_gb']:.2f} GB, launches per step {per_step}")
+              f"peak {out[compute_dtype]['peak_memory_gb']:.2f} GB, launches per step {per_step}, "
+              f"K1 routes {routes}")
         del model, opt
     return out
 
@@ -661,7 +813,8 @@ def _row_tile_sweep(device):
     return out
 
 
-def phase_times(device, main_counts, train_counts, errs, train_errs):
+def phase_times(device, main_counts, train_counts, errs, train_errs, k1_routes, main_routes,
+                train_routes):
     import torch
     from urgent2026_challenge_track1_tpu_torch.dsp.stft import STFTConfig
     from urgent2026_challenge_track1_tpu_torch.models.bsrnn import (
@@ -680,7 +833,7 @@ def phase_times(device, main_counts, train_counts, errs, train_errs):
     # (cudnn.is_acceptable excludes bf16), so each call compacts its weights
     lstm = torch.nn.LSTM(N_IN, HID, batch_first=True, bidirectional=True).to(device, bf16)
     timed = {
-        "fusedin_bilstm": (lambda: K.fusedin_bilstm(xb, w_ih_t, w_hh_t, bias),
+        "fusedin_bilstm": (lambda: K.fusedin_bilstm_walk(xb, w_ih_t, w_hh_t, bias),
                            lambda: K.fusedin_bilstm_plain(xb, w_ih_t, w_hh_t, bias),
                            lambda: lstm(xb), (band_R, band_T)),
         "lstm_scan": (lambda: K.lstm_scan(xp, w_hh_t[0]),
@@ -700,7 +853,7 @@ def phase_times(device, main_counts, train_counts, errs, train_errs):
         for tag, lens in (("lengths", lens37), ("no_lengths", None)):
             K.reset_launch_counts()
             bsrnn_se_apply(model, STFTConfig(), wav, 48000, lens)
-            per_forward[tag] = K.launch_counts()
+            per_forward[tag] = {**K.launch_counts(), "k1_routes": K.route_counts()}
         fwd_ms = _time_ms(lambda: bsrnn_se_apply(model, STFTConfig(), wav, 48000, lens37),
                           reps=3, warmup=1)
     print(f"[times] launches per forward (B=1, 48 kHz, 4 s bucket): {per_forward}")
@@ -713,11 +866,14 @@ def phase_times(device, main_counts, train_counts, errs, train_errs):
             plain_ms = _time_ms(plain, reps=3, warmup=1)
             library_ms = _time_ms(library) if library is not None else None
             bound_ms, bound_by = _bounds(R, T, R * valid)[name]
+            launches, run = main_counts[name], "inference path"
+            if name == "fusedin_bilstm":  # the walk runs on the float32 paths
+                launches, run = train_routes["walk"], "training path (float32: K1's walk)"
             rec = {
                 "name": name, "route": "cuda",
                 "source": f"{PKG}/csrc/lstm_kernels.cu",
                 "replaces": REPLACES[name],
-                "launches": main_counts[name], "launches_run": "inference path",
+                "launches": launches, "launches_run": run,
                 "max_abs_err": errs[name, "bfloat16"],
                 "max_abs_err_f32": errs[name, "float32"],
                 "tolerance": BF16_TOL, "tolerance_f32": F32_TOL,
@@ -729,10 +885,34 @@ def phase_times(device, main_counts, train_counts, errs, train_errs):
             print(f"[times] {name} R={R} T={T} bf16: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
                   f"library {library_ms} ms, bound {bound_ms:.4f} ms ({bound_by})")
             records.append(rec)
+        # K1p: the same function at the same shape, K1's bfloat16 route
+        walk_rec = records[0]
+        disc = k1_routes[0]
+        walk_rec.update({"k1_route": "walk",
+                         "launches_per_forward": per_forward["lengths"]["k1_routes"]["walk"],
+                         "routes_ms": {"walk": walk_rec["ms"], "persistent": disc["k1p_ms"]}})
+        records.append({
+            "name": "fusedin_bilstm_persistent", "route": "cuda", "k1_route": "persistent",
+            "source": f"{PKG}/csrc/lstm_persistent.cu", "replaces": REPLACES["fusedin_bilstm"],
+            "launches": main_routes["persistent"], "launches_run": "inference path",
+            "max_abs_err": max(r["max_abs_err_vs_plain"] for r in k1_routes),
+            "max_abs_err_vs_walk": max(r["max_abs_err_vs_walk"] for r in k1_routes),
+            "max_abs_err_f32": None,
+            "tolerance": min(r["k1p_limit"] for r in k1_routes),
+            "tolerance_rule": f"{K1P_ULPS} bf16 ulps at max|plain| per shape",
+            "planted_stale_h_err": min(r["planted_stale_h_err"] for r in k1_routes),
+            "ms": disc["k1p_ms"], "plain_ms": walk_rec["plain_ms"],
+            "bound_ms": disc["bound_ms"], "bound_by": disc["bound_by"],
+            "library_ms": disc["cudnn_ms"], "shape": walk_rec["shape"], "dtype": "bfloat16",
+            "plan": disc["plan"],
+            "launches_per_forward": per_forward["lengths"]["k1_routes"]["persistent"],
+            "routes_ms": {"walk": walk_rec["ms"], "persistent": disc["k1p_ms"]},
+            "route_table": k1_routes,
+        })
         # the same kernels at the JAX bench geometry (B=64, 4 s, 48 kHz)
         extra = []
-        for name, R, T in (("fusedin_bilstm", 64 * 401, 34), ("fusedin_bilstm", 64 * 34, 401),
-                           ("fusedin_bilstm", 34, 401), ("lstm_scan", 64 * 34, 401),
+        # (K1 at the bench geometry's band and time paths: the k1_routes phase)
+        for name, R, T in (("fusedin_bilstm", 34, 401), ("lstm_scan", 64 * 34, 401),
                            ("lstm_revmasked", 64 * 34, 401)):
             x, wi, wh, b, xq, _ = _kernel_inputs(R, T, bf16, device, R + T)
             lens = torch.full((R,), T, dtype=torch.int32, device=device)
@@ -743,6 +923,9 @@ def phase_times(device, main_counts, train_counts, errs, train_errs):
             bound_ms, bound_by = _bounds(R, T, R * T)[name]
             extra.append({"name": name, "R": R, "T": T, "ms": ms, "bound_ms": bound_ms,
                           "bound_by": bound_by})
+            if name == "fusedin_bilstm":
+                extra[-1]["route"] = "persistent" if K.k1_route(
+                    bf16, R, N_IN, HID, _sm_count(device)) else "walk"
             del x, wi, wh, b, xq
         print("[times] " + json.dumps({"kernel_times_other_shapes": extra}))
         print("[times] " + json.dumps({"lstm_scan_row_tiles": _row_tile_sweep(device)}))
@@ -762,7 +945,12 @@ def phase_times(device, main_counts, train_counts, errs, train_errs):
     steps = _train_step_times(device)
     per_step = steps["bfloat16"]["launches_per_step"]
     for rec in records:
-        rec["launches_per_train_step"] = per_step[rec["name"]]
+        rec["launches_per_train_step"] = per_step.get(rec["name"], 0)
+    by_name = {rec["name"]: rec for rec in records}
+    by_name["fusedin_bilstm"]["launches_per_train_step"] = \
+        steps["float32"]["k1_routes_per_step"]["walk"]
+    by_name["fusedin_bilstm_persistent"]["launches_per_train_step"] = \
+        steps["bfloat16"]["k1_routes_per_step"]["persistent"]
     records += _train_kernel_times(device, train_counts, train_errs, per_step)
     print("[times] " + json.dumps({"train_step": steps}))
     return records
@@ -935,9 +1123,9 @@ def phase_flow_training(workdir: Path):
         state = train_se.run(_flow_config(workdir))
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        counts = K.launch_counts()
+        counts, routes = K.launch_counts(), K.route_counts()
         print(f"[flow training] 2 epochs x 2 steps (+ 2 validations with the sampler, 2 saves) "
-              f"in {seconds:.1f} s, launches {counts}")
+              f"in {seconds:.1f} s, launches {counts}, K1 routes {routes}")
         if (state.step, state.epoch) != (4, 2):
             fail(f"flow training ended at step {state.step}, epoch {state.epoch}; expected 4, 2")
         cfg = _flow_config(workdir)
@@ -976,6 +1164,8 @@ def phase_flow_training(workdir: Path):
     for fn in K.KERNELS[:7]:
         if counts[fn.__name__] <= 0:
             fail(f"kernel {fn.__name__} was not launched on the flow training path")
+    if routes != {"persistent": 0, "walk": counts["fusedin_bilstm"]}:
+        fail(f"the float32 flow training path took K1's routes {routes}, expected the walk")
     return counts, exp / "checkpoints" / "step_6.pt"
 
 
@@ -999,11 +1189,14 @@ def phase_flow_cli(workdir: Path, ckpt: Path):
         delta = {k: v - before[k] for k, v in K.launch_counts().items() if v - before[k]}
         print(f"[flow cli] {name}: {len(FLOW_UTTERANCES)} files in {seconds:.2f} s, "
               f"launches {delta}")
-    counts = K.launch_counts()
+    counts, routes = K.launch_counts(), K.route_counts()
+    print(f"[flow cli] K1 routes {routes}")
     for name in INFERENCE_KERNELS:
         if counts[name] <= 0:
             fail(f"kernel {name} was not launched by the flow inference CLI")
-    return counts
+    if routes != {"persistent": counts["fusedin_bilstm"], "walk": 0}:
+        fail(f"the bfloat16 flow CLI took K1's routes {routes}, expected K1p only")
+    return counts, routes
 
 
 # ---------------------------------------------------------------------------
@@ -1193,19 +1386,28 @@ def _new_kernel_times(device, ab, ab_counts, new_errs):
     kernel, plain version and bound; no PyTorch call computes a
     residual-storing recurrence, so the library time is none.  ``launches``
     is the A/B phase's count (one reset, one read), and the launches of one
-    train step are those measured in each family's first visit of each arm."""
+    train step are those measured in each family's first visit of each arm.
+    The same at the flow training shapes (N = 384, H = 768: K8 at the time
+    path R = 96, T = 251, its band path printed beside it, K9/K10 at the band
+    path R = 502, T = 48), added as flow_* keys."""
     import torch
     from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
 
     bf16 = torch.bfloat16
-    records = []
-    for name, (R, T) in (("lstm_train_fwd_streamin", TRAIN_TIME),
-                         ("lstm_train_fwd_streamin", TRAIN_BAND),
-                         ("lstm_train_fwd2", TRAIN_BAND), ("lstm_train_bwd2", TRAIN_BAND)):
-        x, wi, wh, b, xp, _ = _kernel_inputs(R, T, bf16, device, R + T)
+    records = {}
+    for name, (R, T), n_in, hid in (
+            ("lstm_train_fwd_streamin", TRAIN_TIME, N_IN, HID),
+            ("lstm_train_fwd_streamin", TRAIN_BAND, N_IN, HID),
+            ("lstm_train_fwd2", TRAIN_BAND, N_IN, HID), ("lstm_train_bwd2", TRAIN_BAND, N_IN, HID),
+            ("lstm_train_fwd_streamin", FLOW_TIME, FLOW_N, FLOW_H),
+            ("lstm_train_fwd_streamin", FLOW_BAND, FLOW_N, FLOW_H),
+            ("lstm_train_fwd2", FLOW_BAND, FLOW_N, FLOW_H),
+            ("lstm_train_bwd2", FLOW_BAND, FLOW_N, FLOW_H)):
+        flow = hid == FLOW_H
+        x, wi, wh, b, xp, _ = _kernel_inputs(R, T, bf16, device, R + T, n_in, hid)
         xp_b = xp.flip(1).contiguous()
         res = K.lstm_train_fwd2(xp, xp_b, wh[0], wh[1])
-        dout = (0.1 * torch.randn((2, R, T, HID), device=device)).to(bf16)
+        dout = (0.1 * torch.randn((2, R, T, hid), device=device)).to(bf16)
         kern, plain = {
             "lstm_train_fwd_streamin": (lambda: K.lstm_train_fwd_streamin(x, wi[0], b[0], wh[0]),
                                         lambda: K.lstm_train_fwd_streamin_plain(x, wi[0], b[0],
@@ -1218,15 +1420,22 @@ def _new_kernel_times(device, ab, ab_counts, new_errs):
                                                                 dout[1], wh[0], wh[1])),
         }[name]
         with torch.no_grad():
-            ms = _time_ms(kern)
-            plain_ms = _time_ms(plain, reps=3, warmup=1)
-        bound_ms, bound_by = _new_kernel_bounds(R, T, N_IN, HID)[name]
-        print(f"[times] {name} R={R} T={T} bf16: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-              f"library none, bound {bound_ms:.4f} ms ({bound_by})")
-        if name == "lstm_train_fwd_streamin" and (R, T) != TRAIN_TIME:
+            ms = _time_ms(kern, reps=3 if flow else 5, warmup=1 if flow else 2)
+            plain_ms = _time_ms(plain, reps=1 if flow else 3, warmup=1)
+        bound_ms, bound_by = _new_kernel_bounds(R, T, n_in, hid)[name]
+        print(f"[times] {name} R={R} T={T} N={n_in} H={hid} bf16: kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, library none, bound {bound_ms:.4f} ms ({bound_by})")
+        del x, wi, wh, b, xp, xp_b, res, dout
+        if name == "lstm_train_fwd_streamin" and (R, T) not in (TRAIN_TIME, FLOW_TIME):
+            continue
+        if flow:
+            records[name].update({
+                "flow_ms": ms, "flow_plain_ms": plain_ms, "flow_bound_ms": bound_ms,
+                "flow_bound_by": bound_by, "flow_library_ms": None,
+                "flow_shape": {"R": R, "T": T, "N": n_in, "H": hid}})
             continue
         e_abs, e_rel = new_errs[name, "bfloat16"]
-        records.append({
+        records[name] = {
             "name": name, "route": "cuda", "source": f"{PKG}/csrc/lstm_kernels.cu",
             "replaces": REPLACES[name], "launches": ab_counts[name],
             "launches_run": "a/b arms phase",
@@ -1236,19 +1445,20 @@ def _new_kernel_times(device, ab, ab_counts, new_errs):
             "tolerance": BF16_TOL,
             "tolerance_f32": GRAD_TOL if name.endswith("bwd2") else F32_TOL,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None, "shape": {"R": R, "T": T, "N": N_IN, "H": HID},
+            "library_ms": None, "shape": {"R": R, "T": T, "N": n_in, "H": hid},
             "dtype": "bfloat16",
             "launches_per_train_step": {
                 family: {arm: rec["launches"].get(name, 0) for arm, rec in fam["arms"].items()}
                 for family, fam in ab.items()},
-        })
-        del x, wi, wh, b, xp, xp_b, res, dout
-    return records
+        }
+    return list(records.values())
 
 
-def _flow_kernel_times(device, records, flow_counts, wide_errs, wide_train_errs):
+def _flow_kernel_times(device, records, flow_counts, wide_errs, wide_train_errs, k1_routes,
+                       flow_cli_routes):
     """K1-K7 at the flow training shapes (N = 384, H = 768), bf16: kernel,
-    plain version and bound, added to the K1-K7 records as flow_* keys."""
+    plain version and bound, added to the K1-K7 records as flow_* keys; K1p's
+    and cuDNN's times there are the k1_routes phase's (flow train band)."""
     import torch
     from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
 
@@ -1262,7 +1472,7 @@ def _flow_kernel_times(device, records, flow_counts, wide_errs, wide_train_errs)
     dout = (0.1 * torch.randn((tR, tT, FLOW_H), device=device)).to(bf16)
     valid = int(lengths.sum())
     timed = {
-        "fusedin_bilstm": (lambda: K.fusedin_bilstm(xb, wi, wh, b),
+        "fusedin_bilstm": (lambda: K.fusedin_bilstm_walk(xb, wi, wh, b),
                            lambda: K.fusedin_bilstm_plain(xb, wi, wh, b), (bR, bT)),
         "lstm_scan": (lambda: K.lstm_scan(xp, wh[0]), lambda: K.lstm_scan_plain(xp, wh[0]),
                       (tR, tT)),
@@ -1299,6 +1509,16 @@ def _flow_kernel_times(device, records, flow_counts, wide_errs, wide_train_errs)
             })
             print(f"[times] {name} flow R={R} T={T} H={FLOW_H} bf16: kernel {ms:.3f} ms, plain "
                   f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    flow = next(r for r in k1_routes if (r["R"], r["T"], r["H"]) == (bR, bT, FLOW_H))
+    by_name["fusedin_bilstm"]["flow_library_ms"] = flow["cudnn_ms"]
+    walk = by_name["fusedin_bilstm"]
+    by_name["fusedin_bilstm_persistent"].update({
+        "flow_ms": flow["k1p_ms"], "flow_plain_ms": walk["flow_plain_ms"],
+        "flow_bound_ms": flow["bound_ms"], "flow_bound_by": flow["bound_by"],
+        "flow_library_ms": flow["cudnn_ms"], "flow_launches": flow_cli_routes["persistent"],
+        "flow_launches_run": "flow inference CLI", "flow_shape": walk["flow_shape"],
+        "flow_max_abs_err": flow["max_abs_err_vs_plain"], "flow_plan": flow["plan"],
+    })
 
 
 def _flow_step_and_enhance_times(device):
@@ -1324,6 +1544,8 @@ def _flow_step_and_enhance_times(device):
         K.reset_launch_counts()
         step(model, opt, clean, noisy, lengths, generator=trainer.step_generator(cfg.seed, 0))
         per_step = {k: v for k, v in K.launch_counts().items() if v}
+        _check_routes(f"flow train step {compute_dtype}", compute_dtype, K.route_counts())
+        per_step["k1_routes"] = K.route_counts()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         times = []
@@ -1351,6 +1573,8 @@ def _flow_step_and_enhance_times(device):
         K.reset_launch_counts()
         F.flowse_enhance(model, fcfg, wav, 48000, N=15, generator=gen)
         launches = {k: v for k, v in K.launch_counts().items() if v}
+        _check_routes("flow enhance", "bfloat16", K.route_counts())
+        launches["k1_routes"] = K.route_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         y = F.flowse_enhance(model, fcfg, wav, 48000, N=15, generator=gen)
@@ -1409,19 +1633,21 @@ def main() -> int:
     wide_train_errs = timed("training kernels H=768", phase_train_kernels, device, FLOW_H,
                             (FLOW_TIME, FLOW_BAND), FLOW_SECONDS, 384)
     new_errs = timed("K8-K10", phase_new_kernels, device)
+    k1_routes = timed("k1_routes", phase_k1_routes, device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=REPO) as tmp:
-        counts = timed("inference path", phase_main_path, Path(tmp))
-        train_counts = timed("training path", phase_training, Path(tmp))
+        counts, main_routes = timed("inference path", phase_main_path, Path(tmp))
+        train_counts, train_routes = timed("training path", phase_training, Path(tmp))
         flow_counts, flow_ckpt = timed("flow training path", phase_flow_training, Path(tmp))
-        timed("flow inference path", phase_flow_cli, Path(tmp), flow_ckpt)
+        _, flow_cli_routes = timed("flow inference path", phase_flow_cli, Path(tmp), flow_ckpt)
     ab, ab_counts = timed("a/b arms", phase_ab_arms, device)
     timed("card vs cpu forward", phase_card_vs_cpu, device)
     timed("card vs cpu gradients", phase_grads_card_vs_cpu, device)
     timed("flow card vs cpu", phase_flow_card_vs_cpu, device)
-    records = timed("times", phase_times, device, counts, train_counts, errs, train_errs)
+    records = timed("times", phase_times, device, counts, train_counts, errs, train_errs,
+                    k1_routes, main_routes, train_routes)
     records += timed("times K8-K10", _new_kernel_times, device, ab, ab_counts, new_errs)
     timed("times K1-K7 flow shapes", _flow_kernel_times, device, records, flow_counts,
-          wide_errs, wide_train_errs)
+          wide_errs, wide_train_errs, k1_routes, flow_cli_routes)
     flow_times = timed("times flow", _flow_step_and_enhance_times, device)
     print("[times] " + json.dumps({"ab_arms": ab, "flow": flow_times}))
     print(f"[done] {time.perf_counter() - t0:.1f} s")

@@ -6,6 +6,8 @@ imports no JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -53,12 +55,103 @@ def _err(a, b):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fusedin_matches_plain(dev, dtype, rows):
+    """K1's walk at every row tile (bfloat16 takes K1p by default)."""
     rng = np.random.default_rng(0)
     x, wi, wh, b = (_t(rng, dev, dtype, R, T, N), _t(rng, dev, dtype, 2, N, 4 * H),
                     _t(rng, dev, dtype, 2, H, 4 * H), _t(rng, dev, dtype, 2, 4 * H))
-    got = cuda_lstm.fusedin_bilstm(x, wi, wh, b)
+    got = cuda_lstm.fusedin_bilstm_walk(x, wi, wh, b)
     assert got.shape == (R, T, 2 * H) and got.dtype == dtype
     assert _err(got, cuda_lstm.fusedin_bilstm_plain(x, wi, wh, b)) < TOLS[dtype]
+
+
+# --- K1p: the persistent route of K1 (bfloat16) -----------------------------
+
+K1P_ULPS = 4  # K1p's limit: bf16 ulps at the outputs' largest magnitude (as chip_smoke.py)
+
+
+def _k1p_limit(ref):
+    return K1P_ULPS * 2.0 ** (math.floor(math.log2(float(ref.float().abs().max()))) - 7)
+
+
+def _plain_stale_h(x, w_ih_t, w_hh_t, bias):
+    """A planted barrier fault: K1's plain version fed h one step stale."""
+    R_, T_, _ = x.shape
+    outs = []
+    for d in range(2):
+        xw = x.float() @ w_ih_t[d].float() + bias[d].float()
+        stale = h = xw.new_zeros((R_, w_hh_t.shape[1]))
+        c = torch.zeros_like(h)
+        out = x.new_empty((R_, T_, h.shape[1]))
+        for s in range(T_):
+            t = T_ - 1 - s if d else s
+            h_new, c, _ = cuda_lstm._cell(xw[:, t] + stale.to(x.dtype).float() @ w_hh_t[d].float(),
+                                          c)
+            stale, h = h, h_new
+            out[:, t] = h_new.to(x.dtype)
+        outs.append(out)
+    return torch.cat(outs, dim=-1)
+
+
+def _k1_inputs(dev, R_, T_, N_, H_, seed):
+    rng = np.random.default_rng(seed)
+    w = H_ ** -0.5  # the LSTM init's scale
+    return (_t(rng, dev, torch.bfloat16, R_, T_, N_),
+            _t(rng, dev, torch.bfloat16, 2, N_, 4 * H_, scale=w),
+            _t(rng, dev, torch.bfloat16, 2, H_, 4 * H_, scale=w),
+            _t(rng, dev, torch.bfloat16, 2, 4 * H_, scale=w))
+
+
+@pytest.mark.parametrize("shape", [(R, T, N, H), (13, 7, 33, 20), (21, 5, 34, 44),
+                                   (401, 34, 196, 392), (48, 501, 384, 768)],
+                         ids=["small", "odd_n", "n_mod4", "disc_band", "flow_time"])
+def test_persistent_matches_plain(dev, shape):
+    """K1p against the plain version in bfloat16 within 4 ulps at the
+    outputs' scale, a limit that a stale h exceeds: ragged small shapes
+    (rows whose addresses allow 16-, 4- or 2-byte staging), the
+    discriminative band path (401 x 34) and the flow time path (48 x 501)."""
+    x, wi, wh, b = _k1_inputs(dev, *shape, seed=15)
+    cuda_lstm.reset_launch_counts()
+    got = cuda_lstm.fusedin_bilstm(x, wi, wh, b)
+    assert cuda_lstm.route_counts() == {"persistent": 1, "walk": 0}
+    assert got.shape == (shape[0], shape[1], 2 * shape[3]) and got.dtype == torch.bfloat16
+    ref = cuda_lstm.fusedin_bilstm_plain(x, wi, wh, b)
+    limit = _k1p_limit(ref)
+    assert _err(got, ref) < limit
+    assert _err(_plain_stale_h(x, wi, wh, b), ref) >= limit
+
+
+def test_route_follows_the_dtype(dev):
+    """float32 takes the walk, bfloat16 K1p; both count as K1 launches."""
+    x, wi, wh, b = _k1_inputs(dev, R, T, N, H, seed=16)
+    cuda_lstm.reset_launch_counts()
+    cuda_lstm.fusedin_bilstm(x.float(), wi.float(), wh.float(), b.float())
+    assert cuda_lstm.route_counts() == {"persistent": 0, "walk": 1}
+    cuda_lstm.fusedin_bilstm(x, wi, wh, b)
+    assert cuda_lstm.route_counts() == {"persistent": 1, "walk": 1}
+    assert cuda_lstm.launch_counts()["fusedin_bilstm"] == 2
+    with pytest.raises(TypeError):
+        cuda_lstm.fusedin_bilstm_persistent(x.float(), wi.float(), wh.float(), b.float())
+
+
+def test_persistent_refuses_a_grid_the_card_cannot_hold(dev):
+    """A plan of more CTAs than the card holds resident is refused at launch
+    (cudaErrorCooperativeLaunchTooLarge) instead of hanging in the barrier;
+    the next launch runs."""
+    import dataclasses
+
+    x, wi, wh, b = _k1_inputs(dev, 400, 3, 40, 72, seed=17)
+    plan = cuda_lstm.plan_persistent(400, 40, 72, 132)
+    big = dataclasses.replace(plan, G=100, rows=4, S=18, U=4)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert big.ctas > sms
+    cuda_lstm.reset_launch_counts()
+    with pytest.raises(RuntimeError):
+        cuda_lstm.fusedin_bilstm_persistent(x, wi, wh, b, big)
+    torch.cuda.synchronize()
+    assert cuda_lstm.route_counts() == {"persistent": 0, "walk": 0}
+    got = cuda_lstm.fusedin_bilstm_persistent(x, wi, wh, b)
+    ref = cuda_lstm.fusedin_bilstm_plain(x, wi, wh, b)
+    assert _err(got, ref) < _k1p_limit(ref)
 
 
 @pytest.mark.parametrize("reverse", [False, True])

@@ -1,0 +1,574 @@
+// K1p: the fused-input bidirectional LSTM as a persistent, weight-stationary
+// tensor-core recurrence for NVIDIA Hopper (sm_90a), bound with ctypes.
+//
+// Replaces urgent2026_challenge_track1_tpu/ops/pallas_lstm.py:
+// _fusedin_forward (body _fusedin_step) for bfloat16 inputs, beside K1's walk
+// in lstm_kernels.cu (fusedin_kernel), which keeps float32 and every shape
+// without a plan.  Each step computes, for both directions,
+//   gates = x_t W_ih^T + round_bf16(h_{t-1}) W_hh^T + b      (f32 sums)
+//   c = f c + i g,  h = o tanh(c)                             (f32 cell)
+// and writes h (bf16) to out (R, T, 2H), forward || backward.
+//
+// What bounded the walk: every block re-read all of W_ih and W_hh (1.8 MB at
+// N = 196, H = 392; 7.1 MB at N = 384, H = 768) from L2 on every step and
+// multiplied them on CUDA cores for at most 8 rows, so a launch moved
+// 12-341 GB through L2.  The arithmetic bound is 0.05-0.35 ms a launch.
+//
+// Design (ops/cuda_lstm.plan_persistent picks the numbers):
+//   * one cooperative grid of 2 x G x S CTAs, one per SM: direction d, row
+//     group g, column slice s.  CTA (d, g, s) owns hidden units
+//     [s U, min((s + 1) U, H)) of direction d for the rows of group g, and
+//     the four gate columns q H + u of each unit, so the cell update needs
+//     nothing from other CTAs;
+//   * its slice of [W_ih; W_hh] ((Kx + Kh) x 4U bf16, each K segment padded
+//     to 16 with zero rows, zero columns past H; packed by
+//     ops/cuda_lstm.pack_persistent_weights) is loaded into shared memory
+//     once and stays there for the whole walk: weights cross L2 once per
+//     launch;
+//   * a step walks the group's rows in chunks of CH <= 64 rows: stage x_t and
+//     add x_t W_ih on tensor cores (mma.sync m16n8k16 bf16 from ldmatrix,
+//     f32 accumulators in registers; the 8 warps split the output columns
+//     four ways and the K steps two ways, and the two partial sums are added
+//     in shared memory in a fixed order, so a launch is deterministic); on
+//     the first chunk wait for step t - 1 of the (d, g) group; stage
+//     h_{t-1}, which is the bf16 output just written, out[r, t -/+ 1, d H :
+//     d H + H] (the output tensor is the exchange buffer), with L2-only
+//     copies (cp.async.cg: an L1 line could be stale); add h W_hh; run the
+//     cell in f32 and write h.  Staging is cp.async, every copy of a chunk
+//     in flight at once.  c lives in shared memory when the group's cells
+//     fit, otherwise in a global (R, 2, H) f32 buffer; only its owner
+//     touches it, and a chunk's c is loaded into registers before the
+//     products;
+//   * the barrier of a (d, g) group: __syncthreads, then one thread fences
+//     and adds 1 to the group's counter; the S CTAs of the group wait until
+//     it reaches S * step with acquire loads.  The wait is bounded: past
+//     kSpinTimeoutNs it traps, so a planner error fails the launch instead
+//     of hanging.  Rows are independent, so only the S CTAs of one (d, g)
+//     wait on each other.
+// What bounds it now: every phase of a step runs in turn.  Built with
+// -DK1P_PHASE_CLOCKS, the kernel sums each CTA's clock64 cycles per phase
+// (profile_k1p.py prints them; PERF.md has an H100's): at N = 384, H = 768
+// and 48 rows the products, the staging of h (every CTA of the group reads
+// all of its h from L2) and the cell lead.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+// Per-phase clock64 sums of each CTA (a measurement build only): the c
+// load, staging x, x W_ih, the wait, staging h, h W_hh, the reduction, the
+// cell, the arrival.
+#ifdef K1P_PHASE_CLOCKS
+constexpr int kPhases = 9;
+constexpr int kMaxCtas = 1024;
+__device__ long long phase_cycles[kMaxCtas][kPhases];
+#define K1P_MARK(k)                                \
+  if (threadIdx.x == 0) {                          \
+    const long long now = clock64();               \
+    cycles[k] += now - last;                       \
+    last = now;                                    \
+  }
+#else
+#define K1P_MARK(k)
+#endif
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+// The products of a chunk: the 16 x 8 output blocks (mt row blocks x 4U / 8
+// column blocks) are split over kNGroups warp columns (column blocks
+// ng, ng + 4, ...) and the K steps of each segment over kKGroups warp rows,
+// whose partial sums are added in shared memory in a fixed order.  A warp
+// holds mt x nb <= kAccBlocks accumulator blocks; mt <= 4, nb <= 8.
+constexpr int kNGroups = 4;
+constexpr int kKGroups = kWarps / kNGroups;
+static_assert(kKGroups == 2, "reduce_blocks adds two warp rows");
+constexpr int kAccBlocks = 16;
+constexpr int kMaxChunk = 64;
+constexpr int kCellSlots = 8;     // cells (row, unit) a thread updates per chunk
+constexpr int kSmemLimit = 232448;  // 227 KB of dynamic shared memory a block
+constexpr unsigned long long kSpinTimeoutNs = 10ull * 1000 * 1000 * 1000;
+
+// The partition of ops/cuda_lstm.PersistentPlan, and the shared-memory
+// layout that follows from it (the planner reckons the same bytes).
+struct Plan {
+  int R, Tn, N, H;
+  int S, G, U, rows;  // rows: rows per group
+  int chunk;          // rows per chunk, a multiple of 16
+  int c_in_smem;
+  int kx, kh;         // K segments padded to 16
+  __host__ __device__ int cols() const { return 4 * U; }
+  __host__ __device__ int ldw() const { return 4 * U + 8; }           // bf16
+  __host__ __device__ int lda() const { return (kx > kh ? kx : kh) + 8; }  // bf16
+  __host__ __device__ int ldc() const { return 4 * U + 4; }           // f32
+  __host__ __device__ size_t smem_bytes() const {
+    return 2 * (size_t)(kx + kh) * ldw() + 2 * (size_t)chunk * lda() +
+           4 * (size_t)chunk * ldc() + 4 * (size_t)cols() +
+           (c_in_smem ? 4 * (size_t)rows * U : 0);
+  }
+};
+
+struct Args {
+  const bf16* x;     // (R, T, N)
+  const bf16* w;     // (2, S, kx + kh, 4U) packed [W_ih; W_hh] slices
+  const bf16* bias;  // (2, S, 4U)
+  bf16* out;         // (R, T, 2H)
+  float* c_global;   // (R, 2, H) when !c_in_smem
+  int* counters;     // (2, G) zeros
+  Plan p;
+};
+
+__device__ __forceinline__ float sigmoid_f(float x) { return 1.f / (1.f + __expf(-x)); }
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ unsigned long long globaltimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// Wait until the group's counter reaches target (every CTA of the group has
+// finished the previous step), then release the block.
+__device__ __forceinline__ void wait_for(const int* counter, int target) {
+  if (threadIdx.x == 0) {
+    const unsigned long long start = globaltimer();
+    while (ld_acquire(counter) < target) {
+      if (globaltimer() - start > kSpinTimeoutNs) __trap();
+    }
+  }
+  __syncthreads();
+}
+
+// One asynchronous copy of BYTES from global to shared memory: L2_ONLY
+// (16 bytes) goes around L1 (cp.async.cg), else through it (cp.async.ca).
+template <int BYTES, bool L2_ONLY>
+__device__ __forceinline__ void cp_async(bf16* dst, const bf16* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (L2_ONLY) {
+    static_assert(BYTES == 16, "cp.async.cg copies 16 bytes");
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(src), "n"(BYTES)
+                 : "memory");
+  }
+}
+
+// Copy rows x n bf16 from src (row stride lds) to dst (row stride ldd) in
+// asynchronous copies of BYTES (all in flight at once).
+template <int BYTES, bool L2_ONLY>
+__device__ __forceinline__ void async_rows(bf16* dst, int ldd, const bf16* src, size_t lds,
+                                           int rows, int n) {
+  constexpr int E = BYTES / sizeof(bf16);
+  const int per_row = n / E;
+  for (int i = threadIdx.x; i < rows * per_row; i += kThreads) {
+    const int r = i / per_row;
+    const int v = i - r * per_row;
+    cp_async<BYTES, L2_ONLY>(dst + r * ldd + v * E, src + r * lds + v * E);
+  }
+}
+
+// The same with plain loads, for rows whose addresses allow no 16-byte
+// copies around L1 (h when H is not a multiple of 8) or no 4-byte copies.
+template <bool L2_ONLY>
+__device__ __forceinline__ void copy_rows(bf16* dst, int ldd, const bf16* src, size_t lds,
+                                          int rows, int n) {
+  const unsigned short* in = reinterpret_cast<const unsigned short*>(src);
+  unsigned short* o = reinterpret_cast<unsigned short*>(dst);
+  for (int i = threadIdx.x; i < rows * n; i += kThreads) {
+    const int r = i / n;
+    const int k = i - r * n;
+    o[r * ldd + k] = L2_ONLY ? __ldcg(in + r * lds + k) : __ldg(in + r * lds + k);
+  }
+}
+
+// Stage rows x n of src into dst and zero its columns [n, npad); returns
+// when this thread's copies have landed (a __syncthreads must follow).
+template <bool L2_ONLY>
+__device__ __forceinline__ void stage(bf16* dst, int ldd, const bf16* src, size_t lds, int rows,
+                                      int n, int npad) {
+  const uintptr_t mis = reinterpret_cast<uintptr_t>(src) | (lds * sizeof(bf16)) |
+                        (n * sizeof(bf16));
+  if ((mis & 15) == 0) {
+    async_rows<16, L2_ONLY>(dst, ldd, src, lds, rows, n);
+  } else if (!L2_ONLY && (mis & 7) == 0) {
+    async_rows<8, false>(dst, ldd, src, lds, rows, n);
+  } else if (!L2_ONLY && (mis & 3) == 0) {
+    async_rows<4, false>(dst, ldd, src, lds, rows, n);
+  } else {
+    copy_rows<L2_ONLY>(dst, ldd, src, lds, rows, n);
+  }
+  const int pad = npad - n;
+  for (int i = threadIdx.x; i < rows * pad; i += kThreads) {
+    const int r = i / pad;
+    dst[r * ldd + n + (i - r * pad)] = __float2bfloat16(0.f);
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// A 16 x 16 bf16 block of a row-major matrix in shared memory as the A
+// operand of mma.m16n8k16 (lane l gives the address of row l % 16, column
+// block l / 16).
+__device__ __forceinline__ void load_a(unsigned (&a)[4], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr));
+}
+
+// A 16 x 8 bf16 block of a row-major K x N matrix in shared memory as the B
+// operand (lanes 0-15 give the addresses of rows k .. k + 15).
+__device__ __forceinline__ void load_b(unsigned (&b)[2], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(b[0]), "=r"(b[1])
+               : "r"(addr));
+}
+
+// d += a b on the tensor cores: 16 x 16 bf16 times 16 x 8 bf16, f32 sums.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// acc[m * NB + j] += A (row block m, k steps [k0, k1)) times W (the same k,
+// this warp's column block j) for MT row blocks and NB column blocks; all
+// MT x NB products of a k step are independent, and each A and B block is
+// loaded once for them.  a_base / b_base: this lane's ldmatrix address of
+// row block 0 / the warp's first column block at k = 0.
+template <int MT, int NB>
+__device__ __forceinline__ void mma_blocks(float (&acc)[kAccBlocks][4], unsigned a_base,
+                                           unsigned b_base, int k0, int k1, unsigned lda_bytes,
+                                           unsigned ldw_bytes) {
+#pragma unroll 2
+  for (int k = k0; k < k1; k += 16) {
+    unsigned a[MT][4], b[NB][2];
+#pragma unroll
+    for (int m = 0; m < MT; ++m) load_a(a[m], a_base + m * 16 * lda_bytes + 2 * k);
+#pragma unroll
+    for (int j = 0; j < NB; ++j) load_b(b[j], b_base + k * ldw_bytes + j * kNGroups * 16);
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+#pragma unroll
+      for (int j = 0; j < NB; ++j) mma_bf16(acc[m * NB + j], a[m], b[j]);
+    }
+  }
+}
+
+// The warp's accumulator blocks into acc_s (chunk x 4U f32), or, ADD, added
+// to what another warp put there (the m16n8 layout: rows l / 4 and l / 4 + 8,
+// columns 2 (l % 4) and + 1).
+template <int MT, int NB, bool ADD>
+__device__ __forceinline__ void put_blocks(const float (&acc)[kAccBlocks][4], float* acc_s,
+                                           int ldc, int ng, int lane) {
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      float* o = acc_s + (m * 16 + lane / 4) * ldc + (ng + j * kNGroups) * 8 + 2 * (lane % 4);
+      float2 lo = make_float2(acc[m * NB + j][0], acc[m * NB + j][1]);
+      float2 hi = make_float2(acc[m * NB + j][2], acc[m * NB + j][3]);
+      if (ADD) {
+        const float2 plo = *reinterpret_cast<const float2*>(o);
+        const float2 phi = *reinterpret_cast<const float2*>(o + 8 * ldc);
+        lo.x += plo.x;
+        lo.y += plo.y;
+        hi.x += phi.x;
+        hi.y += phi.y;
+      }
+      *reinterpret_cast<float2*>(o) = lo;
+      *reinterpret_cast<float2*>(o + 8 * ldc) = hi;
+    }
+  }
+}
+
+// Calls OP(MT, NB) for the warp's (mt, nb); the planner keeps mt x nb within
+// these cases.
+#define K1P_SHAPES(OP)                                                                      \
+  OP(1, 1) OP(1, 2) OP(1, 3) OP(1, 4) OP(1, 5) OP(1, 6) OP(1, 7) OP(1, 8) OP(2, 1) OP(2, 2) \
+  OP(2, 3) OP(2, 4) OP(2, 5) OP(2, 6) OP(2, 7) OP(2, 8) OP(3, 1) OP(3, 2) OP(3, 3) OP(3, 4) \
+  OP(3, 5) OP(4, 1) OP(4, 2) OP(4, 3) OP(4, 4)
+
+// acc += this warp's share of A (chunk x K, a_s) times W (K x 4U, w_seg):
+// its column blocks and its half (kg) of the K steps.  The pads of lda and
+// ldw make every ldmatrix free of bank conflicts (row strides an odd
+// multiple of 16 bytes modulo 128).
+__device__ __forceinline__ void mma_segment(float (&acc)[kAccBlocks][4], const bf16* a_s,
+                                            int lda, const bf16* w_seg, int ldw, int K, int mt,
+                                            int nb, int ng, int kg) {
+  const int lane = threadIdx.x % 32;
+  const unsigned a_base = smem_addr(a_s + (lane % 16) * lda + (lane / 16) * 8);
+  const unsigned b_base = smem_addr(w_seg + (lane % 16) * ldw + ng * 8);
+  const int half = (K / 16 + kKGroups - 1) / kKGroups * 16;
+  const int k0 = kg * half;
+  const int k1 = min(K, k0 + half);
+  const unsigned lda_bytes = 2 * lda, ldw_bytes = 2 * ldw;
+#define K1P_MMA(M, N)                                                        \
+  case M * 16 + N:                                                           \
+    mma_blocks<M, N>(acc, a_base, b_base, k0, k1, lda_bytes, ldw_bytes);    \
+    break;
+  switch (mt * 16 + nb) {
+    K1P_SHAPES(K1P_MMA)
+    default: break;  // nb = 0: no column block for this warp
+  }
+#undef K1P_MMA
+}
+
+// acc_s = the sum of the kKGroups = 2 warp rows' partial products, in a
+// fixed order (deterministic); ends with the block synchronised.
+__device__ __forceinline__ void reduce_blocks(const float (&acc)[kAccBlocks][4], float* acc_s,
+                                              int ldc, int mt, int nb, int ng, int kg) {
+  const int lane = threadIdx.x % 32;
+#define K1P_PUT(M, N)                                     \
+  case M * 16 + N:                                        \
+    put_blocks<M, N, false>(acc, acc_s, ldc, ng, lane);   \
+    break;
+#define K1P_ADD(M, N)                                     \
+  case M * 16 + N:                                        \
+    put_blocks<M, N, true>(acc, acc_s, ldc, ng, lane);    \
+    break;
+  if (kg == 1) {
+    switch (mt * 16 + nb) {
+      K1P_SHAPES(K1P_PUT)
+      default: break;
+    }
+  }
+  __syncthreads();
+  if (kg == 0) {
+    switch (mt * 16 + nb) {
+      K1P_SHAPES(K1P_ADD)
+      default: break;
+    }
+  }
+  __syncthreads();
+#undef K1P_PUT
+#undef K1P_ADD
+}
+
+__global__ void __launch_bounds__(kThreads, 1) fusedin_persistent_kernel(const Args a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Plan p = a.p;
+  const int s = blockIdx.x, g = blockIdx.y, d = blockIdx.z;
+  const int U = p.U, C = p.cols(), H = p.H;
+  const int ldw = p.ldw(), lda = p.lda(), ldc = p.ldc();
+  const int Kp = p.kx + p.kh;
+  bf16* w_s = reinterpret_cast<bf16*>(smem);
+  bf16* a_s = w_s + (size_t)Kp * ldw;
+  float* acc_s = reinterpret_cast<float*>(a_s + (size_t)p.chunk * lda);
+  float* b_s = acc_s + (size_t)p.chunk * ldc;
+  float* c_s = b_s + C;
+
+  const int r_begin = g * p.rows;
+  const int r_count = min(p.rows, p.R - r_begin);
+  const int u0 = s * U;
+  const int nu = min(U, H - u0);
+  const size_t ld_out = 2 * (size_t)H;
+  int* counter = a.counters + d * p.G + g;
+  // c of (row in group, unit in slice): shared memory or the global buffer
+  float* cb = p.c_in_smem ? c_s : a.c_global + ((size_t)r_begin * 2 + d) * H + u0;
+  const size_t cld = p.c_in_smem ? (size_t)U : ld_out;
+
+  // the weight slice (16-byte vectors; 4U is a multiple of 16), the bias,
+  // a zero A buffer and a zero c
+  const bf16* wg = a.w + (size_t)(d * p.S + s) * Kp * C;
+  const int vpr = C / 8;
+  for (int i = threadIdx.x; i < Kp * vpr; i += kThreads) {
+    const int k = i / vpr;
+    const int v = i - k * vpr;
+    *reinterpret_cast<uint4*>(w_s + (size_t)k * ldw + v * 8) =
+        __ldg(reinterpret_cast<const uint4*>(wg + (size_t)k * C + v * 8));
+  }
+  for (int j = threadIdx.x; j < C; j += kThreads)
+    b_s[j] = __bfloat162float(a.bias[(size_t)(d * p.S + s) * C + j]);
+  for (int i = threadIdx.x; i < p.chunk * lda; i += kThreads) a_s[i] = __float2bfloat16(0.f);
+  for (int i = threadIdx.x; i < r_count * U; i += kThreads) {
+    const int row = i / U;
+    const int ul = i - row * U;
+    if (ul < nu) cb[row * cld + ul] = 0.f;
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32;
+  const int ng = warp % kNGroups;
+  const int kg = warp / kNGroups;
+  const int nb = (C / 8 - ng + kNGroups - 1) / kNGroups;  // column blocks ng, ng + 4, ...
+  // this thread's cells (row, unit) of a full chunk, i = tid + j * kThreads;
+  // a row past the chunk's marks an empty slot
+  int cell_row[kCellSlots], cell_ul[kCellSlots];
+#pragma unroll
+  for (int j = 0; j < kCellSlots; ++j) {
+    const int i = threadIdx.x + j * kThreads;
+    cell_row[j] = i / U;
+    cell_ul[j] = i - cell_row[j] * U;
+    if (cell_ul[j] >= nu) cell_row[j] = p.chunk;
+  }
+#ifdef K1P_PHASE_CLOCKS
+  long long cycles[kPhases] = {}, last = clock64();
+#endif
+  for (int step = 0; step < p.Tn; ++step) {
+    const int t = d ? p.Tn - 1 - step : step;
+    const int tp = d ? t + 1 : t - 1;
+    for (int r0 = 0; r0 < r_count; r0 += p.chunk) {
+      const int rows = min(p.chunk, r_count - r0);
+      const int mt = (rows + 15) / 16;
+      const size_t rg = (size_t)(r_begin + r0);
+      float acc[kAccBlocks][4] = {};
+      // the chunk's c, loaded now: its latency hides behind the products
+      float c_reg[kCellSlots];
+#pragma unroll
+      for (int j = 0; j < kCellSlots; ++j) {
+        c_reg[j] = cell_row[j] < rows ? cb[(size_t)(r0 + cell_row[j]) * cld + cell_ul[j]] : 0.f;
+      }
+      K1P_MARK(0)
+
+      // x_t W_ih: independent of h, so the first chunk's runs before the wait
+      stage<false>(a_s, lda, a.x + (rg * p.Tn + t) * p.N, (size_t)p.Tn * p.N, rows, p.N, p.kx);
+      __syncthreads();
+      K1P_MARK(1)
+      mma_segment(acc, a_s, lda, w_s, ldw, p.kx, mt, nb, ng, kg);
+      __syncthreads();  // a_s is free
+      K1P_MARK(2)
+      if (step > 0) {
+        if (r0 == 0) wait_for(counter, p.S * step);
+        K1P_MARK(3)
+        stage<true>(a_s, lda, a.out + (rg * p.Tn + tp) * ld_out + (size_t)d * H, p.Tn * ld_out,
+                    rows, H, p.kh);
+        __syncthreads();
+        K1P_MARK(4)
+        mma_segment(acc, a_s, lda, w_s + (size_t)p.kx * ldw, ldw, p.kh, mt, nb, ng, kg);
+        K1P_MARK(5)
+      }
+      // acc_s: the chunk's pre-activations (without b)
+      reduce_blocks(acc, acc_s, ldc, mt, nb, ng, kg);
+      K1P_MARK(6)
+
+#pragma unroll
+      for (int j = 0; j < kCellSlots; ++j) {
+        const int row = cell_row[j];
+        const int ul = cell_ul[j];
+        if (row >= rows) continue;
+        const float* pre = acc_s + row * ldc + ul;
+        const float ig = sigmoid_f(pre[0] + b_s[ul]);
+        const float fg = sigmoid_f(pre[U] + b_s[U + ul]);
+        const float gg = tanhf(pre[2 * U] + b_s[2 * U + ul]);
+        const float og = sigmoid_f(pre[3 * U] + b_s[3 * U + ul]);
+        const float c = fg * c_reg[j] + ig * gg;
+        cb[(size_t)(r0 + row) * cld + ul] = c;
+        a.out[((rg + row) * p.Tn + t) * ld_out + (size_t)d * H + u0 + ul] =
+            __float2bfloat16(og * tanhf(c));
+      }
+      K1P_MARK(7)
+      // the next chunk first writes a_s, free since the last product; acc_s
+      // is written again only after two more barriers
+    }
+    // arrive: every h of this step is stored before the counter moves
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      __threadfence();
+      atomicAdd(counter, 1);
+    }
+    K1P_MARK(8)
+  }
+#ifdef K1P_PHASE_CLOCKS
+  const int cta = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
+  if (threadIdx.x == 0 && cta < kMaxCtas) {
+    for (int k = 0; k < kPhases; ++k) phase_cycles[cta][k] = cycles[k];
+  }
+#endif
+}
+
+bool bad_plan(const Plan& p) {
+  const int col_blocks = (p.U + 7) / 8;  // column blocks of the widest warp column
+  return p.R <= 0 || p.Tn <= 0 || p.N <= 0 || p.H <= 0 || p.S <= 0 || p.G <= 0 ||
+         p.U <= 0 || p.U % 4 != 0 || p.rows <= 0 || p.chunk <= 0 || p.chunk % 16 != 0 ||
+         (long long)p.S * p.U < p.H || (long long)(p.S - 1) * p.U >= p.H ||
+         (long long)p.G * p.rows < p.R || (long long)(p.G - 1) * p.rows >= p.R ||
+         p.chunk > kMaxChunk || col_blocks > 8 || p.chunk / 16 * col_blocks > kAccBlocks ||
+         p.chunk * p.U > kThreads * kCellSlots ||
+         p.smem_bytes() > (size_t)kSmemLimit;
+}
+
+}  // namespace
+
+extern "C" {
+
+// The per-phase cycle sums of the last launch, (CTA, phase) into host;
+// cudaErrorNotSupported unless built with -DK1P_PHASE_CLOCKS.
+int lstm_persistent_phase_cycles(long long* host, int ctas) {
+#ifdef K1P_PHASE_CLOCKS
+  if (ctas > kMaxCtas) return (int)cudaErrorInvalidValue;
+  return (int)cudaMemcpyFromSymbol(host, phase_cycles, sizeof(long long) * kPhases * ctas);
+#else
+  (void)host;
+  (void)ctas;
+  return (int)cudaErrorNotSupported;
+#endif
+}
+
+// Shared-memory bytes of one CTA of a plan (the planner's reckoning, for a
+// check from Python).
+long long lstm_persistent_smem(int N, int H, int U, int rows, int chunk, int c_in_smem) {
+  Plan p{};
+  p.N = N;
+  p.H = H;
+  p.U = U;
+  p.rows = rows;
+  p.chunk = chunk;
+  p.c_in_smem = c_in_smem;
+  p.kx = (N + 15) / 16 * 16;
+  p.kh = (H + 15) / 16 * 16;
+  return (long long)p.smem_bytes();
+}
+
+// K1p: x (R, T, N) bf16, the packed weights (2, S, Kx + Kh, 4U) and bias
+// (2, S, 4U) bf16 -> out (R, T, 2H) bf16; c_global (R, 2, H) f32 scratch
+// unless c_in_smem; counters (2, G) int32 zeros.  Returns the cudaError_t of
+// the cooperative launch: cudaErrorCooperativeLaunchTooLarge when the grid
+// cannot be co-resident, cudaErrorInvalidValue for a plan that does not
+// cover the rows and units exactly once or does not fit.
+int lstm_fusedin_persistent(const void* x, const void* w, const void* bias, void* out,
+                            void* c_global, void* counters, int R, int Tn, int N, int H, int S,
+                            int G, int U, int rows, int chunk, int c_in_smem, void* stream) {
+  Args a{static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+         static_cast<const bf16*>(bias), static_cast<bf16*>(out),
+         static_cast<float*>(c_global), static_cast<int*>(counters), Plan{}};
+  Plan& p = a.p;
+  p.R = R;
+  p.Tn = Tn;
+  p.N = N;
+  p.H = H;
+  p.S = S;
+  p.G = G;
+  p.U = U;
+  p.rows = rows;
+  p.chunk = chunk;
+  p.c_in_smem = c_in_smem;
+  p.kx = (N + 15) / 16 * 16;
+  p.kh = (H + 15) / 16 * 16;
+  if (bad_plan(p) || (!c_in_smem && c_global == nullptr)) return (int)cudaErrorInvalidValue;
+  const size_t smem = p.smem_bytes();
+  cudaError_t e = cudaFuncSetAttribute(fusedin_persistent_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess) {
+    void* params[] = {&a};
+    e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(fusedin_persistent_kernel),
+                                    dim3(S, G, 2), dim3(kThreads), params, smem,
+                                    static_cast<cudaStream_t>(stream));
+  }
+  if (e != cudaSuccess) cudaGetLastError();  // a refused launch leaves no sticky error behind
+  return (int)e;
+}
+
+}  // extern "C"

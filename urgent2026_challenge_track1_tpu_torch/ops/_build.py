@@ -1,10 +1,13 @@
 """Build the CUDA kernels with nvcc at first use and bind them with ctypes.
 
 The sources under ``csrc/`` compile to one shared library with a plain C
-interface (no PyTorch headers, so a build takes seconds).  The library lands
+interface (no PyTorch headers, so a build takes seconds): one nvcc per
+source, all started together, then one link.  The library lands
 in ``_build/`` inside the package, under a name keyed on a hash of the
-sources and flags, so an edit to a source rebuilds it and an unchanged tree
-reuses it.  A missing ``nvcc`` or a failed build raises.
+sources, flags and defines, so an edit to a source rebuilds it and an
+unchanged tree reuses it.  A missing ``nvcc`` or a failed build raises.
+Defines make a measurement build (``K1P_PHASE_CLOCKS``: K1p's per-phase
+cycle counters) beside the plain one.
 """
 
 from __future__ import annotations
@@ -22,16 +25,17 @@ from pathlib import Path
 __all__ = ["BuildResult", "build", "load_library"]
 
 PKG_DIR = Path(__file__).resolve().parent.parent
-SOURCES = (PKG_DIR / "csrc" / "lstm_kernels.cu",)
+SOURCES = (PKG_DIR / "csrc" / "lstm_kernels.cu", PKG_DIR / "csrc" / "lstm_persistent.cu")
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signatures of csrc/lstm_kernels.cu (pointers and the stream as void*)
+# C signatures of csrc/*.cu (pointers and the stream as void*); each returns
+# an int (a cudaError_t) unless _RESTYPES says otherwise
 _SIGNATURES = {
     "lstm_fusedin_bilstm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "lstm_scan": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
@@ -43,7 +47,11 @@ _SIGNATURES = {
     "lstm_train_fwd_streamin": (_P,) * 7 + (_I,) * 7 + (_P,),
     "lstm_train_fwd2": (_P,) * 10 + (_I,) * 5 + (_P,),
     "lstm_train_bwd2": (_P,) * 14 + (_I,) * 5 + (_P,),
+    "lstm_fusedin_persistent": (_P,) * 6 + (_I,) * 10 + (_P,),
+    "lstm_persistent_smem": (_I,) * 6,
+    "lstm_persistent_phase_cycles": (_P, _I),
 }
+_RESTYPES = {"lstm_persistent_smem": ctypes.c_longlong}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,42 +77,56 @@ def find_nvcc() -> str:
     return found
 
 
-def _digest() -> str:
+def _digest(flags) -> str:
     h = hashlib.sha256()
     for src in SOURCES:
         h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     return h.hexdigest()[:16]
 
 
-def build() -> BuildResult:
-    """Compile the kernels unless a library for these sources exists."""
+def build(defines: tuple[str, ...] = ()) -> BuildResult:
+    """Compile the kernels (with ``-D`` each of ``defines``) unless a
+    library for these sources and flags exists."""
+    flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib = BUILD_DIR / f"liblstm_kernels_{_digest()}.so"
+    lib = BUILD_DIR / f"liblstm_kernels_{_digest(flags)}.so"
     log_path = lib.with_suffix(".log")
     if lib.exists():
         log = log_path.read_text() if log_path.exists() else ""
         return BuildResult(lib, 0.0, log)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+    nvcc = find_nvcc()
+    objs = [lib.with_name(f"{lib.stem}.{src.stem}.{os.getpid()}.o") for src in SOURCES]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    cmds = [[nvcc, *flags, "-c", "-o", str(o), str(src)] for src, o in zip(SOURCES, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    runs = [(c, p.communicate()[0], p.returncode) for c, p in zip(cmds, procs)]
+    link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(tmp),
+            *map(str, objs)]
+    if all(rc == 0 for _, _, rc in runs):
+        proc = subprocess.run(link, capture_output=True, text=True)
+        runs.append((link, proc.stdout + proc.stderr, proc.returncode))
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+    log = "".join(out for _, out, _ in runs)
+    for o in objs:
+        o.unlink(missing_ok=True)
+    for cmd, out, rc in runs:
+        if rc != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}")
     log_path.write_text(log)
     os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
     return BuildResult(lib, seconds, log)
 
 
 @functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    """The built kernel library with every C signature declared."""
-    lib = ctypes.CDLL(str(build().path))
+def load_library(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The kernel library built with ``defines``, every C signature declared."""
+    lib = ctypes.CDLL(str(build(defines).path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
+        fn.restype = _RESTYPES.get(name, ctypes.c_int)
     return lib

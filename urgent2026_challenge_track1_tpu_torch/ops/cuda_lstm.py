@@ -11,6 +11,10 @@ bfloat16, h and c always float32):
 
   fusedin_bilstm  x (R, T, N), w_ih_t (2, N, 4H), w_hh_t (2, H, 4H),
                   bias (2, 4H)                        -> (R, T, 2H)
+                  on one of two routes, fixed before launch by ``k1_route``:
+                  K1p (``fusedin_bilstm_persistent``, csrc/lstm_persistent.cu)
+                  for bfloat16 where ``plan_persistent`` finds a plan, else
+                  the walk (``fusedin_bilstm_walk``, csrc/lstm_kernels.cu)
   lstm_scan       x_proj (R, T, 4H), w_hh_t (H, 4H)   -> (R, T, H)
   lstm_revmasked  x_proj (R, T, 4H), w_hh_t (H, 4H),
                   lengths (R,) int32                   -> (R, T, H)
@@ -26,6 +30,8 @@ bfloat16, h and c always float32):
   lstm_train_bwd2           (K10) K5 for both directions in one launch
 
 Index 0 of the stacked K1 weights is the forward direction, 1 the backward.
+``fusedin_bilstm.routes`` counts K1's launches per route ("persistent",
+"walk"); ``reset_launch_counts`` zeroes them with the launch counts.
 ``LSTMDirTrain`` (K4/K5) and ``LSTMRevMaskedTrain`` (K6/K7) are the autograd
 Functions of the training path; ``lstm_dir`` and ``lstm_dir_revmasked``
 route to them when autograd records and to the lean K2/K3 otherwise.
@@ -38,12 +44,20 @@ the two experiment toggles below at call time, as the JAX VJP rules read
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
 
 __all__ = [
     "fusedin_bilstm",
+    "fusedin_bilstm_walk",
+    "fusedin_bilstm_persistent",
+    "fusedin_bilstm_sliced_plain",
+    "PersistentPlan",
+    "plan_persistent",
+    "pack_persistent_weights",
+    "k1_route",
     "lstm_scan",
     "lstm_revmasked",
     "fusedin_bilstm_plain",
@@ -76,6 +90,7 @@ __all__ = [
     "KERNELS",
     "reset_launch_counts",
     "launch_counts",
+    "route_counts",
 ]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -256,6 +271,170 @@ def fusedin_bilstm_plain(x: torch.Tensor, w_ih_t: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# K1p: the partition, the packed weight layout and the plain sliced walk
+# ---------------------------------------------------------------------------
+
+SMEM_LIMIT = 232448  # dynamic shared memory of one block on an H100 (227 KB)
+MAX_CHUNK = 64       # rows a chunk walks at once: at most 4 row blocks of 16
+MAX_ACC_BLOCKS = 16  # 16 x 8 accumulator blocks a warp holds (row blocks x ceil(U / 8))
+MAX_CELLS = 2048     # (row, unit) cells of a chunk: 256 threads x 8 each
+GROUP_ROWS = 64      # rows per group the planner aims for before widening S
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _pad16(n: int) -> int:
+    return _ceil(n, 16) * 16
+
+
+def persistent_smem(N: int, H: int, U: int, chunk: int, rows: int = 0,
+                    c_in_smem: bool = False) -> int:
+    """Shared-memory bytes of one K1p CTA (csrc/lstm_persistent.cu
+    ``Plan::smem_bytes``): the weight slice (Kx + Kh) x (4U + 8) bf16, a
+    chunk of staged inputs chunk x (max(Kx, Kh) + 8) bf16, its accumulators
+    chunk x (4U + 4) f32, the bias 4U f32 and, when it lives there, c (rows
+    x U f32).  The +8 / +4 pads spread rows over the banks."""
+    kx, kh = _pad16(N), _pad16(H)
+    return (2 * (kx + kh) * (4 * U + 8) + 2 * chunk * (max(kx, kh) + 8)
+            + 4 * chunk * (4 * U + 4) + 4 * 4 * U + (4 * rows * U if c_in_smem else 0))
+
+
+@dataclasses.dataclass(frozen=True)
+class PersistentPlan:
+    """K1p's partition: 2 x G x S CTAs; CTA (d, g, s) owns hidden units
+    [s U, min((s + 1) U, H)) of direction d for rows [g rows, min((g + 1)
+    rows, R)), walked ``chunk`` rows at a time; c in shared memory or in a
+    global (R, 2, H) buffer."""
+    R: int
+    N: int
+    H: int
+    S: int
+    G: int
+    U: int
+    rows: int
+    chunk: int
+    c_in_smem: bool
+    smem: int
+
+    @property
+    def kx(self) -> int:
+        return _pad16(self.N)
+
+    @property
+    def kh(self) -> int:
+        return _pad16(self.H)
+
+    @property
+    def ctas(self) -> int:
+        return 2 * self.G * self.S
+
+
+@functools.lru_cache(maxsize=256)
+def plan_persistent(R: int, N: int, H: int, sms: int,
+                    smem_bytes: int = SMEM_LIMIT) -> PersistentPlan | None:
+    """The K1p partition of R rows, N inputs and H units on ``sms`` SMs, or
+    None when no slice fits in ``smem_bytes`` or the grid exceeds the SMs.
+
+    L2 traffic per step (the staged h) grows with S, not with G, so: the
+    smallest S whose slice fits beside one 16-row chunk; then rows spread
+    over G = max(1, min(sms // 2S, ceil(R / 64))) groups; then S widened to
+    the SMs left over (U, a multiple of 4, shrinks with it); then the
+    largest chunk that fits, and c in shared memory if it fits too."""
+    if min(R, N, H, sms) <= 0:
+        return None
+
+    def units(S):  # ceil(H / S) rounded up to a multiple of 4
+        return _ceil(_ceil(H, S), 4) * 4
+
+    def fits(U, chunk, rows=0, c_in_smem=False):
+        blocks = chunk // 16 * _ceil(U, 8)  # a warp's: its column blocks of every row block
+        return (chunk <= MAX_CHUNK and U <= 64 and blocks <= MAX_ACC_BLOCKS
+                and chunk * U <= MAX_CELLS
+                and persistent_smem(N, H, U, chunk, rows, c_in_smem) <= smem_bytes)
+
+    S = 1
+    while not fits(units(S), 16):
+        if units(S) == 4:
+            return None
+        S += 1
+    S = _ceil(H, units(S))
+    if 2 * S > sms:
+        return None
+    G = max(1, min(sms // (2 * S), _ceil(R, GROUP_ROWS)))
+    U = units(min(sms // (2 * G), _ceil(H, 4)))
+    S = _ceil(H, U)
+    rows = _ceil(R, G)
+    G = _ceil(R, rows)
+    chunk = next(c for c in range(min(_pad16(rows), MAX_CHUNK), 0, -16) if fits(U, c))
+    c_in_smem = fits(U, chunk, rows, True)
+    return PersistentPlan(R, N, H, S, G, U, rows, chunk, c_in_smem,
+                          persistent_smem(N, H, U, chunk, rows, c_in_smem))
+
+
+@functools.lru_cache(maxsize=64)
+def _packed_columns(H: int, S: int, U: int, device: torch.device) -> torch.Tensor:
+    """Column q H + s U + j of a stacked weight for packed column (s, q U +
+    j), or 4H (a zero column) past H; flat (S 4U,)."""
+    units = torch.arange(S * U).reshape(S, 1, U)
+    cols = torch.arange(4).reshape(1, 4, 1) * H + units
+    return torch.where(units < H, cols, 4 * H).reshape(-1).to(device)
+
+
+def pack_persistent_weights(w_ih_t: torch.Tensor, w_hh_t: torch.Tensor, bias: torch.Tensor,
+                            plan: PersistentPlan):
+    """K1's stacked weights in K1p's layout: (2, S, Kx + Kh, 4U) with rows
+    [0, N) of W_ih^T and [Kx, Kx + H) of W_hh^T (zero rows between) and
+    column q U + j = gate q of unit s U + j (zero past H); the bias (2, S,
+    4U) in the same columns.  Slice s of direction d is one contiguous
+    block, which its CTA copies into shared memory once."""
+    N, H, S, U = plan.N, plan.H, plan.S, plan.U
+    cols = _packed_columns(H, S, U, w_ih_t.device)
+    z = w_ih_t.new_zeros(())
+    # [W_ih^T; 0; W_hh^T; 0] with a zero column 4H appended: one gather
+    k = torch.cat([w_ih_t, z.expand(2, plan.kx - N, 4 * H), w_hh_t,
+                   z.expand(2, plan.kh - H, 4 * H)], dim=1)
+    k = torch.cat([k, z.expand(2, plan.kx + plan.kh, 1)], dim=2)
+    w = k.index_select(2, cols).reshape(2, plan.kx + plan.kh, S, 4 * U).transpose(1, 2)
+    b = torch.cat([bias, z.expand(2, 1)], dim=1).index_select(1, cols).reshape(2, S, 4 * U)
+    return w.contiguous(), b
+
+
+def fusedin_bilstm_sliced_plain(x: torch.Tensor, packed, plan: PersistentPlan) -> torch.Tensor:
+    """Plain version of K1p: reads only the packed slices (``packed`` =
+    ``pack_persistent_weights``'s pair) and walks the (direction, group,
+    slice) schedule step by step as the kernel does: h_{t-1} read back
+    from the output (rounded to x's dtype), c kept per (row, direction,
+    unit), f32 sums."""
+    w, b = packed
+    R, T, N = x.shape
+    H, U = plan.H, plan.U
+    out = x.new_zeros((R, T, 2 * H))
+    c = torch.zeros((R, 2, H), dtype=torch.float32, device=x.device)
+    for step in range(T):
+        for d in range(2):
+            t = T - 1 - step if d else step
+            for g in range(plan.G):
+                rows = slice(g * plan.rows, min((g + 1) * plan.rows, R))
+                xr = x[rows, t].float()
+                hr = out[rows, t + 1 if d else t - 1, d * H:(d + 1) * H].float() if step else None
+                for s in range(plan.S):
+                    u0, nu = s * U, min(U, H - s * U)
+                    ws = w[d, s].float()
+                    pre = xr @ ws[:N]
+                    if hr is not None:
+                        pre = pre + hr @ ws[plan.kx:plan.kx + H]
+                    pre = (pre + b[d, s].float()).reshape(-1, 4, U)[..., :nu]
+                    cu = (torch.sigmoid(pre[:, 1]) * c[rows, d, u0:u0 + nu]
+                          + torch.sigmoid(pre[:, 0]) * torch.tanh(pre[:, 2]))
+                    c[rows, d, u0:u0 + nu] = cu
+                    out[rows, t, d * H + u0:d * H + u0 + nu] = (
+                        torch.sigmoid(pre[:, 3]) * torch.tanh(cu)).to(x.dtype)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -305,19 +484,55 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
 
 
+def _device_index(device: torch.device) -> int:
+    return device.index if device.index is not None else torch.cuda.current_device()
+
+
+def k1_route(dtype: torch.dtype, R: int, N: int, H: int, sms: int) -> PersistentPlan | None:
+    """K1's route, a fixed rule decided before launch from the dtype and the
+    shape: the K1p plan for bfloat16 where ``plan_persistent`` finds one on
+    ``sms`` SMs, else None (the walk: float32, or no plan)."""
+    if dtype != torch.bfloat16:
+        return None
+    return plan_persistent(R, N, H, sms)
+
+
 def fusedin_bilstm(x: torch.Tensor, w_ih_t: torch.Tensor, w_hh_t: torch.Tensor,
                    bias: torch.Tensor) -> torch.Tensor:
-    """K1: bidirectional LSTM on the raw input; (R, T, N) -> (R, T, 2H)."""
+    """K1: bidirectional LSTM on the raw input; (R, T, N) -> (R, T, 2H), on
+    the route ``k1_route`` picks (K1p or the walk)."""
     if x.device.type == "cpu":
         return fusedin_bilstm_plain(x, w_ih_t, w_hh_t, bias)
+    R, _, N = x.shape
+    plan = k1_route(x.dtype, R, N, w_hh_t.shape[1], _sm_count(_device_index(x.device)))
+    if plan is None:
+        return fusedin_bilstm_walk(x, w_ih_t, w_hh_t, bias)
+    return fusedin_bilstm_persistent(x, w_ih_t, w_hh_t, bias, plan)
+
+
+def _check_k1(x, w_ih_t, w_hh_t, bias):
     R, T, N = x.shape
     H = w_hh_t.shape[1]
-    dtype, stream = _kernel_args(x, H)
     _check("x", x, (R, T, N), x.dtype, x.device)
     _check("w_ih_t", w_ih_t, (2, N, 4 * H), x.dtype, x.device)
     _check("w_hh_t", w_hh_t, (2, H, 4 * H), x.dtype, x.device)
     _check("bias", bias, (2, 4 * H), x.dtype, x.device)
-    out = torch.empty((R, T, 2 * H), dtype=x.dtype, device=x.device)
+    return R, T, N, H, torch.empty((R, T, 2 * H), dtype=x.dtype, device=x.device)
+
+
+def _count_k1(route: str) -> None:
+    fusedin_bilstm.launches += 1
+    fusedin_bilstm.routes[route] += 1
+
+
+def fusedin_bilstm_walk(x: torch.Tensor, w_ih_t: torch.Tensor, w_hh_t: torch.Tensor,
+                        bias: torch.Tensor) -> torch.Tensor:
+    """K1's walk (csrc/lstm_kernels.cu ``fusedin_kernel``), float32 or
+    bfloat16; counted in ``fusedin_bilstm.launches`` and ``.routes["walk"]``."""
+    if x.device.type == "cpu":
+        return fusedin_bilstm_plain(x, w_ih_t, w_hh_t, bias)
+    dtype, stream = _kernel_args(x, w_hh_t.shape[1])
+    R, T, N, H, out = _check_k1(x, w_ih_t, w_hh_t, bias)
     if R == 0 or T == 0:
         return out
     from urgent2026_challenge_track1_tpu_torch.ops._build import load_library
@@ -327,7 +542,50 @@ def fusedin_bilstm(x: torch.Tensor, w_ih_t: torch.Tensor, w_hh_t: torch.Tensor,
         out.data_ptr(), R, T, N, H, dtype, rows_per_block(R, 2, x.device, H), stream,
     )
     _raise_on(err, "fusedin_bilstm")
-    fusedin_bilstm.launches += 1
+    _count_k1("walk")
+    return out
+
+
+def fusedin_bilstm_persistent(x: torch.Tensor, w_ih_t: torch.Tensor, w_hh_t: torch.Tensor,
+                              bias: torch.Tensor, plan: PersistentPlan | None = None,
+                              library=None) -> torch.Tensor:
+    """K1p (csrc/lstm_persistent.cu), bfloat16 only: packs the weights for
+    ``plan`` (``plan_persistent``'s by default) and launches one cooperative
+    grid from ``library`` (the plain build by default); a grid the card
+    cannot hold resident raises.  Counted in ``fusedin_bilstm.launches`` and
+    ``.routes["persistent"]``."""
+    if x.device.type == "cpu":
+        return fusedin_bilstm_plain(x, w_ih_t, w_hh_t, bias)
+    R, T, N = x.shape
+    H = w_hh_t.shape[1]
+    if x.device.type != "cuda":
+        raise ValueError(f"kernel input on unsupported device {x.device}")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"K1p takes bfloat16 inputs, not {x.dtype}")
+    out = _check_k1(x, w_ih_t, w_hh_t, bias)[-1]
+    plan = plan or plan_persistent(R, N, H, _sm_count(_device_index(x.device)))
+    if plan is None:
+        raise ValueError(f"no K1p plan for R={R}, N={N}, H={H}")
+    if (plan.R, plan.N, plan.H) != (R, N, H):
+        raise ValueError(f"plan for {(plan.R, plan.N, plan.H)}, inputs {(R, N, H)}")
+    if T == 0:
+        return out
+    w, b = pack_persistent_weights(w_ih_t, w_hh_t, bias, plan)
+    c = None if plan.c_in_smem else torch.empty((R, 2, H), dtype=torch.float32,
+                                                 device=x.device)
+    counters = torch.zeros((2, plan.G), dtype=torch.int32, device=x.device)
+    if library is None:
+        from urgent2026_challenge_track1_tpu_torch.ops._build import load_library
+
+        library = load_library()
+    err = library.lstm_fusedin_persistent(
+        x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+        None if c is None else c.data_ptr(), counters.data_ptr(), R, T, N, H,
+        plan.S, plan.G, plan.U, plan.rows, plan.chunk, int(plan.c_in_smem),
+        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
+    )
+    _raise_on(err, "fusedin_bilstm_persistent")
+    _count_k1("persistent")
     return out
 
 
@@ -740,14 +998,21 @@ def lstm_dir_streamin(x: torch.Tensor, w_ih_t: torch.Tensor, bias: torch.Tensor,
 KERNELS = (fusedin_bilstm, lstm_scan, lstm_revmasked, lstm_train_fwd, lstm_train_bwd,
            lstm_revmasked_train_fwd, lstm_revmasked_bwd, lstm_train_fwd_streamin,
            lstm_train_fwd2, lstm_train_bwd2)
-for _fn in KERNELS:
-    _fn.launches = 0
 
 
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
+    fusedin_bilstm.routes = {"persistent": 0, "walk": 0}
 
 
 def launch_counts() -> dict[str, int]:
     return {fn.__name__: fn.launches for fn in KERNELS}
+
+
+def route_counts() -> dict[str, int]:
+    """K1's launches per route since the last reset."""
+    return dict(fusedin_bilstm.routes)
+
+
+reset_launch_counts()

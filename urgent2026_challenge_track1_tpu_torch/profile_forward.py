@@ -54,6 +54,8 @@ def _flags(name: str, kernel: str) -> list[bool]:
 
 def _group(name: str) -> str:
     """Kernel name -> the port kernel it belongs to, or its own name."""
+    if re.search(r"(?:::|\d)fusedin_persistent_kernel(?:[(E]|$)", name):
+        return "K1p fusedin_persistent"
     if _names(name, "fusedin_kernel"):
         stream = _flags(name, "fusedin_kernel") == [True]
         return "K8 lstm_train_fwd_streamin" if stream else "K1 fusedin_bilstm"

@@ -174,11 +174,28 @@ class TrainState:
     ema: Optional[torch.nn.Module] = None  # flow only: the EMA weights
 
 
-def _weighted_grad_norm(grads: list[torch.Tensor]) -> torch.Tensor:
-    """Reference Grad_norm: sum(||g_p|| * numel(p)) / sum(numel)."""
-    norms = torch.stack([torch.linalg.vector_norm(g.float()) for g in grads])
-    numel = torch.tensor([float(g.numel()) for g in grads], device=norms.device)
-    return (norms * numel).sum() / (numel.sum() + 1e-5)
+def _leaf_name(name: str) -> str:
+    """The JAX leaf a parameter belongs to: ``layers.{i}.<rest>`` of every
+    layer i is one layer-stacked leaf ``layers.<rest>``
+    (``utils/params.from_jax_params``); every other name is its own leaf."""
+    parts = name.split(".")
+    return ".".join(parts[:1] + parts[2:]) if parts[0] == "layers" else name
+
+
+def _weighted_grad_norm(named_grads) -> torch.Tensor:
+    """Reference Grad_norm over the JAX package's leaves (its trainer.py
+    _step_core): sum(||g_leaf|| * numel(leaf)) / sum(numel).  The layers'
+    tensors of one name form one leaf, of norm sqrt(sum_i ||g_i||^2) and
+    size sum_i numel."""
+    sumsq: dict[str, list[torch.Tensor]] = {}
+    numel: dict[str, int] = {}
+    for name, g in named_grads:
+        leaf = _leaf_name(name)
+        sumsq.setdefault(leaf, []).append(torch.linalg.vector_norm(g.float()) ** 2)
+        numel[leaf] = numel.get(leaf, 0) + g.numel()
+    norms = torch.stack([torch.stack(v).sum().sqrt() for v in sumsq.values()])
+    sizes = torch.tensor([float(numel[k]) for k in sumsq], device=norms.device)
+    return (norms * sizes).sum() / (sizes.sum() + 1e-5)
 
 
 def loss_and_metrics(bundle: ModelBundle, fs: int, model, clean, noisy, lengths):
@@ -211,12 +228,12 @@ def make_train_step(bundle: ModelBundle, cfg: Config, fs: int):
         else:
             loss, extra = loss_and_metrics(bundle, fs, model, clean, noisy, lengths)
         loss.backward()
-        params = list(model.parameters())
-        for p in params:
+        named = list(model.named_parameters())
+        for _, p in named:
             if p.grad is None:  # optax updates (and decays) every leaf
                 p.grad = torch.zeros_like(p)
-        grads = [p.grad for p in params]
-        gnorm = _weighted_grad_norm(grads)
+        grads = [p.grad for _, p in named]
+        gnorm = _weighted_grad_norm((name, p.grad) for name, p in named)
         # a non-finite element of any gradient makes the norm non-finite
         bad = not math.isfinite(float(gnorm))
         if not bad:
