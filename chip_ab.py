@@ -1,0 +1,131 @@
+#!/usr/bin/env python3
+"""Same-card A/B of the port's end-to-end times across source trees.
+
+    python3 chip_ab.py TREE [TREE ...]      e.g.  _tree_check . . _tree_check
+
+Runs each tree in turn, in its own process, from that tree's own package
+and ``chip_smoke.py``: builds its kernels, then times one length-exact
+forward (B=1, 3.7 s at 48 kHz in a 4 s bucket, 196 x 6, bf16), the forward
+at the JAX bench geometry (B=64, 4 s at 48 kHz, 192 x 6, bf16, no lengths),
+the discriminative train step (``chip_smoke._train_step_times``: B=4, 2 s
+at 48 kHz, 196 x 6, float32 and bfloat16, peak memory), the flow train
+step and enhancement (``chip_smoke._flow_step_and_enhance_times``), the
+enhancement again as the median of 5 (``flow_enhance5_ms``), and K1p alone
+(``fusedin_bilstm_persistent``, CUDA events) at each of
+``chip_smoke.K1_ROUTE_SHAPES``.  Give the trees in an order that brackets
+drift (parent, change, change, parent).
+Prints one JSON line per visit (``[ab] {...}``), then the card's name and
+power limit, then a JSON summary of the medians per tree.  Needs one card.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+_VISIT = r'''
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+import chip_smoke as cs
+from urgent2026_challenge_track1_tpu_torch.dsp.stft import STFTConfig
+from urgent2026_challenge_track1_tpu_torch.models.bsrnn import (
+    BSRNNConfig, bsrnn_se_apply, init_bsrnn)
+
+cs.phase_build()
+device = torch.device("cuda", 0)
+out = {"tree": sys.argv[1]}
+with torch.inference_mode():
+    model = init_bsrnn(BSRNNConfig(num_channel=196, num_layer=6, compute_dtype="bfloat16"),
+                       seed=3, device=device)
+    wav = 0.1 * torch.randn((1, 4 * 48000), device=device)
+    lens = torch.tensor([int(3.7 * 48000)], device=device)
+    out["one_utterance_ms"] = cs._time_ms(
+        lambda: bsrnn_se_apply(model, STFTConfig(), wav, 48000, lens), reps=5, warmup=2)
+    model = init_bsrnn(BSRNNConfig(num_channel=192, num_layer=6, compute_dtype="bfloat16"),
+                       seed=4, device=device)
+    wav = 0.1 * torch.randn((64, 4 * 48000), device=device)
+    out["b64_forward_ms"] = cs._time_ms(lambda: bsrnn_se_apply(model, STFTConfig(), wav, 48000),
+                                        reps=3, warmup=1)
+    del model, wav
+out["train_step"] = cs._train_step_times(device)
+out["flow"] = cs._flow_step_and_enhance_times(device)
+from urgent2026_challenge_track1_tpu_torch.models import bsrnn_flowse as F
+from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
+fcfg = F.FlowSEConfig(compute_dtype="bfloat16")
+with torch.inference_mode():
+    model = F.init_flowse(fcfg, seed=11, device=device).eval()
+    wav = 0.1 * torch.randn((1, 4 * 48000), device=device)
+    times = []
+    for i in range(6):
+        gen = torch.Generator(device=device).manual_seed(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        F.flowse_enhance(model, fcfg, wav, 48000, N=15, generator=gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["flow_enhance5_ms"] = sorted(times[1:])[2]
+    del model, wav
+    sms = cs._sm_count(device)
+    out["k1p_ms"] = {}
+    for _, R, T, N, H in cs.K1_ROUTE_SHAPES:
+        x, wi, wh, b, _, _ = cs._kernel_inputs(R, T, torch.bfloat16, device, R + T, N, H)
+        plan = K.plan_persistent(R, N, H, sms)
+        out["k1p_ms"][f"{R}x{T}"] = cs._time_ms(
+            lambda: K.fusedin_bilstm_persistent(x, wi, wh, b, plan))
+        del x, wi, wh, b
+print("[ab] " + json.dumps(out), flush=True)
+'''
+
+
+def _summary(visits):
+    keys = {"one_utterance_ms": lambda v: v["one_utterance_ms"],
+            "b64_forward_ms": lambda v: v["b64_forward_ms"]}
+    for fam, part in (("disc", "train_step"), ("flow", "flow")):
+        for dt in ("float32", "bfloat16"):
+            keys[f"{fam}_step_{dt}_ms"] = lambda v, p=part, d=dt: v[p][d]["median_ms"]
+            keys[f"{fam}_step_{dt}_peak_gb"] = lambda v, p=part, d=dt: v[p][d]["peak_memory_gb"]
+    keys["flow_enhance_ms"] = lambda v: v["flow"]["enhance"]["ms"]
+    keys["flow_enhance5_ms"] = lambda v: v["flow_enhance5_ms"]
+    for shape in visits[0]["k1p_ms"]:
+        keys[f"k1p_{shape}_ms"] = lambda v, s=shape: v["k1p_ms"][s]
+    trees = {}
+    for v in visits:
+        for k, get in keys.items():
+            trees.setdefault(v["tree"], {}).setdefault(k, []).append(get(v))
+    return {tree: {k: {"each": vals, "median": statistics.median(vals)}
+                   for k, vals in metrics.items()} for tree, metrics in trees.items()}
+
+
+def main(argv) -> int:
+    if not argv:
+        print(__doc__, file=sys.stderr)
+        return 2
+    visits = []
+    for tree in argv:
+        path = Path(tree).resolve()
+        if not (path / "chip_smoke.py").is_file():
+            print(f"chip_ab: {tree} holds no chip_smoke.py", file=sys.stderr)
+            return 2
+        proc = subprocess.run([sys.executable, "-c", _VISIT, str(path)], capture_output=True,
+                              text=True, cwd=path)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("[ab] ")]
+        if proc.returncode != 0 or not lines:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+            print(f"chip_ab: the visit of {tree} failed ({proc.returncode})", file=sys.stderr)
+            return 1
+        print(lines[-1], flush=True)
+        visits.append(json.loads(lines[-1][5:]))
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip())
+    print(json.dumps({"ab_summary": _summary(visits)}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

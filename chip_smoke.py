@@ -14,7 +14,11 @@ Phases (any failure exits non-zero; each prints its seconds):
      K9/K10 against K4/K5 run per direction (bitwise equal); then K1p, K1's
      persistent bfloat16 route, against the plain version and the walk at
      the seven shapes where K1 runs, with its plan and its, the walk's and
-     cuDNN's times (the k1_routes phase);
+     cuDNN's times (the k1_routes phase); then K2p and K3p, the persistent
+     bfloat16 routes of K2 and K3, against the plain versions and the walks
+     at every step at the five shapes where they run, with their plans, a
+     planted stale-h fault, their, the walks' and the plain versions' times
+     and an S sweep (the scan_routes phase);
   3. drive the inference path through the port's CLI at full width (196
      channels x 6 layers, random seeded weights) on 8-48 kHz WAVs, and the
      training path through the port's ``train_se.run`` (196 x 6, batch 4,
@@ -23,8 +27,9 @@ Phases (any failure exits non-zero; each prints its seconds):
      with model_type=flowse at 384 x 6 (batch 2, 2 s at 48 kHz, validation
      with the N = 10 sampler, EMA, a resume) and the inference CLI on its
      checkpoint with the euler and heun solvers; check that every kernel of
-     each path ran, and that K1 took K1p on the bfloat16 paths (the CLIs)
-     and the walk on the float32 ones (the training runs);
+     each path ran, and that K1-K3 took K1p-K3p on the bfloat16 paths (the
+     CLIs) and the walks on the float32 ones (the training runs'
+     validations; a train step runs none of K1-K3);
   4. the A/B arms of the two experiment toggles (default, STREAM_INPUT_TRAIN,
      FUSED_BIDIR_TRAIN, both, in alternating order) on one train step of
      each family: launches per kernel, loss and gradients against the
@@ -59,9 +64,6 @@ REPO = Path(__file__).resolve().parent
 PKG = "urgent2026_challenge_track1_tpu_torch"
 
 F32_TOL, BF16_TOL = 2e-4, 5e-2  # scripts/check_pallas_tpu.py:29-34
-# K1p against the plain version and the walk: this many bf16 ulps at the
-# outputs' largest magnitude (_k1p_limit)
-K1P_ULPS = 4
 GRAD_TOL = 1e-3                 # f32 gradients, relative (max|d| / max|ref|), same source
 E2E_TOL = 1e-3                  # card (kernels) vs CPU (plain), float32 waveform and grads
 N_IN, HID = 196, 392            # BSRNN_baseline: num_channel 196, H = 2N
@@ -157,7 +159,9 @@ INFERENCE_KERNELS = ("fusedin_bilstm", "lstm_scan", "lstm_revmasked")
 
 
 def phase_kernels(device, n_in=N_IN, hid=HID, time_shapes=TIME_SHAPES, band_shapes=BAND_SHAPES):
-    """max|kernel - plain| per kernel and dtype over the main-path shapes."""
+    """max|kernel - plain| per kernel and dtype over the main-path shapes, for
+    the walks of K1-K3 (their bfloat16 persistent routes: the k1_routes and
+    scan_routes phases)."""
     import torch
     from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
 
@@ -176,58 +180,26 @@ def phase_kernels(device, n_in=N_IN, hid=HID, time_shapes=TIME_SHAPES, band_shap
             if (R, T) in band_shapes:
                 continue  # K2/K3 run on the time path only
             for reverse in (False, True):
-                got = K.lstm_scan(xp, w_hh_t[0], reverse)
+                got = K.lstm_scan_walk(xp, w_hh_t[0], reverse)
                 ref = K.lstm_scan_plain(xp, w_hh_t[0], reverse)
                 torch.cuda.synchronize()
                 e = _err(got, ref)
                 errs["lstm_scan", dt_name] = max(errs["lstm_scan", dt_name], e)
-                print(f"[kernels] lstm_scan reverse={reverse} {dt_name} R={R} T={T}: max|d|={e:.3e}")
-            got = K.lstm_revmasked(xp, w_hh_t[1], lengths)
+                print(f"[kernels] lstm_scan (walk) reverse={reverse} {dt_name} R={R} T={T}: "
+                      f"max|d|={e:.3e}")
+            got = K.lstm_revmasked_walk(xp, w_hh_t[1], lengths)
             ref = K.lstm_revmasked_plain(xp, w_hh_t[1], lengths)
             torch.cuda.synchronize()
             valid = torch.arange(T, device=device)[None, :] < lengths[:, None]
             e = _err(got, ref, valid)
             errs["lstm_revmasked", dt_name] = max(errs["lstm_revmasked", dt_name], e)
-            print(f"[kernels] lstm_revmasked {dt_name} R={R} T={T}: max|d| (t < len)={e:.3e}")
+            print(f"[kernels] lstm_revmasked (walk) {dt_name} R={R} T={T}: max|d| (t < len)="
+                  f"{e:.3e}")
     for (name, dt_name), e in errs.items():
         tol = F32_TOL if dt_name == "float32" else BF16_TOL
         if not e < tol:
             fail(f"{name} {dt_name}: max|kernel - plain| {e:.3e} >= {tol}")
     return errs
-
-
-def _k1p_limit(ref) -> float:
-    """K1P_ULPS bf16 ulps at max|ref| (bf16 keeps 8 significant bits)."""
-    import math
-
-    return K1P_ULPS * 2.0 ** (math.floor(math.log2(float(ref.float().abs().max()))) - 7)
-
-
-def _plain_stale_h(x, w_ih_t, w_hh_t, bias):
-    """A planted barrier fault: K1's plain version fed h one step stale
-    (h_{t-2} where h_{t-1} is due), as a step that reads the exchange
-    buffer before the previous step's writes land.  The K1p limit must see
-    it."""
-    import torch
-    from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
-
-    R, T, _ = x.shape
-    H = w_hh_t.shape[1]
-    outs = []
-    for d in range(2):
-        xw = x.float() @ w_ih_t[d].float() + bias[d].float()
-        w = w_hh_t[d].float()
-        stale = h = xw.new_zeros((R, H))
-        c = torch.zeros_like(h)
-        out = x.new_empty((R, T, H))
-        for s in range(T):
-            t = T - 1 - s if d else s
-            h_new, c, _ = K._cell(xw[:, t] + stale.to(x.dtype).float() @ w, c)
-            stale, h = h, h_new
-            out[:, t] = h_new.to(x.dtype)
-        outs.append(out)
-        del xw
-    return torch.cat(outs, dim=-1)
 
 
 def _rel(a, b):
@@ -317,15 +289,16 @@ def phase_train_kernels(device, hid=HID, shapes=(TRAIN_TIME, TRAIN_BAND),
 # ---------------------------------------------------------------------------
 
 # the shapes where K1 runs, (what, R, T, N, H): one utterance's band path
-# (B=1, 4 s at 48 kHz), the band path of the discriminative train step's
-# remat pass (B=4, 2 s), the bench forward's band and time paths (B=64, 4 s,
-# 192 channels, no lengths), the flow train step's band path (B=2, 2 s), one
-# flow enhancement's band and time paths (B=1, 4 s)
+# (B=1, 4 s at 48 kHz), the band path of a B=4, 2 s CLI batch, the bench
+# forward's band and time paths (B=64, 4 s, 192 channels, no lengths), the
+# band path of a B=2, 2 s flow batch (the flow training's validation, a flow
+# CLI batch), one flow enhancement's band and time paths (B=1, 4 s); since
+# remat runs the training kernels in both passes no train step runs K1
 K1_ROUTE_SHAPES = (("disc band B=1", 401, 34, N_IN, HID),
-                   ("disc train band B=4", 804, 34, N_IN, HID),
+                   ("B=4 band", 804, 34, N_IN, HID),
                    ("bench band B=64", 64 * 401, 34, 192, 384),
                    ("bench time B=64", 64 * 34, 401, 192, 384),
-                   ("flow train band B=2", 502, 48, FLOW_N, FLOW_H),
+                   ("flow band B=2", 502, 48, FLOW_N, FLOW_H),
                    ("flow enhance band B=1", 501, 48, FLOW_N, FLOW_H),
                    ("flow enhance time B=1", 48, 501, FLOW_N, FLOW_H))
 
@@ -337,12 +310,14 @@ def phase_k1_routes(device):
     the kernel's own reckoning), K1p, walk and cuDNN bfloat16 ``nn.LSTM``
     ms (medians of ``_time_ms``), the weight pack's ms, the bound, and the
     route the rule takes.  Fails if K1p differs from either by the K1p limit
-    (``_k1p_limit`` of the plain output) or more, if the walk differs from
-    the plain version by BF16_TOL or more, or if the planted fault (a stale
-    h, ``_plain_stale_h``) stays under the limit."""
+    (``persistent_checks.ulp_limit`` of the plain output) or more, if the
+    walk differs from the plain version by BF16_TOL or more, or if the
+    planted fault (a stale h, ``persistent_checks.fusedin_bilstm_stale_h``)
+    stays under the limit."""
     import torch
     from urgent2026_challenge_track1_tpu_torch.ops import _build
     from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
+    from urgent2026_challenge_track1_tpu_torch.ops import persistent_checks as PC
 
     bf16 = torch.bfloat16
     sms = _sm_count(device)
@@ -364,9 +339,9 @@ def phase_k1_routes(device):
             ref = K.fusedin_bilstm_plain(x, wi, wh, b)
             torch.cuda.synchronize()
             e_plain, e_walk, e_walk_plain = _err(got, ref), _err(got, walk), _err(walk, ref)
-            limit = _k1p_limit(ref)
+            limit = PC.ulp_limit(ref)
             del got, walk
-            e_stale = _err(_plain_stale_h(x, wi, wh, b), ref)
+            e_stale = _err(PC.fusedin_bilstm_stale_h(x, wi, wh, b), ref)
             del ref
             k1p_ms = _time_ms(lambda: K.fusedin_bilstm_persistent(x, wi, wh, b, plan))
             pack_ms = _time_ms(lambda: K.pack_persistent_weights(wi, wh, b, plan))
@@ -400,6 +375,127 @@ def phase_k1_routes(device):
                  f"limit {limit:.3e}: the check cannot see a barrier fault")
         out.append(rec)
         del x, wi, wh, b, lstm
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K2's and K3's two routes (phase 2)
+# ---------------------------------------------------------------------------
+
+# the shapes where K2 and K3 run on the bfloat16 CLI, (what, R, T, H, valid
+# frames of each utterance, its rows in order): one utterance at 48 kHz (B=1,
+# 3.7 s in a 4 s bucket: 34 bands over 401 frames, 371 valid; the main
+# path), a B=4 batch in a 2 s bucket (4 x 34 bands over 201 frames), one
+# utterance at 16 kHz (B=1, 3.7 s in 4 s, hop 160: the bands ``band_count``
+# gives at 16 kHz (None below) over 401 frames), the flow CLI (B=1, 3.7 s in 4 s at 48 kHz, hop 384: 48 bands
+# over 501 frames, H = 768), and an odd H (2-byte copies of x_proj and h)
+SCAN_ROUTE_SHAPES = (("disc one utterance B=1", 34, 401, HID, (371,)),
+                     ("disc CLI batch B=4", 136, 201, HID, (201, 191, 181, 171)),
+                     ("disc 16 kHz B=1", None, 401, HID, (371,)),
+                     ("flow CLI B=1", 48, 501, FLOW_H, (463,)),
+                     ("odd H", 20, 64, 197, (64, 40, 17, 1)))
+# SM counts handed to the planner for the S sweep (fewer SMs, wider U)
+S_SWEEP_SMS = (132, 66, 33, 14, 7)
+
+
+def phase_scan_routes(device):
+    """K2p and K3p against the plain versions and against the walks (each
+    held against the plain version) at every step, padded ones included, at
+    the shapes where K2 and K3 run on the bfloat16 CLI: max abs differences,
+    the plan (checked against the kernel's own byte count), K2p/K3p, walk and
+    plain ms, the weight pack's ms, the bound, the route the rule takes, and
+    at the one-utterance and flow shapes K2p/K3p ms for the plans of fewer
+    SMs (a narrower S).  Fails if K2p or K3p differs from either by the ulp
+    limit (``persistent_checks.ulp_limit`` of the plain output) or more, if
+    a walk differs from the plain version by BF16_TOL or more, or if the
+    planted fault (a stale h, ``persistent_checks.lstm_scan_stale_h``)
+    stays under the limit."""
+    import torch
+    from urgent2026_challenge_track1_tpu_torch.ops import _build
+    from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
+    from urgent2026_challenge_track1_tpu_torch.ops import persistent_checks as PC
+
+    from urgent2026_challenge_track1_tpu_torch.models.bsrnn import BSRNNConfig, band_count
+
+    bf16 = torch.bfloat16
+    sms = _sm_count(device)
+    lib = _build.load_library()
+    low_rate_rows = band_count(BSRNNConfig().input_dim, 48000, 16000, 161)  # n_fft 320 at 16 kHz
+    out = []
+    for what, R, T, H, per_utt in SCAN_ROUTE_SHAPES:
+        R = R or low_rate_rows
+        _, _, wh, _, xp, _ = _kernel_inputs(R, T, bf16, device, R + T + H, hid=H)
+        lengths = torch.tensor(per_utt, dtype=torch.int32).repeat_interleave(
+            R // len(per_utt)).to(device)
+        plan = K.plan_persistent(R, 0, H, sms, dirs=1)
+        if plan is None:
+            fail(f"K2p/K3p: no plan at {what} (R={R}, H={H})")
+        kernel_smem = lib.lstm_persistent_smem(0, H, plan.U, plan.rows, plan.chunk,
+                                                int(plan.c_in_smem))
+        if kernel_smem != plan.smem:
+            fail(f"K2p/K3p plan at {what}: {plan.smem} bytes, the kernel reckons {kernel_smem}")
+        route = K.scan_route(bf16, R, H, sms)
+        bounds = _bounds(R, T, int(lengths.sum()), hid=H)
+        rec = {"what": what, "R": R, "T": T, "H": H, "valid_steps": int(lengths.sum()),
+               "plan": {"S": plan.S, "G": plan.G, "U": plan.U, "rows": plan.rows,
+                        "chunk": plan.chunk, "c_in_smem": plan.c_in_smem,
+                        "smem_bytes": plan.smem, "ctas": plan.ctas},
+               "route": "persistent" if route is not None else "walk"}
+        with torch.inference_mode():
+            runs = {
+                "lstm_scan": (lambda p=plan: K.lstm_scan_persistent(xp, wh[0], False, p),
+                              lambda: K.lstm_scan_walk(xp, wh[0]),
+                              lambda: K.lstm_scan_plain(xp, wh[0]),
+                              lambda: PC.lstm_scan_stale_h(xp, wh[0], False)),
+                "lstm_revmasked": (
+                    lambda p=plan: K.lstm_revmasked_persistent(xp, wh[1], lengths, p),
+                    lambda: K.lstm_revmasked_walk(xp, wh[1], lengths),
+                    lambda: K.lstm_revmasked_plain(xp, wh[1], lengths),
+                    lambda: PC.lstm_scan_stale_h(xp, wh[1], True, lengths)),
+            }
+            for name, (kern, walk_fn, plain_fn, stale_fn) in runs.items():
+                got, walk, ref = kern(), walk_fn(), plain_fn()
+                torch.cuda.synchronize()
+                e_plain, e_walk, e_walk_plain = _err(got, ref), _err(got, walk), _err(walk, ref)
+                limit = PC.ulp_limit(ref)
+                e_stale = _err(stale_fn(), ref)
+                del got, walk, ref
+                ms = _time_ms(kern)
+                bound_ms, bound_by = bounds[name]
+                rec[name] = {"max_abs_err_vs_plain": e_plain, "max_abs_err_vs_walk": e_walk,
+                             "walk_max_abs_err_vs_plain": e_walk_plain, "limit": limit,
+                             "planted_stale_h_err": e_stale, "ms": ms,
+                             "us_per_step": ms * 1e3 / T, "walk_ms": _time_ms(walk_fn),
+                             "plain_ms": _time_ms(plain_fn, reps=3, warmup=1),
+                             "bound_ms": bound_ms, "bound_by": bound_by}
+                if H == HID and R == 34 or H == FLOW_H:
+                    rec[name]["s_sweep"] = []
+                    for cap in S_SWEEP_SMS:
+                        p = K.plan_persistent(R, 0, H, cap, dirs=1)
+                        if p is not None:
+                            rec[name]["s_sweep"].append(
+                                {"sms": cap, "S": p.S, "U": p.U, "ctas": p.ctas,
+                                 "ms": _time_ms(lambda p=p: kern(p))})
+                r = rec[name]
+                print(f"[scan routes] {what} {name} R={R} T={T} H={H}: plan S={plan.S} "
+                      f"G={plan.G} U={plan.U} chunk={plan.chunk} smem={plan.smem} B "
+                      f"({plan.ctas} CTAs); persistent {r['ms']:.3f} ms "
+                      f"({r['us_per_step']:.2f} us a step), walk {r['walk_ms']:.3f} ms, plain "
+                      f"{r['plain_ms']:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+                      f"max|p - plain| {e_plain:.3e}, max|p - walk| {e_walk:.3e} (limit "
+                      f"{limit:.3e}), max|walk - plain| {e_walk_plain:.3e} (limit {BF16_TOL}); "
+                      f"planted stale h: max|d| {e_stale:.3e}; rule: {rec['route']}"
+                      + (f"; S sweep {r['s_sweep']}" if "s_sweep" in r else ""))
+                for check, e, tol in (("vs plain", e_plain, limit), ("vs walk", e_walk, limit),
+                                      ("walk vs plain", e_walk_plain, BF16_TOL)):
+                    if not e < tol:
+                        fail(f"{what} {name}: {check} {e:.3e} >= {tol:.3e}")
+                if not e_stale >= limit:
+                    fail(f"{what} {name}: a stale h moves the output by {e_stale:.3e}, under "
+                         f"the limit {limit:.3e}: the check cannot see a barrier fault")
+            rec["pack_ms"] = _time_ms(lambda: K.pack_scan_weights(wh[0], plan))
+        out.append(rec)
+        del xp, wh
     return out
 
 
@@ -473,13 +569,9 @@ def phase_main_path(workdir: Path):
         _check_outputs(out_dir, items)
         delta = {k: v - before[k] for k, v in K.launch_counts().items()}
         print(f"[main path] {name}: {len(items)} files in {seconds:.2f} s, launches {delta}")
-    counts, routes = K.launch_counts(), K.route_counts()
-    for name in INFERENCE_KERNELS:
-        if counts[name] <= 0:
-            fail(f"kernel {name} was not launched on the main path")
-    print(f"[main path] launches over the three runs: {counts}, K1 routes {routes}")
-    if routes != {"persistent": counts["fusedin_bilstm"], "walk": 0}:
-        fail(f"the bfloat16 inference path took K1's routes {routes}, expected K1p only")
+    counts, routes = K.launch_counts(), _routes()
+    print(f"[main path] launches over the three runs: {counts}, K1-K3 routes {routes}")
+    _check_routes("the bfloat16 inference path", "bfloat16", routes)
     return counts, routes
 
 
@@ -545,9 +637,9 @@ def phase_training(workdir: Path):
         state = train_se.run(_train_config(workdir))
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        counts, routes = K.launch_counts(), K.route_counts()
+        counts, routes = K.launch_counts(), _routes()
         print(f"[training] 2 epochs x 2 steps (+ 2 validations, 2 saves) in {seconds:.1f} s, "
-              f"launches {counts}, K1 routes {routes}")
+              f"launches {counts}, K1-K3 routes {routes}")
         if (state.step, state.epoch) != (4, 2):
             fail(f"training ended at step {state.step}, epoch {state.epoch}; expected 4, 2")
         init = init_bsrnn(BSRNNConfig(num_channel=N_IN, num_layer=6), seed=2024)
@@ -572,11 +664,11 @@ def phase_training(workdir: Path):
                  "expected 6, 3")
     finally:
         os.chdir(cwd)
-    for fn in K.KERNELS[:7]:  # K1-K7; K8-K10 run under the toggles (phase_ab_arms)
+    # K1-K7; K8-K10 run under the toggles (phase_ab_arms); K1-K3 in validation
+    for fn in K.KERNELS[:7]:
         if counts[fn.__name__] <= 0:
             fail(f"kernel {fn.__name__} was not launched on the training path")
-    if routes != {"persistent": 0, "walk": counts["fusedin_bilstm"]}:
-        fail(f"the float32 training path took K1's routes {routes}, expected the walk only")
+    _check_routes("the float32 training path", "float32", routes)
     return counts, routes
 
 
@@ -741,17 +833,36 @@ def _train_batch(device, B=4, fs=48000):
     return clean.to(device), noisy.to(device), lengths.to(device)
 
 
-def _check_routes(what, dtype_name, routes):
-    """K1 took K1p only in bfloat16 and the walk only in float32."""
+def _routes():
+    """{kernel: {route: launches}} of K1-K3 since the last reset."""
+    from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
+
+    return {name: K.route_counts(name) for name in INFERENCE_KERNELS}
+
+
+def _check_routes(what, dtype_name, routes, kernels=INFERENCE_KERNELS):
+    """Each of ``kernels`` ran, on its persistent route only (K1p, K2p, K3p)
+    in bfloat16 and on its walk only in float32."""
     want = "persistent" if dtype_name == "bfloat16" else "walk"
-    if routes[want] <= 0 or sum(routes.values()) != routes[want]:
-        fail(f"{what}: K1 routes {routes}, expected {want} only")
+    for name in kernels:
+        r = routes[name]
+        if r[want] <= 0 or sum(r.values()) != r[want]:
+            fail(f"{what}: {name} routes {r}, expected {want} only")
+
+
+def _check_no_lean_kernels(what, counts):
+    """A train step runs the training kernels in both remat passes: none of
+    K1-K3."""
+    lean = {name: counts.get(name, 0) for name in INFERENCE_KERNELS}
+    if any(lean.values()):
+        fail(f"{what} launched the inference kernels {lean}")
 
 
 def _train_step_times(device):
     """Median host-clock time of the train step (B=4, 2 s at 48 kHz, 196 x
     6) over 5 steps after 2 warm-up steps, in float32 and bfloat16, with the
-    peak device memory and the kernel launches of one step."""
+    peak device memory and the kernel launches of one step (none of K1-K3:
+    remat runs the training kernels in both passes)."""
     import torch
     from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
     from urgent2026_challenge_track1_tpu_torch.train import trainer
@@ -766,8 +877,8 @@ def _train_step_times(device):
         batch = _train_batch(device)
         K.reset_launch_counts()
         step(model, opt, *batch)
-        per_step, routes = K.launch_counts(), K.route_counts()
-        _check_routes(f"train step {compute_dtype}", compute_dtype, routes)
+        per_step = K.launch_counts()
+        _check_no_lean_kernels(f"train step {compute_dtype}", per_step)
         step(model, opt, *batch)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -781,18 +892,18 @@ def _train_step_times(device):
                 fail("the timed train step hit a non-finite gradient")
         out[compute_dtype] = {"median_ms": statistics.median(times), "ms": times,
                               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-                              "launches_per_step": per_step, "k1_routes_per_step": routes}
+                              "launches_per_step": per_step}
         print(f"[times] train step {compute_dtype} (B=4, 2 s at 48 kHz, 196x6): median "
               f"{out[compute_dtype]['median_ms']:.1f} ms of {[round(t, 1) for t in times]}, "
-              f"peak {out[compute_dtype]['peak_memory_gb']:.2f} GB, launches per step {per_step}, "
-              f"K1 routes {routes}")
+              f"peak {out[compute_dtype]['peak_memory_gb']:.2f} GB, launches per step {per_step}")
         del model, opt
     return out
 
 
 def _row_tile_sweep(device):
-    """K2 at the time path's B=1 and B=64 row counts with each row tile
-    forced, beside the tile the wrapper picks (from R and the SM count)."""
+    """K2's walk at the time path's B=1 and B=64 row counts with each row
+    tile forced, beside the tile the wrapper picks (from R and the SM
+    count)."""
     import torch
     from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
 
@@ -805,7 +916,7 @@ def _row_tile_sweep(device):
         for rows in (1, 2, 4, 8):
             K.rows_per_block = lambda *_, r=rows: r
             try:
-                ms = _time_ms(lambda: K.lstm_scan(xp, wh[0]), reps=3, warmup=1)
+                ms = _time_ms(lambda: K.lstm_scan_walk(xp, wh[0]), reps=3, warmup=1)
             finally:
                 K.rows_per_block = chooser
             out.append({"R": R, "T": T, "rows_per_block": rows, "picked": rows == picked,
@@ -813,13 +924,14 @@ def _row_tile_sweep(device):
     return out
 
 
-def phase_times(device, main_counts, train_counts, errs, train_errs, k1_routes, main_routes,
-                train_routes):
+def phase_times(device, main_counts, train_counts, errs, train_errs, k1_routes, scan_routes,
+                main_routes, train_routes):
     import torch
     from urgent2026_challenge_track1_tpu_torch.dsp.stft import STFTConfig
     from urgent2026_challenge_track1_tpu_torch.models.bsrnn import (
         BSRNNConfig, bsrnn_se_apply, init_bsrnn)
     from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
+    from urgent2026_challenge_track1_tpu_torch.ops import persistent_checks as PC
 
     bf16 = torch.bfloat16
     # main-path shapes at batch 1, 48 kHz, a 3.7 s input in a 4 s bucket:
@@ -836,9 +948,9 @@ def phase_times(device, main_counts, train_counts, errs, train_errs, k1_routes, 
         "fusedin_bilstm": (lambda: K.fusedin_bilstm_walk(xb, w_ih_t, w_hh_t, bias),
                            lambda: K.fusedin_bilstm_plain(xb, w_ih_t, w_hh_t, bias),
                            lambda: lstm(xb), (band_R, band_T)),
-        "lstm_scan": (lambda: K.lstm_scan(xp, w_hh_t[0]),
+        "lstm_scan": (lambda: K.lstm_scan_walk(xp, w_hh_t[0]),
                       lambda: K.lstm_scan_plain(xp, w_hh_t[0]), None, (time_R, time_T)),
-        "lstm_revmasked": (lambda: K.lstm_revmasked(xp, w_hh_t[1], lengths),
+        "lstm_revmasked": (lambda: K.lstm_revmasked_walk(xp, w_hh_t[1], lengths),
                            lambda: K.lstm_revmasked_plain(xp, w_hh_t[1], lengths), None,
                            (time_R, time_T)),
     }
@@ -853,10 +965,15 @@ def phase_times(device, main_counts, train_counts, errs, train_errs, k1_routes, 
         for tag, lens in (("lengths", lens37), ("no_lengths", None)):
             K.reset_launch_counts()
             bsrnn_se_apply(model, STFTConfig(), wav, 48000, lens)
-            per_forward[tag] = {**K.launch_counts(), "k1_routes": K.route_counts()}
+            per_forward[tag] = {**K.launch_counts(), "routes": _routes()}
         fwd_ms = _time_ms(lambda: bsrnn_se_apply(model, STFTConfig(), wav, 48000, lens37),
                           reps=3, warmup=1)
     print(f"[times] launches per forward (B=1, 48 kHz, 4 s bucket): {per_forward}")
+    one = per_forward["lengths"]["routes"]
+    for name in ("lstm_scan", "lstm_revmasked"):
+        if one[name] != {"persistent": 6, "walk": 0}:
+            fail(f"the one-utterance forward took {name}'s routes {one[name]}, expected the "
+                 "persistent route once per layer")
     print(f"[times] forward with lengths, B=1, 3.7 s at 48 kHz, 196x6 bf16: {fwd_ms:.2f} ms")
 
     records = []
@@ -866,9 +983,9 @@ def phase_times(device, main_counts, train_counts, errs, train_errs, k1_routes, 
             plain_ms = _time_ms(plain, reps=3, warmup=1)
             library_ms = _time_ms(library) if library is not None else None
             bound_ms, bound_by = _bounds(R, T, R * valid)[name]
-            launches, run = main_counts[name], "inference path"
-            if name == "fusedin_bilstm":  # the walk runs on the float32 paths
-                launches, run = train_routes["walk"], "training path (float32: K1's walk)"
+            # the walks run on the float32 paths: the training path's validations
+            launches = train_routes[name]["walk"]
+            run = "training path (float32 validation: the walk)"
             rec = {
                 "name": name, "route": "cuda",
                 "source": f"{PKG}/csrc/lstm_kernels.cu",
@@ -880,7 +997,8 @@ def phase_times(device, main_counts, train_counts, errs, train_errs, k1_routes, 
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": library_ms, "shape": {"R": R, "T": T, "N": N_IN, "H": HID},
                 "dtype": "bfloat16",
-                "launches_per_forward": per_forward["lengths"][name],
+                "route_of_kernel": "walk",
+                "launches_per_forward": per_forward["lengths"]["routes"][name]["walk"],
             }
             print(f"[times] {name} R={R} T={T} bf16: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
                   f"library {library_ms} ms, bound {bound_ms:.4f} ms ({bound_by})")
@@ -888,27 +1006,55 @@ def phase_times(device, main_counts, train_counts, errs, train_errs, k1_routes, 
         # K1p: the same function at the same shape, K1's bfloat16 route
         walk_rec = records[0]
         disc = k1_routes[0]
-        walk_rec.update({"k1_route": "walk",
-                         "launches_per_forward": per_forward["lengths"]["k1_routes"]["walk"],
-                         "routes_ms": {"walk": walk_rec["ms"], "persistent": disc["k1p_ms"]}})
+        walk_rec["routes_ms"] = {"walk": walk_rec["ms"], "persistent": disc["k1p_ms"]}
         records.append({
-            "name": "fusedin_bilstm_persistent", "route": "cuda", "k1_route": "persistent",
+            "name": "fusedin_bilstm_persistent", "route": "cuda", "route_of_kernel": "persistent",
             "source": f"{PKG}/csrc/lstm_persistent.cu", "replaces": REPLACES["fusedin_bilstm"],
-            "launches": main_routes["persistent"], "launches_run": "inference path",
+            "launches": main_routes["fusedin_bilstm"]["persistent"],
+            "launches_run": "inference path",
             "max_abs_err": max(r["max_abs_err_vs_plain"] for r in k1_routes),
             "max_abs_err_vs_walk": max(r["max_abs_err_vs_walk"] for r in k1_routes),
             "max_abs_err_f32": None,
             "tolerance": min(r["k1p_limit"] for r in k1_routes),
-            "tolerance_rule": f"{K1P_ULPS} bf16 ulps at max|plain| per shape",
+            "tolerance_rule": f"{PC.PERSISTENT_ULPS} bf16 ulps at max|plain| per shape",
             "planted_stale_h_err": min(r["planted_stale_h_err"] for r in k1_routes),
             "ms": disc["k1p_ms"], "plain_ms": walk_rec["plain_ms"],
             "bound_ms": disc["bound_ms"], "bound_by": disc["bound_by"],
             "library_ms": disc["cudnn_ms"], "shape": walk_rec["shape"], "dtype": "bfloat16",
             "plan": disc["plan"],
-            "launches_per_forward": per_forward["lengths"]["k1_routes"]["persistent"],
+            "launches_per_forward":
+                per_forward["lengths"]["routes"]["fusedin_bilstm"]["persistent"],
             "routes_ms": {"walk": walk_rec["ms"], "persistent": disc["k1p_ms"]},
             "route_table": k1_routes,
         })
+        # K2p and K3p: the same functions at the same shape (the scan_routes
+        # phase's one-utterance row), K2's and K3's bfloat16 routes
+        one_utt = scan_routes[0]
+        for name, walk_rec in ((n, next(r for r in records if r["name"] == n))
+                               for n in ("lstm_scan", "lstm_revmasked")):
+            p = one_utt[name]
+            walk_rec["routes_ms"] = {"walk": walk_rec["ms"], "persistent": p["ms"]}
+            records.append({
+                "name": f"{name}_persistent", "route": "cuda", "route_of_kernel": "persistent",
+                "source": f"{PKG}/csrc/lstm_persistent.cu", "replaces": REPLACES[name],
+                "launches": main_routes[name]["persistent"], "launches_run": "inference path",
+                "max_abs_err": max(r[name]["max_abs_err_vs_plain"] for r in scan_routes),
+                "max_abs_err_vs_walk": max(r[name]["max_abs_err_vs_walk"] for r in scan_routes),
+                "max_abs_err_f32": None,
+                "tolerance": min(r[name]["limit"] for r in scan_routes),
+                "tolerance_rule": f"{PC.PERSISTENT_ULPS} bf16 ulps at max|plain| per shape",
+                "planted_stale_h_err": min(r[name]["planted_stale_h_err"] for r in scan_routes),
+                "ms": p["ms"], "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"],
+                "bound_by": p["bound_by"], "library_ms": None,
+                "shape": {"R": one_utt["R"], "T": one_utt["T"], "H": one_utt["H"],
+                          "valid_steps": one_utt["valid_steps"]},
+                "dtype": "bfloat16", "plan": one_utt["plan"],
+                "launches_per_forward": per_forward["lengths"]["routes"][name]["persistent"],
+                "routes_ms": walk_rec["routes_ms"],
+                "route_table": [{k: v for k, v in r.items()
+                                 if k not in ("lstm_scan", "lstm_revmasked") or k == name}
+                                for r in scan_routes],
+            })
         # the same kernels at the JAX bench geometry (B=64, 4 s, 48 kHz)
         extra = []
         # (K1 at the bench geometry's band and time paths: the k1_routes phase)
@@ -923,9 +1069,9 @@ def phase_times(device, main_counts, train_counts, errs, train_errs, k1_routes, 
             bound_ms, bound_by = _bounds(R, T, R * T)[name]
             extra.append({"name": name, "R": R, "T": T, "ms": ms, "bound_ms": bound_ms,
                           "bound_by": bound_by})
-            if name == "fusedin_bilstm":
-                extra[-1]["route"] = "persistent" if K.k1_route(
-                    bf16, R, N_IN, HID, _sm_count(device)) else "walk"
+            route = (K.k1_route(bf16, R, N_IN, HID, _sm_count(device)) if name == "fusedin_bilstm"
+                     else K.scan_route(bf16, R, HID, _sm_count(device)))
+            extra[-1]["route"] = "persistent" if route is not None else "walk"
             del x, wi, wh, b, xq
         print("[times] " + json.dumps({"kernel_times_other_shapes": extra}))
         print("[times] " + json.dumps({"lstm_scan_row_tiles": _row_tile_sweep(device)}))
@@ -944,13 +1090,8 @@ def phase_times(device, main_counts, train_counts, errs, train_errs, k1_routes, 
 
     steps = _train_step_times(device)
     per_step = steps["bfloat16"]["launches_per_step"]
-    for rec in records:
-        rec["launches_per_train_step"] = per_step.get(rec["name"], 0)
-    by_name = {rec["name"]: rec for rec in records}
-    by_name["fusedin_bilstm"]["launches_per_train_step"] = \
-        steps["float32"]["k1_routes_per_step"]["walk"]
-    by_name["fusedin_bilstm_persistent"]["launches_per_train_step"] = \
-        steps["bfloat16"]["k1_routes_per_step"]["persistent"]
+    for rec in records:  # K1-K3 on either route: none (remat runs the training kernels)
+        rec["launches_per_train_step"] = per_step.get(rec["name"].removesuffix("_persistent"), 0)
     records += _train_kernel_times(device, train_counts, train_errs, per_step)
     print("[times] " + json.dumps({"train_step": steps}))
     return records
@@ -959,7 +1100,8 @@ def phase_times(device, main_counts, train_counts, errs, train_errs, k1_routes, 
 def _train_kernel_times(device, train_counts, train_errs, per_step):
     """K4-K7 at the training step's shapes, bf16: kernel, plain version,
     bound.  K4/K5 are timed on the time path and on the band path (the
-    record holds the time path; the band path is printed beside it)."""
+    record holds the time path, and the band path's ms and bound as band_*
+    keys)."""
     import torch
     from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
 
@@ -993,7 +1135,10 @@ def _train_kernel_times(device, train_counts, train_errs, per_step):
                 bound_ms, bound_by = bounds[name]
                 print(f"[times] {name} R={R} T={T} bf16: kernel {ms:.3f} ms, plain "
                       f"{plain_ms:.3f} ms, library none, bound {bound_ms:.4f} ms ({bound_by})")
-                if (R, T) != TRAIN_TIME:
+                if (R, T) != TRAIN_TIME:  # the band path: beside the time path's record
+                    rec = next(r for r in records if r["name"] == name)
+                    rec.update({"band_ms": ms, "band_bound_ms": bound_ms,
+                                "band_shape": {"R": R, "T": T, "H": HID}})
                     continue
                 e_abs, e_rel = train_errs[name, "bfloat16"]
                 records.append({
@@ -1123,9 +1268,9 @@ def phase_flow_training(workdir: Path):
         state = train_se.run(_flow_config(workdir))
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        counts, routes = K.launch_counts(), K.route_counts()
+        counts, routes = K.launch_counts(), _routes()
         print(f"[flow training] 2 epochs x 2 steps (+ 2 validations with the sampler, 2 saves) "
-              f"in {seconds:.1f} s, launches {counts}, K1 routes {routes}")
+              f"in {seconds:.1f} s, launches {counts}, K1-K3 routes {routes}")
         if (state.step, state.epoch) != (4, 2):
             fail(f"flow training ended at step {state.step}, epoch {state.epoch}; expected 4, 2")
         cfg = _flow_config(workdir)
@@ -1164,8 +1309,7 @@ def phase_flow_training(workdir: Path):
     for fn in K.KERNELS[:7]:
         if counts[fn.__name__] <= 0:
             fail(f"kernel {fn.__name__} was not launched on the flow training path")
-    if routes != {"persistent": 0, "walk": counts["fusedin_bilstm"]}:
-        fail(f"the float32 flow training path took K1's routes {routes}, expected the walk")
+    _check_routes("the float32 flow training path", "float32", routes)
     return counts, exp / "checkpoints" / "step_6.pt"
 
 
@@ -1189,13 +1333,9 @@ def phase_flow_cli(workdir: Path, ckpt: Path):
         delta = {k: v - before[k] for k, v in K.launch_counts().items() if v - before[k]}
         print(f"[flow cli] {name}: {len(FLOW_UTTERANCES)} files in {seconds:.2f} s, "
               f"launches {delta}")
-    counts, routes = K.launch_counts(), K.route_counts()
-    print(f"[flow cli] K1 routes {routes}")
-    for name in INFERENCE_KERNELS:
-        if counts[name] <= 0:
-            fail(f"kernel {name} was not launched by the flow inference CLI")
-    if routes != {"persistent": counts["fusedin_bilstm"], "walk": 0}:
-        fail(f"the bfloat16 flow CLI took K1's routes {routes}, expected K1p only")
+    counts, routes = K.launch_counts(), _routes()
+    print(f"[flow cli] K1-K3 routes {routes}")
+    _check_routes("the bfloat16 flow CLI", "bfloat16", routes)
     return counts, routes
 
 
@@ -1455,10 +1595,11 @@ def _new_kernel_times(device, ab, ab_counts, new_errs):
 
 
 def _flow_kernel_times(device, records, flow_counts, wide_errs, wide_train_errs, k1_routes,
-                       flow_cli_routes):
-    """K1-K7 at the flow training shapes (N = 384, H = 768), bf16: kernel,
-    plain version and bound, added to the K1-K7 records as flow_* keys; K1p's
-    and cuDNN's times there are the k1_routes phase's (flow train band)."""
+                       scan_routes, flow_cli_routes):
+    """K1-K7 (K1-K3: the walks) at the flow training shapes (N = 384, H =
+    768), bf16: kernel, plain version and bound, added to the K1-K7 records
+    as flow_* keys; K1p's and cuDNN's times there are the k1_routes phase's
+    (flow band B=2), K2p's and K3p's the scan_routes phase's (flow CLI)."""
     import torch
     from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
 
@@ -1474,9 +1615,9 @@ def _flow_kernel_times(device, records, flow_counts, wide_errs, wide_train_errs,
     timed = {
         "fusedin_bilstm": (lambda: K.fusedin_bilstm_walk(xb, wi, wh, b),
                            lambda: K.fusedin_bilstm_plain(xb, wi, wh, b), (bR, bT)),
-        "lstm_scan": (lambda: K.lstm_scan(xp, wh[0]), lambda: K.lstm_scan_plain(xp, wh[0]),
+        "lstm_scan": (lambda: K.lstm_scan_walk(xp, wh[0]), lambda: K.lstm_scan_plain(xp, wh[0]),
                       (tR, tT)),
-        "lstm_revmasked": (lambda: K.lstm_revmasked(xp, wh[1], lengths),
+        "lstm_revmasked": (lambda: K.lstm_revmasked_walk(xp, wh[1], lengths),
                            lambda: K.lstm_revmasked_plain(xp, wh[1], lengths), (tR, tT)),
         "lstm_train_fwd": (lambda: K.lstm_train_fwd(xp, wh[0]),
                            lambda: K.lstm_train_fwd_plain(xp, wh[0]), (tR, tT)),
@@ -1509,16 +1650,42 @@ def _flow_kernel_times(device, records, flow_counts, wide_errs, wide_train_errs,
             })
             print(f"[times] {name} flow R={R} T={T} H={FLOW_H} bf16: kernel {ms:.3f} ms, plain "
                   f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        # K4 and K5 also run on the band path (2 of each layer's 3 K4 launches)
+        _, _, _, _, xq, _ = _kernel_inputs(bR, bT, bf16, device, 33, FLOW_N, FLOW_H)
+        band_res = K.lstm_train_fwd(xq, wh[0])
+        band_dout = (0.1 * torch.randn((bR, bT, FLOW_H), device=device)).to(bf16)
+        band_bounds = _train_bounds(bR, bT, bR * bT, FLOW_H)
+        for name, kern in (("lstm_train_fwd", lambda: K.lstm_train_fwd(xq, wh[0])),
+                           ("lstm_train_bwd",
+                            lambda: K.lstm_train_bwd(*band_res, band_dout, wh[0]))):
+            ms = _time_ms(kern, reps=3, warmup=1)
+            by_name[name].update({"flow_band_ms": ms, "flow_band_bound_ms": band_bounds[name][0],
+                                  "flow_band_shape": {"R": bR, "T": bT, "H": FLOW_H}})
+            print(f"[times] {name} flow band R={bR} T={bT} H={FLOW_H} bf16: kernel {ms:.3f} ms, "
+                  f"bound {band_bounds[name][0]:.4f} ms ({band_bounds[name][1]})")
     flow = next(r for r in k1_routes if (r["R"], r["T"], r["H"]) == (bR, bT, FLOW_H))
     by_name["fusedin_bilstm"]["flow_library_ms"] = flow["cudnn_ms"]
     walk = by_name["fusedin_bilstm"]
     by_name["fusedin_bilstm_persistent"].update({
         "flow_ms": flow["k1p_ms"], "flow_plain_ms": walk["flow_plain_ms"],
         "flow_bound_ms": flow["bound_ms"], "flow_bound_by": flow["bound_by"],
-        "flow_library_ms": flow["cudnn_ms"], "flow_launches": flow_cli_routes["persistent"],
+        "flow_library_ms": flow["cudnn_ms"],
+        "flow_launches": flow_cli_routes["fusedin_bilstm"]["persistent"],
         "flow_launches_run": "flow inference CLI", "flow_shape": walk["flow_shape"],
         "flow_max_abs_err": flow["max_abs_err_vs_plain"], "flow_plan": flow["plan"],
     })
+    flow = next(r for r in scan_routes if r["H"] == FLOW_H)
+    for name in ("lstm_scan", "lstm_revmasked"):
+        p = flow[name]
+        by_name[f"{name}_persistent"].update({
+            "flow_ms": p["ms"], "flow_plain_ms": p["plain_ms"], "flow_walk_ms": p["walk_ms"],
+            "flow_bound_ms": p["bound_ms"], "flow_bound_by": p["bound_by"],
+            "flow_library_ms": None, "flow_launches": flow_cli_routes[name]["persistent"],
+            "flow_launches_run": "flow inference CLI",
+            "flow_shape": {"R": flow["R"], "T": flow["T"], "H": FLOW_H,
+                           "valid_steps": flow["valid_steps"]},
+            "flow_max_abs_err": p["max_abs_err_vs_plain"], "flow_plan": flow["plan"],
+        })
 
 
 def _flow_step_and_enhance_times(device):
@@ -1544,8 +1711,7 @@ def _flow_step_and_enhance_times(device):
         K.reset_launch_counts()
         step(model, opt, clean, noisy, lengths, generator=trainer.step_generator(cfg.seed, 0))
         per_step = {k: v for k, v in K.launch_counts().items() if v}
-        _check_routes(f"flow train step {compute_dtype}", compute_dtype, K.route_counts())
-        per_step["k1_routes"] = K.route_counts()
+        _check_no_lean_kernels(f"flow train step {compute_dtype}", per_step)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         times = []
@@ -1573,8 +1739,9 @@ def _flow_step_and_enhance_times(device):
         K.reset_launch_counts()
         F.flowse_enhance(model, fcfg, wav, 48000, N=15, generator=gen)
         launches = {k: v for k, v in K.launch_counts().items() if v}
-        _check_routes("flow enhance", "bfloat16", K.route_counts())
-        launches["k1_routes"] = K.route_counts()
+        routes = _routes()
+        _check_routes("flow enhance", "bfloat16", routes, ("fusedin_bilstm",))
+        launches["k1_routes"] = routes["fusedin_bilstm"]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         y = F.flowse_enhance(model, fcfg, wav, 48000, N=15, generator=gen)
@@ -1634,6 +1801,7 @@ def main() -> int:
                             (FLOW_TIME, FLOW_BAND), FLOW_SECONDS, 384)
     new_errs = timed("K8-K10", phase_new_kernels, device)
     k1_routes = timed("k1_routes", phase_k1_routes, device)
+    scan_routes = timed("scan_routes", phase_scan_routes, device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=REPO) as tmp:
         counts, main_routes = timed("inference path", phase_main_path, Path(tmp))
         train_counts, train_routes = timed("training path", phase_training, Path(tmp))
@@ -1644,10 +1812,10 @@ def main() -> int:
     timed("card vs cpu gradients", phase_grads_card_vs_cpu, device)
     timed("flow card vs cpu", phase_flow_card_vs_cpu, device)
     records = timed("times", phase_times, device, counts, train_counts, errs, train_errs,
-                    k1_routes, main_routes, train_routes)
+                    k1_routes, scan_routes, main_routes, train_routes)
     records += timed("times K8-K10", _new_kernel_times, device, ab, ab_counts, new_errs)
     timed("times K1-K7 flow shapes", _flow_kernel_times, device, records, flow_counts,
-          wide_errs, wide_train_errs, k1_routes, flow_cli_routes)
+          wide_errs, wide_train_errs, k1_routes, scan_routes, flow_cli_routes)
     flow_times = timed("times flow", _flow_step_and_enhance_times, device)
     print("[times] " + json.dumps({"ab_arms": ab, "flow": flow_times}))
     print(f"[done] {time.perf_counter() - t0:.1f} s")

@@ -6,13 +6,13 @@ imports no JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 """
 
-import math
-
 import numpy as np
 import pytest
 import torch
 
 from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm
+from urgent2026_challenge_track1_tpu_torch.ops.persistent_checks import (
+    fusedin_bilstm_stale_h, lstm_scan_stale_h, ulp_limit)
 
 torch.set_num_threads(1)
 R, T, N, H = 13, 11, 40, 72  # H not a multiple of 32, R not of any row tile
@@ -65,31 +65,9 @@ def test_fusedin_matches_plain(dev, dtype, rows):
 
 
 # --- K1p: the persistent route of K1 (bfloat16) -----------------------------
-
-K1P_ULPS = 4  # K1p's limit: bf16 ulps at the outputs' largest magnitude (as chip_smoke.py)
-
-
-def _k1p_limit(ref):
-    return K1P_ULPS * 2.0 ** (math.floor(math.log2(float(ref.float().abs().max()))) - 7)
-
-
-def _plain_stale_h(x, w_ih_t, w_hh_t, bias):
-    """A planted barrier fault: K1's plain version fed h one step stale."""
-    R_, T_, _ = x.shape
-    outs = []
-    for d in range(2):
-        xw = x.float() @ w_ih_t[d].float() + bias[d].float()
-        stale = h = xw.new_zeros((R_, w_hh_t.shape[1]))
-        c = torch.zeros_like(h)
-        out = x.new_empty((R_, T_, h.shape[1]))
-        for s in range(T_):
-            t = T_ - 1 - s if d else s
-            h_new, c, _ = cuda_lstm._cell(xw[:, t] + stale.to(x.dtype).float() @ w_hh_t[d].float(),
-                                          c)
-            stale, h = h, h_new
-            out[:, t] = h_new.to(x.dtype)
-        outs.append(out)
-    return torch.cat(outs, dim=-1)
+# K1p, K2p and K3p are held within ulp_limit (4 bf16 ulps at the plain
+# output's largest magnitude, as in chip_smoke.py), a limit that a planted
+# stale h (persistent_checks) must exceed
 
 
 def _k1_inputs(dev, R_, T_, N_, H_, seed):
@@ -115,9 +93,9 @@ def test_persistent_matches_plain(dev, shape):
     assert cuda_lstm.route_counts() == {"persistent": 1, "walk": 0}
     assert got.shape == (shape[0], shape[1], 2 * shape[3]) and got.dtype == torch.bfloat16
     ref = cuda_lstm.fusedin_bilstm_plain(x, wi, wh, b)
-    limit = _k1p_limit(ref)
+    limit = ulp_limit(ref)
     assert _err(got, ref) < limit
-    assert _err(_plain_stale_h(x, wi, wh, b), ref) >= limit
+    assert _err(fusedin_bilstm_stale_h(x, wi, wh, b), ref) >= limit
 
 
 def test_route_follows_the_dtype(dev):
@@ -151,26 +129,118 @@ def test_persistent_refuses_a_grid_the_card_cannot_hold(dev):
     assert cuda_lstm.route_counts() == {"persistent": 0, "walk": 0}
     got = cuda_lstm.fusedin_bilstm_persistent(x, wi, wh, b)
     ref = cuda_lstm.fusedin_bilstm_plain(x, wi, wh, b)
-    assert _err(got, ref) < _k1p_limit(ref)
+    assert _err(got, ref) < ulp_limit(ref)
 
 
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_scan_matches_plain(dev, dtype, reverse, rows):
+    """K2's walk at every row tile (bfloat16 takes K2p by default)."""
     rng = np.random.default_rng(1)
     xp, wh = _t(rng, dev, dtype, R, T, 4 * H), _t(rng, dev, dtype, H, 4 * H)
-    got = cuda_lstm.lstm_scan(xp, wh, reverse)
+    got = cuda_lstm.lstm_scan_walk(xp, wh, reverse)
     assert _err(got, cuda_lstm.lstm_scan_plain(xp, wh, reverse)) < TOLS[dtype]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_revmasked_matches_plain_at_valid_steps(dev, dtype, rows):
+    """K3's walk at every row tile (bfloat16 takes K3p by default)."""
     rng = np.random.default_rng(2)
     xp, wh = _t(rng, dev, dtype, R, T, 4 * H), _t(rng, dev, dtype, H, 4 * H)
     lengths = _lengths(dev)
     valid = torch.arange(T, device=dev)[None, :] < lengths[:, None]
-    got = cuda_lstm.lstm_revmasked(xp, wh, lengths)[valid]
+    got = cuda_lstm.lstm_revmasked_walk(xp, wh, lengths)[valid]
     assert _err(got, cuda_lstm.lstm_revmasked_plain(xp, wh, lengths)[valid]) < TOLS[dtype]
+
+
+# --- K2p and K3p: the persistent routes of K2 and K3 (bfloat16) -------------
+
+
+def _scan_inputs(dev, R_, T_, H_, seed):
+    rng = np.random.default_rng(seed)
+    xp = _t(rng, dev, torch.bfloat16, R_, T_, 4 * H_, scale=0.5)
+    wh = _t(rng, dev, torch.bfloat16, H_, 4 * H_, scale=H_ ** -0.5)
+    lengths = torch.from_numpy(rng.integers(1, T_ + 1, R_).astype(np.int32)).to(dev)
+    lengths[0], lengths[-1] = 1, T_
+    return xp, wh, lengths
+
+
+# (R, T, H): small, H odd (2-byte copies of x_proj and h), H = 2 mod 4
+# (4-byte copies), the one-utterance time path (34 x 401 at H = 392) and the
+# flow model's (48 x 251 at H = 768)
+SCAN_SHAPES = [(R, T, H), (13, 9, 37), (21, 7, 46), (34, 401, 392), (48, 251, 768)]
+SCAN_IDS = ["small", "odd_h", "h_mod4", "disc_time", "flow_time"]
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("shape", SCAN_SHAPES, ids=SCAN_IDS)
+def test_scan_persistent_matches_plain(dev, shape, reverse):
+    """K2p against the plain version at every step within 4 bf16 ulps at
+    the outputs' scale, a limit that a stale h exceeds."""
+    xp, wh, _ = _scan_inputs(dev, *shape, seed=18)
+    cuda_lstm.reset_launch_counts()
+    got = cuda_lstm.lstm_scan(xp, wh, reverse)
+    assert cuda_lstm.route_counts("lstm_scan") == {"persistent": 1, "walk": 0}
+    assert got.shape == (shape[0], shape[1], shape[2]) and got.dtype == torch.bfloat16
+    ref = cuda_lstm.lstm_scan_plain(xp, wh, reverse)
+    limit = ulp_limit(ref)
+    assert _err(got, ref) < limit
+    assert _err(lstm_scan_stale_h(xp, wh, reverse), ref) >= limit
+
+
+@pytest.mark.parametrize("shape", SCAN_SHAPES, ids=SCAN_IDS)
+def test_revmasked_persistent_matches_plain_at_every_step(dev, shape):
+    """K3p against the plain version at every step, padded ones included
+    (the reader masks h, so out holds the plain version's unmasked h), within
+    4 bf16 ulps; a stale h exceeds the limit."""
+    xp, wh, lengths = _scan_inputs(dev, *shape, seed=19)
+    cuda_lstm.reset_launch_counts()
+    got = cuda_lstm.lstm_revmasked(xp, wh, lengths)
+    assert cuda_lstm.route_counts("lstm_revmasked") == {"persistent": 1, "walk": 0}
+    ref = cuda_lstm.lstm_revmasked_plain(xp, wh, lengths)
+    limit = ulp_limit(ref)
+    assert _err(got, ref) < limit
+    assert _err(lstm_scan_stale_h(xp, wh, True, lengths), ref) >= limit
+
+
+def test_scan_route_follows_the_dtype(dev):
+    """float32 takes the walks, bfloat16 K2p/K3p; each counts as a K2 or K3
+    launch; the persistent wrappers refuse float32."""
+    xp, wh, lengths = _scan_inputs(dev, R, T, H, seed=20)
+    cuda_lstm.reset_launch_counts()
+    cuda_lstm.lstm_scan(xp.float(), wh.float())
+    cuda_lstm.lstm_revmasked(xp.float(), wh.float(), lengths)
+    cuda_lstm.lstm_scan(xp, wh)
+    cuda_lstm.lstm_revmasked(xp, wh, lengths)
+    for name in ("lstm_scan", "lstm_revmasked"):
+        assert cuda_lstm.route_counts(name) == {"persistent": 1, "walk": 1}
+        assert cuda_lstm.launch_counts()[name] == 2
+    with pytest.raises(TypeError):
+        cuda_lstm.lstm_scan_persistent(xp.float(), wh.float())
+    with pytest.raises(TypeError):
+        cuda_lstm.lstm_revmasked_persistent(xp.float(), wh.float(), lengths)
+
+
+def test_scan_persistent_refuses_a_grid_the_card_cannot_hold(dev):
+    """A K2p/K3p plan of more CTAs than the card holds resident is refused
+    at launch instead of hanging in the barrier; the next launch runs."""
+    import dataclasses
+
+    xp, wh, lengths = _scan_inputs(dev, 400, 3, 72, seed=21)
+    plan = cuda_lstm.plan_persistent(400, 0, 72, 132, dirs=1)
+    big = dataclasses.replace(plan, G=100, rows=4, S=18, U=4)
+    assert big.ctas > torch.cuda.get_device_properties(dev).multi_processor_count
+    cuda_lstm.reset_launch_counts()
+    with pytest.raises(RuntimeError):
+        cuda_lstm.lstm_scan_persistent(xp, wh, False, big)
+    with pytest.raises(RuntimeError):
+        cuda_lstm.lstm_revmasked_persistent(xp, wh, lengths, big)
+    torch.cuda.synchronize()
+    assert cuda_lstm.route_counts("lstm_scan") == {"persistent": 0, "walk": 0}
+    assert cuda_lstm.route_counts("lstm_revmasked") == {"persistent": 0, "walk": 0}
+    got = cuda_lstm.lstm_revmasked_persistent(xp, wh, lengths)
+    ref = cuda_lstm.lstm_revmasked_plain(xp, wh, lengths)
+    assert _err(got, ref) < ulp_limit(ref)
 
 
 def _train_inputs(rng, dev, dtype):
@@ -319,9 +389,9 @@ def test_wide_kernels_match_plain(dev, dtype, rows):
     tol, grad_tol = TOLS[dtype], (1e-3 if dtype == torch.float32 else TOLS[dtype])
     assert _err(cuda_lstm.fusedin_bilstm(x, wi, wh, b),
                 cuda_lstm.fusedin_bilstm_plain(x, wi, wh, b)) < tol
-    assert _err(cuda_lstm.lstm_scan(xp, wh[0], True),
+    assert _err(cuda_lstm.lstm_scan_walk(xp, wh[0], True),
                 cuda_lstm.lstm_scan_plain(xp, wh[0], True)) < tol
-    assert _err(cuda_lstm.lstm_revmasked(xp, wh[1], lengths)[valid],
+    assert _err(cuda_lstm.lstm_revmasked_walk(xp, wh[1], lengths)[valid],
                 cuda_lstm.lstm_revmasked_plain(xp, wh[1], lengths)[valid]) < tol
     ref = cuda_lstm.lstm_train_fwd_plain(xp, wh[0])
     for g, r in zip(cuda_lstm.lstm_train_fwd(xp, wh[0]), ref):

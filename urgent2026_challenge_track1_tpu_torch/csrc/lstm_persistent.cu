@@ -1,5 +1,7 @@
-// K1p: the fused-input bidirectional LSTM as a persistent, weight-stationary
-// tensor-core recurrence for NVIDIA Hopper (sm_90a), bound with ctypes.
+// K1p: the fused-input bidirectional LSTM, and K2p / K3p: one direction over
+// a hoisted input projection, as persistent, weight-stationary tensor-core
+// recurrences for NVIDIA Hopper (sm_90a), bound with ctypes.  K1p first; K2p
+// and K3p (scan_persistent_kernel) at the end of the namespace.
 //
 // Replaces urgent2026_challenge_track1_tpu/ops/pallas_lstm.py:
 // _fusedin_forward (body _fusedin_step) for bfloat16 inputs, beside K1's walk
@@ -104,9 +106,12 @@ struct Plan {
   __host__ __device__ int ldw() const { return 4 * U + 8; }           // bf16
   __host__ __device__ int lda() const { return (kx > kh ? kx : kh) + 8; }  // bf16
   __host__ __device__ int ldc() const { return 4 * U + 4; }           // f32
+  // K1p (N > 0) keeps its bias (4U f32); K2p/K3p (N = 0) a double buffer
+  // of the projection's 4U columns for a chunk (2 x chunk x 4U bf16)
   __host__ __device__ size_t smem_bytes() const {
     return 2 * (size_t)(kx + kh) * ldw() + 2 * (size_t)chunk * lda() +
-           4 * (size_t)chunk * ldc() + 4 * (size_t)cols() +
+           4 * (size_t)chunk * ldc() +
+           (N > 0 ? 4 * (size_t)cols() : 4 * (size_t)chunk * cols()) +
            (c_in_smem ? 4 * (size_t)rows * U : 0);
   }
 };
@@ -161,17 +166,34 @@ __device__ __forceinline__ void cp_async(bf16* dst, const bf16* src) {
   }
 }
 
+// Rows that a masked stage leaves zero: row r of the staged block is
+// dropped when step >= len[r] (K3p's h of a padded step).  len == nullptr
+// keeps every row.
+struct RowMask {
+  const int* len;
+  int step;
+  __device__ __forceinline__ bool drops(int r) const {
+    return len != nullptr && step >= __ldg(len + r);
+  }
+};
+
 // Copy rows x n bf16 from src (row stride lds) to dst (row stride ldd) in
-// asynchronous copies of BYTES (all in flight at once).
+// asynchronous copies of BYTES (all in flight at once); rows the mask drops
+// are written as zeros instead.
 template <int BYTES, bool L2_ONLY>
 __device__ __forceinline__ void async_rows(bf16* dst, int ldd, const bf16* src, size_t lds,
-                                           int rows, int n) {
+                                           int rows, int n, RowMask mask) {
   constexpr int E = BYTES / sizeof(bf16);
   const int per_row = n / E;
   for (int i = threadIdx.x; i < rows * per_row; i += kThreads) {
     const int r = i / per_row;
     const int v = i - r * per_row;
-    cp_async<BYTES, L2_ONLY>(dst + r * ldd + v * E, src + r * lds + v * E);
+    if (mask.drops(r)) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) dst[r * ldd + v * E + e] = __float2bfloat16(0.f);
+    } else {
+      cp_async<BYTES, L2_ONLY>(dst + r * ldd + v * E, src + r * lds + v * E);
+    }
   }
 }
 
@@ -179,31 +201,34 @@ __device__ __forceinline__ void async_rows(bf16* dst, int ldd, const bf16* src, 
 // copies around L1 (h when H is not a multiple of 8) or no 4-byte copies.
 template <bool L2_ONLY>
 __device__ __forceinline__ void copy_rows(bf16* dst, int ldd, const bf16* src, size_t lds,
-                                          int rows, int n) {
+                                          int rows, int n, RowMask mask) {
   const unsigned short* in = reinterpret_cast<const unsigned short*>(src);
   unsigned short* o = reinterpret_cast<unsigned short*>(dst);
   for (int i = threadIdx.x; i < rows * n; i += kThreads) {
     const int r = i / n;
     const int k = i - r * n;
-    o[r * ldd + k] = L2_ONLY ? __ldcg(in + r * lds + k) : __ldg(in + r * lds + k);
+    o[r * ldd + k] = mask.drops(r) ? 0
+                     : L2_ONLY     ? __ldcg(in + r * lds + k)
+                                   : __ldg(in + r * lds + k);
   }
 }
 
-// Stage rows x n of src into dst and zero its columns [n, npad); returns
-// when this thread's copies have landed (a __syncthreads must follow).
+// Stage rows x n of src into dst and zero its columns [n, npad) and the
+// rows ``mask`` drops; returns when this thread's copies (and every other
+// asynchronous copy it issued) have landed (a __syncthreads must follow).
 template <bool L2_ONLY>
 __device__ __forceinline__ void stage(bf16* dst, int ldd, const bf16* src, size_t lds, int rows,
-                                      int n, int npad) {
+                                      int n, int npad, RowMask mask = {nullptr, 0}) {
   const uintptr_t mis = reinterpret_cast<uintptr_t>(src) | (lds * sizeof(bf16)) |
                         (n * sizeof(bf16));
   if ((mis & 15) == 0) {
-    async_rows<16, L2_ONLY>(dst, ldd, src, lds, rows, n);
+    async_rows<16, L2_ONLY>(dst, ldd, src, lds, rows, n, mask);
   } else if (!L2_ONLY && (mis & 7) == 0) {
-    async_rows<8, false>(dst, ldd, src, lds, rows, n);
+    async_rows<8, false>(dst, ldd, src, lds, rows, n, mask);
   } else if (!L2_ONLY && (mis & 3) == 0) {
-    async_rows<4, false>(dst, ldd, src, lds, rows, n);
+    async_rows<4, false>(dst, ldd, src, lds, rows, n, mask);
   } else {
-    copy_rows<L2_ONLY>(dst, ldd, src, lds, rows, n);
+    copy_rows<L2_ONLY>(dst, ldd, src, lds, rows, n, mask);
   }
   const int pad = npad - n;
   for (int i = threadIdx.x; i < rows * pad; i += kThreads) {
@@ -489,15 +514,226 @@ __global__ void __launch_bounds__(kThreads, 1) fusedin_persistent_kernel(const A
 #endif
 }
 
-bool bad_plan(const Plan& p) {
+// K1p (scan = false: N > 0) or K2p/K3p (scan: N = 0).
+bool bad_plan(const Plan& p, bool scan) {
   const int col_blocks = (p.U + 7) / 8;  // column blocks of the widest warp column
-  return p.R <= 0 || p.Tn <= 0 || p.N <= 0 || p.H <= 0 || p.S <= 0 || p.G <= 0 ||
-         p.U <= 0 || p.U % 4 != 0 || p.rows <= 0 || p.chunk <= 0 || p.chunk % 16 != 0 ||
-         (long long)p.S * p.U < p.H || (long long)(p.S - 1) * p.U >= p.H ||
+  return p.R <= 0 || p.Tn <= 0 || (scan ? p.N != 0 : p.N <= 0) || p.H <= 0 || p.S <= 0 ||
+         p.G <= 0 || p.U <= 0 || p.U % 4 != 0 || p.rows <= 0 || p.chunk <= 0 ||
+         p.chunk % 16 != 0 || (long long)p.S * p.U < p.H || (long long)(p.S - 1) * p.U >= p.H ||
          (long long)p.G * p.rows < p.R || (long long)(p.G - 1) * p.rows >= p.R ||
          p.chunk > kMaxChunk || col_blocks > 8 || p.chunk / 16 * col_blocks > kAccBlocks ||
          p.chunk * p.U > kThreads * kCellSlots ||
          p.smem_bytes() > (size_t)kSmemLimit;
+}
+
+// ---------------------------------------------------------------------------
+// K2p and K3p: one direction over a hoisted projection.
+//
+// Replace urgent2026_challenge_track1_tpu/ops/pallas_lstm.py: lstm_scan_pallas
+// (body _body; K2, forward or reverse) and _lean_forward_revmasked (body
+// _lean_fwd_revmasked_body; K3, the reverse walk whose carried h and c are
+// multiplied by m = (t < lengths[r]) after each step) for bfloat16 inputs,
+// beside the walks in lstm_kernels.cu (recurrence_kernel), which keep float32
+// and every shape without a plan.  Each step computes
+//   gates = x_proj_t + round_bf16(h_{t-1}) W_hh^T     (f32 sums)
+//   c = f c + i g,  h = o tanh(c)                     (f32 cell)
+// and writes the unmasked h (bf16) to out (R, T, H).
+//
+// What bounded the walk: every block re-read W_hh (1.2 MB at H = 392) from L2
+// on every step for at most 8 rows on CUDA cores: 21.8 ms for 401 steps of 34
+// rows, against an arithmetic bound of 0.017 ms.
+//
+// Design: K1p's (above) for one direction and without the W_ih segment.  One
+// cooperative grid of G x S CTAs; CTA (g, s) keeps its Kh x 4U slice of
+// W_hh^T (ops/cuda_lstm.pack_scan_weights) in shared memory for the whole
+// walk and owns units [s U, min((s + 1) U, H)) for the rows of group g.  h
+// is exchanged through out with L2-only copies, the per-group counter is the
+// step barrier (bounded spin).  The projection does not depend on h, so a
+// chunk's four U-wide column segments of x_proj for the next (step, chunk)
+// are copied asynchronously into the other half of a double buffer before
+// the wait, and land during it.  K3p: out holds the unmasked h, so a reader
+// stages zeros for rows whose previous step t + 1 >= lengths[r], and the
+// owner of c stores 0 after a step t >= lengths[r]; out then equals the
+// plain version's at every step, padded ones included.  The floor is
+// latency: T dependent steps, each at least one barrier round trip through
+// L2.
+// ---------------------------------------------------------------------------
+
+struct ScanArgs {
+  const bf16* xp;      // (R, T, 4H) the hoisted projection, biases included
+  const bf16* w;       // (S, Kh, 4U) packed W_hh^T slices
+  const int* lengths;  // (R,) for K3p
+  bf16* out;           // (R, T, H)
+  float* c_global;     // (R, H) when !c_in_smem
+  int* counters;       // (G) zeros
+  Plan p;              // N = 0, kx = 0
+};
+
+// Copy the four nu-wide column segments q H + [u0, u0 + nu) of rows rows of
+// the projection (row stride lds) into dst (row r at r 4U, segment q at q
+// U) in asynchronous copies of BYTES; no wait.
+template <int BYTES>
+__device__ __forceinline__ void async_segments(bf16* dst, int U, const bf16* src, size_t lds,
+                                               int H, int rows, int nu) {
+  constexpr int E = BYTES / sizeof(bf16);
+  const int per_seg = nu / E;
+  const int per_row = 4 * per_seg;
+  for (int i = threadIdx.x; i < rows * per_row; i += kThreads) {
+    const int r = i / per_row;
+    const int j = i - r * per_row;
+    const int q = j / per_seg;
+    const int v = j - q * per_seg;
+    cp_async<BYTES, false>(dst + r * 4 * U + q * U + v * E, src + r * lds + q * H + v * E);
+  }
+}
+
+// The segments' copy: 16-, 8- or 4-byte asynchronous copies where every
+// address allows them, else plain 2-byte loads (H odd).  The copies land
+// at the caller's next cp.async.wait_all.
+__device__ __forceinline__ void stage_segments(bf16* dst, int U, const bf16* src, size_t lds,
+                                               int H, int rows, int nu) {
+  const uintptr_t mis = reinterpret_cast<uintptr_t>(src) | (lds * sizeof(bf16)) |
+                        (H * sizeof(bf16)) | (nu * sizeof(bf16)) | (U * sizeof(bf16));
+  if ((mis & 15) == 0) {
+    async_segments<16>(dst, U, src, lds, H, rows, nu);
+  } else if ((mis & 7) == 0) {
+    async_segments<8>(dst, U, src, lds, H, rows, nu);
+  } else if ((mis & 3) == 0) {
+    async_segments<4>(dst, U, src, lds, H, rows, nu);
+  } else {
+    const unsigned short* in = reinterpret_cast<const unsigned short*>(src);
+    unsigned short* o = reinterpret_cast<unsigned short*>(dst);
+    for (int i = threadIdx.x; i < rows * 4 * nu; i += kThreads) {
+      const int r = i / (4 * nu);
+      const int j = i - r * 4 * nu;
+      const int q = j / nu;
+      const int k = j - q * nu;
+      o[r * 4 * U + q * U + k] = __ldg(in + r * lds + q * H + k);
+    }
+  }
+}
+
+template <bool REVERSE, bool MASKED>
+__global__ void __launch_bounds__(kThreads, 1) scan_persistent_kernel(const ScanArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Plan p = a.p;
+  const int s = blockIdx.x, g = blockIdx.y;
+  const int U = p.U, C = p.cols(), H = p.H;
+  const int ldw = p.ldw(), lda = p.lda(), ldc = p.ldc();
+  bf16* w_s = reinterpret_cast<bf16*>(smem);
+  bf16* a_s = w_s + (size_t)p.kh * ldw;
+  float* acc_s = reinterpret_cast<float*>(a_s + (size_t)p.chunk * lda);
+  bf16* x_s = reinterpret_cast<bf16*>(acc_s + (size_t)p.chunk * ldc);  // 2 x chunk x 4U
+  float* c_s = reinterpret_cast<float*>(x_s + 2 * (size_t)p.chunk * C);
+
+  const int r_begin = g * p.rows;
+  const int r_count = min(p.rows, p.R - r_begin);
+  const int u0 = s * U;
+  const int nu = min(U, H - u0);
+  const size_t G4 = 4 * (size_t)H;
+  int* counter = a.counters + g;
+  float* cb = p.c_in_smem ? c_s : a.c_global + (size_t)r_begin * H + u0;
+  const size_t cld = p.c_in_smem ? (size_t)U : (size_t)H;
+  const int* len = MASKED ? a.lengths + r_begin : nullptr;  // the group's lengths
+
+  // the weight slice (16-byte vectors; 4U is a multiple of 16), a zero A
+  // buffer and a zero c
+  const bf16* wg = a.w + (size_t)s * p.kh * C;
+  const int vpr = C / 8;
+  for (int i = threadIdx.x; i < p.kh * vpr; i += kThreads) {
+    const int k = i / vpr;
+    const int v = i - k * vpr;
+    *reinterpret_cast<uint4*>(w_s + (size_t)k * ldw + v * 8) =
+        __ldg(reinterpret_cast<const uint4*>(wg + (size_t)k * C + v * 8));
+  }
+  for (int i = threadIdx.x; i < p.chunk * lda; i += kThreads) a_s[i] = __float2bfloat16(0.f);
+  for (int i = threadIdx.x; i < r_count * U; i += kThreads) {
+    const int row = i / U;
+    const int ul = i - row * U;
+    if (ul < nu) cb[row * cld + ul] = 0.f;
+  }
+  // the projection's segments of the first (step, chunk)
+  auto x_src = [&](int step, int r0) {
+    const int t = REVERSE ? p.Tn - 1 - step : step;
+    return a.xp + ((size_t)(r_begin + r0) * p.Tn + t) * G4 + u0;
+  };
+  stage_segments(x_s, U, x_src(0, 0), p.Tn * G4, H, min(p.chunk, r_count), nu);
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32;
+  const int ng = warp % kNGroups;
+  const int kg = warp / kNGroups;
+  const int nb = (C / 8 - ng + kNGroups - 1) / kNGroups;  // column blocks ng, ng + 4, ...
+  int cell_row[kCellSlots], cell_ul[kCellSlots];
+#pragma unroll
+  for (int j = 0; j < kCellSlots; ++j) {
+    const int i = threadIdx.x + j * kThreads;
+    cell_row[j] = i / U;
+    cell_ul[j] = i - cell_row[j] * U;
+    if (cell_ul[j] >= nu) cell_row[j] = p.chunk;
+  }
+  int buf = 0;
+  for (int step = 0; step < p.Tn; ++step) {
+    const int t = REVERSE ? p.Tn - 1 - step : step;
+    const int tp = REVERSE ? t + 1 : t - 1;
+    for (int r0 = 0; r0 < r_count; r0 += p.chunk) {
+      const int rows = min(p.chunk, r_count - r0);
+      const int mt = (rows + 15) / 16;
+      const size_t rg = (size_t)(r_begin + r0);
+      // the other half of x_s was read by the previous chunk's cells
+      if (r0 > 0) __syncthreads();
+      // the next (step, chunk)'s projection: in flight during the wait
+      const bool last_chunk = r0 + p.chunk >= r_count;
+      if (!last_chunk || step + 1 < p.Tn) {
+        const int nr0 = last_chunk ? 0 : r0 + p.chunk;
+        stage_segments(x_s + (size_t)(buf ^ 1) * p.chunk * C, U,
+                       x_src(last_chunk ? step + 1 : step, nr0), p.Tn * G4, H,
+                       min(p.chunk, r_count - nr0), nu);
+      }
+      float acc[kAccBlocks][4] = {};
+      float c_reg[kCellSlots];
+#pragma unroll
+      for (int j = 0; j < kCellSlots; ++j) {
+        c_reg[j] = cell_row[j] < rows ? cb[(size_t)(r0 + cell_row[j]) * cld + cell_ul[j]] : 0.f;
+      }
+      if (step > 0) {
+        if (r0 == 0) wait_for(counter, p.S * step);
+        // h_{t-1} from out, zero where the previous step was padded (K3p)
+        stage<true>(a_s, lda, a.out + (rg * p.Tn + tp) * H, p.Tn * (size_t)H, rows, H, p.kh,
+                    RowMask{MASKED ? len + r0 : nullptr, tp});
+        __syncthreads();
+        mma_segment(acc, a_s, lda, w_s, ldw, p.kh, mt, nb, ng, kg);
+      }
+      asm volatile("cp.async.wait_all;\n" ::: "memory");  // the prefetch has landed
+      reduce_blocks(acc, acc_s, ldc, mt, nb, ng, kg);
+
+      const bf16* xs = x_s + (size_t)buf * p.chunk * C;
+#pragma unroll
+      for (int j = 0; j < kCellSlots; ++j) {
+        const int row = cell_row[j];
+        const int ul = cell_ul[j];
+        if (row >= rows) continue;
+        const float* pre = acc_s + row * ldc + ul;
+        const bf16* x = xs + row * C + ul;
+        const float ig = sigmoid_f(pre[0] + __bfloat162float(x[0]));
+        const float fg = sigmoid_f(pre[U] + __bfloat162float(x[U]));
+        const float gg = tanhf(pre[2 * U] + __bfloat162float(x[2 * U]));
+        const float og = sigmoid_f(pre[3 * U] + __bfloat162float(x[3 * U]));
+        const float c = fg * c_reg[j] + ig * gg;
+        cb[(size_t)(r0 + row) * cld + ul] =
+            (MASKED && t >= __ldg(len + r0 + row)) ? 0.f : c;
+        a.out[((rg + row) * p.Tn + t) * H + u0 + ul] = __float2bfloat16(og * tanhf(c));
+      }
+      buf ^= 1;
+    }
+    // arrive: every h of this step is stored before the counter moves
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      __threadfence();
+      atomicAdd(counter, 1);
+    }
+  }
 }
 
 }  // namespace
@@ -518,7 +754,7 @@ int lstm_persistent_phase_cycles(long long* host, int ctas) {
 }
 
 // Shared-memory bytes of one CTA of a plan (the planner's reckoning, for a
-// check from Python).
+// check from Python): K1p's for N > 0, K2p/K3p's for N = 0.
 long long lstm_persistent_smem(int N, int H, int U, int rows, int chunk, int c_in_smem) {
   Plan p{};
   p.N = N;
@@ -557,7 +793,7 @@ int lstm_fusedin_persistent(const void* x, const void* w, const void* bias, void
   p.c_in_smem = c_in_smem;
   p.kx = (N + 15) / 16 * 16;
   p.kh = (H + 15) / 16 * 16;
-  if (bad_plan(p) || (!c_in_smem && c_global == nullptr)) return (int)cudaErrorInvalidValue;
+  if (bad_plan(p, false) || (!c_in_smem && c_global == nullptr)) return (int)cudaErrorInvalidValue;
   const size_t smem = p.smem_bytes();
   cudaError_t e = cudaFuncSetAttribute(fusedin_persistent_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -565,6 +801,48 @@ int lstm_fusedin_persistent(const void* x, const void* w, const void* bias, void
     void* params[] = {&a};
     e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(fusedin_persistent_kernel),
                                     dim3(S, G, 2), dim3(kThreads), params, smem,
+                                    static_cast<cudaStream_t>(stream));
+  }
+  if (e != cudaSuccess) cudaGetLastError();  // a refused launch leaves no sticky error behind
+  return (int)e;
+}
+
+// K2p (lengths == nullptr; forward, or reverse) and K3p (lengths (R,) int32,
+// reverse only): xp (R, T, 4H) bf16, the packed W_hh^T (S, Kh, 4U) bf16 ->
+// out (R, T, H) bf16; c_global (R, H) f32 scratch unless c_in_smem;
+// counters (G) int32 zeros.  Returns the cudaError_t of the cooperative
+// launch, as lstm_fusedin_persistent.
+int lstm_scan_persistent(const void* xp, const void* w, const void* lengths, void* out,
+                         void* c_global, void* counters, int R, int Tn, int H, int reverse,
+                         int S, int G, int U, int rows, int chunk, int c_in_smem, void* stream) {
+  ScanArgs a{static_cast<const bf16*>(xp), static_cast<const bf16*>(w),
+             static_cast<const int*>(lengths), static_cast<bf16*>(out),
+             static_cast<float*>(c_global), static_cast<int*>(counters), Plan{}};
+  Plan& p = a.p;
+  p.R = R;
+  p.Tn = Tn;
+  p.N = 0;
+  p.H = H;
+  p.S = S;
+  p.G = G;
+  p.U = U;
+  p.rows = rows;
+  p.chunk = chunk;
+  p.c_in_smem = c_in_smem;
+  p.kx = 0;
+  p.kh = (H + 15) / 16 * 16;
+  const bool masked = lengths != nullptr;
+  if (bad_plan(p, true) || (!c_in_smem && c_global == nullptr) || (masked && !reverse))
+    return (int)cudaErrorInvalidValue;
+  const void* kernel = masked    ? reinterpret_cast<const void*>(scan_persistent_kernel<true, true>)
+                       : reverse ? reinterpret_cast<const void*>(scan_persistent_kernel<true, false>)
+                                 : reinterpret_cast<const void*>(scan_persistent_kernel<false, false>);
+  const size_t smem = p.smem_bytes();
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess) {
+    void* params[] = {&a};
+    e = cudaLaunchCooperativeKernel(kernel, dim3(S, G, 1), dim3(kThreads), params, smem,
                                     static_cast<cudaStream_t>(stream));
   }
   if (e != cudaSuccess) cudaGetLastError();  // a refused launch leaves no sticky error behind

@@ -324,17 +324,17 @@ class MaskDecoderHead(nn.Module):
         return cplx[..., flat_valid]
 
 
-# Kernel launches of one training step per dual-path layer with reentrant
-# remat (a lean pass, then the recorded pass and its backward), for each
+# Kernel launches of one training step per dual-path layer with remat (the
+# recorded pass, its recompute in the backward, and the backward), for each
 # setting of the toggles of ops/cuda_lstm.py: default, STREAM_INPUT_TRAIN,
-# FUSED_BIDIR_TRAIN, both.  The same for either model family.
+# FUSED_BIDIR_TRAIN, both.  The same for either model family; the lean
+# inference kernels (fusedin_bilstm, lstm_scan, lstm_revmasked) run in none.
 TRAIN_LAUNCHES_PER_LAYER = {
-    "default": {"fusedin_bilstm": 1, "lstm_scan": 1, "lstm_revmasked": 1, "lstm_train_fwd": 3,
-                "lstm_train_bwd": 3, "lstm_revmasked_train_fwd": 1, "lstm_revmasked_bwd": 1},
-    "stream": {"fusedin_bilstm": 1, "lstm_train_fwd_streamin": 6, "lstm_train_bwd": 4},
-    "fused": {"fusedin_bilstm": 1, "lstm_scan": 1, "lstm_revmasked": 1, "lstm_train_fwd": 1,
-              "lstm_train_bwd": 1, "lstm_revmasked_train_fwd": 1, "lstm_revmasked_bwd": 1,
-              "lstm_train_fwd2": 1, "lstm_train_bwd2": 1},
+    "default": {"lstm_train_fwd": 6, "lstm_train_bwd": 3, "lstm_revmasked_train_fwd": 2,
+                "lstm_revmasked_bwd": 1},
+    "stream": {"lstm_train_fwd_streamin": 8, "lstm_train_bwd": 4},
+    "fused": {"lstm_train_fwd": 2, "lstm_train_bwd": 1, "lstm_revmasked_train_fwd": 2,
+              "lstm_revmasked_bwd": 1, "lstm_train_fwd2": 2, "lstm_train_bwd2": 1},
 }
 TRAIN_LAUNCHES_PER_LAYER["both"] = TRAIN_LAUNCHES_PER_LAYER["stream"]
 
@@ -347,10 +347,12 @@ def run_layers(layers: nn.ModuleList, z: torch.Tensor, cfg: BSRNNConfig,
     remat = cfg.remat and torch.is_grad_enabled()
     for layer in layers:
         if remat:
-            # reentrant mode: the first pass runs under no_grad on the lean
-            # kernels (K1-K3) and keeps only the layer's input; the backward
-            # recomputes the layer with the training kernels
-            z = checkpoint(layer, z, frames, fm, t, use_reentrant=True,
+            # non-reentrant mode: the first pass records autograd, so it runs
+            # the training kernels' forward (BiLSTMTrain, LSTMDirTrain,
+            # LSTMRevMaskedTrain) and drops their residuals; the backward
+            # recomputes the layer with the same functions, as jax.checkpoint
+            # runs the custom-VJP forward rules in both passes
+            z = checkpoint(layer, z, frames, fm, t, use_reentrant=False,
                            preserve_rng_state=False)
         else:
             z = layer(z, frames, fm, t)

@@ -18,6 +18,12 @@ bfloat16, h and c always float32):
   lstm_scan       x_proj (R, T, 4H), w_hh_t (H, 4H)   -> (R, T, H)
   lstm_revmasked  x_proj (R, T, 4H), w_hh_t (H, 4H),
                   lengths (R,) int32                   -> (R, T, H)
+                  each on one of two routes, fixed before launch by
+                  ``scan_route``: K2p / K3p (``lstm_scan_persistent``,
+                  ``lstm_revmasked_persistent``, csrc/lstm_persistent.cu) for
+                  bfloat16 where ``plan_persistent`` finds a one-direction
+                  plan, else the walk (``lstm_scan_walk``,
+                  ``lstm_revmasked_walk``, csrc/lstm_kernels.cu)
 
   lstm_train_fwd            (K4) as lstm_scan      -> h, gates (R, T, 4H), c
   lstm_revmasked_train_fwd  (K6) as lstm_revmasked -> h, gates, c
@@ -30,11 +36,12 @@ bfloat16, h and c always float32):
   lstm_train_bwd2           (K10) K5 for both directions in one launch
 
 Index 0 of the stacked K1 weights is the forward direction, 1 the backward.
-``fusedin_bilstm.routes`` counts K1's launches per route ("persistent",
-"walk"); ``reset_launch_counts`` zeroes them with the launch counts.
+``route_counts(name)`` reads the launches per route ("persistent", "walk") of
+K1, K2 or K3; ``reset_launch_counts`` zeroes them with the launch counts.
 ``LSTMDirTrain`` (K4/K5) and ``LSTMRevMaskedTrain`` (K6/K7) are the autograd
 Functions of the training path; ``lstm_dir`` and ``lstm_dir_revmasked``
-route to them when autograd records and to the lean K2/K3 otherwise.
+route to them when autograd records and to the lean K2/K3 otherwise (under
+remat too: the checkpoint records in its first pass).
 ``BiLSTMTrain`` is the differentiable bidirectional layer of the band path
 and ``LSTMDirStreamIn`` the differentiable raw-input direction; both read
 the two experiment toggles below at call time, as the JAX VJP rules read
@@ -60,6 +67,14 @@ __all__ = [
     "k1_route",
     "lstm_scan",
     "lstm_revmasked",
+    "lstm_scan_walk",
+    "lstm_revmasked_walk",
+    "lstm_scan_persistent",
+    "lstm_revmasked_persistent",
+    "lstm_scan_sliced_plain",
+    "lstm_revmasked_sliced_plain",
+    "pack_scan_weights",
+    "scan_route",
     "fusedin_bilstm_plain",
     "lstm_scan_plain",
     "lstm_revmasked_plain",
@@ -271,7 +286,8 @@ def fusedin_bilstm_plain(x: torch.Tensor, w_ih_t: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# K1p: the partition, the packed weight layout and the plain sliced walk
+# K1p, K2p, K3p: the partition, the packed weight layouts and the plain
+# sliced walks
 # ---------------------------------------------------------------------------
 
 SMEM_LIMIT = 232448  # dynamic shared memory of one block on an H100 (227 KB)
@@ -291,22 +307,26 @@ def _pad16(n: int) -> int:
 
 def persistent_smem(N: int, H: int, U: int, chunk: int, rows: int = 0,
                     c_in_smem: bool = False) -> int:
-    """Shared-memory bytes of one K1p CTA (csrc/lstm_persistent.cu
+    """Shared-memory bytes of one persistent CTA (csrc/lstm_persistent.cu
     ``Plan::smem_bytes``): the weight slice (Kx + Kh) x (4U + 8) bf16, a
     chunk of staged inputs chunk x (max(Kx, Kh) + 8) bf16, its accumulators
-    chunk x (4U + 4) f32, the bias 4U f32 and, when it lives there, c (rows
-    x U f32).  The +8 / +4 pads spread rows over the banks."""
+    chunk x (4U + 4) f32 and, when it lives there, c (rows x U f32); then
+    K1p's bias (4U f32) or, for the walks over a hoisted projection (N = 0:
+    K2p, K3p), a double buffer of the projection's 4U columns (2 x chunk x
+    4U bf16).  The +8 / +4 pads spread rows over the banks."""
     kx, kh = _pad16(N), _pad16(H)
+    extra = 4 * 4 * U if N else 2 * 2 * chunk * 4 * U
     return (2 * (kx + kh) * (4 * U + 8) + 2 * chunk * (max(kx, kh) + 8)
-            + 4 * chunk * (4 * U + 4) + 4 * 4 * U + (4 * rows * U if c_in_smem else 0))
+            + 4 * chunk * (4 * U + 4) + extra + (4 * rows * U if c_in_smem else 0))
 
 
 @dataclasses.dataclass(frozen=True)
 class PersistentPlan:
-    """K1p's partition: 2 x G x S CTAs; CTA (d, g, s) owns hidden units
-    [s U, min((s + 1) U, H)) of direction d for rows [g rows, min((g + 1)
-    rows, R)), walked ``chunk`` rows at a time; c in shared memory or in a
-    global (R, 2, H) buffer."""
+    """A persistent partition: dirs x G x S CTAs; CTA (d, g, s) owns hidden
+    units [s U, min((s + 1) U, H)) of direction d for rows [g rows, min((g +
+    1) rows, R)), walked ``chunk`` rows at a time; c in shared memory or in
+    a global buffer.  K1p: dirs = 2 over N inputs; K2p/K3p: dirs = 1, N = 0
+    (the input projection is hoisted)."""
     R: int
     N: int
     H: int
@@ -317,6 +337,7 @@ class PersistentPlan:
     chunk: int
     c_in_smem: bool
     smem: int
+    dirs: int = 2
 
     @property
     def kx(self) -> int:
@@ -328,21 +349,23 @@ class PersistentPlan:
 
     @property
     def ctas(self) -> int:
-        return 2 * self.G * self.S
+        return self.dirs * self.G * self.S
 
 
 @functools.lru_cache(maxsize=256)
-def plan_persistent(R: int, N: int, H: int, sms: int,
-                    smem_bytes: int = SMEM_LIMIT) -> PersistentPlan | None:
-    """The K1p partition of R rows, N inputs and H units on ``sms`` SMs, or
-    None when no slice fits in ``smem_bytes`` or the grid exceeds the SMs.
+def plan_persistent(R: int, N: int, H: int, sms: int, smem_bytes: int = SMEM_LIMIT,
+                    dirs: int = 2) -> PersistentPlan | None:
+    """The persistent partition of R rows, N inputs (0: a hoisted
+    projection) and H units over ``dirs`` directions on ``sms`` SMs, or None
+    when no slice fits in ``smem_bytes`` or the grid exceeds the SMs.
 
     L2 traffic per step (the staged h) grows with S, not with G, so: the
     smallest S whose slice fits beside one 16-row chunk; then rows spread
-    over G = max(1, min(sms // 2S, ceil(R / 64))) groups; then S widened to
-    the SMs left over (U, a multiple of 4, shrinks with it); then the
-    largest chunk that fits, and c in shared memory if it fits too."""
-    if min(R, N, H, sms) <= 0:
+    over G = max(1, min(sms // (dirs S), ceil(R / 64))) groups; then S
+    widened to the SMs left over (U, a multiple of 4, shrinks with it);
+    then the largest chunk that fits, and c in shared memory if it fits
+    too."""
+    if min(R, H, sms, dirs) <= 0 or N < 0:
         return None
 
     def units(S):  # ceil(H / S) rounded up to a multiple of 4
@@ -360,17 +383,17 @@ def plan_persistent(R: int, N: int, H: int, sms: int,
             return None
         S += 1
     S = _ceil(H, units(S))
-    if 2 * S > sms:
+    if dirs * S > sms:
         return None
-    G = max(1, min(sms // (2 * S), _ceil(R, GROUP_ROWS)))
-    U = units(min(sms // (2 * G), _ceil(H, 4)))
+    G = max(1, min(sms // (dirs * S), _ceil(R, GROUP_ROWS)))
+    U = units(min(sms // (dirs * G), _ceil(H, 4)))
     S = _ceil(H, U)
     rows = _ceil(R, G)
     G = _ceil(R, rows)
     chunk = next(c for c in range(min(_pad16(rows), MAX_CHUNK), 0, -16) if fits(U, c))
     c_in_smem = fits(U, chunk, rows, True)
     return PersistentPlan(R, N, H, S, G, U, rows, chunk, c_in_smem,
-                          persistent_smem(N, H, U, chunk, rows, c_in_smem))
+                          persistent_smem(N, H, U, chunk, rows, c_in_smem), dirs)
 
 
 @functools.lru_cache(maxsize=64)
@@ -432,6 +455,66 @@ def fusedin_bilstm_sliced_plain(x: torch.Tensor, packed, plan: PersistentPlan) -
                     out[rows, t, d * H + u0:d * H + u0 + nu] = (
                         torch.sigmoid(pre[:, 3]) * torch.tanh(cu)).to(x.dtype)
     return out
+
+
+def pack_scan_weights(w_hh_t: torch.Tensor, plan: PersistentPlan) -> torch.Tensor:
+    """One direction's W_hh^T (H, 4H) in K2p/K3p's layout: (S, Kh, 4U), rows
+    [0, H) of W_hh^T (zero rows to Kh) and column q U + j = gate q of unit
+    s U + j (zero past H), as ``pack_persistent_weights`` lays out K1p's
+    W_hh segment.  Slice s is one contiguous block."""
+    H, S, U = plan.H, plan.S, plan.U
+    cols = _packed_columns(H, S, U, w_hh_t.device)
+    k = torch.cat([w_hh_t, w_hh_t.new_zeros(plan.kh - H, 4 * H)], dim=0)
+    k = torch.cat([k, k.new_zeros(plan.kh, 1)], dim=1)
+    return k.index_select(1, cols).reshape(plan.kh, S, 4 * U).transpose(0, 1).contiguous()
+
+
+def _scan_sliced_plain(x_proj, w, plan, reverse, lengths=None):
+    """The walk of K2p/K3p over ``plan``'s (group, slice) schedule: h_{t-1}
+    read back from the output (rounded to x_proj's dtype) and, with
+    ``lengths``, zeroed for rows where t - 1 (reverse: t + 1) >= lengths[r];
+    c kept per (row, unit) and zeroed after step t >= lengths[r]; gates =
+    x_proj_t + h W_hh (f32 sums of the packed slice's columns)."""
+    R, T, _ = x_proj.shape
+    H, U = plan.H, plan.U
+    out = x_proj.new_zeros((R, T, H))
+    c = torch.zeros((R, H), dtype=torch.float32, device=x_proj.device)
+    for step in range(T):
+        t = T - 1 - step if reverse else step
+        tp = t + 1 if reverse else t - 1
+        for g in range(plan.G):
+            rows = slice(g * plan.rows, min((g + 1) * plan.rows, R))
+            xr = x_proj[rows, t].float().reshape(-1, 4, H)
+            hr = out[rows, tp].float() if step else None
+            keep = None if lengths is None else lengths[rows].to(x_proj.device)[:, None]
+            if hr is not None and keep is not None:
+                hr = hr * (tp < keep)
+            for s in range(plan.S):
+                u0, nu = s * U, min(U, H - s * U)
+                pre = xr[..., u0:u0 + nu]
+                if hr is not None:
+                    pre = pre + (hr @ w[s, :H].float()).reshape(-1, 4, U)[..., :nu]
+                cu = (torch.sigmoid(pre[:, 1]) * c[rows, u0:u0 + nu]
+                      + torch.sigmoid(pre[:, 0]) * torch.tanh(pre[:, 2]))
+                out[rows, t, u0:u0 + nu] = (torch.sigmoid(pre[:, 3]) * torch.tanh(cu)).to(
+                    x_proj.dtype)
+                c[rows, u0:u0 + nu] = cu if keep is None else cu * (t < keep)
+    return out
+
+
+def lstm_scan_sliced_plain(x_proj: torch.Tensor, w_packed: torch.Tensor, plan: PersistentPlan,
+                           reverse: bool = False) -> torch.Tensor:
+    """Plain version of K2p: reads only the packed slices (``w_packed`` =
+    ``pack_scan_weights``'s) and walks the kernel's schedule step by step."""
+    return _scan_sliced_plain(x_proj, w_packed, plan, reverse)
+
+
+def lstm_revmasked_sliced_plain(x_proj: torch.Tensor, w_packed: torch.Tensor,
+                                lengths: torch.Tensor, plan: PersistentPlan) -> torch.Tensor:
+    """Plain version of K3p: the masked reverse walk over the packed slices;
+    the output equals ``lstm_revmasked_plain``'s at every step, padded ones
+    included (h is masked where it is read, not where it is written)."""
+    return _scan_sliced_plain(x_proj, w_packed, plan, True, lengths)
 
 
 # ---------------------------------------------------------------------------
@@ -520,11 +603,6 @@ def _check_k1(x, w_ih_t, w_hh_t, bias):
     return R, T, N, H, torch.empty((R, T, 2 * H), dtype=x.dtype, device=x.device)
 
 
-def _count_k1(route: str) -> None:
-    fusedin_bilstm.launches += 1
-    fusedin_bilstm.routes[route] += 1
-
-
 def fusedin_bilstm_walk(x: torch.Tensor, w_ih_t: torch.Tensor, w_hh_t: torch.Tensor,
                         bias: torch.Tensor) -> torch.Tensor:
     """K1's walk (csrc/lstm_kernels.cu ``fusedin_kernel``), float32 or
@@ -542,7 +620,7 @@ def fusedin_bilstm_walk(x: torch.Tensor, w_ih_t: torch.Tensor, w_hh_t: torch.Ten
         out.data_ptr(), R, T, N, H, dtype, rows_per_block(R, 2, x.device, H), stream,
     )
     _raise_on(err, "fusedin_bilstm")
-    _count_k1("walk")
+    _count(fusedin_bilstm, "walk")
     return out
 
 
@@ -585,21 +663,72 @@ def fusedin_bilstm_persistent(x: torch.Tensor, w_ih_t: torch.Tensor, w_hh_t: tor
         ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
     )
     _raise_on(err, "fusedin_bilstm_persistent")
-    _count_k1("persistent")
+    _count(fusedin_bilstm, "persistent")
     return out
+
+
+def scan_route(dtype: torch.dtype, R: int, H: int, sms: int) -> PersistentPlan | None:
+    """The route of K2 and K3, a fixed rule decided before launch from the
+    dtype and the shape: the K2p/K3p plan (one direction over a hoisted
+    projection) for bfloat16 where ``plan_persistent`` finds one on ``sms``
+    SMs, else None (the walk: float32, or no plan)."""
+    if dtype != torch.bfloat16:
+        return None
+    return plan_persistent(R, 0, H, sms, dirs=1)
 
 
 def lstm_scan(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
               reverse: bool = False) -> torch.Tensor:
-    """K2: one direction over a hoisted projection; (R, T, 4H) -> (R, T, H)."""
+    """K2: one direction over a hoisted projection; (R, T, 4H) -> (R, T, H),
+    on the route ``scan_route`` picks (K2p or the walk)."""
     if x_proj.device.type == "cpu":
         return lstm_scan_plain(x_proj, w_hh_t, reverse)
+    R, _, G = x_proj.shape
+    plan = scan_route(x_proj.dtype, R, G // 4, _sm_count(_device_index(x_proj.device)))
+    if plan is None:
+        return lstm_scan_walk(x_proj, w_hh_t, reverse)
+    return lstm_scan_persistent(x_proj, w_hh_t, reverse, plan)
+
+
+def lstm_revmasked(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
+                   lengths: torch.Tensor) -> torch.Tensor:
+    """K3: length-masked reverse walk; (R, T, 4H), (R,) -> (R, T, H), on the
+    route ``scan_route`` picks (K3p or the walk).  Outputs at t < lengths[r]
+    equal a fresh reverse scan of the valid prefix; outputs at t >=
+    lengths[r] are unspecified to callers (both routes write the plain
+    version's)."""
+    if x_proj.device.type == "cpu":
+        return lstm_revmasked_plain(x_proj, w_hh_t, lengths)
+    R, _, G = x_proj.shape
+    plan = scan_route(x_proj.dtype, R, G // 4, _sm_count(_device_index(x_proj.device)))
+    if plan is None:
+        return lstm_revmasked_walk(x_proj, w_hh_t, lengths)
+    return lstm_revmasked_persistent(x_proj, w_hh_t, lengths, plan)
+
+
+def _count(fn, route: str) -> None:
+    fn.launches += 1
+    fn.routes[route] += 1
+
+
+def _check_scan(x_proj, w_hh_t, lengths):
     R, T, G = x_proj.shape
     H = G // 4
-    dtype, stream = _kernel_args(x_proj, H)
     _check("x_proj", x_proj, (R, T, 4 * H), x_proj.dtype, x_proj.device)
     _check("w_hh_t", w_hh_t, (H, 4 * H), x_proj.dtype, x_proj.device)
-    out = torch.empty((R, T, H), dtype=x_proj.dtype, device=x_proj.device)
+    if lengths is not None:
+        _check("lengths", lengths, (R,), torch.int32, x_proj.device)
+    return R, T, H, torch.empty((R, T, H), dtype=x_proj.dtype, device=x_proj.device)
+
+
+def lstm_scan_walk(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
+                   reverse: bool = False) -> torch.Tensor:
+    """K2's walk (csrc/lstm_kernels.cu ``recurrence_kernel``), float32 or
+    bfloat16; counted in ``lstm_scan.launches`` and ``.routes["walk"]``."""
+    if x_proj.device.type == "cpu":
+        return lstm_scan_plain(x_proj, w_hh_t, reverse)
+    dtype, stream = _kernel_args(x_proj, x_proj.shape[-1] // 4)
+    R, T, H, out = _check_scan(x_proj, w_hh_t, None)
     if R == 0 or T == 0:
         return out
     from urgent2026_challenge_track1_tpu_torch.ops._build import load_library
@@ -609,24 +738,18 @@ def lstm_scan(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
         int(bool(reverse)), dtype, rows_per_block(R, 1, x_proj.device, H), stream,
     )
     _raise_on(err, "lstm_scan")
-    lstm_scan.launches += 1
+    _count(lstm_scan, "walk")
     return out
 
 
-def lstm_revmasked(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
-                   lengths: torch.Tensor) -> torch.Tensor:
-    """K3: length-masked reverse walk; (R, T, 4H), (R,) -> (R, T, H).
-    Outputs at t < lengths[r] equal a fresh reverse scan of the valid prefix;
-    outputs at t >= lengths[r] are unspecified."""
+def lstm_revmasked_walk(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
+                        lengths: torch.Tensor) -> torch.Tensor:
+    """K3's walk (csrc/lstm_kernels.cu ``recurrence_kernel``), float32 or
+    bfloat16; counted in ``lstm_revmasked.launches`` and ``.routes["walk"]``."""
     if x_proj.device.type == "cpu":
         return lstm_revmasked_plain(x_proj, w_hh_t, lengths)
-    R, T, G = x_proj.shape
-    H = G // 4
-    dtype, stream = _kernel_args(x_proj, H)
-    _check("x_proj", x_proj, (R, T, 4 * H), x_proj.dtype, x_proj.device)
-    _check("w_hh_t", w_hh_t, (H, 4 * H), x_proj.dtype, x_proj.device)
-    _check("lengths", lengths, (R,), torch.int32, x_proj.device)
-    out = torch.empty((R, T, H), dtype=x_proj.dtype, device=x_proj.device)
+    dtype, stream = _kernel_args(x_proj, x_proj.shape[-1] // 4)
+    R, T, H, out = _check_scan(x_proj, w_hh_t, lengths)
     if R == 0 or T == 0:
         return out
     from urgent2026_challenge_track1_tpu_torch.ops._build import load_library
@@ -636,8 +759,64 @@ def lstm_revmasked(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
         R, T, H, dtype, rows_per_block(R, 1, x_proj.device, H), stream,
     )
     _raise_on(err, "lstm_revmasked")
-    lstm_revmasked.launches += 1
+    _count(lstm_revmasked, "walk")
     return out
+
+
+def _scan_persistent(fn, x_proj, w_hh_t, reverse, lengths, plan):
+    """Launch K2p (``lengths`` None) or K3p: one cooperative grid of G x S
+    CTAs over ``plan`` (``plan_persistent``'s for one direction by
+    default); a grid the card cannot hold resident raises."""
+    name = fn.__name__ + "_persistent"
+    if x_proj.device.type != "cuda":
+        raise ValueError(f"kernel input on unsupported device {x_proj.device}")
+    if x_proj.dtype != torch.bfloat16:
+        raise TypeError(f"{name} takes bfloat16 inputs, not {x_proj.dtype}")
+    R, T, H, out = _check_scan(x_proj, w_hh_t, lengths)
+    plan = plan or plan_persistent(R, 0, H, _sm_count(_device_index(x_proj.device)), dirs=1)
+    if plan is None:
+        raise ValueError(f"no {name} plan for R={R}, H={H}")
+    if (plan.R, plan.N, plan.H, plan.dirs) != (R, 0, H, 1):
+        raise ValueError(f"plan for {(plan.R, plan.N, plan.H, plan.dirs)}, "
+                         f"inputs {(R, 0, H, 1)}")
+    if T == 0:
+        return out
+    w = pack_scan_weights(w_hh_t, plan)
+    c = None if plan.c_in_smem else torch.empty((R, H), dtype=torch.float32,
+                                                 device=x_proj.device)
+    counters = torch.zeros((plan.G,), dtype=torch.int32, device=x_proj.device)
+    from urgent2026_challenge_track1_tpu_torch.ops._build import load_library
+
+    err = load_library().lstm_scan_persistent(
+        x_proj.data_ptr(), w.data_ptr(), None if lengths is None else lengths.data_ptr(),
+        out.data_ptr(), None if c is None else c.data_ptr(), counters.data_ptr(), R, T, H,
+        int(bool(reverse)), plan.S, plan.G, plan.U, plan.rows, plan.chunk,
+        int(plan.c_in_smem), ctypes.c_void_p(torch.cuda.current_stream(x_proj.device).cuda_stream),
+    )
+    _raise_on(err, name)
+    _count(fn, "persistent")
+    return out
+
+
+def lstm_scan_persistent(x_proj: torch.Tensor, w_hh_t: torch.Tensor, reverse: bool = False,
+                         plan: PersistentPlan | None = None) -> torch.Tensor:
+    """K2p (csrc/lstm_persistent.cu), bfloat16 only: packs W_hh for ``plan``
+    and launches one cooperative grid.  Counted in ``lstm_scan.launches``
+    and ``.routes["persistent"]``."""
+    if x_proj.device.type == "cpu":
+        return lstm_scan_plain(x_proj, w_hh_t, reverse)
+    return _scan_persistent(lstm_scan, x_proj, w_hh_t, reverse, None, plan)
+
+
+def lstm_revmasked_persistent(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
+                              lengths: torch.Tensor,
+                              plan: PersistentPlan | None = None) -> torch.Tensor:
+    """K3p (csrc/lstm_persistent.cu), bfloat16 only, as ``lstm_scan_persistent``;
+    its output equals the plain version's at every step.  Counted in
+    ``lstm_revmasked.launches`` and ``.routes["persistent"]``."""
+    if x_proj.device.type == "cpu":
+        return lstm_revmasked_plain(x_proj, w_hh_t, lengths)
+    return _scan_persistent(lstm_revmasked, x_proj, w_hh_t, True, lengths, plan)
 
 
 def _train_outputs(x_proj: torch.Tensor, H: int):
@@ -1000,19 +1179,24 @@ KERNELS = (fusedin_bilstm, lstm_scan, lstm_revmasked, lstm_train_fwd, lstm_train
            lstm_train_fwd2, lstm_train_bwd2)
 
 
+ROUTED = (fusedin_bilstm, lstm_scan, lstm_revmasked)  # K1-K3: a persistent route and a walk
+
+
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
-    fusedin_bilstm.routes = {"persistent": 0, "walk": 0}
+    for fn in ROUTED:
+        fn.routes = {"persistent": 0, "walk": 0}
 
 
 def launch_counts() -> dict[str, int]:
     return {fn.__name__: fn.launches for fn in KERNELS}
 
 
-def route_counts() -> dict[str, int]:
-    """K1's launches per route since the last reset."""
-    return dict(fusedin_bilstm.routes)
+def route_counts(kernel: str = "fusedin_bilstm") -> dict[str, int]:
+    """The launches per route of ``kernel`` (K1 ``fusedin_bilstm``, K2
+    ``lstm_scan`` or K3 ``lstm_revmasked``) since the last reset."""
+    return dict(next(fn for fn in ROUTED if fn.__name__ == kernel).routes)
 
 
 reset_launch_counts()

@@ -1,0 +1,71 @@
+"""The limit that holds K1p, K2p and K3p against their plain versions, and
+the planted barrier faults that the limit must see.
+
+A persistent kernel exchanges h between CTAs through its output, one
+barrier per step.  A barrier that lets a step read the exchange buffer
+before the previous step's writes land feeds the cell h one step stale
+(h_{t-2} where h_{t-1} is due).  The ``*_stale_h`` functions are the plain
+walks with exactly that fault; a check passes only if the kernel is within
+``ulp_limit`` of the plain version and the faulty walk is not.  Used by
+``chip_smoke.py`` and the card tests (tests/test_torch_cuda_kernels.py).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from urgent2026_challenge_track1_tpu_torch.ops.cuda_lstm import _cell
+
+__all__ = ["PERSISTENT_ULPS", "ulp_limit", "fusedin_bilstm_stale_h", "lstm_scan_stale_h"]
+
+# bf16 ulps at the plain output's largest magnitude
+PERSISTENT_ULPS = 4
+
+
+def ulp_limit(ref: torch.Tensor) -> float:
+    """PERSISTENT_ULPS bf16 ulps at max|ref| (bf16 keeps 8 significant bits)."""
+    return PERSISTENT_ULPS * 2.0 ** (math.floor(math.log2(float(ref.float().abs().max()))) - 7)
+
+
+def fusedin_bilstm_stale_h(x: torch.Tensor, w_ih_t: torch.Tensor, w_hh_t: torch.Tensor,
+                           bias: torch.Tensor) -> torch.Tensor:
+    """K1's plain version (``fusedin_bilstm_plain``) fed h one step stale."""
+    R, T, _ = x.shape
+    H = w_hh_t.shape[1]
+    outs = []
+    for d in range(2):
+        xw = x.float() @ w_ih_t[d].float() + bias[d].float()
+        w = w_hh_t[d].float()
+        stale = h = xw.new_zeros((R, H))
+        c = torch.zeros_like(h)
+        out = x.new_empty((R, T, H))
+        for s in range(T):
+            t = T - 1 - s if d else s
+            h_new, c, _ = _cell(xw[:, t] + stale.to(x.dtype).float() @ w, c)
+            stale, h = h, h_new
+            out[:, t] = h_new.to(x.dtype)
+        outs.append(out)
+        del xw
+    return torch.cat(outs, dim=-1)
+
+
+def lstm_scan_stale_h(x_proj: torch.Tensor, w_hh_t: torch.Tensor, reverse: bool,
+                      lengths: torch.Tensor | None = None) -> torch.Tensor:
+    """K2's plain version (``lstm_scan_plain``; K3's, ``lstm_revmasked_plain``,
+    with ``lengths``) fed h one step stale."""
+    R, T, G = x_proj.shape
+    w = w_hh_t.float()
+    stale = h = torch.zeros((R, G // 4), device=x_proj.device)
+    c = torch.zeros_like(h)
+    out = x_proj.new_empty((R, T, G // 4))
+    for s in range(T):
+        t = T - 1 - s if reverse else s
+        h_new, c, _ = _cell(x_proj[:, t].float() + stale.to(x_proj.dtype).float() @ w, c)
+        out[:, t] = h_new.to(x_proj.dtype)
+        if lengths is not None:
+            m = (t < lengths).float()[:, None]
+            h_new, c = h_new * m, c * m
+        stale, h = h, h_new
+    return out
