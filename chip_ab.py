@@ -10,17 +10,25 @@ at the JAX bench geometry (B=64, 4 s at 48 kHz, 192 x 6, bf16, no lengths),
 the discriminative train step (``chip_smoke._train_step_times``: B=4, 2 s
 at 48 kHz, 196 x 6, float32 and bfloat16, peak memory), the flow train
 step and enhancement (``chip_smoke._flow_step_and_enhance_times``), the
-enhancement again as the median of 5 (``flow_enhance5_ms``), and K1p alone
+enhancement again as the median of 5 (``flow_enhance5_ms``), K1p alone
 (``fusedin_bilstm_persistent``, CUDA events) at each of
-``chip_smoke.K1_ROUTE_SHAPES``.  Give the trees in an order that brackets
+``chip_smoke.K1_ROUTE_SHAPES``, and K2p and K3p alone
+(``lstm_scan_persistent``, ``lstm_revmasked_persistent``) at the
+one-utterance time path (34 x 401, H = 392, 371 valid frames) and the flow
+CLI's (48 x 501, H = 768, 463 valid).  Give the trees in an order that brackets
 drift (parent, change, change, parent).
-Prints one JSON line per visit (``[ab] {...}``), then the card's name and
-power limit, then a JSON summary of the medians per tree.  Needs one card.
+Prints one JSON line per visit (``[ab] {...}``), then whether each tree's
+persistent kernels that the first tree also has (K1p and the K2p/K3p
+instances of ``scan_persistent_kernel``) compiled to the first tree's
+instructions (``cuobjdump -sass``, addresses and encodings dropped), then
+the card's name and power limit, then a JSON summary of the medians per
+tree.  Needs one card.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -37,9 +45,9 @@ from urgent2026_challenge_track1_tpu_torch.dsp.stft import STFTConfig
 from urgent2026_challenge_track1_tpu_torch.models.bsrnn import (
     BSRNNConfig, bsrnn_se_apply, init_bsrnn)
 
-cs.phase_build()
+res = cs.phase_build()
 device = torch.device("cuda", 0)
-out = {"tree": sys.argv[1]}
+out = {"tree": sys.argv[1], "library": str(res.path)}
 with torch.inference_mode():
     model = init_bsrnn(BSRNNConfig(num_channel=196, num_layer=6, compute_dtype="bfloat16"),
                        seed=3, device=device)
@@ -79,6 +87,16 @@ with torch.inference_mode():
         out["k1p_ms"][f"{R}x{T}"] = cs._time_ms(
             lambda: K.fusedin_bilstm_persistent(x, wi, wh, b, plan))
         del x, wi, wh, b
+    out["scan_p_ms"] = {}
+    for R, T, H, valid in ((34, 401, 392, 371), (48, 501, 768, 463)):
+        _, _, wh, _, xp, _ = cs._kernel_inputs(R, T, torch.bfloat16, device, R + T + H, hid=H)
+        lengths = torch.full((R,), valid, dtype=torch.int32, device=device)
+        plan = K.plan_persistent(R, 0, H, sms, dirs=1)
+        out["scan_p_ms"][f"k2p_{R}x{T}"] = cs._time_ms(
+            lambda: K.lstm_scan_persistent(xp, wh[0], False, plan))
+        out["scan_p_ms"][f"k3p_{R}x{T}"] = cs._time_ms(
+            lambda: K.lstm_revmasked_persistent(xp, wh[1], lengths, plan))
+        del xp, wh
 print("[ab] " + json.dumps(out), flush=True)
 '''
 
@@ -94,12 +112,40 @@ def _summary(visits):
     keys["flow_enhance5_ms"] = lambda v: v["flow_enhance5_ms"]
     for shape in visits[0]["k1p_ms"]:
         keys[f"k1p_{shape}_ms"] = lambda v, s=shape: v["k1p_ms"][s]
+    for shape in visits[0]["scan_p_ms"]:
+        keys[f"{shape}_ms"] = lambda v, s=shape: v["scan_p_ms"][s]
     trees = {}
     for v in visits:
         for k, get in keys.items():
             trees.setdefault(v["tree"], {}).setdefault(k, []).append(get(v))
     return {tree: {k: {"each": vals, "median": statistics.median(vals)}
                    for k, vals in metrics.items()} for tree, metrics in trees.items()}
+
+
+def _sass(library: str) -> dict:
+    """{(kernel, REVERSE, MASKED): instructions} of the persistent kernels in
+    a built library; a scan_persistent_kernel instance that stores the
+    training residuals (a third flag, set) is left out."""
+    from urgent2026_challenge_track1_tpu_torch.ops._build import find_nvcc
+
+    cuobjdump = Path(find_nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "-sass", library], capture_output=True, text=True,
+                          check=True).stdout
+    kernels, body = {}, None
+    for line in text.splitlines():
+        head = re.search(r"Function : \S*?(fusedin_persistent_kernel|scan_persistent_kernel)"
+                         r"(?:I((?:Lb[01]E)+)E)?", line)
+        if "Function :" in line:
+            body = None
+            if head:
+                flags = tuple(int(f) for f in re.findall(r"Lb([01])E", head.group(2) or ""))
+                if len(flags) < 3 or flags[2] == 0:
+                    body = kernels.setdefault((head.group(1), *flags[:2]), [])
+            continue
+        instr = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;", line)
+        if body is not None and instr:
+            body.append(instr.group(1))
+    return kernels
 
 
 def main(argv) -> int:
@@ -121,6 +167,11 @@ def main(argv) -> int:
             return 1
         print(lines[-1], flush=True)
         visits.append(json.loads(lines[-1][5:]))
+    first = _sass(visits[0]["library"])
+    for v in visits[1:]:
+        other = _sass(v["library"])
+        same = {" ".join(map(str, k)): other.get(k) == body for k, body in first.items()}
+        print("[ab] sass " + json.dumps({"tree": v["tree"], "same_as_first_tree": same}))
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
     print(json.dumps({"ab_summary": _summary(visits)}))

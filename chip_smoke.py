@@ -18,7 +18,13 @@ Phases (any failure exits non-zero; each prints its seconds):
      bfloat16 routes of K2 and K3, against the plain versions and the walks
      at every step at the five shapes where they run, with their plans, a
      planted stale-h fault, their, the walks' and the plain versions' times
-     and an S sweep (the scan_routes phase);
+     and an S sweep (the scan_routes phase); then K4p and K6p, the
+     persistent bfloat16 routes of K4 and K6, against the plain versions
+     (h, gates and c at every step) at the train steps' shapes and an odd
+     H, with a planted stale-h fault, two launches bitwise equal, K5 / K7
+     on their residuals against the plain chain, their plans and their,
+     the other store order's, the walks' and the plain versions' times
+     (the train_routes phase);
   3. drive the inference path through the port's CLI at full width (196
      channels x 6 layers, random seeded weights) on 8-48 kHz WAVs, and the
      training path through the port's ``train_se.run`` (196 x 6, batch 4,
@@ -29,7 +35,8 @@ Phases (any failure exits non-zero; each prints its seconds):
      checkpoint with the euler and heun solvers; check that every kernel of
      each path ran, and that K1-K3 took K1p-K3p on the bfloat16 paths (the
      CLIs) and the walks on the float32 ones (the training runs'
-     validations; a train step runs none of K1-K3);
+     validations; a train step runs none of K1-K3), and that K4 and K6
+     took the walks on the float32 training runs;
   4. the A/B arms of the two experiment toggles (default, STREAM_INPUT_TRAIN,
      FUSED_BIDIR_TRAIN, both, in alternating order) on one train step of
      each family: launches per kernel, loss and gradients against the
@@ -40,7 +47,8 @@ Phases (any failure exits non-zero; each prints its seconds):
   6. time each kernel, its plain version and (for K1) cuDNN's LSTM, the
      end-to-end forward at the JAX bench geometry, the train step at the
      baseline geometry in float32 and bfloat16 with its peak memory and
-     launches per step and K1's route per dtype, K1-K7 at the flow shapes,
+     launches per step and K4's and K6's routes per dtype (K4p/K6p in
+     bfloat16, the walks in float32), K1-K7 at the flow shapes,
      K8-K10 at both widths' training shapes, the flow train step and one
      flow enhancement.
 
@@ -156,6 +164,7 @@ def _err(a, b, valid=None):
 
 
 INFERENCE_KERNELS = ("fusedin_bilstm", "lstm_scan", "lstm_revmasked")
+TRAIN_ROUTED = ("lstm_train_fwd", "lstm_revmasked_train_fwd")  # K4, K6: two routes each
 
 
 def phase_kernels(device, n_in=N_IN, hid=HID, time_shapes=TIME_SHAPES, band_shapes=BAND_SHAPES):
@@ -234,10 +243,12 @@ def _error_table():
 
 def phase_train_kernels(device, hid=HID, shapes=(TRAIN_TIME, TRAIN_BAND),
                         seconds=TRAIN_SECONDS, hop=480):
-    """K4-K7 against their plain versions at the training step's shapes:
-    max abs error of h, gates, c (forward) and max relative error of dx_proj
-    and dW (backward, each run on the plain forward's residuals).  Returns
-    {(kernel, dtype): (abs error, relative error or None)}."""
+    """K4-K7 against their plain versions at the training step's shapes
+    (K4 and K6: their walks; their bfloat16 persistent routes: the
+    train_routes phase): max abs error of h, gates, c (forward) and max
+    relative error of dx_proj and dW (backward, each run on the plain
+    forward's residuals).  Returns {(kernel, dtype): (abs error, relative
+    error or None)}."""
     import torch
     from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
 
@@ -248,7 +259,7 @@ def phase_train_kernels(device, hid=HID, shapes=(TRAIN_TIME, TRAIN_BAND),
             gen = torch.Generator().manual_seed(R + T)
             dout = torch.randn((R, T, hid), generator=gen).to(device, dtype)
             for reverse in (False, True):
-                got = K.lstm_train_fwd(xp, w_hh_t[0], reverse)
+                got = K.lstm_train_fwd_walk(xp, w_hh_t[0], reverse)
                 ref = K.lstm_train_fwd_plain(xp, w_hh_t[0], reverse)
                 torch.cuda.synchronize()
                 note("lstm_train_fwd", dt_name, max(_err(g, r) for g, r in zip(got, ref)))
@@ -262,7 +273,7 @@ def phase_train_kernels(device, hid=HID, shapes=(TRAIN_TIME, TRAIN_BAND),
             lengths = _frames_lengths(R, T, device, seconds, hop)
             valid = torch.arange(T, device=device)[None, :] < lengths[:, None]
             dmask = dout * valid[..., None]
-            got = K.lstm_revmasked_train_fwd(xp, w_hh_t[1], lengths)
+            got = K.lstm_revmasked_train_fwd_walk(xp, w_hh_t[1], lengths)
             ref = K.lstm_revmasked_train_fwd_plain(xp, w_hh_t[1], lengths)
             torch.cuda.synchronize()
             note("lstm_revmasked_train_fwd", dt_name,
@@ -500,6 +511,137 @@ def phase_scan_routes(device):
 
 
 # ---------------------------------------------------------------------------
+# K4's and K6's two routes (phase 2)
+# ---------------------------------------------------------------------------
+
+# the shapes where K4 and K6 run in a bfloat16 train step, (what, R, T, H,
+# valid frames of each utterance or None): the disc step's time and band
+# paths (B=4, 2 s at 48 kHz: 4 x 34 bands over 201 frames, 4 x 201 frames
+# over 34 bands), the flow step's (B=2, 2 s, hop 384: 2 x 48 bands over 251
+# frames, 2 x 251 frames over 48 bands, H = 768), and an odd H (2-byte
+# copies); K6 runs where there are lengths (the time paths)
+TRAIN_ROUTE_SHAPES = (
+    ("disc time B=4", *TRAIN_TIME, HID, tuple(1 + int(s * 48000) // 480 for s in TRAIN_SECONDS)),
+    ("disc band B=4", *TRAIN_BAND, HID, None),
+    ("flow time B=2", *FLOW_TIME, FLOW_H, tuple(1 + int(s * 48000) // 384 for s in FLOW_SECONDS)),
+    ("flow band B=2", *FLOW_BAND, FLOW_H, None),
+    ("odd H", 20, 64, 197, (64, 40, 17, 1)))
+RESIDUALS = ("h", "gates", "c")
+RUN_TAGS = ("lstm_train_fwd", "lstm_train_fwd_reverse", "lstm_revmasked_train_fwd")
+
+
+def phase_train_routes(device):
+    """K4p (forward and reverse) and K6p against the plain versions at every
+    step, padded ones included, at the shapes where K4 and K6 run in a
+    bfloat16 train step: h, gates and c each within
+    ``persistent_checks.ulp_limit`` of its plain output; the planted fault
+    (``persistent_checks.lstm_scan_stale_h`` with the residuals) must exceed
+    that limit; two launches must be bitwise equal (bf16 remat runs the
+    forward twice); K5 (K7 for K6p) on the kernel's residuals must stay
+    within BF16_TOL (relative) of K5's plain version on the plain forward's.
+    Records the plan (checked against the kernel's own byte count), the
+    route the rule takes, the kernel's, the walk's and the plain version's
+    ms, and the bound."""
+    import torch
+    from urgent2026_challenge_track1_tpu_torch.ops import _build
+    from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
+    from urgent2026_challenge_track1_tpu_torch.ops import persistent_checks as PC
+
+    bf16 = torch.bfloat16
+    sms = _sm_count(device)
+    lib = _build.load_library()
+    out = []
+    for what, R, T, H, per_utt in TRAIN_ROUTE_SHAPES:
+        _, _, wh, _, xp, _ = _kernel_inputs(R, T, bf16, device, R + T + H, hid=H)
+        dout = (0.1 * torch.randn((R, T, H), generator=torch.Generator().manual_seed(R))).to(
+            device, bf16)
+        plan = K.plan_persistent(R, 0, H, sms, dirs=1)
+        if plan is None:
+            fail(f"K4p/K6p: no plan at {what} (R={R}, H={H})")
+        kernel_smem = lib.lstm_persistent_smem(0, H, plan.U, plan.rows, plan.chunk,
+                                                int(plan.c_in_smem))
+        if kernel_smem != plan.smem:
+            fail(f"K4p/K6p plan at {what}: {plan.smem} bytes, the kernel reckons {kernel_smem}")
+        lengths = valid = None
+        if per_utt is not None:
+            lengths = torch.tensor(per_utt, dtype=torch.int32).repeat_interleave(
+                R // len(per_utt)).clamp(max=T).to(device)
+            valid = torch.arange(T, device=device)[None, :] < lengths[:, None]
+        valid_steps = R * T if lengths is None else int(lengths.sum())
+        bounds = _train_bounds(R, T, valid_steps, H)
+        rec = {"what": what, "R": R, "T": T, "H": H, "valid_steps": valid_steps,
+               "plan": {"S": plan.S, "G": plan.G, "U": plan.U, "rows": plan.rows,
+                        "chunk": plan.chunk, "c_in_smem": plan.c_in_smem,
+                        "smem_bytes": plan.smem, "ctas": plan.ctas},
+               "route": "persistent" if K.scan_route(bf16, R, H, sms) is not None else "walk"}
+        runs = {}
+        for reverse, tag in ((False, "lstm_train_fwd"), (True, "lstm_train_fwd_reverse")):
+            runs[tag] = (
+                lambda p=plan, r=reverse: K.lstm_train_fwd_persistent(xp, wh[0], r, p),
+                lambda r=reverse: K.lstm_train_fwd_walk(xp, wh[0], r),
+                lambda r=reverse: K.lstm_train_fwd_plain(xp, wh[0], r),
+                lambda r=reverse: PC.lstm_scan_stale_h(xp, wh[0], r, residuals=True),
+                lambda res, r=reverse: K.lstm_train_bwd(*res, dout, wh[0], r),
+                lambda res, r=reverse: K.lstm_train_bwd_plain(*res, dout, wh[0], r),
+                "lstm_train_fwd")
+        if lengths is not None:
+            dmask = dout * valid[..., None]
+            runs["lstm_revmasked_train_fwd"] = (
+                lambda p=plan: K.lstm_revmasked_train_fwd_persistent(xp, wh[1], lengths, p),
+                lambda: K.lstm_revmasked_train_fwd_walk(xp, wh[1], lengths),
+                lambda: K.lstm_revmasked_train_fwd_plain(xp, wh[1], lengths),
+                lambda: PC.lstm_scan_stale_h(xp, wh[1], True, lengths, residuals=True),
+                lambda res: K.lstm_revmasked_bwd(*res, lengths, dmask, wh[1]),
+                lambda res: K.lstm_revmasked_bwd_plain(*res, lengths, dmask, wh[1]),
+                "lstm_revmasked_train_fwd")
+        for tag, (kern, walk_fn, plain_fn, stale_fn, bwd, bwd_plain, name) in runs.items():
+            got, again, ref = kern(), kern(), plain_fn()
+            torch.cuda.synchronize()
+            limits = [PC.ulp_limit(r) for r in ref]
+            e_plain = [_err(g, r) for g, r in zip(got, ref)]
+            e_stale = [_err(f, r) for f, r in zip(stale_fn(), ref)]
+            bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+            e_grad = max(_rel(g, r) for g, r in zip(bwd(got), bwd_plain(ref)))
+            del got, again, ref
+            ms = _time_ms(kern)
+            bound_ms, bound_by = bounds[name]
+            rec[tag] = {
+                "max_abs_err_vs_plain": dict(zip(RESIDUALS, e_plain)),
+                "limit": dict(zip(RESIDUALS, limits)),
+                "max_err_over_limit": max(e / lim for e, lim in zip(e_plain, limits)),
+                "planted_stale_h_err": dict(zip(RESIDUALS, e_stale)),
+                "planted_stale_h_over_limit": min(e / lim for e, lim in zip(e_stale, limits)),
+                "bitwise_repeat": bitwise, "grad_chain_rel_err": e_grad,
+                "ms": ms, "us_per_step": ms * 1e3 / T,
+                "walk_ms": _time_ms(walk_fn), "plain_ms": _time_ms(plain_fn, reps=3, warmup=1),
+                "bound_ms": bound_ms, "bound_by": bound_by}
+            r = rec[tag]
+            print(f"[train routes] {what} {tag} R={R} T={T} H={H}: plan S={plan.S} G={plan.G} "
+                  f"U={plan.U} rows={plan.rows} chunk={plan.chunk} c_in_smem={plan.c_in_smem} "
+                  f"smem={plan.smem} B ({plan.ctas} CTAs); persistent {ms:.3f} ms "
+                  f"({r['us_per_step']:.2f} us a step), walk {r['walk_ms']:.3f} ms, plain "
+                  f"{r['plain_ms']:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}); max|p - plain| "
+                  f"h, gates, c {[f'{e:.3e}' for e in e_plain]} (limits "
+                  f"{[f'{lim:.3e}' for lim in limits]}); planted stale h "
+                  f"{[f'{e:.3e}' for e in e_stale]}; two launches bitwise equal: {bitwise}; "
+                  f"backward on its residuals max rel|d| {e_grad:.3e} (limit {BF16_TOL}); "
+                  f"rule: {rec['route']}")
+            for res_name, e, f, lim in zip(RESIDUALS, e_plain, e_stale, limits):
+                if not e < lim:
+                    fail(f"{what} {tag}: {res_name} vs plain {e:.3e} >= {lim:.3e}")
+                if not f >= lim:
+                    fail(f"{what} {tag}: a stale h moves {res_name} by {f:.3e}, under the limit "
+                         f"{lim:.3e}: the check cannot see a barrier fault")
+            if not bitwise:
+                fail(f"{what} {tag}: two launches differ")
+            if not e_grad < BF16_TOL:
+                fail(f"{what} {tag}: the backward on its residuals {e_grad:.3e} >= {BF16_TOL}")
+        out.append(rec)
+        del xp, wh, dout
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 3
 # ---------------------------------------------------------------------------
 
@@ -570,7 +712,7 @@ def phase_main_path(workdir: Path):
         delta = {k: v - before[k] for k, v in K.launch_counts().items()}
         print(f"[main path] {name}: {len(items)} files in {seconds:.2f} s, launches {delta}")
     counts, routes = K.launch_counts(), _routes()
-    print(f"[main path] launches over the three runs: {counts}, K1-K3 routes {routes}")
+    print(f"[main path] launches over the three runs: {counts}, routes {routes}")
     _check_routes("the bfloat16 inference path", "bfloat16", routes)
     return counts, routes
 
@@ -639,7 +781,7 @@ def phase_training(workdir: Path):
         seconds = time.perf_counter() - t0
         counts, routes = K.launch_counts(), _routes()
         print(f"[training] 2 epochs x 2 steps (+ 2 validations, 2 saves) in {seconds:.1f} s, "
-              f"launches {counts}, K1-K3 routes {routes}")
+              f"launches {counts}, routes {routes}")
         if (state.step, state.epoch) != (4, 2):
             fail(f"training ended at step {state.step}, epoch {state.epoch}; expected 4, 2")
         init = init_bsrnn(BSRNNConfig(num_channel=N_IN, num_layer=6), seed=2024)
@@ -668,7 +810,8 @@ def phase_training(workdir: Path):
     for fn in K.KERNELS[:7]:
         if counts[fn.__name__] <= 0:
             fail(f"kernel {fn.__name__} was not launched on the training path")
-    _check_routes("the float32 training path", "float32", routes)
+    _check_routes("the float32 training path", "float32", routes,
+                  INFERENCE_KERNELS + TRAIN_ROUTED)
     return counts, routes
 
 
@@ -834,14 +977,14 @@ def _train_batch(device, B=4, fs=48000):
 
 
 def _routes():
-    """{kernel: {route: launches}} of K1-K3 since the last reset."""
+    """{kernel: {route: launches}} of K1-K4 and K6 since the last reset."""
     from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
 
-    return {name: K.route_counts(name) for name in INFERENCE_KERNELS}
+    return {fn.__name__: K.route_counts(fn.__name__) for fn in K.ROUTED}
 
 
 def _check_routes(what, dtype_name, routes, kernels=INFERENCE_KERNELS):
-    """Each of ``kernels`` ran, on its persistent route only (K1p, K2p, K3p)
+    """Each of ``kernels`` ran, on its persistent route only (K1p-K4p, K6p)
     in bfloat16 and on its walk only in float32."""
     want = "persistent" if dtype_name == "bfloat16" else "walk"
     for name in kernels:
@@ -862,7 +1005,8 @@ def _train_step_times(device):
     """Median host-clock time of the train step (B=4, 2 s at 48 kHz, 196 x
     6) over 5 steps after 2 warm-up steps, in float32 and bfloat16, with the
     peak device memory and the kernel launches of one step (none of K1-K3:
-    remat runs the training kernels in both passes)."""
+    remat runs the training kernels in both passes) and K4's and K6's
+    routes there (K4p/K6p only in bfloat16, the walks only in float32)."""
     import torch
     from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
     from urgent2026_challenge_track1_tpu_torch.train import trainer
@@ -877,8 +1021,9 @@ def _train_step_times(device):
         batch = _train_batch(device)
         K.reset_launch_counts()
         step(model, opt, *batch)
-        per_step = K.launch_counts()
+        per_step, routes = K.launch_counts(), _routes()
         _check_no_lean_kernels(f"train step {compute_dtype}", per_step)
+        _check_routes(f"train step {compute_dtype}", compute_dtype, routes, TRAIN_ROUTED)
         step(model, opt, *batch)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -892,10 +1037,12 @@ def _train_step_times(device):
                 fail("the timed train step hit a non-finite gradient")
         out[compute_dtype] = {"median_ms": statistics.median(times), "ms": times,
                               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-                              "launches_per_step": per_step}
+                              "launches_per_step": per_step,
+                              "routes_per_step": {k: routes[k] for k in TRAIN_ROUTED}}
         print(f"[times] train step {compute_dtype} (B=4, 2 s at 48 kHz, 196x6): median "
               f"{out[compute_dtype]['median_ms']:.1f} ms of {[round(t, 1) for t in times]}, "
-              f"peak {out[compute_dtype]['peak_memory_gb']:.2f} GB, launches per step {per_step}")
+              f"peak {out[compute_dtype]['peak_memory_gb']:.2f} GB, launches per step {per_step}, "
+              f"K4/K6 routes {out[compute_dtype]['routes_per_step']}")
         del model, opt
     return out
 
@@ -925,7 +1072,7 @@ def _row_tile_sweep(device):
 
 
 def phase_times(device, main_counts, train_counts, errs, train_errs, k1_routes, scan_routes,
-                main_routes, train_routes):
+                train_routes_rows, main_routes, train_routes):
     import torch
     from urgent2026_challenge_track1_tpu_torch.dsp.stft import STFTConfig
     from urgent2026_challenge_track1_tpu_torch.models.bsrnn import (
@@ -1092,16 +1239,65 @@ def phase_times(device, main_counts, train_counts, errs, train_errs, k1_routes, 
     per_step = steps["bfloat16"]["launches_per_step"]
     for rec in records:  # K1-K3 on either route: none (remat runs the training kernels)
         rec["launches_per_train_step"] = per_step.get(rec["name"].removesuffix("_persistent"), 0)
-    records += _train_kernel_times(device, train_counts, train_errs, per_step)
+    records += _train_kernel_times(device, train_counts, train_errs, steps)
+    records += _train_route_records(train_routes_rows, steps)
     print("[times] " + json.dumps({"train_step": steps}))
     return records
 
 
-def _train_kernel_times(device, train_counts, train_errs, per_step):
-    """K4-K7 at the training step's shapes, bf16: kernel, plain version,
-    bound.  K4/K5 are timed on the time path and on the band path (the
-    record holds the time path, and the band path's ms and bound as band_*
-    keys)."""
+def _train_route_records(rows, steps):
+    """K4p's and K6p's records from the train_routes phase: times at the
+    disc time path (the band path and the flow shapes beside it as band_*
+    and flow_* keys), the worst error, limit ratio, planted fault and
+    gradient chain over every shape; ``launches`` is K4's / K6's persistent
+    route count over one bfloat16 disc train step (the counts set to 0
+    before it and read after it)."""
+    by_what = {r["what"]: r for r in rows}
+    out = []
+    for name, tags in (("lstm_train_fwd", ("lstm_train_fwd", "lstm_train_fwd_reverse")),
+                       ("lstm_revmasked_train_fwd", ("lstm_revmasked_train_fwd",))):
+        runs = [r[t] for r in rows for t in tags if t in r]
+        disc, flow = by_what["disc time B=4"], by_what["flow time B=2"]
+        d, f = disc[tags[0]], flow[tags[0]]
+        rec = {
+            "name": f"{name}_persistent", "route": "cuda", "route_of_kernel": "persistent",
+            "source": f"{PKG}/csrc/lstm_persistent.cu", "replaces": REPLACES[name],
+            "launches": steps["bfloat16"]["routes_per_step"][name]["persistent"],
+            "launches_run": "one bfloat16 train step (B=4, 2 s at 48 kHz, 196 x 6)",
+            "max_abs_err": max(max(r["max_abs_err_vs_plain"].values()) for r in runs),
+            "max_err_over_limit": max(r["max_err_over_limit"] for r in runs),
+            "max_abs_err_f32": None,
+            "tolerance_rule": "4 bf16 ulps at max|plain| per output (h, gates, c) and shape",
+            "planted_stale_h_over_limit": min(r["planted_stale_h_over_limit"] for r in runs),
+            "bitwise_repeat": all(r["bitwise_repeat"] for r in runs),
+            "grad_chain_rel_err": max(r["grad_chain_rel_err"] for r in runs),
+            "grad_chain_tolerance": BF16_TOL,
+            "ms": d["ms"], "plain_ms": d["plain_ms"], "walk_ms": d["walk_ms"],
+            "bound_ms": d["bound_ms"], "bound_by": d["bound_by"], "library_ms": None,
+            "shape": {k: disc[k] for k in ("R", "T", "H", "valid_steps")}, "dtype": "bfloat16",
+            "plan": disc["plan"], "launches_per_train_step": {
+                dt: steps[dt]["routes_per_step"][name] for dt in ("float32", "bfloat16")},
+            "flow_ms": f["ms"], "flow_plain_ms": f["plain_ms"], "flow_walk_ms": f["walk_ms"],
+            "flow_bound_ms": f["bound_ms"], "flow_bound_by": f["bound_by"],
+            "flow_library_ms": None, "flow_plan": flow["plan"],
+            "flow_shape": {k: flow[k] for k in ("R", "T", "H", "valid_steps")},
+            "route_table": [{k: v for k, v in r.items() if k not in RUN_TAGS or k in tags}
+                            for r in rows],
+        }
+        if name == "lstm_train_fwd":  # the band paths
+            for key, what in (("band", "disc band B=4"), ("flow_band", "flow band B=2")):
+                b = by_what[what]
+                rec.update({f"{key}_ms": b[tags[0]]["ms"], f"{key}_walk_ms": b[tags[0]]["walk_ms"],
+                            f"{key}_bound_ms": b[tags[0]]["bound_ms"], f"{key}_plan": b["plan"]})
+        out.append(rec)
+    return out
+
+
+def _train_kernel_times(device, train_counts, train_errs, steps):
+    """K4-K7 at the training step's shapes, bf16 (K4 and K6: their walks,
+    which the float32 steps run): kernel, plain version, bound.  K4/K5 are
+    timed on the time path and on the band path (the record holds the time
+    path, and the band path's ms and bound as band_* keys)."""
     import torch
     from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
 
@@ -1113,7 +1309,7 @@ def _train_kernel_times(device, train_counts, train_errs, per_step):
         res = K.lstm_train_fwd(xp, wh[0])
         lengths = _frames_lengths(R, T, device) if (R, T) == TRAIN_TIME else None
         timed = {
-            "lstm_train_fwd": (lambda: K.lstm_train_fwd(xp, wh[0]),
+            "lstm_train_fwd": (lambda: K.lstm_train_fwd_walk(xp, wh[0]),
                                lambda: K.lstm_train_fwd_plain(xp, wh[0])),
             "lstm_train_bwd": (lambda: K.lstm_train_bwd(*res, dout, wh[0]),
                                lambda: K.lstm_train_bwd_plain(*res, dout, wh[0])),
@@ -1121,7 +1317,7 @@ def _train_kernel_times(device, train_counts, train_errs, per_step):
         if lengths is not None:
             res_m = K.lstm_revmasked_train_fwd(xp, wh[1], lengths)
             timed["lstm_revmasked_train_fwd"] = (
-                lambda: K.lstm_revmasked_train_fwd(xp, wh[1], lengths),
+                lambda: K.lstm_revmasked_train_fwd_walk(xp, wh[1], lengths),
                 lambda: K.lstm_revmasked_train_fwd_plain(xp, wh[1], lengths))
             timed["lstm_revmasked_bwd"] = (
                 lambda: K.lstm_revmasked_bwd(*res_m, lengths, dout, wh[1]),
@@ -1141,10 +1337,15 @@ def _train_kernel_times(device, train_counts, train_errs, per_step):
                                 "band_shape": {"R": R, "T": T, "H": HID}})
                     continue
                 e_abs, e_rel = train_errs[name, "bfloat16"]
+                # launches in one train step per dtype (K4, K6: their walk route)
+                per_step = {dt: (steps[dt]["routes_per_step"][name]["walk"] if name in TRAIN_ROUTED
+                                 else steps[dt]["launches_per_step"][name])
+                            for dt in ("float32", "bfloat16")}
                 records.append({
                     "name": name, "route": "cuda",
                     "source": f"{PKG}/csrc/lstm_kernels.cu",
                     "replaces": REPLACES[name],
+                    **({"route_of_kernel": "walk"} if name in TRAIN_ROUTED else {}),
                     "launches": train_counts[name], "launches_run": "training path",
                     "max_abs_err": e_abs, "max_rel_err": e_rel,
                     "max_abs_err_f32": train_errs[name, "float32"][0],
@@ -1154,7 +1355,7 @@ def _train_kernel_times(device, train_counts, train_errs, per_step):
                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                     "bound_by": bound_by, "library_ms": None,
                     "shape": {"R": R, "T": T, "H": HID, "valid_steps": valid},
-                    "dtype": "bfloat16", "launches_per_train_step": per_step[name],
+                    "dtype": "bfloat16", "launches_per_train_step": per_step,
                 })
         del xp, dout, res
     return records
@@ -1173,7 +1374,8 @@ def phase_new_kernels(device):
     H = 768), float32 and bfloat16: max abs error of the forward outputs,
     max relative error of the backward's (each on the plain forward's
     residuals).  K9 and K10 must equal K4 and K5 run per direction bit for
-    bit.  Returns {(kernel, dtype): (abs error, relative error or None)}."""
+    bit (K9 against K4's walk, its device code).  Returns {(kernel, dtype):
+    (abs error, relative error or None)}."""
     import torch
     from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
 
@@ -1195,12 +1397,14 @@ def phase_new_kernels(device):
                     note(NEW_KERNELS[0], dt_name, max(_err(g, r) for g, r in zip(got, ref)))
                 got = K.lstm_train_fwd2(xp, xp_b, w_hh_t[0], w_hh_t[1])
                 ref = K.lstm_train_fwd2_plain(xp, xp_b, w_hh_t[0], w_hh_t[1])
-                single = (*K.lstm_train_fwd(xp, w_hh_t[0], False),
-                          *K.lstm_train_fwd(xp_b, w_hh_t[1], True))
+                # K4's walk: K9's device code (bfloat16 K4 takes K4p)
+                single = (*K.lstm_train_fwd_walk(xp, w_hh_t[0], False),
+                          *K.lstm_train_fwd_walk(xp_b, w_hh_t[1], True))
                 torch.cuda.synchronize()
                 note(NEW_KERNELS[1], dt_name, max(_err(g, r) for g, r in zip(got, ref)))
                 if not all(torch.equal(a, b) for a, b in zip(got, single)):
-                    fail(f"lstm_train_fwd2 {dt_name} R={R} T={T}: not bitwise K4 per direction")
+                    fail(f"lstm_train_fwd2 {dt_name} R={R} T={T}: not bitwise the K4 walk per "
+                         "direction")
                 got = K.lstm_train_bwd2(ref[:3], ref[3:], dout[0], dout[1], w_hh_t[0], w_hh_t[1])
                 want = K.lstm_train_bwd2_plain(ref[:3], ref[3:], dout[0], dout[1], w_hh_t[0],
                                                w_hh_t[1])
@@ -1270,7 +1474,7 @@ def phase_flow_training(workdir: Path):
         seconds = time.perf_counter() - t0
         counts, routes = K.launch_counts(), _routes()
         print(f"[flow training] 2 epochs x 2 steps (+ 2 validations with the sampler, 2 saves) "
-              f"in {seconds:.1f} s, launches {counts}, K1-K3 routes {routes}")
+              f"in {seconds:.1f} s, launches {counts}, routes {routes}")
         if (state.step, state.epoch) != (4, 2):
             fail(f"flow training ended at step {state.step}, epoch {state.epoch}; expected 4, 2")
         cfg = _flow_config(workdir)
@@ -1309,7 +1513,8 @@ def phase_flow_training(workdir: Path):
     for fn in K.KERNELS[:7]:
         if counts[fn.__name__] <= 0:
             fail(f"kernel {fn.__name__} was not launched on the flow training path")
-    _check_routes("the float32 flow training path", "float32", routes)
+    _check_routes("the float32 flow training path", "float32", routes,
+                  INFERENCE_KERNELS + TRAIN_ROUTED)
     return counts, exp / "checkpoints" / "step_6.pt"
 
 
@@ -1334,7 +1539,7 @@ def phase_flow_cli(workdir: Path, ckpt: Path):
         print(f"[flow cli] {name}: {len(FLOW_UTTERANCES)} files in {seconds:.2f} s, "
               f"launches {delta}")
     counts, routes = K.launch_counts(), _routes()
-    print(f"[flow cli] K1-K3 routes {routes}")
+    print(f"[flow cli] routes {routes}")
     _check_routes("the bfloat16 flow CLI", "bfloat16", routes)
     return counts, routes
 
@@ -1596,7 +1801,7 @@ def _new_kernel_times(device, ab, ab_counts, new_errs):
 
 def _flow_kernel_times(device, records, flow_counts, wide_errs, wide_train_errs, k1_routes,
                        scan_routes, flow_cli_routes):
-    """K1-K7 (K1-K3: the walks) at the flow training shapes (N = 384, H =
+    """K1-K7 (K1-K4, K6: the walks) at the flow training shapes (N = 384, H =
     768), bf16: kernel, plain version and bound, added to the K1-K7 records
     as flow_* keys; K1p's and cuDNN's times there are the k1_routes phase's
     (flow band B=2), K2p's and K3p's the scan_routes phase's (flow CLI)."""
@@ -1619,13 +1824,13 @@ def _flow_kernel_times(device, records, flow_counts, wide_errs, wide_train_errs,
                       (tR, tT)),
         "lstm_revmasked": (lambda: K.lstm_revmasked_walk(xp, wh[1], lengths),
                            lambda: K.lstm_revmasked_plain(xp, wh[1], lengths), (tR, tT)),
-        "lstm_train_fwd": (lambda: K.lstm_train_fwd(xp, wh[0]),
+        "lstm_train_fwd": (lambda: K.lstm_train_fwd_walk(xp, wh[0]),
                            lambda: K.lstm_train_fwd_plain(xp, wh[0]), (tR, tT)),
         "lstm_train_bwd": (lambda: K.lstm_train_bwd(*res, dout, wh[0]),
                            lambda: K.lstm_train_bwd_plain(*res, dout, wh[0]), (tR, tT)),
-        "lstm_revmasked_train_fwd": (lambda: K.lstm_revmasked_train_fwd(xp, wh[1], lengths),
-                                     lambda: K.lstm_revmasked_train_fwd_plain(xp, wh[1], lengths),
-                                     (tR, tT)),
+        "lstm_revmasked_train_fwd": (
+            lambda: K.lstm_revmasked_train_fwd_walk(xp, wh[1], lengths),
+            lambda: K.lstm_revmasked_train_fwd_plain(xp, wh[1], lengths), (tR, tT)),
         "lstm_revmasked_bwd": (lambda: K.lstm_revmasked_bwd(*res_m, lengths, dout, wh[1]),
                                lambda: K.lstm_revmasked_bwd_plain(*res_m, lengths, dout, wh[1]),
                                (tR, tT)),
@@ -1655,7 +1860,7 @@ def _flow_kernel_times(device, records, flow_counts, wide_errs, wide_train_errs,
         band_res = K.lstm_train_fwd(xq, wh[0])
         band_dout = (0.1 * torch.randn((bR, bT, FLOW_H), device=device)).to(bf16)
         band_bounds = _train_bounds(bR, bT, bR * bT, FLOW_H)
-        for name, kern in (("lstm_train_fwd", lambda: K.lstm_train_fwd(xq, wh[0])),
+        for name, kern in (("lstm_train_fwd", lambda: K.lstm_train_fwd_walk(xq, wh[0])),
                            ("lstm_train_bwd",
                             lambda: K.lstm_train_bwd(*band_res, band_dout, wh[0]))):
             ms = _time_ms(kern, reps=3, warmup=1)
@@ -1710,8 +1915,9 @@ def _flow_step_and_enhance_times(device):
                                device=device)
         K.reset_launch_counts()
         step(model, opt, clean, noisy, lengths, generator=trainer.step_generator(cfg.seed, 0))
-        per_step = {k: v for k, v in K.launch_counts().items() if v}
+        per_step, routes = {k: v for k, v in K.launch_counts().items() if v}, _routes()
         _check_no_lean_kernels(f"flow train step {compute_dtype}", per_step)
+        _check_routes(f"flow train step {compute_dtype}", compute_dtype, routes, TRAIN_ROUTED)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         times = []
@@ -1725,11 +1931,12 @@ def _flow_step_and_enhance_times(device):
                 fail("the timed flow train step hit a non-finite gradient")
         out[compute_dtype] = {"median_ms": statistics.median(times), "ms": times,
                               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-                              "launches_per_step": per_step}
+                              "launches_per_step": per_step,
+                              "routes_per_step": {k: routes[k] for k in TRAIN_ROUTED}}
         print(f"[times] flow train step {compute_dtype} (B=2, 2 s at 48 kHz, 384x6): median "
               f"{out[compute_dtype]['median_ms']:.1f} ms of {[round(t, 1) for t in times]}, "
               f"peak {out[compute_dtype]['peak_memory_gb']:.2f} GB, launches per step "
-              f"{per_step}")
+              f"{per_step}, K4/K6 routes {out[compute_dtype]['routes_per_step']}")
         del model, opt
     fcfg = F.FlowSEConfig(compute_dtype="bfloat16")
     model = F.init_flowse(fcfg, seed=11, device=device).eval()
@@ -1802,6 +2009,7 @@ def main() -> int:
     new_errs = timed("K8-K10", phase_new_kernels, device)
     k1_routes = timed("k1_routes", phase_k1_routes, device)
     scan_routes = timed("scan_routes", phase_scan_routes, device)
+    train_routes_rows = timed("train_routes", phase_train_routes, device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=REPO) as tmp:
         counts, main_routes = timed("inference path", phase_main_path, Path(tmp))
         train_counts, train_routes = timed("training path", phase_training, Path(tmp))
@@ -1812,11 +2020,16 @@ def main() -> int:
     timed("card vs cpu gradients", phase_grads_card_vs_cpu, device)
     timed("flow card vs cpu", phase_flow_card_vs_cpu, device)
     records = timed("times", phase_times, device, counts, train_counts, errs, train_errs,
-                    k1_routes, scan_routes, main_routes, train_routes)
+                    k1_routes, scan_routes, train_routes_rows, main_routes, train_routes)
     records += timed("times K8-K10", _new_kernel_times, device, ab, ab_counts, new_errs)
     timed("times K1-K7 flow shapes", _flow_kernel_times, device, records, flow_counts,
           wide_errs, wide_train_errs, k1_routes, scan_routes, flow_cli_routes)
     flow_times = timed("times flow", _flow_step_and_enhance_times, device)
+    for rec in records:  # K4p and K6p in one bfloat16 flow train step
+        if rec["name"] in (f"{n}_persistent" for n in TRAIN_ROUTED):
+            rec["flow_launches"] = flow_times["bfloat16"]["routes_per_step"][
+                rec["name"].removesuffix("_persistent")]["persistent"]
+            rec["flow_launches_run"] = "one bfloat16 flow train step (B=2, 2 s, 384 x 6)"
     print("[times] " + json.dumps({"ab_arms": ab, "flow": flow_times}))
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(gpu_name_and_power())

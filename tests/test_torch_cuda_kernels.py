@@ -253,14 +253,127 @@ def _rel(a, b):
     return float((a.float() - b.float()).abs().max() / (b.float().abs().max() + 1e-12))
 
 
+# --- K4p and K6p: the persistent routes of K4 and K6 (bfloat16) -----------
+
+# (R, T, H): small, H odd, H = 2 mod 4, the disc train step's time and band
+# paths (136 x 201, 804 x 34 at H = 392) and the flow train step's (96 x 251,
+# 502 x 48 at H = 768); K6 runs on the time paths only
+TRAIN_SHAPES = [(R, T, H), (13, 9, 37), (21, 7, 46), (136, 201, 392), (804, 34, 392),
+                (96, 251, 768), (502, 48, 768)]
+TRAIN_IDS = ["small", "odd_h", "h_mod4", "disc_time", "disc_band", "flow_time", "flow_band"]
+MASKED_SHAPES = [s for s, i in zip(TRAIN_SHAPES, TRAIN_IDS) if "band" not in i]
+MASKED_IDS = [i for i in TRAIN_IDS if "band" not in i]
+
+
+def _hold_residuals(got, ref, stale):
+    """h, gates and c each within 4 bf16 ulps of its plain output at every
+    step, a limit that the stale-h fault exceeds."""
+    for g, r, f in zip(got, ref, stale):
+        assert g.shape == r.shape and g.dtype == torch.bfloat16
+        limit = ulp_limit(r)
+        assert _err(g, r) < limit
+        assert _err(f, r) >= limit
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("shape", TRAIN_SHAPES, ids=TRAIN_IDS)
+def test_train_fwd_persistent_matches_plain(dev, shape, reverse):
+    """K4p against the plain version at every step; K5 on its residuals
+    within bf16's tolerance of K5's plain version on the plain ones."""
+    xp, wh, _ = _scan_inputs(dev, *shape, seed=22)
+    dout = _t(np.random.default_rng(23), dev, torch.bfloat16, *shape)
+    cuda_lstm.reset_launch_counts()
+    got = cuda_lstm.lstm_train_fwd(xp, wh, reverse)
+    assert cuda_lstm.route_counts("lstm_train_fwd") == {"persistent": 1, "walk": 0}
+    ref = cuda_lstm.lstm_train_fwd_plain(xp, wh, reverse)
+    _hold_residuals(got, ref, lstm_scan_stale_h(xp, wh, reverse, residuals=True))
+    for g, r in zip(cuda_lstm.lstm_train_bwd(*got, dout, wh, reverse),
+                    cuda_lstm.lstm_train_bwd_plain(*ref, dout, wh, reverse)):
+        assert _rel(g, r) < TOLS[torch.bfloat16]
+
+
+@pytest.mark.parametrize("shape", MASKED_SHAPES, ids=MASKED_IDS)
+def test_revmasked_train_fwd_persistent_matches_plain_at_every_step(dev, shape):
+    """K6p against the plain version at every step, padded ones included:
+    the stored c is the step's unmasked c, not the masked one it carries;
+    K7 on its residuals within bf16's tolerance of the plain chain."""
+    xp, wh, lengths = _scan_inputs(dev, *shape, seed=24)
+    valid = torch.arange(shape[1], device=dev)[None, :] < lengths[:, None]
+    dout = _t(np.random.default_rng(25), dev, torch.bfloat16, *shape) * valid[..., None]
+    cuda_lstm.reset_launch_counts()
+    got = cuda_lstm.lstm_revmasked_train_fwd(xp, wh, lengths)
+    assert cuda_lstm.route_counts("lstm_revmasked_train_fwd") == {"persistent": 1, "walk": 0}
+    ref = cuda_lstm.lstm_revmasked_train_fwd_plain(xp, wh, lengths)
+    _hold_residuals(got, ref, lstm_scan_stale_h(xp, wh, True, lengths, residuals=True))
+    for g, r in zip(cuda_lstm.lstm_revmasked_bwd(*got, lengths, dout, wh),
+                    cuda_lstm.lstm_revmasked_bwd_plain(*ref, lengths, dout, wh)):
+        assert _rel(g, r) < TOLS[torch.bfloat16]
+
+
+def test_train_persistent_is_deterministic(dev):
+    """Two launches of K4p and of K6p are bitwise equal: bf16 remat runs the
+    training forward twice and needs the same residuals."""
+    xp, wh, lengths = _scan_inputs(dev, 136, 201, 392, seed=26)
+    for run in (lambda: cuda_lstm.lstm_train_fwd_persistent(xp, wh, False),
+                lambda: cuda_lstm.lstm_train_fwd_persistent(xp, wh, True),
+                lambda: cuda_lstm.lstm_revmasked_train_fwd_persistent(xp, wh, lengths)):
+        a, b = run(), run()
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_train_route_follows_the_dtype(dev):
+    """float32 takes the walks, bfloat16 K4p/K6p; each counts as a K4 or K6
+    launch; the persistent wrappers refuse float32."""
+    xp, wh, lengths = _scan_inputs(dev, R, T, H, seed=27)
+    cuda_lstm.reset_launch_counts()
+    cuda_lstm.lstm_train_fwd(xp.float(), wh.float())
+    cuda_lstm.lstm_revmasked_train_fwd(xp.float(), wh.float(), lengths)
+    cuda_lstm.lstm_train_fwd(xp, wh)
+    cuda_lstm.lstm_revmasked_train_fwd(xp, wh, lengths)
+    for name in ("lstm_train_fwd", "lstm_revmasked_train_fwd"):
+        assert cuda_lstm.route_counts(name) == {"persistent": 1, "walk": 1}
+        assert cuda_lstm.launch_counts()[name] == 2
+    with pytest.raises(TypeError):
+        cuda_lstm.lstm_train_fwd_persistent(xp.float(), wh.float())
+    with pytest.raises(TypeError):
+        cuda_lstm.lstm_revmasked_train_fwd_persistent(xp.float(), wh.float(), lengths)
+
+
+def test_train_persistent_refuses_a_grid_the_card_cannot_hold(dev):
+    """A K4p/K6p plan of more CTAs than the card holds resident is refused
+    at launch instead of hanging in the barrier; the next launch runs."""
+    import dataclasses
+
+    xp, wh, lengths = _scan_inputs(dev, 400, 3, 72, seed=28)
+    plan = cuda_lstm.plan_persistent(400, 0, 72, 132, dirs=1)
+    big = dataclasses.replace(plan, G=100, rows=4, S=18, U=4)
+    assert big.ctas > torch.cuda.get_device_properties(dev).multi_processor_count
+    cuda_lstm.reset_launch_counts()
+    with pytest.raises(RuntimeError):
+        cuda_lstm.lstm_train_fwd_persistent(xp, wh, False, big)
+    with pytest.raises(RuntimeError):
+        cuda_lstm.lstm_revmasked_train_fwd_persistent(xp, wh, lengths, big)
+    torch.cuda.synchronize()
+    assert cuda_lstm.route_counts("lstm_train_fwd") == {"persistent": 0, "walk": 0}
+    assert cuda_lstm.route_counts("lstm_revmasked_train_fwd") == {"persistent": 0, "walk": 0}
+    got = cuda_lstm.lstm_revmasked_train_fwd_persistent(xp, wh, lengths)
+    ref = cuda_lstm.lstm_revmasked_train_fwd_plain(xp, wh, lengths)
+    assert max(_err(g, r) / ulp_limit(r) for g, r in zip(got, ref)) < 1
+
+
+# --- the walks of K4-K7 --------------------------------------------------
+
+
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_train_fwd_bwd_match_plain(dev, dtype, reverse, rows):
-    """K4 (h, gates, c) and K5 (dxp, dW) against their plain versions; K5
-    runs on the plain forward's residuals so that each kernel is held alone."""
+    """K4's walk (h, gates, c) at every row tile (bfloat16 takes K4p by
+    default) and K5 (dxp, dW) against their plain versions; K5 runs on the
+    plain forward's residuals so that each kernel is held alone."""
     rng = np.random.default_rng(6)
     xp, wh, dout = _train_inputs(rng, dev, dtype)
-    got = cuda_lstm.lstm_train_fwd(xp, wh, reverse)
+    got = cuda_lstm.lstm_train_fwd_walk(xp, wh, reverse)
     ref = cuda_lstm.lstm_train_fwd_plain(xp, wh, reverse)
     for g, r in zip(got, ref):
         assert g.dtype == dtype and _err(g, r) < TOLS[dtype]
@@ -273,12 +386,13 @@ def test_train_fwd_bwd_match_plain(dev, dtype, reverse, rows):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_revmasked_train_fwd_bwd_match_plain(dev, dtype, rows):
+    """K6's walk at every row tile (bfloat16 takes K6p by default) and K7."""
     rng = np.random.default_rng(7)
     xp, wh, dout = _train_inputs(rng, dev, dtype)
     lengths = _lengths(dev)
     valid = torch.arange(T, device=dev)[None, :] < lengths[:, None]
     dout = dout * valid[..., None]
-    got = cuda_lstm.lstm_revmasked_train_fwd(xp, wh, lengths)
+    got = cuda_lstm.lstm_revmasked_train_fwd_walk(xp, wh, lengths)
     ref = cuda_lstm.lstm_revmasked_train_fwd_plain(xp, wh, lengths)
     for g, r in zip(got, ref):
         assert _err(g[valid], r[valid]) < TOLS[dtype]
@@ -379,7 +493,8 @@ RW, TW, NW, HW = 5, 6, 48, 768
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_wide_kernels_match_plain(dev, dtype, rows):
-    """K1-K7 at H = 768 against their plain versions, every row tile."""
+    """K1-K7 at H = 768 against their plain versions, every row tile (the
+    walks of K2-K4 and K6; bfloat16 K1 takes K1p)."""
     rng = np.random.default_rng(10)
     x, wi, wh, b = (_t(rng, dev, dtype, RW, TW, NW), _t(rng, dev, dtype, 2, NW, 4 * HW),
                     _t(rng, dev, dtype, 2, HW, 4 * HW), _t(rng, dev, dtype, 2, 4 * HW))
@@ -394,13 +509,13 @@ def test_wide_kernels_match_plain(dev, dtype, rows):
     assert _err(cuda_lstm.lstm_revmasked_walk(xp, wh[1], lengths)[valid],
                 cuda_lstm.lstm_revmasked_plain(xp, wh[1], lengths)[valid]) < tol
     ref = cuda_lstm.lstm_train_fwd_plain(xp, wh[0])
-    for g, r in zip(cuda_lstm.lstm_train_fwd(xp, wh[0]), ref):
+    for g, r in zip(cuda_lstm.lstm_train_fwd_walk(xp, wh[0]), ref):
         assert _err(g, r) < tol
     for g, r in zip(cuda_lstm.lstm_train_bwd(*ref, dout, wh[0]),
                     cuda_lstm.lstm_train_bwd_plain(*ref, dout, wh[0])):
         assert _rel(g, r) < grad_tol
     ref = cuda_lstm.lstm_revmasked_train_fwd_plain(xp, wh[1], lengths)
-    for g, r in zip(cuda_lstm.lstm_revmasked_train_fwd(xp, wh[1], lengths), ref):
+    for g, r in zip(cuda_lstm.lstm_revmasked_train_fwd_walk(xp, wh[1], lengths), ref):
         assert _err(g[valid], r[valid]) < tol
     dmask = dout * valid[..., None]
     for g, r in zip(cuda_lstm.lstm_revmasked_bwd(*ref, lengths, dmask, wh[1]),
@@ -448,12 +563,14 @@ def test_fused_bidir_matches_plain(dev, dtype, rows):
 @pytest.mark.parametrize("hid", [H, HW])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_bidir_equals_per_direction_bitwise(dev, dtype, hid):
-    """K9 = K4 forward + K4 reverse and K10 = K5 per direction, bit for bit
-    (the same device code), at the wrapper's own row tiles."""
+    """K9 = K4's walk forward + reverse and K10 = K5 per direction, bit for
+    bit (the same device code), at the wrapper's own row tiles (bfloat16 K4
+    takes K4p, another kernel)."""
     rng = np.random.default_rng(13)
     xf, xb, wf, wb, df, db = _two_directions(rng, dev, dtype, hid)
     fused = cuda_lstm.lstm_train_fwd2(xf, xb, wf, wb)
-    single = (*cuda_lstm.lstm_train_fwd(xf, wf, False), *cuda_lstm.lstm_train_fwd(xb, wb, True))
+    single = (*cuda_lstm.lstm_train_fwd_walk(xf, wf, False),
+              *cuda_lstm.lstm_train_fwd_walk(xb, wb, True))
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(fused, single))
     fused = cuda_lstm.lstm_train_bwd2(single[:3], single[3:], df, db, wf, wb)

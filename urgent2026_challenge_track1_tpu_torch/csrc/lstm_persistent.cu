@@ -1,7 +1,7 @@
-// K1p: the fused-input bidirectional LSTM, and K2p / K3p: one direction over
-// a hoisted input projection, as persistent, weight-stationary tensor-core
-// recurrences for NVIDIA Hopper (sm_90a), bound with ctypes.  K1p first; K2p
-// and K3p (scan_persistent_kernel) at the end of the namespace.
+// K1p: the fused-input bidirectional LSTM, and K2p / K3p / K4p / K6p: one
+// direction over a hoisted input projection, as persistent, weight-stationary
+// tensor-core recurrences for NVIDIA Hopper (sm_90a), bound with ctypes.  K1p
+// first; K2p-K6p (scan_persistent_kernel) at the end of the namespace.
 //
 // Replaces urgent2026_challenge_track1_tpu/ops/pallas_lstm.py:
 // _fusedin_forward (body _fusedin_step) for bfloat16 inputs, beside K1's walk
@@ -527,14 +527,18 @@ bool bad_plan(const Plan& p, bool scan) {
 }
 
 // ---------------------------------------------------------------------------
-// K2p and K3p: one direction over a hoisted projection.
+// K2p and K3p: one direction over a hoisted projection; K4p and K6p: the
+// same walks that also store the backward's residuals.
 //
 // Replace urgent2026_challenge_track1_tpu/ops/pallas_lstm.py: lstm_scan_pallas
 // (body _body; K2, forward or reverse) and _lean_forward_revmasked (body
 // _lean_fwd_revmasked_body; K3, the reverse walk whose carried h and c are
-// multiplied by m = (t < lengths[r]) after each step) for bfloat16 inputs,
-// beside the walks in lstm_kernels.cu (recurrence_kernel), which keep float32
-// and every shape without a plan.  Each step computes
+// multiplied by m = (t < lengths[r]) after each step), _train_forward (body
+// _train_fwd_body; K4, K2 that stores the residuals) and
+// _train_forward_revmasked (body _train_fwd_revmasked_body; K6, K3 that
+// stores them) for bfloat16 inputs, beside the walks in lstm_kernels.cu
+// (recurrence_kernel), which keep float32 and every shape without a plan.
+// Each step computes
 //   gates = x_proj_t + round_bf16(h_{t-1}) W_hh^T     (f32 sums)
 //   c = f c + i g,  h = o tanh(c)                     (f32 cell)
 // and writes the unmasked h (bf16) to out (R, T, H).
@@ -557,6 +561,16 @@ bool bad_plan(const Plan& p, bool scan) {
 // plain version's at every step, padded ones included.  The floor is
 // latency: T dependent steps, each at least one barrier round trip through
 // L2.
+//
+// K4p / K6p (STORE): each cell also writes its post-activation gates i, f, g,
+// o to gates (R, T, 4H) at q H + u and its c to c_res (R, T, H), bf16, the
+// layout of _train_fwd_body (pallas_lstm.py:359-381).  K6p stores the
+// unmasked c of the step, as _train_fwd_revmasked_body does, not the masked
+// value it carries.  Nothing reads the residuals during the walk, so the
+// last chunk of a step keeps them in registers and stores them after the
+// arrive, where they overlap the next barrier wait (faster than storing them
+// before it at 10 of 13 shape pairs, PERF.md).  Bytes rise from (4H + H) to
+// (4H + 6H) bf16 a (row, step); the floor stays the barrier.
 // ---------------------------------------------------------------------------
 
 struct ScanArgs {
@@ -567,7 +581,29 @@ struct ScanArgs {
   float* c_global;     // (R, H) when !c_in_smem
   int* counters;       // (G) zeros
   Plan p;              // N = 0, kx = 0
+  bf16* gates;         // (R, T, 4H) post-activation gates, K4p/K6p only
+  bf16* c_res;         // (R, T, H) the unmasked c, K4p/K6p only
 };
+
+// K4p/K6p: the residuals of a thread's cells of one chunk (i, f, g, o, c per
+// slot, rows from rg) from registers to gates (R, T, 4H) and c_res (R, T, H)
+// at step t.
+__device__ __forceinline__ void store_residuals(bf16* gates, bf16* c_res, int Tn, int H,
+                                                const bf16 (&res)[kCellSlots][5],
+                                                const int (&cell_row)[kCellSlots],
+                                                const int (&cell_ul)[kCellSlots], size_t rg,
+                                                int rows, int t, int u0) {
+#pragma unroll
+  for (int j = 0; j < kCellSlots; ++j) {
+    if (cell_row[j] >= rows) continue;
+    const size_t rt = (rg + cell_row[j]) * Tn + t;
+    const int u = u0 + cell_ul[j];
+    bf16* g = gates + rt * 4 * H + u;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) g[(size_t)q * H] = res[j][q];
+    c_res[rt * H + u] = res[j][4];
+  }
+}
 
 // Copy the four nu-wide column segments q H + [u0, u0 + nu) of rows rows of
 // the projection (row stride lds) into dst (row r at r 4U, segment q at q
@@ -613,7 +649,7 @@ __device__ __forceinline__ void stage_segments(bf16* dst, int U, const bf16* src
   }
 }
 
-template <bool REVERSE, bool MASKED>
+template <bool REVERSE, bool MASKED, bool STORE>
 __global__ void __launch_bounds__(kThreads, 1) scan_persistent_kernel(const ScanArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Plan p = a.p;
@@ -673,6 +709,7 @@ __global__ void __launch_bounds__(kThreads, 1) scan_persistent_kernel(const Scan
     cell_ul[j] = i - cell_row[j] * U;
     if (cell_ul[j] >= nu) cell_row[j] = p.chunk;
   }
+  [[maybe_unused]] bf16 res[kCellSlots][5];  // K4p/K6p: this thread's cells' residuals
   int buf = 0;
   for (int step = 0; step < p.Tn; ++step) {
     const int t = REVERSE ? p.Tn - 1 - step : step;
@@ -724,6 +761,17 @@ __global__ void __launch_bounds__(kThreads, 1) scan_persistent_kernel(const Scan
         cb[(size_t)(r0 + row) * cld + ul] =
             (MASKED && t >= __ldg(len + r0 + row)) ? 0.f : c;
         a.out[((rg + row) * p.Tn + t) * H + u0 + ul] = __float2bfloat16(og * tanhf(c));
+        if constexpr (STORE) {  // the unmasked c, not cb's
+          res[j][0] = __float2bfloat16(ig);
+          res[j][1] = __float2bfloat16(fg);
+          res[j][2] = __float2bfloat16(gg);
+          res[j][3] = __float2bfloat16(og);
+          res[j][4] = __float2bfloat16(c);
+        }
+      }
+      if constexpr (STORE) {
+        if (!last_chunk)
+          store_residuals(a.gates, a.c_res, p.Tn, H, res, cell_row, cell_ul, rg, rows, t, u0);
       }
       buf ^= 1;
     }
@@ -732,6 +780,11 @@ __global__ void __launch_bounds__(kThreads, 1) scan_persistent_kernel(const Scan
     if (threadIdx.x == 0) {
       __threadfence();
       atomicAdd(counter, 1);
+    }
+    if constexpr (STORE) {  // the last chunk's residuals, during the next wait
+      const int r_last = (r_count - 1) / p.chunk * p.chunk;
+      store_residuals(a.gates, a.c_res, p.Tn, H, res, cell_row, cell_ul,
+                      (size_t)(r_begin + r_last), r_count - r_last, t, u0);
     }
   }
 }
@@ -754,7 +807,7 @@ int lstm_persistent_phase_cycles(long long* host, int ctas) {
 }
 
 // Shared-memory bytes of one CTA of a plan (the planner's reckoning, for a
-// check from Python): K1p's for N > 0, K2p/K3p's for N = 0.
+// check from Python): K1p's for N > 0, K2p-K6p's for N = 0.
 long long lstm_persistent_smem(int N, int H, int U, int rows, int chunk, int c_in_smem) {
   Plan p{};
   p.N = N;
@@ -809,15 +862,18 @@ int lstm_fusedin_persistent(const void* x, const void* w, const void* bias, void
 
 // K2p (lengths == nullptr; forward, or reverse) and K3p (lengths (R,) int32,
 // reverse only): xp (R, T, 4H) bf16, the packed W_hh^T (S, Kh, 4U) bf16 ->
-// out (R, T, H) bf16; c_global (R, H) f32 scratch unless c_in_smem;
-// counters (G) int32 zeros.  Returns the cudaError_t of the cooperative
-// launch, as lstm_fusedin_persistent.
+// out (R, T, H) bf16; K4p / K6p the same with gates (R, T, 4H) and c_res
+// (R, T, H) bf16 (both null for K2p / K3p); c_global (R, H) f32 scratch
+// unless c_in_smem; counters (G) int32 zeros.  Returns the cudaError_t of
+// the cooperative launch, as lstm_fusedin_persistent.
 int lstm_scan_persistent(const void* xp, const void* w, const void* lengths, void* out,
-                         void* c_global, void* counters, int R, int Tn, int H, int reverse,
-                         int S, int G, int U, int rows, int chunk, int c_in_smem, void* stream) {
+                         void* gates, void* c_res, void* c_global, void* counters, int R,
+                         int Tn, int H, int reverse, int S, int G, int U, int rows, int chunk,
+                         int c_in_smem, void* stream) {
   ScanArgs a{static_cast<const bf16*>(xp), static_cast<const bf16*>(w),
              static_cast<const int*>(lengths), static_cast<bf16*>(out),
-             static_cast<float*>(c_global), static_cast<int*>(counters), Plan{}};
+             static_cast<float*>(c_global), static_cast<int*>(counters), Plan{},
+             static_cast<bf16*>(gates), static_cast<bf16*>(c_res)};
   Plan& p = a.p;
   p.R = R;
   p.Tn = Tn;
@@ -831,12 +887,19 @@ int lstm_scan_persistent(const void* xp, const void* w, const void* lengths, voi
   p.c_in_smem = c_in_smem;
   p.kx = 0;
   p.kh = (H + 15) / 16 * 16;
-  const bool masked = lengths != nullptr;
-  if (bad_plan(p, true) || (!c_in_smem && c_global == nullptr) || (masked && !reverse))
+  const bool masked = lengths != nullptr, store = gates != nullptr;
+  if (bad_plan(p, true) || (!c_in_smem && c_global == nullptr) || (masked && !reverse) ||
+      store != (c_res != nullptr))
     return (int)cudaErrorInvalidValue;
-  const void* kernel = masked    ? reinterpret_cast<const void*>(scan_persistent_kernel<true, true>)
-                       : reverse ? reinterpret_cast<const void*>(scan_persistent_kernel<true, false>)
-                                 : reinterpret_cast<const void*>(scan_persistent_kernel<false, false>);
+  // [store][forward, reverse, masked reverse]
+  const void* kernels[2][3] = {
+      {reinterpret_cast<const void*>(scan_persistent_kernel<false, false, false>),
+       reinterpret_cast<const void*>(scan_persistent_kernel<true, false, false>),
+       reinterpret_cast<const void*>(scan_persistent_kernel<true, true, false>)},
+      {reinterpret_cast<const void*>(scan_persistent_kernel<false, false, true>),
+       reinterpret_cast<const void*>(scan_persistent_kernel<true, false, true>),
+       reinterpret_cast<const void*>(scan_persistent_kernel<true, true, true>)}};
+  const void* kernel = kernels[store][masked ? 2 : reverse ? 1 : 0];
   const size_t smem = p.smem_bytes();
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

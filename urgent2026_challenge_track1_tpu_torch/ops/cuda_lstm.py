@@ -27,6 +27,13 @@ bfloat16, h and c always float32):
 
   lstm_train_fwd            (K4) as lstm_scan      -> h, gates (R, T, 4H), c
   lstm_revmasked_train_fwd  (K6) as lstm_revmasked -> h, gates, c
+                  each on one of two routes, fixed before launch by
+                  ``scan_route``, K2's and K3's rule: K4p / K6p
+                  (``lstm_train_fwd_persistent``,
+                  ``lstm_revmasked_train_fwd_persistent``, K2p's kernel
+                  that also stores the residuals) for bfloat16 with a
+                  one-direction plan, else the walk (``lstm_train_fwd_walk``,
+                  ``lstm_revmasked_train_fwd_walk``)
   lstm_train_bwd            (K5) h, gates, c, dout (R, T, H), w_hh_t
                                                    -> dx_proj, dW_hh^T (H, 4H)
   lstm_revmasked_bwd        (K7) as K5, with lengths
@@ -37,7 +44,8 @@ bfloat16, h and c always float32):
 
 Index 0 of the stacked K1 weights is the forward direction, 1 the backward.
 ``route_counts(name)`` reads the launches per route ("persistent", "walk") of
-K1, K2 or K3; ``reset_launch_counts`` zeroes them with the launch counts.
+K1, K2, K3, K4 or K6; ``reset_launch_counts`` zeroes them with the launch
+counts.
 ``LSTMDirTrain`` (K4/K5) and ``LSTMRevMaskedTrain`` (K6/K7) are the autograd
 Functions of the training path; ``lstm_dir`` and ``lstm_dir_revmasked``
 route to them when autograd records and to the lean K2/K3 otherwise (under
@@ -82,6 +90,12 @@ __all__ = [
     "lstm_train_bwd",
     "lstm_revmasked_train_fwd",
     "lstm_revmasked_bwd",
+    "lstm_train_fwd_walk",
+    "lstm_revmasked_train_fwd_walk",
+    "lstm_train_fwd_persistent",
+    "lstm_revmasked_train_fwd_persistent",
+    "lstm_train_fwd_sliced_plain",
+    "lstm_revmasked_train_fwd_sliced_plain",
     "lstm_train_fwd_plain",
     "lstm_train_bwd_plain",
     "lstm_revmasked_train_fwd_plain",
@@ -469,16 +483,21 @@ def pack_scan_weights(w_hh_t: torch.Tensor, plan: PersistentPlan) -> torch.Tenso
     return k.index_select(1, cols).reshape(plan.kh, S, 4 * U).transpose(0, 1).contiguous()
 
 
-def _scan_sliced_plain(x_proj, w, plan, reverse, lengths=None):
+def _scan_sliced_plain(x_proj, w, plan, reverse, lengths=None, store=False):
     """The walk of K2p/K3p over ``plan``'s (group, slice) schedule: h_{t-1}
     read back from the output (rounded to x_proj's dtype) and, with
     ``lengths``, zeroed for rows where t - 1 (reverse: t + 1) >= lengths[r];
     c kept per (row, unit) and zeroed after step t >= lengths[r]; gates =
-    x_proj_t + h W_hh (f32 sums of the packed slice's columns)."""
+    x_proj_t + h W_hh (f32 sums of the packed slice's columns).  With
+    ``store`` (K4p/K6p) also the residuals, as the kernel writes them: the
+    post-activation gates (R, T, 4H) at q H + u and the step's unmasked c
+    (R, T, H), in x_proj's dtype; returns (h, gates, c), else h."""
     R, T, _ = x_proj.shape
     H, U = plan.H, plan.U
     out = x_proj.new_zeros((R, T, H))
     c = torch.zeros((R, H), dtype=torch.float32, device=x_proj.device)
+    if store:
+        gates, cs = x_proj.new_zeros((R, T, 4 * H)), x_proj.new_zeros((R, T, H))
     for step in range(T):
         t = T - 1 - step if reverse else step
         tp = t + 1 if reverse else t - 1
@@ -494,12 +513,16 @@ def _scan_sliced_plain(x_proj, w, plan, reverse, lengths=None):
                 pre = xr[..., u0:u0 + nu]
                 if hr is not None:
                     pre = pre + (hr @ w[s, :H].float()).reshape(-1, 4, U)[..., :nu]
-                cu = (torch.sigmoid(pre[:, 1]) * c[rows, u0:u0 + nu]
-                      + torch.sigmoid(pre[:, 0]) * torch.tanh(pre[:, 2]))
-                out[rows, t, u0:u0 + nu] = (torch.sigmoid(pre[:, 3]) * torch.tanh(cu)).to(
-                    x_proj.dtype)
+                act = torch.cat([torch.sigmoid(pre[:, :2]), torch.tanh(pre[:, 2:3]),
+                                 torch.sigmoid(pre[:, 3:])], dim=1)
+                cu = act[:, 1] * c[rows, u0:u0 + nu] + act[:, 0] * act[:, 2]
+                out[rows, t, u0:u0 + nu] = (act[:, 3] * torch.tanh(cu)).to(x_proj.dtype)
                 c[rows, u0:u0 + nu] = cu if keep is None else cu * (t < keep)
-    return out
+                if store:  # the unmasked c, not the carried one
+                    for q in range(4):
+                        gates[rows, t, q * H + u0:q * H + u0 + nu] = act[:, q].to(x_proj.dtype)
+                    cs[rows, t, u0:u0 + nu] = cu.to(x_proj.dtype)
+    return (out, gates, cs) if store else out
 
 
 def lstm_scan_sliced_plain(x_proj: torch.Tensor, w_packed: torch.Tensor, plan: PersistentPlan,
@@ -515,6 +538,21 @@ def lstm_revmasked_sliced_plain(x_proj: torch.Tensor, w_packed: torch.Tensor,
     the output equals ``lstm_revmasked_plain``'s at every step, padded ones
     included (h is masked where it is read, not where it is written)."""
     return _scan_sliced_plain(x_proj, w_packed, plan, True, lengths)
+
+
+def lstm_train_fwd_sliced_plain(x_proj: torch.Tensor, w_packed: torch.Tensor,
+                                plan: PersistentPlan, reverse: bool = False):
+    """Plain version of K4p: K2p's sliced walk that also returns the
+    residuals -> (h, gates, c), as ``lstm_train_fwd_plain`` does."""
+    return _scan_sliced_plain(x_proj, w_packed, plan, reverse, store=True)
+
+
+def lstm_revmasked_train_fwd_sliced_plain(x_proj: torch.Tensor, w_packed: torch.Tensor,
+                                          lengths: torch.Tensor, plan: PersistentPlan):
+    """Plain version of K6p: K3p's sliced walk that also returns the
+    residuals (h and c unmasked) -> (h, gates, c), equal to
+    ``lstm_revmasked_train_fwd_plain``'s at every step."""
+    return _scan_sliced_plain(x_proj, w_packed, plan, True, lengths, store=True)
 
 
 # ---------------------------------------------------------------------------
@@ -671,23 +709,34 @@ def scan_route(dtype: torch.dtype, R: int, H: int, sms: int) -> PersistentPlan |
     """The route of K2 and K3, a fixed rule decided before launch from the
     dtype and the shape: the K2p/K3p plan (one direction over a hoisted
     projection) for bfloat16 where ``plan_persistent`` finds one on ``sms``
-    SMs, else None (the walk: float32, or no plan)."""
+    SMs, else None (the walk: float32, or no plan).  K4 and K6, the
+    training forwards, take the same rule: their kernels K4p / K6p are K2p's
+    and K3p's with the residual stores, in the same shared memory, so a
+    shape that has a K2p plan has a K4p plan."""
     if dtype != torch.bfloat16:
         return None
     return plan_persistent(R, 0, H, sms, dirs=1)
+
+
+def _routed(plain, walk, persistent, x_proj: torch.Tensor, *args):
+    """The dispatch of K2, K3, K4 and K6 on ``(x_proj, *args)``: the plain
+    version on the CPU, else the route ``scan_route`` picks (the persistent
+    kernel with its plan, or the walk)."""
+    if x_proj.device.type == "cpu":
+        return plain(x_proj, *args)
+    R, _, G = x_proj.shape
+    plan = scan_route(x_proj.dtype, R, G // 4, _sm_count(_device_index(x_proj.device)))
+    if plan is None:
+        return walk(x_proj, *args)
+    return persistent(x_proj, *args, plan)
 
 
 def lstm_scan(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
               reverse: bool = False) -> torch.Tensor:
     """K2: one direction over a hoisted projection; (R, T, 4H) -> (R, T, H),
     on the route ``scan_route`` picks (K2p or the walk)."""
-    if x_proj.device.type == "cpu":
-        return lstm_scan_plain(x_proj, w_hh_t, reverse)
-    R, _, G = x_proj.shape
-    plan = scan_route(x_proj.dtype, R, G // 4, _sm_count(_device_index(x_proj.device)))
-    if plan is None:
-        return lstm_scan_walk(x_proj, w_hh_t, reverse)
-    return lstm_scan_persistent(x_proj, w_hh_t, reverse, plan)
+    return _routed(lstm_scan_plain, lstm_scan_walk, lstm_scan_persistent,
+                   x_proj, w_hh_t, reverse)
 
 
 def lstm_revmasked(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
@@ -697,13 +746,8 @@ def lstm_revmasked(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
     equal a fresh reverse scan of the valid prefix; outputs at t >=
     lengths[r] are unspecified to callers (both routes write the plain
     version's)."""
-    if x_proj.device.type == "cpu":
-        return lstm_revmasked_plain(x_proj, w_hh_t, lengths)
-    R, _, G = x_proj.shape
-    plan = scan_route(x_proj.dtype, R, G // 4, _sm_count(_device_index(x_proj.device)))
-    if plan is None:
-        return lstm_revmasked_walk(x_proj, w_hh_t, lengths)
-    return lstm_revmasked_persistent(x_proj, w_hh_t, lengths, plan)
+    return _routed(lstm_revmasked_plain, lstm_revmasked_walk, lstm_revmasked_persistent,
+                   x_proj, w_hh_t, lengths)
 
 
 def _count(fn, route: str) -> None:
@@ -763,10 +807,11 @@ def lstm_revmasked_walk(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
     return out
 
 
-def _scan_persistent(fn, x_proj, w_hh_t, reverse, lengths, plan):
-    """Launch K2p (``lengths`` None) or K3p: one cooperative grid of G x S
-    CTAs over ``plan`` (``plan_persistent``'s for one direction by
-    default); a grid the card cannot hold resident raises."""
+def _scan_persistent(fn, x_proj, w_hh_t, reverse, lengths, plan, store=False):
+    """Launch K2p (``lengths`` None) or K3p, or with ``store`` K4p or K6p
+    (then returns h, gates, c): one cooperative grid of G x S CTAs over
+    ``plan`` (``plan_persistent``'s for one direction by default); a grid
+    the card cannot hold resident raises."""
     name = fn.__name__ + "_persistent"
     if x_proj.device.type != "cuda":
         raise ValueError(f"kernel input on unsupported device {x_proj.device}")
@@ -779,8 +824,11 @@ def _scan_persistent(fn, x_proj, w_hh_t, reverse, lengths, plan):
     if (plan.R, plan.N, plan.H, plan.dirs) != (R, 0, H, 1):
         raise ValueError(f"plan for {(plan.R, plan.N, plan.H, plan.dirs)}, "
                          f"inputs {(R, 0, H, 1)}")
+    # K4p/K6p's residuals: gates (R, T, 4H) and c (R, T, H)
+    res = tuple(torch.empty((R, T, n), dtype=x_proj.dtype, device=x_proj.device)
+                for n in ((4 * H, H) if store else ()))
     if T == 0:
-        return out
+        return (out, *res) if store else out
     w = pack_scan_weights(w_hh_t, plan)
     c = None if plan.c_in_smem else torch.empty((R, H), dtype=torch.float32,
                                                  device=x_proj.device)
@@ -789,13 +837,14 @@ def _scan_persistent(fn, x_proj, w_hh_t, reverse, lengths, plan):
 
     err = load_library().lstm_scan_persistent(
         x_proj.data_ptr(), w.data_ptr(), None if lengths is None else lengths.data_ptr(),
-        out.data_ptr(), None if c is None else c.data_ptr(), counters.data_ptr(), R, T, H,
+        out.data_ptr(), *([t.data_ptr() for t in res] or [None, None]),
+        None if c is None else c.data_ptr(), counters.data_ptr(), R, T, H,
         int(bool(reverse)), plan.S, plan.G, plan.U, plan.rows, plan.chunk,
         int(plan.c_in_smem), ctypes.c_void_p(torch.cuda.current_stream(x_proj.device).cuda_stream),
     )
     _raise_on(err, name)
     _count(fn, "persistent")
-    return out
+    return (out, *res) if store else out
 
 
 def lstm_scan_persistent(x_proj: torch.Tensor, w_hh_t: torch.Tensor, reverse: bool = False,
@@ -829,7 +878,25 @@ def _train_outputs(x_proj: torch.Tensor, H: int):
 def lstm_train_fwd(x_proj: torch.Tensor, w_hh_t: torch.Tensor, reverse: bool = False):
     """K4: ``lstm_scan`` that also returns the backward's residuals;
     (R, T, 4H) -> (h (R, T, H), gates i, f, g, o (R, T, 4H), c (R, T, H)),
-    all in x_proj's dtype."""
+    all in x_proj's dtype, on the route ``scan_route`` picks (K4p or the
+    walk)."""
+    return _routed(lstm_train_fwd_plain, lstm_train_fwd_walk, lstm_train_fwd_persistent,
+                   x_proj, w_hh_t, reverse)
+
+
+def lstm_revmasked_train_fwd(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
+                             lengths: torch.Tensor):
+    """K6: ``lstm_revmasked`` that also returns the backward's residuals
+    (h and c unmasked), as ``lstm_train_fwd``, on the route ``scan_route``
+    picks (K6p or the walk)."""
+    return _routed(lstm_revmasked_train_fwd_plain, lstm_revmasked_train_fwd_walk,
+                   lstm_revmasked_train_fwd_persistent, x_proj, w_hh_t, lengths)
+
+
+def lstm_train_fwd_walk(x_proj: torch.Tensor, w_hh_t: torch.Tensor, reverse: bool = False):
+    """K4's walk (csrc/lstm_kernels.cu ``recurrence_kernel<false, true>``),
+    float32 or bfloat16; counted in ``lstm_train_fwd.launches`` and
+    ``.routes["walk"]``."""
     if x_proj.device.type == "cpu":
         return lstm_train_fwd_plain(x_proj, w_hh_t, reverse)
     R, T, G = x_proj.shape
@@ -847,14 +914,15 @@ def lstm_train_fwd(x_proj: torch.Tensor, w_hh_t: torch.Tensor, reverse: bool = F
         R, T, H, int(bool(reverse)), dtype, rows_per_block(R, 1, x_proj.device, H), stream,
     )
     _raise_on(err, "lstm_train_fwd")
-    lstm_train_fwd.launches += 1
+    _count(lstm_train_fwd, "walk")
     return out, gates, c
 
 
-def lstm_revmasked_train_fwd(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
-                             lengths: torch.Tensor):
-    """K6: ``lstm_revmasked`` that also returns the backward's residuals
-    (h and c unmasked), as ``lstm_train_fwd``."""
+def lstm_revmasked_train_fwd_walk(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
+                                  lengths: torch.Tensor):
+    """K6's walk (csrc/lstm_kernels.cu ``recurrence_kernel<true, true>``),
+    float32 or bfloat16; counted in ``lstm_revmasked_train_fwd.launches``
+    and ``.routes["walk"]``."""
     if x_proj.device.type == "cpu":
         return lstm_revmasked_train_fwd_plain(x_proj, w_hh_t, lengths)
     R, T, G = x_proj.shape
@@ -874,8 +942,30 @@ def lstm_revmasked_train_fwd(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
         rows_per_block(R, 1, x_proj.device, H), stream,
     )
     _raise_on(err, "lstm_revmasked_train_fwd")
-    lstm_revmasked_train_fwd.launches += 1
+    _count(lstm_revmasked_train_fwd, "walk")
     return out, gates, c
+
+
+def lstm_train_fwd_persistent(x_proj: torch.Tensor, w_hh_t: torch.Tensor, reverse: bool = False,
+                              plan: PersistentPlan | None = None):
+    """K4p (csrc/lstm_persistent.cu ``scan_persistent_kernel<REVERSE, false,
+    true>``), bfloat16 only: K2p that also stores the residuals -> (h, gates,
+    c).  Counted in ``lstm_train_fwd.launches`` and ``.routes["persistent"]``."""
+    if x_proj.device.type == "cpu":
+        return lstm_train_fwd_plain(x_proj, w_hh_t, reverse)
+    return _scan_persistent(lstm_train_fwd, x_proj, w_hh_t, reverse, None, plan, True)
+
+
+def lstm_revmasked_train_fwd_persistent(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
+                                        lengths: torch.Tensor,
+                                        plan: PersistentPlan | None = None):
+    """K6p (``scan_persistent_kernel<true, true, true>``), bfloat16 only: K3p
+    that also stores the residuals (h and c unmasked) -> (h, gates, c),
+    equal to the plain version's at every step.  Counted in
+    ``lstm_revmasked_train_fwd.launches`` and ``.routes["persistent"]``."""
+    if x_proj.device.type == "cpu":
+        return lstm_revmasked_train_fwd_plain(x_proj, w_hh_t, lengths)
+    return _scan_persistent(lstm_revmasked_train_fwd, x_proj, w_hh_t, True, lengths, plan, True)
 
 
 def _check_residuals(h, gates, c, dout, w_hh_t):
@@ -967,7 +1057,8 @@ def lstm_train_fwd_streamin(x: torch.Tensor, w_ih_t: torch.Tensor, bias: torch.T
 def lstm_train_fwd2(xp_f: torch.Tensor, xp_b: torch.Tensor, w_hh_f_t: torch.Tensor,
                     w_hh_b_t: torch.Tensor):
     """K9: ``lstm_train_fwd`` forward on xp_f and reverse on xp_b in one
-    launch -> (h_f, gates_f, c_f, h_b, gates_b, c_b), bitwise K4's."""
+    launch -> (h_f, gates_f, c_f, h_b, gates_b, c_b), bitwise the K4 walk's
+    (``lstm_train_fwd_walk``; the same device code)."""
     if xp_f.device.type == "cpu":
         return lstm_train_fwd2_plain(xp_f, xp_b, w_hh_f_t, w_hh_b_t)
     R, T, G = xp_f.shape
@@ -1179,7 +1270,8 @@ KERNELS = (fusedin_bilstm, lstm_scan, lstm_revmasked, lstm_train_fwd, lstm_train
            lstm_train_fwd2, lstm_train_bwd2)
 
 
-ROUTED = (fusedin_bilstm, lstm_scan, lstm_revmasked)  # K1-K3: a persistent route and a walk
+# K1-K4, K6: a persistent route and a walk
+ROUTED = (fusedin_bilstm, lstm_scan, lstm_revmasked, lstm_train_fwd, lstm_revmasked_train_fwd)
 
 
 def reset_launch_counts() -> None:
@@ -1195,7 +1287,8 @@ def launch_counts() -> dict[str, int]:
 
 def route_counts(kernel: str = "fusedin_bilstm") -> dict[str, int]:
     """The launches per route of ``kernel`` (K1 ``fusedin_bilstm``, K2
-    ``lstm_scan`` or K3 ``lstm_revmasked``) since the last reset."""
+    ``lstm_scan``, K3 ``lstm_revmasked``, K4 ``lstm_train_fwd`` or K6
+    ``lstm_revmasked_train_fwd``) since the last reset."""
     return dict(next(fn for fn in ROUTED if fn.__name__ == kernel).routes)
 
 

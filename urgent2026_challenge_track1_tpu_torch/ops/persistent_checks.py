@@ -1,4 +1,4 @@
-"""The limit that holds K1p, K2p and K3p against their plain versions, and
+"""The limit that holds K1p-K4p and K6p against their plain versions, and
 the planted barrier faults that the limit must see.
 
 A persistent kernel exchanges h between CTAs through its output, one
@@ -52,20 +52,23 @@ def fusedin_bilstm_stale_h(x: torch.Tensor, w_ih_t: torch.Tensor, w_hh_t: torch.
 
 
 def lstm_scan_stale_h(x_proj: torch.Tensor, w_hh_t: torch.Tensor, reverse: bool,
-                      lengths: torch.Tensor | None = None) -> torch.Tensor:
+                      lengths: torch.Tensor | None = None, residuals: bool = False):
     """K2's plain version (``lstm_scan_plain``; K3's, ``lstm_revmasked_plain``,
-    with ``lengths``) fed h one step stale."""
+    with ``lengths``) fed h one step stale; with ``residuals`` the training
+    forward's (K4's, K6's with ``lengths``): (h, gates, c), c unmasked."""
     R, T, G = x_proj.shape
     w = w_hh_t.float()
     stale = h = torch.zeros((R, G // 4), device=x_proj.device)
     c = torch.zeros_like(h)
     out = x_proj.new_empty((R, T, G // 4))
+    gates, cs = x_proj.new_empty((R, T, G)), x_proj.new_empty((R, T, G // 4))
     for s in range(T):
         t = T - 1 - s if reverse else s
-        h_new, c, _ = _cell(x_proj[:, t].float() + stale.to(x_proj.dtype).float() @ w, c)
+        h_new, c, act = _cell(x_proj[:, t].float() + stale.to(x_proj.dtype).float() @ w, c)
         out[:, t] = h_new.to(x_proj.dtype)
+        gates[:, t], cs[:, t] = act.to(x_proj.dtype), c.to(x_proj.dtype)
         if lengths is not None:
             m = (t < lengths).float()[:, None]
             h_new, c = h_new * m, c * m
         stale, h = h, h_new
-    return out
+    return (out, gates, cs) if residuals else out

@@ -56,9 +56,12 @@ def _group(name: str) -> str:
     """Kernel name -> the port kernel it belongs to, or its own name."""
     if re.search(r"(?:::|\d)fusedin_persistent_kernel(?:[(E]|$)", name):
         return "K1p fusedin_persistent"
-    if _names(name, "scan_persistent_kernel"):
-        _, masked = _flags(name, "scan_persistent_kernel")
-        return "K3p lstm_revmasked_persistent" if masked else "K2p lstm_scan_persistent"
+    if _names(name, "scan_persistent_kernel"):  # <REVERSE, MASKED, STORE>
+        _, masked, store = _flags(name, "scan_persistent_kernel")
+        return {(False, False): "K2p lstm_scan_persistent",
+                (True, False): "K3p lstm_revmasked_persistent",
+                (False, True): "K4p lstm_train_fwd_persistent",
+                (True, True): "K6p lstm_revmasked_train_fwd_persistent"}[masked, store]
     if _names(name, "fusedin_kernel"):
         stream = _flags(name, "fusedin_kernel") == [True]
         return "K8 lstm_train_fwd_streamin" if stream else "K1 fusedin_bilstm"
