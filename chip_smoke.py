@@ -23,8 +23,14 @@ Phases (any failure exits non-zero; each prints its seconds):
      (h, gates and c at every step) at the train steps' shapes and an odd
      H, with a planted stale-h fault, two launches bitwise equal, K5 / K7
      on their residuals against the plain chain, their plans and their,
-     the other store order's, the walks' and the plain versions' times
-     (the train_routes phase);
+     the walks' and the plain versions' times (the train_routes phase);
+     then K5p and K7p, the persistent bfloat16 routes of K5 and K7,
+     against the plain versions (dx_proj at every step) at the same
+     shapes, their dW kernel against the float64 product of its own
+     operands, with a planted stale-dgates fault, two launches bitwise
+     equal, their plans, and their, the walks', the dW kernel's, the plain
+     versions' and a one-direction torch.nn.LSTM backward's times (the
+     bwd_routes phase);
   3. drive the inference path through the port's CLI at full width (196
      channels x 6 layers, random seeded weights) on 8-48 kHz WAVs, and the
      training path through the port's ``train_se.run`` (196 x 6, batch 4,
@@ -35,8 +41,8 @@ Phases (any failure exits non-zero; each prints its seconds):
      checkpoint with the euler and heun solvers; check that every kernel of
      each path ran, and that K1-K3 took K1p-K3p on the bfloat16 paths (the
      CLIs) and the walks on the float32 ones (the training runs'
-     validations; a train step runs none of K1-K3), and that K4 and K6
-     took the walks on the float32 training runs;
+     validations; a train step runs none of K1-K3), and that K4-K7 took
+     the walks on the float32 training runs;
   4. the A/B arms of the two experiment toggles (default, STREAM_INPUT_TRAIN,
      FUSED_BIDIR_TRAIN, both, in alternating order) on one train step of
      each family: launches per kernel, loss and gradients against the
@@ -47,8 +53,8 @@ Phases (any failure exits non-zero; each prints its seconds):
   6. time each kernel, its plain version and (for K1) cuDNN's LSTM, the
      end-to-end forward at the JAX bench geometry, the train step at the
      baseline geometry in float32 and bfloat16 with its peak memory and
-     launches per step and K4's and K6's routes per dtype (K4p/K6p in
-     bfloat16, the walks in float32), K1-K7 at the flow shapes,
+     launches per step and K4-K7's routes per dtype (K4p-K7p and the dW
+     kernel in bfloat16, the walks in float32), K1-K7 at the flow shapes,
      K8-K10 at both widths' training shapes, the flow train step and one
      flow enhancement.
 
@@ -164,7 +170,9 @@ def _err(a, b, valid=None):
 
 
 INFERENCE_KERNELS = ("fusedin_bilstm", "lstm_scan", "lstm_revmasked")
-TRAIN_ROUTED = ("lstm_train_fwd", "lstm_revmasked_train_fwd")  # K4, K6: two routes each
+# K4-K7: two routes each
+TRAIN_ROUTED = ("lstm_train_fwd", "lstm_revmasked_train_fwd", "lstm_train_bwd",
+                "lstm_revmasked_bwd")
 
 
 def phase_kernels(device, n_in=N_IN, hid=HID, time_shapes=TIME_SHAPES, band_shapes=BAND_SHAPES):
@@ -244,8 +252,8 @@ def _error_table():
 def phase_train_kernels(device, hid=HID, shapes=(TRAIN_TIME, TRAIN_BAND),
                         seconds=TRAIN_SECONDS, hop=480):
     """K4-K7 against their plain versions at the training step's shapes
-    (K4 and K6: their walks; their bfloat16 persistent routes: the
-    train_routes phase): max abs error of h, gates, c (forward) and max
+    (their walks; the bfloat16 persistent routes: the train_routes and
+    bwd_routes phases): max abs error of h, gates, c (forward) and max
     relative error of dx_proj and dW (backward, each run on the plain
     forward's residuals).  Returns {(kernel, dtype): (abs error, relative
     error or None)}."""
@@ -263,7 +271,7 @@ def phase_train_kernels(device, hid=HID, shapes=(TRAIN_TIME, TRAIN_BAND),
                 ref = K.lstm_train_fwd_plain(xp, w_hh_t[0], reverse)
                 torch.cuda.synchronize()
                 note("lstm_train_fwd", dt_name, max(_err(g, r) for g, r in zip(got, ref)))
-                got = K.lstm_train_bwd(*ref, dout, w_hh_t[0], reverse)
+                got = K.lstm_train_bwd_walk(*ref, dout, w_hh_t[0], reverse)
                 want = K.lstm_train_bwd_plain(*ref, dout, w_hh_t[0], reverse)
                 torch.cuda.synchronize()
                 note("lstm_train_bwd", dt_name, max(_err(g, r) for g, r in zip(got, want)),
@@ -278,7 +286,7 @@ def phase_train_kernels(device, hid=HID, shapes=(TRAIN_TIME, TRAIN_BAND),
             torch.cuda.synchronize()
             note("lstm_revmasked_train_fwd", dt_name,
                  max(_err(g, r, valid) for g, r in zip(got, ref)))
-            got = K.lstm_revmasked_bwd(*ref, lengths, dmask, w_hh_t[1])
+            got = K.lstm_revmasked_bwd_walk(*ref, lengths, dmask, w_hh_t[1])
             want = K.lstm_revmasked_bwd_plain(*ref, lengths, dmask, w_hh_t[1])
             torch.cuda.synchronize()
             note("lstm_revmasked_bwd", dt_name, max(_err(g, r) for g, r in zip(got, want)),
@@ -642,6 +650,186 @@ def phase_train_routes(device):
 
 
 # ---------------------------------------------------------------------------
+# K5's and K7's two routes (phase 2)
+# ---------------------------------------------------------------------------
+
+BWD_TAGS = ("lstm_train_bwd", "lstm_train_bwd_reverse", "lstm_revmasked_bwd")
+DW_BOUND = 1e-4  # |dW - P| <= DW_BOUND (|h_prev|^T |dx_proj|) elementwise, P in float64
+
+
+def _dw_check(K, h, dxp, dw32, reverse, lengths=None):
+    """The dW kernel's f32 sum against P = h_prev^T dx_proj in float64 on the
+    same (exact bf16) inputs: (max over elements of |dW - P| / (|h_prev|^T
+    |dx_proj|), with 0 / 0 read as 0, and max |dW - P|)."""
+    import torch
+
+    hp = K._h_prev(h, reverse, lengths).double().reshape(-1, h.shape[-1])
+    d = dxp.double().reshape(-1, dxp.shape[-1])
+    err = (dw32.double() - hp.t() @ d).abs()
+    scale = hp.abs().t() @ d.abs()
+    ratio = torch.where(scale > 0, err / scale.clamp_min(1e-300),
+                        torch.where(err > 0, float("inf"), 0.0))
+    return float(ratio.max()), float(err.max())
+
+
+def _dw_bound(R, T, H):
+    """The dW kernel's least time (ms): 2 R T H 4H bf16 operations; reading
+    h and dx_proj, writing dW in f32."""
+    return _bound(2 * R * T * H * 4 * H, 2 * R * T * (H + 4 * H) + 4 * H * 4 * H)
+
+
+def _dw_library_ms(K, h, dxp, reverse, lengths):
+    """One PyTorch call that computes dW from the same operands: the bf16
+    product h_prev^T dx_proj with f32 output (``torch.mm(..., out_dtype=)``),
+    h_prev shifted and masked beforehand (not timed)."""
+    import torch
+
+    H = h.shape[-1]
+    hp = K._h_prev(h, reverse, lengths).to(torch.bfloat16).reshape(-1, H)
+    d = dxp.reshape(-1, 4 * H)
+    return _time_ms(lambda: torch.mm(hp.t(), d, out_dtype=torch.float32))
+
+
+def _lstm_backward_reference_ms(device, R, T, H):
+    """The backward of a one-direction bf16 ``torch.nn.LSTM`` (N = H / 2
+    inputs, as in both models) over R rows of T steps, the input and weight
+    gradients: a superset of K5's work (it adds the W_ih products)."""
+    import torch
+
+    N = max(1, H // 2)
+    lstm = torch.nn.LSTM(N, H, batch_first=True).to(device, torch.bfloat16).train()
+    x = (0.3 * torch.randn((R, T, N), device=device)).to(torch.bfloat16).requires_grad_()
+    y, _ = lstm(x)
+    g = torch.randn_like(y)
+    params = [x, *lstm.parameters()]
+    ms = _time_ms(lambda: torch.autograd.grad(y, params, g, retain_graph=True))
+    del lstm, x, y, g
+    return ms
+
+
+def phase_bwd_routes(device):
+    """K5p (the backward of the forward and of the reverse scan) and K7p
+    against the plain versions at every step, padded ones included, at the
+    shapes where K5 and K7 run in a bfloat16 train step
+    (TRAIN_ROUTE_SHAPES), each on the plain training forward's residuals:
+    dx_proj within ``persistent_checks.ulp_limit`` of the plain one; dW of
+    the dW kernel alone on the kernel's own dx_proj within DW_BOUND
+    |h_prev|^T |dx_proj| of their float64 product, elementwise, the routed
+    dW its rounding and within BF16_TOL (relative) of the plain dW; the
+    planted fault (``persistent_checks.lstm_train_bwd_stale_dg``) at or
+    above the limit; two launches bitwise equal.  Records the plan (checked
+    against the kernel's own byte count), the route the rule takes, and in
+    ms K5p/K7p (walk + dW), the walk, the plain version, the dW kernel
+    alone, the bound, and the backward of a one-direction bf16
+    ``torch.nn.LSTM`` at the same R, T, H (a superset: it adds the W_ih
+    products)."""
+    import torch
+    from urgent2026_challenge_track1_tpu_torch.ops import _build
+    from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
+    from urgent2026_challenge_track1_tpu_torch.ops import persistent_checks as PC
+
+    bf16 = torch.bfloat16
+    sms = _sm_count(device)
+    lib = _build.load_library()
+    out = []
+    for what, R, T, H, per_utt in TRAIN_ROUTE_SHAPES:
+        _, _, wh, _, xp, _ = _kernel_inputs(R, T, bf16, device, R + 2 * T + H, hid=H)
+        dout = (0.1 * torch.randn((R, T, H), generator=torch.Generator().manual_seed(R + 1))).to(
+            device, bf16)
+        plan = K.plan_backward(R, H, sms)
+        if plan is None:
+            fail(f"K5p/K7p: no plan at {what} (R={R}, H={H})")
+        kernel_smem = lib.lstm_persistent_bwd_smem(H, plan.U, plan.rows, plan.chunk, plan.kt,
+                                                    int(plan.dc_in_smem))
+        if kernel_smem != plan.smem:
+            fail(f"K5p/K7p plan at {what}: {plan.smem} bytes, the kernel reckons {kernel_smem}")
+        lengths = None
+        runs = {tag: (K.lstm_train_fwd_plain(xp, wh[0], rev), dout, wh[0], None, rev)
+                for rev, tag in ((False, BWD_TAGS[0]), (True, BWD_TAGS[1]))}
+        if per_utt is not None:
+            lengths = torch.tensor(per_utt, dtype=torch.int32).repeat_interleave(
+                R // len(per_utt)).clamp(max=T).to(device)
+            valid = torch.arange(T, device=device)[None, :] < lengths[:, None]
+            runs[BWD_TAGS[2]] = (K.lstm_revmasked_train_fwd_plain(xp, wh[1], lengths),
+                                 dout * valid[..., None], wh[1], lengths, True)
+        valid_steps = R * T if lengths is None else int(lengths.sum())
+        bounds = _train_bounds(R, T, valid_steps, H)
+        rec = {"what": what, "R": R, "T": T, "H": H, "valid_steps": valid_steps,
+               "plan": {"S": plan.S, "G": plan.G, "U": plan.U, "rows": plan.rows,
+                        "chunk": plan.chunk, "kt": plan.kt, "ntiles": plan.ntiles,
+                        "dc_in_smem": plan.dc_in_smem, "smem_bytes": plan.smem,
+                        "ctas": plan.ctas, "dw_split": plan.dw_split},
+               "route": ("persistent" if K.backward_route(bf16, R, H, sms) is not None
+                         else "walk")}
+        for tag, (res, do, w, lens, rev) in runs.items():
+            name = "lstm_revmasked_bwd" if lens is not None else "lstm_train_bwd"
+            if lens is None:
+                kern = lambda p=plan: K.lstm_train_bwd_persistent(*res, do, w, rev, p)
+                walk_fn = lambda: K.lstm_train_bwd_walk(*res, do, w, rev)
+                plain_fn = lambda: K.lstm_train_bwd_plain(*res, do, w, rev)
+                stale = PC.lstm_train_bwd_stale_dg(*res, do, w, rev)
+            else:
+                kern = lambda p=plan: K.lstm_revmasked_bwd_persistent(*res, lens, do, w, p)
+                walk_fn = lambda: K.lstm_revmasked_bwd_walk(*res, lens, do, w)
+                plain_fn = lambda: K.lstm_revmasked_bwd_plain(*res, lens, do, w)
+                stale = PC.lstm_train_bwd_stale_dg(*res, do, w, True, lens)
+            got, again, ref = kern(), kern(), plain_fn()
+            dw32 = K.lstm_bwd_dw(res[0], got[0], rev, lens, plan.dw_split)
+            torch.cuda.synchronize()
+            limit = PC.ulp_limit(ref[0])
+            e_dxp, e_stale = _err(got[0], ref[0]), _err(stale[0], ref[0])
+            bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+            dw_ratio, dw_abs = _dw_check(K, res[0], got[0], dw32, rev, lens)
+            dw_rounded = torch.equal(got[1], dw32.to(got[1].dtype))
+            e_dw = _rel(got[1], ref[1])
+            dxp_k = got[0]
+            del got, again, ref, stale
+            ms = _time_ms(kern)
+            bound_ms, bound_by = bounds[name]
+            rec[tag] = {
+                "max_abs_err_vs_plain": e_dxp, "limit": limit, "max_err_over_limit": e_dxp / limit,
+                "planted_stale_dg_err": e_stale, "planted_stale_dg_over_limit": e_stale / limit,
+                "dw_bound_ratio": dw_ratio, "dw_max_abs_err_vs_f64": dw_abs,
+                "dw_rel_err_vs_plain": e_dw, "dw_is_its_rounding": dw_rounded,
+                "bitwise_repeat": bitwise, "ms": ms, "us_per_step": ms * 1e3 / T,
+                "dw_ms": _time_ms(lambda: K.lstm_bwd_dw(res[0], dxp_k, rev, lens, plan.dw_split)),
+                "dw_plain_ms": _time_ms(lambda: K.lstm_bwd_dw_plain(res[0], dxp_k, rev, lens,
+                                                                    plan.dw_split),
+                                        reps=3, warmup=1),
+                "dw_library_ms": _dw_library_ms(K, res[0], dxp_k, rev, lens),
+                "dw_bound_ms": _dw_bound(R, T, H)[0], "dw_bound_by": _dw_bound(R, T, H)[1],
+                "walk_ms": _time_ms(walk_fn), "plain_ms": _time_ms(plain_fn, reps=3, warmup=1),
+                "bound_ms": bound_ms, "bound_by": bound_by}
+            r = rec[tag]
+            print(f"[bwd routes] {what} {tag} R={R} T={T} H={H}: plan S={plan.S} G={plan.G} "
+                  f"U={plan.U} rows={plan.rows} chunk={plan.chunk} kt={plan.kt} dc_in_smem="
+                  f"{plan.dc_in_smem} smem={plan.smem} B ({plan.ctas} CTAs), dW split "
+                  f"{plan.dw_split}; persistent {ms:.3f} ms (dW {r['dw_ms']:.3f} ms), walk "
+                  f"{r['walk_ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound {bound_ms:.4f} ms "
+                  f"({bound_by}); max|dxp - plain| {e_dxp:.3e} (limit {limit:.3e}); planted stale "
+                  f"dg {e_stale:.3e}; dW |d| / (|h|^T|dxp|) {dw_ratio:.3e} (limit {DW_BOUND}), "
+                  f"rel vs plain {e_dw:.3e} (limit {BF16_TOL}), its rounding: {dw_rounded}; two "
+                  f"launches bitwise equal: {bitwise}; rule: {rec['route']}")
+            if not e_dxp < limit:
+                fail(f"{what} {tag}: dx_proj vs plain {e_dxp:.3e} >= {limit:.3e}")
+            if not e_stale >= limit:
+                fail(f"{what} {tag}: stale dgates move dx_proj by {e_stale:.3e}, under the limit "
+                     f"{limit:.3e}: the check cannot see a barrier fault")
+            if not dw_ratio <= DW_BOUND:
+                fail(f"{what} {tag}: dW off its float64 product by {dw_ratio:.3e} of "
+                     f"|h_prev|^T |dx_proj| > {DW_BOUND}")
+            if not (dw_rounded and e_dw < BF16_TOL):
+                fail(f"{what} {tag}: the routed dW is not the dW kernel's rounding or is "
+                     f"{e_dw:.3e} from plain (limit {BF16_TOL})")
+            if not bitwise:
+                fail(f"{what} {tag}: two launches differ")
+        rec["nn_lstm_backward_ms"] = _lstm_backward_reference_ms(device, R, T, H)
+        out.append(rec)
+        del xp, wh, dout, runs
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 3
 # ---------------------------------------------------------------------------
 
@@ -984,13 +1172,24 @@ def _routes():
 
 
 def _check_routes(what, dtype_name, routes, kernels=INFERENCE_KERNELS):
-    """Each of ``kernels`` ran, on its persistent route only (K1p-K4p, K6p)
-    in bfloat16 and on its walk only in float32."""
+    """Each of ``kernels`` ran, on its persistent route only (K1p-K7p) in
+    bfloat16 and on its walk only in float32."""
     want = "persistent" if dtype_name == "bfloat16" else "walk"
     for name in kernels:
         r = routes[name]
         if r[want] <= 0 or sum(r.values()) != r[want]:
             fail(f"{what}: {name} routes {r}, expected {want} only")
+
+
+def _check_dw_launches(what, routes):
+    """The dW kernel ran once inside each K5p and K7p launch, and nowhere
+    else; returns its count since the last reset."""
+    from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
+
+    want = sum(routes[name]["persistent"] for name in ("lstm_train_bwd", "lstm_revmasked_bwd"))
+    if K.lstm_bwd_dw.launches != want:
+        fail(f"{what}: the dW kernel ran {K.lstm_bwd_dw.launches} times, K5p + K7p {want}")
+    return K.lstm_bwd_dw.launches
 
 
 def _check_no_lean_kernels(what, counts):
@@ -1024,6 +1223,7 @@ def _train_step_times(device):
         per_step, routes = K.launch_counts(), _routes()
         _check_no_lean_kernels(f"train step {compute_dtype}", per_step)
         _check_routes(f"train step {compute_dtype}", compute_dtype, routes, TRAIN_ROUTED)
+        dw_per_step = _check_dw_launches(f"train step {compute_dtype}", routes)
         step(model, opt, *batch)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1038,11 +1238,12 @@ def _train_step_times(device):
         out[compute_dtype] = {"median_ms": statistics.median(times), "ms": times,
                               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
                               "launches_per_step": per_step,
-                              "routes_per_step": {k: routes[k] for k in TRAIN_ROUTED}}
+                              "routes_per_step": {k: routes[k] for k in TRAIN_ROUTED},
+                              "dw_launches_per_step": dw_per_step}
         print(f"[times] train step {compute_dtype} (B=4, 2 s at 48 kHz, 196x6): median "
               f"{out[compute_dtype]['median_ms']:.1f} ms of {[round(t, 1) for t in times]}, "
               f"peak {out[compute_dtype]['peak_memory_gb']:.2f} GB, launches per step {per_step}, "
-              f"K4/K6 routes {out[compute_dtype]['routes_per_step']}")
+              f"K4-K7 routes {out[compute_dtype]['routes_per_step']}, dW kernel {dw_per_step}")
         del model, opt
     return out
 
@@ -1072,7 +1273,7 @@ def _row_tile_sweep(device):
 
 
 def phase_times(device, main_counts, train_counts, errs, train_errs, k1_routes, scan_routes,
-                train_routes_rows, main_routes, train_routes):
+                train_routes_rows, bwd_routes_rows, main_routes, train_routes):
     import torch
     from urgent2026_challenge_track1_tpu_torch.dsp.stft import STFTConfig
     from urgent2026_challenge_track1_tpu_torch.models.bsrnn import (
@@ -1241,6 +1442,7 @@ def phase_times(device, main_counts, train_counts, errs, train_errs, k1_routes, 
         rec["launches_per_train_step"] = per_step.get(rec["name"].removesuffix("_persistent"), 0)
     records += _train_kernel_times(device, train_counts, train_errs, steps)
     records += _train_route_records(train_routes_rows, steps)
+    records += _bwd_route_records(bwd_routes_rows, steps)
     print("[times] " + json.dumps({"train_step": steps}))
     return records
 
@@ -1293,9 +1495,88 @@ def _train_route_records(rows, steps):
     return out
 
 
+def _bwd_route_records(rows, steps):
+    """K5p's, K7p's and their dW kernel's records from the bwd_routes phase:
+    times at the disc time path (the band path and the flow shapes beside
+    them as band_* and flow_* keys), the worst error, limit ratio, planted
+    fault and dW bound over every shape; ``launches`` is K5's / K7's
+    persistent route count (the dW kernel's count) over one bfloat16 disc
+    train step (the counts set to 0 before it and read after it)."""
+    by_what = {r["what"]: r for r in rows}
+    disc, flow = by_what["disc time B=4"], by_what["flow time B=2"]
+    run = "one bfloat16 train step (B=4, 2 s at 48 kHz, 196 x 6)"
+    out = []
+    for name, tags in (("lstm_train_bwd", BWD_TAGS[:2]), ("lstm_revmasked_bwd", BWD_TAGS[2:])):
+        runs = [r[t] for r in rows for t in tags if t in r]
+        d, f = disc[tags[0]], flow[tags[0]]
+        rec = {
+            "name": f"{name}_persistent", "route": "cuda", "route_of_kernel": "persistent",
+            "source": f"{PKG}/csrc/lstm_persistent.cu", "replaces": REPLACES[name],
+            "launches": steps["bfloat16"]["routes_per_step"][name]["persistent"],
+            "launches_run": run,
+            "max_abs_err": max(r["max_abs_err_vs_plain"] for r in runs),
+            "max_err_over_limit": max(r["max_err_over_limit"] for r in runs),
+            "max_abs_err_f32": None,
+            "tolerance_rule": "dx_proj: 4 bf16 ulps at max|plain| per shape; dW: the dW "
+                              f"kernel within {DW_BOUND} |h_prev|^T |dx_proj| of the float64 "
+                              f"product, and within {BF16_TOL} (relative) of plain",
+            "planted_stale_dg_over_limit": min(r["planted_stale_dg_over_limit"] for r in runs),
+            "dw_bound_ratio": max(r["dw_bound_ratio"] for r in runs),
+            "dw_rel_err_vs_plain": max(r["dw_rel_err_vs_plain"] for r in runs),
+            "bitwise_repeat": all(r["bitwise_repeat"] for r in runs),
+            "ms": d["ms"], "plain_ms": d["plain_ms"], "walk_ms": d["walk_ms"],
+            "dw_ms": d["dw_ms"], "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
+            "library_ms": None,
+            "reference_ms": disc["nn_lstm_backward_ms"],
+            "reference": "superset: adds the W_ih products (torch.nn.LSTM bf16, one "
+                         "direction, N = H / 2: its backward)",
+            "shape": {k: disc[k] for k in ("R", "T", "H", "valid_steps")}, "dtype": "bfloat16",
+            "plan": disc["plan"], "launches_per_train_step": {
+                dt: steps[dt]["routes_per_step"][name] for dt in ("float32", "bfloat16")},
+            "flow_ms": f["ms"], "flow_plain_ms": f["plain_ms"], "flow_walk_ms": f["walk_ms"],
+            "flow_dw_ms": f["dw_ms"], "flow_bound_ms": f["bound_ms"],
+            "flow_bound_by": f["bound_by"], "flow_library_ms": None,
+            "flow_reference_ms": flow["nn_lstm_backward_ms"], "flow_plan": flow["plan"],
+            "flow_shape": {k: flow[k] for k in ("R", "T", "H", "valid_steps")},
+            "route_table": [{k: v for k, v in r.items() if k not in BWD_TAGS or k in tags}
+                            for r in rows],
+        }
+        if name == "lstm_train_bwd":  # the band paths
+            for key, what in (("band", "disc band B=4"), ("flow_band", "flow band B=2")):
+                b = by_what[what]
+                rec.update({f"{key}_ms": b[tags[0]]["ms"], f"{key}_walk_ms": b[tags[0]]["walk_ms"],
+                            f"{key}_dw_ms": b[tags[0]]["dw_ms"],
+                            f"{key}_bound_ms": b[tags[0]]["bound_ms"], f"{key}_plan": b["plan"],
+                            f"{key}_reference_ms": b["nn_lstm_backward_ms"]})
+        out.append(rec)
+    runs = [r[t] for r in rows for t in BWD_TAGS if t in r]
+    d, f = disc[BWD_TAGS[0]], flow[BWD_TAGS[0]]
+    out.append({
+        "name": "lstm_bwd_dw", "route": "cuda", "route_of_kernel": "persistent",
+        "source": f"{PKG}/csrc/lstm_persistent.cu", "replaces": REPLACES["lstm_train_bwd"],
+        "replaces_also": REPLACES["lstm_revmasked_bwd"],
+        "launches": steps["bfloat16"]["dw_launches_per_step"], "launches_run": run,
+        "max_abs_err": max(r["dw_max_abs_err_vs_f64"] for r in runs),
+        "max_abs_err_f32": None,
+        "tolerance_rule": f"|dW - P| <= {DW_BOUND} |h_prev|^T |dx_proj| elementwise, P the "
+                          "float64 product of the same bf16 operands",
+        "dw_bound_ratio": max(r["dw_bound_ratio"] for r in runs),
+        "ms": d["dw_ms"], "plain_ms": d["dw_plain_ms"], "bound_ms": d["dw_bound_ms"],
+        "bound_by": d["dw_bound_by"], "library_ms": d["dw_library_ms"],
+        "library": "torch.mm(h_prev^T, dx_proj, out_dtype=float32), bf16 operands",
+        "shape": {k: disc[k] for k in ("R", "T", "H")}, "dtype": "bfloat16",
+        "split": disc["plan"]["dw_split"],
+        "flow_ms": f["dw_ms"], "flow_plain_ms": f["dw_plain_ms"],
+        "flow_bound_ms": f["dw_bound_ms"], "flow_bound_by": f["dw_bound_by"],
+        "flow_library_ms": f["dw_library_ms"], "flow_split": flow["plan"]["dw_split"],
+        "flow_shape": {k: flow[k] for k in ("R", "T", "H")},
+    })
+    return out
+
+
 def _train_kernel_times(device, train_counts, train_errs, steps):
-    """K4-K7 at the training step's shapes, bf16 (K4 and K6: their walks,
-    which the float32 steps run): kernel, plain version, bound.  K4/K5 are
+    """K4-K7 at the training step's shapes, bf16 (their walks, which the
+    float32 steps run): kernel, plain version, bound.  K4/K5 are
     timed on the time path and on the band path (the record holds the time
     path, and the band path's ms and bound as band_* keys)."""
     import torch
@@ -1311,7 +1592,7 @@ def _train_kernel_times(device, train_counts, train_errs, steps):
         timed = {
             "lstm_train_fwd": (lambda: K.lstm_train_fwd_walk(xp, wh[0]),
                                lambda: K.lstm_train_fwd_plain(xp, wh[0])),
-            "lstm_train_bwd": (lambda: K.lstm_train_bwd(*res, dout, wh[0]),
+            "lstm_train_bwd": (lambda: K.lstm_train_bwd_walk(*res, dout, wh[0]),
                                lambda: K.lstm_train_bwd_plain(*res, dout, wh[0])),
         }
         if lengths is not None:
@@ -1320,7 +1601,7 @@ def _train_kernel_times(device, train_counts, train_errs, steps):
                 lambda: K.lstm_revmasked_train_fwd_walk(xp, wh[1], lengths),
                 lambda: K.lstm_revmasked_train_fwd_plain(xp, wh[1], lengths))
             timed["lstm_revmasked_bwd"] = (
-                lambda: K.lstm_revmasked_bwd(*res_m, lengths, dout, wh[1]),
+                lambda: K.lstm_revmasked_bwd_walk(*res_m, lengths, dout, wh[1]),
                 lambda: K.lstm_revmasked_bwd_plain(*res_m, lengths, dout, wh[1]))
         valid = int(lengths.sum()) if lengths is not None else R * T
         bounds = _train_bounds(R, T, valid)
@@ -1337,7 +1618,7 @@ def _train_kernel_times(device, train_counts, train_errs, steps):
                                 "band_shape": {"R": R, "T": T, "H": HID}})
                     continue
                 e_abs, e_rel = train_errs[name, "bfloat16"]
-                # launches in one train step per dtype (K4, K6: their walk route)
+                # launches in one train step per dtype (their walk route)
                 per_step = {dt: (steps[dt]["routes_per_step"][name]["walk"] if name in TRAIN_ROUTED
                                  else steps[dt]["launches_per_step"][name])
                             for dt in ("float32", "bfloat16")}
@@ -1374,7 +1655,7 @@ def phase_new_kernels(device):
     H = 768), float32 and bfloat16: max abs error of the forward outputs,
     max relative error of the backward's (each on the plain forward's
     residuals).  K9 and K10 must equal K4 and K5 run per direction bit for
-    bit (K9 against K4's walk, its device code).  Returns {(kernel, dtype):
+    bit (against K4's and K5's walks, their device code).  Returns {(kernel, dtype):
     (abs error, relative error or None)}."""
     import torch
     from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
@@ -1408,15 +1689,17 @@ def phase_new_kernels(device):
                 got = K.lstm_train_bwd2(ref[:3], ref[3:], dout[0], dout[1], w_hh_t[0], w_hh_t[1])
                 want = K.lstm_train_bwd2_plain(ref[:3], ref[3:], dout[0], dout[1], w_hh_t[0],
                                                w_hh_t[1])
-                single = (*K.lstm_train_bwd(*ref[:3], dout[0], w_hh_t[0], False),
-                          *K.lstm_train_bwd(*ref[3:], dout[1], w_hh_t[1], True))
+                # K5's walk: K10's device code (bfloat16 K5 takes K5p)
+                single = (*K.lstm_train_bwd_walk(*ref[:3], dout[0], w_hh_t[0], False),
+                          *K.lstm_train_bwd_walk(*ref[3:], dout[1], w_hh_t[1], True))
                 torch.cuda.synchronize()
                 note(NEW_KERNELS[2], dt_name, max(_err(g, r) for g, r in zip(got, want)),
                      max(_rel(g, r) for g, r in zip(got, want)))
                 if not all(torch.equal(a, b) for a, b in zip(got, single)):
-                    fail(f"lstm_train_bwd2 {dt_name} R={R} T={T}: not bitwise K5 per direction")
-                print(f"[new kernels] {dt_name} R={R} T={T} N={n_in} H={hid}: K9 == K4 x 2 and "
-                      "K10 == K5 x 2 bit for bit")
+                    fail(f"lstm_train_bwd2 {dt_name} R={R} T={T}: not bitwise the K5 walk per "
+                         "direction")
+                print(f"[new kernels] {dt_name} R={R} T={T} N={n_in} H={hid}: K9 == K4 walk x 2 "
+                      "and K10 == K5 walk x 2 bit for bit")
     for (name, dt_name), (e_abs, e_rel) in sorted(errs.items()):
         backward = name.endswith("bwd2")
         tol = BF16_TOL if dt_name == "bfloat16" else (GRAD_TOL if backward else F32_TOL)
@@ -1801,8 +2084,8 @@ def _new_kernel_times(device, ab, ab_counts, new_errs):
 
 def _flow_kernel_times(device, records, flow_counts, wide_errs, wide_train_errs, k1_routes,
                        scan_routes, flow_cli_routes):
-    """K1-K7 (K1-K4, K6: the walks) at the flow training shapes (N = 384, H =
-    768), bf16: kernel, plain version and bound, added to the K1-K7 records
+    """K1-K7 (their walks) at the flow training shapes (N = 384, H = 768),
+    bf16: kernel, plain version and bound, added to the K1-K7 records
     as flow_* keys; K1p's and cuDNN's times there are the k1_routes phase's
     (flow band B=2), K2p's and K3p's the scan_routes phase's (flow CLI)."""
     import torch
@@ -1826,12 +2109,12 @@ def _flow_kernel_times(device, records, flow_counts, wide_errs, wide_train_errs,
                            lambda: K.lstm_revmasked_plain(xp, wh[1], lengths), (tR, tT)),
         "lstm_train_fwd": (lambda: K.lstm_train_fwd_walk(xp, wh[0]),
                            lambda: K.lstm_train_fwd_plain(xp, wh[0]), (tR, tT)),
-        "lstm_train_bwd": (lambda: K.lstm_train_bwd(*res, dout, wh[0]),
+        "lstm_train_bwd": (lambda: K.lstm_train_bwd_walk(*res, dout, wh[0]),
                            lambda: K.lstm_train_bwd_plain(*res, dout, wh[0]), (tR, tT)),
         "lstm_revmasked_train_fwd": (
             lambda: K.lstm_revmasked_train_fwd_walk(xp, wh[1], lengths),
             lambda: K.lstm_revmasked_train_fwd_plain(xp, wh[1], lengths), (tR, tT)),
-        "lstm_revmasked_bwd": (lambda: K.lstm_revmasked_bwd(*res_m, lengths, dout, wh[1]),
+        "lstm_revmasked_bwd": (lambda: K.lstm_revmasked_bwd_walk(*res_m, lengths, dout, wh[1]),
                                lambda: K.lstm_revmasked_bwd_plain(*res_m, lengths, dout, wh[1]),
                                (tR, tT)),
     }
@@ -1862,7 +2145,7 @@ def _flow_kernel_times(device, records, flow_counts, wide_errs, wide_train_errs,
         band_bounds = _train_bounds(bR, bT, bR * bT, FLOW_H)
         for name, kern in (("lstm_train_fwd", lambda: K.lstm_train_fwd_walk(xq, wh[0])),
                            ("lstm_train_bwd",
-                            lambda: K.lstm_train_bwd(*band_res, band_dout, wh[0]))):
+                            lambda: K.lstm_train_bwd_walk(*band_res, band_dout, wh[0]))):
             ms = _time_ms(kern, reps=3, warmup=1)
             by_name[name].update({"flow_band_ms": ms, "flow_band_bound_ms": band_bounds[name][0],
                                   "flow_band_shape": {"R": bR, "T": bT, "H": FLOW_H}})
@@ -1918,6 +2201,7 @@ def _flow_step_and_enhance_times(device):
         per_step, routes = {k: v for k, v in K.launch_counts().items() if v}, _routes()
         _check_no_lean_kernels(f"flow train step {compute_dtype}", per_step)
         _check_routes(f"flow train step {compute_dtype}", compute_dtype, routes, TRAIN_ROUTED)
+        dw_per_step = _check_dw_launches(f"flow train step {compute_dtype}", routes)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         times = []
@@ -1932,11 +2216,13 @@ def _flow_step_and_enhance_times(device):
         out[compute_dtype] = {"median_ms": statistics.median(times), "ms": times,
                               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
                               "launches_per_step": per_step,
-                              "routes_per_step": {k: routes[k] for k in TRAIN_ROUTED}}
+                              "routes_per_step": {k: routes[k] for k in TRAIN_ROUTED},
+                              "dw_launches_per_step": dw_per_step}
         print(f"[times] flow train step {compute_dtype} (B=2, 2 s at 48 kHz, 384x6): median "
               f"{out[compute_dtype]['median_ms']:.1f} ms of {[round(t, 1) for t in times]}, "
               f"peak {out[compute_dtype]['peak_memory_gb']:.2f} GB, launches per step "
-              f"{per_step}, K4/K6 routes {out[compute_dtype]['routes_per_step']}")
+              f"{per_step}, K4-K7 routes {out[compute_dtype]['routes_per_step']}, dW kernel "
+              f"{dw_per_step}")
         del model, opt
     fcfg = F.FlowSEConfig(compute_dtype="bfloat16")
     model = F.init_flowse(fcfg, seed=11, device=device).eval()
@@ -2010,6 +2296,7 @@ def main() -> int:
     k1_routes = timed("k1_routes", phase_k1_routes, device)
     scan_routes = timed("scan_routes", phase_scan_routes, device)
     train_routes_rows = timed("train_routes", phase_train_routes, device)
+    bwd_routes_rows = timed("bwd_routes", phase_bwd_routes, device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=REPO) as tmp:
         counts, main_routes = timed("inference path", phase_main_path, Path(tmp))
         train_counts, train_routes = timed("training path", phase_training, Path(tmp))
@@ -2020,15 +2307,19 @@ def main() -> int:
     timed("card vs cpu gradients", phase_grads_card_vs_cpu, device)
     timed("flow card vs cpu", phase_flow_card_vs_cpu, device)
     records = timed("times", phase_times, device, counts, train_counts, errs, train_errs,
-                    k1_routes, scan_routes, train_routes_rows, main_routes, train_routes)
+                    k1_routes, scan_routes, train_routes_rows, bwd_routes_rows, main_routes,
+                    train_routes)
     records += timed("times K8-K10", _new_kernel_times, device, ab, ab_counts, new_errs)
     timed("times K1-K7 flow shapes", _flow_kernel_times, device, records, flow_counts,
           wide_errs, wide_train_errs, k1_routes, scan_routes, flow_cli_routes)
     flow_times = timed("times flow", _flow_step_and_enhance_times, device)
-    for rec in records:  # K4p and K6p in one bfloat16 flow train step
+    for rec in records:  # K4p-K7p and the dW kernel in one bfloat16 flow train step
         if rec["name"] in (f"{n}_persistent" for n in TRAIN_ROUTED):
             rec["flow_launches"] = flow_times["bfloat16"]["routes_per_step"][
                 rec["name"].removesuffix("_persistent")]["persistent"]
+            rec["flow_launches_run"] = "one bfloat16 flow train step (B=2, 2 s, 384 x 6)"
+        elif rec["name"] == "lstm_bwd_dw":
+            rec["flow_launches"] = flow_times["bfloat16"]["dw_launches_per_step"]
             rec["flow_launches_run"] = "one bfloat16 flow train step (B=2, 2 s, 384 x 6)"
     print("[times] " + json.dumps({"ab_arms": ab, "flow": flow_times}))
     print(f"[done] {time.perf_counter() - t0:.1f} s")

@@ -1,0 +1,236 @@
+"""K5p and K7p, the persistent weight-stationary routes of the training
+backwards K5 and K7, and their dW kernel, on the CPU: the route rule, the
+backward planner, the packed W_hh^T rows, the plain sliced reverse walks
+that read only the packed slices and sum the dh product in the kernel's K
+split (eight warps, K tiles) and dW in its split of R T, and the planted
+stale-dgates fault that the card checks must see.  The kernels themselves
+(csrc/lstm_persistent.cu) are held against the same plain versions on the
+card (tests/test_torch_cuda_kernels.py and chip_smoke.py).
+
+Tolerances: the sliced walks against the unsliced plain versions at every
+step, padded ones included: dx_proj max abs 1e-6 in float32 (the same
+products summed in another order) and 5e-2 in bfloat16
+(scripts/check_pallas_tpu.py:29-34; a sum in another order can move a
+rounding of the dgates, which the walk then carries); dW relative (max|d| /
+max|ref|) at the same limits, as it sums R T products.  Against the Pallas
+VJPs in interpret mode, float32, every step: 1e-5, dW relative (JAX on the
+CPU cannot run a bf16 x bf16 -> f32 dot)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from urgent2026_challenge_track1_tpu.ops import pallas_lstm as jpl
+from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
+from urgent2026_challenge_track1_tpu_torch.ops import persistent_checks as PC
+
+torch.set_num_threads(1)
+SMS = 132  # one H100
+# (R, H) where K5 and K7 run in a bf16 train step: the disc time and band
+# paths (B = 4, 2 s at 48 kHz), the flow model's (B = 2, H = 768); an odd H
+TRAIN_SHAPES = [(136, 392), (804, 392), (96, 768), (502, 768), (20, 197)]
+# the plans those shapes get on 132 SMs: (S, G, U, rows, chunk, kt, dc_in_smem)
+PINNED = {(136, 392): (33, 3, 12, 46, 48, 400, True),
+          (804, 392): (10, 13, 40, 62, 16, 400, True),
+          (96, 768): (64, 2, 12, 48, 48, 448, True),
+          (502, 768): (32, 4, 24, 126, 32, 288, False),
+          (20, 197): (50, 1, 4, 20, 32, 400, True)}
+# (R, T, H, sms, shared-memory bytes): SM counts small enough that the
+# planner splits both the rows (G > 1) and the units (S > 1); the last, in
+# less shared memory, stages K in two tiles, walks five chunks a step and
+# keeps dc in global memory
+SLICED = [(70, 6, 40, 24, K.SMEM_LIMIT), (130, 5, 17, 60, K.SMEM_LIMIT),
+          (150, 4, 24, 6, K.SMEM_LIMIT), (150, 5, 136, 12, 70000)]
+
+
+def _inputs(R, T, H, dtype, seed):
+    """Residuals of the plain training forward (both directions and the
+    masked one), dout and lengths with 1 and T."""
+    rng = np.random.default_rng(seed)
+    xp = torch.from_numpy((0.5 * rng.standard_normal((R, T, 4 * H))).astype(np.float32))
+    w_hh = torch.from_numpy((H ** -0.5 * rng.standard_normal((H, 4 * H))).astype(np.float32))
+    dout = torch.from_numpy(rng.standard_normal((R, T, H)).astype(np.float32))
+    lengths = rng.integers(1, T + 1, R).astype(np.int32)
+    lengths[0], lengths[-1] = 1, T
+    return xp.to(dtype), w_hh.to(dtype), dout.to(dtype), torch.from_numpy(lengths)
+
+
+def _rel(got, ref):
+    got, ref = got.double(), ref.double()
+    return float((got - ref).abs().max() / (ref.abs().max() + 1e-12))
+
+
+def _abs(got, ref):
+    return float((got.float() - ref.float()).abs().max())
+
+
+def test_backward_route_rule():
+    """K5 and K7 take ``backward_route``: bf16 with a backward plan takes
+    the persistent route, float32 and shapes without a plan the walk."""
+    for R, H in TRAIN_SHAPES:
+        assert K.backward_route(torch.float32, R, H, SMS) is None
+        plan = K.backward_route(torch.bfloat16, R, H, SMS)
+        assert plan == K.plan_backward(R, H, SMS) and plan.ctas <= SMS
+    assert K.backward_route(torch.bfloat16, 10, 8000, SMS) is None
+
+
+@pytest.mark.parametrize("R,H", TRAIN_SHAPES, ids=lambda v: str(v))
+def test_backward_planner_at_the_train_shapes(R, H):
+    """Each plan covers the rows and the units exactly once, holds its
+    limits (chunk, accumulators, cells, a K tile of 16s) and fits the 227 KB
+    of shared memory it reckons with the kernel's formula; pinned, so that
+    a change of the planner shows."""
+    plan = K.plan_backward(R, H, SMS)
+    assert plan.G * plan.S <= SMS
+    assert (plan.S - 1) * plan.U < H <= plan.S * plan.U and plan.U % 4 == 0
+    assert (plan.G - 1) * plan.rows < R <= plan.G * plan.rows
+    assert plan.chunk % 16 == 0 and plan.chunk <= K.MAX_CHUNK
+    assert plan.chunk // 16 * plan.up // 8 <= K.MAX_ACC_BLOCKS
+    assert plan.chunk * plan.U <= K.MAX_CELLS
+    assert plan.kt % 16 == 0 and plan.kt >= min(K.BWD_MIN_TILE, plan.kp)
+    assert plan.smem == K.backward_smem(H, plan.U, plan.chunk, plan.kt, plan.rows,
+                                        plan.dc_in_smem) <= K.SMEM_LIMIT
+    assert (plan.S, plan.G, plan.U, plan.rows, plan.chunk, plan.kt,
+            plan.dc_in_smem) == PINNED[R, H]
+    assert 1 <= plan.dw_split <= K.DW_MAX_SPLIT
+
+
+def test_pack_backward_weights_is_the_rows_of_w_hh_t():
+    """Slice s of the packed weights holds rows [s U, s U + U) of W_hh^T
+    with zero rows past H and past U, and zero columns past 4H."""
+    R, H = 20, 197
+    plan = K.plan_backward(R, H, SMS)
+    w_hh = torch.randn(H, 4 * H)
+    w = K.pack_backward_weights(w_hh, plan)
+    assert w.shape == (plan.S, plan.up, plan.kp) and w.is_contiguous()
+    for s in range(plan.S):
+        for j in range(plan.up):
+            u = s * plan.U + j
+            want = w_hh[u] if j < plan.U and u < H else torch.zeros(4 * H)
+            assert torch.equal(w[s, j, :4 * H], want)
+    assert not w[..., 4 * H:].any()
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6), (torch.bfloat16, 5e-2)],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("R,T,H,sms,smem", SLICED, ids=lambda v: str(v))
+def test_sliced_backwards_match_plain_at_every_step(R, T, H, sms, smem, dtype, tol):
+    plan = K.plan_backward(R, H, sms, smem)
+    assert plan.S > 1 and plan.G > 1
+    xp, w_hh, dout, lengths = _inputs(R, T, H, dtype, R + T + H)
+    w = K.pack_backward_weights(w_hh, plan)
+    for reverse in (False, True):
+        res = K.lstm_train_fwd_plain(xp, w_hh, reverse)
+        dxp, dw = K.lstm_train_bwd_sliced_plain(*res, dout, w, plan, reverse)
+        ref_dxp, ref_dw = K._backward_plain(*res, dout, w_hh.float(), reverse)
+        assert dxp.shape == (R, T, 4 * H) and dxp.dtype == dtype
+        assert dw.shape == (H, 4 * H) and dw.dtype == torch.float32
+        assert _abs(dxp, ref_dxp) < tol and _rel(dw, ref_dw) < tol
+    res = K.lstm_revmasked_train_fwd_plain(xp, w_hh, lengths)
+    dxp, dw = K.lstm_revmasked_bwd_sliced_plain(*res, lengths, dout, w, plan)
+    ref_dxp, ref_dw = K._backward_plain(*res, dout, w_hh.float(), True, lengths)
+    assert _abs(dxp, ref_dxp) < tol and _rel(dw, ref_dw) < tol
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_sliced_backward_matches_pallas(reverse):
+    """K5p's plain version on the Pallas forward's residuals against the
+    Pallas backward (``_lstm_train_bwd``, interpret mode) at every step,
+    dW included."""
+    R, T, H = 70, 6, 40
+    plan = K.plan_backward(R, H, 24)
+    xp, w_hh, dout, _ = _inputs(R, T, H, torch.float32, 12)
+    res = jpl._train_forward(jnp.asarray(xp.numpy()), jnp.asarray(w_hh.numpy()), reverse, 0,
+                             True)
+    ref_dxp, ref_dw = jpl._lstm_train_bwd(reverse, 0, True, (*res, jnp.asarray(w_hh.numpy())),
+                                          jnp.asarray(dout.numpy()))
+    h, gates, c = (torch.from_numpy(np.swapaxes(np.asarray(r), 0, 1).copy()) for r in res)
+    dxp, dw = K.lstm_train_bwd_sliced_plain(h, gates, c, dout,
+                                            K.pack_backward_weights(w_hh, plan), plan, reverse)
+    np.testing.assert_allclose(dxp.numpy(), np.asarray(ref_dxp), atol=1e-5, rtol=0)
+    assert _rel(dw, torch.from_numpy(np.array(ref_dw))) < 1e-5
+
+
+def test_sliced_revmasked_backward_matches_pallas():
+    """K7p's plain version against the Pallas masked backward
+    (``_revmasked_bwd``, interpret mode) at every step, padded ones
+    included, dW included."""
+    R, T, H = 70, 6, 40
+    plan = K.plan_backward(R, H, 24)
+    xp, w_hh, dout, lengths = _inputs(R, T, H, torch.float32, 13)
+    jl = jnp.asarray(lengths.numpy())
+    res = jpl._train_forward_revmasked(jnp.asarray(xp.numpy()), jnp.asarray(w_hh.numpy()), jl,
+                                       0, True)
+    ref_dxp, ref_dw, _ = jpl._revmasked_bwd(0, True, (*res, jnp.asarray(w_hh.numpy()), jl),
+                                            jnp.asarray(dout.numpy()))
+    h, gates, c = (torch.from_numpy(np.swapaxes(np.asarray(r), 0, 1).copy()) for r in res)
+    dxp, dw = K.lstm_revmasked_bwd_sliced_plain(h, gates, c, lengths, dout,
+                                                K.pack_backward_weights(w_hh, plan), plan)
+    np.testing.assert_allclose(dxp.numpy(), np.asarray(ref_dxp), atol=1e-5, rtol=0)
+    assert _rel(dw, torch.from_numpy(np.array(ref_dw))) < 1e-5
+
+
+def test_planted_stale_dg_exceeds_the_limit_only_after_the_first_step():
+    """The backwards' barrier fault: the plain backward fed the dgates one
+    step stale returns the plain dx_proj at the first visited step and
+    leaves it by more than ``ulp_limit`` of it over the walk (bfloat16), for
+    K5 in both directions and K7."""
+    R, T, H = 21, 9, 24
+    xp, w_hh, dout, lengths = _inputs(R, T, H, torch.bfloat16, 14)
+    lengths[0] = T
+    for reverse in (False, True):
+        res = K.lstm_train_fwd_plain(xp, w_hh, reverse)
+        ref = K.lstm_train_bwd_plain(*res, dout, w_hh, reverse)
+        stale = PC.lstm_train_bwd_stale_dg(*res, dout, w_hh, reverse)
+        first = 0 if reverse else T - 1
+        assert torch.equal(stale[0][:, first], ref[0][:, first])
+        assert _abs(stale[0], ref[0]) >= PC.ulp_limit(ref[0])
+    res = K.lstm_revmasked_train_fwd_plain(xp, w_hh, lengths)
+    ref = K.lstm_revmasked_bwd_plain(*res, lengths, dout, w_hh)
+    stale = PC.lstm_train_bwd_stale_dg(*res, dout, w_hh, True, lengths)
+    assert torch.equal(stale[0][:, 0], ref[0][:, 0])
+    assert _abs(stale[0], ref[0]) >= PC.ulp_limit(ref[0])
+
+
+def test_cpu_takes_the_plain_versions_without_counting():
+    R, T, H = 37, 4, 24
+    xp, w_hh, dout, lengths = _inputs(R, T, H, torch.bfloat16, 15)
+    K.reset_launch_counts()
+    for reverse in (False, True):
+        res = K.lstm_train_fwd_plain(xp, w_hh, reverse)
+        ref = K.lstm_train_bwd_plain(*res, dout, w_hh, reverse)
+        for fn in (K.lstm_train_bwd, K.lstm_train_bwd_walk, K.lstm_train_bwd_persistent):
+            assert all(torch.equal(g, r) for g, r in zip(fn(*res, dout, w_hh, reverse), ref))
+        hp = K._h_prev(res[0], reverse).reshape(R * T, H)
+        assert torch.equal(K.lstm_bwd_dw(res[0], ref[0], reverse),
+                           hp.t() @ ref[0].float().reshape(R * T, 4 * H))
+    res = K.lstm_revmasked_train_fwd_plain(xp, w_hh, lengths)
+    ref = K.lstm_revmasked_bwd_plain(*res, lengths, dout, w_hh)
+    for fn in (K.lstm_revmasked_bwd, K.lstm_revmasked_bwd_walk,
+               K.lstm_revmasked_bwd_persistent):
+        assert all(torch.equal(g, r) for g, r in zip(fn(*res, lengths, dout, w_hh), ref))
+    assert set(K.launch_counts().values()) == {0} and K.lstm_bwd_dw.launches == 0
+    for name in ("lstm_train_bwd", "lstm_revmasked_bwd"):
+        assert K.route_counts(name) == {"persistent": 0, "walk": 0}
+
+
+@pytest.mark.parametrize("masked,group", [
+    (0, "K5p lstm_train_bwd_persistent"), (1, "K7p lstm_revmasked_bwd_persistent")])
+def test_profiler_groups_each_backward_instance(masked, group):
+    """profile_forward files bwd_persistent_kernel<MASKED> under its own
+    kernel, and the dW kernel and its part sum under theirs, from the
+    mangled name and the demangled one; the walks' names keep their
+    groups."""
+    from urgent2026_challenge_track1_tpu_torch.profile_forward import _group
+
+    mangled = f"_ZN12_GLOBAL__N_121bwd_persistent_kernelILb{masked}EEEvNS_7BwdArgsE"
+    demangled = ("(anonymous namespace)::bwd_persistent_kernel<"
+                 + ("true" if masked else "false") + ">((anonymous namespace)::BwdArgs)")
+    assert _group(mangled) == _group(demangled) == group
+    dw = "K5p/K7p dW (dw_tc_kernel)"
+    assert _group("_ZN12_GLOBAL__N_112dw_tc_kernelENS_6DwArgsE") == dw
+    assert _group("(anonymous namespace)::dw_tc_kernel((anonymous namespace)::DwArgs)") == dw
+    assert _group("_ZN12_GLOBAL__N_113dw_sum_kernelEPKfPfmi") == dw
+    assert _group("(anonymous namespace)::dw_kernel<__nv_bfloat16, true>("
+                  "(anonymous namespace)::Back<__nv_bfloat16>)") == "K7 lstm_revmasked_bwd (dW)"

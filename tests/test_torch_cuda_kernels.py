@@ -12,7 +12,7 @@ import torch
 
 from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm
 from urgent2026_challenge_track1_tpu_torch.ops.persistent_checks import (
-    fusedin_bilstm_stale_h, lstm_scan_stale_h, ulp_limit)
+    fusedin_bilstm_stale_h, lstm_scan_stale_h, lstm_train_bwd_stale_dg, ulp_limit)
 
 torch.set_num_threads(1)
 R, T, N, H = 13, 11, 40, 72  # H not a multiple of 32, R not of any row tile
@@ -362,22 +362,143 @@ def test_train_persistent_refuses_a_grid_the_card_cannot_hold(dev):
     assert max(_err(g, r) / ulp_limit(r) for g, r in zip(got, ref)) < 1
 
 
+# --- K5p and K7p: the persistent routes of K5 and K7 (bfloat16) -----------
+
+
+def _bwd_case(dev, shape, seed):
+    """x_proj, W_hh^T, lengths (with 1 and T) and dout at one shape."""
+    xp, wh, lengths = _scan_inputs(dev, *shape, seed=seed)
+    return xp, wh, lengths, _t(np.random.default_rng(seed + 1), dev, torch.bfloat16, *shape)
+
+
+def _masked_case(dev, shape, seed):
+    """K6's plain residuals on the card, dout zero past each length, W_hh^T
+    and the lengths."""
+    xp, wh, lengths, dout = _bwd_case(dev, shape, seed)
+    valid = torch.arange(shape[1], device=dev)[None, :] < lengths[:, None]
+    return (cuda_lstm.lstm_revmasked_train_fwd_plain(xp, wh, lengths), dout * valid[..., None],
+            wh, lengths)
+
+
+def _hold_backward(got, ref, stale, h, reverse, lengths=None):
+    """dx_proj within 4 bf16 ulps of the plain version's at every step, a
+    limit that the stale-dgates fault exceeds; dW of the dW kernel alone (f32)
+    on the kernel's own dx_proj within 1e-4 |h_prev|^T |dx_proj| of their
+    float64 product, elementwise; the routed dW its rounding, within bf16's
+    tolerance of the plain dW."""
+    dxp, dw = got
+    limit = ulp_limit(ref[0])
+    assert dxp.dtype == torch.bfloat16 and dxp.shape == ref[0].shape
+    assert _err(dxp, ref[0]) < limit
+    assert _err(stale[0], ref[0]) >= limit
+    dw32 = cuda_lstm.lstm_bwd_dw(h, dxp, reverse, lengths)
+    hp = cuda_lstm._h_prev(h, reverse, lengths).double().reshape(-1, h.shape[-1])
+    d = dxp.double().reshape(-1, dxp.shape[-1])
+    assert bool(((dw32.double() - hp.t() @ d).abs() <= 1e-4 * (hp.abs().t() @ d.abs())).all())
+    assert torch.equal(dw, dw32.to(dw.dtype))
+    assert _rel(dw, ref[1]) < TOLS[torch.bfloat16]
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("shape", TRAIN_SHAPES, ids=TRAIN_IDS)
+def test_train_bwd_persistent_matches_plain(dev, shape, reverse):
+    """K5p and the dW kernel against the plain version at every step."""
+    xp, wh, _, dout = _bwd_case(dev, shape, 30)
+    res = cuda_lstm.lstm_train_fwd_plain(xp, wh, reverse)
+    cuda_lstm.reset_launch_counts()
+    got = cuda_lstm.lstm_train_bwd(*res, dout, wh, reverse)
+    assert cuda_lstm.route_counts("lstm_train_bwd") == {"persistent": 1, "walk": 0}
+    assert cuda_lstm.lstm_bwd_dw.launches == 1
+    ref = cuda_lstm.lstm_train_bwd_plain(*res, dout, wh, reverse)
+    _hold_backward(got, ref, lstm_train_bwd_stale_dg(*res, dout, wh, reverse), res[0], reverse)
+
+
+@pytest.mark.parametrize("shape", MASKED_SHAPES, ids=MASKED_IDS)
+def test_revmasked_bwd_persistent_matches_plain_at_every_step(dev, shape):
+    """K7p and the dW kernel against the plain version at every step, padded
+    ones included."""
+    res, dout, wh, lengths = _masked_case(dev, shape, 31)
+    cuda_lstm.reset_launch_counts()
+    got = cuda_lstm.lstm_revmasked_bwd(*res, lengths, dout, wh)
+    assert cuda_lstm.route_counts("lstm_revmasked_bwd") == {"persistent": 1, "walk": 0}
+    ref = cuda_lstm.lstm_revmasked_bwd_plain(*res, lengths, dout, wh)
+    _hold_backward(got, ref, lstm_train_bwd_stale_dg(*res, dout, wh, True, lengths), res[0],
+                   True, lengths)
+
+
+def test_bwd_persistent_is_deterministic(dev):
+    """Two launches of K5p and of K7p (with the dW kernel's split sums) are
+    bitwise equal."""
+    res, dout, wh, lengths = _masked_case(dev, (136, 201, 392), 32)
+    for run in (lambda: cuda_lstm.lstm_train_bwd_persistent(*res, dout, wh, False),
+                lambda: cuda_lstm.lstm_train_bwd_persistent(*res, dout, wh, True),
+                lambda: cuda_lstm.lstm_revmasked_bwd_persistent(*res, lengths, dout, wh)):
+        a, b = run(), run()
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_bwd_route_follows_the_dtype(dev):
+    """float32 takes the walks, bfloat16 K5p/K7p; each counts as a K5 or K7
+    launch; the persistent wrappers and the dW kernel refuse float32."""
+    res, dout, wh, lengths = _masked_case(dev, (R, T, H), 33)
+    f32 = [t.float() for t in res]
+    cuda_lstm.reset_launch_counts()
+    cuda_lstm.lstm_train_bwd(*f32, dout.float(), wh.float())
+    cuda_lstm.lstm_revmasked_bwd(*f32, lengths, dout.float(), wh.float())
+    cuda_lstm.lstm_train_bwd(*res, dout, wh)
+    cuda_lstm.lstm_revmasked_bwd(*res, lengths, dout, wh)
+    for name in ("lstm_train_bwd", "lstm_revmasked_bwd"):
+        assert cuda_lstm.route_counts(name) == {"persistent": 1, "walk": 1}
+        assert cuda_lstm.launch_counts()[name] == 2
+    assert cuda_lstm.lstm_bwd_dw.launches == 2
+    with pytest.raises(TypeError):
+        cuda_lstm.lstm_train_bwd_persistent(*f32, dout.float(), wh.float())
+    with pytest.raises(TypeError):
+        cuda_lstm.lstm_revmasked_bwd_persistent(*f32, lengths, dout.float(), wh.float())
+    with pytest.raises(TypeError):
+        cuda_lstm.lstm_bwd_dw(f32[0], f32[1])
+
+
+def test_bwd_persistent_refuses_a_grid_the_card_cannot_hold(dev):
+    """A K5p/K7p plan of more CTAs than the card holds resident is refused
+    at launch instead of hanging in the barrier; the next launch runs."""
+    import dataclasses
+
+    res, dout, wh, lengths = _masked_case(dev, (400, 3, 72), 34)
+    plan = cuda_lstm.plan_backward(400, 72, 132)
+    big = dataclasses.replace(plan, G=100, rows=4, S=18, U=4)
+    assert big.ctas > torch.cuda.get_device_properties(dev).multi_processor_count
+    cuda_lstm.reset_launch_counts()
+    with pytest.raises(RuntimeError):
+        cuda_lstm.lstm_train_bwd_persistent(*res, dout, wh, False, big)
+    with pytest.raises(RuntimeError):
+        cuda_lstm.lstm_revmasked_bwd_persistent(*res, lengths, dout, wh, big)
+    torch.cuda.synchronize()
+    assert cuda_lstm.route_counts("lstm_train_bwd") == {"persistent": 0, "walk": 0}
+    assert cuda_lstm.route_counts("lstm_revmasked_bwd") == {"persistent": 0, "walk": 0}
+    got = cuda_lstm.lstm_revmasked_bwd_persistent(*res, lengths, dout, wh)
+    ref = cuda_lstm.lstm_revmasked_bwd_plain(*res, lengths, dout, wh)
+    assert _err(got[0], ref[0]) < ulp_limit(ref[0])
+
+
 # --- the walks of K4-K7 --------------------------------------------------
 
 
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_train_fwd_bwd_match_plain(dev, dtype, reverse, rows):
-    """K4's walk (h, gates, c) at every row tile (bfloat16 takes K4p by
-    default) and K5 (dxp, dW) against their plain versions; K5 runs on the
-    plain forward's residuals so that each kernel is held alone."""
+    """K4's walk (h, gates, c) and K5's walk (dxp, dW) at every row tile
+    (bfloat16 takes K4p and K5p by default) against their plain versions;
+    K5 runs on the plain forward's residuals so that each kernel is held
+    alone."""
     rng = np.random.default_rng(6)
     xp, wh, dout = _train_inputs(rng, dev, dtype)
     got = cuda_lstm.lstm_train_fwd_walk(xp, wh, reverse)
     ref = cuda_lstm.lstm_train_fwd_plain(xp, wh, reverse)
     for g, r in zip(got, ref):
         assert g.dtype == dtype and _err(g, r) < TOLS[dtype]
-    dxp, dw = cuda_lstm.lstm_train_bwd(*ref, dout, wh, reverse)
+    dxp, dw = cuda_lstm.lstm_train_bwd_walk(*ref, dout, wh, reverse)
     rdxp, rdw = cuda_lstm.lstm_train_bwd_plain(*ref, dout, wh, reverse)
     grad_tol = 1e-3 if dtype == torch.float32 else TOLS[dtype]
     assert dxp.dtype == dtype and dw.dtype == dtype
@@ -386,7 +507,8 @@ def test_train_fwd_bwd_match_plain(dev, dtype, reverse, rows):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_revmasked_train_fwd_bwd_match_plain(dev, dtype, rows):
-    """K6's walk at every row tile (bfloat16 takes K6p by default) and K7."""
+    """K6's walk and K7's walk at every row tile (bfloat16 takes K6p and
+    K7p by default)."""
     rng = np.random.default_rng(7)
     xp, wh, dout = _train_inputs(rng, dev, dtype)
     lengths = _lengths(dev)
@@ -396,7 +518,7 @@ def test_revmasked_train_fwd_bwd_match_plain(dev, dtype, rows):
     ref = cuda_lstm.lstm_revmasked_train_fwd_plain(xp, wh, lengths)
     for g, r in zip(got, ref):
         assert _err(g[valid], r[valid]) < TOLS[dtype]
-    dxp, dw = cuda_lstm.lstm_revmasked_bwd(*ref, lengths, dout, wh)
+    dxp, dw = cuda_lstm.lstm_revmasked_bwd_walk(*ref, lengths, dout, wh)
     rdxp, rdw = cuda_lstm.lstm_revmasked_bwd_plain(*ref, lengths, dout, wh)
     grad_tol = 1e-3 if dtype == torch.float32 else TOLS[dtype]
     assert _rel(dxp, rdxp) < grad_tol and _rel(dw, rdw) < grad_tol
@@ -563,9 +685,9 @@ def test_fused_bidir_matches_plain(dev, dtype, rows):
 @pytest.mark.parametrize("hid", [H, HW])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_bidir_equals_per_direction_bitwise(dev, dtype, hid):
-    """K9 = K4's walk forward + reverse and K10 = K5 per direction, bit for
-    bit (the same device code), at the wrapper's own row tiles (bfloat16 K4
-    takes K4p, another kernel)."""
+    """K9 = K4's walk forward + reverse and K10 = K5's walk per direction,
+    bit for bit (the same device code), at the wrapper's own row tiles
+    (bfloat16 K4 and K5 take K4p and K5p, other kernels)."""
     rng = np.random.default_rng(13)
     xf, xb, wf, wb, df, db = _two_directions(rng, dev, dtype, hid)
     fused = cuda_lstm.lstm_train_fwd2(xf, xb, wf, wb)
@@ -574,8 +696,8 @@ def test_fused_bidir_equals_per_direction_bitwise(dev, dtype, hid):
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(fused, single))
     fused = cuda_lstm.lstm_train_bwd2(single[:3], single[3:], df, db, wf, wb)
-    single = (*cuda_lstm.lstm_train_bwd(*single[:3], df, wf, False),
-              *cuda_lstm.lstm_train_bwd(*single[3:], db, wb, True))
+    single = (*cuda_lstm.lstm_train_bwd_walk(*single[:3], df, wf, False),
+              *cuda_lstm.lstm_train_bwd_walk(*single[3:], db, wb, True))
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(fused, single))
 

@@ -1,7 +1,9 @@
-// K1p: the fused-input bidirectional LSTM, and K2p / K3p / K4p / K6p: one
-// direction over a hoisted input projection, as persistent, weight-stationary
-// tensor-core recurrences for NVIDIA Hopper (sm_90a), bound with ctypes.  K1p
-// first; K2p-K6p (scan_persistent_kernel) at the end of the namespace.
+// K1p: the fused-input bidirectional LSTM, K2p / K3p / K4p / K6p: one
+// direction over a hoisted input projection, and K5p / K7p: the training
+// backwards, as persistent, weight-stationary tensor-core recurrences for
+// NVIDIA Hopper (sm_90a), bound with ctypes.  K1p first; K2p-K6p
+// (scan_persistent_kernel) after it; K5p/K7p (bwd_persistent_kernel) and
+// their dW kernel (dw_tc_kernel) at the end of the namespace.
 //
 // Replaces urgent2026_challenge_track1_tpu/ops/pallas_lstm.py:
 // _fusedin_forward (body _fusedin_step) for bfloat16 inputs, beside K1's walk
@@ -56,6 +58,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -215,8 +219,9 @@ __device__ __forceinline__ void copy_rows(bf16* dst, int ldd, const bf16* src, s
 
 // Stage rows x n of src into dst and zero its columns [n, npad) and the
 // rows ``mask`` drops; returns when this thread's copies (and every other
-// asynchronous copy it issued) have landed (a __syncthreads must follow).
-template <bool L2_ONLY>
+// asynchronous copy it issued) have landed (a __syncthreads must follow),
+// or, !WAIT, with the copies in flight (the caller commits and waits).
+template <bool L2_ONLY, bool WAIT = true>
 __device__ __forceinline__ void stage(bf16* dst, int ldd, const bf16* src, size_t lds, int rows,
                                       int n, int npad, RowMask mask = {nullptr, 0}) {
   const uintptr_t mis = reinterpret_cast<uintptr_t>(src) | (lds * sizeof(bf16)) |
@@ -235,7 +240,7 @@ __device__ __forceinline__ void stage(bf16* dst, int ldd, const bf16* src, size_
     const int r = i / pad;
     dst[r * ldd + n + (i - r * pad)] = __float2bfloat16(0.f);
   }
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  if constexpr (WAIT) asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -789,6 +794,563 @@ __global__ void __launch_bounds__(kThreads, 1) scan_persistent_kernel(const Scan
   }
 }
 
+// ---------------------------------------------------------------------------
+// K5p and K7p: the training backwards as persistent, weight-stationary
+// tensor-core reverse walks, and their dW kernel.
+//
+// Replace urgent2026_challenge_track1_tpu/ops/pallas_lstm.py: _lstm_train_bwd
+// (body _train_bwd_body; K5, the backward of K4, walked in the reverse of the
+// scan's order) and _revmasked_bwd (body _train_bwd_revmasked_body; K7, the
+// backward of K6: t = 0 .. T - 1, the carried dh and dc multiplied by m_t =
+// (t < lengths[r])) for bfloat16 residuals, beside the walks in
+// lstm_kernels.cu (backward_kernel, dw_kernel), which keep float32 and every
+// shape without a plan.  Each step computes, for the state that entered step
+// t from tp (the scan's previous step),
+//   dh = dout_t + dh_s (m_t),  dc = dc_s (m_t) + dh o (1 - tanh^2 c)
+//   dgates = [dc g i (1 - i), dc c_prev f (1 - f), dc i (1 - g^2),
+//             dh tanh(c) o (1 - o)],  c_prev = c[tp] (m_tp)
+//   dx_proj_t = round_bf16(dgates),  dh_s = dx_proj_t W_hh (4H x H, f32 sums),
+//   dc_s = dc f
+// and after the walk dW_hh^T = sum over (r, t) of h_prev^T dx_proj_t (f32),
+// h_prev = h[tp] (zero where tp is outside [0, T) or, K7, padded).
+//
+// What bounded the walk: every block re-read all of W_hh (1.2 MB at H = 392,
+// 4.7 MB at H = 768) from L2 on every step for at most 8 rows on CUDA cores,
+// and dw_kernel summed the dW product (34-114 GFLOP of bf16 work at the
+// train shapes) in an f32 FMA tile loop on CUDA cores.
+//
+// Design (ops/cuda_lstm.plan_backward picks the numbers):
+//   * one cooperative grid of G x S CTAs, one per SM; CTA (g, s) owns units
+//     [s U, min((s + 1) U, H)) for the rows of group g.  The cell backward of
+//     a unit needs only its own four gate columns, c_prev, dout, dh and dc,
+//     so dc stays with its owner (shared memory, or a global (R, H) f32
+//     buffer), as c does in K2p;
+//   * the CTA keeps rows [s U, s U + U) of W_hh^T (U x 4H bf16: the dh
+//     product's B operand in its N x K layout, packed by
+//     ops/cuda_lstm.pack_backward_weights) resident in shared memory;
+//   * the exchange buffer is dx_proj: the dgates rounded to bf16 are what
+//     the product multiplies.  A step waits on the group's counter, stages
+//     the group's rows of dx_proj[:, te, 0:4H] (te: the step visited before)
+//     with L2-only copies one K tile at a time, double-buffered, and
+//     multiplies them by the slice with mma.sync m16n8k16 (bf16, f32 sums).
+//     With U = 4-40 a chunk has 1-5 column blocks against 49-192 k16 steps,
+//     so K is split over the eight warps (k16 step j of a tile to warp
+//     j % 8) and the cell adds the eight partial sums in warp order: a
+//     launch is deterministic;
+//   * the cell's inputs of the next (step, chunk) (the CTA's 4U gate
+//     columns, c_prev and dout) are copied into the other half of a double
+//     buffer before the wait and land during it;
+//   * K7p (MASKED): t = 0 .. T - 1; the owner multiplies the product dh_s
+//     and dc by m_t and c_prev by m_{t+1}, as _train_bwd_revmasked_body
+//     does (m_t after the product, so non-finite dgates of a padded step
+//     give what JAX gives; staging zeros for those rows instead cost 20 %
+//     more at 136 x 201, PERF.md); dx_proj is written at every step, padded
+//     ones too.
+// What bounds it: T dependent steps, each at least one barrier round trip
+// through L2, and the staging of the group's 4H dgate columns from L2 each
+// step (4x K4p's exchange bytes for the same products).
+//
+// The dW kernel (dw_tc_kernel): one CTA per 128 x 128 tile of dW^T (H x 4H)
+// walks K = R T in 64-row stages (a three-stage cp.async ring) and sums on
+// the tensor cores (ldmatrix.trans of h_prev and dx_proj, mma.sync, f32);
+// its loader reads h with the scan's shift and K7's mask.  Where the tiles
+// leave the card's CTA slots idle, K is cut into up to four parts written to
+// a workspace and added in part order (dw_sum_kernel): deterministic.
+// ---------------------------------------------------------------------------
+
+constexpr int kBwdAccBlocks = 16;  // a warp's 16 x 8 accumulators: row blocks x column blocks
+
+// The partition of ops/cuda_lstm.BackwardPlan and its shared-memory layout
+// (the planner reckons the same bytes).
+struct BwdPlan {
+  int R, Tn, H;
+  int S, G, U, rows;  // rows: rows per group
+  int chunk;          // rows per chunk, a multiple of 16
+  int kt;             // K tile of the staged dgates, a multiple of 16
+  int dc_in_smem;
+  __host__ __device__ int kp() const { return (4 * H + 15) / 16 * 16; }
+  __host__ __device__ int up() const { return (U + 7) / 8 * 8; }
+  __host__ __device__ int ldk() const { return kp() + 8; }  // bf16: slice rows
+  __host__ __device__ int lda() const { return kt + 8; }    // bf16: staged dgates
+  __host__ __device__ int ldx() const { return 6 * U; }     // bf16: cell inputs
+  __host__ __device__ int ntiles() const { return (kp() + kt - 1) / kt; }
+  __host__ __device__ int nbuf() const { return ntiles() > 1 ? 2 : 1; }
+  // the slice (up x ldk bf16), the staged dgates (nbuf x chunk x lda bf16),
+  // the warps' partial dh (8 x chunk x up f32), the cell inputs (2 x chunk x
+  // 6U bf16: gates, c_prev, dout) and dc (rows x U f32) when it fits
+  __host__ __device__ size_t smem_bytes() const {
+    return 2 * (size_t)up() * ldk() + 2 * (size_t)nbuf() * chunk * lda() +
+           4 * (size_t)kWarps * chunk * up() + 2 * 2 * (size_t)chunk * ldx() +
+           (dc_in_smem ? 4 * (size_t)rows * U : 0);
+  }
+};
+
+struct BwdArgs {
+  const bf16* gates;   // (R, T, 4H) post-activation gates i, f, g, o
+  const bf16* c;       // (R, T, H) the unmasked c of each step
+  const bf16* dout;    // (R, T, H) incoming dh
+  const bf16* w;       // (S, up, kp) packed rows of W_hh^T
+  const int* lengths;  // (R,) K7p only
+  bf16* dxp;           // (R, T, 4H) dx_proj, the exchange buffer
+  float* dc_global;    // (R, H) when !dc_in_smem
+  int* counters;       // (G) zeros
+  int reverse;
+  BwdPlan p;
+};
+
+// A 16 x 8 bf16 block of an N x K row-major matrix in shared memory as the B
+// operand (its rows are B's columns): lanes 0-7 give the addresses of rows
+// n .. n + 7 at column k, lanes 8-15 at column k + 8.
+__device__ __forceinline__ void load_b_nk(unsigned (&b)[2], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(b[0]), "=r"(b[1])
+               : "r"(addr));
+}
+
+// A 16 x 16 bf16 block of the A operand from a K x M row-major matrix in
+// shared memory (A's transpose): lane l gives the address of row k + (l / 16)
+// 8 + l % 8, column m + (l / 8 % 2) 8.
+__device__ __forceinline__ void load_a_trans(unsigned (&a)[4], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr));
+}
+
+// rows x n bf16 of src (row stride lds) into dst (row stride ldd) in
+// asynchronous copies of BYTES; no wait.
+template <int BYTES>
+__device__ __forceinline__ void async_cols_v(bf16* dst, int ldd, const bf16* src, size_t lds,
+                                             int rows, int n) {
+  constexpr int E = BYTES / sizeof(bf16);
+  const int per_row = n / E;
+  for (int i = threadIdx.x; i < rows * per_row; i += kThreads) {
+    const int r = i / per_row;
+    const int v = i - r * per_row;
+    cp_async<BYTES, false>(dst + r * ldd + v * E, src + r * lds + v * E);
+  }
+}
+
+// The same with the widest copies every address allows (they land at the
+// caller's next wait), else plain 2-byte loads.
+__device__ __forceinline__ void async_cols(bf16* dst, int ldd, const bf16* src, size_t lds,
+                                           int rows, int n) {
+  const uintptr_t mis = reinterpret_cast<uintptr_t>(src) | smem_addr(dst) |
+                        (lds * sizeof(bf16)) | (ldd * sizeof(bf16)) | (n * sizeof(bf16));
+  if ((mis & 15) == 0) {
+    async_cols_v<16>(dst, ldd, src, lds, rows, n);
+  } else if ((mis & 7) == 0) {
+    async_cols_v<8>(dst, ldd, src, lds, rows, n);
+  } else if ((mis & 3) == 0) {
+    async_cols_v<4>(dst, ldd, src, lds, rows, n);
+  } else {
+    const unsigned short* in = reinterpret_cast<const unsigned short*>(src);
+    unsigned short* o = reinterpret_cast<unsigned short*>(dst);
+    for (int i = threadIdx.x; i < rows * n; i += kThreads) {
+      const int r = i / n;
+      const int k = i - r * n;
+      o[r * ldd + k] = __ldg(in + r * lds + k);
+    }
+  }
+}
+
+// acc[m * NB + j] += the staged dgates (row block m) times the slice (column
+// block j) over this warp's k16 steps of a tile, ``steps`` of them, 8 k16
+// steps apart; a_base / b_base: this lane's ldmatrix addresses at the warp's
+// first step.
+template <int MT, int NB>
+__device__ __forceinline__ void bwd_mma(float (&acc)[kBwdAccBlocks][4], unsigned a_base,
+                                        unsigned b_base, int steps, unsigned lda_bytes,
+                                        unsigned ldk_bytes) {
+  constexpr unsigned kStep = kWarps * 16 * sizeof(bf16);
+#pragma unroll 2
+  for (int i = 0; i < steps; ++i) {
+    unsigned a[MT][4], b[NB][2];
+#pragma unroll
+    for (int m = 0; m < MT; ++m) load_a(a[m], a_base + m * 16 * lda_bytes + i * kStep);
+#pragma unroll
+    for (int j = 0; j < NB; ++j) load_b_nk(b[j], b_base + j * 8 * ldk_bytes + i * kStep);
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+#pragma unroll
+      for (int j = 0; j < NB; ++j) mma_bf16(acc[m * NB + j], a[m], b[j]);
+    }
+  }
+}
+
+// The warp's accumulator blocks into its partial buffer (chunk x up f32; the
+// m16n8 layout: rows l / 4 and l / 4 + 8, columns 2 (l % 4) and + 1).
+template <int MT, int NB>
+__device__ __forceinline__ void bwd_put(const float (&acc)[kBwdAccBlocks][4], float* part,
+                                        int up, int lane) {
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      float* o = part + (m * 16 + lane / 4) * up + j * 8 + 2 * (lane % 4);
+      *reinterpret_cast<float2*>(o) = make_float2(acc[m * NB + j][0], acc[m * NB + j][1]);
+      *reinterpret_cast<float2*>(o + 8 * up) = make_float2(acc[m * NB + j][2], acc[m * NB + j][3]);
+    }
+  }
+}
+
+// acc += this warp's k16 steps (warp, warp + 8, ...) of one K tile: the
+// staged dgates a_s (chunk x kw, row stride lda) times the slice's columns
+// [k0, k0 + kw) (w_s, row stride ldk).
+__device__ __forceinline__ void bwd_tile(float (&acc)[kBwdAccBlocks][4], const bf16* a_s,
+                                         int lda, const bf16* w_s, int ldk, int k0, int kw,
+                                         int mt, int nb, int warp, int lane) {
+  const int steps = (kw / 16 - warp + kWarps - 1) / kWarps;
+  if (steps <= 0) return;
+  const unsigned a_base = smem_addr(a_s + (lane % 16) * lda + (lane / 16) * 8 + warp * 16);
+  const unsigned b_base =
+      smem_addr(w_s + (lane % 8) * ldk + k0 + (lane / 8 % 2) * 8 + warp * 16);
+  const unsigned lda_bytes = 2 * lda, ldk_bytes = 2 * ldk;
+#define BWD_MMA(M, N)                                                        \
+  case M * 16 + N:                                                           \
+    bwd_mma<M, N>(acc, a_base, b_base, steps, lda_bytes, ldk_bytes);         \
+    break;
+  switch (mt * 16 + nb) {
+    K1P_SHAPES(BWD_MMA)
+    default: break;
+  }
+#undef BWD_MMA
+}
+
+__device__ __forceinline__ void bwd_partials(const float (&acc)[kBwdAccBlocks][4], float* part,
+                                             int up, int mt, int nb, int lane) {
+#define BWD_PUT(M, N)                         \
+  case M * 16 + N:                            \
+    bwd_put<M, N>(acc, part, up, lane);       \
+    break;
+  switch (mt * 16 + nb) {
+    K1P_SHAPES(BWD_PUT)
+    default: break;
+  }
+#undef BWD_PUT
+}
+
+template <bool MASKED>
+__global__ void __launch_bounds__(kThreads, 1) bwd_persistent_kernel(const BwdArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const BwdPlan p = a.p;
+  const int s = blockIdx.x, g = blockIdx.y;
+  const int U = p.U, H = p.H, up = p.up(), kp = p.kp();
+  const int ldk = p.ldk(), lda = p.lda(), ldx = p.ldx();
+  const int G4 = 4 * H;
+  bf16* w_s = reinterpret_cast<bf16*>(smem);
+  bf16* a_s = w_s + (size_t)up * ldk;
+  float* part_s = reinterpret_cast<float*>(a_s + (size_t)p.nbuf() * p.chunk * lda);
+  bf16* x_s = reinterpret_cast<bf16*>(part_s + (size_t)kWarps * p.chunk * up);
+  float* dc_s = reinterpret_cast<float*>(x_s + 2 * (size_t)p.chunk * ldx);
+
+  const int r_begin = g * p.rows;
+  const int r_count = min(p.rows, p.R - r_begin);
+  const int u0 = s * U;
+  const int nu = min(U, H - u0);
+  int* counter = a.counters + g;
+  float* dcb = p.dc_in_smem ? dc_s : a.dc_global + (size_t)r_begin * H + u0;
+  const size_t dcld = p.dc_in_smem ? (size_t)U : (size_t)H;
+  const int* len = MASKED ? a.lengths + r_begin : nullptr;  // the group's lengths
+  const bool rev = MASKED || a.reverse;  // visits t = 0 .. T - 1
+  const size_t ldg4 = (size_t)p.Tn * G4, ldh = (size_t)p.Tn * H;
+
+  // the weight slice (16-byte vectors; kp is a multiple of 16), zero dgate
+  // buffers and a zero dc
+  const bf16* wg = a.w + (size_t)s * up * kp;
+  const int vpr = kp / 8;
+  for (int i = threadIdx.x; i < up * vpr; i += kThreads) {
+    const int n = i / vpr;
+    const int v = i - n * vpr;
+    *reinterpret_cast<uint4*>(w_s + (size_t)n * ldk + v * 8) =
+        __ldg(reinterpret_cast<const uint4*>(wg + (size_t)n * kp + v * 8));
+  }
+  for (int i = threadIdx.x; i < p.nbuf() * p.chunk * lda; i += kThreads)
+    a_s[i] = __float2bfloat16(0.f);
+  for (int i = threadIdx.x; i < r_count * U; i += kThreads) {
+    const int row = i / U;
+    const int ul = i - row * U;
+    if (ul < nu) dcb[row * dcld + ul] = 0.f;
+  }
+  // the cell's inputs of (step, chunk r0): the CTA's four gate columns,
+  // c_prev (none at the scan's first step) and dout, row r at r 6U
+  auto fetch = [&](bf16* dst, int step, int r0) {
+    const int t = rev ? step : p.Tn - 1 - step;
+    const int tp = rev ? t + 1 : t - 1;
+    const int n = min(p.chunk, r_count - r0);
+    const size_t rt = (size_t)(r_begin + r0) * p.Tn;
+    for (int q = 0; q < 4; ++q)
+      async_cols(dst + q * U, ldx, a.gates + (rt + t) * G4 + q * H + u0, ldg4, n, nu);
+    if (tp >= 0 && tp < p.Tn)
+      async_cols(dst + 4 * U, ldx, a.c + (rt + tp) * H + u0, ldh, n, nu);
+    async_cols(dst + 5 * U, ldx, a.dout + (rt + t) * H + u0, ldh, n, nu);
+  };
+  fetch(x_s, 0, 0);
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nb = up / 8;
+  const int ntiles = p.ntiles();
+  // this thread's cells (row, unit) of a full chunk, i = tid + j * kThreads;
+  // a row past the chunk's marks an empty slot
+  int cell_row[kCellSlots], cell_ul[kCellSlots];
+#pragma unroll
+  for (int j = 0; j < kCellSlots; ++j) {
+    const int i = threadIdx.x + j * kThreads;
+    cell_row[j] = i / U;
+    cell_ul[j] = i - cell_row[j] * U;
+    if (cell_ul[j] >= nu) cell_row[j] = p.chunk;
+  }
+  int buf = 0;
+  for (int step = 0; step < p.Tn; ++step) {
+    const int t = rev ? step : p.Tn - 1 - step;
+    const int te = rev ? t - 1 : t + 1;  // visited before: its dgates give dh
+    const int tp = rev ? t + 1 : t - 1;  // the scan's previous step
+    const bool has_prev = tp >= 0 && tp < p.Tn;
+    for (int r0 = 0; r0 < r_count; r0 += p.chunk) {
+      const int rows = min(p.chunk, r_count - r0);
+      const int mt = (rows + 15) / 16;
+      const size_t rg = (size_t)(r_begin + r0);
+      // the previous chunk's cells read x_s[buf ^ 1] and part_s
+      if (r0 > 0) __syncthreads();
+      // the next (step, chunk)'s cell inputs: in flight during the wait
+      const bool last_chunk = r0 + p.chunk >= r_count;
+      if (!last_chunk || step + 1 < p.Tn)
+        fetch(x_s + (size_t)(buf ^ 1) * p.chunk * ldx, last_chunk ? step + 1 : step,
+              last_chunk ? 0 : r0 + p.chunk);
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+      float dc_reg[kCellSlots];
+#pragma unroll
+      for (int j = 0; j < kCellSlots; ++j) {
+        dc_reg[j] =
+            cell_row[j] < rows ? dcb[(size_t)(r0 + cell_row[j]) * dcld + cell_ul[j]] : 0.f;
+      }
+      if (step > 0) {
+        if (r0 == 0) wait_for(counter, p.S * step);
+        // dh_s = dx_proj[:, te] W_hh, K tile by K tile (K7p's m_t is applied
+        // by the cell, after the product, as _train_bwd_revmasked_body does)
+        float acc[kBwdAccBlocks][4] = {};
+        const bf16* src = a.dxp + (rg * p.Tn + te) * G4;
+        auto stage_tile = [&](int k) {
+          const int k0 = k * p.kt;
+          const int kw = min(p.kt, kp - k0);
+          stage<true, false>(a_s + (size_t)(k & 1) * p.chunk * lda, lda, src + k0, ldg4, rows,
+                             max(0, min(kw, G4 - k0)), kw);
+          asm volatile("cp.async.commit_group;\n" ::: "memory");
+        };
+        stage_tile(0);
+        for (int k = 0; k < ntiles; ++k) {
+          if (k + 1 < ntiles) {
+            stage_tile(k + 1);
+            asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+          } else {
+            asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+          }
+          __syncthreads();
+          const int k0 = k * p.kt;
+          bwd_tile(acc, a_s + (size_t)(k & 1) * p.chunk * lda, lda, w_s, ldk, k0,
+                   min(p.kt, kp - k0), mt, nb, warp, lane);
+          if (k + 1 < ntiles) __syncthreads();  // the buffer of tile k + 2
+        }
+        bwd_partials(acc, part_s + (size_t)warp * p.chunk * up, up, mt, nb, lane);
+      }
+      asm volatile("cp.async.wait_all;\n" ::: "memory");  // the cell inputs have landed
+      __syncthreads();
+
+      const bf16* xs = x_s + (size_t)buf * p.chunk * ldx;
+#pragma unroll
+      for (int j = 0; j < kCellSlots; ++j) {
+        const int row = cell_row[j];
+        const int ul = cell_ul[j];
+        if (row >= rows) continue;
+        const bf16* x = xs + row * ldx + ul;
+        const float ig = __bfloat162float(x[0]);
+        const float fg = __bfloat162float(x[U]);
+        const float gg = __bfloat162float(x[2 * U]);
+        const float og = __bfloat162float(x[3 * U]);
+        float m = 1.f, mp = 1.f;
+        if constexpr (MASKED) {
+          const int lr = __ldg(len + r0 + row);
+          m = t < lr ? 1.f : 0.f;
+          mp = tp < lr ? 1.f : 0.f;
+        }
+        const float cp = has_prev ? __bfloat162float(x[4 * U]) * mp : 0.f;
+        float dhs = 0.f;  // the eight warps' partial sums, in warp order
+        if (step > 0) {
+          const float* pp = part_s + (size_t)row * up + ul;
+#pragma unroll
+          for (int w = 0; w < kWarps; ++w) dhs += pp[(size_t)w * p.chunk * up];
+        }
+        const float tc = tanhf(fg * cp + ig * gg);
+        const float dhv = __bfloat162float(x[5 * U]) + dhs * m;
+        const float dcv = dc_reg[j] * m + dhv * og * (1.f - tc * tc);
+        bf16* o = a.dxp + ((rg + row) * p.Tn + t) * G4 + u0 + ul;
+        o[0] = __float2bfloat16(dcv * gg * ig * (1.f - ig));
+        o[H] = __float2bfloat16(dcv * cp * fg * (1.f - fg));
+        o[2 * H] = __float2bfloat16(dcv * ig * (1.f - gg * gg));
+        o[3 * H] = __float2bfloat16(dhv * tc * og * (1.f - og));
+        dcb[(size_t)(r0 + row) * dcld + ul] = dcv * fg;
+      }
+      buf ^= 1;
+    }
+    // arrive: every dgate of this step is stored before the counter moves
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      __threadfence();
+      atomicAdd(counter, 1);
+    }
+  }
+}
+
+bool bad_bwd_plan(const BwdPlan& p) {
+  const int col_blocks = p.up() / 8;
+  return p.R <= 0 || p.Tn <= 0 || p.H <= 0 || p.S <= 0 || p.G <= 0 || p.U <= 0 ||
+         p.U % 4 != 0 || p.rows <= 0 || p.chunk <= 0 || p.chunk % 16 != 0 ||
+         p.chunk > kMaxChunk || p.kt <= 0 || p.kt % 16 != 0 || (long long)p.S * p.U < p.H ||
+         (long long)(p.S - 1) * p.U >= p.H || (long long)p.G * p.rows < p.R ||
+         (long long)(p.G - 1) * p.rows >= p.R || col_blocks > 8 ||
+         p.chunk / 16 * col_blocks > kBwdAccBlocks || p.chunk * p.U > kThreads * kCellSlots ||
+         p.smem_bytes() > (size_t)kSmemLimit;
+}
+
+constexpr int kDwTile = 128;          // output rows (units) and columns (gate columns) of a CTA
+constexpr int kDwK = 64;              // (row, step) pairs a stage holds
+constexpr int kDwStages = 3;
+constexpr int kDwLd = kDwTile + 8;    // bf16 row stride of a staged tile (an odd multiple of 16 B)
+constexpr size_t kDwSmem = 2 * (size_t)kDwStages * kDwK * kDwLd * sizeof(bf16);
+
+struct DwArgs {
+  const bf16* h;        // (R, T, H)
+  const bf16* dxp;      // (R, T, 4H)
+  const int* lengths;   // (R,) K7p's mask, or null
+  float* out;           // (split, H, 4H): dW^T, or its parts
+  int R, Tn, H, reverse;
+  int kc;               // (row, step) pairs of a part, a multiple of kDwK (R T < 2^31)
+};
+
+// One stage: rows [k0, k0 + kDwK) of K (flat (r, t)) of h_prev, units [m0,
+// m0 + 128), into As ([k][m]) and of dx_proj, columns [n0, n0 + 128), into
+// Bs ([k][n]); 16-byte L2-only asynchronous copies where rows and addresses
+// allow them (vec_h, vec_d; 2-8 % faster than copies through L1, which two
+// CTAs' shared memory leave small), else plain loads; zeros past K, H, 4H
+// and for h_prev rows outside the scan or padded.
+__device__ __forceinline__ void dw_load(bf16* As, bf16* Bs, const DwArgs& a, int k0, int k_end,
+                                        int m0, int n0, bool vec_h, bool vec_d) {
+  constexpr int kVec = kDwTile / 8;
+  const int G4 = 4 * a.H;
+  for (int i = threadIdx.x; i < kDwK * kVec; i += kThreads) {
+    const int kk = i / kVec;
+    const int v = i - kk * kVec;
+    const int n = k0 + kk;
+    const bf16* hs = nullptr;
+    const bf16* ds = nullptr;
+    if (n < k_end) {
+      const int r = n / a.Tn;
+      const int t = n - r * a.Tn;
+      const int tp = a.reverse ? t + 1 : t - 1;
+      if (tp >= 0 && tp < a.Tn && (a.lengths == nullptr || tp < __ldg(a.lengths + r)))
+        hs = a.h + ((size_t)r * a.Tn + tp) * a.H + m0 + v * 8;
+      ds = a.dxp + (size_t)n * G4 + n0 + v * 8;
+    }
+    const int m = m0 + v * 8, c = n0 + v * 8;
+    bf16* ha = As + kk * kDwLd + v * 8;
+    bf16* db = Bs + kk * kDwLd + v * 8;
+    if (hs != nullptr && vec_h && m + 8 <= a.H) {
+      cp_async<16, true>(ha, hs);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        ha[e] = (hs != nullptr && m + e < a.H) ? hs[e] : __float2bfloat16(0.f);
+    }
+    if (ds != nullptr && vec_d && c + 8 <= G4) {
+      cp_async<16, true>(db, ds);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        db[e] = (ds != nullptr && c + e < G4) ? ds[e] : __float2bfloat16(0.f);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 2) dw_tc_kernel(const DwArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* As = reinterpret_cast<bf16*>(smem);         // kDwStages x kDwK x kDwLd
+  bf16* Bs = As + (size_t)kDwStages * kDwK * kDwLd;  // the same
+  const int m0 = blockIdx.y * kDwTile, n0 = blockIdx.x * kDwTile;
+  const int G4 = 4 * a.H;
+  const int K = a.R * a.Tn;
+  const int k_begin = blockIdx.z * a.kc;
+  const int k_end = min(K, k_begin + a.kc);
+  const int nk = k_end > k_begin ? (k_end - k_begin + kDwK - 1) / kDwK : 0;
+  const bool vec_h = a.H % 8 == 0 && (reinterpret_cast<uintptr_t>(a.h) & 15) == 0;
+  const bool vec_d = G4 % 8 == 0 && (reinterpret_cast<uintptr_t>(a.dxp) & 15) == 0;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / 4 * 64, wn = warp % 4 * 32;  // the warp's 64 x 32 block
+  float acc[4][4][4] = {};
+
+  for (int st = 0; st < kDwStages - 1; ++st) {
+    if (st < nk)
+      dw_load(As + (size_t)st * kDwK * kDwLd, Bs + (size_t)st * kDwK * kDwLd, a,
+              k_begin + st * kDwK, k_end, m0, n0, vec_h, vec_d);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  for (int i = 0; i < nk; ++i) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kDwStages - 2) : "memory");
+    __syncthreads();
+    const bf16* A = As + (size_t)(i % kDwStages) * kDwK * kDwLd;
+    const bf16* B = Bs + (size_t)(i % kDwStages) * kDwK * kDwLd;
+#pragma unroll
+    for (int kk = 0; kk < kDwK; kk += 16) {
+      unsigned af[4][4], bfr[4][2];
+#pragma unroll
+      for (int mb = 0; mb < 4; ++mb)
+        load_a_trans(af[mb], smem_addr(A + (kk + lane / 16 * 8 + lane % 8) * kDwLd + wm +
+                                       mb * 16 + lane / 8 % 2 * 8));
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb)
+        load_b(bfr[nb], smem_addr(B + (kk + lane % 16) * kDwLd + wn + nb * 8));
+#pragma unroll
+      for (int mb = 0; mb < 4; ++mb) {
+#pragma unroll
+        for (int nb = 0; nb < 4; ++nb) mma_bf16(acc[mb][nb], af[mb], bfr[nb]);
+      }
+    }
+    const int next = i + kDwStages - 1;
+    if (next < nk)
+      dw_load(As + (size_t)(next % kDwStages) * kDwK * kDwLd,
+              Bs + (size_t)(next % kDwStages) * kDwK * kDwLd, a,
+              k_begin + next * kDwK, k_end, m0, n0, vec_h, vec_d);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  float* out = a.out + (size_t)blockIdx.z * a.H * G4;
+#pragma unroll
+  for (int mb = 0; mb < 4; ++mb) {
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb) {
+      const int col = n0 + wn + nb * 8 + 2 * (lane % 4);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = m0 + wm + mb * 16 + lane / 4 + 8 * half;
+        if (row >= a.H) continue;
+        if (col < G4) out[(size_t)row * G4 + col] = acc[mb][nb][2 * half];
+        if (col + 1 < G4) out[(size_t)row * G4 + col + 1] = acc[mb][nb][2 * half + 1];
+      }
+    }
+  }
+}
+
+// dw = the sum of the split parts of dW^T, in part order.
+__global__ void dw_sum_kernel(const float* __restrict__ parts, float* __restrict__ dw, size_t n,
+                              int split) {
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x) {
+    float v = parts[i];
+    for (int z = 1; z < split; ++z) v += parts[z * n + i];
+    dw[i] = v;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -909,6 +1471,93 @@ int lstm_scan_persistent(const void* xp, const void* w, const void* lengths, voi
                                     static_cast<cudaStream_t>(stream));
   }
   if (e != cudaSuccess) cudaGetLastError();  // a refused launch leaves no sticky error behind
+  return (int)e;
+}
+
+// K5p/K7p's shared-memory bytes of one CTA (the planner's reckoning, for a
+// check from Python).
+long long lstm_persistent_bwd_smem(int H, int U, int rows, int chunk, int kt, int dc_in_smem) {
+  BwdPlan p{};
+  p.H = H;
+  p.U = U;
+  p.rows = rows;
+  p.chunk = chunk;
+  p.kt = kt;
+  p.dc_in_smem = dc_in_smem;
+  return (long long)p.smem_bytes();
+}
+
+// K5p (lengths == nullptr; forward or reverse scan) and K7p (lengths (R,)
+// int32, reverse only): gates (R, T, 4H), c, dout (R, T, H) bf16, the
+// packed W_hh^T rows (S, up, kp) bf16 -> dxp (R, T, 4H) bf16; dc_global
+// (R, H) f32 scratch unless dc_in_smem; counters (G) int32 zeros.  Returns
+// the cudaError_t of the cooperative launch, as lstm_fusedin_persistent.
+int lstm_bwd_persistent(const void* gates, const void* c, const void* dout, const void* w,
+                        const void* lengths, void* dxp, void* dc_global, void* counters, int R,
+                        int Tn, int H, int reverse, int S, int G, int U, int rows, int chunk,
+                        int kt, int dc_in_smem, void* stream) {
+  BwdArgs a{static_cast<const bf16*>(gates), static_cast<const bf16*>(c),
+            static_cast<const bf16*>(dout),  static_cast<const bf16*>(w),
+            static_cast<const int*>(lengths), static_cast<bf16*>(dxp),
+            static_cast<float*>(dc_global), static_cast<int*>(counters), reverse, BwdPlan{}};
+  BwdPlan& p = a.p;
+  p.R = R;
+  p.Tn = Tn;
+  p.H = H;
+  p.S = S;
+  p.G = G;
+  p.U = U;
+  p.rows = rows;
+  p.chunk = chunk;
+  p.kt = kt;
+  p.dc_in_smem = dc_in_smem;
+  const bool masked = lengths != nullptr;
+  if (bad_bwd_plan(p) || (!dc_in_smem && dc_global == nullptr) || (masked && !reverse))
+    return (int)cudaErrorInvalidValue;
+  const void* kernel = masked ? reinterpret_cast<const void*>(bwd_persistent_kernel<true>)
+                              : reinterpret_cast<const void*>(bwd_persistent_kernel<false>);
+  const size_t smem = p.smem_bytes();
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess) {
+    void* params[] = {&a};
+    e = cudaLaunchCooperativeKernel(kernel, dim3(S, G, 1), dim3(kThreads), params, smem,
+                                    static_cast<cudaStream_t>(stream));
+  }
+  if (e != cudaSuccess) cudaGetLastError();  // a refused launch leaves no sticky error behind
+  return (int)e;
+}
+
+// The dW kernel of K5p/K7p: h (R, T, H), dxp (R, T, 4H) bf16, lengths (R,)
+// int32 or null (K7p's mask) -> dw (H, 4H) f32 = sum over (r, t) of
+// h_prev^T dxp, K = R T in ``split`` parts (1-64); split > 1 writes the
+// parts to ws (split, H, 4H) f32 and sums them in order into dw.  Returns
+// the cudaError_t of the launches.
+int lstm_bwd_dw(const void* h, const void* dxp, const void* lengths, void* dw, void* ws, int R,
+                int Tn, int H, int reverse, int split, void* stream) {
+  const long long K = (long long)R * Tn;
+  if (R <= 0 || Tn <= 0 || H <= 0 || split < 1 || split > 64 || (split > 1 && ws == nullptr) ||
+      K + kDwK >= (1ll << 31))
+    return (int)cudaErrorInvalidValue;
+  const long long kc = ((K + split - 1) / split + kDwK - 1) / kDwK * kDwK;
+  DwArgs a{static_cast<const bf16*>(h), static_cast<const bf16*>(dxp),
+           static_cast<const int*>(lengths), static_cast<float*>(split > 1 ? ws : dw),
+           R, Tn, H, reverse, (int)kc};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaFuncSetAttribute(dw_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)kDwSmem);
+  if (e == cudaSuccess) {
+    const dim3 grid((4 * H + kDwTile - 1) / kDwTile, (H + kDwTile - 1) / kDwTile, split);
+    dw_tc_kernel<<<grid, kThreads, kDwSmem, st>>>(a);
+    e = cudaGetLastError();
+  }
+  if (e == cudaSuccess && split > 1) {
+    const size_t n = (size_t)H * 4 * H;
+    const int blocks = (int)std::min<size_t>((n + 255) / 256, 4096);
+    dw_sum_kernel<<<blocks, 256, 0, st>>>(static_cast<const float*>(ws), static_cast<float*>(dw),
+                                          n, split);
+    e = cudaGetLastError();
+  }
   return (int)e;
 }
 

@@ -37,6 +37,14 @@ bfloat16, h and c always float32):
   lstm_train_bwd            (K5) h, gates, c, dout (R, T, H), w_hh_t
                                                    -> dx_proj, dW_hh^T (H, 4H)
   lstm_revmasked_bwd        (K7) as K5, with lengths
+                  each on one of two routes, fixed before launch by
+                  ``backward_route``: K5p / K7p (``lstm_train_bwd_persistent``,
+                  ``lstm_revmasked_bwd_persistent``, csrc/lstm_persistent.cu:
+                  a persistent reverse walk, then the dW kernel
+                  ``lstm_bwd_dw`` on the tensor cores) for bfloat16 where
+                  ``plan_backward`` finds a plan, else the walk and
+                  ``dw_kernel`` (``lstm_train_bwd_walk``,
+                  ``lstm_revmasked_bwd_walk``)
   lstm_train_fwd_streamin   (K8) x (R, T, N), w_ih_t (N, 4H), bias (4H,),
                                  w_hh_t            -> h, gates, c as K4
   lstm_train_fwd2           (K9) K4 for both directions in one launch
@@ -44,8 +52,7 @@ bfloat16, h and c always float32):
 
 Index 0 of the stacked K1 weights is the forward direction, 1 the backward.
 ``route_counts(name)`` reads the launches per route ("persistent", "walk") of
-K1, K2, K3, K4 or K6; ``reset_launch_counts`` zeroes them with the launch
-counts.
+K1-K7; ``reset_launch_counts`` zeroes them with the launch counts.
 ``LSTMDirTrain`` (K4/K5) and ``LSTMRevMaskedTrain`` (K6/K7) are the autograd
 Functions of the training path; ``lstm_dir`` and ``lstm_dir_revmasked``
 route to them when autograd records and to the lean K2/K3 otherwise (under
@@ -100,6 +107,18 @@ __all__ = [
     "lstm_train_bwd_plain",
     "lstm_revmasked_train_fwd_plain",
     "lstm_revmasked_bwd_plain",
+    "lstm_train_bwd_walk",
+    "lstm_revmasked_bwd_walk",
+    "lstm_train_bwd_persistent",
+    "lstm_revmasked_bwd_persistent",
+    "lstm_train_bwd_sliced_plain",
+    "lstm_revmasked_bwd_sliced_plain",
+    "lstm_bwd_dw",
+    "lstm_bwd_dw_plain",
+    "BackwardPlan",
+    "plan_backward",
+    "pack_backward_weights",
+    "backward_route",
     "lstm_train_fwd_streamin",
     "lstm_train_fwd2",
     "lstm_train_bwd2",
@@ -556,6 +575,248 @@ def lstm_revmasked_train_fwd_sliced_plain(x_proj: torch.Tensor, w_packed: torch.
 
 
 # ---------------------------------------------------------------------------
+# K5p, K7p: the backward partition, its packed weights and the plain sliced
+# reverse walks; the dW kernel's plain version
+# ---------------------------------------------------------------------------
+
+WARPS = 8            # warps of a persistent CTA; the backward splits K over all of them
+BWD_TILE = 512       # the K tile of the staged dgates the backward planner aims for
+BWD_MIN_TILE = 256   # and the narrowest it takes (each tile costs two block barriers)
+DW_TILE = 128        # the dW kernel's output tile (rows and columns)
+DW_K = 64            # and the (row, step) pairs of one of its K stages
+DW_SLOTS_PER_SM = 2  # dW CTAs resident on one SM
+DW_MAX_SPLIT = 4     # parts of the dW kernel's K (split-K), summed in a fixed order
+
+
+def backward_smem(H: int, U: int, chunk: int, kt: int, rows: int = 0,
+                  dc_in_smem: bool = False) -> int:
+    """Shared-memory bytes of one K5p/K7p CTA (csrc/lstm_persistent.cu
+    ``BwdPlan::smem_bytes``): the slice of W_hh^T rows [s U, s U + U) padded
+    to Up = ceil(U / 8) 8 rows of Kp + 8 bf16 (Kp = 4H padded to 16); the
+    staged dgates, chunk x (kt + 8) bf16, one buffer when one K tile holds
+    Kp, else two; the eight warps' partial dh, 8 x chunk x Up f32; a double
+    buffer of the cell's inputs (gates 4U, c_prev U, dout U: 2 x chunk x 6U
+    bf16); dc (rows x U f32) when it lives there."""
+    up, kp = _ceil(U, 8) * 8, _pad16(4 * H)
+    nbuf = 1 if kt >= kp else 2
+    return (2 * up * (kp + 8) + 2 * nbuf * chunk * (kt + 8) + 4 * WARPS * chunk * up
+            + 2 * 2 * chunk * 6 * U + (4 * rows * U if dc_in_smem else 0))
+
+
+@dataclasses.dataclass(frozen=True)
+class BackwardPlan:
+    """The partition of K5p/K7p: G x S CTAs; CTA (g, s) owns hidden units
+    [s U, min((s + 1) U, H)) for rows [g rows, min((g + 1) rows, R)), walked
+    ``chunk`` rows at a time, its dh product over K = 4H staged ``kt``
+    columns at a time; dc in shared memory or in a global buffer.
+    ``dw_split``: the parts of the dW kernel's K (R T) summed in order."""
+    R: int
+    H: int
+    S: int
+    G: int
+    U: int
+    rows: int
+    chunk: int
+    kt: int
+    dc_in_smem: bool
+    smem: int
+    dw_split: int
+
+    @property
+    def up(self) -> int:
+        return _ceil(self.U, 8) * 8
+
+    @property
+    def kp(self) -> int:
+        return _pad16(4 * self.H)
+
+    @property
+    def ntiles(self) -> int:
+        return _ceil(self.kp, self.kt)
+
+    @property
+    def ctas(self) -> int:
+        return self.G * self.S
+
+
+def _backward_tile(H, U, chunk, rows, dc_in_smem, smem_bytes) -> int | None:
+    """The widest K tile up to BWD_TILE (Kp split into equal tiles, each a
+    multiple of 16 and at least BWD_MIN_TILE) with which the CTA fits, or
+    None."""
+    kp = _pad16(4 * H)
+    for n in range(_ceil(kp, BWD_TILE), _ceil(kp, 16) + 1):
+        kt = _pad16(_ceil(kp, n))
+        if kt < min(BWD_MIN_TILE, kp):
+            return None
+        if backward_smem(H, U, chunk, kt, rows, dc_in_smem) <= smem_bytes:
+            return kt
+    return None
+
+
+def dw_split(H: int, sms: int) -> int:
+    """The dW kernel's split of K: the parts (1..DW_MAX_SPLIT) that fill the
+    card's DW_SLOTS_PER_SM x sms CTA slots with DW_TILE x DW_TILE output
+    tiles in the fewest waves per part (the fewer parts on a tie)."""
+    tiles = _ceil(H, DW_TILE) * _ceil(4 * H, DW_TILE)
+    slots = DW_SLOTS_PER_SM * max(sms, 1)
+    return min(range(1, DW_MAX_SPLIT + 1), key=lambda k: (_ceil(tiles * k, slots) / k, k))
+
+
+@functools.lru_cache(maxsize=256)
+def plan_backward(R: int, H: int, sms: int, smem_bytes: int = SMEM_LIMIT) -> BackwardPlan | None:
+    """The persistent partition of K5p/K7p for R rows and H units on ``sms``
+    SMs, or None when no slice fits in ``smem_bytes`` or the grid exceeds the
+    SMs.  ``plan_persistent``'s search with the backward's own bytes: the
+    smallest S whose slice fits beside one 16-row chunk; G = max(1,
+    min(sms // S, ceil(R / 64))) groups; S widened to the SMs left over; the
+    largest chunk that fits (a warp holds the accumulators of every output
+    block of the chunk, at most 16); dc in shared memory if it fits; then the
+    widest K tile that fits beside all that."""
+    if min(R, H, sms) <= 0:
+        return None
+
+    def units(S):
+        return _ceil(_ceil(H, S), 4) * 4
+
+    def fits(U, chunk, rows=0, dc_in_smem=False):
+        blocks = chunk // 16 * _ceil(U, 8)
+        return (chunk <= MAX_CHUNK and U <= 64 and blocks <= MAX_ACC_BLOCKS
+                and chunk * U <= MAX_CELLS
+                and _backward_tile(H, U, chunk, rows, dc_in_smem, smem_bytes) is not None)
+
+    S = 1
+    while not fits(units(S), 16):
+        if units(S) == 4:
+            return None
+        S += 1
+    S = _ceil(H, units(S))
+    if S > sms:
+        return None
+    G = max(1, min(sms // S, _ceil(R, GROUP_ROWS)))
+    U = units(min(sms // G, _ceil(H, 4)))
+    S = _ceil(H, U)
+    rows = _ceil(R, G)
+    G = _ceil(R, rows)
+    chunk = next(c for c in range(min(_pad16(rows), MAX_CHUNK), 0, -16) if fits(U, c))
+    dc_in_smem = fits(U, chunk, rows, True)
+    kt = _backward_tile(H, U, chunk, rows, dc_in_smem, smem_bytes)
+    return BackwardPlan(R, H, S, G, U, rows, chunk, kt, dc_in_smem,
+                        backward_smem(H, U, chunk, kt, rows, dc_in_smem), dw_split(H, sms))
+
+
+def pack_backward_weights(w_hh_t: torch.Tensor, plan: BackwardPlan) -> torch.Tensor:
+    """One direction's W_hh^T (H, 4H) in K5p/K7p's layout: (S, Up, Kp), slice
+    s holding rows [s U, s U + U) of W_hh^T (unit u's weights over the 4H
+    gate columns, the dh product's B operand column u), zero rows past H
+    and past U, zero columns past 4H.  Slice s is one contiguous block."""
+    H, S, U = plan.H, plan.S, plan.U
+    w = torch.nn.functional.pad(w_hh_t, (0, plan.kp - 4 * H, 0, S * U - H))
+    return torch.nn.functional.pad(w.reshape(S, U, plan.kp), (0, 0, 0, plan.up - U)).contiguous()
+
+
+def _h_prev(h: torch.Tensor, reverse: bool, lengths=None) -> torch.Tensor:
+    """The h that entered each step of the scan, (R, T, H) f32: h at t - 1
+    (t + 1 when reverse), zero at the scan's first step and, with
+    ``lengths``, where that step is padded (t + 1 >= lengths[r])."""
+    hf = h.float()
+    z = torch.zeros_like(hf[:, :1])
+    hp = torch.cat([hf[:, 1:], z], dim=1) if reverse else torch.cat([z, hf[:, :-1]], dim=1)
+    if lengths is not None:
+        T = h.shape[1]
+        tp = torch.arange(T, device=h.device) + (1 if reverse else -1)
+        hp = hp * (tp[None, :] < lengths.to(h.device)[:, None]).to(hp.dtype)[..., None]
+    return hp
+
+
+def lstm_bwd_dw_plain(h: torch.Tensor, dxp: torch.Tensor, reverse: bool = False,
+                      lengths: torch.Tensor | None = None, split: int = 1) -> torch.Tensor:
+    """Plain version of ``lstm_bwd_dw``: dW_hh^T (H, 4H) f32 = sum over (r, t)
+    of h_prev(r, t)^T dxp(r, t) (``_h_prev``), K = R T cut into ``split``
+    parts of whole DW_K-row stages, summed in part order as the kernel does."""
+    R, T, G = dxp.shape
+    hp = _h_prev(h, reverse, lengths).reshape(R * T, -1)
+    d = dxp.float().reshape(R * T, G)
+    kc = _ceil(_ceil(R * T, split), DW_K) * DW_K
+    dw = hp.new_zeros((hp.shape[1], G))
+    for k0 in range(0, R * T, kc):
+        dw = dw + hp[k0:k0 + kc].t() @ d[k0:k0 + kc]
+    return dw
+
+
+def _k_owner(plan: BackwardPlan) -> torch.Tensor:
+    """The warp that sums each column k of the dh product in K5p/K7p: in K
+    tile k // kt, its k16 step j goes to warp j % 8."""
+    k = torch.arange(plan.kp)
+    return (k % plan.kt) // 16 % WARPS
+
+
+def _backward_sliced_plain(h, gates, c, dout, w, plan, reverse, lengths=None):
+    """The walk of K5p/K7p over ``plan``'s schedule: at each step the group's
+    dgates of the previous step (rounded, read back from dx_proj) times the
+    packed slices, as eight per-warp partial sums over the kernel's K split
+    added in warp order (with ``lengths``, multiplied by m_t after the
+    product); the cell in f32 as ``_backward_plain``; then dW as the dW
+    kernel sums it.  Returns (dx_proj, dW_hh^T f32)."""
+    R, T, G = gates.shape
+    H, U = plan.H, plan.U
+    dtype = gates.dtype
+    owner = _k_owner(plan).to(gates.device)
+    wf = w.float().reshape(plan.S * plan.up, plan.kp)
+    cols = torch.cat([torch.arange(s * plan.up, s * plan.up + min(U, H - s * U))
+                      for s in range(plan.S)]).to(gates.device)
+    dxp = gates.new_zeros((R, T, G))
+    dc = torch.zeros((R, H), dtype=torch.float32, device=gates.device)
+    for step in range(T):
+        t = step if reverse else T - 1 - step
+        te = t - 1 if reverse else t + 1  # the step visited before: its dgates give dh
+        tp = t + 1 if reverse else t - 1  # the scan's previous step
+        for g in range(plan.G):
+            rows = slice(g * plan.rows, min((g + 1) * plan.rows, R))
+            n = rows.stop - rows.start
+            ones = torch.ones((n, 1), device=gates.device)
+            keep = None if lengths is None else lengths[rows].to(gates.device)[:, None]
+            m = ones if keep is None else (t < keep).float()
+            mp = ones if keep is None else (tp < keep).float()
+            dh = torch.zeros((n, H), device=gates.device)
+            if step:
+                a = torch.nn.functional.pad(dxp[rows, te].float(), (0, plan.kp - G))
+                part = None
+                for wp in range(WARPS):
+                    own = owner == wp
+                    p = a[:, own] @ wf[:, own].t()
+                    part = p if part is None else part + p
+                dh = part[:, cols]
+            i, f, gg, o = gates[rows, t].float().chunk(4, dim=-1)
+            cp = c[rows, tp].float() * mp if 0 <= tp < T else torch.zeros_like(dh)
+            tc = torch.tanh(f * cp + i * gg)
+            dhv = dout[rows, t].float() + dh * m
+            dcv = dc[rows] * m + dhv * o * (1.0 - tc * tc)
+            dxp[rows, t] = torch.cat([dcv * gg * i * (1.0 - i), dcv * cp * f * (1.0 - f),
+                                      dcv * i * (1.0 - gg * gg),
+                                      dhv * tc * o * (1.0 - o)], dim=-1).to(dtype)
+            dc[rows] = dcv * f
+    return dxp, lstm_bwd_dw_plain(h, dxp, reverse, lengths, plan.dw_split)
+
+
+def lstm_train_bwd_sliced_plain(h: torch.Tensor, gates: torch.Tensor, c: torch.Tensor,
+                                dout: torch.Tensor, w_packed: torch.Tensor,
+                                plan: BackwardPlan, reverse: bool = False):
+    """Plain version of K5p and its dW kernel: reads only the packed slices
+    (``w_packed`` = ``pack_backward_weights``'s) and walks the kernel's
+    schedule step by step -> (dx_proj, dW_hh^T f32)."""
+    return _backward_sliced_plain(h, gates, c, dout, w_packed, plan, reverse)
+
+
+def lstm_revmasked_bwd_sliced_plain(h: torch.Tensor, gates: torch.Tensor, c: torch.Tensor,
+                                    lengths: torch.Tensor, dout: torch.Tensor,
+                                    w_packed: torch.Tensor, plan: BackwardPlan):
+    """Plain version of K7p and its dW kernel: the masked backward over the
+    packed slices; dx_proj equals ``lstm_revmasked_bwd_plain``'s at every
+    step, padded ones included."""
+    return _backward_sliced_plain(h, gates, c, dout, w_packed, plan, True, lengths)
+
+
+# ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -982,11 +1243,50 @@ def _check_residuals(h, gates, c, dout, w_hh_t):
     return R, T, H, dtype, stream, w_hh_t.t().contiguous(), dxp, dw
 
 
+def backward_route(dtype: torch.dtype, R: int, H: int, sms: int) -> BackwardPlan | None:
+    """The route of K5 and K7, a fixed rule decided before launch from the
+    dtype and the shape: the K5p/K7p plan for bfloat16 where
+    ``plan_backward`` finds one on ``sms`` SMs, else None (the walk and
+    ``dw_kernel``: float32, or no plan)."""
+    if dtype != torch.bfloat16:
+        return None
+    return plan_backward(R, H, sms)
+
+
+def _routed_bwd(plain, walk, persistent, h, gates, *args):
+    """The dispatch of K5 and K7 on ``(h, gates, *args)``: the plain version
+    on the CPU, else the route ``backward_route`` picks."""
+    if gates.device.type == "cpu":
+        return plain(h, gates, *args)
+    R, _, G = gates.shape
+    plan = backward_route(gates.dtype, R, G // 4, _sm_count(_device_index(gates.device)))
+    if plan is None:
+        return walk(h, gates, *args)
+    return persistent(h, gates, *args, plan)
+
+
 def lstm_train_bwd(h: torch.Tensor, gates: torch.Tensor, c: torch.Tensor,
                    dout: torch.Tensor, w_hh_t: torch.Tensor, reverse: bool = False):
     """K5: the backward of ``lstm_train_fwd`` from its outputs (h, gates, c) and the
     incoming dh (R, T, H) -> (dx_proj (R, T, 4H), dW_hh^T (H, 4H)), dW
-    summed in f32 by the kernel and returned in w_hh_t's dtype."""
+    summed in f32 by the kernel and returned in w_hh_t's dtype, on the route
+    ``backward_route`` picks (K5p or the walk)."""
+    return _routed_bwd(lstm_train_bwd_plain, lstm_train_bwd_walk, lstm_train_bwd_persistent,
+                       h, gates, c, dout, w_hh_t, reverse)
+
+
+def lstm_revmasked_bwd(h: torch.Tensor, gates: torch.Tensor, c: torch.Tensor,
+                       lengths: torch.Tensor, dout: torch.Tensor, w_hh_t: torch.Tensor):
+    """K7: the backward of ``lstm_revmasked_train_fwd``, as ``lstm_train_bwd``,
+    on the route ``backward_route`` picks (K7p or the walk)."""
+    return _routed_bwd(lstm_revmasked_bwd_plain, lstm_revmasked_bwd_walk,
+                       lstm_revmasked_bwd_persistent, h, gates, c, lengths, dout, w_hh_t)
+
+
+def lstm_train_bwd_walk(h: torch.Tensor, gates: torch.Tensor, c: torch.Tensor,
+                        dout: torch.Tensor, w_hh_t: torch.Tensor, reverse: bool = False):
+    """K5's walk and ``dw_kernel`` (csrc/lstm_kernels.cu), float32 or
+    bfloat16; counted in ``lstm_train_bwd.launches`` and ``.routes["walk"]``."""
     if gates.device.type == "cpu":
         return lstm_train_bwd_plain(h, gates, c, dout, w_hh_t, reverse)
     R, T, H, dtype, stream, w4h, dxp, dw = _check_residuals(h, gates, c, dout, w_hh_t)
@@ -1000,13 +1300,15 @@ def lstm_train_bwd(h: torch.Tensor, gates: torch.Tensor, c: torch.Tensor,
         rows_per_block(R, 1, gates.device, H), stream,
     )
     _raise_on(err, "lstm_train_bwd")
-    lstm_train_bwd.launches += 1
+    _count(lstm_train_bwd, "walk")
     return dxp, dw.to(w_hh_t.dtype)
 
 
-def lstm_revmasked_bwd(h: torch.Tensor, gates: torch.Tensor, c: torch.Tensor,
-                       lengths: torch.Tensor, dout: torch.Tensor, w_hh_t: torch.Tensor):
-    """K7: the backward of ``lstm_revmasked_train_fwd``, as ``lstm_train_bwd``."""
+def lstm_revmasked_bwd_walk(h: torch.Tensor, gates: torch.Tensor, c: torch.Tensor,
+                            lengths: torch.Tensor, dout: torch.Tensor, w_hh_t: torch.Tensor):
+    """K7's walk and ``dw_kernel<MASKED>`` (csrc/lstm_kernels.cu), float32 or
+    bfloat16; counted in ``lstm_revmasked_bwd.launches`` and
+    ``.routes["walk"]``."""
     if gates.device.type == "cpu":
         return lstm_revmasked_bwd_plain(h, gates, c, lengths, dout, w_hh_t)
     R, T, H, dtype, stream, w4h, dxp, dw = _check_residuals(h, gates, c, dout, w_hh_t)
@@ -1021,8 +1323,113 @@ def lstm_revmasked_bwd(h: torch.Tensor, gates: torch.Tensor, c: torch.Tensor,
         rows_per_block(R, 1, gates.device, H), stream,
     )
     _raise_on(err, "lstm_revmasked_bwd")
-    lstm_revmasked_bwd.launches += 1
+    _count(lstm_revmasked_bwd, "walk")
     return dxp, dw.to(w_hh_t.dtype)
+
+
+def lstm_bwd_dw(h: torch.Tensor, dxp: torch.Tensor, reverse: bool = False,
+                lengths: torch.Tensor | None = None, split: int | None = None) -> torch.Tensor:
+    """The dW kernel of K5p and K7p (csrc/lstm_persistent.cu ``dw_tc_kernel``),
+    bfloat16 only: dW_hh^T (H, 4H) f32 = sum over (r, t) of h_prev(r, t)^T
+    dxp(r, t) on the tensor cores, h_prev read with the scan's shift (and,
+    with ``lengths``, K7's mask) by the kernel's loader; K = R T in ``split``
+    parts (``dw_split``'s by default) summed in a fixed order, so a launch
+    is deterministic.  Counted in ``lstm_bwd_dw.launches``."""
+    if dxp.device.type == "cpu":
+        return lstm_bwd_dw_plain(h, dxp, reverse, lengths, split or 1)
+    R, T, G = dxp.shape
+    H = G // 4
+    if dxp.device.type != "cuda":
+        raise ValueError(f"kernel input on unsupported device {dxp.device}")
+    if dxp.dtype != torch.bfloat16:
+        raise TypeError(f"lstm_bwd_dw takes bfloat16 inputs, not {dxp.dtype}")
+    _check("dxp", dxp, (R, T, 4 * H), dxp.dtype, dxp.device)
+    _check("h", h, (R, T, H), dxp.dtype, dxp.device)
+    if lengths is not None:
+        _check("lengths", lengths, (R,), torch.int32, dxp.device)
+    split = split or dw_split(H, _sm_count(_device_index(dxp.device)))
+    dw = torch.empty((H, 4 * H), dtype=torch.float32, device=dxp.device)
+    if R == 0 or T == 0:
+        return dw.zero_()
+    ws = (torch.empty((split, H, 4 * H), dtype=torch.float32, device=dxp.device)
+          if split > 1 else None)
+    from urgent2026_challenge_track1_tpu_torch.ops._build import load_library
+
+    err = load_library().lstm_bwd_dw(
+        h.data_ptr(), dxp.data_ptr(), None if lengths is None else lengths.data_ptr(),
+        dw.data_ptr(), None if ws is None else ws.data_ptr(), R, T, H, int(bool(reverse)),
+        split, ctypes.c_void_p(torch.cuda.current_stream(dxp.device).cuda_stream),
+    )
+    _raise_on(err, "lstm_bwd_dw")
+    lstm_bwd_dw.launches += 1
+    return dw
+
+
+def _bwd_persistent(fn, h, gates, c, dout, w_hh_t, reverse, lengths, plan):
+    """Launch K5p (``lengths`` None) or K7p: one cooperative grid of G x S
+    CTAs over ``plan`` (``plan_backward``'s by default), then the dW kernel;
+    a grid the card cannot hold resident raises.  Returns (dx_proj,
+    dW_hh^T in w_hh_t's dtype)."""
+    name = fn.__name__ + "_persistent"
+    if gates.device.type != "cuda":
+        raise ValueError(f"kernel input on unsupported device {gates.device}")
+    if gates.dtype != torch.bfloat16:
+        raise TypeError(f"{name} takes bfloat16 inputs, not {gates.dtype}")
+    R, T, G = gates.shape
+    H = G // 4
+    _check("gates", gates, (R, T, 4 * H), gates.dtype, gates.device)
+    for arg, t in (("c", c), ("h", h), ("dout", dout)):
+        _check(arg, t, (R, T, H), gates.dtype, gates.device)
+    _check("w_hh_t", w_hh_t, (H, 4 * H), gates.dtype, gates.device)
+    if lengths is not None:
+        _check("lengths", lengths, (R,), torch.int32, gates.device)
+    plan = plan or plan_backward(R, H, _sm_count(_device_index(gates.device)))
+    if plan is None:
+        raise ValueError(f"no {name} plan for R={R}, H={H}")
+    if (plan.R, plan.H) != (R, H):
+        raise ValueError(f"plan for {(plan.R, plan.H)}, inputs {(R, H)}")
+    dxp = torch.empty((R, T, 4 * H), dtype=gates.dtype, device=gates.device)
+    if T == 0:
+        return dxp, torch.zeros((H, 4 * H), dtype=w_hh_t.dtype, device=gates.device)
+    w = pack_backward_weights(w_hh_t, plan)
+    dc = None if plan.dc_in_smem else torch.empty((R, H), dtype=torch.float32,
+                                                   device=gates.device)
+    counters = torch.zeros((plan.G,), dtype=torch.int32, device=gates.device)
+    from urgent2026_challenge_track1_tpu_torch.ops._build import load_library
+
+    err = load_library().lstm_bwd_persistent(
+        gates.data_ptr(), c.data_ptr(), dout.data_ptr(), w.data_ptr(),
+        None if lengths is None else lengths.data_ptr(), dxp.data_ptr(),
+        None if dc is None else dc.data_ptr(), counters.data_ptr(), R, T, H,
+        int(bool(reverse)), plan.S, plan.G, plan.U, plan.rows, plan.chunk, plan.kt,
+        int(plan.dc_in_smem), ctypes.c_void_p(torch.cuda.current_stream(gates.device).cuda_stream),
+    )
+    _raise_on(err, name)
+    dw = lstm_bwd_dw(h, dxp, reverse, lengths, plan.dw_split)
+    _count(fn, "persistent")
+    return dxp, dw.to(w_hh_t.dtype)
+
+
+def lstm_train_bwd_persistent(h: torch.Tensor, gates: torch.Tensor, c: torch.Tensor,
+                              dout: torch.Tensor, w_hh_t: torch.Tensor, reverse: bool = False,
+                              plan: BackwardPlan | None = None):
+    """K5p (csrc/lstm_persistent.cu ``bwd_persistent_kernel<false>``) and the
+    dW kernel, bfloat16 only -> (dx_proj, dW_hh^T).  Counted in
+    ``lstm_train_bwd.launches`` and ``.routes["persistent"]``."""
+    if gates.device.type == "cpu":
+        return lstm_train_bwd_plain(h, gates, c, dout, w_hh_t, reverse)
+    return _bwd_persistent(lstm_train_bwd, h, gates, c, dout, w_hh_t, reverse, None, plan)
+
+
+def lstm_revmasked_bwd_persistent(h: torch.Tensor, gates: torch.Tensor, c: torch.Tensor,
+                                  lengths: torch.Tensor, dout: torch.Tensor,
+                                  w_hh_t: torch.Tensor, plan: BackwardPlan | None = None):
+    """K7p (``bwd_persistent_kernel<true>``) and the dW kernel, bfloat16 only;
+    dx_proj equals the plain version's at every step.  Counted in
+    ``lstm_revmasked_bwd.launches`` and ``.routes["persistent"]``."""
+    if gates.device.type == "cpu":
+        return lstm_revmasked_bwd_plain(h, gates, c, lengths, dout, w_hh_t)
+    return _bwd_persistent(lstm_revmasked_bwd, h, gates, c, dout, w_hh_t, True, lengths, plan)
 
 
 def lstm_train_fwd_streamin(x: torch.Tensor, w_ih_t: torch.Tensor, bias: torch.Tensor,
@@ -1086,7 +1493,8 @@ def lstm_train_bwd2(res_f, res_b, dout_f: torch.Tensor, dout_b: torch.Tensor,
                     w_hh_f_t: torch.Tensor, w_hh_b_t: torch.Tensor):
     """K10: ``lstm_train_bwd`` for both directions in one launch; res_* =
     (h, gates, c) of the forward (K9's or K4's) and reverse direction ->
-    (dx_proj_f, dW_hh_f^T, dx_proj_b, dW_hh_b^T), bitwise K5's."""
+    (dx_proj_f, dW_hh_f^T, dx_proj_b, dW_hh_b^T), bitwise the K5 walk's
+    (``lstm_train_bwd_walk``; the same device code)."""
     if res_f[1].device.type == "cpu":
         return lstm_train_bwd2_plain(res_f, res_b, dout_f, dout_b, w_hh_f_t, w_hh_b_t)
     R, T, H, dtype, stream, w4h_f, dxp_f, dw_f = _check_residuals(*res_f, dout_f, w_hh_f_t)
@@ -1270,12 +1678,16 @@ KERNELS = (fusedin_bilstm, lstm_scan, lstm_revmasked, lstm_train_fwd, lstm_train
            lstm_train_fwd2, lstm_train_bwd2)
 
 
-# K1-K4, K6: a persistent route and a walk
-ROUTED = (fusedin_bilstm, lstm_scan, lstm_revmasked, lstm_train_fwd, lstm_revmasked_train_fwd)
+# K1-K7: a persistent route and a walk
+ROUTED = (fusedin_bilstm, lstm_scan, lstm_revmasked, lstm_train_fwd, lstm_revmasked_train_fwd,
+          lstm_train_bwd, lstm_revmasked_bwd)
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS:
+    """Zero the launch and route counts, and the count of K5p's and K7p's
+    dW kernel (``lstm_bwd_dw``, one launch inside each K5p or K7p launch;
+    not in ``KERNELS``, whose counts are the wrappers a layer calls)."""
+    for fn in KERNELS + (lstm_bwd_dw,):
         fn.launches = 0
     for fn in ROUTED:
         fn.routes = {"persistent": 0, "walk": 0}
@@ -1287,8 +1699,9 @@ def launch_counts() -> dict[str, int]:
 
 def route_counts(kernel: str = "fusedin_bilstm") -> dict[str, int]:
     """The launches per route of ``kernel`` (K1 ``fusedin_bilstm``, K2
-    ``lstm_scan``, K3 ``lstm_revmasked``, K4 ``lstm_train_fwd`` or K6
-    ``lstm_revmasked_train_fwd``) since the last reset."""
+    ``lstm_scan``, K3 ``lstm_revmasked``, K4 ``lstm_train_fwd``, K5
+    ``lstm_train_bwd``, K6 ``lstm_revmasked_train_fwd`` or K7
+    ``lstm_revmasked_bwd``) since the last reset."""
     return dict(next(fn for fn in ROUTED if fn.__name__ == kernel).routes)
 
 

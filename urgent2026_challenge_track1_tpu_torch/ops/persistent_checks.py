@@ -1,13 +1,15 @@
-"""The limit that holds K1p-K4p and K6p against their plain versions, and
-the planted barrier faults that the limit must see.
+"""The limit that holds K1p-K7p against their plain versions, and the
+planted barrier faults that the limit must see.
 
 A persistent kernel exchanges h between CTAs through its output, one
 barrier per step.  A barrier that lets a step read the exchange buffer
 before the previous step's writes land feeds the cell h one step stale
 (h_{t-2} where h_{t-1} is due).  The ``*_stale_h`` functions are the plain
-walks with exactly that fault; a check passes only if the kernel is within
-``ulp_limit`` of the plain version and the faulty walk is not.  Used by
-``chip_smoke.py`` and the card tests (tests/test_torch_cuda_kernels.py).
+walks with exactly that fault, and ``lstm_train_bwd_stale_dg`` the plain
+backward whose exchange (the dgates in dx_proj) is one step stale; a check
+passes only if the kernel is within ``ulp_limit`` of the plain version and
+the faulty walk is not.  Used by ``chip_smoke.py`` and the card tests
+(tests/test_torch_cuda_kernels.py).
 """
 
 from __future__ import annotations
@@ -16,9 +18,10 @@ import math
 
 import torch
 
-from urgent2026_challenge_track1_tpu_torch.ops.cuda_lstm import _cell
+from urgent2026_challenge_track1_tpu_torch.ops.cuda_lstm import _cell, lstm_bwd_dw_plain
 
-__all__ = ["PERSISTENT_ULPS", "ulp_limit", "fusedin_bilstm_stale_h", "lstm_scan_stale_h"]
+__all__ = ["PERSISTENT_ULPS", "ulp_limit", "fusedin_bilstm_stale_h", "lstm_scan_stale_h",
+           "lstm_train_bwd_stale_dg"]
 
 # bf16 ulps at the plain output's largest magnitude
 PERSISTENT_ULPS = 4
@@ -72,3 +75,35 @@ def lstm_scan_stale_h(x_proj: torch.Tensor, w_hh_t: torch.Tensor, reverse: bool,
             h_new, c = h_new * m, c * m
         stale, h = h, h_new
     return (out, gates, cs) if residuals else out
+
+
+def lstm_train_bwd_stale_dg(h: torch.Tensor, gates: torch.Tensor, c: torch.Tensor,
+                            dout: torch.Tensor, w_hh_t: torch.Tensor, reverse: bool = False,
+                            lengths: torch.Tensor | None = None):
+    """K5's plain version (``lstm_train_bwd_plain``; K7's,
+    ``lstm_revmasked_bwd_plain``, with ``lengths``: then ``reverse`` is
+    True) whose dh comes from the dgates one step stale (those of two steps
+    back where the previous step's are due) -> (dx_proj, dW_hh^T)."""
+    R, T, G = gates.shape
+    H = G // 4
+    w4h = w_hh_t.float().t()
+    dc = torch.zeros((R, H), device=gates.device)
+    stale = dg_prev = torch.zeros((R, G), dtype=gates.dtype, device=gates.device)
+    dxp = gates.new_empty((R, T, G))
+    one = torch.ones((R, 1), device=gates.device)
+    for s in range(T):
+        t = s if reverse else T - 1 - s
+        tp = t + 1 if reverse else t - 1
+        i, f, g, o = gates[:, t].float().chunk(4, dim=-1)
+        m = one if lengths is None else (t < lengths).float()[:, None]
+        mp = one if lengths is None else (tp < lengths).float()[:, None]
+        cp = c[:, tp].float() * mp if 0 <= tp < T else torch.zeros_like(dc)
+        tc = torch.tanh(f * cp + i * g)
+        dhv = dout[:, t].float() + (stale.float() @ w4h) * m
+        dcv = dc * m + dhv * o * (1.0 - tc * tc)
+        dg = torch.cat([dcv * g * i * (1.0 - i), dcv * cp * f * (1.0 - f),
+                        dcv * i * (1.0 - g * g), dhv * tc * o * (1.0 - o)], dim=-1).to(gates.dtype)
+        dxp[:, t] = dg
+        stale, dg_prev = dg_prev, dg
+        dc = dcv * f
+    return dxp, lstm_bwd_dw_plain(h, dxp, reverse, lengths).to(w_hh_t.dtype)

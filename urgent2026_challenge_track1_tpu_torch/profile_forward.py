@@ -62,6 +62,11 @@ def _group(name: str) -> str:
                 (True, False): "K3p lstm_revmasked_persistent",
                 (False, True): "K4p lstm_train_fwd_persistent",
                 (True, True): "K6p lstm_revmasked_train_fwd_persistent"}[masked, store]
+    if _names(name, "bwd_persistent_kernel"):  # <MASKED>
+        masked, = _flags(name, "bwd_persistent_kernel")
+        return "K7p lstm_revmasked_bwd_persistent" if masked else "K5p lstm_train_bwd_persistent"
+    if re.search(r"(?:::|\d)dw_(?:tc|sum)_kernel(?:[(E]|$)", name):  # K5p's and K7p's
+        return "K5p/K7p dW (dw_tc_kernel)"
     if _names(name, "fusedin_kernel"):
         stream = _flags(name, "fusedin_kernel") == [True]
         return "K8 lstm_train_fwd_streamin" if stream else "K1 fusedin_bilstm"
