@@ -125,7 +125,8 @@ def _summary(visits):
 def _sass(library: str) -> dict:
     """{(kernel, REVERSE, MASKED): instructions} of the persistent kernels in
     a built library; a scan_persistent_kernel instance that stores the
-    training residuals (a third flag, set) is left out."""
+    training residuals (a third flag, set) or takes float32 elements is left
+    out."""
     from urgent2026_challenge_track1_tpu_torch.ops._build import find_nvcc
 
     cuobjdump = Path(find_nvcc()).with_name("cuobjdump")
@@ -134,11 +135,11 @@ def _sass(library: str) -> dict:
     kernels, body = {}, None
     for line in text.splitlines():
         head = re.search(r"Function : \S*?(fusedin_persistent_kernel|scan_persistent_kernel)"
-                         r"(?:I((?:Lb[01]E)+)E)?", line)
+                         r"(?:I(13__nv_bfloat16|f)?((?:Lb[01]E)+)E)?", line)
         if "Function :" in line:
             body = None
-            if head:
-                flags = tuple(int(f) for f in re.findall(r"Lb([01])E", head.group(2) or ""))
+            if head and head.group(2) != "f":
+                flags = tuple(int(f) for f in re.findall(r"Lb([01])E", head.group(3) or ""))
                 if len(flags) < 3 or flags[2] == 0:
                     body = kernels.setdefault((head.group(1), *flags[:2]), [])
             continue

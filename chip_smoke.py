@@ -19,11 +19,15 @@ Phases (any failure exits non-zero; each prints its seconds):
      at every step at the five shapes where they run, with their plans, a
      planted stale-h fault, their, the walks' and the plain versions' times
      and an S sweep (the scan_routes phase); then K4p and K6p, the
-     persistent bfloat16 routes of K4 and K6, against the plain versions
-     (h, gates and c at every step) at the train steps' shapes and an odd
-     H, with a planted stale-h fault, two launches bitwise equal, K5 / K7
-     on their residuals against the plain chain, their plans and their,
-     the walks' and the plain versions' times (the train_routes phase);
+     persistent routes of K4 and K6 in bfloat16 and in float32 (K4p-f32,
+     K6p-f32: 3xTF32 products), against the plain versions (h, gates and
+     c at every step) at the train steps' shapes and an odd H, with a
+     planted stale-h fault (in float32 also the walk with one TF32 product,
+     which the limit must refuse), two launches bitwise equal, K5 / K7 on their
+     residuals against the plain chain, their plans (checked against the
+     kernel's bytes) and their, the walks', the plain versions' and a
+     one-direction torch.nn.LSTM training forward's times (the
+     train_routes phase);
      then K5p and K7p, the persistent bfloat16 routes of K5 and K7,
      against the plain versions (dx_proj at every step) at the same
      shapes, their dW kernel against the float64 product of its own
@@ -41,8 +45,10 @@ Phases (any failure exits non-zero; each prints its seconds):
      checkpoint with the euler and heun solvers; check that every kernel of
      each path ran, and that K1-K3 took K1p-K3p on the bfloat16 paths (the
      CLIs) and the walks on the float32 ones (the training runs'
-     validations; a train step runs none of K1-K3), and that K4-K7 took
-     the walks on the float32 training runs;
+     validations; a train step runs none of K1-K3), and that on the float32
+     training runs K4 and K6 took K4p-f32 / K6p-f32 and K5 and K7 their
+     walks; then one float32 train step at 510 channels (H = 1020, where no
+     float32 plan fits) takes the walks of K4-K7;
   4. the A/B arms of the two experiment toggles (default, STREAM_INPUT_TRAIN,
      FUSED_BIDIR_TRAIN, both, in alternating order) on one train step of
      each family: launches per kernel, loss and gradients against the
@@ -54,7 +60,8 @@ Phases (any failure exits non-zero; each prints its seconds):
      end-to-end forward at the JAX bench geometry, the train step at the
      baseline geometry in float32 and bfloat16 with its peak memory and
      launches per step and K4-K7's routes per dtype (K4p-K7p and the dW
-     kernel in bfloat16, the walks in float32), K1-K7 at the flow shapes,
+     kernel in bfloat16; K4p-f32, K6p-f32 and the K5/K7 walks in float32),
+     K1-K7 at the flow shapes,
      K8-K10 at both widths' training shapes, the flow train step and one
      flow enhancement.
 
@@ -99,6 +106,7 @@ FLOW_N, FLOW_H = 384, 768
 FLOW_TIME, FLOW_BAND = (96, 251), (502, 48)
 FLOW_SECONDS = (2.0, 1.9)  # one batch of the flow training phase's data
 PEAK_BF16_FLOPS = 989e12        # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_TF32_FLOPS = 495e12        # H100 SXM dense TF32, same source
 PEAK_BYTES = 3.35e12            # HBM3
 
 
@@ -252,8 +260,8 @@ def _error_table():
 def phase_train_kernels(device, hid=HID, shapes=(TRAIN_TIME, TRAIN_BAND),
                         seconds=TRAIN_SECONDS, hop=480):
     """K4-K7 against their plain versions at the training step's shapes
-    (their walks; the bfloat16 persistent routes: the train_routes and
-    bwd_routes phases): max abs error of h, gates, c (forward) and max
+    (their walks; the persistent routes: the train_routes and bwd_routes
+    phases): max abs error of h, gates, c (forward) and max
     relative error of dx_proj and dW (backward, each run on the plain
     forward's residuals).  Returns {(kernel, dtype): (abs error, relative
     error or None)}."""
@@ -348,7 +356,7 @@ def phase_k1_routes(device):
         if plan is None:
             fail(f"K1p: no plan at {what} (R={R}, N={N}, H={H})")
         kernel_smem = lib.lstm_persistent_smem(N, H, plan.U, plan.rows, plan.chunk,
-                                                int(plan.c_in_smem))
+                                                int(plan.c_in_smem), 2)
         if kernel_smem != plan.smem:
             fail(f"K1p plan at {what}: {plan.smem} bytes, the kernel reckons {kernel_smem}")
         route = K.k1_route(bf16, R, N, H, sms)
@@ -422,9 +430,10 @@ def phase_scan_routes(device):
     held against the plain version) at every step, padded ones included, at
     the shapes where K2 and K3 run on the bfloat16 CLI: max abs differences,
     the plan (checked against the kernel's own byte count), K2p/K3p, walk and
-    plain ms, the weight pack's ms, the bound, the route the rule takes, and
-    at the one-utterance and flow shapes K2p/K3p ms for the plans of fewer
-    SMs (a narrower S).  Fails if K2p or K3p differs from either by the ulp
+    plain ms, the weight pack's ms, the bound, the route the rule takes, a
+    one-direction bf16 ``torch.nn.LSTM`` inference forward's ms (a superset),
+    and at the one-utterance and flow shapes K2p/K3p ms for the plans of
+    fewer SMs (a narrower S).  Fails if K2p or K3p differs from either by the ulp
     limit (``persistent_checks.ulp_limit`` of the plain output) or more, if
     a walk differs from the plain version by BF16_TOL or more, or if the
     planted fault (a stale h, ``persistent_checks.lstm_scan_stale_h``)
@@ -450,7 +459,7 @@ def phase_scan_routes(device):
         if plan is None:
             fail(f"K2p/K3p: no plan at {what} (R={R}, H={H})")
         kernel_smem = lib.lstm_persistent_smem(0, H, plan.U, plan.rows, plan.chunk,
-                                                int(plan.c_in_smem))
+                                                int(plan.c_in_smem), 2)
         if kernel_smem != plan.smem:
             fail(f"K2p/K3p plan at {what}: {plan.smem} bytes, the kernel reckons {kernel_smem}")
         route = K.scan_route(bf16, R, H, sms)
@@ -513,6 +522,7 @@ def phase_scan_routes(device):
                     fail(f"{what} {name}: a stale h moves the output by {e_stale:.3e}, under "
                          f"the limit {limit:.3e}: the check cannot see a barrier fault")
             rec["pack_ms"] = _time_ms(lambda: K.pack_scan_weights(wh[0], plan))
+        rec["nn_lstm_forward_ms"] = _lstm_forward_reference_ms(device, R, T, H, bf16, False)
         out.append(rec)
         del xp, wh
     return out
@@ -522,12 +532,13 @@ def phase_scan_routes(device):
 # K4's and K6's two routes (phase 2)
 # ---------------------------------------------------------------------------
 
-# the shapes where K4 and K6 run in a bfloat16 train step, (what, R, T, H,
-# valid frames of each utterance or None): the disc step's time and band
-# paths (B=4, 2 s at 48 kHz: 4 x 34 bands over 201 frames, 4 x 201 frames
-# over 34 bands), the flow step's (B=2, 2 s, hop 384: 2 x 48 bands over 251
-# frames, 2 x 251 frames over 48 bands, H = 768), and an odd H (2-byte
-# copies); K6 runs where there are lengths (the time paths)
+# the shapes where K4 and K6 run in a train step, (what, R, T, H, valid
+# frames of each utterance or None): the disc step's time and band paths
+# (B=4, 2 s at 48 kHz: 4 x 34 bands over 201 frames, 4 x 201 frames over 34
+# bands), the flow step's (B=2, 2 s, hop 384: 2 x 48 bands over 251 frames,
+# 2 x 251 frames over 48 bands, H = 768), and an odd H (2-byte copies in
+# bfloat16, 4-byte ones in float32); K6 runs where there are lengths (the
+# time paths)
 TRAIN_ROUTE_SHAPES = (
     ("disc time B=4", *TRAIN_TIME, HID, tuple(1 + int(s * 48000) // 480 for s in TRAIN_SECONDS)),
     ("disc band B=4", *TRAIN_BAND, HID, None),
@@ -536,116 +547,167 @@ TRAIN_ROUTE_SHAPES = (
     ("odd H", 20, 64, 197, (64, 40, 17, 1)))
 RESIDUALS = ("h", "gates", "c")
 RUN_TAGS = ("lstm_train_fwd", "lstm_train_fwd_reverse", "lstm_revmasked_train_fwd")
+# K4 and K6 take their persistent routes in float32 too (K4p-f32, K6p-f32);
+# K1-K3, K5 and K7 take their walks there
+F32_PERSISTENT = ("lstm_train_fwd", "lstm_revmasked_train_fwd")
+
+
+def _lstm_forward_reference_ms(device, R, T, H, dtype, train):
+    """A one-direction ``torch.nn.LSTM`` forward (N = H / 2 inputs, as in
+    both models) over R rows of T steps in ``dtype`` (TF32 off), recording
+    for autograd when ``train`` (the training forward keeps its residuals):
+    a superset of K2-K4's and K6's work (it adds the W_ih products)."""
+    import torch
+
+    N = max(1, H // 2)
+    lstm = torch.nn.LSTM(N, H, batch_first=True).to(device, dtype).train(train)
+    x = (0.3 * torch.randn((R, T, N), device=device)).to(dtype).requires_grad_(train)
+    with torch.set_grad_enabled(train):
+        ms = _time_ms(lambda: lstm(x))
+    del lstm, x
+    return ms
 
 
 def phase_train_routes(device):
     """K4p (forward and reverse) and K6p against the plain versions at every
-    step, padded ones included, at the shapes where K4 and K6 run in a
-    bfloat16 train step: h, gates and c each within
-    ``persistent_checks.ulp_limit`` of its plain output; the planted fault
+    step, padded ones included, at the shapes where K4 and K6 run in a train
+    step, in bfloat16 and in float32 (K4p-f32 / K6p-f32, 3xTF32 products,
+    TF32 off in the plain versions): h, gates and c each within
+    ``persistent_checks.persistent_limit`` of its plain output (4 bf16 ulps
+    at its peak; F32_LIMIT in float32); the planted fault
     (``persistent_checks.lstm_scan_stale_h`` with the residuals) must exceed
-    that limit; two launches must be bitwise equal (bf16 remat runs the
-    forward twice); K5 (K7 for K6p) on the kernel's residuals must stay
-    within BF16_TOL (relative) of K5's plain version on the plain forward's.
-    Records the plan (checked against the kernel's own byte count), the
-    route the rule takes, the kernel's, the walk's and the plain version's
-    ms, and the bound."""
+    that limit, and in float32 so must the plain walk with one TF32 product
+    (``persistent_checks.lstm_scan_tf32``, the control that tells 3xTF32
+    from a kernel below float32) in each output; two launches must be bitwise equal (remat runs the forward
+    in both passes); K5 (K7 for K6p) on the kernel's residuals must stay
+    within BF16_TOL (bfloat16; GRAD_TOL in float32) of K5's plain version on
+    the plain forward's, relative.  Records per dtype the plan (checked
+    against the kernel's own byte count), the route the rule takes, the
+    kernel's, the walk's, the plain version's and a one-direction
+    ``torch.nn.LSTM`` training forward's ms, and the bound."""
     import torch
     from urgent2026_challenge_track1_tpu_torch.ops import _build
     from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
     from urgent2026_challenge_track1_tpu_torch.ops import persistent_checks as PC
 
-    bf16 = torch.bfloat16
     sms = _sm_count(device)
     lib = _build.load_library()
     out = []
-    for what, R, T, H, per_utt in TRAIN_ROUTE_SHAPES:
-        _, _, wh, _, xp, _ = _kernel_inputs(R, T, bf16, device, R + T + H, hid=H)
-        dout = (0.1 * torch.randn((R, T, H), generator=torch.Generator().manual_seed(R))).to(
-            device, bf16)
-        plan = K.plan_persistent(R, 0, H, sms, dirs=1)
-        if plan is None:
-            fail(f"K4p/K6p: no plan at {what} (R={R}, H={H})")
-        kernel_smem = lib.lstm_persistent_smem(0, H, plan.U, plan.rows, plan.chunk,
-                                                int(plan.c_in_smem))
-        if kernel_smem != plan.smem:
-            fail(f"K4p/K6p plan at {what}: {plan.smem} bytes, the kernel reckons {kernel_smem}")
-        lengths = valid = None
-        if per_utt is not None:
-            lengths = torch.tensor(per_utt, dtype=torch.int32).repeat_interleave(
-                R // len(per_utt)).clamp(max=T).to(device)
-            valid = torch.arange(T, device=device)[None, :] < lengths[:, None]
-        valid_steps = R * T if lengths is None else int(lengths.sum())
-        bounds = _train_bounds(R, T, valid_steps, H)
-        rec = {"what": what, "R": R, "T": T, "H": H, "valid_steps": valid_steps,
-               "plan": {"S": plan.S, "G": plan.G, "U": plan.U, "rows": plan.rows,
-                        "chunk": plan.chunk, "c_in_smem": plan.c_in_smem,
-                        "smem_bytes": plan.smem, "ctas": plan.ctas},
-               "route": "persistent" if K.scan_route(bf16, R, H, sms) is not None else "walk"}
-        runs = {}
-        for reverse, tag in ((False, "lstm_train_fwd"), (True, "lstm_train_fwd_reverse")):
-            runs[tag] = (
-                lambda p=plan, r=reverse: K.lstm_train_fwd_persistent(xp, wh[0], r, p),
-                lambda r=reverse: K.lstm_train_fwd_walk(xp, wh[0], r),
-                lambda r=reverse: K.lstm_train_fwd_plain(xp, wh[0], r),
-                lambda r=reverse: PC.lstm_scan_stale_h(xp, wh[0], r, residuals=True),
-                lambda res, r=reverse: K.lstm_train_bwd(*res, dout, wh[0], r),
-                lambda res, r=reverse: K.lstm_train_bwd_plain(*res, dout, wh[0], r),
-                "lstm_train_fwd")
-        if lengths is not None:
-            dmask = dout * valid[..., None]
-            runs["lstm_revmasked_train_fwd"] = (
-                lambda p=plan: K.lstm_revmasked_train_fwd_persistent(xp, wh[1], lengths, p),
-                lambda: K.lstm_revmasked_train_fwd_walk(xp, wh[1], lengths),
-                lambda: K.lstm_revmasked_train_fwd_plain(xp, wh[1], lengths),
-                lambda: PC.lstm_scan_stale_h(xp, wh[1], True, lengths, residuals=True),
-                lambda res: K.lstm_revmasked_bwd(*res, lengths, dmask, wh[1]),
-                lambda res: K.lstm_revmasked_bwd_plain(*res, lengths, dmask, wh[1]),
-                "lstm_revmasked_train_fwd")
-        for tag, (kern, walk_fn, plain_fn, stale_fn, bwd, bwd_plain, name) in runs.items():
-            got, again, ref = kern(), kern(), plain_fn()
-            torch.cuda.synchronize()
-            limits = [PC.ulp_limit(r) for r in ref]
-            e_plain = [_err(g, r) for g, r in zip(got, ref)]
-            e_stale = [_err(f, r) for f, r in zip(stale_fn(), ref)]
-            bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
-            e_grad = max(_rel(g, r) for g, r in zip(bwd(got), bwd_plain(ref)))
-            del got, again, ref
-            ms = _time_ms(kern)
-            bound_ms, bound_by = bounds[name]
-            rec[tag] = {
-                "max_abs_err_vs_plain": dict(zip(RESIDUALS, e_plain)),
-                "limit": dict(zip(RESIDUALS, limits)),
-                "max_err_over_limit": max(e / lim for e, lim in zip(e_plain, limits)),
-                "planted_stale_h_err": dict(zip(RESIDUALS, e_stale)),
-                "planted_stale_h_over_limit": min(e / lim for e, lim in zip(e_stale, limits)),
-                "bitwise_repeat": bitwise, "grad_chain_rel_err": e_grad,
-                "ms": ms, "us_per_step": ms * 1e3 / T,
-                "walk_ms": _time_ms(walk_fn), "plain_ms": _time_ms(plain_fn, reps=3, warmup=1),
-                "bound_ms": bound_ms, "bound_by": bound_by}
-            r = rec[tag]
-            print(f"[train routes] {what} {tag} R={R} T={T} H={H}: plan S={plan.S} G={plan.G} "
-                  f"U={plan.U} rows={plan.rows} chunk={plan.chunk} c_in_smem={plan.c_in_smem} "
-                  f"smem={plan.smem} B ({plan.ctas} CTAs); persistent {ms:.3f} ms "
-                  f"({r['us_per_step']:.2f} us a step), walk {r['walk_ms']:.3f} ms, plain "
-                  f"{r['plain_ms']:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}); max|p - plain| "
-                  f"h, gates, c {[f'{e:.3e}' for e in e_plain]} (limits "
-                  f"{[f'{lim:.3e}' for lim in limits]}); planted stale h "
-                  f"{[f'{e:.3e}' for e in e_stale]}; two launches bitwise equal: {bitwise}; "
-                  f"backward on its residuals max rel|d| {e_grad:.3e} (limit {BF16_TOL}); "
-                  f"rule: {rec['route']}")
-            for res_name, e, f, lim in zip(RESIDUALS, e_plain, e_stale, limits):
-                if not e < lim:
-                    fail(f"{what} {tag}: {res_name} vs plain {e:.3e} >= {lim:.3e}")
-                if not f >= lim:
-                    fail(f"{what} {tag}: a stale h moves {res_name} by {f:.3e}, under the limit "
-                         f"{lim:.3e}: the check cannot see a barrier fault")
-            if not bitwise:
-                fail(f"{what} {tag}: two launches differ")
-            if not e_grad < BF16_TOL:
-                fail(f"{what} {tag}: the backward on its residuals {e_grad:.3e} >= {BF16_TOL}")
-        out.append(rec)
-        del xp, wh, dout
+    for dt_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        elem = torch.tensor([], dtype=dtype).element_size()
+        grad_tol = BF16_TOL if dtype == torch.bfloat16 else GRAD_TOL
+        for what, R, T, H, per_utt in TRAIN_ROUTE_SHAPES:
+            _, _, wh, _, xp, _ = _kernel_inputs(R, T, dtype, device, R + T + H, hid=H)
+            dout = (0.1 * torch.randn((R, T, H), generator=torch.Generator().manual_seed(R))).to(
+                device, dtype)
+            plan = K.plan_persistent(R, 0, H, sms, dirs=1, elem=elem)
+            if plan is None:
+                fail(f"K4p/K6p {dt_name}: no plan at {what} (R={R}, H={H})")
+            kernel_smem = lib.lstm_persistent_smem(0, H, plan.U, plan.rows, plan.chunk,
+                                                    int(plan.c_in_smem), elem)
+            if kernel_smem != plan.smem:
+                fail(f"K4p/K6p {dt_name} plan at {what}: {plan.smem} bytes, the kernel reckons "
+                     f"{kernel_smem}")
+            lengths = valid = None
+            if per_utt is not None:
+                lengths = torch.tensor(per_utt, dtype=torch.int32).repeat_interleave(
+                    R // len(per_utt)).clamp(max=T).to(device)
+                valid = torch.arange(T, device=device)[None, :] < lengths[:, None]
+            valid_steps = R * T if lengths is None else int(lengths.sum())
+            bounds = _train_bounds(R, T, valid_steps, H, dt_name)
+            route = K.scan_route(dtype, R, H, sms, store=True)
+            rec = {"what": what, "R": R, "T": T, "H": H, "dtype": dt_name,
+                   "valid_steps": valid_steps,
+                   "plan": {"S": plan.S, "G": plan.G, "U": plan.U, "rows": plan.rows,
+                            "chunk": plan.chunk, "c_in_smem": plan.c_in_smem,
+                            "smem_bytes": plan.smem, "ctas": plan.ctas, "elem": plan.elem},
+                   "route": "persistent" if route == plan else "walk"}
+            runs = {}
+            for reverse, tag in ((False, "lstm_train_fwd"), (True, "lstm_train_fwd_reverse")):
+                runs[tag] = (
+                    lambda p=plan, r=reverse: K.lstm_train_fwd_persistent(xp, wh[0], r, p),
+                    lambda r=reverse: K.lstm_train_fwd_walk(xp, wh[0], r),
+                    lambda r=reverse: K.lstm_train_fwd_plain(xp, wh[0], r),
+                    lambda r=reverse: PC.lstm_scan_stale_h(xp, wh[0], r, residuals=True),
+                    lambda res, r=reverse: K.lstm_train_bwd(*res, dout, wh[0], r),
+                    lambda res, r=reverse: K.lstm_train_bwd_plain(*res, dout, wh[0], r),
+                    lambda r=reverse: PC.lstm_scan_tf32(xp, wh[0], r, residuals=True),
+                    "lstm_train_fwd")
+            if lengths is not None:
+                dmask = dout * valid[..., None]
+                runs["lstm_revmasked_train_fwd"] = (
+                    lambda p=plan: K.lstm_revmasked_train_fwd_persistent(xp, wh[1], lengths, p),
+                    lambda: K.lstm_revmasked_train_fwd_walk(xp, wh[1], lengths),
+                    lambda: K.lstm_revmasked_train_fwd_plain(xp, wh[1], lengths),
+                    lambda: PC.lstm_scan_stale_h(xp, wh[1], True, lengths, residuals=True),
+                    lambda res: K.lstm_revmasked_bwd(*res, lengths, dmask, wh[1]),
+                    lambda res: K.lstm_revmasked_bwd_plain(*res, lengths, dmask, wh[1]),
+                    lambda: PC.lstm_scan_tf32(xp, wh[1], True, lengths, residuals=True),
+                    "lstm_revmasked_train_fwd")
+            for tag, (kern, walk_fn, plain_fn, stale_fn, bwd, bwd_plain, tf32_fn,
+                      name) in runs.items():
+                got, again, ref = kern(), kern(), plain_fn()
+                torch.cuda.synchronize()
+                limits = [PC.persistent_limit(r) for r in ref]
+                e_plain = [_err(g, r) for g, r in zip(got, ref)]
+                e_stale = [_err(f, r) for f, r in zip(stale_fn(), ref)]
+                e_tf32 = ([_err(f, r) for f, r in zip(tf32_fn(), ref)]
+                          if dtype == torch.float32 else None)
+                bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+                e_grad = max(_rel(g, r) for g, r in zip(bwd(got), bwd_plain(ref)))
+                del got, again, ref
+                ms = _time_ms(kern)
+                bound_ms, bound_by = bounds[name]
+                rec[tag] = {
+                    "max_abs_err_vs_plain": dict(zip(RESIDUALS, e_plain)),
+                    "limit": dict(zip(RESIDUALS, limits)),
+                    "max_err_over_limit": max(e / lim for e, lim in zip(e_plain, limits)),
+                    "planted_stale_h_err": dict(zip(RESIDUALS, e_stale)),
+                    "planted_stale_h_over_limit": min(e / lim for e, lim in zip(e_stale, limits)),
+                    "tf32_control_err": e_tf32 and dict(zip(RESIDUALS, e_tf32)),
+                    "tf32_control_over_limit": e_tf32 and min(
+                        e / lim for e, lim in zip(e_tf32, limits)),
+                    "bitwise_repeat": bitwise, "grad_chain_rel_err": e_grad,
+                    "ms": ms, "us_per_step": ms * 1e3 / T,
+                    "walk_ms": _time_ms(walk_fn),
+                    "plain_ms": _time_ms(plain_fn, reps=3, warmup=1),
+                    "bound_ms": bound_ms, "bound_by": bound_by}
+                r = rec[tag]
+                print(f"[train routes] {dt_name} {what} {tag} R={R} T={T} H={H}: plan S={plan.S} "
+                      f"G={plan.G} U={plan.U} rows={plan.rows} chunk={plan.chunk} c_in_smem="
+                      f"{plan.c_in_smem} smem={plan.smem} B ({plan.ctas} CTAs); persistent "
+                      f"{ms:.3f} ms ({r['us_per_step']:.2f} us a step), walk {r['walk_ms']:.3f} "
+                      f"ms, plain {r['plain_ms']:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+                      f"max|p - plain| h, gates, c {[f'{e:.3e}' for e in e_plain]} (limits "
+                      f"{[f'{lim:.3e}' for lim in limits]}); planted stale h "
+                      f"{[f'{e:.3e}' for e in e_stale]}; one TF32 product "
+                      f"{[f'{e:.3e}' for e in e_tf32] if e_tf32 else 'n/a'}; "
+                      f"two launches bitwise equal: {bitwise}; "
+                      f"backward on its residuals max rel|d| {e_grad:.3e} (limit {grad_tol}); "
+                      f"rule: {rec['route']}")
+                for res_name, e, f, lim in zip(RESIDUALS, e_plain, e_stale, limits):
+                    if not e < lim:
+                        fail(f"{dt_name} {what} {tag}: {res_name} vs plain {e:.3e} >= {lim:.3e}")
+                    if not f >= lim:
+                        fail(f"{dt_name} {what} {tag}: a stale h moves {res_name} by {f:.3e}, "
+                             f"under the limit {lim:.3e}: the check cannot see a barrier fault")
+                for res_name, e, lim in zip(RESIDUALS, e_tf32 or (), limits):
+                    if not e >= lim:
+                        fail(f"{dt_name} {what} {tag}: one TF32 product moves {res_name} by "
+                             f"{e:.3e}, under the limit {lim:.3e}: the check cannot tell 3xTF32 "
+                             "from a kernel below float32")
+                if not bitwise:
+                    fail(f"{dt_name} {what} {tag}: two launches differ")
+                if not e_grad < grad_tol:
+                    fail(f"{dt_name} {what} {tag}: the backward on its residuals {e_grad:.3e} "
+                         f">= {grad_tol}")
+            if rec["route"] != "persistent":
+                fail(f"{dt_name} {what}: the route rule takes the walk where a plan exists")
+            if H != 197:  # the superset's time at the train steps' shapes
+                rec["nn_lstm_train_forward_ms"] = _lstm_forward_reference_ms(device, R, T, H,
+                                                                              dtype, True)
+            out.append(rec)
+            del xp, wh, dout
     return out
 
 
@@ -1003,6 +1065,44 @@ def phase_training(workdir: Path):
     return counts, routes
 
 
+WIDE_CHANNELS = 510  # H = 1020: no float32 K4p/K6p plan fits, so K4 and K6 take their walks
+WIDE_RUN = f"one float32 train step at {WIDE_CHANNELS} channels x 1 layer (B=1, 2 s at 48 kHz)"
+
+
+def phase_walk_route(device):
+    """One float32 train step of the discriminative model at a width where
+    no float32 K4p/K6p plan fits (WIDE_CHANNELS, H = 1020; 1 layer, B=1,
+    2 s at 48 kHz): K4 and K6 take their walks there, as do K5 and K7, and
+    no K1-K3 runs.  Returns the routes of that step (the counts set to 0
+    just before it)."""
+    import torch
+    from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
+    from urgent2026_challenge_track1_tpu_torch.train import trainer
+
+    cfg = _train_config(Path("."), model_configs={"num_channel": WIDE_CHANNELS, "num_layer": 1})
+    bundle = trainer.build_model(cfg)
+    model = trainer.init_params(cfg.seed, bundle, device)
+    step = trainer.make_train_step(bundle, cfg, 48000)
+    H = 2 * WIDE_CHANNELS
+    if K.scan_route(torch.float32, 34, H, _sm_count(device), store=True) is not None:
+        fail(f"a float32 K4p plan fits at H = {H}: this phase cannot drive the walks")
+    K.reset_launch_counts()
+    m = step(model, trainer.make_optimizer(cfg, model), *_train_batch(device, B=1))
+    torch.cuda.synchronize()
+    counts, routes = K.launch_counts(), _routes()
+    print(f"[walk route] {WIDE_RUN}: loss {float(m['loss']):.6g}, launches "
+          f"{ {k: v for k, v in counts.items() if v} }, routes {routes}")
+    if not bool(torch.isfinite(m["loss"])) or m["nan_grad"]:
+        fail("the wide float32 train step gave a non-finite loss or gradient")
+    _check_no_lean_kernels("the wide float32 train step", counts)
+    for name in TRAIN_ROUTED:
+        r = routes[name]
+        if r["walk"] <= 0 or r["persistent"]:
+            fail(f"the wide float32 train step: {name} routes {r}, expected the walk only")
+    del model
+    return routes
+
+
 # ---------------------------------------------------------------------------
 # phase 4
 # ---------------------------------------------------------------------------
@@ -1104,8 +1204,8 @@ def _sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def _bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -1127,13 +1227,18 @@ def _bounds(R, T, lengths_sum, n_in=N_IN, hid=HID):
     }
 
 
-def _train_bounds(R, T, valid_steps, hid=HID):
-    """Least time (ms) for each training kernel's bf16 work: forward 2 H 4H
+def _train_bounds(R, T, valid_steps, hid=HID, dtype="bfloat16"):
+    """Least time (ms) for each training kernel's work: forward 2 H 4H
     operations per valid (row, step), reading x_proj and W_hh and writing h,
     gates and c; backward 4 H 4H (the dh and dW products), reading gates, c,
     h, dout and W_hh and writing dx_proj and dW in f32.  The masked pair
-    (K6, K7) counts the valid steps only, as K3; unmasked valid_steps = R T."""
-    H, b = hid, 2
+    (K6, K7) counts the valid steps only, as K3; unmasked valid_steps = R T.
+    bfloat16: 2-byte elements, bf16 operations at PEAK_BF16_FLOPS; float32:
+    4-byte elements, the same operations at PEAK_TF32_FLOPS (the card's
+    fastest rate for f32 operands; what 3xTF32 costs over that is the
+    kernel's, not the function's)."""
+    H, b = hid, (2 if dtype == "bfloat16" else 4)
+    peak = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_TF32_FLOPS
     out = {}
     for name, n, lens in (("lstm_train_fwd", R * T, 0), ("lstm_train_bwd", R * T, 0),
                           ("lstm_revmasked_train_fwd", valid_steps, 4 * R),
@@ -1144,7 +1249,7 @@ def _train_bounds(R, T, valid_steps, hid=HID):
         else:
             flops = 4 * n * H * 4 * H
             nbytes = b * (n * 4 * H + 3 * n * H + H * 4 * H + n * 4 * H) + 4 * H * 4 * H + lens
-        out[name] = _bound(flops, nbytes)
+        out[name] = _bound(flops, nbytes, peak)
     return out
 
 
@@ -1173,9 +1278,11 @@ def _routes():
 
 def _check_routes(what, dtype_name, routes, kernels=INFERENCE_KERNELS):
     """Each of ``kernels`` ran, on its persistent route only (K1p-K7p) in
-    bfloat16 and on its walk only in float32."""
-    want = "persistent" if dtype_name == "bfloat16" else "walk"
+    bfloat16; in float32 K4 and K6 on theirs (K4p-f32, K6p-f32) and the
+    others on their walks only."""
     for name in kernels:
+        persistent = dtype_name == "bfloat16" or name in F32_PERSISTENT
+        want = "persistent" if persistent else "walk"
         r = routes[name]
         if r[want] <= 0 or sum(r.values()) != r[want]:
             fail(f"{what}: {name} routes {r}, expected {want} only")
@@ -1205,7 +1312,8 @@ def _train_step_times(device):
     6) over 5 steps after 2 warm-up steps, in float32 and bfloat16, with the
     peak device memory and the kernel launches of one step (none of K1-K3:
     remat runs the training kernels in both passes) and K4's and K6's
-    routes there (K4p/K6p only in bfloat16, the walks only in float32)."""
+    routes there (K4p-K7p only in bfloat16; K4p-f32/K6p-f32 and the K5/K7
+    walks only in float32)."""
     import torch
     from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
     from urgent2026_challenge_track1_tpu_torch.train import trainer
@@ -1272,8 +1380,8 @@ def _row_tile_sweep(device):
     return out
 
 
-def phase_times(device, main_counts, train_counts, errs, train_errs, k1_routes, scan_routes,
-                train_routes_rows, bwd_routes_rows, main_routes, train_routes):
+def phase_times(device, main_counts, errs, train_errs, k1_routes, scan_routes,
+                train_routes_rows, bwd_routes_rows, main_routes, train_routes, wide_routes):
     import torch
     from urgent2026_challenge_track1_tpu_torch.dsp.stft import STFTConfig
     from urgent2026_challenge_track1_tpu_torch.models.bsrnn import (
@@ -1394,6 +1502,9 @@ def phase_times(device, main_counts, train_counts, errs, train_errs, k1_routes, 
                 "planted_stale_h_err": min(r[name]["planted_stale_h_err"] for r in scan_routes),
                 "ms": p["ms"], "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"],
                 "bound_by": p["bound_by"], "library_ms": None,
+                "reference_ms": one_utt["nn_lstm_forward_ms"],
+                "reference": "superset: adds the W_ih products (torch.nn.LSTM bfloat16, one "
+                             "direction, N = H / 2: an inference forward)",
                 "shape": {"R": one_utt["R"], "T": one_utt["T"], "H": one_utt["H"],
                           "valid_steps": one_utt["valid_steps"]},
                 "dtype": "bfloat16", "plan": one_utt["plan"],
@@ -1440,7 +1551,10 @@ def phase_times(device, main_counts, train_counts, errs, train_errs, k1_routes, 
     per_step = steps["bfloat16"]["launches_per_step"]
     for rec in records:  # K1-K3 on either route: none (remat runs the training kernels)
         rec["launches_per_train_step"] = per_step.get(rec["name"].removesuffix("_persistent"), 0)
-    records += _train_kernel_times(device, train_counts, train_errs, steps)
+    walk_launches = {name: (train_routes[name]["walk"], "training path (float32)")
+                     for name in ("lstm_train_bwd", "lstm_revmasked_bwd")}
+    walk_launches.update({name: (wide_routes[name]["walk"], WIDE_RUN) for name in F32_PERSISTENT})
+    records += _train_kernel_times(device, walk_launches, train_errs, steps)
     records += _train_route_records(train_routes_rows, steps)
     records += _bwd_route_records(bwd_routes_rows, steps)
     print("[times] " + json.dumps({"train_step": steps}))
@@ -1448,50 +1562,73 @@ def phase_times(device, main_counts, train_counts, errs, train_errs, k1_routes, 
 
 
 def _train_route_records(rows, steps):
-    """K4p's and K6p's records from the train_routes phase: times at the
-    disc time path (the band path and the flow shapes beside it as band_*
-    and flow_* keys), the worst error, limit ratio, planted fault and
-    gradient chain over every shape; ``launches`` is K4's / K6's persistent
-    route count over one bfloat16 disc train step (the counts set to 0
-    before it and read after it)."""
-    by_what = {r["what"]: r for r in rows}
+    """K4p's and K6p's records from the train_routes phase, one per dtype
+    (the float32 route's named ``*_persistent_f32``): times at the disc time
+    path (the band path and the flow shapes beside it as band_* and flow_*
+    keys), the worst error, limit ratio, planted fault and gradient chain
+    over every shape; ``launches`` is K4's / K6's persistent route count over
+    one disc train step in that dtype (the counts set to 0 before it and read
+    after it); ``reference_ms`` a one-direction ``torch.nn.LSTM`` training
+    forward at the same shape and dtype (a superset: it adds the W_ih
+    products)."""
+    from urgent2026_challenge_track1_tpu_torch.ops import persistent_checks as PC
+
     out = []
-    for name, tags in (("lstm_train_fwd", ("lstm_train_fwd", "lstm_train_fwd_reverse")),
-                       ("lstm_revmasked_train_fwd", ("lstm_revmasked_train_fwd",))):
-        runs = [r[t] for r in rows for t in tags if t in r]
+    for dt_name, suffix, tol_rule, grad_tol in (
+            ("bfloat16", "", "4 bf16 ulps at max|plain| per output (h, gates, c) and shape",
+             BF16_TOL),
+            ("float32", "_f32", f"F32_LIMIT ({PC.F32_LIMIT:g}) per output (h, gates, c) and "
+             "shape", GRAD_TOL)):
+        dt_rows = [r for r in rows if r["dtype"] == dt_name]
+        by_what = {r["what"]: r for r in dt_rows}
         disc, flow = by_what["disc time B=4"], by_what["flow time B=2"]
-        d, f = disc[tags[0]], flow[tags[0]]
-        rec = {
-            "name": f"{name}_persistent", "route": "cuda", "route_of_kernel": "persistent",
-            "source": f"{PKG}/csrc/lstm_persistent.cu", "replaces": REPLACES[name],
-            "launches": steps["bfloat16"]["routes_per_step"][name]["persistent"],
-            "launches_run": "one bfloat16 train step (B=4, 2 s at 48 kHz, 196 x 6)",
-            "max_abs_err": max(max(r["max_abs_err_vs_plain"].values()) for r in runs),
-            "max_err_over_limit": max(r["max_err_over_limit"] for r in runs),
-            "max_abs_err_f32": None,
-            "tolerance_rule": "4 bf16 ulps at max|plain| per output (h, gates, c) and shape",
-            "planted_stale_h_over_limit": min(r["planted_stale_h_over_limit"] for r in runs),
-            "bitwise_repeat": all(r["bitwise_repeat"] for r in runs),
-            "grad_chain_rel_err": max(r["grad_chain_rel_err"] for r in runs),
-            "grad_chain_tolerance": BF16_TOL,
-            "ms": d["ms"], "plain_ms": d["plain_ms"], "walk_ms": d["walk_ms"],
-            "bound_ms": d["bound_ms"], "bound_by": d["bound_by"], "library_ms": None,
-            "shape": {k: disc[k] for k in ("R", "T", "H", "valid_steps")}, "dtype": "bfloat16",
-            "plan": disc["plan"], "launches_per_train_step": {
-                dt: steps[dt]["routes_per_step"][name] for dt in ("float32", "bfloat16")},
-            "flow_ms": f["ms"], "flow_plain_ms": f["plain_ms"], "flow_walk_ms": f["walk_ms"],
-            "flow_bound_ms": f["bound_ms"], "flow_bound_by": f["bound_by"],
-            "flow_library_ms": None, "flow_plan": flow["plan"],
-            "flow_shape": {k: flow[k] for k in ("R", "T", "H", "valid_steps")},
-            "route_table": [{k: v for k, v in r.items() if k not in RUN_TAGS or k in tags}
-                            for r in rows],
-        }
-        if name == "lstm_train_fwd":  # the band paths
-            for key, what in (("band", "disc band B=4"), ("flow_band", "flow band B=2")):
-                b = by_what[what]
-                rec.update({f"{key}_ms": b[tags[0]]["ms"], f"{key}_walk_ms": b[tags[0]]["walk_ms"],
-                            f"{key}_bound_ms": b[tags[0]]["bound_ms"], f"{key}_plan": b["plan"]})
-        out.append(rec)
+        run = f"one {dt_name} train step (B=4, 2 s at 48 kHz, 196 x 6)"
+        for name, tags in (("lstm_train_fwd", ("lstm_train_fwd", "lstm_train_fwd_reverse")),
+                           ("lstm_revmasked_train_fwd", ("lstm_revmasked_train_fwd",))):
+            runs = [r[t] for r in dt_rows for t in tags if t in r]
+            d, f = disc[tags[0]], flow[tags[0]]
+            rec = {
+                "name": f"{name}_persistent{suffix}", "route": "cuda",
+                "route_of_kernel": "persistent",
+                "source": f"{PKG}/csrc/lstm_persistent.cu", "replaces": REPLACES[name],
+                "launches": steps[dt_name]["routes_per_step"][name]["persistent"],
+                "launches_run": run,
+                "max_abs_err": max(max(r["max_abs_err_vs_plain"].values()) for r in runs),
+                "max_err_over_limit": max(r["max_err_over_limit"] for r in runs),
+                "max_abs_err_f32": (max(max(r["max_abs_err_vs_plain"].values()) for r in runs)
+                                    if suffix else None),
+                "tolerance_rule": tol_rule,
+                "planted_stale_h_over_limit": min(r["planted_stale_h_over_limit"] for r in runs),
+                "tf32_control_over_limit": (min(r["tf32_control_over_limit"] for r in runs)
+                                            if suffix else None),
+                "bitwise_repeat": all(r["bitwise_repeat"] for r in runs),
+                "grad_chain_rel_err": max(r["grad_chain_rel_err"] for r in runs),
+                "grad_chain_tolerance": grad_tol,
+                "ms": d["ms"], "plain_ms": d["plain_ms"], "walk_ms": d["walk_ms"],
+                "bound_ms": d["bound_ms"], "bound_by": d["bound_by"], "library_ms": None,
+                "reference_ms": disc["nn_lstm_train_forward_ms"],
+                "reference": f"superset: adds the W_ih products (torch.nn.LSTM {dt_name}, one "
+                             "direction, N = H / 2: a training forward)",
+                "shape": {k: disc[k] for k in ("R", "T", "H", "valid_steps")}, "dtype": dt_name,
+                "plan": disc["plan"], "launches_per_train_step": {
+                    dt: steps[dt]["routes_per_step"][name] for dt in ("float32", "bfloat16")},
+                "flow_ms": f["ms"], "flow_plain_ms": f["plain_ms"], "flow_walk_ms": f["walk_ms"],
+                "flow_bound_ms": f["bound_ms"], "flow_bound_by": f["bound_by"],
+                "flow_library_ms": None, "flow_reference_ms": flow["nn_lstm_train_forward_ms"],
+                "flow_plan": flow["plan"],
+                "flow_shape": {k: flow[k] for k in ("R", "T", "H", "valid_steps")},
+                "route_table": [{k: v for k, v in r.items() if k not in RUN_TAGS or k in tags}
+                                for r in dt_rows],
+            }
+            if name == "lstm_train_fwd":  # the band paths
+                for key, what in (("band", "disc band B=4"), ("flow_band", "flow band B=2")):
+                    b = by_what[what]
+                    rec.update({f"{key}_ms": b[tags[0]]["ms"],
+                                f"{key}_walk_ms": b[tags[0]]["walk_ms"],
+                                f"{key}_bound_ms": b[tags[0]]["bound_ms"],
+                                f"{key}_reference_ms": b["nn_lstm_train_forward_ms"],
+                                f"{key}_plan": b["plan"]})
+            out.append(rec)
     return out
 
 
@@ -1574,11 +1711,13 @@ def _bwd_route_records(rows, steps):
     return out
 
 
-def _train_kernel_times(device, train_counts, train_errs, steps):
-    """K4-K7 at the training step's shapes, bf16 (their walks, which the
-    float32 steps run): kernel, plain version, bound.  K4/K5 are
-    timed on the time path and on the band path (the record holds the time
-    path, and the band path's ms and bound as band_* keys)."""
+def _train_kernel_times(device, walk_launches, train_errs, steps):
+    """K4-K7 at the training step's shapes, bf16 (their walks: the float32
+    steps run K5's and K7's, and K4's and K6's where no float32 plan fits):
+    kernel, plain version, bound.  K4/K5 are timed on the time path and on
+    the band path (the record holds the time path, and the band path's ms
+    and bound as band_* keys).  ``walk_launches``: {kernel: (walk launches,
+    the run that drove them)}."""
     import torch
     from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
 
@@ -1627,7 +1766,8 @@ def _train_kernel_times(device, train_counts, train_errs, steps):
                     "source": f"{PKG}/csrc/lstm_kernels.cu",
                     "replaces": REPLACES[name],
                     **({"route_of_kernel": "walk"} if name in TRAIN_ROUTED else {}),
-                    "launches": train_counts[name], "launches_run": "training path",
+                    "launches": walk_launches[name][0],
+                    "launches_run": walk_launches[name][1],
                     "max_abs_err": e_abs, "max_rel_err": e_rel,
                     "max_abs_err_f32": train_errs[name, "float32"][0],
                     "max_rel_err_f32": train_errs[name, "float32"][1],
@@ -1738,8 +1878,8 @@ def phase_flow_training(workdir: Path):
     """``train_se.run`` with model_type=flowse at 384 x 6: 2 epochs of 2 steps
     (B=2, 2 s at 48 kHz) with validation (the N = 10 sampler) and checkpoints
     every 2 steps, then a run that resumes into a third epoch.  Checks the
-    EMA, the frozen t_proj_w and the resume.  Returns the first run's launch
-    counts and the newest checkpoint."""
+    EMA, the frozen t_proj_w and the resume.  Returns the first run's
+    routes and the newest checkpoint."""
     import torch
     from urgent2026_challenge_track1_tpu_torch import train_se
     from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
@@ -1798,7 +1938,7 @@ def phase_flow_training(workdir: Path):
             fail(f"kernel {fn.__name__} was not launched on the flow training path")
     _check_routes("the float32 flow training path", "float32", routes,
                   INFERENCE_KERNELS + TRAIN_ROUTED)
-    return counts, exp / "checkpoints" / "step_6.pt"
+    return routes, exp / "checkpoints" / "step_6.pt"
 
 
 def phase_flow_cli(workdir: Path, ckpt: Path):
@@ -2082,11 +2222,12 @@ def _new_kernel_times(device, ab, ab_counts, new_errs):
     return list(records.values())
 
 
-def _flow_kernel_times(device, records, flow_counts, wide_errs, wide_train_errs, k1_routes,
+def _flow_kernel_times(device, records, flow_routes, wide_errs, wide_train_errs, k1_routes,
                        scan_routes, flow_cli_routes):
     """K1-K7 (their walks) at the flow training shapes (N = 384, H = 768),
     bf16: kernel, plain version and bound, added to the K1-K7 records
-    as flow_* keys; K1p's and cuDNN's times there are the k1_routes phase's
+    as flow_* keys (flow_launches: the walk's launches on the float32 flow
+    training path); K1p's and cuDNN's times there are the k1_routes phase's
     (flow band B=2), K2p's and K3p's the scan_routes phase's (flow CLI)."""
     import torch
     from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
@@ -2132,7 +2273,8 @@ def _flow_kernel_times(device, records, flow_counts, wide_errs, wide_train_errs,
             e = errs[name, "bfloat16"]
             by_name[name].update({
                 "flow_ms": ms, "flow_plain_ms": plain_ms, "flow_bound_ms": bound_ms,
-                "flow_bound_by": bound_by, "flow_launches": flow_counts[name],
+                "flow_bound_by": bound_by, "flow_launches": flow_routes[name]["walk"],
+                "flow_launches_run": "flow training path (float32)",
                 "flow_shape": {"R": R, "T": T, "N": FLOW_N, "H": FLOW_H},
                 "flow_max_abs_err": e if name in INFERENCE_KERNELS else e[0],
             })
@@ -2168,7 +2310,8 @@ def _flow_kernel_times(device, records, flow_counts, wide_errs, wide_train_errs,
         by_name[f"{name}_persistent"].update({
             "flow_ms": p["ms"], "flow_plain_ms": p["plain_ms"], "flow_walk_ms": p["walk_ms"],
             "flow_bound_ms": p["bound_ms"], "flow_bound_by": p["bound_by"],
-            "flow_library_ms": None, "flow_launches": flow_cli_routes[name]["persistent"],
+            "flow_library_ms": None, "flow_reference_ms": flow["nn_lstm_forward_ms"],
+            "flow_launches": flow_cli_routes[name]["persistent"],
             "flow_launches_run": "flow inference CLI",
             "flow_shape": {"R": flow["R"], "T": flow["T"], "H": FLOW_H,
                            "valid_steps": flow["valid_steps"]},
@@ -2299,25 +2442,27 @@ def main() -> int:
     bwd_routes_rows = timed("bwd_routes", phase_bwd_routes, device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=REPO) as tmp:
         counts, main_routes = timed("inference path", phase_main_path, Path(tmp))
-        train_counts, train_routes = timed("training path", phase_training, Path(tmp))
-        flow_counts, flow_ckpt = timed("flow training path", phase_flow_training, Path(tmp))
+        _, train_routes = timed("training path", phase_training, Path(tmp))
+        flow_routes, flow_ckpt = timed("flow training path", phase_flow_training, Path(tmp))
         _, flow_cli_routes = timed("flow inference path", phase_flow_cli, Path(tmp), flow_ckpt)
+    wide_routes = timed("walk route", phase_walk_route, device)
     ab, ab_counts = timed("a/b arms", phase_ab_arms, device)
     timed("card vs cpu forward", phase_card_vs_cpu, device)
     timed("card vs cpu gradients", phase_grads_card_vs_cpu, device)
     timed("flow card vs cpu", phase_flow_card_vs_cpu, device)
-    records = timed("times", phase_times, device, counts, train_counts, errs, train_errs,
-                    k1_routes, scan_routes, train_routes_rows, bwd_routes_rows, main_routes,
-                    train_routes)
+    records = timed("times", phase_times, device, counts, errs, train_errs, k1_routes,
+                    scan_routes, train_routes_rows, bwd_routes_rows, main_routes, train_routes,
+                    wide_routes)
     records += timed("times K8-K10", _new_kernel_times, device, ab, ab_counts, new_errs)
-    timed("times K1-K7 flow shapes", _flow_kernel_times, device, records, flow_counts,
+    timed("times K1-K7 flow shapes", _flow_kernel_times, device, records, flow_routes,
           wide_errs, wide_train_errs, k1_routes, scan_routes, flow_cli_routes)
     flow_times = timed("times flow", _flow_step_and_enhance_times, device)
-    for rec in records:  # K4p-K7p and the dW kernel in one bfloat16 flow train step
-        if rec["name"] in (f"{n}_persistent" for n in TRAIN_ROUTED):
-            rec["flow_launches"] = flow_times["bfloat16"]["routes_per_step"][
-                rec["name"].removesuffix("_persistent")]["persistent"]
-            rec["flow_launches_run"] = "one bfloat16 flow train step (B=2, 2 s, 384 x 6)"
+    for rec in records:  # K4p-K7p and the dW kernel in one flow train step of their dtype
+        if rec["name"] in (f"{n}_persistent{sfx}" for n in TRAIN_ROUTED for sfx in ("", "_f32")):
+            dt = rec["dtype"]
+            name = rec["name"].removesuffix("_f32").removesuffix("_persistent")
+            rec["flow_launches"] = flow_times[dt]["routes_per_step"][name]["persistent"]
+            rec["flow_launches_run"] = f"one {dt} flow train step (B=2, 2 s, 384 x 6)"
         elif rec["name"] == "lstm_bwd_dw":
             rec["flow_launches"] = flow_times["bfloat16"]["dw_launches_per_step"]
             rec["flow_launches_run"] = "one bfloat16 flow train step (B=2, 2 s, 384 x 6)"

@@ -12,7 +12,8 @@ import torch
 
 from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm
 from urgent2026_challenge_track1_tpu_torch.ops.persistent_checks import (
-    fusedin_bilstm_stale_h, lstm_scan_stale_h, lstm_train_bwd_stale_dg, ulp_limit)
+    F32_LIMIT, fusedin_bilstm_stale_h, lstm_scan_stale_h, lstm_scan_tf32,
+    lstm_train_bwd_stale_dg, persistent_limit, ulp_limit)
 
 torch.set_num_threads(1)
 R, T, N, H = 13, 11, 40, 72  # H not a multiple of 32, R not of any row tile
@@ -323,8 +324,9 @@ def test_train_persistent_is_deterministic(dev):
 
 
 def test_train_route_follows_the_dtype(dev):
-    """float32 takes the walks, bfloat16 K4p/K6p; each counts as a K4 or K6
-    launch; the persistent wrappers refuse float32."""
+    """K4 and K6 take K4p/K6p in bfloat16 and in float32 (the float32
+    route), and the walks in float32 where no float32 plan fits (H = 1020);
+    each counts as a K4 or K6 launch."""
     xp, wh, lengths = _scan_inputs(dev, R, T, H, seed=27)
     cuda_lstm.reset_launch_counts()
     cuda_lstm.lstm_train_fwd(xp.float(), wh.float())
@@ -332,12 +334,15 @@ def test_train_route_follows_the_dtype(dev):
     cuda_lstm.lstm_train_fwd(xp, wh)
     cuda_lstm.lstm_revmasked_train_fwd(xp, wh, lengths)
     for name in ("lstm_train_fwd", "lstm_revmasked_train_fwd"):
-        assert cuda_lstm.route_counts(name) == {"persistent": 1, "walk": 1}
+        assert cuda_lstm.route_counts(name) == {"persistent": 2, "walk": 0}
         assert cuda_lstm.launch_counts()[name] == 2
-    with pytest.raises(TypeError):
-        cuda_lstm.lstm_train_fwd_persistent(xp.float(), wh.float())
-    with pytest.raises(TypeError):
-        cuda_lstm.lstm_revmasked_train_fwd_persistent(xp.float(), wh.float(), lengths)
+    wide, wwide, lwide = _scan_inputs(dev, 3, 2, 1020, seed=27)
+    assert cuda_lstm.scan_route(torch.float32, 3, 1020, 132, store=True) is None
+    cuda_lstm.reset_launch_counts()
+    cuda_lstm.lstm_train_fwd(wide.float(), wwide.float())
+    cuda_lstm.lstm_revmasked_train_fwd(wide.float(), wwide.float(), lwide)
+    for name in ("lstm_train_fwd", "lstm_revmasked_train_fwd"):
+        assert cuda_lstm.route_counts(name) == {"persistent": 0, "walk": 1}
 
 
 def test_train_persistent_refuses_a_grid_the_card_cannot_hold(dev):
@@ -360,6 +365,126 @@ def test_train_persistent_refuses_a_grid_the_card_cannot_hold(dev):
     got = cuda_lstm.lstm_revmasked_train_fwd_persistent(xp, wh, lengths)
     ref = cuda_lstm.lstm_revmasked_train_fwd_plain(xp, wh, lengths)
     assert max(_err(g, r) / ulp_limit(r) for g, r in zip(got, ref)) < 1
+
+
+# --- K4p and K6p's float32 route (3xTF32 products) ------------------------
+# Held within F32_LIMIT (1e-5) of the plain version at every step, a limit
+# that the stale-h fault exceeds, and at the train steps' shapes the walk
+# with one TF32 product (lstm_scan_tf32) too; the small
+# shapes stage the projection in 16-, 8- and 4-byte copies (H = 72, 46, 37)
+# and h in 16-byte L2-only copies or plain L2 loads.
+
+
+def _f32(*ts):
+    return tuple(t.float() for t in ts)
+
+
+def _hold_f32(got, ref, stale):
+    for g, r, f in zip(got, ref, stale):
+        assert g.shape == r.shape and g.dtype == torch.float32
+        assert persistent_limit(r) == F32_LIMIT
+        assert _err(g, r) < F32_LIMIT
+        assert _err(f, r) >= F32_LIMIT
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("shape", TRAIN_SHAPES, ids=TRAIN_IDS)
+def test_train_fwd_persistent_f32_matches_plain(dev, shape, reverse):
+    """K4p in float32 against the plain version at every step; K5 (its
+    float32 walk) on its residuals within 1e-3 (relative) of the plain
+    chain."""
+    xp, wh = _f32(*_scan_inputs(dev, *shape, seed=35)[:2])
+    dout = _t(np.random.default_rng(36), dev, torch.float32, *shape)
+    cuda_lstm.reset_launch_counts()
+    got = cuda_lstm.lstm_train_fwd(xp, wh, reverse)
+    assert cuda_lstm.route_counts("lstm_train_fwd") == {"persistent": 1, "walk": 0}
+    ref = cuda_lstm.lstm_train_fwd_plain(xp, wh, reverse)
+    _hold_f32(got, ref, lstm_scan_stale_h(xp, wh, reverse, residuals=True))
+    for g, r in zip(cuda_lstm.lstm_train_bwd(*got, dout, wh, reverse),
+                    cuda_lstm.lstm_train_bwd_plain(*ref, dout, wh, reverse)):
+        assert _rel(g, r) < 1e-3
+
+
+@pytest.mark.parametrize("shape", MASKED_SHAPES, ids=MASKED_IDS)
+def test_revmasked_train_fwd_persistent_f32_matches_plain_at_every_step(dev, shape):
+    """K6p in float32 at every step, padded ones included (the mask trap:
+    the stored c is the step's unmasked c); K7 on its residuals within 1e-3
+    of the plain chain."""
+    xp, wh, lengths = _scan_inputs(dev, *shape, seed=37)
+    xp, wh = _f32(xp, wh)
+    valid = torch.arange(shape[1], device=dev)[None, :] < lengths[:, None]
+    dout = _t(np.random.default_rng(38), dev, torch.float32, *shape) * valid[..., None]
+    cuda_lstm.reset_launch_counts()
+    got = cuda_lstm.lstm_revmasked_train_fwd(xp, wh, lengths)
+    assert cuda_lstm.route_counts("lstm_revmasked_train_fwd") == {"persistent": 1, "walk": 0}
+    ref = cuda_lstm.lstm_revmasked_train_fwd_plain(xp, wh, lengths)
+    _hold_f32(got, ref, lstm_scan_stale_h(xp, wh, True, lengths, residuals=True))
+    masked_c = got[2] * valid[..., None]  # what a kernel storing the carried c would give
+    assert _err(masked_c, ref[2]) >= F32_LIMIT
+    for g, r in zip(cuda_lstm.lstm_revmasked_bwd(*got, lengths, dout, wh),
+                    cuda_lstm.lstm_revmasked_bwd_plain(*ref, lengths, dout, wh)):
+        assert _rel(g, r) < 1e-3
+
+
+def test_train_persistent_f32_is_deterministic(dev):
+    """Two float32 launches of K4p and of K6p are bitwise equal: float32
+    remat runs the training forward in both passes."""
+    xp, wh, lengths = _scan_inputs(dev, 96, 251, 768, seed=39)
+    xp, wh = _f32(xp, wh)
+    for run in (lambda: cuda_lstm.lstm_train_fwd_persistent(xp, wh, False),
+                lambda: cuda_lstm.lstm_train_fwd_persistent(xp, wh, True),
+                lambda: cuda_lstm.lstm_revmasked_train_fwd_persistent(xp, wh, lengths)):
+        a, b = run(), run()
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+# the train steps' shapes, each run as K4p forward, K4p reverse and K6p
+TF32_CONTROL = [(shape, kind) for shape, i in zip(TRAIN_SHAPES[3:], TRAIN_IDS[3:])
+                for kind in ("fwd", "rev", "masked") if kind != "masked" or "band" not in i]
+
+
+@pytest.mark.parametrize("shape,kind", TF32_CONTROL,
+                         ids=[f"{s[0]}x{s[1]}x{s[2]}-{k}" for s, k in TF32_CONTROL])
+def test_f32_limit_refuses_one_tf32_product(dev, shape, kind):
+    """The control of F32_LIMIT: where K4p-f32 / K6p-f32 (3xTF32) hold it,
+    the plain walk with one TF32 product exceeds it in each output (h,
+    gates, c), so the check tells 3xTF32 from a kernel below float32."""
+    xp, wh, lengths = _scan_inputs(dev, *shape, seed=41)
+    xp, wh = _f32(xp, wh)
+    if kind == "masked":
+        got = cuda_lstm.lstm_revmasked_train_fwd_persistent(xp, wh, lengths)
+        ref = cuda_lstm.lstm_revmasked_train_fwd_plain(xp, wh, lengths)
+        one = lstm_scan_tf32(xp, wh, True, lengths, residuals=True)
+    else:
+        got = cuda_lstm.lstm_train_fwd_persistent(xp, wh, kind == "rev")
+        ref = cuda_lstm.lstm_train_fwd_plain(xp, wh, kind == "rev")
+        one = lstm_scan_tf32(xp, wh, kind == "rev", residuals=True)
+    for g, r, f in zip(got, ref, one):
+        assert _err(g, r) < F32_LIMIT <= _err(f, r)
+
+
+def test_f32_plan_bytes_equal_the_kernels(dev):
+    """The planner's float32 shared-memory bytes are the kernel's own
+    (``Plan::smem_bytes`` with elem = 4), and a bfloat16 plan's too."""
+    from urgent2026_challenge_track1_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    for R_, H_ in ((136, 392), (804, 392), (96, 768), (502, 768), (13, 37)):
+        for elem in (2, 4):
+            plan = cuda_lstm.plan_persistent(R_, 0, H_, 132, dirs=1, elem=elem)
+            assert lib.lstm_persistent_smem(0, H_, plan.U, plan.rows, plan.chunk,
+                                            int(plan.c_in_smem), elem) == plan.smem
+
+
+def test_persistent_refuses_f32_for_k2p_and_k3p(dev):
+    """K2p and K3p have no float32 route: their wrappers refuse float32."""
+    xp, wh, lengths = _scan_inputs(dev, R, T, H, seed=40)
+    xp, wh = _f32(xp, wh)
+    with pytest.raises(TypeError):
+        cuda_lstm.lstm_scan_persistent(xp, wh)
+    with pytest.raises(TypeError):
+        cuda_lstm.lstm_revmasked_persistent(xp, wh, lengths)
 
 
 # --- K5p and K7p: the persistent routes of K5 and K7 (bfloat16) -----------

@@ -2,7 +2,8 @@
 // direction over a hoisted input projection, and K5p / K7p: the training
 // backwards, as persistent, weight-stationary tensor-core recurrences for
 // NVIDIA Hopper (sm_90a), bound with ctypes.  K1p first; K2p-K6p
-// (scan_persistent_kernel) after it; K5p/K7p (bwd_persistent_kernel) and
+// (scan_persistent_kernel, bf16, and for K4p/K6p also f32 on 3xTF32
+// products) after it; K5p/K7p (bwd_persistent_kernel) and
 // their dW kernel (dw_tc_kernel) at the end of the namespace.
 //
 // Replaces urgent2026_challenge_track1_tpu/ops/pallas_lstm.py:
@@ -60,6 +61,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 namespace {
 
@@ -95,6 +97,7 @@ static_assert(kKGroups == 2, "reduce_blocks adds two warp rows");
 constexpr int kAccBlocks = 16;
 constexpr int kMaxChunk = 64;
 constexpr int kCellSlots = 8;     // cells (row, unit) a thread updates per chunk
+constexpr int kCellSlotsF32 = 4;  // and on the float32 route (registers for the f32 residuals)
 constexpr int kSmemLimit = 232448;  // 227 KB of dynamic shared memory a block
 constexpr unsigned long long kSpinTimeoutNs = 10ull * 1000 * 1000 * 1000;
 
@@ -106,16 +109,18 @@ struct Plan {
   int chunk;          // rows per chunk, a multiple of 16
   int c_in_smem;
   int kx, kh;         // K segments padded to 16
+  int elem;           // bytes of an element: 2 (bf16) or 4 (f32, K4p/K6p only)
   __host__ __device__ int cols() const { return 4 * U; }
-  __host__ __device__ int ldw() const { return 4 * U + 8; }           // bf16
-  __host__ __device__ int lda() const { return (kx > kh ? kx : kh) + 8; }  // bf16
-  __host__ __device__ int ldc() const { return 4 * U + 4; }           // f32
-  // K1p (N > 0) keeps its bias (4U f32); K2p/K3p (N = 0) a double buffer
-  // of the projection's 4U columns for a chunk (2 x chunk x 4U bf16)
+  __host__ __device__ int ldw() const { return 4 * U + 8; }  // elements
+  // elements; a staged row is an odd multiple of 16 bytes
+  __host__ __device__ int lda() const { return (kx > kh ? kx : kh) + 16 / elem; }
+  __host__ __device__ int ldc() const { return 4 * U + 4; }  // f32
+  // K1p (N > 0) keeps its bias (4U f32); K2p-K6p (N = 0) a double buffer
+  // of the projection's 4U columns for a chunk (2 x chunk x 4U elements)
   __host__ __device__ size_t smem_bytes() const {
-    return 2 * (size_t)(kx + kh) * ldw() + 2 * (size_t)chunk * lda() +
-           4 * (size_t)chunk * ldc() +
-           (N > 0 ? 4 * (size_t)cols() : 4 * (size_t)chunk * cols()) +
+    const size_t e = elem;
+    return e * (kx + kh) * ldw() + e * chunk * lda() + 4 * (size_t)chunk * ldc() +
+           (N > 0 ? 4 * (size_t)cols() : e * 2 * chunk * cols()) +
            (c_in_smem ? 4 * (size_t)rows * U : 0);
   }
 };
@@ -156,10 +161,25 @@ __device__ __forceinline__ void wait_for(const int* counter, int target) {
   __syncthreads();
 }
 
+// Conversions between an element type (bf16, or f32 on K4p/K6p's float32
+// route) and the f32 of the cell.
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(float v) { return v; }
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ bf16 from_f32<bf16>(float v) { return __float2bfloat16(v); }
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+
+// The unsigned integer of an element's bits, for plain copies.
+template <typename T>
+using Bits = std::conditional_t<sizeof(T) == 2, unsigned short, unsigned>;
+
 // One asynchronous copy of BYTES from global to shared memory: L2_ONLY
 // (16 bytes) goes around L1 (cp.async.cg), else through it (cp.async.ca).
 template <int BYTES, bool L2_ONLY>
-__device__ __forceinline__ void cp_async(bf16* dst, const bf16* src) {
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   if constexpr (L2_ONLY) {
     static_assert(BYTES == 16, "cp.async.cg copies 16 bytes");
@@ -181,20 +201,20 @@ struct RowMask {
   }
 };
 
-// Copy rows x n bf16 from src (row stride lds) to dst (row stride ldd) in
-// asynchronous copies of BYTES (all in flight at once); rows the mask drops
-// are written as zeros instead.
-template <int BYTES, bool L2_ONLY>
-__device__ __forceinline__ void async_rows(bf16* dst, int ldd, const bf16* src, size_t lds,
-                                           int rows, int n, RowMask mask) {
-  constexpr int E = BYTES / sizeof(bf16);
+// Copy rows x n elements from src (row stride lds) to dst (row stride ldd)
+// in asynchronous copies of BYTES (all in flight at once); rows the mask
+// drops are written as zeros instead.
+template <int BYTES, bool L2_ONLY, typename T>
+__device__ __forceinline__ void async_rows(T* dst, int ldd, const T* src, size_t lds, int rows,
+                                           int n, RowMask mask) {
+  constexpr int E = BYTES / sizeof(T);
   const int per_row = n / E;
   for (int i = threadIdx.x; i < rows * per_row; i += kThreads) {
     const int r = i / per_row;
     const int v = i - r * per_row;
     if (mask.drops(r)) {
 #pragma unroll
-      for (int e = 0; e < E; ++e) dst[r * ldd + v * E + e] = __float2bfloat16(0.f);
+      for (int e = 0; e < E; ++e) dst[r * ldd + v * E + e] = from_f32<T>(0.f);
     } else {
       cp_async<BYTES, L2_ONLY>(dst + r * ldd + v * E, src + r * lds + v * E);
     }
@@ -202,12 +222,13 @@ __device__ __forceinline__ void async_rows(bf16* dst, int ldd, const bf16* src, 
 }
 
 // The same with plain loads, for rows whose addresses allow no 16-byte
-// copies around L1 (h when H is not a multiple of 8) or no 4-byte copies.
-template <bool L2_ONLY>
-__device__ __forceinline__ void copy_rows(bf16* dst, int ldd, const bf16* src, size_t lds,
-                                          int rows, int n, RowMask mask) {
-  const unsigned short* in = reinterpret_cast<const unsigned short*>(src);
-  unsigned short* o = reinterpret_cast<unsigned short*>(dst);
+// copies around L1 (h when H is not a multiple of 16 bytes) or no 4-byte
+// copies.
+template <bool L2_ONLY, typename T>
+__device__ __forceinline__ void copy_rows(T* dst, int ldd, const T* src, size_t lds, int rows,
+                                          int n, RowMask mask) {
+  const Bits<T>* in = reinterpret_cast<const Bits<T>*>(src);
+  Bits<T>* o = reinterpret_cast<Bits<T>*>(dst);
   for (int i = threadIdx.x; i < rows * n; i += kThreads) {
     const int r = i / n;
     const int k = i - r * n;
@@ -221,11 +242,10 @@ __device__ __forceinline__ void copy_rows(bf16* dst, int ldd, const bf16* src, s
 // rows ``mask`` drops; returns when this thread's copies (and every other
 // asynchronous copy it issued) have landed (a __syncthreads must follow),
 // or, !WAIT, with the copies in flight (the caller commits and waits).
-template <bool L2_ONLY, bool WAIT = true>
-__device__ __forceinline__ void stage(bf16* dst, int ldd, const bf16* src, size_t lds, int rows,
-                                      int n, int npad, RowMask mask = {nullptr, 0}) {
-  const uintptr_t mis = reinterpret_cast<uintptr_t>(src) | (lds * sizeof(bf16)) |
-                        (n * sizeof(bf16));
+template <bool L2_ONLY, bool WAIT = true, typename T>
+__device__ __forceinline__ void stage(T* dst, int ldd, const T* src, size_t lds, int rows, int n,
+                                      int npad, RowMask mask = {nullptr, 0}) {
+  const uintptr_t mis = reinterpret_cast<uintptr_t>(src) | (lds * sizeof(T)) | (n * sizeof(T));
   if ((mis & 15) == 0) {
     async_rows<16, L2_ONLY>(dst, ldd, src, lds, rows, n, mask);
   } else if (!L2_ONLY && (mis & 7) == 0) {
@@ -238,7 +258,7 @@ __device__ __forceinline__ void stage(bf16* dst, int ldd, const bf16* src, size_
   const int pad = npad - n;
   for (int i = threadIdx.x; i < rows * pad; i += kThreads) {
     const int r = i / pad;
-    dst[r * ldd + n + (i - r * pad)] = __float2bfloat16(0.f);
+    dst[r * ldd + n + (i - r * pad)] = from_f32<T>(0.f);
   }
   if constexpr (WAIT) asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
@@ -300,9 +320,9 @@ __device__ __forceinline__ void mma_blocks(float (&acc)[kAccBlocks][4], unsigned
 // The warp's accumulator blocks into acc_s (chunk x 4U f32), or, ADD, added
 // to what another warp put there (the m16n8 layout: rows l / 4 and l / 4 + 8,
 // columns 2 (l % 4) and + 1).
-template <int MT, int NB, bool ADD>
-__device__ __forceinline__ void put_blocks(const float (&acc)[kAccBlocks][4], float* acc_s,
-                                           int ldc, int ng, int lane) {
+template <int MT, int NB, bool ADD, int NACC>
+__device__ __forceinline__ void put_blocks(const float (&acc)[NACC][4], float* acc_s, int ldc,
+                                           int ng, int lane) {
 #pragma unroll
   for (int m = 0; m < MT; ++m) {
 #pragma unroll
@@ -356,30 +376,158 @@ __device__ __forceinline__ void mma_segment(float (&acc)[kAccBlocks][4], const b
 #undef K1P_MMA
 }
 
-// acc_s = the sum of the kKGroups = 2 warp rows' partial products, in a
-// fixed order (deterministic); ends with the block synchronised.
-__device__ __forceinline__ void reduce_blocks(const float (&acc)[kAccBlocks][4], float* acc_s,
-                                              int ldc, int mt, int nb, int ng, int kg) {
+// ---------------------------------------------------------------------------
+// Float32 products, 3xTF32 on the tensor cores (K4p/K6p's float32 route).
+//
+// mma.sync has no f32 x f32 product.  Each f32 operand x is split into its
+// TF32 head hi and the TF32 head lo of the rest (split_tf32);
+// a b is then a_lo b_hi + a_hi b_lo + a_hi b_hi (the dropped lo lo term is
+// below 2^-20 |a b|), summed in f32, the small terms apart: f32's accuracy
+// (~1e-6 relative) at three TF32 products, where one TF32 product keeps
+// about three decimal digits: over the train steps' few hundred steps it
+// moves the outputs by 2e-5 to 8e-5, which persistent_checks.F32_LIMIT
+// (1e-5) refuses (PERF.md).  The operands are split in registers, per fragment:
+// hi and lo of the resident slice would double it, and fit beside one chunk
+// at none of the train steps' plans (PERF.md).  A warp holds at most
+// kAccBlocksTf32 accumulator blocks (the planner keeps to that), which
+// leaves registers for the hi and lo fragments.
+// ---------------------------------------------------------------------------
+
+constexpr int kAccBlocksTf32 = 8;
+#define TF32_SHAPES(OP)                                                                     \
+  OP(1, 1) OP(1, 2) OP(1, 3) OP(1, 4) OP(1, 5) OP(1, 6) OP(1, 7) OP(1, 8) OP(2, 1) OP(2, 2) \
+  OP(2, 3) OP(2, 4) OP(3, 1) OP(3, 2) OP(4, 1) OP(4, 2)
+
+// x = hi + lo + r, |r| < 2^-20 |x|: hi is x with its low 13 mantissa bits
+// cleared (a TF32 value), lo the rest, exact in f32, cleared the same way.
+// Two integer ops and a subtraction: a split by two cvt.rna.tf32.f32 ran
+// longer on an H100 at equal error (PERF.md).
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
+}
+
+// d += a b on the tensor cores: 16 x 8 TF32 times 8 x 8 TF32, f32 sums.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// mma_blocks for f32 operands: k8 steps of three TF32 products, the small
+// terms (lo hi, hi lo) summed apart and added to the big one's sum at the
+// end of the warp's K range.  The A
+// fragment comes from ldmatrix as for bf16 (an 8 x 8 b16 block is 8 x 4
+// f32, and lane l gets the f32 at row l / 4, column l % 4: the m16n8k8 TF32
+// layout); the B fragment, W (k + l % 4, n + l / 4) and (k + 4 + l % 4, ...),
+// from two plain loads (b_base: this lane's element of the warp's first
+// column block at k = 0; ldw = 4U + 8 is 8 or 24 modulo 32, so the 32 lanes
+// hit 32 banks).
+template <int MT, int NB>
+__device__ __forceinline__ void mma_blocks_tf32(float (&acc)[kAccBlocksTf32][4], unsigned a_base,
+                                                const float* b_base, int k0, int k1,
+                                                unsigned lda_bytes, int ldw) {
+  // the small terms' own sums: two dependent chains per block, not three
+  float small[MT * NB][4] = {};
+#pragma unroll 2
+  for (int k = k0; k < k1; k += 8) {
+    unsigned ah[MT][4], al[MT][4], bh[NB][2], bl[NB][2];
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      unsigned raw[4];
+      load_a(raw, a_base + m * 16 * lda_bytes + 4 * k);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(raw[i]), ah[m][i], al[m][i]);
+    }
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      const float* b = b_base + (size_t)k * ldw + j * kNGroups * 8;
+      split_tf32(b[0], bh[j][0], bl[j][0]);
+      split_tf32(b[4 * ldw], bh[j][1], bl[j][1]);
+    }
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        mma_tf32(small[m * NB + j], al[m], bh[j]);
+        mma_tf32(small[m * NB + j], ah[m], bl[j]);
+        mma_tf32(acc[m * NB + j], ah[m], bh[j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int b = 0; b < MT * NB; ++b) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[b][i] += small[b][i];
+  }
+}
+
+// mma_segment for f32: the same warp split (column blocks ng, ng + 4, ...,
+// half kg of the K steps), 3xTF32 products.  The staged rows (lda = K + 4
+// f32) are an odd multiple of 16 bytes, so ldmatrix is free of bank
+// conflicts.
+__device__ __forceinline__ void mma_segment(float (&acc)[kAccBlocksTf32][4], const float* a_s,
+                                            int lda, const float* w_seg, int ldw, int K, int mt,
+                                            int nb, int ng, int kg) {
   const int lane = threadIdx.x % 32;
-#define K1P_PUT(M, N)                                     \
-  case M * 16 + N:                                        \
-    put_blocks<M, N, false>(acc, acc_s, ldc, ng, lane);   \
+  const unsigned a_base = smem_addr(a_s + (lane % 16) * lda + (lane / 16) * 4);
+  const float* b_base = w_seg + (lane % 4) * ldw + ng * 8 + lane / 4;
+  const int half = (K / 16 + kKGroups - 1) / kKGroups * 16;
+  const int k0 = kg * half;
+  const int k1 = min(K, k0 + half);
+#define TF32_MMA(M, N)                                                               \
+  case M * 16 + N:                                                                   \
+    mma_blocks_tf32<M, N>(acc, a_base, b_base, k0, k1, 4 * (unsigned)lda, ldw);      \
     break;
-#define K1P_ADD(M, N)                                     \
-  case M * 16 + N:                                        \
-    put_blocks<M, N, true>(acc, acc_s, ldc, ng, lane);    \
+  switch (mt * 16 + nb) {
+    TF32_SHAPES(TF32_MMA)
+    default: break;  // nb = 0: no column block for this warp
+  }
+#undef TF32_MMA
+}
+
+// acc_s = the sum of the kKGroups = 2 warp rows' partial products, in a
+// fixed order (deterministic); ends with the block synchronised.  NACC:
+// kAccBlocks (bf16 products) or kAccBlocksTf32 (f32).
+template <int NACC>
+__device__ __forceinline__ void reduce_blocks(const float (&acc)[NACC][4], float* acc_s, int ldc,
+                                              int mt, int nb, int ng, int kg) {
+  const int lane = threadIdx.x % 32;
+#define K1P_PUT(M, N)                                         \
+  case M * 16 + N:                                            \
+    put_blocks<M, N, false>(acc, acc_s, ldc, ng, lane);       \
+    break;
+#define K1P_ADD(M, N)                                         \
+  case M * 16 + N:                                            \
+    put_blocks<M, N, true>(acc, acc_s, ldc, ng, lane);        \
     break;
   if (kg == 1) {
-    switch (mt * 16 + nb) {
-      K1P_SHAPES(K1P_PUT)
-      default: break;
+    if constexpr (NACC == kAccBlocks) {
+      switch (mt * 16 + nb) {
+        K1P_SHAPES(K1P_PUT)
+        default: break;
+      }
+    } else {
+      switch (mt * 16 + nb) {
+        TF32_SHAPES(K1P_PUT)
+        default: break;
+      }
     }
   }
   __syncthreads();
   if (kg == 0) {
-    switch (mt * 16 + nb) {
-      K1P_SHAPES(K1P_ADD)
-      default: break;
+    if constexpr (NACC == kAccBlocks) {
+      switch (mt * 16 + nb) {
+        K1P_SHAPES(K1P_ADD)
+        default: break;
+      }
+    } else {
+      switch (mt * 16 + nb) {
+        TF32_SHAPES(K1P_ADD)
+        default: break;
+      }
     }
   }
   __syncthreads();
@@ -541,8 +689,9 @@ bool bad_plan(const Plan& p, bool scan) {
 // multiplied by m = (t < lengths[r]) after each step), _train_forward (body
 // _train_fwd_body; K4, K2 that stores the residuals) and
 // _train_forward_revmasked (body _train_fwd_revmasked_body; K6, K3 that
-// stores them) for bfloat16 inputs, beside the walks in lstm_kernels.cu
-// (recurrence_kernel), which keep float32 and every shape without a plan.
+// stores them) for bfloat16 inputs, and K4 and K6 also for float32 inputs
+// (below), beside the walks in lstm_kernels.cu (recurrence_kernel), which
+// keep float32 K2 and K3 and every shape without a plan.
 // Each step computes
 //   gates = x_proj_t + round_bf16(h_{t-1}) W_hh^T     (f32 sums)
 //   c = f c + i g,  h = o tanh(c)                     (f32 cell)
@@ -576,34 +725,48 @@ bool bad_plan(const Plan& p, bool scan) {
 // arrive, where they overlap the next barrier wait (faster than storing them
 // before it at 10 of 13 shape pairs, PERF.md).  Bytes rise from (4H + H) to
 // (4H + 6H) bf16 a (row, step); the floor stays the barrier.
+//
+// K4p / K6p in float32 (T = float; _train_fwd_body with f32 inputs, where h
+// is not rounded before the product): the same walk, barrier, mask and
+// residual stores with every element f32, and the product h W_hh^T on the
+// tensor cores as three TF32 products of split operands (3xTF32, above).
+// The slice (Kh x (4U + 8) f32), the staged h (chunk x (Kh + 4) f32) and
+// the projection's double buffer double in shared memory, so the planner
+// takes narrower chunks at the band paths (ops/cuda_lstm.plan_persistent
+// with elem = 4); h is staged with 16-byte L2-only copies of 4 f32 where H
+// is a multiple of 4 and plain L2 loads otherwise.  What bounds it: as in
+// bf16 the barrier per step, plus three products and the splits, and twice
+// the staged bytes per chunk.
 // ---------------------------------------------------------------------------
 
+template <typename T>
 struct ScanArgs {
-  const bf16* xp;      // (R, T, 4H) the hoisted projection, biases included
-  const bf16* w;       // (S, Kh, 4U) packed W_hh^T slices
+  const T* xp;         // (R, T, 4H) the hoisted projection, biases included
+  const T* w;          // (S, Kh, 4U) packed W_hh^T slices
   const int* lengths;  // (R,) for K3p
-  bf16* out;           // (R, T, H)
+  T* out;              // (R, T, H)
   float* c_global;     // (R, H) when !c_in_smem
   int* counters;       // (G) zeros
   Plan p;              // N = 0, kx = 0
-  bf16* gates;         // (R, T, 4H) post-activation gates, K4p/K6p only
-  bf16* c_res;         // (R, T, H) the unmasked c, K4p/K6p only
+  T* gates;            // (R, T, 4H) post-activation gates, K4p/K6p only
+  T* c_res;            // (R, T, H) the unmasked c, K4p/K6p only
 };
 
 // K4p/K6p: the residuals of a thread's cells of one chunk (i, f, g, o, c per
 // slot, rows from rg) from registers to gates (R, T, 4H) and c_res (R, T, H)
 // at step t.
-__device__ __forceinline__ void store_residuals(bf16* gates, bf16* c_res, int Tn, int H,
-                                                const bf16 (&res)[kCellSlots][5],
-                                                const int (&cell_row)[kCellSlots],
-                                                const int (&cell_ul)[kCellSlots], size_t rg,
-                                                int rows, int t, int u0) {
+template <typename T, int SLOTS>
+__device__ __forceinline__ void store_residuals(T* gates, T* c_res, int Tn, int H,
+                                                const T (&res)[SLOTS][5],
+                                                const int (&cell_row)[SLOTS],
+                                                const int (&cell_ul)[SLOTS], size_t rg, int rows,
+                                                int t, int u0) {
 #pragma unroll
-  for (int j = 0; j < kCellSlots; ++j) {
+  for (int j = 0; j < SLOTS; ++j) {
     if (cell_row[j] >= rows) continue;
     const size_t rt = (rg + cell_row[j]) * Tn + t;
     const int u = u0 + cell_ul[j];
-    bf16* g = gates + rt * 4 * H + u;
+    T* g = gates + rt * 4 * H + u;
 #pragma unroll
     for (int q = 0; q < 4; ++q) g[(size_t)q * H] = res[j][q];
     c_res[rt * H + u] = res[j][4];
@@ -613,10 +776,10 @@ __device__ __forceinline__ void store_residuals(bf16* gates, bf16* c_res, int Tn
 // Copy the four nu-wide column segments q H + [u0, u0 + nu) of rows rows of
 // the projection (row stride lds) into dst (row r at r 4U, segment q at q
 // U) in asynchronous copies of BYTES; no wait.
-template <int BYTES>
-__device__ __forceinline__ void async_segments(bf16* dst, int U, const bf16* src, size_t lds,
-                                               int H, int rows, int nu) {
-  constexpr int E = BYTES / sizeof(bf16);
+template <int BYTES, typename T>
+__device__ __forceinline__ void async_segments(T* dst, int U, const T* src, size_t lds, int H,
+                                               int rows, int nu) {
+  constexpr int E = BYTES / sizeof(T);
   const int per_seg = nu / E;
   const int per_row = 4 * per_seg;
   for (int i = threadIdx.x; i < rows * per_row; i += kThreads) {
@@ -629,12 +792,13 @@ __device__ __forceinline__ void async_segments(bf16* dst, int U, const bf16* src
 }
 
 // The segments' copy: 16-, 8- or 4-byte asynchronous copies where every
-// address allows them, else plain 2-byte loads (H odd).  The copies land
-// at the caller's next cp.async.wait_all.
-__device__ __forceinline__ void stage_segments(bf16* dst, int U, const bf16* src, size_t lds,
-                                               int H, int rows, int nu) {
-  const uintptr_t mis = reinterpret_cast<uintptr_t>(src) | (lds * sizeof(bf16)) |
-                        (H * sizeof(bf16)) | (nu * sizeof(bf16)) | (U * sizeof(bf16));
+// address allows them, else plain 2-byte loads (bf16, H odd).  The copies
+// land at the caller's next cp.async.wait_all.
+template <typename T>
+__device__ __forceinline__ void stage_segments(T* dst, int U, const T* src, size_t lds, int H,
+                                               int rows, int nu) {
+  const uintptr_t mis = reinterpret_cast<uintptr_t>(src) | (lds * sizeof(T)) |
+                        (H * sizeof(T)) | (nu * sizeof(T)) | (U * sizeof(T));
   if ((mis & 15) == 0) {
     async_segments<16>(dst, U, src, lds, H, rows, nu);
   } else if ((mis & 7) == 0) {
@@ -642,8 +806,8 @@ __device__ __forceinline__ void stage_segments(bf16* dst, int U, const bf16* src
   } else if ((mis & 3) == 0) {
     async_segments<4>(dst, U, src, lds, H, rows, nu);
   } else {
-    const unsigned short* in = reinterpret_cast<const unsigned short*>(src);
-    unsigned short* o = reinterpret_cast<unsigned short*>(dst);
+    const Bits<T>* in = reinterpret_cast<const Bits<T>*>(src);
+    Bits<T>* o = reinterpret_cast<Bits<T>*>(dst);
     for (int i = threadIdx.x; i < rows * 4 * nu; i += kThreads) {
       const int r = i / (4 * nu);
       const int j = i - r * 4 * nu;
@@ -654,17 +818,24 @@ __device__ __forceinline__ void stage_segments(bf16* dst, int U, const bf16* src
   }
 }
 
-template <bool REVERSE, bool MASKED, bool STORE>
-__global__ void __launch_bounds__(kThreads, 1) scan_persistent_kernel(const ScanArgs a) {
+// T = bf16: K2p, K3p, K4p, K6p; T = float (STORE only): K4p and K6p's
+// float32 route, the same walk with f32 exchange, residuals and projection
+// and 3xTF32 products.
+template <typename T, bool REVERSE, bool MASKED, bool STORE>
+__global__ void __launch_bounds__(kThreads, 1) scan_persistent_kernel(const ScanArgs<T> a) {
+  constexpr bool kF32 = std::is_same_v<T, float>;
+  static_assert(!kF32 || STORE, "the float32 route is K4p/K6p's");
+  constexpr int kAcc = kF32 ? kAccBlocksTf32 : kAccBlocks;
+  constexpr int kSlots = kF32 ? kCellSlotsF32 : kCellSlots;
   extern __shared__ __align__(128) unsigned char smem[];
   const Plan p = a.p;
   const int s = blockIdx.x, g = blockIdx.y;
   const int U = p.U, C = p.cols(), H = p.H;
   const int ldw = p.ldw(), lda = p.lda(), ldc = p.ldc();
-  bf16* w_s = reinterpret_cast<bf16*>(smem);
-  bf16* a_s = w_s + (size_t)p.kh * ldw;
+  T* w_s = reinterpret_cast<T*>(smem);
+  T* a_s = w_s + (size_t)p.kh * ldw;
   float* acc_s = reinterpret_cast<float*>(a_s + (size_t)p.chunk * lda);
-  bf16* x_s = reinterpret_cast<bf16*>(acc_s + (size_t)p.chunk * ldc);  // 2 x chunk x 4U
+  T* x_s = reinterpret_cast<T*>(acc_s + (size_t)p.chunk * ldc);  // 2 x chunk x 4U
   float* c_s = reinterpret_cast<float*>(x_s + 2 * (size_t)p.chunk * C);
 
   const int r_begin = g * p.rows;
@@ -677,17 +848,18 @@ __global__ void __launch_bounds__(kThreads, 1) scan_persistent_kernel(const Scan
   const size_t cld = p.c_in_smem ? (size_t)U : (size_t)H;
   const int* len = MASKED ? a.lengths + r_begin : nullptr;  // the group's lengths
 
-  // the weight slice (16-byte vectors; 4U is a multiple of 16), a zero A
-  // buffer and a zero c
-  const bf16* wg = a.w + (size_t)s * p.kh * C;
-  const int vpr = C / 8;
+  // the weight slice (16-byte vectors; 4U elements are a multiple of 16
+  // bytes), a zero A buffer and a zero c
+  constexpr int V = 16 / sizeof(T);
+  const T* wg = a.w + (size_t)s * p.kh * C;
+  const int vpr = C / V;
   for (int i = threadIdx.x; i < p.kh * vpr; i += kThreads) {
     const int k = i / vpr;
     const int v = i - k * vpr;
-    *reinterpret_cast<uint4*>(w_s + (size_t)k * ldw + v * 8) =
-        __ldg(reinterpret_cast<const uint4*>(wg + (size_t)k * C + v * 8));
+    *reinterpret_cast<uint4*>(w_s + (size_t)k * ldw + v * V) =
+        __ldg(reinterpret_cast<const uint4*>(wg + (size_t)k * C + v * V));
   }
-  for (int i = threadIdx.x; i < p.chunk * lda; i += kThreads) a_s[i] = __float2bfloat16(0.f);
+  for (int i = threadIdx.x; i < p.chunk * lda; i += kThreads) a_s[i] = from_f32<T>(0.f);
   for (int i = threadIdx.x; i < r_count * U; i += kThreads) {
     const int row = i / U;
     const int ul = i - row * U;
@@ -706,15 +878,15 @@ __global__ void __launch_bounds__(kThreads, 1) scan_persistent_kernel(const Scan
   const int ng = warp % kNGroups;
   const int kg = warp / kNGroups;
   const int nb = (C / 8 - ng + kNGroups - 1) / kNGroups;  // column blocks ng, ng + 4, ...
-  int cell_row[kCellSlots], cell_ul[kCellSlots];
+  int cell_row[kSlots], cell_ul[kSlots];
 #pragma unroll
-  for (int j = 0; j < kCellSlots; ++j) {
+  for (int j = 0; j < kSlots; ++j) {
     const int i = threadIdx.x + j * kThreads;
     cell_row[j] = i / U;
     cell_ul[j] = i - cell_row[j] * U;
     if (cell_ul[j] >= nu) cell_row[j] = p.chunk;
   }
-  [[maybe_unused]] bf16 res[kCellSlots][5];  // K4p/K6p: this thread's cells' residuals
+  [[maybe_unused]] T res[kSlots][5];  // K4p/K6p: this thread's cells' residuals
   int buf = 0;
   for (int step = 0; step < p.Tn; ++step) {
     const int t = REVERSE ? p.Tn - 1 - step : step;
@@ -733,10 +905,10 @@ __global__ void __launch_bounds__(kThreads, 1) scan_persistent_kernel(const Scan
                        x_src(last_chunk ? step + 1 : step, nr0), p.Tn * G4, H,
                        min(p.chunk, r_count - nr0), nu);
       }
-      float acc[kAccBlocks][4] = {};
-      float c_reg[kCellSlots];
+      float acc[kAcc][4] = {};
+      float c_reg[kSlots];
 #pragma unroll
-      for (int j = 0; j < kCellSlots; ++j) {
+      for (int j = 0; j < kSlots; ++j) {
         c_reg[j] = cell_row[j] < rows ? cb[(size_t)(r0 + cell_row[j]) * cld + cell_ul[j]] : 0.f;
       }
       if (step > 0) {
@@ -750,28 +922,28 @@ __global__ void __launch_bounds__(kThreads, 1) scan_persistent_kernel(const Scan
       asm volatile("cp.async.wait_all;\n" ::: "memory");  // the prefetch has landed
       reduce_blocks(acc, acc_s, ldc, mt, nb, ng, kg);
 
-      const bf16* xs = x_s + (size_t)buf * p.chunk * C;
+      const T* xs = x_s + (size_t)buf * p.chunk * C;
 #pragma unroll
-      for (int j = 0; j < kCellSlots; ++j) {
+      for (int j = 0; j < kSlots; ++j) {
         const int row = cell_row[j];
         const int ul = cell_ul[j];
         if (row >= rows) continue;
         const float* pre = acc_s + row * ldc + ul;
-        const bf16* x = xs + row * C + ul;
-        const float ig = sigmoid_f(pre[0] + __bfloat162float(x[0]));
-        const float fg = sigmoid_f(pre[U] + __bfloat162float(x[U]));
-        const float gg = tanhf(pre[2 * U] + __bfloat162float(x[2 * U]));
-        const float og = sigmoid_f(pre[3 * U] + __bfloat162float(x[3 * U]));
+        const T* x = xs + row * C + ul;
+        const float ig = sigmoid_f(pre[0] + to_f32(x[0]));
+        const float fg = sigmoid_f(pre[U] + to_f32(x[U]));
+        const float gg = tanhf(pre[2 * U] + to_f32(x[2 * U]));
+        const float og = sigmoid_f(pre[3 * U] + to_f32(x[3 * U]));
         const float c = fg * c_reg[j] + ig * gg;
         cb[(size_t)(r0 + row) * cld + ul] =
             (MASKED && t >= __ldg(len + r0 + row)) ? 0.f : c;
-        a.out[((rg + row) * p.Tn + t) * H + u0 + ul] = __float2bfloat16(og * tanhf(c));
+        a.out[((rg + row) * p.Tn + t) * H + u0 + ul] = from_f32<T>(og * tanhf(c));
         if constexpr (STORE) {  // the unmasked c, not cb's
-          res[j][0] = __float2bfloat16(ig);
-          res[j][1] = __float2bfloat16(fg);
-          res[j][2] = __float2bfloat16(gg);
-          res[j][3] = __float2bfloat16(og);
-          res[j][4] = __float2bfloat16(c);
+          res[j][0] = from_f32<T>(ig);
+          res[j][1] = from_f32<T>(fg);
+          res[j][2] = from_f32<T>(gg);
+          res[j][3] = from_f32<T>(og);
+          res[j][4] = from_f32<T>(c);
         }
       }
       if constexpr (STORE) {
@@ -1369,8 +1541,11 @@ int lstm_persistent_phase_cycles(long long* host, int ctas) {
 }
 
 // Shared-memory bytes of one CTA of a plan (the planner's reckoning, for a
-// check from Python): K1p's for N > 0, K2p-K6p's for N = 0.
-long long lstm_persistent_smem(int N, int H, int U, int rows, int chunk, int c_in_smem) {
+// check from Python): K1p's for N > 0, K2p-K6p's for N = 0, with elements
+// of elem bytes (2: bf16; 4: f32, N = 0 only).
+long long lstm_persistent_smem(int N, int H, int U, int rows, int chunk, int c_in_smem,
+                               int elem) {
+  if (elem != 2 && elem != 4) return -1;
   Plan p{};
   p.N = N;
   p.H = H;
@@ -1380,6 +1555,7 @@ long long lstm_persistent_smem(int N, int H, int U, int rows, int chunk, int c_i
   p.c_in_smem = c_in_smem;
   p.kx = (N + 15) / 16 * 16;
   p.kh = (H + 15) / 16 * 16;
+  p.elem = elem;
   return (long long)p.smem_bytes();
 }
 
@@ -1408,6 +1584,7 @@ int lstm_fusedin_persistent(const void* x, const void* w, const void* bias, void
   p.c_in_smem = c_in_smem;
   p.kx = (N + 15) / 16 * 16;
   p.kh = (H + 15) / 16 * 16;
+  p.elem = 2;
   if (bad_plan(p, false) || (!c_in_smem && c_global == nullptr)) return (int)cudaErrorInvalidValue;
   const size_t smem = p.smem_bytes();
   cudaError_t e = cudaFuncSetAttribute(fusedin_persistent_kernel,
@@ -1425,18 +1602,15 @@ int lstm_fusedin_persistent(const void* x, const void* w, const void* bias, void
 // K2p (lengths == nullptr; forward, or reverse) and K3p (lengths (R,) int32,
 // reverse only): xp (R, T, 4H) bf16, the packed W_hh^T (S, Kh, 4U) bf16 ->
 // out (R, T, H) bf16; K4p / K6p the same with gates (R, T, 4H) and c_res
-// (R, T, H) bf16 (both null for K2p / K3p); c_global (R, H) f32 scratch
-// unless c_in_smem; counters (G) int32 zeros.  Returns the cudaError_t of
-// the cooperative launch, as lstm_fusedin_persistent.
+// (R, T, H) (both null for K2p / K3p), and, elem = 4, every one of these
+// f32 (K4p / K6p only); c_global (R, H) f32 scratch unless c_in_smem;
+// counters (G) int32 zeros.  Returns the cudaError_t of the cooperative
+// launch, as lstm_fusedin_persistent.
 int lstm_scan_persistent(const void* xp, const void* w, const void* lengths, void* out,
                          void* gates, void* c_res, void* c_global, void* counters, int R,
                          int Tn, int H, int reverse, int S, int G, int U, int rows, int chunk,
-                         int c_in_smem, void* stream) {
-  ScanArgs a{static_cast<const bf16*>(xp), static_cast<const bf16*>(w),
-             static_cast<const int*>(lengths), static_cast<bf16*>(out),
-             static_cast<float*>(c_global), static_cast<int*>(counters), Plan{},
-             static_cast<bf16*>(gates), static_cast<bf16*>(c_res)};
-  Plan& p = a.p;
+                         int c_in_smem, int elem, void* stream) {
+  Plan p{};
   p.R = R;
   p.Tn = Tn;
   p.N = 0;
@@ -1449,27 +1623,50 @@ int lstm_scan_persistent(const void* xp, const void* w, const void* lengths, voi
   p.c_in_smem = c_in_smem;
   p.kx = 0;
   p.kh = (H + 15) / 16 * 16;
+  p.elem = elem;
   const bool masked = lengths != nullptr, store = gates != nullptr;
-  if (bad_plan(p, true) || (!c_in_smem && c_global == nullptr) || (masked && !reverse) ||
-      store != (c_res != nullptr))
+  const int col_blocks = (U + 7) / 8;
+  if ((elem != 2 && elem != 4) || bad_plan(p, true) || (!c_in_smem && c_global == nullptr) ||
+      (masked && !reverse) || store != (c_res != nullptr) || (elem == 4 && !store) ||
+      (elem == 4 && (chunk / 16 * col_blocks > kAccBlocksTf32 ||
+                     chunk * U > kThreads * kCellSlotsF32)))
     return (int)cudaErrorInvalidValue;
-  // [store][forward, reverse, masked reverse]
-  const void* kernels[2][3] = {
-      {reinterpret_cast<const void*>(scan_persistent_kernel<false, false, false>),
-       reinterpret_cast<const void*>(scan_persistent_kernel<true, false, false>),
-       reinterpret_cast<const void*>(scan_persistent_kernel<true, true, false>)},
-      {reinterpret_cast<const void*>(scan_persistent_kernel<false, false, true>),
-       reinterpret_cast<const void*>(scan_persistent_kernel<true, false, true>),
-       reinterpret_cast<const void*>(scan_persistent_kernel<true, true, true>)}};
-  const void* kernel = kernels[store][masked ? 2 : reverse ? 1 : 0];
+  const int dir = masked ? 2 : reverse ? 1 : 0;  // forward, reverse, masked reverse
+  const void* kernel;
+  void* params[1];
+  ScanArgs<bf16> ab{static_cast<const bf16*>(xp), static_cast<const bf16*>(w),
+                    static_cast<const int*>(lengths), static_cast<bf16*>(out),
+                    static_cast<float*>(c_global), static_cast<int*>(counters), p,
+                    static_cast<bf16*>(gates), static_cast<bf16*>(c_res)};
+  ScanArgs<float> af{static_cast<const float*>(xp), static_cast<const float*>(w),
+                     static_cast<const int*>(lengths), static_cast<float*>(out),
+                     static_cast<float*>(c_global), static_cast<int*>(counters), p,
+                     static_cast<float*>(gates), static_cast<float*>(c_res)};
+  if (elem == 4) {
+    const void* kernels[3] = {
+        reinterpret_cast<const void*>(scan_persistent_kernel<float, false, false, true>),
+        reinterpret_cast<const void*>(scan_persistent_kernel<float, true, false, true>),
+        reinterpret_cast<const void*>(scan_persistent_kernel<float, true, true, true>)};
+    kernel = kernels[dir];
+    params[0] = &af;
+  } else {
+    // [store][forward, reverse, masked reverse]
+    const void* kernels[2][3] = {
+        {reinterpret_cast<const void*>(scan_persistent_kernel<bf16, false, false, false>),
+         reinterpret_cast<const void*>(scan_persistent_kernel<bf16, true, false, false>),
+         reinterpret_cast<const void*>(scan_persistent_kernel<bf16, true, true, false>)},
+        {reinterpret_cast<const void*>(scan_persistent_kernel<bf16, false, false, true>),
+         reinterpret_cast<const void*>(scan_persistent_kernel<bf16, true, false, true>),
+         reinterpret_cast<const void*>(scan_persistent_kernel<bf16, true, true, true>)}};
+    kernel = kernels[store][dir];
+    params[0] = &ab;
+  }
   const size_t smem = p.smem_bytes();
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e == cudaSuccess) {
-    void* params[] = {&a};
+  if (e == cudaSuccess)
     e = cudaLaunchCooperativeKernel(kernel, dim3(S, G, 1), dim3(kThreads), params, smem,
                                     static_cast<cudaStream_t>(stream));
-  }
   if (e != cudaSuccess) cudaGetLastError();  // a refused launch leaves no sticky error behind
   return (int)e;
 }

@@ -28,11 +28,13 @@ bfloat16, h and c always float32):
   lstm_train_fwd            (K4) as lstm_scan      -> h, gates (R, T, 4H), c
   lstm_revmasked_train_fwd  (K6) as lstm_revmasked -> h, gates, c
                   each on one of two routes, fixed before launch by
-                  ``scan_route``, K2's and K3's rule: K4p / K6p
+                  ``scan_route(..., store=True)``: K4p / K6p
                   (``lstm_train_fwd_persistent``,
                   ``lstm_revmasked_train_fwd_persistent``, K2p's kernel
                   that also stores the residuals) for bfloat16 with a
-                  one-direction plan, else the walk (``lstm_train_fwd_walk``,
+                  one-direction plan and for float32 with a float32 plan
+                  (``plan_persistent(..., elem=4)``: 3xTF32 products), else
+                  the walk (``lstm_train_fwd_walk``,
                   ``lstm_revmasked_train_fwd_walk``)
   lstm_train_bwd            (K5) h, gates, c, dout (R, T, H), w_hh_t
                                                    -> dx_proj, dW_hh^T (H, 4H)
@@ -326,7 +328,9 @@ def fusedin_bilstm_plain(x: torch.Tensor, w_ih_t: torch.Tensor,
 SMEM_LIMIT = 232448  # dynamic shared memory of one block on an H100 (227 KB)
 MAX_CHUNK = 64       # rows a chunk walks at once: at most 4 row blocks of 16
 MAX_ACC_BLOCKS = 16  # 16 x 8 accumulator blocks a warp holds (row blocks x ceil(U / 8))
+MAX_ACC_BLOCKS_TF32 = 8  # the float32 route's: its 3xTF32 products also hold hi and lo fragments
 MAX_CELLS = 2048     # (row, unit) cells of a chunk: 256 threads x 8 each
+MAX_CELLS_F32 = 1024  # and x 4 each on the float32 route (registers for the f32 residuals)
 GROUP_ROWS = 64      # rows per group the planner aims for before widening S
 
 
@@ -339,17 +343,21 @@ def _pad16(n: int) -> int:
 
 
 def persistent_smem(N: int, H: int, U: int, chunk: int, rows: int = 0,
-                    c_in_smem: bool = False) -> int:
+                    c_in_smem: bool = False, elem: int = 2) -> int:
     """Shared-memory bytes of one persistent CTA (csrc/lstm_persistent.cu
-    ``Plan::smem_bytes``): the weight slice (Kx + Kh) x (4U + 8) bf16, a
-    chunk of staged inputs chunk x (max(Kx, Kh) + 8) bf16, its accumulators
-    chunk x (4U + 4) f32 and, when it lives there, c (rows x U f32); then
-    K1p's bias (4U f32) or, for the walks over a hoisted projection (N = 0:
-    K2p, K3p), a double buffer of the projection's 4U columns (2 x chunk x
-    4U bf16).  The +8 / +4 pads spread rows over the banks."""
+    ``Plan::smem_bytes``): the weight slice (Kx + Kh) x (4U + 8) elements, a
+    chunk of staged inputs chunk x (max(Kx, Kh) + 16 bytes) elements, its
+    accumulators chunk x (4U + 4) f32 and, when it lives there, c (rows x U
+    f32); then K1p's bias (4U f32) or, for the walks over a hoisted
+    projection (N = 0: K2p-K6p), a double buffer of the projection's 4U
+    columns (2 x chunk x 4U elements).  ``elem``: the element's bytes, 2
+    (bfloat16) or 4 (float32, the float32 route of K4p/K6p, N = 0), which
+    doubles the slice, the staged chunk and the projection's buffer.  The
+    pads spread rows over the banks: a staged row is an odd multiple of 16
+    bytes (kh + 8 bf16, kh + 4 f32), a slice row 4U + 8 elements."""
     kx, kh = _pad16(N), _pad16(H)
-    extra = 4 * 4 * U if N else 2 * 2 * chunk * 4 * U
-    return (2 * (kx + kh) * (4 * U + 8) + 2 * chunk * (max(kx, kh) + 8)
+    extra = 4 * 4 * U if N else elem * 2 * chunk * 4 * U
+    return (elem * (kx + kh) * (4 * U + 8) + elem * chunk * (max(kx, kh) + 16 // elem)
             + 4 * chunk * (4 * U + 4) + extra + (4 * rows * U if c_in_smem else 0))
 
 
@@ -358,8 +366,9 @@ class PersistentPlan:
     """A persistent partition: dirs x G x S CTAs; CTA (d, g, s) owns hidden
     units [s U, min((s + 1) U, H)) of direction d for rows [g rows, min((g +
     1) rows, R)), walked ``chunk`` rows at a time; c in shared memory or in
-    a global buffer.  K1p: dirs = 2 over N inputs; K2p/K3p: dirs = 1, N = 0
-    (the input projection is hoisted)."""
+    a global buffer.  K1p: dirs = 2 over N inputs; K2p-K6p: dirs = 1, N = 0
+    (the input projection is hoisted).  ``elem``: the element's bytes, 2
+    (bfloat16) or 4 (float32: K4p/K6p's float32 route)."""
     R: int
     N: int
     H: int
@@ -371,6 +380,7 @@ class PersistentPlan:
     c_in_smem: bool
     smem: int
     dirs: int = 2
+    elem: int = 2
 
     @property
     def kx(self) -> int:
@@ -387,28 +397,34 @@ class PersistentPlan:
 
 @functools.lru_cache(maxsize=256)
 def plan_persistent(R: int, N: int, H: int, sms: int, smem_bytes: int = SMEM_LIMIT,
-                    dirs: int = 2) -> PersistentPlan | None:
+                    dirs: int = 2, elem: int = 2) -> PersistentPlan | None:
     """The persistent partition of R rows, N inputs (0: a hoisted
-    projection) and H units over ``dirs`` directions on ``sms`` SMs, or None
-    when no slice fits in ``smem_bytes`` or the grid exceeds the SMs.
+    projection) and H units over ``dirs`` directions on ``sms`` SMs, with
+    elements of ``elem`` bytes (4, float32, only for N = 0), or None when no
+    slice fits in ``smem_bytes`` or the grid exceeds the SMs.
 
     L2 traffic per step (the staged h) grows with S, not with G, so: the
     smallest S whose slice fits beside one 16-row chunk; then rows spread
     over G = max(1, min(sms // (dirs S), ceil(R / 64))) groups; then S
     widened to the SMs left over (U, a multiple of 4, shrinks with it);
     then the largest chunk that fits, and c in shared memory if it fits
-    too."""
+    too.  On the float32 route a warp holds at most MAX_ACC_BLOCKS_TF32
+    accumulator blocks and a chunk at most MAX_CELLS_F32 cells."""
+    if elem not in (2, 4) or (elem == 4 and N):
+        raise ValueError(f"no persistent route for {elem}-byte elements with N = {N}")
     if min(R, H, sms, dirs) <= 0 or N < 0:
         return None
+    max_blocks, max_cells = ((MAX_ACC_BLOCKS, MAX_CELLS) if elem == 2
+                             else (MAX_ACC_BLOCKS_TF32, MAX_CELLS_F32))
 
     def units(S):  # ceil(H / S) rounded up to a multiple of 4
         return _ceil(_ceil(H, S), 4) * 4
 
     def fits(U, chunk, rows=0, c_in_smem=False):
         blocks = chunk // 16 * _ceil(U, 8)  # a warp's: its column blocks of every row block
-        return (chunk <= MAX_CHUNK and U <= 64 and blocks <= MAX_ACC_BLOCKS
-                and chunk * U <= MAX_CELLS
-                and persistent_smem(N, H, U, chunk, rows, c_in_smem) <= smem_bytes)
+        return (chunk <= MAX_CHUNK and U <= 64 and blocks <= max_blocks
+                and chunk * U <= max_cells
+                and persistent_smem(N, H, U, chunk, rows, c_in_smem, elem) <= smem_bytes)
 
     S = 1
     while not fits(units(S), 16):
@@ -426,7 +442,7 @@ def plan_persistent(R: int, N: int, H: int, sms: int, smem_bytes: int = SMEM_LIM
     chunk = next(c for c in range(min(_pad16(rows), MAX_CHUNK), 0, -16) if fits(U, c))
     c_in_smem = fits(U, chunk, rows, True)
     return PersistentPlan(R, N, H, S, G, U, rows, chunk, c_in_smem,
-                          persistent_smem(N, H, U, chunk, rows, c_in_smem), dirs)
+                          persistent_smem(N, H, U, chunk, rows, c_in_smem, elem), dirs, elem)
 
 
 @functools.lru_cache(maxsize=64)
@@ -966,27 +982,31 @@ def fusedin_bilstm_persistent(x: torch.Tensor, w_ih_t: torch.Tensor, w_hh_t: tor
     return out
 
 
-def scan_route(dtype: torch.dtype, R: int, H: int, sms: int) -> PersistentPlan | None:
-    """The route of K2 and K3, a fixed rule decided before launch from the
-    dtype and the shape: the K2p/K3p plan (one direction over a hoisted
-    projection) for bfloat16 where ``plan_persistent`` finds one on ``sms``
-    SMs, else None (the walk: float32, or no plan).  K4 and K6, the
-    training forwards, take the same rule: their kernels K4p / K6p are K2p's
-    and K3p's with the residual stores, in the same shared memory, so a
-    shape that has a K2p plan has a K4p plan."""
-    if dtype != torch.bfloat16:
-        return None
-    return plan_persistent(R, 0, H, sms, dirs=1)
+def scan_route(dtype: torch.dtype, R: int, H: int, sms: int,
+               store: bool = False) -> PersistentPlan | None:
+    """The route of K2 and K3 and, with ``store``, of K4 and K6 (the
+    training forwards, whose persistent kernels K4p / K6p are K2p's and
+    K3p's with the residual stores): a fixed rule decided before launch
+    from the dtype and the shape.  bfloat16 takes the one-direction plan
+    ``plan_persistent`` finds on ``sms`` SMs; float32 takes the float32
+    plan (elem = 4, 3xTF32 products) for the storing kernels K4 and K6
+    only; anything else, or no plan, is None (the walk).  K2 and K3 in
+    float32 stay walks."""
+    if dtype == torch.bfloat16:
+        return plan_persistent(R, 0, H, sms, dirs=1)
+    if dtype == torch.float32 and store:
+        return plan_persistent(R, 0, H, sms, dirs=1, elem=4)
+    return None
 
 
-def _routed(plain, walk, persistent, x_proj: torch.Tensor, *args):
-    """The dispatch of K2, K3, K4 and K6 on ``(x_proj, *args)``: the plain
-    version on the CPU, else the route ``scan_route`` picks (the persistent
-    kernel with its plan, or the walk)."""
+def _routed(plain, walk, persistent, store, x_proj: torch.Tensor, *args):
+    """The dispatch of K2, K3 and (``store``) K4, K6 on ``(x_proj, *args)``:
+    the plain version on the CPU, else the route ``scan_route`` picks (the
+    persistent kernel with its plan, or the walk)."""
     if x_proj.device.type == "cpu":
         return plain(x_proj, *args)
     R, _, G = x_proj.shape
-    plan = scan_route(x_proj.dtype, R, G // 4, _sm_count(_device_index(x_proj.device)))
+    plan = scan_route(x_proj.dtype, R, G // 4, _sm_count(_device_index(x_proj.device)), store)
     if plan is None:
         return walk(x_proj, *args)
     return persistent(x_proj, *args, plan)
@@ -996,7 +1016,7 @@ def lstm_scan(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
               reverse: bool = False) -> torch.Tensor:
     """K2: one direction over a hoisted projection; (R, T, 4H) -> (R, T, H),
     on the route ``scan_route`` picks (K2p or the walk)."""
-    return _routed(lstm_scan_plain, lstm_scan_walk, lstm_scan_persistent,
+    return _routed(lstm_scan_plain, lstm_scan_walk, lstm_scan_persistent, False,
                    x_proj, w_hh_t, reverse)
 
 
@@ -1007,7 +1027,7 @@ def lstm_revmasked(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
     equal a fresh reverse scan of the valid prefix; outputs at t >=
     lengths[r] are unspecified to callers (both routes write the plain
     version's)."""
-    return _routed(lstm_revmasked_plain, lstm_revmasked_walk, lstm_revmasked_persistent,
+    return _routed(lstm_revmasked_plain, lstm_revmasked_walk, lstm_revmasked_persistent, False,
                    x_proj, w_hh_t, lengths)
 
 
@@ -1072,19 +1092,23 @@ def _scan_persistent(fn, x_proj, w_hh_t, reverse, lengths, plan, store=False):
     """Launch K2p (``lengths`` None) or K3p, or with ``store`` K4p or K6p
     (then returns h, gates, c): one cooperative grid of G x S CTAs over
     ``plan`` (``plan_persistent``'s for one direction by default); a grid
-    the card cannot hold resident raises."""
+    the card cannot hold resident raises.  bfloat16, or float32 for K4p and
+    K6p (the float32 route: f32 throughout, 3xTF32 products)."""
     name = fn.__name__ + "_persistent"
     if x_proj.device.type != "cuda":
         raise ValueError(f"kernel input on unsupported device {x_proj.device}")
-    if x_proj.dtype != torch.bfloat16:
-        raise TypeError(f"{name} takes bfloat16 inputs, not {x_proj.dtype}")
+    if not (x_proj.dtype == torch.bfloat16 or store and x_proj.dtype == torch.float32):
+        raise TypeError(f"{name} takes bfloat16{' or float32' if store else ''} inputs, "
+                        f"not {x_proj.dtype}")
+    elem = x_proj.element_size()
     R, T, H, out = _check_scan(x_proj, w_hh_t, lengths)
-    plan = plan or plan_persistent(R, 0, H, _sm_count(_device_index(x_proj.device)), dirs=1)
+    plan = plan or plan_persistent(R, 0, H, _sm_count(_device_index(x_proj.device)), dirs=1,
+                                   elem=elem)
     if plan is None:
-        raise ValueError(f"no {name} plan for R={R}, H={H}")
-    if (plan.R, plan.N, plan.H, plan.dirs) != (R, 0, H, 1):
-        raise ValueError(f"plan for {(plan.R, plan.N, plan.H, plan.dirs)}, "
-                         f"inputs {(R, 0, H, 1)}")
+        raise ValueError(f"no {name} plan for R={R}, H={H}, {x_proj.dtype}")
+    if (plan.R, plan.N, plan.H, plan.dirs, plan.elem) != (R, 0, H, 1, elem):
+        raise ValueError(f"plan for {(plan.R, plan.N, plan.H, plan.dirs, plan.elem)}, "
+                         f"inputs {(R, 0, H, 1, elem)}")
     # K4p/K6p's residuals: gates (R, T, 4H) and c (R, T, H)
     res = tuple(torch.empty((R, T, n), dtype=x_proj.dtype, device=x_proj.device)
                 for n in ((4 * H, H) if store else ()))
@@ -1101,7 +1125,8 @@ def _scan_persistent(fn, x_proj, w_hh_t, reverse, lengths, plan, store=False):
         out.data_ptr(), *([t.data_ptr() for t in res] or [None, None]),
         None if c is None else c.data_ptr(), counters.data_ptr(), R, T, H,
         int(bool(reverse)), plan.S, plan.G, plan.U, plan.rows, plan.chunk,
-        int(plan.c_in_smem), ctypes.c_void_p(torch.cuda.current_stream(x_proj.device).cuda_stream),
+        int(plan.c_in_smem), elem,
+        ctypes.c_void_p(torch.cuda.current_stream(x_proj.device).cuda_stream),
     )
     _raise_on(err, name)
     _count(fn, "persistent")
@@ -1139,19 +1164,20 @@ def _train_outputs(x_proj: torch.Tensor, H: int):
 def lstm_train_fwd(x_proj: torch.Tensor, w_hh_t: torch.Tensor, reverse: bool = False):
     """K4: ``lstm_scan`` that also returns the backward's residuals;
     (R, T, 4H) -> (h (R, T, H), gates i, f, g, o (R, T, 4H), c (R, T, H)),
-    all in x_proj's dtype, on the route ``scan_route`` picks (K4p or the
-    walk)."""
-    return _routed(lstm_train_fwd_plain, lstm_train_fwd_walk, lstm_train_fwd_persistent,
+    all in x_proj's dtype, on the route ``scan_route(..., store=True)``
+    picks (K4p, bfloat16 or float32, or the walk)."""
+    return _routed(lstm_train_fwd_plain, lstm_train_fwd_walk, lstm_train_fwd_persistent, True,
                    x_proj, w_hh_t, reverse)
 
 
 def lstm_revmasked_train_fwd(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
                              lengths: torch.Tensor):
     """K6: ``lstm_revmasked`` that also returns the backward's residuals
-    (h and c unmasked), as ``lstm_train_fwd``, on the route ``scan_route``
-    picks (K6p or the walk)."""
+    (h and c unmasked), as ``lstm_train_fwd``, on the route
+    ``scan_route(..., store=True)`` picks (K6p, bfloat16 or float32, or the
+    walk)."""
     return _routed(lstm_revmasked_train_fwd_plain, lstm_revmasked_train_fwd_walk,
-                   lstm_revmasked_train_fwd_persistent, x_proj, w_hh_t, lengths)
+                   lstm_revmasked_train_fwd_persistent, True, x_proj, w_hh_t, lengths)
 
 
 def lstm_train_fwd_walk(x_proj: torch.Tensor, w_hh_t: torch.Tensor, reverse: bool = False):
@@ -1209,9 +1235,10 @@ def lstm_revmasked_train_fwd_walk(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
 
 def lstm_train_fwd_persistent(x_proj: torch.Tensor, w_hh_t: torch.Tensor, reverse: bool = False,
                               plan: PersistentPlan | None = None):
-    """K4p (csrc/lstm_persistent.cu ``scan_persistent_kernel<REVERSE, false,
-    true>``), bfloat16 only: K2p that also stores the residuals -> (h, gates,
-    c).  Counted in ``lstm_train_fwd.launches`` and ``.routes["persistent"]``."""
+    """K4p (csrc/lstm_persistent.cu ``scan_persistent_kernel<T, REVERSE,
+    false, true>``), bfloat16 or float32 (T = float: 3xTF32 products, the
+    plan's elem = 4): K2p that also stores the residuals -> (h, gates, c).
+    Counted in ``lstm_train_fwd.launches`` and ``.routes["persistent"]``."""
     if x_proj.device.type == "cpu":
         return lstm_train_fwd_plain(x_proj, w_hh_t, reverse)
     return _scan_persistent(lstm_train_fwd, x_proj, w_hh_t, reverse, None, plan, True)
@@ -1220,10 +1247,11 @@ def lstm_train_fwd_persistent(x_proj: torch.Tensor, w_hh_t: torch.Tensor, revers
 def lstm_revmasked_train_fwd_persistent(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
                                         lengths: torch.Tensor,
                                         plan: PersistentPlan | None = None):
-    """K6p (``scan_persistent_kernel<true, true, true>``), bfloat16 only: K3p
-    that also stores the residuals (h and c unmasked) -> (h, gates, c),
-    equal to the plain version's at every step.  Counted in
-    ``lstm_revmasked_train_fwd.launches`` and ``.routes["persistent"]``."""
+    """K6p (``scan_persistent_kernel<T, true, true, true>``), bfloat16 or
+    float32, as ``lstm_train_fwd_persistent``: K3p that also stores the
+    residuals (h and c unmasked) -> (h, gates, c), equal to the plain
+    version's at every step.  Counted in ``lstm_revmasked_train_fwd.launches``
+    and ``.routes["persistent"]``."""
     if x_proj.device.type == "cpu":
         return lstm_revmasked_train_fwd_plain(x_proj, w_hh_t, lengths)
     return _scan_persistent(lstm_revmasked_train_fwd, x_proj, w_hh_t, True, lengths, plan, True)

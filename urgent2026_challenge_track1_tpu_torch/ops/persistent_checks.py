@@ -1,5 +1,5 @@
-"""The limit that holds K1p-K7p against their plain versions, and the
-planted barrier faults that the limit must see.
+"""The limits that hold K1p-K7p against their plain versions, and the
+planted barrier faults that the limits must see.
 
 A persistent kernel exchanges h between CTAs through its output, one
 barrier per step.  A barrier that lets a step read the exchange buffer
@@ -7,9 +7,13 @@ before the previous step's writes land feeds the cell h one step stale
 (h_{t-2} where h_{t-1} is due).  The ``*_stale_h`` functions are the plain
 walks with exactly that fault, and ``lstm_train_bwd_stale_dg`` the plain
 backward whose exchange (the dgates in dx_proj) is one step stale; a check
-passes only if the kernel is within ``ulp_limit`` of the plain version and
-the faulty walk is not.  Used by ``chip_smoke.py`` and the card tests
-(tests/test_torch_cuda_kernels.py).
+passes only if the kernel is within ``ulp_limit`` (bfloat16) or
+``F32_LIMIT`` (K4p/K6p's float32 route) of the plain version and the faulty
+walk is not; ``persistent_limit`` picks the one for the output's dtype.
+``lstm_scan_tf32``, the plain walk whose product is one TF32 product, is
+the float32 limit's control: it must exceed ``F32_LIMIT`` too, so the check
+tells the 3xTF32 kernel from one that computes below float32.  Used by
+``chip_smoke.py`` and the card tests (tests/test_torch_cuda_kernels.py).
 """
 
 from __future__ import annotations
@@ -20,16 +24,28 @@ import torch
 
 from urgent2026_challenge_track1_tpu_torch.ops.cuda_lstm import _cell, lstm_bwd_dw_plain
 
-__all__ = ["PERSISTENT_ULPS", "ulp_limit", "fusedin_bilstm_stale_h", "lstm_scan_stale_h",
+__all__ = ["PERSISTENT_ULPS", "F32_LIMIT", "ulp_limit", "persistent_limit", "tf32",
+           "fusedin_bilstm_stale_h", "lstm_scan_stale_h", "lstm_scan_tf32",
            "lstm_train_bwd_stale_dg"]
 
 # bf16 ulps at the plain output's largest magnitude
 PERSISTENT_ULPS = 4
+# float32 outputs, absolute.  On an H100 the 3xTF32 kernels read at most
+# 5.8e-7 against their plain versions at the train steps' shapes, and the
+# same walk with one TF32 product (lstm_scan_tf32) 2.4e-5 to 8e-5 in every
+# output (PERF.md); the limit sits between, so it refuses the latter
+F32_LIMIT = 1e-5
 
 
 def ulp_limit(ref: torch.Tensor) -> float:
     """PERSISTENT_ULPS bf16 ulps at max|ref| (bf16 keeps 8 significant bits)."""
     return PERSISTENT_ULPS * 2.0 ** (math.floor(math.log2(float(ref.float().abs().max()))) - 7)
+
+
+def persistent_limit(ref: torch.Tensor) -> float:
+    """The limit of a persistent kernel's output against its plain output
+    ``ref``: F32_LIMIT in float32, ``ulp_limit(ref)`` in bfloat16."""
+    return F32_LIMIT if ref.dtype == torch.float32 else ulp_limit(ref)
 
 
 def fusedin_bilstm_stale_h(x: torch.Tensor, w_ih_t: torch.Tensor, w_hh_t: torch.Tensor,
@@ -54,11 +70,18 @@ def fusedin_bilstm_stale_h(x: torch.Tensor, w_ih_t: torch.Tensor, w_hh_t: torch.
     return torch.cat(outs, dim=-1)
 
 
-def lstm_scan_stale_h(x_proj: torch.Tensor, w_hh_t: torch.Tensor, reverse: bool,
-                      lengths: torch.Tensor | None = None, residuals: bool = False):
-    """K2's plain version (``lstm_scan_plain``; K3's, ``lstm_revmasked_plain``,
-    with ``lengths``) fed h one step stale; with ``residuals`` the training
-    forward's (K4's, K6's with ``lengths``): (h, gates, c), c unmasked."""
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """x in float32 rounded to TF32 (10 mantissa bits), to nearest, ties
+    away from zero, as ``cvt.rna.tf32.f32`` rounds."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _scan_faulty(x_proj, w_hh_t, reverse, lengths, residuals, product):
+    """The plain walk of K2 (K3 with ``lengths``; with ``residuals`` K4's,
+    K6's: (h, gates, c), c unmasked) whose recurrent product is
+    ``product(h_prev, h, W_hh^T)``, h_prev the carried h of the step
+    before."""
     R, T, G = x_proj.shape
     w = w_hh_t.float()
     stale = h = torch.zeros((R, G // 4), device=x_proj.device)
@@ -67,7 +90,7 @@ def lstm_scan_stale_h(x_proj: torch.Tensor, w_hh_t: torch.Tensor, reverse: bool,
     gates, cs = x_proj.new_empty((R, T, G)), x_proj.new_empty((R, T, G // 4))
     for s in range(T):
         t = T - 1 - s if reverse else s
-        h_new, c, act = _cell(x_proj[:, t].float() + stale.to(x_proj.dtype).float() @ w, c)
+        h_new, c, act = _cell(x_proj[:, t].float() + product(stale, h, w), c)
         out[:, t] = h_new.to(x_proj.dtype)
         gates[:, t], cs[:, t] = act.to(x_proj.dtype), c.to(x_proj.dtype)
         if lengths is not None:
@@ -75,6 +98,25 @@ def lstm_scan_stale_h(x_proj: torch.Tensor, w_hh_t: torch.Tensor, reverse: bool,
             h_new, c = h_new * m, c * m
         stale, h = h, h_new
     return (out, gates, cs) if residuals else out
+
+
+def lstm_scan_stale_h(x_proj: torch.Tensor, w_hh_t: torch.Tensor, reverse: bool,
+                      lengths: torch.Tensor | None = None, residuals: bool = False):
+    """K2's plain version (``lstm_scan_plain``; K3's, ``lstm_revmasked_plain``,
+    with ``lengths``) fed h one step stale; with ``residuals`` the training
+    forward's (K4's, K6's with ``lengths``): (h, gates, c), c unmasked."""
+    return _scan_faulty(x_proj, w_hh_t, reverse, lengths, residuals,
+                        lambda stale, h, w: stale.to(x_proj.dtype).float() @ w)
+
+
+def lstm_scan_tf32(x_proj: torch.Tensor, w_hh_t: torch.Tensor, reverse: bool,
+                   lengths: torch.Tensor | None = None, residuals: bool = False):
+    """K2's plain version in float32 (K3's with ``lengths``; with
+    ``residuals`` K4's, K6's) whose product h W_hh^T is one TF32 product:
+    both operands rounded to TF32, the sums in float32 (exact products; TF32
+    off in the matmul), as a kernel without the 3xTF32 split computes it."""
+    return _scan_faulty(x_proj, w_hh_t, reverse, lengths, residuals,
+                        lambda stale, h, w: tf32(h) @ tf32(w))
 
 
 def lstm_train_bwd_stale_dg(h: torch.Tensor, gates: torch.Tensor, c: torch.Tensor,

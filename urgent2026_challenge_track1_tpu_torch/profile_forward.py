@@ -56,12 +56,14 @@ def _group(name: str) -> str:
     """Kernel name -> the port kernel it belongs to, or its own name."""
     if re.search(r"(?:::|\d)fusedin_persistent_kernel(?:[(E]|$)", name):
         return "K1p fusedin_persistent"
-    if _names(name, "scan_persistent_kernel"):  # <REVERSE, MASKED, STORE>
+    if _names(name, "scan_persistent_kernel"):  # <T, REVERSE, MASKED, STORE>
         _, masked, store = _flags(name, "scan_persistent_kernel")
-        return {(False, False): "K2p lstm_scan_persistent",
-                (True, False): "K3p lstm_revmasked_persistent",
-                (False, True): "K4p lstm_train_fwd_persistent",
-                (True, True): "K6p lstm_revmasked_train_fwd_persistent"}[masked, store]
+        group = {(False, False): "K2p lstm_scan_persistent",
+                 (True, False): "K3p lstm_revmasked_persistent",
+                 (False, True): "K4p lstm_train_fwd_persistent",
+                 (True, True): "K6p lstm_revmasked_train_fwd_persistent"}[masked, store]
+        f32 = re.search(r"scan_persistent_kernel(?:If|<float\b)", name) is not None
+        return group.replace(" ", "-f32 ", 1) if f32 else group
     if _names(name, "bwd_persistent_kernel"):  # <MASKED>
         masked, = _flags(name, "bwd_persistent_kernel")
         return "K7p lstm_revmasked_bwd_persistent" if masked else "K5p lstm_train_bwd_persistent"
