@@ -28,13 +28,17 @@ Phases (any failure exits non-zero; each prints its seconds):
      kernel's bytes) and their, the walks', the plain versions' and a
      one-direction torch.nn.LSTM training forward's times (the
      train_routes phase);
-     then K5p and K7p, the persistent bfloat16 routes of K5 and K7,
-     against the plain versions (dx_proj at every step) at the same
-     shapes, their dW kernel against the float64 product of its own
-     operands, with a planted stale-dgates fault, two launches bitwise
-     equal, their plans, and their, the walks', the dW kernel's, the plain
-     versions' and a one-direction torch.nn.LSTM backward's times (the
-     bwd_routes phase);
+     then K5p and K7p, the persistent routes of K5 and K7 in bfloat16 and
+     in float32 (K5p-f32, K7p-f32: 3xTF32 products and a float32 dW
+     kernel), against the plain versions (dx_proj at every step) at the
+     same shapes, their dW kernel against the float64 product of its own
+     operands, with a planted stale-dgates fault (in float32 also the
+     backward with one TF32 product, and the dW of TF32-rounded operands,
+     which the limits must refuse), two launches bitwise equal, their
+     plans, and their, the walks' (in float32 also the walk's dw_kernel
+     alone), the dW kernel's, torch.mm's for dW, the plain versions' and
+     a one-direction torch.nn.LSTM backward's times (the bwd_routes
+     phase);
   3. drive the inference path through the port's CLI at full width (196
      channels x 6 layers, random seeded weights) on 8-48 kHz WAVs, and the
      training path through the port's ``train_se.run`` (196 x 6, batch 4,
@@ -46,9 +50,9 @@ Phases (any failure exits non-zero; each prints its seconds):
      each path ran, and that K1-K3 took K1p-K3p on the bfloat16 paths (the
      CLIs) and the walks on the float32 ones (the training runs'
      validations; a train step runs none of K1-K3), and that on the float32
-     training runs K4 and K6 took K4p-f32 / K6p-f32 and K5 and K7 their
-     walks; then one float32 train step at 510 channels (H = 1020, where no
-     float32 plan fits) takes the walks of K4-K7;
+     training runs K4-K7 took K4p-f32 - K7p-f32; then one float32 train
+     step at 510 channels (H = 1020, where no float32 K4p/K6p plan fits)
+     takes the walks of K4 and K6 and K5p-f32 / K7p-f32;
   4. the A/B arms of the two experiment toggles (default, STREAM_INPUT_TRAIN,
      FUSED_BIDIR_TRAIN, both, in alternating order) on one train step of
      each family: launches per kernel, loss and gradients against the
@@ -59,8 +63,8 @@ Phases (any failure exits non-zero; each prints its seconds):
   6. time each kernel, its plain version and (for K1) cuDNN's LSTM, the
      end-to-end forward at the JAX bench geometry, the train step at the
      baseline geometry in float32 and bfloat16 with its peak memory and
-     launches per step and K4-K7's routes per dtype (K4p-K7p and the dW
-     kernel in bfloat16; K4p-f32, K6p-f32 and the K5/K7 walks in float32),
+     launches per step and K4-K7's routes per dtype (K4p-K7p and their dW
+     kernel in either dtype; no train step runs a walk),
      K1-K7 at the flow shapes,
      K8-K10 at both widths' training shapes, the flow train step and one
      flow enhancement.
@@ -547,9 +551,10 @@ TRAIN_ROUTE_SHAPES = (
     ("odd H", 20, 64, 197, (64, 40, 17, 1)))
 RESIDUALS = ("h", "gates", "c")
 RUN_TAGS = ("lstm_train_fwd", "lstm_train_fwd_reverse", "lstm_revmasked_train_fwd")
-# K4 and K6 take their persistent routes in float32 too (K4p-f32, K6p-f32);
-# K1-K3, K5 and K7 take their walks there
-F32_PERSISTENT = ("lstm_train_fwd", "lstm_revmasked_train_fwd")
+# K4-K7 take their persistent routes in float32 too (K4p-f32 - K7p-f32);
+# K1-K3 take their walks there
+F32_PERSISTENT = ("lstm_train_fwd", "lstm_revmasked_train_fwd", "lstm_train_bwd",
+                  "lstm_revmasked_bwd")
 
 
 def _lstm_forward_reference_ms(device, R, T, H, dtype, train):
@@ -721,46 +726,84 @@ DW_BOUND = 1e-4  # |dW - P| <= DW_BOUND (|h_prev|^T |dx_proj|) elementwise, P in
 
 def _dw_check(K, h, dxp, dw32, reverse, lengths=None):
     """The dW kernel's f32 sum against P = h_prev^T dx_proj in float64 on the
-    same (exact bf16) inputs: (max over elements of |dW - P| / (|h_prev|^T
-    |dx_proj|), with 0 / 0 read as 0, and max |dW - P|)."""
+    same inputs: (max over elements of |dW - P| / (|h_prev|^T |dx_proj|),
+    with 0 / 0 read as 0, max |dW - P|, and max |dW - P| / max |P|)."""
     import torch
 
     hp = K._h_prev(h, reverse, lengths).double().reshape(-1, h.shape[-1])
     d = dxp.double().reshape(-1, dxp.shape[-1])
-    err = (dw32.double() - hp.t() @ d).abs()
+    P = hp.t() @ d
+    err = (dw32.double() - P).abs()
     scale = hp.abs().t() @ d.abs()
     ratio = torch.where(scale > 0, err / scale.clamp_min(1e-300),
                         torch.where(err > 0, float("inf"), 0.0))
-    return float(ratio.max()), float(err.max())
+    return float(ratio.max()), float(err.max()), float(err.max() / P.abs().max())
 
 
-def _dw_bound(R, T, H):
-    """The dW kernel's least time (ms): 2 R T H 4H bf16 operations; reading
-    h and dx_proj, writing dW in f32."""
-    return _bound(2 * R * T * H * 4 * H, 2 * R * T * (H + 4 * H) + 4 * H * 4 * H)
+def _dw_tf32_control(K, PC, h, dxp, reverse, lengths=None):
+    """The float32 dW's control: h_prev^T dx_proj of operands rounded to
+    TF32 (exact products, float32 sums), as a kernel of one TF32 product
+    computes it."""
+    H = h.shape[-1]
+    hp = K._h_prev(h, reverse, lengths).reshape(-1, H)
+    return PC.tf32(hp).t() @ PC.tf32(dxp.reshape(-1, 4 * H))
+
+
+def _dw_bound(R, T, H, dtype="bfloat16"):
+    """The dW kernel's least time (ms): 2 R T H 4H operations (bf16, or in
+    float32 at the TF32 rate); reading h and dx_proj (2- or 4-byte
+    elements), writing dW in f32."""
+    b, peak = (2, PEAK_BF16_FLOPS) if dtype == "bfloat16" else (4, PEAK_TF32_FLOPS)
+    return _bound(2 * R * T * H * 4 * H, b * R * T * (H + 4 * H) + 4 * H * 4 * H, peak)
 
 
 def _dw_library_ms(K, h, dxp, reverse, lengths):
-    """One PyTorch call that computes dW from the same operands: the bf16
-    product h_prev^T dx_proj with f32 output (``torch.mm(..., out_dtype=)``),
-    h_prev shifted and masked beforehand (not timed)."""
+    """One PyTorch call that computes dW from the same operands: the product
+    h_prev^T dx_proj with f32 output, bf16 operands (``torch.mm(...,
+    out_dtype=)``) or f32 ones (``torch.mm``, TF32 off), h_prev shifted and
+    masked beforehand (not timed)."""
     import torch
 
     H = h.shape[-1]
-    hp = K._h_prev(h, reverse, lengths).to(torch.bfloat16).reshape(-1, H)
+    hp = K._h_prev(h, reverse, lengths).to(dxp.dtype).reshape(-1, H)
     d = dxp.reshape(-1, 4 * H)
+    if dxp.dtype == torch.float32:
+        return _time_ms(lambda: torch.mm(hp.t(), d))
     return _time_ms(lambda: torch.mm(hp.t(), d, out_dtype=torch.float32))
 
 
-def _lstm_backward_reference_ms(device, R, T, H):
-    """The backward of a one-direction bf16 ``torch.nn.LSTM`` (N = H / 2
-    inputs, as in both models) over R rows of T steps, the input and weight
-    gradients: a superset of K5's work (it adds the W_ih products)."""
+def _walk_dw_kernel_ms(walk_fn, reps: int = 3) -> float:
+    """The device time of the walk's ``dw_kernel`` alone (ms a call), read
+    from ``torch.profiler`` over ``reps`` calls of the walk (its backward
+    kernel and dw_kernel are one C call)."""
+    import torch
+    from urgent2026_challenge_track1_tpu_torch.profile_forward import _group
+
+    walk_fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            walk_fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and _group(e.name).endswith("(dW)"))
+    if us <= 0:
+        fail("torch.profiler saw no dw_kernel in the walk")
+    return us / 1e3 / reps
+
+
+def _lstm_backward_reference_ms(device, R, T, H, dtype=None):
+    """The backward of a one-direction ``torch.nn.LSTM`` in ``dtype``
+    (bf16 by default; TF32 off) with N = H / 2 inputs, as in both models,
+    over R rows of T steps, the input and weight gradients: a superset of
+    K5's work (it adds the W_ih products)."""
     import torch
 
+    dtype = dtype or torch.bfloat16
     N = max(1, H // 2)
-    lstm = torch.nn.LSTM(N, H, batch_first=True).to(device, torch.bfloat16).train()
-    x = (0.3 * torch.randn((R, T, N), device=device)).to(torch.bfloat16).requires_grad_()
+    lstm = torch.nn.LSTM(N, H, batch_first=True).to(device, dtype).train()
+    x = (0.3 * torch.randn((R, T, N), device=device)).to(dtype).requires_grad_()
     y, _ = lstm(x)
     g = torch.randn_like(y)
     params = [x, *lstm.parameters()]
@@ -772,122 +815,161 @@ def _lstm_backward_reference_ms(device, R, T, H):
 def phase_bwd_routes(device):
     """K5p (the backward of the forward and of the reverse scan) and K7p
     against the plain versions at every step, padded ones included, at the
-    shapes where K5 and K7 run in a bfloat16 train step
-    (TRAIN_ROUTE_SHAPES), each on the plain training forward's residuals:
-    dx_proj within ``persistent_checks.ulp_limit`` of the plain one; dW of
-    the dW kernel alone on the kernel's own dx_proj within DW_BOUND
-    |h_prev|^T |dx_proj| of their float64 product, elementwise, the routed
-    dW its rounding and within BF16_TOL (relative) of the plain dW; the
-    planted fault (``persistent_checks.lstm_train_bwd_stale_dg``) at or
-    above the limit; two launches bitwise equal.  Records the plan (checked
-    against the kernel's own byte count), the route the rule takes, and in
-    ms K5p/K7p (walk + dW), the walk, the plain version, the dW kernel
-    alone, the bound, and the backward of a one-direction bf16
-    ``torch.nn.LSTM`` at the same R, T, H (a superset: it adds the W_ih
-    products)."""
+    shapes where K5 and K7 run in a train step (TRAIN_ROUTE_SHAPES), each on
+    the plain training forward's residuals, in bfloat16 and in float32
+    (K5p-f32 / K7p-f32: 3xTF32 products and the float32 dW kernel; TF32 off
+    in the plain versions): dx_proj within ``persistent_checks.bwd_limit``
+    of the plain one (4 bf16 ulps at its peak; F32_BWD_LIMIT of its peak in
+    float32); the planted fault (``persistent_checks.lstm_train_bwd_stale_dg``)
+    and, in float32, the plain backward with one TF32 product
+    (``persistent_checks.lstm_train_bwd_tf32``) at or above that limit; dW
+    of the dW kernel alone on the kernel's own dx_proj within DW_BOUND
+    (bf16) or ``persistent_checks.DW_F32_BOUND`` (float32, where the product
+    of TF32-rounded operands must exceed it) |h_prev|^T |dx_proj| of their
+    float64 product, elementwise, the routed dW its rounding and within
+    BF16_TOL (bf16) or F32_BWD_LIMIT (float32) of the plain dW, relative;
+    two launches bitwise equal.  Records per dtype the plan (checked against
+    the kernel's own byte count), the route the rule takes, and in ms
+    K5p/K7p (walk + dW), the walk, in float32 its dw_kernel alone, the plain
+    version, the dW kernel alone, one torch.mm for dW, the bounds, and the
+    backward of a one-direction ``torch.nn.LSTM`` at the same R, T, H and
+    dtype (a superset: it adds the W_ih products)."""
     import torch
     from urgent2026_challenge_track1_tpu_torch.ops import _build
     from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
     from urgent2026_challenge_track1_tpu_torch.ops import persistent_checks as PC
 
-    bf16 = torch.bfloat16
     sms = _sm_count(device)
     lib = _build.load_library()
     out = []
-    for what, R, T, H, per_utt in TRAIN_ROUTE_SHAPES:
-        _, _, wh, _, xp, _ = _kernel_inputs(R, T, bf16, device, R + 2 * T + H, hid=H)
-        dout = (0.1 * torch.randn((R, T, H), generator=torch.Generator().manual_seed(R + 1))).to(
-            device, bf16)
-        plan = K.plan_backward(R, H, sms)
-        if plan is None:
-            fail(f"K5p/K7p: no plan at {what} (R={R}, H={H})")
-        kernel_smem = lib.lstm_persistent_bwd_smem(H, plan.U, plan.rows, plan.chunk, plan.kt,
-                                                    int(plan.dc_in_smem))
-        if kernel_smem != plan.smem:
-            fail(f"K5p/K7p plan at {what}: {plan.smem} bytes, the kernel reckons {kernel_smem}")
-        lengths = None
-        runs = {tag: (K.lstm_train_fwd_plain(xp, wh[0], rev), dout, wh[0], None, rev)
-                for rev, tag in ((False, BWD_TAGS[0]), (True, BWD_TAGS[1]))}
-        if per_utt is not None:
-            lengths = torch.tensor(per_utt, dtype=torch.int32).repeat_interleave(
-                R // len(per_utt)).clamp(max=T).to(device)
-            valid = torch.arange(T, device=device)[None, :] < lengths[:, None]
-            runs[BWD_TAGS[2]] = (K.lstm_revmasked_train_fwd_plain(xp, wh[1], lengths),
-                                 dout * valid[..., None], wh[1], lengths, True)
-        valid_steps = R * T if lengths is None else int(lengths.sum())
-        bounds = _train_bounds(R, T, valid_steps, H)
-        rec = {"what": what, "R": R, "T": T, "H": H, "valid_steps": valid_steps,
-               "plan": {"S": plan.S, "G": plan.G, "U": plan.U, "rows": plan.rows,
-                        "chunk": plan.chunk, "kt": plan.kt, "ntiles": plan.ntiles,
-                        "dc_in_smem": plan.dc_in_smem, "smem_bytes": plan.smem,
-                        "ctas": plan.ctas, "dw_split": plan.dw_split},
-               "route": ("persistent" if K.backward_route(bf16, R, H, sms) is not None
-                         else "walk")}
-        for tag, (res, do, w, lens, rev) in runs.items():
-            name = "lstm_revmasked_bwd" if lens is not None else "lstm_train_bwd"
-            if lens is None:
-                kern = lambda p=plan: K.lstm_train_bwd_persistent(*res, do, w, rev, p)
-                walk_fn = lambda: K.lstm_train_bwd_walk(*res, do, w, rev)
-                plain_fn = lambda: K.lstm_train_bwd_plain(*res, do, w, rev)
-                stale = PC.lstm_train_bwd_stale_dg(*res, do, w, rev)
-            else:
-                kern = lambda p=plan: K.lstm_revmasked_bwd_persistent(*res, lens, do, w, p)
-                walk_fn = lambda: K.lstm_revmasked_bwd_walk(*res, lens, do, w)
-                plain_fn = lambda: K.lstm_revmasked_bwd_plain(*res, lens, do, w)
-                stale = PC.lstm_train_bwd_stale_dg(*res, do, w, True, lens)
-            got, again, ref = kern(), kern(), plain_fn()
-            dw32 = K.lstm_bwd_dw(res[0], got[0], rev, lens, plan.dw_split)
-            torch.cuda.synchronize()
-            limit = PC.ulp_limit(ref[0])
-            e_dxp, e_stale = _err(got[0], ref[0]), _err(stale[0], ref[0])
-            bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
-            dw_ratio, dw_abs = _dw_check(K, res[0], got[0], dw32, rev, lens)
-            dw_rounded = torch.equal(got[1], dw32.to(got[1].dtype))
-            e_dw = _rel(got[1], ref[1])
-            dxp_k = got[0]
-            del got, again, ref, stale
-            ms = _time_ms(kern)
-            bound_ms, bound_by = bounds[name]
-            rec[tag] = {
-                "max_abs_err_vs_plain": e_dxp, "limit": limit, "max_err_over_limit": e_dxp / limit,
-                "planted_stale_dg_err": e_stale, "planted_stale_dg_over_limit": e_stale / limit,
-                "dw_bound_ratio": dw_ratio, "dw_max_abs_err_vs_f64": dw_abs,
-                "dw_rel_err_vs_plain": e_dw, "dw_is_its_rounding": dw_rounded,
-                "bitwise_repeat": bitwise, "ms": ms, "us_per_step": ms * 1e3 / T,
-                "dw_ms": _time_ms(lambda: K.lstm_bwd_dw(res[0], dxp_k, rev, lens, plan.dw_split)),
-                "dw_plain_ms": _time_ms(lambda: K.lstm_bwd_dw_plain(res[0], dxp_k, rev, lens,
-                                                                    plan.dw_split),
-                                        reps=3, warmup=1),
-                "dw_library_ms": _dw_library_ms(K, res[0], dxp_k, rev, lens),
-                "dw_bound_ms": _dw_bound(R, T, H)[0], "dw_bound_by": _dw_bound(R, T, H)[1],
-                "walk_ms": _time_ms(walk_fn), "plain_ms": _time_ms(plain_fn, reps=3, warmup=1),
-                "bound_ms": bound_ms, "bound_by": bound_by}
-            r = rec[tag]
-            print(f"[bwd routes] {what} {tag} R={R} T={T} H={H}: plan S={plan.S} G={plan.G} "
-                  f"U={plan.U} rows={plan.rows} chunk={plan.chunk} kt={plan.kt} dc_in_smem="
-                  f"{plan.dc_in_smem} smem={plan.smem} B ({plan.ctas} CTAs), dW split "
-                  f"{plan.dw_split}; persistent {ms:.3f} ms (dW {r['dw_ms']:.3f} ms), walk "
-                  f"{r['walk_ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound {bound_ms:.4f} ms "
-                  f"({bound_by}); max|dxp - plain| {e_dxp:.3e} (limit {limit:.3e}); planted stale "
-                  f"dg {e_stale:.3e}; dW |d| / (|h|^T|dxp|) {dw_ratio:.3e} (limit {DW_BOUND}), "
-                  f"rel vs plain {e_dw:.3e} (limit {BF16_TOL}), its rounding: {dw_rounded}; two "
-                  f"launches bitwise equal: {bitwise}; rule: {rec['route']}")
-            if not e_dxp < limit:
-                fail(f"{what} {tag}: dx_proj vs plain {e_dxp:.3e} >= {limit:.3e}")
-            if not e_stale >= limit:
-                fail(f"{what} {tag}: stale dgates move dx_proj by {e_stale:.3e}, under the limit "
-                     f"{limit:.3e}: the check cannot see a barrier fault")
-            if not dw_ratio <= DW_BOUND:
-                fail(f"{what} {tag}: dW off its float64 product by {dw_ratio:.3e} of "
-                     f"|h_prev|^T |dx_proj| > {DW_BOUND}")
-            if not (dw_rounded and e_dw < BF16_TOL):
-                fail(f"{what} {tag}: the routed dW is not the dW kernel's rounding or is "
-                     f"{e_dw:.3e} from plain (limit {BF16_TOL})")
-            if not bitwise:
-                fail(f"{what} {tag}: two launches differ")
-        rec["nn_lstm_backward_ms"] = _lstm_backward_reference_ms(device, R, T, H)
-        out.append(rec)
-        del xp, wh, dout, runs
+    for dt_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        f32 = dtype == torch.float32
+        elem = 4 if f32 else 2
+        dw_bound, dw_tol = (PC.DW_F32_BOUND, PC.F32_BWD_LIMIT) if f32 else (DW_BOUND, BF16_TOL)
+        for what, R, T, H, per_utt in TRAIN_ROUTE_SHAPES:
+            _, _, wh, _, xp, _ = _kernel_inputs(R, T, dtype, device, R + 2 * T + H, hid=H)
+            dout = (0.1 * torch.randn((R, T, H), generator=torch.Generator().manual_seed(R + 1))
+                    ).to(device, dtype)
+            plan = K.plan_backward(R, H, sms, elem=elem)
+            if plan is None:
+                fail(f"K5p/K7p {dt_name}: no plan at {what} (R={R}, H={H})")
+            kernel_smem = lib.lstm_persistent_bwd_smem(H, plan.U, plan.rows, plan.chunk, plan.kt,
+                                                        int(plan.dc_in_smem), elem)
+            if kernel_smem != plan.smem:
+                fail(f"K5p/K7p {dt_name} plan at {what}: {plan.smem} bytes, the kernel reckons "
+                     f"{kernel_smem}")
+            lengths = None
+            runs = {tag: (K.lstm_train_fwd_plain(xp, wh[0], rev), dout, wh[0], None, rev)
+                    for rev, tag in ((False, BWD_TAGS[0]), (True, BWD_TAGS[1]))}
+            if per_utt is not None:
+                lengths = torch.tensor(per_utt, dtype=torch.int32).repeat_interleave(
+                    R // len(per_utt)).clamp(max=T).to(device)
+                valid = torch.arange(T, device=device)[None, :] < lengths[:, None]
+                runs[BWD_TAGS[2]] = (K.lstm_revmasked_train_fwd_plain(xp, wh[1], lengths),
+                                     dout * valid[..., None], wh[1], lengths, True)
+            valid_steps = R * T if lengths is None else int(lengths.sum())
+            bounds = _train_bounds(R, T, valid_steps, H, dt_name)
+            rec = {"what": what, "R": R, "T": T, "H": H, "dtype": dt_name,
+                   "valid_steps": valid_steps,
+                   "plan": {"S": plan.S, "G": plan.G, "U": plan.U, "rows": plan.rows,
+                            "chunk": plan.chunk, "kt": plan.kt, "ntiles": plan.ntiles,
+                            "dc_in_smem": plan.dc_in_smem, "smem_bytes": plan.smem,
+                            "ctas": plan.ctas, "dw_split": plan.dw_split, "elem": plan.elem},
+                   "route": ("persistent" if K.backward_route(dtype, R, H, sms) == plan
+                             else "walk")}
+            for tag, (res, do, w, lens, rev) in runs.items():
+                name = "lstm_revmasked_bwd" if lens is not None else "lstm_train_bwd"
+                if lens is None:
+                    kern = lambda p=plan: K.lstm_train_bwd_persistent(*res, do, w, rev, p)
+                    walk_fn = lambda: K.lstm_train_bwd_walk(*res, do, w, rev)
+                    plain_fn = lambda: K.lstm_train_bwd_plain(*res, do, w, rev)
+                else:
+                    kern = lambda p=plan: K.lstm_revmasked_bwd_persistent(*res, lens, do, w, p)
+                    walk_fn = lambda: K.lstm_revmasked_bwd_walk(*res, lens, do, w)
+                    plain_fn = lambda: K.lstm_revmasked_bwd_plain(*res, lens, do, w)
+                stale = PC.lstm_train_bwd_stale_dg(*res, do, w, rev, lens)[0]
+                tf32 = PC.lstm_train_bwd_tf32(*res, do, w, rev, lens)[0] if f32 else None
+                got, again, ref = kern(), kern(), plain_fn()
+                dw32 = K.lstm_bwd_dw(res[0], got[0], rev, lens, plan.dw_split)
+                torch.cuda.synchronize()
+                limit = PC.bwd_limit(ref[0])
+                e_dxp, e_stale = _err(got[0], ref[0]), _err(stale, ref[0])
+                e_tf32 = _err(tf32, ref[0]) if f32 else None
+                bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+                dw_ratio, dw_abs, dw_rel_peak = _dw_check(K, res[0], got[0], dw32, rev, lens)
+                ctrl = (_dw_check(K, res[0], got[0],
+                                  _dw_tf32_control(K, PC, res[0], got[0], rev, lens), rev, lens)
+                        if f32 else None)
+                dw_rounded = torch.equal(got[1], dw32.to(got[1].dtype))
+                e_dw = _rel(got[1], ref[1])
+                dxp_k = got[0]
+                del got, again, ref, stale, tf32
+                ms = _time_ms(kern)
+                bound_ms, bound_by = bounds[name]
+                dw_bound_ms, dw_bound_by = _dw_bound(R, T, H, dt_name)
+                rec[tag] = {
+                    "max_abs_err_vs_plain": e_dxp, "limit": limit,
+                    "max_err_over_limit": e_dxp / limit,
+                    "planted_stale_dg_err": e_stale, "planted_stale_dg_over_limit": e_stale / limit,
+                    "tf32_control_err": e_tf32,
+                    "tf32_control_over_limit": e_tf32 / limit if f32 else None,
+                    "dw_bound_ratio": dw_ratio, "dw_max_abs_err_vs_f64": dw_abs,
+                    "dw_max_err_over_peak_vs_f64": dw_rel_peak,
+                    "dw_tf32_control_ratio": ctrl and ctrl[0],
+                    "dw_tf32_control_over_peak": ctrl and ctrl[2],
+                    "dw_rel_err_vs_plain": e_dw, "dw_is_its_rounding": dw_rounded,
+                    "bitwise_repeat": bitwise, "ms": ms, "us_per_step": ms * 1e3 / T,
+                    "dw_ms": _time_ms(lambda: K.lstm_bwd_dw(res[0], dxp_k, rev, lens,
+                                                            plan.dw_split)),
+                    "dw_plain_ms": _time_ms(lambda: K.lstm_bwd_dw_plain(res[0], dxp_k, rev, lens,
+                                                                        plan.dw_split),
+                                            reps=3, warmup=1),
+                    "dw_library_ms": _dw_library_ms(K, res[0], dxp_k, rev, lens),
+                    "dw_bound_ms": dw_bound_ms, "dw_bound_by": dw_bound_by,
+                    "walk_ms": _time_ms(walk_fn, reps=3, warmup=1),
+                    "walk_dw_kernel_ms": _walk_dw_kernel_ms(walk_fn) if f32 else None,
+                    "plain_ms": _time_ms(plain_fn, reps=3, warmup=1),
+                    "bound_ms": bound_ms, "bound_by": bound_by}
+                r = rec[tag]
+                print(f"[bwd routes] {dt_name} {what} {tag} R={R} T={T} H={H}: plan S={plan.S} "
+                      f"G={plan.G} U={plan.U} rows={plan.rows} chunk={plan.chunk} kt={plan.kt} "
+                      f"dc_in_smem={plan.dc_in_smem} smem={plan.smem} B ({plan.ctas} CTAs), dW "
+                      f"split {plan.dw_split}; persistent {ms:.3f} ms (dW {r['dw_ms']:.3f} ms, "
+                      f"torch.mm {r['dw_library_ms']:.3f} ms), walk {r['walk_ms']:.3f} ms "
+                      f"(its dw_kernel {r['walk_dw_kernel_ms']} ms), plain {r['plain_ms']:.3f} "
+                      f"ms, bound {bound_ms:.4f} ms ({bound_by}), dW bound {dw_bound_ms:.4f} ms "
+                      f"({dw_bound_by}); max|dxp - plain| {e_dxp:.3e} (limit {limit:.3e}); "
+                      f"planted stale dg {e_stale:.3e}; one TF32 product "
+                      f"{'n/a' if e_tf32 is None else f'{e_tf32:.3e}'}; dW |d| / (|h|^T|dxp|) "
+                      f"{dw_ratio:.3e} (limit {dw_bound}), |d| / max|P| {dw_rel_peak:.3e}, TF32 "
+                      f"operands {ctrl and [f'{c:.3e}' for c in (ctrl[0], ctrl[2])]}; rel vs plain "
+                      f"{e_dw:.3e} (limit {dw_tol}), its rounding: {dw_rounded}; two launches "
+                      f"bitwise equal: {bitwise}; rule: {rec['route']}")
+                if not e_dxp < limit:
+                    fail(f"{dt_name} {what} {tag}: dx_proj vs plain {e_dxp:.3e} >= {limit:.3e}")
+                if not e_stale >= limit:
+                    fail(f"{dt_name} {what} {tag}: stale dgates move dx_proj by {e_stale:.3e}, "
+                         f"under the limit {limit:.3e}: the check cannot see a barrier fault")
+                if f32 and not e_tf32 >= limit:
+                    fail(f"{dt_name} {what} {tag}: one TF32 product moves dx_proj by "
+                         f"{e_tf32:.3e}, under the limit {limit:.3e}: the check cannot tell "
+                         "3xTF32 from a kernel below float32")
+                if not dw_ratio <= dw_bound:
+                    fail(f"{dt_name} {what} {tag}: dW off its float64 product by {dw_ratio:.3e} "
+                         f"of |h_prev|^T |dx_proj| > {dw_bound}")
+                if f32 and not ctrl[0] > dw_bound:
+                    fail(f"{dt_name} {what} {tag}: the dW of TF32-rounded operands is within "
+                         f"{ctrl[0]:.3e} <= {dw_bound}: the bound cannot tell 3xTF32 from TF32")
+                if not (dw_rounded and e_dw < dw_tol):
+                    fail(f"{dt_name} {what} {tag}: the routed dW is not the dW kernel's rounding "
+                         f"or is {e_dw:.3e} from plain (limit {dw_tol})")
+                if not bitwise:
+                    fail(f"{dt_name} {what} {tag}: two launches differ")
+            if rec["route"] != "persistent":
+                fail(f"{dt_name} {what}: the route rule takes the walk where a plan exists")
+            rec["nn_lstm_backward_ms"] = _lstm_backward_reference_ms(device, R, T, H, dtype)
+            out.append(rec)
+            del xp, wh, dout, runs
     return out
 
 
@@ -1066,15 +1148,19 @@ def phase_training(workdir: Path):
 
 
 WIDE_CHANNELS = 510  # H = 1020: no float32 K4p/K6p plan fits, so K4 and K6 take their walks
+# (K5 and K7 have float32 plans there: S = 128 CTAs of 8 units, G = 1)
+WIDE_WALKS = ("lstm_train_fwd", "lstm_revmasked_train_fwd")
 WIDE_RUN = f"one float32 train step at {WIDE_CHANNELS} channels x 1 layer (B=1, 2 s at 48 kHz)"
 
 
 def phase_walk_route(device):
     """One float32 train step of the discriminative model at a width where
     no float32 K4p/K6p plan fits (WIDE_CHANNELS, H = 1020; 1 layer, B=1,
-    2 s at 48 kHz): K4 and K6 take their walks there, as do K5 and K7, and
-    no K1-K3 runs.  Returns the routes of that step (the counts set to 0
-    just before it)."""
+    2 s at 48 kHz): K4 and K6 take their walks there; K5 and K7 take
+    K5p-f32 / K7p-f32 (their float32 plans fit: the backward's slice needs
+    no projection buffer), each with the float32 dW kernel; no K1-K3 runs.
+    Returns the routes of that step (the counts set to 0 just before
+    it)."""
     import torch
     from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
     from urgent2026_challenge_track1_tpu_torch.train import trainer
@@ -1096,9 +1182,12 @@ def phase_walk_route(device):
         fail("the wide float32 train step gave a non-finite loss or gradient")
     _check_no_lean_kernels("the wide float32 train step", counts)
     for name in TRAIN_ROUTED:
-        r = routes[name]
-        if r["walk"] <= 0 or r["persistent"]:
-            fail(f"the wide float32 train step: {name} routes {r}, expected the walk only")
+        r, want = routes[name], "walk" if name in WIDE_WALKS else "persistent"
+        if r[want] <= 0 or sum(r.values()) != r[want]:
+            fail(f"the wide float32 train step: {name} routes {r}, expected {want} only")
+        if want == "persistent" and K.backward_route(torch.float32, 34, H, _sm_count(device)) is None:
+            fail(f"the wide float32 train step: no float32 K5p/K7p plan at H = {H}")
+    _check_dw_launches("the wide float32 train step", routes)
     del model
     return routes
 
@@ -1278,8 +1367,8 @@ def _routes():
 
 def _check_routes(what, dtype_name, routes, kernels=INFERENCE_KERNELS):
     """Each of ``kernels`` ran, on its persistent route only (K1p-K7p) in
-    bfloat16; in float32 K4 and K6 on theirs (K4p-f32, K6p-f32) and the
-    others on their walks only."""
+    bfloat16; in float32 K4-K7 on theirs (K4p-f32 - K7p-f32) and K1-K3 on
+    their walks only."""
     for name in kernels:
         persistent = dtype_name == "bfloat16" or name in F32_PERSISTENT
         want = "persistent" if persistent else "walk"
@@ -1311,9 +1400,9 @@ def _train_step_times(device):
     """Median host-clock time of the train step (B=4, 2 s at 48 kHz, 196 x
     6) over 5 steps after 2 warm-up steps, in float32 and bfloat16, with the
     peak device memory and the kernel launches of one step (none of K1-K3:
-    remat runs the training kernels in both passes) and K4's and K6's
-    routes there (K4p-K7p only in bfloat16; K4p-f32/K6p-f32 and the K5/K7
-    walks only in float32)."""
+    remat runs the training kernels in both passes) and K4-K7's routes
+    there (K4p-K7p only, and the dW kernel once for each K5p/K7p, in either
+    dtype)."""
     import torch
     from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
     from urgent2026_challenge_track1_tpu_torch.train import trainer
@@ -1551,10 +1640,24 @@ def phase_times(device, main_counts, errs, train_errs, k1_routes, scan_routes,
     per_step = steps["bfloat16"]["launches_per_step"]
     for rec in records:  # K1-K3 on either route: none (remat runs the training kernels)
         rec["launches_per_train_step"] = per_step.get(rec["name"].removesuffix("_persistent"), 0)
-    walk_launches = {name: (train_routes[name]["walk"], "training path (float32)")
+    # the K5/K7 walks: no entry point runs them (float32 and bfloat16 take
+    # K5p/K7p wherever K5 and K7 run, the wide float32 step too); the count
+    # is the float32 training path's, 0
+    walk_launches = {name: (train_routes[name]["walk"],
+                            "training path (float32): 0, every train step takes K5p/K7p")
                      for name in ("lstm_train_bwd", "lstm_revmasked_bwd")}
-    walk_launches.update({name: (wide_routes[name]["walk"], WIDE_RUN) for name in F32_PERSISTENT})
+    walk_launches.update({name: (wide_routes[name]["walk"], WIDE_RUN) for name in WIDE_WALKS})
     records += _train_kernel_times(device, walk_launches, train_errs, steps)
+    # the K5/K7 walks in float32 (the route float32 steps took before
+    # K5p-f32/K7p-f32), their dw_kernel alone and torch.mm for that dW
+    f32_disc = next(r for r in bwd_routes_rows
+                    if r["dtype"] == "float32" and r["what"] == "disc time B=4")
+    for rec in records:
+        if rec["name"] in ("lstm_train_bwd", "lstm_revmasked_bwd"):
+            r = f32_disc[BWD_TAGS[0] if rec["name"] == "lstm_train_bwd" else BWD_TAGS[2]]
+            rec.update({"f32_ms": r["walk_ms"], "f32_dw_kernel_ms": r["walk_dw_kernel_ms"],
+                        "f32_dw_library_ms": r["dw_library_ms"],
+                        "f32_dw_library": "torch.mm(h_prev^T, dx_proj), f32, TF32 off"})
     records += _train_route_records(train_routes_rows, steps)
     records += _bwd_route_records(bwd_routes_rows, steps)
     print("[times] " + json.dumps({"train_step": steps}))
@@ -1633,88 +1736,114 @@ def _train_route_records(rows, steps):
 
 
 def _bwd_route_records(rows, steps):
-    """K5p's, K7p's and their dW kernel's records from the bwd_routes phase:
-    times at the disc time path (the band path and the flow shapes beside
-    them as band_* and flow_* keys), the worst error, limit ratio, planted
-    fault and dW bound over every shape; ``launches`` is K5's / K7's
-    persistent route count (the dW kernel's count) over one bfloat16 disc
-    train step (the counts set to 0 before it and read after it)."""
-    by_what = {r["what"]: r for r in rows}
-    disc, flow = by_what["disc time B=4"], by_what["flow time B=2"]
-    run = "one bfloat16 train step (B=4, 2 s at 48 kHz, 196 x 6)"
+    """K5p's, K7p's and their dW kernel's records from the bwd_routes phase,
+    one per dtype (the float32 route's named ``*_persistent_f32`` and
+    ``lstm_bwd_dw_f32``): times at the disc time path (the band path and
+    the flow shapes beside them as band_* and flow_* keys), the worst error,
+    limit ratio, planted fault, TF32 control and dW bound over every shape;
+    ``launches`` is K5's / K7's persistent route count (the dW kernel's
+    count) over one disc train step in that dtype (the counts set to 0
+    before it and read after it)."""
+    from urgent2026_challenge_track1_tpu_torch.ops import persistent_checks as PC
+
     out = []
-    for name, tags in (("lstm_train_bwd", BWD_TAGS[:2]), ("lstm_revmasked_bwd", BWD_TAGS[2:])):
-        runs = [r[t] for r in rows for t in tags if t in r]
-        d, f = disc[tags[0]], flow[tags[0]]
+    for dt_name, suffix in (("bfloat16", ""), ("float32", "_f32")):
+        f32 = dt_name == "float32"
+        dt_rows = [r for r in rows if r["dtype"] == dt_name]
+        by_what = {r["what"]: r for r in dt_rows}
+        disc, flow = by_what["disc time B=4"], by_what["flow time B=2"]
+        run = f"one {dt_name} train step (B=4, 2 s at 48 kHz, 196 x 6)"
+        dx_rule = (f"dx_proj: F32_BWD_LIMIT ({PC.F32_BWD_LIMIT:g}) of max|plain| per shape" if f32
+                   else "dx_proj: 4 bf16 ulps at max|plain| per shape")
+        dw_bound, dw_tol = (PC.DW_F32_BOUND, PC.F32_BWD_LIMIT) if f32 else (DW_BOUND, BF16_TOL)
+        for name, tags in (("lstm_train_bwd", BWD_TAGS[:2]), ("lstm_revmasked_bwd", BWD_TAGS[2:])):
+            runs = [r[t] for r in dt_rows for t in tags if t in r]
+            d, f = disc[tags[0]], flow[tags[0]]
+            rec = {
+                "name": f"{name}_persistent{suffix}", "route": "cuda",
+                "route_of_kernel": "persistent",
+                "source": f"{PKG}/csrc/lstm_persistent.cu", "replaces": REPLACES[name],
+                "launches": steps[dt_name]["routes_per_step"][name]["persistent"],
+                "launches_run": run,
+                "max_abs_err": max(r["max_abs_err_vs_plain"] for r in runs),
+                "max_err_over_limit": max(r["max_err_over_limit"] for r in runs),
+                "max_abs_err_f32": max(r["max_abs_err_vs_plain"] for r in runs) if f32 else None,
+                "tolerance_rule": f"{dx_rule}; dW: the dW kernel within {dw_bound} |h_prev|^T "
+                                  f"|dx_proj| of the float64 product, and within {dw_tol} "
+                                  "(relative) of plain",
+                "planted_stale_dg_over_limit": min(r["planted_stale_dg_over_limit"] for r in runs),
+                "tf32_control_over_limit": (min(r["tf32_control_over_limit"] for r in runs)
+                                            if f32 else None),
+                "dw_bound_ratio": max(r["dw_bound_ratio"] for r in runs),
+                "dw_rel_err_vs_plain": max(r["dw_rel_err_vs_plain"] for r in runs),
+                "bitwise_repeat": all(r["bitwise_repeat"] for r in runs),
+                "ms": d["ms"], "plain_ms": d["plain_ms"], "walk_ms": d["walk_ms"],
+                "walk_dw_kernel_ms": d["walk_dw_kernel_ms"],
+                "dw_ms": d["dw_ms"], "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
+                "library_ms": None,
+                "reference_ms": disc["nn_lstm_backward_ms"],
+                "reference": f"superset: adds the W_ih products (torch.nn.LSTM {dt_name}, one "
+                             "direction, N = H / 2: its backward)",
+                "shape": {k: disc[k] for k in ("R", "T", "H", "valid_steps")}, "dtype": dt_name,
+                "plan": disc["plan"], "launches_per_train_step": {
+                    dt: steps[dt]["routes_per_step"][name] for dt in ("float32", "bfloat16")},
+                "flow_ms": f["ms"], "flow_plain_ms": f["plain_ms"], "flow_walk_ms": f["walk_ms"],
+                "flow_walk_dw_kernel_ms": f["walk_dw_kernel_ms"],
+                "flow_dw_ms": f["dw_ms"], "flow_bound_ms": f["bound_ms"],
+                "flow_bound_by": f["bound_by"], "flow_library_ms": None,
+                "flow_reference_ms": flow["nn_lstm_backward_ms"], "flow_plan": flow["plan"],
+                "flow_shape": {k: flow[k] for k in ("R", "T", "H", "valid_steps")},
+                "route_table": [{k: v for k, v in r.items() if k not in BWD_TAGS or k in tags}
+                                for r in dt_rows],
+            }
+            if name == "lstm_train_bwd":  # the band paths
+                for key, what in (("band", "disc band B=4"), ("flow_band", "flow band B=2")):
+                    b = by_what[what]
+                    rec.update({f"{key}_ms": b[tags[0]]["ms"],
+                                f"{key}_walk_ms": b[tags[0]]["walk_ms"],
+                                f"{key}_dw_ms": b[tags[0]]["dw_ms"],
+                                f"{key}_bound_ms": b[tags[0]]["bound_ms"],
+                                f"{key}_plan": b["plan"],
+                                f"{key}_reference_ms": b["nn_lstm_backward_ms"]})
+            out.append(rec)
+        runs = [r[t] for r in dt_rows for t in BWD_TAGS if t in r]
+        d, f = disc[BWD_TAGS[0]], flow[BWD_TAGS[0]]
         rec = {
-            "name": f"{name}_persistent", "route": "cuda", "route_of_kernel": "persistent",
-            "source": f"{PKG}/csrc/lstm_persistent.cu", "replaces": REPLACES[name],
-            "launches": steps["bfloat16"]["routes_per_step"][name]["persistent"],
-            "launches_run": run,
-            "max_abs_err": max(r["max_abs_err_vs_plain"] for r in runs),
-            "max_err_over_limit": max(r["max_err_over_limit"] for r in runs),
-            "max_abs_err_f32": None,
-            "tolerance_rule": "dx_proj: 4 bf16 ulps at max|plain| per shape; dW: the dW "
-                              f"kernel within {DW_BOUND} |h_prev|^T |dx_proj| of the float64 "
-                              f"product, and within {BF16_TOL} (relative) of plain",
-            "planted_stale_dg_over_limit": min(r["planted_stale_dg_over_limit"] for r in runs),
+            "name": f"lstm_bwd_dw{suffix}", "route": "cuda", "route_of_kernel": "persistent",
+            "source": f"{PKG}/csrc/lstm_persistent.cu", "replaces": REPLACES["lstm_train_bwd"],
+            "replaces_also": REPLACES["lstm_revmasked_bwd"],
+            "launches": steps[dt_name]["dw_launches_per_step"], "launches_run": run,
+            "max_abs_err": max(r["dw_max_abs_err_vs_f64"] for r in runs),
+            "max_abs_err_f32": max(r["dw_max_abs_err_vs_f64"] for r in runs) if f32 else None,
+            "tolerance_rule": f"|dW - P| <= {dw_bound} |h_prev|^T |dx_proj| elementwise, P the "
+                              f"float64 product of the same {dt_name} operands",
             "dw_bound_ratio": max(r["dw_bound_ratio"] for r in runs),
-            "dw_rel_err_vs_plain": max(r["dw_rel_err_vs_plain"] for r in runs),
-            "bitwise_repeat": all(r["bitwise_repeat"] for r in runs),
-            "ms": d["ms"], "plain_ms": d["plain_ms"], "walk_ms": d["walk_ms"],
-            "dw_ms": d["dw_ms"], "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
-            "library_ms": None,
-            "reference_ms": disc["nn_lstm_backward_ms"],
-            "reference": "superset: adds the W_ih products (torch.nn.LSTM bf16, one "
-                         "direction, N = H / 2: its backward)",
-            "shape": {k: disc[k] for k in ("R", "T", "H", "valid_steps")}, "dtype": "bfloat16",
-            "plan": disc["plan"], "launches_per_train_step": {
-                dt: steps[dt]["routes_per_step"][name] for dt in ("float32", "bfloat16")},
-            "flow_ms": f["ms"], "flow_plain_ms": f["plain_ms"], "flow_walk_ms": f["walk_ms"],
-            "flow_dw_ms": f["dw_ms"], "flow_bound_ms": f["bound_ms"],
-            "flow_bound_by": f["bound_by"], "flow_library_ms": None,
-            "flow_reference_ms": flow["nn_lstm_backward_ms"], "flow_plan": flow["plan"],
-            "flow_shape": {k: flow[k] for k in ("R", "T", "H", "valid_steps")},
-            "route_table": [{k: v for k, v in r.items() if k not in BWD_TAGS or k in tags}
-                            for r in rows],
+            "dw_max_err_over_peak_vs_f64": max(r["dw_max_err_over_peak_vs_f64"] for r in runs),
+            "ms": d["dw_ms"], "plain_ms": d["dw_plain_ms"], "bound_ms": d["dw_bound_ms"],
+            "bound_by": d["dw_bound_by"], "library_ms": d["dw_library_ms"],
+            "library": (f"torch.mm(h_prev^T, dx_proj), f32 operands, TF32 off" if f32 else
+                        "torch.mm(h_prev^T, dx_proj, out_dtype=float32), bf16 operands"),
+            "shape": {k: disc[k] for k in ("R", "T", "H")}, "dtype": dt_name,
+            "split": disc["plan"]["dw_split"],
+            "flow_ms": f["dw_ms"], "flow_plain_ms": f["dw_plain_ms"],
+            "flow_bound_ms": f["dw_bound_ms"], "flow_bound_by": f["dw_bound_by"],
+            "flow_library_ms": f["dw_library_ms"], "flow_split": flow["plan"]["dw_split"],
+            "flow_shape": {k: flow[k] for k in ("R", "T", "H")},
         }
-        if name == "lstm_train_bwd":  # the band paths
-            for key, what in (("band", "disc band B=4"), ("flow_band", "flow band B=2")):
-                b = by_what[what]
-                rec.update({f"{key}_ms": b[tags[0]]["ms"], f"{key}_walk_ms": b[tags[0]]["walk_ms"],
-                            f"{key}_dw_ms": b[tags[0]]["dw_ms"],
-                            f"{key}_bound_ms": b[tags[0]]["bound_ms"], f"{key}_plan": b["plan"],
-                            f"{key}_reference_ms": b["nn_lstm_backward_ms"]})
+        if f32:
+            rec.update({
+                "tf32_control_ratio": min(r["dw_tf32_control_ratio"] for r in runs),
+                "tf32_control_over_peak": min(r["dw_tf32_control_over_peak"] for r in runs),
+                "tf32_control": "h_prev^T dx_proj of operands rounded to TF32 (float32 sums): "
+                                "must exceed the bound at every shape"})
         out.append(rec)
-    runs = [r[t] for r in rows for t in BWD_TAGS if t in r]
-    d, f = disc[BWD_TAGS[0]], flow[BWD_TAGS[0]]
-    out.append({
-        "name": "lstm_bwd_dw", "route": "cuda", "route_of_kernel": "persistent",
-        "source": f"{PKG}/csrc/lstm_persistent.cu", "replaces": REPLACES["lstm_train_bwd"],
-        "replaces_also": REPLACES["lstm_revmasked_bwd"],
-        "launches": steps["bfloat16"]["dw_launches_per_step"], "launches_run": run,
-        "max_abs_err": max(r["dw_max_abs_err_vs_f64"] for r in runs),
-        "max_abs_err_f32": None,
-        "tolerance_rule": f"|dW - P| <= {DW_BOUND} |h_prev|^T |dx_proj| elementwise, P the "
-                          "float64 product of the same bf16 operands",
-        "dw_bound_ratio": max(r["dw_bound_ratio"] for r in runs),
-        "ms": d["dw_ms"], "plain_ms": d["dw_plain_ms"], "bound_ms": d["dw_bound_ms"],
-        "bound_by": d["dw_bound_by"], "library_ms": d["dw_library_ms"],
-        "library": "torch.mm(h_prev^T, dx_proj, out_dtype=float32), bf16 operands",
-        "shape": {k: disc[k] for k in ("R", "T", "H")}, "dtype": "bfloat16",
-        "split": disc["plan"]["dw_split"],
-        "flow_ms": f["dw_ms"], "flow_plain_ms": f["dw_plain_ms"],
-        "flow_bound_ms": f["dw_bound_ms"], "flow_bound_by": f["dw_bound_by"],
-        "flow_library_ms": f["dw_library_ms"], "flow_split": flow["plan"]["dw_split"],
-        "flow_shape": {k: flow[k] for k in ("R", "T", "H")},
-    })
     return out
 
 
 def _train_kernel_times(device, walk_launches, train_errs, steps):
-    """K4-K7 at the training step's shapes, bf16 (their walks: the float32
-    steps run K5's and K7's, and K4's and K6's where no float32 plan fits):
-    kernel, plain version, bound.  K4/K5 are timed on the time path and on
+    """K4-K7 at the training step's shapes, bf16 (their walks: a float32
+    step runs K4's and K6's only where no float32 plan fits, and no step
+    runs K5's and K7's): kernel, plain version, bound.  K4/K5 are timed on the time path and on
     the band path (the record holds the time path, and the band path's ms
     and bound as band_* keys).  ``walk_launches``: {kernel: (walk launches,
     the run that drove them)}."""
@@ -2463,9 +2592,10 @@ def main() -> int:
             name = rec["name"].removesuffix("_f32").removesuffix("_persistent")
             rec["flow_launches"] = flow_times[dt]["routes_per_step"][name]["persistent"]
             rec["flow_launches_run"] = f"one {dt} flow train step (B=2, 2 s, 384 x 6)"
-        elif rec["name"] == "lstm_bwd_dw":
-            rec["flow_launches"] = flow_times["bfloat16"]["dw_launches_per_step"]
-            rec["flow_launches_run"] = "one bfloat16 flow train step (B=2, 2 s, 384 x 6)"
+        elif rec["name"] in ("lstm_bwd_dw", "lstm_bwd_dw_f32"):
+            dt = rec["dtype"]
+            rec["flow_launches"] = flow_times[dt]["dw_launches_per_step"]
+            rec["flow_launches_run"] = f"one {dt} flow train step (B=2, 2 s, 384 x 6)"
     print("[times] " + json.dumps({"ab_arms": ab, "flow": flow_times}))
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(gpu_name_and_power())

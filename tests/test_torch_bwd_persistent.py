@@ -1,11 +1,15 @@
 """K5p and K7p, the persistent weight-stationary routes of the training
-backwards K5 and K7, and their dW kernel, on the CPU: the route rule, the
-backward planner, the packed W_hh^T rows, the plain sliced reverse walks
-that read only the packed slices and sum the dh product in the kernel's K
-split (eight warps, K tiles) and dW in its split of R T, and the planted
-stale-dgates fault that the card checks must see.  The kernels themselves
-(csrc/lstm_persistent.cu) are held against the same plain versions on the
-card (tests/test_torch_cuda_kernels.py and chip_smoke.py).
+backwards K5 and K7, and their dW kernel, in bfloat16 and in float32 (the
+float32 route: plans of 4-byte elements, 3xTF32 products on the card), on
+the CPU: the route rule, the backward planner (its float32 plans and the
+bfloat16 plans it leaves unchanged), the packed W_hh^T rows, the plain
+sliced reverse walks that read only the packed slices and sum the dh
+product in the kernel's K split (eight warps, K tiles; k16 steps in
+bfloat16, k8 steps in float32) and dW in its split of R T, the planted
+stale-dgates fault and the one-TF32-product control that the card checks
+must see.  The kernels themselves (csrc/lstm_persistent.cu) are held against
+the same plain versions on the card (tests/test_torch_cuda_kernels.py and
+chip_smoke.py).
 
 Tolerances: the sliced walks against the unsliced plain versions at every
 step, padded ones included: dx_proj max abs 1e-6 in float32 (the same
@@ -42,6 +46,9 @@ PINNED = {(136, 392): (33, 3, 12, 46, 48, 400, True),
 # keeps dc in global memory
 SLICED = [(70, 6, 40, 24, K.SMEM_LIMIT), (130, 5, 17, 60, K.SMEM_LIMIT),
           (150, 4, 24, 6, K.SMEM_LIMIT), (150, 5, 136, 12, 70000)]
+# the same partitions in float32 (4-byte elements: the last one's two K
+# tiles, five chunks a step and dc in global memory need more bytes)
+SLICED_F32 = SLICED[:3] + [(150, 5, 136, 12, 120000)]
 
 
 def _inputs(R, T, H, dtype, seed):
@@ -66,13 +73,20 @@ def _abs(got, ref):
 
 
 def test_backward_route_rule():
-    """K5 and K7 take ``backward_route``: bf16 with a backward plan takes
-    the persistent route, float32 and shapes without a plan the walk."""
+    """K5 and K7 take ``backward_route``: bf16 with a backward plan and
+    float32 with a float32 plan (elem = 4) take the persistent route; shapes
+    without a plan and other dtypes the walk.  The wide float32 step (H =
+    1020, where K4 and K6 have no float32 plan) has a backward plan."""
     for R, H in TRAIN_SHAPES:
-        assert K.backward_route(torch.float32, R, H, SMS) is None
         plan = K.backward_route(torch.bfloat16, R, H, SMS)
-        assert plan == K.plan_backward(R, H, SMS) and plan.ctas <= SMS
+        assert plan == K.plan_backward(R, H, SMS) and plan.ctas <= SMS and plan.elem == 2
+        f32 = K.backward_route(torch.float32, R, H, SMS)
+        assert f32 == K.plan_backward(R, H, SMS, elem=4) and f32.ctas <= SMS and f32.elem == 4
     assert K.backward_route(torch.bfloat16, 10, 8000, SMS) is None
+    assert K.backward_route(torch.float32, 10, 8000, SMS) is None
+    assert K.backward_route(torch.float16, 20, 197, SMS) is None
+    for R in (34, 201):  # the wide step's time and band paths (B = 1)
+        assert K.backward_route(torch.float32, R, 1020, SMS).S == 128
 
 
 @pytest.mark.parametrize("R,H", TRAIN_SHAPES, ids=lambda v: str(v))
@@ -94,6 +108,63 @@ def test_backward_planner_at_the_train_shapes(R, H):
     assert (plan.S, plan.G, plan.U, plan.rows, plan.chunk, plan.kt,
             plan.dc_in_smem) == PINNED[R, H]
     assert 1 <= plan.dw_split <= K.DW_MAX_SPLIT
+
+
+# every bfloat16 backward plan the planner made before it knew the element
+# size: (R, H) -> (S, G, U, rows, chunk, kt, dc_in_smem, smem)
+BF16_PLANS = {(136, 392): (33, 3, 12, 46, 48, 400, True, 169376),
+              (804, 392): (10, 13, 40, 62, 16, 400, True, 197952),
+              (96, 768): (64, 2, 12, 48, 48, 448, True, 226816),
+              (502, 768): (32, 4, 24, 126, 32, 288, False, 228736),
+              (20, 197): (50, 1, 4, 20, 32, 400, True, 76736),
+              (2176, 384): (8, 16, 48, 136, 16, 512, False, 224512)}
+# the float32 plans of the same shapes (PERF.md's predictions)
+F32_PLANS = {(136, 392): (33, 3, 12, 46, 32, 320, True, 220576),
+             (804, 392): (17, 7, 24, 115, 16, 272, True, 228000),
+             (96, 768): (96, 1, 8, 96, 48, 256, True, 232064),
+             (502, 768): (96, 1, 8, 502, 48, 256, False, 228992),
+             (20, 197): (50, 1, 4, 20, 32, 400, True, 143808),
+             (2176, 384): (16, 8, 24, 272, 16, 384, False, 228224)}
+
+
+def _plan_tuple(plan):
+    return (plan.S, plan.G, plan.U, plan.rows, plan.chunk, plan.kt, plan.dc_in_smem, plan.smem)
+
+
+@pytest.mark.parametrize("shape", sorted(BF16_PLANS), ids=str)
+def test_bf16_backward_plans_are_unchanged(shape):
+    plan = K.plan_backward(*shape, SMS)
+    assert plan.elem == 2 and _plan_tuple(plan) == BF16_PLANS[shape]
+
+
+@pytest.mark.parametrize("shape", sorted(F32_PLANS), ids=str)
+def test_f32_backward_plans_fit_and_double_the_element_terms(shape):
+    """A float32 backward plan fits SMEM_LIMIT and the float32 route's
+    limits (MAX_ACC_BLOCKS_TF32 accumulator blocks a warp, MAX_CELLS_F32
+    cells a chunk); its bytes are the bf16 reckoning of the same partition
+    with the slice, the staged dgates and the cell inputs in 4-byte
+    elements (each row still padded by 16 bytes), the partial dh and dc
+    unchanged (f32 already)."""
+    R, H = shape
+    plan = K.plan_backward(R, H, SMS, elem=4)
+    assert plan.elem == 4 and _plan_tuple(plan) == F32_PLANS[shape]
+    assert plan.smem <= K.SMEM_LIMIT and plan.ctas <= SMS
+    assert plan.chunk // 16 * plan.up // 8 <= K.MAX_ACC_BLOCKS_TF32
+    assert plan.chunk * plan.U <= K.MAX_CELLS_F32
+    up, kp, kt, chunk, U = plan.up, plan.kp, plan.kt, plan.chunk, plan.U
+    nbuf = 1 if kt >= kp else 2
+    slice2, staged2, cells2 = 2 * up * (kp + 8), 2 * nbuf * chunk * (kt + 8), 2 * 2 * chunk * 6 * U
+    rest = 4 * K.WARPS * chunk * up + (4 * plan.rows * U if plan.dc_in_smem else 0)
+    bf16 = K.backward_smem(H, U, chunk, kt, plan.rows, plan.dc_in_smem)
+    assert bf16 == slice2 + staged2 + cells2 + rest
+    assert plan.smem == (2 * slice2 - 16 * up) + (2 * staged2 - 16 * nbuf * chunk) + 2 * cells2 \
+        + rest
+    assert plan.dw_split == K.dw_split(H, SMS, 4)
+
+
+def test_f32_backward_planner_takes_no_other_element():
+    with pytest.raises(ValueError):
+        K.plan_backward(10, 64, SMS, elem=8)
 
 
 def test_pack_backward_weights_is_the_rows_of_w_hh_t():
@@ -131,6 +202,138 @@ def test_sliced_backwards_match_plain_at_every_step(R, T, H, sms, smem, dtype, t
     dxp, dw = K.lstm_revmasked_bwd_sliced_plain(*res, lengths, dout, w, plan)
     ref_dxp, ref_dw = K._backward_plain(*res, dout, w_hh.float(), True, lengths)
     assert _abs(dxp, ref_dxp) < tol and _rel(dw, ref_dw) < tol
+
+
+@pytest.mark.parametrize("R,T,H,sms,smem", SLICED_F32, ids=lambda v: str(v))
+def test_sliced_f32_backwards_match_plain_at_every_step(R, T, H, sms, smem):
+    """The sliced backwards over a float32 plan (its k8 K split, narrower
+    chunks and K tiles) against the unsliced plain versions, 1e-6 at every
+    step, dW relative."""
+    plan = K.plan_backward(R, H, sms, smem, elem=4)
+    assert plan.S > 1 and plan.G > 1 and plan.elem == 4
+    xp, w_hh, dout, lengths = _inputs(R, T, H, torch.float32, R + T + H + 1)
+    w = K.pack_backward_weights(w_hh, plan)
+    for reverse in (False, True):
+        res = K.lstm_train_fwd_plain(xp, w_hh, reverse)
+        dxp, dw = K.lstm_train_bwd_sliced_plain(*res, dout, w, plan, reverse)
+        ref_dxp, ref_dw = K._backward_plain(*res, dout, w_hh, reverse)
+        assert _abs(dxp, ref_dxp) < 1e-6 and _rel(dw, ref_dw) < 1e-6
+    res = K.lstm_revmasked_train_fwd_plain(xp, w_hh, lengths)
+    dxp, dw = K.lstm_revmasked_bwd_sliced_plain(*res, lengths, dout, w, plan)
+    ref_dxp, ref_dw = K._backward_plain(*res, dout, w_hh, True, lengths)
+    assert _abs(dxp, ref_dxp) < 1e-6 and _rel(dw, ref_dw) < 1e-6
+
+
+def test_f32_k_owner_follows_the_k8_steps():
+    """On the float32 route k8 step j of a K tile goes to warp j % 8 (the
+    bf16 route's k16 steps); the tiles restart the count."""
+    plan = K.plan_backward(20, 197, SMS, elem=4)
+    owner = K._k_owner(plan)
+    assert owner.shape == (plan.kp,)
+    for k in (0, 7, 8, 63, 64, 71, plan.kt - 1, plan.kt, plan.kt + 8):
+        assert int(owner[k]) == (k % plan.kt) // 8 % K.WARPS
+    bf16 = K.plan_backward(20, 197, SMS)
+    assert int(K._k_owner(bf16)[8]) == 0 and int(K._k_owner(bf16)[16]) == 1
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_sliced_f32_backward_matches_pallas(reverse):
+    """The float32 plan's sliced K5p backward on the Pallas forward's
+    residuals against the Pallas backward (``_lstm_train_bwd``, interpret
+    mode) at every step, 1e-5, dW included."""
+    R, T, H = 70, 6, 40
+    plan = K.plan_backward(R, H, 24, elem=4)
+    assert plan.elem == 4 and plan.S > 1 and plan.G > 1
+    xp, w_hh, dout, _ = _inputs(R, T, H, torch.float32, 16)
+    res = jpl._train_forward(jnp.asarray(xp.numpy()), jnp.asarray(w_hh.numpy()), reverse, 0,
+                             True)
+    ref_dxp, ref_dw = jpl._lstm_train_bwd(reverse, 0, True, (*res, jnp.asarray(w_hh.numpy())),
+                                          jnp.asarray(dout.numpy()))
+    h, gates, c = (torch.from_numpy(np.swapaxes(np.asarray(r), 0, 1).copy()) for r in res)
+    dxp, dw = K.lstm_train_bwd_sliced_plain(h, gates, c, dout,
+                                            K.pack_backward_weights(w_hh, plan), plan, reverse)
+    np.testing.assert_allclose(dxp.numpy(), np.asarray(ref_dxp), atol=1e-5, rtol=0)
+    assert _rel(dw, torch.from_numpy(np.array(ref_dw))) < 1e-5
+
+
+def test_sliced_f32_revmasked_backward_matches_pallas():
+    """The float32 plan's sliced K7p backward against the Pallas masked
+    backward (``_revmasked_bwd``, interpret mode) at every step, padded ones
+    included, 1e-5, dW included."""
+    R, T, H = 70, 6, 40
+    plan = K.plan_backward(R, H, 24, elem=4)
+    xp, w_hh, dout, lengths = _inputs(R, T, H, torch.float32, 17)
+    jl = jnp.asarray(lengths.numpy())
+    res = jpl._train_forward_revmasked(jnp.asarray(xp.numpy()), jnp.asarray(w_hh.numpy()), jl,
+                                       0, True)
+    ref_dxp, ref_dw, _ = jpl._revmasked_bwd(0, True, (*res, jnp.asarray(w_hh.numpy()), jl),
+                                            jnp.asarray(dout.numpy()))
+    h, gates, c = (torch.from_numpy(np.swapaxes(np.asarray(r), 0, 1).copy()) for r in res)
+    dxp, dw = K.lstm_revmasked_bwd_sliced_plain(h, gates, c, lengths, dout,
+                                                K.pack_backward_weights(w_hh, plan), plan)
+    np.testing.assert_allclose(dxp.numpy(), np.asarray(ref_dxp), atol=1e-5, rtol=0)
+    assert _rel(dw, torch.from_numpy(np.array(ref_dw))) < 1e-5
+
+
+def _head(v):
+    return (v.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _three_tf32(stale, prev, w):
+    """K5p-f32's dh product on the CPU: the dgates and W_hh split into TF32
+    heads by bit masks, a_lo b_hi + a_hi b_lo summed apart, then added to
+    a_hi b_hi (each TF32 product exact in float32)."""
+    a = prev.float()
+    ah, bh = _head(a), _head(w)
+    al, bl = _head(a - ah), _head(w - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+@pytest.mark.parametrize("kind", ["fwd", "rev", "masked"])
+@pytest.mark.parametrize("R,T,H", [(20, 64, 197), (24, 201, 392)], ids=str)
+def test_f32_bwd_limit_holds_3xtf32_and_refuses_one_tf32_product(R, T, H, kind):
+    """F32_BWD_LIMIT between the float32 route's arithmetic and one TF32
+    product: the sliced plain backward over the float32 plan and the
+    backward with the kernel's 3xTF32 dh product stay within a tenth of it
+    of the plain dx_proj, the backward with one TF32 product
+    (``persistent_checks.lstm_train_bwd_tf32``, the card checks' control)
+    and the stale-dgates fault leave it."""
+    xp, w_hh, dout, lengths = _inputs(R, T, H, torch.float32, 18)
+    dout = 0.1 * dout
+    reverse, lens = kind != "fwd", (lengths if kind == "masked" else None)
+    if lens is None:
+        res = K.lstm_train_fwd_plain(xp, w_hh, reverse)
+    else:
+        res = K.lstm_revmasked_train_fwd_plain(xp, w_hh, lens)
+        dout = dout * (torch.arange(T)[None, :] < lens[:, None])[..., None]
+    ref = K._backward_plain(*res, dout, w_hh, reverse, lens)[0]
+    limit = PC.bwd_limit(ref)
+    assert limit == PC.F32_BWD_LIMIT * float(ref.abs().max())
+    plan = K.plan_backward(R, H, SMS, elem=4)
+    w = K.pack_backward_weights(w_hh, plan)
+    sliced = (K.lstm_train_bwd_sliced_plain(*res, dout, w, plan, reverse) if lens is None
+              else K.lstm_revmasked_bwd_sliced_plain(*res, lens, dout, w, plan))[0]
+    assert _abs(sliced, ref) < limit / 10
+    three = PC._backward_faulty(*res, dout, w_hh, reverse, lens, _three_tf32)[0]
+    one = PC.lstm_train_bwd_tf32(*res, dout, w_hh, reverse, lens)[0]
+    stale = PC.lstm_train_bwd_stale_dg(*res, dout, w_hh, reverse, lens)[0]
+    assert _abs(three, ref) < limit / 10
+    assert _abs(one, ref) >= limit and _abs(stale, ref) >= limit
+
+
+def test_faulty_backward_with_the_right_product_is_the_plain_one():
+    """``persistent_checks._backward_faulty`` fed the previous step's
+    dgates is the plain backward, bit for bit: the controls differ from it
+    only in their product."""
+    R, T, H = 21, 9, 24
+    xp, w_hh, dout, lengths = _inputs(R, T, H, torch.float32, 19)
+    for reverse, lens in ((False, None), (True, None), (True, lengths)):
+        res = (K.lstm_train_fwd_plain(xp, w_hh, reverse) if lens is None
+               else K.lstm_revmasked_train_fwd_plain(xp, w_hh, lens))
+        got = PC._backward_faulty(*res, dout, w_hh, reverse, lens,
+                                  lambda stale, prev, w: prev.float() @ w)
+        ref = K._backward_plain(*res, dout, w_hh, reverse, lens)
+        assert torch.equal(got[0], ref[0])
 
 
 @pytest.mark.parametrize("reverse", [False, True])
@@ -215,22 +418,32 @@ def test_cpu_takes_the_plain_versions_without_counting():
         assert K.route_counts(name) == {"persistent": 0, "walk": 0}
 
 
-@pytest.mark.parametrize("masked,group", [
-    (0, "K5p lstm_train_bwd_persistent"), (1, "K7p lstm_revmasked_bwd_persistent")])
-def test_profiler_groups_each_backward_instance(masked, group):
-    """profile_forward files bwd_persistent_kernel<MASKED> under its own
-    kernel, and the dW kernel and its part sum under theirs, from the
-    mangled name and the demangled one; the walks' names keep their
-    groups."""
+@pytest.mark.parametrize("t,masked,group", [
+    ("bf16", 0, "K5p lstm_train_bwd_persistent"), ("bf16", 1, "K7p lstm_revmasked_bwd_persistent"),
+    ("f32", 0, "K5p-f32 lstm_train_bwd_persistent"),
+    ("f32", 1, "K7p-f32 lstm_revmasked_bwd_persistent")])
+def test_profiler_groups_each_backward_instance(t, masked, group):
+    """profile_forward files bwd_persistent_kernel<T, MASKED> under its own
+    kernel (the float32 instances as K5p-f32 / K7p-f32), and each dW kernel
+    and their part sum under theirs, from the mangled name and the
+    demangled one; the walks' names keep their groups."""
     from urgent2026_challenge_track1_tpu_torch.profile_forward import _group
 
-    mangled = f"_ZN12_GLOBAL__N_121bwd_persistent_kernelILb{masked}EEEvNS_7BwdArgsE"
-    demangled = ("(anonymous namespace)::bwd_persistent_kernel<"
-                 + ("true" if masked else "false") + ">((anonymous namespace)::BwdArgs)")
+    mangled_t, demangled_t = ("13__nv_bfloat16", "__nv_bfloat16") if t == "bf16" else ("f", "float")
+    mangled = (f"_ZN12_GLOBAL__N_121bwd_persistent_kernelI{mangled_t}Lb{masked}EEEvNS_7BwdArgsIT_EE")
+    demangled = (f"(anonymous namespace)::bwd_persistent_kernel<{demangled_t}, "
+                 + ("true" if masked else "false")
+                 + f">((anonymous namespace)::BwdArgs<{demangled_t}>)")
     assert _group(mangled) == _group(demangled) == group
     dw = "K5p/K7p dW (dw_tc_kernel)"
-    assert _group("_ZN12_GLOBAL__N_112dw_tc_kernelENS_6DwArgsE") == dw
-    assert _group("(anonymous namespace)::dw_tc_kernel((anonymous namespace)::DwArgs)") == dw
-    assert _group("_ZN12_GLOBAL__N_113dw_sum_kernelEPKfPfmi") == dw
+    assert _group("_ZN12_GLOBAL__N_112dw_tc_kernelENS_6DwArgsI13__nv_bfloat16EE") == dw
+    assert _group("(anonymous namespace)::dw_tc_kernel("
+                  "(anonymous namespace)::DwArgs<__nv_bfloat16>)") == dw
+    dw32 = "K5p/K7p dW-f32 (dw_tf32_kernel)"
+    assert _group("_ZN12_GLOBAL__N_114dw_tf32_kernelENS_6DwArgsIfEE") == dw32
+    assert _group("(anonymous namespace)::dw_tf32_kernel("
+                  "(anonymous namespace)::DwArgs<float>)") == dw32
+    assert _group("_ZN12_GLOBAL__N_113dw_sum_kernelEPKfPfmi") == (
+        "K5p/K7p dW part sum (dw_sum_kernel)")
     assert _group("(anonymous namespace)::dw_kernel<__nv_bfloat16, true>("
                   "(anonymous namespace)::Back<__nv_bfloat16>)") == "K7 lstm_revmasked_bwd (dW)"

@@ -12,8 +12,9 @@ import torch
 
 from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm
 from urgent2026_challenge_track1_tpu_torch.ops.persistent_checks import (
-    F32_LIMIT, fusedin_bilstm_stale_h, lstm_scan_stale_h, lstm_scan_tf32,
-    lstm_train_bwd_stale_dg, persistent_limit, ulp_limit)
+    DW_F32_BOUND, F32_LIMIT, bwd_limit, fusedin_bilstm_stale_h, lstm_scan_stale_h,
+    lstm_scan_tf32, lstm_train_bwd_stale_dg, lstm_train_bwd_tf32, persistent_limit, tf32,
+    ulp_limit)
 
 torch.set_num_threads(1)
 R, T, N, H = 13, 11, 40, 72  # H not a multiple of 32, R not of any row tile
@@ -564,8 +565,9 @@ def test_bwd_persistent_is_deterministic(dev):
 
 
 def test_bwd_route_follows_the_dtype(dev):
-    """float32 takes the walks, bfloat16 K5p/K7p; each counts as a K5 or K7
-    launch; the persistent wrappers and the dW kernel refuse float32."""
+    """bfloat16 takes K5p/K7p and float32 K5p-f32/K7p-f32 (each with its dW
+    kernel); each counts as a K5 or K7 launch; the walks run only when
+    called; the persistent wrappers and the dW kernel refuse float16."""
     res, dout, wh, lengths = _masked_case(dev, (R, T, H), 33)
     f32 = [t.float() for t in res]
     cuda_lstm.reset_launch_counts()
@@ -574,15 +576,19 @@ def test_bwd_route_follows_the_dtype(dev):
     cuda_lstm.lstm_train_bwd(*res, dout, wh)
     cuda_lstm.lstm_revmasked_bwd(*res, lengths, dout, wh)
     for name in ("lstm_train_bwd", "lstm_revmasked_bwd"):
-        assert cuda_lstm.route_counts(name) == {"persistent": 1, "walk": 1}
+        assert cuda_lstm.route_counts(name) == {"persistent": 2, "walk": 0}
         assert cuda_lstm.launch_counts()[name] == 2
-    assert cuda_lstm.lstm_bwd_dw.launches == 2
+    assert cuda_lstm.lstm_bwd_dw.launches == 4
+    cuda_lstm.lstm_train_bwd_walk(*f32, dout.float(), wh.float())
+    assert cuda_lstm.route_counts("lstm_train_bwd") == {"persistent": 2, "walk": 1}
+    assert cuda_lstm.lstm_bwd_dw.launches == 4
+    f16 = [t.half() for t in res]
     with pytest.raises(TypeError):
-        cuda_lstm.lstm_train_bwd_persistent(*f32, dout.float(), wh.float())
+        cuda_lstm.lstm_train_bwd_persistent(*f16, dout.half(), wh.half())
     with pytest.raises(TypeError):
-        cuda_lstm.lstm_revmasked_bwd_persistent(*f32, lengths, dout.float(), wh.float())
+        cuda_lstm.lstm_revmasked_bwd_persistent(*f16, lengths, dout.half(), wh.half())
     with pytest.raises(TypeError):
-        cuda_lstm.lstm_bwd_dw(f32[0], f32[1])
+        cuda_lstm.lstm_bwd_dw(f16[0], f16[1])
 
 
 def test_bwd_persistent_refuses_a_grid_the_card_cannot_hold(dev):
@@ -605,6 +611,152 @@ def test_bwd_persistent_refuses_a_grid_the_card_cannot_hold(dev):
     got = cuda_lstm.lstm_revmasked_bwd_persistent(*res, lengths, dout, wh)
     ref = cuda_lstm.lstm_revmasked_bwd_plain(*res, lengths, dout, wh)
     assert _err(got[0], ref[0]) < ulp_limit(ref[0])
+
+
+# --- K5p and K7p's float32 route (3xTF32 products) ------------------------
+# dx_proj within F32_BWD_LIMIT of max|plain dx_proj| at every step, a limit
+# that the stale-dgates fault and, at the train steps' shapes, the backward
+# with one TF32 product (lstm_train_bwd_tf32) exceed; the small shapes stage
+# the cell inputs in 16-, 8- and 4-byte copies (H = 72, 46, 37).  The
+# float32 dW kernel within DW_F32_BOUND |h_prev|^T |dx_proj| of the float64
+# product of its own operands, which the product of TF32-rounded operands
+# exceeds.
+
+
+def _dw_f32_reading(dw, hp, d):
+    """max over elements of |dw - P| / (|hp|^T |d|), P = hp^T d in float64
+    (0 / 0 read as 0)."""
+    P = hp.double().t() @ d.double()
+    scale = hp.double().abs().t() @ d.double().abs()
+    e = (dw.double() - P).abs()
+    return float(torch.where(scale > 0, e / scale.clamp_min(1e-300),
+                             torch.where(e > 0, float("inf"), 0.0)).max())
+
+
+def _hold_backward_f32(got, ref, stale, h, reverse, lengths=None):
+    """dx_proj within F32_BWD_LIMIT of max|plain| at every step, a limit the
+    stale-dgates fault exceeds; the float32 dW kernel alone within
+    DW_F32_BOUND of the float64 product, which the product of TF32-rounded
+    operands exceeds; the routed dW is that kernel's, near the plain dW."""
+    dxp, dw = got
+    limit = bwd_limit(ref[0])
+    assert dxp.dtype == torch.float32 and dxp.shape == ref[0].shape
+    assert _err(dxp, ref[0]) < limit <= _err(stale[0], ref[0])
+    dw32 = cuda_lstm.lstm_bwd_dw(h, dxp, reverse, lengths)
+    hp = cuda_lstm._h_prev(h, reverse, lengths).reshape(-1, h.shape[-1])
+    d = dxp.reshape(-1, dxp.shape[-1])
+    assert _dw_f32_reading(dw32, hp, d) <= DW_F32_BOUND
+    assert _dw_f32_reading(tf32(hp).t() @ tf32(d), hp, d) > DW_F32_BOUND
+    assert torch.equal(dw, dw32)
+    assert _rel(dw, ref[1]) < 1e-5
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("shape", TRAIN_SHAPES, ids=TRAIN_IDS)
+def test_train_bwd_persistent_f32_matches_plain(dev, shape, reverse):
+    """K5p-f32 and the float32 dW kernel against the plain version at every
+    step."""
+    xp, wh, _, dout = _bwd_case(dev, shape, 42)
+    xp, wh, dout = _f32(xp, wh, dout)
+    res = cuda_lstm.lstm_train_fwd_plain(xp, wh, reverse)
+    cuda_lstm.reset_launch_counts()
+    got = cuda_lstm.lstm_train_bwd(*res, dout, wh, reverse)
+    assert cuda_lstm.route_counts("lstm_train_bwd") == {"persistent": 1, "walk": 0}
+    assert cuda_lstm.lstm_bwd_dw.launches == 1
+    ref = cuda_lstm.lstm_train_bwd_plain(*res, dout, wh, reverse)
+    _hold_backward_f32(got, ref, lstm_train_bwd_stale_dg(*res, dout, wh, reverse), res[0],
+                       reverse)
+
+
+@pytest.mark.parametrize("shape", MASKED_SHAPES, ids=MASKED_IDS)
+def test_revmasked_bwd_persistent_f32_matches_plain_at_every_step(dev, shape):
+    """K7p-f32 and the float32 dW kernel at every step, padded ones
+    included; the mask trap: dx_proj of padded steps is written too, and a
+    kernel that dropped m_t after the product would miss the plain
+    version there."""
+    xp, wh, lengths, dout = _bwd_case(dev, shape, 43)
+    xp, wh, dout = _f32(xp, wh, dout)
+    valid = torch.arange(shape[1], device=dev)[None, :] < lengths[:, None]
+    res = cuda_lstm.lstm_revmasked_train_fwd_plain(xp, wh, lengths)
+    dout = dout * valid[..., None]
+    cuda_lstm.reset_launch_counts()
+    got = cuda_lstm.lstm_revmasked_bwd(*res, lengths, dout, wh)
+    assert cuda_lstm.route_counts("lstm_revmasked_bwd") == {"persistent": 1, "walk": 0}
+    ref = cuda_lstm.lstm_revmasked_bwd_plain(*res, lengths, dout, wh)
+    _hold_backward_f32(got, ref, lstm_train_bwd_stale_dg(*res, dout, wh, True, lengths), res[0],
+                       True, lengths)
+    unmasked = cuda_lstm.lstm_train_bwd_plain(*res, dout, wh, True)[0]
+    assert _err(unmasked, ref[0]) >= bwd_limit(ref[0])
+
+
+def test_bwd_persistent_f32_is_deterministic(dev):
+    """Two float32 launches of K5p and of K7p (with the float32 dW kernel's
+    split sums) are bitwise equal."""
+    res, dout, wh, lengths = _masked_case(dev, (96, 251, 768), 44)
+    res, dout, wh = [t.float() for t in res], dout.float(), wh.float()
+    for run in (lambda: cuda_lstm.lstm_train_bwd_persistent(*res, dout, wh, False),
+                lambda: cuda_lstm.lstm_train_bwd_persistent(*res, dout, wh, True),
+                lambda: cuda_lstm.lstm_revmasked_bwd_persistent(*res, lengths, dout, wh)):
+        a, b = run(), run()
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("shape,kind", TF32_CONTROL,
+                         ids=[f"{s[0]}x{s[1]}x{s[2]}-{k}" for s, k in TF32_CONTROL])
+def test_f32_bwd_limit_refuses_one_tf32_product(dev, shape, kind):
+    """The control of F32_BWD_LIMIT: where K5p-f32 / K7p-f32 (3xTF32) hold
+    it, the plain backward with one TF32 product in dh exceeds it."""
+    if kind == "masked":
+        res, dout, wh, lengths = _masked_case(dev, shape, 45)
+        res, dout, wh = [t.float() for t in res], dout.float(), wh.float()
+        got = cuda_lstm.lstm_revmasked_bwd_persistent(*res, lengths, dout, wh)
+        ref = cuda_lstm.lstm_revmasked_bwd_plain(*res, lengths, dout, wh)
+        one = lstm_train_bwd_tf32(*res, dout, wh, True, lengths)
+    else:
+        xp, wh, _, dout = _bwd_case(dev, shape, 45)
+        xp, wh, dout = _f32(xp, wh, dout)
+        res = cuda_lstm.lstm_train_fwd_plain(xp, wh, kind == "rev")
+        got = cuda_lstm.lstm_train_bwd_persistent(*res, dout, wh, kind == "rev")
+        ref = cuda_lstm.lstm_train_bwd_plain(*res, dout, wh, kind == "rev")
+        one = lstm_train_bwd_tf32(*res, dout, wh, kind == "rev")
+    assert _err(got[0], ref[0]) < bwd_limit(ref[0]) <= _err(one[0], ref[0])
+
+
+@pytest.mark.parametrize("shape", [(R, T, H), (13, 9, 37), (136, 201, 392), (502, 48, 768)],
+                         ids=["small", "odd_h", "disc_time", "flow_band"])
+def test_dw_f32_matches_the_float64_product(dev, shape):
+    """The float32 dW kernel alone (each split the planner may take) against
+    torch.mm in float64 on the same shifted (and masked) operands, and two
+    launches bitwise equal."""
+    Rs, Ts, Hs = shape
+    rng = np.random.default_rng(46)
+    h = _t(rng, dev, torch.float32, Rs, Ts, Hs, scale=0.5)
+    dxp = _t(rng, dev, torch.float32, Rs, Ts, 4 * Hs, scale=0.05)
+    lengths = torch.from_numpy(rng.integers(1, Ts + 1, Rs).astype(np.int32)).to(dev)
+    for reverse, lens in ((False, None), (True, None), (True, lengths)):
+        hp = cuda_lstm._h_prev(h, reverse, lens).reshape(-1, Hs)
+        d = dxp.reshape(-1, 4 * Hs)
+        for split in (1, 2, 3, 4):
+            a = cuda_lstm.lstm_bwd_dw(h, dxp, reverse, lens, split)
+            b = cuda_lstm.lstm_bwd_dw(h, dxp, reverse, lens, split)
+            torch.cuda.synchronize()
+            assert torch.equal(a, b)
+            assert _dw_f32_reading(a, hp, d) <= DW_F32_BOUND
+
+
+def test_bwd_f32_plan_bytes_equal_the_kernels(dev):
+    """The planner's float32 backward shared-memory bytes are the kernel's
+    own (``BwdPlan::smem_bytes`` with elem = 4), and a bfloat16 plan's
+    too."""
+    from urgent2026_challenge_track1_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    for R_, H_ in ((136, 392), (804, 392), (96, 768), (502, 768), (13, 37), (34, 1020)):
+        for elem in (2, 4):
+            plan = cuda_lstm.plan_backward(R_, H_, 132, elem=elem)
+            assert lib.lstm_persistent_bwd_smem(H_, plan.U, plan.rows, plan.chunk, plan.kt,
+                                                int(plan.dc_in_smem), elem) == plan.smem
 
 
 # --- the walks of K4-K7 --------------------------------------------------

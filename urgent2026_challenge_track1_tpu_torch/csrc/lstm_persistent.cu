@@ -3,8 +3,9 @@
 // backwards, as persistent, weight-stationary tensor-core recurrences for
 // NVIDIA Hopper (sm_90a), bound with ctypes.  K1p first; K2p-K6p
 // (scan_persistent_kernel, bf16, and for K4p/K6p also f32 on 3xTF32
-// products) after it; K5p/K7p (bwd_persistent_kernel) and
-// their dW kernel (dw_tc_kernel) at the end of the namespace.
+// products) after it; K5p/K7p (bwd_persistent_kernel, bf16 and f32) and
+// their dW kernels (dw_tc_kernel, dw_tf32_kernel) at the end of the
+// namespace.
 //
 // Replaces urgent2026_challenge_track1_tpu/ops/pallas_lstm.py:
 // _fusedin_forward (body _fusedin_step) for bfloat16 inputs, beside K1's walk
@@ -974,9 +975,9 @@ __global__ void __launch_bounds__(kThreads, 1) scan_persistent_kernel(const Scan
 // (body _train_bwd_body; K5, the backward of K4, walked in the reverse of the
 // scan's order) and _revmasked_bwd (body _train_bwd_revmasked_body; K7, the
 // backward of K6: t = 0 .. T - 1, the carried dh and dc multiplied by m_t =
-// (t < lengths[r])) for bfloat16 residuals, beside the walks in
-// lstm_kernels.cu (backward_kernel, dw_kernel), which keep float32 and every
-// shape without a plan.  Each step computes, for the state that entered step
+// (t < lengths[r])) for bfloat16 and float32 residuals, beside the walks in
+// lstm_kernels.cu (backward_kernel, dw_kernel), which keep every shape
+// without a plan.  Each step computes, for the state that entered step
 // t from tp (the scan's previous step),
 //   dh = dout_t + dh_s (m_t),  dc = dc_s (m_t) + dh o (1 - tanh^2 c)
 //   dgates = [dc g i (1 - i), dc c_prev f (1 - f), dc i (1 - g^2),
@@ -1028,6 +1029,22 @@ __global__ void __launch_bounds__(kThreads, 1) scan_persistent_kernel(const Scan
 // its loader reads h with the scan's shift and K7's mask.  Where the tiles
 // leave the card's CTA slots idle, K is cut into up to four parts written to
 // a workspace and added in part order (dw_sum_kernel): deterministic.
+//
+// K5p / K7p in float32 (T = float; _train_bwd_body with f32 residuals, where
+// dg_c = dgates.astype(f32) rounds nothing): the same walk, barrier, mask
+// and dc with f32 cell inputs and dx_proj (the exchange, staged with 16-byte
+// L2-only copies: a row of 4H f32 always allows them; the cell inputs in
+// 16-, 8- or 4-byte copies as H allows), and the dh product as three TF32
+// products of split operands (3xTF32, as K4p-f32's): k8 steps, step j of a
+// tile to warp j % 8, partial sums added in warp order.  The slice (up x (kp
+// + 4) f32), the staged dgates and the cell inputs double in shared memory,
+// so the planner (elem = 4) takes narrower chunks and K tiles; at H = 768
+// one slice of 8 units already takes 98.6 KB, so S = 96 CTAs share one
+// group and each stages the group's whole 4H-wide dgates row a chunk.
+// What bounds it: as in bf16 the barrier per step and the staging of the
+// dgates from L2 (twice the bytes), plus three products and the splits.
+// Its dW kernel (dw_tf32_kernel) sums the f32 product as 3xTF32 over
+// dw_tc_kernel's tiles, loader and split.
 // ---------------------------------------------------------------------------
 
 constexpr int kBwdAccBlocks = 16;  // a warp's 16 x 8 accumulators: row blocks x column blocks
@@ -1040,30 +1057,34 @@ struct BwdPlan {
   int chunk;          // rows per chunk, a multiple of 16
   int kt;             // K tile of the staged dgates, a multiple of 16
   int dc_in_smem;
+  int elem;           // bytes of an element: 2 (bf16) or 4 (f32)
   __host__ __device__ int kp() const { return (4 * H + 15) / 16 * 16; }
   __host__ __device__ int up() const { return (U + 7) / 8 * 8; }
-  __host__ __device__ int ldk() const { return kp() + 8; }  // bf16: slice rows
-  __host__ __device__ int lda() const { return kt + 8; }    // bf16: staged dgates
-  __host__ __device__ int ldx() const { return 6 * U; }     // bf16: cell inputs
+  // elements; a slice row and a staged row are odd multiples of 16 bytes
+  __host__ __device__ int ldk() const { return kp() + 16 / elem; }  // slice rows
+  __host__ __device__ int lda() const { return kt + 16 / elem; }    // staged dgates
+  __host__ __device__ int ldx() const { return 6 * U; }             // cell inputs
   __host__ __device__ int ntiles() const { return (kp() + kt - 1) / kt; }
   __host__ __device__ int nbuf() const { return ntiles() > 1 ? 2 : 1; }
-  // the slice (up x ldk bf16), the staged dgates (nbuf x chunk x lda bf16),
-  // the warps' partial dh (8 x chunk x up f32), the cell inputs (2 x chunk x
-  // 6U bf16: gates, c_prev, dout) and dc (rows x U f32) when it fits
+  // the slice (up x ldk), the staged dgates (nbuf x chunk x lda), the
+  // warps' partial dh (8 x chunk x up f32), the cell inputs (2 x chunk x
+  // 6U: gates, c_prev, dout), elements of elem bytes, and dc (rows x U f32)
+  // when it fits
   __host__ __device__ size_t smem_bytes() const {
-    return 2 * (size_t)up() * ldk() + 2 * (size_t)nbuf() * chunk * lda() +
-           4 * (size_t)kWarps * chunk * up() + 2 * 2 * (size_t)chunk * ldx() +
-           (dc_in_smem ? 4 * (size_t)rows * U : 0);
+    const size_t e = elem;
+    return e * up() * ldk() + e * nbuf() * chunk * lda() + 4 * (size_t)kWarps * chunk * up() +
+           e * 2 * chunk * ldx() + (dc_in_smem ? 4 * (size_t)rows * U : 0);
   }
 };
 
+template <typename T>
 struct BwdArgs {
-  const bf16* gates;   // (R, T, 4H) post-activation gates i, f, g, o
-  const bf16* c;       // (R, T, H) the unmasked c of each step
-  const bf16* dout;    // (R, T, H) incoming dh
-  const bf16* w;       // (S, up, kp) packed rows of W_hh^T
+  const T* gates;      // (R, T, 4H) post-activation gates i, f, g, o
+  const T* c;          // (R, T, H) the unmasked c of each step
+  const T* dout;       // (R, T, H) incoming dh
+  const T* w;          // (S, up, kp) packed rows of W_hh^T
   const int* lengths;  // (R,) K7p only
-  bf16* dxp;           // (R, T, 4H) dx_proj, the exchange buffer
+  T* dxp;              // (R, T, 4H) dx_proj, the exchange buffer
   float* dc_global;    // (R, H) when !dc_in_smem
   int* counters;       // (G) zeros
   int reverse;
@@ -1072,7 +1093,9 @@ struct BwdArgs {
 
 // A 16 x 8 bf16 block of an N x K row-major matrix in shared memory as the B
 // operand (its rows are B's columns): lanes 0-7 give the addresses of rows
-// n .. n + 7 at column k, lanes 8-15 at column k + 8.
+// n .. n + 7 at column k, lanes 8-15 at column k + 8.  Of f32 rows (lanes
+// 8-15 at column k + 4) it is the 8 x 8 TF32 B operand: lane l gets the f32
+// at row n + l / 4, column k + l % 4 (+ 4).
 __device__ __forceinline__ void load_b_nk(unsigned (&b)[2], unsigned addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
                : "=r"(b[0]), "=r"(b[1])
@@ -1088,12 +1111,12 @@ __device__ __forceinline__ void load_a_trans(unsigned (&a)[4], unsigned addr) {
                : "r"(addr));
 }
 
-// rows x n bf16 of src (row stride lds) into dst (row stride ldd) in
+// rows x n elements of src (row stride lds) into dst (row stride ldd) in
 // asynchronous copies of BYTES; no wait.
-template <int BYTES>
-__device__ __forceinline__ void async_cols_v(bf16* dst, int ldd, const bf16* src, size_t lds,
-                                             int rows, int n) {
-  constexpr int E = BYTES / sizeof(bf16);
+template <int BYTES, typename T>
+__device__ __forceinline__ void async_cols_v(T* dst, int ldd, const T* src, size_t lds, int rows,
+                                             int n) {
+  constexpr int E = BYTES / sizeof(T);
   const int per_row = n / E;
   for (int i = threadIdx.x; i < rows * per_row; i += kThreads) {
     const int r = i / per_row;
@@ -1103,11 +1126,13 @@ __device__ __forceinline__ void async_cols_v(bf16* dst, int ldd, const bf16* src
 }
 
 // The same with the widest copies every address allows (they land at the
-// caller's next wait), else plain 2-byte loads.
-__device__ __forceinline__ void async_cols(bf16* dst, int ldd, const bf16* src, size_t lds,
-                                           int rows, int n) {
+// caller's next wait), else plain 2-byte loads (bf16 at odd offsets; f32
+// rows always allow 4-byte copies).
+template <typename T>
+__device__ __forceinline__ void async_cols(T* dst, int ldd, const T* src, size_t lds, int rows,
+                                           int n) {
   const uintptr_t mis = reinterpret_cast<uintptr_t>(src) | smem_addr(dst) |
-                        (lds * sizeof(bf16)) | (ldd * sizeof(bf16)) | (n * sizeof(bf16));
+                        (lds * sizeof(T)) | (ldd * sizeof(T)) | (n * sizeof(T));
   if ((mis & 15) == 0) {
     async_cols_v<16>(dst, ldd, src, lds, rows, n);
   } else if ((mis & 7) == 0) {
@@ -1115,8 +1140,8 @@ __device__ __forceinline__ void async_cols(bf16* dst, int ldd, const bf16* src, 
   } else if ((mis & 3) == 0) {
     async_cols_v<4>(dst, ldd, src, lds, rows, n);
   } else {
-    const unsigned short* in = reinterpret_cast<const unsigned short*>(src);
-    unsigned short* o = reinterpret_cast<unsigned short*>(dst);
+    const Bits<T>* in = reinterpret_cast<const Bits<T>*>(src);
+    Bits<T>* o = reinterpret_cast<Bits<T>*>(dst);
     for (int i = threadIdx.x; i < rows * n; i += kThreads) {
       const int r = i / n;
       const int k = i - r * n;
@@ -1149,11 +1174,57 @@ __device__ __forceinline__ void bwd_mma(float (&acc)[kBwdAccBlocks][4], unsigned
   }
 }
 
+// bwd_mma for f32 operands (K5p-f32 / K7p-f32): k8 steps, 8 apart, of three
+// TF32 products of split operands, the small terms (lo hi, hi lo) summed
+// apart and added to the big one's sum at the end of the tile, as in
+// mma_blocks_tf32.  A (the staged dgates) and B (the slice's N x K rows) both
+// by ldmatrix: an 8 x 8 b16 block is 8 x 4 f32, the m16n8k8 TF32 layout of
+// either operand.  Both are split in registers, per fragment.
+template <int MT, int NB>
+__device__ __forceinline__ void bwd_mma_tf32(float (&acc)[kAccBlocksTf32][4], unsigned a_base,
+                                             unsigned b_base, int steps, unsigned lda_bytes,
+                                             unsigned ldk_bytes) {
+  constexpr unsigned kStep = kWarps * 8 * sizeof(float);
+  float small[MT * NB][4] = {};
+#pragma unroll 2
+  for (int i = 0; i < steps; ++i) {
+    unsigned ah[MT][4], al[MT][4], bh[NB][2], bl[NB][2];
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      unsigned raw[4];
+      load_a(raw, a_base + m * 16 * lda_bytes + i * kStep);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) split_tf32(__uint_as_float(raw[q]), ah[m][q], al[m][q]);
+    }
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      unsigned raw[2];
+      load_b_nk(raw, b_base + j * 8 * ldk_bytes + i * kStep);
+      split_tf32(__uint_as_float(raw[0]), bh[j][0], bl[j][0]);
+      split_tf32(__uint_as_float(raw[1]), bh[j][1], bl[j][1]);
+    }
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        mma_tf32(small[m * NB + j], al[m], bh[j]);
+        mma_tf32(small[m * NB + j], ah[m], bl[j]);
+        mma_tf32(acc[m * NB + j], ah[m], bh[j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int b = 0; b < MT * NB; ++b) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[b][q] += small[b][q];
+  }
+}
+
 // The warp's accumulator blocks into its partial buffer (chunk x up f32; the
 // m16n8 layout: rows l / 4 and l / 4 + 8, columns 2 (l % 4) and + 1).
-template <int MT, int NB>
-__device__ __forceinline__ void bwd_put(const float (&acc)[kBwdAccBlocks][4], float* part,
-                                        int up, int lane) {
+template <int MT, int NB, int NACC>
+__device__ __forceinline__ void bwd_put(const float (&acc)[NACC][4], float* part, int up,
+                                        int lane) {
 #pragma unroll
   for (int m = 0; m < MT; ++m) {
 #pragma unroll
@@ -1165,54 +1236,83 @@ __device__ __forceinline__ void bwd_put(const float (&acc)[kBwdAccBlocks][4], fl
   }
 }
 
-// acc += this warp's k16 steps (warp, warp + 8, ...) of one K tile: the
-// staged dgates a_s (chunk x kw, row stride lda) times the slice's columns
-// [k0, k0 + kw) (w_s, row stride ldk).
-__device__ __forceinline__ void bwd_tile(float (&acc)[kBwdAccBlocks][4], const bf16* a_s,
-                                         int lda, const bf16* w_s, int ldk, int k0, int kw,
-                                         int mt, int nb, int warp, int lane) {
-  const int steps = (kw / 16 - warp + kWarps - 1) / kWarps;
+// acc += this warp's K steps (warp, warp + 8, ...) of one K tile: the staged
+// dgates a_s (chunk x kw, row stride lda) times the slice's columns [k0, k0
+// + kw) (w_s, row stride ldk); k16 steps of bf16 products, or k8 steps of
+// 3xTF32 products (T = float).
+template <typename T, int NACC>
+__device__ __forceinline__ void bwd_tile(float (&acc)[NACC][4], const T* a_s, int lda,
+                                         const T* w_s, int ldk, int k0, int kw, int mt, int nb,
+                                         int warp, int lane) {
+  constexpr int KS = 32 / sizeof(T);  // the depth of one product: 16 bf16, 8 TF32
+  constexpr int B8 = 16 / sizeof(T);  // the elements of an 8 x 8 b16 block's row
+  const int steps = (kw / KS - warp + kWarps - 1) / kWarps;
   if (steps <= 0) return;
-  const unsigned a_base = smem_addr(a_s + (lane % 16) * lda + (lane / 16) * 8 + warp * 16);
+  const unsigned a_base = smem_addr(a_s + (lane % 16) * lda + (lane / 16) * B8 + warp * KS);
   const unsigned b_base =
-      smem_addr(w_s + (lane % 8) * ldk + k0 + (lane / 8 % 2) * 8 + warp * 16);
-  const unsigned lda_bytes = 2 * lda, ldk_bytes = 2 * ldk;
+      smem_addr(w_s + (lane % 8) * ldk + k0 + (lane / 8 % 2) * B8 + warp * KS);
+  const unsigned lda_bytes = sizeof(T) * lda, ldk_bytes = sizeof(T) * ldk;
+  if constexpr (std::is_same_v<T, float>) {
+#define BWD_MMA(M, N)                                                        \
+  case M * 16 + N:                                                           \
+    bwd_mma_tf32<M, N>(acc, a_base, b_base, steps, lda_bytes, ldk_bytes);    \
+    break;
+    switch (mt * 16 + nb) {
+      TF32_SHAPES(BWD_MMA)
+      default: break;
+    }
+#undef BWD_MMA
+  } else {
 #define BWD_MMA(M, N)                                                        \
   case M * 16 + N:                                                           \
     bwd_mma<M, N>(acc, a_base, b_base, steps, lda_bytes, ldk_bytes);         \
     break;
-  switch (mt * 16 + nb) {
-    K1P_SHAPES(BWD_MMA)
-    default: break;
-  }
+    switch (mt * 16 + nb) {
+      K1P_SHAPES(BWD_MMA)
+      default: break;
+    }
 #undef BWD_MMA
+  }
 }
 
-__device__ __forceinline__ void bwd_partials(const float (&acc)[kBwdAccBlocks][4], float* part,
-                                             int up, int mt, int nb, int lane) {
-#define BWD_PUT(M, N)                         \
-  case M * 16 + N:                            \
-    bwd_put<M, N>(acc, part, up, lane);       \
+template <int NACC>
+__device__ __forceinline__ void bwd_partials(const float (&acc)[NACC][4], float* part, int up,
+                                             int mt, int nb, int lane) {
+#define BWD_PUT(M, N)                            \
+  case M * 16 + N:                               \
+    bwd_put<M, N>(acc, part, up, lane);          \
     break;
-  switch (mt * 16 + nb) {
-    K1P_SHAPES(BWD_PUT)
-    default: break;
+  if constexpr (NACC == kAccBlocksTf32) {
+    switch (mt * 16 + nb) {
+      TF32_SHAPES(BWD_PUT)
+      default: break;
+    }
+  } else {
+    switch (mt * 16 + nb) {
+      K1P_SHAPES(BWD_PUT)
+      default: break;
+    }
   }
 #undef BWD_PUT
 }
 
-template <bool MASKED>
-__global__ void __launch_bounds__(kThreads, 1) bwd_persistent_kernel(const BwdArgs a) {
+// T = bf16: K5p, K7p; T = float: their float32 route, the same walk with
+// f32 exchange, cell inputs and dx_proj and 3xTF32 products.
+template <typename T, bool MASKED>
+__global__ void __launch_bounds__(kThreads, 1) bwd_persistent_kernel(const BwdArgs<T> a) {
+  constexpr bool kF32 = std::is_same_v<T, float>;
+  constexpr int kAcc = kF32 ? kAccBlocksTf32 : kBwdAccBlocks;
+  constexpr int kSlots = kF32 ? kCellSlotsF32 : kCellSlots;
   extern __shared__ __align__(128) unsigned char smem[];
   const BwdPlan p = a.p;
   const int s = blockIdx.x, g = blockIdx.y;
   const int U = p.U, H = p.H, up = p.up(), kp = p.kp();
   const int ldk = p.ldk(), lda = p.lda(), ldx = p.ldx();
   const int G4 = 4 * H;
-  bf16* w_s = reinterpret_cast<bf16*>(smem);
-  bf16* a_s = w_s + (size_t)up * ldk;
+  T* w_s = reinterpret_cast<T*>(smem);
+  T* a_s = w_s + (size_t)up * ldk;
   float* part_s = reinterpret_cast<float*>(a_s + (size_t)p.nbuf() * p.chunk * lda);
-  bf16* x_s = reinterpret_cast<bf16*>(part_s + (size_t)kWarps * p.chunk * up);
+  T* x_s = reinterpret_cast<T*>(part_s + (size_t)kWarps * p.chunk * up);
   float* dc_s = reinterpret_cast<float*>(x_s + 2 * (size_t)p.chunk * ldx);
 
   const int r_begin = g * p.rows;
@@ -1228,16 +1328,17 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_persistent_kernel(const BwdAr
 
   // the weight slice (16-byte vectors; kp is a multiple of 16), zero dgate
   // buffers and a zero dc
-  const bf16* wg = a.w + (size_t)s * up * kp;
-  const int vpr = kp / 8;
+  constexpr int V = 16 / sizeof(T);
+  const T* wg = a.w + (size_t)s * up * kp;
+  const int vpr = kp / V;
   for (int i = threadIdx.x; i < up * vpr; i += kThreads) {
     const int n = i / vpr;
     const int v = i - n * vpr;
-    *reinterpret_cast<uint4*>(w_s + (size_t)n * ldk + v * 8) =
-        __ldg(reinterpret_cast<const uint4*>(wg + (size_t)n * kp + v * 8));
+    *reinterpret_cast<uint4*>(w_s + (size_t)n * ldk + v * V) =
+        __ldg(reinterpret_cast<const uint4*>(wg + (size_t)n * kp + v * V));
   }
   for (int i = threadIdx.x; i < p.nbuf() * p.chunk * lda; i += kThreads)
-    a_s[i] = __float2bfloat16(0.f);
+    a_s[i] = from_f32<T>(0.f);
   for (int i = threadIdx.x; i < r_count * U; i += kThreads) {
     const int row = i / U;
     const int ul = i - row * U;
@@ -1245,7 +1346,7 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_persistent_kernel(const BwdAr
   }
   // the cell's inputs of (step, chunk r0): the CTA's four gate columns,
   // c_prev (none at the scan's first step) and dout, row r at r 6U
-  auto fetch = [&](bf16* dst, int step, int r0) {
+  auto fetch = [&](T* dst, int step, int r0) {
     const int t = rev ? step : p.Tn - 1 - step;
     const int tp = rev ? t + 1 : t - 1;
     const int n = min(p.chunk, r_count - r0);
@@ -1265,9 +1366,9 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_persistent_kernel(const BwdAr
   const int ntiles = p.ntiles();
   // this thread's cells (row, unit) of a full chunk, i = tid + j * kThreads;
   // a row past the chunk's marks an empty slot
-  int cell_row[kCellSlots], cell_ul[kCellSlots];
+  int cell_row[kSlots], cell_ul[kSlots];
 #pragma unroll
-  for (int j = 0; j < kCellSlots; ++j) {
+  for (int j = 0; j < kSlots; ++j) {
     const int i = threadIdx.x + j * kThreads;
     cell_row[j] = i / U;
     cell_ul[j] = i - cell_row[j] * U;
@@ -1291,9 +1392,9 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_persistent_kernel(const BwdAr
         fetch(x_s + (size_t)(buf ^ 1) * p.chunk * ldx, last_chunk ? step + 1 : step,
               last_chunk ? 0 : r0 + p.chunk);
       asm volatile("cp.async.commit_group;\n" ::: "memory");
-      float dc_reg[kCellSlots];
+      float dc_reg[kSlots];
 #pragma unroll
-      for (int j = 0; j < kCellSlots; ++j) {
+      for (int j = 0; j < kSlots; ++j) {
         dc_reg[j] =
             cell_row[j] < rows ? dcb[(size_t)(r0 + cell_row[j]) * dcld + cell_ul[j]] : 0.f;
       }
@@ -1301,8 +1402,8 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_persistent_kernel(const BwdAr
         if (r0 == 0) wait_for(counter, p.S * step);
         // dh_s = dx_proj[:, te] W_hh, K tile by K tile (K7p's m_t is applied
         // by the cell, after the product, as _train_bwd_revmasked_body does)
-        float acc[kBwdAccBlocks][4] = {};
-        const bf16* src = a.dxp + (rg * p.Tn + te) * G4;
+        float acc[kAcc][4] = {};
+        const T* src = a.dxp + (rg * p.Tn + te) * G4;
         auto stage_tile = [&](int k) {
           const int k0 = k * p.kt;
           const int kw = min(p.kt, kp - k0);
@@ -1329,24 +1430,24 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_persistent_kernel(const BwdAr
       asm volatile("cp.async.wait_all;\n" ::: "memory");  // the cell inputs have landed
       __syncthreads();
 
-      const bf16* xs = x_s + (size_t)buf * p.chunk * ldx;
+      const T* xs = x_s + (size_t)buf * p.chunk * ldx;
 #pragma unroll
-      for (int j = 0; j < kCellSlots; ++j) {
+      for (int j = 0; j < kSlots; ++j) {
         const int row = cell_row[j];
         const int ul = cell_ul[j];
         if (row >= rows) continue;
-        const bf16* x = xs + row * ldx + ul;
-        const float ig = __bfloat162float(x[0]);
-        const float fg = __bfloat162float(x[U]);
-        const float gg = __bfloat162float(x[2 * U]);
-        const float og = __bfloat162float(x[3 * U]);
+        const T* x = xs + row * ldx + ul;
+        const float ig = to_f32(x[0]);
+        const float fg = to_f32(x[U]);
+        const float gg = to_f32(x[2 * U]);
+        const float og = to_f32(x[3 * U]);
         float m = 1.f, mp = 1.f;
         if constexpr (MASKED) {
           const int lr = __ldg(len + r0 + row);
           m = t < lr ? 1.f : 0.f;
           mp = tp < lr ? 1.f : 0.f;
         }
-        const float cp = has_prev ? __bfloat162float(x[4 * U]) * mp : 0.f;
+        const float cp = has_prev ? to_f32(x[4 * U]) * mp : 0.f;
         float dhs = 0.f;  // the eight warps' partial sums, in warp order
         if (step > 0) {
           const float* pp = part_s + (size_t)row * up + ul;
@@ -1354,13 +1455,13 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_persistent_kernel(const BwdAr
           for (int w = 0; w < kWarps; ++w) dhs += pp[(size_t)w * p.chunk * up];
         }
         const float tc = tanhf(fg * cp + ig * gg);
-        const float dhv = __bfloat162float(x[5 * U]) + dhs * m;
+        const float dhv = to_f32(x[5 * U]) + dhs * m;
         const float dcv = dc_reg[j] * m + dhv * og * (1.f - tc * tc);
-        bf16* o = a.dxp + ((rg + row) * p.Tn + t) * G4 + u0 + ul;
-        o[0] = __float2bfloat16(dcv * gg * ig * (1.f - ig));
-        o[H] = __float2bfloat16(dcv * cp * fg * (1.f - fg));
-        o[2 * H] = __float2bfloat16(dcv * ig * (1.f - gg * gg));
-        o[3 * H] = __float2bfloat16(dhv * tc * og * (1.f - og));
+        T* o = a.dxp + ((rg + row) * p.Tn + t) * G4 + u0 + ul;
+        o[0] = from_f32<T>(dcv * gg * ig * (1.f - ig));
+        o[H] = from_f32<T>(dcv * cp * fg * (1.f - fg));
+        o[2 * H] = from_f32<T>(dcv * ig * (1.f - gg * gg));
+        o[3 * H] = from_f32<T>(dhv * tc * og * (1.f - og));
         dcb[(size_t)(r0 + row) * dcld + ul] = dcv * fg;
       }
       buf ^= 1;
@@ -1376,24 +1477,31 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_persistent_kernel(const BwdAr
 
 bool bad_bwd_plan(const BwdPlan& p) {
   const int col_blocks = p.up() / 8;
-  return p.R <= 0 || p.Tn <= 0 || p.H <= 0 || p.S <= 0 || p.G <= 0 || p.U <= 0 ||
-         p.U % 4 != 0 || p.rows <= 0 || p.chunk <= 0 || p.chunk % 16 != 0 ||
+  const bool f32 = p.elem == 4;
+  return (p.elem != 2 && !f32) || p.R <= 0 || p.Tn <= 0 || p.H <= 0 || p.S <= 0 || p.G <= 0 ||
+         p.U <= 0 || p.U % 4 != 0 || p.rows <= 0 || p.chunk <= 0 || p.chunk % 16 != 0 ||
          p.chunk > kMaxChunk || p.kt <= 0 || p.kt % 16 != 0 || (long long)p.S * p.U < p.H ||
          (long long)(p.S - 1) * p.U >= p.H || (long long)p.G * p.rows < p.R ||
          (long long)(p.G - 1) * p.rows >= p.R || col_blocks > 8 ||
-         p.chunk / 16 * col_blocks > kBwdAccBlocks || p.chunk * p.U > kThreads * kCellSlots ||
+         p.chunk / 16 * col_blocks > (f32 ? kAccBlocksTf32 : kBwdAccBlocks) ||
+         p.chunk * p.U > kThreads * (f32 ? kCellSlotsF32 : kCellSlots) ||
          p.smem_bytes() > (size_t)kSmemLimit;
 }
 
 constexpr int kDwTile = 128;          // output rows (units) and columns (gate columns) of a CTA
 constexpr int kDwK = 64;              // (row, step) pairs a stage holds
 constexpr int kDwStages = 3;
-constexpr int kDwLd = kDwTile + 8;    // bf16 row stride of a staged tile (an odd multiple of 16 B)
+constexpr int kDwLd = kDwTile + 8;    // row stride of a staged tile: bf16 an odd multiple of
+                                      // 16 B, f32 8 modulo 32 words (conflict-free fragments)
 constexpr size_t kDwSmem = 2 * (size_t)kDwStages * kDwK * kDwLd * sizeof(bf16);
+// The float32 dW kernel's stages: 64 rows of f32 (three stages, 209 KB: one
+// CTA a SM, which its 3xTF32 accumulators need for registers anyway)
+constexpr size_t kDwSmemF32 = 2 * (size_t)kDwStages * kDwK * kDwLd * sizeof(float);
 
+template <typename T>
 struct DwArgs {
-  const bf16* h;        // (R, T, H)
-  const bf16* dxp;      // (R, T, 4H)
+  const T* h;           // (R, T, H)
+  const T* dxp;         // (R, T, 4H)
   const int* lengths;   // (R,) K7p's mask, or null
   float* out;           // (split, H, 4H): dW^T, or its parts
   int R, Tn, H, reverse;
@@ -1404,47 +1512,73 @@ struct DwArgs {
 // m0 + 128), into As ([k][m]) and of dx_proj, columns [n0, n0 + 128), into
 // Bs ([k][n]); 16-byte L2-only asynchronous copies where rows and addresses
 // allow them (vec_h, vec_d; 2-8 % faster than copies through L1, which two
-// CTAs' shared memory leave small), else plain loads; zeros past K, H, 4H
-// and for h_prev rows outside the scan or padded.
-__device__ __forceinline__ void dw_load(bf16* As, bf16* Bs, const DwArgs& a, int k0, int k_end,
+// bf16 CTAs' shared memory leave small), else plain loads; zeros past K, H,
+// 4H and for h_prev rows outside the scan or padded.
+template <typename T>
+__device__ __forceinline__ void dw_load(T* As, T* Bs, const DwArgs<T>& a, int k0, int k_end,
                                         int m0, int n0, bool vec_h, bool vec_d) {
-  constexpr int kVec = kDwTile / 8;
+  constexpr int E = 16 / sizeof(T);  // elements of one 16-byte copy
+  constexpr int kVec = kDwTile / E;
   const int G4 = 4 * a.H;
   for (int i = threadIdx.x; i < kDwK * kVec; i += kThreads) {
     const int kk = i / kVec;
     const int v = i - kk * kVec;
     const int n = k0 + kk;
-    const bf16* hs = nullptr;
-    const bf16* ds = nullptr;
+    const T* hs = nullptr;
+    const T* ds = nullptr;
     if (n < k_end) {
       const int r = n / a.Tn;
       const int t = n - r * a.Tn;
       const int tp = a.reverse ? t + 1 : t - 1;
       if (tp >= 0 && tp < a.Tn && (a.lengths == nullptr || tp < __ldg(a.lengths + r)))
-        hs = a.h + ((size_t)r * a.Tn + tp) * a.H + m0 + v * 8;
-      ds = a.dxp + (size_t)n * G4 + n0 + v * 8;
+        hs = a.h + ((size_t)r * a.Tn + tp) * a.H + m0 + v * E;
+      ds = a.dxp + (size_t)n * G4 + n0 + v * E;
     }
-    const int m = m0 + v * 8, c = n0 + v * 8;
-    bf16* ha = As + kk * kDwLd + v * 8;
-    bf16* db = Bs + kk * kDwLd + v * 8;
-    if (hs != nullptr && vec_h && m + 8 <= a.H) {
+    const int m = m0 + v * E, c = n0 + v * E;
+    T* ha = As + kk * kDwLd + v * E;
+    T* db = Bs + kk * kDwLd + v * E;
+    if (hs != nullptr && vec_h && m + E <= a.H) {
       cp_async<16, true>(ha, hs);
     } else {
 #pragma unroll
-      for (int e = 0; e < 8; ++e)
-        ha[e] = (hs != nullptr && m + e < a.H) ? hs[e] : __float2bfloat16(0.f);
+      for (int e = 0; e < E; ++e)
+        ha[e] = (hs != nullptr && m + e < a.H) ? hs[e] : from_f32<T>(0.f);
     }
-    if (ds != nullptr && vec_d && c + 8 <= G4) {
+    if (ds != nullptr && vec_d && c + E <= G4) {
       cp_async<16, true>(db, ds);
     } else {
 #pragma unroll
-      for (int e = 0; e < 8; ++e)
-        db[e] = (ds != nullptr && c + e < G4) ? ds[e] : __float2bfloat16(0.f);
+      for (int e = 0; e < E; ++e)
+        db[e] = (ds != nullptr && c + e < G4) ? ds[e] : from_f32<T>(0.f);
     }
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 2) dw_tc_kernel(const DwArgs a) {
+// A warp's 64 x 32 block of dW^T (4 x 4 accumulator blocks, the m16n8
+// layout) into part blockIdx.z of out, rows past H and columns past 4H
+// dropped.
+template <typename T>
+__device__ __forceinline__ void dw_store(const float (&acc)[4][4][4], const DwArgs<T>& a, int wm,
+                                         int wn, int m0, int n0, int lane) {
+  const int G4 = 4 * a.H;
+  float* out = a.out + (size_t)blockIdx.z * a.H * G4;
+#pragma unroll
+  for (int mb = 0; mb < 4; ++mb) {
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb) {
+      const int col = n0 + wn + nb * 8 + 2 * (lane % 4);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = m0 + wm + mb * 16 + lane / 4 + 8 * half;
+        if (row >= a.H) continue;
+        if (col < G4) out[(size_t)row * G4 + col] = acc[mb][nb][2 * half];
+        if (col + 1 < G4) out[(size_t)row * G4 + col + 1] = acc[mb][nb][2 * half + 1];
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 2) dw_tc_kernel(const DwArgs<bf16> a) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* As = reinterpret_cast<bf16*>(smem);         // kDwStages x kDwK x kDwLd
   bf16* Bs = As + (size_t)kDwStages * kDwK * kDwLd;  // the same
@@ -1495,21 +1629,114 @@ __global__ void __launch_bounds__(kThreads, 2) dw_tc_kernel(const DwArgs a) {
     asm volatile("cp.async.commit_group;\n" ::: "memory");
   }
   asm volatile("cp.async.wait_all;\n" ::: "memory");
-  float* out = a.out + (size_t)blockIdx.z * a.H * G4;
+  dw_store(acc, a, wm, wn, m0, n0, lane);
+}
+
+// The float32 dW kernel (K5p-f32 / K7p-f32): dw_tc_kernel's tiles, split and
+// loader over f32 operands, each product three TF32 products of split
+// operands (3xTF32; the small terms summed apart and added at the end of the
+// part).  ldmatrix .trans moves 16-bit elements only, so both fragments come
+// from plain shared loads: A (h_prev^T) at (k + l % 4 (+ 4), m + l / 4 (+ 8))
+// of the [k][m] stage, B at (k + l % 4 (+ 4), n + l / 4) of the [k][n] one;
+// with a row stride of 8 modulo 32 words the 32 lanes hit 32 banks.  The
+// tensor cores' f32 sums drift with the length of the chain they add to (on
+// an H100, dW summed over a whole part left the float64 product in
+// proportion to the part's rows, many times a CPU 3xTF32 sum's error), so
+// the big products of each 64-row stage are summed on the tensor cores from
+// zero and then added to the part's sum in f32 on the CUDA cores.  The
+// three accumulator sets take the registers of a second CTA, so one CTA a
+// SM, with three 64-row stages (209 KB) in its shared memory.
+__global__ void __launch_bounds__(kThreads, 1) dw_tf32_kernel(const DwArgs<float> a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* As = reinterpret_cast<float*>(smem);         // kDwStages x kDwK x kDwLd
+  float* Bs = As + (size_t)kDwStages * kDwK * kDwLd;  // the same
+  const int m0 = blockIdx.y * kDwTile, n0 = blockIdx.x * kDwTile;
+  const int K = a.R * a.Tn;
+  const int k_begin = blockIdx.z * a.kc;
+  const int k_end = min(K, k_begin + a.kc);
+  const int nk = k_end > k_begin ? (k_end - k_begin + kDwK - 1) / kDwK : 0;
+  const bool vec_h = a.H % 4 == 0 && (reinterpret_cast<uintptr_t>(a.h) & 15) == 0;
+  const bool vec_d = (reinterpret_cast<uintptr_t>(a.dxp) & 15) == 0;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / 4 * 64, wn = warp % 4 * 32;  // the warp's 64 x 32 block
+  // the part's sum (CUDA-core adds), a stage's big products (tensor cores,
+  // from zero each stage) and the part's small terms
+  float acc[4][4][4] = {}, stage[4][4][4], small[4][4][4] = {};
+
+  for (int st = 0; st < kDwStages - 1; ++st) {
+    if (st < nk)
+      dw_load(As + (size_t)st * kDwK * kDwLd, Bs + (size_t)st * kDwK * kDwLd, a,
+              k_begin + st * kDwK, k_end, m0, n0, vec_h, vec_d);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  for (int i = 0; i < nk; ++i) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kDwStages - 2) : "memory");
+    __syncthreads();
+    // this lane's element of the warp's first blocks at k = 0
+    const float* A = As + (size_t)(i % kDwStages) * kDwK * kDwLd + (lane % 4) * kDwLd + wm +
+                     lane / 4;
+    const float* B = Bs + (size_t)(i % kDwStages) * kDwK * kDwLd + (lane % 4) * kDwLd + wn +
+                     lane / 4;
+#pragma unroll
+    for (int mb = 0; mb < 4; ++mb) {
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) stage[mb][nb][q] = 0.f;
+      }
+    }
+#pragma unroll 1
+    for (int kk = 0; kk < kDwK; kk += 8) {
+      unsigned ah[4][4], al[4][4], bh[4][2], bl[4][2];
+      const float* ak = A + kk * kDwLd;
+      const float* bk = B + kk * kDwLd;
+#pragma unroll
+      for (int mb = 0; mb < 4; ++mb) {
+        split_tf32(ak[mb * 16], ah[mb][0], al[mb][0]);
+        split_tf32(ak[mb * 16 + 8], ah[mb][1], al[mb][1]);
+        split_tf32(ak[4 * kDwLd + mb * 16], ah[mb][2], al[mb][2]);
+        split_tf32(ak[4 * kDwLd + mb * 16 + 8], ah[mb][3], al[mb][3]);
+      }
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb) {
+        split_tf32(bk[nb * 8], bh[nb][0], bl[nb][0]);
+        split_tf32(bk[4 * kDwLd + nb * 8], bh[nb][1], bl[nb][1]);
+      }
+#pragma unroll
+      for (int mb = 0; mb < 4; ++mb) {
+#pragma unroll
+        for (int nb = 0; nb < 4; ++nb) {
+          mma_tf32(small[mb][nb], al[mb], bh[nb]);
+          mma_tf32(small[mb][nb], ah[mb], bl[nb]);
+          mma_tf32(stage[mb][nb], ah[mb], bh[nb]);
+        }
+      }
+    }
+#pragma unroll
+    for (int mb = 0; mb < 4; ++mb) {
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[mb][nb][q] += stage[mb][nb][q];
+      }
+    }
+    const int next = i + kDwStages - 1;
+    if (next < nk)
+      dw_load(As + (size_t)(next % kDwStages) * kDwK * kDwLd,
+              Bs + (size_t)(next % kDwStages) * kDwK * kDwLd, a,
+              k_begin + next * kDwK, k_end, m0, n0, vec_h, vec_d);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 #pragma unroll
   for (int mb = 0; mb < 4; ++mb) {
 #pragma unroll
     for (int nb = 0; nb < 4; ++nb) {
-      const int col = n0 + wn + nb * 8 + 2 * (lane % 4);
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = m0 + wm + mb * 16 + lane / 4 + 8 * half;
-        if (row >= a.H) continue;
-        if (col < G4) out[(size_t)row * G4 + col] = acc[mb][nb][2 * half];
-        if (col + 1 < G4) out[(size_t)row * G4 + col + 1] = acc[mb][nb][2 * half + 1];
-      }
+      for (int q = 0; q < 4; ++q) acc[mb][nb][q] += small[mb][nb][q];
     }
   }
+  dw_store(acc, a, wm, wn, m0, n0, lane);
 }
 
 // dw = the sum of the split parts of dW^T, in part order.
@@ -1671,9 +1898,11 @@ int lstm_scan_persistent(const void* xp, const void* w, const void* lengths, voi
   return (int)e;
 }
 
-// K5p/K7p's shared-memory bytes of one CTA (the planner's reckoning, for a
-// check from Python).
-long long lstm_persistent_bwd_smem(int H, int U, int rows, int chunk, int kt, int dc_in_smem) {
+// K5p/K7p's shared-memory bytes of one CTA with elements of elem bytes (2:
+// bf16; 4: f32) (the planner's reckoning, for a check from Python).
+long long lstm_persistent_bwd_smem(int H, int U, int rows, int chunk, int kt, int dc_in_smem,
+                                   int elem) {
+  if (elem != 2 && elem != 4) return -1;
   BwdPlan p{};
   p.H = H;
   p.U = U;
@@ -1681,23 +1910,21 @@ long long lstm_persistent_bwd_smem(int H, int U, int rows, int chunk, int kt, in
   p.chunk = chunk;
   p.kt = kt;
   p.dc_in_smem = dc_in_smem;
+  p.elem = elem;
   return (long long)p.smem_bytes();
 }
 
 // K5p (lengths == nullptr; forward or reverse scan) and K7p (lengths (R,)
-// int32, reverse only): gates (R, T, 4H), c, dout (R, T, H) bf16, the
-// packed W_hh^T rows (S, up, kp) bf16 -> dxp (R, T, 4H) bf16; dc_global
-// (R, H) f32 scratch unless dc_in_smem; counters (G) int32 zeros.  Returns
-// the cudaError_t of the cooperative launch, as lstm_fusedin_persistent.
+// int32, reverse only): gates (R, T, 4H), c, dout (R, T, H), the packed
+// W_hh^T rows (S, up, kp) -> dxp (R, T, 4H), every one of these bf16 (elem
+// = 2) or f32 (elem = 4: the float32 route); dc_global (R, H) f32 scratch
+// unless dc_in_smem; counters (G) int32 zeros.  Returns the cudaError_t of
+// the cooperative launch, as lstm_fusedin_persistent.
 int lstm_bwd_persistent(const void* gates, const void* c, const void* dout, const void* w,
                         const void* lengths, void* dxp, void* dc_global, void* counters, int R,
                         int Tn, int H, int reverse, int S, int G, int U, int rows, int chunk,
-                        int kt, int dc_in_smem, void* stream) {
-  BwdArgs a{static_cast<const bf16*>(gates), static_cast<const bf16*>(c),
-            static_cast<const bf16*>(dout),  static_cast<const bf16*>(w),
-            static_cast<const int*>(lengths), static_cast<bf16*>(dxp),
-            static_cast<float*>(dc_global), static_cast<int*>(counters), reverse, BwdPlan{}};
-  BwdPlan& p = a.p;
+                        int kt, int dc_in_smem, int elem, void* stream) {
+  BwdPlan p{};
   p.R = R;
   p.Tn = Tn;
   p.H = H;
@@ -1708,45 +1935,72 @@ int lstm_bwd_persistent(const void* gates, const void* c, const void* dout, cons
   p.chunk = chunk;
   p.kt = kt;
   p.dc_in_smem = dc_in_smem;
+  p.elem = elem;
   const bool masked = lengths != nullptr;
   if (bad_bwd_plan(p) || (!dc_in_smem && dc_global == nullptr) || (masked && !reverse))
     return (int)cudaErrorInvalidValue;
-  const void* kernel = masked ? reinterpret_cast<const void*>(bwd_persistent_kernel<true>)
-                              : reinterpret_cast<const void*>(bwd_persistent_kernel<false>);
+  BwdArgs<bf16> ab{static_cast<const bf16*>(gates), static_cast<const bf16*>(c),
+                   static_cast<const bf16*>(dout),  static_cast<const bf16*>(w),
+                   static_cast<const int*>(lengths), static_cast<bf16*>(dxp),
+                   static_cast<float*>(dc_global), static_cast<int*>(counters), reverse, p};
+  BwdArgs<float> af{static_cast<const float*>(gates), static_cast<const float*>(c),
+                    static_cast<const float*>(dout),  static_cast<const float*>(w),
+                    static_cast<const int*>(lengths), static_cast<float*>(dxp),
+                    static_cast<float*>(dc_global), static_cast<int*>(counters), reverse, p};
+  // [f32][masked]
+  const void* kernels[2][2] = {
+      {reinterpret_cast<const void*>(bwd_persistent_kernel<bf16, false>),
+       reinterpret_cast<const void*>(bwd_persistent_kernel<bf16, true>)},
+      {reinterpret_cast<const void*>(bwd_persistent_kernel<float, false>),
+       reinterpret_cast<const void*>(bwd_persistent_kernel<float, true>)}};
+  const void* kernel = kernels[elem == 4][masked];
+  void* params[] = {elem == 4 ? static_cast<void*>(&af) : static_cast<void*>(&ab)};
   const size_t smem = p.smem_bytes();
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e == cudaSuccess) {
-    void* params[] = {&a};
+  if (e == cudaSuccess)
     e = cudaLaunchCooperativeKernel(kernel, dim3(S, G, 1), dim3(kThreads), params, smem,
                                     static_cast<cudaStream_t>(stream));
-  }
   if (e != cudaSuccess) cudaGetLastError();  // a refused launch leaves no sticky error behind
   return (int)e;
 }
 
-// The dW kernel of K5p/K7p: h (R, T, H), dxp (R, T, 4H) bf16, lengths (R,)
-// int32 or null (K7p's mask) -> dw (H, 4H) f32 = sum over (r, t) of
-// h_prev^T dxp, K = R T in ``split`` parts (1-64); split > 1 writes the
-// parts to ws (split, H, 4H) f32 and sums them in order into dw.  Returns
-// the cudaError_t of the launches.
+// The dW kernel of K5p/K7p: h (R, T, H), dxp (R, T, 4H) bf16 (elem = 2:
+// dw_tc_kernel) or f32 (elem = 4: dw_tf32_kernel), lengths (R,) int32 or
+// null (K7p's mask) -> dw (H, 4H) f32 = sum over (r, t) of h_prev^T dxp,
+// K = R T in ``split`` parts (1-64); split > 1 writes the parts to ws
+// (split, H, 4H) f32 and sums them in order into dw.  Returns the
+// cudaError_t of the launches.
 int lstm_bwd_dw(const void* h, const void* dxp, const void* lengths, void* dw, void* ws, int R,
-                int Tn, int H, int reverse, int split, void* stream) {
+                int Tn, int H, int reverse, int split, int elem, void* stream) {
   const long long K = (long long)R * Tn;
   if (R <= 0 || Tn <= 0 || H <= 0 || split < 1 || split > 64 || (split > 1 && ws == nullptr) ||
-      K + kDwK >= (1ll << 31))
+      K + kDwK >= (1ll << 31) || (elem != 2 && elem != 4))
     return (int)cudaErrorInvalidValue;
-  const long long kc = ((K + split - 1) / split + kDwK - 1) / kDwK * kDwK;
-  DwArgs a{static_cast<const bf16*>(h), static_cast<const bf16*>(dxp),
-           static_cast<const int*>(lengths), static_cast<float*>(split > 1 ? ws : dw),
-           R, Tn, H, reverse, (int)kc};
+  const int kc = (int)(((K + split - 1) / split + kDwK - 1) / kDwK * kDwK);
+  float* out = static_cast<float*>(split > 1 ? ws : dw);
+  const int* lens = static_cast<const int*>(lengths);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaFuncSetAttribute(dw_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)kDwSmem);
-  if (e == cudaSuccess) {
-    const dim3 grid((4 * H + kDwTile - 1) / kDwTile, (H + kDwTile - 1) / kDwTile, split);
-    dw_tc_kernel<<<grid, kThreads, kDwSmem, st>>>(a);
-    e = cudaGetLastError();
+  const dim3 grid((4 * H + kDwTile - 1) / kDwTile, (H + kDwTile - 1) / kDwTile, split);
+  cudaError_t e;
+  if (elem == 4) {
+    const DwArgs<float> a{static_cast<const float*>(h), static_cast<const float*>(dxp), lens,
+                          out, R, Tn, H, reverse, kc};
+    e = cudaFuncSetAttribute(dw_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)kDwSmemF32);
+    if (e == cudaSuccess) {
+      dw_tf32_kernel<<<grid, kThreads, kDwSmemF32, st>>>(a);
+      e = cudaGetLastError();
+    }
+  } else {
+    const DwArgs<bf16> a{static_cast<const bf16*>(h), static_cast<const bf16*>(dxp), lens, out,
+                         R, Tn, H, reverse, kc};
+    e = cudaFuncSetAttribute(dw_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)kDwSmem);
+    if (e == cudaSuccess) {
+      dw_tc_kernel<<<grid, kThreads, kDwSmem, st>>>(a);
+      e = cudaGetLastError();
+    }
   }
   if (e == cudaSuccess && split > 1) {
     const size_t n = (size_t)H * 4 * H;

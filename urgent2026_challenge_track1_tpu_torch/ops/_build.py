@@ -51,9 +51,9 @@ _SIGNATURES = {
     "lstm_scan_persistent": (_P,) * 8 + (_I,) * 11 + (_P,),
     "lstm_persistent_smem": (_I,) * 7,
     "lstm_persistent_phase_cycles": (_P, _I),
-    "lstm_bwd_persistent": (_P,) * 8 + (_I,) * 11 + (_P,),
-    "lstm_persistent_bwd_smem": (_I,) * 6,
-    "lstm_bwd_dw": (_P,) * 5 + (_I,) * 5 + (_P,),
+    "lstm_bwd_persistent": (_P,) * 8 + (_I,) * 12 + (_P,),
+    "lstm_persistent_bwd_smem": (_I,) * 7,
+    "lstm_bwd_dw": (_P,) * 5 + (_I,) * 6 + (_P,),
 }
 _RESTYPES = {"lstm_persistent_smem": ctypes.c_longlong,
              "lstm_persistent_bwd_smem": ctypes.c_longlong}

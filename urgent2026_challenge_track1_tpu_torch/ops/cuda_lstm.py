@@ -601,22 +601,26 @@ BWD_MIN_TILE = 256   # and the narrowest it takes (each tile costs two block bar
 DW_TILE = 128        # the dW kernel's output tile (rows and columns)
 DW_K = 64            # and the (row, step) pairs of one of its K stages
 DW_SLOTS_PER_SM = 2  # dW CTAs resident on one SM
+DW_SLOTS_PER_SM_F32 = 1  # and in float32 (3xTF32: the accumulators take the registers)
 DW_MAX_SPLIT = 4     # parts of the dW kernel's K (split-K), summed in a fixed order
 
 
 def backward_smem(H: int, U: int, chunk: int, kt: int, rows: int = 0,
-                  dc_in_smem: bool = False) -> int:
+                  dc_in_smem: bool = False, elem: int = 2) -> int:
     """Shared-memory bytes of one K5p/K7p CTA (csrc/lstm_persistent.cu
     ``BwdPlan::smem_bytes``): the slice of W_hh^T rows [s U, s U + U) padded
-    to Up = ceil(U / 8) 8 rows of Kp + 8 bf16 (Kp = 4H padded to 16); the
-    staged dgates, chunk x (kt + 8) bf16, one buffer when one K tile holds
+    to Up = ceil(U / 8) 8 rows of Kp + 16 bytes (Kp = 4H padded to 16); the
+    staged dgates, chunk x (kt + 16 bytes), one buffer when one K tile holds
     Kp, else two; the eight warps' partial dh, 8 x chunk x Up f32; a double
-    buffer of the cell's inputs (gates 4U, c_prev U, dout U: 2 x chunk x 6U
-    bf16); dc (rows x U f32) when it lives there."""
-    up, kp = _ceil(U, 8) * 8, _pad16(4 * H)
+    buffer of the cell's inputs (gates 4U, c_prev U, dout U: 2 x chunk x
+    6U); dc (rows x U f32) when it lives there.  ``elem``: the element's
+    bytes, 2 (bfloat16) or 4 (float32, which doubles the slice, the staged
+    dgates and the cell inputs).  The 16-byte pads make a row an odd
+    multiple of 16 bytes, so ldmatrix is free of bank conflicts."""
+    up, kp, pad = _ceil(U, 8) * 8, _pad16(4 * H), 16 // elem
     nbuf = 1 if kt >= kp else 2
-    return (2 * up * (kp + 8) + 2 * nbuf * chunk * (kt + 8) + 4 * WARPS * chunk * up
-            + 2 * 2 * chunk * 6 * U + (4 * rows * U if dc_in_smem else 0))
+    return (elem * up * (kp + pad) + elem * nbuf * chunk * (kt + pad) + 4 * WARPS * chunk * up
+            + elem * 2 * chunk * 6 * U + (4 * rows * U if dc_in_smem else 0))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -625,7 +629,9 @@ class BackwardPlan:
     [s U, min((s + 1) U, H)) for rows [g rows, min((g + 1) rows, R)), walked
     ``chunk`` rows at a time, its dh product over K = 4H staged ``kt``
     columns at a time; dc in shared memory or in a global buffer.
-    ``dw_split``: the parts of the dW kernel's K (R T) summed in order."""
+    ``dw_split``: the parts of the dW kernel's K (R T) summed in order.
+    ``elem``: the element's bytes, 2 (bfloat16) or 4 (float32: 3xTF32
+    products, the float32 dW kernel)."""
     R: int
     H: int
     S: int
@@ -637,6 +643,7 @@ class BackwardPlan:
     dc_in_smem: bool
     smem: int
     dw_split: int
+    elem: int = 2
 
     @property
     def up(self) -> int:
@@ -655,7 +662,7 @@ class BackwardPlan:
         return self.G * self.S
 
 
-def _backward_tile(H, U, chunk, rows, dc_in_smem, smem_bytes) -> int | None:
+def _backward_tile(H, U, chunk, rows, dc_in_smem, smem_bytes, elem=2) -> int | None:
     """The widest K tile up to BWD_TILE (Kp split into equal tiles, each a
     multiple of 16 and at least BWD_MIN_TILE) with which the CTA fits, or
     None."""
@@ -664,41 +671,50 @@ def _backward_tile(H, U, chunk, rows, dc_in_smem, smem_bytes) -> int | None:
         kt = _pad16(_ceil(kp, n))
         if kt < min(BWD_MIN_TILE, kp):
             return None
-        if backward_smem(H, U, chunk, kt, rows, dc_in_smem) <= smem_bytes:
+        if backward_smem(H, U, chunk, kt, rows, dc_in_smem, elem) <= smem_bytes:
             return kt
     return None
 
 
-def dw_split(H: int, sms: int) -> int:
+def dw_split(H: int, sms: int, elem: int = 2) -> int:
     """The dW kernel's split of K: the parts (1..DW_MAX_SPLIT) that fill the
-    card's DW_SLOTS_PER_SM x sms CTA slots with DW_TILE x DW_TILE output
-    tiles in the fewest waves per part (the fewer parts on a tie)."""
+    card's CTA slots (DW_SLOTS_PER_SM a SM in bfloat16, DW_SLOTS_PER_SM_F32
+    in float32) with DW_TILE x DW_TILE output tiles in the fewest waves per
+    part (the fewer parts on a tie)."""
     tiles = _ceil(H, DW_TILE) * _ceil(4 * H, DW_TILE)
-    slots = DW_SLOTS_PER_SM * max(sms, 1)
+    slots = (DW_SLOTS_PER_SM if elem == 2 else DW_SLOTS_PER_SM_F32) * max(sms, 1)
     return min(range(1, DW_MAX_SPLIT + 1), key=lambda k: (_ceil(tiles * k, slots) / k, k))
 
 
 @functools.lru_cache(maxsize=256)
-def plan_backward(R: int, H: int, sms: int, smem_bytes: int = SMEM_LIMIT) -> BackwardPlan | None:
+def plan_backward(R: int, H: int, sms: int, smem_bytes: int = SMEM_LIMIT,
+                  elem: int = 2) -> BackwardPlan | None:
     """The persistent partition of K5p/K7p for R rows and H units on ``sms``
-    SMs, or None when no slice fits in ``smem_bytes`` or the grid exceeds the
-    SMs.  ``plan_persistent``'s search with the backward's own bytes: the
+    SMs with elements of ``elem`` bytes (2: bfloat16; 4: float32), or None
+    when no slice fits in ``smem_bytes`` or the grid exceeds the SMs.
+    ``plan_persistent``'s search with the backward's own bytes: the
     smallest S whose slice fits beside one 16-row chunk; G = max(1,
     min(sms // S, ceil(R / 64))) groups; S widened to the SMs left over; the
     largest chunk that fits (a warp holds the accumulators of every output
-    block of the chunk, at most 16); dc in shared memory if it fits; then the
-    widest K tile that fits beside all that."""
+    block of the chunk, at most MAX_ACC_BLOCKS, MAX_ACC_BLOCKS_TF32 in
+    float32; a chunk at most MAX_CELLS cells, MAX_CELLS_F32 in float32); dc
+    in shared memory if it fits; then the widest K tile that fits beside all
+    that."""
+    if elem not in (2, 4):
+        raise ValueError(f"no backward route for {elem}-byte elements")
     if min(R, H, sms) <= 0:
         return None
+    max_blocks, max_cells = ((MAX_ACC_BLOCKS, MAX_CELLS) if elem == 2
+                             else (MAX_ACC_BLOCKS_TF32, MAX_CELLS_F32))
 
     def units(S):
         return _ceil(_ceil(H, S), 4) * 4
 
     def fits(U, chunk, rows=0, dc_in_smem=False):
         blocks = chunk // 16 * _ceil(U, 8)
-        return (chunk <= MAX_CHUNK and U <= 64 and blocks <= MAX_ACC_BLOCKS
-                and chunk * U <= MAX_CELLS
-                and _backward_tile(H, U, chunk, rows, dc_in_smem, smem_bytes) is not None)
+        return (chunk <= MAX_CHUNK and U <= 64 and blocks <= max_blocks
+                and chunk * U <= max_cells
+                and _backward_tile(H, U, chunk, rows, dc_in_smem, smem_bytes, elem) is not None)
 
     S = 1
     while not fits(units(S), 16):
@@ -715,9 +731,10 @@ def plan_backward(R: int, H: int, sms: int, smem_bytes: int = SMEM_LIMIT) -> Bac
     G = _ceil(R, rows)
     chunk = next(c for c in range(min(_pad16(rows), MAX_CHUNK), 0, -16) if fits(U, c))
     dc_in_smem = fits(U, chunk, rows, True)
-    kt = _backward_tile(H, U, chunk, rows, dc_in_smem, smem_bytes)
+    kt = _backward_tile(H, U, chunk, rows, dc_in_smem, smem_bytes, elem)
     return BackwardPlan(R, H, S, G, U, rows, chunk, kt, dc_in_smem,
-                        backward_smem(H, U, chunk, kt, rows, dc_in_smem), dw_split(H, sms))
+                        backward_smem(H, U, chunk, kt, rows, dc_in_smem, elem),
+                        dw_split(H, sms, elem), elem)
 
 
 def pack_backward_weights(w_hh_t: torch.Tensor, plan: BackwardPlan) -> torch.Tensor:
@@ -761,9 +778,10 @@ def lstm_bwd_dw_plain(h: torch.Tensor, dxp: torch.Tensor, reverse: bool = False,
 
 def _k_owner(plan: BackwardPlan) -> torch.Tensor:
     """The warp that sums each column k of the dh product in K5p/K7p: in K
-    tile k // kt, its k16 step j goes to warp j % 8."""
+    tile k // kt, its k16 step j (k8 step on the float32 route, whose TF32
+    products are 8 deep) goes to warp j % 8."""
     k = torch.arange(plan.kp)
-    return (k % plan.kt) // 16 % WARPS
+    return (k % plan.kt) // (32 // plan.elem) % WARPS
 
 
 def _backward_sliced_plain(h, gates, c, dout, w, plan, reverse, lengths=None):
@@ -1273,12 +1291,15 @@ def _check_residuals(h, gates, c, dout, w_hh_t):
 
 def backward_route(dtype: torch.dtype, R: int, H: int, sms: int) -> BackwardPlan | None:
     """The route of K5 and K7, a fixed rule decided before launch from the
-    dtype and the shape: the K5p/K7p plan for bfloat16 where
-    ``plan_backward`` finds one on ``sms`` SMs, else None (the walk and
-    ``dw_kernel``: float32, or no plan)."""
-    if dtype != torch.bfloat16:
-        return None
-    return plan_backward(R, H, sms)
+    dtype and the shape: the K5p/K7p plan ``plan_backward`` finds on ``sms``
+    SMs, in bfloat16 (elem = 2) or in float32 (elem = 4: 3xTF32 products and
+    the float32 dW kernel); anything else, or no plan, is None (the walk and
+    ``dw_kernel``)."""
+    if dtype == torch.bfloat16:
+        return plan_backward(R, H, sms)
+    if dtype == torch.float32:
+        return plan_backward(R, H, sms, elem=4)
+    return None
 
 
 def _routed_bwd(plain, walk, persistent, h, gates, *args):
@@ -1298,7 +1319,7 @@ def lstm_train_bwd(h: torch.Tensor, gates: torch.Tensor, c: torch.Tensor,
     """K5: the backward of ``lstm_train_fwd`` from its outputs (h, gates, c) and the
     incoming dh (R, T, H) -> (dx_proj (R, T, 4H), dW_hh^T (H, 4H)), dW
     summed in f32 by the kernel and returned in w_hh_t's dtype, on the route
-    ``backward_route`` picks (K5p or the walk)."""
+    ``backward_route`` picks (K5p, bfloat16 or float32, or the walk)."""
     return _routed_bwd(lstm_train_bwd_plain, lstm_train_bwd_walk, lstm_train_bwd_persistent,
                        h, gates, c, dout, w_hh_t, reverse)
 
@@ -1306,7 +1327,8 @@ def lstm_train_bwd(h: torch.Tensor, gates: torch.Tensor, c: torch.Tensor,
 def lstm_revmasked_bwd(h: torch.Tensor, gates: torch.Tensor, c: torch.Tensor,
                        lengths: torch.Tensor, dout: torch.Tensor, w_hh_t: torch.Tensor):
     """K7: the backward of ``lstm_revmasked_train_fwd``, as ``lstm_train_bwd``,
-    on the route ``backward_route`` picks (K7p or the walk)."""
+    on the route ``backward_route`` picks (K7p, bfloat16 or float32, or the
+    walk)."""
     return _routed_bwd(lstm_revmasked_bwd_plain, lstm_revmasked_bwd_walk,
                        lstm_revmasked_bwd_persistent, h, gates, c, lengths, dout, w_hh_t)
 
@@ -1357,25 +1379,27 @@ def lstm_revmasked_bwd_walk(h: torch.Tensor, gates: torch.Tensor, c: torch.Tenso
 
 def lstm_bwd_dw(h: torch.Tensor, dxp: torch.Tensor, reverse: bool = False,
                 lengths: torch.Tensor | None = None, split: int | None = None) -> torch.Tensor:
-    """The dW kernel of K5p and K7p (csrc/lstm_persistent.cu ``dw_tc_kernel``),
-    bfloat16 only: dW_hh^T (H, 4H) f32 = sum over (r, t) of h_prev(r, t)^T
-    dxp(r, t) on the tensor cores, h_prev read with the scan's shift (and,
-    with ``lengths``, K7's mask) by the kernel's loader; K = R T in ``split``
-    parts (``dw_split``'s by default) summed in a fixed order, so a launch
-    is deterministic.  Counted in ``lstm_bwd_dw.launches``."""
+    """The dW kernel of K5p and K7p (csrc/lstm_persistent.cu: ``dw_tc_kernel``
+    in bfloat16, ``dw_tf32_kernel`` in float32, 3xTF32): dW_hh^T (H, 4H) f32
+    = sum over (r, t) of h_prev(r, t)^T dxp(r, t) on the tensor cores,
+    h_prev read with the scan's shift (and, with ``lengths``, K7's mask) by
+    the kernel's loader; K = R T in ``split`` parts (``dw_split``'s by
+    default) summed in a fixed order, so a launch is deterministic.  Counted
+    in ``lstm_bwd_dw.launches``."""
     if dxp.device.type == "cpu":
         return lstm_bwd_dw_plain(h, dxp, reverse, lengths, split or 1)
     R, T, G = dxp.shape
     H = G // 4
     if dxp.device.type != "cuda":
         raise ValueError(f"kernel input on unsupported device {dxp.device}")
-    if dxp.dtype != torch.bfloat16:
-        raise TypeError(f"lstm_bwd_dw takes bfloat16 inputs, not {dxp.dtype}")
+    if dxp.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"lstm_bwd_dw takes bfloat16 or float32 inputs, not {dxp.dtype}")
     _check("dxp", dxp, (R, T, 4 * H), dxp.dtype, dxp.device)
     _check("h", h, (R, T, H), dxp.dtype, dxp.device)
     if lengths is not None:
         _check("lengths", lengths, (R,), torch.int32, dxp.device)
-    split = split or dw_split(H, _sm_count(_device_index(dxp.device)))
+    elem = dxp.element_size()
+    split = split or dw_split(H, _sm_count(_device_index(dxp.device)), elem)
     dw = torch.empty((H, 4 * H), dtype=torch.float32, device=dxp.device)
     if R == 0 or T == 0:
         return dw.zero_()
@@ -1386,7 +1410,7 @@ def lstm_bwd_dw(h: torch.Tensor, dxp: torch.Tensor, reverse: bool = False,
     err = load_library().lstm_bwd_dw(
         h.data_ptr(), dxp.data_ptr(), None if lengths is None else lengths.data_ptr(),
         dw.data_ptr(), None if ws is None else ws.data_ptr(), R, T, H, int(bool(reverse)),
-        split, ctypes.c_void_p(torch.cuda.current_stream(dxp.device).cuda_stream),
+        split, elem, ctypes.c_void_p(torch.cuda.current_stream(dxp.device).cuda_stream),
     )
     _raise_on(err, "lstm_bwd_dw")
     lstm_bwd_dw.launches += 1
@@ -1395,14 +1419,16 @@ def lstm_bwd_dw(h: torch.Tensor, dxp: torch.Tensor, reverse: bool = False,
 
 def _bwd_persistent(fn, h, gates, c, dout, w_hh_t, reverse, lengths, plan):
     """Launch K5p (``lengths`` None) or K7p: one cooperative grid of G x S
-    CTAs over ``plan`` (``plan_backward``'s by default), then the dW kernel;
-    a grid the card cannot hold resident raises.  Returns (dx_proj,
-    dW_hh^T in w_hh_t's dtype)."""
+    CTAs over ``plan`` (``plan_backward``'s for the inputs' dtype by
+    default), then the dW kernel; a grid the card cannot hold resident
+    raises.  bfloat16, or float32 (the float32 route: f32 throughout,
+    3xTF32 products).  Returns (dx_proj, dW_hh^T in w_hh_t's dtype)."""
     name = fn.__name__ + "_persistent"
     if gates.device.type != "cuda":
         raise ValueError(f"kernel input on unsupported device {gates.device}")
-    if gates.dtype != torch.bfloat16:
-        raise TypeError(f"{name} takes bfloat16 inputs, not {gates.dtype}")
+    if gates.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name} takes bfloat16 or float32 inputs, not {gates.dtype}")
+    elem = gates.element_size()
     R, T, G = gates.shape
     H = G // 4
     _check("gates", gates, (R, T, 4 * H), gates.dtype, gates.device)
@@ -1411,11 +1437,11 @@ def _bwd_persistent(fn, h, gates, c, dout, w_hh_t, reverse, lengths, plan):
     _check("w_hh_t", w_hh_t, (H, 4 * H), gates.dtype, gates.device)
     if lengths is not None:
         _check("lengths", lengths, (R,), torch.int32, gates.device)
-    plan = plan or plan_backward(R, H, _sm_count(_device_index(gates.device)))
+    plan = plan or plan_backward(R, H, _sm_count(_device_index(gates.device)), elem=elem)
     if plan is None:
-        raise ValueError(f"no {name} plan for R={R}, H={H}")
-    if (plan.R, plan.H) != (R, H):
-        raise ValueError(f"plan for {(plan.R, plan.H)}, inputs {(R, H)}")
+        raise ValueError(f"no {name} plan for R={R}, H={H}, {gates.dtype}")
+    if (plan.R, plan.H, plan.elem) != (R, H, elem):
+        raise ValueError(f"plan for {(plan.R, plan.H, plan.elem)}, inputs {(R, H, elem)}")
     dxp = torch.empty((R, T, 4 * H), dtype=gates.dtype, device=gates.device)
     if T == 0:
         return dxp, torch.zeros((H, 4 * H), dtype=w_hh_t.dtype, device=gates.device)
@@ -1430,7 +1456,8 @@ def _bwd_persistent(fn, h, gates, c, dout, w_hh_t, reverse, lengths, plan):
         None if lengths is None else lengths.data_ptr(), dxp.data_ptr(),
         None if dc is None else dc.data_ptr(), counters.data_ptr(), R, T, H,
         int(bool(reverse)), plan.S, plan.G, plan.U, plan.rows, plan.chunk, plan.kt,
-        int(plan.dc_in_smem), ctypes.c_void_p(torch.cuda.current_stream(gates.device).cuda_stream),
+        int(plan.dc_in_smem), elem,
+        ctypes.c_void_p(torch.cuda.current_stream(gates.device).cuda_stream),
     )
     _raise_on(err, name)
     dw = lstm_bwd_dw(h, dxp, reverse, lengths, plan.dw_split)
@@ -1441,8 +1468,9 @@ def _bwd_persistent(fn, h, gates, c, dout, w_hh_t, reverse, lengths, plan):
 def lstm_train_bwd_persistent(h: torch.Tensor, gates: torch.Tensor, c: torch.Tensor,
                               dout: torch.Tensor, w_hh_t: torch.Tensor, reverse: bool = False,
                               plan: BackwardPlan | None = None):
-    """K5p (csrc/lstm_persistent.cu ``bwd_persistent_kernel<false>``) and the
-    dW kernel, bfloat16 only -> (dx_proj, dW_hh^T).  Counted in
+    """K5p (csrc/lstm_persistent.cu ``bwd_persistent_kernel<T, false>``) and
+    the dW kernel, bfloat16 or float32 (T = float: 3xTF32 products, the
+    plan's elem = 4) -> (dx_proj, dW_hh^T).  Counted in
     ``lstm_train_bwd.launches`` and ``.routes["persistent"]``."""
     if gates.device.type == "cpu":
         return lstm_train_bwd_plain(h, gates, c, dout, w_hh_t, reverse)
@@ -1452,8 +1480,9 @@ def lstm_train_bwd_persistent(h: torch.Tensor, gates: torch.Tensor, c: torch.Ten
 def lstm_revmasked_bwd_persistent(h: torch.Tensor, gates: torch.Tensor, c: torch.Tensor,
                                   lengths: torch.Tensor, dout: torch.Tensor,
                                   w_hh_t: torch.Tensor, plan: BackwardPlan | None = None):
-    """K7p (``bwd_persistent_kernel<true>``) and the dW kernel, bfloat16 only;
-    dx_proj equals the plain version's at every step.  Counted in
+    """K7p (``bwd_persistent_kernel<T, true>``) and the dW kernel, bfloat16
+    or float32, as ``lstm_train_bwd_persistent``; dx_proj equals the plain
+    version's at every step.  Counted in
     ``lstm_revmasked_bwd.launches`` and ``.routes["persistent"]``."""
     if gates.device.type == "cpu":
         return lstm_revmasked_bwd_plain(h, gates, c, lengths, dout, w_hh_t)

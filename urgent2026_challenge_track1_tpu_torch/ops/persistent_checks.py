@@ -12,8 +12,12 @@ passes only if the kernel is within ``ulp_limit`` (bfloat16) or
 walk is not; ``persistent_limit`` picks the one for the output's dtype.
 ``lstm_scan_tf32``, the plain walk whose product is one TF32 product, is
 the float32 limit's control: it must exceed ``F32_LIMIT`` too, so the check
-tells the 3xTF32 kernel from one that computes below float32.  Used by
-``chip_smoke.py`` and the card tests (tests/test_torch_cuda_kernels.py).
+tells the 3xTF32 kernel from one that computes below float32.  The float32
+backwards (K5p-f32, K7p-f32) are held within ``F32_BWD_LIMIT`` of max|plain
+dx_proj| (``bwd_limit``), with ``lstm_train_bwd_tf32``, the plain
+backward whose dh product is one TF32 product, as that limit's control.
+Used by ``chip_smoke.py`` and the card tests
+(tests/test_torch_cuda_kernels.py).
 """
 
 from __future__ import annotations
@@ -24,9 +28,9 @@ import torch
 
 from urgent2026_challenge_track1_tpu_torch.ops.cuda_lstm import _cell, lstm_bwd_dw_plain
 
-__all__ = ["PERSISTENT_ULPS", "F32_LIMIT", "ulp_limit", "persistent_limit", "tf32",
-           "fusedin_bilstm_stale_h", "lstm_scan_stale_h", "lstm_scan_tf32",
-           "lstm_train_bwd_stale_dg"]
+__all__ = ["PERSISTENT_ULPS", "F32_LIMIT", "F32_BWD_LIMIT", "DW_F32_BOUND", "ulp_limit", "persistent_limit",
+           "bwd_limit", "tf32", "fusedin_bilstm_stale_h", "lstm_scan_stale_h",
+           "lstm_scan_tf32", "lstm_train_bwd_stale_dg", "lstm_train_bwd_tf32"]
 
 # bf16 ulps at the plain output's largest magnitude
 PERSISTENT_ULPS = 4
@@ -35,6 +39,19 @@ PERSISTENT_ULPS = 4
 # same walk with one TF32 product (lstm_scan_tf32) 2.4e-5 to 8e-5 in every
 # output (PERF.md); the limit sits between, so it refuses the latter
 F32_LIMIT = 1e-5
+# float32 dx_proj of K5p-f32 / K7p-f32, relative to max|plain dx_proj|: the
+# dgates feed back through every step, and their magnitude varies with the
+# inputs, so the limit scales with the plain output's peak.  On an H100, at
+# the train steps' shapes, K5p-f32 / K7p-f32 read 1.7e-7 to 3.0e-7 of the
+# peak, the plain backward with one TF32 product (lstm_train_bwd_tf32)
+# 4.3e-5 to 6.4e-5 (PERF.md); the limit sits between
+F32_BWD_LIMIT = 1e-5
+# the float32 dW kernel (K5p-f32 / K7p-f32) against the float64 product of
+# its own operands, |dW - P| / (|h_prev|^T |dx_proj|) elementwise.  On an
+# H100 the kernel reads 4.0e-8 to 2.1e-7 at the train steps' shapes, the
+# product of TF32-rounded operands 1.6e-5 to 1.1e-4 (PERF.md); the bound
+# sits between
+DW_F32_BOUND = 2e-6
 
 
 def ulp_limit(ref: torch.Tensor) -> float:
@@ -46,6 +63,14 @@ def persistent_limit(ref: torch.Tensor) -> float:
     """The limit of a persistent kernel's output against its plain output
     ``ref``: F32_LIMIT in float32, ``ulp_limit(ref)`` in bfloat16."""
     return F32_LIMIT if ref.dtype == torch.float32 else ulp_limit(ref)
+
+
+def bwd_limit(ref: torch.Tensor) -> float:
+    """The limit of K5p/K7p's dx_proj against the plain dx_proj ``ref``:
+    F32_BWD_LIMIT of max|ref| in float32, ``ulp_limit(ref)`` in bfloat16."""
+    if ref.dtype == torch.float32:
+        return F32_BWD_LIMIT * float(ref.abs().max())
+    return ulp_limit(ref)
 
 
 def fusedin_bilstm_stale_h(x: torch.Tensor, w_ih_t: torch.Tensor, w_hh_t: torch.Tensor,
@@ -119,13 +144,10 @@ def lstm_scan_tf32(x_proj: torch.Tensor, w_hh_t: torch.Tensor, reverse: bool,
                         lambda stale, h, w: tf32(h) @ tf32(w))
 
 
-def lstm_train_bwd_stale_dg(h: torch.Tensor, gates: torch.Tensor, c: torch.Tensor,
-                            dout: torch.Tensor, w_hh_t: torch.Tensor, reverse: bool = False,
-                            lengths: torch.Tensor | None = None):
-    """K5's plain version (``lstm_train_bwd_plain``; K7's,
-    ``lstm_revmasked_bwd_plain``, with ``lengths``: then ``reverse`` is
-    True) whose dh comes from the dgates one step stale (those of two steps
-    back where the previous step's are due) -> (dx_proj, dW_hh^T)."""
+def _backward_faulty(h, gates, c, dout, w_hh_t, reverse, lengths, product):
+    """The plain backward of K5 (K7 with ``lengths``) whose dh is
+    ``product(stale, prev, W_hh)``: ``prev`` the dgates of the step visited
+    before, ``stale`` those of the step before that -> (dx_proj, dW_hh^T)."""
     R, T, G = gates.shape
     H = G // 4
     w4h = w_hh_t.float().t()
@@ -141,7 +163,7 @@ def lstm_train_bwd_stale_dg(h: torch.Tensor, gates: torch.Tensor, c: torch.Tenso
         mp = one if lengths is None else (tp < lengths).float()[:, None]
         cp = c[:, tp].float() * mp if 0 <= tp < T else torch.zeros_like(dc)
         tc = torch.tanh(f * cp + i * g)
-        dhv = dout[:, t].float() + (stale.float() @ w4h) * m
+        dhv = dout[:, t].float() + product(stale, dg_prev, w4h) * m
         dcv = dc * m + dhv * o * (1.0 - tc * tc)
         dg = torch.cat([dcv * g * i * (1.0 - i), dcv * cp * f * (1.0 - f),
                         dcv * i * (1.0 - g * g), dhv * tc * o * (1.0 - o)], dim=-1).to(gates.dtype)
@@ -149,3 +171,25 @@ def lstm_train_bwd_stale_dg(h: torch.Tensor, gates: torch.Tensor, c: torch.Tenso
         stale, dg_prev = dg_prev, dg
         dc = dcv * f
     return dxp, lstm_bwd_dw_plain(h, dxp, reverse, lengths).to(w_hh_t.dtype)
+
+
+def lstm_train_bwd_stale_dg(h: torch.Tensor, gates: torch.Tensor, c: torch.Tensor,
+                            dout: torch.Tensor, w_hh_t: torch.Tensor, reverse: bool = False,
+                            lengths: torch.Tensor | None = None):
+    """K5's plain version (``lstm_train_bwd_plain``; K7's,
+    ``lstm_revmasked_bwd_plain``, with ``lengths``: then ``reverse`` is
+    True) whose dh comes from the dgates one step stale (those of two steps
+    back where the previous step's are due) -> (dx_proj, dW_hh^T)."""
+    return _backward_faulty(h, gates, c, dout, w_hh_t, reverse, lengths,
+                            lambda stale, prev, w: stale.float() @ w)
+
+
+def lstm_train_bwd_tf32(h: torch.Tensor, gates: torch.Tensor, c: torch.Tensor,
+                        dout: torch.Tensor, w_hh_t: torch.Tensor, reverse: bool = False,
+                        lengths: torch.Tensor | None = None):
+    """K5's plain version in float32 (K7's with ``lengths``) whose dh product
+    dgates W_hh is one TF32 product: both operands rounded to TF32, the sums
+    in float32 (exact products; TF32 off in the matmul), as a kernel without
+    the 3xTF32 split computes it -> (dx_proj, dW_hh^T)."""
+    return _backward_faulty(h, gates, c, dout, w_hh_t, reverse, lengths,
+                            lambda stale, prev, w: tf32(prev) @ tf32(w))

@@ -64,11 +64,18 @@ def _group(name: str) -> str:
                  (True, True): "K6p lstm_revmasked_train_fwd_persistent"}[masked, store]
         f32 = re.search(r"scan_persistent_kernel(?:If|<float\b)", name) is not None
         return group.replace(" ", "-f32 ", 1) if f32 else group
-    if _names(name, "bwd_persistent_kernel"):  # <MASKED>
+    if _names(name, "bwd_persistent_kernel"):  # <T, MASKED>
         masked, = _flags(name, "bwd_persistent_kernel")
-        return "K7p lstm_revmasked_bwd_persistent" if masked else "K5p lstm_train_bwd_persistent"
-    if re.search(r"(?:::|\d)dw_(?:tc|sum)_kernel(?:[(E]|$)", name):  # K5p's and K7p's
+        group = ("K7p lstm_revmasked_bwd_persistent" if masked
+                 else "K5p lstm_train_bwd_persistent")
+        f32 = re.search(r"bwd_persistent_kernel(?:If|<float\b)", name) is not None
+        return group.replace(" ", "-f32 ", 1) if f32 else group
+    if re.search(r"(?:::|\d)dw_tc_kernel(?:[(E]|$)", name):  # K5p's and K7p's
         return "K5p/K7p dW (dw_tc_kernel)"
+    if re.search(r"(?:::|\d)dw_tf32_kernel(?:[(E]|$)", name):  # K5p-f32's and K7p-f32's
+        return "K5p/K7p dW-f32 (dw_tf32_kernel)"
+    if re.search(r"(?:::|\d)dw_sum_kernel(?:[(E]|$)", name):  # either dW kernel's split sum
+        return "K5p/K7p dW part sum (dw_sum_kernel)"
     if _names(name, "fusedin_kernel"):
         stream = _flags(name, "fusedin_kernel") == [True]
         return "K8 lstm_train_fwd_streamin" if stream else "K1 fusedin_bilstm"
