@@ -50,9 +50,18 @@ Phases (any failure exits non-zero; each prints its seconds):
      each path ran, and that K1-K3 took K1p-K3p on the bfloat16 paths (the
      CLIs) and the walks on the float32 ones (the training runs'
      validations; a train step runs none of K1-K3), and that on the float32
-     training runs K4-K7 took K4p-f32 - K7p-f32; then one float32 train
-     step at 510 channels (H = 1020, where no float32 K4p/K6p plan fits)
-     takes the walks of K4 and K6 and K5p-f32 / K7p-f32;
+     training runs K4-K7 took K4p-f32 - K7p-f32; the batched CLI run reads
+     its inputs as FLAC; then the dynamic-mixing config
+     (BSRNN_baseline_dm.yaml: 196 x 6, B=4, 2 s at 48 kHz, float32) through
+     ``train_se.run`` for 2 steps and a validation, its batches rendered by
+     two spawned workers from FLAC speech sources (K4p-f32 - K7p-f32, no
+     walk of K4-K7; the steps' and the loader's times); a reference
+     ``.ckpt`` at 196 x 6 warm-starts a trainer through ``init_from``
+     (bitwise equal to the converted weights, then one step); one RK45
+     flow enhancement (scipy solve_ivp, rtol = atol = 1e-5) from the flow
+     training's checkpoint in bfloat16 (nfev K1p forwards); then one
+     float32 train step at 510 channels (H = 1020, where no float32
+     K4p/K6p plan fits) takes the walks of K4 and K6 and K5p-f32 / K7p-f32;
   4. the A/B arms of the two experiment toggles (default, STREAM_INPUT_TRAIN,
      FUSED_BIDIR_TRAIN, both, in alternating order) on one train step of
      each family: launches per kernel, loss and gradients against the
@@ -983,7 +992,7 @@ UTTERANCES = (("u48a", 48000, 3.7), ("u48b", 48000, 1.3), ("u22", 22050, 1.6),
 LONG_UTTERANCES = (("long48", 48000, 2.5), ("long16", 16000, 2.5))
 
 
-def _write_inputs(workdir: Path, items, name: str, seed: int) -> Path:
+def _write_inputs(workdir: Path, items, name: str, seed: int, ext: str = "wav") -> Path:
     import numpy as np
     from urgent2026_challenge_track1_tpu_torch.utils import audio_io
 
@@ -993,7 +1002,7 @@ def _write_inputs(workdir: Path, items, name: str, seed: int) -> Path:
         n = int(sec * fs)
         t = np.arange(n) / fs
         wav = 0.3 * np.sin(2 * np.pi * 220.0 * t) + 0.05 * rng.standard_normal(n)
-        path = workdir / f"{uid}.wav"
+        path = workdir / f"{uid}.{ext}"
         audio_io.write(str(path), wav, fs)
         lines.append(f"{uid} {path}")
     scp = workdir / name
@@ -1028,14 +1037,17 @@ def phase_main_path(workdir: Path):
     save_model(str(ckpt), init_bsrnn(BSRNNConfig(num_channel=N_IN, num_layer=6), seed=0),
                STFTConfig())
     scp = _write_inputs(workdir, UTTERANCES, "in.scp", 0)
+    # the same samples as FLAC (its 16-bit PCM equals the WAV's): the
+    # batched run reads them, and plans its buckets from their headers
+    scp_flac = _write_inputs(workdir, UTTERANCES, "in_flac.scp", 0, ext="flac")
     scp_long = _write_inputs(workdir, LONG_UTTERANCES, "long.scp", 1)
     runs = (("single", scp, UTTERANCES, ["--batch_size", "1"]),
-            ("batched", scp, UTTERANCES, ["--batch_size", "4"]),
+            ("batched (FLAC)", scp_flac, UTTERANCES, ["--batch_size", "4"]),
             ("long-form", scp_long, LONG_UTTERANCES, ["--chunk_seconds", "1"]))
     K.reset_launch_counts()
     for name, run_scp, items, extra in runs:
         before = K.launch_counts()
-        out_dir = workdir / f"out_{name}"
+        out_dir = workdir / f"out_{name.split()[0]}"
         t0 = time.perf_counter()
         inference.main(["--input_scp", str(run_scp), "--ckpt_path", str(ckpt),
                         "--output_dir", str(out_dir), "--device", "cuda", *extra])
@@ -1049,9 +1061,9 @@ def phase_main_path(workdir: Path):
     return counts, routes
 
 
-def _write_split(root: Path, seconds, seed: int) -> Path:
+def _write_split(root: Path, seconds, seed: int, ext: str = "wav") -> Path:
     """A pre-simulated set at 48 kHz (spk1.scp, wav.scp, utt2fs,
-    speech_length.scp) of synthetic clean/noisy pairs."""
+    speech_length.scp) of synthetic clean/noisy pairs, as WAV or FLAC."""
     import numpy as np
     from urgent2026_challenge_track1_tpu_torch.utils import audio_io
 
@@ -1066,7 +1078,7 @@ def _write_split(root: Path, seconds, seed: int) -> Path:
         noisy = clean + 0.1 * rng.standard_normal(n)
         uid = f"{root.name}{i:02d}"
         for name, wav in (("spk1.scp", clean), ("wav.scp", noisy)):
-            path = root / f"{uid}_{name[:3]}.wav"
+            path = root / f"{uid}_{name[:3]}.{ext}"
             audio_io.write(str(path), wav, fs)
             lines[name].append(f"{uid} {path}")
         lines["utt2fs"].append(f"{uid} {fs}")
@@ -2097,6 +2109,233 @@ def phase_flow_cli(workdir: Path, ckpt: Path):
 
 
 # ---------------------------------------------------------------------------
+# dynamic mixing, the init_from warm start and the RK45 sampler (phase 3)
+# ---------------------------------------------------------------------------
+
+DM_SECONDS = (2.9, 2.8, 2.7, 2.6, 2.5, 2.4, 2.3, 2.2)  # 8 speech sources, each over 2 s
+
+
+def _write_dm_sources(root: Path, seed: int) -> Path:
+    """A dynamic-mixing source corpus at 48 kHz: speech sources as FLAC,
+    4 noises, 2 RIRs and 2 wind noises as WAV, and the JAX package's scp
+    files (speech_sources.scp, noise_scoures.scp, rirs.scp,
+    wind_noise_scoures.scp, source_length.scp)."""
+    import numpy as np
+    from urgent2026_challenge_track1_tpu_torch.utils import audio_io
+
+    root.mkdir(parents=True)
+    rng = np.random.default_rng(seed)
+    fs = 48000
+    lines = {k: [] for k in ("speech_sources.scp", "noise_scoures.scp", "rirs.scp",
+                             "wind_noise_scoures.scp", "source_length.scp")}
+
+    def add(scp, uid, wav, ext):
+        path = root / f"{uid}.{ext}"
+        audio_io.write(str(path), wav, fs)
+        lines[scp].append(f"{uid} {fs} {path}")
+
+    for i, sec in enumerate(DM_SECONDS):
+        n = int(sec * fs)
+        t = np.arange(n) / fs
+        gate = (np.sin(2 * np.pi * 1.5 * t) > -0.4).astype(np.float64)  # pauses
+        wav = gate * 0.3 * np.sin(2 * np.pi * rng.uniform(120, 400) * t) \
+            + 0.01 * rng.standard_normal(n)
+        add("speech_sources.scp", f"speech{i}", wav, "flac")
+        lines["source_length.scp"].append(f"speech{i} {n}")
+    for i in range(4):
+        add("noise_scoures.scp", f"noise{i}", 0.1 * rng.standard_normal(int((1.5 + i) * fs)),
+            "wav")
+    for i in range(2):
+        h = rng.standard_normal(int(0.3 * fs)) * np.exp(-np.arange(int(0.3 * fs)) / (0.05 * fs))
+        h[: 100 + 50 * i] = 0.0
+        h[100 + 50 * i] = 1.0
+        add("rirs.scp", f"rir{i}", 0.5 * h, "wav")
+    for i in range(2):
+        add("wind_noise_scoures.scp", f"wind_noise_{i}", 0.2 * rng.standard_normal(3 * fs), "wav")
+    for name, ls in lines.items():
+        (root / name).write_text("\n".join(ls) + "\n")
+    return root
+
+
+def _metrics(workdir: Path, name: str) -> list:
+    exp = workdir / "exp" / "chip_smoke" / name / "version_0"
+    return [json.loads(line) for line in (exp / "metrics.jsonl").read_text().splitlines()]
+
+
+def phase_dm_training(workdir: Path):
+    """``train_se.run`` on the values of conf/models/BSRNN_baseline_dm.yaml
+    (196 x 6, B=4, max_duration 96000, num_worker 2, float32): dynamic
+    mixing from FLAC speech sources, rendered by the spawned process pool,
+    2 steps and one validation on a FLAC pre-simulated split.  Then the
+    loader alone over one epoch, and the render of one item in this
+    process.  Returns the run's routes and timings."""
+    import torch
+    from urgent2026_challenge_track1_tpu_torch import train_se
+    from urgent2026_challenge_track1_tpu_torch.data.dataset import AudioDataModule
+    from urgent2026_challenge_track1_tpu_torch.models.bsrnn import BSRNNConfig, init_bsrnn
+    from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
+
+    root = _write_dm_sources(workdir / "dm_train", 30)
+    _write_split(workdir / "dm_valid", (2.0, 1.75, 1.5, 1.25), 31, ext="flac")
+    cfg = _train_config(workdir, train_set_path=str(root),
+                        valid_set_path=str(workdir / "dm_valid"),
+                        train_set_dynamic_mixing=True, use_high_pass=True, num_train_epochs=1,
+                        val_check_interval=2, train_name="dm")
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        state = train_se.run(cfg)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts, routes = K.launch_counts(), _routes()
+        dw = _check_dw_launches("the dynamic-mixing training path", routes)
+    finally:
+        os.chdir(cwd)
+    print(f"[dm training] 1 epoch x 2 steps (+ 1 validation, 1 save) in {seconds:.1f} s on "
+          f"{os.cpu_count()} host CPUs, launches {counts}, routes {routes}, dW {dw}")
+    if (state.step, state.epoch) != (2, 1):
+        fail(f"dm training ended at step {state.step}, epoch {state.epoch}; expected 2, 1")
+    records = _metrics(workdir, "dm")
+    steps = [r for r in records if "train_loss" in r]
+    vals = [r["val_loss"] for r in records if "val_loss" in r]
+    step_s = [r["step_time"] for r in steps]
+    wait_s = [r["data_time"] for r in steps]
+    print(f"[dm training] train losses {[r['train_loss'] for r in steps]}, val losses {vals}, "
+          f"step seconds {step_s}, loader wait seconds {wait_s}")
+    if len(steps) != 2 or len(vals) != 1 or None in [r["train_loss"] for r in steps] + vals:
+        fail("dm training logged missing or non-finite losses")
+    init = init_bsrnn(BSRNNConfig(num_channel=N_IN, num_layer=6), seed=2024)
+    trained = state.model.state_dict()
+    changed = sum(not torch.equal(v, trained[k].cpu()) for k, v in init.state_dict().items())
+    print(f"[dm training] {changed} of {len(trained)} parameter tensors changed")
+    if changed < len(trained) // 2:
+        fail("dm training left most parameters unchanged")
+    for fn in K.KERNELS[:7]:
+        if counts[fn.__name__] <= 0:
+            fail(f"kernel {fn.__name__} was not launched on the dynamic-mixing training path")
+    # K1-K3 on their float32 walks (validation), K4-K7 persistent only: no walk
+    _check_routes("the dynamic-mixing training path", "float32", routes,
+                  INFERENCE_KERNELS + TRAIN_ROUTED)
+    presim = [r["step_time"] for r in _metrics(workdir, "baseline") if "train_loss" in r]
+    # the loader alone: a fresh spawned pool over one epoch of 2 batches,
+    # then one item rendered in this process
+    dm = AudioDataModule(cfg)
+    t0 = time.perf_counter()
+    batch_s = []
+    for _ in dm.train_dataloader(epoch=1):
+        batch_s.append(time.perf_counter() - t0)
+    item_s = []
+    for i in range(4):
+        t1 = time.perf_counter()
+        dm.train_dataset[i]
+        item_s.append(time.perf_counter() - t1)
+    out = {"dm_step_s": step_s, "dm_loader_wait_s": wait_s,
+           "dm_loader_share": sum(wait_s) / (sum(wait_s) + sum(step_s)),
+           "presimulated_step_s": presim, "loader_epoch_batch_ready_s": batch_s,
+           "render_item_s": item_s, "host_cpus": os.cpu_count(), "num_worker": cfg.num_worker}
+    print("[dm training] " + json.dumps(out))
+    return routes, out
+
+
+def _reference_module():
+    """tests/torch_ref_bsrnn.py: the reference BSRNN graphs in torch alone,
+    whose state_dict keys are a Lightning checkpoint's."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("torch_ref_bsrnn",
+                                                  REPO / "tests" / "torch_ref_bsrnn.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_init_from(workdir: Path, device):
+    """A reference-layout Lightning ``.ckpt`` (SEModel keys, 196 x 6, random
+    seeded weights) warm-starts a discriminative Trainer on the card: its
+    parameters equal the converted state_dict bitwise before the first
+    step; then one float32 train step."""
+    import torch
+    from urgent2026_challenge_track1_tpu_torch.train import trainer
+    from urgent2026_challenge_track1_tpu_torch.utils.convert import load_init_from
+    from urgent2026_challenge_track1_tpu_torch.utils.params import from_jax_params
+
+    torch.manual_seed(40)
+    ref = _reference_module().DiscriminativeBSRNN(481, N_IN, 6)
+    ckpt = workdir / "reference_196x6.ckpt"
+    torch.save({"state_dict": {f"se_model.bsrnn.bsrnn.{k}": v
+                               for k, v in ref.state_dict().items()}}, ckpt)
+    cfg = _train_config(workdir, init_from=str(ckpt), train_name="init_from")
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        tr = trainer.Trainer(cfg, None)
+        state = tr.init_state()
+    finally:
+        os.chdir(cwd)
+    expected = from_jax_params(load_init_from(str(ckpt))).state_dict()
+    got = state.model.state_dict()
+    unequal = [k for k, v in expected.items() if not torch.equal(got[k].cpu(), v)]
+    print(f"[init_from] {len(expected) - len(unequal)} of {len(expected)} tensors equal the "
+          f"converted checkpoint bitwise on {next(state.model.parameters()).device}")
+    if unequal or next(state.model.parameters()).device.type != "cuda":
+        fail(f"init_from: tensors {unequal[:5]} differ from the converted checkpoint")
+    m = tr._get_train_step(48000)(state.model, state.optimizer, *_train_batch(device))
+    torch.cuda.synchronize()
+    print(f"[init_from] one step from the warm start: loss {float(m['loss']):.6g}")
+    if not bool(torch.isfinite(m["loss"])) or m["nan_grad"]:
+        fail("the step from the warm start gave a non-finite loss or gradient")
+
+
+RK45_SECONDS = 0.5  # one input at 48 kHz
+
+
+def phase_rk45(workdir: Path, ckpt: Path, device):
+    """One RK45 enhancement (scipy solve_ivp at the JAX defaults rtol = atol
+    = 1e-5) with the flow training's checkpoint at 384 x 6 in bfloat16 on
+    the card: nfev model calls, each through K1p."""
+    import numpy as np
+    import torch
+    from urgent2026_challenge_track1_tpu_torch.dsp import stft as dsp
+    from urgent2026_challenge_track1_tpu_torch.models.bsrnn_flowse import vector_field
+    from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
+    from urgent2026_challenge_track1_tpu_torch.sampling import get_black_box_solver
+    from urgent2026_challenge_track1_tpu_torch.utils.checkpoint import load_model_for_inference
+
+    kind, model, fcfg, stft_cfg = load_model_for_inference(str(ckpt), device.type)
+    if kind != "flowse" or (device.type == "cuda" and fcfg.compute_dtype != "bfloat16"):
+        fail(f"rk45: loaded a {kind} model in {fcfg.compute_dtype}")
+    fs, n = 48000, int(RK45_SECONDS * 48000)
+    rng = np.random.default_rng(60)
+    t = np.arange(n) / fs
+    wav = 0.3 * np.sin(2 * np.pi * 220.0 * t) + 0.05 * rng.standard_normal(n)
+    noisy = torch.from_numpy((0.9 * wav / np.abs(wav).max()).astype(np.float32))[None].to(device)
+    y = dsp.stft_encode(noisy, fs, stft_cfg)
+
+    def vf(x, t_, y_):
+        return vector_field(model, x, t_, y_, fs)
+
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    sample, nfev = get_black_box_solver(fcfg.ode, vf, y, T_rev=fcfg.T_rev, t_eps=fcfg.t_eps)(
+        generator=torch.Generator(device=device).manual_seed(61))
+    out = dsp.stft_decode(sample, fs, stft_cfg, length=n)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts, routes = K.launch_counts(), _routes()
+    print(f"[rk45] {RK45_SECONDS} s at {fs} Hz: nfev {nfev} in {seconds:.2f} s "
+          f"({1e3 * seconds / max(nfev, 1):.2f} ms per evaluation), sample {tuple(sample.shape)}, "
+          f"launches { {k: v for k, v in counts.items() if v} }")
+    if sample.shape != y.shape or not bool(torch.isfinite(torch.view_as_real(sample)).all()):
+        fail("rk45: the sample is not finite or has the wrong shape")
+    if out.shape != (1, n) or not bool(torch.isfinite(out).all()):
+        fail("rk45: the decoded waveform is not finite or has the wrong length")
+    _check_routes("the RK45 flow sampler", "bfloat16", routes, ("fusedin_bilstm",))
+    return {"rk45_nfev": nfev, "rk45_s": seconds, "rk45_input_s": RK45_SECONDS}
+
+
+# ---------------------------------------------------------------------------
 # the A/B arms of the experiment toggles (phase 4)
 # ---------------------------------------------------------------------------
 
@@ -2574,6 +2813,9 @@ def main() -> int:
         _, train_routes = timed("training path", phase_training, Path(tmp))
         flow_routes, flow_ckpt = timed("flow training path", phase_flow_training, Path(tmp))
         _, flow_cli_routes = timed("flow inference path", phase_flow_cli, Path(tmp), flow_ckpt)
+        _, dm_times = timed("dynamic-mixing training path", phase_dm_training, Path(tmp))
+        timed("init_from warm start", phase_init_from, Path(tmp), device)
+        dm_times.update(timed("rk45 flow sampler", phase_rk45, Path(tmp), flow_ckpt, device))
     wide_routes = timed("walk route", phase_walk_route, device)
     ab, ab_counts = timed("a/b arms", phase_ab_arms, device)
     timed("card vs cpu forward", phase_card_vs_cpu, device)
@@ -2596,7 +2838,7 @@ def main() -> int:
             dt = rec["dtype"]
             rec["flow_launches"] = flow_times[dt]["dw_launches_per_step"]
             rec["flow_launches_run"] = f"one {dt} flow train step (B=2, 2 s, 384 x 6)"
-    print("[times] " + json.dumps({"ab_arms": ab, "flow": flow_times}))
+    print("[times] " + json.dumps({"ab_arms": ab, "flow": flow_times, "dm": dm_times}))
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(gpu_name_and_power())
     print(json.dumps({"kernels": records}))

@@ -349,3 +349,122 @@ def test_cli_trains_a_tiny_model_on_the_cpu(toy_dirs, tmp_path, monkeypatch):
     assert (state.step, state.epoch) == (2, 1)
     assert state.model.cfg.num_channel == 4
     assert (tmp_path / "exp/run_0/baseline/version_0/checkpoints_last/step_2.pt").exists()
+
+
+# ---------------------------------------------------------------------------
+# top-k direction (val_sisnr keeps the highest) and the init_from warm start
+# ---------------------------------------------------------------------------
+
+TOPK_VALUES = {1: 3.0, 2: 7.5, 3: None, 4: 6.1, 5: 1.2, 6: 9.0, 7: 4.4}
+
+
+def _jax_retained(tmp_path, metric, mode=None):
+    from urgent2026_challenge_track1_tpu.train.trainer import CheckpointIO as JCheckpointIO
+    from urgent2026_challenge_track1_tpu.train.trainer import TrainState as JState
+
+    ck = JCheckpointIO(str(tmp_path / "jax_ck"), save_top_k=3, save_last=False, metric=metric,
+                       mode=mode)
+    for step, v in TOPK_VALUES.items():
+        st = JState(params={"w": jnp.full((2,), float(step))}, opt_state={"m": jnp.zeros((2,))},
+                    ema_params=None, step=step, epoch=0)
+        vm = {"val_loss": 0.1 * step} if v is None else {"val_loss": 0.1 * step, metric: v}
+        ck.save(step, st, vm, {})
+    return ck.mode, sorted(ck.manager.all_steps())
+
+
+@pytest.mark.parametrize("mode", [None, "min", "max"], ids=["derived", "min", "max"])
+def test_val_sisnr_top_k_matches_jax(tmp_path, monkeypatch, mode):
+    """A Trainer built from a Config with checkpoint_metric="val_sisnr" keeps
+    the steps JAX ``CheckpointIO`` keeps: the highest SI-SNR when no mode is
+    given, and an explicit "min" / "max" is still honoured."""
+    monkeypatch.chdir(tmp_path)
+    cfg = Config(model_configs={"num_channel": 4, "num_layer": 1}, device="cpu",
+                 checkpoint_metric="val_sisnr", checkpoint_mode=mode, save_top_k=3,
+                 save_last=False, train_tag="topk")
+    trainer = ttrainer.Trainer(cfg, None)
+    state = trainer.init_state()
+    for step, v in TOPK_VALUES.items():
+        state.step = step
+        vm = {"val_loss": 0.1 * step} if v is None else {"val_loss": 0.1 * step, "val_sisnr": v}
+        trainer.ckpt.save(step, state, vm, {})
+    jmode, jsteps = _jax_retained(tmp_path, "val_sisnr", mode)
+    assert trainer.ckpt.mode == jmode == (mode or "max")
+    assert trainer.ckpt.all_steps() == jsteps
+    assert jsteps == ([2, 4, 6] if jmode == "max" else [1, 5, 7])
+
+
+def test_val_loss_top_k_keeps_min_by_default(tmp_path):
+    ck = ttrainer.CheckpointIO(str(tmp_path / "ck"), save_top_k=2, save_last=False)
+    model = _Tiny()
+    state = ttrainer.TrainState(model, torch.optim.AdamW(model.parameters()))
+    for step, v in ((1, 0.5), (2, 0.3), (3, 0.9), (4, 0.4)):
+        ck.save(step, state, {"val_loss": v}, {})
+    assert ck.mode == "min" and ck.all_steps() == [2, 4]
+    assert Config().checkpoint_mode is None
+
+
+def _reference_ckpt(path, family, seed):
+    """A reference-layout Lightning .ckpt (8 channels x 2 layers) from the
+    independent torch graphs of tests/torch_ref_bsrnn.py."""
+    from tests.torch_ref_bsrnn import DiscriminativeBSRNN, FlowBSRNN
+
+    torch.manual_seed(seed)
+    if family == "flowse":
+        sd = {f"dnn.{k}": v for k, v in FlowBSRNN(769, 8, 2).state_dict().items()}
+    else:
+        sd = {f"se_model.bsrnn.bsrnn.{k}": v
+              for k, v in DiscriminativeBSRNN(481, 8, 2).state_dict().items()}
+    torch.save({"state_dict": sd, "epoch": 3}, path)
+    return str(path)
+
+
+def _jax_init_from(path, family):
+    from urgent2026_challenge_track1_tpu.models import bsrnn as jbsrnn
+    from urgent2026_challenge_track1_tpu.models import bsrnn_flowse as jflow
+    from urgent2026_challenge_track1_tpu.utils.convert import load_init_from as jload
+
+    key = jax.random.PRNGKey(0)
+    if family == "flowse":
+        template = jflow.init_flowse(key, jflow.FlowSEConfig(bsrnn_hidden=8, num_layer=2))
+    else:
+        template = jbsrnn.init_bsrnn(key, jbsrnn.BSRNNConfig(input_dim=481, num_channel=8,
+                                                             num_layer=2))
+    return jax.tree.map(np.asarray, jload(path, template))
+
+
+@pytest.mark.parametrize("family", ["discriminative", "flowse"])
+def test_load_init_from_matches_jax(tmp_path, family):
+    from urgent2026_challenge_track1_tpu_torch.utils.convert import load_init_from
+
+    path = _reference_ckpt(tmp_path / f"{family}.ckpt", family, seed=3)
+    got, ref = _flat(load_init_from(path)), _flat(_jax_init_from(path, family))
+    assert sorted(got) == sorted(ref)
+    for k in ref:
+        assert got[k].shape == ref[k].shape and np.array_equal(got[k], ref[k]), k
+    with pytest.raises(ValueError, match="init_from"):
+        load_init_from(str(tmp_path / "weights.npz"))
+
+
+@pytest.mark.parametrize("family", ["discriminative", "flowse"])
+def test_trainer_warm_starts_from_init_from(tmp_path, monkeypatch, family):
+    """``init_from`` replaces the seeded init with the converted reference
+    weights (and a flow model's EMA starts from them), bitwise."""
+    monkeypatch.chdir(tmp_path)
+    path = _reference_ckpt(tmp_path / "ref.ckpt", family, seed=4)
+    over = (dict(model_type="flowse", bsrnn_hidden=8, num_layer=2) if family == "flowse"
+            else dict(model_configs={"num_channel": 8, "num_layer": 2}))
+    cfg = Config(device="cpu", init_from=path, train_tag="warm", **over)
+    state = ttrainer.Trainer(cfg, None).init_state()
+    expected = from_jax_params(_jax_init_from(path, family)).state_dict()
+    for k, v in state.model.state_dict().items():
+        assert torch.equal(v, expected[k]), k
+    if family == "flowse":
+        assert all(torch.equal(v, expected[k]) for k, v in state.ema.state_dict().items())
+    seeded = ttrainer.Trainer(Config(device="cpu", train_tag="cold", **over), None).init_state()
+    assert not torch.equal(seeded.model.state_dict()["band_split.w"], expected["band_split.w"])
+    wrong = Config(device="cpu", init_from=path, train_tag="wrong",
+                   **(dict(model_type="flowse", bsrnn_hidden=4, num_layer=2)
+                      if family == "flowse" else dict(model_configs={"num_channel": 4,
+                                                                     "num_layer": 2})))
+    with pytest.raises(RuntimeError, match="size mismatch"):
+        ttrainer.Trainer(wrong, None).init_state()

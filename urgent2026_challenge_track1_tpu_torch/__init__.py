@@ -11,14 +11,16 @@ Entry points run on ``cuda`` unless the caller asks for ``"cpu"``.
 
 from __future__ import annotations
 
-import torch
-
 __all__ = ["resolve_device"]
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     """``"cuda"`` (the default) or an explicit ``"cpu"``; anything else, or
     ``"cuda"`` on a machine without a card, raises."""
+    # torch is imported here, not with the package: the data loader's
+    # spawned workers import the package's data modules without torch
+    import torch
+
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():

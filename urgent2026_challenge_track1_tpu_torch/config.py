@@ -4,8 +4,9 @@ override (counterpart of ``config.py``).
 ``Config(**kwargs)``, ``cfg.read_yaml()`` and ``config_parser()``, which
 generates one ``--key value`` flag per default.  The schema keeps every key
 of the JAX package's, so its YAML files load here; the trainer raises on
-the values the port does not run yet (flow matching, meshes, dynamic
-mixing, ``init_from``).  ``device`` is ``cuda`` (the default) or ``cpu``.
+the values the port does not run yet, each with its ROADMAP item: causal
+models (A10), the on-device render (A13b), dp/mp meshes (A14).  ``device``
+is ``cuda`` (the default) or ``cpu``.
 """
 
 from __future__ import annotations
@@ -38,8 +39,9 @@ class Config:
         self.val_check_interval = 50000
         self.save_top_k = 3
         self.checkpoint_metric = "val_loss"  # top-k key
-        self.checkpoint_mode = "min"  # "min" | "max": which end of
-        #                               checkpoint_metric is best
+        self.checkpoint_mode = None   # None: "max" for an SI-SNR metric,
+        #                               else "min" (the JAX package's rule);
+        #                               "min" | "max" overrides it
         self.save_last = True         # keep a "latest" ckpt for resume
         self.resume = True
         self.seed = 1996

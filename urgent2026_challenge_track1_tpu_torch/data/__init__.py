@@ -1,2 +1,2 @@
-"""Data pipeline: scp IO, the pre-simulated dataset, bucketed multi-rate
-batching and a prefetching loader."""
+"""Data pipeline: scp IO, the pre-simulated and dynamic-mixing datasets,
+bucketed multi-rate batching and a prefetching loader."""

@@ -1,22 +1,28 @@
-"""The pre-simulated dataset, fs-grouped length-bucketed batching and a
-prefetching loader (counterpart of ``data/dataset.py``).
+"""The pre-simulated and dynamic-mixing datasets, fs-grouped length-bucketed
+batching and a prefetching loader (counterpart of ``data/dataset.py``).
 
 Batches are numpy on the host; the trainer moves them to the device.
 ``collate_fn`` pads each batch's time axis up to a bucket length (the next
 multiple of ``pad_quantum_ms``) and carries the true lengths, which the
-length-exact model and losses use.  Loading runs in a thread pool (WAV
-reading is file I/O and numpy).  Dynamic mixing is not part of the port yet
-and raises (ROADMAP A13).
+length-exact model and losses use.  Pre-simulated data loads in a thread
+pool (file I/O and numpy); dynamic mixing renders in a process pool where
+the host has more than two cores, since its numpy/scipy render holds the
+GIL.  The pool is spawned, never forked: the trainer's process holds a
+CUDA context, which a forked child must not inherit.  What a worker
+imports for the dataset is ``data/``, ``simulation/`` and ``utils/``
+(numpy, scipy and the host C++ libraries); none of it initialises CUDA.
 """
 
 from __future__ import annotations
 
 import itertools
+import multiprocessing
+import os
 import queue
 import random
 import threading
 from collections import defaultdict, deque
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from typing import Iterator
 
 import numpy as np
@@ -33,6 +39,26 @@ __all__ = [
     "PrefetchLoader",
     "AudioDataModule",
 ]
+
+
+# the dataset of a process-pool worker, set once by its initializer
+_WORKER_DATASET = None
+
+
+def _init_worker(dataset) -> None:
+    """Process-pool initializer: keep the dataset for ``_worker_get``.  A
+    worker that imported torch (a spawned child re-imports the parent's
+    ``-m`` entry module) runs it on one thread and never touches CUDA."""
+    global _WORKER_DATASET
+    _WORKER_DATASET = dataset
+    import sys
+
+    if "torch" in sys.modules:
+        sys.modules["torch"].set_num_threads(1)
+
+
+def _worker_get(i):
+    return _WORKER_DATASET[i]
 
 
 def read_audio(path: str):
@@ -173,15 +199,30 @@ class _LoaderError:
 
 
 class PrefetchLoader:
-    """Thread-pool dataset loader with bounded batch prefetch."""
+    """Dataset loader with bounded batch prefetch: items load in a thread
+    pool, or with ``use_processes`` in a spawned process pool whose workers
+    each hold a copy of the dataset."""
 
     def __init__(self, dataset, batch_sampler, num_workers: int = 4,
-                 pad_quantum_ms: int = 1000, prefetch: int = 4):
+                 pad_quantum_ms: int = 1000, prefetch: int = 4,
+                 use_processes: bool = False):
         self.dataset = dataset
         self.batch_sampler = batch_sampler
         self.num_workers = max(1, num_workers)
         self.pad_quantum_ms = pad_quantum_ms
         self.prefetch = prefetch
+        self.use_processes = use_processes
+
+    def _pool(self):
+        """(executor, submit(pool, index) -> future)."""
+        if self.use_processes:
+            # spawn: a forked child would inherit the parent's CUDA context
+            pool = ProcessPoolExecutor(self.num_workers,
+                                       mp_context=multiprocessing.get_context("spawn"),
+                                       initializer=_init_worker, initargs=(self.dataset,))
+            return pool, lambda p, i: p.submit(_worker_get, i)
+        return (ThreadPoolExecutor(self.num_workers),
+                lambda p, i: p.submit(self.dataset.__getitem__, i))
 
     def __len__(self):
         return len(self.batch_sampler)
@@ -204,18 +245,22 @@ class PrefetchLoader:
 
         def produce():
             try:
-                with ThreadPoolExecutor(self.num_workers) as pool:
+                pool, submit = self._pool()
+                try:
                     pending: deque = deque()
                     it = iter(batches)
                     while not stop.is_set():
                         for idxs in itertools.islice(it, max(2, self.prefetch) - len(pending)):
-                            pending.append([pool.submit(self.dataset.__getitem__, i)
-                                            for i in idxs])
+                            pending.append([submit(pool, i) for i in idxs])
                         if not pending:
                             break
                         items = [f.result() for f in pending.popleft()]
                         if not put_bounded(collate_fn(items, self.pad_quantum_ms)):
                             return
+                finally:
+                    # a consumer that stopped early leaves prefetched items:
+                    # drop those not started, then join the workers
+                    pool.shutdown(wait=True, cancel_futures=True)
                 put_bounded(None)
             except BaseException as e:  # a dead producer must not hang the consumer
                 put_bounded(_LoaderError(e))
@@ -251,20 +296,37 @@ class _SkipSampler:
 
 
 class AudioDataModule:
-    """Train and validation datasets and loaders from a Config: the
-    pre-simulated branch of the JAX package's module (``spk1.scp``,
-    ``wav.scp``, ``utt2fs``, ``speech_length.scp`` in each set's folder)."""
+    """Train and validation datasets and loaders from a Config.  The
+    validation set is pre-simulated (``spk1.scp``, ``wav.scp``, ``utt2fs``,
+    ``speech_length.scp``); so is the training set, unless
+    ``train_set_dynamic_mixing``, where it is a ``DynamicMixingDataset``
+    over the source lists ``speech_sources.scp``, ``noise_scoures.scp``,
+    ``rirs.scp``, ``wind_noise_scoures.scp`` (the JAX package's names) and
+    ``source_length.scp``."""
 
     def __init__(self, config):
-        if config.train_set_dynamic_mixing:
+        if config.train_set_dynamic_mixing and config.dynamic_mixing_on_device:
             raise NotImplementedError(
-                "train_set_dynamic_mixing=True: dynamic mixing is not ported to "
-                "the PyTorch package yet (ROADMAP A13); use pre-simulated data"
-            )
+                "dynamic_mixing_on_device=True: the on-device render is not ported "
+                "to the PyTorch package yet (ROADMAP A13b); use host-side dynamic mixing")
         self.batch_size = config.batch_size
         self.num_worker = config.num_worker
         self.pad_quantum_ms = config.length_bucket_ms
-        self.train_dataset = self._dataset(config.train_set_path, config.max_duration)
+        self.dynamic_mixing = bool(config.train_set_dynamic_mixing)
+        if self.dynamic_mixing:
+            from urgent2026_challenge_track1_tpu_torch.data.dynamic import DynamicMixingDataset
+
+            root = config.train_set_path
+            self.train_dataset = DynamicMixingDataset(
+                speech_source_scp=f"{root}/speech_sources.scp",
+                noise_source_scp=f"{root}/noise_scoures.scp",
+                rir_scp=f"{root}/rirs.scp",
+                windnoise_scp=f"{root}/wind_noise_scoures.scp",
+                speech_length_file=f"{root}/source_length.scp",
+                retry_when_fails=False, max_duration=config.max_duration,
+                use_high_pass=config.use_high_pass)
+        else:
+            self.train_dataset = self._dataset(config.train_set_path, config.max_duration)
         self.val_dataset = self._dataset(config.valid_set_path)
 
     @staticmethod
@@ -278,18 +340,22 @@ class AudioDataModule:
     def train_dataloader(self, rank: int = 0, world_size: int = 1, epoch: int = 0,
                          skip_batches: int = 0) -> PrefetchLoader:
         """``skip_batches`` fast-forwards the (deterministic, epoch-seeded)
-        sampler on mid-epoch resume without loading the skipped items."""
+        sampler on mid-epoch resume without loading the skipped items.
+        Dynamic mixing renders in spawned processes where the host has more
+        than two cores, as the JAX package's loader does."""
         if world_size != 1:
             raise NotImplementedError(
                 "multi-process training is not ported yet (ROADMAP A14)")
         sampler = GroupedBatchSampler(self.train_dataset, batch_size=self.batch_size,
                                       rank=rank, world_size=world_size, drop_last=True)
         sampler.set_epoch(epoch)
-        self.train_dataset.set_epoch(epoch)
+        if hasattr(self.train_dataset, "set_epoch"):
+            self.train_dataset.set_epoch(epoch)
         if skip_batches:
             sampler = _SkipSampler(sampler, skip_batches)
+        use_processes = self.dynamic_mixing and (os.cpu_count() or 1) > 2
         return PrefetchLoader(self.train_dataset, sampler, self.num_worker,
-                              self.pad_quantum_ms)
+                              self.pad_quantum_ms, use_processes=use_processes)
 
     def val_dataloader(self) -> PrefetchLoader:
         sampler = GroupedBatchSampler(self.val_dataset, batch_size=self.batch_size,

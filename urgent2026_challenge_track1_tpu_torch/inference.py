@@ -3,7 +3,8 @@
     python -m urgent2026_challenge_track1_tpu_torch.inference \\
         --input_scp in.scp --ckpt_path model.ckpt --output_dir out/ [--device cuda]
 
-Per utterance: read the wav, enhance it, peak-normalise to 0.9 and write
+Per utterance: read the audio (WAV or FLAC, sniffed from its first bytes),
+enhance it, peak-normalise to 0.9 and write
 ``out/wav/{uid}.wav`` and a line of ``out/inf.scp``.  Inputs are padded to
 1 s buckets with their true lengths passed along, so the padding does not
 change the result; inputs longer than ``--chunk_seconds`` are enhanced as

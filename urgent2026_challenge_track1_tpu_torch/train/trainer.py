@@ -20,9 +20,13 @@ clips before its mask, but AdamW never updates or decays it.  Validation of
 a flow model runs on the EMA weights and adds the N = 10 Euler sampler's
 SI-SNR on the first batch of each sampling rate.
 
+``init_from`` warm-starts the parameters from a reference checkpoint
+(``utils/convert.load_init_from``) before the optimizer state and the EMA
+are made, as the JAX trainer does.
+
 Not ported yet, and raising where asked for: causal models (ROADMAP A10),
-dynamic mixing and the rendered step (A13), dp/mp meshes and multi-process
-training (A14), ``init_from``.
+the on-device dynamic-mixing render (A13b), dp/mp meshes and multi-process
+training (A14).
 """
 
 from __future__ import annotations
@@ -46,6 +50,8 @@ from urgent2026_challenge_track1_tpu_torch.models.bsrnn import (
     BSRNNConfig, bsrnn_se_apply, init_bsrnn)
 from urgent2026_challenge_track1_tpu_torch.train import losses
 from urgent2026_challenge_track1_tpu_torch.utils.checkpoint import TRAIN_FORMAT
+from urgent2026_challenge_track1_tpu_torch.utils.convert import load_init_from
+from urgent2026_challenge_track1_tpu_torch.utils.params import from_jax_params
 
 __all__ = [
     "ModelBundle",
@@ -273,15 +279,18 @@ class CheckpointIO:
     optimizer state, the EMA weights of a flow model, step, epoch,
     ``batch_in_epoch`` and the config, which the inference loader reads) and a
     ``step_<N>.json`` meta file into ``directory``, then keeps the
-    ``save_top_k`` best by ``metric`` in the given ``mode`` ("min" or "max";
-    a checkpoint without the metric ranks worst, ties keep the newer).  With
+    ``save_top_k`` best by ``metric`` in ``mode`` ("min" or "max"; None
+    takes "max" for a metric naming "sisnr" and "min" otherwise, the JAX
+    package's rule; a checkpoint without the metric ranks worst, ties keep
+    the newer).  With
     ``save_last`` the same checkpoint also goes to ``<directory>_last``,
     which keeps only the newest, so a resume after a plateau (when top-k
     has dropped every newer save) still continues from the newest step.
     """
 
     def __init__(self, directory: str, save_top_k: int = 3, save_last: bool = True,
-                 metric: str = "val_loss", mode: str = "min"):
+                 metric: str = "val_loss", mode: Optional[str] = None):
+        mode = mode or ("max" if "sisnr" in metric else "min")
         if mode not in ("min", "max"):
             raise ValueError(f"checkpoint mode {mode!r}: expected 'min' or 'max'")
         self.directory = os.path.abspath(directory)
@@ -421,10 +430,8 @@ def _check_single_device(mesh_shape: str) -> None:
 
 class Trainer:
     def __init__(self, cfg: Config, datamodule):
-        if cfg.init_from != "none":
-            raise _not_ported("init_from", "a later slice")
-        if cfg.dynamic_mixing_on_device:
-            raise _not_ported("dynamic_mixing_on_device (the rendered step)", "ROADMAP A13")
+        if cfg.train_set_dynamic_mixing and cfg.dynamic_mixing_on_device:
+            raise _not_ported("dynamic_mixing_on_device (the rendered step)", "ROADMAP A13b")
         _check_single_device(cfg.mesh_shape)
         self.cfg = cfg
         self.dm = datamodule
@@ -443,6 +450,9 @@ class Trainer:
 
     def init_state(self) -> TrainState:
         model = init_params(self.cfg.seed, self.bundle, self.device)
+        if self.cfg.init_from != "none":
+            warm = from_jax_params(load_init_from(self.cfg.init_from))
+            model.load_state_dict(warm.state_dict())  # strict: a width or depth mismatch raises
         ema = None
         if self.bundle.kind == "flowse":
             ema = copy.deepcopy(model).requires_grad_(False)
@@ -527,8 +537,10 @@ class Trainer:
             lr = self._set_lr(state, epoch)
             self.logger.log(state.step, {"lr": lr, "epoch": epoch})
             loader = self.dm.train_dataloader(epoch=epoch, skip_batches=state.batch_in_epoch)
+            t_ready = time.perf_counter()
             for clean, noisy, fs, lengths in loader:
                 t0 = time.perf_counter()
+                data_time = t0 - t_ready  # this step's wait for the loader
                 metrics = self._get_train_step(fs)(
                     state.model, state.optimizer,
                     *self._to_device(clean[:, 0], noisy[:, 0], lengths), ema=state.ema,
@@ -538,6 +550,7 @@ class Trainer:
                 if state.step % cfg.log_every_steps == 0:
                     logd = {f"train_{k}": float(v) for k, v in metrics.items()}
                     logd["step_time"] = time.perf_counter() - t0
+                    logd["data_time"] = data_time
                     if "train_sisnr" in logd:  # the flow step has no SI-SNR
                         logd[f"train_sisnr_{fs}"] = logd["train_sisnr"]
                     self.logger.log(state.step, logd)
@@ -545,6 +558,7 @@ class Trainer:
                     vm = self.validate(state)
                     self.logger.log(state.step, vm)
                     self.ckpt.save(state.step, state, vm, cfg.to_dict())
+                t_ready = time.perf_counter()
             state.epoch = epoch + 1
             state.batch_in_epoch = 0
         return state

@@ -1,1 +1,2 @@
-"""Checkpoints, the parameter bridge and WAV I/O."""
+"""Checkpoints, the parameter bridge, audio I/O (WAV, FLAC) and the host C++
+libraries of the simulation."""

@@ -1,10 +1,14 @@
-"""RIFF/WAVE audio I/O in numpy (the port's subset of ``utils/audio_io.py``).
+"""WAV and FLAC audio I/O in numpy (the port's subset of ``utils/audio_io.py``).
 
 ``read(path) -> (data, fs)`` with data float64 in [-1, 1), shape (T,) mono or
-(T, C); ``info(path) -> (frames, fs)`` from the header; ``write(path, data,
-fs, subtype)`` with subtype PCM_16 (default), PCM_24 or FLOAT.  Reads PCM
-16/24/32-bit and IEEE float 32/64, including WAVE_FORMAT_EXTENSIBLE.  FLAC
-and compressed formats are not handled here.
+(T, C), the format sniffed from the magic bytes; ``info(path) -> (frames,
+fs)`` from the header alone, for both formats; ``write(path, data, fs,
+subtype)`` writes FLAC when the path ends in ``.flac`` (PCM_16 or PCM_24)
+and RIFF/WAVE otherwise (PCM_16, the default, PCM_24 or FLOAT);
+``read_bytes`` / ``write_bytes`` do the same on in-memory buffers.  WAV
+reads PCM 16/24/32-bit and IEEE float 32/64, including
+WAVE_FORMAT_EXTENSIBLE; FLAC goes through ``utils/flac.py``.  mp3/ogg/opus
+are not read here yet (ROADMAP A16b).
 """
 
 from __future__ import annotations
@@ -14,7 +18,7 @@ from typing import Optional
 
 import numpy as np
 
-__all__ = ["read", "info", "write"]
+__all__ = ["read", "info", "info_frames", "write", "read_bytes", "write_bytes"]
 
 _PCM, _FLOAT, _EXTENSIBLE = 0x0001, 0x0003, 0xFFFE
 
@@ -39,10 +43,7 @@ def _fmt(buf: bytes, chunks) -> tuple[int, int, int, int, int]:
     return fmt, n_ch, fs, block_align, bits
 
 
-def read(path: str, dtype: str = "float64"):
-    """(data, fs); data (T,) or (T, C) in [-1, 1)."""
-    with open(path, "rb") as f:
-        buf = f.read()
+def _decode_wav(buf: bytes):
     chunks = _chunks(buf)
     fmt, n_ch, fs, _, bits = _fmt(buf, chunks)
     off, size = chunks[b"data"]
@@ -61,22 +62,48 @@ def read(path: str, dtype: str = "float64"):
         raise ValueError(f"unsupported WAVE format tag {fmt:#x} with {bits} bits")
     if n_ch > 1:
         data = data.reshape(-1, n_ch)
-    return data.astype(dtype), fs
+    return data, fs
+
+
+def read_bytes(buf: bytes, dtype: str = "float64"):
+    """(data, fs) from an in-memory WAV or FLAC buffer."""
+    if buf[:4] == b"fLaC":
+        from urgent2026_challenge_track1_tpu_torch.utils import flac
+
+        data, fs = flac.decode(buf)
+    else:
+        data, fs = _decode_wav(buf)
+    return np.asarray(data).astype(dtype), fs
+
+
+def read(path: str, dtype: str = "float64"):
+    """(data, fs); data (T,) or (T, C) in [-1, 1)."""
+    with open(path, "rb") as f:
+        return read_bytes(f.read(), dtype)
 
 
 def info(path: str) -> tuple[int, int]:
-    """(frames, samplerate) from the header."""
+    """(frames, samplerate) from the header (FLAC: its STREAMINFO)."""
     with open(path, "rb") as f:
         head = f.read(65536)
+    if head[:4] == b"fLaC":
+        from urgent2026_challenge_track1_tpu_torch.utils import flac
+
+        total, fs, _, _ = flac.probe(head)
+        return total, fs
     chunks = _chunks(head)
     _, _, fs, block_align, _ = _fmt(head, chunks)
     _, size = chunks[b"data"]  # the size field is in the header even when truncated here
     return size // block_align, fs
 
 
-def write(path: str, data: np.ndarray, samplerate: int,
-          subtype: Optional[str] = None) -> None:
-    """Write (T,) or (T, C) samples in [-1, 1) as a RIFF/WAVE file."""
+def info_frames(path: str) -> int:
+    """The number of frames (soundfile's ``SoundFile.frames``)."""
+    return info(path)[0]
+
+
+def write_bytes(data: np.ndarray, samplerate: int, subtype: Optional[str] = None) -> bytes:
+    """(T,) or (T, C) samples in [-1, 1) as an in-memory RIFF/WAVE file."""
     data = np.asarray(data)
     n_ch = 1 if data.ndim == 1 else data.shape[1]
     subtype = subtype or "PCM_16"
@@ -97,5 +124,22 @@ def write(path: str, data: np.ndarray, samplerate: int,
     hdr += b"fmt " + struct.pack("<IHHIIHH", 16, fmt, n_ch, samplerate,
                                  samplerate * block_align, block_align, bits)
     hdr += b"data" + struct.pack("<I", len(raw))
+    return hdr + raw
+
+
+def write(path: str, data: np.ndarray, samplerate: int,
+          subtype: Optional[str] = None) -> None:
+    """Write (T,) or (T, C) samples in [-1, 1): FLAC (PCM_16 or PCM_24) when
+    ``path`` ends in ``.flac``, RIFF/WAVE otherwise."""
+    if str(path).lower().endswith(".flac"):
+        from urgent2026_challenge_track1_tpu_torch.utils import flac
+
+        bits = {None: 16, "PCM_16": 16, "PCM_24": 24}.get(subtype)
+        if bits is None:
+            raise ValueError(f"unsupported FLAC subtype {subtype!r} (PCM_16 or PCM_24; "
+                             "FLAC has no float subtypes)")
+        buf = flac.encode(np.asarray(data), samplerate, bits=bits)
+    else:
+        buf = write_bytes(data, samplerate, subtype)
     with open(path, "wb") as f:
-        f.write(hdr + raw)
+        f.write(buf)
