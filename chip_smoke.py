@@ -62,6 +62,18 @@ Phases (any failure exits non-zero; each prints its seconds):
      training's checkpoint in bfloat16 (nfev K1p forwards); then one
      float32 train step at 510 channels (H = 1020, where no float32
      K4p/K6p plan fits) takes the walks of K4 and K6 and K5p-f32 / K7p-f32;
+     then the causal streaming path (phase_causal): a causal
+     streaming_norm model at 196 x 6 trains 3 float32 steps (K4p-f32,
+     K5p-f32, dW-f32; no K6/K7), is saved and loaded for inference
+     (bfloat16), and a StreamingSession over 4 s at 48 kHz (8 frames a
+     step: K2p with its carry, K1p on 8 band rows) equals the offline
+     causal forward (float32 and bfloat16), on the card and against the
+     CPU; then the server (phase_serving): 8 concurrent POST /enhance
+     through the batching engine with max_retries=0 against
+     make_enhance_fn, /stats, /healthz, and POST /stream against the
+     StreamingSession; before these, K2 with a carry (K2p and the float32
+     walk) against its plain version with a dropped-carry fault (the
+     carry_routes phase);
   4. the A/B arms of the two experiment toggles (default, STREAM_INPUT_TRAIN,
      FUSED_BIDIR_TRAIN, both, in alternating order) on one train step of
      each family: launches per kernel, loss and gradients against the
@@ -2687,6 +2699,554 @@ def _flow_kernel_times(device, records, flow_routes, wide_errs, wide_train_errs,
         })
 
 
+# ---------------------------------------------------------------------------
+# K2 with a carry, the causal streaming runtime and the server
+# ---------------------------------------------------------------------------
+
+# (what, R, T, H): the streaming step's time path (34 bands x 8 frames at
+# 48 kHz, chunk_frames 8), the offline causal time path (34 x 401: 4 s),
+# and the odd-H shapes of the card tests (2- and 4-byte copies of h0)
+CARRY_SHAPES = (("stream step", 34, 8, HID), ("offline causal", 34, 401, HID),
+                ("odd H", 13, 9, 37), ("H = 2 mod 4", 21, 7, 46))
+CARRY_TAGS = {"lstm_scan_persistent_carry": "bfloat16", "lstm_scan_carry_f32": "float32"}
+BARRIER_US = 1.0  # one step's barrier round trip through L2 (PERF.md), the latency floor's unit
+
+
+def _carry_bound(R, T, H, dtype):
+    """Least time (ms) of K2 with a carry: ``_bounds``' K2 work plus the
+    carry's bytes (h0 and hT in the compute dtype, c0 and cT float32);
+    float32 at PEAK_TF32_FLOPS, as ``_train_bounds`` counts float32."""
+    b = 2 if dtype == "bfloat16" else 4
+    peak = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_TF32_FLOPS
+    return _bound(2 * R * H * 4 * H * T,
+                  b * (R * T * 4 * H + H * 4 * H + R * T * H) + 2 * R * H * (b + 4), peak)
+
+
+def _lstm_carry_reference_ms(device, R, T, H, dtype):
+    """A one-direction ``torch.nn.LSTM`` inference forward from a given
+    (h0, c0) (N = H / 2 inputs) over R rows of T steps in ``dtype``: a
+    superset of K2 with a carry (it adds the W_ih products)."""
+    import torch
+
+    N = max(1, H // 2)
+    lstm = torch.nn.LSTM(N, H, batch_first=True).to(device, dtype).eval()
+    x = (0.3 * torch.randn((R, T, N), device=device)).to(dtype)
+    h0 = (0.5 * torch.randn((1, R, H), device=device)).to(dtype)
+    c0 = (0.5 * torch.randn((1, R, H), device=device)).to(dtype)
+    with torch.inference_mode():
+        ms = _time_ms(lambda: lstm(x, (h0, c0)))
+    del lstm, x
+    return ms
+
+
+def phase_carry_routes(device):
+    """K2 with a carry: K2p (bfloat16) and the float32 walk, each started
+    from a random (h0, c0) at the streaming step's, the offline causal and
+    the odd-H shapes, held against the plain version by
+    ``persistent_checks.scan_carry_report`` (h at every step, hT and cT
+    within ``carry_limit``: 4 bf16 ulps on K2p, the K2 walk's 2e-4 on the
+    float32 walk; hT the kernel's own last h; ``lstm_scan_dropped_carry``
+    beyond the limit at every shape); ms of the kernel, its plain version and
+    a one-direction ``nn.LSTM`` from (h0, c0) (a superset), the bound and
+    the latency floor (T dependent steps); and whether 8-frame chunks chained
+    through the carry give the one-launch offline result bitwise."""
+    import torch
+    from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
+    from urgent2026_challenge_track1_tpu_torch.ops import persistent_checks as PC
+
+    sms = _sm_count(device)
+    rows = []
+    for what, R, T, H in CARRY_SHAPES:
+        _, _, wh, _, xp, _ = _kernel_inputs(R, T, torch.bfloat16, device, R + T + H + 5, hid=H)
+        gen = torch.Generator().manual_seed(R * T + H)
+        h0, c0 = (0.5 * torch.randn((2, R, H), generator=gen)).unbind(0)
+        rec = {"what": what, "R": R, "T": T, "H": H}
+        for tag, dt_name in CARRY_TAGS.items():
+            dtype = getattr(torch, dt_name)
+            x, w = xp.to(dtype), wh[0].to(dtype).contiguous()
+            carry = (h0.to(device, dtype), c0.to(device))
+            plan = K.scan_route(dtype, R, H, sms)
+            if (plan is not None) != (dtype == torch.bfloat16):
+                fail(f"K2 with a carry at {what}: the route rule gives {plan} for {dt_name}")
+            if plan is not None:
+                def kern(p=plan, x=x, w=w, carry=carry):
+                    return K.lstm_scan_persistent(x, w, False, p, initial_state=carry,
+                                                  return_state=True)
+
+                def no_carry(p=plan, x=x, w=w):
+                    return K.lstm_scan_persistent(x, w, False, p)
+            else:
+                def kern(x=x, w=w, carry=carry):
+                    return K.lstm_scan_walk(x, w, False, carry, True)
+
+                def no_carry(x=x, w=w):
+                    return K.lstm_scan_walk(x, w)
+            with torch.inference_mode():
+                got, state = kern()
+                torch.cuda.synchronize()
+                report = PC.scan_carry_report(got, state, x, w, False, carry)
+                bad = PC.carry_failures(report)
+                if bad:
+                    fail(f"K2 with a carry ({tag}) at {what}: " + "; ".join(bad))
+                ms, ms_no_carry = _time_ms(kern), _time_ms(no_carry)
+                plain_ms = _time_ms(lambda: K.lstm_scan_plain(x, w, False, carry, True), reps=3,
+                                    warmup=1)
+                # 8-frame chunks chained through the carry against one launch
+                one = K.lstm_scan(x, w)
+                state_c, outs = None, []
+                for t0 in range(0, T, 8):
+                    y, state_c = K.lstm_scan(x[:, t0:t0 + 8].contiguous(), w,
+                                             initial_state=state_c, return_state=True)
+                    outs.append(y)
+                chained = torch.cat(outs, dim=1)
+                bitwise = bool(torch.equal(chained, one))
+                chained_err = _err(chained, one)
+            bound_ms, bound_by = _carry_bound(R, T, H, dt_name)
+            rec[tag] = {**report, "ms": ms, "ms_without_carry": ms_no_carry,
+                        "us_per_step": ms * 1e3 / T, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "latency_floor_ms": T * BARRIER_US / 1e3 if plan is not None else None,
+                        "reference_ms": _lstm_carry_reference_ms(device, R, T, H, dtype),
+                        "chunks_of_8_bitwise_equal_one_launch": bitwise,
+                        "chunks_of_8_max_abs_diff": chained_err,
+                        "plan": None if plan is None else {
+                            "S": plan.S, "G": plan.G, "U": plan.U, "rows": plan.rows,
+                            "chunk": plan.chunk, "c_in_smem": plan.c_in_smem, "ctas": plan.ctas}}
+            r = rec[tag]
+            print(f"[carry routes] {what} {tag} R={R} T={T} H={H}: {ms:.4f} ms "
+                  f"({r['us_per_step']:.2f} us a step; without a carry {ms_no_carry:.4f} ms), "
+                  f"plain {plain_ms:.3f} ms, bound "
+                  f"{bound_ms:.5f} ms ({bound_by}), nn.LSTM (h0, c0) {r['reference_ms']:.4f} ms; "
+                  f"max|h - plain| {report['h']:.3e}, |hT| {report['hT']:.3e}, |cT| "
+                  f"{report['cT']:.3e} (limits {report['limit']:.3e}, {report['c_limit']:.3e}); "
+                  f"dropped carry {report['dropped_carry']:.3e}; 8-frame chunks == one launch: "
+                  f"{bitwise} (max|d| {chained_err:.3e})")
+        rows.append(rec)
+        del xp, wh
+    print(f"[carry routes] card: {gpu_name_and_power()}")
+    return rows
+
+
+CAUSAL_MODEL = {"num_channel": N_IN, "num_layer": 6, "causal": True, "streaming_norm": True}
+CAUSAL_SECONDS, CAUSAL_CHUNK = 4.0, 8  # 4 s at 48 kHz, 8 frames (80 ms) a step
+CAUSAL_FEEDS = (4000, 7777, 480, 12345, 100, 9001)  # uneven feed sizes, cycled
+STREAM_F32_RTOL, STREAM_F32_ATOL = 1e-4, 2e-5  # tests/test_streaming_causal.py:119
+
+
+def _stream(session, wav, feeds=CAUSAL_FEEDS):
+    """``wav`` (1, n) through ``session`` in the uneven feed sizes, then the
+    flush; returns the output (1, n)."""
+    import numpy as np
+
+    outs, i, k = [], 0, 0
+    while i < wav.shape[-1]:
+        n = feeds[k % len(feeds)]
+        outs.append(session.feed(wav[:, i:i + n]))
+        i, k = i + n, k + 1
+    outs.append(session.flush())
+    return np.concatenate(outs, axis=-1)
+
+
+def _cuda_kernels_in(fn):
+    """Device kernels one call of ``fn`` launches, by ``torch.profiler``
+    (None when the trace holds no device events)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    return n or None
+
+
+def phase_causal(workdir: Path, device):
+    """A causal ``streaming_norm`` model at full width (BSRNN_baseline.yaml,
+    196 x 6, random seeded weights): 3 float32 train steps on the card
+    (B=4, 2 s at 48 kHz; the time path through LSTMDirTrain: K4p-f32,
+    K5p-f32 and dW-f32, no K6/K7, none of K1-K3), a checkpoint saved and
+    loaded back for inference (bfloat16); a StreamingSession over 4 s at 48
+    kHz in 8-frame chunks and uneven feeds against the offline causal
+    forward, in float32 (rtol 1e-4, atol 2e-5, JAX's streaming tolerance)
+    and in bfloat16 (BF16_TOL: the same kernels, but the cumulative norms'
+    sums run in another order in chunks, which moves bf16 roundings, and K1p
+    walks 8 rows a step instead of 401); the card against the CPU in float32
+    for the offline and the streamed output of the first second; per-step
+    wall time (median, p95) against the chunk's 80 ms and the launches a
+    step.  Returns (checkpoint path, stream input, bfloat16 stream output,
+    record)."""
+    import copy
+
+    import numpy as np
+    import torch
+    from urgent2026_challenge_track1_tpu_torch.dsp.stft import STFTConfig
+    from urgent2026_challenge_track1_tpu_torch.models import bsrnn as B
+    from urgent2026_challenge_track1_tpu_torch.models.streaming_causal import StreamingSession
+    from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
+    from urgent2026_challenge_track1_tpu_torch.train import trainer
+    from urgent2026_challenge_track1_tpu_torch.utils.checkpoint import (
+        load_model_for_inference, save_model)
+
+    rec = {}
+    cfg = _train_config(workdir, model_configs=dict(CAUSAL_MODEL))
+    bundle = trainer.build_model(cfg)
+    if not (bundle.model_cfg.causal and bundle.model_cfg.streaming_norm):
+        fail(f"the causal config built {bundle.model_cfg}")
+    model = trainer.init_params(cfg.seed, bundle, device)
+    step = trainer.make_train_step(bundle, cfg, 48000)
+    opt = trainer.make_optimizer(cfg, model)
+    batch = _train_batch(device, B=4)
+    per_layer = B.CAUSAL_TRAIN_LAUNCHES_PER_LAYER
+    steps = []
+    for i in range(3):
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        m = step(model, opt, *batch)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts, routes = K.launch_counts(), _routes()
+        if not bool(torch.isfinite(m["loss"])) or m["nan_grad"]:
+            fail(f"causal train step {i}: loss {float(m['loss'])}, nan_grad {m['nan_grad']}")
+        _check_no_lean_kernels("the causal train step", counts)
+        for name in ("lstm_revmasked_train_fwd", "lstm_revmasked_bwd"):
+            if counts[name]:
+                fail(f"the causal train step launched {name} {counts[name]} times (no reverse "
+                     "time direction)")
+        for name in ("lstm_train_fwd", "lstm_train_bwd"):
+            want = per_layer[name] * CAUSAL_MODEL["num_layer"]
+            if routes[name] != {"persistent": want, "walk": 0}:
+                fail(f"the causal f32 train step: {name} routes {routes[name]}, expected "
+                     f"{want} on the persistent route (K4p-f32 / K5p-f32)")
+        dw = _check_dw_launches("the causal train step", routes)
+        steps.append({"loss": float(m["loss"]), "seconds": seconds,
+                      "K4p_f32": routes["lstm_train_fwd"]["persistent"],
+                      "K5p_f32": routes["lstm_train_bwd"]["persistent"], "dW_f32": dw})
+    print(f"[causal] 3 float32 train steps (196 x 6 causal streaming_norm, B=4, 2 s at "
+          f"48 kHz): {steps}")
+    rec["train_steps"] = steps
+
+    stft = STFTConfig()
+    ckpt = workdir / "causal_196x6.pt"
+    save_model(str(ckpt), model, stft)
+    kind, served, scfg, sstft = load_model_for_inference(str(ckpt), "cuda")
+    if not (kind == "discriminative" and scfg.causal and scfg.streaming_norm
+            and scfg.compute_dtype == "bfloat16"):
+        fail(f"the causal checkpoint loaded as {kind} {scfg}")
+    model.eval()
+    fs = 48000
+    n = int(CAUSAL_SECONDS * fs)
+    t = np.arange(n) / fs
+    rng = np.random.default_rng(21)
+    wav = (0.3 * np.sin(2 * np.pi * 220.0 * t) + 0.05 * rng.standard_normal(n)).astype(
+        np.float32)[None]
+    x = torch.from_numpy(wav).to(device)
+
+    # float32: the trained model, streamed and offline on the card
+    K.reset_launch_counts()
+    with torch.inference_mode():
+        off32 = B.bsrnn_se_apply(model, stft, x, fs)[0].cpu().numpy()
+    rec["f32_offline_launches"] = _routes()["lstm_scan"]
+    K.reset_launch_counts()
+    f32_sess = StreamingSession(model, model.cfg, stft, fs, chunk_frames=CAUSAL_CHUNK)
+    st32 = _stream(f32_sess, wav)
+    rec["f32_launches"] = {"walk_carry": K.carry_counts()["walk"], **_routes()["lstm_scan"],
+                           "steps": f32_sess._emit_pos // f32_sess._chunk}
+    if st32.shape != wav.shape or not np.isfinite(st32).all():
+        fail(f"the float32 stream gave {st32.shape}, finite {np.isfinite(st32).all()}")
+    d32 = float(np.abs(st32 - off32).max())
+    ok32 = np.allclose(st32, off32, rtol=STREAM_F32_RTOL, atol=STREAM_F32_ATOL)
+    print(f"[causal] float32 stream vs offline on the card: max|d| {d32:.3e} (rtol "
+          f"{STREAM_F32_RTOL}, atol {STREAM_F32_ATOL}), K2 launches {rec['f32_launches']}")
+    if not ok32:
+        fail(f"the float32 stream differs from the offline forward by {d32:.3e}")
+
+    # bfloat16: the loaded checkpoint, as a server runs it
+    sess = StreamingSession(served, scfg, sstft, fs, chunk_frames=CAUSAL_CHUNK)
+    step_ms = []
+    inner = sess._step
+
+    def timed_step(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*args)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    sess._step = timed_step
+    K.reset_launch_counts()
+    st16 = _stream(sess, wav)
+    counts, routes, carry = K.launch_counts(), _routes(), K.carry_counts()
+    n_steps = len(step_ms)
+    K.reset_launch_counts()
+    with torch.inference_mode():
+        off16 = B.bsrnn_se_apply(served, sstft, x, fs)[0].cpu().numpy()
+    rec["bf16_offline_launches"] = _routes()["lstm_scan"]
+    d16 = float(np.abs(st16 - off16).max())
+    d16_vs_f32 = float(np.abs(off16 - off32).max())
+    print(f"[causal] bfloat16 stream vs offline on the card: max|d| {d16:.3e} (bound "
+          f"{BF16_TOL}); bf16 offline vs f32 offline max|d| {d16_vs_f32:.3e}")
+    if st16.shape != wav.shape or not np.isfinite(st16).all() or not d16 < BF16_TOL:
+        fail(f"the bfloat16 stream: shape {st16.shape}, max|d| vs offline {d16:.3e}")
+    if carry["persistent"] != CAUSAL_MODEL["num_layer"] * n_steps or carry["walk"]:
+        fail(f"the bfloat16 stream ran K2 with a carry {carry} over {n_steps} steps; expected "
+             f"K2p once per layer and step")
+    if routes["lstm_scan"]["walk"] or routes["fusedin_bilstm"]["walk"]:
+        fail(f"the bfloat16 stream took a walk: {routes}")
+    if any(counts[name] for name in ("lstm_revmasked",) + TRAIN_ROUTED):
+        fail(f"the bfloat16 stream launched {counts}")
+    k1_plan = K.k1_route(torch.bfloat16, CAUSAL_CHUNK, N_IN, HID, _sm_count(device))
+    med, p95 = statistics.median(step_ms), float(np.percentile(step_ms, 95))
+    with torch.inference_mode():
+        state = sess._state
+        chunk = torch.zeros((1, CAUSAL_CHUNK * sess.hop), device=device)
+        kernels_per_step = _cuda_kernels_in(lambda: inner(served, state, chunk, CAUSAL_CHUNK))
+    chunk_ms = CAUSAL_CHUNK * sess.hop / fs * 1e3
+    rec.update({"stream_steps": n_steps, "step_ms_median": med, "step_ms_p95": p95,
+                "chunk_ms": chunk_ms, "bf16_stream_vs_offline": d16,
+                "f32_stream_vs_offline": d32, "bf16_vs_f32_offline": d16_vs_f32,
+                "launches": {"K2p_carry": carry["persistent"],
+                             "K1p": routes["fusedin_bilstm"]["persistent"],
+                             "K1_walk": routes["fusedin_bilstm"]["walk"]},
+                "launches_per_step": {"K2p_carry": carry["persistent"] / n_steps,
+                                      "K1p": routes["fusedin_bilstm"]["persistent"] / n_steps,
+                                      "K1_walk": routes["fusedin_bilstm"]["walk"] / n_steps,
+                                      "cuda_kernels": kernels_per_step},
+                "k1_band_plan_at_8_rows": None if k1_plan is None else {
+                    "S": k1_plan.S, "G": k1_plan.G, "U": k1_plan.U, "chunk": k1_plan.chunk}})
+    print(f"[causal] bfloat16 stream, 4 s at 48 kHz, 8 frames a step ({gpu_name_and_power()}): "
+          f"{n_steps} steps, step wall time median {med:.2f} ms, p95 {p95:.2f} ms against the "
+          f"chunk's {chunk_ms:.0f} ms; launches a step {rec['launches_per_step']}; K1p plan at 8 "
+          f"rows: {rec['k1_band_plan_at_8_rows']}")
+
+    # the card against the CPU, float32, over the first second
+    cpu_model = copy.deepcopy(model).cpu()
+    short = wav[:, :fs]
+    with torch.inference_mode():
+        off_card = B.bsrnn_se_apply(model, stft, torch.from_numpy(short).to(device), fs)[0]
+        off_cpu = B.bsrnn_se_apply(cpu_model, stft, torch.from_numpy(short), fs)[0]
+    e_off = float((off_card.cpu() - off_cpu).abs().max())
+    st_card = _stream(StreamingSession(model, model.cfg, stft, fs, chunk_frames=CAUSAL_CHUNK),
+                      short)
+    st_cpu = _stream(StreamingSession(cpu_model, cpu_model.cfg, stft, fs,
+                                      chunk_frames=CAUSAL_CHUNK), short)
+    e_st = float(np.abs(st_card - st_cpu).max())
+    print(f"[causal] card vs CPU, float32, 1 s at 48 kHz: offline max|d| {e_off:.3e}, streamed "
+          f"max|d| {e_st:.3e} (tolerance {E2E_TOL})")
+    if not (e_off < E2E_TOL and e_st < E2E_TOL):
+        fail(f"the causal card and CPU outputs differ: offline {e_off:.3e}, streamed {e_st:.3e}")
+    rec.update({"card_vs_cpu_offline": e_off, "card_vs_cpu_streamed": e_st})
+    del model, cpu_model, served
+    return ckpt, wav, st16, rec
+
+
+# (fs, seconds, format) of the concurrent /enhance requests: two rates, two
+# 1 s buckets at each, WAV and FLAC
+SERVE_REQUESTS = ((48000, 1.3, "wav"), (48000, 0.7, "flac"), (48000, 1.6, "flac"),
+                  (48000, 0.9, "wav"), (16000, 0.8, "flac"), (16000, 1.4, "wav"),
+                  (16000, 0.6, "wav"), (16000, 1.7, "flac"))
+
+
+def _post(port: int, path: str, body, headers=None):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    conn.request("POST", path, body=body, headers=headers or {},
+                 encode_chunked=not isinstance(body, bytes))
+    r = conn.getresponse()
+    return r.status, dict(r.getheaders()), r.read()
+
+
+def phase_serving(workdir: Path, device, causal):
+    """The port's server (``serve.make_server`` on 127.0.0.1:0 in a thread)
+    with the full-width discriminative checkpoint of the training phase and
+    ``max_retries=0``: 8 concurrent POST /enhance (WAV and FLAC, 16 and 48
+    kHz, two buckets at each rate) each against ``make_enhance_fn`` run
+    directly on the decoded input (both peak-normalized, within BF16_TOL:
+    the same bf16 kernels on other row counts); /stats (a batch of more than
+    one request, errors 0, retries 0); /healthz (CUDA and the card); then
+    one POST /stream to a second server on the causal checkpoint, whose
+    output must equal ``phase_causal``'s bfloat16 StreamingSession output.
+    Returns the record."""
+    import glob
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+    from urgent2026_challenge_track1_tpu_torch import serve
+    from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
+    from urgent2026_challenge_track1_tpu_torch.serving import BatchingEngine, make_enhance_fn
+    from urgent2026_challenge_track1_tpu_torch.utils import audio_io, flac
+    from urgent2026_challenge_track1_tpu_torch.utils.checkpoint import load_model_for_inference
+
+    ckpts = sorted(glob.glob(str(workdir / "exp" / "chip_smoke" / "baseline" / "*" /
+                                 "checkpoints_last" / "step_*.pt")))
+    if not ckpts:
+        fail("no checkpoint of the training phase to serve")
+    name = torch.cuda.get_device_name(device)
+    kind, model, mcfg, stft = load_model_for_inference(ckpts[-1], "cuda")
+    enhance = make_enhance_fn(kind, model, mcfg, stft)
+    engine = BatchingEngine(enhance, max_batch=8, max_wait_ms=200, max_retries=0, device=device)
+    server = serve.make_server(engine, "127.0.0.1", 0, platform=str(device), device_name=name)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    port = server.server_address[1]
+    rng = np.random.default_rng(31)
+    bodies = []
+    for fs, sec, fmt in SERVE_REQUESTS:
+        n = int(sec * fs)
+        w = (0.3 * np.sin(2 * np.pi * rng.uniform(150, 400) * np.arange(n) / fs)
+             + 0.05 * rng.standard_normal(n)).astype(np.float32)
+        bodies.append(flac.encode(w, fs, bits=16) if fmt == "flac"
+                      else audio_io.write_bytes(w, fs, subtype="FLOAT"))
+    rec = {}
+    try:
+        def one(body):
+            t0 = time.perf_counter()
+            status, headers, data = _post(port, "/enhance?subtype=FLOAT", body)
+            return status, data, (time.perf_counter() - t0) * 1e3
+
+        K.reset_launch_counts()
+        with ThreadPoolExecutor(len(bodies)) as pool:
+            results = list(pool.map(one, bodies))
+        torch.cuda.synchronize()
+        routes = _routes()
+        import http.client
+
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.request("GET", "/stats")
+        stats = json.loads(conn.getresponse().read())
+        conn.request("GET", "/healthz")
+        health = json.loads(conn.getresponse().read())
+        errs = []
+        for (fs, sec, fmt), body, (status, data, ms) in zip(SERVE_REQUESTS, bodies, results):
+            if status != 200:
+                fail(f"/enhance {fs} Hz {sec} s {fmt}: status {status}: {data[:200]!r}")
+            y, yfs = audio_io.read_bytes(data)
+            x, _ = audio_io.read_bytes(body)
+            x = x.astype(np.float32)
+            bucket = -(-len(x) // fs) * fs
+            xb = np.zeros((1, bucket), np.float32)
+            xb[0, :len(x)] = x
+            ref = enhance(torch.from_numpy(xb).to(device), fs,
+                          torch.tensor([len(x)], dtype=torch.int32, device=device))
+            ref = ref.float().cpu().numpy()[0, :len(x)]
+            ref = ref / (np.abs(ref).max() or 1.0) * 0.9
+            if yfs != fs or y.shape != x.shape or not np.isfinite(y).all():
+                fail(f"/enhance {fs} Hz {sec} s {fmt}: got {y.shape} at {yfs}")
+            errs.append(float(np.abs(y - ref).max()))
+        lat = [r[2] for r in results]
+        rec = {"requests": len(results), "latency_ms_p50": float(np.median(lat)),
+               "latency_ms_max": float(np.max(lat)), "max_abs_err_vs_direct": max(errs),
+               "stats": stats, "health": health, "routes": routes}
+        print(f"[serving] ({gpu_name_and_power()}) {len(results)} concurrent /enhance: latency p50 "
+              f"{rec['latency_ms_p50']:.1f} ms, max {rec['latency_ms_max']:.1f} ms; max|server "
+              f"- direct| {max(errs):.3e} (bound {BF16_TOL}); /stats {stats}; /healthz {health}; "
+              f"routes {routes}")
+        if not max(errs) < BF16_TOL:
+            fail(f"/enhance outputs differ from make_enhance_fn by {max(errs):.3e}")
+        if stats["errors"] or stats["retries"] or stats["requests"] != len(results):
+            fail(f"/stats after the requests: {stats}")
+        if not stats["batched_requests"] > stats["batches"]:
+            fail(f"no batch of more than one request: {stats}")
+        if "cuda" not in health["platform"] or health["device"] != name:
+            fail(f"/healthz names {health}, not CUDA and {name}")
+        _check_routes("the server's /enhance", "bfloat16", routes)
+    finally:
+        server.shutdown()
+        server.server_close()
+        engine.close()
+
+    ckpt, wav, st16, _ = causal
+    kind, cmodel, ccfg, cstft = load_model_for_inference(str(ckpt), "cuda")
+    streamer = serve.make_streamer(kind, cmodel, ccfg, cstft)
+    if streamer is None:
+        fail("the causal checkpoint did not enable /stream")
+    server = serve.make_server(_NoEngine(), "127.0.0.1", 0, platform=str(device),
+                               device_name=name, streamer=streamer,
+                               stream_chunk_frames=CAUSAL_CHUNK)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    try:
+        raw = wav[0].astype("<f4").tobytes()
+        parts = (raw[i:i + 19200] for i in range(0, len(raw), 19200))
+        t0 = time.perf_counter()
+        status, headers, data = _post(server.server_address[1],
+                                      f"/stream?fs=48000&chunk_frames={CAUSAL_CHUNK}", parts,
+                                      {"Transfer-Encoding": "chunked"})
+        seconds = time.perf_counter() - t0
+    finally:
+        server.shutdown()
+        server.server_close()
+    if status != 200:
+        fail(f"/stream: status {status}: {data[:200]!r}")
+    out = np.frombuffer(data, "<f4")
+    d = float(np.abs(out - st16[0]).max()) if out.shape == st16[0].shape else float("inf")
+    print(f"[serving] POST /stream, 4 s at 48 kHz in {seconds:.2f} s: {out.shape[0]} samples, "
+          f"max|d| vs the StreamingSession {d:.3e}")
+    if not d <= 1e-6:
+        fail(f"/stream output differs from the StreamingSession by {d:.3e}")
+    rec.update({"stream_seconds": seconds, "stream_vs_session": d})
+    return rec
+
+
+class _NoEngine:
+    """The /stream server's engine: /stream never batches."""
+
+    def snapshot(self):
+        return {}
+
+    def enhance_sync(self, wav, fs, timeout=None):
+        fail("/stream reached the batching engine")
+
+
+def _carry_records(carry_rows, causal_rec):
+    """The kernels line's records of K2 with a carry: K2p (bfloat16) and the
+    float32 walk; times at the streaming step's shape (``ms_offline`` at the
+    offline causal one); launches from phase_causal's streams (the bf16
+    stream for K2p, the float32 stream for the walk)."""
+    stream, offline = carry_rows[0], carry_rows[1]
+    out = []
+    for tag, dt_name in CARRY_TAGS.items():
+        s, o = stream[tag], offline[tag]
+        persistent = dt_name == "bfloat16"
+        out.append({
+            "name": tag, "route": "cuda", "route_of_kernel": "persistent" if persistent else "walk",
+            "source": f"{PKG}/csrc/{'lstm_persistent.cu' if persistent else 'lstm_kernels.cu'}",
+            "replaces": REPLACES["lstm_scan"],
+            "launches": (causal_rec["launches"]["K2p_carry"] if persistent
+                         else causal_rec["f32_launches"]["walk_carry"]),
+            "launches_run": ("the bfloat16 StreamingSession, 4 s at 48 kHz, 8 frames a step"
+                             if persistent else "the float32 StreamingSession, same input"),
+            "launches_per_stream_step": (
+                causal_rec["launches_per_step"]["K2p_carry"] if persistent
+                else causal_rec["f32_launches"]["walk_carry"] / causal_rec["f32_launches"]["steps"]),
+            # the offline causal forward runs K2 without a carry, on the same route
+            "offline_causal_forward_launches_without_carry": causal_rec[
+                "bf16_offline_launches" if persistent else "f32_offline_launches"],
+            "max_abs_err": max(r[tag]["h"] for r in carry_rows),
+            "max_abs_err_hT": max(r[tag]["hT"] for r in carry_rows),
+            "max_abs_err_cT": max(r[tag]["cT"] for r in carry_rows),
+            "tolerance": min(r[tag]["limit"] for r in carry_rows),
+            "dropped_carry_err": min(r[tag]["dropped_carry"] for r in carry_rows),
+            "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+            "bound_by": s["bound_by"], "library_ms": None,
+            "ms_without_carry": s["ms_without_carry"],
+            "ms_offline_without_carry": o["ms_without_carry"],
+            "reference_ms": s["reference_ms"],
+            "reference": "superset: torch.nn.LSTM from (h0, c0), one direction, N = H / 2 "
+                         "(adds the W_ih products)",
+            "latency_floor_ms": s["latency_floor_ms"],
+            "ms_offline": o["ms"], "plain_ms_offline": o["plain_ms"],
+            "bound_ms_offline": o["bound_ms"], "reference_ms_offline": o["reference_ms"],
+            "latency_floor_ms_offline": o["latency_floor_ms"],
+            "chunks_of_8_bitwise_equal_one_launch": o["chunks_of_8_bitwise_equal_one_launch"],
+            "shape": {"R": stream["R"], "T": stream["T"], "H": stream["H"],
+                      "T_offline": offline["T"]},
+            "dtype": dt_name, "plan": s["plan"],
+        })
+    return out
+
+
 def _flow_step_and_enhance_times(device):
     """The flow train step (B=2, 2 s at 48 kHz, 384 x 6) in float32 and
     bfloat16: median of 3 after 1 warm-up, peak memory, launches per step;
@@ -2808,9 +3368,12 @@ def main() -> int:
     scan_routes = timed("scan_routes", phase_scan_routes, device)
     train_routes_rows = timed("train_routes", phase_train_routes, device)
     bwd_routes_rows = timed("bwd_routes", phase_bwd_routes, device)
+    carry_rows = timed("carry_routes", phase_carry_routes, device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=REPO) as tmp:
         counts, main_routes = timed("inference path", phase_main_path, Path(tmp))
         _, train_routes = timed("training path", phase_training, Path(tmp))
+        causal = timed("causal streaming path", phase_causal, Path(tmp), device)
+        serving = timed("serving path", phase_serving, Path(tmp), device, causal)
         flow_routes, flow_ckpt = timed("flow training path", phase_flow_training, Path(tmp))
         _, flow_cli_routes = timed("flow inference path", phase_flow_cli, Path(tmp), flow_ckpt)
         _, dm_times = timed("dynamic-mixing training path", phase_dm_training, Path(tmp))
@@ -2828,6 +3391,7 @@ def main() -> int:
     timed("times K1-K7 flow shapes", _flow_kernel_times, device, records, flow_routes,
           wide_errs, wide_train_errs, k1_routes, scan_routes, flow_cli_routes)
     flow_times = timed("times flow", _flow_step_and_enhance_times, device)
+    records += _carry_records(carry_rows, causal[3])
     for rec in records:  # K4p-K7p and the dW kernel in one flow train step of their dtype
         if rec["name"] in (f"{n}_persistent{sfx}" for n in TRAIN_ROUTED for sfx in ("", "_f32")):
             dt = rec["dtype"]
@@ -2838,7 +3402,9 @@ def main() -> int:
             dt = rec["dtype"]
             rec["flow_launches"] = flow_times[dt]["dw_launches_per_step"]
             rec["flow_launches_run"] = f"one {dt} flow train step (B=2, 2 s, 384 x 6)"
-    print("[times] " + json.dumps({"ab_arms": ab, "flow": flow_times, "dm": dm_times}))
+    print("[times] " + json.dumps({"ab_arms": ab, "flow": flow_times, "dm": dm_times,
+                                   "causal": causal[3], "serving": serving,
+                                   "carry_routes": carry_rows}))
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(gpu_name_and_power())
     print(json.dumps({"kernels": records}))

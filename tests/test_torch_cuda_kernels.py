@@ -12,9 +12,9 @@ import torch
 
 from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm
 from urgent2026_challenge_track1_tpu_torch.ops.persistent_checks import (
-    DW_F32_BOUND, F32_LIMIT, bwd_limit, fusedin_bilstm_stale_h, lstm_scan_stale_h,
-    lstm_scan_tf32, lstm_train_bwd_stale_dg, lstm_train_bwd_tf32, persistent_limit, tf32,
-    ulp_limit)
+    DW_F32_BOUND, F32_LIMIT, bwd_limit, carry_failures, fusedin_bilstm_stale_h,
+    lstm_scan_stale_h, lstm_scan_tf32, lstm_train_bwd_stale_dg, lstm_train_bwd_tf32,
+    persistent_limit, scan_carry_report, tf32, ulp_limit)
 
 torch.set_num_threads(1)
 R, T, N, H = 13, 11, 40, 72  # H not a multiple of 32, R not of any row tile
@@ -203,6 +203,68 @@ def test_revmasked_persistent_matches_plain_at_every_step(dev, shape):
     limit = ulp_limit(ref)
     assert _err(got, ref) < limit
     assert _err(lstm_scan_stale_h(xp, wh, True, lengths), ref) >= limit
+
+
+# --- K2 with a carry: (h0, c0) in, (hT, cT) out (the streaming step's time
+# path); the streaming step (34 rows x 8 frames at H = 392), the offline
+# causal time path (34 x 401) and the odd-H shapes
+CARRY_SHAPES = [(34, 8, 392), (34, 401, 392), (13, 9, 37), (21, 7, 46)]
+CARRY_IDS = ["stream_step", "offline_causal", "odd_h", "h_mod4"]
+
+
+def _carry_inputs(dev, shape, dtype, seed):
+    xp, wh, _ = _scan_inputs(dev, *shape, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    h0 = _t(rng, dev, dtype, shape[0], shape[2], scale=0.5)
+    c0 = _t(rng, dev, torch.float32, shape[0], shape[2], scale=0.5)
+    return xp.to(dtype), wh.to(dtype), (h0, c0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["k2p", "walk_f32"])
+@pytest.mark.parametrize("shape", CARRY_SHAPES, ids=CARRY_IDS)
+def test_scan_carry_matches_plain(dev, shape, dtype):
+    """K2p (bfloat16) and the walk (float32) started from (h0, c0): h at
+    every step, hT and cT within the limits of ``scan_carry_report``, hT the
+    kernel's own last h, and a dropped carry beyond the limit."""
+    xp, wh, carry = _carry_inputs(dev, shape, dtype, 40)
+    cuda_lstm.reset_launch_counts()
+    got, state = cuda_lstm.lstm_scan(xp, wh, False, initial_state=carry, return_state=True)
+    route = "persistent" if dtype == torch.bfloat16 else "walk"
+    assert cuda_lstm.route_counts("lstm_scan")[route] == 1
+    assert cuda_lstm.carry_counts() == {"persistent": 0, "walk": 0, route: 1}
+    assert state[0].dtype == dtype and state[1].dtype == torch.float32
+    report = scan_carry_report(got, state, xp, wh, False, carry)
+    assert not carry_failures(report), report
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["k2p", "walk_f32"])
+def test_scan_zero_carry_equals_no_carry(dev, dtype):
+    """A zero carry in is the launch without one, bitwise; the carried
+    launch's return_state alone leaves h unchanged."""
+    xp, wh, (h0, c0) = _carry_inputs(dev, (34, 33, 392), dtype, 42)
+    plain = cuda_lstm.lstm_scan(xp, wh)
+    zero = (torch.zeros_like(h0), torch.zeros_like(c0))
+    got, _ = cuda_lstm.lstm_scan(xp, wh, initial_state=zero, return_state=True)
+    assert torch.equal(got, plain)
+    assert torch.equal(cuda_lstm.lstm_scan(xp, wh, return_state=True)[0], plain)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["k2p", "walk_f32"])
+def test_scan_carry_chained_chunks_equal_one_launch(dev, dtype):
+    """8-frame chunks chained through the carry against one launch over all
+    frames (the offline causal time path): within the kernel's limit
+    against the plain version (``chip_smoke.py`` reports whether they are
+    bitwise equal)."""
+    xp, wh, _ = _carry_inputs(dev, (34, 41, 392), dtype, 43)
+    one = cuda_lstm.lstm_scan(xp, wh)
+    state, outs = None, []
+    for t0 in range(0, 41, 8):
+        y, state = cuda_lstm.lstm_scan(xp[:, t0:t0 + 8].contiguous(), wh, initial_state=state,
+                                       return_state=True)
+        outs.append(y)
+    ref = cuda_lstm.lstm_scan_plain(xp, wh)
+    limit = ulp_limit(ref) if dtype == torch.bfloat16 else TOLS[torch.float32]
+    assert _err(torch.cat(outs, dim=1), one) < limit
 
 
 def test_scan_route_follows_the_dtype(dev):

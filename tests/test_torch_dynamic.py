@@ -8,13 +8,19 @@
   pinned to one seed for both.  Deviation, named here because it is
   ROADMAP A16b's: codec augmentation is off on both sides, the port by its
   ``codecs_available()`` and the JAX package by monkeypatching its own, so
-  both drop "codec" from the pool and renormalise the weights.
+  both drop "codec" from the pool and renormalise the weights.  The JAX
+  ``SimulationConfigs`` class is pinned to the port's values for the
+  comparison: it is module-level state that an earlier test in the same
+  worker can leave changed (``tests/test_dynamic_device.py::
+  test_codec_recipes_take_host_path`` assigns ``num_augmentations`` and
+  ``prob_wind_noise`` through ``ds.cfg``, which is the class itself).
 * the spawned process-pool loader yields batches of the right shapes, and
   its workers do not import torch;
 * a train step of a 16 ch x 1 model on a Config read from
   ``conf/models/BSRNN_baseline_dm.yaml`` with ``device="cpu"``.
 """
 
+import copy
 import random
 from pathlib import Path
 
@@ -55,8 +61,25 @@ def corpus(tmp_path_factory):
     return make_corpus(tmp_path_factory.mktemp("dm"))
 
 
+def _config_fields(cls) -> dict:
+    return {k: getattr(cls, k) for k in dir(cls) if not k.startswith("_")}
+
+
+@pytest.fixture
+def pinned_jax_config(monkeypatch):
+    """The JAX SimulationConfigs class set to deep copies of the port's
+    values for one test (undone after it), so what another test left on
+    that shared class cannot reach the JAX draws; the two configs must then
+    agree field by field."""
+    port = _config_fields(tparams.SimulationConfigs)
+    assert set(port) == set(_config_fields(jparams.SimulationConfigs))
+    for name, value in port.items():
+        monkeypatch.setattr(jparams.SimulationConfigs, name, copy.deepcopy(value))
+    assert _config_fields(_JCfg) == _config_fields(_TCfg)
+
+
 @pytest.mark.parametrize("seed", [0, 3])
-def test_items_equal_jax_for_one_seed(corpus, monkeypatch, seed):
+def test_items_equal_jax_for_one_seed(corpus, monkeypatch, pinned_jax_config, seed):
     monkeypatch.setattr(jdynamic.sim_dsp, "codecs_available", lambda: False)
     fresh = np.random.default_rng
     monkeypatch.setattr(np.random, "default_rng",

@@ -37,7 +37,8 @@ def test_importing_every_module_loads_no_jax():
     loaded = json.loads(out.stdout.splitlines()[-1])
     bad = [m for m in loaded if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
-    assert {PKG + ".inference", PKG + ".train_se", PKG + ".train.trainer"} <= set(loaded)
+    assert {PKG + ".inference", PKG + ".train_se", PKG + ".train.trainer",
+            PKG + ".models.streaming_causal", PKG + ".serving", PKG + ".serve"} <= set(loaded)
 
 
 def test_flow_family_imports_no_jax():

@@ -242,3 +242,49 @@ def test_planted_stale_h_exceeds_the_limit_only_after_the_first_step():
     assert torch.equal(stale[:, 0, :H], ref[:, 0, :H])
     assert torch.equal(stale[:, T - 1, H:], ref[:, T - 1, H:])
     assert float((stale.float() - ref.float()).abs().max()) >= PC.ulp_limit(ref)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6), (torch.bfloat16, 5e-2)],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("R,T,H,sms", SLICED, ids=lambda v: str(v))
+def test_sliced_scan_carry_matches_plain(R, T, H, sms, dtype, tol):
+    """K2p's carry over the plan's schedule: step 0 reads h0 as its h_{t-1}
+    and c0 as its c, the owners hand on the last step's (h, c); against the
+    plain walk with the same carry, at every step, both directions; the
+    last h is the output's last column; a dropped carry lands far off."""
+    plan = K.plan_persistent(R, 0, H, sms, dirs=1)
+    xp, w_hh, _ = _inputs(R, T, H, dtype, R + T + 7)
+    rng = np.random.default_rng(R)
+    h0 = torch.from_numpy((0.5 * rng.standard_normal((R, H))).astype(np.float32)).to(dtype)
+    c0 = torch.from_numpy((0.5 * rng.standard_normal((R, H))).astype(np.float32))
+    w = K.pack_scan_weights(w_hh, plan)
+    for reverse in (False, True):
+        got, (hT, cT) = K.lstm_scan_sliced_plain(xp, w, plan, reverse, (h0, c0), True)
+        ref, (rh, rc) = K.lstm_scan_plain(xp, w_hh, reverse, (h0, c0), True)
+        assert hT.dtype == dtype and cT.dtype == torch.float32
+        assert torch.equal(hT, got[:, 0 if reverse else T - 1])
+        for a, b in ((got, ref), (hT, rh), (cT, rc)):
+            assert float((a.float() - b.float()).abs().max()) < tol
+        dropped, _ = PC.lstm_scan_dropped_carry(xp, w_hh, reverse, (h0, c0))
+        assert float((dropped.float() - ref.float()).abs().max()) > 0.1
+
+
+def test_sliced_scan_carry_chains_chunks_exactly():
+    """Chunks of 2 steps chained through the carry equal one walk over all
+    steps, bitwise: the schedule's arithmetic per step does not depend on
+    T, and the carry is what the next step would read."""
+    R, T, H, sms = 70, 7, 40, 24
+    plan = K.plan_persistent(R, 0, H, sms, dirs=1)
+    xp, w_hh, _ = _inputs(R, T, H, torch.bfloat16, 8)
+    w = K.pack_scan_weights(w_hh, plan)
+    one = K.lstm_scan_sliced_plain(xp, w, plan)
+    state, outs = None, []
+    for t0 in range(0, T, 2):
+        y, state = K.lstm_scan_sliced_plain(xp[:, t0:t0 + 2], w, plan, False, state, True)
+        outs.append(y)
+    assert torch.equal(torch.cat(outs, dim=1), one)
+    for fn in (K.lstm_scan, K.lstm_scan_walk, K.lstm_scan_persistent):  # the CPU: plain
+        y, (h, c) = fn(xp, w_hh, initial_state=state, return_state=True)
+        ref, (rh, rc) = K.lstm_scan_plain(xp, w_hh, False, state, True)
+        assert torch.equal(y, ref) and torch.equal(h, rh) and torch.equal(c, rc)
+    assert K.carry_counts() == {"persistent": 0, "walk": 0}

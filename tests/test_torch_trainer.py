@@ -322,8 +322,9 @@ def test_config_reads_the_baseline_yaml_and_rejects_unknown_keys(tmp_path):
     assert bundle.kind == "flowse" and flow.ema_decay == 0.999 and flow.learning_rate == 1e-4
     assert (bundle.model_cfg.bsrnn_hidden, bundle.model_cfg.num_layer) == (384, 6)
     assert (bundle.stft_cfg.n_fft, bundle.stft_cfg.hop_length) == (1536, 384)
-    with pytest.raises(NotImplementedError, match="A10"):
-        ttrainer.build_model(Config(model_configs={"causal": True}))
+    causal = ttrainer.build_model(Config(model_configs={"causal": True, "streaming_norm": True}))
+    assert causal.kind == "discriminative"
+    assert causal.model_cfg.causal and causal.model_cfg.streaming_norm
 
 
 def test_yaml_is_imported_only_to_read_a_yaml():

@@ -3,9 +3,10 @@ override (counterpart of ``config.py``).
 
 ``Config(**kwargs)``, ``cfg.read_yaml()`` and ``config_parser()``, which
 generates one ``--key value`` flag per default.  The schema keeps every key
-of the JAX package's, so its YAML files load here; the trainer raises on
-the values the port does not run yet, each with its ROADMAP item: causal
-models (A10), the on-device render (A13b), dp/mp meshes (A14).  ``device``
+of the JAX package's, so its YAML files load here (``model_configs`` may
+carry ``causal`` and ``streaming_norm``); the trainer raises on the values
+the port does not run yet, each with its ROADMAP item: the on-device render
+(A13b), dp/mp meshes (A14).  ``device``
 is ``cuda`` (the default) or ``cpu``.
 """
 

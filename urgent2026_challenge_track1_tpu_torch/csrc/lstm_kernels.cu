@@ -12,7 +12,9 @@
 //   K2 lstm_scan
 //      Replaces pallas_lstm.py:lstm_scan_pallas (body _body).  One direction
 //      over a hoisted input projection x_proj (R, T, 4H) that already holds
-//      the biases; ``reverse`` walks t = T-1 .. 0.
+//      the biases; ``reverse`` walks t = T-1 .. 0.  With a carry (the
+//      streaming step's scan, ops/lstm.py:87-111) it starts from (h0, c0)
+//      and writes the last step's (hT, cT).
 //   K3 lstm_revmasked
 //      Replaces pallas_lstm.py:_lean_forward_revmasked (body
 //      _lean_fwd_revmasked_body).  Reverse walk over x_proj (R, T, 4H) with
@@ -221,11 +223,18 @@ struct Walk {
   T* gates;        // (R, T, 4H) post-activation gates (STORE)
   T* c;            // (R, T, H) cell state (STORE)
   int reverse;
+  // K2's carry (null: start from zeros, write no final state)
+  const T* h0;      // (R, H) the h before the first step
+  const float* c0;  // (R, H) the c before the first step
+  T* hT;            // (R, H) the last step's h
+  float* cT;        // (R, H) the last step's c
 };
 
 // K2 (MASKED = false), K3 (MASKED = true, reverse = 1) and, with STORE, K4,
 // K6 and (two directions) K9: the same walk that also writes the gates and c
-// residuals.
+// residuals.  K2 with a carry: h_s and c start from h0 and c0 (h0 is already
+// in T, so its rounding is exact), and the last step's h and c go to hT and
+// cT; with the pointers null the walk is the one without a carry.
 template <typename T, int ROWS, int U, bool MASKED, bool STORE>
 __global__ void __launch_bounds__(kMaxThreads)
 recurrence_kernel(const Walk<T> d0, const Walk<T> d1, const int* __restrict__ lengths,
@@ -236,13 +245,18 @@ recurrence_kernel(const Walk<T> d0, const Walk<T> d1, const int* __restrict__ le
   const int nrows = min(ROWS, R - r0);
   const size_t G = 4 * (size_t)H;
 
-  for (int i = threadIdx.x; i < ROWS * H; i += blockDim.x) h_s[i] = 0.f;
+  for (int i = threadIdx.x; i < ROWS * H; i += blockDim.x)
+    h_s[i] = (d.h0 != nullptr && i / H < nrows) ? to_f(d.h0[(size_t)r0 * H + i]) : 0.f;
   float c[ROWS][U];
   int len[ROWS];
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
 #pragma unroll
-    for (int j = 0; j < U; ++j) c[r][j] = 0.f;
+    for (int j = 0; j < U; ++j) {
+      c[r][j] = (d.c0 != nullptr && r < nrows && unit(j) < H)
+                    ? d.c0[(size_t)(r0 + r) * H + unit(j)]
+                    : 0.f;
+    }
     len[r] = (MASKED && r < nrows) ? lengths[r0 + r] : 0;
   }
   __syncthreads();
@@ -290,6 +304,20 @@ recurrence_kernel(const Walk<T> d0, const Walk<T> d1, const int* __restrict__ le
       }
     }
     __syncthreads();  // h_s holds this step's state
+  }
+  if (d.hT != nullptr) {  // each thread hands on the cells it owns
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      if (r >= nrows) continue;
+#pragma unroll
+      for (int j = 0; j < U; ++j) {
+        const int u = unit(j);
+        if (u >= H) continue;
+        const size_t o = (size_t)(r0 + r) * H + u;
+        d.hT[o] = from_f<T>(h_s[r * H + u]);
+        d.cT[o] = c[r][j];
+      }
+    }
   }
 }
 
@@ -730,19 +758,31 @@ Back<T> back(const void* gates, const void* c, const void* h, const void* dout,
                  static_cast<float*>(dw), reverse};
 }
 
-// One-direction walk (K2, K3, K4, K6).
+template <typename T>
+Walk<T> with_carry(Walk<T> d, const void* h0, const void* c0, void* hT, void* cT) {
+  d.h0 = static_cast<const T*>(h0);
+  d.c0 = static_cast<const float*>(c0);
+  d.hT = static_cast<T*>(hT);
+  d.cT = static_cast<float*>(cT);
+  return d;
+}
+
+// One-direction walk (K2, K3, K4, K6); h0 .. cT: K2's carry (null: none).
 template <bool MASKED, bool STORE>
 int one_walk(const void* xp, const void* whh_t, const int* lengths, void* out, void* gates,
              void* c, int R, int Tn, int H, int reverse, int dtype, int rows,
-             void* stream) {
+             void* stream, const void* h0 = nullptr, const void* c0 = nullptr,
+             void* hT = nullptr, void* cT = nullptr) {
   if (bad_shape(R, Tn, H, rows)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    const Walk<__nv_bfloat16> d = walk<__nv_bfloat16>(xp, whh_t, out, gates, c, reverse);
+    const Walk<__nv_bfloat16> d =
+        with_carry(walk<__nv_bfloat16>(xp, whh_t, out, gates, c, reverse), h0, c0, hT, cT);
     return (int)dispatch(RecurrenceLaunch<__nv_bfloat16, MASKED, STORE>{
         d, d, 1, lengths, R, Tn, H, st}, rows, H);
   }
-  const Walk<float> d = walk<float>(xp, whh_t, out, gates, c, reverse);
+  const Walk<float> d = with_carry(walk<float>(xp, whh_t, out, gates, c, reverse), h0, c0, hT,
+                                   cT);
   return (int)dispatch(RecurrenceLaunch<float, MASKED, STORE>{d, d, 1, lengths, R, Tn, H, st},
                        rows, H);
 }
@@ -777,10 +817,16 @@ int lstm_fusedin_bilstm(const void* x, const void* w_ih_t, const void* w_hh_t,
                         dtype, rows, stream);
 }
 
-int lstm_scan(const void* xp, const void* whh_t, void* out, int R, int Tn, int H,
-              int reverse, int dtype, int rows, void* stream) {
+// K2; h0 (R, H) in the input's type and c0 (R, H) float32, both or neither,
+// start the walk from a carried state; hT and cT (the same shapes), both or
+// neither, receive the last step's.
+int lstm_scan(const void* xp, const void* whh_t, void* out, const void* h0, const void* c0,
+              void* hT, void* cT, int R, int Tn, int H, int reverse, int dtype, int rows,
+              void* stream) {
+  if ((h0 == nullptr) != (c0 == nullptr) || (hT == nullptr) != (cT == nullptr))
+    return (int)cudaErrorInvalidValue;
   return one_walk<false, false>(xp, whh_t, nullptr, out, nullptr, nullptr, R, Tn, H,
-                                reverse, dtype, rows, stream);
+                                reverse, dtype, rows, stream, h0, c0, hT, cT);
 }
 
 int lstm_revmasked(const void* xp, const void* whh_t, const int* lengths, void* out,

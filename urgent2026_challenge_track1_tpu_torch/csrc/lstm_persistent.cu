@@ -717,6 +717,16 @@ bool bad_plan(const Plan& p, bool scan) {
 // latency: T dependent steps, each at least one barrier round trip through
 // L2.
 //
+// K2p with a carry (the streaming step's time path, ops/lstm.py:87-111's
+// _scan_dir with initial_state and return_state): step 0 stages h0 (R, H),
+// which is an input and so needs no wait, into the A buffer and multiplies
+// it as a later step multiplies the h it reads back from out; c starts
+// from c0 wherever the plan keeps it (shared memory or the global c
+// buffer); the CTA that owns each cell writes the last step's h (the bf16
+// it stores to out) to hT and its c to cT.  The plan depends on R and H
+// only, so chunks of a stream run the arithmetic of one offline walk.  With
+// the four pointers null the walk is the one without a carry.
+//
 // K4p / K6p (STORE): each cell also writes its post-activation gates i, f, g,
 // o to gates (R, T, 4H) at q H + u and its c to c_res (R, T, H), bf16, the
 // layout of _train_fwd_body (pallas_lstm.py:359-381).  K6p stores the
@@ -751,6 +761,11 @@ struct ScanArgs {
   Plan p;              // N = 0, kx = 0
   T* gates;            // (R, T, 4H) post-activation gates, K4p/K6p only
   T* c_res;            // (R, T, H) the unmasked c, K4p/K6p only
+  // K2p's carry (null: start from zeros, write no final state)
+  const T* h0;         // (R, H) step 0's h_{t-1}
+  const float* c0;     // (R, H) step 0's c
+  T* hT;               // (R, H) the last step's h
+  float* cT;           // (R, H) the last step's c
 };
 
 // K4p/K6p: the residuals of a thread's cells of one chunk (i, f, g, o, c per
@@ -864,7 +879,9 @@ __global__ void __launch_bounds__(kThreads, 1) scan_persistent_kernel(const Scan
   for (int i = threadIdx.x; i < r_count * U; i += kThreads) {
     const int row = i / U;
     const int ul = i - row * U;
-    if (ul < nu) cb[row * cld + ul] = 0.f;
+    if (ul < nu)
+      cb[row * cld + ul] =
+          a.c0 != nullptr ? __ldg(a.c0 + (size_t)(r_begin + row) * H + u0 + ul) : 0.f;
   }
   // the projection's segments of the first (step, chunk)
   auto x_src = [&](int step, int r0) {
@@ -919,6 +936,12 @@ __global__ void __launch_bounds__(kThreads, 1) scan_persistent_kernel(const Scan
                     RowMask{MASKED ? len + r0 : nullptr, tp});
         __syncthreads();
         mma_segment(acc, a_s, lda, w_s, ldw, p.kh, mt, nb, ng, kg);
+      } else if (a.h0 != nullptr) {
+        // K2p's carry: step 0's h_{t-1} is an input, staged and multiplied
+        // as a published step would be, so no wait
+        stage<true>(a_s, lda, a.h0 + rg * H, (size_t)H, rows, H, p.kh);
+        __syncthreads();
+        mma_segment(acc, a_s, lda, w_s, ldw, p.kh, mt, nb, ng, kg);
       }
       asm volatile("cp.async.wait_all;\n" ::: "memory");  // the prefetch has landed
       reduce_blocks(acc, acc_s, ldc, mt, nb, ng, kg);
@@ -938,7 +961,12 @@ __global__ void __launch_bounds__(kThreads, 1) scan_persistent_kernel(const Scan
         const float c = fg * c_reg[j] + ig * gg;
         cb[(size_t)(r0 + row) * cld + ul] =
             (MASKED && t >= __ldg(len + r0 + row)) ? 0.f : c;
-        a.out[((rg + row) * p.Tn + t) * H + u0 + ul] = from_f32<T>(og * tanhf(c));
+        const T hv = from_f32<T>(og * tanhf(c));
+        a.out[((rg + row) * p.Tn + t) * H + u0 + ul] = hv;
+        if (a.hT != nullptr && step == p.Tn - 1) {  // the owner hands on its cells
+          a.hT[(rg + row) * H + u0 + ul] = hv;
+          a.cT[(rg + row) * H + u0 + ul] = c;
+        }
         if constexpr (STORE) {  // the unmasked c, not cb's
           res[j][0] = from_f32<T>(ig);
           res[j][1] = from_f32<T>(fg);
@@ -1830,13 +1858,16 @@ int lstm_fusedin_persistent(const void* x, const void* w, const void* bias, void
 // reverse only): xp (R, T, 4H) bf16, the packed W_hh^T (S, Kh, 4U) bf16 ->
 // out (R, T, H) bf16; K4p / K6p the same with gates (R, T, 4H) and c_res
 // (R, T, H) (both null for K2p / K3p), and, elem = 4, every one of these
-// f32 (K4p / K6p only); c_global (R, H) f32 scratch unless c_in_smem;
-// counters (G) int32 zeros.  Returns the cudaError_t of the cooperative
-// launch, as lstm_fusedin_persistent.
+// f32 (K4p / K6p only); K2p's carry: h0 (R, H) bf16 and c0 (R, H) f32, both
+// or neither, the state before step 0, and hT, cT (the same), both or
+// neither, the last step's (null for K3p-K6p); c_global (R, H) f32 scratch
+// unless c_in_smem; counters (G) int32 zeros.  Returns the cudaError_t of
+// the cooperative launch, as lstm_fusedin_persistent.
 int lstm_scan_persistent(const void* xp, const void* w, const void* lengths, void* out,
-                         void* gates, void* c_res, void* c_global, void* counters, int R,
-                         int Tn, int H, int reverse, int S, int G, int U, int rows, int chunk,
-                         int c_in_smem, int elem, void* stream) {
+                         void* gates, void* c_res, const void* h0, const void* c0, void* hT,
+                         void* cT, void* c_global, void* counters, int R, int Tn, int H,
+                         int reverse, int S, int G, int U, int rows, int chunk, int c_in_smem,
+                         int elem, void* stream) {
   Plan p{};
   p.R = R;
   p.Tn = Tn;
@@ -1852,8 +1883,11 @@ int lstm_scan_persistent(const void* xp, const void* w, const void* lengths, voi
   p.kh = (H + 15) / 16 * 16;
   p.elem = elem;
   const bool masked = lengths != nullptr, store = gates != nullptr;
+  const bool carry = h0 != nullptr || hT != nullptr;
   const int col_blocks = (U + 7) / 8;
-  if ((elem != 2 && elem != 4) || bad_plan(p, true) || (!c_in_smem && c_global == nullptr) ||
+  if ((h0 == nullptr) != (c0 == nullptr) || (hT == nullptr) != (cT == nullptr) ||
+      (carry && (masked || store)) ||
+      (elem != 2 && elem != 4) || bad_plan(p, true) || (!c_in_smem && c_global == nullptr) ||
       (masked && !reverse) || store != (c_res != nullptr) || (elem == 4 && !store) ||
       (elem == 4 && (chunk / 16 * col_blocks > kAccBlocksTf32 ||
                      chunk * U > kThreads * kCellSlotsF32)))
@@ -1864,11 +1898,14 @@ int lstm_scan_persistent(const void* xp, const void* w, const void* lengths, voi
   ScanArgs<bf16> ab{static_cast<const bf16*>(xp), static_cast<const bf16*>(w),
                     static_cast<const int*>(lengths), static_cast<bf16*>(out),
                     static_cast<float*>(c_global), static_cast<int*>(counters), p,
-                    static_cast<bf16*>(gates), static_cast<bf16*>(c_res)};
+                    static_cast<bf16*>(gates), static_cast<bf16*>(c_res),
+                    static_cast<const bf16*>(h0), static_cast<const float*>(c0),
+                    static_cast<bf16*>(hT), static_cast<float*>(cT)};
   ScanArgs<float> af{static_cast<const float*>(xp), static_cast<const float*>(w),
                      static_cast<const int*>(lengths), static_cast<float*>(out),
                      static_cast<float*>(c_global), static_cast<int*>(counters), p,
-                     static_cast<float*>(gates), static_cast<float*>(c_res)};
+                     static_cast<float*>(gates), static_cast<float*>(c_res), nullptr, nullptr,
+                     nullptr, nullptr};
   if (elem == 4) {
     const void* kernels[3] = {
         reinterpret_cast<const void*>(scan_persistent_kernel<float, false, false, true>),

@@ -20,8 +20,14 @@ With ``frames`` the forward is length-exact: masked norm statistics and the
 length-masked time recurrence make outputs at valid frames independent of
 the padding.  With ``cfg.with_condition`` each dual-path layer adds the
 Gaussian-Fourier embedding of the flow time t after its time-path norm
-(the conditional network of ``models/bsrnn_flowse.py``).  The causal and
-cumulative-norm variants of the JAX model are not part of this module yet.
+(the conditional network of ``models/bsrnn_flowse.py``).
+
+``cfg.causal`` makes the time recurrence one forward LSTM (``fc_time`` in
+H, no ``_reverse`` weights); ``cfg.streaming_norm`` makes every norm that
+spans time cumulative (``ops/norms.cumulative_group_norm``).  With both,
+``bsrnn_apply(..., states=...)`` processes a chunk of an unbounded stream
+and returns the carried state beside the output
+(``models/streaming_causal.py``); chained chunks equal one offline call.
 """
 
 from __future__ import annotations
@@ -37,7 +43,8 @@ from torch.utils.checkpoint import checkpoint
 
 from urgent2026_challenge_track1_tpu_torch.dsp import stft as dsp
 from urgent2026_challenge_track1_tpu_torch.ops import lstm as lstm_ops
-from urgent2026_challenge_track1_tpu_torch.ops.norms import group_norm, masked_group_norm
+from urgent2026_challenge_track1_tpu_torch.ops.norms import (
+    cumulative_group_norm, group_norm, masked_group_norm)
 
 __all__ = [
     "BSRNNConfig",
@@ -49,6 +56,7 @@ __all__ = [
     "MaskDecoderHead",
     "init_bsrnn",
     "TRAIN_LAUNCHES_PER_LAYER",
+    "CAUSAL_TRAIN_LAUNCHES_PER_LAYER",
     "run_layers",
     "bsrnn_apply",
     "bsrnn_se_apply",
@@ -99,6 +107,9 @@ class BSRNNConfig:
     #                               layer in the backward pass
     with_condition: bool = False  # flow matching: per-layer t-embedding
     sub_channel: int = 16         # GradDecoder intermediate channels (flow)
+    causal: bool = False          # a forward-only time LSTM (else bidirectional)
+    streaming_norm: bool = False  # cumulative (causal) norm statistics over
+    #                               time: with causal, a streamable model
 
     @property
     def subbands(self) -> tuple[int, ...]:
@@ -195,26 +206,39 @@ class BandSplit(nn.Module):
         self.b = _zeros(K, C)
 
     def forward(self, spec: torch.Tensor, n_bands: int,
-                fm: Optional[torch.Tensor] = None) -> torch.Tensor:
+                fm: Optional[torch.Tensor] = None, nstate=None,
+                return_state: bool = False):
+        """With ``cfg.streaming_norm`` the per-band norm is cumulative over
+        frames; ``nstate`` / ``return_state`` carry its sums across chunks
+        and return (z, new_state)."""
         B, T, F = spec.shape
         cfg = self.cfg
         gather, chan_mask, _ = _maps_on(cfg.subbands, F, n_bands, spec.device)
         x2 = torch.view_as_real(spec).reshape(B, T, 2 * F)
         x2 = nn.functional.pad(x2, (0, 1))  # the zero slot
         blocks = x2[..., gather]  # (B, T, K, W)
-        mask = chan_mask[None, None]
-        if fm is not None:
-            mask = mask * _frame_mask4(fm)
-        h = masked_group_norm(blocks, self.norm_scale[:n_bands][None, None],
-                              self.norm_bias[:n_bands][None, None], mask,
-                              axes=(1, 3), eps=cfg.norm_eps)
+        scale = self.norm_scale[:n_bands][None, None]
+        bias = self.norm_bias[:n_bands][None, None]
+        ns = None
+        if cfg.streaming_norm:
+            h = cumulative_group_norm(blocks, scale, bias, axes=(3,), eps=cfg.norm_eps,
+                                      mask=chan_mask[None, None], state=nstate,
+                                      return_state=return_state)
+            if nstate is not None or return_state:
+                h, ns = h
+        else:
+            mask = chan_mask[None, None]
+            if fm is not None:
+                mask = mask * _frame_mask4(fm)
+            h = masked_group_norm(blocks, scale, bias, mask, axes=(1, 3), eps=cfg.norm_eps)
         z = _einsum("btkw,kwc->btkc", h, self.w[:n_bands], cfg.dtype)
-        return z + self.b[:n_bands][None, None]
+        z = z + self.b[:n_bands][None, None]
+        return (z, ns) if nstate is not None or return_state else z
 
 
-def _lstm_params(input_size: int, hidden: int) -> nn.ParameterDict:
+def _lstm_params(input_size: int, hidden: int, bidirectional: bool = True) -> nn.ParameterDict:
     p = {}
-    for sfx in ("", "_reverse"):
+    for sfx in ("", "_reverse") if bidirectional else ("",):
         p[f"w_ih{sfx}"] = _zeros(4 * hidden, input_size)
         p[f"w_hh{sfx}"] = _zeros(4 * hidden, hidden)
         p[f"b_ih{sfx}"] = _zeros(4 * hidden)
@@ -223,9 +247,10 @@ def _lstm_params(input_size: int, hidden: int) -> nn.ParameterDict:
 
 
 class DualPathLayer(nn.Module):
-    """One dual-path block on (B, T, K, N): a BLSTM over time (rows B*K),
-    then a BLSTM over bands (rows B*T), each with GroupNorm, a linear
-    projection and a residual add."""
+    """One dual-path block on (B, T, K, N): a BLSTM over time (rows B*K; a
+    forward LSTM when ``cfg.causal``), then a BLSTM over bands (rows B*T),
+    each with GroupNorm (cumulative over time with ``cfg.streaming_norm``),
+    a linear projection and a residual add."""
 
     def __init__(self, cfg: BSRNNConfig):
         super().__init__()
@@ -234,8 +259,8 @@ class DualPathLayer(nn.Module):
         hdim = 2 * N
         self.norm_time_scale = nn.Parameter(torch.ones(N))
         self.norm_time_bias = _zeros(N)
-        self.rnn_time = _lstm_params(N, hdim)
-        self.fc_time_w = _zeros(2 * hdim, N)
+        self.rnn_time = _lstm_params(N, hdim, bidirectional=not cfg.causal)
+        self.fc_time_w = _zeros(hdim if cfg.causal else 2 * hdim, N)
         self.fc_time_b = _zeros(N)
         self.norm_freq_scale = nn.Parameter(torch.ones(N))
         self.norm_freq_bias = _zeros(N)
@@ -248,36 +273,60 @@ class DualPathLayer(nn.Module):
             # in the clip and the grad norm but never applies (optax's mask)
             self.t_proj_w = _zeros(N // 2)
 
-    def _norm(self, z, scale, bias, fm):
+    def _norm(self, z, scale, bias, fm, nstate=None, want_state=False):
+        """The GroupNorm of either path: cumulative over time with
+        ``cfg.streaming_norm`` (then ``(y, new_state)`` when ``want_state``),
+        else over (T, K, N), masked by ``fm``."""
+        eps = self.cfg.norm_eps
+        if self.cfg.streaming_norm:
+            return cumulative_group_norm(z, scale, bias, axes=(2, 3), eps=eps, state=nstate,
+                                         return_state=want_state)
         if fm is None:
-            return group_norm(z, scale, bias, axes=(1, 2, 3), eps=self.cfg.norm_eps)
-        return masked_group_norm(z, scale, bias, _frame_mask4(fm), axes=(1, 2, 3),
-                                 eps=self.cfg.norm_eps)
+            return group_norm(z, scale, bias, axes=(1, 2, 3), eps=eps)
+        return masked_group_norm(z, scale, bias, _frame_mask4(fm), axes=(1, 2, 3), eps=eps)
 
     def forward(self, z: torch.Tensor, frames: Optional[torch.Tensor] = None,
                 fm: Optional[torch.Tensor] = None,
-                t: Optional[torch.Tensor] = None) -> torch.Tensor:
+                t: Optional[torch.Tensor] = None, lstate=None):
+        """``lstate``: one layer's streaming carry (``norm_time``,
+        ``rnn_time`` (h, c), ``norm_freq``; needs ``cfg.causal`` and
+        ``cfg.streaming_norm``); the layer then returns (z, new_lstate)."""
         B, T, K, N = z.shape
-        dt = self.cfg.dtype
+        cfg = self.cfg
+        dt = cfg.dtype
+        want = lstate is not None
+        new_state = {}
         # --- time path (rows b-major: row = b*K + k) ---
-        out = self._norm(z, self.norm_time_scale, self.norm_time_bias, fm)
+        out = self._norm(z, self.norm_time_scale, self.norm_time_bias, fm,
+                         lstate["norm_time"] if want else None, want)
+        if want:
+            out, new_state["norm_time"] = out
         if t is not None:
             # random Fourier embedding of t (B,) -> (B, N), over (T, K)
             proj = t[:, None] * self.t_proj_w[None, :] * (2.0 * np.pi)
             out = out + torch.cat([torch.sin(proj), torch.cos(proj)], dim=-1)[:, None, None, :]
         seq = out.permute(0, 2, 1, 3).reshape(B * K, T, N).to(dt)
-        if frames is None:
+        if cfg.causal and want:
+            h, new_state["rnn_time"] = lstm_ops.lstm(
+                self.rnn_time, seq, initial_state=lstate["rnn_time"], return_state=True)
+        elif cfg.causal:
+            h = lstm_ops.lstm(self.rnn_time, seq)
+        elif frames is None:
             h = lstm_ops.bilstm(self.rnn_time, seq)
         else:
             h = lstm_ops.bilstm_masked(self.rnn_time, seq, frames.repeat_interleave(K))
         h = _mm(h, self.fc_time_w, self.fc_time_b, dt)
         z = z + h.reshape(B, K, T, N).permute(0, 2, 1, 3)
         # --- band path (padded frames are independent rows here) ---
-        out = self._norm(z, self.norm_freq_scale, self.norm_freq_bias, fm)
+        out = self._norm(z, self.norm_freq_scale, self.norm_freq_bias, fm,
+                         lstate["norm_freq"] if want else None, want)
+        if want:
+            out, new_state["norm_freq"] = out
         seq = out.reshape(B * T, K, N).to(dt)
         h = lstm_ops.bilstm(self.rnn_freq, seq)
         h = _mm(h, self.fc_freq_w, self.fc_freq_b, dt)
-        return z + h.reshape(B, T, K, N)
+        z = z + h.reshape(B, T, K, N)
+        return (z, new_state) if want else z
 
 
 class MaskDecoderHead(nn.Module):
@@ -299,20 +348,31 @@ class MaskDecoderHead(nn.Module):
         self.bg = _zeros(K, W)
 
     def forward(self, z: torch.Tensor, n_bands: int, n_bins: int,
-                fm: Optional[torch.Tensor] = None) -> torch.Tensor:
+                fm: Optional[torch.Tensor] = None, nstate=None, return_state: bool = False):
+        """With ``cfg.streaming_norm`` the per-band norm is cumulative over
+        frames; ``nstate`` / ``return_state`` carry it and return
+        (out, new_state)."""
         B, T, K, N = z.shape
         cfg = self.cfg
         _, chan_mask, flat_valid = _maps_on(cfg.subbands, n_bins, n_bands, z.device)
-        if fm is None:
-            mean = z.mean(dim=(1, 3), keepdim=True)
-            var = (z - mean).square().mean(dim=(1, 3), keepdim=True)
+        scale = self.norm_scale[:n_bands][None, None]
+        bias = self.norm_bias[:n_bands][None, None]
+        ns = None
+        if cfg.streaming_norm:
+            h = cumulative_group_norm(z, scale, bias, axes=(3,), eps=cfg.norm_eps,
+                                      state=nstate, return_state=return_state)
+            if nstate is not None or return_state:
+                h, ns = h
         else:
-            m4 = _frame_mask4(fm)
-            denom = m4.sum(dim=1, keepdim=True) * N
-            mean = (z * m4).sum(dim=(1, 3), keepdim=True) / denom
-            var = ((z - mean).square() * m4).sum(dim=(1, 3), keepdim=True) / denom
-        h = (z - mean) / torch.sqrt(var + cfg.norm_eps)
-        h = h * self.norm_scale[:n_bands][None, None] + self.norm_bias[:n_bands][None, None]
+            if fm is None:
+                mean = z.mean(dim=(1, 3), keepdim=True)
+                var = (z - mean).square().mean(dim=(1, 3), keepdim=True)
+            else:
+                m4 = _frame_mask4(fm)
+                denom = m4.sum(dim=1, keepdim=True) * N
+                mean = (z * m4).sum(dim=(1, 3), keepdim=True) / denom
+                var = ((z - mean).square() * m4).sum(dim=(1, 3), keepdim=True) / denom
+            h = (z - mean) / torch.sqrt(var + cfg.norm_eps) * scale + bias
         dt = cfg.dtype
         h = torch.tanh(_einsum("btkc,kcd->btkd", h, self.w1[:n_bands], dt)
                        + self.b1[:n_bands][None, None])
@@ -321,7 +381,8 @@ class MaskDecoderHead(nn.Module):
         out = val * torch.sigmoid(gate) * chan_mask[None, None]
         cplx = out.reshape(B, T, K, cfg.max_sub, 2)
         cplx = torch.complex(cplx[..., 0], cplx[..., 1]).reshape(B, T, K * cfg.max_sub)
-        return cplx[..., flat_valid]
+        cplx = cplx[..., flat_valid]
+        return (cplx, ns) if nstate is not None or return_state else cplx
 
 
 # Kernel launches of one training step per dual-path layer with remat (the
@@ -337,13 +398,37 @@ TRAIN_LAUNCHES_PER_LAYER = {
               "lstm_revmasked_bwd": 1, "lstm_train_fwd2": 2, "lstm_train_bwd2": 1},
 }
 TRAIN_LAUNCHES_PER_LAYER["both"] = TRAIN_LAUNCHES_PER_LAYER["stream"]
+# The same for a causal model (``cfg.causal``) with the toggles off: its time
+# path is one ``LSTMDirTrain`` direction (K4 twice with remat, K5 once)
+CAUSAL_TRAIN_LAUNCHES_PER_LAYER = {"lstm_train_fwd": 6, "lstm_train_bwd": 3}
+
+
+def _layer_state(states, i: int):
+    """Layer i's carry out of the layer-stacked streaming state."""
+    return {"norm_time": tuple(s[i] for s in states["norm_time"]),
+            "rnn_time": tuple(s[i] for s in states["rnn_time"]),
+            "norm_freq": tuple(s[i] for s in states["norm_freq"])}
+
+
+def _stack_states(per_layer: list) -> dict:
+    return {name: tuple(torch.stack([ls[name][j] for ls in per_layer])
+                        for j in range(len(per_layer[0][name])))
+            for name in ("norm_time", "rnn_time", "norm_freq")}
 
 
 def run_layers(layers: nn.ModuleList, z: torch.Tensor, cfg: BSRNNConfig,
                frames: Optional[torch.Tensor] = None, fm: Optional[torch.Tensor] = None,
-               t: Optional[torch.Tensor] = None) -> torch.Tensor:
+               t: Optional[torch.Tensor] = None, states=None):
     """The dual-path stack on (B, T, K, N); ``t`` (B,) is the flow time of
-    the conditional network."""
+    the conditional network.  ``states``: the layer-stacked streaming carry
+    (``models/streaming_causal.init_model_states``'s ``"layers"``); the call
+    then returns (z, new_states)."""
+    if states is not None:
+        new = []
+        for i, layer in enumerate(layers):
+            z, ls = layer(z, frames, fm, t, _layer_state(states, i))
+            new.append(ls)
+        return z, _stack_states(new)
     remat = cfg.remat and torch.is_grad_enabled()
     for layer in layers:
         if remat:
@@ -361,7 +446,9 @@ def run_layers(layers: nn.ModuleList, z: torch.Tensor, cfg: BSRNNConfig,
 
 class BSRNN(nn.Module):
     """Discriminative BSRNN; ``forward(spec, fs, frames=None)`` returns
-    mask * spec + residual for a (B, T, F) complex spectrum at rate fs."""
+    mask * spec + residual for a (B, T, F) complex spectrum at rate fs;
+    ``forward(spec, fs, states=...)`` processes the next chunk of a stream
+    and returns (out, new_states)."""
 
     def __init__(self, cfg: BSRNNConfig):
         super().__init__()
@@ -373,10 +460,18 @@ class BSRNN(nn.Module):
         )
 
     def forward(self, spec: torch.Tensor, fs: int,
-                frames: Optional[torch.Tensor] = None) -> torch.Tensor:
+                frames: Optional[torch.Tensor] = None, states=None):
         B, T, F = spec.shape
         cfg = self.cfg
         K = band_count(cfg.input_dim, cfg.target_fs, fs, F)
+        if states is not None:
+            if not (cfg.causal and cfg.streaming_norm):
+                raise ValueError("streaming state requires causal=True and streaming_norm=True")
+            z, bs = self.band_split(spec, K, nstate=states["band_split"])
+            z, ls = run_layers(self.layers, z, cfg, states=states["layers"])
+            m, ms = self.mask_decoder["mask"](z, K, F, nstate=states["mask"])
+            r, rs = self.mask_decoder["residual"](z, K, F, nstate=states["residual"])
+            return m * spec + r, {"band_split": bs, "layers": ls, "mask": ms, "residual": rs}
         fm = None if frames is None else dsp.frames_mask(frames, T)
         z = run_layers(self.layers, self.band_split(spec, K, fm), cfg, frames, fm)
         m = self.mask_decoder["mask"](z, K, F, fm)
@@ -407,8 +502,9 @@ def init_layers(layers: nn.ModuleList, u, gen: torch.Generator) -> None:
         for rnn in (layer.rnn_time, layer.rnn_freq):
             for p in rnn.values():
                 p.copy_(u(p.shape, hdim))
-        layer.fc_time_w.copy_(u(layer.fc_time_w.shape, 2 * hdim))
-        layer.fc_time_b.copy_(u(layer.fc_time_b.shape, 2 * hdim))
+        t_out = layer.fc_time_w.shape[0]  # H causal, 2H bidirectional
+        layer.fc_time_w.copy_(u(layer.fc_time_w.shape, t_out))
+        layer.fc_time_b.copy_(u(layer.fc_time_b.shape, t_out))
         layer.fc_freq_w.copy_(u(layer.fc_freq_w.shape, 4 * C))
         layer.fc_freq_b.copy_(u(layer.fc_freq_b.shape, 4 * C))
         if layer.cfg.with_condition:
@@ -450,10 +546,13 @@ def init_bsrnn(cfg: BSRNNConfig, seed: int = 0, device="cpu") -> BSRNN:
 
 
 def bsrnn_apply(model: BSRNN, spec: torch.Tensor, fs: int,
-                frames: Optional[torch.Tensor] = None) -> torch.Tensor:
+                frames: Optional[torch.Tensor] = None, states=None):
     """Core discriminative BSRNN on a (B, T, F) complex spectrum; ``frames``
-    (B,) valid-frame counts select the length-exact path."""
-    return model(spec, fs, frames)
+    (B,) valid-frame counts select the length-exact path.  ``states`` (a
+    causal ``streaming_norm`` model's carry, ``models/streaming_causal``)
+    treats ``spec`` as the next chunk of a stream and returns
+    (enhanced_spec, new_states)."""
+    return model(spec, fs, frames, states)
 
 
 def bsrnn_se_apply(model: BSRNN, stft_cfg: dsp.STFTConfig, noisy: torch.Tensor,

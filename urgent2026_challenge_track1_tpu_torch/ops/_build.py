@@ -38,7 +38,7 @@ _I = ctypes.c_int
 # an int (a cudaError_t) unless _RESTYPES says otherwise
 _SIGNATURES = {
     "lstm_fusedin_bilstm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "lstm_scan": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "lstm_scan": (_P,) * 7 + (_I,) * 6 + (_P,),
     "lstm_revmasked": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "lstm_train_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "lstm_revmasked_train_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
@@ -48,7 +48,7 @@ _SIGNATURES = {
     "lstm_train_fwd2": (_P,) * 10 + (_I,) * 5 + (_P,),
     "lstm_train_bwd2": (_P,) * 14 + (_I,) * 5 + (_P,),
     "lstm_fusedin_persistent": (_P,) * 6 + (_I,) * 10 + (_P,),
-    "lstm_scan_persistent": (_P,) * 8 + (_I,) * 11 + (_P,),
+    "lstm_scan_persistent": (_P,) * 12 + (_I,) * 11 + (_P,),
     "lstm_persistent_smem": (_I,) * 7,
     "lstm_persistent_phase_cycles": (_P, _I),
     "lstm_bwd_persistent": (_P,) * 8 + (_I,) * 12 + (_P,),

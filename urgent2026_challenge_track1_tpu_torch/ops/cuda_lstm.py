@@ -16,6 +16,8 @@ bfloat16, h and c always float32):
                   for bfloat16 where ``plan_persistent`` finds a plan, else
                   the walk (``fusedin_bilstm_walk``, csrc/lstm_kernels.cu)
   lstm_scan       x_proj (R, T, 4H), w_hh_t (H, 4H)   -> (R, T, H)
+                  [initial_state (h0 (R, H), c0 (R, H) f32), return_state
+                  -> (R, T, H), (hT, cT): the carry of a chunked stream]
   lstm_revmasked  x_proj (R, T, 4H), w_hh_t (H, 4H),
                   lengths (R,) int32                   -> (R, T, H)
                   each on one of two routes, fixed before launch by
@@ -54,7 +56,8 @@ bfloat16, h and c always float32):
 
 Index 0 of the stacked K1 weights is the forward direction, 1 the backward.
 ``route_counts(name)`` reads the launches per route ("persistent", "walk") of
-K1-K7; ``reset_launch_counts`` zeroes them with the launch counts.
+K1-K7, ``carry_counts()`` those of K2 with a carry; ``reset_launch_counts``
+zeroes them with the launch counts.
 ``LSTMDirTrain`` (K4/K5) and ``LSTMRevMaskedTrain`` (K6/K7) are the autograd
 Functions of the training path; ``lstm_dir`` and ``lstm_dir_revmasked``
 route to them when autograd records and to the lean K2/K3 otherwise (under
@@ -141,6 +144,7 @@ __all__ = [
     "reset_launch_counts",
     "launch_counts",
     "route_counts",
+    "carry_counts",
 ]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -172,17 +176,23 @@ def _cell(gates: torch.Tensor, c: torch.Tensor):
     return o * torch.tanh(c), c, torch.cat([i, f, g, o], dim=-1)
 
 
-def _walk_plain(x_proj, w_hh_t, reverse, lengths=None, bias=None, dtype=None):
+def _walk_plain(x_proj, w_hh_t, reverse, lengths=None, bias=None, dtype=None,
+                initial_state=None, return_state=False):
     """Shared loop of K2/K3, K4/K6 and K8: gates = x_proj_t + round(h) W_hh^T
     (+ bias) in f32; returns h, the post-activation gates and c, stored in
-    ``dtype`` (x_proj's by default; h and c unmasked).  Differentiable by
-    autograd."""
+    ``dtype`` (x_proj's by default; h and c unmasked).  ``initial_state``
+    (h0 (R, H) in ``dtype``, c0 (R, H) float32) starts the walk from a
+    carried state instead of zeros; ``return_state`` appends the last
+    step's (h in ``dtype``, c float32).  Differentiable by autograd."""
     R, T, G = x_proj.shape
     H = G // 4
     dtype = dtype or x_proj.dtype
     w = w_hh_t.float()
-    h = x_proj.new_zeros((R, H), dtype=torch.float32)
-    c = torch.zeros_like(h)
+    if initial_state is None:
+        h = x_proj.new_zeros((R, H), dtype=torch.float32)
+        c = torch.zeros_like(h)
+    else:
+        h, c = initial_state[0].float(), initial_state[1].float()
     out = x_proj.new_empty((R, T, H), dtype=dtype)
     gates = x_proj.new_empty((R, T, G), dtype=dtype)
     cs = x_proj.new_empty((R, T, H), dtype=dtype)
@@ -196,6 +206,8 @@ def _walk_plain(x_proj, w_hh_t, reverse, lengths=None, bias=None, dtype=None):
         if lengths is not None:
             m = (t < lengths).to(torch.float32)[:, None]
             h, c = h * m, c * m
+    if return_state:
+        return out, gates, cs, (h.to(dtype), c)
     return out, gates, cs
 
 
@@ -235,10 +247,13 @@ def _backward_plain(h, gates, c, dout, w_hh_t, reverse, lengths=None):
     return dxp, dw.to(w_hh_t.dtype)
 
 
-def lstm_scan_plain(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
-                    reverse: bool = False) -> torch.Tensor:
-    """Plain version of ``lstm_scan``."""
-    return _walk_plain(x_proj, w_hh_t, reverse)[0]
+def lstm_scan_plain(x_proj: torch.Tensor, w_hh_t: torch.Tensor, reverse: bool = False,
+                    initial_state=None, return_state: bool = False):
+    """Plain version of ``lstm_scan``: h, or (h, (hT, cT)) with
+    ``return_state``; ``initial_state`` (h0, c0) continues a carried walk."""
+    res = _walk_plain(x_proj, w_hh_t, reverse, initial_state=initial_state,
+                      return_state=return_state)
+    return (res[0], res[3]) if return_state else res[0]
 
 
 def lstm_revmasked_plain(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
@@ -518,7 +533,8 @@ def pack_scan_weights(w_hh_t: torch.Tensor, plan: PersistentPlan) -> torch.Tenso
     return k.index_select(1, cols).reshape(plan.kh, S, 4 * U).transpose(0, 1).contiguous()
 
 
-def _scan_sliced_plain(x_proj, w, plan, reverse, lengths=None, store=False):
+def _scan_sliced_plain(x_proj, w, plan, reverse, lengths=None, store=False,
+                       initial_state=None, return_state=False):
     """The walk of K2p/K3p over ``plan``'s (group, slice) schedule: h_{t-1}
     read back from the output (rounded to x_proj's dtype) and, with
     ``lengths``, zeroed for rows where t - 1 (reverse: t + 1) >= lengths[r];
@@ -526,11 +542,17 @@ def _scan_sliced_plain(x_proj, w, plan, reverse, lengths=None, store=False):
     x_proj_t + h W_hh (f32 sums of the packed slice's columns).  With
     ``store`` (K4p/K6p) also the residuals, as the kernel writes them: the
     post-activation gates (R, T, 4H) at q H + u and the step's unmasked c
-    (R, T, H), in x_proj's dtype; returns (h, gates, c), else h."""
+    (R, T, H), in x_proj's dtype; returns (h, gates, c), else h.  K2p's
+    carry: ``initial_state`` (h0 (R, H) in x_proj's dtype, c0 (R, H) f32) is
+    step 0's h_{t-1} and c; ``return_state`` appends the last step's (h, c)
+    as the owning CTAs write them."""
     R, T, _ = x_proj.shape
     H, U = plan.H, plan.U
     out = x_proj.new_zeros((R, T, H))
     c = torch.zeros((R, H), dtype=torch.float32, device=x_proj.device)
+    h0 = None
+    if initial_state is not None:
+        h0, c = initial_state[0], initial_state[1].float().clone()
     if store:
         gates, cs = x_proj.new_zeros((R, T, 4 * H)), x_proj.new_zeros((R, T, H))
     for step in range(T):
@@ -539,7 +561,7 @@ def _scan_sliced_plain(x_proj, w, plan, reverse, lengths=None, store=False):
         for g in range(plan.G):
             rows = slice(g * plan.rows, min((g + 1) * plan.rows, R))
             xr = x_proj[rows, t].float().reshape(-1, 4, H)
-            hr = out[rows, tp].float() if step else None
+            hr = out[rows, tp].float() if step else None if h0 is None else h0[rows].float()
             keep = None if lengths is None else lengths[rows].to(x_proj.device)[:, None]
             if hr is not None and keep is not None:
                 hr = hr * (tp < keep)
@@ -557,14 +579,22 @@ def _scan_sliced_plain(x_proj, w, plan, reverse, lengths=None, store=False):
                     for q in range(4):
                         gates[rows, t, q * H + u0:q * H + u0 + nu] = act[:, q].to(x_proj.dtype)
                     cs[rows, t, u0:u0 + nu] = cu.to(x_proj.dtype)
-    return (out, gates, cs) if store else out
+    res = (out, gates, cs) if store else out
+    if not return_state:
+        return res
+    last = out[:, 0 if reverse else T - 1] if T else (
+        x_proj.new_zeros((R, H)) if h0 is None else h0)
+    return res, (last.clone(), c)
 
 
 def lstm_scan_sliced_plain(x_proj: torch.Tensor, w_packed: torch.Tensor, plan: PersistentPlan,
-                           reverse: bool = False) -> torch.Tensor:
+                           reverse: bool = False, initial_state=None,
+                           return_state: bool = False):
     """Plain version of K2p: reads only the packed slices (``w_packed`` =
-    ``pack_scan_weights``'s) and walks the kernel's schedule step by step."""
-    return _scan_sliced_plain(x_proj, w_packed, plan, reverse)
+    ``pack_scan_weights``'s) and walks the kernel's schedule step by step;
+    with the carry arguments of ``lstm_scan``."""
+    return _scan_sliced_plain(x_proj, w_packed, plan, reverse, initial_state=initial_state,
+                              return_state=return_state)
 
 
 def lstm_revmasked_sliced_plain(x_proj: torch.Tensor, w_packed: torch.Tensor,
@@ -1017,25 +1047,31 @@ def scan_route(dtype: torch.dtype, R: int, H: int, sms: int,
     return None
 
 
-def _routed(plain, walk, persistent, store, x_proj: torch.Tensor, *args):
+def _routed(plain, walk, persistent, store, x_proj: torch.Tensor, *args, **kwargs):
     """The dispatch of K2, K3 and (``store``) K4, K6 on ``(x_proj, *args)``:
     the plain version on the CPU, else the route ``scan_route`` picks (the
     persistent kernel with its plan, or the walk)."""
     if x_proj.device.type == "cpu":
-        return plain(x_proj, *args)
+        return plain(x_proj, *args, **kwargs)
     R, _, G = x_proj.shape
     plan = scan_route(x_proj.dtype, R, G // 4, _sm_count(_device_index(x_proj.device)), store)
     if plan is None:
-        return walk(x_proj, *args)
-    return persistent(x_proj, *args, plan)
+        return walk(x_proj, *args, **kwargs)
+    return persistent(x_proj, *args, plan, **kwargs)
 
 
-def lstm_scan(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
-              reverse: bool = False) -> torch.Tensor:
+def lstm_scan(x_proj: torch.Tensor, w_hh_t: torch.Tensor, reverse: bool = False,
+              initial_state=None, return_state: bool = False):
     """K2: one direction over a hoisted projection; (R, T, 4H) -> (R, T, H),
-    on the route ``scan_route`` picks (K2p or the walk)."""
+    on the route ``scan_route`` picks (K2p or the walk).  The carry of a
+    chunked stream (JAX ``_scan_dir``'s): ``initial_state`` (h0 (R, H) in
+    x_proj's dtype, c0 (R, H) float32) starts the walk there instead of at
+    zeros, and ``return_state`` returns (h, (hT, cT)), the last step's
+    state in the same dtypes.  A launch with a carry also counts in
+    ``lstm_scan.carry[route]``."""
     return _routed(lstm_scan_plain, lstm_scan_walk, lstm_scan_persistent, False,
-                   x_proj, w_hh_t, reverse)
+                   x_proj, w_hh_t, reverse, initial_state=initial_state,
+                   return_state=return_state)
 
 
 def lstm_revmasked(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
@@ -1049,9 +1085,41 @@ def lstm_revmasked(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
                    x_proj, w_hh_t, lengths)
 
 
-def _count(fn, route: str) -> None:
+def _count(fn, route: str, carry: bool = False) -> None:
     fn.launches += 1
     fn.routes[route] += 1
+    if carry:
+        fn.carry[route] += 1
+
+
+def _carry_buffers(x_proj: torch.Tensor, initial_state, return_state: bool):
+    """K2's carry as kernel pointers: (h0, c0) checked (h0 (R, H) in
+    x_proj's dtype, c0 (R, H) float32, contiguous, on x_proj's device) and
+    fresh (hT, cT) when ``return_state``; each None where absent."""
+    R, _, G = x_proj.shape
+    H = G // 4
+    h0 = c0 = hT = cT = None
+    if initial_state is not None:
+        h0, c0 = initial_state
+        _check("h0", h0, (R, H), x_proj.dtype, x_proj.device)
+        _check("c0", c0, (R, H), torch.float32, x_proj.device)
+    if return_state:
+        hT = torch.empty((R, H), dtype=x_proj.dtype, device=x_proj.device)
+        cT = torch.empty((R, H), dtype=torch.float32, device=x_proj.device)
+    return h0, c0, hT, cT
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _empty_walk_state(x_proj: torch.Tensor, initial_state):
+    """(hT, cT) of a walk over no steps or rows: the initial state, or zeros."""
+    if initial_state is not None:
+        return initial_state[0].clone(), initial_state[1].clone()
+    R, _, G = x_proj.shape
+    return (x_proj.new_zeros((R, G // 4)),
+            torch.zeros((R, G // 4), dtype=torch.float32, device=x_proj.device))
 
 
 def _check_scan(x_proj, w_hh_t, lengths):
@@ -1064,25 +1132,28 @@ def _check_scan(x_proj, w_hh_t, lengths):
     return R, T, H, torch.empty((R, T, H), dtype=x_proj.dtype, device=x_proj.device)
 
 
-def lstm_scan_walk(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
-                   reverse: bool = False) -> torch.Tensor:
+def lstm_scan_walk(x_proj: torch.Tensor, w_hh_t: torch.Tensor, reverse: bool = False,
+                   initial_state=None, return_state: bool = False):
     """K2's walk (csrc/lstm_kernels.cu ``recurrence_kernel``), float32 or
-    bfloat16; counted in ``lstm_scan.launches`` and ``.routes["walk"]``."""
+    bfloat16, with ``lstm_scan``'s carry; counted in ``lstm_scan.launches``
+    and ``.routes["walk"]`` (and ``.carry["walk"]`` with a carry)."""
     if x_proj.device.type == "cpu":
-        return lstm_scan_plain(x_proj, w_hh_t, reverse)
+        return lstm_scan_plain(x_proj, w_hh_t, reverse, initial_state, return_state)
     dtype, stream = _kernel_args(x_proj, x_proj.shape[-1] // 4)
     R, T, H, out = _check_scan(x_proj, w_hh_t, None)
+    h0, c0, hT, cT = _carry_buffers(x_proj, initial_state, return_state)
     if R == 0 or T == 0:
-        return out
+        return (out, _empty_walk_state(x_proj, initial_state)) if return_state else out
     from urgent2026_challenge_track1_tpu_torch.ops._build import load_library
 
     err = load_library().lstm_scan(
-        x_proj.data_ptr(), w_hh_t.data_ptr(), out.data_ptr(), R, T, H,
-        int(bool(reverse)), dtype, rows_per_block(R, 1, x_proj.device, H), stream,
+        x_proj.data_ptr(), w_hh_t.data_ptr(), out.data_ptr(), _ptr(h0), _ptr(c0), _ptr(hT),
+        _ptr(cT), R, T, H, int(bool(reverse)), dtype, rows_per_block(R, 1, x_proj.device, H),
+        stream,
     )
     _raise_on(err, "lstm_scan")
-    _count(lstm_scan, "walk")
-    return out
+    _count(lstm_scan, "walk", initial_state is not None or return_state)
+    return (out, (hT, cT)) if return_state else out
 
 
 def lstm_revmasked_walk(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
@@ -1106,13 +1177,18 @@ def lstm_revmasked_walk(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
     return out
 
 
-def _scan_persistent(fn, x_proj, w_hh_t, reverse, lengths, plan, store=False):
+def _scan_persistent(fn, x_proj, w_hh_t, reverse, lengths, plan, store=False,
+                     initial_state=None, return_state=False):
     """Launch K2p (``lengths`` None) or K3p, or with ``store`` K4p or K6p
     (then returns h, gates, c): one cooperative grid of G x S CTAs over
     ``plan`` (``plan_persistent``'s for one direction by default); a grid
     the card cannot hold resident raises.  bfloat16, or float32 for K4p and
-    K6p (the float32 route: f32 throughout, 3xTF32 products)."""
+    K6p (the float32 route: f32 throughout, 3xTF32 products).  K2p only:
+    ``lstm_scan``'s carry (``initial_state``, ``return_state``)."""
     name = fn.__name__ + "_persistent"
+    carry = initial_state is not None or return_state
+    if carry and (store or lengths is not None):
+        raise ValueError(f"{name} takes no carry: only K2p carries (h, c)")
     if x_proj.device.type != "cuda":
         raise ValueError(f"kernel input on unsupported device {x_proj.device}")
     if not (x_proj.dtype == torch.bfloat16 or store and x_proj.dtype == torch.float32):
@@ -1130,7 +1206,10 @@ def _scan_persistent(fn, x_proj, w_hh_t, reverse, lengths, plan, store=False):
     # K4p/K6p's residuals: gates (R, T, 4H) and c (R, T, H)
     res = tuple(torch.empty((R, T, n), dtype=x_proj.dtype, device=x_proj.device)
                 for n in ((4 * H, H) if store else ()))
+    h0, c0, hT, cT = _carry_buffers(x_proj, initial_state, return_state)
     if T == 0:
+        if return_state:
+            return out, _empty_walk_state(x_proj, initial_state)
         return (out, *res) if store else out
     w = pack_scan_weights(w_hh_t, plan)
     c = None if plan.c_in_smem else torch.empty((R, H), dtype=torch.float32,
@@ -1141,24 +1220,30 @@ def _scan_persistent(fn, x_proj, w_hh_t, reverse, lengths, plan, store=False):
     err = load_library().lstm_scan_persistent(
         x_proj.data_ptr(), w.data_ptr(), None if lengths is None else lengths.data_ptr(),
         out.data_ptr(), *([t.data_ptr() for t in res] or [None, None]),
+        _ptr(h0), _ptr(c0), _ptr(hT), _ptr(cT),
         None if c is None else c.data_ptr(), counters.data_ptr(), R, T, H,
         int(bool(reverse)), plan.S, plan.G, plan.U, plan.rows, plan.chunk,
         int(plan.c_in_smem), elem,
         ctypes.c_void_p(torch.cuda.current_stream(x_proj.device).cuda_stream),
     )
     _raise_on(err, name)
-    _count(fn, "persistent")
+    _count(fn, "persistent", carry)
+    if return_state:
+        return out, (hT, cT)
     return (out, *res) if store else out
 
 
 def lstm_scan_persistent(x_proj: torch.Tensor, w_hh_t: torch.Tensor, reverse: bool = False,
-                         plan: PersistentPlan | None = None) -> torch.Tensor:
+                         plan: PersistentPlan | None = None, initial_state=None,
+                         return_state: bool = False):
     """K2p (csrc/lstm_persistent.cu), bfloat16 only: packs W_hh for ``plan``
-    and launches one cooperative grid.  Counted in ``lstm_scan.launches``
-    and ``.routes["persistent"]``."""
+    and launches one cooperative grid; with ``lstm_scan``'s carry.  Counted
+    in ``lstm_scan.launches`` and ``.routes["persistent"]`` (and
+    ``.carry["persistent"]`` with a carry)."""
     if x_proj.device.type == "cpu":
-        return lstm_scan_plain(x_proj, w_hh_t, reverse)
-    return _scan_persistent(lstm_scan, x_proj, w_hh_t, reverse, None, plan)
+        return lstm_scan_plain(x_proj, w_hh_t, reverse, initial_state, return_state)
+    return _scan_persistent(lstm_scan, x_proj, w_hh_t, reverse, None, plan,
+                            initial_state=initial_state, return_state=return_state)
 
 
 def lstm_revmasked_persistent(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
@@ -1748,6 +1833,7 @@ def reset_launch_counts() -> None:
         fn.launches = 0
     for fn in ROUTED:
         fn.routes = {"persistent": 0, "walk": 0}
+    lstm_scan.carry = {"persistent": 0, "walk": 0}
 
 
 def launch_counts() -> dict[str, int]:
@@ -1760,6 +1846,13 @@ def route_counts(kernel: str = "fusedin_bilstm") -> dict[str, int]:
     ``lstm_train_bwd``, K6 ``lstm_revmasked_train_fwd`` or K7
     ``lstm_revmasked_bwd``) since the last reset."""
     return dict(next(fn for fn in ROUTED if fn.__name__ == kernel).routes)
+
+
+def carry_counts() -> dict[str, int]:
+    """The launches per route of K2 with a carry (``initial_state`` or
+    ``return_state``) since the last reset; they count in
+    ``route_counts("lstm_scan")`` too."""
+    return dict(lstm_scan.carry)
 
 
 reset_launch_counts()

@@ -49,10 +49,24 @@ def _bias(params: Mapping[str, torch.Tensor], sfx: str, dtype) -> torch.Tensor:
 
 
 def lstm(params: Mapping[str, torch.Tensor], x: torch.Tensor, reverse: bool = False,
-         suffix: str = "") -> torch.Tensor:
-    """Unidirectional LSTM.  x: (B, T, I) -> (B, T, H)."""
-    return cuda_lstm.lstm_dir(_proj(params, x, suffix).contiguous(),
-                              _w_hh_t(params, suffix, x.dtype), reverse)
+         suffix: str = "", initial_state=None, return_state: bool = False):
+    """Unidirectional LSTM.  x: (B, T, I) -> (B, T, H).
+
+    ``initial_state`` (h0 (B, H) in x's dtype, c0 (B, H) float32) and
+    ``return_state`` are the carry of a chunked stream: chaining calls over
+    consecutive chunks equals one call over the whole sequence, and the
+    call returns (h, (hT, cT)).  The carry runs K2 (``lstm_scan``) with
+    its carry; without one, the call is ``lstm_dir``'s (K2, or under
+    autograd ``LSTMDirTrain``)."""
+    xp = _proj(params, x, suffix).contiguous()
+    w = _w_hh_t(params, suffix, x.dtype)
+    if initial_state is None and not return_state:
+        return cuda_lstm.lstm_dir(xp, w, reverse)
+    if initial_state is not None:
+        initial_state = (initial_state[0].to(x.dtype).contiguous(),
+                         initial_state[1].float().contiguous())
+    return cuda_lstm.lstm_scan(xp, w, reverse, initial_state=initial_state,
+                               return_state=return_state)
 
 
 def bilstm(params: Mapping[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:

@@ -16,6 +16,12 @@ tells the 3xTF32 kernel from one that computes below float32.  The float32
 backwards (K5p-f32, K7p-f32) are held within ``F32_BWD_LIMIT`` of max|plain
 dx_proj| (``bwd_limit``), with ``lstm_train_bwd_tf32``, the plain
 backward whose dh product is one TF32 product, as that limit's control.
+K2 with a carry (K2p in bfloat16, the walk in float32) is held by
+``scan_carry_report``: h at every step, hT and cT against the plain
+version's last state within ``carry_limit`` (``ulp_limit`` on K2p,
+``WALK_F32_TOL`` on the float32 walk, the K2 walk's limit), hT equal to
+the kernel's own last h, and ``lstm_scan_dropped_carry``, the plain walk
+that drops (h0, c0) and starts from zeros, beyond the limit.
 Used by ``chip_smoke.py`` and the card tests
 (tests/test_torch_cuda_kernels.py).
 """
@@ -26,11 +32,14 @@ import math
 
 import torch
 
-from urgent2026_challenge_track1_tpu_torch.ops.cuda_lstm import _cell, lstm_bwd_dw_plain
+from urgent2026_challenge_track1_tpu_torch.ops.cuda_lstm import (
+    _cell, lstm_bwd_dw_plain, lstm_scan_plain)
 
-__all__ = ["PERSISTENT_ULPS", "F32_LIMIT", "F32_BWD_LIMIT", "DW_F32_BOUND", "ulp_limit", "persistent_limit",
-           "bwd_limit", "tf32", "fusedin_bilstm_stale_h", "lstm_scan_stale_h",
-           "lstm_scan_tf32", "lstm_train_bwd_stale_dg", "lstm_train_bwd_tf32"]
+__all__ = ["PERSISTENT_ULPS", "F32_LIMIT", "F32_BWD_LIMIT", "DW_F32_BOUND", "WALK_F32_TOL",
+           "ulp_limit", "persistent_limit", "bwd_limit", "carry_limit", "tf32",
+           "fusedin_bilstm_stale_h", "lstm_scan_stale_h", "lstm_scan_tf32",
+           "lstm_scan_dropped_carry", "scan_carry_report", "carry_failures",
+           "lstm_train_bwd_stale_dg", "lstm_train_bwd_tf32"]
 
 # bf16 ulps at the plain output's largest magnitude
 PERSISTENT_ULPS = 4
@@ -52,6 +61,9 @@ F32_BWD_LIMIT = 1e-5
 # product of TF32-rounded operands 1.6e-5 to 1.1e-4 (PERF.md); the bound
 # sits between
 DW_F32_BOUND = 2e-6
+# the float32 walks against their plain versions, absolute
+# (scripts/check_pallas_tpu.py:29-34; chip_smoke.py's F32_TOL)
+WALK_F32_TOL = 2e-4
 
 
 def ulp_limit(ref: torch.Tensor) -> float:
@@ -71,6 +83,56 @@ def bwd_limit(ref: torch.Tensor) -> float:
     if ref.dtype == torch.float32:
         return F32_BWD_LIMIT * float(ref.abs().max())
     return ulp_limit(ref)
+
+
+def carry_limit(ref: torch.Tensor) -> float:
+    """The limit of K2 with a carry against its plain output ``ref`` (h, or
+    the float32 c): WALK_F32_TOL on the float32 walk, ``ulp_limit(ref)`` on
+    K2p (bfloat16)."""
+    return WALK_F32_TOL if ref.dtype == torch.float32 else ulp_limit(ref)
+
+
+def lstm_scan_dropped_carry(x_proj: torch.Tensor, w_hh_t: torch.Tensor, reverse: bool = False,
+                            initial_state=None):
+    """K2's plain version with its carry dropped: the walk starts from zeros
+    instead of ``initial_state`` -> (h, (hT, cT))."""
+    return lstm_scan_plain(x_proj, w_hh_t, reverse, None, True)
+
+
+def scan_carry_report(got: torch.Tensor, state, x_proj: torch.Tensor, w_hh_t: torch.Tensor,
+                      reverse: bool, initial_state) -> dict:
+    """K2's output ``got`` and last state ``state`` (hT, cT) from a launch
+    with ``initial_state`` against the plain version: max abs differences
+    of h (every step), hT and cT; whether hT is the kernel's own last h;
+    the limits (``carry_limit``, cT's in float32 at the scale of the plain
+    cT: 4 bf16 ulps on K2p); the dropped-carry fault's difference."""
+    ref, (rh, rc) = lstm_scan_plain(x_proj, w_hh_t, reverse, initial_state, True)
+    dropped, _ = lstm_scan_dropped_carry(x_proj, w_hh_t, reverse, initial_state)
+    last = 0 if reverse else got.shape[1] - 1
+
+    def err(a, b):
+        return float((a.float() - b.float()).abs().max())
+
+    limit = carry_limit(ref)
+    return {"h": err(got, ref), "hT": err(state[0], rh), "cT": err(state[1], rc),
+            "hT_is_last_h": bool(torch.equal(state[0], got[:, last])),
+            "limit": limit,
+            "c_limit": WALK_F32_TOL if ref.dtype == torch.float32 else ulp_limit(rc),
+            "dropped_carry": err(dropped, ref)}
+
+
+def carry_failures(report: dict) -> list[str]:
+    """The checks of a ``scan_carry_report`` that fail (empty: it holds)."""
+    bad = [f"{k} {report[k]:.3e} >= {report['limit']:.3e}" for k in ("h", "hT")
+           if not report[k] < report["limit"]]
+    if not report["cT"] < report["c_limit"]:
+        bad.append(f"cT {report['cT']:.3e} >= {report['c_limit']:.3e}")
+    if not report["hT_is_last_h"]:
+        bad.append("hT is not the kernel's own last h")
+    if not report["dropped_carry"] >= report["limit"]:
+        bad.append(f"a dropped carry moves h by {report['dropped_carry']:.3e}, under the limit "
+                   f"{report['limit']:.3e}: the check cannot see it")
+    return bad
 
 
 def fusedin_bilstm_stale_h(x: torch.Tensor, w_ih_t: torch.Tensor, w_hh_t: torch.Tensor,

@@ -24,9 +24,12 @@ SI-SNR on the first batch of each sampling rate.
 (``utils/convert.load_init_from``) before the optimizer state and the EMA
 are made, as the JAX trainer does.
 
-Not ported yet, and raising where asked for: causal models (ROADMAP A10),
-the on-device dynamic-mixing render (A13b), dp/mp meshes and multi-process
-training (A14).
+A causal model (``model_configs`` ``causal``, and ``streaming_norm`` for
+the cumulative norms of a streamable one) trains its time path through
+``LSTMDirTrain`` (K4/K5); nothing else changes shape.
+
+Not ported yet, and raising where asked for: the on-device dynamic-mixing
+render (ROADMAP A13b), dp/mp meshes and multi-process training (A14).
 """
 
 from __future__ import annotations
@@ -101,10 +104,10 @@ def build_model(cfg: Config) -> ModelBundle:
     if cfg.model_type != "discriminative":
         raise ValueError(f"model_type={cfg.model_type!r}: expected discriminative or flowse")
     mc = cfg.model_configs or {}
-    if mc.get("causal") or mc.get("streaming_norm"):
-        raise _not_ported("the causal BSRNN", "ROADMAP A10")
     mcfg = BSRNNConfig(input_dim=481, num_channel=mc.get("num_channel", 192),
-                       num_layer=mc.get("num_layer", 6), compute_dtype=cfg.compute_dtype)
+                       num_layer=mc.get("num_layer", 6), compute_dtype=cfg.compute_dtype,
+                       causal=bool(mc.get("causal", False)),
+                       streaming_norm=bool(mc.get("streaming_norm", False)))
     return ModelBundle("discriminative", mcfg, STFTConfig(n_fft=960, hop_length=480))
 
 

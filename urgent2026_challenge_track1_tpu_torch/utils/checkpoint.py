@@ -35,7 +35,8 @@ __all__ = ["load_model_for_inference", "save_model", "PORT_FORMAT", "TRAIN_FORMA
 
 PORT_FORMAT = "urgent2026-bsrnn-torch/1"
 TRAIN_FORMAT = "urgent2026-bsrnn-torch-train/1"  # train/trainer.CheckpointIO files
-_ARCH_FIELDS = ("input_dim", "num_channel", "num_layer", "target_fs", "norm_eps")
+_ARCH_FIELDS = ("input_dim", "num_channel", "num_layer", "target_fs", "norm_eps", "causal",
+                "streaming_norm")
 
 
 def inference_dtype(device: torch.device) -> str:

@@ -45,13 +45,13 @@ def _convert_band_split(sd, prefix, subbands, C):
     return out
 
 
-def _convert_layers(sd, prefix, num_layer, with_t_cond=False):
+def _convert_layers(sd, prefix, num_layer, with_t_cond=False, time_bidirectional=True):
     def stack(fmt, post=lambda x: x):
         return np.stack([post(_np(sd[fmt.format(i=i)])) for i in range(num_layer)])
 
-    def lstm_params(name):
+    def lstm_params(name, bidirectional=True):
         p = {}
-        for sfx in ("", "_reverse"):
+        for sfx in ("", "_reverse") if bidirectional else ("",):
             for src, dst in (("weight_ih_l0", "w_ih"), ("weight_hh_l0", "w_hh"),
                              ("bias_ih_l0", "b_ih"), ("bias_hh_l0", "b_hh")):
                 p[f"{dst}{sfx}"] = stack(f"{prefix}{name}.{{i}}.{src}{sfx}")
@@ -60,7 +60,7 @@ def _convert_layers(sd, prefix, num_layer, with_t_cond=False):
     layers = {
         "norm_time_scale": stack(f"{prefix}norm_time.{{i}}.weight"),
         "norm_time_bias": stack(f"{prefix}norm_time.{{i}}.bias"),
-        "rnn_time": lstm_params("rnn_time"),
+        "rnn_time": lstm_params("rnn_time", time_bidirectional),
         "fc_time_w": stack(f"{prefix}fc_time.{{i}}.weight", post=lambda x: x.T),
         "fc_time_b": stack(f"{prefix}fc_time.{{i}}.bias"),
         "norm_freq_scale": stack(f"{prefix}norm_freq.{{i}}.weight"),
@@ -161,11 +161,13 @@ def apply_ema_record(sd: dict, ema_state: dict) -> dict:
 
 
 def convert_discriminative_state_dict(sd, cfg, prefix="se_model.bsrnn.bsrnn."):
-    """SEModel state_dict -> JAX ``init_bsrnn``-shaped tree of numpy arrays."""
+    """SEModel state_dict -> JAX ``init_bsrnn``-shaped tree of numpy arrays
+    (a causal ``cfg``: the time LSTM's forward direction only)."""
     subs, C = cfg.subbands, cfg.num_channel
     return {
         "band_split": _convert_band_split(sd, f"{prefix}band_split.", subs, C),
-        "layers": _convert_layers(sd, prefix, cfg.num_layer),
+        "layers": _convert_layers(sd, prefix, cfg.num_layer,
+                                  time_bidirectional=not cfg.causal),
         "mask_decoder": {
             head: _convert_mask_decoder_head(sd, f"{prefix}mask_decoder.mlp_{head}", subs, C)
             for head in ("mask", "residual")

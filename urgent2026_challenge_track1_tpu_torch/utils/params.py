@@ -5,7 +5,10 @@ The JAX package keeps the dual-path layers stacked on a leading layer axis
 (``params["layers"][name][i]``); the port keeps one ``DualPathLayer`` per
 layer.  Every other leaf has the same name, shape and layout in both, so the
 bridge only unstacks (or restacks) the layer axis.  A tree with a
-``grad_decoder`` (the JAX ``init_flowse``) becomes a ``FlowDNN``.
+``grad_decoder`` (the JAX ``init_flowse``) becomes a ``FlowDNN``; a tree
+whose ``rnn_time`` has no ``_reverse`` weights is a causal model's.
+Whether a causal model normalizes cumulatively (``streaming_norm``) does
+not show in its shapes, so the caller says so.
 """
 
 from __future__ import annotations
@@ -35,9 +38,11 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> dict[str, Any]:
     return out
 
 
-def config_from_tree(tree: Mapping[str, Any], compute_dtype: str = "float32") -> BSRNNConfig:
+def config_from_tree(tree: Mapping[str, Any], compute_dtype: str = "float32",
+                     streaming_norm: bool = False) -> BSRNNConfig:
     """The BSRNN configuration that the shapes of a tree imply (the
-    conditional network's when the tree has a ``grad_decoder``)."""
+    conditional network's when the tree has a ``grad_decoder``; a causal
+    one when its time LSTM has no reverse direction)."""
     K, C = np.shape(tree["band_split"]["b"])
     flow = "grad_decoder" in tree
     return BSRNNConfig(
@@ -45,15 +50,17 @@ def config_from_tree(tree: Mapping[str, Any], compute_dtype: str = "float32") ->
         num_layer=np.shape(tree["layers"]["norm_time_scale"])[0],
         compute_dtype=compute_dtype, with_condition=flow,
         sub_channel=np.shape(tree["grad_decoder"]["mask"]["w"])[2] if flow else 16,
+        causal="w_ih_reverse" not in tree["layers"]["rnn_time"], streaming_norm=streaming_norm,
     )
 
 
 def from_jax_params(tree: Mapping[str, Any], compute_dtype: str = "float32",
-                    device="cpu") -> nn.Module:
+                    device="cpu", streaming_norm: bool = False) -> nn.Module:
     """A ``BSRNN`` (``FlowDNN`` for a flow tree) holding the leaves of a JAX
     ``init_bsrnn``- or ``init_flowse``-shaped tree (numpy or JAX arrays); the
-    layer axis of ``tree["layers"]`` is unstacked."""
-    cfg = config_from_tree(tree, compute_dtype)
+    layer axis of ``tree["layers"]`` is unstacked.  ``streaming_norm``: the
+    causal model's cumulative norms (the tree cannot tell)."""
+    cfg = config_from_tree(tree, compute_dtype, streaming_norm)
     sd = {}
     for key, leaf in _flatten(tree).items():
         arr = np.asarray(leaf, dtype=np.float32)
