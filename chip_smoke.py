@@ -13,7 +13,7 @@ Phases (any failure exits non-zero; each prints its seconds):
      model's (H = 768); then K8-K10 at both widths' training shapes, and
      K9/K10 against K4/K5 run per direction (bitwise equal); then K1p, K1's
      persistent bfloat16 route, against the plain version and the walk at
-     the seven shapes where K1 runs, with its plan and its, the walk's and
+     the eight shapes where K1 runs, with its plan and its, the walk's and
      cuDNN's times (the k1_routes phase); then K2p and K3p, the persistent
      bfloat16 routes of K2 and K3, against the plain versions and the walks
      at every step at the five shapes where they run, with their plans, a
@@ -67,8 +67,9 @@ Phases (any failure exits non-zero; each prints its seconds):
      K5p-f32, dW-f32; no K6/K7), is saved and loaded for inference
      (bfloat16), and a StreamingSession over 4 s at 48 kHz (8 frames a
      step: K2p with its carry, K1p on 8 band rows) equals the offline
-     causal forward (float32 and bfloat16), on the card and against the
-     CPU; then the server (phase_serving): 8 concurrent POST /enhance
+     causal forward (float32, and bfloat16 within E2E_BF16_BOUND, which
+     the stream with a dropped carry must exceed), on the card and against
+     the CPU; then the server (phase_serving): 8 concurrent POST /enhance
      through the batching engine with max_retries=0 against
      make_enhance_fn, /stats, /healthz, and POST /stream against the
      StreamingSession; before these, K2 with a carry (K2p and the float32
@@ -109,7 +110,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 PKG = "urgent2026_challenge_track1_tpu_torch"
 
-F32_TOL, BF16_TOL = 2e-4, 5e-2  # scripts/check_pallas_tpu.py:29-34
+BF16_TOL = 5e-2  # scripts/check_pallas_tpu.py:29-34; float32: PC.WALK_F32_TOL
 GRAD_TOL = 1e-3                 # f32 gradients, relative (max|d| / max|ref|), same source
 E2E_TOL = 1e-3                  # card (kernels) vs CPU (plain), float32 waveform and grads
 N_IN, HID = 196, 392            # BSRNN_baseline: num_channel 196, H = 2N
@@ -214,6 +215,7 @@ def phase_kernels(device, n_in=N_IN, hid=HID, time_shapes=TIME_SHAPES, band_shap
     scan_routes phases)."""
     import torch
     from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
+    from urgent2026_challenge_track1_tpu_torch.ops import persistent_checks as PC
 
     errs = {(k, dt): 0.0 for k in INFERENCE_KERNELS for dt in ("float32", "bfloat16")}
     for dt_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
@@ -246,7 +248,7 @@ def phase_kernels(device, n_in=N_IN, hid=HID, time_shapes=TIME_SHAPES, band_shap
             print(f"[kernels] lstm_revmasked (walk) {dt_name} R={R} T={T}: max|d| (t < len)="
                   f"{e:.3e}")
     for (name, dt_name), e in errs.items():
-        tol = F32_TOL if dt_name == "float32" else BF16_TOL
+        tol = PC.WALK_F32_TOL if dt_name == "float32" else BF16_TOL
         if not e < tol:
             fail(f"{name} {dt_name}: max|kernel - plain| {e:.3e} >= {tol}")
     return errs
@@ -292,6 +294,7 @@ def phase_train_kernels(device, hid=HID, shapes=(TRAIN_TIME, TRAIN_BAND),
     error or None)}."""
     import torch
     from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
+    from urgent2026_challenge_track1_tpu_torch.ops import persistent_checks as PC
 
     errs, note = _error_table()
     for dt_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
@@ -326,7 +329,7 @@ def phase_train_kernels(device, hid=HID, shapes=(TRAIN_TIME, TRAIN_BAND),
                  max(_rel(g, r) for g, r in zip(got, want)))
     for (name, dt_name), (e_abs, e_rel) in sorted(errs.items()):
         backward = name.endswith("bwd")
-        tol = BF16_TOL if dt_name == "bfloat16" else (GRAD_TOL if backward else F32_TOL)
+        tol = BF16_TOL if dt_name == "bfloat16" else (GRAD_TOL if backward else PC.WALK_F32_TOL)
         e = e_rel if backward else e_abs
         kind = "max rel|d| (dx_proj, dW)" if backward else "max|d| (h, gates, c)"
         print(f"[train kernels] {name} {dt_name} H={hid}: {kind}={e:.3e} (tolerance {tol}), "
@@ -352,12 +355,13 @@ K1_ROUTE_SHAPES = (("disc band B=1", 401, 34, N_IN, HID),
                    ("bench time B=64", 64 * 34, 401, 192, 384),
                    ("flow band B=2", 502, 48, FLOW_N, FLOW_H),
                    ("flow enhance band B=1", 501, 48, FLOW_N, FLOW_H),
-                   ("flow enhance time B=1", 48, 501, FLOW_N, FLOW_H))
+                   ("flow enhance time B=1", 48, 501, FLOW_N, FLOW_H),
+                   ("stream step band", 8, 34, N_IN, HID))
 
 
 def phase_k1_routes(device):
     """K1p against the plain version and against the walk (itself held
-    against the plain version) at the seven shapes where K1 runs, bfloat16:
+    against the plain version) at the eight shapes where K1 runs, bfloat16:
     max abs differences, the plan (S, G, U, shared memory, checked against
     the kernel's own reckoning), K1p, walk and cuDNN bfloat16 ``nn.LSTM``
     ms (medians of ``_time_ms``), the weight pack's ms, the bound, and the
@@ -1562,7 +1566,7 @@ def phase_times(device, main_counts, errs, train_errs, k1_routes, scan_routes,
                 "launches": launches, "launches_run": run,
                 "max_abs_err": errs[name, "bfloat16"],
                 "max_abs_err_f32": errs[name, "float32"],
-                "tolerance": BF16_TOL, "tolerance_f32": F32_TOL,
+                "tolerance": BF16_TOL, "tolerance_f32": PC.WALK_F32_TOL,
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": library_ms, "shape": {"R": R, "T": T, "N": N_IN, "H": HID},
                 "dtype": "bfloat16",
@@ -1873,6 +1877,7 @@ def _train_kernel_times(device, walk_launches, train_errs, steps):
     the run that drove them)}."""
     import torch
     from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
+    from urgent2026_challenge_track1_tpu_torch.ops import persistent_checks as PC
 
     bf16 = torch.bfloat16
     records = []
@@ -1925,7 +1930,7 @@ def _train_kernel_times(device, walk_launches, train_errs, steps):
                     "max_abs_err_f32": train_errs[name, "float32"][0],
                     "max_rel_err_f32": train_errs[name, "float32"][1],
                     "tolerance": BF16_TOL,
-                    "tolerance_f32": GRAD_TOL if name.endswith("bwd") else F32_TOL,
+                    "tolerance_f32": GRAD_TOL if name.endswith("bwd") else PC.WALK_F32_TOL,
                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                     "bound_by": bound_by, "library_ms": None,
                     "shape": {"R": R, "T": T, "H": HID, "valid_steps": valid},
@@ -1952,6 +1957,7 @@ def phase_new_kernels(device):
     (abs error, relative error or None)}."""
     import torch
     from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
+    from urgent2026_challenge_track1_tpu_torch.ops import persistent_checks as PC
 
     errs, note = _error_table()
     for dt_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
@@ -1995,7 +2001,7 @@ def phase_new_kernels(device):
                       "and K10 == K5 walk x 2 bit for bit")
     for (name, dt_name), (e_abs, e_rel) in sorted(errs.items()):
         backward = name.endswith("bwd2")
-        tol = BF16_TOL if dt_name == "bfloat16" else (GRAD_TOL if backward else F32_TOL)
+        tol = BF16_TOL if dt_name == "bfloat16" else (GRAD_TOL if backward else PC.WALK_F32_TOL)
         e = e_rel if backward else e_abs
         kind = "max rel|d| (dx_proj, dW)" if backward else "max|d| (h, gates, c)"
         print(f"[new kernels] {name} {dt_name}: {kind}={e:.3e} (tolerance {tol}), "
@@ -2540,6 +2546,7 @@ def _new_kernel_times(device, ab, ab_counts, new_errs):
     path R = 502, T = 48), added as flow_* keys."""
     import torch
     from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
+    from urgent2026_challenge_track1_tpu_torch.ops import persistent_checks as PC
 
     bf16 = torch.bfloat16
     records = {}
@@ -2591,7 +2598,7 @@ def _new_kernel_times(device, ab, ab_counts, new_errs):
             "max_abs_err_f32": new_errs[name, "float32"][0],
             "max_rel_err_f32": new_errs[name, "float32"][1],
             "tolerance": BF16_TOL,
-            "tolerance_f32": GRAD_TOL if name.endswith("bwd2") else F32_TOL,
+            "tolerance_f32": GRAD_TOL if name.endswith("bwd2") else PC.WALK_F32_TOL,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None, "shape": {"R": R, "T": T, "N": n_in, "H": hid},
             "dtype": "bfloat16",
@@ -2831,6 +2838,16 @@ CAUSAL_MODEL = {"num_channel": N_IN, "num_layer": 6, "causal": True, "streaming_
 CAUSAL_SECONDS, CAUSAL_CHUNK = 4.0, 8  # 4 s at 48 kHz, 8 frames (80 ms) a step
 CAUSAL_FEEDS = (4000, 7777, 480, 12345, 100, 9001)  # uneven feed sizes, cycled
 STREAM_F32_RTOL, STREAM_F32_ATOL = 1e-4, 2e-5  # tests/test_streaming_causal.py:119
+# two bfloat16 runs of one model on one input that differ only in the row
+# counts the kernels see (a stream's 8-row band steps against the offline
+# forward's 401; the server's padded batch against one request), max abs
+# difference of the waveforms.  Each lies within the bf16-vs-f32 gap of the
+# float32 output, so they differ by at most about twice that gap (5.9e-4
+# offline on the H100, PERF.md); the bound doubles that again.  Each check
+# also runs its control, a fault that the bound must see: the stream with
+# layer 0's time-LSTM carry dropped at every step, the server's input
+# enhanced without its length.
+E2E_BF16_BOUND = 2e-3
 
 
 def _stream(session, wav, feeds=CAUSAL_FEEDS):
@@ -2868,9 +2885,11 @@ def phase_causal(workdir: Path, device):
     loaded back for inference (bfloat16); a StreamingSession over 4 s at 48
     kHz in 8-frame chunks and uneven feeds against the offline causal
     forward, in float32 (rtol 1e-4, atol 2e-5, JAX's streaming tolerance)
-    and in bfloat16 (BF16_TOL: the same kernels, but the cumulative norms'
-    sums run in another order in chunks, which moves bf16 roundings, and K1p
-    walks 8 rows a step instead of 401); the card against the CPU in float32
+    and in bfloat16 (E2E_BF16_BOUND: the same kernels, but the cumulative
+    norms' sums run in another order in chunks, which moves bf16 roundings,
+    and K1p walks 8 rows a step instead of 401; the control, the stream
+    with layer 0's time-LSTM carry dropped at every step, must exceed it);
+    the card against the CPU in float32
     for the offline and the streamed output of the first second; per-step
     wall time (median, p95) against the chunk's 80 ms and the launches a
     step.  Returns (checkpoint path, stream input, bfloat16 stream output,
@@ -2949,8 +2968,8 @@ def phase_causal(workdir: Path, device):
     K.reset_launch_counts()
     f32_sess = StreamingSession(model, model.cfg, stft, fs, chunk_frames=CAUSAL_CHUNK)
     st32 = _stream(f32_sess, wav)
-    rec["f32_launches"] = {"walk_carry": K.carry_counts()["walk"], **_routes()["lstm_scan"],
-                           "steps": f32_sess._emit_pos // f32_sess._chunk}
+    # every K2 launch of a stream carries (h, c): the stream's lstm_scan routes
+    rec["f32_launches"] = {**_routes()["lstm_scan"], "steps": f32_sess._emit_pos // f32_sess._chunk}
     if st32.shape != wav.shape or not np.isfinite(st32).all():
         fail(f"the float32 stream gave {st32.shape}, finite {np.isfinite(st32).all()}")
     d32 = float(np.abs(st32 - off32).max())
@@ -2976,7 +2995,8 @@ def phase_causal(workdir: Path, device):
     sess._step = timed_step
     K.reset_launch_counts()
     st16 = _stream(sess, wav)
-    counts, routes, carry = K.launch_counts(), _routes(), K.carry_counts()
+    counts, routes = K.launch_counts(), _routes()
+    carry = routes["lstm_scan"]  # every K2 launch of a stream carries (h, c)
     n_steps = len(step_ms)
     K.reset_launch_counts()
     with torch.inference_mode():
@@ -2984,10 +3004,29 @@ def phase_causal(workdir: Path, device):
     rec["bf16_offline_launches"] = _routes()["lstm_scan"]
     d16 = float(np.abs(st16 - off16).max())
     d16_vs_f32 = float(np.abs(off16 - off32).max())
+    # the control: the same stream with layer 0's time-LSTM carry dropped
+    ctl = StreamingSession(served, scfg, sstft, fs, chunk_frames=CAUSAL_CHUNK)
+    ctl_inner = ctl._step
+
+    def dropped_carry_step(model, state, chunk, n_valid):
+        with torch.inference_mode():
+            h, c = state["model"]["layers"]["rnn_time"]
+            rnn_time = (torch.cat([torch.zeros_like(h[:1]), h[1:]]),
+                        torch.cat([torch.zeros_like(c[:1]), c[1:]]))
+        layers = {**state["model"]["layers"], "rnn_time": rnn_time}
+        return ctl_inner(model, {**state, "model": {**state["model"], "layers": layers}},
+                         chunk, n_valid)
+
+    ctl._step = dropped_carry_step
+    d16_ctl = float(np.abs(_stream(ctl, wav) - off16).max())
     print(f"[causal] bfloat16 stream vs offline on the card: max|d| {d16:.3e} (bound "
-          f"{BF16_TOL}); bf16 offline vs f32 offline max|d| {d16_vs_f32:.3e}")
-    if st16.shape != wav.shape or not np.isfinite(st16).all() or not d16 < BF16_TOL:
+          f"{E2E_BF16_BOUND}); control, layer 0's carry dropped at every step: max|d| "
+          f"{d16_ctl:.3e}; bf16 offline vs f32 offline max|d| {d16_vs_f32:.3e}")
+    if st16.shape != wav.shape or not np.isfinite(st16).all() or not d16 < E2E_BF16_BOUND:
         fail(f"the bfloat16 stream: shape {st16.shape}, max|d| vs offline {d16:.3e}")
+    if not d16_ctl >= E2E_BF16_BOUND:
+        fail(f"a dropped carry moves the bfloat16 stream by {d16_ctl:.3e}, under the bound "
+             f"{E2E_BF16_BOUND}: the check cannot see a carry fault")
     if carry["persistent"] != CAUSAL_MODEL["num_layer"] * n_steps or carry["walk"]:
         fail(f"the bfloat16 stream ran K2 with a carry {carry} over {n_steps} steps; expected "
              f"K2p once per layer and step")
@@ -3004,6 +3043,7 @@ def phase_causal(workdir: Path, device):
     chunk_ms = CAUSAL_CHUNK * sess.hop / fs * 1e3
     rec.update({"stream_steps": n_steps, "step_ms_median": med, "step_ms_p95": p95,
                 "chunk_ms": chunk_ms, "bf16_stream_vs_offline": d16,
+                "bf16_dropped_carry_vs_offline": d16_ctl,
                 "f32_stream_vs_offline": d32, "bf16_vs_f32_offline": d16_vs_f32,
                 "launches": {"K2p_carry": carry["persistent"],
                              "K1p": routes["fusedin_bilstm"]["persistent"],
@@ -3062,8 +3102,9 @@ def phase_serving(workdir: Path, device, causal):
     with the full-width discriminative checkpoint of the training phase and
     ``max_retries=0``: 8 concurrent POST /enhance (WAV and FLAC, 16 and 48
     kHz, two buckets at each rate) each against ``make_enhance_fn`` run
-    directly on the decoded input (both peak-normalized, within BF16_TOL:
-    the same bf16 kernels on other row counts); /stats (a batch of more than
+    directly on the decoded input (both peak-normalized, within
+    E2E_BF16_BOUND: the same bf16 kernels on other row counts, while the
+    input enhanced without its length, the control, must exceed it); /stats (a batch of more than
     one request, errors 0, retries 0); /healthz (CUDA and the card); then
     one POST /stream to a second server on the causal checkpoint, whose
     output must equal ``phase_causal``'s bfloat16 StreamingSession output.
@@ -3087,7 +3128,7 @@ def phase_serving(workdir: Path, device, causal):
     name = torch.cuda.get_device_name(device)
     kind, model, mcfg, stft = load_model_for_inference(ckpts[-1], "cuda")
     enhance = make_enhance_fn(kind, model, mcfg, stft)
-    engine = BatchingEngine(enhance, max_batch=8, max_wait_ms=200, max_retries=0, device=device)
+    engine = BatchingEngine(enhance, max_batch=8, max_wait_ms=200, max_retries=0)
     server = serve.make_server(engine, "127.0.0.1", 0, platform=str(device), device_name=name)
     threading.Thread(target=server.serve_forever, daemon=True).start()
     port = server.server_address[1]
@@ -3118,7 +3159,12 @@ def phase_serving(workdir: Path, device, causal):
         stats = json.loads(conn.getresponse().read())
         conn.request("GET", "/healthz")
         health = json.loads(conn.getresponse().read())
-        errs = []
+        errs, ctl_errs = [], []
+
+        def normalized(y):
+            y = y.float().cpu().numpy()[0, :len(x)]
+            return y / (np.abs(y).max() or 1.0) * 0.9
+
         for (fs, sec, fmt), body, (status, data, ms) in zip(SERVE_REQUESTS, bodies, results):
             if status != 200:
                 fail(f"/enhance {fs} Hz {sec} s {fmt}: status {status}: {data[:200]!r}")
@@ -3128,23 +3174,27 @@ def phase_serving(workdir: Path, device, causal):
             bucket = -(-len(x) // fs) * fs
             xb = np.zeros((1, bucket), np.float32)
             xb[0, :len(x)] = x
-            ref = enhance(torch.from_numpy(xb).to(device), fs,
-                          torch.tensor([len(x)], dtype=torch.int32, device=device))
-            ref = ref.float().cpu().numpy()[0, :len(x)]
-            ref = ref / (np.abs(ref).max() or 1.0) * 0.9
+            xd = torch.from_numpy(xb).to(device)
+            ref = normalized(enhance(xd, fs, torch.tensor([len(x)], dtype=torch.int32,
+                                                          device=device)))
+            ctl_errs.append(float(np.abs(normalized(enhance(xd, fs)) - ref).max()))
             if yfs != fs or y.shape != x.shape or not np.isfinite(y).all():
                 fail(f"/enhance {fs} Hz {sec} s {fmt}: got {y.shape} at {yfs}")
             errs.append(float(np.abs(y - ref).max()))
         lat = [r[2] for r in results]
         rec = {"requests": len(results), "latency_ms_p50": float(np.median(lat)),
                "latency_ms_max": float(np.max(lat)), "max_abs_err_vs_direct": max(errs),
+               "control_without_length_max_abs_err": max(ctl_errs),
                "stats": stats, "health": health, "routes": routes}
         print(f"[serving] ({gpu_name_and_power()}) {len(results)} concurrent /enhance: latency p50 "
               f"{rec['latency_ms_p50']:.1f} ms, max {rec['latency_ms_max']:.1f} ms; max|server "
-              f"- direct| {max(errs):.3e} (bound {BF16_TOL}); /stats {stats}; /healthz {health}; "
-              f"routes {routes}")
-        if not max(errs) < BF16_TOL:
+              f"- direct| {max(errs):.3e} (bound {E2E_BF16_BOUND}; control, without the length: "
+              f"{max(ctl_errs):.3e}); /stats {stats}; /healthz {health}; routes {routes}")
+        if not max(errs) < E2E_BF16_BOUND:
             fail(f"/enhance outputs differ from make_enhance_fn by {max(errs):.3e}")
+        if not max(ctl_errs) >= E2E_BF16_BOUND:
+            fail(f"dropping the length moves /enhance by {max(ctl_errs):.3e}, under the bound "
+                 f"{E2E_BF16_BOUND}: the check cannot see a length fault")
         if stats["errors"] or stats["retries"] or stats["requests"] != len(results):
             fail(f"/stats after the requests: {stats}")
         if not stats["batched_requests"] > stats["batches"]:
@@ -3214,12 +3264,12 @@ def _carry_records(carry_rows, causal_rec):
             "source": f"{PKG}/csrc/{'lstm_persistent.cu' if persistent else 'lstm_kernels.cu'}",
             "replaces": REPLACES["lstm_scan"],
             "launches": (causal_rec["launches"]["K2p_carry"] if persistent
-                         else causal_rec["f32_launches"]["walk_carry"]),
+                         else causal_rec["f32_launches"]["walk"]),
             "launches_run": ("the bfloat16 StreamingSession, 4 s at 48 kHz, 8 frames a step"
                              if persistent else "the float32 StreamingSession, same input"),
             "launches_per_stream_step": (
                 causal_rec["launches_per_step"]["K2p_carry"] if persistent
-                else causal_rec["f32_launches"]["walk_carry"] / causal_rec["f32_launches"]["steps"]),
+                else causal_rec["f32_launches"]["walk"] / causal_rec["f32_launches"]["steps"]),
             # the offline causal forward runs K2 without a carry, on the same route
             "offline_causal_forward_launches_without_carry": causal_rec[
                 "bf16_offline_launches" if persistent else "f32_offline_launches"],

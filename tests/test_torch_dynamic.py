@@ -9,18 +9,19 @@
   ROADMAP A16b's: codec augmentation is off on both sides, the port by its
   ``codecs_available()`` and the JAX package by monkeypatching its own, so
   both drop "codec" from the pool and renormalise the weights.  The JAX
-  ``SimulationConfigs`` class is pinned to the port's values for the
-  comparison: it is module-level state that an earlier test in the same
-  worker can leave changed (``tests/test_dynamic_device.py::
-  test_codec_recipes_take_host_path`` assigns ``num_augmentations`` and
-  ``prob_wind_noise`` through ``ds.cfg``, which is the class itself).
+  ``SimulationConfigs`` class is reset to the values of its own source file
+  for the comparison, and the port's defaults must equal them: the class is
+  module-level state that an earlier test in the same worker can leave
+  changed (``tests/test_dynamic_device.py::test_codec_recipes_take_host_path``
+  assigns ``num_augmentations`` and ``prob_wind_noise`` through ``ds.cfg``,
+  which is the class itself).
 * the spawned process-pool loader yields batches of the right shapes, and
   its workers do not import torch;
 * a train step of a 16 ch x 1 model on a Config read from
   ``conf/models/BSRNN_baseline_dm.yaml`` with ``device="cpu"``.
 """
 
-import copy
+import importlib.util
 import random
 from pathlib import Path
 
@@ -65,17 +66,26 @@ def _config_fields(cls) -> dict:
     return {k: getattr(cls, k) for k in dir(cls) if not k.startswith("_")}
 
 
+def _untouched_jax_config() -> dict:
+    """The JAX SimulationConfigs fields as its source file defines them: a
+    fresh copy of ``simulation/params.py`` loaded under another module name,
+    so nothing another test assigned on the shared class can reach it."""
+    spec = importlib.util.spec_from_file_location("_untouched_jax_sim_params", jparams.__file__)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return _config_fields(mod.SimulationConfigs)
+
+
 @pytest.fixture
 def pinned_jax_config(monkeypatch):
-    """The JAX SimulationConfigs class set to deep copies of the port's
-    values for one test (undone after it), so what another test left on
-    that shared class cannot reach the JAX draws; the two configs must then
-    agree field by field."""
-    port = _config_fields(tparams.SimulationConfigs)
-    assert set(port) == set(_config_fields(jparams.SimulationConfigs))
-    for name, value in port.items():
-        monkeypatch.setattr(jparams.SimulationConfigs, name, copy.deepcopy(value))
-    assert _config_fields(_JCfg) == _config_fields(_TCfg)
+    """The shared JAX SimulationConfigs class reset to its own source values
+    for one test (undone after it), so what another test left on that class
+    cannot reach the JAX draws; the port's defaults must equal those values
+    field by field."""
+    untouched = _untouched_jax_config()
+    for name, value in untouched.items():
+        monkeypatch.setattr(jparams.SimulationConfigs, name, value)
+    assert _config_fields(tparams.SimulationConfigs) == untouched
 
 
 @pytest.mark.parametrize("seed", [0, 3])

@@ -21,9 +21,10 @@ torch.set_num_threads(1)
 SMS = 132  # one H100
 # (R, N, H) of the route table: disc band (one utterance, a B=4 CLI batch),
 # the bench forward's band and time paths, the flow model's band (a B=2
-# batch), enhance band and enhance time paths
+# batch), enhance band and enhance time paths, a causal streaming step's band
+# path (8 frames, B = 1)
 ROUTE_SHAPES = [(401, 196, 392), (804, 196, 392), (25664, 192, 384), (2176, 192, 384),
-                (502, 384, 768), (501, 384, 768), (48, 384, 768)]
+                (502, 384, 768), (501, 384, 768), (48, 384, 768), (8, 196, 392)]
 RAGGED = [(13, 40, 392), (100, 40, 8), (1, 196, 392), (37, 20, 24), (1, 8, 8), (5, 48, 768)]
 
 

@@ -30,15 +30,17 @@ LOW_RATE_K = band_count(BSRNNConfig().input_dim, 48000, 16000, 161)
 # (34 bands), a B = 4 batch, one utterance at 16 kHz, the flow model's
 # time path (48 bands at H = 768); an odd H
 SCAN_SHAPES = [(34, 392), (136, 392), (LOW_RATE_K, 392), (48, 768), (20, 197)]
-# K1p's plans at the seven shapes where K1 runs (R, N, H) -> (S, G, U, rows,
+# K1p's plans at the eight shapes where K1 runs (R, N, H) -> (S, G, U, rows,
 # chunk, c_in_smem, smem), as the two-direction planner has always planned them
+# (the last: a causal streaming step's band path, 8 rows)
 K1P_PLANS = {(401, 196, 392): (11, 6, 36, 67, 32, False, 230464),
              (804, 196, 392): (11, 6, 36, 134, 32, False, 230464),
              (25664, 192, 384): (11, 6, 36, 4278, 32, False, 219712),
              (2176, 192, 384): (11, 6, 36, 363, 32, False, 219712),
              (502, 384, 768): (64, 1, 12, 502, 48, False, 213696),
              (501, 384, 768): (64, 1, 12, 501, 48, False, 213696),
-             (48, 384, 768): (64, 1, 12, 48, 48, True, 216000)}
+             (48, 384, 768): (64, 1, 12, 48, 48, True, 216000),
+             (8, 196, 392): (49, 1, 8, 8, 16, True, 64384)}
 
 
 def test_low_rate_band_count():
@@ -265,7 +267,7 @@ def test_sliced_scan_carry_matches_plain(R, T, H, sms, dtype, tol):
         assert torch.equal(hT, got[:, 0 if reverse else T - 1])
         for a, b in ((got, ref), (hT, rh), (cT, rc)):
             assert float((a.float() - b.float()).abs().max()) < tol
-        dropped, _ = PC.lstm_scan_dropped_carry(xp, w_hh, reverse, (h0, c0))
+        dropped, _ = PC.lstm_scan_dropped_carry(xp, w_hh, reverse)
         assert float((dropped.float() - ref.float()).abs().max()) > 0.1
 
 
@@ -283,8 +285,9 @@ def test_sliced_scan_carry_chains_chunks_exactly():
         y, state = K.lstm_scan_sliced_plain(xp[:, t0:t0 + 2], w, plan, False, state, True)
         outs.append(y)
     assert torch.equal(torch.cat(outs, dim=1), one)
+    K.reset_launch_counts()
     for fn in (K.lstm_scan, K.lstm_scan_walk, K.lstm_scan_persistent):  # the CPU: plain
         y, (h, c) = fn(xp, w_hh, initial_state=state, return_state=True)
         ref, (rh, rc) = K.lstm_scan_plain(xp, w_hh, False, state, True)
         assert torch.equal(y, ref) and torch.equal(h, rh) and torch.equal(c, rc)
-    assert K.carry_counts() == {"persistent": 0, "walk": 0}
+    assert K.route_counts("lstm_scan") == {"persistent": 0, "walk": 0}

@@ -32,6 +32,9 @@ def _half(wav, fs, lengths=None, generator=None):
     return wav * 0.5
 
 
+_half.device = torch.device("cpu")
+
+
 def _norm(y):
     return y / (np.abs(y).max() or 1.0) * 0.9
 
@@ -51,7 +54,7 @@ def _serve(engine, **kw):
 
 
 def test_http_enhance_round_trip_and_bad_requests():
-    eng = tserving.BatchingEngine(_half, max_batch=4, max_wait_ms=10, device="cpu")
+    eng = tserving.BatchingEngine(_half, max_batch=4, max_wait_ms=10)
     server, port = _serve(eng)
     try:
         conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)

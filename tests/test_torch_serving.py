@@ -30,7 +30,9 @@ torch.set_num_threads(1)
 
 
 class FakeEnhance:
-    """Records every dispatch; halves the signal."""
+    """Records every dispatch; halves the signal (a model on the CPU)."""
+
+    device = torch.device("cpu")
 
     def __init__(self):
         self.calls = []
@@ -49,7 +51,7 @@ def _norm(y):
 
 
 def _engine(fn, **kw):
-    return tserving.BatchingEngine(fn, device="cpu", **kw)
+    return tserving.BatchingEngine(fn, **kw)
 
 
 def test_engine_matches_jax_engine():
@@ -157,6 +159,7 @@ def test_long_form_path():
         calls.append((tuple(wav.shape), None if lengths is None else lengths.tolist()))
         return wav
 
+    ident.device = torch.device("cpu")
     eng = _engine(ident, chunk_seconds=1.0, normalize=False, autostart=False)
     w = np.sin(np.linspace(0, 100, 3 * 8000 + 123)).astype(np.float32)
     fut = eng.submit(w, 8000)
@@ -179,6 +182,7 @@ def test_retries_and_errors(max_retries):
             raise RuntimeError("device fell over")
         return wav
 
+    flaky.device = torch.device("cpu")
     eng = _engine(flaky, max_batch=2, max_retries=max_retries, autostart=False)
     futs = [eng.submit(np.ones(100, np.float32), 8000) for _ in range(2)]
     eng.step()
@@ -206,9 +210,13 @@ def test_one_seeded_generator_for_every_batch():
 
 
 def test_engine_default_device_needs_a_card(monkeypatch):
+    """The engine runs where its enhance closure's model lives; a closure on
+    the card, which the entry points build by default, needs one."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fake = FakeEnhance()
+    fake.device = torch.device("cuda")
     with pytest.raises(RuntimeError, match="cuda"):
-        tserving.BatchingEngine(FakeEnhance(), autostart=False)
+        tserving.BatchingEngine(fake, autostart=False)
 
 
 def test_engine_stress_concurrent_submitters():

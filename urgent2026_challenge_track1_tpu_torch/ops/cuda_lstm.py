@@ -56,8 +56,7 @@ bfloat16, h and c always float32):
 
 Index 0 of the stacked K1 weights is the forward direction, 1 the backward.
 ``route_counts(name)`` reads the launches per route ("persistent", "walk") of
-K1-K7, ``carry_counts()`` those of K2 with a carry; ``reset_launch_counts``
-zeroes them with the launch counts.
+K1-K7; ``reset_launch_counts`` zeroes them with the launch counts.
 ``LSTMDirTrain`` (K4/K5) and ``LSTMRevMaskedTrain`` (K6/K7) are the autograd
 Functions of the training path; ``lstm_dir`` and ``lstm_dir_revmasked``
 route to them when autograd records and to the lean K2/K3 otherwise (under
@@ -144,7 +143,6 @@ __all__ = [
     "reset_launch_counts",
     "launch_counts",
     "route_counts",
-    "carry_counts",
 ]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -1067,8 +1065,7 @@ def lstm_scan(x_proj: torch.Tensor, w_hh_t: torch.Tensor, reverse: bool = False,
     chunked stream (JAX ``_scan_dir``'s): ``initial_state`` (h0 (R, H) in
     x_proj's dtype, c0 (R, H) float32) starts the walk there instead of at
     zeros, and ``return_state`` returns (h, (hT, cT)), the last step's
-    state in the same dtypes.  A launch with a carry also counts in
-    ``lstm_scan.carry[route]``."""
+    state in the same dtypes."""
     return _routed(lstm_scan_plain, lstm_scan_walk, lstm_scan_persistent, False,
                    x_proj, w_hh_t, reverse, initial_state=initial_state,
                    return_state=return_state)
@@ -1085,11 +1082,9 @@ def lstm_revmasked(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
                    x_proj, w_hh_t, lengths)
 
 
-def _count(fn, route: str, carry: bool = False) -> None:
+def _count(fn, route: str) -> None:
     fn.launches += 1
     fn.routes[route] += 1
-    if carry:
-        fn.carry[route] += 1
 
 
 def _carry_buffers(x_proj: torch.Tensor, initial_state, return_state: bool):
@@ -1136,7 +1131,7 @@ def lstm_scan_walk(x_proj: torch.Tensor, w_hh_t: torch.Tensor, reverse: bool = F
                    initial_state=None, return_state: bool = False):
     """K2's walk (csrc/lstm_kernels.cu ``recurrence_kernel``), float32 or
     bfloat16, with ``lstm_scan``'s carry; counted in ``lstm_scan.launches``
-    and ``.routes["walk"]`` (and ``.carry["walk"]`` with a carry)."""
+    and ``.routes["walk"]``."""
     if x_proj.device.type == "cpu":
         return lstm_scan_plain(x_proj, w_hh_t, reverse, initial_state, return_state)
     dtype, stream = _kernel_args(x_proj, x_proj.shape[-1] // 4)
@@ -1152,7 +1147,7 @@ def lstm_scan_walk(x_proj: torch.Tensor, w_hh_t: torch.Tensor, reverse: bool = F
         stream,
     )
     _raise_on(err, "lstm_scan")
-    _count(lstm_scan, "walk", initial_state is not None or return_state)
+    _count(lstm_scan, "walk")
     return (out, (hT, cT)) if return_state else out
 
 
@@ -1186,8 +1181,7 @@ def _scan_persistent(fn, x_proj, w_hh_t, reverse, lengths, plan, store=False,
     K6p (the float32 route: f32 throughout, 3xTF32 products).  K2p only:
     ``lstm_scan``'s carry (``initial_state``, ``return_state``)."""
     name = fn.__name__ + "_persistent"
-    carry = initial_state is not None or return_state
-    if carry and (store or lengths is not None):
+    if (initial_state is not None or return_state) and (store or lengths is not None):
         raise ValueError(f"{name} takes no carry: only K2p carries (h, c)")
     if x_proj.device.type != "cuda":
         raise ValueError(f"kernel input on unsupported device {x_proj.device}")
@@ -1227,7 +1221,7 @@ def _scan_persistent(fn, x_proj, w_hh_t, reverse, lengths, plan, store=False,
         ctypes.c_void_p(torch.cuda.current_stream(x_proj.device).cuda_stream),
     )
     _raise_on(err, name)
-    _count(fn, "persistent", carry)
+    _count(fn, "persistent")
     if return_state:
         return out, (hT, cT)
     return (out, *res) if store else out
@@ -1238,8 +1232,7 @@ def lstm_scan_persistent(x_proj: torch.Tensor, w_hh_t: torch.Tensor, reverse: bo
                          return_state: bool = False):
     """K2p (csrc/lstm_persistent.cu), bfloat16 only: packs W_hh for ``plan``
     and launches one cooperative grid; with ``lstm_scan``'s carry.  Counted
-    in ``lstm_scan.launches`` and ``.routes["persistent"]`` (and
-    ``.carry["persistent"]`` with a carry)."""
+    in ``lstm_scan.launches`` and ``.routes["persistent"]``."""
     if x_proj.device.type == "cpu":
         return lstm_scan_plain(x_proj, w_hh_t, reverse, initial_state, return_state)
     return _scan_persistent(lstm_scan, x_proj, w_hh_t, reverse, None, plan,
@@ -1833,7 +1826,6 @@ def reset_launch_counts() -> None:
         fn.launches = 0
     for fn in ROUTED:
         fn.routes = {"persistent": 0, "walk": 0}
-    lstm_scan.carry = {"persistent": 0, "walk": 0}
 
 
 def launch_counts() -> dict[str, int]:
@@ -1846,13 +1838,6 @@ def route_counts(kernel: str = "fusedin_bilstm") -> dict[str, int]:
     ``lstm_train_bwd``, K6 ``lstm_revmasked_train_fwd`` or K7
     ``lstm_revmasked_bwd``) since the last reset."""
     return dict(next(fn for fn in ROUTED if fn.__name__ == kernel).routes)
-
-
-def carry_counts() -> dict[str, int]:
-    """The launches per route of K2 with a carry (``initial_state`` or
-    ``return_state``) since the last reset; they count in
-    ``route_counts("lstm_scan")`` too."""
-    return dict(lstm_scan.carry)
 
 
 reset_launch_counts()

@@ -62,7 +62,7 @@ F32_BWD_LIMIT = 1e-5
 # sits between
 DW_F32_BOUND = 2e-6
 # the float32 walks against their plain versions, absolute
-# (scripts/check_pallas_tpu.py:29-34; chip_smoke.py's F32_TOL)
+# (scripts/check_pallas_tpu.py:29-34); chip_smoke.py holds every walk to it
 WALK_F32_TOL = 2e-4
 
 
@@ -92,10 +92,9 @@ def carry_limit(ref: torch.Tensor) -> float:
     return WALK_F32_TOL if ref.dtype == torch.float32 else ulp_limit(ref)
 
 
-def lstm_scan_dropped_carry(x_proj: torch.Tensor, w_hh_t: torch.Tensor, reverse: bool = False,
-                            initial_state=None):
+def lstm_scan_dropped_carry(x_proj: torch.Tensor, w_hh_t: torch.Tensor, reverse: bool = False):
     """K2's plain version with its carry dropped: the walk starts from zeros
-    instead of ``initial_state`` -> (h, (hT, cT))."""
+    instead of the given (h0, c0) -> (h, (hT, cT))."""
     return lstm_scan_plain(x_proj, w_hh_t, reverse, None, True)
 
 
@@ -107,7 +106,7 @@ def scan_carry_report(got: torch.Tensor, state, x_proj: torch.Tensor, w_hh_t: to
     the limits (``carry_limit``, cT's in float32 at the scale of the plain
     cT: 4 bf16 ulps on K2p); the dropped-carry fault's difference."""
     ref, (rh, rc) = lstm_scan_plain(x_proj, w_hh_t, reverse, initial_state, True)
-    dropped, _ = lstm_scan_dropped_carry(x_proj, w_hh_t, reverse, initial_state)
+    dropped, _ = lstm_scan_dropped_carry(x_proj, w_hh_t, reverse)
     last = 0 if reverse else got.shape[1] - 1
 
     def err(a, b):

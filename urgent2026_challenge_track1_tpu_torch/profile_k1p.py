@@ -5,7 +5,7 @@
 Builds the kernels with ``-DK1P_PHASE_CLOCKS`` (each CTA sums its clock64
 cycles per phase of a step) through ``ops._build``, runs the port's own
 wrapper ``fusedin_bilstm_persistent`` on that library once to warm up and
-once measured at each shape (by default the seven where K1 runs; seeded
+once measured at each shape (by default the eight where K1 runs; seeded
 random bfloat16 inputs at the LSTM init's scale), and prints per shape the plan, the
 wrapper's CUDA-event time and each phase's cycles per chunk pass, averaged
 over the CTAs.  The last line is one JSON record.  The counters exist only
@@ -30,10 +30,11 @@ PHASES = ("c_load", "stage_x", "x_w_ih", "wait", "stage_h", "h_w_hh", "reduce", 
           "arrive")
 # (R, T, N, H): one utterance's band path, the disc train step's band path,
 # the bench forward's band and time paths, the flow train step's band path,
-# one flow enhancement's band and time paths (chip_smoke.K1_ROUTE_SHAPES)
+# one flow enhancement's band and time paths, a causal streaming step's band
+# path (8 frames, B = 1) (chip_smoke.K1_ROUTE_SHAPES)
 ROUTE_SHAPES = ((401, 34, 196, 392), (804, 34, 196, 392), (25664, 34, 192, 384),
                 (2176, 401, 192, 384), (502, 48, 384, 768), (501, 48, 384, 768),
-                (48, 501, 384, 768))
+                (48, 501, 384, 768), (8, 34, 196, 392))
 PHASE_CLOCKS = ("K1P_PHASE_CLOCKS",)
 
 
@@ -69,7 +70,7 @@ def profile_shape(dll, dev, R, T, N, H, seed=0) -> dict:
 def main(argv=None) -> list:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--shape", action="append", default=None,
-                   help="R,T,N,H (repeatable; default: the seven shapes where K1 runs)")
+                   help="R,T,N,H (repeatable; default: the eight shapes where K1 runs)")
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
     shapes = ([tuple(int(v) for v in s.split(",")) for s in args.shape] if args.shape

@@ -230,7 +230,7 @@ def main(args) -> None:
     if streamer is not None:
         print("real-time /stream enabled (causal streaming checkpoint)")
     engine = BatchingEngine(enhance, max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
-                            chunk_seconds=args.chunk_seconds, device=device)
+                            chunk_seconds=args.chunk_seconds)
     server = make_server(engine, args.host, args.port, platform=str(device),
                          device_name=device_name, streamer=streamer,
                          stream_chunk_frames=args.stream_chunk_frames)

@@ -42,7 +42,10 @@ def make_enhance_fn(kind: str, model: nn.Module, model_cfg, stft_cfg, nfe: int =
     its ``FlowSEConfig``) samples with ``nfe`` steps of ``solver``, its
     priors drawn from ``generator``, or from the closure's own generator on
     the model's device, seeded with 0 (the key the JAX CLI starts from).
-    The discriminative model ignores ``generator``."""
+    The discriminative model ignores ``generator``.  The closure's
+    ``device`` attribute is the model's device, where the engine sends its
+    batches."""
+    device = next(model.parameters()).device
     if kind == "discriminative":
         @torch.inference_mode()
         def enhance(wav: torch.Tensor, fs: int, lengths: Optional[torch.Tensor] = None,
@@ -50,10 +53,10 @@ def make_enhance_fn(kind: str, model: nn.Module, model_cfg, stft_cfg, nfe: int =
             out, _ = bsrnn_mod.bsrnn_se_apply(model, stft_cfg, wav, fs, lengths=lengths)
             return out
 
+        enhance.device = device
         return enhance
     if kind != "flowse":
         raise ValueError(f"model kind {kind!r}: expected discriminative or flowse")
-    device = next(model.parameters()).device
     own = torch.Generator(device=device).manual_seed(0)
 
     @torch.inference_mode()
@@ -62,6 +65,7 @@ def make_enhance_fn(kind: str, model: nn.Module, model_cfg, stft_cfg, nfe: int =
         return flow_mod.flowse_enhance(model, model_cfg, wav, fs, N=nfe, solver=solver,
                                        lengths=lengths, generator=generator or own)
 
+    enhance_flow.device = device
     return enhance_flow
 
 
@@ -83,7 +87,8 @@ class BatchingEngine:
     """Groups enhancement requests into device batches.
 
     enhance:        ``(wav (B, T) f32, fs, lengths (B,) int32, generator=)
-                    -> (B, T)`` on ``device`` (see :func:`make_enhance_fn`).
+                    -> (B, T)`` on ``enhance.device``, the model's device,
+                    where batches run (see :func:`make_enhance_fn`).
     max_batch:      flush a (fs, bucket) group as soon as this many requests
                     wait; also the padded batch-size cap.
     max_wait_ms:    flush a group once its oldest request has waited this
@@ -95,9 +100,9 @@ class BatchingEngine:
     normalize:      the CLI's 0.9 peak normalization of each output.
     max_retries:    re-dispatch a failed batch this many times before
                     failing its requests (0: a kernel fault fails at once).
-    seed:           the seed of the one ``torch.Generator`` on ``device``
-                    that every flow request draws its prior from.
-    device:         where batches run, the model's (``cuda`` by default).
+    seed:           the seed of the one ``torch.Generator`` on
+                    ``enhance.device`` that every flow request draws its
+                    prior from.
     autostart:      start the background dispatch thread (tests drive
                     :meth:`step` by hand with ``autostart=False``).
     """
@@ -105,7 +110,7 @@ class BatchingEngine:
     def __init__(self, enhance: Callable, *, max_batch: int = 8,
                  max_wait_ms: float = 25.0, bucket_seconds: float = 1.0,
                  chunk_seconds: float = 30.0, normalize: bool = True,
-                 max_retries: int = 1, seed: int = 0, device="cuda",
+                 max_retries: int = 1, seed: int = 0,
                  autostart: bool = True):
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
@@ -116,7 +121,7 @@ class BatchingEngine:
         self.chunk_seconds = float(chunk_seconds)
         self.normalize = bool(normalize)
         self.max_retries = int(max_retries)
-        self.device = resolve_device(device)
+        self.device = resolve_device(enhance.device)
         self._seed = seed
         self._generator: Optional[torch.Generator] = None  # made at the first dispatch
         self._lock = threading.Lock()
