@@ -74,7 +74,16 @@ Phases (any failure exits non-zero; each prints its seconds):
      make_enhance_fn, /stats, /healthz, and POST /stream against the
      StreamingSession; before these, K2 with a carry (K2p and the float32
      walk) against its plain version with a dropped-carry fault (the
-     carry_routes phase);
+     carry_routes phase); then the dynamic-mixing config with
+     dynamic_mixing_on_device (phase_dm_device: 2 steps and a validation
+     through ``train_se.run``, the batches rendered on the card inside the
+     step, K4p-f32 - K7p-f32; one batch rendered on the card against the
+     CPU render, with a control), after phase_dm_training renders one codec
+     item where ``codecs_available()`` (printed after the build) is True;
+     then SGMSE at 196 x 6 (phase_sgmse: score, DSM loss and gradients and
+     an N = 3 enhancement in float32 against the CPU; a bf16 enhancement
+     at N = 50 over 4 s at 48 kHz through K1p, its launches and wall time,
+     against the float32 run of the same draws, with a control);
   4. the A/B arms of the two experiment toggles (default, STREAM_INPUT_TRAIN,
      FUSED_BIDIR_TRAIN, both, in alternating order) on one train step of
      each family: launches per kernel, loss and gradients against the
@@ -88,8 +97,10 @@ Phases (any failure exits non-zero; each prints its seconds):
      launches per step and K4-K7's routes per dtype (K4p-K7p and their dW
      kernel in either dtype; no train step runs a walk),
      K1-K7 at the flow shapes,
-     K8-K10 at both widths' training shapes, the flow train step and one
-     flow enhancement.
+     K8-K10 at both widths' training shapes (with the nn.LSTM calls for
+     their functions: K8 a one-direction training forward, K9/K10 the
+     bidirectional forward and backward, supersets), the flow train step
+     and one flow enhancement.
 
 The second line from the end is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or without the port
@@ -2186,12 +2197,15 @@ def phase_dm_training(workdir: Path):
     mixing from FLAC speech sources, rendered by the spawned process pool,
     2 steps and one validation on a FLAC pre-simulated split.  Then the
     loader alone over one epoch, and the render of one item in this
-    process.  Returns the run's routes and timings."""
+    process; where a codec backend exists, one codec augmentation.  Returns
+    the run's routes and timings."""
+    import numpy as np
     import torch
     from urgent2026_challenge_track1_tpu_torch import train_se
     from urgent2026_challenge_track1_tpu_torch.data.dataset import AudioDataModule
     from urgent2026_challenge_track1_tpu_torch.models.bsrnn import BSRNNConfig, init_bsrnn
     from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
+    from urgent2026_challenge_track1_tpu_torch.simulation import dsp, render
 
     root = _write_dm_sources(workdir / "dm_train", 30)
     _write_split(workdir / "dm_valid", (2.0, 1.75, 1.5, 1.25), 31, ext="flac")
@@ -2249,7 +2263,19 @@ def phase_dm_training(workdir: Path):
         t1 = time.perf_counter()
         dm.train_dataset[i]
         item_s.append(time.perf_counter() - t1)
-    out = {"dm_step_s": step_s, "dm_loader_wait_s": wait_s,
+    codec_s = None
+    if dsp.codecs_available():  # one codec augmentation of a 48 kHz source, on the host
+        speech, _ = render.read_audio(str(root / "speech0.flac"), force_1ch=True)
+        t1 = time.perf_counter()
+        coded = render.apply_augmentations(speech, 48000,
+                                           "codec(format=mp3,encoder=None,qscale=3)")
+        codec_s = time.perf_counter() - t1
+        print(f"[dm training] one mp3 codec item ({speech.shape[-1]} samples) rendered in "
+              f"{codec_s:.3f} s")
+        if coded.shape != speech.shape or not np.isfinite(coded).all() or np.array_equal(
+                coded, speech):
+            fail("the codec augmentation returned a wrong-shaped, non-finite or unchanged item")
+    out = {"dm_step_s": step_s, "dm_loader_wait_s": wait_s, "codec_item_s": codec_s,
            "dm_loader_share": sum(wait_s) / (sum(wait_s) + sum(step_s)),
            "presimulated_step_s": presim, "loader_epoch_batch_ready_s": batch_s,
            "render_item_s": item_s, "host_cpus": os.cpu_count(), "num_worker": cfg.num_worker}
@@ -2351,6 +2377,258 @@ def phase_rk45(workdir: Path, ckpt: Path, device):
         fail("rk45: the decoded waveform is not finite or has the wrong length")
     _check_routes("the RK45 flow sampler", "bfloat16", routes, ("fusedin_bilstm",))
     return {"rk45_nfev": nfev, "rk45_s": seconds, "rk45_input_s": RK45_SECONDS}
+
+
+SGMSE_SEED = 70
+SGMSE_N = 50  # sgmse_enhance's default: 50 steps, one correction each, 100 network calls
+# bf16 against f32 (the same weights and draws, N = 50, 4 s at 48 kHz): the
+# relative gap of the enhanced waveforms' compressed spectra, max|d| / max|f32|.
+# Read 7.3e-3 on an H100 at 700 W; the control (one step's corrector noise
+# dropped) read 2.9e-2: the bound sits at twice the reading, half the control.
+SGMSE_BF16_BOUND = 1.5e-2
+
+
+def _spec_rel(wav, ref, fs, stft_cfg) -> float:
+    """max|d| / max|ref| between the compressed spectra of two waveforms,
+    the domain the SGMSE sampler works in."""
+    from urgent2026_challenge_track1_tpu_torch.dsp import stft as dsp
+
+    a = dsp.stft_encode(wav.float(), fs, stft_cfg)
+    b = dsp.stft_encode(ref.float().to(wav.device), fs, stft_cfg)
+    return float((a - b).abs().max() / (b.abs().max() + 1e-12))
+
+
+def _sgmse_draws(y, N, corrector_steps, seed):
+    """The prior z and each step's corrector and predictor noises of one
+    enhancement of spectrum ``y``, drawn on its device from one seed."""
+    import torch
+    from urgent2026_challenge_track1_tpu_torch.models.odes import complex_normal_like
+
+    gen = torch.Generator(device=y.device).manual_seed(seed)
+    prior = complex_normal_like(y, gen)
+    return prior, [[complex_normal_like(y, gen) for _ in range(corrector_steps + 1)]
+                   for _ in range(N)]
+
+
+def phase_sgmse(device, channels=N_IN, layers=6, seconds=(1.0, 4.0), N=SGMSE_N):
+    """SGMSE at the full SGMSEConfig width (196 x 6, n_fft 1536, seeded
+    weights).  (a) float32, 1 s at 48 kHz, B=1, card against the port's CPU
+    path: score_fn, sgmse_loss with injected t and z and its gradients (the
+    loss step's routes: K4p-f32, K5p-f32 and dW-f32, no K6/K7, none of
+    K1-K3), sgmse_enhance at N = 3 with injected draws; each within
+    E2E_TOL, the sample's as the relative gap of its compressed spectrum.
+    (b) bfloat16 sgmse_enhance at N = 50, 4 s at 48 kHz, B=1: finite, exact
+    length, its K1p launches and wall time, and its gap to the float32 card
+    run of the same weights and draws within SGMSE_BF16_BOUND, which the
+    bf16 run with one step's corrector noise dropped must exceed."""
+    import copy
+
+    import numpy as np
+    import torch
+    from urgent2026_challenge_track1_tpu_torch.dsp import stft as dsp
+    from urgent2026_challenge_track1_tpu_torch.models import sgmse as S
+    from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
+
+    fs = 48000
+    cfg = S.SGMSEConfig(bsrnn_hidden=channels, num_layer=layers)
+    model = S.init_sgmse(cfg, seed=SGMSE_SEED, device=device)
+    cpu_model = copy.deepcopy(model).cpu()
+    rng = np.random.default_rng(71)
+
+    def waves(seconds):
+        n = int(seconds * fs)
+        t = np.arange(n) / fs
+        clean = 0.3 * np.sin(2 * np.pi * 220.0 * t) * (np.sin(2 * np.pi * 2.0 * t) > -0.3)
+        noisy = clean + 0.05 * rng.standard_normal(n)
+        return (torch.from_numpy(clean.astype(np.float32))[None],
+                torch.from_numpy(noisy.astype(np.float32))[None])
+
+    # (a) float32, card against CPU
+    clean, noisy = waves(seconds[0])
+    y = dsp.stft_encode(noisy, fs, cfg.stft_cfg)
+    gen = torch.Generator().manual_seed(72)
+    x = y + 0.3 * torch.complex(torch.randn(y.shape, generator=gen),
+                                torch.randn(y.shape, generator=gen))
+    t = torch.tensor([0.6])
+    with torch.no_grad():
+        ref = S.score_fn(cpu_model, cfg, x, t, y, fs)
+        got = S.score_fn(model, cfg, x.to(device), t.to(device), y.to(device), fs)
+    score_err = float((got.cpu() - ref).abs().max())
+    t_loss = torch.tensor([0.37])
+    z = torch.complex(torch.randn(y.shape, generator=gen), torch.randn(y.shape, generator=gen))
+    z = z * 0.5 ** 0.5
+    losses = []
+    for m, dev in ((cpu_model, torch.device("cpu")), (model, device)):
+        if dev.type == "cuda":
+            K.reset_launch_counts()
+        loss = S.sgmse_loss(m, cfg, clean.to(dev), noisy.to(dev), fs, t=t_loss.to(dev),
+                            z=z.to(dev))
+        loss.backward()
+        losses.append(float(loss.detach()))
+    torch.cuda.synchronize()
+    counts, routes = K.launch_counts(), _routes()
+    loss_rel = abs(losses[1] - losses[0]) / abs(losses[0])
+    cpu_grads = dict(cpu_model.named_parameters())
+    grad_rel = max(_rel(p.grad.cpu(), cpu_grads[n].grad) for n, p in model.named_parameters()
+                   if float(cpu_grads[n].grad.abs().max()) > 0)
+    _check_no_lean_kernels("the SGMSE loss step", counts)
+    _check_routes("the SGMSE loss step", "float32", routes, ("lstm_train_fwd", "lstm_train_bwd"))
+    masked = {k: counts[k] for k in ("lstm_revmasked_train_fwd", "lstm_revmasked_bwd")}
+    if any(masked.values()):
+        fail(f"the SGMSE loss step (no lengths) launched the masked kernels {masked}")
+    dw = _check_dw_launches("the SGMSE loss step", routes)
+    loss_launches = {k: v for k, v in counts.items() if v}
+    prior, noises = _sgmse_draws(y, 3, 1, 73)
+    with torch.no_grad():
+        ref = S.sgmse_enhance(cpu_model, cfg, noisy, fs, N=3, prior_z=prior, noises=noises)
+        got = S.sgmse_enhance(model, cfg, noisy.to(device), fs, N=3, prior_z=prior.to(device),
+                              noises=[[d.to(device) for d in s] for s in noises])
+    enh_spec_rel = _spec_rel(got, ref, fs, cfg.stft_cfg)
+    enh_wave_rel = _rel(got.cpu(), ref)
+    print(f"[sgmse] f32 {channels}x{layers}, {seconds[0]} s at 48 kHz, card vs CPU: score max|d| "
+          f"{score_err:.3e}, loss "
+          f"{losses[1]:.6g} rel d {loss_rel:.3e}, grads max rel d {grad_rel:.3e}, N=3 enhance "
+          f"spectrum rel d {enh_spec_rel:.3e} (waveform rel d {enh_wave_rel:.3e}, peak "
+          f"{float(ref.abs().max()):.4g}); tolerance {E2E_TOL}; loss step launches "
+          f"{loss_launches}, dW {dw}")
+    for what, err in (("score", score_err), ("loss", loss_rel), ("gradients", grad_rel),
+                      ("N=3 enhancement", enh_spec_rel)):
+        if not err < E2E_TOL:
+            fail(f"sgmse {what}: card and CPU differ by {err:.3e} >= {E2E_TOL}")
+    del cpu_model, cpu_grads
+    model.zero_grad(set_to_none=True)
+
+    # (b) bfloat16, N = 50, 4 s, against float32 on the card
+    _, noisy = waves(seconds[1])
+    noisy = noisy.to(device)
+    n = noisy.shape[-1]
+    y = dsp.stft_encode(noisy, fs, cfg.stft_cfg)
+    prior, noises = _sgmse_draws(y, N, 1, 74)
+    bcfg = S.SGMSEConfig(bsrnn_hidden=channels, num_layer=layers, compute_dtype="bfloat16")
+    bmodel = S.init_sgmse(bcfg, seed=SGMSE_SEED, device=device).eval()
+    with torch.no_grad():
+        S.sgmse_enhance(bmodel, bcfg, noisy[:, :fs], fs, N=2)  # warm-up
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = S.sgmse_enhance(bmodel, bcfg, noisy, fs, N=N, prior_z=prior, noises=noises)
+        torch.cuda.synchronize()
+        bf16_s = time.perf_counter() - t0
+        counts, routes = K.launch_counts(), _routes()
+        t0 = time.perf_counter()
+        out32 = S.sgmse_enhance(model.eval(), cfg, noisy, fs, N=N, prior_z=prior, noises=noises)
+        torch.cuda.synchronize()
+        f32_s = time.perf_counter() - t0
+        dropped = [list(step) for step in noises]
+        dropped[N // 2][0] = torch.zeros_like(dropped[N // 2][0])
+        control = S.sgmse_enhance(bmodel, bcfg, noisy, fs, N=N, prior_z=prior, noises=dropped)
+    _check_routes("the bf16 SGMSE sampler", "bfloat16", routes, ("fusedin_bilstm",))
+    k1p = routes["fusedin_bilstm"]["persistent"]
+    gap = _spec_rel(out, out32, fs, cfg.stft_cfg)
+    control_gap = _spec_rel(control, out32, fs, cfg.stft_cfg)
+    power = gpu_name_and_power()
+    print(f"[sgmse] bf16 N={N} (1 correction a step), {seconds[1]} s at 48 kHz, B=1: "
+          f"{bf16_s:.2f} s ({power}), K1p launches {k1p}, launches { {k: v for k, v in counts.items() if v} }; "
+          f"f32 the same {f32_s:.2f} s; bf16 vs f32 spectrum rel d {gap:.3e} (bound "
+          f"{SGMSE_BF16_BOUND}), the corrector noise of step {N // 2} dropped "
+          f"{control_gap:.3e}; peak {float(out32.abs().max()):.4g}")
+    if out.shape != (1, n) or not bool(torch.isfinite(out).all()):
+        fail("sgmse: the bf16 enhancement is not finite or has the wrong length")
+    if k1p != 2 * layers * 2 * N:
+        fail(f"sgmse: {k1p} K1p launches, expected {2 * layers * 2 * N} (2 a layer a call)")
+    if not gap < SGMSE_BF16_BOUND < control_gap:
+        fail(f"sgmse: bf16 vs f32 {gap:.3e} and the control {control_gap:.3e} do not bracket "
+             f"the bound {SGMSE_BF16_BOUND}")
+    return {"sgmse_score_err": score_err, "sgmse_loss_rel_err": loss_rel,
+            "sgmse_grad_rel_err": grad_rel, "sgmse_enhance_n3_spec_rel_err": enh_spec_rel,
+            "sgmse_enhance_n3_wave_rel_err": enh_wave_rel, "sgmse_loss_launches": loss_launches,
+            "sgmse_loss_dw_launches": dw, "sgmse_bf16_n50_s": bf16_s, "sgmse_f32_n50_s": f32_s,
+            "sgmse_k1p_launches": k1p, "sgmse_bf16_vs_f32_spec_rel": gap,
+            "sgmse_dropped_noise_spec_rel": control_gap, "card": power}
+
+
+# card (cuFFT) against CPU (pocketfft), on outputs peak-normalised to 0.9
+DM_DEVICE_RENDER_BOUND = 1e-5
+
+
+def phase_dm_device(workdir: Path, device, host_dm):
+    """The values of conf/models/BSRNN_baseline_dm.yaml with
+    dynamic_mixing_on_device (196 x 6, B=4, max_duration 96000, num_worker
+    2, float32) through ``train_se.run``: 2 steps and one validation, the
+    batches' sources and recipes from two spawned workers, rendered on the
+    card inside the step (K4p-f32 - K7p-f32 + dW-f32, no walk of K4-K7).
+    Then one collated batch rendered on the card against the CPU render of
+    the same batch, within DM_DEVICE_RENDER_BOUND; the control (the batch
+    with every SNR 1 dB higher) must exceed it.  ``host_dm``:
+    phase_dm_training's times, printed beside these."""
+    import numpy as np
+    import torch
+    from urgent2026_challenge_track1_tpu_torch import train_se
+    from urgent2026_challenge_track1_tpu_torch.data import dynamic_device as dd
+    from urgent2026_challenge_track1_tpu_torch.data.dataset import AudioDataModule
+    from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
+
+    root = _write_dm_sources(workdir / "dmdev_train", 33)
+    _write_split(workdir / "dmdev_valid", (2.0, 1.75, 1.5, 1.25), 34, ext="flac")
+    cfg = _train_config(workdir, train_set_path=str(root),
+                        valid_set_path=str(workdir / "dmdev_valid"),
+                        train_set_dynamic_mixing=True, dynamic_mixing_on_device=True,
+                        use_high_pass=True, num_train_epochs=1, val_check_interval=2,
+                        train_name="dm_device")
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        state = train_se.run(cfg)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts, routes = K.launch_counts(), _routes()
+        dw = _check_dw_launches("the on-device dm training path", routes)
+    finally:
+        os.chdir(cwd)
+    print(f"[dm device] 1 epoch x 2 steps (+ 1 validation, 1 save) in {seconds:.1f} s, launches "
+          f"{counts}, routes {routes}, dW {dw}")
+    if (state.step, state.epoch) != (2, 1):
+        fail(f"on-device dm training ended at step {state.step}, epoch {state.epoch}")
+    records = _metrics(workdir, "dm_device")
+    steps = [r for r in records if "train_loss" in r]
+    vals = [r["val_loss"] for r in records if "val_loss" in r]
+    if len(steps) != 2 or len(vals) != 1 or None in [r["train_loss"] for r in steps] + vals:
+        fail("on-device dm training logged missing or non-finite losses")
+    for fn in K.KERNELS[:7]:
+        if counts[fn.__name__] <= 0:
+            fail(f"kernel {fn.__name__} was not launched on the on-device dm training path")
+    _check_routes("the on-device dm training path", "float32", routes,
+                  INFERENCE_KERNELS + TRAIN_ROUTED)
+    step_s = [r["step_time"] for r in steps]
+    wait_s = [r["data_time"] for r in steps]
+    ds = AudioDataModule(cfg).train_dataset
+    ds.rng = np.random.RandomState(35)  # this batch's recipes: a fixed draw
+    batch = dd.collate_device_render([ds[i] for i in range(4)], cfg.length_bucket_ms)
+    if batch["prerendered_mask"].sum() == 4:
+        fail("the on-device render check drew no row for the card to render")
+    cpu = dd.render_on_device(batch, True, "cpu")
+    card = dd.render_on_device(batch, True, device)
+    err = max(float((c.cpu() - r).abs().max()) for c, r in zip(card, cpu))
+    louder = dd.DeviceRenderBatch(batch, snr_db=batch["snr_db"] + 1.0)
+    ctrl = dd.render_on_device(louder, True, device)
+    control = float((ctrl[1].cpu() - cpu[1]).abs().max())
+    render_ms = _time_ms(lambda: dd.render_on_device(batch, True, device), reps=3, warmup=1)
+    out = {"dm_device_step_s": step_s, "dm_device_loader_wait_s": wait_s,
+           "dm_device_render_ms": render_ms, "dm_device_render_err": err,
+           "dm_device_render_control": control,
+           "dm_device_prerendered_rows": int(batch["prerendered_mask"].sum()),
+           "dm_device_bucket_T": int(batch["speech"].shape[-1])}
+    print(f"[dm device] step seconds {step_s} (host render: {host_dm['dm_step_s']}), loader wait "
+          f"seconds {wait_s} (host render: {host_dm['dm_loader_wait_s']}); one batch (B=4, T="
+          f"{out['dm_device_bucket_T']}, {out['dm_device_prerendered_rows']} rows rendered on the "
+          f"host) rendered on the card in {render_ms:.3f} ms, card vs CPU max|d| {err:.3e} "
+          f"(bound {DM_DEVICE_RENDER_BOUND}), SNR + 1 dB control {control:.3e}")
+    if not err < DM_DEVICE_RENDER_BOUND < control:
+        fail(f"on-device render: card vs CPU {err:.3e} and the control {control:.3e} do not "
+             f"bracket the bound {DM_DEVICE_RENDER_BOUND}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2518,6 +2796,53 @@ def phase_flow_card_vs_cpu(device):
 # ---------------------------------------------------------------------------
 
 
+def _bilstm_reference_ms(device, R, T, H, dtype, backward):
+    """A bidirectional ``torch.nn.LSTM`` (N = H / 2 inputs, TF32 off) over R
+    rows of T steps: its training forward, or (``backward``) the backward
+    of its input and weight gradients; a superset of K9's or K10's work (it
+    adds the W_ih products)."""
+    import torch
+
+    N = max(1, H // 2)
+    lstm = torch.nn.LSTM(N, H, batch_first=True, bidirectional=True).to(device, dtype).train()
+    x = (0.3 * torch.randn((R, T, N), device=device)).to(dtype).requires_grad_()
+    if backward:
+        y, _ = lstm(x)
+        g = torch.randn_like(y)
+        params = [x, *lstm.parameters()]
+        ms = _time_ms(lambda: torch.autograd.grad(y, params, g, retain_graph=True), reps=3,
+                      warmup=1)
+        del y, g
+    else:
+        ms = _time_ms(lambda: lstm(x), reps=3, warmup=1)
+    del lstm, x
+    return ms
+
+
+def _new_kernel_library_ms(device, name, R, T, hid):
+    """{bf16, f32} times of the PyTorch call for K8-K10's function: K8 is a
+    one-direction ``nn.LSTM`` training forward (its very function); K9 and
+    K10 the bidirectional ``nn.LSTM`` forward and backward (supersets)."""
+    import torch
+
+    out = {}
+    for key, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        if name == "lstm_train_fwd_streamin":
+            out[key] = _lstm_forward_reference_ms(device, R, T, hid, dtype, True)
+        else:
+            out[key] = _bilstm_reference_ms(device, R, T, hid, dtype,
+                                            name == "lstm_train_bwd2")
+    return out
+
+
+LIBRARY_K8_K10 = {
+    "lstm_train_fwd_streamin": "torch.nn.LSTM one direction, training forward (K8's function)",
+    "lstm_train_fwd2": "superset: bidirectional torch.nn.LSTM training forward (adds W_ih)",
+    "lstm_train_bwd2": "superset: bidirectional torch.nn.LSTM backward, input and weight "
+                       "gradients (adds W_ih)",
+}
+
+
 def _new_kernel_bounds(R, T, n_in, hid):
     """Least time (ms) of K8-K10's bf16 work: K8 2 R T (N + H) 4H operations,
     reading x (N wide, not x_proj), W_ih, b and W_hh and writing h, gates and
@@ -2538,7 +2863,7 @@ def _new_kernel_times(device, ab, ab_counts, new_errs):
     """K8 at the discriminative time path (R = 136, T = 201; the band path
     printed beside it) and K9/K10 at its band path (R = 804, T = 34), bf16:
     kernel, plain version and bound; no PyTorch call computes a
-    residual-storing recurrence, so the library time is none.  ``launches``
+    residual-storing recurrence but K8's.  ``launches``
     is the A/B phase's count (one reset, one read), and the launches of one
     train step are those measured in each family's first visit of each arm.
     The same at the flow training shapes (N = 384, H = 768: K8 at the time
@@ -2578,15 +2903,18 @@ def _new_kernel_times(device, ab, ab_counts, new_errs):
             ms = _time_ms(kern, reps=3 if flow else 5, warmup=1 if flow else 2)
             plain_ms = _time_ms(plain, reps=1 if flow else 3, warmup=1)
         bound_ms, bound_by = _new_kernel_bounds(R, T, n_in, hid)[name]
-        print(f"[times] {name} R={R} T={T} N={n_in} H={hid} bf16: kernel {ms:.3f} ms, plain "
-              f"{plain_ms:.3f} ms, library none, bound {bound_ms:.4f} ms ({bound_by})")
         del x, wi, wh, b, xp, xp_b, res, dout
-        if name == "lstm_train_fwd_streamin" and (R, T) not in (TRAIN_TIME, FLOW_TIME):
+        record_shape = name != "lstm_train_fwd_streamin" or (R, T) in (TRAIN_TIME, FLOW_TIME)
+        lib = _new_kernel_library_ms(device, name, R, T, hid) if record_shape else None
+        print(f"[times] {name} R={R} T={T} N={n_in} H={hid} bf16: kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, library {lib} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        if not record_shape:
             continue
         if flow:
             records[name].update({
                 "flow_ms": ms, "flow_plain_ms": plain_ms, "flow_bound_ms": bound_ms,
-                "flow_bound_by": bound_by, "flow_library_ms": None,
+                "flow_bound_by": bound_by, "flow_library_ms": lib["bf16"],
+                "flow_library_ms_f32": lib["f32"],
                 "flow_shape": {"R": R, "T": T, "N": n_in, "H": hid}})
             continue
         e_abs, e_rel = new_errs[name, "bfloat16"]
@@ -2600,7 +2928,8 @@ def _new_kernel_times(device, ab, ab_counts, new_errs):
             "tolerance": BF16_TOL,
             "tolerance_f32": GRAD_TOL if name.endswith("bwd2") else PC.WALK_F32_TOL,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None, "shape": {"R": R, "T": T, "N": n_in, "H": hid},
+            "library_ms": lib["bf16"], "library_ms_f32": lib["f32"],
+            "library": LIBRARY_K8_K10[name], "shape": {"R": R, "T": T, "N": n_in, "H": hid},
             "dtype": "bfloat16",
             "launches_per_train_step": {
                 family: {arm: rec["launches"].get(name, 0) for arm, rec in fam["arms"].items()}
@@ -3407,6 +3736,10 @@ def main() -> int:
         return out
 
     timed("build", phase_build)
+    from urgent2026_challenge_track1_tpu_torch.simulation.dsp import codecs_available
+
+    codec = codecs_available()  # the libavcodec shim builds here, or the ffmpeg CLI exists
+    print(f"[codec] codecs_available() = {codec}")
     errs = timed("inference kernels", phase_kernels, device)
     train_errs = timed("training kernels", phase_train_kernels, device)
     wide_errs = timed("inference kernels H=768", phase_kernels, device, FLOW_N, FLOW_H,
@@ -3427,8 +3760,11 @@ def main() -> int:
         flow_routes, flow_ckpt = timed("flow training path", phase_flow_training, Path(tmp))
         _, flow_cli_routes = timed("flow inference path", phase_flow_cli, Path(tmp), flow_ckpt)
         _, dm_times = timed("dynamic-mixing training path", phase_dm_training, Path(tmp))
+        dm_times.update(timed("on-device dynamic-mixing training path", phase_dm_device,
+                              Path(tmp), device, dm_times))
         timed("init_from warm start", phase_init_from, Path(tmp), device)
         dm_times.update(timed("rk45 flow sampler", phase_rk45, Path(tmp), flow_ckpt, device))
+    sgmse = timed("sgmse", phase_sgmse, device)
     wide_routes = timed("walk route", phase_walk_route, device)
     ab, ab_counts = timed("a/b arms", phase_ab_arms, device)
     timed("card vs cpu forward", phase_card_vs_cpu, device)
@@ -3453,6 +3789,7 @@ def main() -> int:
             rec["flow_launches"] = flow_times[dt]["dw_launches_per_step"]
             rec["flow_launches_run"] = f"one {dt} flow train step (B=2, 2 s, 384 x 6)"
     print("[times] " + json.dumps({"ab_arms": ab, "flow": flow_times, "dm": dm_times,
+                                   "sgmse": sgmse, "codecs_available": codec,
                                    "causal": causal[3], "serving": serving,
                                    "carry_routes": carry_rows}))
     print(f"[done] {time.perf_counter() - t0:.1f} s")

@@ -97,6 +97,13 @@ def test_wav_is_still_sniffed_and_unknown_bytes_raise(tmp_path):
     ref, _ = jaio.read(str(path))
     assert np.array_equal(got, ref) and taio.info(str(path)) == (900, 16000)
     bad = tmp_path / "x.bin"
-    bad.write_bytes(b"OggS" + bytes(64))
+    bad.write_bytes(b"XYZW" + bytes(64))
     with pytest.raises(ValueError, match="RIFF/WAVE"):
+        taio.read(str(bad))
+    # an ogg magic is compressed audio now: a broken one fails in the
+    # decoder, as in the JAX package (with or without a codec backend)
+    bad.write_bytes(b"OggS" + bytes(64))
+    with pytest.raises(RuntimeError):
+        jaio.read(str(bad))
+    with pytest.raises(RuntimeError):
         taio.read(str(bad))

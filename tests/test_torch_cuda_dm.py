@@ -10,9 +10,13 @@ CPU mode).  The file imports no JAX:
   gradient within 1e-3 relative (max|d| / max|CPU|), the float32 gradient
   limit of ``scripts/check_pallas_tpu.py:29-34``;
 * the RK45 sampler on a CUDA flow model: finite, the right shape, and its
-  nfev model calls made on the card.
+  nfev model calls made on the card;
+* a batch of the on-device dynamic-mixing dataset rendered on the card
+  against the same batch rendered on the CPU, within 1e-5 absolute (cuFFT
+  against pocketfft on outputs peak-normalised to 0.9).
 """
 
+import contextlib
 import copy
 import sys
 from pathlib import Path
@@ -26,10 +30,12 @@ from torch_dm_corpus import make_corpus  # noqa: E402
 
 from urgent2026_challenge_track1_tpu_torch.config import Config
 from urgent2026_challenge_track1_tpu_torch.data import dataset as tdataset
+from urgent2026_challenge_track1_tpu_torch.data import dynamic_device as tdd
 from urgent2026_challenge_track1_tpu_torch.data.dynamic import DynamicMixingDataset
 from urgent2026_challenge_track1_tpu_torch.models import bsrnn_flowse as tflow
 from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm
 from urgent2026_challenge_track1_tpu_torch.sampling import get_black_box_solver
+from urgent2026_challenge_track1_tpu_torch.simulation import dsp as sim_dsp
 from urgent2026_challenge_track1_tpu_torch.train import trainer as ttrainer
 
 torch.set_num_threads(1)
@@ -54,7 +60,9 @@ def _rel(a, b):
 
 def test_dm_train_step_card_equals_cpu(dev, tmp_path):
     root = make_corpus(tmp_path / "dm")
-    with pytest.warns(UserWarning, match="A16b"):
+    # the pool rule warns only where no codec backend exists
+    no_codec = not sim_dsp.codecs_available()
+    with pytest.warns(UserWarning, match="codec") if no_codec else contextlib.nullcontext():
         ds = DynamicMixingDataset(
             speech_source_scp=str(root / "speech_sources.scp"),
             noise_source_scp=str(root / "noise_scoures.scp"), rir_scp=str(root / "rirs.scp"),
@@ -99,3 +107,20 @@ def test_rk45_runs_on_a_cuda_flow_model(dev):
     assert sample.device.type == "cuda" and sample.shape == y.shape
     assert torch.isfinite(torch.view_as_real(sample)).all()
     assert nfev == len(devices) > 6 and set(devices) == {"cuda"}
+
+
+def test_device_render_card_equals_cpu(dev, tmp_path):
+    root = make_corpus(tmp_path / "dm")
+    ds = tdd.DynamicMixingSourceDataset(
+        speech_source_scp=str(root / "speech_sources.scp"),
+        noise_source_scp=str(root / "noise_scoures.scp"), rir_scp=str(root / "rirs.scp"),
+        windnoise_scp=str(root / "wind_noise_scoures.scp"),
+        speech_length_file=str(root / "source_length.scp"), max_duration=6000,
+        rng=np.random.RandomState(0))
+    idx = [i for i, fs in enumerate(ds.get_srs()) if fs == 16000]
+    batch = tdd.collate_device_render([ds[i] for i in idx], 250)
+    ref = tdd.render_on_device(batch, device="cpu")
+    got = tdd.render_on_device(batch, device=dev)
+    for g, r in zip(got, ref):
+        assert g.device.type == "cuda" and g.shape == r.shape
+        assert float((g.cpu() - r).abs().max()) < 1e-5

@@ -5,10 +5,11 @@
   port draws from an explicit ``np.random.RandomState(seed)``, the JAX
   package from ``np.random.seed(seed)``; the on-the-fly noise offset
   (``np.random.default_rng()``) and long-source crops (``random``) are
-  pinned to one seed for both.  Deviation, named here because it is
-  ROADMAP A16b's: codec augmentation is off on both sides, the port by its
-  ``codecs_available()`` and the JAX package by monkeypatching its own, so
-  both drop "codec" from the pool and renormalise the weights.  The JAX
+  pinned to one seed for both.  Each seed runs twice: with codec
+  augmentation on in both packages (where the JAX package has a codec
+  backend; both then build the same libavcodec shim), and with it off in
+  both by monkeypatching ``codecs_available``, so both drop "codec" from
+  the pool and renormalise the weights.  The JAX
   ``SimulationConfigs`` class is reset to the values of its own source file
   for the comparison, and the port's defaults must equal them: the class is
   module-level state that an earlier test in the same worker can leave
@@ -18,9 +19,11 @@
 * the spawned process-pool loader yields batches of the right shapes, and
   its workers do not import torch;
 * a train step of a 16 ch x 1 model on a Config read from
-  ``conf/models/BSRNN_baseline_dm.yaml`` with ``device="cpu"``.
+  ``conf/models/BSRNN_baseline_dm.yaml`` with ``device="cpu"``, with the
+  host render and with ``dynamic_mixing_on_device``.
 """
 
+import contextlib
 import importlib.util
 import random
 from pathlib import Path
@@ -62,6 +65,13 @@ def corpus(tmp_path_factory):
     return make_corpus(tmp_path_factory.mktemp("dm"))
 
 
+def _codec_warning():
+    """The pool-rule warning, where no codec backend exists; nothing where one does."""
+    if tdynamic.sim_dsp.codecs_available():
+        return contextlib.nullcontext()
+    return pytest.warns(UserWarning, match="codec")
+
+
 def _config_fields(cls) -> dict:
     return {k: getattr(cls, k) for k in dir(cls) if not k.startswith("_")}
 
@@ -88,19 +98,29 @@ def pinned_jax_config(monkeypatch):
     assert _config_fields(tparams.SimulationConfigs) == untouched
 
 
-@pytest.mark.parametrize("seed", [0, 3])
-def test_items_equal_jax_for_one_seed(corpus, monkeypatch, pinned_jax_config, seed):
-    monkeypatch.setattr(jdynamic.sim_dsp, "codecs_available", lambda: False)
+@pytest.mark.parametrize("seed, codec", [(0, False), (3, False), (0, True), (3, True)],
+                         ids=["0", "3", "codec-0", "codec-3"])
+def test_items_equal_jax_for_one_seed(corpus, monkeypatch, pinned_jax_config, seed, codec):
+    if codec:
+        if not jdynamic.sim_dsp.codecs_available():
+            pytest.skip("no codec backend for the JAX package")
+        pool = ["bandwidth_limitation", "clipping", "codec", "packet_loss"]
+        ref_ds = jdynamic.DynamicMixingDataset(**_kwargs(corpus, _JCfg))
+        ds = tdynamic.DynamicMixingDataset(**_kwargs(corpus, _TCfg),
+                                           rng=np.random.RandomState(seed))
+    else:
+        monkeypatch.setattr(jdynamic.sim_dsp, "codecs_available", lambda: False)
+        monkeypatch.setattr(tdynamic.sim_dsp, "codecs_available", lambda: False)
+        pool = ["bandwidth_limitation", "clipping", "packet_loss"]
+        with pytest.warns(UserWarning, match="codec"):
+            ref_ds = jdynamic.DynamicMixingDataset(**_kwargs(corpus, _JCfg))
+        with pytest.warns(UserWarning, match="codec"):
+            ds = tdynamic.DynamicMixingDataset(**_kwargs(corpus, _TCfg),
+                                               rng=np.random.RandomState(seed))
     fresh = np.random.default_rng
     monkeypatch.setattr(np.random, "default_rng",
                         lambda s=None: fresh(77 if s is None else s))
-    with pytest.warns(UserWarning, match="codec"):
-        ref_ds = jdynamic.DynamicMixingDataset(**_kwargs(corpus, _JCfg))
-    with pytest.warns(UserWarning, match="A16b"):
-        ds = tdynamic.DynamicMixingDataset(**_kwargs(corpus, _TCfg),
-                                           rng=np.random.RandomState(seed))
-    assert ds.augmentations == ref_ds.augmentations == ["bandwidth_limitation", "clipping",
-                                                        "packet_loss"]
+    assert ds.augmentations == ref_ds.augmentations == pool
     assert np.array_equal(ds.weight_augmentations, ref_ds.weight_augmentations)
     assert len(ds) == len(ref_ds) == 6
     assert ds.get_srs() == ref_ds.get_srs() and ds.get_source_length() == ref_ds.get_source_length()
@@ -116,7 +136,7 @@ def test_items_equal_jax_for_one_seed(corpus, monkeypatch, pinned_jax_config, se
 
 def test_recipes_follow_the_seed(corpus):
     """The recipe stream is the RandomState's: one seed, one stream."""
-    with pytest.warns(UserWarning):
+    with _codec_warning():
         a = tdynamic.DynamicMixingDataset(**_kwargs(corpus, _TCfg), rng=np.random.RandomState(5))
         b = tdynamic.DynamicMixingDataset(**_kwargs(corpus, _TCfg), rng=np.random.RandomState(5))
     ra = [(w, list(x) if isinstance(x, np.ndarray) else [x]) for w, x in
@@ -162,7 +182,7 @@ def test_spawned_workers_do_not_import_torch(corpus):
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
-    with pytest.warns(UserWarning):  # the package's own configs: nothing of this module
+    with _codec_warning():  # the package's own configs: nothing of this module
         ds = tdynamic.DynamicMixingDataset(**_kwargs(corpus, None))
     with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"),
                              initializer=tdataset._init_worker, initargs=(ds,)) as pool:
@@ -182,7 +202,19 @@ def test_dm_yaml_trains_a_tiny_model_on_the_cpu(corpus, tmp_path, monkeypatch):
     assert all(torch.isfinite(p).all() for p in state.model.parameters())
 
 
-def test_on_device_render_still_raises_with_its_item(corpus, tmp_path):
+def test_on_device_render_still_raises_with_its_item(corpus, tmp_path, monkeypatch):
+    """The dm YAML with ``dynamic_mixing_on_device`` (it raised before the
+    on-device render was ported) trains a tiny model on the CPU: the loader
+    yields DeviceRenderBatch dicts and the trainer renders them."""
+    from urgent2026_challenge_track1_tpu_torch import train_se
+    from urgent2026_challenge_track1_tpu_torch.data import dynamic_device as tdd
+
+    monkeypatch.chdir(tmp_path)
     cfg = _dm_config(corpus, make_valid(tmp_path / "valid"), dynamic_mixing_on_device=True)
-    with pytest.raises(NotImplementedError, match="A13b"):
-        tdataset.AudioDataModule(cfg)
+    dm = tdataset.AudioDataModule(cfg)
+    assert isinstance(dm.train_dataset, tdd.DynamicMixingSourceDataset)
+    batch = next(iter(dm.train_dataloader(epoch=0)))
+    assert isinstance(batch, tdd.DeviceRenderBatch) and set(tdd.RENDER_KEYS) < set(batch)
+    state = train_se.run(cfg)
+    assert (state.step, state.epoch) == (3, 1)
+    assert all(torch.isfinite(p).all() for p in state.model.parameters())

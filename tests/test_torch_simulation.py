@@ -17,6 +17,7 @@ from urgent2026_challenge_track1_tpu.simulation import dsp as jdsp
 from urgent2026_challenge_track1_tpu.simulation import params as jparams
 from urgent2026_challenge_track1_tpu.simulation import render as jrender
 from urgent2026_challenge_track1_tpu.utils import audio_io as jaio
+from urgent2026_challenge_track1_tpu.utils import codec_av as jcodec
 from urgent2026_challenge_track1_tpu_torch.simulation import dsp as tdsp
 from urgent2026_challenge_track1_tpu_torch.simulation import params as tparams
 from urgent2026_challenge_track1_tpu_torch.simulation import render as trender
@@ -86,7 +87,7 @@ def test_reverb_noise_and_augmentations():
     idx = [0, 3, 4, 17]
     assert np.array_equal(tdsp.packet_loss_apply(x2, FS, idx, 20),
                           jdsp.packet_loss_apply(x2, FS, idx, 20))
-    assert not tdsp.codecs_available()
+    assert tdsp.codecs_available() == jdsp.codecs_available()
 
 
 def test_sidechain_compressor_native_and_plain():
@@ -215,7 +216,12 @@ def test_render_one_offline_writes_what_jax_writes(sources, tmp_path):
     assert all(np.array_equal(a, b) for a, b in zip(out["port"], out["jax"]))
 
 
+@pytest.mark.skipif(not jcodec.available(), reason="FFmpeg libraries not present")
 def test_codec_entries_raise_with_their_item():
-    with pytest.raises(NotImplementedError, match="A16b"):
-        trender.apply_augmentations(_speech(1000, 16), FS,
-                                    "codec(format=mp3,encoder=None,qscale=3)")
+    """A codec entry renders (it raised before the codec port) as the JAX
+    package's does, bitwise."""
+    chain = "codec(format=mp3,encoder=None,qscale=3)"
+    x = _speech(4000, 16)
+    got = trender.apply_augmentations(x, FS, chain)
+    assert got.shape == x.shape
+    assert np.array_equal(got, jrender.apply_augmentations(x, FS, chain))

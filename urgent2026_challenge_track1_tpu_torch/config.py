@@ -5,9 +5,8 @@ override (counterpart of ``config.py``).
 generates one ``--key value`` flag per default.  The schema keeps every key
 of the JAX package's, so its YAML files load here (``model_configs`` may
 carry ``causal`` and ``streaming_norm``); the trainer raises on the values
-the port does not run yet, each with its ROADMAP item: the on-device render
-(A13b), dp/mp meshes (A14).  ``device``
-is ``cuda`` (the default) or ``cpu``.
+the port does not run yet, with their ROADMAP item: dp/mp meshes (A14).
+``device`` is ``cuda`` (the default) or ``cpu``.
 """
 
 from __future__ import annotations

@@ -201,17 +201,19 @@ class _LoaderError:
 class PrefetchLoader:
     """Dataset loader with bounded batch prefetch: items load in a thread
     pool, or with ``use_processes`` in a spawned process pool whose workers
-    each hold a copy of the dataset."""
+    each hold a copy of the dataset.  ``collate`` (default ``collate_fn``)
+    assembles each batch in the loader's thread."""
 
     def __init__(self, dataset, batch_sampler, num_workers: int = 4,
                  pad_quantum_ms: int = 1000, prefetch: int = 4,
-                 use_processes: bool = False):
+                 use_processes: bool = False, collate=None):
         self.dataset = dataset
         self.batch_sampler = batch_sampler
         self.num_workers = max(1, num_workers)
         self.pad_quantum_ms = pad_quantum_ms
         self.prefetch = prefetch
         self.use_processes = use_processes
+        self.collate = collate or collate_fn
 
     def _pool(self):
         """(executor, submit(pool, index) -> future)."""
@@ -255,7 +257,7 @@ class PrefetchLoader:
                         if not pending:
                             break
                         items = [f.result() for f in pending.popleft()]
-                        if not put_bounded(collate_fn(items, self.pad_quantum_ms)):
+                        if not put_bounded(self.collate(items, self.pad_quantum_ms)):
                             return
                 finally:
                     # a consumer that stopped early leaves prefetched items:
@@ -302,22 +304,27 @@ class AudioDataModule:
     ``train_set_dynamic_mixing``, where it is a ``DynamicMixingDataset``
     over the source lists ``speech_sources.scp``, ``noise_scoures.scp``,
     ``rirs.scp``, ``wind_noise_scoures.scp`` (the JAX package's names) and
-    ``source_length.scp``."""
+    ``source_length.scp``.  With ``dynamic_mixing_on_device`` too it is a
+    ``DynamicMixingSourceDataset``: the items carry sources and recipe
+    parameters, the loader collates them into a ``DeviceRenderBatch`` (a
+    dict), and the trainer renders it on its device."""
 
     def __init__(self, config):
-        if config.train_set_dynamic_mixing and config.dynamic_mixing_on_device:
-            raise NotImplementedError(
-                "dynamic_mixing_on_device=True: the on-device render is not ported "
-                "to the PyTorch package yet (ROADMAP A13b); use host-side dynamic mixing")
         self.batch_size = config.batch_size
         self.num_worker = config.num_worker
         self.pad_quantum_ms = config.length_bucket_ms
         self.dynamic_mixing = bool(config.train_set_dynamic_mixing)
+        self.device_render = self.dynamic_mixing and bool(config.dynamic_mixing_on_device)
         if self.dynamic_mixing:
-            from urgent2026_challenge_track1_tpu_torch.data.dynamic import DynamicMixingDataset
+            if self.device_render:
+                from urgent2026_challenge_track1_tpu_torch.data.dynamic_device import (
+                    DynamicMixingSourceDataset as dataset_cls)
+            else:
+                from urgent2026_challenge_track1_tpu_torch.data.dynamic import (
+                    DynamicMixingDataset as dataset_cls)
 
             root = config.train_set_path
-            self.train_dataset = DynamicMixingDataset(
+            self.train_dataset = dataset_cls(
                 speech_source_scp=f"{root}/speech_sources.scp",
                 noise_source_scp=f"{root}/noise_scoures.scp",
                 rir_scp=f"{root}/rirs.scp",
@@ -354,8 +361,13 @@ class AudioDataModule:
         if skip_batches:
             sampler = _SkipSampler(sampler, skip_batches)
         use_processes = self.dynamic_mixing and (os.cpu_count() or 1) > 2
+        collate = None
+        if self.device_render:
+            from urgent2026_challenge_track1_tpu_torch.data.dynamic_device import (
+                collate_device_render as collate)
         return PrefetchLoader(self.train_dataset, sampler, self.num_worker,
-                              self.pad_quantum_ms, use_processes=use_processes)
+                              self.pad_quantum_ms, use_processes=use_processes,
+                              collate=collate)
 
     def val_dataloader(self) -> PrefetchLoader:
         sampler = GroupedBatchSampler(self.val_dataset, batch_size=self.batch_size,

@@ -13,9 +13,9 @@ one seed gives the JAX package's draws in the same order.  In the loader's
 process pool each worker holds its own copy of the dataset, and so of an
 explicit RandomState.
 
-Codec augmentation is not ported yet (ROADMAP A16b): "codec" leaves the
-augmentation pool and the other weights renormalise, the JAX package's
-rule on a machine without a codec backend, with a warning.
+Where no codec backend exists (``simulation/dsp.codecs_available()``),
+"codec" leaves the augmentation pool and the other weights renormalise,
+with a warning: the JAX package's rule.
 
 The module imports numpy and scipy only (no torch), so a spawned loader
 worker stays light.
@@ -81,8 +81,8 @@ class DynamicMixingDataset:
         augs = dict(self.cfg.augmentations)
         if "codec" in augs and not sim_dsp.codecs_available():
             warnings.warn(
-                "no codec backend in the PyTorch package yet (ROADMAP A16b): "
-                "'codec' augmentation disabled, weights renormalized"
+                "no codec backend (libavcodec shim or ffmpeg): 'codec' augmentation "
+                "disabled, weights renormalized"
             )
             augs = {k: v for k, v in augs.items() if k != "codec"}
         self.augmentations = list(augs.keys())

@@ -6,18 +6,25 @@ The non-silence detector, the 70 Hz high-pass, resampling with the five
 kaiser_best / kaiser_fast, scipy's default polyphase filter, FFT), reverb
 with its early-RIR target, SNR mixing, wind-noise mixing through the
 sidechain compressor (``utils/native.py``), and the augmentations
-bandwidth limitation, clipping and packet loss.  Each function is the JAX
-package's, line for line, so one seed gives the same audio in both.
+bandwidth limitation, clipping, codec compression and packet loss.  Each
+function is the JAX package's, line for line, so one seed gives the same
+audio in both.
 
-Codec augmentation (mp3/ogg through libavcodec) is not ported yet (ROADMAP
-A16b): ``codecs_available()`` is False, and the dynamic-mixing dataset
-drops "codec" from its pool and renormalises the weights, the JAX
-package's rule for a machine without a codec backend.
+Codec compression (mp3/ogg-vorbis/opus) takes the libavcodec shim
+(``utils/codec_av.py``) where it builds, else the ffmpeg command line where
+one is on the PATH; the JAX package's third backend, torchaudio, is not
+ported.  Where neither exists ``codecs_available()`` is False, and the
+dynamic-mixing dataset drops "codec" from its pool and renormalises the
+weights, the JAX package's rule for a machine without a codec backend.
 """
 
 from __future__ import annotations
 
 import math
+import os
+import shutil
+import subprocess
+import tempfile
 from functools import lru_cache
 
 import numpy as np
@@ -37,6 +44,7 @@ __all__ = [
     "clipping",
     "packet_loss_apply",
     "codecs_available",
+    "codec_compression",
     "SAMPLE_RATES",
     "RESAMPLE_METHODS",
 ]
@@ -290,5 +298,39 @@ def packet_loss_apply(
 
 
 def codecs_available() -> bool:
-    """Whether codec augmentation can run: not in the port yet (ROADMAP A16b)."""
-    return False
+    """Whether codec augmentation can run: the native libavcodec shim or the
+    ffmpeg command line."""
+    from urgent2026_challenge_track1_tpu_torch.utils import codec_av
+
+    return codec_av.available() or shutil.which("ffmpeg") is not None
+
+
+def codec_compression(speech: np.ndarray, fs: int, format: str, encoder=None, qscale=None):
+    """Encode-decode distortion of (C, T) audio (renderer :296-330), each
+    channel on its own, padded or truncated back to T: the native shim
+    first, then the ffmpeg command line."""
+    from urgent2026_challenge_track1_tpu_torch.utils import audio_io, codec_av
+
+    T = speech.shape[-1]
+    if codec_av.available():
+        out = np.stack([codec_av.roundtrip(ch, fs, format, encoder, qscale) for ch in speech])
+    elif shutil.which("ffmpeg"):
+        with tempfile.TemporaryDirectory() as td:
+            src = os.path.join(td, "in.wav")
+            mid = os.path.join(td, f"mid.{format}")
+            dst = os.path.join(td, "out.wav")
+            # interleaved (T, C): all channels round-trip, as with the shim
+            audio_io.write(src, speech.T if speech.shape[0] > 1 else speech[0], fs)
+            enc = [] if encoder in (None, "None") else [
+                "-c:a", {"vorbis": "libvorbis", "opus": "libopus"}.get(encoder, encoder)]
+            q = [] if qscale is None else ["-q:a", str(qscale)]
+            subprocess.run(["ffmpeg", "-y", "-loglevel", "quiet", "-i", src, *enc, *q, mid],
+                           check=True)
+            subprocess.run(["ffmpeg", "-y", "-loglevel", "quiet", "-i", mid, dst], check=True)
+            out, _ = audio_io.read(dst)
+            out = out[None, :] if out.ndim == 1 else out.T
+    else:
+        raise RuntimeError("no codec backend available (libavcodec shim or ffmpeg)")
+    if out.shape[-1] < T:
+        out = np.pad(out, [(0, 0), (0, T - out.shape[-1])])
+    return out[:, :T]

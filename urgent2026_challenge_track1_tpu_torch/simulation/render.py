@@ -5,9 +5,10 @@ recipe -> (clean, noisy) audio.
 the clean source at 70 Hz, convolves the noisy path with the full RIR and
 the training target with its first 50 ms, mixes noise at the SNR over
 non-silent power (wind noise through the sidechain compressor), applies the
-"/"-separated augmentation chain and peak-normalises both to 0.9.  The
+"/"-separated augmentation chain (bandwidth limitation, clipping, codec
+compression, packet loss) and peak-normalises both to 0.9.  The
 augmentation strings are parsed with the reference's regexes, so its
-meta.tsv files replay.  Codec entries raise until ROADMAP A16b ports them.
+meta.tsv files replay.
 
 Offline rendering seeds its generator from the file id; on the fly
 (dynamic mixing) takes a fresh ``np.random.default_rng()`` for the noise
@@ -71,9 +72,13 @@ def apply_augmentations(noisy_speech, fs, augmentations):
             min_, max_ = map(float, match.groups())
             noisy_speech = dsp.clipping(noisy_speech, min_quantile=min_, max_quantile=max_)
         elif augmentation.startswith("codec"):
-            raise NotImplementedError(
-                f"{augmentation}: codec augmentation is not ported to the PyTorch "
-                "package yet (ROADMAP A16b)")
+            match = re.fullmatch(
+                r"codec\(format=(.*),encoder=(.*),qscale=(.*)\)", augmentation
+            )
+            format, encoder, qscale = match.groups()
+            noisy_speech = dsp.codec_compression(
+                noisy_speech, fs, format=format, encoder=encoder, qscale=int(qscale)
+            )
         elif augmentation.startswith("packet_loss"):
             match = re.fullmatch(
                 r"packet_loss\(packet_loss_indices=(.*),packet_duration_ms=(.*)\)",

@@ -28,8 +28,12 @@ A causal model (``model_configs`` ``causal``, and ``streaming_norm`` for
 the cumulative norms of a streamable one) trains its time path through
 ``LSTMDirTrain`` (K4/K5); nothing else changes shape.
 
-Not ported yet, and raising where asked for: the on-device dynamic-mixing
-render (ROADMAP A13b), dp/mp meshes and multi-process training (A14).
+With ``dynamic_mixing_on_device`` the loader yields ``DeviceRenderBatch``
+dicts, and ``make_train_step_rendered`` renders each on the trainer's
+device (``data/dynamic_device.render_tensors``) before the same step.
+
+Not ported yet, and raising where asked for: dp/mp meshes and
+multi-process training (ROADMAP A14).
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ import torch
 
 from urgent2026_challenge_track1_tpu_torch import resolve_device
 from urgent2026_challenge_track1_tpu_torch.config import Config
+from urgent2026_challenge_track1_tpu_torch.data.dynamic_device import RENDER_KEYS, render_tensors
 from urgent2026_challenge_track1_tpu_torch.dsp.stft import STFTConfig
 from urgent2026_challenge_track1_tpu_torch.models import bsrnn_flowse as flow_mod
 from urgent2026_challenge_track1_tpu_torch.models.bsrnn import (
@@ -69,6 +74,8 @@ __all__ = [
     "TrainState",
     "loss_and_metrics",
     "make_train_step",
+    "RENDER_KEYS",
+    "make_train_step_rendered",
     "make_val_step",
     "CheckpointIO",
     "MetricsLogger",
@@ -255,6 +262,21 @@ def make_train_step(bundle: ModelBundle, cfg: Config, fs: int):
     return step
 
 
+def make_train_step_rendered(bundle: ModelBundle, cfg: Config, fs: int):
+    """On-device dynamic mixing and the train step: (model, optimizer,
+    *RENDER_KEYS tensors, ema=, generator=) -> metrics.  Renders the batch
+    on its device, takes the host-rendered rows from ``clean_pre`` /
+    ``noisy_pre``, then runs ``make_train_step``'s step on it."""
+    core = make_train_step(bundle, cfg, fs)
+    highpass = bool(cfg.use_high_pass)
+
+    def step(model, optimizer, *tensors, ema=None, generator=None) -> dict:
+        target, noisy = render_tensors(tensors, fs, highpass)
+        return core(model, optimizer, target, noisy, tensors[-1], ema=ema, generator=generator)
+
+    return step
+
+
 def make_val_step(bundle: ModelBundle, fs: int):
     """(model, clean, noisy, lengths, generator=None) -> metrics: the loss
     (the flow loss draws from ``generator``) and, discriminative, SI-SNR."""
@@ -433,8 +455,6 @@ def _check_single_device(mesh_shape: str) -> None:
 
 class Trainer:
     def __init__(self, cfg: Config, datamodule):
-        if cfg.train_set_dynamic_mixing and cfg.dynamic_mixing_on_device:
-            raise _not_ported("dynamic_mixing_on_device (the rendered step)", "ROADMAP A13b")
         _check_single_device(cfg.mesh_shape)
         self.cfg = cfg
         self.dm = datamodule
@@ -446,7 +466,7 @@ class Trainer:
         self.ckpt = CheckpointIO(os.path.join(self.exp_dir, "checkpoints"), cfg.save_top_k,
                                  save_last=cfg.save_last, metric=cfg.checkpoint_metric,
                                  mode=cfg.checkpoint_mode)
-        self._train_steps: dict[int, Any] = {}
+        self._train_steps: dict[Any, Any] = {}
         self._val_steps: dict[int, Any] = {}
 
     # -- state -------------------------------------------------------------
@@ -477,6 +497,12 @@ class Trainer:
         if fs not in self._train_steps:
             self._train_steps[fs] = make_train_step(self.bundle, self.cfg, fs)
         return self._train_steps[fs]
+
+    def _get_train_step_rendered(self, fs: int):
+        key = ("rendered", fs)
+        if key not in self._train_steps:
+            self._train_steps[key] = make_train_step_rendered(self.bundle, self.cfg, fs)
+        return self._train_steps[key]
 
     def _get_val_step(self, fs: int):
         if fs not in self._val_steps:
@@ -541,13 +567,19 @@ class Trainer:
             self.logger.log(state.step, {"lr": lr, "epoch": epoch})
             loader = self.dm.train_dataloader(epoch=epoch, skip_batches=state.batch_in_epoch)
             t_ready = time.perf_counter()
-            for clean, noisy, fs, lengths in loader:
+            for batch_item in loader:
                 t0 = time.perf_counter()
                 data_time = t0 - t_ready  # this step's wait for the loader
-                metrics = self._get_train_step(fs)(
-                    state.model, state.optimizer,
-                    *self._to_device(clean[:, 0], noisy[:, 0], lengths), ema=state.ema,
-                    generator=step_generator(cfg.seed, state.step))
+                if isinstance(batch_item, dict):  # a DeviceRenderBatch: render, then step
+                    fs = batch_item["fs"]
+                    step_fn = self._get_train_step_rendered(fs)
+                    tensors = self._to_device(*(batch_item[k] for k in RENDER_KEYS))
+                else:
+                    clean, noisy, fs, lengths = batch_item
+                    step_fn = self._get_train_step(fs)
+                    tensors = self._to_device(clean[:, 0], noisy[:, 0], lengths)
+                metrics = step_fn(state.model, state.optimizer, *tensors, ema=state.ema,
+                                  generator=step_generator(cfg.seed, state.step))
                 state.step += 1
                 state.batch_in_epoch += 1
                 if state.step % cfg.log_every_steps == 0:

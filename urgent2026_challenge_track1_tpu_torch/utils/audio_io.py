@@ -1,18 +1,24 @@
-"""WAV and FLAC audio I/O in numpy (the port's subset of ``utils/audio_io.py``).
+"""WAV, FLAC and compressed audio I/O in numpy (counterpart of
+``utils/audio_io.py``).
 
 ``read(path) -> (data, fs)`` with data float64 in [-1, 1), shape (T,) mono or
 (T, C), the format sniffed from the magic bytes; ``info(path) -> (frames,
-fs)`` from the header alone, for both formats; ``write(path, data, fs,
+fs)`` from the header alone for WAV and FLAC, and for mp3/ogg/opus the
+exact decoded length; ``write(path, data, fs,
 subtype)`` writes FLAC when the path ends in ``.flac`` (PCM_16 or PCM_24)
 and RIFF/WAVE otherwise (PCM_16, the default, PCM_24 or FLOAT);
 ``read_bytes`` / ``write_bytes`` do the same on in-memory buffers.  WAV
 reads PCM 16/24/32-bit and IEEE float 32/64, including
-WAVE_FORMAT_EXTENSIBLE; FLAC goes through ``utils/flac.py``.  mp3/ogg/opus
-are not read here yet (ROADMAP A16b).
+WAVE_FORMAT_EXTENSIBLE; FLAC goes through ``utils/flac.py``; mp3 (an ID3
+tag or an MPEG frame sync) and ogg-vorbis/opus decode through the libavcodec
+shim (``utils/codec_av.py``), and the last 8 decodes are kept, since a
+caller that asks ``info`` and then ``read`` of one file would otherwise
+decode it twice.
 """
 
 from __future__ import annotations
 
+import os
 import struct
 from typing import Optional
 
@@ -65,6 +71,32 @@ def _decode_wav(buf: bytes):
     return data, fs
 
 
+def _is_compressed_magic(head: bytes) -> bool:
+    """mp3 (an ID3 tag or an MPEG frame sync) or an ogg container."""
+    if head[:3] == b"ID3" or head[:4] == b"OggS":
+        return True
+    return len(head) >= 2 and head[0] == 0xFF and (head[1] & 0xE0) == 0xE0
+
+
+# the last decodes of compressed files, least recently used first (dict order)
+_COMPRESSED_CACHE: dict = {}
+_COMPRESSED_CACHE_MAX = 8
+
+
+def _decode_compressed(path: str):
+    st = os.stat(path)
+    key = (str(path), st.st_mtime_ns, st.st_size)
+    hit = _COMPRESSED_CACHE.pop(key, None)
+    if hit is None:
+        from urgent2026_challenge_track1_tpu_torch.utils import codec_av
+
+        hit = codec_av.decode_file(path)
+    _COMPRESSED_CACHE[key] = hit
+    while len(_COMPRESSED_CACHE) > _COMPRESSED_CACHE_MAX:
+        _COMPRESSED_CACHE.pop(next(iter(_COMPRESSED_CACHE)))
+    return hit
+
+
 def read_bytes(buf: bytes, dtype: str = "float64"):
     """(data, fs) from an in-memory WAV or FLAC buffer."""
     if buf[:4] == b"fLaC":
@@ -79,13 +111,21 @@ def read_bytes(buf: bytes, dtype: str = "float64"):
 def read(path: str, dtype: str = "float64"):
     """(data, fs); data (T,) or (T, C) in [-1, 1)."""
     with open(path, "rb") as f:
-        return read_bytes(f.read(), dtype)
+        buf = f.read()
+    if _is_compressed_magic(buf[:4]):
+        data, fs = _decode_compressed(path)
+        return data.astype(dtype), fs
+    return read_bytes(buf, dtype)
 
 
 def info(path: str) -> tuple[int, int]:
-    """(frames, samplerate) from the header (FLAC: its STREAMINFO)."""
+    """(frames, samplerate) from the header (FLAC: its STREAMINFO); for
+    mp3/ogg the exact decoded length, which container headers only bound."""
     with open(path, "rb") as f:
         head = f.read(65536)
+    if _is_compressed_magic(head[:4]):
+        data, fs = _decode_compressed(path)
+        return data.shape[0], fs
     if head[:4] == b"fLaC":
         from urgent2026_challenge_track1_tpu_torch.utils import flac
 
