@@ -2507,7 +2507,7 @@ def phase_sgmse(device, channels=N_IN, layers=6, seconds=(1.0, 4.0), N=SGMSE_N):
     bcfg = S.SGMSEConfig(bsrnn_hidden=channels, num_layer=layers, compute_dtype="bfloat16")
     bmodel = S.init_sgmse(bcfg, seed=SGMSE_SEED, device=device).eval()
     with torch.no_grad():
-        S.sgmse_enhance(bmodel, bcfg, noisy[:, :fs], fs, N=2)  # warm-up
+        S.sgmse_enhance(bmodel, bcfg, noisy, fs, N=2)  # warm-up at the timed shapes
         K.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2557,9 +2557,11 @@ def phase_dm_device(workdir: Path, device, host_dm):
     2, float32) through ``train_se.run``: 2 steps and one validation, the
     batches' sources and recipes from two spawned workers, rendered on the
     card inside the step (K4p-f32 - K7p-f32 + dW-f32, no walk of K4-K7).
-    Then one collated batch rendered on the card against the CPU render of
-    the same batch, within DM_DEVICE_RENDER_BOUND; the control (the batch
-    with every SNR 1 dB higher) must exceed it.  ``host_dm``:
+    Then the loader alone over the run's epoch, and 4 source items and
+    their collation in this process.  Then one collated batch rendered on
+    the card against the CPU render of the same batch, within
+    DM_DEVICE_RENDER_BOUND; the control (the batch with every SNR 1 dB
+    higher) must exceed it.  ``host_dm``:
     phase_dm_training's times, printed beside these."""
     import numpy as np
     import torch
@@ -2603,9 +2605,24 @@ def phase_dm_device(workdir: Path, device, host_dm):
                   INFERENCE_KERNELS + TRAIN_ROUTED)
     step_s = [r["step_time"] for r in steps]
     wait_s = [r["data_time"] for r in steps]
+    # the loader alone over the run's epoch (its batches): when each batch
+    # is ready after the spawn, and how many of its rows the host rendered;
+    # then 4 items and their collation in this process
+    batch_s, host_rows = [], []
+    t0 = time.perf_counter()
+    for b in AudioDataModule(cfg).train_dataloader(epoch=0):
+        batch_s.append(time.perf_counter() - t0)
+        host_rows.append(int(b["prerendered_mask"].sum()))
     ds = AudioDataModule(cfg).train_dataset
     ds.rng = np.random.RandomState(35)  # this batch's recipes: a fixed draw
-    batch = dd.collate_device_render([ds[i] for i in range(4)], cfg.length_bucket_ms)
+    items, item_s = [], []
+    for i in range(4):
+        t1 = time.perf_counter()
+        items.append(ds[i])
+        item_s.append(time.perf_counter() - t1)
+    t1 = time.perf_counter()
+    batch = dd.collate_device_render(items, cfg.length_bucket_ms)
+    collate_s = time.perf_counter() - t1
     if batch["prerendered_mask"].sum() == 4:
         fail("the on-device render check drew no row for the card to render")
     cpu = dd.render_on_device(batch, True, "cpu")
@@ -2619,12 +2636,19 @@ def phase_dm_device(workdir: Path, device, host_dm):
            "dm_device_render_ms": render_ms, "dm_device_render_err": err,
            "dm_device_render_control": control,
            "dm_device_prerendered_rows": int(batch["prerendered_mask"].sum()),
-           "dm_device_bucket_T": int(batch["speech"].shape[-1])}
+           "dm_device_bucket_T": int(batch["speech"].shape[-1]),
+           "dm_device_loader_epoch_batch_ready_s": batch_s,
+           "dm_device_loader_host_rendered_rows": host_rows,
+           "dm_device_source_item_s": item_s, "dm_device_collate_s": collate_s}
     print(f"[dm device] step seconds {step_s} (host render: {host_dm['dm_step_s']}), loader wait "
           f"seconds {wait_s} (host render: {host_dm['dm_loader_wait_s']}); one batch (B=4, T="
           f"{out['dm_device_bucket_T']}, {out['dm_device_prerendered_rows']} rows rendered on the "
           f"host) rendered on the card in {render_ms:.3f} ms, card vs CPU max|d| {err:.3e} "
-          f"(bound {DM_DEVICE_RENDER_BOUND}), SNR + 1 dB control {control:.3e}")
+          f"(bound {DM_DEVICE_RENDER_BOUND}), SNR + 1 dB control {control:.3e}; the loader "
+          f"alone: batches ready at {batch_s} s (host render: "
+          f"{host_dm['loader_epoch_batch_ready_s']}), rows rendered on the host {host_rows}; "
+          f"source items {item_s} s (host render's items: {host_dm['render_item_s']}), "
+          f"collation {collate_s:.4f} s")
     if not err < DM_DEVICE_RENDER_BOUND < control:
         fail(f"on-device render: card vs CPU {err:.3e} and the control {control:.3e} do not "
              f"bracket the bound {DM_DEVICE_RENDER_BOUND}")

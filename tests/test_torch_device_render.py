@@ -17,9 +17,10 @@ the CPU, at 8-16 kHz, B = 3, at most 0.5 s, float32.
   ``tests/test_torch_dynamic.py`` pins it; its spawned workers import no
   torch;
 * one ``make_train_step_rendered`` step at 16 ch x 2 against the JAX
-  step: the loss within 1e-5 relative, the grad norm within 1e-4 relative;
-* a ``Trainer`` with ``dynamic_mixing_on_device`` takes 2 steps over
-  ``tests/torch_dm_corpus.py``.
+  step: the loss within 1e-5 relative, the grad norm within 1e-4 relative.
+
+The trainer's run of the dm YAML with ``dynamic_mixing_on_device`` over
+``tests/torch_dm_corpus.py`` is ``tests/test_torch_dynamic.py``'s.
 
 RENDER_ATOL is 5e-6 absolute (XLA's CPU FFT against pocketfft): the
 largest readings were 6.9e-7 over the renders (peak-normalised to 0.9) and
@@ -36,8 +37,8 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_dynamic import _JCfg, _TCfg, _dm_config, _kwargs, pinned_jax_config  # noqa: F401
-from torch_dm_corpus import make_corpus, make_valid
+from test_torch_dynamic import _JCfg, _TCfg, _kwargs, pinned_jax_config  # noqa: F401
+from torch_dm_corpus import make_corpus
 from urgent2026_challenge_track1_tpu.config import Config as JConfig
 from urgent2026_challenge_track1_tpu.data import dynamic_device as jdd
 from urgent2026_challenge_track1_tpu.simulation import jax_dsp as J
@@ -289,23 +290,3 @@ def test_rendered_step_matches_jax(corpus, monkeypatch, pinned_jax_config):
     assert abs(float(m["loss"]) - float(jm["loss"])) < LOSS_RTOL * abs(float(jm["loss"]))
     assert abs(float(m["grad_norm"]) - float(jm["grad_norm"])) < GNORM_RTOL * float(
         jm["grad_norm"])
-
-
-def test_trainer_renders_on_the_device_for_two_steps(tmp_path, monkeypatch):
-    monkeypatch.chdir(tmp_path)
-    root = make_corpus(tmp_path / "dm", n_speech=5)  # one batch of each rate
-    cfg = _dm_config(root, make_valid(tmp_path / "valid"), dynamic_mixing_on_device=True,
-                     val_check_interval=2)
-    dm = tdataset.AudioDataModule(cfg)
-    assert isinstance(dm.train_dataset, tdd.DynamicMixingSourceDataset)
-    tr = ttrainer.Trainer(cfg, dm)
-    calls = []
-    rendered = ttrainer.make_train_step_rendered
-    monkeypatch.setattr(ttrainer, "make_train_step_rendered",
-                        lambda *a: calls.append(a[-1]) or rendered(*a))
-    state = tr.fit()
-    assert (state.step, state.epoch) == (2, 1) and sorted(calls) == [8000, 16000]
-    assert all(torch.isfinite(p).all() for p in state.model.parameters())
-    logs = [line for line in (tmp_path / tr.exp_dir / "metrics.jsonl").read_text().splitlines()
-            if "train_loss" in line]
-    assert len(logs) == 2

@@ -204,17 +204,24 @@ def test_dm_yaml_trains_a_tiny_model_on_the_cpu(corpus, tmp_path, monkeypatch):
 
 def test_on_device_render_still_raises_with_its_item(corpus, tmp_path, monkeypatch):
     """The dm YAML with ``dynamic_mixing_on_device`` (it raised before the
-    on-device render was ported) trains a tiny model on the CPU: the loader
-    yields DeviceRenderBatch dicts and the trainer renders them."""
+    on-device render was ported; the name is kept) trains a tiny model on
+    the CPU through ``train_se.run``: the source dataset's batches take the
+    rendered step at each sampling rate, and every step is logged."""
     from urgent2026_challenge_track1_tpu_torch import train_se
     from urgent2026_challenge_track1_tpu_torch.data import dynamic_device as tdd
+    from urgent2026_challenge_track1_tpu_torch.train import trainer as ttrainer
 
     monkeypatch.chdir(tmp_path)
     cfg = _dm_config(corpus, make_valid(tmp_path / "valid"), dynamic_mixing_on_device=True)
-    dm = tdataset.AudioDataModule(cfg)
-    assert isinstance(dm.train_dataset, tdd.DynamicMixingSourceDataset)
-    batch = next(iter(dm.train_dataloader(epoch=0)))
-    assert isinstance(batch, tdd.DeviceRenderBatch) and set(tdd.RENDER_KEYS) < set(batch)
+    assert isinstance(tdataset.AudioDataModule(cfg).train_dataset,
+                      tdd.DynamicMixingSourceDataset)
+    calls = []
+    rendered = ttrainer.make_train_step_rendered
+    monkeypatch.setattr(ttrainer, "make_train_step_rendered",
+                        lambda *a: calls.append(a[-1]) or rendered(*a))
     state = train_se.run(cfg)
-    assert (state.step, state.epoch) == (3, 1)
+    assert (state.step, state.epoch) == (3, 1) and sorted(calls) == [8000, 16000]
     assert all(torch.isfinite(p).all() for p in state.model.parameters())
+    logs = [line for f in tmp_path.rglob("metrics.jsonl") for line in f.read_text().splitlines()
+            if "train_loss" in line]
+    assert len(logs) == 3

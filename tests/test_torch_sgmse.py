@@ -214,3 +214,17 @@ def test_sgmse_enhance_draws_from_its_generator(setup):
                               generator=torch.Generator().manual_seed(s)) for s in (0, 0, 1)]
     assert torch.equal(runs[0], runs[1]) and not torch.equal(runs[0], runs[2])
     assert bool(torch.isfinite(runs[0]).all())
+
+
+def test_init_sgmse_is_on_the_card_unless_the_cpu_is_asked_for(setup):
+    params, _ = setup
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            tsg.init_sgmse(TCFG)
+    model = tsg.init_sgmse(TCFG, seed=3, device="cpu")
+    assert {p.device.type for p in model.parameters()} == {"cpu"}
+    # the flow family's network at this width: the bridge's keys and shapes
+    ref = from_jax_params(params).state_dict()
+    got = model.state_dict()
+    assert got.keys() == ref.keys()
+    assert all(got[k].shape == ref[k].shape for k in ref)

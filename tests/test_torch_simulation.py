@@ -218,8 +218,8 @@ def test_render_one_offline_writes_what_jax_writes(sources, tmp_path):
 
 @pytest.mark.skipif(not jcodec.available(), reason="FFmpeg libraries not present")
 def test_codec_entries_raise_with_their_item():
-    """A codec entry renders (it raised before the codec port) as the JAX
-    package's does, bitwise."""
+    """A codec entry renders as the JAX package's does, bitwise (it raised
+    before the codec port; the name is kept)."""
     chain = "codec(format=mp3,encoder=None,qscale=3)"
     x = _speech(4000, 16)
     got = trender.apply_augmentations(x, FS, chain)

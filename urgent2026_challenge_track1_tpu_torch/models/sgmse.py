@@ -32,6 +32,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from urgent2026_challenge_track1_tpu_torch import resolve_device
 from urgent2026_challenge_track1_tpu_torch.dsp import stft as dsp
 from urgent2026_challenge_track1_tpu_torch.models import bsrnn as B
 from urgent2026_challenge_track1_tpu_torch.models import bsrnn_flowse as FM
@@ -125,9 +126,11 @@ class SGMSEConfig:
         return OUVESDE(self.theta, self.sigma_min, self.sigma_max)
 
 
-def init_sgmse(cfg: SGMSEConfig, seed: int = 0, device="cpu") -> FM.FlowDNN:
-    """A randomly initialised score network (``init_flowse`` at this width)."""
-    return FM.init_flowse(cfg.flow_cfg, seed=seed, device=device)
+def init_sgmse(cfg: SGMSEConfig, seed: int = 0, device="cuda") -> FM.FlowDNN:
+    """A randomly initialised score network (``init_flowse`` at this width)
+    on the card, or on the CPU where the caller asks for it; ``score_fn``,
+    ``sgmse_loss`` and ``sgmse_enhance`` run where the network is."""
+    return FM.init_flowse(cfg.flow_cfg, seed=seed, device=resolve_device(device))
 
 
 def score_fn(model: FM.FlowDNN, cfg: SGMSEConfig, x, t, y, fs: int) -> torch.Tensor:

@@ -3,14 +3,20 @@ time by kernel and the device's idle share.
 
     python -m urgent2026_challenge_track1_tpu_torch.profile_forward \
         [--batch 64] [--seconds 4] [--fs 48000] [--channels 192] [--lengths 0.925] \
-        [--train] [--dtype bfloat16] [--flow [--nfe 15]]
+        [--train [--render]] [--dtype bfloat16] [--flow [--nfe 15]] [--sgmse [--nfe 50]]
 
 Builds a seeded random model (6 layers, ``--dtype`` compute), runs one
 warm-up, then one forward (or, with ``--train``, one step of the trainer:
 forward, backward, clipping and AdamW) under ``torch.profiler``.  With
 ``--flow`` the model is the flow-matching one (``--channels`` is its
 ``bsrnn_hidden``) and the forward is one ``flowse_enhance`` of ``--nfe``
-euler steps.
+euler steps.  With ``--sgmse`` the model is SGMSE's score network
+(``SGMSEConfig`` at ``--channels``) and the forward is one
+``sgmse_enhance`` of ``--nfe`` predictor-corrector steps (one correction
+each: 2 network calls a step).  ``--train --render`` profiles the
+dynamic-mixing step with the render on the card
+(``make_train_step_rendered``; high-pass, reverb, SNR mixing, a bandwidth
+limit, clipping and packet loss on every row).
 ``--lengths f`` gives every row the length ``f * seconds * fs`` (the
 length-exact path with the masked time recurrence); without it the unmasked
 path runs (a train step always passes lengths, as the trainer does).  Prints
@@ -25,12 +31,15 @@ import json
 import re
 import time
 
+import numpy as np
 import torch
 
 from urgent2026_challenge_track1_tpu_torch import resolve_device
 from urgent2026_challenge_track1_tpu_torch.config import Config
 from urgent2026_challenge_track1_tpu_torch.dsp.stft import STFTConfig
+from urgent2026_challenge_track1_tpu_torch.data import dynamic_device
 from urgent2026_challenge_track1_tpu_torch.models import bsrnn_flowse as flow_mod
+from urgent2026_challenge_track1_tpu_torch.models import sgmse as sgmse_mod
 from urgent2026_challenge_track1_tpu_torch.models.bsrnn import bsrnn_se_apply
 from urgent2026_challenge_track1_tpu_torch.train import trainer
 
@@ -103,6 +112,23 @@ def _union_us(intervals) -> float:
     return busy
 
 
+def _render_batch(wav: torch.Tensor, lengths: torch.Tensor, fs: int) -> list:
+    """The RENDER_KEYS arrays of a DeviceRenderBatch whose rows are
+    ``wav`` (speech, and its reversal as noise) with a decaying RIR, an SNR
+    of 5 dB, a 16 kHz bandwidth limit, clipping and two lost packets."""
+    speech = wav.cpu().numpy()
+    chain = ("bandwidth_limitation-kaiser_best->16000/clipping(min=0.1,max=0.9)/"
+             "packet_loss(packet_loss_indices=[3, 40],packet_duration_ms=20)")
+    rir = np.exp(-np.arange(4800) / 480.0)
+    rir[0] = 1.0
+    items = [{"prerendered": False, "speech": row[:n], "noise": row[::-1][:n], "rir": rir,
+              "fs": fs, "length": n, "snr_db": 5.0, "use_rir": 1.0,
+              **dynamic_device.parse_augmentation_ops(chain, fs)}
+             for row, n in zip(speech, lengths.tolist())]
+    batch = dynamic_device.collate_device_render(items)
+    return [np.ascontiguousarray(batch[k]) for k in dynamic_device.RENDER_KEYS]
+
+
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--batch", type=int, default=64)
@@ -115,8 +141,14 @@ def main(argv=None) -> dict:
     p.add_argument("--train", action="store_true", help="profile one train step")
     p.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
     p.add_argument("--flow", action="store_true", help="the flow-matching model")
-    p.add_argument("--nfe", type=int, default=15, help="euler steps of a flow forward")
+    p.add_argument("--nfe", type=int, default=15,
+                   help="euler steps of a flow forward, or SGMSE's sampler steps")
+    p.add_argument("--sgmse", action="store_true", help="one SGMSE enhancement")
+    p.add_argument("--render", action="store_true",
+                   help="with --train: the dm step with the render on the card")
     args = p.parse_args(argv)
+    if args.render and not args.train:
+        p.error("--render profiles a train step: pass --train")
 
     dev = resolve_device("cuda")
     if args.flow:
@@ -125,8 +157,9 @@ def main(argv=None) -> dict:
     else:
         cfg = Config(model_configs={"num_channel": args.channels, "num_layer": 6},
                      compute_dtype=args.dtype, seed=args.seed)
-    bundle = trainer.build_model(cfg)
-    model = trainer.init_params(args.seed, bundle, dev)
+    if not args.sgmse:
+        bundle = trainer.build_model(cfg)
+        model = trainer.init_params(args.seed, bundle, dev)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     n = int(args.seconds * args.fs)
     wav = 0.1 * torch.randn((args.batch, n), generator=gen, device=dev)
@@ -134,7 +167,21 @@ def main(argv=None) -> dict:
     if args.lengths is not None or args.train:
         valid = int((args.lengths or 1.0) * n)
         lengths = torch.full((args.batch,), valid, dtype=torch.int32, device=dev)
-    if args.train:
+    if args.sgmse:
+        scfg = sgmse_mod.SGMSEConfig(bsrnn_hidden=args.channels, compute_dtype=args.dtype)
+        model = sgmse_mod.init_sgmse(scfg, seed=args.seed, device=dev).eval()
+
+        def run():
+            with torch.inference_mode():
+                sgmse_mod.sgmse_enhance(model, scfg, wav, args.fs, N=args.nfe, generator=gen)
+    elif args.render:
+        opt = trainer.make_optimizer(cfg, model)
+        train_step = trainer.make_train_step_rendered(bundle, cfg, args.fs)
+        tensors = [torch.from_numpy(v).to(dev) for v in _render_batch(wav, lengths, args.fs)]
+
+        def run():
+            train_step(model, opt, *tensors)
+    elif args.train:
         opt = trainer.make_optimizer(cfg, model)
         train_step = trainer.make_train_step(bundle, cfg, args.fs)
         clean = 0.8 * wav
@@ -174,10 +221,13 @@ def main(argv=None) -> dict:
         print(f"{g:60s} {us / 1e3:10.3f} {us / total:7.1%}")
     record = {
         "device": torch.cuda.get_device_name(0),
-        "what": ("flow " if args.flow else "") + ("train step" if args.train else "forward"),
+        "what": ("sgmse " if args.sgmse else "flow " if args.flow else "")
+                + ("rendered " if args.render else "")
+                + ("train step" if args.train else "forward"),
         "geometry": {"batch": args.batch, "seconds": args.seconds, "fs": args.fs,
                      "channels": args.channels, "lengths": args.lengths,
-                     "dtype": args.dtype, "nfe": args.nfe if args.flow and not args.train else None},
+                     "dtype": args.dtype,
+                     "nfe": args.nfe if (args.flow or args.sgmse) and not args.train else None},
         "wall_ms_profiled": wall_us / 1e3,
         "device_busy_ms": busy_us / 1e3,
         "device_idle_share": 1.0 - busy_us / wall_us,
