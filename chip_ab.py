@@ -17,10 +17,15 @@ enhancement again as the median of 5 (``flow_enhance5_ms``), K1p alone
 one-utterance time path (34 x 401, H = 392, 371 valid frames) and the flow
 CLI's (48 x 501, H = 768, 463 valid).  Give the trees in an order that brackets
 drift (parent, change, change, parent).
-Prints one JSON line per visit (``[ab] {...}``), then whether each tree's
-persistent kernels that the first tree also has (K1p and the K2p/K3p
-instances of ``scan_persistent_kernel``) compiled to the first tree's
-instructions (``cuobjdump -sass``, addresses and encodings dropped), then
+Prints one JSON line per visit (``[ab] {...}``, with the registers and
+spill bytes ptxas reported for each persistent and dW kernel), then whether
+each tree's persistent kernels that the first tree also has (K1p, the
+K2p/K3p instances of ``scan_persistent_kernel``, the K5p/K7p instances of
+``bwd_persistent_kernel``, bf16 and f32, and the dW kernels) compiled to
+the first tree's instructions (``cuobjdump -sass``, addresses and encodings dropped), and
+whether K1p's outputs at ``chip_smoke.K1_ROUTE_SHAPES`` and K5p's (with
+its dW) at the disc band (804 x 34, bf16 and f32) equal the first tree's
+bit for bit (sha256 of the bytes, seeded inputs), then
 the card's name and power limit, then a JSON summary of the medians per
 tree.  Needs one card.
 """
@@ -35,7 +40,7 @@ import sys
 from pathlib import Path
 
 _VISIT = r'''
-import json, sys, time
+import hashlib, json, re, sys, time
 sys.path.insert(0, sys.argv[1])
 import torch
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -47,7 +52,23 @@ from urgent2026_challenge_track1_tpu_torch.models.bsrnn import (
 
 res = cs.phase_build()
 device = torch.device("cuda", 0)
-out = {"tree": sys.argv[1], "library": str(res.path)}
+out = {"tree": sys.argv[1], "library": str(res.path), "ptxas": {}}
+# registers and spill bytes of each persistent and dW kernel, from the
+# build's ptxas report (the mangled name without its anonymous namespace)
+entry = None
+for line in res.log.splitlines():
+    m = re.search(r"Compiling entry function '\S*?(fusedin_persistent_kernel|"
+                  r"scan_persistent_kernel|bwd_persistent_kernel|dw_tc_kernel|dw_tf32_kernel)"
+                  r"(\S*?)'", line)
+    if "Compiling entry function" in line:
+        entry = m.group(1) + m.group(2) if m else None
+        if entry:
+            out["ptxas"][entry] = {}
+    elif entry and "spill stores" in line:
+        out["ptxas"][entry]["spill_store_bytes"] = int(re.search(r"(\d+) bytes spill stores",
+                                                                 line).group(1))
+    elif entry and "Used" in line and "registers" in line:
+        out["ptxas"][entry]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
 with torch.inference_mode():
     model = init_bsrnn(BSRNNConfig(num_channel=196, num_layer=6, compute_dtype="bfloat16"),
                        seed=3, device=device)
@@ -80,13 +101,30 @@ with torch.inference_mode():
     out["flow_enhance5_ms"] = sorted(times[1:])[2]
     del model, wav
     sms = cs._sm_count(device)
-    out["k1p_ms"] = {}
+    out["k1p_ms"], out["sha256"] = {}, {}
+
+    def digest(*ts):
+        h = hashlib.sha256()
+        for t in ts:
+            h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        return h.hexdigest()
+
     for _, R, T, N, H in cs.K1_ROUTE_SHAPES:
         x, wi, wh, b, _, _ = cs._kernel_inputs(R, T, torch.bfloat16, device, R + T, N, H)
         plan = K.plan_persistent(R, N, H, sms)
         out["k1p_ms"][f"{R}x{T}"] = cs._time_ms(
             lambda: K.fusedin_bilstm_persistent(x, wi, wh, b, plan))
+        out["sha256"][f"k1p_{R}x{T}"] = digest(K.fusedin_bilstm_persistent(x, wi, wh, b, plan))
         del x, wi, wh, b
+    # K5p (and its dW kernel) on the plain forward's residuals, each dtype
+    for dtype in (torch.bfloat16, torch.float32):
+        R, T, H = 804, 34, 392
+        _, _, wh, _, xp, _ = cs._kernel_inputs(R, T, dtype, device, R + T, hid=H)
+        dout = (0.1 * torch.randn((R, T, H), generator=torch.Generator().manual_seed(R))).to(
+            device, dtype)
+        res = K.lstm_train_fwd_plain(xp, wh[0])
+        out["sha256"][f"k5p_{dtype}_{R}x{T}"] = digest(*K.lstm_train_bwd(*res, dout, wh[0]))
+        del xp, wh, dout, res
     out["scan_p_ms"] = {}
     for R, T, H, valid in ((34, 401, 392, 371), (48, 501, 768, 463)):
         _, _, wh, _, xp, _ = cs._kernel_inputs(R, T, torch.bfloat16, device, R + T + H, hid=H)
@@ -123,10 +161,13 @@ def _summary(visits):
 
 
 def _sass(library: str) -> dict:
-    """{(kernel, REVERSE, MASKED): instructions} of the persistent kernels in
-    a built library; a scan_persistent_kernel instance that stores the
-    training residuals (a third flag, set) or takes float32 elements is left
-    out."""
+    """{key: instructions} of the persistent kernels in a built library:
+    K1p (``fusedin_persistent_kernel``, or its instance with STORE unset;
+    K8p's, STORE set, is left out), the scan_persistent_kernel instances
+    keyed (kernel, REVERSE, MASKED) (one that stores the training residuals
+    (a third flag, set) or takes float32 elements is left out), and the
+    bwd_persistent_kernel instances keyed (kernel, "bf16" or "f32",
+    MASKED), and the dW kernels (dw_tc_kernel, dw_tf32_kernel)."""
     from urgent2026_challenge_track1_tpu_torch.ops._build import find_nvcc
 
     cuobjdump = Path(find_nvcc()).with_name("cuobjdump")
@@ -134,14 +175,23 @@ def _sass(library: str) -> dict:
                           check=True).stdout
     kernels, body = {}, None
     for line in text.splitlines():
-        head = re.search(r"Function : \S*?(fusedin_persistent_kernel|scan_persistent_kernel)"
+        head = re.search(r"Function : \S*?(fusedin_persistent_kernel|scan_persistent_kernel|"
+                         r"bwd_persistent_kernel|dw_tc_kernel|dw_tf32_kernel)"
                          r"(?:I(13__nv_bfloat16|f)?((?:Lb[01]E)+)E)?", line)
         if "Function :" in line:
             body = None
-            if head and head.group(2) != "f":
+            if head:
+                name, f32 = head.group(1), head.group(2) == "f"
                 flags = tuple(int(f) for f in re.findall(r"Lb([01])E", head.group(3) or ""))
-                if len(flags) < 3 or flags[2] == 0:
-                    body = kernels.setdefault((head.group(1), *flags[:2]), [])
+                if name == "fusedin_persistent_kernel" and flags in ((), (0,)):
+                    body = kernels.setdefault((name,), [])
+                elif name == "scan_persistent_kernel" and not f32 and (
+                        len(flags) < 3 or flags[2] == 0):
+                    body = kernels.setdefault((name, *flags[:2]), [])
+                elif name == "bwd_persistent_kernel":
+                    body = kernels.setdefault((name, "f32" if f32 else "bf16", *flags), [])
+                elif name in ("dw_tc_kernel", "dw_tf32_kernel"):
+                    body = kernels.setdefault((name,), [])
             continue
         instr = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;", line)
         if body is not None and instr:
@@ -173,6 +223,8 @@ def main(argv) -> int:
         other = _sass(v["library"])
         same = {" ".join(map(str, k)): other.get(k) == body for k, body in first.items()}
         print("[ab] sass " + json.dumps({"tree": v["tree"], "same_as_first_tree": same}))
+        same = {k: v["sha256"].get(k) == h for k, h in visits[0]["sha256"].items()}
+        print("[ab] outputs " + json.dumps({"tree": v["tree"], "bitwise_first_tree": same}))
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
     print(json.dumps({"ab_summary": _summary(visits)}))

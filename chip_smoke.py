@@ -10,8 +10,13 @@ Phases (any failure exits non-zero; each prints its seconds):
      main paths' shapes, in float32 (TF32 off) and bfloat16: the inference
      kernels K1 (its walk) - K3, then the training kernels K4-K7 (h, gates,
      c, dx_proj, dW), at the discriminative width (H = 392) and at the flow
-     model's (H = 768); then K8-K10 at both widths' training shapes, and
-     K9/K10 against K4/K5 run per direction (bitwise equal); then K1p, K1's
+     model's (H = 768); then the walks of K8-K10 at both widths' training
+     shapes, and K9 / K10's walk against K4/K5 run per direction (bitwise
+     equal); then K8p (bfloat16) and K10p (bfloat16 and float32), the
+     persistent routes of K8 and K10, against their plain versions with
+     planted faults, TF32 controls and dW bounds, K10p against K5p run per
+     direction (bitwise equal), and their, the walks', the default arm's
+     and torch.nn.LSTM's times (the k8p/k10p routes phase); then K1p, K1's
      persistent bfloat16 route, against the plain version and the walk at
      the eight shapes where K1 runs, with its plan and its, the walk's and
      cuDNN's times (the k1_routes phase); then K2p and K3p, the persistent
@@ -87,7 +92,9 @@ Phases (any failure exits non-zero; each prints its seconds):
   4. the A/B arms of the two experiment toggles (default, STREAM_INPUT_TRAIN,
      FUSED_BIDIR_TRAIN, both, in alternating order) on one train step of
      each family: launches per kernel, loss and gradients against the
-     default arm, step times; K8-K10 run here;
+     default arm, step times, and each step's K8 and K10 routes against
+     the route rules (K8p and K10p in bfloat16; a discriminative float32
+     family runs the default and fused arms for K10p-f32); K8-K10 run here;
   5. compare a float32 forward, and one float32 train step's gradients, on
      the card (kernels) with the same on the CPU (plain versions), for both
      families;
@@ -1398,7 +1405,8 @@ def _train_batch(device, B=4, fs=48000):
 
 
 def _routes():
-    """{kernel: {route: launches}} of K1-K4 and K6 since the last reset."""
+    """{kernel: {route: launches}} of the routed kernels (K1-K8, K10) since the
+    last reset."""
     from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
 
     return {fn.__name__: K.route_counts(fn.__name__) for fn in K.ROUTED}
@@ -1417,13 +1425,16 @@ def _check_routes(what, dtype_name, routes, kernels=INFERENCE_KERNELS):
 
 
 def _check_dw_launches(what, routes):
-    """The dW kernel ran once inside each K5p and K7p launch, and nowhere
-    else; returns its count since the last reset."""
+    """The dW kernel ran once inside each K5p and K7p launch, twice inside
+    each K10p launch (once a direction), and nowhere else; returns its
+    count since the last reset."""
     from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
 
-    want = sum(routes[name]["persistent"] for name in ("lstm_train_bwd", "lstm_revmasked_bwd"))
+    want = (sum(routes[name]["persistent"] for name in ("lstm_train_bwd", "lstm_revmasked_bwd"))
+            + 2 * routes["lstm_train_bwd2"]["persistent"])
     if K.lstm_bwd_dw.launches != want:
-        fail(f"{what}: the dW kernel ran {K.lstm_bwd_dw.launches} times, K5p + K7p {want}")
+        fail(f"{what}: the dW kernel ran {K.lstm_bwd_dw.launches} times, K5p + K7p + 2 K10p "
+             f"{want}")
     return K.lstm_bwd_dw.launches
 
 
@@ -1801,7 +1812,7 @@ def _bwd_route_records(rows, steps):
             rec = {
                 "name": f"{name}_persistent{suffix}", "route": "cuda",
                 "route_of_kernel": "persistent",
-                "source": f"{PKG}/csrc/lstm_persistent.cu", "replaces": REPLACES[name],
+                "source": f"{PKG}/csrc/lstm_persistent_bwd.cu", "replaces": REPLACES[name],
                 "launches": steps[dt_name]["routes_per_step"][name]["persistent"],
                 "launches_run": run,
                 "max_abs_err": max(r["max_abs_err_vs_plain"] for r in runs),
@@ -1849,7 +1860,8 @@ def _bwd_route_records(rows, steps):
         d, f = disc[BWD_TAGS[0]], flow[BWD_TAGS[0]]
         rec = {
             "name": f"lstm_bwd_dw{suffix}", "route": "cuda", "route_of_kernel": "persistent",
-            "source": f"{PKG}/csrc/lstm_persistent.cu", "replaces": REPLACES["lstm_train_bwd"],
+            "source": f"{PKG}/csrc/lstm_persistent_bwd.cu",
+            "replaces": REPLACES["lstm_train_bwd"],
             "replaces_also": REPLACES["lstm_revmasked_bwd"],
             "launches": steps[dt_name]["dw_launches_per_step"], "launches_run": run,
             "max_abs_err": max(r["dw_max_abs_err_vs_f64"] for r in runs),
@@ -1959,13 +1971,14 @@ NEW_KERNELS = ("lstm_train_fwd_streamin", "lstm_train_fwd2", "lstm_train_bwd2")
 
 
 def phase_new_kernels(device):
-    """K8-K10 against their plain versions at the discriminative training
-    shapes (N = 196, H = 392) and the flow training shapes (N = 384,
-    H = 768), float32 and bfloat16: max abs error of the forward outputs,
-    max relative error of the backward's (each on the plain forward's
-    residuals).  K9 and K10 must equal K4 and K5 run per direction bit for
-    bit (against K4's and K5's walks, their device code).  Returns {(kernel, dtype):
-    (abs error, relative error or None)}."""
+    """The walks of K8-K10 against their plain versions at the
+    discriminative training shapes (N = 196, H = 392) and the flow training
+    shapes (N = 384, H = 768), float32 and bfloat16: max abs error of the
+    forward outputs, max relative error of the backward's (each on the
+    plain forward's residuals).  K9 and K10's walk must equal K4 and K5 run
+    per direction bit for bit (against K4's and K5's walks, their device
+    code).  K8p and K10p, the persistent routes: phase_streamin_bwd2_routes.
+    Returns {(kernel, dtype): (abs error, relative error or None)}."""
     import torch
     from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
     from urgent2026_challenge_track1_tpu_torch.ops import persistent_checks as PC
@@ -1981,7 +1994,8 @@ def phase_new_kernels(device):
                 xp_b = (0.3 * torch.randn((R, T, 4 * hid), generator=gen)).to(device, dtype)
                 dout = torch.randn((2, R, T, hid), generator=gen).to(device, dtype)
                 for reverse in (False, True):
-                    got = K.lstm_train_fwd_streamin(x, w_ih_t[0], bias[0], w_hh_t[0], reverse)
+                    got = K.lstm_train_fwd_streamin_walk(x, w_ih_t[0], bias[0], w_hh_t[0],
+                                                         reverse)
                     ref = K.lstm_train_fwd_streamin_plain(x, w_ih_t[0], bias[0], w_hh_t[0],
                                                           reverse)
                     torch.cuda.synchronize()
@@ -1996,7 +2010,8 @@ def phase_new_kernels(device):
                 if not all(torch.equal(a, b) for a, b in zip(got, single)):
                     fail(f"lstm_train_fwd2 {dt_name} R={R} T={T}: not bitwise the K4 walk per "
                          "direction")
-                got = K.lstm_train_bwd2(ref[:3], ref[3:], dout[0], dout[1], w_hh_t[0], w_hh_t[1])
+                got = K.lstm_train_bwd2_walk(ref[:3], ref[3:], dout[0], dout[1], w_hh_t[0],
+                                             w_hh_t[1])
                 want = K.lstm_train_bwd2_plain(ref[:3], ref[3:], dout[0], dout[1], w_hh_t[0],
                                                w_hh_t[1])
                 # K5's walk: K10's device code (bfloat16 K5 takes K5p)
@@ -2020,6 +2035,289 @@ def phase_new_kernels(device):
         if not e < tol:
             fail(f"{name} {dt_name}: kernel vs plain {e:.3e} >= {tol}")
     return errs
+
+
+# ---------------------------------------------------------------------------
+# K8p and K10p, the persistent routes of K8 and K10 (phase 2)
+# ---------------------------------------------------------------------------
+
+BENCH_N, BENCH_H = 192, 384  # the JAX bench's width (bench.py: 192 channels)
+# (what, R, T, N, H): K8 on the time paths of both training steps (both
+# directions: the masked time path walks the length-reversed input forward,
+# the band layer both ways), on the disc band path (the one plan here whose
+# groups walk several chunks a step, with c in global memory) and at the
+# bench width
+K8P_SHAPES = (("disc time B=4", *TRAIN_TIME, N_IN, HID),
+              ("disc band B=4", *TRAIN_BAND, N_IN, HID),
+              ("flow time B=2", *FLOW_TIME, FLOW_N, FLOW_H),
+              ("bench width", *TRAIN_TIME, BENCH_N, BENCH_H))
+# (what, R, T, H): K10 on the band paths, where FUSED_BIDIR_TRAIN runs it
+K10P_SHAPES = (("disc band B=4", *TRAIN_BAND, HID),
+               ("flow band B=2", *FLOW_BAND, FLOW_H),
+               ("bench width", *TRAIN_BAND, BENCH_H))
+K10P_DIRS = ("forward", "reverse")
+
+
+def phase_streamin_bwd2_routes(device):
+    """K8p (bfloat16) and K10p (bfloat16 and float32) against their plain
+    versions at every step, each through its routed wrapper (its route rule
+    must take the persistent route and count one launch there):
+
+    K8p at K8P_SHAPES, both directions: h, gates and c each within 4 bf16
+    ulps at max|plain| (``persistent_checks.ulp_limit``), which the planted
+    fault (``persistent_checks.lstm_train_fwd_streamin_stale_h``, the plain
+    walk fed h one step stale) must exceed; two launches bitwise equal; its
+    plan checked against the kernel's byte count, and one plan (the disc
+    band's) walks several chunks a group.  Times (forward walk):
+    K8p, the walk, the plain version, a one-direction torch.nn.LSTM training
+    forward (K8's function, N = H / 2) and what the default arm runs for
+    the same function, the hoisted addmm and K4p; the bound.
+
+    K10p at K10P_SHAPES on the plain training forward's residuals of both
+    directions: dx_proj of each direction within ``persistent_checks.bwd_limit``
+    (4 bf16 ulps; F32_BWD_LIMIT of max|plain| in float32), which the
+    stale-dgates fault (``persistent_checks.lstm_train_bwd_stale_dg``) and,
+    in float32, the backward with one TF32 product
+    (``persistent_checks.lstm_train_bwd_tf32``) must exceed; the dW kernel
+    on each direction's dx_proj within DW_BOUND (``DW_F32_BOUND``, which the
+    product of TF32-rounded operands must exceed) |h_prev|^T |dx_proj| of
+    the float64 product, the routed dW its rounding and within BF16_TOL
+    (F32_BWD_LIMIT) of the plain dW; two launches bitwise equal; equal bit
+    for bit to K5p launched per direction with K10p's plan.  A shape and
+    dtype without a dirs = 2 plan must take the walk (the rule), and is
+    recorded so.  Times: K10p (with its dW kernel, ``lstm_bwd_dw``, once a
+    direction), the walk, two K5p launches on K5p's
+    own plans (what the default arm runs), the plain version, the
+    bidirectional torch.nn.LSTM backward (a superset); the bound, twice
+    K5's; where the planner moved dc to global memory for
+    fewer K tiles, K10p at the plan that keeps dc in shared memory.
+    Returns {"k8p": [...], "k10p": [...]}."""
+    import dataclasses
+
+    import torch
+    from urgent2026_challenge_track1_tpu_torch.ops import _build
+    from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
+    from urgent2026_challenge_track1_tpu_torch.ops import persistent_checks as PC
+
+    sms = _sm_count(device)
+    lib = _build.load_library()
+    bf16 = torch.bfloat16
+    out = {"k8p": [], "k10p": []}
+    for what, R, T, N, H in K8P_SHAPES:
+        x, wi, wh, b, _, _ = _kernel_inputs(R, T, bf16, device, R + 5 * T + H, N, H)
+        plan = K.plan_persistent(R, N, H, sms, dirs=1)
+        if plan is None or K.streamin_route(bf16, R, N, H, sms) != plan:
+            fail(f"K8p: no plan, or the rule does not take it, at {what} (R={R}, N={N}, H={H})")
+        kernel_smem = lib.lstm_persistent_smem(N, H, plan.U, plan.rows, plan.chunk,
+                                                int(plan.c_in_smem), 2)
+        if kernel_smem != plan.smem:
+            fail(f"K8p plan at {what}: {plan.smem} bytes, the kernel reckons {kernel_smem}")
+        rec = {"what": what, "R": R, "T": T, "N": N, "H": H, "dtype": "bfloat16",
+               "plan": {"S": plan.S, "G": plan.G, "U": plan.U, "rows": plan.rows,
+                        "chunk": plan.chunk, "chunks_per_group": -(-plan.rows // plan.chunk),
+                        "c_in_smem": plan.c_in_smem, "smem_bytes": plan.smem,
+                        "ctas": plan.ctas}}
+        for reverse in (False, True):
+            K.reset_launch_counts()
+            got = K.lstm_train_fwd_streamin(x, wi[0], b[0], wh[0], reverse)
+            routes = K.route_counts("lstm_train_fwd_streamin")
+            again = K.lstm_train_fwd_streamin(x, wi[0], b[0], wh[0], reverse)
+            ref = K.lstm_train_fwd_streamin_plain(x, wi[0], b[0], wh[0], reverse)
+            stale = PC.lstm_train_fwd_streamin_stale_h(x, wi[0], b[0], wh[0], reverse)
+            torch.cuda.synchronize()
+            limits = [PC.ulp_limit(r) for r in ref]
+            e_plain = [_err(g, r) for g, r in zip(got, ref)]
+            e_stale = [_err(f, r) for f, r in zip(stale, ref)]
+            bitwise = all(torch.equal(u, v) for u, v in zip(got, again))
+            del got, again, ref, stale
+            tag = "reverse" if reverse else "forward"
+            rec[tag] = {"routes": routes,
+                        "max_abs_err_vs_plain": dict(zip(RESIDUALS, e_plain)),
+                        "limit": dict(zip(RESIDUALS, limits)),
+                        "max_err_over_limit": max(e / lim for e, lim in zip(e_plain, limits)),
+                        "planted_stale_h_over_limit": min(
+                            e / lim for e, lim in zip(e_stale, limits)),
+                        "bitwise_repeat": bitwise}
+            print(f"[k8p] {what} {tag} R={R} T={T} N={N} H={H}: plan S={plan.S} G={plan.G} "
+                  f"U={plan.U} rows={plan.rows} chunk={plan.chunk} c_in_smem={plan.c_in_smem} "
+                  f"smem={plan.smem} B ({plan.ctas} CTAs); routes {routes}; max|p - plain| h, "
+                  f"gates, c {[f'{e:.3e}' for e in e_plain]} (limits "
+                  f"{[f'{lim:.3e}' for lim in limits]}); planted stale h "
+                  f"{[f'{e:.3e}' for e in e_stale]}; two launches bitwise equal: {bitwise}")
+            if routes != {"persistent": 1, "walk": 0}:
+                fail(f"K8p {what} {tag}: the routed K8 took {routes}, expected K8p once")
+            for name, e, f, lim in zip(RESIDUALS, e_plain, e_stale, limits):
+                if not e < lim:
+                    fail(f"K8p {what} {tag}: {name} vs plain {e:.3e} >= {lim:.3e}")
+                if not f >= lim:
+                    fail(f"K8p {what} {tag}: a stale h moves {name} by {f:.3e}, under the limit "
+                         f"{lim:.3e}: the check cannot see a barrier fault")
+            if not bitwise:
+                fail(f"K8p {what} {tag}: two launches differ")
+        x2 = x.reshape(-1, N)
+        bound_ms, bound_by = _new_kernel_bounds(R, T, N, H)["lstm_train_fwd_streamin"]
+        with torch.no_grad():
+            rec.update({
+                "ms": _time_ms(lambda: K.lstm_train_fwd_streamin(x, wi[0], b[0], wh[0])),
+                "walk_ms": _time_ms(
+                    lambda: K.lstm_train_fwd_streamin_walk(x, wi[0], b[0], wh[0]), reps=3,
+                    warmup=1),
+                "plain_ms": _time_ms(lambda: K.lstm_train_fwd_streamin_plain(x, wi[0], b[0],
+                                                                             wh[0]),
+                                     reps=1, warmup=1),
+                "k4p_addmm_ms": _time_ms(lambda: K.lstm_train_fwd(
+                    torch.addmm(b[0], x2, wi[0]).reshape(R, T, 4 * H), wh[0])),
+                "bound_ms": bound_ms, "bound_by": bound_by})
+        rec["library_ms"] = _lstm_forward_reference_ms(device, R, T, H, bf16, True)
+        print(f"[k8p] {what} R={R} T={T} N={N} H={H} bf16: K8p {rec['ms']:.3f} ms, walk "
+              f"{rec['walk_ms']:.3f} ms, plain {rec['plain_ms']:.3f} ms, addmm + K4p "
+              f"{rec['k4p_addmm_ms']:.3f} ms, nn.LSTM training forward {rec['library_ms']:.3f} "
+              f"ms, bound {bound_ms:.4f} ms ({bound_by})")
+        out["k8p"].append(rec)
+        del x, wi, wh, b, x2
+    if not any(r["plan"]["chunks_per_group"] > 1 for r in out["k8p"]):
+        fail("K8p: no shape's plan walks more than one chunk a group, so the residual stores "
+             "of a group's earlier chunks went unchecked")
+    for what, R, T, H in K10P_SHAPES:
+        for dt_name, dtype in (("bfloat16", bf16), ("float32", torch.float32)):
+            f32 = dtype == torch.float32
+            elem = 4 if f32 else 2
+            dw_bound, dw_tol = ((PC.DW_F32_BOUND, PC.F32_BWD_LIMIT) if f32
+                                else (DW_BOUND, BF16_TOL))
+            _, _, wh, _, xp, _ = _kernel_inputs(R, T, dtype, device, R + 7 * T + H, hid=H)
+            gen = torch.Generator().manual_seed(R + T)
+            xp_b = (0.3 * torch.randn((R, T, 4 * H), generator=gen)).to(device, dtype)
+            dout = (0.1 * torch.randn((2, R, T, H), generator=gen)).to(device, dtype)
+            res = K.lstm_train_fwd2_plain(xp, xp_b, wh[0], wh[1])
+            del xp, xp_b
+            plan = K.plan_backward(R, H, sms, elem=elem, dirs=2)
+            route = K.backward2_route(dtype, R, H, sms)
+            rec = {"what": what, "R": R, "T": T, "H": H, "dtype": dt_name,
+                   "route": "persistent" if route is not None else "walk"}
+            args = (res[:3], res[3:], dout[0], dout[1], wh[0], wh[1])
+            if plan is None:
+                K.reset_launch_counts()
+                K.lstm_train_bwd2(*args)
+                routes = K.route_counts("lstm_train_bwd2")
+                rec.update({"plan": None, "routes": routes})
+                print(f"[k10p] {dt_name} {what} R={R} T={T} H={H}: no dirs = 2 plan on {sms} "
+                      f"SMs; the routed K10 took {routes}")
+                if route is not None or routes != {"persistent": 0, "walk": 1}:
+                    fail(f"K10 {dt_name} {what}: without a plan the rule must take the walk")
+                out["k10p"].append(rec)
+                del res, dout, wh, args
+                continue
+            kernel_smem = lib.lstm_persistent_bwd_smem(H, plan.U, plan.rows, plan.chunk, plan.kt,
+                                                        int(plan.dc_in_smem), elem)
+            if route != plan or kernel_smem != plan.smem:
+                fail(f"K10p {dt_name} plan at {what}: rule {route}, {plan.smem} bytes, the "
+                     f"kernel reckons {kernel_smem}")
+            K.reset_launch_counts()
+            got = K.lstm_train_bwd2(*args)
+            routes, dw_launches = K.route_counts("lstm_train_bwd2"), K.lstm_bwd_dw.launches
+            again = K.lstm_train_bwd2(*args)
+            ref = K.lstm_train_bwd2_plain(*args)
+            single = (*K.lstm_train_bwd_persistent(*res[:3], dout[0], wh[0], False, plan),
+                      *K.lstm_train_bwd_persistent(*res[3:], dout[1], wh[1], True, plan))
+            torch.cuda.synchronize()
+            bitwise = all(torch.equal(u, v) for u, v in zip(got, again))
+            equals_k5p = all(torch.equal(u, v) for u, v in zip(got, single))
+            del single, again
+            rec.update({"plan": {"S": plan.S, "G": plan.G, "U": plan.U, "rows": plan.rows,
+                                 "chunk": plan.chunk, "kt": plan.kt, "ntiles": plan.ntiles,
+                                 "dc_in_smem": plan.dc_in_smem, "smem_bytes": plan.smem,
+                                 "ctas": plan.ctas, "dw_split": plan.dw_split},
+                        "routes": routes, "dw_launches": dw_launches,
+                        "bitwise_repeat": bitwise, "equals_k5p_per_direction": equals_k5p})
+            for d, rev in enumerate((False, True)):
+                r3, do, w = res[3 * d:3 * d + 3], dout[d], wh[d]
+                dxp_k, dw_k, dxp_r, dw_r = got[2 * d], got[2 * d + 1], ref[2 * d], ref[2 * d + 1]
+                limit = PC.bwd_limit(dxp_r)
+                e_dxp = _err(dxp_k, dxp_r)
+                e_stale = _err(PC.lstm_train_bwd_stale_dg(*r3, do, w, rev)[0], dxp_r)
+                e_tf32 = _err(PC.lstm_train_bwd_tf32(*r3, do, w, rev)[0], dxp_r) if f32 else None
+                dw32 = K.lstm_bwd_dw(r3[0], dxp_k, rev, None, plan.dw_split)
+                dw_ratio, dw_abs, _ = _dw_check(K, r3[0], dxp_k, dw32, rev)
+                ctrl = (_dw_check(K, r3[0], dxp_k, _dw_tf32_control(K, PC, r3[0], dxp_k, rev),
+                                  rev)[0] if f32 else None)
+                dw_rounded = torch.equal(dw_k, dw32.to(dw_k.dtype))
+                e_dw = _rel(dw_k, dw_r)
+                tag = K10P_DIRS[d]
+                rec[tag] = {"max_abs_err_vs_plain": e_dxp, "limit": limit,
+                            "max_err_over_limit": e_dxp / limit,
+                            "planted_stale_dg_over_limit": e_stale / limit,
+                            "tf32_control_over_limit": e_tf32 / limit if f32 else None,
+                            "dw_bound_ratio": dw_ratio, "dw_max_abs_err_vs_f64": dw_abs,
+                            "dw_tf32_control_ratio": ctrl, "dw_rel_err_vs_plain": e_dw,
+                            "dw_is_its_rounding": dw_rounded}
+                print(f"[k10p] {dt_name} {what} {tag} R={R} T={T} H={H}: max|dxp - plain| "
+                      f"{e_dxp:.3e} (limit {limit:.3e}); planted stale dg {e_stale:.3e}; one "
+                      f"TF32 product {'n/a' if e_tf32 is None else f'{e_tf32:.3e}'}; dW |d| / "
+                      f"(|h|^T|dxp|) {dw_ratio:.3e} (limit {dw_bound}), TF32 operands "
+                      f"{'n/a' if ctrl is None else f'{ctrl:.3e}'}; rel vs plain {e_dw:.3e} "
+                      f"(limit {dw_tol}), its rounding: {dw_rounded}")
+                if not e_dxp < limit:
+                    fail(f"K10p {dt_name} {what} {tag}: dx_proj vs plain {e_dxp:.3e} >= "
+                         f"{limit:.3e}")
+                if not e_stale >= limit:
+                    fail(f"K10p {dt_name} {what} {tag}: stale dgates move dx_proj by "
+                         f"{e_stale:.3e}, under the limit {limit:.3e}")
+                if f32 and not e_tf32 >= limit:
+                    fail(f"K10p {dt_name} {what} {tag}: one TF32 product moves dx_proj by "
+                         f"{e_tf32:.3e}, under the limit {limit:.3e}")
+                if not dw_ratio <= dw_bound:
+                    fail(f"K10p {dt_name} {what} {tag}: dW off its float64 product by "
+                         f"{dw_ratio:.3e} of |h_prev|^T |dx_proj| > {dw_bound}")
+                if f32 and not ctrl > dw_bound:
+                    fail(f"K10p {dt_name} {what} {tag}: the dW of TF32-rounded operands is "
+                         f"within {ctrl:.3e} <= {dw_bound}")
+                if not (dw_rounded and e_dw < dw_tol):
+                    fail(f"K10p {dt_name} {what} {tag}: the routed dW is not the dW kernel's "
+                         f"rounding or is {e_dw:.3e} from plain (limit {dw_tol})")
+            dxp = (got[0], got[2])
+            del got, ref
+            bound_ms = 2 * _train_bounds(R, T, R * T, H, dt_name)["lstm_train_bwd"][0]
+            bound_by = _train_bounds(R, T, R * T, H, dt_name)["lstm_train_bwd"][1]
+            rec.update({
+                "ms": _time_ms(lambda: K.lstm_train_bwd2(*args)),
+                "walk_ms": _time_ms(lambda: K.lstm_train_bwd2_walk(*args), reps=3, warmup=1),
+                "k5p_pair_ms": _time_ms(lambda: (
+                    K.lstm_train_bwd(*res[:3], dout[0], wh[0], False),
+                    K.lstm_train_bwd(*res[3:], dout[1], wh[1], True))),
+                "plain_ms": _time_ms(lambda: K.lstm_train_bwd2_plain(*args), reps=1, warmup=1),
+                "bound_ms": bound_ms, "bound_by": bound_by})
+            rec["library_ms"] = _bilstm_reference_ms(device, R, T, H, dtype, True)
+            # where the planner moved dc out of shared memory for fewer K
+            # tiles: K10p at the plan that keeps it there, for comparison
+            kt_smem = K._backward_tile(H, plan.U, plan.chunk, plan.rows, True, K.SMEM_LIMIT,
+                                       elem)
+            if not plan.dc_in_smem and kt_smem is not None:
+                alt = dataclasses.replace(plan, dc_in_smem=True, kt=kt_smem, smem=K.backward_smem(
+                    H, plan.U, plan.chunk, kt_smem, plan.rows, True, elem))
+                rec["dc_in_smem_plan"] = {"kt": alt.kt, "ntiles": alt.ntiles,
+                                          "smem_bytes": alt.smem}
+                rec["dc_in_smem_ms"] = _time_ms(lambda: K.lstm_train_bwd2_persistent(*args, alt))
+            print(f"[k10p] {dt_name} {what} R={R} T={T} H={H}: plan S={plan.S} G={plan.G} "
+                  f"U={plan.U} rows={plan.rows} chunk={plan.chunk} kt={plan.kt} dc_in_smem="
+                  f"{plan.dc_in_smem} smem={plan.smem} B ({plan.ctas} CTAs), dW split "
+                  f"{plan.dw_split}; routes {routes}, dW launches {dw_launches}; K10p "
+                  f"{rec['ms']:.3f} ms, walk {rec['walk_ms']:.3f} "
+                  f"ms, K5p x 2 {rec['k5p_pair_ms']:.3f} ms, plain {rec['plain_ms']:.3f} ms, "
+                  f"nn.LSTM bidirectional backward {rec['library_ms']:.3f} ms, bound "
+                  f"{bound_ms:.4f} ms ({bound_by}); with dc in shared memory "
+                  f"{rec.get('dc_in_smem_plan')} {rec.get('dc_in_smem_ms')} ms; two launches "
+                  f"bitwise equal: {bitwise}; equal to K5p per direction at this plan: "
+                  f"{equals_k5p}")
+            if routes != {"persistent": 1, "walk": 0} or dw_launches != 2:
+                fail(f"K10p {dt_name} {what}: the routed K10 took {routes} with {dw_launches} "
+                     "dW launches, expected K10p once and its dW kernel once a direction")
+            if not bitwise:
+                fail(f"K10p {dt_name} {what}: two launches differ")
+            if not equals_k5p:
+                fail(f"K10p {dt_name} {what}: not bitwise K5p per direction at its plan")
+            out["k10p"].append(rec)
+            del res, dout, wh, args, dxp
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2662,19 +2960,28 @@ def phase_dm_device(workdir: Path, device, host_dm):
 ARMS = {"default": (False, False), "stream": (True, False), "fused": (False, True),
         "both": (True, True)}
 ARM_ORDER = ("default", "stream", "fused", "both", "both", "fused", "stream", "default")
-AB_LAYERS = 6  # both families' depth in the A/B arms
+# the arms each family visits: disc_f32 (the discriminative model in float32)
+# runs the fused arm only, where K10p-f32 has its plan (the band path 804 x
+# 34, H = 392); the flow band (502 x 48, H = 768) has no float32 K10p plan
+FAMILY_ARMS = {"disc": ARM_ORDER, "flow": ARM_ORDER,
+               "disc_f32": ("default", "fused", "fused", "default")}
+AB_LAYERS = 6  # the families' depth in the A/B arms
+# the kernels whose route the A/B arms check: K8 (K8p or its walk), K10
+# (K10p or its walk)
+AB_ROUTED = ("lstm_train_fwd_streamin", "lstm_train_bwd2")
 
 
 def _ab_model(device, family):
     """(bundle, cfg, model, batch) of one A/B family: the discriminative
     baseline (B=4, 2 s buckets at 48 kHz, 196 x 6, bf16; the geometry of
-    scripts/bench_band_fused_ab.py) or the flow model (B=2, 2 s, 384 x 6,
-    float32, the config's dtype)."""
+    scripts/bench_band_fused_ab.py; disc_f32 the same in float32) or the
+    flow model (B=2, 2 s, 384 x 6, float32, the config's dtype)."""
     import torch
     from urgent2026_challenge_track1_tpu_torch.train import trainer
 
-    if family == "disc":
-        cfg = _train_config(Path("."), compute_dtype="bfloat16")
+    if family in ("disc", "disc_f32"):
+        cfg = _train_config(Path("."), compute_dtype="bfloat16" if family == "disc"
+                            else "float32")
         batch = _train_batch(device)
     else:
         cfg = _flow_config(Path("."))
@@ -2685,14 +2992,37 @@ def _ab_model(device, family):
     return bundle, cfg, trainer.init_params(cfg.seed, bundle, device), batch
 
 
+def _ab_expected_routes(K, family, dtype, sms):
+    """The routes K8 and K10 may take in one family's train step, by the
+    rules applied at the family's shapes: K8 on K8p where ``streamin_route``
+    finds a plan at its time or its band path, on the walk where it finds
+    none at one of them; K10 on K10p where ``backward2_route`` finds a plan
+    at the band path, else on the walk."""
+    import torch
+
+    dt = getattr(torch, dtype)
+    flow = family == "flow"
+    N, H = (FLOW_N, FLOW_H) if flow else (N_IN, HID)
+    time_path, band_path = (FLOW_TIME, FLOW_BAND) if flow else (TRAIN_TIME, TRAIN_BAND)
+
+    def route(plan):
+        return "walk" if plan is None else "persistent"
+
+    return {"lstm_train_fwd_streamin": {route(K.streamin_route(dt, R, N, H, sms))
+                                        for R, _ in (time_path, band_path)},
+            "lstm_train_bwd2": {route(K.backward2_route(dt, band_path[0], H, sms))}}
+
+
 def phase_ab_arms(device):
     """One train step per visit of each arm, arms in alternating order, for
-    each family; the toggles are restored whatever happens.  The launch
-    counts are set to 0 once at the start of the phase: each step's
-    launches are the counts' growth over it, and must be
-    ``TRAIN_LAUNCHES_PER_LAYER`` times the depth.  Returns {family: {arm:
-    {...}}} and the counts read at the end of the phase (its 2 warm-up and
-    16 arm steps)."""
+    each family (FAMILY_ARMS); the toggles are restored whatever happens.
+    The launch counts are set to 0 once at the start of the phase: each
+    step's launches are the counts' growth over it, and must be
+    ``TRAIN_LAUNCHES_PER_LAYER`` times the depth, and its K8 and K10
+    launches must all take the route the rules give (``_ab_expected_routes``:
+    K8p and K10p on the bfloat16 family, K10p-f32 on disc_f32).  Returns
+    {family: {arm: {...}, "routes": {K8, K10: {route: launches}}}} and the
+    counts read at the end of the phase (its warm-up and arm steps)."""
     import torch
     from urgent2026_challenge_track1_tpu_torch.models.bsrnn import TRAIN_LAUNCHES_PER_LAYER
     from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
@@ -2700,22 +3030,26 @@ def phase_ab_arms(device):
 
     expected = {arm: {k: v * AB_LAYERS for k, v in per_layer.items()}
                 for arm, per_layer in TRAIN_LAUNCHES_PER_LAYER.items()}
+    sms = _sm_count(device)
     out = {}
     saved = (K.STREAM_INPUT_TRAIN, K.FUSED_BIDIR_TRAIN)
     K.reset_launch_counts()
     try:
-        for family in ("disc", "flow"):
+        for family, arm_order in FAMILY_ARMS.items():
             bundle, cfg, model, batch = _ab_model(device, family)
+            want_route = _ab_expected_routes(K, family, cfg.compute_dtype, sms)
+            family_routes = {name: {"persistent": 0, "walk": 0} for name in AB_ROUTED}
             init = {k: v.clone() for k, v in model.state_dict().items()}
             step = trainer.make_train_step(bundle, cfg, 48000)
             step(model, trainer.make_optimizer(cfg, model), *batch,
                  generator=trainer.step_generator(cfg.seed, 0))  # warm-up, default arm
             arms = {}
-            for arm in ARM_ORDER:
+            for arm in arm_order:
                 K.STREAM_INPUT_TRAIN, K.FUSED_BIDIR_TRAIN = ARMS[arm]
                 model.load_state_dict(init)
                 opt = trainer.make_optimizer(cfg, model)
                 before = K.launch_counts()
+                before_routes = {name: K.route_counts(name) for name in AB_ROUTED}
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 m = step(model, opt, *batch, generator=trainer.step_generator(cfg.seed, 0))
@@ -2729,6 +3063,14 @@ def phase_ab_arms(device):
                 rec["ms"].append(ms)
                 if counts != expected[arm]:
                     fail(f"{family} {arm}: launches {counts}, expected {expected[arm]}")
+                for name in AB_ROUTED:
+                    grown = {r: n - before_routes[name][r]
+                             for r, n in K.route_counts(name).items()}
+                    for r, n in grown.items():
+                        family_routes[name][r] += n
+                    if sum(grown[r] for r in want_route[name]) != counts.get(name, 0):
+                        fail(f"{family} {arm}: {name} routes {grown}, expected "
+                             f"{sorted(want_route[name])} only")
             grads = {arm: rec.pop("grads") for arm, rec in arms.items()}
             ref = arms["default"]
             tol = BF16_TOL if cfg.compute_dtype == "bfloat16" else GRAD_TOL
@@ -2744,7 +3086,12 @@ def phase_ab_arms(device):
                 if not (rec["loss_rel_err"] < tol and rec["grad_rel_err"] < tol):
                     fail(f"{family} {arm}: loss or gradients differ from the default arm by more "
                          f"than {tol}")
-            out[family] = {"compute_dtype": cfg.compute_dtype, "arms": arms}
+            print(f"[a/b] {family} {cfg.compute_dtype}: K8 and K10 routes over its arm steps "
+                  f"{family_routes} (the rules: "
+                  f"{ {k: sorted(v) for k, v in want_route.items()} })")
+            out[family] = {"compute_dtype": cfg.compute_dtype, "arms": arms,
+                           "routes": family_routes,
+                           "expected_routes": {k: sorted(v) for k, v in want_route.items()}}
             del model
     finally:
         K.STREAM_INPUT_TRAIN, K.FUSED_BIDIR_TRAIN = saved
@@ -2753,6 +3100,10 @@ def phase_ab_arms(device):
     for name in NEW_KERNELS:
         if total[name] <= 0:
             fail(f"kernel {name} was not launched by the A/B arms")
+    for name, dtype in (("lstm_train_fwd_streamin", "bfloat16"), ("lstm_train_bwd2", "bfloat16"),
+                        ("lstm_train_bwd2", "float32")):
+        if _ab_route_launches(out, name, "persistent", dtype) <= 0:
+            fail(f"the persistent route of {name} in {dtype} was not launched by the A/B arms")
     return out, total
 
 
@@ -2883,13 +3234,21 @@ def _new_kernel_bounds(R, T, n_in, hid):
     }
 
 
+def _ab_route_launches(ab, name, route, dtype=None):
+    """The launches of ``name`` on ``route`` over the A/B phase's arm steps
+    (of the families in ``dtype``, or all)."""
+    return sum(fam["routes"][name][route] for fam in ab.values()
+               if dtype is None or fam["compute_dtype"] == dtype)
+
+
 def _new_kernel_times(device, ab, ab_counts, new_errs):
-    """K8 at the discriminative time path (R = 136, T = 201; the band path
-    printed beside it) and K9/K10 at its band path (R = 804, T = 34), bf16:
-    kernel, plain version and bound; no PyTorch call computes a
-    residual-storing recurrence but K8's.  ``launches``
-    is the A/B phase's count (one reset, one read), and the launches of one
-    train step are those measured in each family's first visit of each arm.
+    """K8's walk at the discriminative time path (R = 136, T = 201; the band
+    path printed beside it) and K9 / K10's walk at its band path (R = 804,
+    T = 34), bf16: kernel, plain version and bound; no PyTorch call computes
+    a residual-storing recurrence but K8's.  ``launches`` is the A/B
+    phase's count (one reset, one read; for K8 and K10 their walk route's),
+    and the launches of one train step are those measured in each family's
+    first visit of each arm.
     The same at the flow training shapes (N = 384, H = 768: K8 at the time
     path R = 96, T = 251, its band path printed beside it, K9/K10 at the band
     path R = 502, T = 48), added as flow_* keys."""
@@ -2913,13 +3272,14 @@ def _new_kernel_times(device, ab, ab_counts, new_errs):
         res = K.lstm_train_fwd2(xp, xp_b, wh[0], wh[1])
         dout = (0.1 * torch.randn((2, R, T, hid), device=device)).to(bf16)
         kern, plain = {
-            "lstm_train_fwd_streamin": (lambda: K.lstm_train_fwd_streamin(x, wi[0], b[0], wh[0]),
+            "lstm_train_fwd_streamin": (lambda: K.lstm_train_fwd_streamin_walk(x, wi[0], b[0],
+                                                                               wh[0]),
                                         lambda: K.lstm_train_fwd_streamin_plain(x, wi[0], b[0],
                                                                                 wh[0])),
             "lstm_train_fwd2": (lambda: K.lstm_train_fwd2(xp, xp_b, wh[0], wh[1]),
                                 lambda: K.lstm_train_fwd2_plain(xp, xp_b, wh[0], wh[1])),
-            "lstm_train_bwd2": (lambda: K.lstm_train_bwd2(res[:3], res[3:], dout[0], dout[1],
-                                                          wh[0], wh[1]),
+            "lstm_train_bwd2": (lambda: K.lstm_train_bwd2_walk(res[:3], res[3:], dout[0],
+                                                               dout[1], wh[0], wh[1]),
                                 lambda: K.lstm_train_bwd2_plain(res[:3], res[3:], dout[0],
                                                                 dout[1], wh[0], wh[1])),
         }[name]
@@ -2942,10 +3302,14 @@ def _new_kernel_times(device, ab, ab_counts, new_errs):
                 "flow_shape": {"R": R, "T": T, "N": n_in, "H": hid}})
             continue
         e_abs, e_rel = new_errs[name, "bfloat16"]
+        walk_routed = name != "lstm_train_fwd2"  # K8 and K10 have a persistent route
         records[name] = {
             "name": name, "route": "cuda", "source": f"{PKG}/csrc/lstm_kernels.cu",
-            "replaces": REPLACES[name], "launches": ab_counts[name],
-            "launches_run": "a/b arms phase",
+            "replaces": REPLACES[name],
+            **({"route_of_kernel": "walk"} if walk_routed else {}),
+            "launches": (_ab_route_launches(ab, name, "walk") if walk_routed
+                         else ab_counts[name]),
+            "launches_run": "a/b arms phase" + (" (its walk route)" if walk_routed else ""),
             "max_abs_err": e_abs, "max_rel_err": e_rel,
             "max_abs_err_f32": new_errs[name, "float32"][0],
             "max_rel_err_f32": new_errs[name, "float32"][1],
@@ -2960,6 +3324,101 @@ def _new_kernel_times(device, ab, ab_counts, new_errs):
                 for family, fam in ab.items()},
         }
     return list(records.values())
+
+
+def _streamin_bwd2_records(rows, ab):
+    """K8p's, K10p's and K10p-f32's records from phase_streamin_bwd2_routes:
+    times at the disc shape (the flow and bench-width shapes beside them as
+    flow_* and bench_* keys), the worst error, limit ratio, planted fault,
+    TF32 control and dW bound over every shape with a plan; ``launches`` is
+    the persistent route's count over the A/B phase's arm steps of the
+    families in that dtype (one reset, one read), and the launches of one
+    train step each family's first visit of each arm."""
+    from urgent2026_challenge_track1_tpu_torch.ops import persistent_checks as PC
+
+    per_step = {family: {arm: rec["launches"] for arm, rec in fam["arms"].items()}
+                for family, fam in ab.items()}
+    k8 = {r["what"]: r for r in rows["k8p"]}
+    runs = [r[tag] for r in rows["k8p"] for tag in ("forward", "reverse")]
+    d, f, w = k8["disc time B=4"], k8["flow time B=2"], k8["bench width"]
+    band = k8["disc band B=4"]
+    out = [{
+        "name": "lstm_train_fwd_streamin_persistent", "route": "cuda",
+        "route_of_kernel": "persistent", "source": f"{PKG}/csrc/lstm_persistent.cu",
+        "replaces": REPLACES["lstm_train_fwd_streamin"],
+        "launches": _ab_route_launches(ab, "lstm_train_fwd_streamin", "persistent", "bfloat16"),
+        "launches_run": "a/b arms phase, bfloat16 families (K8p route)",
+        "max_abs_err": max(max(r["max_abs_err_vs_plain"].values()) for r in runs),
+        "max_err_over_limit": max(r["max_err_over_limit"] for r in runs),
+        "tolerance_rule": "4 bf16 ulps at max|plain| per output (h, gates, c), shape and "
+                          "direction",
+        "planted_stale_h_over_limit": min(r["planted_stale_h_over_limit"] for r in runs),
+        "bitwise_repeat": all(r["bitwise_repeat"] for r in runs),
+        "ms": d["ms"], "plain_ms": d["plain_ms"], "walk_ms": d["walk_ms"],
+        "k4p_addmm_ms": d["k4p_addmm_ms"], "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
+        "library_ms": d["library_ms"],
+        "library": LIBRARY_K8_K10["lstm_train_fwd_streamin"],
+        "shape": {k: d[k] for k in ("R", "T", "N", "H")}, "dtype": "bfloat16", "plan": d["plan"],
+        "launches_per_train_step": {fam: {arm: c.get("lstm_train_fwd_streamin", 0)
+                                          for arm, c in arms.items()}
+                                    for fam, arms in per_step.items()},
+        **{f"{key}_{k}": r[k] for key, r in (("band", band), ("flow", f), ("bench", w))
+           for k in ("ms", "plain_ms", "walk_ms", "k4p_addmm_ms", "bound_ms", "bound_by",
+                     "library_ms", "plan")},
+        "band_shape": {k: band[k] for k in ("R", "T", "N", "H")},
+        "flow_shape": {k: f[k] for k in ("R", "T", "N", "H")},
+        "bench_shape": {k: w[k] for k in ("R", "T", "N", "H")},
+        "route_table": rows["k8p"],
+    }]
+    for dt_name, suffix in (("bfloat16", ""), ("float32", "_f32")):
+        f32 = dt_name == "float32"
+        recs = [r for r in rows["k10p"] if r["dtype"] == dt_name]
+        planned = [r for r in recs if r["plan"] is not None]
+        runs = [r[tag] for r in planned for tag in K10P_DIRS]
+        by_what = {r["what"]: r for r in recs}
+        d = by_what["disc band B=4"]
+        dw_bound = PC.DW_F32_BOUND if f32 else DW_BOUND
+        rec = {
+            "name": f"lstm_train_bwd2_persistent{suffix}", "route": "cuda",
+            "route_of_kernel": "persistent", "source": f"{PKG}/csrc/lstm_persistent_bwd.cu",
+            "replaces": REPLACES["lstm_train_bwd2"],
+            "launches": _ab_route_launches(ab, "lstm_train_bwd2", "persistent", dt_name),
+            "launches_run": f"a/b arms phase, {dt_name} families (K10p route)",
+            "max_abs_err": max(r["max_abs_err_vs_plain"] for r in runs),
+            "max_err_over_limit": max(r["max_err_over_limit"] for r in runs),
+            "tolerance_rule": ("dx_proj: " + ("F32_BWD_LIMIT of max|plain|" if f32
+                                              else "4 bf16 ulps at max|plain|")
+                               + f" per direction and shape; dW: the dW kernel within {dw_bound} "
+                               "|h_prev|^T |dx_proj| of the float64 product"),
+            "planted_stale_dg_over_limit": min(r["planted_stale_dg_over_limit"] for r in runs),
+            "tf32_control_over_limit": (min(r["tf32_control_over_limit"] for r in runs)
+                                        if f32 else None),
+            "dw_bound_ratio": max(r["dw_bound_ratio"] for r in runs),
+            "dw_tf32_control_ratio": (min(r["dw_tf32_control_ratio"] for r in runs)
+                                      if f32 else None),
+            "dw_rel_err_vs_plain": max(r["dw_rel_err_vs_plain"] for r in runs),
+            "bitwise_repeat": all(r["bitwise_repeat"] for r in planned),
+            "equals_k5p_per_direction": all(r["equals_k5p_per_direction"] for r in planned),
+            "ms": d["ms"], "plain_ms": d["plain_ms"], "walk_ms": d["walk_ms"],
+            "k5p_pair_ms": d["k5p_pair_ms"],
+            "bound_ms": d["bound_ms"], "bound_by": d["bound_by"], "library_ms": d["library_ms"],
+            "library": LIBRARY_K8_K10["lstm_train_bwd2"] + f", {dt_name}",
+            "shape": {k: d[k] for k in ("R", "T", "H")}, "dtype": dt_name, "plan": d["plan"],
+            "launches_per_train_step": {fam: {arm: c.get("lstm_train_bwd2", 0)
+                                              for arm, c in arms.items()}
+                                        for fam, arms in per_step.items()
+                                        if ab[fam]["compute_dtype"] == dt_name},
+            "route_table": recs,
+        }
+        for key, what in (("flow", "flow band B=2"), ("bench", "bench width")):
+            r = by_what[what]
+            rec[f"{key}_route"] = r["route"]
+            rec[f"{key}_shape"] = {k: r[k] for k in ("R", "T", "H")}
+            for k in ("ms", "plain_ms", "walk_ms", "k5p_pair_ms", "bound_ms", "bound_by",
+                      "library_ms", "plan"):
+                rec[f"{key}_{k}"] = r.get(k)
+        out.append(rec)
+    return out
 
 
 def _flow_kernel_times(device, records, flow_routes, wide_errs, wide_train_errs, k1_routes,
@@ -3771,6 +4230,7 @@ def main() -> int:
     wide_train_errs = timed("training kernels H=768", phase_train_kernels, device, FLOW_H,
                             (FLOW_TIME, FLOW_BAND), FLOW_SECONDS, 384)
     new_errs = timed("K8-K10", phase_new_kernels, device)
+    streamin_bwd2 = timed("k8p/k10p routes", phase_streamin_bwd2_routes, device)
     k1_routes = timed("k1_routes", phase_k1_routes, device)
     scan_routes = timed("scan_routes", phase_scan_routes, device)
     train_routes_rows = timed("train_routes", phase_train_routes, device)
@@ -3798,6 +4258,7 @@ def main() -> int:
                     scan_routes, train_routes_rows, bwd_routes_rows, main_routes, train_routes,
                     wide_routes)
     records += timed("times K8-K10", _new_kernel_times, device, ab, ab_counts, new_errs)
+    records += _streamin_bwd2_records(streamin_bwd2, ab)
     timed("times K1-K7 flow shapes", _flow_kernel_times, device, records, flow_routes,
           wide_errs, wide_train_errs, k1_routes, scan_routes, flow_cli_routes)
     flow_times = timed("times flow", _flow_step_and_enhance_times, device)

@@ -7,7 +7,7 @@ sliced reverse walks that read only the packed slices and sum the dh
 product in the kernel's K split (eight warps, K tiles; k16 steps in
 bfloat16, k8 steps in float32) and dW in its split of R T, the planted
 stale-dgates fault and the one-TF32-product control that the card checks
-must see.  The kernels themselves (csrc/lstm_persistent.cu) are held against
+must see.  The kernels themselves (csrc/lstm_persistent_bwd.cu) are held against
 the same plain versions on the card (tests/test_torch_cuda_kernels.py and
 chip_smoke.py).
 

@@ -14,7 +14,7 @@ from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm
 from urgent2026_challenge_track1_tpu_torch.ops.persistent_checks import (
     DW_F32_BOUND, F32_LIMIT, bwd_limit, carry_failures, fusedin_bilstm_stale_h,
     lstm_scan_stale_h, lstm_scan_tf32, lstm_train_bwd_stale_dg, lstm_train_bwd_tf32,
-    persistent_limit, scan_carry_report, tf32, ulp_limit)
+    lstm_train_fwd_streamin_stale_h, persistent_limit, scan_carry_report, tf32, ulp_limit)
 
 torch.set_num_threads(1)
 R, T, N, H = 13, 11, 40, 72  # H not a multiple of 32, R not of any row tile
@@ -990,11 +990,12 @@ def test_wide_kernels_match_plain(dev, dtype, rows):
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_streamin_matches_plain(dev, dtype, reverse, hid, rows):
+    """K8's walk at every row tile (bfloat16 K8 takes K8p by default)."""
     rng = np.random.default_rng(11)
     w = hid ** -0.5  # the LSTM init's scale: 4H-wide sums of N + H products
     x, wi = _t(rng, dev, dtype, R, T, N), _t(rng, dev, dtype, N, 4 * hid, scale=w)
     b, wh = _t(rng, dev, dtype, 4 * hid, scale=w), _t(rng, dev, dtype, hid, 4 * hid, scale=w)
-    got = cuda_lstm.lstm_train_fwd_streamin(x, wi, b, wh, reverse)
+    got = cuda_lstm.lstm_train_fwd_streamin_walk(x, wi, b, wh, reverse)
     ref = cuda_lstm.lstm_train_fwd_streamin_plain(x, wi, b, wh, reverse)
     for g, r in zip(got, ref):
         assert g.dtype == dtype and g.shape == r.shape and _err(g, r) < TOLS[dtype]
@@ -1008,13 +1009,14 @@ def _two_directions(rng, dev, dtype, hid):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_bidir_matches_plain(dev, dtype, rows):
+    """K9 and K10's walk at every row tile (K10 takes K10p by default)."""
     rng = np.random.default_rng(12)
     xf, xb, wf, wb, df, db = _two_directions(rng, dev, dtype, H)
     ref = cuda_lstm.lstm_train_fwd2_plain(xf, xb, wf, wb)
     for g, r in zip(cuda_lstm.lstm_train_fwd2(xf, xb, wf, wb), ref):
         assert _err(g, r) < TOLS[dtype]
     grad_tol = 1e-3 if dtype == torch.float32 else TOLS[dtype]
-    got = cuda_lstm.lstm_train_bwd2(ref[:3], ref[3:], df, db, wf, wb)
+    got = cuda_lstm.lstm_train_bwd2_walk(ref[:3], ref[3:], df, db, wf, wb)
     want = cuda_lstm.lstm_train_bwd2_plain(ref[:3], ref[3:], df, db, wf, wb)
     for g, r in zip(got, want):
         assert _rel(g, r) < grad_tol
@@ -1023,9 +1025,10 @@ def test_fused_bidir_matches_plain(dev, dtype, rows):
 @pytest.mark.parametrize("hid", [H, HW])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_bidir_equals_per_direction_bitwise(dev, dtype, hid):
-    """K9 = K4's walk forward + reverse and K10 = K5's walk per direction,
-    bit for bit (the same device code), at the wrapper's own row tiles
-    (bfloat16 K4 and K5 take K4p and K5p, other kernels)."""
+    """K9 = K4's walk forward + reverse and K10's walk = K5's walk per
+    direction, bit for bit (the same device code), at the wrapper's own row
+    tiles (bfloat16 K4 and K5 take K4p and K5p, and K10 K10p by default,
+    other kernels)."""
     rng = np.random.default_rng(13)
     xf, xb, wf, wb, df, db = _two_directions(rng, dev, dtype, hid)
     fused = cuda_lstm.lstm_train_fwd2(xf, xb, wf, wb)
@@ -1033,7 +1036,7 @@ def test_fused_bidir_equals_per_direction_bitwise(dev, dtype, hid):
               *cuda_lstm.lstm_train_fwd_walk(xb, wb, True))
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(fused, single))
-    fused = cuda_lstm.lstm_train_bwd2(single[:3], single[3:], df, db, wf, wb)
+    fused = cuda_lstm.lstm_train_bwd2_walk(single[:3], single[3:], df, db, wf, wb)
     single = (*cuda_lstm.lstm_train_bwd_walk(*single[:3], df, wf, False),
               *cuda_lstm.lstm_train_bwd_walk(*single[3:], db, wb, True))
     torch.cuda.synchronize()
@@ -1072,3 +1075,174 @@ def test_bilstm_train_follows_the_toggles(dev, monkeypatch, stream, fused, expec
         grads.append([xt.grad.cpu()] + [tp[k].grad.cpu() for k in names])
     for g, r in zip(*grads):
         assert _rel(g, r) < 1e-3
+
+
+# --- K8p and K10p: the persistent routes of K8 (bfloat16) and K10 ---------
+# K8p within 4 bf16 ulps at max|plain| in h, gates and c at every step, a
+# limit the stale-h fault exceeds; K10p's dx_proj within bwd_limit per
+# direction (the stale-dgates fault and, in float32, one TF32 product
+# exceed it) and equal to K5p launched per direction with its plan, bit for
+# bit
+
+# (R, T, N, H): small, odd N and H, the disc and flow training steps' time
+# paths (where the masked time path runs K8 under STREAM_INPUT_TRAIN) and
+# the bench width
+K8P_SHAPES = [(R, T, N, H), (13, 9, 33, 37), (136, 201, 196, 392), (804, 34, 196, 392),
+              (96, 251, 384, 768), (136, 201, 192, 384)]
+K8P_IDS = ["small", "odd", "disc_time", "disc_band", "flow_time", "bench"]
+# (R, T, H): small, odd H, the band paths where FUSED_BIDIR_TRAIN runs K10
+# (disc, flow, bench width)
+K10P_SHAPES = [(R, T, H), (13, 9, 37), (804, 34, 392), (502, 48, 768), (804, 34, 384)]
+K10P_IDS = ["small", "odd_h", "disc_band", "flow_band", "bench"]
+
+
+def _streamin_case(dev, shape, seed):
+    R_, T_, N_, H_ = shape
+    rng = np.random.default_rng(seed)
+    w = H_ ** -0.5
+    return (_t(rng, dev, torch.bfloat16, R_, T_, N_),
+            _t(rng, dev, torch.bfloat16, N_, 4 * H_, scale=w),
+            _t(rng, dev, torch.bfloat16, 4 * H_, scale=w),
+            _t(rng, dev, torch.bfloat16, H_, 4 * H_, scale=w))
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("shape", K8P_SHAPES, ids=K8P_IDS)
+def test_streamin_persistent_matches_plain(dev, shape, reverse):
+    """K8p through the routed wrapper against the plain version at every
+    step: h, gates and c within 4 bf16 ulps, which the stale-h fault
+    exceeds."""
+    x, wi, b, wh = _streamin_case(dev, shape, 50)
+    cuda_lstm.reset_launch_counts()
+    got = cuda_lstm.lstm_train_fwd_streamin(x, wi, b, wh, reverse)
+    assert cuda_lstm.route_counts("lstm_train_fwd_streamin") == {"persistent": 1, "walk": 0}
+    ref = cuda_lstm.lstm_train_fwd_streamin_plain(x, wi, b, wh, reverse)
+    _hold_residuals(got, ref, lstm_train_fwd_streamin_stale_h(x, wi, b, wh, reverse))
+
+
+@pytest.mark.parametrize("shape", [(136, 201, 196, 392), (804, 34, 196, 392)],
+                         ids=["disc_time", "disc_band"])
+def test_streamin_persistent_is_deterministic(dev, shape):
+    """Two K8p launches are bitwise equal, also at the disc band, whose
+    plan walks several chunks a group (the residual stores of a group's
+    earlier chunks) with c in global memory."""
+    R_, _, N_, H_ = shape
+    plan = cuda_lstm.streamin_route(torch.bfloat16, R_, N_, H_,
+                                    cuda_lstm._sm_count(dev.index or 0))
+    assert plan is not None
+    if R_ == 804:
+        assert plan.rows > plan.chunk and not plan.c_in_smem
+    x, wi, b, wh = _streamin_case(dev, shape, 51)
+    for reverse in (False, True):
+        a = cuda_lstm.lstm_train_fwd_streamin_persistent(x, wi, b, wh, reverse)
+        c = cuda_lstm.lstm_train_fwd_streamin_persistent(x, wi, b, wh, reverse)
+        torch.cuda.synchronize()
+        assert all(torch.equal(u, v) for u, v in zip(a, c))
+
+
+def test_streamin_route_follows_the_dtype(dev):
+    """bfloat16 K8 takes K8p, float32 the walk; both count as K8 launches;
+    K8p refuses float32 and a grid the card cannot hold resident."""
+    import dataclasses
+
+    x, wi, b, wh = _streamin_case(dev, (R, T, N, H), 52)
+    cuda_lstm.reset_launch_counts()
+    cuda_lstm.lstm_train_fwd_streamin(x.float(), wi.float(), b.float(), wh.float())
+    cuda_lstm.lstm_train_fwd_streamin(x, wi, b, wh)
+    assert cuda_lstm.route_counts("lstm_train_fwd_streamin") == {"persistent": 1, "walk": 1}
+    assert cuda_lstm.launch_counts()["lstm_train_fwd_streamin"] == 2
+    with pytest.raises(TypeError):
+        cuda_lstm.lstm_train_fwd_streamin_persistent(x.float(), wi.float(), b.float(),
+                                                     wh.float())
+    x4 = _streamin_case(dev, (400, 3, N, H), 53)[0]
+    plan = cuda_lstm.plan_persistent(400, N, H, 132, dirs=1)
+    big = dataclasses.replace(plan, G=100, rows=4, S=18, U=4)
+    assert big.ctas > torch.cuda.get_device_properties(dev).multi_processor_count
+    with pytest.raises(RuntimeError):
+        cuda_lstm.lstm_train_fwd_streamin_persistent(x4, wi, b, wh, False, big)
+    torch.cuda.synchronize()
+    assert cuda_lstm.route_counts("lstm_train_fwd_streamin") == {"persistent": 1, "walk": 1}
+
+
+def _bwd2_case(dev, shape, dtype, seed):
+    """Both directions' plain residuals, dout and W_hh^T."""
+    R_, T_, H_ = shape
+    rng = np.random.default_rng(seed)
+    xf, xb = _t(rng, dev, dtype, R_, T_, 4 * H_), _t(rng, dev, dtype, R_, T_, 4 * H_)
+    wf, wb = (_t(rng, dev, dtype, H_, 4 * H_, scale=H_ ** -0.5) for _ in range(2))
+    df, db = (_t(rng, dev, dtype, R_, T_, H_, scale=0.1) for _ in range(2))
+    res = cuda_lstm.lstm_train_fwd2_plain(xf, xb, wf, wb)
+    return res[:3], res[3:], df, db, wf, wb
+
+
+def _hold_bwd2(got, ref, args, f32):
+    """Per direction: dx_proj within bwd_limit of the plain one, which the
+    stale-dgates fault (and in float32 one TF32 product) exceeds; the dW
+    kernel on the kernel's dx_proj, the routed dW its rounding."""
+    res_f, res_b, df, db, wf, wb = args
+    for d, (res, dout, w, rev) in enumerate(((res_f, df, wf, False), (res_b, db, wb, True))):
+        dxp, dw, rdxp, rdw = got[2 * d], got[2 * d + 1], ref[2 * d], ref[2 * d + 1]
+        limit = bwd_limit(rdxp)
+        assert dxp.shape == rdxp.shape and dxp.dtype == rdxp.dtype
+        assert _err(dxp, rdxp) < limit <= _err(lstm_train_bwd_stale_dg(*res, dout, w, rev)[0],
+                                                rdxp)
+        if f32:
+            assert _err(lstm_train_bwd_tf32(*res, dout, w, rev)[0], rdxp) >= limit
+        dw32 = cuda_lstm.lstm_bwd_dw(res[0], dxp, rev)
+        assert torch.equal(dw, dw32.to(dw.dtype))
+        assert _rel(dw, rdw) < (1e-5 if f32 else TOLS[torch.bfloat16])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", K10P_SHAPES, ids=K10P_IDS)
+def test_bwd2_persistent_matches_plain(dev, shape, dtype):
+    """The routed K10: K10p where backward2_route has a plan (then one dW
+    launch a direction), else the walk; K10p against the plain
+    version per direction and equal to K5p launched per direction with
+    K10p's plan, bit for bit."""
+    args = _bwd2_case(dev, shape, dtype, 53)
+    R_, _, H_ = shape
+    plan = cuda_lstm.backward2_route(dtype, R_, H_, cuda_lstm._sm_count(dev.index or 0))
+    cuda_lstm.reset_launch_counts()
+    got = cuda_lstm.lstm_train_bwd2(*args)
+    if plan is None:  # float32 at the flow band: no two-direction plan
+        assert cuda_lstm.route_counts("lstm_train_bwd2") == {"persistent": 0, "walk": 1}
+        return
+    assert cuda_lstm.route_counts("lstm_train_bwd2") == {"persistent": 1, "walk": 0}
+    assert cuda_lstm.lstm_bwd_dw.launches == 2  # one a direction
+    ref = cuda_lstm.lstm_train_bwd2_plain(*args)
+    _hold_bwd2(got, ref, args, dtype == torch.float32)
+    res_f, res_b, df, db, wf, wb = args
+    single = (*cuda_lstm.lstm_train_bwd_persistent(*res_f, df, wf, False, plan),
+              *cuda_lstm.lstm_train_bwd_persistent(*res_b, db, wb, True, plan))
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(got, single))
+
+
+def test_bwd2_route_follows_the_plan(dev):
+    """K10 takes K10p in bfloat16 and float32 where a two-direction plan
+    fits, the walk where none does (float32 at the flow band), and the
+    persistent wrapper refuses float16 and a grid the card cannot hold
+    resident."""
+    import dataclasses
+
+    sms = cuda_lstm._sm_count(dev.index or 0)
+    assert cuda_lstm.backward2_route(torch.bfloat16, 502, 768, sms) is not None
+    assert cuda_lstm.backward2_route(torch.float32, 804, 392, sms) is not None
+    assert cuda_lstm.backward2_route(torch.float32, 502, 768, sms) is None
+    args = _bwd2_case(dev, (R, T, H), torch.bfloat16, 54)
+    f16 = [[t.half() for t in a] if isinstance(a, tuple) else a.half() for a in args]
+    with pytest.raises(TypeError):
+        cuda_lstm.lstm_train_bwd2_persistent(*f16)
+    plan = cuda_lstm.plan_backward(400, H, 132, dirs=2)
+    big = dataclasses.replace(plan, G=100, rows=4, S=18, U=4)
+    assert big.ctas > torch.cuda.get_device_properties(dev).multi_processor_count
+    cuda_lstm.reset_launch_counts()
+    with pytest.raises(RuntimeError):
+        cuda_lstm.lstm_train_bwd2_persistent(*_bwd2_case(dev, (400, 3, H), torch.bfloat16, 55),
+                                             big)
+    torch.cuda.synchronize()
+    assert cuda_lstm.route_counts("lstm_train_bwd2") == {"persistent": 0, "walk": 0}
+    got = cuda_lstm.lstm_train_bwd2(*args)
+    ref = cuda_lstm.lstm_train_bwd2_plain(*args)
+    assert _err(got[0], ref[0]) < ulp_limit(ref[0])

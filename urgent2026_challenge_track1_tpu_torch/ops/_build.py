@@ -25,7 +25,9 @@ from pathlib import Path
 __all__ = ["BuildResult", "build", "load_library"]
 
 PKG_DIR = Path(__file__).resolve().parent.parent
-SOURCES = (PKG_DIR / "csrc" / "lstm_kernels.cu", PKG_DIR / "csrc" / "lstm_persistent.cu")
+SOURCES = tuple(PKG_DIR / "csrc" / name for name in (
+    "lstm_kernels.cu", "lstm_persistent.cu", "lstm_persistent_bwd.cu"))
+HEADERS = (PKG_DIR / "csrc" / "lstm_persistent_common.cuh",)  # hashed with the sources
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -48,10 +50,12 @@ _SIGNATURES = {
     "lstm_train_fwd2": (_P,) * 10 + (_I,) * 5 + (_P,),
     "lstm_train_bwd2": (_P,) * 14 + (_I,) * 5 + (_P,),
     "lstm_fusedin_persistent": (_P,) * 6 + (_I,) * 10 + (_P,),
+    "lstm_streamin_persistent": (_P,) * 8 + (_I,) * 11 + (_P,),
     "lstm_scan_persistent": (_P,) * 12 + (_I,) * 11 + (_P,),
     "lstm_persistent_smem": (_I,) * 7,
     "lstm_persistent_phase_cycles": (_P, _I),
     "lstm_bwd_persistent": (_P,) * 8 + (_I,) * 12 + (_P,),
+    "lstm_bwd2_persistent": (_P,) * 14 + (_I,) * 11 + (_P,),
     "lstm_persistent_bwd_smem": (_I,) * 7,
     "lstm_bwd_dw": (_P,) * 5 + (_I,) * 6 + (_P,),
 }
@@ -84,7 +88,7 @@ def find_nvcc() -> str:
 
 def _digest(flags) -> str:
     h = hashlib.sha256()
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.read_bytes())
     h.update(" ".join(flags).encode())
     return h.hexdigest()[:16]

@@ -43,7 +43,7 @@ bfloat16, h and c always float32):
   lstm_revmasked_bwd        (K7) as K5, with lengths
                   each on one of two routes, fixed before launch by
                   ``backward_route``: K5p / K7p (``lstm_train_bwd_persistent``,
-                  ``lstm_revmasked_bwd_persistent``, csrc/lstm_persistent.cu:
+                  ``lstm_revmasked_bwd_persistent``, csrc/lstm_persistent_bwd.cu:
                   a persistent reverse walk, then the dW kernel
                   ``lstm_bwd_dw`` on the tensor cores) for bfloat16 where
                   ``plan_backward`` finds a plan, else the walk and
@@ -51,12 +51,25 @@ bfloat16, h and c always float32):
                   ``lstm_revmasked_bwd_walk``)
   lstm_train_fwd_streamin   (K8) x (R, T, N), w_ih_t (N, 4H), bias (4H,),
                                  w_hh_t            -> h, gates, c as K4
+                  on one of two routes, fixed before launch by
+                  ``streamin_route``: K8p (``lstm_train_fwd_streamin_persistent``,
+                  K1p's kernel for one direction that also stores the
+                  residuals) for bfloat16 where ``plan_persistent(..., dirs=1)``
+                  finds a plan, else the walk
+                  (``lstm_train_fwd_streamin_walk``; float32)
   lstm_train_fwd2           (K9) K4 for both directions in one launch
-  lstm_train_bwd2           (K10) K5 for both directions in one launch
+  lstm_train_bwd2           (K10) K5 for both directions in one launch,
+                  on one of two routes, fixed before launch by
+                  ``backward2_route``: K10p (``lstm_train_bwd2_persistent``:
+                  K5p for both directions in one cooperative grid, then
+                  K5p's dW kernel once a direction) for bfloat16 and
+                  float32 where ``plan_backward(..., dirs=2)`` finds a
+                  plan, else the walk
+                  (``lstm_train_bwd2_walk``)
 
 Index 0 of the stacked K1 weights is the forward direction, 1 the backward.
 ``route_counts(name)`` reads the launches per route ("persistent", "walk") of
-K1-K7; ``reset_launch_counts`` zeroes them with the launch counts.
+K1-K8 and K10; ``reset_launch_counts`` zeroes them with the launch counts.
 ``LSTMDirTrain`` (K4/K5) and ``LSTMRevMaskedTrain`` (K6/K7) are the autograd
 Functions of the training path; ``lstm_dir`` and ``lstm_dir_revmasked``
 route to them when autograd records and to the lean K2/K3 otherwise (under
@@ -126,6 +139,14 @@ __all__ = [
     "lstm_train_fwd_streamin",
     "lstm_train_fwd2",
     "lstm_train_bwd2",
+    "lstm_train_fwd_streamin_walk",
+    "lstm_train_fwd_streamin_persistent",
+    "lstm_train_fwd_streamin_sliced_plain",
+    "streamin_route",
+    "lstm_train_bwd2_walk",
+    "lstm_train_bwd2_persistent",
+    "lstm_train_bwd2_sliced_plain",
+    "backward2_route",
     "lstm_train_fwd_streamin_plain",
     "lstm_train_fwd2_plain",
     "lstm_train_bwd2_plain",
@@ -469,21 +490,65 @@ def _packed_columns(H: int, S: int, U: int, device: torch.device) -> torch.Tenso
 
 def pack_persistent_weights(w_ih_t: torch.Tensor, w_hh_t: torch.Tensor, bias: torch.Tensor,
                             plan: PersistentPlan):
-    """K1's stacked weights in K1p's layout: (2, S, Kx + Kh, 4U) with rows
-    [0, N) of W_ih^T and [Kx, Kx + H) of W_hh^T (zero rows between) and
-    column q U + j = gate q of unit s U + j (zero past H); the bias (2, S,
-    4U) in the same columns.  Slice s of direction d is one contiguous
-    block, which its CTA copies into shared memory once."""
+    """K1's stacked weights (D = 2 directions; K8p's: D = 1, one direction's
+    weights with a leading axis of 1) in K1p's layout: (D, S, Kx + Kh, 4U)
+    with rows [0, N) of W_ih^T and [Kx, Kx + H) of W_hh^T (zero rows
+    between) and column q U + j = gate q of unit s U + j (zero past H); the
+    bias (D, S, 4U) in the same columns.  Slice s of direction d is one
+    contiguous block, which its CTA copies into shared memory once."""
     N, H, S, U = plan.N, plan.H, plan.S, plan.U
+    D = w_ih_t.shape[0]
     cols = _packed_columns(H, S, U, w_ih_t.device)
     z = w_ih_t.new_zeros(())
     # [W_ih^T; 0; W_hh^T; 0] with a zero column 4H appended: one gather
-    k = torch.cat([w_ih_t, z.expand(2, plan.kx - N, 4 * H), w_hh_t,
-                   z.expand(2, plan.kh - H, 4 * H)], dim=1)
-    k = torch.cat([k, z.expand(2, plan.kx + plan.kh, 1)], dim=2)
-    w = k.index_select(2, cols).reshape(2, plan.kx + plan.kh, S, 4 * U).transpose(1, 2)
-    b = torch.cat([bias, z.expand(2, 1)], dim=1).index_select(1, cols).reshape(2, S, 4 * U)
+    k = torch.cat([w_ih_t, z.expand(D, plan.kx - N, 4 * H), w_hh_t,
+                   z.expand(D, plan.kh - H, 4 * H)], dim=1)
+    k = torch.cat([k, z.expand(D, plan.kx + plan.kh, 1)], dim=2)
+    w = k.index_select(2, cols).reshape(D, plan.kx + plan.kh, S, 4 * U).transpose(1, 2)
+    b = torch.cat([bias, z.expand(D, 1)], dim=1).index_select(1, cols).reshape(D, S, 4 * U)
     return w.contiguous(), b
+
+
+def _fusedin_sliced_plain(x, packed, plan, reverses, store=False):
+    """The walk of K1p (``reverses`` = (False, True)) or K8p (one direction)
+    over ``plan``'s (direction, group, slice) schedule, reading only the
+    packed slices: h_{t-1} read back from the output (rounded to x's
+    dtype), c kept per (row, direction, unit), f32 sums of the packed
+    columns, the packed bias added last.  With ``store`` (K8p) also the
+    residuals as the kernel writes them, in x's dtype: the post-activation
+    gates (R, T, 4H) at q H + u and c (R, T, H); returns (h, gates, c),
+    else h (R, T, D H)."""
+    w, b = packed
+    R, T, N = x.shape
+    H, U = plan.H, plan.U
+    out = x.new_zeros((R, T, len(reverses) * H))
+    c = torch.zeros((R, len(reverses), H), dtype=torch.float32, device=x.device)
+    if store:
+        gates, cs = x.new_zeros((R, T, 4 * H)), x.new_zeros((R, T, H))
+    for step in range(T):
+        for d, rev in enumerate(reverses):
+            t = T - 1 - step if rev else step
+            for g in range(plan.G):
+                rows = slice(g * plan.rows, min((g + 1) * plan.rows, R))
+                xr = x[rows, t].float()
+                hr = out[rows, t + 1 if rev else t - 1, d * H:(d + 1) * H].float() if step else None
+                for s in range(plan.S):
+                    u0, nu = s * U, min(U, H - s * U)
+                    ws = w[d, s].float()
+                    pre = xr @ ws[:N]
+                    if hr is not None:
+                        pre = pre + hr @ ws[plan.kx:plan.kx + H]
+                    pre = (pre + b[d, s].float()).reshape(-1, 4, U)[..., :nu]
+                    act = (torch.sigmoid(pre[:, 0]), torch.sigmoid(pre[:, 1]),
+                           torch.tanh(pre[:, 2]), torch.sigmoid(pre[:, 3]))
+                    cu = act[1] * c[rows, d, u0:u0 + nu] + act[0] * act[2]
+                    c[rows, d, u0:u0 + nu] = cu
+                    out[rows, t, d * H + u0:d * H + u0 + nu] = (act[3] * torch.tanh(cu)).to(x.dtype)
+                    if store:
+                        for q in range(4):
+                            gates[rows, t, q * H + u0:q * H + u0 + nu] = act[q].to(x.dtype)
+                        cs[rows, t, u0:u0 + nu] = cu.to(x.dtype)
+    return (out, gates, cs) if store else out
 
 
 def fusedin_bilstm_sliced_plain(x: torch.Tensor, packed, plan: PersistentPlan) -> torch.Tensor:
@@ -492,31 +557,16 @@ def fusedin_bilstm_sliced_plain(x: torch.Tensor, packed, plan: PersistentPlan) -
     slice) schedule step by step as the kernel does: h_{t-1} read back
     from the output (rounded to x's dtype), c kept per (row, direction,
     unit), f32 sums."""
-    w, b = packed
-    R, T, N = x.shape
-    H, U = plan.H, plan.U
-    out = x.new_zeros((R, T, 2 * H))
-    c = torch.zeros((R, 2, H), dtype=torch.float32, device=x.device)
-    for step in range(T):
-        for d in range(2):
-            t = T - 1 - step if d else step
-            for g in range(plan.G):
-                rows = slice(g * plan.rows, min((g + 1) * plan.rows, R))
-                xr = x[rows, t].float()
-                hr = out[rows, t + 1 if d else t - 1, d * H:(d + 1) * H].float() if step else None
-                for s in range(plan.S):
-                    u0, nu = s * U, min(U, H - s * U)
-                    ws = w[d, s].float()
-                    pre = xr @ ws[:N]
-                    if hr is not None:
-                        pre = pre + hr @ ws[plan.kx:plan.kx + H]
-                    pre = (pre + b[d, s].float()).reshape(-1, 4, U)[..., :nu]
-                    cu = (torch.sigmoid(pre[:, 1]) * c[rows, d, u0:u0 + nu]
-                          + torch.sigmoid(pre[:, 0]) * torch.tanh(pre[:, 2]))
-                    c[rows, d, u0:u0 + nu] = cu
-                    out[rows, t, d * H + u0:d * H + u0 + nu] = (
-                        torch.sigmoid(pre[:, 3]) * torch.tanh(cu)).to(x.dtype)
-    return out
+    return _fusedin_sliced_plain(x, packed, plan, (False, True))
+
+
+def lstm_train_fwd_streamin_sliced_plain(x: torch.Tensor, packed, plan: PersistentPlan,
+                                         reverse: bool = False):
+    """Plain version of K8p: K1p's sliced walk for one direction (``packed``
+    = ``pack_persistent_weights`` of the direction's weights with a leading
+    axis of 1, ``plan`` a dirs = 1 plan) that also returns the residuals ->
+    (h, gates, c), as ``lstm_train_fwd_streamin_plain`` does."""
+    return _fusedin_sliced_plain(x, packed, plan, (reverse,), store=True)
 
 
 def pack_scan_weights(w_hh_t: torch.Tensor, plan: PersistentPlan) -> torch.Tensor:
@@ -635,7 +685,7 @@ DW_MAX_SPLIT = 4     # parts of the dW kernel's K (split-K), summed in a fixed o
 
 def backward_smem(H: int, U: int, chunk: int, kt: int, rows: int = 0,
                   dc_in_smem: bool = False, elem: int = 2) -> int:
-    """Shared-memory bytes of one K5p/K7p CTA (csrc/lstm_persistent.cu
+    """Shared-memory bytes of one K5p/K7p CTA (csrc/lstm_persistent_bwd.cu
     ``BwdPlan::smem_bytes``): the slice of W_hh^T rows [s U, s U + U) padded
     to Up = ceil(U / 8) 8 rows of Kp + 16 bytes (Kp = 4H padded to 16); the
     staged dgates, chunk x (kt + 16 bytes), one buffer when one K tile holds
@@ -659,7 +709,9 @@ class BackwardPlan:
     columns at a time; dc in shared memory or in a global buffer.
     ``dw_split``: the parts of the dW kernel's K (R T) summed in order.
     ``elem``: the element's bytes, 2 (bfloat16) or 4 (float32: 3xTF32
-    products, the float32 dW kernel)."""
+    products, the float32 dW kernel).  ``dirs``: the directions one grid
+    walks (K10p: 2, direction d on the grid's z axis, each a K5p grid of G
+    x S CTAs)."""
     R: int
     H: int
     S: int
@@ -672,6 +724,7 @@ class BackwardPlan:
     smem: int
     dw_split: int
     elem: int = 2
+    dirs: int = 1
 
     @property
     def up(self) -> int:
@@ -687,7 +740,7 @@ class BackwardPlan:
 
     @property
     def ctas(self) -> int:
-        return self.G * self.S
+        return self.dirs * self.G * self.S
 
 
 def _backward_tile(H, U, chunk, rows, dc_in_smem, smem_bytes, elem=2) -> int | None:
@@ -716,21 +769,23 @@ def dw_split(H: int, sms: int, elem: int = 2) -> int:
 
 @functools.lru_cache(maxsize=256)
 def plan_backward(R: int, H: int, sms: int, smem_bytes: int = SMEM_LIMIT,
-                  elem: int = 2) -> BackwardPlan | None:
-    """The persistent partition of K5p/K7p for R rows and H units on ``sms``
-    SMs with elements of ``elem`` bytes (2: bfloat16; 4: float32), or None
-    when no slice fits in ``smem_bytes`` or the grid exceeds the SMs.
+                  elem: int = 2, dirs: int = 1) -> BackwardPlan | None:
+    """The persistent partition of K5p/K7p (``dirs`` = 1) or K10p (2: both
+    directions in one grid) for R rows and H units on ``sms`` SMs with
+    elements of ``elem`` bytes (2: bfloat16; 4: float32), or None when no
+    slice fits in ``smem_bytes`` or the grid exceeds the SMs.
     ``plan_persistent``'s search with the backward's own bytes: the
     smallest S whose slice fits beside one 16-row chunk; G = max(1,
-    min(sms // S, ceil(R / 64))) groups; S widened to the SMs left over; the
-    largest chunk that fits (a warp holds the accumulators of every output
-    block of the chunk, at most MAX_ACC_BLOCKS, MAX_ACC_BLOCKS_TF32 in
-    float32; a chunk at most MAX_CELLS cells, MAX_CELLS_F32 in float32); dc
-    in shared memory if it fits; then the widest K tile that fits beside all
-    that."""
+    min(sms // (dirs S), ceil(R / 64))) groups; S widened to the SMs left
+    over; the largest chunk that fits (a warp holds the accumulators of
+    every output block of the chunk, at most MAX_ACC_BLOCKS,
+    MAX_ACC_BLOCKS_TF32 in float32; a chunk at most MAX_CELLS cells,
+    MAX_CELLS_F32 in float32); dc in shared memory if it fits; then the
+    widest K tile that fits beside all that.  With dirs = 2, dc moves to
+    global memory where that leaves room for fewer K tiles."""
     if elem not in (2, 4):
         raise ValueError(f"no backward route for {elem}-byte elements")
-    if min(R, H, sms) <= 0:
+    if min(R, H, sms, dirs) <= 0:
         return None
     max_blocks, max_cells = ((MAX_ACC_BLOCKS, MAX_CELLS) if elem == 2
                              else (MAX_ACC_BLOCKS_TF32, MAX_CELLS_F32))
@@ -750,19 +805,26 @@ def plan_backward(R: int, H: int, sms: int, smem_bytes: int = SMEM_LIMIT,
             return None
         S += 1
     S = _ceil(H, units(S))
-    if S > sms:
+    if dirs * S > sms:
         return None
-    G = max(1, min(sms // S, _ceil(R, GROUP_ROWS)))
-    U = units(min(sms // G, _ceil(H, 4)))
+    G = max(1, min(sms // (dirs * S), _ceil(R, GROUP_ROWS)))
+    U = units(min(sms // (dirs * G), _ceil(H, 4)))
     S = _ceil(H, U)
     rows = _ceil(R, G)
     G = _ceil(R, rows)
     chunk = next(c for c in range(min(_pad16(rows), MAX_CHUNK), 0, -16) if fits(U, c))
     dc_in_smem = fits(U, chunk, rows, True)
     kt = _backward_tile(H, U, chunk, rows, dc_in_smem, smem_bytes, elem)
+    if dirs > 1 and dc_in_smem:
+        # K10p: each CTA walks twice K5p's chunks a step, and a step costs
+        # about one round of two barriers per (chunk, K tile), so dc goes
+        # to global memory where that frees a wider tile (fewer tiles)
+        kt_global = _backward_tile(H, U, chunk, rows, False, smem_bytes, elem)
+        if _ceil(_pad16(4 * H), kt_global) < _ceil(_pad16(4 * H), kt):
+            dc_in_smem, kt = False, kt_global
     return BackwardPlan(R, H, S, G, U, rows, chunk, kt, dc_in_smem,
                         backward_smem(H, U, chunk, kt, rows, dc_in_smem, elem),
-                        dw_split(H, sms, elem), elem)
+                        dw_split(H, sms, elem), elem, dirs)
 
 
 def pack_backward_weights(w_hh_t: torch.Tensor, plan: BackwardPlan) -> torch.Tensor:
@@ -876,6 +938,17 @@ def lstm_revmasked_bwd_sliced_plain(h: torch.Tensor, gates: torch.Tensor, c: tor
     packed slices; dx_proj equals ``lstm_revmasked_bwd_plain``'s at every
     step, padded ones included."""
     return _backward_sliced_plain(h, gates, c, dout, w_packed, plan, True, lengths)
+
+
+def lstm_train_bwd2_sliced_plain(res_f, res_b, dout_f: torch.Tensor, dout_b: torch.Tensor,
+                                 w_packed_f: torch.Tensor, w_packed_b: torch.Tensor,
+                                 plan: BackwardPlan):
+    """Plain version of K10p and its dW kernels: K5p's sliced walk per
+    direction over the one (dirs = 2) plan, the forward scan's backward on
+    ``res_f`` (h, gates, c) and the reverse scan's on ``res_b``, each over
+    its own packed slices -> (dx_proj_f, dW_f^T f32, dx_proj_b, dW_b^T f32)."""
+    return (*_backward_sliced_plain(*res_f, dout_f, w_packed_f, plan, False),
+            *_backward_sliced_plain(*res_b, dout_b, w_packed_b, plan, True))
 
 
 # ---------------------------------------------------------------------------
@@ -1457,7 +1530,7 @@ def lstm_revmasked_bwd_walk(h: torch.Tensor, gates: torch.Tensor, c: torch.Tenso
 
 def lstm_bwd_dw(h: torch.Tensor, dxp: torch.Tensor, reverse: bool = False,
                 lengths: torch.Tensor | None = None, split: int | None = None) -> torch.Tensor:
-    """The dW kernel of K5p and K7p (csrc/lstm_persistent.cu: ``dw_tc_kernel``
+    """The dW kernel of K5p and K7p (csrc/lstm_persistent_bwd.cu: ``dw_tc_kernel``
     in bfloat16, ``dw_tf32_kernel`` in float32, 3xTF32): dW_hh^T (H, 4H) f32
     = sum over (r, t) of h_prev(r, t)^T dxp(r, t) on the tensor cores,
     h_prev read with the scan's shift (and, with ``lengths``, K7's mask) by
@@ -1495,18 +1568,13 @@ def lstm_bwd_dw(h: torch.Tensor, dxp: torch.Tensor, reverse: bool = False,
     return dw
 
 
-def _bwd_persistent(fn, h, gates, c, dout, w_hh_t, reverse, lengths, plan):
-    """Launch K5p (``lengths`` None) or K7p: one cooperative grid of G x S
-    CTAs over ``plan`` (``plan_backward``'s for the inputs' dtype by
-    default), then the dW kernel; a grid the card cannot hold resident
-    raises.  bfloat16, or float32 (the float32 route: f32 throughout,
-    3xTF32 products).  Returns (dx_proj, dW_hh^T in w_hh_t's dtype)."""
-    name = fn.__name__ + "_persistent"
+def _check_bwd_persistent(name, h, gates, c, dout, w_hh_t, lengths=None):
+    """The persistent backwards' input checks (bfloat16 or float32 on the
+    card, contiguous, of one shape) -> (R, T, H, elem)."""
     if gates.device.type != "cuda":
         raise ValueError(f"kernel input on unsupported device {gates.device}")
     if gates.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"{name} takes bfloat16 or float32 inputs, not {gates.dtype}")
-    elem = gates.element_size()
     R, T, G = gates.shape
     H = G // 4
     _check("gates", gates, (R, T, 4 * H), gates.dtype, gates.device)
@@ -1515,6 +1583,18 @@ def _bwd_persistent(fn, h, gates, c, dout, w_hh_t, reverse, lengths, plan):
     _check("w_hh_t", w_hh_t, (H, 4 * H), gates.dtype, gates.device)
     if lengths is not None:
         _check("lengths", lengths, (R,), torch.int32, gates.device)
+    return R, T, H, gates.element_size()
+
+
+def _bwd_persistent(fn, h, gates, c, dout, w_hh_t, reverse, lengths, plan):
+    """Launch K5p (``lengths`` None) or K7p: one cooperative grid of G x S
+    CTAs over ``plan`` (``plan_backward``'s for the inputs' dtype by
+    default; a K10p plan runs one direction of its grid), then the dW
+    kernel; a grid the card cannot hold resident raises.  bfloat16, or
+    float32 (the float32 route: f32 throughout, 3xTF32 products).  Returns
+    (dx_proj, dW_hh^T in w_hh_t's dtype)."""
+    name = fn.__name__ + "_persistent"
+    R, T, H, elem = _check_bwd_persistent(name, h, gates, c, dout, w_hh_t, lengths)
     plan = plan or plan_backward(R, H, _sm_count(_device_index(gates.device)), elem=elem)
     if plan is None:
         raise ValueError(f"no {name} plan for R={R}, H={H}, {gates.dtype}")
@@ -1546,7 +1626,7 @@ def _bwd_persistent(fn, h, gates, c, dout, w_hh_t, reverse, lengths, plan):
 def lstm_train_bwd_persistent(h: torch.Tensor, gates: torch.Tensor, c: torch.Tensor,
                               dout: torch.Tensor, w_hh_t: torch.Tensor, reverse: bool = False,
                               plan: BackwardPlan | None = None):
-    """K5p (csrc/lstm_persistent.cu ``bwd_persistent_kernel<T, false>``) and
+    """K5p (csrc/lstm_persistent_bwd.cu ``bwd_persistent_kernel<T, false>``) and
     the dW kernel, bfloat16 or float32 (T = float: 3xTF32 products, the
     plan's elem = 4) -> (dx_proj, dW_hh^T).  Counted in
     ``lstm_train_bwd.launches`` and ``.routes["persistent"]``."""
@@ -1567,20 +1647,51 @@ def lstm_revmasked_bwd_persistent(h: torch.Tensor, gates: torch.Tensor, c: torch
     return _bwd_persistent(lstm_revmasked_bwd, h, gates, c, dout, w_hh_t, True, lengths, plan)
 
 
+def streamin_route(dtype: torch.dtype, R: int, N: int, H: int,
+                   sms: int) -> PersistentPlan | None:
+    """K8's route, a fixed rule decided before launch from the dtype and the
+    shape: the one-direction plan ``plan_persistent(R, N, H, sms, dirs=1)``
+    for bfloat16 (K8p), else None (the walk: float32, which K1p's kernel
+    has no instance for, or no plan)."""
+    if dtype != torch.bfloat16 or N <= 0:
+        return None
+    return plan_persistent(R, N, H, sms, dirs=1)
+
+
 def lstm_train_fwd_streamin(x: torch.Tensor, w_ih_t: torch.Tensor, bias: torch.Tensor,
                             w_hh_t: torch.Tensor, reverse: bool = False):
     """K8: ``lstm_train_fwd`` on the raw input, the input product inside the
     kernel; x (R, T, N), w_ih_t (N, 4H), bias (4H,), w_hh_t (H, 4H) ->
-    (h, gates, c) in x's dtype."""
+    (h, gates, c) in x's dtype, on the route ``streamin_route`` picks (K8p
+    or the walk)."""
     if x.device.type == "cpu":
         return lstm_train_fwd_streamin_plain(x, w_ih_t, bias, w_hh_t, reverse)
+    R, _, N = x.shape
+    plan = streamin_route(x.dtype, R, N, w_hh_t.shape[0], _sm_count(_device_index(x.device)))
+    if plan is None:
+        return lstm_train_fwd_streamin_walk(x, w_ih_t, bias, w_hh_t, reverse)
+    return lstm_train_fwd_streamin_persistent(x, w_ih_t, bias, w_hh_t, reverse, plan)
+
+
+def _check_streamin(x, w_ih_t, bias, w_hh_t):
     R, T, N = x.shape
     H = w_hh_t.shape[0]
-    dtype, stream = _kernel_args(x, H)
     _check("x", x, (R, T, N), x.dtype, x.device)
     _check("w_ih_t", w_ih_t, (N, 4 * H), x.dtype, x.device)
     _check("bias", bias, (4 * H,), x.dtype, x.device)
     _check("w_hh_t", w_hh_t, (H, 4 * H), x.dtype, x.device)
+    return R, T, N, H
+
+
+def lstm_train_fwd_streamin_walk(x: torch.Tensor, w_ih_t: torch.Tensor, bias: torch.Tensor,
+                                 w_hh_t: torch.Tensor, reverse: bool = False):
+    """K8's walk (csrc/lstm_kernels.cu ``fusedin_kernel<true>``), float32 or
+    bfloat16; counted in ``lstm_train_fwd_streamin.launches`` and
+    ``.routes["walk"]``."""
+    if x.device.type == "cpu":
+        return lstm_train_fwd_streamin_plain(x, w_ih_t, bias, w_hh_t, reverse)
+    dtype, stream = _kernel_args(x, w_hh_t.shape[0])
+    R, T, N, H = _check_streamin(x, w_ih_t, bias, w_hh_t)
     out, gates, c = _train_outputs(x, H)
     if R == 0 or T == 0:
         return out, gates, c
@@ -1592,8 +1703,51 @@ def lstm_train_fwd_streamin(x: torch.Tensor, w_ih_t: torch.Tensor, bias: torch.T
         rows_per_block(R, 1, x.device, H), stream,
     )
     _raise_on(err, "lstm_train_fwd_streamin")
-    lstm_train_fwd_streamin.launches += 1
+    _count(lstm_train_fwd_streamin, "walk")
     return out, gates, c
+
+
+def lstm_train_fwd_streamin_persistent(x: torch.Tensor, w_ih_t: torch.Tensor,
+                                       bias: torch.Tensor, w_hh_t: torch.Tensor,
+                                       reverse: bool = False,
+                                       plan: PersistentPlan | None = None):
+    """K8p (csrc/lstm_persistent.cu ``fusedin_persistent_kernel<true>``),
+    bfloat16 only: packs [W_ih; W_hh] and the bias for ``plan``
+    (``plan_persistent(..., dirs=1)``'s by default) and launches one
+    cooperative grid of G x S CTAs that walks one direction and stores the
+    residuals -> (h, gates, c); a grid the card cannot hold resident
+    raises.  Counted in ``lstm_train_fwd_streamin.launches`` and
+    ``.routes["persistent"]``."""
+    if x.device.type == "cpu":
+        return lstm_train_fwd_streamin_plain(x, w_ih_t, bias, w_hh_t, reverse)
+    if x.device.type != "cuda":
+        raise ValueError(f"kernel input on unsupported device {x.device}")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"K8p takes bfloat16 inputs, not {x.dtype}")
+    R, T, N, H = _check_streamin(x, w_ih_t, bias, w_hh_t)
+    plan = plan or plan_persistent(R, N, H, _sm_count(_device_index(x.device)), dirs=1)
+    if plan is None:
+        raise ValueError(f"no K8p plan for R={R}, N={N}, H={H}")
+    if (plan.R, plan.N, plan.H, plan.dirs, plan.elem) != (R, N, H, 1, 2):
+        raise ValueError(f"plan for {(plan.R, plan.N, plan.H, plan.dirs, plan.elem)}, "
+                         f"inputs {(R, N, H, 1, 2)}")
+    out, gates, c_res = _train_outputs(x, H)
+    if T == 0:
+        return out, gates, c_res
+    w, b = pack_persistent_weights(w_ih_t[None], w_hh_t[None], bias[None], plan)
+    c = None if plan.c_in_smem else torch.empty((R, H), dtype=torch.float32, device=x.device)
+    counters = torch.zeros((plan.G,), dtype=torch.int32, device=x.device)
+    from urgent2026_challenge_track1_tpu_torch.ops._build import load_library
+
+    err = load_library().lstm_streamin_persistent(
+        x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), gates.data_ptr(),
+        c_res.data_ptr(), _ptr(c), counters.data_ptr(), R, T, N, H, int(bool(reverse)),
+        plan.S, plan.G, plan.U, plan.rows, plan.chunk, int(plan.c_in_smem),
+        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
+    )
+    _raise_on(err, "lstm_train_fwd_streamin_persistent")
+    _count(lstm_train_fwd_streamin, "persistent")
+    return out, gates, c_res
 
 
 def lstm_train_fwd2(xp_f: torch.Tensor, xp_b: torch.Tensor, w_hh_f_t: torch.Tensor,
@@ -1624,12 +1778,39 @@ def lstm_train_fwd2(xp_f: torch.Tensor, xp_b: torch.Tensor, w_hh_f_t: torch.Tens
     return (*res_f, *res_b)
 
 
+def backward2_route(dtype: torch.dtype, R: int, H: int, sms: int) -> BackwardPlan | None:
+    """K10's route, a fixed rule decided before launch from the dtype and
+    the shape: the two-direction plan ``plan_backward(R, H, sms, dirs=2)``
+    (K10p) in bfloat16 (elem = 2) or float32 (elem = 4); anything else, or
+    no plan, is None (the walk)."""
+    if dtype == torch.bfloat16:
+        return plan_backward(R, H, sms, dirs=2)
+    if dtype == torch.float32:
+        return plan_backward(R, H, sms, elem=4, dirs=2)
+    return None
+
+
 def lstm_train_bwd2(res_f, res_b, dout_f: torch.Tensor, dout_b: torch.Tensor,
                     w_hh_f_t: torch.Tensor, w_hh_b_t: torch.Tensor):
     """K10: ``lstm_train_bwd`` for both directions in one launch; res_* =
     (h, gates, c) of the forward (K9's or K4's) and reverse direction ->
-    (dx_proj_f, dW_hh_f^T, dx_proj_b, dW_hh_b^T), bitwise the K5 walk's
-    (``lstm_train_bwd_walk``; the same device code)."""
+    (dx_proj_f, dW_hh_f^T, dx_proj_b, dW_hh_b^T), on the route
+    ``backward2_route`` picks (K10p or the walk)."""
+    if res_f[1].device.type == "cpu":
+        return lstm_train_bwd2_plain(res_f, res_b, dout_f, dout_b, w_hh_f_t, w_hh_b_t)
+    R, _, G = res_f[1].shape
+    plan = backward2_route(res_f[1].dtype, R, G // 4, _sm_count(_device_index(res_f[1].device)))
+    if plan is None:
+        return lstm_train_bwd2_walk(res_f, res_b, dout_f, dout_b, w_hh_f_t, w_hh_b_t)
+    return lstm_train_bwd2_persistent(res_f, res_b, dout_f, dout_b, w_hh_f_t, w_hh_b_t, plan)
+
+
+def lstm_train_bwd2_walk(res_f, res_b, dout_f: torch.Tensor, dout_b: torch.Tensor,
+                         w_hh_f_t: torch.Tensor, w_hh_b_t: torch.Tensor):
+    """K10's walk (csrc/lstm_kernels.cu ``backward_kernel`` with the
+    direction on grid.y, then ``dw_kernel``), float32 or bfloat16, bitwise
+    the K5 walk's per direction (``lstm_train_bwd_walk``; the same device
+    code); counted in ``lstm_train_bwd2.launches`` and ``.routes["walk"]``."""
     if res_f[1].device.type == "cpu":
         return lstm_train_bwd2_plain(res_f, res_b, dout_f, dout_b, w_hh_f_t, w_hh_b_t)
     R, T, H, dtype, stream, w4h_f, dxp_f, dw_f = _check_residuals(*res_f, dout_f, w_hh_f_t)
@@ -1649,8 +1830,59 @@ def lstm_train_bwd2(res_f, res_b, dout_f: torch.Tensor, dout_b: torch.Tensor,
         R, T, H, dtype, rows_per_block(R, 2, g_f.device, H), stream,
     )
     _raise_on(err, "lstm_train_bwd2")
-    lstm_train_bwd2.launches += 1
+    _count(lstm_train_bwd2, "walk")
     return dxp_f, dw_f.to(w_hh_f_t.dtype), dxp_b, dw_b.to(w_hh_b_t.dtype)
+
+
+def lstm_train_bwd2_persistent(res_f, res_b, dout_f: torch.Tensor, dout_b: torch.Tensor,
+                               w_hh_f_t: torch.Tensor, w_hh_b_t: torch.Tensor,
+                               plan: BackwardPlan | None = None):
+    """K10p (csrc/lstm_persistent_bwd.cu ``bwd2_persistent_kernel<T>``): K5p
+    for both directions (the forward scan's backward on ``res_f``, the
+    reverse scan's on ``res_b``) in one cooperative grid of 2 x G x S CTAs
+    over ``plan`` (``plan_backward(..., dirs=2)``'s by default), then
+    ``lstm_bwd_dw`` once per direction; bfloat16 or float32 (3xTF32
+    products); a grid the card cannot hold resident raises.  Equals ``lstm_train_bwd_persistent`` per
+    direction with the same plan, bit for bit.  Returns (dx_proj_f,
+    dW_hh_f^T, dx_proj_b, dW_hh_b^T), dW in the weights' dtype.  Counted
+    in ``lstm_train_bwd2.launches`` and ``.routes["persistent"]``."""
+    if res_f[1].device.type == "cpu":
+        return lstm_train_bwd2_plain(res_f, res_b, dout_f, dout_b, w_hh_f_t, w_hh_b_t)
+    name = "lstm_train_bwd2_persistent"
+    R, T, H, elem = _check_bwd_persistent(name, *res_f, dout_f, w_hh_f_t)
+    _check_bwd_persistent(name, *res_b, dout_b, w_hh_b_t)
+    if res_b[1].dtype != res_f[1].dtype or res_b[1].shape != res_f[1].shape:
+        raise ValueError("the two directions' residuals differ in dtype or shape")
+    device = res_f[1].device
+    plan = plan or plan_backward(R, H, _sm_count(_device_index(device)), elem=elem, dirs=2)
+    if plan is None:
+        raise ValueError(f"no K10p plan for R={R}, H={H}, {res_f[1].dtype}")
+    if (plan.R, plan.H, plan.elem, plan.dirs) != (R, H, elem, 2):
+        raise ValueError(f"plan for {(plan.R, plan.H, plan.elem, plan.dirs)}, "
+                         f"inputs {(R, H, elem, 2)}")
+    dxp = [torch.empty((R, T, 4 * H), dtype=res_f[1].dtype, device=device) for _ in range(2)]
+    if T == 0:
+        return (dxp[0], torch.zeros((H, 4 * H), dtype=w_hh_f_t.dtype, device=device),
+                dxp[1], torch.zeros((H, 4 * H), dtype=w_hh_b_t.dtype, device=device))
+    w = [pack_backward_weights(w_hh_f_t, plan), pack_backward_weights(w_hh_b_t, plan)]
+    dc = (None, None) if plan.dc_in_smem else torch.empty((2, R, H), dtype=torch.float32,
+                                                          device=device)
+    counters = torch.zeros((2, plan.G), dtype=torch.int32, device=device)
+    from urgent2026_challenge_track1_tpu_torch.ops._build import load_library
+
+    args = []
+    for d, (h, g, c), dout in ((0, res_f, dout_f), (1, res_b, dout_b)):
+        args += [g.data_ptr(), c.data_ptr(), dout.data_ptr(), w[d].data_ptr(),
+                 dxp[d].data_ptr(), _ptr(dc[d]), counters[d].data_ptr()]
+    err = load_library().lstm_bwd2_persistent(
+        *args, R, T, H, plan.S, plan.G, plan.U, plan.rows, plan.chunk, plan.kt,
+        int(plan.dc_in_smem), elem, ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream),
+    )
+    _raise_on(err, name)
+    dw_f = lstm_bwd_dw(res_f[0], dxp[0], False, None, plan.dw_split)
+    dw_b = lstm_bwd_dw(res_b[0], dxp[1], True, None, plan.dw_split)
+    _count(lstm_train_bwd2, "persistent")
+    return dxp[0], dw_f.to(w_hh_f_t.dtype), dxp[1], dw_b.to(w_hh_b_t.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -1813,15 +2045,16 @@ KERNELS = (fusedin_bilstm, lstm_scan, lstm_revmasked, lstm_train_fwd, lstm_train
            lstm_train_fwd2, lstm_train_bwd2)
 
 
-# K1-K7: a persistent route and a walk
+# K1-K8 and K10: a persistent route and a walk
 ROUTED = (fusedin_bilstm, lstm_scan, lstm_revmasked, lstm_train_fwd, lstm_revmasked_train_fwd,
-          lstm_train_bwd, lstm_revmasked_bwd)
+          lstm_train_bwd, lstm_revmasked_bwd, lstm_train_fwd_streamin, lstm_train_bwd2)
 
 
 def reset_launch_counts() -> None:
-    """Zero the launch and route counts, and the count of K5p's and K7p's
-    dW kernel (``lstm_bwd_dw``, one launch inside each K5p or K7p launch;
-    not in ``KERNELS``, whose counts are the wrappers a layer calls)."""
+    """Zero the launch and route counts, and the count of the dW kernel of
+    K5p, K7p and K10p (``lstm_bwd_dw.launches``, one launch inside each
+    K5p or K7p launch and two inside each K10p launch; not in
+    ``KERNELS``, whose counts are the wrappers a layer calls)."""
     for fn in KERNELS + (lstm_bwd_dw,):
         fn.launches = 0
     for fn in ROUTED:
@@ -1835,8 +2068,9 @@ def launch_counts() -> dict[str, int]:
 def route_counts(kernel: str = "fusedin_bilstm") -> dict[str, int]:
     """The launches per route of ``kernel`` (K1 ``fusedin_bilstm``, K2
     ``lstm_scan``, K3 ``lstm_revmasked``, K4 ``lstm_train_fwd``, K5
-    ``lstm_train_bwd``, K6 ``lstm_revmasked_train_fwd`` or K7
-    ``lstm_revmasked_bwd``) since the last reset."""
+    ``lstm_train_bwd``, K6 ``lstm_revmasked_train_fwd``, K7
+    ``lstm_revmasked_bwd``, K8 ``lstm_train_fwd_streamin`` or K10
+    ``lstm_train_bwd2``) since the last reset."""
     return dict(next(fn for fn in ROUTED if fn.__name__ == kernel).routes)
 
 

@@ -1,12 +1,13 @@
-"""The limits that hold K1p-K7p against their plain versions, and the
-planted barrier faults that the limits must see.
+"""The limits that hold K1p-K8p and K10p against their plain versions, and
+the planted barrier faults that the limits must see.
 
 A persistent kernel exchanges h between CTAs through its output, one
 barrier per step.  A barrier that lets a step read the exchange buffer
 before the previous step's writes land feeds the cell h one step stale
 (h_{t-2} where h_{t-1} is due).  The ``*_stale_h`` functions are the plain
-walks with exactly that fault, and ``lstm_train_bwd_stale_dg`` the plain
-backward whose exchange (the dgates in dx_proj) is one step stale; a check
+walks with exactly that fault (``lstm_train_fwd_streamin_stale_h``: K8p's),
+and ``lstm_train_bwd_stale_dg`` the plain backward whose exchange (the
+dgates in dx_proj) is one step stale (K10p's, per direction); a check
 passes only if the kernel is within ``ulp_limit`` (bfloat16) or
 ``F32_LIMIT`` (K4p/K6p's float32 route) of the plain version and the faulty
 walk is not; ``persistent_limit`` picks the one for the output's dtype.
@@ -37,7 +38,8 @@ from urgent2026_challenge_track1_tpu_torch.ops.cuda_lstm import (
 
 __all__ = ["PERSISTENT_ULPS", "F32_LIMIT", "F32_BWD_LIMIT", "DW_F32_BOUND", "WALK_F32_TOL",
            "ulp_limit", "persistent_limit", "bwd_limit", "carry_limit", "tf32",
-           "fusedin_bilstm_stale_h", "lstm_scan_stale_h", "lstm_scan_tf32",
+           "fusedin_bilstm_stale_h", "lstm_train_fwd_streamin_stale_h",
+           "lstm_scan_stale_h", "lstm_scan_tf32",
            "lstm_scan_dropped_carry", "scan_carry_report", "carry_failures",
            "lstm_train_bwd_stale_dg", "lstm_train_bwd_tf32"]
 
@@ -163,22 +165,26 @@ def tf32(x: torch.Tensor) -> torch.Tensor:
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
-def _scan_faulty(x_proj, w_hh_t, reverse, lengths, residuals, product):
+def _scan_faulty(x_proj, w_hh_t, reverse, lengths, residuals, product, bias=None, dtype=None):
     """The plain walk of K2 (K3 with ``lengths``; with ``residuals`` K4's,
     K6's: (h, gates, c), c unmasked) whose recurrent product is
     ``product(h_prev, h, W_hh^T)``, h_prev the carried h of the step
-    before."""
+    before; ``bias`` (f32) added after the product, outputs stored in
+    ``dtype`` (x_proj's by default), as K8's walk."""
     R, T, G = x_proj.shape
+    dtype = dtype or x_proj.dtype
     w = w_hh_t.float()
     stale = h = torch.zeros((R, G // 4), device=x_proj.device)
     c = torch.zeros_like(h)
-    out = x_proj.new_empty((R, T, G // 4))
-    gates, cs = x_proj.new_empty((R, T, G)), x_proj.new_empty((R, T, G // 4))
+    out = x_proj.new_empty((R, T, G // 4), dtype=dtype)
+    gates = x_proj.new_empty((R, T, G), dtype=dtype)
+    cs = x_proj.new_empty((R, T, G // 4), dtype=dtype)
     for s in range(T):
         t = T - 1 - s if reverse else s
-        h_new, c, act = _cell(x_proj[:, t].float() + product(stale, h, w), c)
-        out[:, t] = h_new.to(x_proj.dtype)
-        gates[:, t], cs[:, t] = act.to(x_proj.dtype), c.to(x_proj.dtype)
+        pre = x_proj[:, t].float() + product(stale, h, w)
+        h_new, c, act = _cell(pre if bias is None else pre + bias, c)
+        out[:, t] = h_new.to(dtype)
+        gates[:, t], cs[:, t] = act.to(dtype), c.to(dtype)
         if lengths is not None:
             m = (t < lengths).float()[:, None]
             h_new, c = h_new * m, c * m
@@ -193,6 +199,16 @@ def lstm_scan_stale_h(x_proj: torch.Tensor, w_hh_t: torch.Tensor, reverse: bool,
     forward's (K4's, K6's with ``lengths``): (h, gates, c), c unmasked."""
     return _scan_faulty(x_proj, w_hh_t, reverse, lengths, residuals,
                         lambda stale, h, w: stale.to(x_proj.dtype).float() @ w)
+
+
+def lstm_train_fwd_streamin_stale_h(x: torch.Tensor, w_ih_t: torch.Tensor, bias: torch.Tensor,
+                                    w_hh_t: torch.Tensor, reverse: bool = False):
+    """K8's plain version (``lstm_train_fwd_streamin_plain``) fed h one step
+    stale -> (h, gates, c): equal to it at the walk's first step, off it
+    from the second on."""
+    return _scan_faulty(x.float() @ w_ih_t.float(), w_hh_t, reverse, None, True,
+                        lambda stale, h, w: stale.to(x.dtype).float() @ w,
+                        bias=bias.to(x.dtype).float(), dtype=x.dtype)
 
 
 def lstm_scan_tf32(x_proj: torch.Tensor, w_hh_t: torch.Tensor, reverse: bool,
