@@ -19,13 +19,14 @@ CLI's (48 x 501, H = 768, 463 valid).  Give the trees in an order that brackets
 drift (parent, change, change, parent).
 Prints one JSON line per visit (``[ab] {...}``, with the registers and
 spill bytes ptxas reported for each persistent and dW kernel), then whether
-each tree's persistent kernels that the first tree also has (K1p, the
+each tree's persistent kernels that the first tree also has (K1p and K8p, the
 K2p/K3p instances of ``scan_persistent_kernel``, the K5p/K7p instances of
 ``bwd_persistent_kernel``, bf16 and f32, and the dW kernels) compiled to
 the first tree's instructions (``cuobjdump -sass``, addresses and encodings dropped), and
-whether K1p's outputs at ``chip_smoke.K1_ROUTE_SHAPES`` and K5p's (with
-its dW) at the disc band (804 x 34, bf16 and f32) equal the first tree's
-bit for bit (sha256 of the bytes, seeded inputs), then
+whether K1p's outputs at ``chip_smoke.K1_ROUTE_SHAPES``, K5p's (with its
+dW) at the disc band (804 x 34, bf16 and f32) and K8p's, K2p's, K3p's,
+K4p's, K6p's (bf16 and f32) and K7p's at the disc time path (136 x 201)
+equal the first tree's bit for bit (sha256 of the bytes, seeded inputs), then
 the card's name and power limit, then a JSON summary of the medians per
 tree.  Needs one card.
 """
@@ -125,6 +126,27 @@ with torch.inference_mode():
         res = K.lstm_train_fwd_plain(xp, wh[0])
         out["sha256"][f"k5p_{dtype}_{R}x{T}"] = digest(*K.lstm_train_bwd(*res, dout, wh[0]))
         del xp, wh, dout, res
+    # K8p (bf16), K2p / K3p (bf16), K4p / K6p (bf16 and f32) and K7p (bf16) at
+    # the disc train step's time path, on each tree's persistent wrappers
+    # with their default plans
+    R, T, N, H = 136, 201, 196, 392
+    for dtype in (torch.bfloat16, torch.float32):
+        x, wi, wh, b, xp, lengths = cs._kernel_inputs(R, T, dtype, device, R + T + 1, N, H)
+        dt = "bf16" if dtype == torch.bfloat16 else "f32"
+        out["sha256"][f"k4p_{dt}"] = digest(*K.lstm_train_fwd_persistent(xp, wh[0], True))
+        res = K.lstm_revmasked_train_fwd_persistent(xp, wh[1], lengths)
+        out["sha256"][f"k6p_{dt}"] = digest(*res)
+        if dt == "bf16":
+            out["sha256"]["k8p"] = digest(
+                *K.lstm_train_fwd_streamin_persistent(x, wi[0], b[0], wh[0], False),
+                *K.lstm_train_fwd_streamin_persistent(x, wi[1], b[1], wh[1], True))
+            out["sha256"]["k2p"] = digest(K.lstm_scan_persistent(xp, wh[0], False))
+            out["sha256"]["k3p"] = digest(K.lstm_revmasked_persistent(xp, wh[1], lengths))
+            dout = (0.1 * torch.randn((R, T, H), generator=torch.Generator().manual_seed(T))).to(
+                device, dtype)
+            out["sha256"]["k7p"] = digest(*K.lstm_revmasked_bwd_persistent(
+                *res, lengths, dout, wh[1]))
+        del x, wi, wh, b, xp, lengths, res
     out["scan_p_ms"] = {}
     for R, T, H, valid in ((34, 401, 392, 371), (48, 501, 768, 463)):
         _, _, wh, _, xp, _ = cs._kernel_inputs(R, T, torch.bfloat16, device, R + T + H, hid=H)
@@ -162,8 +184,9 @@ def _summary(visits):
 
 def _sass(library: str) -> dict:
     """{key: instructions} of the persistent kernels in a built library:
-    K1p (``fusedin_persistent_kernel``, or its instance with STORE unset;
-    K8p's, STORE set, is left out), the scan_persistent_kernel instances
+    K1p and K8p (the bfloat16 instances of ``fusedin_persistent_kernel``,
+    keyed by STORE; one that takes float32 elements is left out), the
+    scan_persistent_kernel instances
     keyed (kernel, REVERSE, MASKED) (one that stores the training residuals
     (a third flag, set) or takes float32 elements is left out), and the
     bwd_persistent_kernel instances keyed (kernel, "bf16" or "f32",
@@ -183,8 +206,8 @@ def _sass(library: str) -> dict:
             if head:
                 name, f32 = head.group(1), head.group(2) == "f"
                 flags = tuple(int(f) for f in re.findall(r"Lb([01])E", head.group(3) or ""))
-                if name == "fusedin_persistent_kernel" and flags in ((), (0,)):
-                    body = kernels.setdefault((name,), [])
+                if name == "fusedin_persistent_kernel" and not f32:
+                    body = kernels.setdefault((name, *flags[-1:]), [])
                 elif name == "scan_persistent_kernel" and not f32 and (
                         len(flags) < 3 or flags[2] == 0):
                     body = kernels.setdefault((name, *flags[:2]), [])

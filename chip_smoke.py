@@ -12,14 +12,19 @@ Phases (any failure exits non-zero; each prints its seconds):
      c, dx_proj, dW), at the discriminative width (H = 392) and at the flow
      model's (H = 768); then the walks of K8-K10 at both widths' training
      shapes, and K9 / K10's walk against K4/K5 run per direction (bitwise
-     equal); then K8p (bfloat16) and K10p (bfloat16 and float32), the
-     persistent routes of K8 and K10, against their plain versions with
-     planted faults, TF32 controls and dW bounds, K10p against K5p run per
+     equal); then K8p (bfloat16 and float32: K8p-f32) and K10p (bfloat16
+     and float32), the persistent routes of K8 and K10, against their plain
+     versions with planted faults, TF32 controls and dW bounds, K10p against K5p run per
      direction (bitwise equal), and their, the walks', the default arm's
      and torch.nn.LSTM's times (the k8p/k10p routes phase); then K1p, K1's
      persistent bfloat16 route, against the plain version and the walk at
      the eight shapes where K1 runs, with its plan and its, the walk's and
-     cuDNN's times (the k1_routes phase); then K2p and K3p, the persistent
+     cuDNN's times (the k1_routes phase); then K1p-f32, K1's float32 route
+     (3xTF32; one grid, or a launch a direction at the flow width), against
+     the plain version within F32_LIMIT with the stale-h and one-TF32
+     controls at the ten shapes where float32 K1 runs or that cover its
+     copy paths, beside the float32 walk's and cuDNN's float32 times (the
+     k1_routes f32 phase); then K2p and K3p, the persistent
      bfloat16 routes of K2 and K3, against the plain versions and the walks
      at every step at the five shapes where they run, with their plans, a
      planted stale-h fault, their, the walks' and the plain versions' times
@@ -53,9 +58,10 @@ Phases (any failure exits non-zero; each prints its seconds):
      with the N = 10 sampler, EMA, a resume) and the inference CLI on its
      checkpoint with the euler and heun solvers; check that every kernel of
      each path ran, and that K1-K3 took K1p-K3p on the bfloat16 paths (the
-     CLIs) and the walks on the float32 ones (the training runs'
-     validations; a train step runs none of K1-K3), and that on the float32
-     training runs K4-K7 took K4p-f32 - K7p-f32; the batched CLI run reads
+     CLIs) and K1p-f32 and the K2/K3 walks on the float32 ones (the
+     training runs' validations, one pass of each family timed; a train
+     step runs none of K1-K3), and that on the float32 training runs K4-K7
+     took K4p-f32 - K7p-f32; the batched CLI run reads
      its inputs as FLAC; then the dynamic-mixing config
      (BSRNN_baseline_dm.yaml: 196 x 6, B=4, 2 s at 48 kHz, float32) through
      ``train_se.run`` for 2 steps and a validation, its batches rendered by
@@ -66,7 +72,9 @@ Phases (any failure exits non-zero; each prints its seconds):
      flow enhancement (scipy solve_ivp, rtol = atol = 1e-5) from the flow
      training's checkpoint in bfloat16 (nfev K1p forwards); then one
      float32 train step at 510 channels (H = 1020, where no float32
-     K4p/K6p plan fits) takes the walks of K4 and K6 and K5p-f32 / K7p-f32;
+     K4p/K6p plan fits) takes the walks of K4 and K6 and K5p-f32 / K7p-f32,
+     the same step under STREAM_INPUT_TRAIN K8's walk and one float32
+     forward K1's (no float32 K8p / K1p plan fits there either);
      then the causal streaming path (phase_causal): a causal
      streaming_norm model at 196 x 6 trains 3 float32 steps (K4p-f32,
      K5p-f32, dW-f32; no K6/K7), is saved and loaded for inference
@@ -88,13 +96,14 @@ Phases (any failure exits non-zero; each prints its seconds):
      then SGMSE at 196 x 6 (phase_sgmse: score, DSM loss and gradients and
      an N = 3 enhancement in float32 against the CPU; a bf16 enhancement
      at N = 50 over 4 s at 48 kHz through K1p, its launches and wall time,
-     against the float32 run of the same draws, with a control);
+     against the float32 run of the same draws (K1p-f32), with a control);
   4. the A/B arms of the two experiment toggles (default, STREAM_INPUT_TRAIN,
      FUSED_BIDIR_TRAIN, both, in alternating order) on one train step of
      each family: launches per kernel, loss and gradients against the
      default arm, step times, and each step's K8 and K10 routes against
-     the route rules (K8p and K10p in bfloat16; a discriminative float32
-     family runs the default and fused arms for K10p-f32); K8-K10 run here;
+     the route rules (K8p and K10p in bfloat16, K8p-f32 in the flow float32
+     family; a discriminative float32 family runs the default and fused
+     arms for K10p-f32); K8-K10 run here;
   5. compare a float32 forward, and one float32 train step's gradients, on
      the card (kernels) with the same on the CPU (plain versions), for both
      families;
@@ -447,6 +456,123 @@ def phase_k1_routes(device):
         if not e_stale >= limit:
             fail(f"{what}: a stale h moves the output by {e_stale:.3e}, under the K1p "
                  f"limit {limit:.3e}: the check cannot see a barrier fault")
+        out.append(rec)
+        del x, wi, wh, b, lstm
+    return out
+
+
+# the shapes where float32 K1 runs, (what, R, T, N, H): a float32 trainer's
+# validation (the disc band of one utterance and of a B=4 batch, the flow
+# band of a B=2 batch), the time path without lengths (34 x 401: float32
+# SGMSE), the bench band (H = 384) and one float32 flow enhancement's band
+# and time paths (the flow width: a launch a direction); then odd N and H
+# (x staged in 4-, 8- and 16-byte copies, h in L2-only 16-byte copies or
+# plain L2 loads)
+K1_F32_ROUTE_SHAPES = (("disc band B=1", 401, 34, N_IN, HID),
+                       ("B=4 band", 804, 34, N_IN, HID),
+                       ("disc time B=1", 34, 401, N_IN, HID),
+                       ("bench band B=64", 64 * 401, 34, 192, 384),
+                       ("flow band B=2", 502, 48, FLOW_N, FLOW_H),
+                       ("flow enhance band B=1", 501, 48, FLOW_N, FLOW_H),
+                       ("flow enhance time B=1", 48, 501, FLOW_N, FLOW_H),
+                       ("odd N and H", 13, 7, 37, 46),
+                       ("N = 2 mod 4", 21, 5, 38, 20),
+                       ("H = 72", 13, 11, 40, 72))
+
+
+def phase_k1_f32_routes(device):
+    """K1p-f32 (K1's float32 route, 3xTF32) through the routed wrapper at
+    K1_F32_ROUTE_SHAPES: the rule must take a float32 plan (one grid where
+    a two-direction plan fits, else a launch a direction) and count it so;
+    the plan against the kernel's bytes; the output within
+    ``persistent_checks.F32_LIMIT`` of the plain version, which the planted
+    stale h (``fusedin_bilstm_stale_h``) and the walk with one TF32 product
+    each (``fusedin_bilstm_tf32``) must exceed; two calls bitwise equal;
+    the float32 walk within WALK_F32_TOL of the plain version.  Times
+    (medians of ``_time_ms``): K1p-f32 (its weight pack included), the
+    pack alone, the float32 walk, the plain version, the bidirectional
+    float32 cuDNN ``nn.LSTM`` inference forward (TF32 off), and the bound
+    at PEAK_TF32_FLOPS."""
+    import torch
+    from urgent2026_challenge_track1_tpu_torch.ops import _build
+    from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
+    from urgent2026_challenge_track1_tpu_torch.ops import persistent_checks as PC
+
+    f32 = torch.float32
+    sms = _sm_count(device)
+    lib = _build.load_library()
+    out = []
+    for what, R, T, N, H in K1_F32_ROUTE_SHAPES:
+        x, wi, wh, b, _, _ = _kernel_inputs(R, T, f32, device, R + 3 * T, N, H)
+        plan = K.k1_route(f32, R, N, H, sms)
+        if plan is None or plan.elem != 4:
+            fail(f"K1p-f32: the rule takes no float32 plan at {what} (R={R}, N={N}, H={H})")
+        kernel_smem = lib.lstm_persistent_smem(N, H, plan.U, plan.rows, plan.chunk,
+                                                int(plan.c_in_smem), 4)
+        if kernel_smem != plan.smem:
+            fail(f"K1p-f32 plan at {what}: {plan.smem} bytes, the kernel reckons {kernel_smem}")
+        route = "persistent" if plan.dirs == 2 else "persistent_split"
+        with torch.inference_mode():
+            K.reset_launch_counts()
+            got = K.fusedin_bilstm(x, wi, wh, b)
+            routes = K.route_counts()
+            again = K.fusedin_bilstm(x, wi, wh, b)
+            ref = K.fusedin_bilstm_plain(x, wi, wh, b)
+            torch.cuda.synchronize()
+            bitwise = torch.equal(got, again)
+            e_plain = _err(got, ref)
+            del got, again
+            walk = K.fusedin_bilstm_walk(x, wi, wh, b)
+            e_walk = _err(walk, ref)
+            del walk
+            e_stale = _err(PC.fusedin_bilstm_stale_h(x, wi, wh, b), ref)
+            e_tf32 = _err(PC.fusedin_bilstm_tf32(x, wi, wh, b), ref)
+            limit = PC.persistent_limit(ref)
+            del ref
+            big = R * T > 200000  # the bench band: one visit of the walk and the plain version
+            k1p_ms = _time_ms(lambda: K.fusedin_bilstm(x, wi, wh, b))
+            pack_ms = _time_ms(lambda: K.pack_persistent_weights(wi, wh, b, plan))
+            walk_ms = _time_ms(lambda: K.fusedin_bilstm_walk(x, wi, wh, b), reps=1 if big else 3,
+                               warmup=0 if big else 1)
+            plain_ms = _time_ms(lambda: K.fusedin_bilstm_plain(x, wi, wh, b), reps=1,
+                                warmup=0 if big else 1)
+            lstm = torch.nn.LSTM(N, H, batch_first=True, bidirectional=True).to(device, f32)
+            cudnn_ms = _time_ms(lambda: lstm(x))
+        bound_ms, bound_by = _bounds(R, T, 0, N, H, "float32")["fusedin_bilstm"]
+        rec = {"what": what, "R": R, "T": T, "N": N, "H": H, "dtype": "float32",
+               "plan": {"dirs": plan.dirs, "S": plan.S, "G": plan.G, "U": plan.U,
+                        "rows": plan.rows, "chunk": plan.chunk, "c_in_smem": plan.c_in_smem,
+                        "smem_bytes": plan.smem, "ctas": plan.ctas},
+               "route": route, "routes": routes, "max_abs_err_vs_plain": e_plain,
+               "limit": limit, "max_err_over_limit": e_plain / limit,
+               "planted_stale_h_over_limit": e_stale / limit,
+               "tf32_control_over_limit": e_tf32 / limit, "bitwise_repeat": bitwise,
+               "walk_max_abs_err_vs_plain": e_walk,
+               "ms": k1p_ms, "pack_ms": pack_ms, "walk_ms": walk_ms, "plain_ms": plain_ms,
+               "cudnn_ms": cudnn_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+        print(f"[k1 routes f32] {what} R={R} T={T} N={N} H={H}: plan dirs={plan.dirs} "
+              f"S={plan.S} G={plan.G} U={plan.U} rows={plan.rows} chunk={plan.chunk} "
+              f"c_in_smem={plan.c_in_smem} smem={plan.smem} B ({plan.ctas} CTAs a launch); "
+              f"routes {routes}; K1p-f32 {k1p_ms:.3f} ms (its weight pack {pack_ms:.4f} ms), "
+              f"walk {walk_ms:.3f} ms, plain {plain_ms:.3f} ms, cuDNN f32 {cudnn_ms:.3f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}); max|K1p-f32 - plain| {e_plain:.3e} "
+              f"(limit {limit:.1e}), stale h {e_stale:.3e}, one TF32 product {e_tf32:.3e}, "
+              f"max|walk - plain| {e_walk:.3e} (limit {PC.WALK_F32_TOL}); two calls bitwise "
+              f"equal: {bitwise}")
+        want = {"persistent": 0, "walk": 0, "persistent_split": 0}
+        want[route] = 1 if plan.dirs == 2 else 2
+        if routes != want:
+            fail(f"K1p-f32 {what}: the routed K1 took {routes}, expected {want}")
+        if not e_plain < limit:
+            fail(f"K1p-f32 {what}: vs plain {e_plain:.3e} >= {limit:.3e}")
+        for name, e in (("a stale h", e_stale), ("one TF32 product", e_tf32)):
+            if not e >= limit:
+                fail(f"K1p-f32 {what}: {name} moves the output by {e:.3e}, under the limit "
+                     f"{limit:.3e}: the check cannot see it")
+        if not bitwise:
+            fail(f"K1p-f32 {what}: two calls differ")
+        if not e_walk < PC.WALK_F32_TOL:
+            fail(f"K1 walk f32 {what}: vs plain {e_walk:.3e} >= {PC.WALK_F32_TOL}")
         out.append(rec)
         del x, wi, wh, b, lstm
     return out
@@ -1068,7 +1194,8 @@ def phase_main_path(workdir: Path):
     from urgent2026_challenge_track1_tpu_torch.utils.checkpoint import save_model
 
     ckpt = workdir / "bsrnn_196x6.pt"
-    save_model(str(ckpt), init_bsrnn(BSRNNConfig(num_channel=N_IN, num_layer=6), seed=0),
+    save_model(str(ckpt), init_bsrnn(BSRNNConfig(num_channel=N_IN, num_layer=6), seed=0,
+                                      device="cpu"),
                STFTConfig())
     scp = _write_inputs(workdir, UTTERANCES, "in.scp", 0)
     # the same samples as FLAC (its 16-bit PCM equals the WAV's): the
@@ -1137,6 +1264,27 @@ def _train_config(workdir: Path, **over):
     return Config(**base)
 
 
+def _validation_pass(cfg, state):
+    """One validation pass of a trained ``state`` through the trainer's own
+    ``validate`` (after one warm-up pass): host ms around it, ending in a
+    sync, and K1-K3's routes over it (the counts set to 0 just before)."""
+    import torch
+    from urgent2026_challenge_track1_tpu_torch.data.dataset import AudioDataModule
+    from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
+    from urgent2026_challenge_track1_tpu_torch.train.trainer import Trainer
+
+    tr = Trainer(cfg, AudioDataModule(cfg))
+    tr.validate(state)
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = tr.validate(state)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return {"ms": ms, "val_loss": metrics["val_loss"],
+            "routes": {name: K.route_counts(name) for name in INFERENCE_KERNELS}}
+
+
 def phase_training(workdir: Path):
     """The port's training entry point at the baseline geometry: 2 epochs of
     2 steps with validation and checkpoints every 2 steps, then a second
@@ -1162,7 +1310,7 @@ def phase_training(workdir: Path):
               f"launches {counts}, routes {routes}")
         if (state.step, state.epoch) != (4, 2):
             fail(f"training ended at step {state.step}, epoch {state.epoch}; expected 4, 2")
-        init = init_bsrnn(BSRNNConfig(num_channel=N_IN, num_layer=6), seed=2024)
+        init = init_bsrnn(BSRNNConfig(num_channel=N_IN, num_layer=6), seed=2024, device="cpu")
         trained = state.model.state_dict()
         changed = sum(not torch.equal(v, trained[k].cpu()) for k, v in init.state_dict().items())
         print(f"[training] {changed} of {len(trained)} parameter tensors changed")
@@ -1175,6 +1323,11 @@ def phase_training(workdir: Path):
         print(f"[training] train losses {train_losses}, val losses {val_losses}")
         if len(train_losses) != 4 or len(val_losses) != 2 or None in train_losses + val_losses:
             fail("training logged missing or non-finite losses")
+        validation = _validation_pass(_train_config(workdir), state)
+        print(f"[training] one float32 validation pass (4 utterances, B=4): "
+              f"{validation['ms']:.1f} ms, val_loss {validation['val_loss']:.6g}, K1-K3 routes "
+              f"{validation['routes']}")
+        _check_routes("the float32 validation pass", "float32", validation["routes"])
         t0 = time.perf_counter()
         resumed = train_se.run(_train_config(workdir, num_train_epochs=3))
         print(f"[training] resumed run in {time.perf_counter() - t0:.1f} s: step "
@@ -1190,13 +1343,17 @@ def phase_training(workdir: Path):
             fail(f"kernel {fn.__name__} was not launched on the training path")
     _check_routes("the float32 training path", "float32", routes,
                   INFERENCE_KERNELS + TRAIN_ROUTED)
-    return counts, routes
+    return counts, routes, validation
 
 
 WIDE_CHANNELS = 510  # H = 1020: no float32 K4p/K6p plan fits, so K4 and K6 take their walks
-# (K5 and K7 have float32 plans there: S = 128 CTAs of 8 units, G = 1)
+# (K5 and K7 have float32 plans there: S = 128 CTAs of 8 units, G = 1); nor
+# does a float32 K1p / K8p plan, so K1 and K8 take theirs too
 WIDE_WALKS = ("lstm_train_fwd", "lstm_revmasked_train_fwd")
 WIDE_RUN = f"one float32 train step at {WIDE_CHANNELS} channels x 1 layer (B=1, 2 s at 48 kHz)"
+WIDE_STREAM_RUN = WIDE_RUN + " under STREAM_INPUT_TRAIN"
+WIDE_FORWARD_RUN = (f"one float32 forward at {WIDE_CHANNELS} channels x 1 layer (B=1, 2 s at "
+                    "48 kHz, no lengths)")
 
 
 def phase_walk_route(device):
@@ -1205,9 +1362,14 @@ def phase_walk_route(device):
     2 s at 48 kHz): K4 and K6 take their walks there; K5 and K7 take
     K5p-f32 / K7p-f32 (their float32 plans fit: the backward's slice needs
     no projection buffer), each with the float32 dW kernel; no K1-K3 runs.
-    Returns the routes of that step (the counts set to 0 just before
-    it)."""
+    Then the same step under STREAM_INPUT_TRAIN (K8 on its walk: no
+    float32 K8p plan fits either) and one float32 forward of that model
+    without lengths (K1 on its walk, band and time paths).  Returns the
+    routes of the first step (the counts set to 0 just before it), with
+    K8's those of the second step and K1's those of the forward (each
+    likewise)."""
     import torch
+    from urgent2026_challenge_track1_tpu_torch.models.bsrnn import bsrnn_se_apply
     from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
     from urgent2026_challenge_track1_tpu_torch.train import trainer
 
@@ -1234,6 +1396,38 @@ def phase_walk_route(device):
         if want == "persistent" and K.backward_route(torch.float32, 34, H, _sm_count(device)) is None:
             fail(f"the wide float32 train step: no float32 K5p/K7p plan at H = {H}")
     _check_dw_launches("the wide float32 train step", routes)
+    sms = _sm_count(device)
+    if (K.streamin_route(torch.float32, 34, WIDE_CHANNELS, H, sms) is not None
+            or K.k1_route(torch.float32, 201, WIDE_CHANNELS, H, sms) is not None):
+        fail(f"a float32 K8p or K1p plan fits at H = {H}: this phase cannot drive their walks")
+    saved = K.STREAM_INPUT_TRAIN
+    K.STREAM_INPUT_TRAIN = True
+    try:
+        K.reset_launch_counts()
+        m = step(model, trainer.make_optimizer(cfg, model), *_train_batch(device, B=1))
+        torch.cuda.synchronize()
+        routes["lstm_train_fwd_streamin"] = K.route_counts("lstm_train_fwd_streamin")
+    finally:
+        K.STREAM_INPUT_TRAIN = saved
+    print(f"[walk route] {WIDE_STREAM_RUN}: loss {float(m['loss']):.6g}, K8 routes "
+          f"{routes['lstm_train_fwd_streamin']}")
+    if not bool(torch.isfinite(m["loss"])):
+        fail("the wide float32 STREAM step gave a non-finite loss")
+    r = routes["lstm_train_fwd_streamin"]
+    if r["walk"] <= 0 or r["persistent"]:
+        fail(f"the wide float32 STREAM step: K8 routes {r}, expected the walk only")
+    model.eval()
+    with torch.inference_mode():
+        K.reset_launch_counts()
+        wav = 0.1 * torch.randn((1, 2 * 48000), device=device)
+        out = bsrnn_se_apply(model, bundle.stft_cfg, wav, 48000)[0]
+        torch.cuda.synchronize()
+        routes["fusedin_bilstm"] = K.route_counts()
+    print(f"[walk route] {WIDE_FORWARD_RUN}: K1 routes {routes['fusedin_bilstm']}")
+    r = routes["fusedin_bilstm"]
+    if not bool(torch.isfinite(out).all()) or r["walk"] <= 0 or sum(r.values()) != r["walk"]:
+        fail(f"the wide float32 forward: K1 routes {r} (expected the walk only) or a "
+             "non-finite output")
     del model
     return routes
 
@@ -1252,7 +1446,7 @@ def phase_card_vs_cpu(device) -> float:
         BSRNNConfig, bsrnn_se_apply, init_bsrnn)
 
     fs, n = 16000, 24000  # 1.5 s in a 2 s bucket
-    cpu_model = init_bsrnn(BSRNNConfig(num_channel=N_IN, num_layer=6), seed=1)
+    cpu_model = init_bsrnn(BSRNNConfig(num_channel=N_IN, num_layer=6), seed=1, device="cpu")
     card_model = copy.deepcopy(cpu_model).to(device)
     gen = torch.Generator().manual_seed(2)
     x = torch.zeros((1, 2 * fs))
@@ -1282,7 +1476,7 @@ def phase_grads_card_vs_cpu(device) -> float:
 
     fs, n = 16000, 8000
     bundle = trainer.build_model(Config(model_configs={"num_channel": N_IN, "num_layer": 6}))
-    cpu_model = init_bsrnn(BSRNNConfig(num_channel=N_IN, num_layer=6), seed=6)
+    cpu_model = init_bsrnn(BSRNNConfig(num_channel=N_IN, num_layer=6), seed=6, device="cpu")
     card_model = copy.deepcopy(cpu_model).to(device)
     gen = torch.Generator().manual_seed(7)
     clean = 0.1 * torch.randn((2, n), generator=gen)
@@ -1344,16 +1538,18 @@ def _bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def _bounds(R, T, lengths_sum, n_in=N_IN, hid=HID):
-    """Least time (ms) for each kernel's bf16 work at one shape (each input
-    byte read once, each output byte written once, the recurrent and input
+def _bounds(R, T, lengths_sum, n_in=N_IN, hid=HID, dtype="bfloat16"):
+    """Least time (ms) for each kernel's work at one shape (each input byte
+    read once, each output byte written once, the recurrent and input
     products as operations); K3 counts only the valid steps its outputs
-    need."""
-    N, H, b = n_in, hid, 2
+    need.  bfloat16: 2-byte elements at PEAK_BF16_FLOPS; float32 (K1 only):
+    4-byte elements at PEAK_TF32_FLOPS, as ``_train_bounds``."""
+    N, H, b = n_in, hid, (2 if dtype == "bfloat16" else 4)
+    peak = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_TF32_FLOPS
     return {
         "fusedin_bilstm": _bound(2 * 2 * R * (N + H) * 4 * H * T,
                                  b * (R * T * N + 2 * (N + H) * 4 * H + 2 * 4 * H
-                                      + R * T * 2 * H)),
+                                      + R * T * 2 * H), peak),
         "lstm_scan": _bound(2 * R * H * 4 * H * T,
                             b * (R * T * 4 * H + H * 4 * H + R * T * H)),
         "lstm_revmasked": _bound(2 * H * 4 * H * lengths_sum,
@@ -1414,14 +1610,19 @@ def _routes():
 
 def _check_routes(what, dtype_name, routes, kernels=INFERENCE_KERNELS):
     """Each of ``kernels`` ran, on its persistent route only (K1p-K7p) in
-    bfloat16; in float32 K4-K7 on theirs (K4p-f32 - K7p-f32) and K1-K3 on
-    their walks only."""
+    bfloat16; in float32 K1 on K1p-f32 (one grid, or a launch a direction
+    at the flow width), K4-K7 on K4p-f32 - K7p-f32, and K2 and K3 on their
+    walks only."""
     for name in kernels:
-        persistent = dtype_name == "bfloat16" or name in F32_PERSISTENT
-        want = "persistent" if persistent else "walk"
+        if dtype_name == "bfloat16" or name in F32_PERSISTENT:
+            want = ("persistent",)
+        elif name == "fusedin_bilstm":
+            want = ("persistent", "persistent_split")
+        else:
+            want = ("walk",)
         r = routes[name]
-        if r[want] <= 0 or sum(r.values()) != r[want]:
-            fail(f"{what}: {name} routes {r}, expected {want} only")
+        if sum(r[w] for w in want) <= 0 or sum(r.values()) != sum(r[w] for w in want):
+            fail(f"{what}: {name} routes {r}, expected {' or '.join(want)} only")
 
 
 def _check_dw_launches(what, routes):
@@ -1578,9 +1779,14 @@ def phase_times(device, main_counts, errs, train_errs, k1_routes, scan_routes,
             plain_ms = _time_ms(plain, reps=3, warmup=1)
             library_ms = _time_ms(library) if library is not None else None
             bound_ms, bound_by = _bounds(R, T, R * valid)[name]
-            # the walks run on the float32 paths: the training path's validations
-            launches = train_routes[name]["walk"]
-            run = "training path (float32 validation: the walk)"
+            # the walks run on the float32 paths: K2's and K3's in the training
+            # path's validations; K1's (K1p-f32 takes every float32 shape with
+            # a plan) where no float32 plan fits, the wide model's forward
+            if name == "fusedin_bilstm":
+                launches, run = wide_routes[name]["walk"], WIDE_FORWARD_RUN + " (the walk)"
+            else:
+                launches = train_routes[name]["walk"]
+                run = "training path (float32 validation: the walk)"
             rec = {
                 "name": name, "route": "cuda",
                 "source": f"{PKG}/csrc/lstm_kernels.cu",
@@ -2051,6 +2257,12 @@ K8P_SHAPES = (("disc time B=4", *TRAIN_TIME, N_IN, HID),
               ("disc band B=4", *TRAIN_BAND, N_IN, HID),
               ("flow time B=2", *FLOW_TIME, FLOW_N, FLOW_H),
               ("bench width", *TRAIN_TIME, BENCH_N, BENCH_H))
+# and K8p-f32 (float32) there, at the flow band path (502 x 48, where the
+# flow family's STREAM arm also runs K8) and at odd N and H (x staged in 4-,
+# 8- and 16-byte copies)
+K8P_F32_SHAPES = K8P_SHAPES + (("flow band B=2", *FLOW_BAND, FLOW_N, FLOW_H),
+                               ("odd N and H", 13, 7, 37, 46),
+                               ("N = 2 mod 4", 21, 5, 38, 20))
 # (what, R, T, H): K10 on the band paths, where FUSED_BIDIR_TRAIN runs it
 K10P_SHAPES = (("disc band B=4", *TRAIN_BAND, HID),
                ("flow band B=2", *FLOW_BAND, FLOW_H),
@@ -2059,19 +2271,23 @@ K10P_DIRS = ("forward", "reverse")
 
 
 def phase_streamin_bwd2_routes(device):
-    """K8p (bfloat16) and K10p (bfloat16 and float32) against their plain
-    versions at every step, each through its routed wrapper (its route rule
-    must take the persistent route and count one launch there):
+    """K8p (bfloat16 and float32) and K10p (bfloat16 and float32) against
+    their plain versions at every step, each through its routed wrapper (its
+    route rule must take the persistent route and count one launch there):
 
-    K8p at K8P_SHAPES, both directions: h, gates and c each within 4 bf16
-    ulps at max|plain| (``persistent_checks.ulp_limit``), which the planted
-    fault (``persistent_checks.lstm_train_fwd_streamin_stale_h``, the plain
-    walk fed h one step stale) must exceed; two launches bitwise equal; its
-    plan checked against the kernel's byte count, and one plan (the disc
-    band's) walks several chunks a group.  Times (forward walk):
-    K8p, the walk, the plain version, a one-direction torch.nn.LSTM training
-    forward (K8's function, N = H / 2) and what the default arm runs for
-    the same function, the hoisted addmm and K4p; the bound.
+    K8p at K8P_SHAPES and K8p-f32 at K8P_F32_SHAPES, both directions: h,
+    gates and c each within 4 bf16 ulps at max|plain|
+    (``persistent_checks.ulp_limit``; F32_LIMIT in float32), which the
+    planted fault (``persistent_checks.lstm_train_fwd_streamin_stale_h``,
+    the plain walk fed h one step stale) and, in float32, the walk with one
+    TF32 product each (``lstm_train_fwd_streamin_tf32``) must exceed; two
+    launches bitwise equal; its plan checked against the kernel's byte
+    count, and in each dtype one plan walks several chunks a group.  Times
+    (forward walk): K8p, the walk, the plain version, a one-direction
+    torch.nn.LSTM training forward in the same dtype (K8's function, N = H
+    / 2; TF32 off) and what the default arm runs for the same function, the
+    hoisted addmm and K4p (K4p-f32); the bound (float32 at
+    PEAK_TF32_FLOPS).
 
     K10p at K10P_SHAPES on the plain training forward's residuals of both
     directions: dx_proj of each direction within ``persistent_checks.bwd_limit``
@@ -2091,7 +2307,7 @@ def phase_streamin_bwd2_routes(device):
     bidirectional torch.nn.LSTM backward (a superset); the bound, twice
     K5's; where the planner moved dc to global memory for
     fewer K tiles, K10p at the plan that keeps dc in shared memory.
-    Returns {"k8p": [...], "k10p": [...]}."""
+    Returns {"k8p": [...], "k8p_f32": [...], "k10p": [...]}."""
     import dataclasses
 
     import torch
@@ -2102,82 +2318,104 @@ def phase_streamin_bwd2_routes(device):
     sms = _sm_count(device)
     lib = _build.load_library()
     bf16 = torch.bfloat16
-    out = {"k8p": [], "k10p": []}
-    for what, R, T, N, H in K8P_SHAPES:
-        x, wi, wh, b, _, _ = _kernel_inputs(R, T, bf16, device, R + 5 * T + H, N, H)
-        plan = K.plan_persistent(R, N, H, sms, dirs=1)
-        if plan is None or K.streamin_route(bf16, R, N, H, sms) != plan:
-            fail(f"K8p: no plan, or the rule does not take it, at {what} (R={R}, N={N}, H={H})")
-        kernel_smem = lib.lstm_persistent_smem(N, H, plan.U, plan.rows, plan.chunk,
-                                                int(plan.c_in_smem), 2)
-        if kernel_smem != plan.smem:
-            fail(f"K8p plan at {what}: {plan.smem} bytes, the kernel reckons {kernel_smem}")
-        rec = {"what": what, "R": R, "T": T, "N": N, "H": H, "dtype": "bfloat16",
-               "plan": {"S": plan.S, "G": plan.G, "U": plan.U, "rows": plan.rows,
-                        "chunk": plan.chunk, "chunks_per_group": -(-plan.rows // plan.chunk),
-                        "c_in_smem": plan.c_in_smem, "smem_bytes": plan.smem,
-                        "ctas": plan.ctas}}
-        for reverse in (False, True):
-            K.reset_launch_counts()
-            got = K.lstm_train_fwd_streamin(x, wi[0], b[0], wh[0], reverse)
-            routes = K.route_counts("lstm_train_fwd_streamin")
-            again = K.lstm_train_fwd_streamin(x, wi[0], b[0], wh[0], reverse)
-            ref = K.lstm_train_fwd_streamin_plain(x, wi[0], b[0], wh[0], reverse)
-            stale = PC.lstm_train_fwd_streamin_stale_h(x, wi[0], b[0], wh[0], reverse)
-            torch.cuda.synchronize()
-            limits = [PC.ulp_limit(r) for r in ref]
-            e_plain = [_err(g, r) for g, r in zip(got, ref)]
-            e_stale = [_err(f, r) for f, r in zip(stale, ref)]
-            bitwise = all(torch.equal(u, v) for u, v in zip(got, again))
-            del got, again, ref, stale
-            tag = "reverse" if reverse else "forward"
-            rec[tag] = {"routes": routes,
-                        "max_abs_err_vs_plain": dict(zip(RESIDUALS, e_plain)),
-                        "limit": dict(zip(RESIDUALS, limits)),
-                        "max_err_over_limit": max(e / lim for e, lim in zip(e_plain, limits)),
-                        "planted_stale_h_over_limit": min(
-                            e / lim for e, lim in zip(e_stale, limits)),
-                        "bitwise_repeat": bitwise}
-            print(f"[k8p] {what} {tag} R={R} T={T} N={N} H={H}: plan S={plan.S} G={plan.G} "
-                  f"U={plan.U} rows={plan.rows} chunk={plan.chunk} c_in_smem={plan.c_in_smem} "
-                  f"smem={plan.smem} B ({plan.ctas} CTAs); routes {routes}; max|p - plain| h, "
-                  f"gates, c {[f'{e:.3e}' for e in e_plain]} (limits "
-                  f"{[f'{lim:.3e}' for lim in limits]}); planted stale h "
-                  f"{[f'{e:.3e}' for e in e_stale]}; two launches bitwise equal: {bitwise}")
-            if routes != {"persistent": 1, "walk": 0}:
-                fail(f"K8p {what} {tag}: the routed K8 took {routes}, expected K8p once")
-            for name, e, f, lim in zip(RESIDUALS, e_plain, e_stale, limits):
-                if not e < lim:
-                    fail(f"K8p {what} {tag}: {name} vs plain {e:.3e} >= {lim:.3e}")
-                if not f >= lim:
-                    fail(f"K8p {what} {tag}: a stale h moves {name} by {f:.3e}, under the limit "
-                         f"{lim:.3e}: the check cannot see a barrier fault")
-            if not bitwise:
-                fail(f"K8p {what} {tag}: two launches differ")
-        x2 = x.reshape(-1, N)
-        bound_ms, bound_by = _new_kernel_bounds(R, T, N, H)["lstm_train_fwd_streamin"]
-        with torch.no_grad():
-            rec.update({
-                "ms": _time_ms(lambda: K.lstm_train_fwd_streamin(x, wi[0], b[0], wh[0])),
-                "walk_ms": _time_ms(
-                    lambda: K.lstm_train_fwd_streamin_walk(x, wi[0], b[0], wh[0]), reps=3,
-                    warmup=1),
-                "plain_ms": _time_ms(lambda: K.lstm_train_fwd_streamin_plain(x, wi[0], b[0],
-                                                                             wh[0]),
-                                     reps=1, warmup=1),
-                "k4p_addmm_ms": _time_ms(lambda: K.lstm_train_fwd(
-                    torch.addmm(b[0], x2, wi[0]).reshape(R, T, 4 * H), wh[0])),
-                "bound_ms": bound_ms, "bound_by": bound_by})
-        rec["library_ms"] = _lstm_forward_reference_ms(device, R, T, H, bf16, True)
-        print(f"[k8p] {what} R={R} T={T} N={N} H={H} bf16: K8p {rec['ms']:.3f} ms, walk "
-              f"{rec['walk_ms']:.3f} ms, plain {rec['plain_ms']:.3f} ms, addmm + K4p "
-              f"{rec['k4p_addmm_ms']:.3f} ms, nn.LSTM training forward {rec['library_ms']:.3f} "
-              f"ms, bound {bound_ms:.4f} ms ({bound_by})")
-        out["k8p"].append(rec)
-        del x, wi, wh, b, x2
-    if not any(r["plan"]["chunks_per_group"] > 1 for r in out["k8p"]):
-        fail("K8p: no shape's plan walks more than one chunk a group, so the residual stores "
-             "of a group's earlier chunks went unchecked")
+    out = {"k8p": [], "k8p_f32": [], "k10p": []}
+    for dt_name, dtype, shapes in (("bfloat16", bf16, K8P_SHAPES),
+                                   ("float32", torch.float32, K8P_F32_SHAPES)):
+        f32 = dtype == torch.float32
+        label, elem = ("K8p-f32", 4) if f32 else ("K8p", 2)
+        for what, R, T, N, H in shapes:
+            x, wi, wh, b, _, _ = _kernel_inputs(R, T, dtype, device, R + 5 * T + H, N, H)
+            plan = K.plan_persistent(R, N, H, sms, dirs=1, elem=elem)
+            if plan is None or K.streamin_route(dtype, R, N, H, sms) != plan:
+                fail(f"{label}: no plan, or the rule does not take it, at {what} (R={R}, N={N}, "
+                     f"H={H})")
+            kernel_smem = lib.lstm_persistent_smem(N, H, plan.U, plan.rows, plan.chunk,
+                                                    int(plan.c_in_smem), elem)
+            if kernel_smem != plan.smem:
+                fail(f"{label} plan at {what}: {plan.smem} bytes, the kernel reckons "
+                     f"{kernel_smem}")
+            rec = {"what": what, "R": R, "T": T, "N": N, "H": H, "dtype": dt_name,
+                   "plan": {"S": plan.S, "G": plan.G, "U": plan.U, "rows": plan.rows,
+                            "chunk": plan.chunk, "chunks_per_group": -(-plan.rows // plan.chunk),
+                            "c_in_smem": plan.c_in_smem, "smem_bytes": plan.smem,
+                            "ctas": plan.ctas}}
+            for reverse in (False, True):
+                K.reset_launch_counts()
+                got = K.lstm_train_fwd_streamin(x, wi[0], b[0], wh[0], reverse)
+                routes = K.route_counts("lstm_train_fwd_streamin")
+                again = K.lstm_train_fwd_streamin(x, wi[0], b[0], wh[0], reverse)
+                ref = K.lstm_train_fwd_streamin_plain(x, wi[0], b[0], wh[0], reverse)
+                stale = PC.lstm_train_fwd_streamin_stale_h(x, wi[0], b[0], wh[0], reverse)
+                torch.cuda.synchronize()
+                limits = [PC.persistent_limit(r) for r in ref]
+                e_plain = [_err(g, r) for g, r in zip(got, ref)]
+                e_stale = [_err(f, r) for f, r in zip(stale, ref)]
+                bitwise = all(torch.equal(u, v) for u, v in zip(got, again))
+                del got, again, stale
+                e_tf32 = ([_err(o, r) for o, r in zip(
+                    PC.lstm_train_fwd_streamin_tf32(x, wi[0], b[0], wh[0], reverse), ref)]
+                          if f32 else None)
+                del ref
+                tag = "reverse" if reverse else "forward"
+                rec[tag] = {"routes": routes,
+                            "max_abs_err_vs_plain": dict(zip(RESIDUALS, e_plain)),
+                            "limit": dict(zip(RESIDUALS, limits)),
+                            "max_err_over_limit": max(e / lim for e, lim in zip(e_plain, limits)),
+                            "planted_stale_h_over_limit": min(
+                                e / lim for e, lim in zip(e_stale, limits)),
+                            "tf32_control_over_limit": (min(e / lim for e, lim in
+                                                            zip(e_tf32, limits))
+                                                        if f32 else None),
+                            "bitwise_repeat": bitwise}
+                print(f"[{label.lower()}] {what} {tag} R={R} T={T} N={N} H={H}: plan S={plan.S} "
+                      f"G={plan.G} U={plan.U} rows={plan.rows} chunk={plan.chunk} c_in_smem="
+                      f"{plan.c_in_smem} smem={plan.smem} B ({plan.ctas} CTAs); routes {routes}; "
+                      f"max|p - plain| h, gates, c {[f'{e:.3e}' for e in e_plain]} (limits "
+                      f"{[f'{lim:.3e}' for lim in limits]}); planted stale h "
+                      f"{[f'{e:.3e}' for e in e_stale]}; one TF32 product "
+                      f"{[f'{e:.3e}' for e in e_tf32] if f32 else 'n/a'}; two launches bitwise "
+                      f"equal: {bitwise}")
+                if routes != {"persistent": 1, "walk": 0}:
+                    fail(f"{label} {what} {tag}: the routed K8 took {routes}, expected {label} "
+                         "once")
+                for name, e, f, lim in zip(RESIDUALS, e_plain, e_stale, limits):
+                    if not e < lim:
+                        fail(f"{label} {what} {tag}: {name} vs plain {e:.3e} >= {lim:.3e}")
+                    if not f >= lim:
+                        fail(f"{label} {what} {tag}: a stale h moves {name} by {f:.3e}, under "
+                             f"the limit {lim:.3e}: the check cannot see a barrier fault")
+                for name, e, lim in zip(RESIDUALS, e_tf32 or (), limits):
+                    if not e >= lim:
+                        fail(f"{label} {what} {tag}: one TF32 product moves {name} by {e:.3e}, "
+                             f"under the limit {lim:.3e}")
+                if not bitwise:
+                    fail(f"{label} {what} {tag}: two launches differ")
+            x2 = x.reshape(-1, N)
+            bound_ms, bound_by = _new_kernel_bounds(R, T, N, H, dt_name)["lstm_train_fwd_streamin"]
+            slow = f32 and H == FLOW_H  # the float32 walk and plain version at the flow width
+            with torch.no_grad():
+                rec.update({
+                    "ms": _time_ms(lambda: K.lstm_train_fwd_streamin(x, wi[0], b[0], wh[0])),
+                    "walk_ms": _time_ms(
+                        lambda: K.lstm_train_fwd_streamin_walk(x, wi[0], b[0], wh[0]),
+                        reps=1 if slow else 3, warmup=1),
+                    "plain_ms": _time_ms(lambda: K.lstm_train_fwd_streamin_plain(
+                        x, wi[0], b[0], wh[0]), reps=1, warmup=0 if slow else 1),
+                    "k4p_addmm_ms": _time_ms(lambda: K.lstm_train_fwd(
+                        torch.addmm(b[0], x2, wi[0]).reshape(R, T, 4 * H), wh[0])),
+                    "bound_ms": bound_ms, "bound_by": bound_by})
+            rec["library_ms"] = (_lstm_forward_reference_ms(device, R, T, H, dtype, True)
+                                 if 2 * N == H else None)
+            print(f"[{label.lower()}] {what} R={R} T={T} N={N} H={H} {dt_name}: {label} "
+                  f"{rec['ms']:.3f} ms, walk {rec['walk_ms']:.3f} ms, plain "
+                  f"{rec['plain_ms']:.3f} ms, addmm + K4p{'-f32' if f32 else ''} "
+                  f"{rec['k4p_addmm_ms']:.3f} ms, nn.LSTM training forward {rec['library_ms']} "
+                  f"ms, bound {bound_ms:.4f} ms ({bound_by})")
+            out["k8p_f32" if f32 else "k8p"].append(rec)
+            del x, wi, wh, b, x2
+        if not any(r["plan"]["chunks_per_group"] > 1 for r in out["k8p_f32" if f32 else "k8p"]):
+            fail(f"{label}: no shape's plan walks more than one chunk a group, so the residual "
+                 "stores of a group's earlier chunks went unchecked")
     for what, R, T, H in K10P_SHAPES:
         for dt_name, dtype in (("bfloat16", bf16), ("float32", torch.float32)):
             f32 = dtype == torch.float32
@@ -2392,6 +2630,11 @@ def phase_flow_training(workdir: Path):
         print(f"[flow training] train losses {train_losses}, val (loss, sampler SI-SNR) {vals}")
         if len(train_losses) != 4 or len(vals) != 2 or None in train_losses + sum(map(list, vals), []):
             fail("flow training logged missing or non-finite losses")
+        validation = _validation_pass(_flow_config(workdir), state)
+        print(f"[flow training] one float32 validation pass (2 utterances, B=2, the N = 10 "
+              f"sampler on the first batch): {validation['ms']:.1f} ms, val_loss "
+              f"{validation['val_loss']:.6g}, K1-K3 routes {validation['routes']}")
+        _check_routes("the float32 flow validation pass", "float32", validation["routes"])
         t0 = time.perf_counter()
         resumed = train_se.run(_flow_config(workdir, num_train_epochs=3))
         print(f"[flow training] resumed run in {time.perf_counter() - t0:.1f} s: step "
@@ -2406,7 +2649,7 @@ def phase_flow_training(workdir: Path):
             fail(f"kernel {fn.__name__} was not launched on the flow training path")
     _check_routes("the float32 flow training path", "float32", routes,
                   INFERENCE_KERNELS + TRAIN_ROUTED)
-    return routes, exp / "checkpoints" / "step_6.pt"
+    return routes, exp / "checkpoints" / "step_6.pt", validation
 
 
 def phase_flow_cli(workdir: Path, ckpt: Path):
@@ -2536,7 +2779,7 @@ def phase_dm_training(workdir: Path):
           f"step seconds {step_s}, loader wait seconds {wait_s}")
     if len(steps) != 2 or len(vals) != 1 or None in [r["train_loss"] for r in steps] + vals:
         fail("dm training logged missing or non-finite losses")
-    init = init_bsrnn(BSRNNConfig(num_channel=N_IN, num_layer=6), seed=2024)
+    init = init_bsrnn(BSRNNConfig(num_channel=N_IN, num_layer=6), seed=2024, device="cpu")
     trained = state.model.state_dict()
     changed = sum(not torch.equal(v, trained[k].cpu()) for k, v in init.state_dict().items())
     print(f"[dm training] {changed} of {len(trained)} parameter tensors changed")
@@ -2813,27 +3056,34 @@ def phase_sgmse(device, channels=N_IN, layers=6, seconds=(1.0, 4.0), N=SGMSE_N):
         torch.cuda.synchronize()
         bf16_s = time.perf_counter() - t0
         counts, routes = K.launch_counts(), _routes()
+        K.reset_launch_counts()
         t0 = time.perf_counter()
         out32 = S.sgmse_enhance(model.eval(), cfg, noisy, fs, N=N, prior_z=prior, noises=noises)
         torch.cuda.synchronize()
         f32_s = time.perf_counter() - t0
+        routes32 = _routes()
         dropped = [list(step) for step in noises]
         dropped[N // 2][0] = torch.zeros_like(dropped[N // 2][0])
         control = S.sgmse_enhance(bmodel, bcfg, noisy, fs, N=N, prior_z=prior, noises=dropped)
     _check_routes("the bf16 SGMSE sampler", "bfloat16", routes, ("fusedin_bilstm",))
+    _check_routes("the f32 SGMSE sampler", "float32", routes32, ("fusedin_bilstm",))
     k1p = routes["fusedin_bilstm"]["persistent"]
+    k1p_f32 = routes32["fusedin_bilstm"]
     gap = _spec_rel(out, out32, fs, cfg.stft_cfg)
     control_gap = _spec_rel(control, out32, fs, cfg.stft_cfg)
     power = gpu_name_and_power()
     print(f"[sgmse] bf16 N={N} (1 correction a step), {seconds[1]} s at 48 kHz, B=1: "
           f"{bf16_s:.2f} s ({power}), K1p launches {k1p}, launches { {k: v for k, v in counts.items() if v} }; "
-          f"f32 the same {f32_s:.2f} s; bf16 vs f32 spectrum rel d {gap:.3e} (bound "
+          f"f32 the same {f32_s:.2f} s (K1 routes {k1p_f32}); bf16 vs f32 spectrum rel d "
+          f"{gap:.3e} (bound "
           f"{SGMSE_BF16_BOUND}), the corrector noise of step {N // 2} dropped "
           f"{control_gap:.3e}; peak {float(out32.abs().max()):.4g}")
     if out.shape != (1, n) or not bool(torch.isfinite(out).all()):
         fail("sgmse: the bf16 enhancement is not finite or has the wrong length")
     if k1p != 2 * layers * 2 * N:
         fail(f"sgmse: {k1p} K1p launches, expected {2 * layers * 2 * N} (2 a layer a call)")
+    if sum(k1p_f32.values()) != 2 * layers * 2 * N * (1 if k1p_f32["persistent"] else 2):
+        fail(f"sgmse: float32 K1 routes {k1p_f32}, expected 2 K1p-f32 calls a layer a call")
     if not gap < SGMSE_BF16_BOUND < control_gap:
         fail(f"sgmse: bf16 vs f32 {gap:.3e} and the control {control_gap:.3e} do not bracket "
              f"the bound {SGMSE_BF16_BOUND}")
@@ -2841,7 +3091,8 @@ def phase_sgmse(device, channels=N_IN, layers=6, seconds=(1.0, 4.0), N=SGMSE_N):
             "sgmse_grad_rel_err": grad_rel, "sgmse_enhance_n3_spec_rel_err": enh_spec_rel,
             "sgmse_enhance_n3_wave_rel_err": enh_wave_rel, "sgmse_loss_launches": loss_launches,
             "sgmse_loss_dw_launches": dw, "sgmse_bf16_n50_s": bf16_s, "sgmse_f32_n50_s": f32_s,
-            "sgmse_k1p_launches": k1p, "sgmse_bf16_vs_f32_spec_rel": gap,
+            "sgmse_k1p_launches": k1p, "sgmse_f32_k1_routes": k1p_f32,
+            "sgmse_bf16_vs_f32_spec_rel": gap,
             "sgmse_dropped_noise_spec_rel": control_gap, "card": power}
 
 
@@ -3101,7 +3352,7 @@ def phase_ab_arms(device):
         if total[name] <= 0:
             fail(f"kernel {name} was not launched by the A/B arms")
     for name, dtype in (("lstm_train_fwd_streamin", "bfloat16"), ("lstm_train_bwd2", "bfloat16"),
-                        ("lstm_train_bwd2", "float32")):
+                        ("lstm_train_fwd_streamin", "float32"), ("lstm_train_bwd2", "float32")):
         if _ab_route_launches(out, name, "persistent", dtype) <= 0:
             fail(f"the persistent route of {name} in {dtype} was not launched by the A/B arms")
     return out, total
@@ -3124,7 +3375,7 @@ def phase_flow_card_vs_cpu(device):
 
     fcfg = F.FlowSEConfig()
     fs, n = 16000, 8000
-    cpu_model = F.init_flowse(fcfg, seed=9)
+    cpu_model = F.init_flowse(fcfg, seed=9, device="cpu")
     card_model = copy.deepcopy(cpu_model).to(device)
     gen = torch.Generator().manual_seed(10)
     clean = 0.1 * torch.randn((2, n), generator=gen)
@@ -3218,17 +3469,20 @@ LIBRARY_K8_K10 = {
 }
 
 
-def _new_kernel_bounds(R, T, n_in, hid):
-    """Least time (ms) of K8-K10's bf16 work: K8 2 R T (N + H) 4H operations,
+def _new_kernel_bounds(R, T, n_in, hid, dtype="bfloat16"):
+    """Least time (ms) of K8-K10's work: K8 2 R T (N + H) 4H operations,
     reading x (N wide, not x_proj), W_ih, b and W_hh and writing h, gates and
-    c; K9 and K10 twice the work of K4 and K5, so twice their bounds."""
-    H, N, b = hid, n_in, 2
-    train = _train_bounds(R, T, R * T, hid)
+    c; K9 and K10 twice the work of K4 and K5, so twice their bounds.
+    ``dtype`` as ``_train_bounds``."""
+    H, N, b = hid, n_in, (2 if dtype == "bfloat16" else 4)
+    peak = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_TF32_FLOPS
+    train = _train_bounds(R, T, R * T, hid, dtype)
     (k4_ms, k4_by), (k5_ms, k5_by) = train["lstm_train_fwd"], train["lstm_train_bwd"]
     return {
         "lstm_train_fwd_streamin": _bound(
             2 * R * T * (N + H) * 4 * H,
-            b * (R * T * N + N * 4 * H + 4 * H + H * 4 * H + 2 * R * T * H + R * T * 4 * H)),
+            b * (R * T * N + N * 4 * H + 4 * H + H * 4 * H + 2 * R * T * H + R * T * 4 * H),
+            peak),
         "lstm_train_fwd2": (2 * k4_ms, k4_by),
         "lstm_train_bwd2": (2 * k5_ms, k5_by),
     }
@@ -3241,14 +3495,15 @@ def _ab_route_launches(ab, name, route, dtype=None):
                if dtype is None or fam["compute_dtype"] == dtype)
 
 
-def _new_kernel_times(device, ab, ab_counts, new_errs):
+def _new_kernel_times(device, ab, ab_counts, new_errs, wide_routes):
     """K8's walk at the discriminative time path (R = 136, T = 201; the band
     path printed beside it) and K9 / K10's walk at its band path (R = 804,
     T = 34), bf16: kernel, plain version and bound; no PyTorch call computes
     a residual-storing recurrence but K8's.  ``launches`` is the A/B
-    phase's count (one reset, one read; for K8 and K10 their walk route's),
-    and the launches of one train step are those measured in each family's
-    first visit of each arm.
+    phase's count (one reset, one read; for K10 its walk route's), for K8's
+    walk (every A/B family has a K8p plan) the wide float32 STREAM step's
+    (``phase_walk_route``), and the launches of one train step are those
+    measured in each family's first visit of each arm.
     The same at the flow training shapes (N = 384, H = 768: K8 at the time
     path R = 96, T = 251, its band path printed beside it, K9/K10 at the band
     path R = 502, T = 48), added as flow_* keys."""
@@ -3307,9 +3562,12 @@ def _new_kernel_times(device, ab, ab_counts, new_errs):
             "name": name, "route": "cuda", "source": f"{PKG}/csrc/lstm_kernels.cu",
             "replaces": REPLACES[name],
             **({"route_of_kernel": "walk"} if walk_routed else {}),
-            "launches": (_ab_route_launches(ab, name, "walk") if walk_routed
+            "launches": (wide_routes[name]["walk"] if name == "lstm_train_fwd_streamin"
+                         else _ab_route_launches(ab, name, "walk") if walk_routed
                          else ab_counts[name]),
-            "launches_run": "a/b arms phase" + (" (its walk route)" if walk_routed else ""),
+            "launches_run": (WIDE_STREAM_RUN + " (the walk)" if name == "lstm_train_fwd_streamin"
+                             else "a/b arms phase" + (" (its walk route)" if walk_routed
+                                                      else "")),
             "max_abs_err": e_abs, "max_rel_err": e_rel,
             "max_abs_err_f32": new_errs[name, "float32"][0],
             "max_rel_err_f32": new_errs[name, "float32"][1],
@@ -3326,11 +3584,50 @@ def _new_kernel_times(device, ab, ab_counts, new_errs):
     return list(records.values())
 
 
+def _k1_f32_record(rows, train_routes, flow_routes, validation, flow_validation):
+    """K1p-f32's record from phase_k1_f32_routes: times at the disc band
+    (the flow band's beside them as flow_* keys, where it runs a launch a
+    direction), the worst error, limit ratio, planted fault and TF32
+    control over every shape; ``launches`` is its count on the float32
+    training path (its validations: one grid a call), ``flow_launches`` on
+    the float32 flow training path (a launch a direction), and the timed
+    validation passes' K1 routes."""
+    from urgent2026_challenge_track1_tpu_torch.ops import persistent_checks as PC
+
+    by_what = {r["what"]: r for r in rows}
+    d, f = by_what["disc band B=1"], by_what["flow band B=2"]
+    return {
+        "name": "fusedin_bilstm_persistent_f32", "route": "cuda", "route_of_kernel": "persistent",
+        "source": f"{PKG}/csrc/lstm_persistent.cu", "replaces": REPLACES["fusedin_bilstm"],
+        "launches": train_routes["fusedin_bilstm"]["persistent"],
+        "launches_run": "training path (float32 validation: K1p-f32, one grid a call)",
+        "flow_launches": flow_routes["fusedin_bilstm"]["persistent_split"],
+        "flow_launches_run": "flow training path (float32 validation: a launch a direction)",
+        "validation_pass_routes": {"disc": validation["routes"]["fusedin_bilstm"],
+                                   "flow": flow_validation["routes"]["fusedin_bilstm"]},
+        "max_abs_err": max(r["max_abs_err_vs_plain"] for r in rows),
+        "max_err_over_limit": max(r["max_err_over_limit"] for r in rows),
+        "tolerance": PC.F32_LIMIT, "tolerance_rule": "F32_LIMIT, absolute, per shape",
+        "planted_stale_h_over_limit": min(r["planted_stale_h_over_limit"] for r in rows),
+        "tf32_control_over_limit": min(r["tf32_control_over_limit"] for r in rows),
+        "bitwise_repeat": all(r["bitwise_repeat"] for r in rows),
+        "ms": d["ms"], "plain_ms": d["plain_ms"], "walk_ms": d["walk_ms"],
+        "bound_ms": d["bound_ms"], "bound_by": d["bound_by"], "library_ms": d["cudnn_ms"],
+        "library": "torch.nn.LSTM bidirectional, float32, TF32 off (cuDNN), inference",
+        "shape": {k: d[k] for k in ("R", "T", "N", "H")}, "dtype": "float32", "plan": d["plan"],
+        **{f"flow_{k}": f[k] for k in ("ms", "plain_ms", "walk_ms", "bound_ms", "bound_by",
+                                       "cudnn_ms", "plan")},
+        "flow_shape": {k: f[k] for k in ("R", "T", "N", "H")},
+        "route_table": rows,
+    }
+
+
 def _streamin_bwd2_records(rows, ab):
-    """K8p's, K10p's and K10p-f32's records from phase_streamin_bwd2_routes:
-    times at the disc shape (the flow and bench-width shapes beside them as
-    flow_* and bench_* keys), the worst error, limit ratio, planted fault,
-    TF32 control and dW bound over every shape with a plan; ``launches`` is
+    """K8p's, K8p-f32's, K10p's and K10p-f32's records from
+    phase_streamin_bwd2_routes: times at the disc shape (the flow and
+    bench-width shapes beside them as flow_* and bench_* keys, K8's band
+    paths as band_* and flow_band_*), the worst error, limit ratio, planted
+    fault, TF32 control and dW bound over every shape with a plan; ``launches`` is
     the persistent route's count over the A/B phase's arm steps of the
     families in that dtype (one reset, one read), and the launches of one
     train step each family's first visit of each arm."""
@@ -3338,38 +3635,46 @@ def _streamin_bwd2_records(rows, ab):
 
     per_step = {family: {arm: rec["launches"] for arm, rec in fam["arms"].items()}
                 for family, fam in ab.items()}
-    k8 = {r["what"]: r for r in rows["k8p"]}
-    runs = [r[tag] for r in rows["k8p"] for tag in ("forward", "reverse")]
-    d, f, w = k8["disc time B=4"], k8["flow time B=2"], k8["bench width"]
-    band = k8["disc band B=4"]
-    out = [{
-        "name": "lstm_train_fwd_streamin_persistent", "route": "cuda",
-        "route_of_kernel": "persistent", "source": f"{PKG}/csrc/lstm_persistent.cu",
-        "replaces": REPLACES["lstm_train_fwd_streamin"],
-        "launches": _ab_route_launches(ab, "lstm_train_fwd_streamin", "persistent", "bfloat16"),
-        "launches_run": "a/b arms phase, bfloat16 families (K8p route)",
-        "max_abs_err": max(max(r["max_abs_err_vs_plain"].values()) for r in runs),
-        "max_err_over_limit": max(r["max_err_over_limit"] for r in runs),
-        "tolerance_rule": "4 bf16 ulps at max|plain| per output (h, gates, c), shape and "
-                          "direction",
-        "planted_stale_h_over_limit": min(r["planted_stale_h_over_limit"] for r in runs),
-        "bitwise_repeat": all(r["bitwise_repeat"] for r in runs),
-        "ms": d["ms"], "plain_ms": d["plain_ms"], "walk_ms": d["walk_ms"],
-        "k4p_addmm_ms": d["k4p_addmm_ms"], "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
-        "library_ms": d["library_ms"],
-        "library": LIBRARY_K8_K10["lstm_train_fwd_streamin"],
-        "shape": {k: d[k] for k in ("R", "T", "N", "H")}, "dtype": "bfloat16", "plan": d["plan"],
-        "launches_per_train_step": {fam: {arm: c.get("lstm_train_fwd_streamin", 0)
-                                          for arm, c in arms.items()}
-                                    for fam, arms in per_step.items()},
-        **{f"{key}_{k}": r[k] for key, r in (("band", band), ("flow", f), ("bench", w))
-           for k in ("ms", "plain_ms", "walk_ms", "k4p_addmm_ms", "bound_ms", "bound_by",
-                     "library_ms", "plan")},
-        "band_shape": {k: band[k] for k in ("R", "T", "N", "H")},
-        "flow_shape": {k: f[k] for k in ("R", "T", "N", "H")},
-        "bench_shape": {k: w[k] for k in ("R", "T", "N", "H")},
-        "route_table": rows["k8p"],
-    }]
+    out = []
+    for dt_name, suffix in (("bfloat16", ""), ("float32", "_f32")):
+        f32 = dt_name == "float32"
+        table = rows["k8p" + suffix]
+        k8 = {r["what"]: r for r in table}
+        runs = [r[tag] for r in table for tag in ("forward", "reverse")]
+        d, f, w = k8["disc time B=4"], k8["flow time B=2"], k8["bench width"]
+        others = [("band", k8["disc band B=4"]), ("flow", f), ("bench", w)]
+        if f32:  # the flow family's band path, where its STREAM arm runs K8p-f32 too
+            others.append(("flow_band", k8["flow band B=2"]))
+        out.append({
+            "name": f"lstm_train_fwd_streamin_persistent{suffix}", "route": "cuda",
+            "route_of_kernel": "persistent", "source": f"{PKG}/csrc/lstm_persistent.cu",
+            "replaces": REPLACES["lstm_train_fwd_streamin"],
+            "launches": _ab_route_launches(ab, "lstm_train_fwd_streamin", "persistent", dt_name),
+            "launches_run": f"a/b arms phase, {dt_name} families (K8p{suffix.replace('_', '-')} "
+                            "route)",
+            "max_abs_err": max(max(r["max_abs_err_vs_plain"].values()) for r in runs),
+            "max_err_over_limit": max(r["max_err_over_limit"] for r in runs),
+            "tolerance_rule": ("F32_LIMIT" if f32 else "4 bf16 ulps at max|plain|")
+                              + " per output (h, gates, c), shape and direction",
+            "planted_stale_h_over_limit": min(r["planted_stale_h_over_limit"] for r in runs),
+            "tf32_control_over_limit": (min(r["tf32_control_over_limit"] for r in runs)
+                                        if f32 else None),
+            "bitwise_repeat": all(r["bitwise_repeat"] for r in runs),
+            "ms": d["ms"], "plain_ms": d["plain_ms"], "walk_ms": d["walk_ms"],
+            "k4p_addmm_ms": d["k4p_addmm_ms"], "bound_ms": d["bound_ms"],
+            "bound_by": d["bound_by"], "library_ms": d["library_ms"],
+            "library": LIBRARY_K8_K10["lstm_train_fwd_streamin"] + f", {dt_name}",
+            "shape": {k: d[k] for k in ("R", "T", "N", "H")}, "dtype": dt_name, "plan": d["plan"],
+            "launches_per_train_step": {fam: {arm: c.get("lstm_train_fwd_streamin", 0)
+                                              for arm, c in arms.items()}
+                                        for fam, arms in per_step.items()
+                                        if ab[fam]["compute_dtype"] == dt_name},
+            **{f"{key}_{k}": r[k] for key, r in others
+               for k in ("ms", "plain_ms", "walk_ms", "k4p_addmm_ms", "bound_ms", "bound_by",
+                         "library_ms", "plan")},
+            **{f"{key}_shape": {k: r[k] for k in ("R", "T", "N", "H")} for key, r in others},
+            "route_table": table,
+        })
     for dt_name, suffix in (("bfloat16", ""), ("float32", "_f32")):
         f32 = dt_name == "float32"
         recs = [r for r in rows["k10p"] if r["dtype"] == dt_name]
@@ -4232,16 +4537,18 @@ def main() -> int:
     new_errs = timed("K8-K10", phase_new_kernels, device)
     streamin_bwd2 = timed("k8p/k10p routes", phase_streamin_bwd2_routes, device)
     k1_routes = timed("k1_routes", phase_k1_routes, device)
+    k1_f32_routes = timed("k1_routes f32", phase_k1_f32_routes, device)
     scan_routes = timed("scan_routes", phase_scan_routes, device)
     train_routes_rows = timed("train_routes", phase_train_routes, device)
     bwd_routes_rows = timed("bwd_routes", phase_bwd_routes, device)
     carry_rows = timed("carry_routes", phase_carry_routes, device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=REPO) as tmp:
         counts, main_routes = timed("inference path", phase_main_path, Path(tmp))
-        _, train_routes = timed("training path", phase_training, Path(tmp))
+        _, train_routes, validation = timed("training path", phase_training, Path(tmp))
         causal = timed("causal streaming path", phase_causal, Path(tmp), device)
         serving = timed("serving path", phase_serving, Path(tmp), device, causal)
-        flow_routes, flow_ckpt = timed("flow training path", phase_flow_training, Path(tmp))
+        flow_routes, flow_ckpt, flow_validation = timed("flow training path",
+                                                        phase_flow_training, Path(tmp))
         _, flow_cli_routes = timed("flow inference path", phase_flow_cli, Path(tmp), flow_ckpt)
         _, dm_times = timed("dynamic-mixing training path", phase_dm_training, Path(tmp))
         dm_times.update(timed("on-device dynamic-mixing training path", phase_dm_device,
@@ -4257,8 +4564,11 @@ def main() -> int:
     records = timed("times", phase_times, device, counts, errs, train_errs, k1_routes,
                     scan_routes, train_routes_rows, bwd_routes_rows, main_routes, train_routes,
                     wide_routes)
-    records += timed("times K8-K10", _new_kernel_times, device, ab, ab_counts, new_errs)
+    records += timed("times K8-K10", _new_kernel_times, device, ab, ab_counts, new_errs,
+                     wide_routes)
     records += _streamin_bwd2_records(streamin_bwd2, ab)
+    records.append(_k1_f32_record(k1_f32_routes, train_routes, flow_routes, validation,
+                                  flow_validation))
     timed("times K1-K7 flow shapes", _flow_kernel_times, device, records, flow_routes,
           wide_errs, wide_train_errs, k1_routes, scan_routes, flow_cli_routes)
     flow_times = timed("times flow", _flow_step_and_enhance_times, device)
@@ -4273,7 +4583,9 @@ def main() -> int:
             dt = rec["dtype"]
             rec["flow_launches"] = flow_times[dt]["dw_launches_per_step"]
             rec["flow_launches_run"] = f"one {dt} flow train step (B=2, 2 s, 384 x 6)"
-    print("[times] " + json.dumps({"ab_arms": ab, "flow": flow_times, "dm": dm_times,
+    print("[times] " + json.dumps({"validation_f32": {"disc": validation,
+                                                      "flow": flow_validation},
+                                   "ab_arms": ab, "flow": flow_times, "dm": dm_times,
                                    "sgmse": sgmse, "codecs_available": codec,
                                    "causal": causal[3], "serving": serving,
                                    "carry_routes": carry_rows}))

@@ -51,7 +51,7 @@ def test_reference_ckpt_equals_jax_conversion(ref_ckpt):
 
 
 def test_port_file_round_trip(tmp_path):
-    model = init_bsrnn(BSRNNConfig(num_channel=8, num_layer=2), seed=3)
+    model = init_bsrnn(BSRNNConfig(num_channel=8, num_layer=2), seed=3, device="cpu")
     path = tckpt.save_model(str(tmp_path / "m.pt"), model, STFTConfig(n_fft=960, hop_length=480))
     _, loaded, cfg, stft_cfg = tckpt.load_model_for_inference(path, device="cpu")
     assert (cfg.num_channel, cfg.num_layer) == (8, 2) and stft_cfg == STFTConfig()

@@ -13,8 +13,9 @@ import torch
 from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm
 from urgent2026_challenge_track1_tpu_torch.ops.persistent_checks import (
     DW_F32_BOUND, F32_LIMIT, bwd_limit, carry_failures, fusedin_bilstm_stale_h,
-    lstm_scan_stale_h, lstm_scan_tf32, lstm_train_bwd_stale_dg, lstm_train_bwd_tf32,
-    lstm_train_fwd_streamin_stale_h, persistent_limit, scan_carry_report, tf32, ulp_limit)
+    fusedin_bilstm_tf32, lstm_scan_stale_h, lstm_scan_tf32, lstm_train_bwd_stale_dg,
+    lstm_train_bwd_tf32, lstm_train_fwd_streamin_stale_h, lstm_train_fwd_streamin_tf32,
+    persistent_limit, scan_carry_report, tf32, ulp_limit)
 
 torch.set_num_threads(1)
 R, T, N, H = 13, 11, 40, 72  # H not a multiple of 32, R not of any row tile
@@ -72,13 +73,13 @@ def test_fusedin_matches_plain(dev, dtype, rows):
 # stale h (persistent_checks) must exceed
 
 
-def _k1_inputs(dev, R_, T_, N_, H_, seed):
+def _k1_inputs(dev, R_, T_, N_, H_, seed, dtype=torch.bfloat16):
     rng = np.random.default_rng(seed)
     w = H_ ** -0.5  # the LSTM init's scale
-    return (_t(rng, dev, torch.bfloat16, R_, T_, N_),
-            _t(rng, dev, torch.bfloat16, 2, N_, 4 * H_, scale=w),
-            _t(rng, dev, torch.bfloat16, 2, H_, 4 * H_, scale=w),
-            _t(rng, dev, torch.bfloat16, 2, 4 * H_, scale=w))
+    return (_t(rng, dev, dtype, R_, T_, N_),
+            _t(rng, dev, dtype, 2, N_, 4 * H_, scale=w),
+            _t(rng, dev, dtype, 2, H_, 4 * H_, scale=w),
+            _t(rng, dev, dtype, 2, 4 * H_, scale=w))
 
 
 @pytest.mark.parametrize("shape", [(R, T, N, H), (13, 7, 33, 20), (21, 5, 34, 44),
@@ -92,7 +93,7 @@ def test_persistent_matches_plain(dev, shape):
     x, wi, wh, b = _k1_inputs(dev, *shape, seed=15)
     cuda_lstm.reset_launch_counts()
     got = cuda_lstm.fusedin_bilstm(x, wi, wh, b)
-    assert cuda_lstm.route_counts() == {"persistent": 1, "walk": 0}
+    assert cuda_lstm.route_counts() == {"persistent": 1, "walk": 0, "persistent_split": 0}
     assert got.shape == (shape[0], shape[1], 2 * shape[3]) and got.dtype == torch.bfloat16
     ref = cuda_lstm.fusedin_bilstm_plain(x, wi, wh, b)
     limit = ulp_limit(ref)
@@ -101,16 +102,25 @@ def test_persistent_matches_plain(dev, shape):
 
 
 def test_route_follows_the_dtype(dev):
-    """float32 takes the walk, bfloat16 K1p; both count as K1 launches."""
+    """float32 takes K1p-f32 (one grid where a two-direction plan fits, a
+    launch a direction at the flow width, the walk where no plan fits: H =
+    1020), bfloat16 K1p; each launch counts as a K1 launch; K1p refuses
+    float16."""
     x, wi, wh, b = _k1_inputs(dev, R, T, N, H, seed=16)
     cuda_lstm.reset_launch_counts()
     cuda_lstm.fusedin_bilstm(x.float(), wi.float(), wh.float(), b.float())
-    assert cuda_lstm.route_counts() == {"persistent": 0, "walk": 1}
+    assert cuda_lstm.route_counts() == {"persistent": 1, "walk": 0, "persistent_split": 0}
     cuda_lstm.fusedin_bilstm(x, wi, wh, b)
-    assert cuda_lstm.route_counts() == {"persistent": 1, "walk": 1}
-    assert cuda_lstm.launch_counts()["fusedin_bilstm"] == 2
+    assert cuda_lstm.route_counts() == {"persistent": 2, "walk": 0, "persistent_split": 0}
+    flow = _k1_inputs(dev, 5, 3, 384, 768, seed=18, dtype=torch.float32)
+    cuda_lstm.fusedin_bilstm(*flow)
+    assert cuda_lstm.route_counts() == {"persistent": 2, "walk": 0, "persistent_split": 2}
+    wide = _k1_inputs(dev, 4, 3, 510, 1020, seed=19, dtype=torch.float32)
+    cuda_lstm.fusedin_bilstm(*wide)
+    assert cuda_lstm.route_counts() == {"persistent": 2, "walk": 1, "persistent_split": 2}
+    assert cuda_lstm.launch_counts()["fusedin_bilstm"] == 5
     with pytest.raises(TypeError):
-        cuda_lstm.fusedin_bilstm_persistent(x.float(), wi.float(), wh.float(), b.float())
+        cuda_lstm.fusedin_bilstm_persistent(x.half(), wi.half(), wh.half(), b.half())
 
 
 def test_persistent_refuses_a_grid_the_card_cannot_hold(dev):
@@ -128,10 +138,83 @@ def test_persistent_refuses_a_grid_the_card_cannot_hold(dev):
     with pytest.raises(RuntimeError):
         cuda_lstm.fusedin_bilstm_persistent(x, wi, wh, b, big)
     torch.cuda.synchronize()
-    assert cuda_lstm.route_counts() == {"persistent": 0, "walk": 0}
+    assert cuda_lstm.route_counts() == {"persistent": 0, "walk": 0, "persistent_split": 0}
     got = cuda_lstm.fusedin_bilstm_persistent(x, wi, wh, b)
     ref = cuda_lstm.fusedin_bilstm_plain(x, wi, wh, b)
     assert _err(got, ref) < ulp_limit(ref)
+
+
+# --- K1p-f32: the persistent route of K1 in float32 (3xTF32) ---------------
+# held within F32_LIMIT of the plain version, a limit that the stale-h
+# fault and the walk with one TF32 product (both products) must exceed.
+# Shapes: small and odd N / H (x staged in 16-, 4- and 8-byte copies, h in
+# 16-byte L2-only copies or plain L2 loads), the disc band (one grid), the
+# SGMSE / no-lengths time path, the flow band and time path (a launch a
+# direction)
+
+K1F32_SHAPES = [(R, T, N, H), (13, 7, 37, 46), (21, 5, 38, 20), (401, 34, 196, 392),
+                (34, 401, 196, 392), (502, 48, 384, 768), (48, 501, 384, 768)]
+K1F32_IDS = ["small", "odd", "n_mod4", "disc_band", "disc_time", "flow_band", "flow_time"]
+
+
+@pytest.mark.parametrize("shape", K1F32_SHAPES, ids=K1F32_IDS)
+def test_persistent_f32_matches_plain(dev, shape):
+    """K1p-f32 through the routed wrapper: within F32_LIMIT of the plain
+    version at every step, which a stale h and one TF32 product exceed; one
+    grid where a two-direction float32 plan fits, else two launches."""
+    x, wi, wh, b = _k1_inputs(dev, *shape, seed=20, dtype=torch.float32)
+    R_, _, N_, H_ = shape
+    plan = cuda_lstm.k1_route(torch.float32, R_, N_, H_, cuda_lstm._sm_count(dev.index or 0))
+    assert plan is not None and plan.elem == 4
+    cuda_lstm.reset_launch_counts()
+    got = cuda_lstm.fusedin_bilstm(x, wi, wh, b)
+    split = 2 if plan.dirs == 1 else 0
+    assert cuda_lstm.route_counts() == {"persistent": 1 - split // 2, "walk": 0,
+                                        "persistent_split": split}
+    assert got.shape == (R_, shape[1], 2 * H_) and got.dtype == torch.float32
+    ref = cuda_lstm.fusedin_bilstm_plain(x, wi, wh, b)
+    assert persistent_limit(ref) == F32_LIMIT
+    assert _err(got, ref) < F32_LIMIT
+    assert _err(fusedin_bilstm_stale_h(x, wi, wh, b), ref) >= F32_LIMIT
+    assert _err(fusedin_bilstm_tf32(x, wi, wh, b), ref) >= F32_LIMIT
+
+
+@pytest.mark.parametrize("shape", [(401, 34, 196, 392), (502, 48, 384, 768)],
+                         ids=["disc_band", "flow_band"])
+def test_persistent_f32_is_deterministic(dev, shape):
+    """Two K1p-f32 calls are bitwise equal, one grid (disc band) or a
+    launch a direction (flow band)."""
+    x, wi, wh, b = _k1_inputs(dev, *shape, seed=21, dtype=torch.float32)
+    a = cuda_lstm.fusedin_bilstm_persistent(x, wi, wh, b)
+    c = cuda_lstm.fusedin_bilstm_persistent(x, wi, wh, b)
+    torch.cuda.synchronize()
+    assert torch.equal(a, c)
+
+
+def test_persistent_f32_pair_equals_one_grid(dev):
+    """At a shape with both plans, the one-direction pair (dirs = 1, its
+    own partition) and the two-direction grid agree within F32_LIMIT."""
+    import dataclasses
+
+    x, wi, wh, b = _k1_inputs(dev, 34, 40, 196, 392, seed=22, dtype=torch.float32)
+    two = cuda_lstm.plan_persistent(34, 196, 392, 132, elem=4)
+    pair = dataclasses.replace(two, dirs=1)
+    got = cuda_lstm.fusedin_bilstm_persistent(x, wi, wh, b, pair)
+    want = cuda_lstm.fusedin_bilstm_persistent(x, wi, wh, b, two)
+    assert _err(got, want) < F32_LIMIT
+
+
+def test_f32_fusedin_plan_bytes_equal_the_kernels(dev):
+    """The planner's bytes of the float32 fused-input plans (K1p-f32,
+    K8p-f32: a slice of 4U floats a row, no pad) are the kernel's own."""
+    from urgent2026_challenge_track1_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    for R_, N_, H_, dirs in ((401, 196, 392, 2), (34, 196, 392, 2), (502, 384, 768, 1),
+                             (136, 196, 392, 1), (804, 196, 392, 1), (13, 37, 46, 2)):
+        plan = cuda_lstm.plan_persistent(R_, N_, H_, 132, dirs=dirs, elem=4)
+        assert lib.lstm_persistent_smem(N_, H_, plan.U, plan.rows, plan.chunk,
+                                        int(plan.c_in_smem), 4) == plan.smem
 
 
 @pytest.mark.parametrize("reverse", [False, True])
@@ -930,7 +1013,7 @@ def test_small_forward_card_matches_cpu(dev):
     from urgent2026_challenge_track1_tpu_torch.models.bsrnn import (
         BSRNNConfig, bsrnn_se_apply, init_bsrnn)
 
-    cpu_model = init_bsrnn(BSRNNConfig(num_channel=16, num_layer=2), seed=0)
+    cpu_model = init_bsrnn(BSRNNConfig(num_channel=16, num_layer=2), seed=0, device="cpu")
     card_model = copy.deepcopy(cpu_model).to(dev)
     x = torch.from_numpy((0.1 * np.random.default_rng(5).standard_normal((2, 16000))
                           ).astype(np.float32))
@@ -1096,14 +1179,14 @@ K10P_SHAPES = [(R, T, H), (13, 9, 37), (804, 34, 392), (502, 48, 768), (804, 34,
 K10P_IDS = ["small", "odd_h", "disc_band", "flow_band", "bench"]
 
 
-def _streamin_case(dev, shape, seed):
+def _streamin_case(dev, shape, seed, dtype=torch.bfloat16):
     R_, T_, N_, H_ = shape
     rng = np.random.default_rng(seed)
     w = H_ ** -0.5
-    return (_t(rng, dev, torch.bfloat16, R_, T_, N_),
-            _t(rng, dev, torch.bfloat16, N_, 4 * H_, scale=w),
-            _t(rng, dev, torch.bfloat16, 4 * H_, scale=w),
-            _t(rng, dev, torch.bfloat16, H_, 4 * H_, scale=w))
+    return (_t(rng, dev, dtype, R_, T_, N_),
+            _t(rng, dev, dtype, N_, 4 * H_, scale=w),
+            _t(rng, dev, dtype, 4 * H_, scale=w),
+            _t(rng, dev, dtype, H_, 4 * H_, scale=w))
 
 
 @pytest.mark.parametrize("reverse", [False, True])
@@ -1141,19 +1224,22 @@ def test_streamin_persistent_is_deterministic(dev, shape):
 
 
 def test_streamin_route_follows_the_dtype(dev):
-    """bfloat16 K8 takes K8p, float32 the walk; both count as K8 launches;
-    K8p refuses float32 and a grid the card cannot hold resident."""
+    """bfloat16 K8 takes K8p, float32 K8p-f32, float32 without a plan (H =
+    1020) the walk; each counts as a K8 launch; K8p refuses float16 and a
+    grid the card cannot hold resident."""
     import dataclasses
 
     x, wi, b, wh = _streamin_case(dev, (R, T, N, H), 52)
     cuda_lstm.reset_launch_counts()
     cuda_lstm.lstm_train_fwd_streamin(x.float(), wi.float(), b.float(), wh.float())
     cuda_lstm.lstm_train_fwd_streamin(x, wi, b, wh)
-    assert cuda_lstm.route_counts("lstm_train_fwd_streamin") == {"persistent": 1, "walk": 1}
-    assert cuda_lstm.launch_counts()["lstm_train_fwd_streamin"] == 2
+    assert cuda_lstm.route_counts("lstm_train_fwd_streamin") == {"persistent": 2, "walk": 0}
+    wide = _streamin_case(dev, (4, 3, 510, 1020), 56, torch.float32)
+    cuda_lstm.lstm_train_fwd_streamin(*wide)
+    assert cuda_lstm.route_counts("lstm_train_fwd_streamin") == {"persistent": 2, "walk": 1}
+    assert cuda_lstm.launch_counts()["lstm_train_fwd_streamin"] == 3
     with pytest.raises(TypeError):
-        cuda_lstm.lstm_train_fwd_streamin_persistent(x.float(), wi.float(), b.float(),
-                                                     wh.float())
+        cuda_lstm.lstm_train_fwd_streamin_persistent(x.half(), wi.half(), b.half(), wh.half())
     x4 = _streamin_case(dev, (400, 3, N, H), 53)[0]
     plan = cuda_lstm.plan_persistent(400, N, H, 132, dirs=1)
     big = dataclasses.replace(plan, G=100, rows=4, S=18, U=4)
@@ -1161,7 +1247,42 @@ def test_streamin_route_follows_the_dtype(dev):
     with pytest.raises(RuntimeError):
         cuda_lstm.lstm_train_fwd_streamin_persistent(x4, wi, b, wh, False, big)
     torch.cuda.synchronize()
-    assert cuda_lstm.route_counts("lstm_train_fwd_streamin") == {"persistent": 1, "walk": 1}
+    assert cuda_lstm.route_counts("lstm_train_fwd_streamin") == {"persistent": 2, "walk": 1}
+
+
+# --- K8p-f32: the persistent route of K8 in float32 (3xTF32) ---------------
+
+K8F32_SHAPES = K8P_SHAPES + [(13, 7, 37, 46), (21, 5, 38, 20), (502, 48, 384, 768)]
+K8F32_IDS = K8P_IDS + ["odd_n4", "n_mod4", "flow_band"]
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("shape", K8F32_SHAPES, ids=K8F32_IDS)
+def test_streamin_persistent_f32_matches_plain(dev, shape, reverse):
+    """K8p-f32 through the routed wrapper against the plain version at
+    every step: h, gates and c within F32_LIMIT, which the stale-h fault
+    and the walk with one TF32 product (both products) exceed."""
+    x, wi, b, wh = _streamin_case(dev, shape, 57, torch.float32)
+    cuda_lstm.reset_launch_counts()
+    got = cuda_lstm.lstm_train_fwd_streamin(x, wi, b, wh, reverse)
+    assert cuda_lstm.route_counts("lstm_train_fwd_streamin") == {"persistent": 1, "walk": 0}
+    ref = cuda_lstm.lstm_train_fwd_streamin_plain(x, wi, b, wh, reverse)
+    _hold_f32(got, ref, lstm_train_fwd_streamin_stale_h(x, wi, b, wh, reverse))
+    for g, r, f in zip(got, ref, lstm_train_fwd_streamin_tf32(x, wi, b, wh, reverse)):
+        assert _err(g, r) < F32_LIMIT <= _err(f, r)
+
+
+@pytest.mark.parametrize("shape", [(136, 201, 196, 392), (804, 34, 196, 392),
+                                   (96, 251, 384, 768)],
+                         ids=["disc_time", "disc_band", "flow_time"])
+def test_streamin_persistent_f32_is_deterministic(dev, shape):
+    """Two K8p-f32 launches are bitwise equal, each direction."""
+    x, wi, b, wh = _streamin_case(dev, shape, 58, torch.float32)
+    for reverse in (False, True):
+        a = cuda_lstm.lstm_train_fwd_streamin_persistent(x, wi, b, wh, reverse)
+        c = cuda_lstm.lstm_train_fwd_streamin_persistent(x, wi, b, wh, reverse)
+        torch.cuda.synchronize()
+        assert all(torch.equal(u, v) for u, v in zip(a, c))
 
 
 def _bwd2_case(dev, shape, dtype, seed):

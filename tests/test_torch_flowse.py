@@ -326,7 +326,8 @@ def test_port_flow_file_keeps_the_ema(tmp_path):
     """``save_model`` of a flow model writes its config and EMA weights; the
     inference loader returns the EMA weights."""
     cfg = tflow.FlowSEConfig(n_fft=960, hop_length=480, bsrnn_hidden=4, num_layer=1)
-    model, ema = tflow.init_flowse(cfg, seed=1), tflow.init_flowse(cfg, seed=2)
+    model, ema = (tflow.init_flowse(cfg, seed=1, device="cpu"),
+                  tflow.init_flowse(cfg, seed=2, device="cpu"))
     path = tckpt.save_model(str(tmp_path / "flow.pt"), model, cfg.stft_cfg, flow_cfg=cfg,
                             ema=ema)
     kind, loaded, fcfg, stft_cfg = tckpt.load_model_for_inference(path, device="cpu")

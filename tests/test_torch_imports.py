@@ -53,7 +53,7 @@ def test_flow_family_imports_no_jax():
         f"from {PKG}.train import trainer\n"
         f"from {PKG}.config import Config\n"
         "cfg = F.FlowSEConfig(n_fft=960, hop_length=480, bsrnn_hidden=4, num_layer=1)\n"
-        "model = F.init_flowse(cfg, seed=0)\n"
+        "model = F.init_flowse(cfg, seed=0, device='cpu')\n"
         "enhance = make_enhance_fn('flowse', model, cfg, cfg.stft_cfg, nfe=2)\n"
         "out = enhance(torch.zeros((1, 800)) + 0.1, 8000, None)\n"
         "bundle = trainer.build_model(Config(model_type='flowse', bsrnn_hidden=4, num_layer=1))\n"
@@ -104,3 +104,20 @@ def test_resolve_device_cuda_without_card_raises(monkeypatch):
 def test_resolve_device_other_raises():
     with pytest.raises(ValueError):
         resolve_device("meta")
+
+
+@pytest.mark.parametrize("family", ["bsrnn", "flowse"])
+def test_model_constructors_pick_the_card_unless_asked_for_the_cpu(family, monkeypatch):
+    """``init_bsrnn`` and ``init_flowse`` default to the card, as
+    ``init_sgmse`` does: without one they raise, and they build on the CPU
+    only where the caller asks for it."""
+    from urgent2026_challenge_track1_tpu_torch.models import bsrnn as B
+    from urgent2026_challenge_track1_tpu_torch.models import bsrnn_flowse as F
+
+    init, cfg = ((B.init_bsrnn, B.BSRNNConfig(num_channel=4, num_layer=1)) if family == "bsrnn"
+                 else (F.init_flowse, F.FlowSEConfig(bsrnn_hidden=4, num_layer=1)))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        init(cfg)
+    model = init(cfg, seed=1, device="cpu")
+    assert {p.device.type for p in model.parameters()} == {"cpu"}

@@ -57,7 +57,7 @@ def _flow_setup():
     def loss(model):
         return F.flowse_loss(model, fcfg, clean, noisy, FS, lengths, noise=noise, t=t)
 
-    return F.init_flowse(fcfg, seed=2), loss
+    return F.init_flowse(fcfg, seed=2, device="cpu"), loss
 
 
 def _loss_and_grads(model, loss_fn):
@@ -71,7 +71,7 @@ def _loss_and_grads(model, loss_fn):
 def test_remat_equals_no_remat_bitwise_in_bfloat16(family):
     if family == "disc":
         model = init_bsrnn(BSRNNConfig(num_channel=32, num_layer=2, compute_dtype="bfloat16"),
-                           seed=3)
+                           seed=3, device="cpu")
         batch = _batch(1.0, 11000)
         loss_fn = lambda m: _disc_loss(m, batch)  # noqa: E731
     else:

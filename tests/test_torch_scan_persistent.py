@@ -209,7 +209,9 @@ def test_cpu_takes_the_plain_versions_without_counting():
     for fn in (K.lstm_revmasked, K.lstm_revmasked_walk, K.lstm_revmasked_persistent):
         assert torch.equal(fn(xp, w_hh, lengths), ref)
     assert set(K.launch_counts().values()) == {0}
-    for name in ("fusedin_bilstm", "lstm_scan", "lstm_revmasked"):
+    assert K.route_counts("fusedin_bilstm") == {"persistent": 0, "walk": 0,
+                                                "persistent_split": 0}
+    for name in ("lstm_scan", "lstm_revmasked"):
         assert K.route_counts(name) == {"persistent": 0, "walk": 0}
 
 

@@ -99,7 +99,7 @@ def test_http_enhance_round_trip_and_bad_requests():
 @pytest.fixture(scope="module")
 def stream_server():
     cfg = B.BSRNNConfig(num_channel=8, num_layer=1, causal=True, streaming_norm=True)
-    model = B.init_bsrnn(cfg, seed=2).eval()
+    model = B.init_bsrnn(cfg, seed=2, device="cpu").eval()
     streamer = tserve.make_streamer("discriminative", model, cfg, STFT_CFG)
     server, port = _serve(_StubEngine(), streamer=streamer, stream_chunk_frames=2)
     try:
@@ -173,7 +173,8 @@ def test_stream_rejects_bad_query(stream_server):
 
 def test_stream_unavailable_without_streaming_model():
     cfg = B.BSRNNConfig(num_channel=8, num_layer=1, causal=True)  # no streaming_norm
-    assert tserve.make_streamer("discriminative", B.init_bsrnn(cfg), cfg, STFT_CFG) is None
+    assert tserve.make_streamer("discriminative", B.init_bsrnn(cfg, device="cpu"), cfg,
+                               STFT_CFG) is None
     server, port = _serve(_StubEngine())
     try:
         conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)

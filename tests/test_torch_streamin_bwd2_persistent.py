@@ -1,5 +1,5 @@
 """K8p and K10p, the persistent routes of K8 (the input-streaming training
-forward, bfloat16) and K10 (both directions' training backward in one
+forward, bfloat16, and K8p-f32 in float32) and K10 (both directions' training backward in one
 launch, bfloat16 and float32), on the CPU: the two-direction backward
 planner, the route rules, the plain sliced walks that read only the packed
 slices (K8p: K1p's walk for one direction with the residual stores; K10p:
@@ -51,6 +51,12 @@ STREAMIN_PLANS = {(136, 196, 392): (33, 3, 12, 46, 48, True, 119648),
                   (96, 384, 768): (64, 2, 12, 48, 48, True, 216000),
                   (502, 384, 768): (64, 2, 12, 251, 48, True, 225744),
                   (136, 192, 384): (32, 3, 12, 46, 48, True, 114528)}
+# and their float32 plans (K8p-f32: a slice of 4U floats a row, no pad)
+STREAMIN_F32_PLANS = {(136, 196, 392): (33, 3, 12, 46, 48, True, 206688),
+                      (804, 196, 392): (25, 5, 16, 161, 32, True, 226624),
+                      (96, 384, 768): (96, 1, 8, 96, 16, True, 202368),
+                      (502, 384, 768): (96, 1, 8, 502, 16, True, 215360),
+                      (136, 192, 384): (32, 3, 12, 46, 48, True, 197472)}
 # (R, T, N, H, sms): partitions with G > 1 and S > 1 for the sliced walks
 SLICED_K8 = [(70, 6, 20, 24, 6), (130, 5, 33, 40, 12), (150, 4, 16, 17, 9)]
 SLICED_K10 = [(70, 6, 40, 48), (130, 5, 17, 120), (150, 4, 24, 12)]
@@ -172,19 +178,28 @@ def test_bwd2_planner_takes_no_empty_grid():
 
 
 def test_route_rules():
-    """K8: bfloat16 takes its one-direction plan (K8p), float32 and shapes
-    without a plan the walk; K10: bfloat16 and float32 take their
-    two-direction plans (K10p), other dtypes and shapes without a plan the
-    walk."""
+    """K8: bfloat16 takes its one-direction plan (K8p), float32 its
+    one-direction float32 plan (K8p-f32), other dtypes and shapes without a
+    plan the walk (float32 at H = 1020); K10: bfloat16 and float32 take
+    their two-direction plans (K10p), other dtypes and shapes without a
+    plan the walk."""
     for (R, N, H), want in STREAMIN_PLANS.items():
         plan = K.streamin_route(torch.bfloat16, R, N, H, SMS)
         assert plan == K.plan_persistent(R, N, H, SMS, dirs=1) and plan.dirs == 1
         assert (plan.S, plan.G, plan.U, plan.rows, plan.chunk, plan.c_in_smem,
                 plan.smem) == want
         assert plan.ctas <= SMS
-        assert K.streamin_route(torch.float32, R, N, H, SMS) is None
+        f32 = K.streamin_route(torch.float32, R, N, H, SMS)
+        assert f32 == K.plan_persistent(R, N, H, SMS, dirs=1, elem=4)
+        assert (f32.dirs, f32.elem) == (1, 4) and f32.ctas <= SMS
+        assert (f32.S, f32.G, f32.U, f32.rows, f32.chunk, f32.c_in_smem,
+                f32.smem) == STREAMIN_F32_PLANS[R, N, H]
+        assert f32.chunk // 16 * -(-f32.U // 8) <= K.MAX_ACC_BLOCKS_TF32
+        assert f32.chunk * f32.U <= K.MAX_CELLS_F32 and f32.smem <= K.SMEM_LIMIT
+        assert K.streamin_route(torch.float16, R, N, H, SMS) is None
     assert K.streamin_route(torch.bfloat16, 10, 8000, 64, SMS) is None
     assert K.streamin_route(torch.bfloat16, 10, 0, 64, SMS) is None
+    assert K.streamin_route(torch.float32, 4, 510, 1020, SMS) is None  # no f32 slice fits
     for R, H in BWD2_SHAPES:
         assert K.backward2_route(torch.bfloat16, R, H, SMS) == K.plan_backward(R, H, SMS, dirs=2)
         assert K.backward2_route(torch.float32, R, H, SMS) == K.plan_backward(
@@ -236,6 +251,63 @@ def test_sliced_streamin_matches_plain(R, T, N, H, sms, dtype, tol):
         for g, r in zip(got, ref):
             assert g.shape == r.shape and g.dtype == dtype
             assert _abs(g, r) < tol
+
+
+# (R, T, N, H, sms): float32 one-direction plans with G > 1 and S > 1, odd N
+# and H (the 4-, 8- and 16-byte staging on the card)
+SLICED_K8_F32 = [(70, 5, 37, 46, 20), (130, 4, 38, 20, 15), (90, 3, 40, 72, 36)]
+
+
+@pytest.mark.parametrize("R,T,N,H,sms", SLICED_K8_F32, ids=str)
+def test_sliced_f32_streamin_matches_plain(R, T, N, H, sms):
+    """K8p-f32's sliced walk over a float32 plan (elem = 4) against K8's
+    plain version in h, gates and c at every step, both directions, 1e-6."""
+    plan = K.plan_persistent(R, N, H, sms, dirs=1, elem=4)
+    assert plan.S > 1 and plan.G > 1 and plan.elem == 4
+    x, wi, b, wh = _streamin_inputs(R, T, N, H, torch.float32, R + N)
+    packed = K.pack_persistent_weights(wi[None], wh[None], b[None], plan)
+    for reverse in (False, True):
+        got = K.lstm_train_fwd_streamin_sliced_plain(x, packed, plan, reverse)
+        ref = K.lstm_train_fwd_streamin_plain(x, wi, b, wh, reverse)
+        for g, r in zip(got, ref):
+            assert g.shape == r.shape and g.dtype == torch.float32
+            assert _abs(g, r) < 1e-6
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_sliced_f32_streamin_matches_pallas(reverse):
+    """K8p-f32's sliced walk at odd N and H against the Pallas
+    ``_train_forward_streamin`` (interpret mode), float32, 1e-5: h, gates
+    and c at every step."""
+    R, T, N, H = 70, 5, 37, 46
+    plan = K.plan_persistent(R, N, H, 20, dirs=1, elem=4)
+    assert plan.S > 1 and plan.G > 1
+    x, wi, b, wh = _streamin_inputs(R, T, N, H, torch.float32, 12)
+    ref = jpl._train_forward_streamin(jnp.asarray(x.numpy()), jnp.asarray(wi.numpy()),
+                                      jnp.asarray(b.numpy())[None], jnp.asarray(wh.numpy()),
+                                      reverse, 0, True)
+    packed = K.pack_persistent_weights(wi[None], wh[None], b[None], plan)
+    got = K.lstm_train_fwd_streamin_sliced_plain(x, packed, plan, reverse)
+    for g, r in zip(got, ref):  # time-major in the Pallas kernel
+        np.testing.assert_allclose(g.numpy(), np.swapaxes(np.asarray(r), 0, 1), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_f32_streamin_controls_exceed_the_limit(reverse):
+    """K8p-f32's controls in float32: the stale-h fault and the walk with
+    one TF32 product each (``lstm_train_fwd_streamin_tf32``) leave h, gates
+    and c by at least F32_LIMIT of the plain version; the stale-h fault
+    equals it at the walk's first step."""
+    R, T, N, H = 21, 9, 37, 46
+    x, wi, b, wh = _streamin_inputs(R, T, N, H, torch.float32, 13)
+    ref = K.lstm_train_fwd_streamin_plain(x, wi, b, wh, reverse)
+    stale = PC.lstm_train_fwd_streamin_stale_h(x, wi, b, wh, reverse)
+    one = PC.lstm_train_fwd_streamin_tf32(x, wi, b, wh, reverse)
+    first = T - 1 if reverse else 0
+    for f, o, r in zip(stale, one, ref):
+        assert f.dtype == o.dtype == torch.float32
+        assert torch.equal(f[:, first], r[:, first])
+        assert _abs(f, r) >= PC.F32_LIMIT and _abs(o, r) >= PC.F32_LIMIT
 
 
 @pytest.mark.parametrize("reverse", [False, True])
@@ -380,10 +452,23 @@ def test_cpu_takes_the_plain_versions_without_counting():
      "BwdArgs<float>, (anonymous namespace)::BwdArgs<float>)",
      "K10p-f32 lstm_train_bwd2_persistent"),
     ("_ZN12_GLOBAL__N_114fusedin_kernelILb1EEEvNS_4ArgsIT_EE", "K8 lstm_train_fwd_streamin"),
+    ("_ZN12_GLOBAL__N_125fusedin_persistent_kernelI13__nv_bfloat16Lb1EEEvNS_4ArgsIT_EE",
+     "K8p lstm_train_fwd_streamin_persistent"),
+    ("_ZN12_GLOBAL__N_125fusedin_persistent_kernelIfLb1EEEvNS_4ArgsIT_EE",
+     "K8p-f32 lstm_train_fwd_streamin_persistent"),
+    ("(anonymous namespace)::fusedin_persistent_kernel<float, true>((anonymous namespace)::"
+     "Args<float>)", "K8p-f32 lstm_train_fwd_streamin_persistent"),
+    ("_ZN12_GLOBAL__N_125fusedin_persistent_kernelI13__nv_bfloat16Lb0EEEvNS_4ArgsIT_EE",
+     "K1p fusedin_persistent"),
+    ("_ZN12_GLOBAL__N_125fusedin_persistent_kernelIfLb0EEEvNS_4ArgsIT_EE",
+     "K1p-f32 fusedin_persistent"),
+    ("(anonymous namespace)::fusedin_persistent_kernel<float, false>((anonymous namespace)::"
+     "Args<float>)", "K1p-f32 fusedin_persistent"),
 ])
 def test_profiler_groups_k8p_and_k10p(name, group):
     """profile_forward files K1p's and K8p's instances of
-    fusedin_persistent_kernel<STORE> and K10p's bwd2_persistent_kernel<T>
+    fusedin_persistent_kernel<T, STORE> (bf16 and f32; the names of the
+    instances before T was a parameter too) and K10p's bwd2_persistent_kernel<T>
     under their own kernels, from mangled and demangled names; K8's walk
     keeps its group."""
     from urgent2026_challenge_track1_tpu_torch.profile_forward import _group

@@ -122,8 +122,12 @@ def test_f32_plans_fit_and_double_the_slice(shape):
 
 
 def test_f32_plans_need_no_inputs_the_kernel_lacks():
-    with pytest.raises(ValueError):
-        K.plan_persistent(10, 196, 392, SMS, elem=4)  # K1p has no float32 route
+    """The planner takes 2- and 4-byte elements only; a float32 plan with N
+    > 0 is K1p-f32's (the fused-input slice of 4U floats a row, no pad)."""
+    plan = K.plan_persistent(10, 196, 392, SMS, elem=4)
+    assert (plan.elem, plan.dirs, plan.N) == (4, 2, 196) and plan.ctas <= SMS
+    assert plan.smem == K.persistent_smem(196, 392, plan.U, plan.chunk, plan.rows,
+                                          plan.c_in_smem, 4)
     with pytest.raises(ValueError):
         K.plan_persistent(10, 0, 392, SMS, dirs=1, elem=8)
 

@@ -2,15 +2,17 @@
 // instance, and K2p / K3p / K4p / K6p: one direction over a hoisted input
 // projection, as persistent, weight-stationary tensor-core recurrences for
 // NVIDIA Hopper (sm_90a), bound with ctypes.  K1p and K8p first
-// (fusedin_persistent_kernel); K2p-K6p (scan_persistent_kernel, bf16, and
-// for K4p/K6p also f32 on 3xTF32 products) after it.  The training
+// (fusedin_persistent_kernel, bf16, and f32 on 3xTF32 products: K1p-f32,
+// K8p-f32); K2p-K6p (scan_persistent_kernel, bf16, and for K4p/K6p also f32
+// on 3xTF32 products) after it.  The training
 // backwards K5p / K7p / K10p and their dW kernels are in
 // lstm_persistent_bwd.cu, the pieces both use in lstm_persistent_common.cuh.
 //
 // Replaces urgent2026_challenge_track1_tpu/ops/pallas_lstm.py:
-// _fusedin_forward (body _fusedin_step) for bfloat16 inputs, beside K1's walk
-// in lstm_kernels.cu (fusedin_kernel), which keeps float32 and every shape
-// without a plan.  Each step computes, for both directions,
+// _fusedin_forward (body _fusedin_step) for bfloat16 and (K1p-f32, below)
+// float32 inputs, beside K1's walk in lstm_kernels.cu (fusedin_kernel),
+// which keeps every shape without a plan.  Each step computes, for both
+// directions,
 //   gates = x_t W_ih^T + round_bf16(h_{t-1}) W_hh^T + b      (f32 sums)
 //   c = f c + i g,  h = o tanh(c)                             (f32 cell)
 // and writes h (bf16) to out (R, T, 2H), forward || backward.
@@ -57,11 +59,12 @@
 // and 48 rows the products, the staging of h (every CTA of the group reads
 // all of its h from L2) and the cell lead.
 //
-// K8p (fusedin_persistent_kernel<true>) replaces
+// K8p (fusedin_persistent_kernel<T, true>) replaces
 // urgent2026_challenge_track1_tpu/ops/pallas_lstm.py: _train_forward_streamin
 // (body _train_fwd_streamin_body; K8, the training forward of one direction
-// on the raw input) for bfloat16 inputs, beside K8's walk in lstm_kernels.cu
-// (fusedin_kernel<true>), which keeps float32.  Each step computes
+// on the raw input) for bfloat16 and (K8p-f32) float32 inputs, beside K8's
+// walk in lstm_kernels.cu (fusedin_kernel<true>), which keeps every shape
+// without a plan (float32 at H = 1020).  Each step computes
 //   gates = x_t W_ih^T + round_bf16(h_{t-1}) W_hh^T + round_bf16(b)  (f32)
 // as K1p does for one direction, and stores h, the post-activation gates
 // i, f, g, o (R, T, 4H) at q H + u and c (R, T, H) in bf16, the layout of
@@ -74,6 +77,20 @@
 // residuals are stored as K4p stores them (below): a chunk's from
 // registers, the last chunk's after the arrive, during the next wait.
 // What bounds it: as K1p, the phases of a step in turn, one barrier a step.
+//
+// K1p-f32 and K8p-f32 (T = float; _fusedin_step and _train_fwd_streamin_body
+// with f32 inputs, where h is not rounded before the product): the same
+// walks with x, the weights, the bias, the exchanged h and the residuals in
+// f32 and both products on the tensor cores as 3xTF32 (K4p-f32's, below).
+// The f32 slice would not fit at the flow width with K1p's 8-element row
+// pad (U = 8: 236,160 bytes), and a 4-float pad gives 2-way bank conflicts
+// on the B fragments, so it is stored without a pad in mma fragment order
+// (frag_index): a warp's B fragment is one 8-byte load a lane over 256
+// consecutive bytes.  Where the two-direction slice needs more than half
+// the SMs a direction (the flow width: 96 CTAs of U = 8), K1p-f32 runs one
+// grid a direction, each writing its half of out (ops/cuda_lstm.k1_route).
+// What bounds it: as K1p, plus three products a k8 step and twice the
+// staged bytes; at the flow width one group of 16-row chunks a step.
 
 #include "lstm_persistent_common.cuh"
 
@@ -104,9 +121,14 @@ struct Plan {
   int chunk;          // rows per chunk, a multiple of 16
   int c_in_smem;
   int kx, kh;         // K segments padded to 16
-  int elem;           // bytes of an element: 2 (bf16) or 4 (f32, K4p/K6p only)
+  int elem;           // bytes of an element: 2 (bf16) or 4 (f32)
   __host__ __device__ int cols() const { return 4 * U; }
   __host__ __device__ int ldw() const { return 4 * U + 8; }  // elements
+  // the resident slice's elements: (kx + kh) rows of ldw(), or, on K1p-f32
+  // and K8p-f32 (N > 0, f32), of 4U in fragment order (frag_index)
+  __host__ __device__ size_t w_elems() const {
+    return (size_t)(kx + kh) * (N > 0 && elem == 4 ? cols() : ldw());
+  }
   // elements; a staged row is an odd multiple of 16 bytes
   __host__ __device__ int lda() const { return (kx > kh ? kx : kh) + 16 / elem; }
   __host__ __device__ int ldc() const { return 4 * U + 4; }  // f32
@@ -114,25 +136,39 @@ struct Plan {
   // of the projection's 4U columns for a chunk (2 x chunk x 4U elements)
   __host__ __device__ size_t smem_bytes() const {
     const size_t e = elem;
-    return e * (kx + kh) * ldw() + e * chunk * lda() + 4 * (size_t)chunk * ldc() +
+    return e * w_elems() + e * chunk * lda() + 4 * (size_t)chunk * ldc() +
            (N > 0 ? 4 * (size_t)cols() : e * 2 * chunk * cols()) +
            (c_in_smem ? 4 * (size_t)rows * U : 0);
   }
 };
 
-// K1p's (dirs = 2) and K8p's (dirs = 1) arguments.
+// K1p's (dirs = 2) and K8p's (dirs = 1) arguments; T = float: K1p-f32
+// (dirs = 2, or dirs = 1 for the direction reverse, whose h goes to its
+// half of the (R, T, 2H) out) and K8p-f32 (dirs = 1).
+template <typename T>
 struct Args {
-  const bf16* x;     // (R, T, N)
-  const bf16* w;     // (dirs, S, kx + kh, 4U) packed [W_ih; W_hh] slices
-  const bf16* bias;  // (dirs, S, 4U)
-  bf16* out;         // (R, T, dirs H)
+  const T* x;        // (R, T, N)
+  const T* w;        // (dirs, S, kx + kh, 4U) packed [W_ih; W_hh] slices
+  const T* bias;     // (dirs, S, 4U)
+  T* out;            // (R, T, dirs H); K1p-f32 with dirs = 1: (R, T, 2H)
   float* c_global;   // (R, dirs, H) when !c_in_smem
   int* counters;     // (dirs, G) zeros
   Plan p;
-  int reverse;       // K8p: the direction of its one walk
-  bf16* gates;       // K8p: (R, T, 4H) post-activation gates
-  bf16* c_res;       // K8p: (R, T, H) c of each step
+  int reverse;       // K8p, and K1p-f32 with dirs = 1: the direction of its one walk
+  T* gates;          // K8p: (R, T, 4H) post-activation gates
+  T* c_res;          // K8p: (R, T, H) c of each step
 };
+
+// The slice's element (k, c) in fragment order (K1p-f32, K8p-f32): k8 x n8
+// block (k / 8, c / 8) is 64 consecutive floats, row-major over the blocks,
+// and holds lane l's two B elements W(k + l % 4, n + l / 4) and (k + 4 +
+// l % 4, ...) of mma.m16n8k8 side by side at 2 l and 2 l + 1.  A warp's
+// B fragment is then one 8-byte load a lane over 256 consecutive bytes:
+// free of bank conflicts with no pad, so the slice takes 4U floats a row
+// (the flow width's U = 8 fits only so; 4U + 8 would need 236,160 bytes).
+__device__ __forceinline__ int frag_index(int k, int c, int C) {
+  return ((k >> 3) * (C >> 3) + (c >> 3)) * 64 + 2 * (4 * (c & 7) + (k & 3)) + ((k >> 2) & 1);
+}
 
 // acc[m * NB + j] += A (row block m, k steps [k0, k1)) times W (the same k,
 // this warp's column block j) for MT row blocks and NB column blocks; all
@@ -218,8 +254,10 @@ __device__ __forceinline__ void mma_segment(float (&acc)[kAccBlocks][4], const b
 // layout); the B fragment, W (k + l % 4, n + l / 4) and (k + 4 + l % 4, ...),
 // from two plain loads (b_base: this lane's element of the warp's first
 // column block at k = 0; ldw = 4U + 8 is 8 or 24 modulo 32, so the 32 lanes
-// hit 32 banks).
-template <int MT, int NB>
+// hit 32 banks), or, FRAG (a slice in fragment order, frag_index), from one
+// 8-byte load (b_base: the lane's pair of the warp's first block at k = 0;
+// ldw: the floats of one k8 row of blocks, 8 x 4U).
+template <int MT, int NB, bool FRAG = false>
 __device__ __forceinline__ void mma_blocks_tf32(float (&acc)[kAccBlocksTf32][4], unsigned a_base,
                                                 const float* b_base, int k0, int k1,
                                                 unsigned lda_bytes, int ldw) {
@@ -237,9 +275,16 @@ __device__ __forceinline__ void mma_blocks_tf32(float (&acc)[kAccBlocksTf32][4],
     }
 #pragma unroll
     for (int j = 0; j < NB; ++j) {
-      const float* b = b_base + (size_t)k * ldw + j * kNGroups * 8;
-      split_tf32(b[0], bh[j][0], bl[j][0]);
-      split_tf32(b[4 * ldw], bh[j][1], bl[j][1]);
+      if constexpr (FRAG) {
+        const float2 b = *reinterpret_cast<const float2*>(b_base + (size_t)(k >> 3) * ldw +
+                                                          j * kNGroups * 64);
+        split_tf32(b.x, bh[j][0], bl[j][0]);
+        split_tf32(b.y, bh[j][1], bl[j][1]);
+      } else {
+        const float* b = b_base + (size_t)k * ldw + j * kNGroups * 8;
+        split_tf32(b[0], bh[j][0], bl[j][0]);
+        split_tf32(b[4 * ldw], bh[j][1], bl[j][1]);
+      }
     }
 #pragma unroll
     for (int m = 0; m < MT; ++m) {
@@ -280,6 +325,28 @@ __device__ __forceinline__ void mma_segment(float (&acc)[kAccBlocksTf32][4], con
     default: break;  // nb = 0: no column block for this warp
   }
 #undef TF32_MMA
+}
+
+// mma_segment for f32 on a slice in fragment order (K1p-f32, K8p-f32; w_seg
+// at the segment's first k8 row of blocks, C = 4U columns).
+__device__ __forceinline__ void mma_segment_frag(float (&acc)[kAccBlocksTf32][4], const float* a_s,
+                                                 int lda, const float* w_seg, int C, int K, int mt,
+                                                 int nb, int ng, int kg) {
+  const int lane = threadIdx.x % 32;
+  const unsigned a_base = smem_addr(a_s + (lane % 16) * lda + (lane / 16) * 4);
+  const float* b_base = w_seg + ng * 64 + 2 * lane;
+  const int half = (K / 16 + kKGroups - 1) / kKGroups * 16;
+  const int k0 = kg * half;
+  const int k1 = min(K, k0 + half);
+#define FRAG_MMA(M, N)                                                               \
+  case M * 16 + N:                                                                   \
+    mma_blocks_tf32<M, N, true>(acc, a_base, b_base, k0, k1, 4 * (unsigned)lda, 8 * C); \
+    break;
+  switch (mt * 16 + nb) {
+    TF32_SHAPES(FRAG_MMA)
+    default: break;  // nb = 0: no column block for this warp
+  }
+#undef FRAG_MMA
 }
 
 // acc_s = the sum of the kKGroups = 2 warp rows' partial products, in a
@@ -351,19 +418,29 @@ __device__ __forceinline__ void store_residuals(T* gates, T* c_res, int Tn, int 
 }
 
 // STORE = false: K1p, both directions (d = blockIdx.z); STORE = true: K8p,
-// one direction (a.reverse) that also stores the residuals.
-template <bool STORE>
-__global__ void __launch_bounds__(kThreads, 1) fusedin_persistent_kernel(const Args a) {
-  constexpr int kDirs = STORE ? 1 : 2;
+// one direction (a.reverse) that also stores the residuals.  T = float:
+// K1p-f32 and K8p-f32, the same walk with f32 inputs, weights, exchange and
+// residuals and 3xTF32 products from a slice in fragment order; K1p-f32
+// walks both directions (gridDim.z = 2) or one (gridDim.z = 1: a.reverse,
+// into its half of out), so a width whose slice needs more than half the
+// SMs a direction runs as two launches.
+template <typename T, bool STORE>
+__global__ void __launch_bounds__(kThreads, 1) fusedin_persistent_kernel(const Args<T> a) {
+  constexpr bool kF32 = std::is_same_v<T, float>;
+  constexpr int kDirs = STORE ? 1 : 2;  // bf16: the directions of the grid
+  constexpr int kAcc = kF32 ? kAccBlocksTf32 : kAccBlocks;
+  constexpr int kSlots = kF32 ? kCellSlotsF32 : kCellSlots;
   extern __shared__ __align__(128) unsigned char smem[];
   const Plan p = a.p;
   const int s = blockIdx.x, g = blockIdx.y, d = blockIdx.z;  // d = 0 on K8p
-  const bool rev = STORE ? a.reverse != 0 : d != 0;
+  const bool rev = (kF32 && !STORE) ? (gridDim.z == 2 ? d != 0 : a.reverse != 0)
+                   : STORE           ? a.reverse != 0
+                                     : d != 0;
   const int U = p.U, C = p.cols(), H = p.H;
   const int ldw = p.ldw(), lda = p.lda(), ldc = p.ldc();
   const int Kp = p.kx + p.kh;
-  bf16* w_s = reinterpret_cast<bf16*>(smem);
-  bf16* a_s = w_s + (size_t)Kp * ldw;
+  T* w_s = reinterpret_cast<T*>(smem);
+  T* a_s = w_s + (size_t)Kp * (kF32 ? C : ldw);
   float* acc_s = reinterpret_cast<float*>(a_s + (size_t)p.chunk * lda);
   float* b_s = acc_s + (size_t)p.chunk * ldc;
   float* c_s = b_s + C;
@@ -372,25 +449,37 @@ __global__ void __launch_bounds__(kThreads, 1) fusedin_persistent_kernel(const A
   const int r_count = min(p.rows, p.R - r_begin);
   const int u0 = s * U;
   const int nu = min(U, H - u0);
-  const size_t ld_out = kDirs * (size_t)H;
+  // out's row stride and this direction's first column (evaluated where it
+  // is used, as bf16 K1p and K8p always have); the directions of the grid
+  // (c_global's middle axis)
+  const size_t ld_out = kF32 ? (STORE ? (size_t)H : 2 * (size_t)H) : kDirs * (size_t)H;
+  auto col0 = [&] { return kF32 ? (STORE ? 0 : (size_t)rev * H) : (size_t)d * H; };
+  const int nz = kF32 ? (int)gridDim.z : kDirs;
   int* counter = a.counters + d * p.G + g;
   // c of (row in group, unit in slice): shared memory or the global buffer
-  float* cb = p.c_in_smem ? c_s : a.c_global + ((size_t)r_begin * kDirs + d) * H + u0;
-  const size_t cld = p.c_in_smem ? (size_t)U : ld_out;
+  float* cb = p.c_in_smem ? c_s : a.c_global + ((size_t)r_begin * nz + d) * H + u0;
+  const size_t cld = p.c_in_smem ? (size_t)U : kF32 ? (size_t)nz * H : ld_out;
 
-  // the weight slice (16-byte vectors; 4U is a multiple of 16), the bias,
-  // a zero A buffer and a zero c
-  const bf16* wg = a.w + (size_t)(d * p.S + s) * Kp * C;
-  const int vpr = C / 8;
-  for (int i = threadIdx.x; i < Kp * vpr; i += kThreads) {
-    const int k = i / vpr;
-    const int v = i - k * vpr;
-    *reinterpret_cast<uint4*>(w_s + (size_t)k * ldw + v * 8) =
-        __ldg(reinterpret_cast<const uint4*>(wg + (size_t)k * C + v * 8));
+  // the weight slice (bf16: 16-byte vectors, 4U is a multiple of 16; f32:
+  // into fragment order), the bias, a zero A buffer and a zero c
+  const T* wg = a.w + (size_t)(d * p.S + s) * Kp * C;
+  if constexpr (kF32) {
+    for (int i = threadIdx.x; i < Kp * C; i += kThreads) {
+      const int k = i / C;
+      w_s[frag_index(k, i - k * C, C)] = __ldg(wg + i);
+    }
+  } else {
+    const int vpr = C / 8;
+    for (int i = threadIdx.x; i < Kp * vpr; i += kThreads) {
+      const int k = i / vpr;
+      const int v = i - k * vpr;
+      *reinterpret_cast<uint4*>(w_s + (size_t)k * ldw + v * 8) =
+          __ldg(reinterpret_cast<const uint4*>(wg + (size_t)k * C + v * 8));
+    }
   }
   for (int j = threadIdx.x; j < C; j += kThreads)
-    b_s[j] = __bfloat162float(a.bias[(size_t)(d * p.S + s) * C + j]);
-  for (int i = threadIdx.x; i < p.chunk * lda; i += kThreads) a_s[i] = __float2bfloat16(0.f);
+    b_s[j] = to_f32(a.bias[(size_t)(d * p.S + s) * C + j]);
+  for (int i = threadIdx.x; i < p.chunk * lda; i += kThreads) a_s[i] = from_f32<T>(0.f);
   for (int i = threadIdx.x; i < r_count * U; i += kThreads) {
     const int row = i / U;
     const int ul = i - row * U;
@@ -404,15 +493,15 @@ __global__ void __launch_bounds__(kThreads, 1) fusedin_persistent_kernel(const A
   const int nb = (C / 8 - ng + kNGroups - 1) / kNGroups;  // column blocks ng, ng + 4, ...
   // this thread's cells (row, unit) of a full chunk, i = tid + j * kThreads;
   // a row past the chunk's marks an empty slot
-  int cell_row[kCellSlots], cell_ul[kCellSlots];
+  int cell_row[kSlots], cell_ul[kSlots];
 #pragma unroll
-  for (int j = 0; j < kCellSlots; ++j) {
+  for (int j = 0; j < kSlots; ++j) {
     const int i = threadIdx.x + j * kThreads;
     cell_row[j] = i / U;
     cell_ul[j] = i - cell_row[j] * U;
     if (cell_ul[j] >= nu) cell_row[j] = p.chunk;
   }
-  [[maybe_unused]] bf16 res[kCellSlots][5];  // K8p: this thread's cells' residuals
+  [[maybe_unused]] T res[kSlots][5];  // K8p: this thread's cells' residuals
 #ifdef K1P_PHASE_CLOCKS
   long long cycles[kPhases] = {}, last = clock64();
 #endif
@@ -424,11 +513,11 @@ __global__ void __launch_bounds__(kThreads, 1) fusedin_persistent_kernel(const A
       const int mt = (rows + 15) / 16;
       const size_t rg = (size_t)(r_begin + r0);
       [[maybe_unused]] const bool last_chunk = r0 + p.chunk >= r_count;
-      float acc[kAccBlocks][4] = {};
+      float acc[kAcc][4] = {};
       // the chunk's c, loaded now: its latency hides behind the products
-      float c_reg[kCellSlots];
+      float c_reg[kSlots];
 #pragma unroll
-      for (int j = 0; j < kCellSlots; ++j) {
+      for (int j = 0; j < kSlots; ++j) {
         c_reg[j] = cell_row[j] < rows ? cb[(size_t)(r0 + cell_row[j]) * cld + cell_ul[j]] : 0.f;
       }
       K1P_MARK(0)
@@ -437,17 +526,25 @@ __global__ void __launch_bounds__(kThreads, 1) fusedin_persistent_kernel(const A
       stage<false>(a_s, lda, a.x + (rg * p.Tn + t) * p.N, (size_t)p.Tn * p.N, rows, p.N, p.kx);
       __syncthreads();
       K1P_MARK(1)
-      mma_segment(acc, a_s, lda, w_s, ldw, p.kx, mt, nb, ng, kg);
+      if constexpr (kF32) {
+        mma_segment_frag(acc, a_s, lda, w_s, C, p.kx, mt, nb, ng, kg);
+      } else {
+        mma_segment(acc, a_s, lda, w_s, ldw, p.kx, mt, nb, ng, kg);
+      }
       __syncthreads();  // a_s is free
       K1P_MARK(2)
       if (step > 0) {
         if (r0 == 0) wait_for(counter, p.S * step);
         K1P_MARK(3)
-        stage<true>(a_s, lda, a.out + (rg * p.Tn + tp) * ld_out + (size_t)d * H, p.Tn * ld_out,
-                    rows, H, p.kh);
+        stage<true>(a_s, lda, a.out + (rg * p.Tn + tp) * ld_out + col0(), p.Tn * ld_out, rows, H,
+                    p.kh);
         __syncthreads();
         K1P_MARK(4)
-        mma_segment(acc, a_s, lda, w_s + (size_t)p.kx * ldw, ldw, p.kh, mt, nb, ng, kg);
+        if constexpr (kF32) {
+          mma_segment_frag(acc, a_s, lda, w_s + (size_t)p.kx * C, C, p.kh, mt, nb, ng, kg);
+        } else {
+          mma_segment(acc, a_s, lda, w_s + (size_t)p.kx * ldw, ldw, p.kh, mt, nb, ng, kg);
+        }
         K1P_MARK(5)
       }
       // acc_s: the chunk's pre-activations (without b)
@@ -455,7 +552,7 @@ __global__ void __launch_bounds__(kThreads, 1) fusedin_persistent_kernel(const A
       K1P_MARK(6)
 
 #pragma unroll
-      for (int j = 0; j < kCellSlots; ++j) {
+      for (int j = 0; j < kSlots; ++j) {
         const int row = cell_row[j];
         const int ul = cell_ul[j];
         if (row >= rows) continue;
@@ -466,14 +563,13 @@ __global__ void __launch_bounds__(kThreads, 1) fusedin_persistent_kernel(const A
         const float og = sigmoid_f(pre[3 * U] + b_s[3 * U + ul]);
         const float c = fg * c_reg[j] + ig * gg;
         cb[(size_t)(r0 + row) * cld + ul] = c;
-        a.out[((rg + row) * p.Tn + t) * ld_out + (size_t)d * H + u0 + ul] =
-            __float2bfloat16(og * tanhf(c));
+        a.out[((rg + row) * p.Tn + t) * ld_out + col0() + u0 + ul] = from_f32<T>(og * tanhf(c));
         if constexpr (STORE) {
-          res[j][0] = __float2bfloat16(ig);
-          res[j][1] = __float2bfloat16(fg);
-          res[j][2] = __float2bfloat16(gg);
-          res[j][3] = __float2bfloat16(og);
-          res[j][4] = __float2bfloat16(c);
+          res[j][0] = from_f32<T>(ig);
+          res[j][1] = from_f32<T>(fg);
+          res[j][2] = from_f32<T>(gg);
+          res[j][3] = from_f32<T>(og);
+          res[j][4] = from_f32<T>(c);
         }
       }
       if constexpr (STORE) {
@@ -812,19 +908,27 @@ __global__ void __launch_bounds__(kThreads, 1) scan_persistent_kernel(const Scan
 }
 
 // Launch K1p (dirs = 2) or, store, K8p (dirs = 1) over the plan a.p: one
-// cooperative grid of dim3(S, G, dirs) CTAs.
-int launch_fusedin(const Args& a, int dirs, bool store, void* stream) {
+// cooperative grid of dim3(S, G, dirs) CTAs; T = float: K1p-f32 (dirs = 2,
+// or 1 for the direction a.reverse) and K8p-f32.
+template <typename T>
+int launch_fusedin(const Args<T>& a, int dirs, bool store, void* stream) {
+  constexpr bool kF32 = std::is_same_v<T, float>;
   const Plan& p = a.p;
-  if (bad_plan(p, false) || (!p.c_in_smem && a.c_global == nullptr) ||
-      (store && (a.gates == nullptr || a.c_res == nullptr)))
+  const int col_blocks = (p.U + 7) / 8;
+  // K8p walks one direction, bf16 K1p two, K1p-f32 one or two
+  const bool dirs_ok = store ? dirs == 1 : kF32 ? (dirs == 1 || dirs == 2) : dirs == 2;
+  if (!dirs_ok || bad_plan(p, false) || (!p.c_in_smem && a.c_global == nullptr) ||
+      (store && (a.gates == nullptr || a.c_res == nullptr)) ||
+      (kF32 && (p.chunk / 16 * col_blocks > kAccBlocksTf32 ||
+                p.chunk * p.U > kThreads * kCellSlotsF32)))
     return (int)cudaErrorInvalidValue;
-  const void* kernel = store ? reinterpret_cast<const void*>(fusedin_persistent_kernel<true>)
-                             : reinterpret_cast<const void*>(fusedin_persistent_kernel<false>);
+  const void* kernel = store ? reinterpret_cast<const void*>(fusedin_persistent_kernel<T, true>)
+                             : reinterpret_cast<const void*>(fusedin_persistent_kernel<T, false>);
   const size_t smem = p.smem_bytes();
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e == cudaSuccess) {
-    void* params[] = {const_cast<Args*>(&a)};
+    void* params[] = {const_cast<Args<T>*>(&a)};
     e = cudaLaunchCooperativeKernel(kernel, dim3(p.S, p.G, dirs), dim3(kThreads), params, smem,
                                     static_cast<cudaStream_t>(stream));
   }
@@ -833,7 +937,7 @@ int launch_fusedin(const Args& a, int dirs, bool store, void* stream) {
 }
 
 Plan fusedin_plan(int R, int Tn, int N, int H, int S, int G, int U, int rows, int chunk,
-                  int c_in_smem) {
+                  int c_in_smem, int elem) {
   Plan p{};
   p.R = R;
   p.Tn = Tn;
@@ -847,8 +951,18 @@ Plan fusedin_plan(int R, int Tn, int N, int H, int S, int G, int U, int rows, in
   p.c_in_smem = c_in_smem;
   p.kx = (N + 15) / 16 * 16;
   p.kh = (H + 15) / 16 * 16;
-  p.elem = 2;
+  p.elem = elem;
   return p;
+}
+
+// The arguments of a K1p / K8p launch with elements T.
+template <typename T>
+Args<T> fusedin_args(const void* x, const void* w, const void* bias, void* out, void* gates,
+                     void* c_res, void* c_global, void* counters, const Plan& p, int reverse) {
+  return Args<T>{static_cast<const T*>(x), static_cast<const T*>(w),
+                 static_cast<const T*>(bias), static_cast<T*>(out),
+                 static_cast<float*>(c_global), static_cast<int*>(counters), p, reverse != 0,
+                 static_cast<T*>(gates), static_cast<T*>(c_res)};
 }
 
 }  // namespace
@@ -869,8 +983,8 @@ int lstm_persistent_phase_cycles(long long* host, int ctas) {
 }
 
 // Shared-memory bytes of one CTA of a plan (the planner's reckoning, for a
-// check from Python): K1p's for N > 0, K2p-K6p's for N = 0, with elements
-// of elem bytes (2: bf16; 4: f32, N = 0 only).
+// check from Python): K1p's and K8p's for N > 0, K2p-K6p's for N = 0, with
+// elements of elem bytes (2: bf16; 4: f32).
 long long lstm_persistent_smem(int N, int H, int U, int rows, int chunk, int c_in_smem,
                                int elem) {
   if (elem != 2 && elem != 4) return -1;
@@ -889,35 +1003,48 @@ long long lstm_persistent_smem(int N, int H, int U, int rows, int chunk, int c_i
 
 // K1p: x (R, T, N) bf16, the packed weights (2, S, Kx + Kh, 4U) and bias
 // (2, S, 4U) bf16 -> out (R, T, 2H) bf16; c_global (R, 2, H) f32 scratch
-// unless c_in_smem; counters (2, G) int32 zeros.  Returns the cudaError_t of
-// the cooperative launch: cudaErrorCooperativeLaunchTooLarge when the grid
-// cannot be co-resident, cudaErrorInvalidValue for a plan that does not
-// cover the rows and units exactly once or does not fit.
+// unless c_in_smem; counters (2, G) int32 zeros; dirs = 2.  elem = 4:
+// K1p-f32, every one of these f32, and dirs = 2 or 1: then the one
+// direction reverse (0 forward, 1 backward) from its own packed weights and
+// bias (1, S, ...) into its half of out, with c_global (R, 1, H) and
+// counters (1, G).  Returns the cudaError_t of the cooperative launch:
+// cudaErrorCooperativeLaunchTooLarge when the grid cannot be co-resident,
+// cudaErrorInvalidValue for a plan that does not cover the rows and units
+// exactly once or does not fit.
 int lstm_fusedin_persistent(const void* x, const void* w, const void* bias, void* out,
                             void* c_global, void* counters, int R, int Tn, int N, int H, int S,
-                            int G, int U, int rows, int chunk, int c_in_smem, void* stream) {
-  const Args a{static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-               static_cast<const bf16*>(bias), static_cast<bf16*>(out),
-               static_cast<float*>(c_global), static_cast<int*>(counters),
-               fusedin_plan(R, Tn, N, H, S, G, U, rows, chunk, c_in_smem), 0, nullptr, nullptr};
-  return launch_fusedin(a, 2, false, stream);
+                            int G, int U, int rows, int chunk, int c_in_smem, int dirs,
+                            int reverse, int elem, void* stream) {
+  const Plan p = fusedin_plan(R, Tn, N, H, S, G, U, rows, chunk, c_in_smem, elem);
+  if (elem == 4)
+    return launch_fusedin(fusedin_args<float>(x, w, bias, out, nullptr, nullptr, c_global,
+                                              counters, p, reverse),
+                          dirs, false, stream);
+  if (elem != 2) return (int)cudaErrorInvalidValue;
+  return launch_fusedin(
+      fusedin_args<bf16>(x, w, bias, out, nullptr, nullptr, c_global, counters, p, 0), dirs,
+      false, stream);
 }
 
 // K8p: x (R, T, N) bf16, the packed weights (1, S, Kx + Kh, 4U) and bias
 // (1, S, 4U) bf16 -> out (R, T, H), gates (R, T, 4H) and c_res (R, T, H)
 // bf16, one walk forward (reverse = 0) or reverse; c_global (R, H) f32
-// scratch unless c_in_smem; counters (G) int32 zeros.  Returns the
-// cudaError_t of the cooperative launch, as lstm_fusedin_persistent.
+// scratch unless c_in_smem; counters (G) int32 zeros; elem = 4: K8p-f32,
+// every one of these f32.  Returns the cudaError_t of the cooperative
+// launch, as lstm_fusedin_persistent.
 int lstm_streamin_persistent(const void* x, const void* w, const void* bias, void* out,
                              void* gates, void* c_res, void* c_global, void* counters, int R,
                              int Tn, int N, int H, int reverse, int S, int G, int U, int rows,
-                             int chunk, int c_in_smem, void* stream) {
-  const Args a{static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-               static_cast<const bf16*>(bias), static_cast<bf16*>(out),
-               static_cast<float*>(c_global), static_cast<int*>(counters),
-               fusedin_plan(R, Tn, N, H, S, G, U, rows, chunk, c_in_smem), reverse != 0,
-               static_cast<bf16*>(gates), static_cast<bf16*>(c_res)};
-  return launch_fusedin(a, 1, true, stream);
+                             int chunk, int c_in_smem, int elem, void* stream) {
+  const Plan p = fusedin_plan(R, Tn, N, H, S, G, U, rows, chunk, c_in_smem, elem);
+  if (elem == 4)
+    return launch_fusedin(
+        fusedin_args<float>(x, w, bias, out, gates, c_res, c_global, counters, p, reverse), 1,
+        true, stream);
+  if (elem != 2) return (int)cudaErrorInvalidValue;
+  return launch_fusedin(
+      fusedin_args<bf16>(x, w, bias, out, gates, c_res, c_global, counters, p, reverse), 1, true,
+      stream);
 }
 
 // K2p (lengths == nullptr; forward, or reverse) and K3p (lengths (R,) int32,

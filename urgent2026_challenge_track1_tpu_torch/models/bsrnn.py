@@ -41,6 +41,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from urgent2026_challenge_track1_tpu_torch import resolve_device
 from urgent2026_challenge_track1_tpu_torch.dsp import stft as dsp
 from urgent2026_challenge_track1_tpu_torch.ops import lstm as lstm_ops
 from urgent2026_challenge_track1_tpu_torch.ops.norms import (
@@ -519,9 +520,11 @@ def uniform_sampler(gen: torch.Generator):
     return u
 
 
-def init_bsrnn(cfg: BSRNNConfig, seed: int = 0, device="cpu") -> BSRNN:
+def init_bsrnn(cfg: BSRNNConfig, seed: int = 0, device="cuda") -> BSRNN:
     """A randomly initialised model (uniform fan-in bounds as the JAX
-    ``init_bsrnn``; the draws differ from JAX's, the distributions do not)."""
+    ``init_bsrnn``; the draws differ from JAX's, the distributions do not)
+    on the card, or on the CPU where the caller asks for it."""
+    device = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     model = BSRNN(cfg)
     u = uniform_sampler(gen)

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from urgent2026_challenge_track1_tpu_torch import resolve_device
 from urgent2026_challenge_track1_tpu_torch.dsp import stft as dsp
 from urgent2026_challenge_track1_tpu_torch.models import bsrnn as B
 from urgent2026_challenge_track1_tpu_torch.models.odes import FlowMatching, complex_normal_like
@@ -184,9 +185,11 @@ class FlowDNN(nn.Module):
         return m * x_spec + r
 
 
-def init_flowse(cfg: FlowSEConfig, seed: int = 0, device="cpu") -> FlowDNN:
+def init_flowse(cfg: FlowSEConfig, seed: int = 0, device="cuda") -> FlowDNN:
     """A randomly initialised network (the distributions of the JAX
-    ``init_flowse``, drawn from a torch.Generator)."""
+    ``init_flowse``, drawn from a torch.Generator) on the card, or on the
+    CPU where the caller asks for it."""
+    device = resolve_device(device)
     dnn_cfg = cfg.dnn_cfg
     gen = torch.Generator().manual_seed(seed)
     u = B.uniform_sampler(gen)

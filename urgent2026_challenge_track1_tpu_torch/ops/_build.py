@@ -49,8 +49,8 @@ _SIGNATURES = {
     "lstm_train_fwd_streamin": (_P,) * 7 + (_I,) * 7 + (_P,),
     "lstm_train_fwd2": (_P,) * 10 + (_I,) * 5 + (_P,),
     "lstm_train_bwd2": (_P,) * 14 + (_I,) * 5 + (_P,),
-    "lstm_fusedin_persistent": (_P,) * 6 + (_I,) * 10 + (_P,),
-    "lstm_streamin_persistent": (_P,) * 8 + (_I,) * 11 + (_P,),
+    "lstm_fusedin_persistent": (_P,) * 6 + (_I,) * 13 + (_P,),
+    "lstm_streamin_persistent": (_P,) * 8 + (_I,) * 12 + (_P,),
     "lstm_scan_persistent": (_P,) * 12 + (_I,) * 11 + (_P,),
     "lstm_persistent_smem": (_I,) * 7,
     "lstm_persistent_phase_cycles": (_P, _I),

@@ -13,8 +13,11 @@ bfloat16, h and c always float32):
                   bias (2, 4H)                        -> (R, T, 2H)
                   on one of two routes, fixed before launch by ``k1_route``:
                   K1p (``fusedin_bilstm_persistent``, csrc/lstm_persistent.cu)
-                  for bfloat16 where ``plan_persistent`` finds a plan, else
-                  the walk (``fusedin_bilstm_walk``, csrc/lstm_kernels.cu)
+                  for bfloat16 where ``plan_persistent`` finds a plan, and
+                  K1p-f32 for float32 (3xTF32 products) where a float32 plan
+                  (elem = 4) fits: one grid for both directions, else one
+                  launch a direction (the flow width); else the walk
+                  (``fusedin_bilstm_walk``, csrc/lstm_kernels.cu)
   lstm_scan       x_proj (R, T, 4H), w_hh_t (H, 4H)   -> (R, T, H)
                   [initial_state (h0 (R, H), c0 (R, H) f32), return_state
                   -> (R, T, H), (hT, cT): the carry of a chunked stream]
@@ -55,8 +58,9 @@ bfloat16, h and c always float32):
                   ``streamin_route``: K8p (``lstm_train_fwd_streamin_persistent``,
                   K1p's kernel for one direction that also stores the
                   residuals) for bfloat16 where ``plan_persistent(..., dirs=1)``
-                  finds a plan, else the walk
-                  (``lstm_train_fwd_streamin_walk``; float32)
+                  finds a plan and K8p-f32 for float32 where its float32
+                  plan (elem = 4) does, else the walk
+                  (``lstm_train_fwd_streamin_walk``; float32 at H = 1020)
   lstm_train_fwd2           (K9) K4 for both directions in one launch
   lstm_train_bwd2           (K10) K5 for both directions in one launch,
                   on one of two routes, fixed before launch by
@@ -68,7 +72,8 @@ bfloat16, h and c always float32):
                   (``lstm_train_bwd2_walk``)
 
 Index 0 of the stacked K1 weights is the forward direction, 1 the backward.
-``route_counts(name)`` reads the launches per route ("persistent", "walk") of
+``route_counts(name)`` reads the launches per route ("persistent", "walk"; for
+K1 also "persistent_split", each launch of K1p-f32's one-direction pair) of
 K1-K8 and K10; ``reset_launch_counts`` zeroes them with the launch counts.
 ``LSTMDirTrain`` (K4/K5) and ``LSTMRevMaskedTrain`` (K6/K7) are the autograd
 Functions of the training path; ``lstm_dir`` and ``lstm_dir_revmasked``
@@ -385,13 +390,16 @@ def persistent_smem(N: int, H: int, U: int, chunk: int, rows: int = 0,
     f32); then K1p's bias (4U f32) or, for the walks over a hoisted
     projection (N = 0: K2p-K6p), a double buffer of the projection's 4U
     columns (2 x chunk x 4U elements).  ``elem``: the element's bytes, 2
-    (bfloat16) or 4 (float32, the float32 route of K4p/K6p, N = 0), which
-    doubles the slice, the staged chunk and the projection's buffer.  The
-    pads spread rows over the banks: a staged row is an odd multiple of 16
-    bytes (kh + 8 bf16, kh + 4 f32), a slice row 4U + 8 elements."""
+    (bfloat16) or 4 (float32: K4p/K6p's float32 route with N = 0, K1p-f32
+    and K8p-f32 with N > 0), which doubles the slice, the staged chunk and
+    the projection's buffer.  The pads spread rows over the banks: a staged
+    row is an odd multiple of 16 bytes (kh + 8 bf16, kh + 4 f32), a slice
+    row 4U + 8 elements; K1p-f32's and K8p-f32's slice has no pad (4U
+    floats a row in fragment order, ``frag_index`` in the kernel)."""
     kx, kh = _pad16(N), _pad16(H)
     extra = 4 * 4 * U if N else elem * 2 * chunk * 4 * U
-    return (elem * (kx + kh) * (4 * U + 8) + elem * chunk * (max(kx, kh) + 16 // elem)
+    ldw = 4 * U if N and elem == 4 else 4 * U + 8
+    return (elem * (kx + kh) * ldw + elem * chunk * (max(kx, kh) + 16 // elem)
             + 4 * chunk * (4 * U + 4) + extra + (4 * rows * U if c_in_smem else 0))
 
 
@@ -400,9 +408,11 @@ class PersistentPlan:
     """A persistent partition: dirs x G x S CTAs; CTA (d, g, s) owns hidden
     units [s U, min((s + 1) U, H)) of direction d for rows [g rows, min((g +
     1) rows, R)), walked ``chunk`` rows at a time; c in shared memory or in
-    a global buffer.  K1p: dirs = 2 over N inputs; K2p-K6p: dirs = 1, N = 0
-    (the input projection is hoisted).  ``elem``: the element's bytes, 2
-    (bfloat16) or 4 (float32: K4p/K6p's float32 route)."""
+    a global buffer.  K1p: dirs = 2 over N inputs (K1p-f32 also dirs = 1:
+    one launch a direction); K8p: dirs = 1 over N inputs; K2p-K6p: dirs =
+    1, N = 0 (the input projection is hoisted).  ``elem``: the element's
+    bytes, 2 (bfloat16) or 4 (float32: K4p/K6p's, K1p's and K8p's float32
+    routes)."""
     R: int
     N: int
     H: int
@@ -434,18 +444,22 @@ def plan_persistent(R: int, N: int, H: int, sms: int, smem_bytes: int = SMEM_LIM
                     dirs: int = 2, elem: int = 2) -> PersistentPlan | None:
     """The persistent partition of R rows, N inputs (0: a hoisted
     projection) and H units over ``dirs`` directions on ``sms`` SMs, with
-    elements of ``elem`` bytes (4, float32, only for N = 0), or None when no
-    slice fits in ``smem_bytes`` or the grid exceeds the SMs.
+    elements of ``elem`` bytes (2, bfloat16, or 4, float32), or None when
+    no slice fits in ``smem_bytes`` or the grid exceeds the SMs.
 
     L2 traffic per step (the staged h) grows with S, not with G, so: the
     smallest S whose slice fits beside one 16-row chunk; then rows spread
     over G = max(1, min(sms // (dirs S), ceil(R / 64))) groups; then S
     widened to the SMs left over (U, a multiple of 4, shrinks with it);
     then the largest chunk that fits, and c in shared memory if it fits
-    too.  On the float32 route a warp holds at most MAX_ACC_BLOCKS_TF32
-    accumulator blocks and a chunk at most MAX_CELLS_F32 cells."""
-    if elem not in (2, 4) or (elem == 4 and N):
-        raise ValueError(f"no persistent route for {elem}-byte elements with N = {N}")
+    too.  On the float32 routes a warp holds at most MAX_ACC_BLOCKS_TF32
+    accumulator blocks and a chunk at most MAX_CELLS_F32 cells.  K1p-f32
+    and K8p-f32 (N > 0, elem = 4) start from the smallest S whose slice
+    fits beside a 32-row chunk where that grid fits the SMs: the f32
+    [W_ih; W_hh] slice that fits beside 16 rows fills shared memory and
+    leaves 16-row chunks (nine a step at 401 x 34)."""
+    if elem not in (2, 4):
+        raise ValueError(f"no persistent route for {elem}-byte elements")
     if min(R, H, sms, dirs) <= 0 or N < 0:
         return None
     max_blocks, max_cells = ((MAX_ACC_BLOCKS, MAX_CELLS) if elem == 2
@@ -460,14 +474,20 @@ def plan_persistent(R: int, N: int, H: int, sms: int, smem_bytes: int = SMEM_LIM
                 and chunk * U <= max_cells
                 and persistent_smem(N, H, U, chunk, rows, c_in_smem, elem) <= smem_bytes)
 
-    S = 1
-    while not fits(units(S), 16):
-        if units(S) == 4:
-            return None
-        S += 1
-    S = _ceil(H, units(S))
-    if dirs * S > sms:
+    def smallest_s(chunk):  # of a slice that fits beside ``chunk`` rows, or None
+        S = 1
+        while not fits(units(S), chunk):
+            if units(S) == 4:
+                return None
+            S += 1
+        return _ceil(H, units(S))
+
+    S = smallest_s(16)
+    if S is None or dirs * S > sms:
         return None
+    if elem == 4 and N:
+        S32 = smallest_s(min(32, _pad16(R)))
+        S = S32 if S32 is not None and dirs * S32 <= sms else S
     G = max(1, min(sms // (dirs * S), _ceil(R, GROUP_ROWS)))
     U = units(min(sms // (dirs * G), _ceil(H, 4)))
     S = _ceil(H, U)
@@ -510,8 +530,9 @@ def pack_persistent_weights(w_ih_t: torch.Tensor, w_hh_t: torch.Tensor, bias: to
 
 
 def _fusedin_sliced_plain(x, packed, plan, reverses, store=False):
-    """The walk of K1p (``reverses`` = (False, True)) or K8p (one direction)
-    over ``plan``'s (direction, group, slice) schedule, reading only the
+    """The walk of K1p (``reverses`` = (False, True); the directions walk
+    the same (group, slice) schedule in one grid or a launch each) or K8p
+    (one direction) over ``plan``'s schedule, reading only the
     packed slices: h_{t-1} read back from the output (rounded to x's
     dtype), c kept per (row, direction, unit), f32 sums of the packed
     columns, the packed bias added last.  With ``store`` (K8p) also the
@@ -552,20 +573,22 @@ def _fusedin_sliced_plain(x, packed, plan, reverses, store=False):
 
 
 def fusedin_bilstm_sliced_plain(x: torch.Tensor, packed, plan: PersistentPlan) -> torch.Tensor:
-    """Plain version of K1p: reads only the packed slices (``packed`` =
-    ``pack_persistent_weights``'s pair) and walks the (direction, group,
-    slice) schedule step by step as the kernel does: h_{t-1} read back
-    from the output (rounded to x's dtype), c kept per (row, direction,
-    unit), f32 sums."""
+    """Plain version of K1p and K1p-f32: reads only the packed slices
+    (``packed`` = ``pack_persistent_weights``'s pair) and walks the
+    (direction, group, slice) schedule step by step as the kernel does, on
+    a two-direction plan or, a launch a direction, a one-direction one:
+    h_{t-1} read back from the output (rounded to x's dtype; float32 as
+    it is), c kept per (row, direction, unit), f32 sums."""
     return _fusedin_sliced_plain(x, packed, plan, (False, True))
 
 
 def lstm_train_fwd_streamin_sliced_plain(x: torch.Tensor, packed, plan: PersistentPlan,
                                          reverse: bool = False):
-    """Plain version of K8p: K1p's sliced walk for one direction (``packed``
-    = ``pack_persistent_weights`` of the direction's weights with a leading
-    axis of 1, ``plan`` a dirs = 1 plan) that also returns the residuals ->
-    (h, gates, c), as ``lstm_train_fwd_streamin_plain`` does."""
+    """Plain version of K8p and K8p-f32: K1p's sliced walk for one direction
+    (``packed`` = ``pack_persistent_weights`` of the direction's weights
+    with a leading axis of 1, ``plan`` a dirs = 1 plan, bfloat16 or float32)
+    that also returns the residuals -> (h, gates, c), as
+    ``lstm_train_fwd_streamin_plain`` does."""
     return _fusedin_sliced_plain(x, packed, plan, (reverse,), store=True)
 
 
@@ -1007,17 +1030,24 @@ def _device_index(device: torch.device) -> int:
 
 def k1_route(dtype: torch.dtype, R: int, N: int, H: int, sms: int) -> PersistentPlan | None:
     """K1's route, a fixed rule decided before launch from the dtype and the
-    shape: the K1p plan for bfloat16 where ``plan_persistent`` finds one on
-    ``sms`` SMs, else None (the walk: float32, or no plan)."""
-    if dtype != torch.bfloat16:
-        return None
-    return plan_persistent(R, N, H, sms)
+    shape: for bfloat16 the K1p plan ``plan_persistent`` finds on ``sms``
+    SMs; for float32 the two-direction K1p-f32 plan (elem = 4, 3xTF32
+    products, one launch) where one fits, else the one-direction plan (two
+    launches, one a direction: the flow width); else None (the walk: no
+    plan)."""
+    if dtype == torch.bfloat16:
+        return plan_persistent(R, N, H, sms)
+    if dtype == torch.float32:
+        return (plan_persistent(R, N, H, sms, elem=4)
+                or plan_persistent(R, N, H, sms, dirs=1, elem=4))
+    return None
 
 
 def fusedin_bilstm(x: torch.Tensor, w_ih_t: torch.Tensor, w_hh_t: torch.Tensor,
                    bias: torch.Tensor) -> torch.Tensor:
     """K1: bidirectional LSTM on the raw input; (R, T, N) -> (R, T, 2H), on
-    the route ``k1_route`` picks (K1p or the walk)."""
+    the route ``k1_route`` picks (K1p, K1p-f32 in one launch or two, or the
+    walk)."""
     if x.device.type == "cpu":
         return fusedin_bilstm_plain(x, w_ih_t, w_hh_t, bias)
     R, _, N = x.shape
@@ -1061,43 +1091,53 @@ def fusedin_bilstm_walk(x: torch.Tensor, w_ih_t: torch.Tensor, w_hh_t: torch.Ten
 def fusedin_bilstm_persistent(x: torch.Tensor, w_ih_t: torch.Tensor, w_hh_t: torch.Tensor,
                               bias: torch.Tensor, plan: PersistentPlan | None = None,
                               library=None) -> torch.Tensor:
-    """K1p (csrc/lstm_persistent.cu), bfloat16 only: packs the weights for
-    ``plan`` (``plan_persistent``'s by default) and launches one cooperative
-    grid from ``library`` (the plain build by default); a grid the card
-    cannot hold resident raises.  Counted in ``fusedin_bilstm.launches`` and
-    ``.routes["persistent"]``."""
+    """K1p (csrc/lstm_persistent.cu), bfloat16, or K1p-f32, float32 (3xTF32
+    products): packs the weights for ``plan`` (``k1_route``'s by default)
+    and launches from ``library`` (the plain build by default) one
+    cooperative grid for both directions, or, on a one-direction float32
+    plan (dirs = 1), one grid a direction, each into its half of the
+    output; a grid the card cannot hold resident raises.  Counted in
+    ``fusedin_bilstm.launches`` and ``.routes["persistent"]`` (one grid) or
+    ``.routes["persistent_split"]`` (each launch of the pair)."""
     if x.device.type == "cpu":
         return fusedin_bilstm_plain(x, w_ih_t, w_hh_t, bias)
     R, T, N = x.shape
     H = w_hh_t.shape[1]
     if x.device.type != "cuda":
         raise ValueError(f"kernel input on unsupported device {x.device}")
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"K1p takes bfloat16 inputs, not {x.dtype}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"K1p takes bfloat16 or float32 inputs, not {x.dtype}")
+    elem = x.element_size()
     out = _check_k1(x, w_ih_t, w_hh_t, bias)[-1]
-    plan = plan or plan_persistent(R, N, H, _sm_count(_device_index(x.device)))
+    plan = plan or k1_route(x.dtype, R, N, H, _sm_count(_device_index(x.device)))
     if plan is None:
-        raise ValueError(f"no K1p plan for R={R}, N={N}, H={H}")
-    if (plan.R, plan.N, plan.H) != (R, N, H):
-        raise ValueError(f"plan for {(plan.R, plan.N, plan.H)}, inputs {(R, N, H)}")
+        raise ValueError(f"no K1p plan for R={R}, N={N}, H={H}, {x.dtype}")
+    if (plan.R, plan.N, plan.H, plan.elem) != (R, N, H, elem) or plan.dirs not in (
+            (1, 2) if elem == 4 else (2,)):
+        raise ValueError(f"plan for {(plan.R, plan.N, plan.H, plan.elem, plan.dirs)}, "
+                         f"inputs {(R, N, H, elem)}")
     if T == 0:
         return out
-    w, b = pack_persistent_weights(w_ih_t, w_hh_t, bias, plan)
-    c = None if plan.c_in_smem else torch.empty((R, 2, H), dtype=torch.float32,
-                                                 device=x.device)
-    counters = torch.zeros((2, plan.G), dtype=torch.int32, device=x.device)
     if library is None:
         from urgent2026_challenge_track1_tpu_torch.ops._build import load_library
 
         library = load_library()
-    err = library.lstm_fusedin_persistent(
-        x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-        None if c is None else c.data_ptr(), counters.data_ptr(), R, T, N, H,
-        plan.S, plan.G, plan.U, plan.rows, plan.chunk, int(plan.c_in_smem),
-        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
-    )
-    _raise_on(err, "fusedin_bilstm_persistent")
-    _count(fusedin_bilstm, "persistent")
+    stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
+    w, b = pack_persistent_weights(w_ih_t, w_hh_t, bias, plan)
+    # one grid for both directions, or one a direction (its slices, c and counters)
+    launches = ((None, 2),) if plan.dirs == 2 else ((0, 1), (1, 1))
+    for d, dirs in launches:
+        c = None if plan.c_in_smem else torch.empty((R, dirs, H), dtype=torch.float32,
+                                                     device=x.device)
+        counters = torch.zeros((dirs, plan.G), dtype=torch.int32, device=x.device)
+        wd, bd = (w, b) if d is None else (w[d], b[d])
+        err = library.lstm_fusedin_persistent(
+            x.data_ptr(), wd.data_ptr(), bd.data_ptr(), out.data_ptr(), _ptr(c),
+            counters.data_ptr(), R, T, N, H, plan.S, plan.G, plan.U, plan.rows, plan.chunk,
+            int(plan.c_in_smem), dirs, d or 0, elem, stream,
+        )
+        _raise_on(err, "fusedin_bilstm_persistent")
+        _count(fusedin_bilstm, "persistent" if d is None else "persistent_split")
     return out
 
 
@@ -1651,11 +1691,11 @@ def streamin_route(dtype: torch.dtype, R: int, N: int, H: int,
                    sms: int) -> PersistentPlan | None:
     """K8's route, a fixed rule decided before launch from the dtype and the
     shape: the one-direction plan ``plan_persistent(R, N, H, sms, dirs=1)``
-    for bfloat16 (K8p), else None (the walk: float32, which K1p's kernel
-    has no instance for, or no plan)."""
-    if dtype != torch.bfloat16 or N <= 0:
+    for bfloat16 (K8p) and its float32 plan (elem = 4: K8p-f32, 3xTF32
+    products), else None (the walk: no plan, e.g. float32 at H = 1020)."""
+    if N <= 0 or dtype not in (torch.bfloat16, torch.float32):
         return None
-    return plan_persistent(R, N, H, sms, dirs=1)
+    return plan_persistent(R, N, H, sms, dirs=1, elem=2 if dtype == torch.bfloat16 else 4)
 
 
 def lstm_train_fwd_streamin(x: torch.Tensor, w_ih_t: torch.Tensor, bias: torch.Tensor,
@@ -1711,9 +1751,9 @@ def lstm_train_fwd_streamin_persistent(x: torch.Tensor, w_ih_t: torch.Tensor,
                                        bias: torch.Tensor, w_hh_t: torch.Tensor,
                                        reverse: bool = False,
                                        plan: PersistentPlan | None = None):
-    """K8p (csrc/lstm_persistent.cu ``fusedin_persistent_kernel<true>``),
-    bfloat16 only: packs [W_ih; W_hh] and the bias for ``plan``
-    (``plan_persistent(..., dirs=1)``'s by default) and launches one
+    """K8p (csrc/lstm_persistent.cu ``fusedin_persistent_kernel<T, true>``),
+    bfloat16, or K8p-f32, float32 (3xTF32 products): packs [W_ih; W_hh] and
+    the bias for ``plan`` (``streamin_route``'s by default) and launches one
     cooperative grid of G x S CTAs that walks one direction and stores the
     residuals -> (h, gates, c); a grid the card cannot hold resident
     raises.  Counted in ``lstm_train_fwd_streamin.launches`` and
@@ -1722,15 +1762,16 @@ def lstm_train_fwd_streamin_persistent(x: torch.Tensor, w_ih_t: torch.Tensor,
         return lstm_train_fwd_streamin_plain(x, w_ih_t, bias, w_hh_t, reverse)
     if x.device.type != "cuda":
         raise ValueError(f"kernel input on unsupported device {x.device}")
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"K8p takes bfloat16 inputs, not {x.dtype}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"K8p takes bfloat16 or float32 inputs, not {x.dtype}")
+    elem = x.element_size()
     R, T, N, H = _check_streamin(x, w_ih_t, bias, w_hh_t)
-    plan = plan or plan_persistent(R, N, H, _sm_count(_device_index(x.device)), dirs=1)
+    plan = plan or streamin_route(x.dtype, R, N, H, _sm_count(_device_index(x.device)))
     if plan is None:
-        raise ValueError(f"no K8p plan for R={R}, N={N}, H={H}")
-    if (plan.R, plan.N, plan.H, plan.dirs, plan.elem) != (R, N, H, 1, 2):
+        raise ValueError(f"no K8p plan for R={R}, N={N}, H={H}, {x.dtype}")
+    if (plan.R, plan.N, plan.H, plan.dirs, plan.elem) != (R, N, H, 1, elem):
         raise ValueError(f"plan for {(plan.R, plan.N, plan.H, plan.dirs, plan.elem)}, "
-                         f"inputs {(R, N, H, 1, 2)}")
+                         f"inputs {(R, N, H, 1, elem)}")
     out, gates, c_res = _train_outputs(x, H)
     if T == 0:
         return out, gates, c_res
@@ -1742,7 +1783,7 @@ def lstm_train_fwd_streamin_persistent(x: torch.Tensor, w_ih_t: torch.Tensor,
     err = load_library().lstm_streamin_persistent(
         x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), gates.data_ptr(),
         c_res.data_ptr(), _ptr(c), counters.data_ptr(), R, T, N, H, int(bool(reverse)),
-        plan.S, plan.G, plan.U, plan.rows, plan.chunk, int(plan.c_in_smem),
+        plan.S, plan.G, plan.U, plan.rows, plan.chunk, int(plan.c_in_smem), elem,
         ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
     )
     _raise_on(err, "lstm_train_fwd_streamin_persistent")
@@ -2059,6 +2100,7 @@ def reset_launch_counts() -> None:
         fn.launches = 0
     for fn in ROUTED:
         fn.routes = {"persistent": 0, "walk": 0}
+    fusedin_bilstm.routes["persistent_split"] = 0  # K1p-f32's one-direction pair
 
 
 def launch_counts() -> dict[str, int]:
@@ -2070,7 +2112,9 @@ def route_counts(kernel: str = "fusedin_bilstm") -> dict[str, int]:
     ``lstm_scan``, K3 ``lstm_revmasked``, K4 ``lstm_train_fwd``, K5
     ``lstm_train_bwd``, K6 ``lstm_revmasked_train_fwd``, K7
     ``lstm_revmasked_bwd``, K8 ``lstm_train_fwd_streamin`` or K10
-    ``lstm_train_bwd2``) since the last reset."""
+    ``lstm_train_bwd2``) since the last reset: "persistent" (one grid),
+    "walk", and for K1 also "persistent_split" (each launch of K1p-f32's
+    one-direction pair, two a call)."""
     return dict(next(fn for fn in ROUTED if fn.__name__ == kernel).routes)
 
 

@@ -9,11 +9,14 @@ walks with exactly that fault (``lstm_train_fwd_streamin_stale_h``: K8p's),
 and ``lstm_train_bwd_stale_dg`` the plain backward whose exchange (the
 dgates in dx_proj) is one step stale (K10p's, per direction); a check
 passes only if the kernel is within ``ulp_limit`` (bfloat16) or
-``F32_LIMIT`` (K4p/K6p's float32 route) of the plain version and the faulty
-walk is not; ``persistent_limit`` picks the one for the output's dtype.
-``lstm_scan_tf32``, the plain walk whose product is one TF32 product, is
-the float32 limit's control: it must exceed ``F32_LIMIT`` too, so the check
-tells the 3xTF32 kernel from one that computes below float32.  The float32
+``F32_LIMIT`` (the float32 routes K4p/K6p-f32, K1p-f32, K8p-f32) of the
+plain version and the faulty walk is not; ``persistent_limit`` picks the
+one for the output's dtype.  ``lstm_scan_tf32``, the plain walk whose
+product is one TF32 product, is the float32 limit's control (and
+``fusedin_bilstm_tf32``, ``lstm_train_fwd_streamin_tf32`` for K1p-f32 and
+K8p-f32, whose input and recurrent products are each one TF32 product): it
+must exceed ``F32_LIMIT`` too, so the check tells the 3xTF32 kernel from
+one that computes below float32.  The float32
 backwards (K5p-f32, K7p-f32) are held within ``F32_BWD_LIMIT`` of max|plain
 dx_proj| (``bwd_limit``), with ``lstm_train_bwd_tf32``, the plain
 backward whose dh product is one TF32 product, as that limit's control.
@@ -39,6 +42,7 @@ from urgent2026_challenge_track1_tpu_torch.ops.cuda_lstm import (
 __all__ = ["PERSISTENT_ULPS", "F32_LIMIT", "F32_BWD_LIMIT", "DW_F32_BOUND", "WALK_F32_TOL",
            "ulp_limit", "persistent_limit", "bwd_limit", "carry_limit", "tf32",
            "fusedin_bilstm_stale_h", "lstm_train_fwd_streamin_stale_h",
+           "fusedin_bilstm_tf32", "lstm_train_fwd_streamin_tf32",
            "lstm_scan_stale_h", "lstm_scan_tf32",
            "lstm_scan_dropped_carry", "scan_carry_report", "carry_failures",
            "lstm_train_bwd_stale_dg", "lstm_train_bwd_tf32"]
@@ -136,26 +140,33 @@ def carry_failures(report: dict) -> list[str]:
     return bad
 
 
-def fusedin_bilstm_stale_h(x: torch.Tensor, w_ih_t: torch.Tensor, w_hh_t: torch.Tensor,
-                           bias: torch.Tensor) -> torch.Tensor:
-    """K1's plain version (``fusedin_bilstm_plain``) fed h one step stale."""
+def _fusedin_faulty(x, w_ih_t, w_hh_t, bias, stale, operand):
+    """K1's plain walk (``fusedin_bilstm_plain``) whose products take each
+    operand through ``operand`` (h first rounded to x's dtype) and, with
+    ``stale``, read h one step stale (h_{t-2} where h_{t-1} is due)."""
     R, T, _ = x.shape
     H = w_hh_t.shape[1]
     outs = []
     for d in range(2):
-        xw = x.float() @ w_ih_t[d].float() + bias[d].float()
-        w = w_hh_t[d].float()
-        stale = h = xw.new_zeros((R, H))
+        xw = operand(x) @ operand(w_ih_t[d]) + bias[d].float()
+        w = operand(w_hh_t[d])
+        prev = h = xw.new_zeros((R, H))
         c = torch.zeros_like(h)
         out = x.new_empty((R, T, H))
         for s in range(T):
             t = T - 1 - s if d else s
-            h_new, c, _ = _cell(xw[:, t] + stale.to(x.dtype).float() @ w, c)
-            stale, h = h, h_new
+            h_new, c, _ = _cell(xw[:, t] + operand((prev if stale else h).to(x.dtype)) @ w, c)
+            prev, h = h, h_new
             out[:, t] = h_new.to(x.dtype)
         outs.append(out)
         del xw
     return torch.cat(outs, dim=-1)
+
+
+def fusedin_bilstm_stale_h(x: torch.Tensor, w_ih_t: torch.Tensor, w_hh_t: torch.Tensor,
+                           bias: torch.Tensor) -> torch.Tensor:
+    """K1's plain version (``fusedin_bilstm_plain``) fed h one step stale."""
+    return _fusedin_faulty(x, w_ih_t, w_hh_t, bias, True, lambda v: v.float())
 
 
 def tf32(x: torch.Tensor) -> torch.Tensor:
@@ -163,6 +174,15 @@ def tf32(x: torch.Tensor) -> torch.Tensor:
     away from zero, as ``cvt.rna.tf32.f32`` rounds."""
     bits = x.float().contiguous().view(torch.int32)
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def fusedin_bilstm_tf32(x: torch.Tensor, w_ih_t: torch.Tensor, w_hh_t: torch.Tensor,
+                        bias: torch.Tensor) -> torch.Tensor:
+    """K1's plain version in float32 whose products x W_ih^T and h W_hh^T
+    are each one TF32 product: both operands rounded to TF32, the sums in
+    float32 (exact products; TF32 off in the matmul), as K1p-f32 without
+    the 3xTF32 split computes them."""
+    return _fusedin_faulty(x, w_ih_t, w_hh_t, bias, False, tf32)
 
 
 def _scan_faulty(x_proj, w_hh_t, reverse, lengths, residuals, product, bias=None, dtype=None):
@@ -209,6 +229,16 @@ def lstm_train_fwd_streamin_stale_h(x: torch.Tensor, w_ih_t: torch.Tensor, bias:
     return _scan_faulty(x.float() @ w_ih_t.float(), w_hh_t, reverse, None, True,
                         lambda stale, h, w: stale.to(x.dtype).float() @ w,
                         bias=bias.to(x.dtype).float(), dtype=x.dtype)
+
+
+def lstm_train_fwd_streamin_tf32(x: torch.Tensor, w_ih_t: torch.Tensor, bias: torch.Tensor,
+                                 w_hh_t: torch.Tensor, reverse: bool = False):
+    """K8's plain version in float32 (``lstm_train_fwd_streamin_plain``)
+    whose products x W_ih^T and h W_hh^T are each one TF32 product, as
+    K8p-f32 without the 3xTF32 split computes them -> (h, gates, c)."""
+    return _scan_faulty(tf32(x) @ tf32(w_ih_t), w_hh_t, reverse, None, True,
+                        lambda stale, h, w: tf32(h) @ tf32(w), bias=bias.float(),
+                        dtype=x.dtype)
 
 
 def lstm_scan_tf32(x_proj: torch.Tensor, w_hh_t: torch.Tensor, reverse: bool,

@@ -63,10 +63,12 @@ def _flags(name: str, kernel: str) -> list[bool]:
 
 def _group(name: str) -> str:
     """Kernel name -> the port kernel it belongs to, or its own name."""
-    if _names(name, "fusedin_persistent_kernel"):  # <STORE>: K8p's instance stores
-        return ("K8p lstm_train_fwd_streamin_persistent"
-                if _flags(name, "fusedin_persistent_kernel") == [True]
-                else "K1p fusedin_persistent")
+    if _names(name, "fusedin_persistent_kernel"):  # <T, STORE>: K8p's instance stores
+        group = ("K8p lstm_train_fwd_streamin_persistent"
+                 if _flags(name, "fusedin_persistent_kernel") == [True]
+                 else "K1p fusedin_persistent")
+        f32 = re.search(r"fusedin_persistent_kernel(?:If|<float\b)", name) is not None
+        return group.replace(" ", "-f32 ", 1) if f32 else group
     if _names(name, "bwd2_persistent_kernel"):  # <T>
         f32 = re.search(r"bwd2_persistent_kernel(?:If|<float\b)", name) is not None
         return "K10p-f32 lstm_train_bwd2_persistent" if f32 else "K10p lstm_train_bwd2_persistent"
