@@ -15,20 +15,30 @@ enhancement again as the median of 5 (``flow_enhance5_ms``), K1p alone
 ``chip_smoke.K1_ROUTE_SHAPES``, and K2p and K3p alone
 (``lstm_scan_persistent``, ``lstm_revmasked_persistent``) at the
 one-utterance time path (34 x 401, H = 392, 371 valid frames) and the flow
-CLI's (48 x 501, H = 768, 463 valid).  Give the trees in an order that brackets
-drift (parent, change, change, parent).
+CLI's (48 x 501, H = 768, 463 valid); then float32: K2 and K3 through the
+routed wrappers (whatever route each tree takes: the walk, or K2p-f32 /
+K3p-f32) at the one-utterance, disc validation (136 x 201), flow validation
+(96 x 251) and flow CLI time paths, one validation pass of each family
+through the trainer (``chip_smoke._validation_pass``, random initial
+weights, the chip_smoke data), and the float32 causal stream step
+(``chip_smoke.CAUSAL_MODEL``, random initial weights, 4 s at 48 kHz in
+8-frame chunks: median and p95 wall time).  Give the trees in an order
+that brackets drift (parent, change, change, parent).
 Prints one JSON line per visit (``[ab] {...}``, with the registers and
 spill bytes ptxas reported for each persistent and dW kernel), then whether
-each tree's persistent kernels that the first tree also has (K1p and K8p, the
-K2p/K3p instances of ``scan_persistent_kernel``, the K5p/K7p instances of
-``bwd_persistent_kernel``, bf16 and f32, and the dW kernels) compiled to
-the first tree's instructions (``cuobjdump -sass``, addresses and encodings dropped), and
-whether K1p's outputs at ``chip_smoke.K1_ROUTE_SHAPES``, K5p's (with its
-dW) at the disc band (804 x 34, bf16 and f32) and K8p's, K2p's, K3p's,
-K4p's, K6p's (bf16 and f32) and K7p's at the disc time path (136 x 201)
-equal the first tree's bit for bit (sha256 of the bytes, seeded inputs), then
-the card's name and power limit, then a JSON summary of the medians per
-tree.  Needs one card.
+each tree's persistent kernels that the first tree also has (K1p and K8p
+and every ``scan_persistent_kernel`` instance (K2p-K6p), bf16 and f32, the
+K5p/K7p instances of ``bwd_persistent_kernel``, and the dW kernels)
+compiled to the first tree's instructions (``cuobjdump -sass``, addresses
+and encodings dropped), and whether K1p's outputs at
+``chip_smoke.K1_ROUTE_SHAPES``, K5p's (with its dW) at the disc band (804 x
+34, bf16 and f32) and K8p's, K2p's, K3p's, K4p's, K6p's (bf16 and f32) and
+K7p's at the disc time path (136 x 201), and K2p's with a carry at the
+stream step (34 x 8), equal the first tree's bit for bit (sha256 of the
+bytes, seeded inputs; K2p-f32's and K3p-f32's digests, where a tree has
+them, are compared only between trees that do), then the card's name and
+power limit, then a JSON summary of the medians per tree.  Needs one
+card.
 """
 
 from __future__ import annotations
@@ -41,8 +51,10 @@ import sys
 from pathlib import Path
 
 _VISIT = r'''
-import hashlib, json, re, sys, time
+import hashlib, json, os, re, statistics, sys, tempfile, time
+from pathlib import Path
 sys.path.insert(0, sys.argv[1])
+import numpy as np
 import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -146,7 +158,22 @@ with torch.inference_mode():
                 device, dtype)
             out["sha256"]["k7p"] = digest(*K.lstm_revmasked_bwd_persistent(
                 *res, lengths, dout, wh[1]))
+        elif K.scan_route(dtype, R, H, sms) is not None:  # a tree with K2p-f32 / K3p-f32
+            out["sha256"]["k2p_f32"] = digest(K.lstm_scan_persistent(xp, wh[0], True))
+            out["sha256"]["k3p_f32"] = digest(K.lstm_revmasked_persistent(xp, wh[1], lengths))
         del x, wi, wh, b, xp, lengths, res
+    # K2p with a carry at the stream step (and K2p-f32's, where a tree has it)
+    for dtype in (torch.bfloat16, torch.float32):
+        R, T, H = 34, 8, 392
+        _, _, wh, _, xp, _ = cs._kernel_inputs(R, T, dtype, device, 77, hid=H)
+        gen = torch.Generator().manual_seed(78)
+        h0, c0 = (0.5 * torch.randn((2, R, H), generator=gen)).unbind(0)
+        if K.scan_route(dtype, R, H, sms) is not None:
+            y, (hT, cT) = K.lstm_scan_persistent(xp, wh[0], False, initial_state=(
+                h0.to(device, dtype), c0.to(device)), return_state=True)
+            key = "k2p_carry" if dtype == torch.bfloat16 else "k2p_f32_carry"
+            out["sha256"][key] = digest(y, hT, cT)
+        del xp, wh
     out["scan_p_ms"] = {}
     for R, T, H, valid in ((34, 401, 392, 371), (48, 501, 768, 463)):
         _, _, wh, _, xp, _ = cs._kernel_inputs(R, T, torch.bfloat16, device, R + T + H, hid=H)
@@ -157,6 +184,68 @@ with torch.inference_mode():
         out["scan_p_ms"][f"k3p_{R}x{T}"] = cs._time_ms(
             lambda: K.lstm_revmasked_persistent(xp, wh[1], lengths, plan))
         del xp, wh
+    # float32 K2 and K3 through the routed wrappers: the walk, or K2p-f32 / K3p-f32
+    out["scan_f32_ms"], out["scan_f32_route"] = {}, {}
+    for R, T, H, valid in ((34, 401, 392, 371), (136, 201, 392, 201), (96, 251, 768, 238),
+                           (48, 501, 768, 463)):
+        _, _, wh, _, xp, _ = cs._kernel_inputs(R, T, torch.float32, device, R + T + H, hid=H)
+        lengths = torch.full((R,), valid, dtype=torch.int32, device=device)
+        out["scan_f32_ms"][f"k2_f32_{R}x{T}"] = cs._time_ms(lambda: K.lstm_scan(xp, wh[0]),
+                                                          reps=3, warmup=1)
+        out["scan_f32_ms"][f"k3_f32_{R}x{T}"] = cs._time_ms(
+            lambda: K.lstm_revmasked(xp, wh[1], lengths), reps=3, warmup=1)
+        out["scan_f32_route"][f"{R}x{T}"] = (
+            "walk" if K.scan_route(torch.float32, R, H, sms) is None else "persistent")
+        del xp, wh
+# one float32 validation pass of each family, and the float32 causal stream step
+from urgent2026_challenge_track1_tpu_torch.data.dataset import AudioDataModule
+from urgent2026_challenge_track1_tpu_torch.models.streaming_causal import StreamingSession
+from urgent2026_challenge_track1_tpu_torch.train import trainer
+cwd = os.getcwd()
+with tempfile.TemporaryDirectory(prefix="chip_ab_", dir=sys.argv[1]) as tmp:
+    work = Path(tmp)
+    os.chdir(work)  # the trainer writes exp/ under the working directory
+    try:
+        cs._write_split(work / "train", cs.TRAIN_SECONDS, 10)
+        cs._write_split(work / "valid", (2.0, 1.75, 1.5, 1.25), 11)
+        cs._write_split(work / "flow_train", cs.FLOW_SECONDS, 20)
+        cs._write_split(work / "flow_valid", (2.0, 1.75), 21)
+        out["validation_f32_ms"], out["validation_f32_routes"] = {}, {}
+        for fam, cfg in (("disc", cs._train_config(work)), ("flow", cs._flow_config(work))):
+            state = trainer.Trainer(cfg, AudioDataModule(cfg)).init_state()
+            v = cs._validation_pass(cfg, state)
+            out["validation_f32_ms"][fam] = v["ms"]
+            out["validation_f32_routes"][fam] = v["routes"]
+            del state
+        cfg = cs._train_config(work, model_configs=dict(cs.CAUSAL_MODEL))
+        bundle = trainer.build_model(cfg)
+        model = trainer.init_params(cfg.seed, bundle, device).eval()
+        sess = StreamingSession(model, model.cfg, STFTConfig(), 48000,
+                                chunk_frames=cs.CAUSAL_CHUNK)
+        step_ms, inner = [], sess._step
+
+        def timed_step(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = inner(*args)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            return res
+
+        sess._step = timed_step
+        n = int(cs.CAUSAL_SECONDS * 48000)
+        t = np.arange(n) / 48000
+        rng = np.random.default_rng(21)
+        wav = (0.3 * np.sin(2 * np.pi * 220.0 * t) + 0.05 * rng.standard_normal(n)).astype(
+            np.float32)[None]
+        K.reset_launch_counts()
+        cs._stream(sess, wav)
+        out["f32_stream_step"] = {"median_ms": statistics.median(step_ms),
+                                  "p95_ms": float(np.percentile(step_ms, 95)),
+                                  "steps": len(step_ms), "k2_routes": K.route_counts("lstm_scan")}
+        del model
+    finally:
+        os.chdir(cwd)
 print("[ab] " + json.dumps(out), flush=True)
 '''
 
@@ -174,6 +263,12 @@ def _summary(visits):
         keys[f"k1p_{shape}_ms"] = lambda v, s=shape: v["k1p_ms"][s]
     for shape in visits[0]["scan_p_ms"]:
         keys[f"{shape}_ms"] = lambda v, s=shape: v["scan_p_ms"][s]
+    for shape in visits[0]["scan_f32_ms"]:
+        keys[f"{shape}_ms"] = lambda v, s=shape: v["scan_f32_ms"][s]
+    for fam in ("disc", "flow"):
+        keys[f"validation_f32_{fam}_ms"] = lambda v, f=fam: v["validation_f32_ms"][f]
+    for q in ("median_ms", "p95_ms"):
+        keys[f"f32_stream_step_{q}"] = lambda v, q=q: v["f32_stream_step"][q]
     trees = {}
     for v in visits:
         for k, get in keys.items():
@@ -184,12 +279,11 @@ def _summary(visits):
 
 def _sass(library: str) -> dict:
     """{key: instructions} of the persistent kernels in a built library:
-    K1p and K8p (the bfloat16 instances of ``fusedin_persistent_kernel``,
-    keyed by STORE; one that takes float32 elements is left out), the
-    scan_persistent_kernel instances
-    keyed (kernel, REVERSE, MASKED) (one that stores the training residuals
-    (a third flag, set) or takes float32 elements is left out), and the
-    bwd_persistent_kernel instances keyed (kernel, "bf16" or "f32",
+    the ``fusedin_persistent_kernel`` instances (K1p, K8p, K1p-f32,
+    K8p-f32) keyed (kernel, "bf16" or "f32", STORE), the
+    ``scan_persistent_kernel`` instances (K2p-K6p and their float32 routes)
+    keyed (kernel, "bf16" or "f32", REVERSE, MASKED, STORE), the
+    ``bwd_persistent_kernel`` instances keyed (kernel, "bf16" or "f32",
     MASKED), and the dW kernels (dw_tc_kernel, dw_tf32_kernel)."""
     from urgent2026_challenge_track1_tpu_torch.ops._build import find_nvcc
 
@@ -206,12 +300,8 @@ def _sass(library: str) -> dict:
             if head:
                 name, f32 = head.group(1), head.group(2) == "f"
                 flags = tuple(int(f) for f in re.findall(r"Lb([01])E", head.group(3) or ""))
-                if name == "fusedin_persistent_kernel" and not f32:
-                    body = kernels.setdefault((name, *flags[-1:]), [])
-                elif name == "scan_persistent_kernel" and not f32 and (
-                        len(flags) < 3 or flags[2] == 0):
-                    body = kernels.setdefault((name, *flags[:2]), [])
-                elif name == "bwd_persistent_kernel":
+                if name in ("fusedin_persistent_kernel", "scan_persistent_kernel",
+                            "bwd_persistent_kernel"):
                     body = kernels.setdefault((name, "f32" if f32 else "bf16", *flags), [])
                 elif name in ("dw_tc_kernel", "dw_tf32_kernel"):
                     body = kernels.setdefault((name,), [])

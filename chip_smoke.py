@@ -28,7 +28,12 @@ Phases (any failure exits non-zero; each prints its seconds):
      bfloat16 routes of K2 and K3, against the plain versions and the walks
      at every step at the five shapes where they run, with their plans, a
      planted stale-h fault, their, the walks' and the plain versions' times
-     and an S sweep (the scan_routes phase); then K4p and K6p, the
+     and an S sweep (the scan_routes phase); then K2p-f32 and K3p-f32, their
+     float32 routes (3xTF32), within F32_LIMIT of the plain versions with the
+     stale-h and one-TF32 controls, two launches bitwise, at those shapes
+     and the flow validation's 96 x 251, with plans, times beside the f32
+     walks' and a float32 nn.LSTM forward's, and an S sweep (the
+     scan_routes f32 phase); then K4p and K6p, the
      persistent routes of K4 and K6 in bfloat16 and in float32 (K4p-f32,
      K6p-f32: 3xTF32 products), against the plain versions (h, gates and
      c at every step) at the train steps' shapes and an odd H, with a
@@ -58,7 +63,7 @@ Phases (any failure exits non-zero; each prints its seconds):
      with the N = 10 sampler, EMA, a resume) and the inference CLI on its
      checkpoint with the euler and heun solvers; check that every kernel of
      each path ran, and that K1-K3 took K1p-K3p on the bfloat16 paths (the
-     CLIs) and K1p-f32 and the K2/K3 walks on the float32 ones (the
+     CLIs) and K1p-f32, K2p-f32 and K3p-f32 on the float32 ones (the
      training runs' validations, one pass of each family timed; a train
      step runs none of K1-K3), and that on the float32 training runs K4-K7
      took K4p-f32 - K7p-f32; the batched CLI run reads
@@ -701,6 +706,146 @@ def phase_scan_routes(device):
     return out
 
 
+# the shapes where float32 K2 and K3 run or that cover their copy paths: the
+# bfloat16 CLI's (SCAN_ROUTE_SHAPES; 34 x 401 is also the float32 offline
+# forward's, 136 x 201 the disc validation pass's) and the flow validation
+# pass's (B=2, 2 s at 48 kHz, hop 384: 2 x 48 bands over 251 frames, H = 768)
+SCAN_F32_SHAPES = SCAN_ROUTE_SHAPES + (
+    ("flow validation B=2", 96, 251, FLOW_H, tuple(1 + int(s * 48000) // 384
+                                                  for s in FLOW_SECONDS)),)
+
+
+def phase_scan_f32_routes(device):
+    """K2p-f32 and K3p-f32 (K2's and K3's float32 routes, 3xTF32) through
+    the routed wrappers at SCAN_F32_SHAPES: the rule must take the float32
+    plan and count it so; the plan against the kernel's bytes; the output
+    at every step, padded ones included, within ``persistent_checks.F32_LIMIT``
+    of the plain version, which the planted stale h
+    (``persistent_checks.lstm_scan_stale_h``) and the walk with one TF32
+    product (``persistent_checks.lstm_scan_tf32``) must each exceed; two
+    launches bitwise equal; the float32 walk (called by name) within
+    WALK_F32_TOL of the plain version.  Times (medians of ``_time_ms``):
+    the routed kernel (its weight pack included), the pack alone, the walk,
+    the plain version, a one-direction float32 ``torch.nn.LSTM`` inference
+    forward (TF32 off; a superset: it adds the W_ih products) and the bound
+    at PEAK_TF32_FLOPS; at the one-utterance and flow shapes the kernel on
+    the plans of fewer SMs (the S sweep)."""
+    import torch
+    from urgent2026_challenge_track1_tpu_torch.ops import _build
+    from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
+    from urgent2026_challenge_track1_tpu_torch.ops import persistent_checks as PC
+
+    from urgent2026_challenge_track1_tpu_torch.models.bsrnn import BSRNNConfig, band_count
+
+    f32 = torch.float32
+    sms = _sm_count(device)
+    lib = _build.load_library()
+    low_rate_rows = band_count(BSRNNConfig().input_dim, 48000, 16000, 161)
+    out = []
+    for what, R, T, H, per_utt in SCAN_F32_SHAPES:
+        R = R or low_rate_rows
+        _, _, wh, _, xp, _ = _kernel_inputs(R, T, f32, device, R + T + H + 1, hid=H)
+        lengths = torch.tensor(per_utt, dtype=torch.int32).repeat_interleave(
+            R // len(per_utt)).clamp(max=T).to(device)
+        plan = K.scan_route(f32, R, H, sms)
+        if plan is None or plan.elem != 4:
+            fail(f"K2p-f32/K3p-f32: the rule takes no float32 plan at {what} (R={R}, H={H})")
+        kernel_smem = lib.lstm_persistent_smem(0, H, plan.U, plan.rows, plan.chunk,
+                                                int(plan.c_in_smem), 4)
+        if kernel_smem != plan.smem:
+            fail(f"K2p-f32/K3p-f32 plan at {what}: {plan.smem} bytes, the kernel reckons "
+                 f"{kernel_smem}")
+        bounds = _bounds(R, T, int(lengths.sum()), hid=H, dtype="float32")
+        rec = {"what": what, "R": R, "T": T, "H": H, "dtype": "float32",
+               "valid_steps": int(lengths.sum()),
+               "plan": {"S": plan.S, "G": plan.G, "U": plan.U, "rows": plan.rows,
+                        "chunk": plan.chunk, "c_in_smem": plan.c_in_smem,
+                        "smem_bytes": plan.smem, "ctas": plan.ctas, "elem": plan.elem}}
+        runs = {
+            "lstm_scan": (lambda: K.lstm_scan(xp, wh[0]),
+                          lambda p: K.lstm_scan_persistent(xp, wh[0], False, p),
+                          lambda: K.lstm_scan_walk(xp, wh[0]),
+                          lambda: K.lstm_scan_plain(xp, wh[0]),
+                          lambda: PC.lstm_scan_stale_h(xp, wh[0], False),
+                          lambda: PC.lstm_scan_tf32(xp, wh[0], False)),
+            "lstm_revmasked": (lambda: K.lstm_revmasked(xp, wh[1], lengths),
+                               lambda p: K.lstm_revmasked_persistent(xp, wh[1], lengths, p),
+                               lambda: K.lstm_revmasked_walk(xp, wh[1], lengths),
+                               lambda: K.lstm_revmasked_plain(xp, wh[1], lengths),
+                               lambda: PC.lstm_scan_stale_h(xp, wh[1], True, lengths),
+                               lambda: PC.lstm_scan_tf32(xp, wh[1], True, lengths)),
+        }
+        with torch.inference_mode():
+            for name, (kern, on_plan, walk_fn, plain_fn, stale_fn, tf32_fn) in runs.items():
+                K.reset_launch_counts()
+                got = kern()
+                routes = K.route_counts(name)
+                again = kern()
+                ref = plain_fn()
+                torch.cuda.synchronize()
+                bitwise = torch.equal(got, again)
+                e_plain = _err(got, ref)
+                walk = walk_fn()
+                e_walk, e_walk_plain = _err(got, walk), _err(walk, ref)
+                del got, again, walk
+                limit = PC.persistent_limit(ref)
+                e_stale, e_tf32 = _err(stale_fn(), ref), _err(tf32_fn(), ref)
+                del ref
+                bound_ms, bound_by = bounds[name]
+                big = R * T > 20000  # the walk and the plain version: fewer visits
+                rec[name] = {
+                    "routes": routes, "max_abs_err_vs_plain": e_plain, "limit": limit,
+                    "max_err_over_limit": e_plain / limit, "max_abs_err_vs_walk": e_walk,
+                    "walk_max_abs_err_vs_plain": e_walk_plain,
+                    "planted_stale_h_over_limit": e_stale / limit,
+                    "tf32_control_over_limit": e_tf32 / limit, "bitwise_repeat": bitwise,
+                    "ms": _time_ms(kern), "walk_ms": _time_ms(walk_fn, reps=3 if big else 5,
+                                                              warmup=1),
+                    "plain_ms": _time_ms(plain_fn, reps=1 if big else 3, warmup=1),
+                    "bound_ms": bound_ms, "bound_by": bound_by}
+                r = rec[name]
+                r["us_per_step"] = r["ms"] * 1e3 / T
+                if (H, R) == (HID, 34) or H == FLOW_H:
+                    r["s_sweep"] = []
+                    for cap in S_SWEEP_SMS:
+                        p = K.plan_persistent(R, 0, H, cap, dirs=1, elem=4)
+                        if p is not None:
+                            r["s_sweep"].append({"sms": cap, "S": p.S, "G": p.G, "U": p.U,
+                                                 "chunk": p.chunk, "ctas": p.ctas,
+                                                 "ms": _time_ms(lambda p=p: on_plan(p))})
+                print(f"[scan routes f32] {what} {name} R={R} T={T} H={H}: plan S={plan.S} "
+                      f"G={plan.G} U={plan.U} rows={plan.rows} chunk={plan.chunk} c_in_smem="
+                      f"{plan.c_in_smem} smem={plan.smem} B ({plan.ctas} CTAs); routes "
+                      f"{routes}; {name}_persistent_f32 {r['ms']:.3f} ms "
+                      f"({r['us_per_step']:.2f} us a step), walk {r['walk_ms']:.3f} ms, plain "
+                      f"{r['plain_ms']:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+                      f"max|p - plain| {e_plain:.3e} (limit {limit:.1e}), max|p - walk| "
+                      f"{e_walk:.3e}, stale h {e_stale:.3e}, one TF32 product {e_tf32:.3e}, "
+                      f"max|walk - plain| {e_walk_plain:.3e} (limit {PC.WALK_F32_TOL}); two "
+                      f"launches bitwise equal: {bitwise}"
+                      + (f"; S sweep {r['s_sweep']}" if "s_sweep" in r else ""))
+                if routes != {"persistent": 1, "walk": 0}:
+                    fail(f"{what} {name} float32: the routed wrapper took {routes}, expected "
+                         "the persistent route once")
+                if not e_plain < limit:
+                    fail(f"{what} {name} float32: vs plain {e_plain:.3e} >= {limit:.3e}")
+                for fault, e in (("a stale h", e_stale), ("one TF32 product", e_tf32)):
+                    if not e >= limit:
+                        fail(f"{what} {name} float32: {fault} moves the output by {e:.3e}, "
+                             f"under the limit {limit:.3e}: the check cannot see it")
+                if not bitwise:
+                    fail(f"{what} {name} float32: two launches differ")
+                if not e_walk_plain < PC.WALK_F32_TOL:
+                    fail(f"{what} {name} float32 walk: vs plain {e_walk_plain:.3e} >= "
+                         f"{PC.WALK_F32_TOL}")
+            rec["pack_ms"] = _time_ms(lambda: K.pack_scan_weights(wh[0], plan))
+        rec["nn_lstm_forward_ms"] = _lstm_forward_reference_ms(device, R, T, H, f32, False)
+        out.append(rec)
+        del xp, wh
+    print(f"[scan routes f32] card: {gpu_name_and_power()}")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # K4's and K6's two routes (phase 2)
 # ---------------------------------------------------------------------------
@@ -720,10 +865,10 @@ TRAIN_ROUTE_SHAPES = (
     ("odd H", 20, 64, 197, (64, 40, 17, 1)))
 RESIDUALS = ("h", "gates", "c")
 RUN_TAGS = ("lstm_train_fwd", "lstm_train_fwd_reverse", "lstm_revmasked_train_fwd")
-# K4-K7 take their persistent routes in float32 too (K4p-f32 - K7p-f32);
-# K1-K3 take their walks there
-F32_PERSISTENT = ("lstm_train_fwd", "lstm_revmasked_train_fwd", "lstm_train_bwd",
-                  "lstm_revmasked_bwd")
+# K2-K7 take their persistent routes in float32 too (K2p-f32 - K7p-f32; K1
+# takes K1p-f32, one grid or a launch a direction)
+F32_PERSISTENT = ("lstm_scan", "lstm_revmasked", "lstm_train_fwd", "lstm_revmasked_train_fwd",
+                  "lstm_train_bwd", "lstm_revmasked_bwd")
 
 
 def _lstm_forward_reference_ms(device, R, T, H, dtype, train):
@@ -789,7 +934,7 @@ def phase_train_routes(device):
                 valid = torch.arange(T, device=device)[None, :] < lengths[:, None]
             valid_steps = R * T if lengths is None else int(lengths.sum())
             bounds = _train_bounds(R, T, valid_steps, H, dt_name)
-            route = K.scan_route(dtype, R, H, sms, store=True)
+            route = K.scan_route(dtype, R, H, sms)
             rec = {"what": what, "R": R, "T": T, "H": H, "dtype": dt_name,
                    "valid_steps": valid_steps,
                    "plan": {"S": plan.S, "G": plan.G, "U": plan.U, "rows": plan.rows,
@@ -1354,6 +1499,9 @@ WIDE_RUN = f"one float32 train step at {WIDE_CHANNELS} channels x 1 layer (B=1, 
 WIDE_STREAM_RUN = WIDE_RUN + " under STREAM_INPUT_TRAIN"
 WIDE_FORWARD_RUN = (f"one float32 forward at {WIDE_CHANNELS} channels x 1 layer (B=1, 2 s at "
                     "48 kHz, no lengths)")
+# K2 and K3 run on their walks only there (no float32 K2p/K3p plan fits at H = 1020)
+WIDE_LENGTHS_RUN = (f"one float32 length-exact forward at {WIDE_CHANNELS} channels x 1 layer "
+                    "(B=1, 1.9 s at 48 kHz in a 2 s bucket)")
 
 
 def phase_walk_route(device):
@@ -1363,11 +1511,13 @@ def phase_walk_route(device):
     K5p-f32 / K7p-f32 (their float32 plans fit: the backward's slice needs
     no projection buffer), each with the float32 dW kernel; no K1-K3 runs.
     Then the same step under STREAM_INPUT_TRAIN (K8 on its walk: no
-    float32 K8p plan fits either) and one float32 forward of that model
-    without lengths (K1 on its walk, band and time paths).  Returns the
-    routes of the first step (the counts set to 0 just before it), with
-    K8's those of the second step and K1's those of the forward (each
-    likewise)."""
+    float32 K8p plan fits either), one float32 forward of that model
+    without lengths (K1 on its walk, band and time paths) and one with
+    lengths (the time path's K2 and K3 on their walks: no float32 K2p/K3p
+    plan fits either).  Returns the routes of the first step (the counts
+    set to 0 just before it), with K8's those of the second step, K1's
+    those of the forward and K2's and K3's those of the length-exact
+    forward (each likewise)."""
     import torch
     from urgent2026_challenge_track1_tpu_torch.models.bsrnn import bsrnn_se_apply
     from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
@@ -1378,7 +1528,7 @@ def phase_walk_route(device):
     model = trainer.init_params(cfg.seed, bundle, device)
     step = trainer.make_train_step(bundle, cfg, 48000)
     H = 2 * WIDE_CHANNELS
-    if K.scan_route(torch.float32, 34, H, _sm_count(device), store=True) is not None:
+    if K.scan_route(torch.float32, 34, H, _sm_count(device)) is not None:
         fail(f"a float32 K4p plan fits at H = {H}: this phase cannot drive the walks")
     K.reset_launch_counts()
     m = step(model, trainer.make_optimizer(cfg, model), *_train_batch(device, B=1))
@@ -1428,6 +1578,22 @@ def phase_walk_route(device):
     if not bool(torch.isfinite(out).all()) or r["walk"] <= 0 or sum(r.values()) != r["walk"]:
         fail(f"the wide float32 forward: K1 routes {r} (expected the walk only) or a "
              "non-finite output")
+    if K.scan_route(torch.float32, 34, H, sms) is not None:
+        fail(f"a float32 K2p/K3p plan fits at H = {H}: this phase cannot drive their walks")
+    with torch.inference_mode():
+        K.reset_launch_counts()
+        lengths = torch.tensor([int(1.9 * 48000)], device=device)
+        out = bsrnn_se_apply(model, bundle.stft_cfg, wav, 48000, lengths)[0]
+        torch.cuda.synchronize()
+        for name in ("lstm_scan", "lstm_revmasked"):
+            routes[name] = K.route_counts(name)
+    print(f"[walk route] {WIDE_LENGTHS_RUN}: K2 routes {routes['lstm_scan']}, K3 routes "
+          f"{routes['lstm_revmasked']}")
+    for name in ("lstm_scan", "lstm_revmasked"):
+        r = routes[name]
+        if not bool(torch.isfinite(out).all()) or r["walk"] <= 0 or r["persistent"]:
+            fail(f"the wide float32 length-exact forward: {name} routes {r} (expected the "
+                 "walk only) or a non-finite output")
     del model
     return routes
 
@@ -1542,8 +1708,8 @@ def _bounds(R, T, lengths_sum, n_in=N_IN, hid=HID, dtype="bfloat16"):
     """Least time (ms) for each kernel's work at one shape (each input byte
     read once, each output byte written once, the recurrent and input
     products as operations); K3 counts only the valid steps its outputs
-    need.  bfloat16: 2-byte elements at PEAK_BF16_FLOPS; float32 (K1 only):
-    4-byte elements at PEAK_TF32_FLOPS, as ``_train_bounds``."""
+    need.  bfloat16: 2-byte elements at PEAK_BF16_FLOPS; float32: 4-byte
+    elements at PEAK_TF32_FLOPS, as ``_train_bounds``."""
     N, H, b = n_in, hid, (2 if dtype == "bfloat16" else 4)
     peak = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_TF32_FLOPS
     return {
@@ -1551,10 +1717,10 @@ def _bounds(R, T, lengths_sum, n_in=N_IN, hid=HID, dtype="bfloat16"):
                                  b * (R * T * N + 2 * (N + H) * 4 * H + 2 * 4 * H
                                       + R * T * 2 * H), peak),
         "lstm_scan": _bound(2 * R * H * 4 * H * T,
-                            b * (R * T * 4 * H + H * 4 * H + R * T * H)),
+                            b * (R * T * 4 * H + H * 4 * H + R * T * H), peak),
         "lstm_revmasked": _bound(2 * H * 4 * H * lengths_sum,
                                  b * (lengths_sum * 4 * H + H * 4 * H + lengths_sum * H)
-                                 + 4 * R),
+                                 + 4 * R, peak),
     }
 
 
@@ -1611,15 +1777,12 @@ def _routes():
 def _check_routes(what, dtype_name, routes, kernels=INFERENCE_KERNELS):
     """Each of ``kernels`` ran, on its persistent route only (K1p-K7p) in
     bfloat16; in float32 K1 on K1p-f32 (one grid, or a launch a direction
-    at the flow width), K4-K7 on K4p-f32 - K7p-f32, and K2 and K3 on their
-    walks only."""
+    at the flow width) and K2-K7 on K2p-f32 - K7p-f32."""
     for name in kernels:
         if dtype_name == "bfloat16" or name in F32_PERSISTENT:
             want = ("persistent",)
-        elif name == "fusedin_bilstm":
+        else:  # K1 in float32
             want = ("persistent", "persistent_split")
-        else:
-            want = ("walk",)
         r = routes[name]
         if sum(r[w] for w in want) <= 0 or sum(r.values()) != sum(r[w] for w in want):
             fail(f"{what}: {name} routes {r}, expected {' or '.join(want)} only")
@@ -1779,14 +1942,13 @@ def phase_times(device, main_counts, errs, train_errs, k1_routes, scan_routes,
             plain_ms = _time_ms(plain, reps=3, warmup=1)
             library_ms = _time_ms(library) if library is not None else None
             bound_ms, bound_by = _bounds(R, T, R * valid)[name]
-            # the walks run on the float32 paths: K2's and K3's in the training
-            # path's validations; K1's (K1p-f32 takes every float32 shape with
-            # a plan) where no float32 plan fits, the wide model's forward
+            # the walks run where no float32 plan fits (K1p-f32, K2p-f32 and
+            # K3p-f32 take every float32 shape with a plan): the wide model's
+            # forwards, K1's without lengths, K2's and K3's with them
             if name == "fusedin_bilstm":
                 launches, run = wide_routes[name]["walk"], WIDE_FORWARD_RUN + " (the walk)"
             else:
-                launches = train_routes[name]["walk"]
-                run = "training path (float32 validation: the walk)"
+                launches, run = wide_routes[name]["walk"], WIDE_LENGTHS_RUN + " (the walk)"
             rec = {
                 "name": name, "route": "cuda",
                 "source": f"{PKG}/csrc/lstm_kernels.cu",
@@ -2788,7 +2950,7 @@ def phase_dm_training(workdir: Path):
     for fn in K.KERNELS[:7]:
         if counts[fn.__name__] <= 0:
             fail(f"kernel {fn.__name__} was not launched on the dynamic-mixing training path")
-    # K1-K3 on their float32 walks (validation), K4-K7 persistent only: no walk
+    # K1-K7 persistent only (K1-K3 in validation): no walk
     _check_routes("the dynamic-mixing training path", "float32", routes,
                   INFERENCE_KERNELS + TRAIN_ROUTED)
     presim = [r["step_time"] for r in _metrics(workdir, "baseline") if "train_loss" in r]
@@ -3622,6 +3784,54 @@ def _k1_f32_record(rows, train_routes, flow_routes, validation, flow_validation)
     }
 
 
+def _scan_f32_records(rows, train_routes, flow_routes, validation, flow_validation):
+    """K2p-f32's and K3p-f32's records from phase_scan_f32_routes: times at
+    the disc validation pass's time path (136 x 201; the flow validation
+    pass's, 96 x 251, beside them as flow_* keys), the worst error, limit
+    ratio, planted fault and TF32 control over every shape; ``launches`` is
+    the count on the float32 training path (its validations),
+    ``flow_launches`` on the float32 flow training path, and the timed
+    validation passes' routes."""
+    from urgent2026_challenge_track1_tpu_torch.ops import persistent_checks as PC
+
+    by_what = {r["what"]: r for r in rows}
+    d, f = by_what["disc CLI batch B=4"], by_what["flow validation B=2"]
+    out = []
+    for name in ("lstm_scan", "lstm_revmasked"):
+        dn, fn = d[name], f[name]
+        out.append({
+            "name": f"{name}_persistent_f32", "route": "cuda", "route_of_kernel": "persistent",
+            "source": f"{PKG}/csrc/lstm_persistent.cu", "replaces": REPLACES[name],
+            "launches": train_routes[name]["persistent"],
+            "launches_run": "training path (float32 validation)",
+            "flow_launches": flow_routes[name]["persistent"],
+            "flow_launches_run": "flow training path (float32 validation)",
+            "validation_pass_routes": {"disc": validation["routes"][name],
+                                       "flow": flow_validation["routes"][name]},
+            "max_abs_err": max(r[name]["max_abs_err_vs_plain"] for r in rows),
+            "max_err_over_limit": max(r[name]["max_err_over_limit"] for r in rows),
+            "tolerance": PC.F32_LIMIT, "tolerance_rule": "F32_LIMIT, absolute, per shape",
+            "planted_stale_h_over_limit": min(r[name]["planted_stale_h_over_limit"]
+                                              for r in rows),
+            "tf32_control_over_limit": min(r[name]["tf32_control_over_limit"] for r in rows),
+            "bitwise_repeat": all(r[name]["bitwise_repeat"] for r in rows),
+            "ms": dn["ms"], "plain_ms": dn["plain_ms"], "walk_ms": dn["walk_ms"],
+            "bound_ms": dn["bound_ms"], "bound_by": dn["bound_by"], "library_ms": None,
+            "reference_ms": d["nn_lstm_forward_ms"],
+            "reference": "superset: adds the W_ih products (torch.nn.LSTM float32, TF32 off, "
+                         "one direction, N = H / 2: an inference forward)",
+            "shape": {"R": d["R"], "T": d["T"], "H": d["H"], "valid_steps": d["valid_steps"]},
+            "dtype": "float32", "plan": d["plan"],
+            **{f"flow_{k}": fn[k] for k in ("ms", "plain_ms", "walk_ms", "bound_ms", "bound_by")},
+            "flow_reference_ms": f["nn_lstm_forward_ms"], "flow_plan": f["plan"],
+            "flow_shape": {"R": f["R"], "T": f["T"], "H": f["H"], "valid_steps": f["valid_steps"]},
+            "route_table": [{k: v for k, v in r.items()
+                             if k not in ("lstm_scan", "lstm_revmasked") or k == name}
+                            for r in rows],
+        })
+    return out
+
+
 def _streamin_bwd2_records(rows, ab):
     """K8p's, K8p-f32's, K10p's and K10p-f32's records from
     phase_streamin_bwd2_routes: times at the disc shape (the flow and
@@ -3832,7 +4042,12 @@ def _flow_kernel_times(device, records, flow_routes, wide_errs, wide_train_errs,
 # and the odd-H shapes of the card tests (2- and 4-byte copies of h0)
 CARRY_SHAPES = (("stream step", 34, 8, HID), ("offline causal", 34, 401, HID),
                 ("odd H", 13, 9, 37), ("H = 2 mod 4", 21, 7, 46))
-CARRY_TAGS = {"lstm_scan_persistent_carry": "bfloat16", "lstm_scan_carry_f32": "float32"}
+# tag -> (dtype, route): K2p and K2p-f32 through the routed wrapper, and the
+# float32 walk with a carry called by name (no shipped path below H = 1020
+# takes it now)
+CARRY_TAGS = {"lstm_scan_persistent_carry": ("bfloat16", "persistent"),
+              "lstm_scan_persistent_carry_f32": ("float32", "persistent"),
+              "lstm_scan_carry_f32": ("float32", "walk")}
 BARRIER_US = 1.0  # one step's barrier round trip through L2 (PERF.md), the latency floor's unit
 
 
@@ -3864,16 +4079,18 @@ def _lstm_carry_reference_ms(device, R, T, H, dtype):
 
 
 def phase_carry_routes(device):
-    """K2 with a carry: K2p (bfloat16) and the float32 walk, each started
-    from a random (h0, c0) at the streaming step's, the offline causal and
-    the odd-H shapes, held against the plain version by
+    """K2 with a carry: K2p (bfloat16), K2p-f32 and the float32 walk, each
+    started from a random (h0, c0) at the streaming step's, the offline
+    causal and the odd-H shapes, held against the plain version by
     ``persistent_checks.scan_carry_report`` (h at every step, hT and cT
-    within ``carry_limit``: 4 bf16 ulps on K2p, the K2 walk's 2e-4 on the
-    float32 walk; hT the kernel's own last h; ``lstm_scan_dropped_carry``
-    beyond the limit at every shape); ms of the kernel, its plain version and
-    a one-direction ``nn.LSTM`` from (h0, c0) (a superset), the bound and
-    the latency floor (T dependent steps); and whether 8-frame chunks chained
-    through the carry give the one-launch offline result bitwise."""
+    within ``carry_limit``: 4 bf16 ulps on K2p, F32_LIMIT on K2p-f32, the K2
+    walk's 2e-4 on the float32 walk; hT the kernel's own last h;
+    ``lstm_scan_dropped_carry`` beyond the limit at every shape); ms of the
+    kernel, its plain version and a one-direction ``nn.LSTM`` from (h0, c0)
+    (a superset), the bound and the latency floor (T dependent steps); and
+    whether 8-frame chunks chained through the carry give the one-launch
+    offline result bitwise, which K2p and K2p-f32 must (their plans depend
+    on R and H only)."""
     import torch
     from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
     from urgent2026_challenge_track1_tpu_torch.ops import persistent_checks as PC
@@ -3885,30 +4102,37 @@ def phase_carry_routes(device):
         gen = torch.Generator().manual_seed(R * T + H)
         h0, c0 = (0.5 * torch.randn((2, R, H), generator=gen)).unbind(0)
         rec = {"what": what, "R": R, "T": T, "H": H}
-        for tag, dt_name in CARRY_TAGS.items():
+        for tag, (dt_name, route) in CARRY_TAGS.items():
             dtype = getattr(torch, dt_name)
             x, w = xp.to(dtype), wh[0].to(dtype).contiguous()
             carry = (h0.to(device, dtype), c0.to(device))
             plan = K.scan_route(dtype, R, H, sms)
-            if (plan is not None) != (dtype == torch.bfloat16):
-                fail(f"K2 with a carry at {what}: the route rule gives {plan} for {dt_name}")
-            if plan is not None:
+            if plan is None:
+                fail(f"K2 with a carry at {what}: the route rule takes the walk for {dt_name}")
+            if route == "persistent":
                 def kern(p=plan, x=x, w=w, carry=carry):
                     return K.lstm_scan_persistent(x, w, False, p, initial_state=carry,
                                                   return_state=True)
 
                 def no_carry(p=plan, x=x, w=w):
                     return K.lstm_scan_persistent(x, w, False, p)
+                fn = K.lstm_scan  # the route K2p / K2p-f32 serves
             else:
                 def kern(x=x, w=w, carry=carry):
                     return K.lstm_scan_walk(x, w, False, carry, True)
 
                 def no_carry(x=x, w=w):
                     return K.lstm_scan_walk(x, w)
+                fn = K.lstm_scan_walk
             with torch.inference_mode():
+                K.reset_launch_counts()
                 got, state = kern()
                 torch.cuda.synchronize()
-                report = PC.scan_carry_report(got, state, x, w, False, carry)
+                if K.route_counts("lstm_scan")[route] != 1:
+                    fail(f"K2 with a carry ({tag}) at {what}: routes "
+                         f"{K.route_counts('lstm_scan')}, expected one {route} launch")
+                report = PC.scan_carry_report(got, state, x, w, False, carry,
+                                              walk=route == "walk")
                 bad = PC.carry_failures(report)
                 if bad:
                     fail(f"K2 with a carry ({tag}) at {what}: " + "; ".join(bad))
@@ -3916,26 +4140,36 @@ def phase_carry_routes(device):
                 plain_ms = _time_ms(lambda: K.lstm_scan_plain(x, w, False, carry, True), reps=3,
                                     warmup=1)
                 # 8-frame chunks chained through the carry against one launch
-                one = K.lstm_scan(x, w)
+                K.reset_launch_counts()
+                one = fn(x, w)
                 state_c, outs = None, []
                 for t0 in range(0, T, 8):
-                    y, state_c = K.lstm_scan(x[:, t0:t0 + 8].contiguous(), w,
-                                             initial_state=state_c, return_state=True)
+                    y, state_c = fn(x[:, t0:t0 + 8].contiguous(), w, initial_state=state_c,
+                                    return_state=True)
                     outs.append(y)
+                chain_routes = K.route_counts("lstm_scan")
                 chained = torch.cat(outs, dim=1)
                 bitwise = bool(torch.equal(chained, one))
                 chained_err = _err(chained, one)
+                if chain_routes[route] != 1 + len(outs) or sum(chain_routes.values()) != (
+                        1 + len(outs)):
+                    fail(f"K2 with a carry ({tag}) at {what}: the chained chunks took "
+                         f"{chain_routes}, expected {route} only")
+                if route == "persistent" and not bitwise:
+                    fail(f"K2 with a carry ({tag}) at {what}: 8-frame chunks chained through "
+                         f"the carry differ from one launch by {chained_err:.3e}")
             bound_ms, bound_by = _carry_bound(R, T, H, dt_name)
             rec[tag] = {**report, "ms": ms, "ms_without_carry": ms_no_carry,
                         "us_per_step": ms * 1e3 / T, "plain_ms": plain_ms,
                         "bound_ms": bound_ms, "bound_by": bound_by,
-                        "latency_floor_ms": T * BARRIER_US / 1e3 if plan is not None else None,
+                        "latency_floor_ms": T * BARRIER_US / 1e3 if route == "persistent" else None,
                         "reference_ms": _lstm_carry_reference_ms(device, R, T, H, dtype),
                         "chunks_of_8_bitwise_equal_one_launch": bitwise,
                         "chunks_of_8_max_abs_diff": chained_err,
-                        "plan": None if plan is None else {
+                        "plan": None if route == "walk" else {
                             "S": plan.S, "G": plan.G, "U": plan.U, "rows": plan.rows,
-                            "chunk": plan.chunk, "c_in_smem": plan.c_in_smem, "ctas": plan.ctas}}
+                            "chunk": plan.chunk, "c_in_smem": plan.c_in_smem, "ctas": plan.ctas,
+                            "elem": plan.elem}}
             r = rec[tag]
             print(f"[carry routes] {what} {tag} R={R} T={T} H={H}: {ms:.4f} ms "
                   f"({r['us_per_step']:.2f} us a step; without a carry {ms_no_carry:.4f} ms), "
@@ -4084,17 +4318,37 @@ def phase_causal(workdir: Path, device):
     rec["f32_offline_launches"] = _routes()["lstm_scan"]
     K.reset_launch_counts()
     f32_sess = StreamingSession(model, model.cfg, stft, fs, chunk_frames=CAUSAL_CHUNK)
+    f32_step_ms = []
+    f32_inner = f32_sess._step
+
+    def f32_timed_step(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = f32_inner(*args)
+        torch.cuda.synchronize()
+        f32_step_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    f32_sess._step = f32_timed_step
     st32 = _stream(f32_sess, wav)
     # every K2 launch of a stream carries (h, c): the stream's lstm_scan routes
-    rec["f32_launches"] = {**_routes()["lstm_scan"], "steps": f32_sess._emit_pos // f32_sess._chunk}
+    rec["f32_launches"] = {**_routes()["lstm_scan"], "steps": len(f32_step_ms)}
+    rec["f32_step_ms_median"] = statistics.median(f32_step_ms)
+    rec["f32_step_ms_p95"] = float(np.percentile(f32_step_ms, 95))
     if st32.shape != wav.shape or not np.isfinite(st32).all():
         fail(f"the float32 stream gave {st32.shape}, finite {np.isfinite(st32).all()}")
     d32 = float(np.abs(st32 - off32).max())
     ok32 = np.allclose(st32, off32, rtol=STREAM_F32_RTOL, atol=STREAM_F32_ATOL)
     print(f"[causal] float32 stream vs offline on the card: max|d| {d32:.3e} (rtol "
-          f"{STREAM_F32_RTOL}, atol {STREAM_F32_ATOL}), K2 launches {rec['f32_launches']}")
+          f"{STREAM_F32_RTOL}, atol {STREAM_F32_ATOL}), K2 launches {rec['f32_launches']}; "
+          f"step wall time median {rec['f32_step_ms_median']:.2f} ms, p95 "
+          f"{rec['f32_step_ms_p95']:.2f} ms ({gpu_name_and_power()})")
     if not ok32:
         fail(f"the float32 stream differs from the offline forward by {d32:.3e}")
+    f32_carry, f32_steps = rec["f32_launches"], rec["f32_launches"]["steps"]
+    if f32_carry["persistent"] != CAUSAL_MODEL["num_layer"] * f32_steps or f32_carry["walk"]:
+        fail(f"the float32 stream ran K2 with a carry {f32_carry}; expected K2p-f32 once per "
+             "layer and step")
 
     # bfloat16: the loaded checkpoint, as a server runs it
     sess = StreamingSession(served, scfg, sstft, fs, chunk_frames=CAUSAL_CHUNK)
@@ -4367,29 +4621,32 @@ class _NoEngine:
 
 
 def _carry_records(carry_rows, causal_rec):
-    """The kernels line's records of K2 with a carry: K2p (bfloat16) and the
-    float32 walk; times at the streaming step's shape (``ms_offline`` at the
-    offline causal one); launches from phase_causal's streams (the bf16
-    stream for K2p, the float32 stream for the walk)."""
+    """The kernels line's records of K2 with a carry: K2p (bfloat16),
+    K2p-f32 and the float32 walk; times at the streaming step's shape
+    (``ms_offline`` at the offline causal one); launches from phase_causal's
+    streams (the bf16 stream for K2p, the float32 stream for K2p-f32 and the
+    walk, which no stream below H = 1020 takes now)."""
     stream, offline = carry_rows[0], carry_rows[1]
     out = []
-    for tag, dt_name in CARRY_TAGS.items():
+    for tag, (dt_name, route) in CARRY_TAGS.items():
         s, o = stream[tag], offline[tag]
-        persistent = dt_name == "bfloat16"
+        persistent = route == "persistent"
+        f32 = dt_name == "float32"
+        launches = (causal_rec["f32_launches"][route] if f32
+                    else causal_rec["launches"]["K2p_carry"])
         out.append({
-            "name": tag, "route": "cuda", "route_of_kernel": "persistent" if persistent else "walk",
+            "name": tag, "route": "cuda", "route_of_kernel": route,
             "source": f"{PKG}/csrc/{'lstm_persistent.cu' if persistent else 'lstm_kernels.cu'}",
             "replaces": REPLACES["lstm_scan"],
-            "launches": (causal_rec["launches"]["K2p_carry"] if persistent
-                         else causal_rec["f32_launches"]["walk"]),
-            "launches_run": ("the bfloat16 StreamingSession, 4 s at 48 kHz, 8 frames a step"
-                             if persistent else "the float32 StreamingSession, same input"),
-            "launches_per_stream_step": (
-                causal_rec["launches_per_step"]["K2p_carry"] if persistent
-                else causal_rec["f32_launches"]["walk"] / causal_rec["f32_launches"]["steps"]),
+            "launches": launches,
+            "launches_run": ("the float32 StreamingSession, 4 s at 48 kHz, 8 frames a step"
+                             if f32 else
+                             "the bfloat16 StreamingSession, 4 s at 48 kHz, 8 frames a step"),
+            "launches_per_stream_step": launches / (causal_rec["f32_launches"]["steps"] if f32
+                                                    else causal_rec["stream_steps"]),
             # the offline causal forward runs K2 without a carry, on the same route
             "offline_causal_forward_launches_without_carry": causal_rec[
-                "bf16_offline_launches" if persistent else "f32_offline_launches"],
+                "f32_offline_launches" if f32 else "bf16_offline_launches"],
             "max_abs_err": max(r[tag]["h"] for r in carry_rows),
             "max_abs_err_hT": max(r[tag]["hT"] for r in carry_rows),
             "max_abs_err_cT": max(r[tag]["cT"] for r in carry_rows),
@@ -4410,6 +4667,10 @@ def _carry_records(carry_rows, causal_rec):
             "shape": {"R": stream["R"], "T": stream["T"], "H": stream["H"],
                       "T_offline": offline["T"]},
             "dtype": dt_name, "plan": s["plan"],
+            # the whole stream step's wall time (every layer, on the host's clock)
+            "stream_step_ms_median": causal_rec["f32_step_ms_median" if f32
+                                                else "step_ms_median"],
+            "stream_step_ms_p95": causal_rec["f32_step_ms_p95" if f32 else "step_ms_p95"],
         })
     return out
 
@@ -4539,6 +4800,7 @@ def main() -> int:
     k1_routes = timed("k1_routes", phase_k1_routes, device)
     k1_f32_routes = timed("k1_routes f32", phase_k1_f32_routes, device)
     scan_routes = timed("scan_routes", phase_scan_routes, device)
+    scan_f32_routes = timed("scan_routes f32", phase_scan_f32_routes, device)
     train_routes_rows = timed("train_routes", phase_train_routes, device)
     bwd_routes_rows = timed("bwd_routes", phase_bwd_routes, device)
     carry_rows = timed("carry_routes", phase_carry_routes, device)
@@ -4569,6 +4831,8 @@ def main() -> int:
     records += _streamin_bwd2_records(streamin_bwd2, ab)
     records.append(_k1_f32_record(k1_f32_routes, train_routes, flow_routes, validation,
                                   flow_validation))
+    records += _scan_f32_records(scan_f32_routes, train_routes, flow_routes, validation,
+                                 flow_validation)
     timed("times K1-K7 flow shapes", _flow_kernel_times, device, records, flow_routes,
           wide_errs, wide_train_errs, k1_routes, scan_routes, flow_cli_routes)
     flow_times = timed("times flow", _flow_step_and_enhance_times, device)

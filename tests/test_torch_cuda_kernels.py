@@ -288,9 +288,64 @@ def test_revmasked_persistent_matches_plain_at_every_step(dev, shape):
     assert _err(lstm_scan_stale_h(xp, wh, True, lengths), ref) >= limit
 
 
+# --- K2p-f32 and K3p-f32: the float32 routes of K2 and K3 (3xTF32) -------
+# Held within F32_LIMIT of the plain version at every step, a limit that the
+# stale-h fault and the walk with one TF32 product (lstm_scan_tf32) exceed;
+# K2p's shapes and the flow validation pass's time path (2 x 48 bands over
+# 251 frames at H = 768: 16-row chunks, c in global memory)
+SCAN_F32_SHAPES = SCAN_SHAPES + [(96, 251, 768)]
+SCAN_F32_IDS = SCAN_IDS + ["flow_valid"]
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("shape", SCAN_F32_SHAPES, ids=SCAN_F32_IDS)
+def test_scan_persistent_f32_matches_plain(dev, shape, reverse):
+    """K2p-f32 through the routed wrapper against the plain version at
+    every step within F32_LIMIT; a stale h and one TF32 product exceed it."""
+    xp, wh = _f32(*_scan_inputs(dev, *shape, seed=44)[:2])
+    cuda_lstm.reset_launch_counts()
+    got = cuda_lstm.lstm_scan(xp, wh, reverse)
+    assert cuda_lstm.route_counts("lstm_scan") == {"persistent": 1, "walk": 0}
+    assert got.shape == tuple(shape) and got.dtype == torch.float32
+    ref = cuda_lstm.lstm_scan_plain(xp, wh, reverse)
+    assert persistent_limit(ref) == F32_LIMIT
+    assert _err(got, ref) < F32_LIMIT
+    assert _err(lstm_scan_stale_h(xp, wh, reverse), ref) >= F32_LIMIT
+    assert _err(lstm_scan_tf32(xp, wh, reverse), ref) >= F32_LIMIT
+
+
+@pytest.mark.parametrize("shape", SCAN_F32_SHAPES, ids=SCAN_F32_IDS)
+def test_revmasked_persistent_f32_matches_plain_at_every_step(dev, shape):
+    """K3p-f32 through the routed wrapper at every step, padded ones
+    included, within F32_LIMIT; a stale h and one TF32 product exceed it."""
+    xp, wh, lengths = _scan_inputs(dev, *shape, seed=45)
+    xp, wh = _f32(xp, wh)
+    cuda_lstm.reset_launch_counts()
+    got = cuda_lstm.lstm_revmasked(xp, wh, lengths)
+    assert cuda_lstm.route_counts("lstm_revmasked") == {"persistent": 1, "walk": 0}
+    ref = cuda_lstm.lstm_revmasked_plain(xp, wh, lengths)
+    assert _err(got, ref) < F32_LIMIT
+    assert _err(lstm_scan_stale_h(xp, wh, True, lengths), ref) >= F32_LIMIT
+    assert _err(lstm_scan_tf32(xp, wh, True, lengths), ref) >= F32_LIMIT
+
+
+def test_scan_persistent_f32_is_deterministic(dev):
+    """Two launches of K2p-f32 (both directions) and of K3p-f32 at the flow
+    validation shape are bitwise equal."""
+    xp, wh, lengths = _scan_inputs(dev, 96, 251, 768, seed=46)
+    xp, wh = _f32(xp, wh)
+    for run in (lambda: cuda_lstm.lstm_scan_persistent(xp, wh, False),
+                lambda: cuda_lstm.lstm_scan_persistent(xp, wh, True),
+                lambda: cuda_lstm.lstm_revmasked_persistent(xp, wh, lengths)):
+        a, b = run(), run()
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+
+
 # --- K2 with a carry: (h0, c0) in, (hT, cT) out (the streaming step's time
 # path); the streaming step (34 rows x 8 frames at H = 392), the offline
-# causal time path (34 x 401) and the odd-H shapes
+# causal time path (34 x 401) and the odd-H shapes; K2p (bfloat16) and
+# K2p-f32 through the routed wrapper, the float32 walk called by name
 CARRY_SHAPES = [(34, 8, 392), (34, 401, 392), (13, 9, 37), (21, 7, 46)]
 CARRY_IDS = ["stream_step", "offline_causal", "odd_h", "h_mod4"]
 
@@ -303,68 +358,85 @@ def _carry_inputs(dev, shape, dtype, seed):
     return xp.to(dtype), wh.to(dtype), (h0, c0)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["k2p", "walk_f32"])
+# (route id, dtype, K2 with a carry): the routed wrapper (K2p, K2p-f32) or
+# the float32 walk by name
+CARRY_ROUTES = {"k2p": (torch.bfloat16, cuda_lstm.lstm_scan),
+                "walk_f32": (torch.float32, cuda_lstm.lstm_scan_walk),
+                "k2p_f32": (torch.float32, cuda_lstm.lstm_scan)}
+
+
+@pytest.mark.parametrize("route", list(CARRY_ROUTES))
 @pytest.mark.parametrize("shape", CARRY_SHAPES, ids=CARRY_IDS)
-def test_scan_carry_matches_plain(dev, shape, dtype):
-    """K2p (bfloat16) and the walk (float32) started from (h0, c0): h at
-    every step, hT and cT within the limits of ``scan_carry_report``, hT the
-    kernel's own last h, and a dropped carry beyond the limit."""
+def test_scan_carry_matches_plain(dev, shape, route):
+    """K2p (bfloat16), K2p-f32 and the float32 walk started from (h0, c0):
+    h at every step, hT and cT within the limits of ``scan_carry_report``
+    (F32_LIMIT on K2p-f32, the walk's 2e-4 on the walk), hT the kernel's
+    own last h, and a dropped carry beyond the limit."""
+    dtype, fn = CARRY_ROUTES[route]
     xp, wh, carry = _carry_inputs(dev, shape, dtype, 40)
     cuda_lstm.reset_launch_counts()
-    got, state = cuda_lstm.lstm_scan(xp, wh, False, initial_state=carry, return_state=True)
-    route = "persistent" if dtype == torch.bfloat16 else "walk"
-    assert cuda_lstm.route_counts("lstm_scan") == {"persistent": 0, "walk": 0, route: 1}
+    got, state = fn(xp, wh, False, initial_state=carry, return_state=True)
+    kind = "walk" if route == "walk_f32" else "persistent"
+    assert cuda_lstm.route_counts("lstm_scan") == {"persistent": 0, "walk": 0, kind: 1}
     assert state[0].dtype == dtype and state[1].dtype == torch.float32
-    report = scan_carry_report(got, state, xp, wh, False, carry)
+    report = scan_carry_report(got, state, xp, wh, False, carry, walk=kind == "walk")
+    if route == "k2p_f32":
+        assert report["limit"] == report["c_limit"] == F32_LIMIT
     assert not carry_failures(report), report
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["k2p", "walk_f32"])
-def test_scan_zero_carry_equals_no_carry(dev, dtype):
+@pytest.mark.parametrize("route", list(CARRY_ROUTES))
+def test_scan_zero_carry_equals_no_carry(dev, route):
     """A zero carry in is the launch without one, bitwise; the carried
     launch's return_state alone leaves h unchanged."""
+    dtype, fn = CARRY_ROUTES[route]
     xp, wh, (h0, c0) = _carry_inputs(dev, (34, 33, 392), dtype, 42)
-    plain = cuda_lstm.lstm_scan(xp, wh)
+    plain = fn(xp, wh)
     zero = (torch.zeros_like(h0), torch.zeros_like(c0))
-    got, _ = cuda_lstm.lstm_scan(xp, wh, initial_state=zero, return_state=True)
+    got, _ = fn(xp, wh, initial_state=zero, return_state=True)
     assert torch.equal(got, plain)
-    assert torch.equal(cuda_lstm.lstm_scan(xp, wh, return_state=True)[0], plain)
+    assert torch.equal(fn(xp, wh, return_state=True)[0], plain)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["k2p", "walk_f32"])
-def test_scan_carry_chained_chunks_equal_one_launch(dev, dtype):
+@pytest.mark.parametrize("route", list(CARRY_ROUTES))
+def test_scan_carry_chained_chunks_equal_one_launch(dev, route):
     """8-frame chunks chained through the carry against one launch over all
     frames (the offline causal time path): within the kernel's limit
-    against the plain version (``chip_smoke.py`` reports whether they are
-    bitwise equal)."""
+    against the plain version, and bitwise on K2p-f32 (its plan depends on
+    R and H only, so each step's arithmetic is one launch's)."""
+    dtype, fn = CARRY_ROUTES[route]
     xp, wh, _ = _carry_inputs(dev, (34, 41, 392), dtype, 43)
-    one = cuda_lstm.lstm_scan(xp, wh)
+    one = fn(xp, wh)
     state, outs = None, []
     for t0 in range(0, 41, 8):
-        y, state = cuda_lstm.lstm_scan(xp[:, t0:t0 + 8].contiguous(), wh, initial_state=state,
-                                       return_state=True)
+        y, state = fn(xp[:, t0:t0 + 8].contiguous(), wh, initial_state=state,
+                      return_state=True)
         outs.append(y)
     ref = cuda_lstm.lstm_scan_plain(xp, wh)
     limit = ulp_limit(ref) if dtype == torch.bfloat16 else TOLS[torch.float32]
     assert _err(torch.cat(outs, dim=1), one) < limit
+    if route == "k2p_f32":
+        assert torch.equal(torch.cat(outs, dim=1), one)
 
 
 def test_scan_route_follows_the_dtype(dev):
-    """float32 takes the walks, bfloat16 K2p/K3p; each counts as a K2 or K3
-    launch; the persistent wrappers refuse float32."""
+    """float32 takes K2p-f32 / K3p-f32 where a plan fits and the walks where
+    none does (H = 1020), bfloat16 K2p/K3p; each counts as a K2 or K3
+    launch."""
     xp, wh, lengths = _scan_inputs(dev, R, T, H, seed=20)
+    wide, wide_w, wide_len = _scan_inputs(dev, 3, 4, 1020, seed=21)
+    assert cuda_lstm.scan_route(torch.float32, 3, 1020, cuda_lstm._sm_count(dev.index or 0)) \
+        is None
     cuda_lstm.reset_launch_counts()
     cuda_lstm.lstm_scan(xp.float(), wh.float())
     cuda_lstm.lstm_revmasked(xp.float(), wh.float(), lengths)
     cuda_lstm.lstm_scan(xp, wh)
     cuda_lstm.lstm_revmasked(xp, wh, lengths)
+    cuda_lstm.lstm_scan(wide.float(), wide_w.float())
+    cuda_lstm.lstm_revmasked(wide.float(), wide_w.float(), wide_len)
     for name in ("lstm_scan", "lstm_revmasked"):
-        assert cuda_lstm.route_counts(name) == {"persistent": 1, "walk": 1}
-        assert cuda_lstm.launch_counts()[name] == 2
-    with pytest.raises(TypeError):
-        cuda_lstm.lstm_scan_persistent(xp.float(), wh.float())
-    with pytest.raises(TypeError):
-        cuda_lstm.lstm_revmasked_persistent(xp.float(), wh.float(), lengths)
+        assert cuda_lstm.route_counts(name) == {"persistent": 2, "walk": 1}
+        assert cuda_lstm.launch_counts()[name] == 3
 
 
 def test_scan_persistent_refuses_a_grid_the_card_cannot_hold(dev):
@@ -482,7 +554,7 @@ def test_train_route_follows_the_dtype(dev):
         assert cuda_lstm.route_counts(name) == {"persistent": 2, "walk": 0}
         assert cuda_lstm.launch_counts()[name] == 2
     wide, wwide, lwide = _scan_inputs(dev, 3, 2, 1020, seed=27)
-    assert cuda_lstm.scan_route(torch.float32, 3, 1020, 132, store=True) is None
+    assert cuda_lstm.scan_route(torch.float32, 3, 1020, 132) is None
     cuda_lstm.reset_launch_counts()
     cuda_lstm.lstm_train_fwd(wide.float(), wwide.float())
     cuda_lstm.lstm_revmasked_train_fwd(wide.float(), wwide.float(), lwide)
@@ -623,13 +695,24 @@ def test_f32_plan_bytes_equal_the_kernels(dev):
 
 
 def test_persistent_refuses_f32_for_k2p_and_k3p(dev):
-    """K2p and K3p have no float32 route: their wrappers refuse float32."""
+    """K2p-f32 and K3p-f32 take float32 only on a float32 plan and K2p-f32's
+    carry only with h0 in float32; K3p takes no carry; no route takes
+    float16."""
     xp, wh, lengths = _scan_inputs(dev, R, T, H, seed=40)
     xp, wh = _f32(xp, wh)
+    bf16_plan = cuda_lstm.plan_persistent(R, 0, H, 132, dirs=1)
+    with pytest.raises(ValueError):
+        cuda_lstm.lstm_scan_persistent(xp, wh, False, bf16_plan)
+    with pytest.raises(ValueError):
+        cuda_lstm.lstm_revmasked_persistent(xp, wh, lengths, bf16_plan)
+    h0, c0 = torch.zeros((R, H), device=dev), torch.zeros((R, H), device=dev)
     with pytest.raises(TypeError):
-        cuda_lstm.lstm_scan_persistent(xp, wh)
+        cuda_lstm.lstm_scan_persistent(xp, wh, initial_state=(h0.bfloat16(), c0))
+    with pytest.raises(ValueError):
+        cuda_lstm._scan_persistent(cuda_lstm.lstm_revmasked, xp, wh, True, lengths, None,
+                                   initial_state=(h0, c0))
     with pytest.raises(TypeError):
-        cuda_lstm.lstm_revmasked_persistent(xp, wh, lengths)
+        cuda_lstm.lstm_scan_persistent(xp.half(), wh.half())
 
 
 # --- K5p and K7p: the persistent routes of K5 and K7 (bfloat16) -----------

@@ -1,7 +1,9 @@
-"""K2p and K3p, the persistent weight-stationary routes of K2 and K3, on the
-CPU: the planner generalised to one direction over a hoisted projection (and
-K1p's plans unchanged by it), the packed W_hh slice, the plain sliced walks
-that read only the packed slices, and the route rule.  The kernels
+"""K2p and K3p, the persistent weight-stationary routes of K2 and K3, and
+their float32 routes K2p-f32 and K3p-f32, on the CPU: the planner
+generalised to one direction over a hoisted projection (and K1p's plans
+unchanged by it), the float32 plans pinned, the packed W_hh slice, the plain
+sliced walks that read only the packed slices (with K2's carry), and the
+route rule, also on a mocked card.  The kernels
 themselves (csrc/lstm_persistent.cu) are held against the same plain versions
 on the card (tests/test_torch_cuda_kernels.py and chip_smoke.py).
 
@@ -17,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from urgent2026_challenge_track1_tpu.ops import lstm as jlstm
 from urgent2026_challenge_track1_tpu.ops import pallas_lstm as jpl
 from urgent2026_challenge_track1_tpu_torch.models.bsrnn import BSRNNConfig, band_count
 from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
@@ -99,11 +102,67 @@ def test_scan_plan_is_none_where_nothing_fits(R, H, sms):
 
 
 def test_scan_route_rule():
+    """bfloat16 takes the one-direction plan, float32 the float32 one
+    (K2p-f32 / K3p-f32); no plan is the walk (float32 at H = 1020)."""
     for R, H in SCAN_SHAPES:
-        assert K.scan_route(torch.float32, R, H, SMS) is None
+        f32 = K.scan_route(torch.float32, R, H, SMS)
+        assert f32 == K.plan_persistent(R, 0, H, SMS, dirs=1, elem=4) is not None
+        assert f32.elem == 4 and f32.ctas <= SMS
         assert K.scan_route(torch.bfloat16, R, H, SMS) == K.plan_persistent(R, 0, H, SMS,
                                                                               dirs=1)
     assert K.scan_route(torch.bfloat16, 10, 8000, SMS) is None
+    assert K.scan_route(torch.float32, 34, 1020, SMS) is None
+    assert K.scan_route(torch.float16, 34, 392, SMS) is None
+
+
+# K2p-f32's and K3p-f32's plans where float32 K2 and K3 run, (R, H) -> (S, G,
+# U, rows, chunk, c_in_smem, smem): one utterance at 48 kHz (34 bands), the
+# disc validation and CLI batch (4 x 34), one flow utterance (48 bands at H
+# = 768: 16-row chunks, three a step), the flow validation batch (2 x 48:
+# 16-row chunks, c in global memory), an odd H; None at H = 1020 (the wide
+# step: the walks stay)
+F32_SCAN_PLANS = {(34, 392): (98, 1, 4, 34, 48, True, 126496),
+                  (136, 392): (33, 3, 12, 46, 48, True, 197792),
+                  (48, 768): (96, 1, 8, 48, 16, True, 180224),
+                  (96, 768): (64, 2, 12, 48, 16, False, 230912),
+                  (20, 197): (50, 1, 4, 20, 32, True, 54080),
+                  (34, 1020): None}
+
+
+@pytest.mark.parametrize("shape", sorted(F32_SCAN_PLANS), ids=str)
+def test_f32_scan_plans_are_pinned(shape):
+    """The float32 route's plan at each shape, within SMEM_LIMIT, the SMs
+    and the float32 limits, its bytes ``persistent_smem(..., elem=4)``
+    (the kernel's ``Plan::smem_bytes``), covering every row and unit once."""
+    R, H = shape
+    plan = K.scan_route(torch.float32, R, H, SMS)
+    want = F32_SCAN_PLANS[shape]
+    if want is None:
+        assert plan is None and K.plan_persistent(R, 0, H, SMS, dirs=1, elem=4) is None
+        return
+    assert (plan.S, plan.G, plan.U, plan.rows, plan.chunk, plan.c_in_smem, plan.smem) == want
+    assert (plan.elem, plan.dirs, plan.N) == (4, 1, 0) and plan.ctas <= SMS
+    assert plan.smem == K.persistent_smem(0, H, plan.U, plan.chunk, plan.rows, plan.c_in_smem,
+                                          4) <= K.SMEM_LIMIT
+    assert plan.chunk // 16 * -(-plan.U // 8) <= K.MAX_ACC_BLOCKS_TF32
+    assert plan.chunk * plan.U <= K.MAX_CELLS_F32
+    for n, size, count in ((H, plan.U, plan.S), (R, plan.rows, plan.G)):
+        covered = np.zeros(n, int)
+        for lo, hi in _spans(n, size, count):
+            assert lo < hi
+            covered[lo:hi] += 1
+        assert (covered == 1).all()
+
+
+def test_f32_scan_smem_doubles_the_elements():
+    """elem = 4: the slice (Kh x (4U + 8)), the staged h chunk (Kh + 4 f32 a
+    row) and the projection's double buffer in 4-byte elements; the
+    accumulators and c are f32 either way."""
+    U, chunk, H, rows = 4, 48, 392, 34
+    kh = 400
+    want = (4 * kh * (4 * U + 8) + 4 * chunk * (kh + 4) + 4 * chunk * (4 * U + 4)
+            + 4 * 2 * chunk * 4 * U + 4 * rows * U)
+    assert K.persistent_smem(0, H, U, chunk, rows, True, 4) == want == 126496
 
 
 def _w_hh(rng, H, dtype=torch.float32):
@@ -293,3 +352,128 @@ def test_sliced_scan_carry_chains_chunks_exactly():
         ref, (rh, rc) = K.lstm_scan_plain(xp, w_hh, False, state, True)
         assert torch.equal(y, ref) and torch.equal(h, rh) and torch.equal(c, rc)
     assert K.route_counts("lstm_scan") == {"persistent": 0, "walk": 0}
+
+
+# --- K2p-f32 and K3p-f32: the sliced walks over float32 plans (elem = 4) ---
+
+
+def _f32_plan(R, H, sms):
+    plan = K.scan_route(torch.float32, R, H, sms)
+    assert plan is not None and plan.elem == 4 and plan.S > 1 and plan.G > 1
+    return plan
+
+
+@pytest.mark.parametrize("R,T,H,sms", SLICED, ids=lambda v: str(v))
+def test_sliced_f32_walks_match_plain_at_every_step(R, T, H, sms):
+    """K2p-f32 (both directions) and K3p-f32 over their float32 plans
+    against the plain versions within 1e-6, padded steps included."""
+    plan = _f32_plan(R, H, sms)
+    xp, w_hh, lengths = _inputs(R, T, H, torch.float32, R + T + 11)
+    w = K.pack_scan_weights(w_hh, plan)
+    for reverse in (False, True):
+        got = K.lstm_scan_sliced_plain(xp, w, plan, reverse)
+        ref = K.lstm_scan_plain(xp, w_hh, reverse)
+        assert got.dtype == torch.float32 and got.shape == (R, T, H)
+        assert float((got - ref).abs().max()) < 1e-6
+    got = K.lstm_revmasked_sliced_plain(xp, w, lengths, plan)
+    assert float((got - K.lstm_revmasked_plain(xp, w_hh, lengths)).abs().max()) < 1e-6
+
+
+@pytest.mark.parametrize("kind", ["forward", "reverse", "masked"])
+@pytest.mark.parametrize("R,T,H,sms", SLICED, ids=lambda v: str(v))
+def test_sliced_f32_scan_matches_pallas(R, T, H, sms, kind):
+    """The float32 sliced walks against the Pallas kernels they port, in f32
+    and interpret mode: K2p-f32 against ``lstm_scan_pallas`` (both
+    directions), K3p-f32 against ``_lean_forward_revmasked`` at the valid
+    steps, within 1e-5."""
+    plan = _f32_plan(R, H, sms)
+    xp, w_hh, lengths = _inputs(R, T, H, torch.float32, R + T + 12)
+    w = K.pack_scan_weights(w_hh, plan)
+    jx, jw = jnp.asarray(xp.numpy()), jnp.asarray(w_hh.numpy())
+    if kind == "masked":
+        ref = jpl._lean_forward_revmasked(jx, jw, jnp.asarray(lengths.numpy()), b_block=0,
+                                          interpret=True)
+        got = K.lstm_revmasked_sliced_plain(xp, w, lengths, plan)
+        valid = np.arange(T)[None, :] < lengths.numpy()[:, None]
+        np.testing.assert_allclose(got.numpy()[valid], np.asarray(ref)[valid], atol=1e-5,
+                                   rtol=0)
+    else:
+        ref = jpl.lstm_scan_pallas(jx, jw, reverse=kind == "reverse", interpret=True)
+        got = K.lstm_scan_sliced_plain(xp, w, plan, kind == "reverse")
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("R,T,H,sms", SLICED, ids=lambda v: str(v))
+def test_sliced_f32_scan_carry_matches_jax(R, T, H, sms, reverse):
+    """K2p-f32's carry over its float32 plan against the JAX package's
+    ``_scan_dir`` with the same (h0, c0) (the streaming step's time path):
+    h at every step and the last (h, c) within 1e-5; hT is the output's
+    last column."""
+    plan = _f32_plan(R, H, sms)
+    xp, w_hh, _ = _inputs(R, T, H, torch.float32, R + T + 13)
+    rng = np.random.default_rng(R + 1)
+    h0, c0 = (torch.from_numpy((0.5 * rng.standard_normal((R, H))).astype(np.float32))
+              for _ in range(2))
+    got, (hT, cT) = K.lstm_scan_sliced_plain(xp, K.pack_scan_weights(w_hh, plan), plan,
+                                             reverse, (h0, c0), True)
+    ref, (rh, rc) = jlstm._scan_dir(
+        jnp.asarray(xp.numpy()), jnp.asarray(w_hh.numpy()), H, reverse,
+        initial_state=(jnp.asarray(h0.numpy()), jnp.asarray(c0.numpy())), return_state=True)
+    assert hT.dtype == cT.dtype == torch.float32
+    assert torch.equal(hT, got[:, 0 if reverse else T - 1])
+    for a, b in ((got, ref), (hT, rh), (cT, rc)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5, rtol=0)
+
+
+def test_sliced_f32_scan_carry_chains_chunks_exactly():
+    """Float32 chunks of 2 steps chained through the carry equal one walk
+    over the float32 plan, bitwise, as in bfloat16."""
+    R, T, H, sms = 70, 7, 40, 24
+    plan = _f32_plan(R, H, sms)
+    xp, w_hh, _ = _inputs(R, T, H, torch.float32, 9)
+    w = K.pack_scan_weights(w_hh, plan)
+    one = K.lstm_scan_sliced_plain(xp, w, plan)
+    state, outs = None, []
+    for t0 in range(0, T, 2):
+        y, state = K.lstm_scan_sliced_plain(xp[:, t0:t0 + 2], w, plan, False, state, True)
+        outs.append(y)
+    assert torch.equal(torch.cat(outs, dim=1), one)
+
+
+@pytest.mark.parametrize("sms", [SMS, 24, 6])
+def test_f32_route_follows_the_plan_on_a_mocked_card(monkeypatch, sms):
+    """K2 (with and without the carry) and K3 in float32 on a card of
+    ``sms`` SMs: each call takes the persistent wrapper with
+    ``scan_route``'s float32 plan for that SM count, the carry passed on;
+    at H = 1020, where no float32 plan fits, the walk.  The card is mocked:
+    tensors on the meta device reach the route rule, and the wrappers are
+    recorders."""
+    calls = []
+
+    def recorder(route):
+        def fn(x_proj, *args, **kwargs):
+            calls.append((route, args, kwargs))
+        return fn
+
+    monkeypatch.setattr(K, "_device_index", lambda device: 0)
+    monkeypatch.setattr(K, "_sm_count", lambda index: sms)
+    for name in ("lstm_scan", "lstm_revmasked"):
+        monkeypatch.setattr(K, f"{name}_persistent", recorder("persistent"))
+        monkeypatch.setattr(K, f"{name}_walk", recorder("walk"))
+    for R, H in [(70, 40), (34, 392), (96, 768), (34, 1020)]:
+        xp = torch.empty((R, 5, 4 * H), device="meta")
+        w = torch.empty((H, 4 * H), device="meta")
+        lengths = torch.empty((R,), dtype=torch.int32, device="meta")
+        carry = (torch.empty((R, H), device="meta"), torch.empty((R, H), device="meta"))
+        plan = K.plan_persistent(R, 0, H, sms, dirs=1, elem=4)
+        assert plan == K.scan_route(torch.float32, R, H, sms)
+        calls.clear()
+        K.lstm_scan(xp, w, True)
+        K.lstm_scan(xp, w, False, initial_state=carry, return_state=True)
+        K.lstm_revmasked(xp, w, lengths)
+        route = "walk" if plan is None else "persistent"
+        assert [c[0] for c in calls] == [route] * 3
+        if plan is not None:
+            assert [c[1][-1] for c in calls] == [plan] * 3
+        assert calls[1][2] == {"initial_state": carry, "return_state": True}

@@ -52,21 +52,19 @@ def _max_err(got, ref):
 
 
 def test_train_route_rule():
-    """K4 and K6 take ``scan_route(..., store=True)``: bf16 with a
-    one-direction plan and float32 with a float32 plan (elem = 4) take the
-    persistent route, shapes without a plan the walk; K2 and K3 (no store)
-    stay walks in float32."""
+    """K4 and K6 take ``scan_route``, K2's and K3's rule (one plan for the
+    storing and the lean kernels): bf16 with a one-direction plan and
+    float32 with a float32 plan (elem = 4) take the persistent route,
+    shapes without a plan the walk."""
     for R, H in TRAIN_SHAPES:
-        assert K.scan_route(torch.float32, R, H, SMS) is None
-        plan = K.scan_route(torch.bfloat16, R, H, SMS, store=True)
-        assert plan == K.scan_route(torch.bfloat16, R, H, SMS)
+        plan = K.scan_route(torch.bfloat16, R, H, SMS)
         assert plan == K.plan_persistent(R, 0, H, SMS, dirs=1) and plan.ctas <= SMS
-        f32 = K.scan_route(torch.float32, R, H, SMS, store=True)
+        f32 = K.scan_route(torch.float32, R, H, SMS)
         assert f32 == K.plan_persistent(R, 0, H, SMS, dirs=1, elem=4)
         assert f32.elem == 4 and f32.ctas <= SMS
-    assert K.scan_route(torch.bfloat16, 10, 8000, SMS, store=True) is None
-    assert K.scan_route(torch.float32, 10, 1020, SMS, store=True) is None  # no f32 slice fits
-    assert K.scan_route(torch.float16, 10, 64, SMS, store=True) is None
+    assert K.scan_route(torch.bfloat16, 10, 8000, SMS) is None
+    assert K.scan_route(torch.float32, 10, 1020, SMS) is None  # no f32 slice fits
+    assert K.scan_route(torch.float16, 10, 64, SMS) is None
 
 
 # the bfloat16 one-direction plans (K2p-K6p) at the shapes of PERF.md's

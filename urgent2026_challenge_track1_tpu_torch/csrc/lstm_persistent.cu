@@ -3,8 +3,8 @@
 // projection, as persistent, weight-stationary tensor-core recurrences for
 // NVIDIA Hopper (sm_90a), bound with ctypes.  K1p and K8p first
 // (fusedin_persistent_kernel, bf16, and f32 on 3xTF32 products: K1p-f32,
-// K8p-f32); K2p-K6p (scan_persistent_kernel, bf16, and for K4p/K6p also f32
-// on 3xTF32 products) after it.  The training
+// K8p-f32); K2p-K6p (scan_persistent_kernel, bf16, and f32 on 3xTF32
+// products: K2p-f32, K3p-f32, K4p-f32, K6p-f32) after it.  The training
 // backwards K5p / K7p / K10p and their dW kernels are in
 // lstm_persistent_bwd.cu, the pieces both use in lstm_persistent_common.cuh.
 //
@@ -623,9 +623,9 @@ bool bad_plan(const Plan& p, bool scan) {
 // multiplied by m = (t < lengths[r]) after each step), _train_forward (body
 // _train_fwd_body; K4, K2 that stores the residuals) and
 // _train_forward_revmasked (body _train_fwd_revmasked_body; K6, K3 that
-// stores them) for bfloat16 inputs, and K4 and K6 also for float32 inputs
-// (below), beside the walks in lstm_kernels.cu (recurrence_kernel), which
-// keep float32 K2 and K3 and every shape without a plan.
+// stores them) for bfloat16 and (below) float32 inputs, beside the walks in
+// lstm_kernels.cu (recurrence_kernel), which keep every shape without a
+// plan (float32 at H = 1020).
 // Each step computes
 //   gates = x_proj_t + round_bf16(h_{t-1}) W_hh^T     (f32 sums)
 //   c = f c + i g,  h = o tanh(c)                     (f32 cell)
@@ -655,7 +655,7 @@ bool bad_plan(const Plan& p, bool scan) {
 // which is an input and so needs no wait, into the A buffer and multiplies
 // it as a later step multiplies the h it reads back from out; c starts
 // from c0 wherever the plan keeps it (shared memory or the global c
-// buffer); the CTA that owns each cell writes the last step's h (the bf16
+// buffer); the CTA that owns each cell writes the last step's h (the value
 // it stores to out) to hT and its c to cT.  The plan depends on R and H
 // only, so chunks of a stream run the arithmetic of one offline walk.  With
 // the four pointers null the walk is the one without a carry.
@@ -670,17 +670,22 @@ bool bad_plan(const Plan& p, bool scan) {
 // before it at 10 of 13 shape pairs, PERF.md).  Bytes rise from (4H + H) to
 // (4H + 6H) bf16 a (row, step); the floor stays the barrier.
 //
-// K4p / K6p in float32 (T = float; _train_fwd_body with f32 inputs, where h
-// is not rounded before the product): the same walk, barrier, mask and
-// residual stores with every element f32, and the product h W_hh^T on the
-// tensor cores as three TF32 products of split operands (3xTF32, above).
-// The slice (Kh x (4U + 8) f32), the staged h (chunk x (Kh + 4) f32) and
-// the projection's double buffer double in shared memory, so the planner
-// takes narrower chunks at the band paths (ops/cuda_lstm.plan_persistent
-// with elem = 4); h is staged with 16-byte L2-only copies of 4 f32 where H
-// is a multiple of 4 and plain L2 loads otherwise.  What bounds it: as in
-// bf16 the barrier per step, plus three products and the splits, and twice
-// the staged bytes per chunk.
+// K2p-K6p in float32 (T = float: K2p-f32, K3p-f32, K4p-f32, K6p-f32; _body,
+// _lean_fwd_revmasked_body and the training bodies with f32 inputs, where h
+// is not rounded before the product): the same walk, barrier, mask, carry
+// (h0 and hT f32) and residual stores with every element f32, and the
+// product h W_hh^T on the tensor cores as three TF32 products of split
+// operands (3xTF32, above).  The walk they replace (recurrence_kernel in
+// f32) re-read all of W_hh^T (2.4 MB at H = 392, 9.4 MB at H = 768) every
+// step for a few rows on CUDA cores.  The slice (Kh x (4U + 8) f32), the
+// staged h (chunk x (Kh + 4) f32) and the projection's double buffer
+// double in shared memory, so the planner takes narrower chunks at the
+// band paths and at H = 768 (ops/cuda_lstm.plan_persistent with elem = 4:
+// 16-row chunks, three a step at the flow validation's 96 rows); h is
+// staged with 16-byte L2-only copies of 4 f32 where H is a multiple of 4
+// and plain L2 loads otherwise.  What bounds it: as in bf16 the barrier
+// per step, plus three products and the splits, and twice the staged bytes
+// per chunk.
 // ---------------------------------------------------------------------------
 
 template <typename T>
@@ -746,13 +751,12 @@ __device__ __forceinline__ void stage_segments(T* dst, int U, const T* src, size
   }
 }
 
-// T = bf16: K2p, K3p, K4p, K6p; T = float (STORE only): K4p and K6p's
-// float32 route, the same walk with f32 exchange, residuals and projection
-// and 3xTF32 products.
+// T = bf16: K2p, K3p, K4p, K6p; T = float: their float32 routes (K2p-f32,
+// K3p-f32, K4p-f32, K6p-f32), the same walk with f32 exchange, carry,
+// residuals and projection and 3xTF32 products.
 template <typename T, bool REVERSE, bool MASKED, bool STORE>
 __global__ void __launch_bounds__(kThreads, 1) scan_persistent_kernel(const ScanArgs<T> a) {
   constexpr bool kF32 = std::is_same_v<T, float>;
-  static_assert(!kF32 || STORE, "the float32 route is K4p/K6p's");
   constexpr int kAcc = kF32 ? kAccBlocksTf32 : kAccBlocks;
   constexpr int kSlots = kF32 ? kCellSlotsF32 : kCellSlots;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -1051,10 +1055,10 @@ int lstm_streamin_persistent(const void* x, const void* w, const void* bias, voi
 // reverse only): xp (R, T, 4H) bf16, the packed W_hh^T (S, Kh, 4U) bf16 ->
 // out (R, T, H) bf16; K4p / K6p the same with gates (R, T, 4H) and c_res
 // (R, T, H) (both null for K2p / K3p), and, elem = 4, every one of these
-// f32 (K4p / K6p only); K2p's carry: h0 (R, H) bf16 and c0 (R, H) f32, both
-// or neither, the state before step 0, and hT, cT (the same), both or
-// neither, the last step's (null for K3p-K6p); c_global (R, H) f32 scratch
-// unless c_in_smem; counters (G) int32 zeros.  Returns the cudaError_t of
+// f32 (K2p-f32 - K6p-f32); K2p's carry: h0 (R, H) in the element type and
+// c0 (R, H) f32, both or neither, the state before step 0, and hT, cT (the
+// same), both or neither, the last step's (null for K3p-K6p); c_global
+// (R, H) f32 scratch unless c_in_smem; counters (G) int32 zeros.  Returns the cudaError_t of
 // the cooperative launch, as lstm_fusedin_persistent.
 int lstm_scan_persistent(const void* xp, const void* w, const void* lengths, void* out,
                          void* gates, void* c_res, const void* h0, const void* c0, void* hT,
@@ -1081,7 +1085,7 @@ int lstm_scan_persistent(const void* xp, const void* w, const void* lengths, voi
   if ((h0 == nullptr) != (c0 == nullptr) || (hT == nullptr) != (cT == nullptr) ||
       (carry && (masked || store)) ||
       (elem != 2 && elem != 4) || bad_plan(p, true) || (!c_in_smem && c_global == nullptr) ||
-      (masked && !reverse) || store != (c_res != nullptr) || (elem == 4 && !store) ||
+      (masked && !reverse) || store != (c_res != nullptr) ||
       (elem == 4 && (chunk / 16 * col_blocks > kAccBlocksTf32 ||
                      chunk * U > kThreads * kCellSlotsF32)))
     return (int)cudaErrorInvalidValue;
@@ -1097,14 +1101,19 @@ int lstm_scan_persistent(const void* xp, const void* w, const void* lengths, voi
   ScanArgs<float> af{static_cast<const float*>(xp), static_cast<const float*>(w),
                      static_cast<const int*>(lengths), static_cast<float*>(out),
                      static_cast<float*>(c_global), static_cast<int*>(counters), p,
-                     static_cast<float*>(gates), static_cast<float*>(c_res), nullptr, nullptr,
-                     nullptr, nullptr};
+                     static_cast<float*>(gates), static_cast<float*>(c_res),
+                     static_cast<const float*>(h0), static_cast<const float*>(c0),
+                     static_cast<float*>(hT), static_cast<float*>(cT)};
   if (elem == 4) {
-    const void* kernels[3] = {
-        reinterpret_cast<const void*>(scan_persistent_kernel<float, false, false, true>),
-        reinterpret_cast<const void*>(scan_persistent_kernel<float, true, false, true>),
-        reinterpret_cast<const void*>(scan_persistent_kernel<float, true, true, true>)};
-    kernel = kernels[dir];
+    // [store][forward, reverse, masked reverse]: K2p-f32, K3p-f32; K4p-f32, K6p-f32
+    const void* kernels[2][3] = {
+        {reinterpret_cast<const void*>(scan_persistent_kernel<float, false, false, false>),
+         reinterpret_cast<const void*>(scan_persistent_kernel<float, true, false, false>),
+         reinterpret_cast<const void*>(scan_persistent_kernel<float, true, true, false>)},
+        {reinterpret_cast<const void*>(scan_persistent_kernel<float, false, false, true>),
+         reinterpret_cast<const void*>(scan_persistent_kernel<float, true, false, true>),
+         reinterpret_cast<const void*>(scan_persistent_kernel<float, true, true, true>)}};
+    kernel = kernels[store][dir];
     params[0] = &af;
   } else {
     // [store][forward, reverse, masked reverse]

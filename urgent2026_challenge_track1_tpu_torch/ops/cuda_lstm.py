@@ -27,13 +27,15 @@ bfloat16, h and c always float32):
                   ``scan_route``: K2p / K3p (``lstm_scan_persistent``,
                   ``lstm_revmasked_persistent``, csrc/lstm_persistent.cu) for
                   bfloat16 where ``plan_persistent`` finds a one-direction
-                  plan, else the walk (``lstm_scan_walk``,
-                  ``lstm_revmasked_walk``, csrc/lstm_kernels.cu)
+                  plan, and K2p-f32 / K3p-f32 for float32 (3xTF32 products)
+                  where its float32 plan (elem = 4) fits, else the walk
+                  (``lstm_scan_walk``, ``lstm_revmasked_walk``,
+                  csrc/lstm_kernels.cu; float32 at H = 1020)
 
   lstm_train_fwd            (K4) as lstm_scan      -> h, gates (R, T, 4H), c
   lstm_revmasked_train_fwd  (K6) as lstm_revmasked -> h, gates, c
                   each on one of two routes, fixed before launch by
-                  ``scan_route(..., store=True)``: K4p / K6p
+                  ``scan_route``, on K2's and K3's plans: K4p / K6p
                   (``lstm_train_fwd_persistent``,
                   ``lstm_revmasked_train_fwd_persistent``, K2p's kernel
                   that also stores the residuals) for bfloat16 with a
@@ -390,7 +392,7 @@ def persistent_smem(N: int, H: int, U: int, chunk: int, rows: int = 0,
     f32); then K1p's bias (4U f32) or, for the walks over a hoisted
     projection (N = 0: K2p-K6p), a double buffer of the projection's 4U
     columns (2 x chunk x 4U elements).  ``elem``: the element's bytes, 2
-    (bfloat16) or 4 (float32: K4p/K6p's float32 route with N = 0, K1p-f32
+    (bfloat16) or 4 (float32: K2p-K6p's float32 routes with N = 0, K1p-f32
     and K8p-f32 with N > 0), which doubles the slice, the staged chunk and
     the projection's buffer.  The pads spread rows over the banks: a staged
     row is an odd multiple of 16 bytes (kh + 8 bf16, kh + 4 f32), a slice
@@ -411,7 +413,7 @@ class PersistentPlan:
     a global buffer.  K1p: dirs = 2 over N inputs (K1p-f32 also dirs = 1:
     one launch a direction); K8p: dirs = 1 over N inputs; K2p-K6p: dirs =
     1, N = 0 (the input projection is hoisted).  ``elem``: the element's
-    bytes, 2 (bfloat16) or 4 (float32: K4p/K6p's, K1p's and K8p's float32
+    bytes, 2 (bfloat16) or 4 (float32: K2p-K6p's, K1p's and K8p's float32
     routes)."""
     R: int
     N: int
@@ -1141,31 +1143,29 @@ def fusedin_bilstm_persistent(x: torch.Tensor, w_ih_t: torch.Tensor, w_hh_t: tor
     return out
 
 
-def scan_route(dtype: torch.dtype, R: int, H: int, sms: int,
-               store: bool = False) -> PersistentPlan | None:
-    """The route of K2 and K3 and, with ``store``, of K4 and K6 (the
-    training forwards, whose persistent kernels K4p / K6p are K2p's and
-    K3p's with the residual stores): a fixed rule decided before launch
-    from the dtype and the shape.  bfloat16 takes the one-direction plan
+def scan_route(dtype: torch.dtype, R: int, H: int, sms: int) -> PersistentPlan | None:
+    """The route of K2, K3 and the training forwards K4 and K6 (whose
+    persistent kernels K4p / K6p are K2p's and K3p's with the residual
+    stores, on the same plans): a fixed rule decided before launch from the
+    dtype and the shape.  bfloat16 takes the one-direction plan
     ``plan_persistent`` finds on ``sms`` SMs; float32 takes the float32
-    plan (elem = 4, 3xTF32 products) for the storing kernels K4 and K6
-    only; anything else, or no plan, is None (the walk).  K2 and K3 in
-    float32 stay walks."""
+    plan (elem = 4, 3xTF32 products: K2p-f32, K3p-f32, K4p-f32, K6p-f32);
+    anything else, or no plan, is None (the walk: float32 at H = 1020)."""
     if dtype == torch.bfloat16:
         return plan_persistent(R, 0, H, sms, dirs=1)
-    if dtype == torch.float32 and store:
+    if dtype == torch.float32:
         return plan_persistent(R, 0, H, sms, dirs=1, elem=4)
     return None
 
 
-def _routed(plain, walk, persistent, store, x_proj: torch.Tensor, *args, **kwargs):
-    """The dispatch of K2, K3 and (``store``) K4, K6 on ``(x_proj, *args)``:
+def _routed(plain, walk, persistent, x_proj: torch.Tensor, *args, **kwargs):
+    """The dispatch of K2, K3, K4 and K6 on ``(x_proj, *args)``:
     the plain version on the CPU, else the route ``scan_route`` picks (the
     persistent kernel with its plan, or the walk)."""
     if x_proj.device.type == "cpu":
         return plain(x_proj, *args, **kwargs)
     R, _, G = x_proj.shape
-    plan = scan_route(x_proj.dtype, R, G // 4, _sm_count(_device_index(x_proj.device)), store)
+    plan = scan_route(x_proj.dtype, R, G // 4, _sm_count(_device_index(x_proj.device)))
     if plan is None:
         return walk(x_proj, *args, **kwargs)
     return persistent(x_proj, *args, plan, **kwargs)
@@ -1174,12 +1174,12 @@ def _routed(plain, walk, persistent, store, x_proj: torch.Tensor, *args, **kwarg
 def lstm_scan(x_proj: torch.Tensor, w_hh_t: torch.Tensor, reverse: bool = False,
               initial_state=None, return_state: bool = False):
     """K2: one direction over a hoisted projection; (R, T, 4H) -> (R, T, H),
-    on the route ``scan_route`` picks (K2p or the walk).  The carry of a
-    chunked stream (JAX ``_scan_dir``'s): ``initial_state`` (h0 (R, H) in
-    x_proj's dtype, c0 (R, H) float32) starts the walk there instead of at
-    zeros, and ``return_state`` returns (h, (hT, cT)), the last step's
-    state in the same dtypes."""
-    return _routed(lstm_scan_plain, lstm_scan_walk, lstm_scan_persistent, False,
+    on the route ``scan_route`` picks (K2p, K2p-f32 or the walk).  The
+    carry of a chunked stream (JAX ``_scan_dir``'s): ``initial_state`` (h0
+    (R, H) in x_proj's dtype, c0 (R, H) float32) starts the walk there
+    instead of at zeros, and ``return_state`` returns (h, (hT, cT)), the
+    last step's state in the same dtypes."""
+    return _routed(lstm_scan_plain, lstm_scan_walk, lstm_scan_persistent,
                    x_proj, w_hh_t, reverse, initial_state=initial_state,
                    return_state=return_state)
 
@@ -1187,11 +1187,11 @@ def lstm_scan(x_proj: torch.Tensor, w_hh_t: torch.Tensor, reverse: bool = False,
 def lstm_revmasked(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
                    lengths: torch.Tensor) -> torch.Tensor:
     """K3: length-masked reverse walk; (R, T, 4H), (R,) -> (R, T, H), on the
-    route ``scan_route`` picks (K3p or the walk).  Outputs at t < lengths[r]
-    equal a fresh reverse scan of the valid prefix; outputs at t >=
-    lengths[r] are unspecified to callers (both routes write the plain
+    route ``scan_route`` picks (K3p, K3p-f32 or the walk).  Outputs at t <
+    lengths[r] equal a fresh reverse scan of the valid prefix; outputs at t
+    >= lengths[r] are unspecified to callers (both routes write the plain
     version's)."""
-    return _routed(lstm_revmasked_plain, lstm_revmasked_walk, lstm_revmasked_persistent, False,
+    return _routed(lstm_revmasked_plain, lstm_revmasked_walk, lstm_revmasked_persistent,
                    x_proj, w_hh_t, lengths)
 
 
@@ -1290,17 +1290,17 @@ def _scan_persistent(fn, x_proj, w_hh_t, reverse, lengths, plan, store=False,
     """Launch K2p (``lengths`` None) or K3p, or with ``store`` K4p or K6p
     (then returns h, gates, c): one cooperative grid of G x S CTAs over
     ``plan`` (``plan_persistent``'s for one direction by default); a grid
-    the card cannot hold resident raises.  bfloat16, or float32 for K4p and
-    K6p (the float32 route: f32 throughout, 3xTF32 products).  K2p only:
-    ``lstm_scan``'s carry (``initial_state``, ``return_state``)."""
+    the card cannot hold resident raises.  bfloat16 or float32 (the float32
+    routes K2p-f32 - K6p-f32: f32 throughout, 3xTF32 products).  K2p only
+    (either dtype): ``lstm_scan``'s carry (``initial_state``,
+    ``return_state``)."""
     name = fn.__name__ + "_persistent"
     if (initial_state is not None or return_state) and (store or lengths is not None):
         raise ValueError(f"{name} takes no carry: only K2p carries (h, c)")
     if x_proj.device.type != "cuda":
         raise ValueError(f"kernel input on unsupported device {x_proj.device}")
-    if not (x_proj.dtype == torch.bfloat16 or store and x_proj.dtype == torch.float32):
-        raise TypeError(f"{name} takes bfloat16{' or float32' if store else ''} inputs, "
-                        f"not {x_proj.dtype}")
+    if x_proj.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name} takes bfloat16 or float32 inputs, not {x_proj.dtype}")
     elem = x_proj.element_size()
     R, T, H, out = _check_scan(x_proj, w_hh_t, lengths)
     plan = plan or plan_persistent(R, 0, H, _sm_count(_device_index(x_proj.device)), dirs=1,
@@ -1343,9 +1343,11 @@ def _scan_persistent(fn, x_proj, w_hh_t, reverse, lengths, plan, store=False,
 def lstm_scan_persistent(x_proj: torch.Tensor, w_hh_t: torch.Tensor, reverse: bool = False,
                          plan: PersistentPlan | None = None, initial_state=None,
                          return_state: bool = False):
-    """K2p (csrc/lstm_persistent.cu), bfloat16 only: packs W_hh for ``plan``
-    and launches one cooperative grid; with ``lstm_scan``'s carry.  Counted
-    in ``lstm_scan.launches`` and ``.routes["persistent"]``."""
+    """K2p (csrc/lstm_persistent.cu ``scan_persistent_kernel<T, REVERSE,
+    false, false>``), bfloat16, or K2p-f32, float32 (T = float: 3xTF32
+    products, the plan's elem = 4): packs W_hh for ``plan`` and launches one
+    cooperative grid; with ``lstm_scan``'s carry (h0 and hT in x_proj's
+    dtype).  Counted in ``lstm_scan.launches`` and ``.routes["persistent"]``."""
     if x_proj.device.type == "cpu":
         return lstm_scan_plain(x_proj, w_hh_t, reverse, initial_state, return_state)
     return _scan_persistent(lstm_scan, x_proj, w_hh_t, reverse, None, plan,
@@ -1355,9 +1357,10 @@ def lstm_scan_persistent(x_proj: torch.Tensor, w_hh_t: torch.Tensor, reverse: bo
 def lstm_revmasked_persistent(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
                               lengths: torch.Tensor,
                               plan: PersistentPlan | None = None) -> torch.Tensor:
-    """K3p (csrc/lstm_persistent.cu), bfloat16 only, as ``lstm_scan_persistent``;
-    its output equals the plain version's at every step.  Counted in
-    ``lstm_revmasked.launches`` and ``.routes["persistent"]``."""
+    """K3p (``scan_persistent_kernel<T, true, true, false>``), bfloat16, or
+    K3p-f32, float32, as ``lstm_scan_persistent``; its output equals the
+    plain version's at every step.  Counted in ``lstm_revmasked.launches``
+    and ``.routes["persistent"]``."""
     if x_proj.device.type == "cpu":
         return lstm_revmasked_plain(x_proj, w_hh_t, lengths)
     return _scan_persistent(lstm_revmasked, x_proj, w_hh_t, True, lengths, plan)
@@ -1373,20 +1376,19 @@ def _train_outputs(x_proj: torch.Tensor, H: int):
 def lstm_train_fwd(x_proj: torch.Tensor, w_hh_t: torch.Tensor, reverse: bool = False):
     """K4: ``lstm_scan`` that also returns the backward's residuals;
     (R, T, 4H) -> (h (R, T, H), gates i, f, g, o (R, T, 4H), c (R, T, H)),
-    all in x_proj's dtype, on the route ``scan_route(..., store=True)``
-    picks (K4p, bfloat16 or float32, or the walk)."""
-    return _routed(lstm_train_fwd_plain, lstm_train_fwd_walk, lstm_train_fwd_persistent, True,
+    all in x_proj's dtype, on the route ``scan_route`` picks (K4p,
+    bfloat16 or float32, or the walk)."""
+    return _routed(lstm_train_fwd_plain, lstm_train_fwd_walk, lstm_train_fwd_persistent,
                    x_proj, w_hh_t, reverse)
 
 
 def lstm_revmasked_train_fwd(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
                              lengths: torch.Tensor):
     """K6: ``lstm_revmasked`` that also returns the backward's residuals
-    (h and c unmasked), as ``lstm_train_fwd``, on the route
-    ``scan_route(..., store=True)`` picks (K6p, bfloat16 or float32, or the
-    walk)."""
+    (h and c unmasked), as ``lstm_train_fwd``, on the route ``scan_route``
+    picks (K6p, bfloat16 or float32, or the walk)."""
     return _routed(lstm_revmasked_train_fwd_plain, lstm_revmasked_train_fwd_walk,
-                   lstm_revmasked_train_fwd_persistent, True, x_proj, w_hh_t, lengths)
+                   lstm_revmasked_train_fwd_persistent, x_proj, w_hh_t, lengths)
 
 
 def lstm_train_fwd_walk(x_proj: torch.Tensor, w_hh_t: torch.Tensor, reverse: bool = False):

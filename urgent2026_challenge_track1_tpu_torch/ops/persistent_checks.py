@@ -9,7 +9,7 @@ walks with exactly that fault (``lstm_train_fwd_streamin_stale_h``: K8p's),
 and ``lstm_train_bwd_stale_dg`` the plain backward whose exchange (the
 dgates in dx_proj) is one step stale (K10p's, per direction); a check
 passes only if the kernel is within ``ulp_limit`` (bfloat16) or
-``F32_LIMIT`` (the float32 routes K4p/K6p-f32, K1p-f32, K8p-f32) of the
+``F32_LIMIT`` (the float32 routes K2p-f32 - K6p-f32, K1p-f32, K8p-f32) of the
 plain version and the faulty walk is not; ``persistent_limit`` picks the
 one for the output's dtype.  ``lstm_scan_tf32``, the plain walk whose
 product is one TF32 product, is the float32 limit's control (and
@@ -20,12 +20,13 @@ one that computes below float32.  The float32
 backwards (K5p-f32, K7p-f32) are held within ``F32_BWD_LIMIT`` of max|plain
 dx_proj| (``bwd_limit``), with ``lstm_train_bwd_tf32``, the plain
 backward whose dh product is one TF32 product, as that limit's control.
-K2 with a carry (K2p in bfloat16, the walk in float32) is held by
+K2 with a carry (K2p, K2p-f32 and the walk) is held by
 ``scan_carry_report``: h at every step, hT and cT against the plain
 version's last state within ``carry_limit`` (``ulp_limit`` on K2p,
-``WALK_F32_TOL`` on the float32 walk, the K2 walk's limit), hT equal to
-the kernel's own last h, and ``lstm_scan_dropped_carry``, the plain walk
-that drops (h0, c0) and starts from zeros, beyond the limit.
+``F32_LIMIT`` on K2p-f32, ``WALK_F32_TOL`` on the float32 walk, the K2
+walk's limit), hT equal to the kernel's own last h, and
+``lstm_scan_dropped_carry``, the plain walk that drops (h0, c0) and starts
+from zeros, beyond the limit.
 Used by ``chip_smoke.py`` and the card tests
 (tests/test_torch_cuda_kernels.py).
 """
@@ -91,11 +92,13 @@ def bwd_limit(ref: torch.Tensor) -> float:
     return ulp_limit(ref)
 
 
-def carry_limit(ref: torch.Tensor) -> float:
+def carry_limit(ref: torch.Tensor, walk: bool = False) -> float:
     """The limit of K2 with a carry against its plain output ``ref`` (h, or
-    the float32 c): WALK_F32_TOL on the float32 walk, ``ulp_limit(ref)`` on
-    K2p (bfloat16)."""
-    return WALK_F32_TOL if ref.dtype == torch.float32 else ulp_limit(ref)
+    the float32 c): ``ulp_limit(ref)`` on K2p (bfloat16), F32_LIMIT on
+    K2p-f32, WALK_F32_TOL on the float32 walk (``walk``)."""
+    if ref.dtype != torch.float32:
+        return ulp_limit(ref)
+    return WALK_F32_TOL if walk else F32_LIMIT
 
 
 def lstm_scan_dropped_carry(x_proj: torch.Tensor, w_hh_t: torch.Tensor, reverse: bool = False):
@@ -105,12 +108,13 @@ def lstm_scan_dropped_carry(x_proj: torch.Tensor, w_hh_t: torch.Tensor, reverse:
 
 
 def scan_carry_report(got: torch.Tensor, state, x_proj: torch.Tensor, w_hh_t: torch.Tensor,
-                      reverse: bool, initial_state) -> dict:
+                      reverse: bool, initial_state, walk: bool = False) -> dict:
     """K2's output ``got`` and last state ``state`` (hT, cT) from a launch
     with ``initial_state`` against the plain version: max abs differences
     of h (every step), hT and cT; whether hT is the kernel's own last h;
-    the limits (``carry_limit``, cT's in float32 at the scale of the plain
-    cT: 4 bf16 ulps on K2p); the dropped-carry fault's difference."""
+    the limits (``carry_limit``, ``walk`` for the float32 walk; cT's in
+    float32, at the scale of the plain cT on K2p: 4 bf16 ulps); the
+    dropped-carry fault's difference."""
     ref, (rh, rc) = lstm_scan_plain(x_proj, w_hh_t, reverse, initial_state, True)
     dropped, _ = lstm_scan_dropped_carry(x_proj, w_hh_t, reverse)
     last = 0 if reverse else got.shape[1] - 1
@@ -118,11 +122,11 @@ def scan_carry_report(got: torch.Tensor, state, x_proj: torch.Tensor, w_hh_t: to
     def err(a, b):
         return float((a.float() - b.float()).abs().max())
 
-    limit = carry_limit(ref)
+    limit = carry_limit(ref, walk)
     return {"h": err(got, ref), "hT": err(state[0], rh), "cT": err(state[1], rc),
             "hT_is_last_h": bool(torch.equal(state[0], got[:, last])),
             "limit": limit,
-            "c_limit": WALK_F32_TOL if ref.dtype == torch.float32 else ulp_limit(rc),
+            "c_limit": limit if ref.dtype == torch.float32 else ulp_limit(rc),
             "dropped_carry": err(dropped, ref)}
 
 
