@@ -8,7 +8,9 @@ and ``chip_smoke.py``: builds its kernels, then times one length-exact
 forward (B=1, 3.7 s at 48 kHz in a 4 s bucket, 196 x 6, bf16), the forward
 at the JAX bench geometry (B=64, 4 s at 48 kHz, 192 x 6, bf16, no lengths),
 the discriminative train step (``chip_smoke._train_step_times``: B=4, 2 s
-at 48 kHz, 196 x 6, float32 and bfloat16, peak memory), the flow train
+at 48 kHz, 196 x 6, float32 and bfloat16, peak memory), one train step of
+the disc bf16 and the flow f32 family under FUSED_BIDIR_TRAIN (K9 and K10
+on the band path; median of 3 after 1 warm-up), the flow train
 step and enhancement (``chip_smoke._flow_step_and_enhance_times``), the
 enhancement again as the median of 5 (``flow_enhance5_ms``), K1p alone
 (``fusedin_bilstm_persistent``, CUDA events) at each of
@@ -28,11 +30,12 @@ Prints one JSON line per visit (``[ab] {...}``, with the registers and
 spill bytes ptxas reported for each persistent and dW kernel), then whether
 each tree's persistent kernels that the first tree also has (K1p and K8p
 and every ``scan_persistent_kernel`` instance (K2p-K6p), bf16 and f32, the
-K5p/K7p instances of ``bwd_persistent_kernel``, and the dW kernels)
+K5p/K7p instances of ``bwd_persistent_kernel``, K10p's
+``bwd2_persistent_kernel``, and the dW kernels)
 compiled to the first tree's instructions (``cuobjdump -sass``, addresses
 and encodings dropped), and whether K1p's outputs at
-``chip_smoke.K1_ROUTE_SHAPES``, K5p's (with its dW) at the disc band (804 x
-34, bf16 and f32) and K8p's, K2p's, K3p's, K4p's, K6p's (bf16 and f32) and
+``chip_smoke.K1_ROUTE_SHAPES``, K5p's and K10p's (with their dW) at the
+disc band (804 x 34, bf16 and f32) and K8p's, K2p's, K3p's, K4p's, K6p's (bf16 and f32) and
 K7p's at the disc time path (136 x 201), and K2p's with a carry at the
 stream step (34 x 8), equal the first tree's bit for bit (sha256 of the
 bytes, seeded inputs; K2p-f32's and K3p-f32's digests, where a tree has
@@ -96,6 +99,34 @@ with torch.inference_mode():
                                         reps=3, warmup=1)
     del model, wav
 out["train_step"] = cs._train_step_times(device)
+# one train step of each family under FUSED_BIDIR_TRAIN (K9 and K10 on the
+# band path; disc bf16 and flow f32): median of 3 after 1 warm-up
+from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
+from urgent2026_challenge_track1_tpu_torch.train import trainer
+out["fused_step_ms"] = {}
+K.FUSED_BIDIR_TRAIN = True
+for fam, cfg in (("disc_bfloat16", cs._train_config(Path("."), compute_dtype="bfloat16")),
+                 ("flow_float32", cs._flow_config(Path(".")))):
+    bundle = trainer.build_model(cfg)
+    model = trainer.init_params(cfg.seed, bundle, device)
+    opt = trainer.make_optimizer(cfg, model)
+    step = trainer.make_train_step(bundle, cfg, 48000)
+    if fam.startswith("disc"):
+        batch = cs._train_batch(device)
+    else:
+        clean, noisy, _ = cs._train_batch(device, B=2)
+        batch = (clean, noisy, torch.tensor([int(s * 48000) for s in cs.FLOW_SECONDS],
+                                            dtype=torch.int32, device=device))
+    times = []
+    for i in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(model, opt, *batch, generator=trainer.step_generator(cfg.seed, i))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["fused_step_ms"][fam] = statistics.median(times[1:])
+    del model, opt
+K.FUSED_BIDIR_TRAIN = False
 out["flow"] = cs._flow_step_and_enhance_times(device)
 from urgent2026_challenge_track1_tpu_torch.models import bsrnn_flowse as F
 from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
@@ -138,6 +169,19 @@ with torch.inference_mode():
         res = K.lstm_train_fwd_plain(xp, wh[0])
         out["sha256"][f"k5p_{dtype}_{R}x{T}"] = digest(*K.lstm_train_bwd(*res, dout, wh[0]))
         del xp, wh, dout, res
+    # K10p (bf16 and f32, its dW kernels included) at the disc band on the
+    # plain forward's residuals, on each tree's routed K10 (K10p there)
+    for dtype in (torch.bfloat16, torch.float32):
+        R, T, H = 804, 34, 392
+        _, _, wh, _, xp, _ = cs._kernel_inputs(R, T, dtype, device, R + 2 * T, hid=H)
+        gen = torch.Generator().manual_seed(R + 2)
+        xp_b = (0.3 * torch.randn((R, T, 4 * H), generator=gen)).to(device, dtype)
+        dout = (0.1 * torch.randn((2, R, T, H), generator=gen)).to(device, dtype)
+        res = K.lstm_train_fwd2_plain(xp, xp_b, wh[0], wh[1])
+        dt = "bf16" if dtype == torch.bfloat16 else "f32"
+        out["sha256"][f"k10p_{dt}"] = digest(*K.lstm_train_bwd2_persistent(
+            res[:3], res[3:], dout[0], dout[1], wh[0], wh[1]))
+        del xp, xp_b, wh, dout, res
     # K8p (bf16), K2p / K3p (bf16), K4p / K6p (bf16 and f32) and K7p (bf16) at
     # the disc train step's time path, on each tree's persistent wrappers
     # with their default plans
@@ -257,6 +301,8 @@ def _summary(visits):
         for dt in ("float32", "bfloat16"):
             keys[f"{fam}_step_{dt}_ms"] = lambda v, p=part, d=dt: v[p][d]["median_ms"]
             keys[f"{fam}_step_{dt}_peak_gb"] = lambda v, p=part, d=dt: v[p][d]["peak_memory_gb"]
+    for fam in ("disc_bfloat16", "flow_float32"):
+        keys[f"fused_step_{fam}_ms"] = lambda v, f=fam: v["fused_step_ms"][f]
     keys["flow_enhance_ms"] = lambda v: v["flow"]["enhance"]["ms"]
     keys["flow_enhance5_ms"] = lambda v: v["flow_enhance5_ms"]
     for shape in visits[0]["k1p_ms"]:
@@ -284,7 +330,8 @@ def _sass(library: str) -> dict:
     ``scan_persistent_kernel`` instances (K2p-K6p and their float32 routes)
     keyed (kernel, "bf16" or "f32", REVERSE, MASKED, STORE), the
     ``bwd_persistent_kernel`` instances keyed (kernel, "bf16" or "f32",
-    MASKED), and the dW kernels (dw_tc_kernel, dw_tf32_kernel)."""
+    MASKED), the ``bwd2_persistent_kernel`` instances (K10p) keyed (kernel,
+    "bf16" or "f32"), and the dW kernels (dw_tc_kernel, dw_tf32_kernel)."""
     from urgent2026_challenge_track1_tpu_torch.ops._build import find_nvcc
 
     cuobjdump = Path(find_nvcc()).with_name("cuobjdump")
@@ -293,15 +340,15 @@ def _sass(library: str) -> dict:
     kernels, body = {}, None
     for line in text.splitlines():
         head = re.search(r"Function : \S*?(fusedin_persistent_kernel|scan_persistent_kernel|"
-                         r"bwd_persistent_kernel|dw_tc_kernel|dw_tf32_kernel)"
-                         r"(?:I(13__nv_bfloat16|f)?((?:Lb[01]E)+)E)?", line)
+                         r"bwd2?_persistent_kernel|dw_tc_kernel|dw_tf32_kernel)"
+                         r"(?:I(13__nv_bfloat16|f)?((?:Lb[01]E)*)E)?", line)
         if "Function :" in line:
             body = None
             if head:
                 name, f32 = head.group(1), head.group(2) == "f"
                 flags = tuple(int(f) for f in re.findall(r"Lb([01])E", head.group(3) or ""))
                 if name in ("fusedin_persistent_kernel", "scan_persistent_kernel",
-                            "bwd_persistent_kernel"):
+                            "bwd_persistent_kernel", "bwd2_persistent_kernel"):
                     body = kernels.setdefault((name, "f32" if f32 else "bf16", *flags), [])
                 elif name in ("dw_tc_kernel", "dw_tf32_kernel"):
                     body = kernels.setdefault((name,), [])

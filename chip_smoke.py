@@ -10,13 +10,17 @@ Phases (any failure exits non-zero; each prints its seconds):
      main paths' shapes, in float32 (TF32 off) and bfloat16: the inference
      kernels K1 (its walk) - K3, then the training kernels K4-K7 (h, gates,
      c, dx_proj, dW), at the discriminative width (H = 392) and at the flow
-     model's (H = 768); then the walks of K8-K10 at both widths' training
-     shapes, and K9 / K10's walk against K4/K5 run per direction (bitwise
-     equal); then K8p (bfloat16 and float32: K8p-f32) and K10p (bfloat16
-     and float32), the persistent routes of K8 and K10, against their plain
-     versions with planted faults, TF32 controls and dW bounds, K10p against K5p run per
-     direction (bitwise equal), and their, the walks', the default arm's
-     and torch.nn.LSTM's times (the k8p/k10p routes phase); then K1p, K1's
+     model's (H = 768); then the walks of K8-K10 at the discriminative band
+     path in both dtypes (K9's: K4's walk once a direction) and K8's walk at
+     H = 1020 in float32 (where it is still the route), K10's walk against
+     K5's run per direction (bitwise equal); then K8p (bfloat16 and float32: K8p-f32), K9p (two
+     K4p / K4p-f32 launches) and K10p (bfloat16 and float32; at the flow
+     band in float32 its one-direction pair, a K5p-f32 launch a direction),
+     the persistent routes of K8-K10, against their plain versions with
+     planted faults, TF32 controls and dW bounds, K9p against K4p and K10p
+     and the pair against K5p run per direction (bitwise equal), and their,
+     the walks', the default arm's and torch.nn.LSTM's times (the k8p/k10p
+     routes phase); then K1p, K1's
      persistent bfloat16 route, against the plain version and the walk at
      the eight shapes where K1 runs, with its plan and its, the walk's and
      cuDNN's times (the k1_routes phase); then K1p-f32, K1's float32 route
@@ -78,8 +82,10 @@ Phases (any failure exits non-zero; each prints its seconds):
      training's checkpoint in bfloat16 (nfev K1p forwards); then one
      float32 train step at 510 channels (H = 1020, where no float32
      K4p/K6p plan fits) takes the walks of K4 and K6 and K5p-f32 / K7p-f32,
-     the same step under STREAM_INPUT_TRAIN K8's walk and one float32
-     forward K1's (no float32 K8p / K1p plan fits there either);
+     the same step under STREAM_INPUT_TRAIN K8's walk, under
+     FUSED_BIDIR_TRAIN K9's walk route (K4's walk once a direction) and
+     K10's one-direction pair, and one
+     float32 forward K1's (no float32 K8p / K1p plan fits there either);
      then the causal streaming path (phase_causal): a causal
      streaming_norm model at 196 x 6 trains 3 float32 steps (K4p-f32,
      K5p-f32, dW-f32; no K6/K7), is saved and loaded for inference
@@ -105,23 +111,24 @@ Phases (any failure exits non-zero; each prints its seconds):
   4. the A/B arms of the two experiment toggles (default, STREAM_INPUT_TRAIN,
      FUSED_BIDIR_TRAIN, both, in alternating order) on one train step of
      each family: launches per kernel, loss and gradients against the
-     default arm, step times, and each step's K8 and K10 routes against
-     the route rules (K8p and K10p in bfloat16, K8p-f32 in the flow float32
-     family; a discriminative float32 family runs the default and fused
-     arms for K10p-f32); K8-K10 run here;
+     default arm (the fused arm's loss bit for bit, and in the flow family
+     its gradients too), step times, and each step's K8, K9 and K10 routes
+     against the route rules (K8p, K9p and K10p in bfloat16, K8p-f32,
+     K9p-f32 and K10's one-direction pair in the flow float32 family; a
+     discriminative float32 family runs the default and fused arms for
+     K9p-f32 and K10p-f32; no K9 or K10 walk); K8-K10 run here;
   5. compare a float32 forward, and one float32 train step's gradients, on
      the card (kernels) with the same on the CPU (plain versions), for both
-     families;
+     families (the flow model at full width, two layers deep);
   6. time each kernel, its plain version and (for K1) cuDNN's LSTM, the
      end-to-end forward at the JAX bench geometry, the train step at the
      baseline geometry in float32 and bfloat16 with its peak memory and
      launches per step and K4-K7's routes per dtype (K4p-K7p and their dW
      kernel in either dtype; no train step runs a walk),
-     K1-K7 at the flow shapes,
-     K8-K10 at both widths' training shapes (with the nn.LSTM calls for
-     their functions: K8 a one-direction training forward, K9/K10 the
-     bidirectional forward and backward, supersets), the flow train step
-     and one flow enhancement.
+     K1-K7 at the flow shapes (K8-K10's times are the k8p/k10p routes
+     phase's, with the nn.LSTM calls for their functions: K8 a
+     one-direction training forward, K9/K10 the bidirectional forward and
+     backward, supersets), the flow train step and one flow enhancement.
 
 The second line from the end is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or without the port
@@ -1497,6 +1504,7 @@ WIDE_CHANNELS = 510  # H = 1020: no float32 K4p/K6p plan fits, so K4 and K6 take
 WIDE_WALKS = ("lstm_train_fwd", "lstm_revmasked_train_fwd")
 WIDE_RUN = f"one float32 train step at {WIDE_CHANNELS} channels x 1 layer (B=1, 2 s at 48 kHz)"
 WIDE_STREAM_RUN = WIDE_RUN + " under STREAM_INPUT_TRAIN"
+WIDE_FUSED_RUN = WIDE_RUN + " under FUSED_BIDIR_TRAIN"
 WIDE_FORWARD_RUN = (f"one float32 forward at {WIDE_CHANNELS} channels x 1 layer (B=1, 2 s at "
                     "48 kHz, no lengths)")
 # K2 and K3 run on their walks only there (no float32 K2p/K3p plan fits at H = 1020)
@@ -1511,11 +1519,14 @@ def phase_walk_route(device):
     K5p-f32 / K7p-f32 (their float32 plans fit: the backward's slice needs
     no projection buffer), each with the float32 dW kernel; no K1-K3 runs.
     Then the same step under STREAM_INPUT_TRAIN (K8 on its walk: no
-    float32 K8p plan fits either), one float32 forward of that model
+    float32 K8p plan fits either) and under FUSED_BIDIR_TRAIN (K9 on its
+    walk, no float32 K4p plan; K10 on its one-direction pair: no float32
+    dirs = 2 plan fits, K5p-f32's does), one float32 forward of that model
     without lengths (K1 on its walk, band and time paths) and one with
     lengths (the time path's K2 and K3 on their walks: no float32 K2p/K3p
     plan fits either).  Returns the routes of the first step (the counts
-    set to 0 just before it), with K8's those of the second step, K1's
+    set to 0 just before it), with K8's those of the second step, K9's and
+    K10's those of the third, K1's
     those of the forward and K2's and K3's those of the length-exact
     forward (each likewise)."""
     import torch
@@ -1566,6 +1577,23 @@ def phase_walk_route(device):
     r = routes["lstm_train_fwd_streamin"]
     if r["walk"] <= 0 or r["persistent"]:
         fail(f"the wide float32 STREAM step: K8 routes {r}, expected the walk only")
+    saved = K.FUSED_BIDIR_TRAIN
+    K.FUSED_BIDIR_TRAIN = True
+    try:
+        K.reset_launch_counts()
+        m = step(model, trainer.make_optimizer(cfg, model), *_train_batch(device, B=1))
+        torch.cuda.synchronize()
+        for name in ("lstm_train_fwd2", "lstm_train_bwd2"):
+            routes[name] = K.route_counts(name)
+    finally:
+        K.FUSED_BIDIR_TRAIN = saved
+    print(f"[walk route] {WIDE_FUSED_RUN}: loss {float(m['loss']):.6g}, K9 routes "
+          f"{routes['lstm_train_fwd2']}, K10 routes {routes['lstm_train_bwd2']}")
+    r9, r10 = routes["lstm_train_fwd2"], routes["lstm_train_bwd2"]
+    if (not bool(torch.isfinite(m["loss"])) or r9["walk"] <= 0 or r9["persistent"]
+            or r10["persistent_split"] <= 0 or r10["walk"] or r10["persistent"]):
+        fail(f"the wide float32 FUSED step: K9 routes {r9} (expected the walk only), K10 "
+             f"routes {r10} (expected its one-direction pair only), or a non-finite loss")
     model.eval()
     with torch.inference_mode():
         K.reset_launch_counts()
@@ -2340,59 +2368,64 @@ NEW_KERNELS = ("lstm_train_fwd_streamin", "lstm_train_fwd2", "lstm_train_bwd2")
 
 def phase_new_kernels(device):
     """The walks of K8-K10 against their plain versions at the
-    discriminative training shapes (N = 196, H = 392) and the flow training
-    shapes (N = 384, H = 768), float32 and bfloat16: max abs error of the
-    forward outputs, max relative error of the backward's (each on the
-    plain forward's residuals).  K9 and K10's walk must equal K4 and K5 run
-    per direction bit for bit (against K4's and K5's walks, their device
-    code).  K8p and K10p, the persistent routes: phase_streamin_bwd2_routes.
-    Returns {(kernel, dtype): (abs error, relative error or None)}."""
+    discriminative band path (R = 804, T = 34, N = 196, H = 392), float32
+    and bfloat16, and K8's walk at H = 1020 in float32 (N = 510, the wide
+    step's band path R = 201, T = 34), the one width where it is still the
+    route (no float32 K8p plan fits): max abs error of the forward outputs,
+    max relative error of the backward's (each on the plain forward's
+    residuals).  K9's walk route is K4's walk once a direction, counted as
+    K9 (its H = 1020 route: phase_walk_route); K10's walk must equal K5's
+    walk run per direction bit for bit (its device code).  No shipped shape
+    launches the K10 walk, and the K8 and K9 walks only at H = 1020; the
+    card tests hold them at the other widths.  K8p, K9p and K10p against
+    plain: phase_streamin_bwd2_routes.  Returns {(kernel, dtype): (abs
+    error, relative error or None)}."""
     import torch
     from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
     from urgent2026_challenge_track1_tpu_torch.ops import persistent_checks as PC
 
     errs, note = _error_table()
-    for dt_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-        for n_in, hid, shapes in ((N_IN, HID, (TRAIN_TIME, TRAIN_BAND)),
-                                  (FLOW_N, FLOW_H, (FLOW_TIME, FLOW_BAND))):
-            for R, T in shapes:
-                x, w_ih_t, w_hh_t, bias, xp, _ = _kernel_inputs(R, T, dtype, device, R + 3 * T,
-                                                                n_in, hid)
-                gen = torch.Generator().manual_seed(R * 3 + T)
-                xp_b = (0.3 * torch.randn((R, T, 4 * hid), generator=gen)).to(device, dtype)
-                dout = torch.randn((2, R, T, hid), generator=gen).to(device, dtype)
-                for reverse in (False, True):
-                    got = K.lstm_train_fwd_streamin_walk(x, w_ih_t[0], bias[0], w_hh_t[0],
-                                                         reverse)
-                    ref = K.lstm_train_fwd_streamin_plain(x, w_ih_t[0], bias[0], w_hh_t[0],
-                                                          reverse)
-                    torch.cuda.synchronize()
-                    note(NEW_KERNELS[0], dt_name, max(_err(g, r) for g, r in zip(got, ref)))
-                got = K.lstm_train_fwd2(xp, xp_b, w_hh_t[0], w_hh_t[1])
-                ref = K.lstm_train_fwd2_plain(xp, xp_b, w_hh_t[0], w_hh_t[1])
-                # K4's walk: K9's device code (bfloat16 K4 takes K4p)
-                single = (*K.lstm_train_fwd_walk(xp, w_hh_t[0], False),
-                          *K.lstm_train_fwd_walk(xp_b, w_hh_t[1], True))
-                torch.cuda.synchronize()
-                note(NEW_KERNELS[1], dt_name, max(_err(g, r) for g, r in zip(got, ref)))
-                if not all(torch.equal(a, b) for a, b in zip(got, single)):
-                    fail(f"lstm_train_fwd2 {dt_name} R={R} T={T}: not bitwise the K4 walk per "
-                         "direction")
-                got = K.lstm_train_bwd2_walk(ref[:3], ref[3:], dout[0], dout[1], w_hh_t[0],
-                                             w_hh_t[1])
-                want = K.lstm_train_bwd2_plain(ref[:3], ref[3:], dout[0], dout[1], w_hh_t[0],
-                                               w_hh_t[1])
-                # K5's walk: K10's device code (bfloat16 K5 takes K5p)
-                single = (*K.lstm_train_bwd_walk(*ref[:3], dout[0], w_hh_t[0], False),
-                          *K.lstm_train_bwd_walk(*ref[3:], dout[1], w_hh_t[1], True))
-                torch.cuda.synchronize()
-                note(NEW_KERNELS[2], dt_name, max(_err(g, r) for g, r in zip(got, want)),
-                     max(_rel(g, r) for g, r in zip(got, want)))
-                if not all(torch.equal(a, b) for a, b in zip(got, single)):
-                    fail(f"lstm_train_bwd2 {dt_name} R={R} T={T}: not bitwise the K5 walk per "
-                         "direction")
-                print(f"[new kernels] {dt_name} R={R} T={T} N={n_in} H={hid}: K9 == K4 walk x 2 "
-                      "and K10 == K5 walk x 2 bit for bit")
+    sms = _sm_count(device)
+    cases = (("float32", torch.float32, N_IN, HID, TRAIN_BAND),
+             ("bfloat16", torch.bfloat16, N_IN, HID, TRAIN_BAND),
+             ("float32", torch.float32, WIDE_CHANNELS, 2 * WIDE_CHANNELS, (201, 34)))
+    for dt_name, dtype, n_in, hid, (R, T) in cases:
+        wide = hid == 2 * WIDE_CHANNELS
+        x, w_ih_t, w_hh_t, bias, xp, _ = _kernel_inputs(R, T, dtype, device, R + 3 * T,
+                                                        n_in, hid)
+        if wide and K.streamin_route(dtype, R, n_in, hid, sms) is not None:
+            fail(f"a float32 K8p plan fits at H = {hid}: its walk is no route there")
+        for reverse in (False, True):
+            got = K.lstm_train_fwd_streamin_walk(x, w_ih_t[0], bias[0], w_hh_t[0], reverse)
+            ref = K.lstm_train_fwd_streamin_plain(x, w_ih_t[0], bias[0], w_hh_t[0], reverse)
+            torch.cuda.synchronize()
+            note(NEW_KERNELS[0], dt_name, max(_err(g, r) for g, r in zip(got, ref)))
+        if wide:
+            del x, w_ih_t, w_hh_t, bias, xp, got, ref
+            continue
+        gen = torch.Generator().manual_seed(R * 3 + T)
+        xp_b = (0.3 * torch.randn((R, T, 4 * hid), generator=gen)).to(device, dtype)
+        dout = torch.randn((2, R, T, hid), generator=gen).to(device, dtype)
+        got = (*K.lstm_train_fwd_walk(xp, w_hh_t[0], False, fn=K.lstm_train_fwd2),
+               *K.lstm_train_fwd_walk(xp_b, w_hh_t[1], True, fn=K.lstm_train_fwd2))
+        ref = K.lstm_train_fwd2_plain(xp, xp_b, w_hh_t[0], w_hh_t[1])
+        torch.cuda.synchronize()
+        note(NEW_KERNELS[1], dt_name, max(_err(g, r) for g, r in zip(got, ref)))
+        got = K.lstm_train_bwd2_walk(ref[:3], ref[3:], dout[0], dout[1], w_hh_t[0], w_hh_t[1])
+        want = K.lstm_train_bwd2_plain(ref[:3], ref[3:], dout[0], dout[1], w_hh_t[0],
+                                       w_hh_t[1])
+        # K5's walk: K10's device code (K5 itself takes K5p)
+        single = (*K.lstm_train_bwd_walk(*ref[:3], dout[0], w_hh_t[0], False),
+                  *K.lstm_train_bwd_walk(*ref[3:], dout[1], w_hh_t[1], True))
+        torch.cuda.synchronize()
+        note(NEW_KERNELS[2], dt_name, max(_err(g, r) for g, r in zip(got, want)),
+             max(_rel(g, r) for g, r in zip(got, want)))
+        if not all(torch.equal(a, b) for a, b in zip(got, single)):
+            fail(f"lstm_train_bwd2 {dt_name} R={R} T={T}: not bitwise the K5 walk per "
+                 "direction")
+        print(f"[new kernels] {dt_name} R={R} T={T} N={n_in} H={hid}: K10's walk == K5 walk x 2 "
+              "bit for bit")
+        del x, w_ih_t, w_hh_t, bias, xp, xp_b, dout, ref, got, want, single
     for (name, dt_name), (e_abs, e_rel) in sorted(errs.items()):
         backward = name.endswith("bwd2")
         tol = BF16_TOL if dt_name == "bfloat16" else (GRAD_TOL if backward else PC.WALK_F32_TOL)
@@ -2425,17 +2458,124 @@ K8P_SHAPES = (("disc time B=4", *TRAIN_TIME, N_IN, HID),
 K8P_F32_SHAPES = K8P_SHAPES + (("flow band B=2", *FLOW_BAND, FLOW_N, FLOW_H),
                                ("odd N and H", 13, 7, 37, 46),
                                ("N = 2 mod 4", 21, 5, 38, 20))
-# (what, R, T, H): K10 on the band paths, where FUSED_BIDIR_TRAIN runs it
+# (what, R, T, H): K9 and K10 on the band paths, where FUSED_BIDIR_TRAIN
+# runs them
 K10P_SHAPES = (("disc band B=4", *TRAIN_BAND, HID),
                ("flow band B=2", *FLOW_BAND, FLOW_H),
                ("bench width", *TRAIN_BAND, BENCH_H))
+K9P_SHAPES = K10P_SHAPES
 K10P_DIRS = ("forward", "reverse")
 
 
+def _k9p_rows(device, sms):
+    """K9p (bfloat16 and float32) through the routed K9 at K9P_SHAPES: the
+    rule takes ``scan_route``'s plan and launches K4p twice (counted in K9's
+    persistent route, none in K4's); the pair equals two K4p launches on
+    that plan bit for bit, two calls are bitwise equal, and each
+    direction's h, gates and c are within 4 bf16 ulps at max|plain|
+    (F32_LIMIT in float32), which the stale-h fault with the residuals
+    (``persistent_checks.lstm_scan_stale_h``) and, in float32, one TF32
+    product (``lstm_scan_tf32``) must exceed.  Times: K9p, K9's walk route
+    (K4's walk once a direction, the route where no plan fits), the plain
+    version, the bidirectional torch.nn.LSTM training forward (a superset),
+    and the bound (twice K4's)."""
+    import torch
+    from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
+    from urgent2026_challenge_track1_tpu_torch.ops import persistent_checks as PC
+
+    rows = []
+    for what, R, T, H in K9P_SHAPES:
+        for dt_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+            f32 = dtype == torch.float32
+            label = "K9p-f32" if f32 else "K9p"
+            _, _, wh, _, xp, _ = _kernel_inputs(R, T, dtype, device, R + 11 * T + H, hid=H)
+            gen = torch.Generator().manual_seed(R + 2 * T)
+            xp_b = (0.3 * torch.randn((R, T, 4 * H), generator=gen)).to(device, dtype)
+            args = (xp, xp_b, wh[0], wh[1])
+            plan = K.scan_route(dtype, R, H, sms)
+            if plan is None:
+                fail(f"{label} at {what}: K4p has no plan")
+            K.reset_launch_counts()
+            got = K.lstm_train_fwd2(*args)
+            routes, k4 = K.route_counts("lstm_train_fwd2"), K.lstm_train_fwd.launches
+            again = K.lstm_train_fwd2(*args)
+            pair = (*K.lstm_train_fwd_persistent(xp, wh[0], False, plan),
+                    *K.lstm_train_fwd_persistent(xp_b, wh[1], True, plan))
+            ref = K.lstm_train_fwd2_plain(*args)
+            torch.cuda.synchronize()
+            bitwise = all(torch.equal(u, v) for u, v in zip(got, again))
+            equals_k4p = all(torch.equal(u, v) for u, v in zip(got, pair))
+            del again, pair
+            rec = {"what": what, "R": R, "T": T, "H": H, "dtype": dt_name, "routes": routes,
+                   "plan": {"S": plan.S, "G": plan.G, "U": plan.U, "rows": plan.rows,
+                            "chunk": plan.chunk, "c_in_smem": plan.c_in_smem,
+                            "smem_bytes": plan.smem, "ctas": plan.ctas},
+                   "bitwise_repeat": bitwise, "equals_k4p_per_direction": equals_k4p}
+            for d, (x, w, rev) in enumerate(((xp, wh[0], False), (xp_b, wh[1], True))):
+                mine, plain = got[3 * d:3 * d + 3], ref[3 * d:3 * d + 3]
+                limits = [PC.persistent_limit(r) for r in plain]
+                e_plain = [_err(g, r) for g, r in zip(mine, plain)]
+                e_stale = [_err(f, r) for f, r in zip(PC.lstm_scan_stale_h(x, w, rev,
+                                                                          residuals=True), plain)]
+                e_tf32 = ([_err(f, r) for f, r in zip(PC.lstm_scan_tf32(x, w, rev,
+                                                                        residuals=True), plain)]
+                          if f32 else None)
+                rec[K10P_DIRS[d]] = {
+                    "max_abs_err_vs_plain": dict(zip(RESIDUALS, e_plain)),
+                    "limit": dict(zip(RESIDUALS, limits)),
+                    "max_err_over_limit": max(e / lim for e, lim in zip(e_plain, limits)),
+                    "planted_stale_h_over_limit": min(e / lim for e, lim in zip(e_stale, limits)),
+                    "tf32_control_over_limit": (min(e / lim for e, lim in zip(e_tf32, limits))
+                                                if f32 else None)}
+                print(f"[k9p] {dt_name} {what} {K10P_DIRS[d]} R={R} T={T} H={H}: max|p - plain| "
+                      f"h, gates, c {[f'{e:.3e}' for e in e_plain]} (limits "
+                      f"{[f'{lim:.3e}' for lim in limits]}); planted stale h "
+                      f"{[f'{e:.3e}' for e in e_stale]}; one TF32 product "
+                      f"{[f'{e:.3e}' for e in e_tf32] if f32 else 'n/a'}")
+                for name, e, f, lim in zip(RESIDUALS, e_plain, e_stale, limits):
+                    if not e < lim <= f:
+                        fail(f"{label} {what} {K10P_DIRS[d]}: {name} vs plain {e:.3e}, stale h "
+                             f"{f:.3e}, limit {lim:.3e}")
+                for name, e, lim in zip(RESIDUALS, e_tf32 or (), limits):
+                    if not e >= lim:
+                        fail(f"{label} {what} {K10P_DIRS[d]}: one TF32 product moves {name} by "
+                             f"{e:.3e}, under the limit {lim:.3e}")
+            del got, ref
+            if routes != {"persistent": 2, "walk": 0} or k4:
+                fail(f"{label} {what}: the routed K9 took {routes} and {k4} K4 launches, "
+                     "expected K4p twice in K9's count")
+            if not (bitwise and equals_k4p):
+                fail(f"{label} {what}: two calls differ ({not bitwise}) or the pair is not two "
+                     f"K4p launches bit for bit ({not equals_k4p})")
+            bound_ms, bound_by = _new_kernel_bounds(R, T, H // 2, H, dt_name)["lstm_train_fwd2"]
+            slow = f32 and H == FLOW_H
+            with torch.no_grad():
+                rec.update({
+                    "ms": _time_ms(lambda: K.lstm_train_fwd2(*args)),
+                    "walk_ms": _time_ms(lambda: [K.lstm_train_fwd_walk(x, w, rev, fn=K.lstm_train_fwd2)
+                                                 for x, w, rev in ((xp, wh[0], False),
+                                                                   (xp_b, wh[1], True))],
+                                        reps=3, warmup=1),
+                    "plain_ms": _time_ms(lambda: K.lstm_train_fwd2_plain(*args), reps=1,
+                                         warmup=0 if slow else 1),
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "library_ms": _bilstm_reference_ms(device, R, T, H, dtype, False)})
+            print(f"[k9p] {dt_name} {what} R={R} T={T} H={H}: plan S={plan.S} G={plan.G} "
+                  f"U={plan.U} rows={plan.rows} chunk={plan.chunk} ({plan.ctas} CTAs); routes "
+                  f"{routes}; {label} {rec['ms']:.3f} ms, walk {rec['walk_ms']:.3f} ms, plain "
+                  f"{rec['plain_ms']:.3f} ms, nn.LSTM bidirectional training forward "
+                  f"{rec['library_ms']:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}); two calls "
+                  f"bitwise equal: {bitwise}; equal to K4p x 2: {equals_k4p}")
+            rows.append(rec)
+            del xp, xp_b, wh, args
+    return rows
+
+
 def phase_streamin_bwd2_routes(device):
-    """K8p (bfloat16 and float32) and K10p (bfloat16 and float32) against
-    their plain versions at every step, each through its routed wrapper (its
-    route rule must take the persistent route and count one launch there):
+    """K8p (bfloat16 and float32), K9p and K10p (bfloat16 and float32, K10
+    also as its one-direction pair) against their plain versions at every
+    step, each through its routed wrapper (its route rule must take the
+    persistent route and count its launches there):
 
     K8p at K8P_SHAPES and K8p-f32 at K8P_F32_SHAPES, both directions: h,
     gates and c each within 4 bf16 ulps at max|plain|
@@ -2462,14 +2602,18 @@ def phase_streamin_bwd2_routes(device):
     the float64 product, the routed dW its rounding and within BF16_TOL
     (F32_BWD_LIMIT) of the plain dW; two launches bitwise equal; equal bit
     for bit to K5p launched per direction with K10p's plan.  A shape and
-    dtype without a dirs = 2 plan must take the walk (the rule), and is
-    recorded so.  Times: K10p (with its dW kernel, ``lstm_bwd_dw``, once a
-    direction), the walk, two K5p launches on K5p's
-    own plans (what the default arm runs), the plain version, the
+    dtype without a dirs = 2 plan (float32 at the flow band) must take the
+    one-direction pair on ``backward_route``'s plan (two launches in
+    ``route_counts(...)["persistent_split"]``), held the same way and equal
+    to two K5p launches on that plan.  Times: K10p or the pair (with the dW
+    kernel, ``lstm_bwd_dw``, once a direction), the walk, two K5p launches
+    on K5p's own plans (what the default arm runs), the plain version, the
     bidirectional torch.nn.LSTM backward (a superset); the bound, twice
-    K5's; where the planner moved dc to global memory for
-    fewer K tiles, K10p at the plan that keeps dc in shared memory.
-    Returns {"k8p": [...], "k8p_f32": [...], "k10p": [...]}."""
+    K5's; where the planner moved dc to global memory for fewer K tiles,
+    K10p at the plan that keeps dc in shared memory.
+
+    K9p at K9P_SHAPES: ``_k9p_rows``.
+    Returns {"k8p": [...], "k8p_f32": [...], "k9p": [...], "k10p": [...]}."""
     import dataclasses
 
     import torch
@@ -2480,7 +2624,7 @@ def phase_streamin_bwd2_routes(device):
     sms = _sm_count(device)
     lib = _build.load_library()
     bf16 = torch.bfloat16
-    out = {"k8p": [], "k8p_f32": [], "k10p": []}
+    out = {"k8p": [], "k8p_f32": [], "k9p": _k9p_rows(device, sms), "k10p": []}
     for dt_name, dtype, shapes in (("bfloat16", bf16, K8P_SHAPES),
                                    ("float32", torch.float32, K8P_F32_SHAPES)):
         f32 = dtype == torch.float32
@@ -2590,28 +2734,29 @@ def phase_streamin_bwd2_routes(device):
             dout = (0.1 * torch.randn((2, R, T, H), generator=gen)).to(device, dtype)
             res = K.lstm_train_fwd2_plain(xp, xp_b, wh[0], wh[1])
             del xp, xp_b
-            plan = K.plan_backward(R, H, sms, elem=elem, dirs=2)
-            route = K.backward2_route(dtype, R, H, sms)
-            rec = {"what": what, "R": R, "T": T, "H": H, "dtype": dt_name,
-                   "route": "persistent" if route is not None else "walk"}
+            plan = K.backward2_route(dtype, R, H, sms)
+            split = K.plan_backward(R, H, sms, elem=elem, dirs=2) is None
+            label = "K10 pair" if split else "K10p"
+            route = "walk" if plan is None else "persistent_split" if split else "persistent"
+            rec = {"what": what, "R": R, "T": T, "H": H, "dtype": dt_name, "route": route}
             args = (res[:3], res[3:], dout[0], dout[1], wh[0], wh[1])
             if plan is None:
                 K.reset_launch_counts()
                 K.lstm_train_bwd2(*args)
                 routes = K.route_counts("lstm_train_bwd2")
                 rec.update({"plan": None, "routes": routes})
-                print(f"[k10p] {dt_name} {what} R={R} T={T} H={H}: no dirs = 2 plan on {sms} "
-                      f"SMs; the routed K10 took {routes}")
-                if route is not None or routes != {"persistent": 0, "walk": 1}:
+                print(f"[k10p] {dt_name} {what} R={R} T={T} H={H}: no plan on {sms} SMs; the "
+                      f"routed K10 took {routes}")
+                if routes != {"persistent": 0, "walk": 1, "persistent_split": 0}:
                     fail(f"K10 {dt_name} {what}: without a plan the rule must take the walk")
                 out["k10p"].append(rec)
                 del res, dout, wh, args
                 continue
             kernel_smem = lib.lstm_persistent_bwd_smem(H, plan.U, plan.rows, plan.chunk, plan.kt,
                                                         int(plan.dc_in_smem), elem)
-            if route != plan or kernel_smem != plan.smem:
-                fail(f"K10p {dt_name} plan at {what}: rule {route}, {plan.smem} bytes, the "
-                     f"kernel reckons {kernel_smem}")
+            if kernel_smem != plan.smem or (split and plan != K.backward_route(dtype, R, H, sms)):
+                fail(f"{label} {dt_name} plan at {what}: {plan.smem} bytes, the kernel reckons "
+                     f"{kernel_smem}; a pair must take backward_route's plan")
             K.reset_launch_counts()
             got = K.lstm_train_bwd2(*args)
             routes, dw_launches = K.route_counts("lstm_train_bwd2"), K.lstm_bwd_dw.launches
@@ -2650,29 +2795,29 @@ def phase_streamin_bwd2_routes(device):
                             "dw_bound_ratio": dw_ratio, "dw_max_abs_err_vs_f64": dw_abs,
                             "dw_tf32_control_ratio": ctrl, "dw_rel_err_vs_plain": e_dw,
                             "dw_is_its_rounding": dw_rounded}
-                print(f"[k10p] {dt_name} {what} {tag} R={R} T={T} H={H}: max|dxp - plain| "
+                print(f"[k10p] {label} {dt_name} {what} {tag} R={R} T={T} H={H}: max|dxp - plain| "
                       f"{e_dxp:.3e} (limit {limit:.3e}); planted stale dg {e_stale:.3e}; one "
                       f"TF32 product {'n/a' if e_tf32 is None else f'{e_tf32:.3e}'}; dW |d| / "
                       f"(|h|^T|dxp|) {dw_ratio:.3e} (limit {dw_bound}), TF32 operands "
                       f"{'n/a' if ctrl is None else f'{ctrl:.3e}'}; rel vs plain {e_dw:.3e} "
                       f"(limit {dw_tol}), its rounding: {dw_rounded}")
                 if not e_dxp < limit:
-                    fail(f"K10p {dt_name} {what} {tag}: dx_proj vs plain {e_dxp:.3e} >= "
+                    fail(f"{label} {dt_name} {what} {tag}: dx_proj vs plain {e_dxp:.3e} >= "
                          f"{limit:.3e}")
                 if not e_stale >= limit:
-                    fail(f"K10p {dt_name} {what} {tag}: stale dgates move dx_proj by "
+                    fail(f"{label} {dt_name} {what} {tag}: stale dgates move dx_proj by "
                          f"{e_stale:.3e}, under the limit {limit:.3e}")
                 if f32 and not e_tf32 >= limit:
-                    fail(f"K10p {dt_name} {what} {tag}: one TF32 product moves dx_proj by "
+                    fail(f"{label} {dt_name} {what} {tag}: one TF32 product moves dx_proj by "
                          f"{e_tf32:.3e}, under the limit {limit:.3e}")
                 if not dw_ratio <= dw_bound:
-                    fail(f"K10p {dt_name} {what} {tag}: dW off its float64 product by "
+                    fail(f"{label} {dt_name} {what} {tag}: dW off its float64 product by "
                          f"{dw_ratio:.3e} of |h_prev|^T |dx_proj| > {dw_bound}")
                 if f32 and not ctrl > dw_bound:
-                    fail(f"K10p {dt_name} {what} {tag}: the dW of TF32-rounded operands is "
+                    fail(f"{label} {dt_name} {what} {tag}: the dW of TF32-rounded operands is "
                          f"within {ctrl:.3e} <= {dw_bound}")
                 if not (dw_rounded and e_dw < dw_tol):
-                    fail(f"K10p {dt_name} {what} {tag}: the routed dW is not the dW kernel's "
+                    fail(f"{label} {dt_name} {what} {tag}: the routed dW is not the dW kernel's "
                          f"rounding or is {e_dw:.3e} from plain (limit {dw_tol})")
             dxp = (got[0], got[2])
             del got, ref
@@ -2691,16 +2836,16 @@ def phase_streamin_bwd2_routes(device):
             # tiles: K10p at the plan that keeps it there, for comparison
             kt_smem = K._backward_tile(H, plan.U, plan.chunk, plan.rows, True, K.SMEM_LIMIT,
                                        elem)
-            if not plan.dc_in_smem and kt_smem is not None:
+            if not (split or plan.dc_in_smem) and kt_smem is not None:
                 alt = dataclasses.replace(plan, dc_in_smem=True, kt=kt_smem, smem=K.backward_smem(
                     H, plan.U, plan.chunk, kt_smem, plan.rows, True, elem))
                 rec["dc_in_smem_plan"] = {"kt": alt.kt, "ntiles": alt.ntiles,
                                           "smem_bytes": alt.smem}
                 rec["dc_in_smem_ms"] = _time_ms(lambda: K.lstm_train_bwd2_persistent(*args, alt))
-            print(f"[k10p] {dt_name} {what} R={R} T={T} H={H}: plan S={plan.S} G={plan.G} "
+            print(f"[k10p] {label} {dt_name} {what} R={R} T={T} H={H}: plan S={plan.S} G={plan.G} "
                   f"U={plan.U} rows={plan.rows} chunk={plan.chunk} kt={plan.kt} dc_in_smem="
                   f"{plan.dc_in_smem} smem={plan.smem} B ({plan.ctas} CTAs), dW split "
-                  f"{plan.dw_split}; routes {routes}, dW launches {dw_launches}; K10p "
+                  f"{plan.dw_split}; routes {routes}, dW launches {dw_launches}; {label} "
                   f"{rec['ms']:.3f} ms, walk {rec['walk_ms']:.3f} "
                   f"ms, K5p x 2 {rec['k5p_pair_ms']:.3f} ms, plain {rec['plain_ms']:.3f} ms, "
                   f"nn.LSTM bidirectional backward {rec['library_ms']:.3f} ms, bound "
@@ -2708,13 +2853,14 @@ def phase_streamin_bwd2_routes(device):
                   f"{rec.get('dc_in_smem_plan')} {rec.get('dc_in_smem_ms')} ms; two launches "
                   f"bitwise equal: {bitwise}; equal to K5p per direction at this plan: "
                   f"{equals_k5p}")
-            if routes != {"persistent": 1, "walk": 0} or dw_launches != 2:
-                fail(f"K10p {dt_name} {what}: the routed K10 took {routes} with {dw_launches} "
-                     "dW launches, expected K10p once and its dW kernel once a direction")
+            want = {"persistent": 1 - split, "walk": 0, "persistent_split": 2 * split}
+            if routes != want or dw_launches != 2:
+                fail(f"{label} {dt_name} {what}: the routed K10 took {routes} with {dw_launches} "
+                     f"dW launches, expected {want} and the dW kernel once a direction")
             if not bitwise:
-                fail(f"K10p {dt_name} {what}: two launches differ")
+                fail(f"{label} {dt_name} {what}: two launches differ")
             if not equals_k5p:
-                fail(f"K10p {dt_name} {what}: not bitwise K5p per direction at its plan")
+                fail(f"{label} {dt_name} {what}: not bitwise K5p per direction at its plan")
             out["k10p"].append(rec)
             del res, dout, wh, args, dxp
     return out
@@ -3375,13 +3521,18 @@ ARMS = {"default": (False, False), "stream": (True, False), "fused": (False, Tru
 ARM_ORDER = ("default", "stream", "fused", "both", "both", "fused", "stream", "default")
 # the arms each family visits: disc_f32 (the discriminative model in float32)
 # runs the fused arm only, where K10p-f32 has its plan (the band path 804 x
-# 34, H = 392); the flow band (502 x 48, H = 768) has no float32 K10p plan
+# 34, H = 392); at the flow band (502 x 48, H = 768, float32) no K10p plan
+# fits and K10 takes its one-direction pair (flow family)
 FAMILY_ARMS = {"disc": ARM_ORDER, "flow": ARM_ORDER,
                "disc_f32": ("default", "fused", "fused", "default")}
 AB_LAYERS = 6  # the families' depth in the A/B arms
-# the kernels whose route the A/B arms check: K8 (K8p or its walk), K10
-# (K10p or its walk)
-AB_ROUTED = ("lstm_train_fwd_streamin", "lstm_train_bwd2")
+# the kernels whose route the A/B arms check: K8 (K8p or its walk), K9 (K9p
+# or K4's walk), K10 (K10p, its one-direction pair or its walk)
+AB_ROUTED = ("lstm_train_fwd_streamin", "lstm_train_fwd2", "lstm_train_bwd2")
+# launches per call of each route of K9 and K10 (K9: K4p or K4's walk once a
+# direction; K10's pair: K5p once a direction); 1 elsewhere
+AB_LAUNCHES_PER_CALL = {("lstm_train_fwd2", "persistent"): 2, ("lstm_train_fwd2", "walk"): 2,
+                        ("lstm_train_bwd2", "persistent_split"): 2}
 
 
 def _ab_model(device, family):
@@ -3406,11 +3557,14 @@ def _ab_model(device, family):
 
 
 def _ab_expected_routes(K, family, dtype, sms):
-    """The routes K8 and K10 may take in one family's train step, by the
-    rules applied at the family's shapes: K8 on K8p where ``streamin_route``
-    finds a plan at its time or its band path, on the walk where it finds
-    none at one of them; K10 on K10p where ``backward2_route`` finds a plan
-    at the band path, else on the walk."""
+    """The routes K8, K9 and K10 may take in one family's train step, by
+    the rules applied at the family's shapes: K8 on K8p where
+    ``streamin_route`` finds a plan at its time or its band path, on the
+    walk where it finds none at one of them; K9 on K9p where ``scan_route``
+    finds K4p a plan at the band path, else on K4's walk; K10 on K10p where
+    ``backward2_route`` finds a two-direction plan at the band path, on its
+    one-direction pair where it finds a one-direction plan, else on the
+    walk."""
     import torch
 
     dt = getattr(torch, dtype)
@@ -3418,12 +3572,14 @@ def _ab_expected_routes(K, family, dtype, sms):
     N, H = (FLOW_N, FLOW_H) if flow else (N_IN, HID)
     time_path, band_path = (FLOW_TIME, FLOW_BAND) if flow else (TRAIN_TIME, TRAIN_BAND)
 
-    def route(plan):
-        return "walk" if plan is None else "persistent"
+    def route(plan, split=False):
+        return "walk" if plan is None else "persistent_split" if split else "persistent"
 
+    bwd2 = K.backward2_route(dt, band_path[0], H, sms)
     return {"lstm_train_fwd_streamin": {route(K.streamin_route(dt, R, N, H, sms))
                                         for R, _ in (time_path, band_path)},
-            "lstm_train_bwd2": {route(K.backward2_route(dt, band_path[0], H, sms))}}
+            "lstm_train_fwd2": {route(K.scan_route(dt, band_path[0], H, sms))},
+            "lstm_train_bwd2": {route(bwd2, bwd2 is not None and bwd2.dirs == 1)}}
 
 
 def phase_ab_arms(device):
@@ -3431,11 +3587,22 @@ def phase_ab_arms(device):
     each family (FAMILY_ARMS); the toggles are restored whatever happens.
     The launch counts are set to 0 once at the start of the phase: each
     step's launches are the counts' growth over it, and must be
-    ``TRAIN_LAUNCHES_PER_LAYER`` times the depth, and its K8 and K10
-    launches must all take the route the rules give (``_ab_expected_routes``:
-    K8p and K10p on the bfloat16 family, K10p-f32 on disc_f32).  Returns
-    {family: {arm: {...}, "routes": {K8, K10: {route: launches}}}} and the
-    counts read at the end of the phase (its warm-up and arm steps)."""
+    ``TRAIN_LAUNCHES_PER_LAYER`` times the depth (its wrapper calls; two
+    launches a call on K9p and on K10's one-direction pair,
+    AB_LAUNCHES_PER_CALL), and its K8, K9 and K10 launches must all take
+    the route the rules give (``_ab_expected_routes``: K8p, K9p and K10p on
+    the bfloat16 family, K9p-f32 and K10p-f32 on disc_f32, K8p-f32, K9p-f32
+    and K10's pair on flow): no family runs a K9 or K10 walk.  Wherever the
+    default arm's two visits give the same loss bit for bit, every fused
+    visit must give it too (K9p is the default arm's K4p launches); in the
+    flow family, where K10 takes the default arm's K5p-f32 launches, the
+    default arm's two visits and the fused arm must give the same gradients
+    bit for bit (cuDNN's deterministic algorithms for that family's steps
+    only, timed ones included: the flow decoder's convolution weight
+    gradients vary from call to call otherwise; the other families keep
+    the default setting).  Returns {family: {arm: {...}, "routes": {K8, K9, K10:
+    {route: launches}}}} and the counts read at the end of the phase (its
+    warm-up and arm steps)."""
     import torch
     from urgent2026_challenge_track1_tpu_torch.models.bsrnn import TRAIN_LAUNCHES_PER_LAYER
     from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
@@ -3445,13 +3612,21 @@ def phase_ab_arms(device):
                 for arm, per_layer in TRAIN_LAUNCHES_PER_LAYER.items()}
     sms = _sm_count(device)
     out = {}
-    saved = (K.STREAM_INPUT_TRAIN, K.FUSED_BIDIR_TRAIN)
+    saved = (K.STREAM_INPUT_TRAIN, K.FUSED_BIDIR_TRAIN, torch.backends.cudnn.deterministic)
     K.reset_launch_counts()
     try:
         for family, arm_order in FAMILY_ARMS.items():
+            # the flow decoder's convolutions take cuDNN weight-gradient
+            # algorithms that sum in no fixed order; fixed ones let the flow
+            # family's visits agree bit for bit
+            torch.backends.cudnn.deterministic = saved[2] or family == "flow"
             bundle, cfg, model, batch = _ab_model(device, family)
             want_route = _ab_expected_routes(K, family, cfg.compute_dtype, sms)
-            family_routes = {name: {"persistent": 0, "walk": 0} for name in AB_ROUTED}
+            per_call = {name: max(AB_LAUNCHES_PER_CALL.get((name, r), 1) for r in routes)
+                        for name, routes in want_route.items()}
+            want = {arm: {k: v * per_call.get(k, 1) for k, v in calls.items()}
+                    for arm, calls in expected.items()}
+            family_routes = {name: dict.fromkeys(K.route_counts(name), 0) for name in AB_ROUTED}
             init = {k: v.clone() for k, v in model.state_dict().items()}
             step = trainer.make_train_step(bundle, cfg, 48000)
             step(model, trainer.make_optimizer(cfg, model), *batch,
@@ -3469,13 +3644,18 @@ def phase_ab_arms(device):
                 torch.cuda.synchronize()
                 ms = (time.perf_counter() - t0) * 1e3
                 counts = {k: v - before[k] for k, v in K.launch_counts().items() if v - before[k]}
-                rec = arms.setdefault(arm, {"ms": [], "launches": counts,
-                                            "loss": float(m["loss"]),
-                                            "grads": [p.grad.float().clone()
-                                                      for p in model.parameters()]})
+                grads = [p.grad.float().clone() for p in model.parameters()]
+                rec = arms.setdefault(arm, {"ms": [], "losses": [], "launches": counts,
+                                            "loss": float(m["loss"]), "grads": grads,
+                                            "grads_repeat_bitwise": []})
                 rec["ms"].append(ms)
-                if counts != expected[arm]:
-                    fail(f"{family} {arm}: launches {counts}, expected {expected[arm]}")
+                rec["losses"].append(float(m["loss"]))
+                if rec["grads"] is not grads:
+                    rec["grads_repeat_bitwise"].append(
+                        all(torch.equal(a, b) for a, b in zip(rec["grads"], grads)))
+                del grads
+                if counts != want[arm]:
+                    fail(f"{family} {arm}: launches {counts}, expected {want[arm]}")
                 for name in AB_ROUTED:
                     grown = {r: n - before_routes[name][r]
                              for r, n in K.route_counts(name).items()}
@@ -3484,8 +3664,24 @@ def phase_ab_arms(device):
                     if sum(grown[r] for r in want_route[name]) != counts.get(name, 0):
                         fail(f"{family} {arm}: {name} routes {grown}, expected "
                              f"{sorted(want_route[name])} only")
+            for name in ("lstm_train_fwd2", "lstm_train_bwd2"):
+                if family_routes[name]["walk"]:
+                    fail(f"{family}: {name} took its walk {family_routes[name]['walk']} times")
             grads = {arm: rec.pop("grads") for arm, rec in arms.items()}
             ref = arms["default"]
+            default_repeats = len(set(ref["losses"])) == 1
+            fused_loss = all(v == ref["losses"][0] for v in arms["fused"]["losses"])
+            default_grads_repeat = all(ref["grads_repeat_bitwise"])
+            fused_grads = all(torch.equal(a, b) for a, b in zip(grads["fused"], grads["default"]))
+            print(f"[a/b] {family}: default visits' losses {ref['losses']} (bitwise equal: "
+                  f"{default_repeats}), fused {arms['fused']['losses']} (bitwise the default's: "
+                  f"{fused_loss}); default visits' gradients bitwise equal: "
+                  f"{default_grads_repeat}, fused gradients bitwise the default's: {fused_grads}")
+            if default_repeats and not fused_loss:
+                fail(f"{family}: the fused arm's loss is not the default arm's bit for bit")
+            if family == "flow" and not (default_grads_repeat and fused_grads):
+                fail("flow: the default arm's visits, or the fused arm and the default arm, "
+                     "give other gradients bit for bit")
             tol = BF16_TOL if cfg.compute_dtype == "bfloat16" else GRAD_TOL
             for arm, rec in arms.items():
                 rec["median_ms"] = statistics.median(rec["ms"])
@@ -3504,19 +3700,28 @@ def phase_ab_arms(device):
                   f"{ {k: sorted(v) for k, v in want_route.items()} })")
             out[family] = {"compute_dtype": cfg.compute_dtype, "arms": arms,
                            "routes": family_routes,
+                           "default_visits_bitwise": {"loss": default_repeats,
+                                                      "grads": default_grads_repeat},
+                           "fused_bitwise_default": {"loss": fused_loss, "grads": fused_grads},
                            "expected_routes": {k: sorted(v) for k, v in want_route.items()}}
             del model
     finally:
-        K.STREAM_INPUT_TRAIN, K.FUSED_BIDIR_TRAIN = saved
+        K.STREAM_INPUT_TRAIN, K.FUSED_BIDIR_TRAIN, torch.backends.cudnn.deterministic = saved
     total = K.launch_counts()
     print(f"[a/b] launches over the phase: {total}")
     for name in NEW_KERNELS:
         if total[name] <= 0:
             fail(f"kernel {name} was not launched by the A/B arms")
-    for name, dtype in (("lstm_train_fwd_streamin", "bfloat16"), ("lstm_train_bwd2", "bfloat16"),
-                        ("lstm_train_fwd_streamin", "float32"), ("lstm_train_bwd2", "float32")):
-        if _ab_route_launches(out, name, "persistent", dtype) <= 0:
-            fail(f"the persistent route of {name} in {dtype} was not launched by the A/B arms")
+    for name, route, dtype in (
+            ("lstm_train_fwd_streamin", "persistent", "bfloat16"),
+            ("lstm_train_fwd2", "persistent", "bfloat16"),
+            ("lstm_train_bwd2", "persistent", "bfloat16"),
+            ("lstm_train_fwd_streamin", "persistent", "float32"),
+            ("lstm_train_fwd2", "persistent", "float32"),
+            ("lstm_train_bwd2", "persistent", "float32"),
+            ("lstm_train_bwd2", "persistent_split", "float32")):
+        if _ab_route_launches(out, name, route, dtype) <= 0:
+            fail(f"the {route} route of {name} in {dtype} was not launched by the A/B arms")
     return out, total
 
 
@@ -3607,22 +3812,6 @@ def _bilstm_reference_ms(device, R, T, H, dtype, backward):
     return ms
 
 
-def _new_kernel_library_ms(device, name, R, T, hid):
-    """{bf16, f32} times of the PyTorch call for K8-K10's function: K8 is a
-    one-direction ``nn.LSTM`` training forward (its very function); K9 and
-    K10 the bidirectional ``nn.LSTM`` forward and backward (supersets)."""
-    import torch
-
-    out = {}
-    for key, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
-        if name == "lstm_train_fwd_streamin":
-            out[key] = _lstm_forward_reference_ms(device, R, T, hid, dtype, True)
-        else:
-            out[key] = _bilstm_reference_ms(device, R, T, hid, dtype,
-                                            name == "lstm_train_bwd2")
-    return out
-
-
 LIBRARY_K8_K10 = {
     "lstm_train_fwd_streamin": "torch.nn.LSTM one direction, training forward (K8's function)",
     "lstm_train_fwd2": "superset: bidirectional torch.nn.LSTM training forward (adds W_ih)",
@@ -3657,93 +3846,55 @@ def _ab_route_launches(ab, name, route, dtype=None):
                if dtype is None or fam["compute_dtype"] == dtype)
 
 
-def _new_kernel_times(device, ab, ab_counts, new_errs, wide_routes):
-    """K8's walk at the discriminative time path (R = 136, T = 201; the band
-    path printed beside it) and K9 / K10's walk at its band path (R = 804,
-    T = 34), bf16: kernel, plain version and bound; no PyTorch call computes
-    a residual-storing recurrence but K8's.  ``launches`` is the A/B
-    phase's count (one reset, one read; for K10 its walk route's), for K8's
-    walk (every A/B family has a K8p plan) the wide float32 STREAM step's
-    (``phase_walk_route``), and the launches of one train step are those
-    measured in each family's first visit of each arm.
-    The same at the flow training shapes (N = 384, H = 768: K8 at the time
-    path R = 96, T = 251, its band path printed beside it, K9/K10 at the band
-    path R = 502, T = 48), added as flow_* keys."""
-    import torch
-    from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
+def _new_kernel_walk_records(rows, new_errs, wide_routes):
+    """The records of K8's, K9's and K10's walks, bf16, from the times
+    phase_streamin_bwd2_routes took beside K8p, K9p and K10p (the walk, the
+    plain version, the PyTorch call: for K8 its function, a one-direction
+    ``nn.LSTM`` training forward; for K9 and K10 a superset, the
+    bidirectional one; the bound): K8 at the discriminative time path (R =
+    136, T = 201), K9 and K10 at its band path (R = 804, T = 34), and the
+    same at the flow training shapes (N = 384, H = 768: K8 at 96 x 251, K9
+    and K10 at 502 x 48) as flow_* keys; the errors of phase_new_kernels.
+    ``launches`` is the walk route's count in the wide float32 step
+    (``phase_walk_route``, H = 1020): K8's under STREAM_INPUT_TRAIN, K9's
+    and K10's under FUSED_BIDIR_TRAIN (K10 takes its one-direction pair
+    there, so no step runs its walk)."""
     from urgent2026_challenge_track1_tpu_torch.ops import persistent_checks as PC
 
-    bf16 = torch.bfloat16
-    records = {}
-    for name, (R, T), n_in, hid in (
-            ("lstm_train_fwd_streamin", TRAIN_TIME, N_IN, HID),
-            ("lstm_train_fwd_streamin", TRAIN_BAND, N_IN, HID),
-            ("lstm_train_fwd2", TRAIN_BAND, N_IN, HID), ("lstm_train_bwd2", TRAIN_BAND, N_IN, HID),
-            ("lstm_train_fwd_streamin", FLOW_TIME, FLOW_N, FLOW_H),
-            ("lstm_train_fwd_streamin", FLOW_BAND, FLOW_N, FLOW_H),
-            ("lstm_train_fwd2", FLOW_BAND, FLOW_N, FLOW_H),
-            ("lstm_train_bwd2", FLOW_BAND, FLOW_N, FLOW_H)):
-        flow = hid == FLOW_H
-        x, wi, wh, b, xp, _ = _kernel_inputs(R, T, bf16, device, R + T, n_in, hid)
-        xp_b = xp.flip(1).contiguous()
-        res = K.lstm_train_fwd2(xp, xp_b, wh[0], wh[1])
-        dout = (0.1 * torch.randn((2, R, T, hid), device=device)).to(bf16)
-        kern, plain = {
-            "lstm_train_fwd_streamin": (lambda: K.lstm_train_fwd_streamin_walk(x, wi[0], b[0],
-                                                                               wh[0]),
-                                        lambda: K.lstm_train_fwd_streamin_plain(x, wi[0], b[0],
-                                                                                wh[0])),
-            "lstm_train_fwd2": (lambda: K.lstm_train_fwd2(xp, xp_b, wh[0], wh[1]),
-                                lambda: K.lstm_train_fwd2_plain(xp, xp_b, wh[0], wh[1])),
-            "lstm_train_bwd2": (lambda: K.lstm_train_bwd2_walk(res[:3], res[3:], dout[0],
-                                                               dout[1], wh[0], wh[1]),
-                                lambda: K.lstm_train_bwd2_plain(res[:3], res[3:], dout[0],
-                                                                dout[1], wh[0], wh[1])),
-        }[name]
-        with torch.no_grad():
-            ms = _time_ms(kern, reps=3 if flow else 5, warmup=1 if flow else 2)
-            plain_ms = _time_ms(plain, reps=1 if flow else 3, warmup=1)
-        bound_ms, bound_by = _new_kernel_bounds(R, T, n_in, hid)[name]
-        del x, wi, wh, b, xp, xp_b, res, dout
-        record_shape = name != "lstm_train_fwd_streamin" or (R, T) in (TRAIN_TIME, FLOW_TIME)
-        lib = _new_kernel_library_ms(device, name, R, T, hid) if record_shape else None
-        print(f"[times] {name} R={R} T={T} N={n_in} H={hid} bf16: kernel {ms:.3f} ms, plain "
-              f"{plain_ms:.3f} ms, library {lib} ms, bound {bound_ms:.4f} ms ({bound_by})")
-        if not record_shape:
-            continue
-        if flow:
-            records[name].update({
-                "flow_ms": ms, "flow_plain_ms": plain_ms, "flow_bound_ms": bound_ms,
-                "flow_bound_by": bound_by, "flow_library_ms": lib["bf16"],
-                "flow_library_ms_f32": lib["f32"],
-                "flow_shape": {"R": R, "T": T, "N": n_in, "H": hid}})
-            continue
+    def row(table, what, dt_name):
+        return next(r for r in table if r["what"] == what and r["dtype"] == dt_name)
+
+    out = []
+    for name, table, disc, flow, run in (
+            ("lstm_train_fwd_streamin", None, "disc time B=4", "flow time B=2",
+             WIDE_STREAM_RUN),
+            ("lstm_train_fwd2", rows["k9p"], "disc band B=4", "flow band B=2", WIDE_FUSED_RUN),
+            ("lstm_train_bwd2", rows["k10p"], "disc band B=4", "flow band B=2",
+             WIDE_FUSED_RUN + " (its one-direction pair there)")):
+        bf16, f32 = ((rows["k8p"], rows["k8p_f32"]) if table is None else (table, table))
+        d, f = row(bf16, disc, "bfloat16"), row(bf16, flow, "bfloat16")
+        d32, f32r = row(f32, disc, "float32"), row(f32, flow, "float32")
         e_abs, e_rel = new_errs[name, "bfloat16"]
-        walk_routed = name != "lstm_train_fwd2"  # K8 and K10 have a persistent route
-        records[name] = {
+        out.append({
             "name": name, "route": "cuda", "source": f"{PKG}/csrc/lstm_kernels.cu",
-            "replaces": REPLACES[name],
-            **({"route_of_kernel": "walk"} if walk_routed else {}),
-            "launches": (wide_routes[name]["walk"] if name == "lstm_train_fwd_streamin"
-                         else _ab_route_launches(ab, name, "walk") if walk_routed
-                         else ab_counts[name]),
-            "launches_run": (WIDE_STREAM_RUN + " (the walk)" if name == "lstm_train_fwd_streamin"
-                             else "a/b arms phase" + (" (its walk route)" if walk_routed
-                                                      else "")),
+            "replaces": REPLACES[name], "route_of_kernel": "walk",
+            "launches": wide_routes[name]["walk"], "launches_run": run + " (the walk)",
             "max_abs_err": e_abs, "max_rel_err": e_rel,
             "max_abs_err_f32": new_errs[name, "float32"][0],
             "max_rel_err_f32": new_errs[name, "float32"][1],
             "tolerance": BF16_TOL,
             "tolerance_f32": GRAD_TOL if name.endswith("bwd2") else PC.WALK_F32_TOL,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": lib["bf16"], "library_ms_f32": lib["f32"],
-            "library": LIBRARY_K8_K10[name], "shape": {"R": R, "T": T, "N": n_in, "H": hid},
-            "dtype": "bfloat16",
-            "launches_per_train_step": {
-                family: {arm: rec["launches"].get(name, 0) for arm, rec in fam["arms"].items()}
-                for family, fam in ab.items()},
-        }
-    return list(records.values())
+            "ms": d["walk_ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
+            "bound_by": d["bound_by"], "library_ms": d["library_ms"],
+            "library_ms_f32": d32["library_ms"], "library": LIBRARY_K8_K10[name],
+            "shape": {k: d[k] for k in ("R", "T", "N", "H") if k in d}, "dtype": "bfloat16",
+            "flow_ms": f["walk_ms"], "flow_plain_ms": f["plain_ms"],
+            "flow_bound_ms": f["bound_ms"], "flow_bound_by": f["bound_by"],
+            "flow_library_ms": f["library_ms"], "flow_library_ms_f32": f32r["library_ms"],
+            "flow_shape": {k: f[k] for k in ("R", "T", "N", "H") if k in f},
+            "times_from": "k8p/k10p routes phase (the walk timed beside the persistent route)",
+        })
+    return out
 
 
 def _k1_f32_record(rows, train_routes, flow_routes, validation, flow_validation):
@@ -3833,14 +3984,16 @@ def _scan_f32_records(rows, train_routes, flow_routes, validation, flow_validati
 
 
 def _streamin_bwd2_records(rows, ab):
-    """K8p's, K8p-f32's, K10p's and K10p-f32's records from
-    phase_streamin_bwd2_routes: times at the disc shape (the flow and
+    """K8p's, K8p-f32's, K9p's, K9p-f32's, K10p's and K10p-f32's records
+    from phase_streamin_bwd2_routes: times at the disc shape (the flow and
     bench-width shapes beside them as flow_* and bench_* keys, K8's band
     paths as band_* and flow_band_*), the worst error, limit ratio, planted
-    fault, TF32 control and dW bound over every shape with a plan; ``launches`` is
-    the persistent route's count over the A/B phase's arm steps of the
-    families in that dtype (one reset, one read), and the launches of one
-    train step each family's first visit of each arm."""
+    fault, TF32 control and dW bound over every shape on that route; and a
+    record of K10's one-direction pair at each shape that takes it (float32
+    at the flow band).  ``launches`` is the route's count over the A/B
+    phase's arm steps of the families in that dtype (one reset, one read),
+    and the launches of one train step each family's first visit of each
+    arm."""
     from urgent2026_challenge_track1_tpu_torch.ops import persistent_checks as PC
 
     per_step = {family: {arm: rec["launches"] for arm, rec in fam["arms"].items()}
@@ -3887,8 +4040,46 @@ def _streamin_bwd2_records(rows, ab):
         })
     for dt_name, suffix in (("bfloat16", ""), ("float32", "_f32")):
         f32 = dt_name == "float32"
+        table = [r for r in rows["k9p"] if r["dtype"] == dt_name]
+        runs = [r[tag] for r in table for tag in K10P_DIRS]
+        by_what = {r["what"]: r for r in table}
+        d = by_what["disc band B=4"]
+        out.append({
+            "name": f"lstm_train_fwd2_persistent{suffix}", "route": "cuda",
+            "route_of_kernel": "persistent", "source": f"{PKG}/csrc/lstm_persistent.cu",
+            "replaces": REPLACES["lstm_train_fwd2"],
+            "kernel": "K4p's scan_persistent_kernel<T, REVERSE, false, true>, once a direction",
+            "launches": _ab_route_launches(ab, "lstm_train_fwd2", "persistent", dt_name),
+            "launches_run": f"a/b arms phase, {dt_name} families (K9p route, two a call)",
+            "max_abs_err": max(max(r["max_abs_err_vs_plain"].values()) for r in runs),
+            "max_err_over_limit": max(r["max_err_over_limit"] for r in runs),
+            "tolerance_rule": ("F32_LIMIT" if f32 else "4 bf16 ulps at max|plain|")
+                              + " per output (h, gates, c), shape and direction",
+            "planted_stale_h_over_limit": min(r["planted_stale_h_over_limit"] for r in runs),
+            "tf32_control_over_limit": (min(r["tf32_control_over_limit"] for r in runs)
+                                        if f32 else None),
+            "bitwise_repeat": all(r["bitwise_repeat"] for r in table),
+            "equals_k4p_per_direction": all(r["equals_k4p_per_direction"] for r in table),
+            "ms": d["ms"], "plain_ms": d["plain_ms"], "walk_ms": d["walk_ms"],
+            "bound_ms": d["bound_ms"], "bound_by": d["bound_by"], "library_ms": d["library_ms"],
+            "library": LIBRARY_K8_K10["lstm_train_fwd2"] + f", {dt_name}",
+            "shape": {k: d[k] for k in ("R", "T", "H")}, "dtype": dt_name, "plan": d["plan"],
+            "launches_per_train_step": {fam: {arm: c.get("lstm_train_fwd2", 0)
+                                              for arm, c in arms.items()}
+                                        for fam, arms in per_step.items()
+                                        if ab[fam]["compute_dtype"] == dt_name},
+            **{f"{key}_{k}": by_what[what][k] for key, what in (("flow", "flow band B=2"),
+                                                               ("bench", "bench width"))
+               for k in ("ms", "plain_ms", "walk_ms", "bound_ms", "bound_by", "library_ms",
+                         "plan")},
+            **{f"{key}_shape": {k: by_what[what][k] for k in ("R", "T", "H")}
+               for key, what in (("flow", "flow band B=2"), ("bench", "bench width"))},
+            "route_table": table,
+        })
+    for dt_name, suffix in (("bfloat16", ""), ("float32", "_f32")):
+        f32 = dt_name == "float32"
         recs = [r for r in rows["k10p"] if r["dtype"] == dt_name]
-        planned = [r for r in recs if r["plan"] is not None]
+        planned = [r for r in recs if r["route"] == "persistent"]
         runs = [r[tag] for r in planned for tag in K10P_DIRS]
         by_what = {r["what"]: r for r in recs}
         d = by_what["disc band B=4"]
@@ -3931,8 +4122,42 @@ def _streamin_bwd2_records(rows, ab):
             rec[f"{key}_shape"] = {k: r[k] for k in ("R", "T", "H")}
             for k in ("ms", "plain_ms", "walk_ms", "k5p_pair_ms", "bound_ms", "bound_by",
                       "library_ms", "plan"):
-                rec[f"{key}_{k}"] = r.get(k)
+                rec[f"{key}_{k}"] = r.get(k) if r["route"] == "persistent" else None
         out.append(rec)
+        for r in recs:  # K10's one-direction pair (float32 at the flow band)
+            if r["route"] != "persistent_split":
+                continue
+            pair = [r[tag] for tag in K10P_DIRS]
+            out.append({
+                "name": f"lstm_train_bwd2_persistent_split{suffix}", "route": "cuda",
+                "route_of_kernel": "persistent_split",
+                "source": f"{PKG}/csrc/lstm_persistent_bwd.cu",
+                "replaces": REPLACES["lstm_train_bwd2"],
+                "kernel": "K5p's bwd_persistent_kernel<T, false> and the dW kernel, once a "
+                          "direction on backward_route's plan",
+                "launches": _ab_route_launches(ab, "lstm_train_bwd2", "persistent_split",
+                                               dt_name),
+                "launches_run": f"a/b arms phase, {dt_name} families (K10's one-direction "
+                                "pair, two a call)",
+                "max_abs_err": max(p["max_abs_err_vs_plain"] for p in pair),
+                "max_err_over_limit": max(p["max_err_over_limit"] for p in pair),
+                "tolerance_rule": rec["tolerance_rule"],
+                "planted_stale_dg_over_limit": min(p["planted_stale_dg_over_limit"]
+                                                   for p in pair),
+                "tf32_control_over_limit": (min(p["tf32_control_over_limit"] for p in pair)
+                                            if f32 else None),
+                "dw_bound_ratio": max(p["dw_bound_ratio"] for p in pair),
+                "dw_tf32_control_ratio": (min(p["dw_tf32_control_ratio"] for p in pair)
+                                          if f32 else None),
+                "dw_rel_err_vs_plain": max(p["dw_rel_err_vs_plain"] for p in pair),
+                "bitwise_repeat": r["bitwise_repeat"],
+                "equals_k5p_per_direction": r["equals_k5p_per_direction"],
+                **{k: r[k] for k in ("ms", "plain_ms", "walk_ms", "k5p_pair_ms", "bound_ms",
+                                     "bound_by", "library_ms", "plan")},
+                "library": LIBRARY_K8_K10["lstm_train_bwd2"] + f", {dt_name}",
+                "shape": {k: r[k] for k in ("R", "T", "H")}, "dtype": dt_name,
+                "what": r["what"],
+            })
     return out
 
 
@@ -4819,15 +5044,14 @@ def main() -> int:
         dm_times.update(timed("rk45 flow sampler", phase_rk45, Path(tmp), flow_ckpt, device))
     sgmse = timed("sgmse", phase_sgmse, device)
     wide_routes = timed("walk route", phase_walk_route, device)
-    ab, ab_counts = timed("a/b arms", phase_ab_arms, device)
+    ab, _ = timed("a/b arms", phase_ab_arms, device)
     timed("card vs cpu forward", phase_card_vs_cpu, device)
     timed("card vs cpu gradients", phase_grads_card_vs_cpu, device)
     timed("flow card vs cpu", phase_flow_card_vs_cpu, device)
     records = timed("times", phase_times, device, counts, errs, train_errs, k1_routes,
                     scan_routes, train_routes_rows, bwd_routes_rows, main_routes, train_routes,
                     wide_routes)
-    records += timed("times K8-K10", _new_kernel_times, device, ab, ab_counts, new_errs,
-                     wide_routes)
+    records += _new_kernel_walk_records(streamin_bwd2, new_errs, wide_routes)
     records += _streamin_bwd2_records(streamin_bwd2, ab)
     records.append(_k1_f32_record(k1_f32_routes, train_routes, flow_routes, validation,
                                   flow_validation))

@@ -1175,7 +1175,8 @@ def _two_directions(rng, dev, dtype, hid):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_bidir_matches_plain(dev, dtype, rows):
-    """K9 and K10's walk at every row tile (K10 takes K10p by default)."""
+    """K9 (K4's route once a direction: K4p here) and K10's walk at every
+    row tile (K10 takes K10p by default)."""
     rng = np.random.default_rng(12)
     xf, xb, wf, wb, df, db = _two_directions(rng, dev, dtype, H)
     ref = cuda_lstm.lstm_train_fwd2_plain(xf, xb, wf, wb)
@@ -1191,17 +1192,25 @@ def test_fused_bidir_matches_plain(dev, dtype, rows):
 @pytest.mark.parametrize("hid", [H, HW])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_bidir_equals_per_direction_bitwise(dev, dtype, hid):
-    """K9 = K4's walk forward + reverse and K10's walk = K5's walk per
-    direction, bit for bit (the same device code), at the wrapper's own row
-    tiles (bfloat16 K4 and K5 take K4p and K5p, and K10 K10p by default,
-    other kernels)."""
+    """The routed K9 = two K4p launches (forward, reverse) on
+    ``scan_route``'s plan where one exists, else K4's walk per direction;
+    K10's walk = K5's walk per direction, bit for bit (the same device
+    code), at the wrapper's own row tiles (bfloat16 K5 takes K5p and K10
+    K10p by default, other kernels)."""
     rng = np.random.default_rng(13)
     xf, xb, wf, wb, df, db = _two_directions(rng, dev, dtype, hid)
+    plan = cuda_lstm.scan_route(dtype, R, hid, cuda_lstm._sm_count(dev.index or 0))
     fused = cuda_lstm.lstm_train_fwd2(xf, xb, wf, wb)
+    if plan is None:
+        pair = (*cuda_lstm.lstm_train_fwd_walk(xf, wf, False),
+                *cuda_lstm.lstm_train_fwd_walk(xb, wb, True))
+    else:
+        pair = (*cuda_lstm.lstm_train_fwd_persistent(xf, wf, False, plan),
+                *cuda_lstm.lstm_train_fwd_persistent(xb, wb, True, plan))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(fused, pair))
     single = (*cuda_lstm.lstm_train_fwd_walk(xf, wf, False),
               *cuda_lstm.lstm_train_fwd_walk(xb, wb, True))
-    torch.cuda.synchronize()
-    assert all(torch.equal(a, b) for a, b in zip(fused, single))
     fused = cuda_lstm.lstm_train_bwd2_walk(single[:3], single[3:], df, db, wf, wb)
     single = (*cuda_lstm.lstm_train_bwd_walk(*single[:3], df, wf, False),
               *cuda_lstm.lstm_train_bwd_walk(*single[3:], db, wb, True))
@@ -1211,13 +1220,13 @@ def test_fused_bidir_equals_per_direction_bitwise(dev, dtype, hid):
 
 @pytest.mark.parametrize("stream,fused,expect", [
     (False, False, {"lstm_train_fwd": 2, "lstm_train_bwd": 2}),
-    (False, True, {"lstm_train_fwd2": 1, "lstm_train_bwd2": 1}),
+    (False, True, {"lstm_train_fwd2": 2, "lstm_train_bwd2": 1}),  # K9p: K4p a direction
     (True, False, {"lstm_train_fwd_streamin": 2, "lstm_train_bwd": 2}),
     (True, True, {"lstm_train_fwd_streamin": 2, "lstm_train_bwd": 2}),
 ])
 def test_bilstm_train_follows_the_toggles(dev, monkeypatch, stream, fused, expect):
-    """BiLSTMTrain's launches under each toggle setting, and its gradients
-    against the CPU (plain versions)."""
+    """BiLSTMTrain's launches under each toggle setting (K9 on K9p, two
+    launches a call), and its gradients against the CPU (plain versions)."""
     from urgent2026_challenge_track1_tpu_torch.ops import lstm as tlstm
 
     monkeypatch.setattr(cuda_lstm, "STREAM_INPUT_TRAIN", stream)
@@ -1238,6 +1247,8 @@ def test_bilstm_train_follows_the_toggles(dev, monkeypatch, stream, fused, expec
         if device == dev:
             counts = {k: v for k, v in cuda_lstm.launch_counts().items() if v}
             assert counts == expect
+            fwd2 = expect.get("lstm_train_fwd2", 0)
+            assert cuda_lstm.route_counts("lstm_train_fwd2") == {"persistent": fwd2, "walk": 0}
         grads.append([xt.grad.cpu()] + [tp[k].grad.cpu() for k in names])
     for g, r in zip(*grads):
         assert _rel(g, r) < 1e-3
@@ -1382,7 +1393,9 @@ def _bwd2_case(dev, shape, dtype, seed):
 def _hold_bwd2(got, ref, args, f32):
     """Per direction: dx_proj within bwd_limit of the plain one, which the
     stale-dgates fault (and in float32 one TF32 product) exceeds; the dW
-    kernel on the kernel's dx_proj, the routed dW its rounding."""
+    kernel on the kernel's dx_proj within 1e-4 (bfloat16) or DW_F32_BOUND
+    (float32, which the product of TF32-rounded operands exceeds) |h_prev|^T
+    |dx_proj| of their float64 product, the routed dW its rounding."""
     res_f, res_b, df, db, wf, wb = args
     for d, (res, dout, w, rev) in enumerate(((res_f, df, wf, False), (res_b, db, wb, True))):
         dxp, dw, rdxp, rdw = got[2 * d], got[2 * d + 1], ref[2 * d], ref[2 * d + 1]
@@ -1393,6 +1406,11 @@ def _hold_bwd2(got, ref, args, f32):
         if f32:
             assert _err(lstm_train_bwd_tf32(*res, dout, w, rev)[0], rdxp) >= limit
         dw32 = cuda_lstm.lstm_bwd_dw(res[0], dxp, rev)
+        hp = cuda_lstm._h_prev(res[0], rev).reshape(-1, res[0].shape[-1])
+        dd = dxp.reshape(-1, dxp.shape[-1])
+        assert _dw_f32_reading(dw32, hp, dd) <= (DW_F32_BOUND if f32 else 1e-4)
+        if f32:
+            assert _dw_f32_reading(tf32(hp).t() @ tf32(dd), hp, dd) > DW_F32_BOUND
         assert torch.equal(dw, dw32.to(dw.dtype))
         assert _rel(dw, rdw) < (1e-5 if f32 else TOLS[torch.bfloat16])
 
@@ -1400,19 +1418,21 @@ def _hold_bwd2(got, ref, args, f32):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("shape", K10P_SHAPES, ids=K10P_IDS)
 def test_bwd2_persistent_matches_plain(dev, shape, dtype):
-    """The routed K10: K10p where backward2_route has a plan (then one dW
-    launch a direction), else the walk; K10p against the plain
-    version per direction and equal to K5p launched per direction with
-    K10p's plan, bit for bit."""
+    """The routed K10: K10p where backward2_route has a two-direction plan,
+    else (float32 at the flow band) a K5p-f32 launch a direction on K5p's
+    plan, each with one dW launch a direction; against the plain version
+    per direction and equal to K5p launched per direction with the route's
+    plan, bit for bit."""
     args = _bwd2_case(dev, shape, dtype, 53)
     R_, _, H_ = shape
     plan = cuda_lstm.backward2_route(dtype, R_, H_, cuda_lstm._sm_count(dev.index or 0))
     cuda_lstm.reset_launch_counts()
     got = cuda_lstm.lstm_train_bwd2(*args)
-    if plan is None:  # float32 at the flow band: no two-direction plan
-        assert cuda_lstm.route_counts("lstm_train_bwd2") == {"persistent": 0, "walk": 1}
-        return
-    assert cuda_lstm.route_counts("lstm_train_bwd2") == {"persistent": 1, "walk": 0}
+    split = int(plan.dirs == 1)
+    assert split == (shape == (502, 48, 768) and dtype == torch.float32)
+    assert cuda_lstm.route_counts("lstm_train_bwd2") == {
+        "persistent": 1 - split, "walk": 0, "persistent_split": 2 * split}
+    assert cuda_lstm.launch_counts()["lstm_train_bwd"] == 0
     assert cuda_lstm.lstm_bwd_dw.launches == 2  # one a direction
     ref = cuda_lstm.lstm_train_bwd2_plain(*args)
     _hold_bwd2(got, ref, args, dtype == torch.float32)
@@ -1425,15 +1445,15 @@ def test_bwd2_persistent_matches_plain(dev, shape, dtype):
 
 def test_bwd2_route_follows_the_plan(dev):
     """K10 takes K10p in bfloat16 and float32 where a two-direction plan
-    fits, the walk where none does (float32 at the flow band), and the
+    fits, K5p's plan where none does (float32 at the flow band), and the
     persistent wrapper refuses float16 and a grid the card cannot hold
     resident."""
     import dataclasses
 
     sms = cuda_lstm._sm_count(dev.index or 0)
-    assert cuda_lstm.backward2_route(torch.bfloat16, 502, 768, sms) is not None
-    assert cuda_lstm.backward2_route(torch.float32, 804, 392, sms) is not None
-    assert cuda_lstm.backward2_route(torch.float32, 502, 768, sms) is None
+    assert cuda_lstm.backward2_route(torch.bfloat16, 502, 768, sms).dirs == 2
+    assert cuda_lstm.backward2_route(torch.float32, 804, 392, sms).dirs == 2
+    assert cuda_lstm.backward2_route(torch.float32, 502, 768, sms).dirs == 1
     args = _bwd2_case(dev, (R, T, H), torch.bfloat16, 54)
     f16 = [[t.half() for t in a] if isinstance(a, tuple) else a.half() for a in args]
     with pytest.raises(TypeError):
@@ -1446,7 +1466,104 @@ def test_bwd2_route_follows_the_plan(dev):
         cuda_lstm.lstm_train_bwd2_persistent(*_bwd2_case(dev, (400, 3, H), torch.bfloat16, 55),
                                              big)
     torch.cuda.synchronize()
-    assert cuda_lstm.route_counts("lstm_train_bwd2") == {"persistent": 0, "walk": 0}
+    assert cuda_lstm.route_counts("lstm_train_bwd2") == {"persistent": 0, "walk": 0,
+                                                         "persistent_split": 0}
     got = cuda_lstm.lstm_train_bwd2(*args)
     ref = cuda_lstm.lstm_train_bwd2_plain(*args)
     assert _err(got[0], ref[0]) < ulp_limit(ref[0])
+
+
+# --- K9p and K10's one-direction pair --------------------------------------
+# K9 on K9p: two K4p (K4p-f32) launches on scan_route's plan, bit for bit
+# lstm_train_fwd_persistent per direction, held like K4p (ulp_limit in
+# bfloat16, F32_LIMIT in float32; the stale-h fault with the residuals and,
+# in float32, one TF32 product exceed them); K10 where no two-direction plan
+# fits: a K5p launch a direction, held like K10p
+
+# (R, T, H): the band paths where FUSED_BIDIR_TRAIN runs K9 (disc, bench
+# width, flow)
+K9P_SHAPES = [(804, 34, 392), (804, 34, 384), (502, 48, 768)]
+K9P_IDS = ["disc_band", "bench", "flow_band"]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", K9P_SHAPES, ids=K9P_IDS)
+def test_fwd2_persistent_matches_plain(dev, shape, dtype):
+    """The routed K9 takes K9p (two launches, counted in K9's persistent
+    route, none in K4's), equals K4p launched per direction on the route's
+    plan bit for bit, and holds each direction's h, gates and c against the
+    plain version at every step."""
+    rng = np.random.default_rng(60)
+    R_, T_, H_ = shape
+    xf, xb = (_t(rng, dev, dtype, R_, T_, 4 * H_, scale=0.5) for _ in range(2))
+    wf, wb = (_t(rng, dev, dtype, H_, 4 * H_, scale=H_ ** -0.5) for _ in range(2))
+    plan = cuda_lstm.scan_route(dtype, R_, H_, cuda_lstm._sm_count(dev.index or 0))
+    cuda_lstm.reset_launch_counts()
+    got = cuda_lstm.lstm_train_fwd2(xf, xb, wf, wb)
+    assert cuda_lstm.route_counts("lstm_train_fwd2") == {"persistent": 2, "walk": 0}
+    assert cuda_lstm.launch_counts()["lstm_train_fwd"] == 0
+    pair = (*cuda_lstm.lstm_train_fwd_persistent(xf, wf, False, plan),
+            *cuda_lstm.lstm_train_fwd_persistent(xb, wb, True, plan))
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(got, pair))
+    ref = cuda_lstm.lstm_train_fwd2_plain(xf, xb, wf, wb)
+    for d, (x, w, rev) in enumerate(((xf, wf, False), (xb, wb, True))):
+        mine, plain = got[3 * d:3 * d + 3], ref[3 * d:3 * d + 3]
+        stale = lstm_scan_stale_h(x, w, rev, residuals=True)
+        if dtype == torch.bfloat16:
+            _hold_residuals(mine, plain, stale)
+            continue
+        _hold_f32(mine, plain, stale)
+        for g, r, f in zip(mine, plain, lstm_scan_tf32(x, w, rev, residuals=True)):
+            assert _err(g, r) < F32_LIMIT <= _err(f, r)
+
+
+def test_fwd2_route_follows_the_plan(dev):
+    """K9 takes K9p in bfloat16 and float32 where K4p has a plan, K4's
+    walk once a direction where none does (float32 at H = 1020); each
+    launch counts in K9's routes, none in K4's."""
+    rng = np.random.default_rng(61)
+    for dtype in (torch.bfloat16, torch.float32):
+        xf, xb, wf, wb = _two_directions(rng, dev, dtype, H)[:4]
+        cuda_lstm.reset_launch_counts()
+        cuda_lstm.lstm_train_fwd2(xf, xb, wf, wb)
+        assert cuda_lstm.route_counts("lstm_train_fwd2") == {"persistent": 2, "walk": 0}
+    assert cuda_lstm.scan_route(torch.float32, 3, 1020, 132) is None
+    xf, xb = (_t(rng, dev, torch.float32, 3, 2, 4 * 1020) for _ in range(2))
+    wf, wb = (_t(rng, dev, torch.float32, 1020, 4 * 1020, scale=1020 ** -0.5) for _ in range(2))
+    cuda_lstm.reset_launch_counts()
+    got = cuda_lstm.lstm_train_fwd2(xf, xb, wf, wb)
+    assert cuda_lstm.route_counts("lstm_train_fwd2") == {"persistent": 0, "walk": 2}
+    assert cuda_lstm.launch_counts()["lstm_train_fwd"] == 0
+    single = (*cuda_lstm.lstm_train_fwd_walk(xf, wf, False),
+              *cuda_lstm.lstm_train_fwd_walk(xb, wb, True))
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(got, single))
+
+
+@pytest.mark.parametrize("dtype,sms", [(torch.bfloat16, 2), (torch.float32, 3)],
+                         ids=["bf16", "f32"])
+def test_bwd2_split_route_on_few_sms(dev, monkeypatch, dtype, sms):
+    """Where the SMs hold one direction's grid but not two (H = 128 on 2 or
+    3 SMs, as the flow band in float32 on 132), the routed K10 takes K5p's
+    plan with one launch a direction: two launches in
+    ``route_counts(...)["persistent_split"]``, none in K5's, and bitwise
+    two lstm_train_bwd_persistent launches; held against the plain version."""
+    monkeypatch.setattr(cuda_lstm, "_sm_count", lambda _: sms)
+    shape = (13, 9, 128)
+    assert cuda_lstm.plan_backward(13, 128, sms, elem=dtype.itemsize, dirs=2) is None
+    plan = cuda_lstm.backward2_route(dtype, 13, 128, sms)
+    assert plan.dirs == 1 and plan.S > 1
+    args = _bwd2_case(dev, shape, dtype, 62)
+    cuda_lstm.reset_launch_counts()
+    got = cuda_lstm.lstm_train_bwd2(*args)
+    assert cuda_lstm.route_counts("lstm_train_bwd2") == {"persistent": 0, "walk": 0,
+                                                         "persistent_split": 2}
+    assert cuda_lstm.launch_counts()["lstm_train_bwd"] == 0
+    assert cuda_lstm.lstm_bwd_dw.launches == 2
+    res_f, res_b, df, db, wf, wb = args
+    single = (*cuda_lstm.lstm_train_bwd_persistent(*res_f, df, wf, False, plan),
+              *cuda_lstm.lstm_train_bwd_persistent(*res_b, db, wb, True, plan))
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(got, single))
+    _hold_bwd2(got, cuda_lstm.lstm_train_bwd2_plain(*args), args, dtype == torch.float32)

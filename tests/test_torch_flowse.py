@@ -8,7 +8,8 @@ tiny configuration (16 channels x 2 layers, n_fft 960 / hop 480 as
   lengths, the prior taken from the JAX ``FlowMatching.prior_sampling``;
 * a 5-step flow training trajectory (losses, parameters, EMA, the frozen
   ``t_proj_w``) against the JAX trainer's step (``_step_core``, AdamW,
-  clipping, EMA), and the port's ``Trainer`` on a toy set with validation,
+  clipping, EMA), each step's gradients fresh (two steps from one state
+  equal), and the port's ``Trainer`` on a toy set with validation,
   checkpoints and a resume;
 * a FlowSE ``.ckpt`` (with EMA) converted by both packages.
 
@@ -243,6 +244,33 @@ def test_flow_training_trajectory_matches_jax(setup):
     np.testing.assert_array_equal(np.asarray(jp["layers"]["t_proj_w"]), frozen)
     moved = _leaves(to_numpy_tree(model))["layers.fc_time_w"] - _leaves(params)["layers.fc_time_w"]
     assert np.abs(moved).max() > 1e-3  # the trained leaves did move
+
+
+def test_flow_step_starts_from_zero_gradients(setup):
+    """The frozen ``t_proj_w``, which AdamW does not hold, gets a fresh
+    gradient every step, as jax.grad gives it: two steps from the same
+    state on the same batch leave the same gradients and grad norm (a
+    gradient summed over steps would grow the norm that clips every
+    update)."""
+    params, _ = setup
+    cfg = Config(model_type="flowse", n_fft=960, hop_length=480, bsrnn_hidden=16,
+                 num_layer=2, device="cpu")
+    bundle = ttrainer.build_model(cfg)
+    model = from_jax_params(params)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    step = ttrainer.make_train_step(bundle, cfg, FS)
+    clean, noisy, lengths = _waves(30)
+    noise, t = _cfm_draws(31, SPEC)
+    runs = []
+    for _ in range(2):
+        model.load_state_dict(init)
+        m = step(model, ttrainer.make_optimizer(cfg, model), _t(clean), _t(noisy), _t(lengths),
+                 noise=_t(noise), t=_t(t))
+        runs.append((float(m["grad_norm"]),
+                     {n: p.grad.clone() for n, p in model.named_parameters()}))
+    assert runs[0][0] == runs[1][0]
+    for name, g in runs[0][1].items():
+        assert torch.equal(g, runs[1][1][name]), name
 
 
 def _write_split(root, seconds, seed, fs=8000):

@@ -1,10 +1,13 @@
-"""K8p and K10p, the persistent routes of K8 (the input-streaming training
-forward, bfloat16, and K8p-f32 in float32) and K10 (both directions' training backward in one
-launch, bfloat16 and float32), on the CPU: the two-direction backward
-planner, the route rules, the plain sliced walks that read only the packed
-slices (K8p: K1p's walk for one direction with the residual stores; K10p:
-K5p's walk per direction over the one two-direction plan), the planted K8
-fault and the dispatch of CPU tensors.  The kernels themselves
+"""K8p, K9p and K10p, the persistent routes of K8 (the input-streaming
+training forward, bfloat16, and K8p-f32 in float32), K9 (both directions'
+training forward: two K4p launches on K4p's plan) and K10 (both
+directions' training backward in one launch, bfloat16 and float32, or a
+K5p launch a direction where no two-direction plan fits), on the CPU: the
+two-direction backward planner, the route rules, the plain sliced walks
+that read only the packed slices (K8p: K1p's walk for one direction with
+the residual stores; K9p: K4p's per direction; K10p: K5p's walk per
+direction over the one two-direction plan, or over K5p's plan), the
+planted K8 fault and the dispatch of CPU tensors.  The kernels themselves
 (csrc/lstm_persistent.cu, lstm_persistent_bwd.cu) are held against the same plain versions on the
 card (tests/test_torch_cuda_kernels.py and chip_smoke.py).
 
@@ -12,7 +15,9 @@ Tolerances: the sliced walks against the unsliced plain versions 1e-6 in
 float32 (the same products summed in another order) and 5e-2 in bfloat16
 (scripts/check_pallas_tpu.py:29-34); against the Pallas kernels in
 interpret mode, float32: forward 2e-4 abs, gradients 1e-3 relative (max|d|
-/ max|ref|), as tests/test_torch_lstm_streamin_fused.py holds K8-K10."""
+/ max|ref|), as tests/test_torch_lstm_streamin_fused.py holds K8-K10;
+the models of K9p and of K10's one-direction pair 1e-5 (abs; relative for
+the backward)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -181,8 +186,9 @@ def test_route_rules():
     """K8: bfloat16 takes its one-direction plan (K8p), float32 its
     one-direction float32 plan (K8p-f32), other dtypes and shapes without a
     plan the walk (float32 at H = 1020); K10: bfloat16 and float32 take
-    their two-direction plans (K10p), other dtypes and shapes without a
-    plan the walk."""
+    their two-direction plans (K10p), else their one-direction plans (a K5p
+    launch a direction: float32 at the flow band), other dtypes and shapes
+    without a plan the walk."""
     for (R, N, H), want in STREAMIN_PLANS.items():
         plan = K.streamin_route(torch.bfloat16, R, N, H, SMS)
         assert plan == K.plan_persistent(R, N, H, SMS, dirs=1) and plan.dirs == 1
@@ -201,11 +207,13 @@ def test_route_rules():
     assert K.streamin_route(torch.bfloat16, 10, 0, 64, SMS) is None
     assert K.streamin_route(torch.float32, 4, 510, 1020, SMS) is None  # no f32 slice fits
     for R, H in BWD2_SHAPES:
-        assert K.backward2_route(torch.bfloat16, R, H, SMS) == K.plan_backward(R, H, SMS, dirs=2)
-        assert K.backward2_route(torch.float32, R, H, SMS) == K.plan_backward(
-            R, H, SMS, elem=4, dirs=2)
+        for dtype, elem in ((torch.bfloat16, 2), (torch.float32, 4)):
+            two = K.plan_backward(R, H, SMS, elem=elem, dirs=2)
+            assert K.backward2_route(dtype, R, H, SMS) == (
+                two or K.backward_route(dtype, R, H, SMS))
         assert K.backward2_route(torch.float16, R, H, SMS) is None
-    assert K.backward2_route(torch.float32, 502, 768, SMS) is None  # the flow band in f32
+    split = K.backward2_route(torch.float32, 502, 768, SMS)  # the flow band in f32
+    assert split.dirs == 1 and split == K.backward_route(torch.float32, 502, 768, SMS)
     assert K.backward2_route(torch.bfloat16, 10, 8000, SMS) is None
 
 
@@ -416,12 +424,131 @@ def test_planted_stale_dg_sees_both_directions():
         assert _abs(stale, ref[2 * d]) >= PC.ulp_limit(ref[2 * d])
 
 
+# --- K9p and K10's one-direction pair -------------------------------------
+# K9 takes K4p's own plan (``scan_route``'s) and launches K4p once a
+# direction; K10 takes K5p's plan where no two-direction plan fits and
+# launches K5p once a direction.  Both are bitwise those launches on the
+# card (tests/test_torch_cuda_kernels.py); here their plans are pinned and
+# their sliced walks held against the Pallas kernels they replace.
+
+# (R, H, dtype) -> K4p's plan (S, G, U, chunk, CTAs) on 132 SMs: the disc
+# band, the bench width and the flow band, where FUSED_BIDIR_TRAIN runs K9;
+# None: no plan (the walk)
+FWD2_PLANS = {
+    (804, 392, "bf16"): (10, 13, 40, 32, 130), (804, 384, "bf16"): (10, 13, 40, 48, 130),
+    (502, 768, "bf16"): (32, 4, 24, 16, 128), (804, 392, "f32"): (17, 7, 24, 16, 119),
+    (804, 384, "f32"): (14, 9, 28, 16, 126), (502, 768, "f32"): (64, 2, 12, 16, 128),
+    (804, 1020, "f32"): None,
+}
+DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
+
+
+@pytest.mark.parametrize("R,H,dt", list(FWD2_PLANS), ids=str)
+def test_fwd2_route_is_k4p_plan(R, H, dt, monkeypatch):
+    """K9's dispatch on device tensors (meta tensors here, the launches
+    recorded instead of made): K4's route once a direction, forward then
+    reverse, each counted as K9 -- K4p on ``scan_route``'s one-direction
+    plan (pinned; elem 4 in float32), or K4's walk twice where that plan is
+    None (float32 at H = 1020)."""
+    calls = []
+    monkeypatch.setattr(K, "_sm_count", lambda index: SMS)
+    monkeypatch.setattr(K, "_device_index", lambda device: 0)
+    monkeypatch.setattr(K, "_scan_persistent", lambda fn, x, w, rev, lengths, plan, store: (
+        calls.append(("persistent", fn, x, w, rev, lengths, plan, store)) or (x,) * 3))
+    monkeypatch.setattr(K, "lstm_train_fwd_walk", lambda x, w, rev, fn: (
+        calls.append(("walk", fn, x, w, rev)) or (x,) * 3))
+    xf, xb = (torch.empty((R, 3, 4 * H), dtype=DTYPES[dt], device="meta") for _ in range(2))
+    wf, wb = (torch.empty((H, 4 * H), dtype=DTYPES[dt], device="meta") for _ in range(2))
+    got = K.lstm_train_fwd2(xf, xb, wf, wb)
+    assert len(got) == 6 and all(g is xf for g in got[:3]) and all(g is xb for g in got[3:])
+    plan = K.scan_route(DTYPES[dt], R, H, SMS)
+    if FWD2_PLANS[R, H, dt] is None:
+        assert plan is None
+        assert calls == [("walk", K.lstm_train_fwd2, xf, wf, False),
+                         ("walk", K.lstm_train_fwd2, xb, wb, True)]
+        return
+    assert calls == [("persistent", K.lstm_train_fwd2, xf, wf, False, None, plan, True),
+                     ("persistent", K.lstm_train_fwd2, xb, wb, True, None, plan, True)]
+    assert (plan.dirs, plan.elem) == (1, 2 if dt == "bf16" else 4)
+    assert (plan.S, plan.G, plan.U, plan.chunk, plan.ctas) == FWD2_PLANS[R, H, dt]
+
+
+@pytest.mark.parametrize("elem", [2, 4], ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", BWD2_SHAPES, ids=str)
+def test_bwd2_route_splits_only_without_a_two_direction_plan(shape, elem):
+    """K10's rule keeps K10p's pinned dirs = 2 plan wherever one fits; at the
+    flow band in float32 (one direction's grid alone takes 96 CTAs) it
+    takes K5p's one-direction plan, S 96, G 1, U 8, chunk 48."""
+    R, H = shape
+    plan = K.backward2_route(torch.bfloat16 if elem == 2 else torch.float32, R, H, SMS)
+    want = BWD2_PLANS[shape, elem]
+    if want is not None:
+        assert plan.dirs == 2 and (plan.S, plan.G, plan.U, plan.rows, plan.chunk, plan.kt,
+                                   plan.dc_in_smem, plan.smem) == want
+        return
+    assert plan == K.plan_backward(R, H, SMS, elem=elem) and plan.dirs == 1
+    assert (plan.S, plan.G, plan.U, plan.chunk, plan.ctas) == (96, 1, 8, 48, 96)
+
+
+def _fwd2_pallas_case(R, T, H, seed):
+    rng = np.random.default_rng(seed)
+    xf, xb = (0.5 * rng.standard_normal((2, R, T, 4 * H))).astype(np.float32)
+    wf, wb = (H ** -0.5 * rng.standard_normal((2, H, 4 * H))).astype(np.float32)
+    return xf, xb, wf, wb
+
+
+@pytest.mark.parametrize("sms", [4, 6])
+def test_sliced_fwd2_matches_pallas(sms):
+    """K9p's model, K4p's sliced walk forward on xp_f and reverse on xp_b
+    over one float32 plan with S > 1 and G > 1, against the Pallas
+    ``_train_forward2`` (interpret mode): h, gates and c of both
+    directions at every step within 1e-5."""
+    R, T, H = 70, 5, 12
+    plan = K.scan_route(torch.float32, R, H, sms)
+    assert plan.S > 1 and plan.G > 1 and (plan.dirs, plan.elem) == (1, 4)
+    xf, xb, wf, wb = _fwd2_pallas_case(R, T, H, sms)
+    ref = jpl._train_forward2(*map(jnp.asarray, (xf, xb, wf, wb)), 0, True)
+    got = []
+    for x, w, reverse in ((xf, wf, False), (xb, wb, True)):
+        wt = torch.from_numpy(w)
+        got += K.lstm_train_fwd_sliced_plain(torch.from_numpy(x),
+                                             K.pack_scan_weights(wt, plan), plan, reverse)
+    for g, r in zip(got, ref):  # time-major in the Pallas kernel
+        np.testing.assert_allclose(g.numpy(), np.swapaxes(np.asarray(r), 0, 1), atol=1e-5, rtol=0)
+
+
+def test_split_bwd2_matches_pallas():
+    """The model of K10's one-direction pair, K5p's sliced backward per
+    direction on the plan ``backward2_route`` takes where no dirs = 2 plan
+    fits (4 SMs, H = 128: one direction needs 3 slices), against the Pallas
+    ``_lstm_train_bwd2`` (interpret mode) on its own forward's residuals:
+    dx_proj and dW of both directions within 1e-5 of max|ref|."""
+    R, T, H, sms = 6, 4, 128, 4
+    assert K.plan_backward(R, H, sms, elem=4, dirs=2) is None
+    plan = K.backward2_route(torch.float32, R, H, sms)
+    assert plan.dirs == 1 and plan.S > 1 and plan == K.backward_route(torch.float32, R, H, sms)
+    xf, xb, wf, wb = _fwd2_pallas_case(R, T, H, 14)
+    df, db = np.random.default_rng(15).standard_normal((2, R, T, H)).astype(np.float32)
+    fwd = jpl._train_forward2(*map(jnp.asarray, (xf, xb, wf, wb)), 0, True)
+    ref = jpl._lstm_train_bwd2(tuple(fwd[:3]) + (jnp.asarray(wf),),
+                               tuple(fwd[3:]) + (jnp.asarray(wb),), jnp.asarray(df),
+                               jnp.asarray(db), 0, True)
+    res = [torch.from_numpy(np.swapaxes(np.asarray(r), 0, 1).copy()) for r in fwd]
+    got = []
+    for r3, d, w, reverse in ((res[:3], df, wf, False), (res[3:], db, wb, True)):
+        got += K.lstm_train_bwd_sliced_plain(*r3, torch.from_numpy(d),
+                                             K.pack_backward_weights(torch.from_numpy(w), plan),
+                                             plan, reverse)
+    for g, r in zip(got, ref):  # dxp_f, dW_f, dxp_b, dW_b
+        assert _rel(g, torch.from_numpy(np.array(r))) < 1e-5
+
+
 # --- CPU dispatch ----------------------------------------------------------
 
 
 def test_cpu_takes_the_plain_versions_without_counting():
-    """Every K8 and K10 wrapper, routed, walk and persistent, takes the
-    plain version for CPU tensors and counts no launch on either route."""
+    """Every K8 and K10 wrapper, routed, walk and persistent, and K9, takes
+    the plain version for CPU tensors and counts no launch on any route."""
     x, wi, b, wh = _streamin_inputs(13, 5, 20, 24, torch.bfloat16, 10)
     args = _bwd2_inputs(13, 5, 24, torch.bfloat16, 11)
     K.reset_launch_counts()
@@ -430,12 +557,18 @@ def test_cpu_takes_the_plain_versions_without_counting():
         for fn in (K.lstm_train_fwd_streamin, K.lstm_train_fwd_streamin_walk,
                    K.lstm_train_fwd_streamin_persistent):
             assert all(torch.equal(g, r) for g, r in zip(fn(x, wi, b, wh, reverse), ref))
+    fwd2 = (x[..., :1].expand(13, 5, 96).contiguous(), x[..., 1:2].expand(13, 5, 96).contiguous(),
+            wh, wh.flip(0).contiguous())
+    ref = K.lstm_train_fwd2_plain(*fwd2)
+    assert all(torch.equal(g, r) for g, r in zip(K.lstm_train_fwd2(*fwd2), ref))
     ref = K.lstm_train_bwd2_plain(*args)
     for fn in (K.lstm_train_bwd2, K.lstm_train_bwd2_walk, K.lstm_train_bwd2_persistent):
         assert all(torch.equal(g, r) for g, r in zip(fn(*args), ref))
     assert set(K.launch_counts().values()) == {0} and K.lstm_bwd_dw.launches == 0
-    for name in ("lstm_train_fwd_streamin", "lstm_train_bwd2"):
+    for name in ("lstm_train_fwd_streamin", "lstm_train_fwd2"):
         assert K.route_counts(name) == {"persistent": 0, "walk": 0}
+    assert K.route_counts("lstm_train_bwd2") == {"persistent": 0, "walk": 0,
+                                                 "persistent_split": 0}
 
 
 @pytest.mark.parametrize("name,group", [

@@ -47,12 +47,9 @@
 //      in f32) + b (b rounded to the input type), from the raw x (R, T, N)
 //      staged in shared memory; stores h, gates and c as K4.  K1's device
 //      code, one direction, with the template flag STREAM.
-//   K9 lstm_train_fwd2
-//      Replaces pallas_lstm.py:_train_forward2 (_train_fwd2_kernel).  K4 for
-//      both directions of a bidirectional layer in one launch: grid.y is the
-//      direction (0 walks t = 0 .. T-1, 1 walks t = T-1 .. 0), each with its
-//      own x_proj, W_hh^T and outputs.  The device code is K4's, so each
-//      direction's outputs equal K4's bit for bit.
+//   K9 (pallas_lstm.py:_train_forward2, both directions of K4 in one
+//      launch) has no launcher here: ops/cuda_lstm.py runs K4's route once a
+//      direction for it.
 //   K10 lstm_train_bwd2
 //      Replaces pallas_lstm.py:_lstm_train_bwd2 (_train_bwd2_kernel).  K5 for
 //      both directions: one backward-walk launch with grid.y = direction,
@@ -74,7 +71,7 @@
 //
 // Design (simple and correct first):
 //   * the time loop lives inside the block; blocks own disjoint tiles of
-//     ROWS rows (grid.x), and K1, K9 and K10 run both directions on grid.y;
+//     ROWS rows (grid.x), and K1 and K10 run both directions on grid.y;
 //   * thread t owns hidden units t, t + blockDim, ... (U of them: U = 1 for
 //     H <= 512, U = 2 for H <= 1024) of every row of its tile and computes
 //     the four gate columns u, H+u, 2H+u, 3H+u of each, so the c/h update
@@ -117,9 +114,9 @@
 //     two runs give bitwise-equal dW (no atomics).
 //   * K8 reads x (N wide) instead of x_proj (4H wide) and adds N 4H
 //     multiply-adds per row and step to K4's H 4H: the same latency-bound
-//     walk with a longer step.  K9 and K10 halve the launches of a
-//     bidirectional layer and fill twice the blocks of one direction.
-// What bounds them: K4/K6/K9 are K2/K3 plus residual stores (latency-bound
+//     walk with a longer step.  K10 halves the launches of a
+//     bidirectional layer and fills twice the blocks of one direction.
+// What bounds them: K4/K6 are K2/K3 plus residual stores (latency-bound
 // the same way); the backward recurrence does the same product per step as
 // the forward; the dW reduction is 2 H 4H R T operations over inputs that
 // are read once per output tile from L2, on CUDA cores in f32.
@@ -214,7 +211,8 @@ __device__ __forceinline__ float cell(float (&a)[4], float& c) {
   return a[3] * tanhf(c);
 }
 
-// One direction of a recurrence launch (grid.y picks d0 or d1).
+// One direction of a recurrence launch (grid.y picks d0 or d1; every
+// launch of the recurrence now has one direction, d0 = d1).
 template <typename T>
 struct Walk {
   const T* xp;     // (R, T, 4H) input projection incl. biases
@@ -230,9 +228,8 @@ struct Walk {
   float* cT;        // (R, H) the last step's c
 };
 
-// K2 (MASKED = false), K3 (MASKED = true, reverse = 1) and, with STORE, K4,
-// K6 and (two directions) K9: the same walk that also writes the gates and c
-// residuals.  K2 with a carry: h_s and c start from h0 and c0 (h0 is already
+// K2 (MASKED = false), K3 (MASKED = true, reverse = 1) and, with STORE, K4
+// and K6: the same walk that also writes the gates and c residuals.  K2 with a carry: h_s and c start from h0 and c0 (h0 is already
 // in T, so its rounding is exact), and the last step's h and c go to hT and
 // cT; with the pointers null the walk is the one without a carry.
 template <typename T, int ROWS, int U, bool MASKED, bool STORE>
@@ -873,25 +870,6 @@ int lstm_train_fwd_streamin(const void* x, const void* w_ih_t, const void* bias,
                             void* stream) {
   return fusedin<true>(x, w_ih_t, w_hh_t, bias, out, gates, c, R, Tn, N, H, reverse, dtype,
                        rows, stream);
-}
-
-// K9: K4 for the forward direction (xp_f, whh_f -> out_f, gates_f, c_f) and
-// the reverse direction (xp_b, whh_b -> out_b, gates_b, c_b) in one launch.
-int lstm_train_fwd2(const void* xp_f, const void* whh_f, void* out_f, void* gates_f,
-                    void* c_f, const void* xp_b, const void* whh_b, void* out_b,
-                    void* gates_b, void* c_b, int R, int Tn, int H, int dtype, int rows,
-                    void* stream) {
-  if (bad_shape(R, Tn, H, rows)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return (int)dispatch(RecurrenceLaunch<__nv_bfloat16, false, true>{
-        walk<__nv_bfloat16>(xp_f, whh_f, out_f, gates_f, c_f, 0),
-        walk<__nv_bfloat16>(xp_b, whh_b, out_b, gates_b, c_b, 1), 2, nullptr, R, Tn, H, st},
-        rows, H);
-  return (int)dispatch(RecurrenceLaunch<float, false, true>{
-      walk<float>(xp_f, whh_f, out_f, gates_f, c_f, 0),
-      walk<float>(xp_b, whh_b, out_b, gates_b, c_b, 1), 2, nullptr, R, Tn, H, st},
-      rows, H);
 }
 
 // K10: K5 for both directions (forward: reverse = 0, backward: reverse = 1)

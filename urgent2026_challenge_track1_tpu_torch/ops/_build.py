@@ -47,7 +47,6 @@ _SIGNATURES = {
     "lstm_train_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "lstm_revmasked_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "lstm_train_fwd_streamin": (_P,) * 7 + (_I,) * 7 + (_P,),
-    "lstm_train_fwd2": (_P,) * 10 + (_I,) * 5 + (_P,),
     "lstm_train_bwd2": (_P,) * 14 + (_I,) * 5 + (_P,),
     "lstm_fusedin_persistent": (_P,) * 6 + (_I,) * 13 + (_P,),
     "lstm_streamin_persistent": (_P,) * 8 + (_I,) * 12 + (_P,),

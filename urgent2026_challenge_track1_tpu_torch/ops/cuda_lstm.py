@@ -63,20 +63,25 @@ bfloat16, h and c always float32):
                   finds a plan and K8p-f32 for float32 where its float32
                   plan (elem = 4) does, else the walk
                   (``lstm_train_fwd_streamin_walk``; float32 at H = 1020)
-  lstm_train_fwd2           (K9) K4 for both directions in one launch
-  lstm_train_bwd2           (K10) K5 for both directions in one launch,
-                  on one of two routes, fixed before launch by
+  lstm_train_fwd2           (K9) K4 for both directions: K4's own route
+                  once a direction, forward then reverse (``scan_route``:
+                  K4p / K4p-f32, or K4's walk at float32 H = 1020), so bit
+                  for bit ``lstm_train_fwd`` per direction; counted as K9
+  lstm_train_bwd2           (K10) K5 for both directions,
+                  on one of three routes, fixed before launch by
                   ``backward2_route``: K10p (``lstm_train_bwd2_persistent``:
                   K5p for both directions in one cooperative grid, then
                   K5p's dW kernel once a direction) for bfloat16 and
                   float32 where ``plan_backward(..., dirs=2)`` finds a
-                  plan, else the walk
-                  (``lstm_train_bwd2_walk``)
+                  plan; else, on ``backward_route``'s one-direction plan,
+                  one K5p / K5p-f32 launch and its dW kernel a direction
+                  (the same wrapper; float32 at the flow band and at
+                  H = 1020); else the walk (``lstm_train_bwd2_walk``)
 
 Index 0 of the stacked K1 weights is the forward direction, 1 the backward.
 ``route_counts(name)`` reads the launches per route ("persistent", "walk"; for
-K1 also "persistent_split", each launch of K1p-f32's one-direction pair) of
-K1-K8 and K10; ``reset_launch_counts`` zeroes them with the launch counts.
+K1 and K10 also "persistent_split", each launch of a one-direction pair) of
+K1-K10; ``reset_launch_counts`` zeroes them with the launch counts.
 ``LSTMDirTrain`` (K4/K5) and ``LSTMRevMaskedTrain`` (K6/K7) are the autograd
 Functions of the training path; ``lstm_dir`` and ``lstm_dir_revmasked``
 route to them when autograd records and to the lean K2/K3 otherwise (under
@@ -183,8 +188,8 @@ WIDE_MAX_ROWS = 4  # the largest row tile that fits without spilling there
 # band layer (BiLSTMTrain) and both directions of ``ops/lstm.bilstm_masked``
 # stream the raw input into K8 (in-kernel x W_ih^T, no (R, T, 4H)
 # projection); the backward is K5 per direction.  FUSED_BIDIR_TRAIN: the
-# band layer's training forward runs both directions in one K9 launch and,
-# unless STREAM_INPUT_TRAIN is set, its backward in one K10 launch.
+# band layer's training forward runs both directions in one K9 call and,
+# unless STREAM_INPUT_TRAIN is set, its backward in one K10 call.
 STREAM_INPUT_TRAIN = False
 FUSED_BIDIR_TRAIN = False
 
@@ -1391,10 +1396,11 @@ def lstm_revmasked_train_fwd(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
                    lstm_revmasked_train_fwd_persistent, x_proj, w_hh_t, lengths)
 
 
-def lstm_train_fwd_walk(x_proj: torch.Tensor, w_hh_t: torch.Tensor, reverse: bool = False):
+def lstm_train_fwd_walk(x_proj: torch.Tensor, w_hh_t: torch.Tensor, reverse: bool = False,
+                        fn=lstm_train_fwd):
     """K4's walk (csrc/lstm_kernels.cu ``recurrence_kernel<false, true>``),
-    float32 or bfloat16; counted in ``lstm_train_fwd.launches`` and
-    ``.routes["walk"]``."""
+    float32 or bfloat16; counted in ``fn.launches`` and ``.routes["walk"]``
+    (``lstm_train_fwd``'s, or K9's for its launches)."""
     if x_proj.device.type == "cpu":
         return lstm_train_fwd_plain(x_proj, w_hh_t, reverse)
     R, T, G = x_proj.shape
@@ -1412,7 +1418,7 @@ def lstm_train_fwd_walk(x_proj: torch.Tensor, w_hh_t: torch.Tensor, reverse: boo
         R, T, H, int(bool(reverse)), dtype, rows_per_block(R, 1, x_proj.device, H), stream,
     )
     _raise_on(err, "lstm_train_fwd")
-    _count(lstm_train_fwd, "walk")
+    _count(fn, "walk")
     return out, gates, c
 
 
@@ -1628,13 +1634,14 @@ def _check_bwd_persistent(name, h, gates, c, dout, w_hh_t, lengths=None):
     return R, T, H, gates.element_size()
 
 
-def _bwd_persistent(fn, h, gates, c, dout, w_hh_t, reverse, lengths, plan):
+def _bwd_persistent(fn, h, gates, c, dout, w_hh_t, reverse, lengths, plan,
+                    route="persistent"):
     """Launch K5p (``lengths`` None) or K7p: one cooperative grid of G x S
     CTAs over ``plan`` (``plan_backward``'s for the inputs' dtype by
     default; a K10p plan runs one direction of its grid), then the dW
     kernel; a grid the card cannot hold resident raises.  bfloat16, or
-    float32 (the float32 route: f32 throughout, 3xTF32 products).  Returns
-    (dx_proj, dW_hh^T in w_hh_t's dtype)."""
+    float32 (the float32 route: f32 throughout, 3xTF32 products).  Counted
+    in ``fn``'s ``route``.  Returns (dx_proj, dW_hh^T in w_hh_t's dtype)."""
     name = fn.__name__ + "_persistent"
     R, T, H, elem = _check_bwd_persistent(name, h, gates, c, dout, w_hh_t, lengths)
     plan = plan or plan_backward(R, H, _sm_count(_device_index(gates.device)), elem=elem)
@@ -1661,7 +1668,7 @@ def _bwd_persistent(fn, h, gates, c, dout, w_hh_t, reverse, lengths, plan):
     )
     _raise_on(err, name)
     dw = lstm_bwd_dw(h, dxp, reverse, lengths, plan.dw_split)
-    _count(fn, "persistent")
+    _count(fn, route)
     return dxp, dw.to(w_hh_t.dtype)
 
 
@@ -1795,50 +1802,48 @@ def lstm_train_fwd_streamin_persistent(x: torch.Tensor, w_ih_t: torch.Tensor,
 
 def lstm_train_fwd2(xp_f: torch.Tensor, xp_b: torch.Tensor, w_hh_f_t: torch.Tensor,
                     w_hh_b_t: torch.Tensor):
-    """K9: ``lstm_train_fwd`` forward on xp_f and reverse on xp_b in one
-    launch -> (h_f, gates_f, c_f, h_b, gates_b, c_b), bitwise the K4 walk's
-    (``lstm_train_fwd_walk``; the same device code)."""
+    """K9: ``lstm_train_fwd`` forward on xp_f, then reverse on xp_b ->
+    (h_f, gates_f, c_f, h_b, gates_b, c_b): K4's route once a direction on
+    ``scan_route``'s plan (K4p, K4p-f32, or the walk where no plan fits),
+    bit for bit ``lstm_train_fwd``'s.  Each launch is counted in
+    ``lstm_train_fwd2.launches`` and its route, two a call, not in
+    ``lstm_train_fwd``'s."""
     if xp_f.device.type == "cpu":
         return lstm_train_fwd2_plain(xp_f, xp_b, w_hh_f_t, w_hh_b_t)
     R, T, G = xp_f.shape
     H = G // 4
-    dtype, stream = _kernel_args(xp_f, H)
     for name, t, shape in (("xp_f", xp_f, (R, T, G)), ("xp_b", xp_b, (R, T, G)),
                            ("w_hh_f_t", w_hh_f_t, (H, G)), ("w_hh_b_t", w_hh_b_t, (H, G))):
         _check(name, t, shape, xp_f.dtype, xp_f.device)
-    res_f, res_b = _train_outputs(xp_f, H), _train_outputs(xp_f, H)
-    if R == 0 or T == 0:
-        return (*res_f, *res_b)
-    from urgent2026_challenge_track1_tpu_torch.ops._build import load_library
-
-    err = load_library().lstm_train_fwd2(
-        xp_f.data_ptr(), w_hh_f_t.data_ptr(), *(t.data_ptr() for t in res_f),
-        xp_b.data_ptr(), w_hh_b_t.data_ptr(), *(t.data_ptr() for t in res_b),
-        R, T, H, dtype, rows_per_block(R, 2, xp_f.device, H), stream,
-    )
-    _raise_on(err, "lstm_train_fwd2")
-    lstm_train_fwd2.launches += 1
-    return (*res_f, *res_b)
+    plan = scan_route(xp_f.dtype, R, H, _sm_count(_device_index(xp_f.device)))
+    out = []
+    for xp, w_hh_t, reverse in ((xp_f, w_hh_f_t, False), (xp_b, w_hh_b_t, True)):
+        if plan is None:
+            out += lstm_train_fwd_walk(xp, w_hh_t, reverse, fn=lstm_train_fwd2)
+        else:
+            out += _scan_persistent(lstm_train_fwd2, xp, w_hh_t, reverse, None, plan, True)
+    return tuple(out)
 
 
 def backward2_route(dtype: torch.dtype, R: int, H: int, sms: int) -> BackwardPlan | None:
     """K10's route, a fixed rule decided before launch from the dtype and
     the shape: the two-direction plan ``plan_backward(R, H, sms, dirs=2)``
-    (K10p) in bfloat16 (elem = 2) or float32 (elem = 4); anything else, or
-    no plan, is None (the walk)."""
-    if dtype == torch.bfloat16:
-        return plan_backward(R, H, sms, dirs=2)
-    if dtype == torch.float32:
-        return plan_backward(R, H, sms, elem=4, dirs=2)
-    return None
+    (K10p) in bfloat16 (elem = 2) or float32 (elem = 4); where none fits,
+    ``backward_route``'s one-direction plan (one K5p launch a direction:
+    float32 at the flow band and at H = 1020); anything else, or no plan,
+    is None (the walk)."""
+    if dtype not in (torch.bfloat16, torch.float32):
+        return None
+    elem = 2 if dtype == torch.bfloat16 else 4
+    return plan_backward(R, H, sms, elem=elem, dirs=2) or backward_route(dtype, R, H, sms)
 
 
 def lstm_train_bwd2(res_f, res_b, dout_f: torch.Tensor, dout_b: torch.Tensor,
                     w_hh_f_t: torch.Tensor, w_hh_b_t: torch.Tensor):
-    """K10: ``lstm_train_bwd`` for both directions in one launch; res_* =
-    (h, gates, c) of the forward (K9's or K4's) and reverse direction ->
-    (dx_proj_f, dW_hh_f^T, dx_proj_b, dW_hh_b^T), on the route
-    ``backward2_route`` picks (K10p or the walk)."""
+    """K10: ``lstm_train_bwd`` for both directions; res_* = (h, gates, c)
+    of the forward (K9's or K4's) and reverse direction -> (dx_proj_f,
+    dW_hh_f^T, dx_proj_b, dW_hh_b^T), on the route ``backward2_route``
+    picks (K10p in one grid or a K5p launch a direction, or the walk)."""
     if res_f[1].device.type == "cpu":
         return lstm_train_bwd2_plain(res_f, res_b, dout_f, dout_b, w_hh_f_t, w_hh_b_t)
     R, _, G = res_f[1].shape
@@ -1883,12 +1888,16 @@ def lstm_train_bwd2_persistent(res_f, res_b, dout_f: torch.Tensor, dout_b: torch
     """K10p (csrc/lstm_persistent_bwd.cu ``bwd2_persistent_kernel<T>``): K5p
     for both directions (the forward scan's backward on ``res_f``, the
     reverse scan's on ``res_b``) in one cooperative grid of 2 x G x S CTAs
-    over ``plan`` (``plan_backward(..., dirs=2)``'s by default), then
-    ``lstm_bwd_dw`` once per direction; bfloat16 or float32 (3xTF32
-    products); a grid the card cannot hold resident raises.  Equals ``lstm_train_bwd_persistent`` per
-    direction with the same plan, bit for bit.  Returns (dx_proj_f,
-    dW_hh_f^T, dx_proj_b, dW_hh_b^T), dW in the weights' dtype.  Counted
-    in ``lstm_train_bwd2.launches`` and ``.routes["persistent"]``."""
+    over a two-direction ``plan`` (``backward2_route``'s by default), then
+    ``lstm_bwd_dw`` once per direction; on a one-direction plan (dirs = 1)
+    one K5p launch and its dW kernel a direction instead
+    (``lstm_train_bwd_persistent``'s launches); bfloat16 or float32 (3xTF32
+    products); a grid the card cannot hold resident raises.  Either way it
+    equals ``lstm_train_bwd_persistent`` per direction with the same plan,
+    bit for bit.  Returns (dx_proj_f, dW_hh_f^T, dx_proj_b, dW_hh_b^T), dW
+    in the weights' dtype.  Counted in ``lstm_train_bwd2.launches`` and
+    ``.routes["persistent"]`` (one grid) or ``.routes["persistent_split"]``
+    (each launch of the pair)."""
     if res_f[1].device.type == "cpu":
         return lstm_train_bwd2_plain(res_f, res_b, dout_f, dout_b, w_hh_f_t, w_hh_b_t)
     name = "lstm_train_bwd2_persistent"
@@ -1897,12 +1906,17 @@ def lstm_train_bwd2_persistent(res_f, res_b, dout_f: torch.Tensor, dout_b: torch
     if res_b[1].dtype != res_f[1].dtype or res_b[1].shape != res_f[1].shape:
         raise ValueError("the two directions' residuals differ in dtype or shape")
     device = res_f[1].device
-    plan = plan or plan_backward(R, H, _sm_count(_device_index(device)), elem=elem, dirs=2)
+    plan = plan or backward2_route(res_f[1].dtype, R, H, _sm_count(_device_index(device)))
     if plan is None:
         raise ValueError(f"no K10p plan for R={R}, H={H}, {res_f[1].dtype}")
-    if (plan.R, plan.H, plan.elem, plan.dirs) != (R, H, elem, 2):
+    if (plan.R, plan.H, plan.elem) != (R, H, elem) or plan.dirs not in (1, 2):
         raise ValueError(f"plan for {(plan.R, plan.H, plan.elem, plan.dirs)}, "
-                         f"inputs {(R, H, elem, 2)}")
+                         f"inputs {(R, H, elem)}")
+    if plan.dirs == 1:
+        return (*_bwd_persistent(lstm_train_bwd2, *res_f, dout_f, w_hh_f_t, False, None, plan,
+                                 "persistent_split"),
+                *_bwd_persistent(lstm_train_bwd2, *res_b, dout_b, w_hh_b_t, True, None, plan,
+                                 "persistent_split"))
     dxp = [torch.empty((R, T, 4 * H), dtype=res_f[1].dtype, device=device) for _ in range(2)]
     if T == 0:
         return (dxp[0], torch.zeros((H, 4 * H), dtype=w_hh_f_t.dtype, device=device),
@@ -2088,21 +2102,23 @@ KERNELS = (fusedin_bilstm, lstm_scan, lstm_revmasked, lstm_train_fwd, lstm_train
            lstm_train_fwd2, lstm_train_bwd2)
 
 
-# K1-K8 and K10: a persistent route and a walk
+# K1-K10: a persistent route and a walk
 ROUTED = (fusedin_bilstm, lstm_scan, lstm_revmasked, lstm_train_fwd, lstm_revmasked_train_fwd,
-          lstm_train_bwd, lstm_revmasked_bwd, lstm_train_fwd_streamin, lstm_train_bwd2)
+          lstm_train_bwd, lstm_revmasked_bwd, lstm_train_fwd_streamin, lstm_train_fwd2,
+          lstm_train_bwd2)
 
 
 def reset_launch_counts() -> None:
     """Zero the launch and route counts, and the count of the dW kernel of
     K5p, K7p and K10p (``lstm_bwd_dw.launches``, one launch inside each
-    K5p or K7p launch and two inside each K10p launch; not in
-    ``KERNELS``, whose counts are the wrappers a layer calls)."""
+    K5p or K7p launch and two inside each K10 call on a persistent route;
+    not in ``KERNELS``)."""
     for fn in KERNELS + (lstm_bwd_dw,):
         fn.launches = 0
     for fn in ROUTED:
         fn.routes = {"persistent": 0, "walk": 0}
-    fusedin_bilstm.routes["persistent_split"] = 0  # K1p-f32's one-direction pair
+    for fn in (fusedin_bilstm, lstm_train_bwd2):  # their one-direction pairs
+        fn.routes["persistent_split"] = 0
 
 
 def launch_counts() -> dict[str, int]:
@@ -2113,10 +2129,11 @@ def route_counts(kernel: str = "fusedin_bilstm") -> dict[str, int]:
     """The launches per route of ``kernel`` (K1 ``fusedin_bilstm``, K2
     ``lstm_scan``, K3 ``lstm_revmasked``, K4 ``lstm_train_fwd``, K5
     ``lstm_train_bwd``, K6 ``lstm_revmasked_train_fwd``, K7
-    ``lstm_revmasked_bwd``, K8 ``lstm_train_fwd_streamin`` or K10
-    ``lstm_train_bwd2``) since the last reset: "persistent" (one grid),
-    "walk", and for K1 also "persistent_split" (each launch of K1p-f32's
-    one-direction pair, two a call)."""
+    ``lstm_revmasked_bwd``, K8 ``lstm_train_fwd_streamin``, K9
+    ``lstm_train_fwd2`` or K10 ``lstm_train_bwd2``) since the last reset:
+    "persistent" (one grid; K9's K4p launches, two a call), "walk" (K9's
+    K4 walks, two a call), and for K1 and K10 also "persistent_split" (each
+    launch of K1p-f32's or K10's one-direction pair, two a call)."""
     return dict(next(fn for fn in ROUTED if fn.__name__ == kernel).routes)
 
 

@@ -236,7 +236,9 @@ def make_train_step(bundle: ModelBundle, cfg: Config, fs: int):
 
     def step(model, optimizer: torch.optim.AdamW, clean, noisy, lengths, ema=None,
              generator=None, noise=None, t=None) -> dict:
-        optimizer.zero_grad(set_to_none=False)
+        # every gradient, the frozen t_proj_w's too (AdamW does not hold it),
+        # starts from zero: jax.grad gives each step a fresh one
+        model.zero_grad(set_to_none=False)
         if bundle.kind == "flowse":
             loss = flow_mod.flowse_loss(model, bundle.model_cfg, clean, noisy, fs, lengths,
                                         noise=noise, t=t, generator=generator)
