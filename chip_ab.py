@@ -36,8 +36,11 @@ compiled to the first tree's instructions (``cuobjdump -sass``, addresses
 and encodings dropped), and whether K1p's outputs at
 ``chip_smoke.K1_ROUTE_SHAPES``, K5p's and K10p's (with their dW) at the
 disc band (804 x 34, bf16 and f32) and K8p's, K2p's, K3p's, K4p's, K6p's (bf16 and f32) and
-K7p's at the disc time path (136 x 201), and K2p's with a carry at the
-stream step (34 x 8), equal the first tree's bit for bit (sha256 of the
+K7p's at the disc time path (136 x 201), K2p's with a carry at the
+stream step (34 x 8), and end to end one float32 disc train step's loss
+and updated parameters (``e2e_train_step_f32``), the one-utterance
+forward (``e2e_one_utterance_bf16``) and a bf16 flow enhancement
+(``e2e_flow_enhance_bf16``), equal the first tree's bit for bit (sha256 of the
 bytes, seeded inputs; K2p-f32's and K3p-f32's digests, where a tree has
 them, are compared only between trees that do), then the card's name and
 power limit, then a JSON summary of the medians per tree.  Needs one
@@ -127,6 +130,15 @@ for fam, cfg in (("disc_bfloat16", cs._train_config(Path("."), compute_dtype="bf
     out["fused_step_ms"][fam] = statistics.median(times[1:])
     del model, opt
 K.FUSED_BIDIR_TRAIN = False
+# one float32 train step of the disc model from seeded weights (its loss and
+# the updated parameters are digested below, end to end)
+cfg = cs._train_config(Path("."))
+bundle = trainer.build_model(cfg)
+model = trainer.init_params(cfg.seed, bundle, device)
+m = trainer.make_train_step(bundle, cfg, 48000)(model, trainer.make_optimizer(cfg, model),
+                                                *cs._train_batch(device))
+step_state = [m["loss"].detach().reshape(1)] + [p.detach() for p in model.parameters()]
+del model
 out["flow"] = cs._flow_step_and_enhance_times(device)
 from urgent2026_challenge_track1_tpu_torch.models import bsrnn_flowse as F
 from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
@@ -152,6 +164,22 @@ with torch.inference_mode():
         for t in ts:
             h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
         return h.hexdigest()
+
+    # end to end, bit for bit: that train step, the one-utterance forward
+    # (bf16) and the flow enhancement (bf16, N = 15, its prior seeded 0)
+    out["sha256"]["e2e_train_step_f32"] = digest(*step_state)
+    model = init_bsrnn(BSRNNConfig(num_channel=196, num_layer=6, compute_dtype="bfloat16"),
+                       seed=3, device=device)
+    wav = (0.1 * torch.randn((1, 4 * 48000), generator=torch.Generator().manual_seed(31))).to(
+        device)
+    lens = torch.tensor([int(3.7 * 48000)], device=device)
+    out["sha256"]["e2e_one_utterance_bf16"] = digest(
+        bsrnn_se_apply(model, STFTConfig(), wav, 48000, lens)[0])
+    model = F.init_flowse(fcfg, seed=11, device=device).eval()
+    out["sha256"]["e2e_flow_enhance_bf16"] = digest(F.flowse_enhance(
+        model, fcfg, wav, 48000, N=15, lengths=lens,
+        generator=torch.Generator(device=device).manual_seed(0)))
+    del model, wav, step_state
 
     for _, R, T, N, H in cs.K1_ROUTE_SHAPES:
         x, wi, wh, b, _, _ = cs._kernel_inputs(R, T, torch.bfloat16, device, R + T, N, H)

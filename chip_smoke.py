@@ -119,7 +119,16 @@ Phases (any failure exits non-zero; each prints its seconds):
      K9p-f32 and K10p-f32; no K9 or K10 walk); K8-K10 run here;
   5. compare a float32 forward, and one float32 train step's gradients, on
      the card (kernels) with the same on the CPU (plain versions), for both
-     families (the flow model at full width, two layers deep);
+     families (the flow model at full width, two layers deep); then dp x mp
+     parallelism (phase_parallel): over NCCL at a world of one, the
+     collective helpers on CUDA tensors, and the "dp=-1" mesh's sharded
+     enhancement and train step, with a row sharder over the world's one
+     member, bit for bit the unsharded ones; then two processes on the one card over gloo (NCCL refuses two
+     ranks on one device; this script started with ``--parallel-worker
+     RANK PORT DIR DEVICE``), each with its launch counts: the "dp=1,mp=2"
+     enhancement of both families against one process's, and float32
+     "dp=2" / "dp=1,mp=2" train steps (loss, grad norm, parameters)
+     against one process's step on the same global batch;
   6. time each kernel, its plain version and (for K1) cuDNN's LSTM, the
      end-to-end forward at the JAX bench geometry, the train step at the
      baseline geometry in float32 and bfloat16 with its peak memory and
@@ -4987,9 +4996,397 @@ REPLACES = {
 }
 
 
+# ---------------------------------------------------------------------------
+# dp x mp parallelism (phase_parallel)
+# ---------------------------------------------------------------------------
+
+PAR_FS = 48000
+PAR_SECONDS = (4.0, 3.7)    # the sharded enhancements' batch, with lengths
+PAR_NFE = 15                # flow sampler steps of the sharded flow enhancement
+PAR_F32_LIMIT = 1e-5        # float32 waveform, sharded vs one process: rows are independent
+# one train step, sharded vs one process on the same global batch: the JAX
+# test's limits (tests/test_model_parallel.py:129-134)
+PAR_LOSS_RTOL, PAR_PARAM_ATOL = 1e-5, 2e-5
+# and the grad norm, which sees a gradient scaled by a constant where
+# AdamW's first update (about lr * sign(g)) does not: the limit of the CPU
+# tests against the JAX step
+PAR_GNORM_RTOL = 1e-5
+# (b)'s checks, in the order every rank runs them: (name, mesh, family,
+# dtype) for the enhancements, (name, mesh, family, global batch) for the
+# float32 train steps
+PAR_ENHANCE = (("disc f32", "dp=1,mp=2", "disc", "float32"),
+               ("disc bf16", "dp=1,mp=2", "disc", "bfloat16"),
+               ("flow bf16", "dp=1,mp=2", "flow", "bfloat16"))
+PAR_TRAIN = (("disc step dp=2", "dp=2", "disc", 4),
+             ("disc step mp=2", "dp=1,mp=2", "disc", 2),
+             ("flow step dp=2", "dp=2", "flow", 2))
+
+
+def _ran(routes) -> dict:
+    """The launches of ``_routes()`` that happened: {kernel: {route: n > 0}}."""
+    return {k: {r: n for r, n in v.items() if n} for k, v in routes.items() if any(v.values())}
+
+
+def _par_batch(device):
+    """The enhancement batch: B = 2 at 48 kHz, PAR_SECONDS of signal."""
+    import torch
+
+    gen = torch.Generator().manual_seed(21)
+    noisy = torch.zeros((len(PAR_SECONDS), int(max(PAR_SECONDS) * PAR_FS)))
+    lengths = torch.tensor([int(s * PAR_FS) for s in PAR_SECONDS], dtype=torch.int32)
+    for i, n in enumerate(lengths.tolist()):
+        noisy[i, :n] = 0.1 * torch.randn(n, generator=gen)
+    return noisy.to(device), lengths.to(device)
+
+
+def _par_model(device, family, dtype):
+    """The full-width model of ``family`` (196 x 6, or the flow model's 384 x
+    6) in ``dtype``, seeded weights; (model, model_cfg, stft_cfg)."""
+    from urgent2026_challenge_track1_tpu_torch.dsp.stft import STFTConfig
+    from urgent2026_challenge_track1_tpu_torch.models import bsrnn_flowse as F
+    from urgent2026_challenge_track1_tpu_torch.models.bsrnn import BSRNNConfig, init_bsrnn
+
+    if family == "flow":
+        cfg = F.FlowSEConfig(bsrnn_hidden=FLOW_N, num_layer=6, compute_dtype=dtype)
+        return F.init_flowse(cfg, seed=0, device=device), cfg, cfg.stft_cfg
+    cfg = BSRNNConfig(num_channel=N_IN, num_layer=6, compute_dtype=dtype)
+    return init_bsrnn(cfg, seed=0, device=device), cfg, STFTConfig()
+
+
+def _par_enhance(device, family, dtype, mesh=None):
+    """The enhancement of the batch: ``make_enhance_fn`` in one process, or
+    on ``mesh`` the sharded builder; a flow prior from a generator seeded 5."""
+    import torch
+
+    from urgent2026_challenge_track1_tpu_torch.parallel import model_parallel as mpar
+    from urgent2026_challenge_track1_tpu_torch.serving import make_enhance_fn
+
+    model, cfg, stft_cfg = _par_model(device, family, dtype)
+    noisy, lengths = _par_batch(device)
+    gen = torch.Generator(device=device).manual_seed(5)
+    kind = "flowse" if family == "flow" else "discriminative"
+    if mesh is None:
+        return make_enhance_fn(kind, model, cfg, stft_cfg, nfe=PAR_NFE)(noisy, PAR_FS, lengths,
+                                                                         generator=gen)
+    if family == "flow":
+        return mpar.make_sharded_flow_enhance(mesh, model, cfg, PAR_FS, N=PAR_NFE,
+                                              lengths=True)(noisy, lengths, generator=gen)
+    return mpar.make_sharded_enhance(mesh, model, stft_cfg, PAR_FS, lengths=True)(noisy, lengths)
+
+
+def _par_step(device, family, B, mesh=None, shard=None):
+    """One float32 train step (remat, AdamW, clipping; the flow model's EMA
+    and its draws from ``step_generator(0, 0)``) on ``_train_batch``'s B
+    rows, of which a dp rank of ``mesh`` takes its block; (loss, grad norm,
+    the parameters flattened on the CPU)."""
+    import copy
+
+    import torch
+
+    from urgent2026_challenge_track1_tpu_torch.config import Config
+    from urgent2026_challenge_track1_tpu_torch.train import trainer
+
+    model, cfg, stft_cfg = _par_model(device, family, "float32")
+    kind = "flowse" if family == "flow" else "discriminative"
+    bundle = trainer.ModelBundle(kind, cfg, stft_cfg)
+    tcfg = Config(device="cuda")
+    ema = copy.deepcopy(model).requires_grad_(False) if kind == "flowse" else None
+    clean, noisy, lengths = _train_batch(device, B=B)
+    rows = slice(None) if mesh is None else mesh.dp_block(B)
+    step = trainer.make_train_step(bundle, tcfg, PAR_FS, mesh, shard)
+    m = step(model, trainer.make_optimizer(tcfg, model), clean[rows], noisy[rows],
+             lengths[rows], ema=ema, generator=trainer.step_generator(0, 0))
+    flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()]).cpu()
+    return float(m["loss"]), float(m["grad_norm"]), flat
+
+
+def _par_world_one(device) -> dict:
+    """(a): one process, NCCL, a world of one.  The collective helpers on
+    CUDA tensors through NCCL; the "dp=-1" mesh's sharded enhancement
+    (bfloat16), through ``make_sharded_enhance`` (no split at mp = 1) and
+    with a row sharder over the world's one member around every recurrence
+    (its split and gather all-gather over NCCL), against
+    ``make_enhance_fn``; one float32 train step on the mesh with that
+    sharder (its gradients all-reduced over NCCL) against the default step;
+    each bit for bit."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from urgent2026_challenge_track1_tpu_torch.models.bsrnn import bsrnn_se_apply
+    from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
+    from urgent2026_challenge_track1_tpu_torch.parallel import mesh as pmesh
+    from urgent2026_challenge_track1_tpu_torch.parallel.model_parallel import RowSharder
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                            world_size=1)
+    saved = torch.backends.cudnn.deterministic
+    try:
+        mesh = pmesh.make_mesh("dp=-1", device=device)
+        if (mesh.dp, mesh.mp, mesh.world_size) != (1, 1, 1):
+            fail(f"parallel (a): mesh {mesh}")
+        # the helpers through NCCL: an all-gather of one block, the world
+        # mean of two gradients, a broadcast from rank 0
+        x = torch.randn(3, 5, device=device)
+        grads = [torch.randn(4, device=device), torch.randn(2, 3, device=device)]
+        kept = [g.clone() for g in grads]
+        pmesh.all_reduce_gradients(grads, mesh)
+        b = x.clone()
+        pmesh.broadcast_batch(b)
+        if not (torch.equal(pmesh.all_gather_rows(x, None, 1), x) and torch.equal(b, x)
+                and all(torch.equal(g, k) for g, k in zip(grads, kept))):
+            fail("parallel (a): a collective helper changed its tensor over a world of one")
+        one = RowSharder(None, 0, 1)  # the world's one member
+        want = _par_enhance(device, "disc", "bfloat16")
+        K.reset_launch_counts()
+        got = _par_enhance(device, "disc", "bfloat16", mesh)
+        routes = _routes()
+        _check_routes("parallel (a) sharded enhancement", "bfloat16", routes)
+        model, _, stft_cfg = _par_model(device, "disc", "bfloat16")
+        noisy, lengths = _par_batch(device)
+        K.reset_launch_counts()
+        with torch.inference_mode():
+            split = bsrnn_se_apply(model, stft_cfg, noisy, PAR_FS, lengths=lengths,
+                                   shard=one)[0]
+        split_routes = _routes()
+        _check_routes("parallel (a) enhancement with the sharder", "bfloat16", split_routes)
+        for what, out in (("make_sharded_enhance", got), ("the sharder", split)):
+            if not torch.equal(out, want):
+                fail(f"parallel (a): the world-of-one enhancement through {what} differs "
+                     f"from make_enhance_fn by {float((out - want).abs().max())}")
+        torch.backends.cudnn.deterministic = True
+        K.reset_launch_counts()
+        got = _par_step(device, "disc", 2, mesh, one)
+        step_routes = _routes()
+        _check_routes("parallel (a) train step", "float32", step_routes, TRAIN_ROUTED)
+        _check_no_lean_kernels("parallel (a) train step", K.launch_counts())
+        want = _par_step(device, "disc", 2)
+        if got[:2] != want[:2] or not torch.equal(got[2], want[2]):
+            fail(f"parallel (a): the world-of-one step differs from the default step: loss "
+                 f"{got[0]} vs {want[0]}, grad norm {got[1]} vs {want[1]}, parameters by "
+                 f"{float((got[2] - want[2]).abs().max())}")
+        print(f"[parallel] (a) NCCL, world of one, mesh dp=-1 -> dp=1, mp=1: all_gather_rows, "
+              f"all_reduce_gradients and broadcast_batch on CUDA tensors leave them as they "
+              f"were; the bf16 enhancement (B=2, 4 s and 3.7 s at 48 kHz, 196 x 6) through "
+              f"make_sharded_enhance and with the sharder around every recurrence (NCCL "
+              f"all-gathers) equals make_enhance_fn bit for bit, routes {_ran(routes)} and "
+              f"{_ran(split_routes)}; one f32 train step (B=2, 2 s) with the sharder and the "
+              f"NCCL all-reduce equals the default step bit for bit (loss {got[0]:.6f}, grad "
+              f"norm {got[1]:.6f}), routes {_ran(step_routes)}")
+        return {"enhance_routes": _ran(routes), "sharder_routes": _ran(split_routes),
+                "step_routes": _ran(step_routes)}
+    finally:
+        torch.backends.cudnn.deterministic = saved
+        dist.destroy_process_group()
+
+
+def _parallel_worker(rank: int, port: int, workdir: str, device: str) -> int:
+    """One of (b)'s two ranks (``chip_smoke.py --parallel-worker RANK PORT
+    DIR DEVICE``): gloo on the one card; runs PAR_ENHANCE and PAR_TRAIN in order,
+    the launch counts set to 0 before each and read after it, and saves
+    its outputs, routes and times to DIR/rank<RANK>.pt."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(REPO))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    from urgent2026_challenge_track1_tpu_torch.ops import _build
+    from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm as K
+    from urgent2026_challenge_track1_tpu_torch.parallel.mesh import make_mesh
+    from urgent2026_challenge_track1_tpu_torch.parallel.model_parallel import row_sharder
+
+    if _build.build().seconds != 0.0:  # the build phase's library, not a new build
+        fail(f"parallel rank {rank}: the kernel library was rebuilt")
+    device = torch.device(device)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=2)
+    try:
+        # gloo on CUDA tensors, before any kernel launch: the collectives
+        # run on them directly (no staging through host memory)
+        x = torch.full((4,), float(rank + 1), device=device)
+        parts = [torch.empty_like(x) for _ in range(2)]
+        dist.all_gather(parts, x)
+        dist.all_reduce(x)
+        dist.broadcast(x, 0)
+        if torch.cat(parts).tolist() != [1.0] * 4 + [2.0] * 4 or x.tolist() != [3.0] * 4:
+            fail(f"parallel rank {rank}: gloo collectives on CUDA tensors gave {parts}, {x}")
+        # gloo's rate on the card's tensors: all-gather 64 MB a rank (after one warm-up)
+        x = torch.randn(16 * 2**20, device=device)
+        parts = [torch.empty_like(x) for _ in range(2)]
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            dist.all_gather(parts, x)
+            torch.cuda.synchronize()
+        gather_ms = (time.perf_counter() - t) * 1e3
+        del x, parts
+        meshes = {spec: make_mesh(spec, device=device) for spec in ("dp=1,mp=2", "dp=2")}
+        out = {"coords": {k: (m.dp_index, m.mp_index) for k, m in meshes.items()},
+               "allgather_64MB_ms": gather_ms}
+        for name, spec, family, dtype in PAR_ENHANCE:
+            torch.cuda.synchronize()
+            t, start = time.perf_counter(), time.time()
+            K.reset_launch_counts()
+            wav = _par_enhance(device, family, dtype, meshes[spec])
+            torch.cuda.synchronize()
+            out[name] = {"wav": wav.float().cpu(), "routes": _routes(), "start": start,
+                         "seconds": time.perf_counter() - t}
+        for name, spec, family, B in PAR_TRAIN:
+            torch.cuda.synchronize()
+            t, start = time.perf_counter(), time.time()
+            K.reset_launch_counts()
+            loss, gnorm, flat = _par_step(device, family, B, meshes[spec],
+                                          row_sharder(meshes[spec]))
+            out[name] = {"loss": loss, "grad_norm": gnorm, "routes": _routes(),
+                         "launches": K.launch_counts(), "dw": K.lstm_bwd_dw.launches,
+                         "sha": hashlib.sha256(flat.numpy().tobytes()).hexdigest(),
+                         "params": flat if rank == 0 else None, "start": start,
+                         "seconds": time.perf_counter() - t}
+        torch.save(out, Path(workdir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_parallel(device, workdir: Path) -> dict:
+    """dp x mp parallelism (``parallel/``) on the one card.  (a) one
+    process over NCCL, a world of one (``_par_world_one``).  (b) two
+    processes on the card over gloo, because NCCL refuses two ranks on one
+    device; the kernels still run on the card, and each rank's route counts
+    show which ones it ran: at "dp=1,mp=2" the sharded enhancement of the
+    B = 2 batch (4 s and 3.7 s at 48 kHz, lengths) in float32 and bfloat16
+    at 196 x 6 and of the flow model (384 x 6, N = 15, bfloat16), against
+    one process's ``make_enhance_fn`` (float32 within PAR_F32_LIMIT,
+    bfloat16 within E2E_BF16_BOUND); a "dp=2" float32 step (2 s, B = 2 a
+    rank) against one process's B = 4 step, a "dp=1,mp=2" step against
+    mp = 1 (B = 2) and a "dp=2" flow step (B = 1 a rank) against one
+    process's B = 2 step, each within PAR_LOSS_RTOL, PAR_GNORM_RTOL and
+    PAR_PARAM_ATOL (the flow step draws its t and noise for the global batch).  The
+    one-process references run while the ranks do."""
+    import gc
+    import socket
+
+    import torch
+
+    t0, wall0 = time.perf_counter(), time.time()
+    # the ranks share the card with this process: hand back the blocks its
+    # caching allocator keeps from the earlier phases
+    gc.collect()
+    held = torch.cuda.memory_reserved(device)
+    torch.cuda.empty_cache()
+    print(f"[parallel] this process: {torch.cuda.memory_allocated(device) / 2**30:.2f} GiB "
+          f"allocated, {held / 2**30:.2f} GiB reserved before empty_cache, "
+          f"{torch.cuda.memory_reserved(device) / 2**30:.2f} after")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    # the ranks start (import torch, reach the card, join gloo) while this
+    # process runs (a) and the one-process references
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                               "--parallel-worker", str(r), str(port), str(workdir),
+                               str(device)],
+                              cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in range(2)]
+    try:
+        result = {"a": _par_world_one(device)}
+        t_refs = time.time()
+        saved = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            refs = {name: _par_enhance(device, family, dtype).float().cpu()
+                    for name, _, family, dtype in PAR_ENHANCE}
+            refs.update({name: _par_step(device, family, B)
+                         for name, _, family, B in PAR_TRAIN})
+        finally:
+            torch.backends.cudnn.deterministic = saved
+        result["timeline_s"] = {"a": round(t_refs - wall0, 2),
+                                "references": round(time.time() - wall0, 2)}
+        logs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, (so, se)) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            fail(f"parallel rank {r} exited with {p.returncode}:\n{so[-2000:]}\n{se[-4000:]}")
+    ranks = [torch.load(Path(workdir) / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    if [rk["coords"] for rk in ranks] != [{"dp=1,mp=2": (0, 0), "dp=2": (0, 0)},
+                                          {"dp=1,mp=2": (0, 1), "dp=2": (1, 0)}]:
+        fail(f"parallel (b): rank layout {[rk['coords'] for rk in ranks]}")
+    print(f"[parallel] (b) gloo, two processes on {torch.cuda.get_device_name(0)} (NCCL "
+          f"refuses two ranks on one device); gloo in PyTorch {torch.__version__} takes CUDA "
+          f"tensors in all_gather, all_reduce and broadcast (checked on each rank before "
+          f"any launch), so the collectives run on them with no staging through host "
+          f"memory; an all-gather of 64 MB a rank took "
+          f"{[round(rk['allgather_64MB_ms'], 1) for rk in ranks]} ms; each rank loaded the "
+          f"build phase's library")
+    result["allgather_64MB_ms"] = [rk["allgather_64MB_ms"] for rk in ranks]
+    for name, spec, family, dtype in PAR_ENHANCE:
+        limit = PAR_F32_LIMIT if dtype == "float32" else E2E_BF16_BOUND
+        errs = [float((rk[name]["wav"] - refs[name]).abs().max()) for rk in ranks]
+        for r, rk in enumerate(ranks):
+            _check_routes(f"parallel (b) {name} rank {r}", dtype, rk[name]["routes"])
+        if max(errs) > limit:
+            fail(f"parallel (b) {name} at {spec}: max|sharded - one process| {errs} > {limit}")
+        result[name] = {"max_abs_err": errs, "limit": limit,
+                        "seconds": [rk[name]["seconds"] for rk in ranks],
+                        "routes": [_ran(rk[name]["routes"]) for rk in ranks]}
+        print(f"[parallel] (b) {spec} {name} enhancement: max|sharded - one process| "
+              f"{max(errs):.3e} (limit {limit:g}); rank routes {result[name]['routes']}; "
+              f"{max(rk[name]['seconds'] for rk in ranks):.2f} s")
+    for name, spec, family, B in PAR_TRAIN:
+        loss, gnorm, flat = refs[name]
+        for r, rk in enumerate(ranks):
+            what = f"parallel (b) {name} rank {r}"
+            _check_routes(what, "float32", rk[name]["routes"], TRAIN_ROUTED)
+            _check_no_lean_kernels(what, rk[name]["launches"])
+        if len({rk[name]["sha"] for rk in ranks}) != 1:
+            fail(f"parallel (b) {name}: the ranks' parameters differ")
+        got = ranks[0][name]
+        loss_rel = abs(got["loss"] - loss) / abs(loss)
+        gnorm_rel = abs(got["grad_norm"] - gnorm) / abs(gnorm)
+        param_err = float((got["params"] - flat).abs().max())
+        if (loss_rel > PAR_LOSS_RTOL or gnorm_rel > PAR_GNORM_RTOL
+                or param_err > PAR_PARAM_ATOL):
+            fail(f"parallel (b) {name} at {spec}: loss {got['loss']} vs {loss} (rel "
+                 f"{loss_rel:.2e}), grad norm {got['grad_norm']} vs {gnorm} (rel "
+                 f"{gnorm_rel:.2e}), parameters by {param_err:.2e}")
+        result[name] = {"loss_rel": loss_rel, "param_max_abs_err": param_err,
+                        "grad_norm_rel": gnorm_rel, "grad_norm": [got["grad_norm"], gnorm],
+                        "seconds": [rk[name]["seconds"] for rk in ranks],
+                        "routes": [_ran(rk[name]["routes"]) for rk in ranks],
+                        "dw": [rk[name]["dw"] for rk in ranks]}
+        print(f"[parallel] (b) {spec} f32 {name} (global B={B}): loss rel {loss_rel:.2e} "
+              f"(limit {PAR_LOSS_RTOL:g}), max|parameters - one process| {param_err:.2e} "
+              f"(limit {PAR_PARAM_ATOL:g}), grad norm {got['grad_norm']:.6f} vs {gnorm:.6f} "
+              f"(rel {gnorm_rel:.2e}, limit {PAR_GNORM_RTOL:g}), "
+              f"both ranks' parameters equal; rank routes {result[name]['routes']}, dW launches "
+              f"{[rk[name]['dw'] for rk in ranks]}; "
+              f"{max(rk[name]['seconds'] for rk in ranks):.2f} s")
+    for name in [e[0] for e in PAR_ENHANCE] + [t[0] for t in PAR_TRAIN]:
+        result["timeline_s"][name] = [round(ranks[0][name]["start"] - wall0, 2),
+                                      round(ranks[0][name]["start"] - wall0
+                                            + ranks[0][name]["seconds"], 2)]
+    result["seconds"] = time.perf_counter() - t0
+    print(f"[parallel] timeline (s from the phase's start; (a) and the references end, "
+          f"each of rank 0's checks starts and ends): {result['timeline_s']}")
+    return result
+
+
 def main() -> int:
     import torch
 
+    if len(sys.argv) == 6 and sys.argv[1] == "--parallel-worker":  # phase_parallel's ranks
+        return _parallel_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; no result", file=sys.stderr)
         return 2
@@ -5048,6 +5445,8 @@ def main() -> int:
     timed("card vs cpu forward", phase_card_vs_cpu, device)
     timed("card vs cpu gradients", phase_grads_card_vs_cpu, device)
     timed("flow card vs cpu", phase_flow_card_vs_cpu, device)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=REPO) as tmp:
+        parallel = timed("parallel", phase_parallel, device, Path(tmp))
     records = timed("times", phase_times, device, counts, errs, train_errs, k1_routes,
                     scan_routes, train_routes_rows, bwd_routes_rows, main_routes, train_routes,
                     wide_routes)
@@ -5076,6 +5475,7 @@ def main() -> int:
                                    "ab_arms": ab, "flow": flow_times, "dm": dm_times,
                                    "sgmse": sgmse, "codecs_available": codec,
                                    "causal": causal[3], "serving": serving,
+                                   "parallel": parallel,
                                    "carry_routes": carry_rows}))
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(gpu_name_and_power())

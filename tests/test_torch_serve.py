@@ -187,9 +187,11 @@ def test_stream_unavailable_without_streaming_model():
         server.server_close()
 
 
-def test_cli_defaults_to_the_card_and_refuses_a_mesh():
+def test_cli_defaults_to_the_card_and_checks_the_mesh_size():
+    """``--mesh`` whose sizes do not multiply to the world size (one process
+    here, no torchrun) raises before the checkpoint is read."""
     args = tserve.build_parser().parse_args(["--ckpt_path", "x.pt"])
     assert args.device == "cuda" and args.max_batch == 8 and args.stream_chunk_frames == 8
-    with pytest.raises(NotImplementedError, match="A14"):
+    with pytest.raises(ValueError, match="needs 2 processes, but the world size is 1"):
         tserve.main(tserve.build_parser().parse_args(["--ckpt_path", "x.pt", "--mesh",
                                                       "dp=2"]))

@@ -4,9 +4,9 @@ override (counterpart of ``config.py``).
 ``Config(**kwargs)``, ``cfg.read_yaml()`` and ``config_parser()``, which
 generates one ``--key value`` flag per default.  The schema keeps every key
 of the JAX package's, so its YAML files load here (``model_configs`` may
-carry ``causal`` and ``streaming_norm``); the trainer raises on the values
-the port does not run yet, with their ROADMAP item: dp/mp meshes (A14).
-``device`` is ``cuda`` (the default) or ``cpu``.
+carry ``causal`` and ``streaming_norm``).  ``mesh_shape`` places the
+trainer on a dp x mp mesh of processes (``parallel/mesh.py``).  ``device``
+is ``cuda`` (the default) or ``cpu``.
 """
 
 from __future__ import annotations
@@ -78,7 +78,7 @@ class Config:
         self.bsrnn_hidden = 384
         self.num_layer = 6
         # --- keys of the JAX package's runtime ---
-        self.mesh_shape = "dp=-1"     # one device here ("dp=-1" or "dp=1")
+        self.mesh_shape = "dp=-1"     # "dp=-1" (every process), "dp=2,mp=4"
         self.compute_dtype = "float32"  # "float32" | "bfloat16" matmul inputs
         self.length_bucket_ms = 1000  # pad batches up to multiples of this
         self.log_every_steps = 50

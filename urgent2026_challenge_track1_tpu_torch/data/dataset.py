@@ -113,26 +113,30 @@ class PreSimulatedDataset:
 
 
 class GroupedBatchSampler:
-    """Groups by fs, sorts by length, rank-slices, buckets of
-    ``batch_size * bucket_size_mult``, then shuffles bucket order, in-bucket
-    order and batch order with ``random.Random(epoch + rank)``: the JAX
-    package's sampler (and the reference's), so an epoch gives the same
-    batch order in both.  As there, the configured seed does not enter."""
+    """Groups by fs, sorts by length, buckets of ``batch_size *
+    bucket_size_mult``, then shuffles bucket order, in-bucket order and
+    batch order with ``random.Random(seed + epoch)``: the JAX package's
+    sampler (and the reference's), so an epoch gives the same batch order
+    in both.  One process trains with ``seed`` 0, which is the JAX sampler's
+    ``epoch + rank`` at rank 0.  Multi-process training (the JAX package's
+    SPMD row mode) gives every rank the configured seed, so every rank
+    builds the same sequence of global batches, and
+    ``PrefetchLoader(row_slice=...)`` loads each rank's rows of them."""
 
-    def __init__(self, dataset, batch_size: int, rank: int = 0, world_size: int = 1,
-                 drop_last: bool = False, bucket_size_mult: int = 100):
+    def __init__(self, dataset, batch_size: int, drop_last: bool = False,
+                 bucket_size_mult: int = 100, seed: int = 0):
         self.batch_size = batch_size
         self.drop_last = drop_last
         self.bucket_size = batch_size * bucket_size_mult
         self.epoch = 0
-        self.rank = rank
+        self.seed = seed
         sr_groups = defaultdict(list)
         for idx, sr in enumerate(dataset.get_srs()):
             sr_groups[sr].append(idx)
         source_length = dataset.get_source_length()
         self.buckets = []
         for indices in sr_groups.values():
-            ordered = sorted(indices, key=lambda x: source_length[x])[rank::world_size]
+            ordered = sorted(indices, key=lambda x: source_length[x])
             for i in range(0, len(ordered), self.bucket_size):
                 self.buckets.append(ordered[i : i + self.bucket_size])
 
@@ -140,7 +144,7 @@ class GroupedBatchSampler:
         self.epoch = epoch
 
     def __iter__(self) -> Iterator[list[int]]:
-        rng = random.Random(self.epoch + self.rank)
+        rng = random.Random(self.seed + self.epoch)
         buckets = [list(b) for b in self.buckets]
         rng.shuffle(buckets)
         all_batches = []
@@ -170,14 +174,17 @@ def bucket_length(T: int, fs: int, pad_quantum_ms: int = 1000) -> int:
     return -(-T // q) * q
 
 
-def collate_fn(batch, pad_quantum_ms: int = 1000):
+def collate_fn(batch, pad_quantum_ms: int = 1000, pad_to: int = 0):
     """Right-zero-pad to the batch's bucket length; one fs per batch.
-    Returns (clean (B, 1, T), noisy (B, 1, T), fs, lengths (B,) int32)."""
+    Returns (clean (B, 1, T), noisy (B, 1, T), fs, lengths (B,) int32).
+    ``pad_to``: a length the bucket must hold even if no item is that long
+    (a rank's rows padded to their global batch's length)."""
     srs = {int(item[2]) for item in batch}
     if len(srs) != 1:
         raise ValueError(f"mixed sampling rates {sorted(srs)} in one batch")
     sr = srs.pop()
-    T = bucket_length(max(item[0].shape[1] for item in batch), sr, pad_quantum_ms)
+    T = bucket_length(max(max(item[0].shape[1] for item in batch), pad_to), sr,
+                      pad_quantum_ms)
 
     def pad(x):
         # truncate, then pad: a noisy file a few samples longer than its
@@ -202,11 +209,16 @@ class PrefetchLoader:
     """Dataset loader with bounded batch prefetch: items load in a thread
     pool, or with ``use_processes`` in a spawned process pool whose workers
     each hold a copy of the dataset.  ``collate`` (default ``collate_fn``)
-    assembles each batch in the loader's thread."""
+    assembles each batch in the loader's thread.
+
+    ``row_slice=(rank, world)``: the sampler yields global batches, the
+    same on every rank; this loader loads rows ``idxs[rank::world]`` of each
+    and pads them to the global batch's length (from the dataset's source
+    lengths), so that every rank's rows of a step have one shape."""
 
     def __init__(self, dataset, batch_sampler, num_workers: int = 4,
                  pad_quantum_ms: int = 1000, prefetch: int = 4,
-                 use_processes: bool = False, collate=None):
+                 use_processes: bool = False, collate=None, row_slice=None):
         self.dataset = dataset
         self.batch_sampler = batch_sampler
         self.num_workers = max(1, num_workers)
@@ -214,6 +226,7 @@ class PrefetchLoader:
         self.prefetch = prefetch
         self.use_processes = use_processes
         self.collate = collate or collate_fn
+        self.row_slice = row_slice
 
     def _pool(self):
         """(executor, submit(pool, index) -> future)."""
@@ -229,8 +242,16 @@ class PrefetchLoader:
     def __len__(self):
         return len(self.batch_sampler)
 
+    def _rows(self, batches) -> list[tuple[list[int], int]]:
+        """(this rank's item indices, the length to pad them to) a batch."""
+        if self.row_slice is None:
+            return [(idxs, 0) for idxs in batches]
+        rank, world = self.row_slice
+        lengths = self.dataset.get_source_length()
+        return [(idxs[rank::world], max(int(lengths[i]) for i in idxs)) for idxs in batches]
+
     def __iter__(self):
-        batches = list(iter(self.batch_sampler))
+        batches = self._rows(iter(self.batch_sampler))
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
 
@@ -252,12 +273,16 @@ class PrefetchLoader:
                     pending: deque = deque()
                     it = iter(batches)
                     while not stop.is_set():
-                        for idxs in itertools.islice(it, max(2, self.prefetch) - len(pending)):
-                            pending.append([submit(pool, i) for i in idxs])
+                        for idxs, pad_to in itertools.islice(
+                                it, max(2, self.prefetch) - len(pending)):
+                            pending.append((pad_to, [submit(pool, i) for i in idxs]))
                         if not pending:
                             break
-                        items = [f.result() for f in pending.popleft()]
-                        if not put_bounded(self.collate(items, self.pad_quantum_ms)):
+                        pad_to, futures = pending.popleft()
+                        items = [f.result() for f in futures]
+                        batch = (self.collate(items, self.pad_quantum_ms, pad_to=pad_to)
+                                 if pad_to else self.collate(items, self.pad_quantum_ms))
+                        if not put_bounded(batch):
                             return
                 finally:
                     # a consumer that stopped early leaves prefetched items:
@@ -311,6 +336,7 @@ class AudioDataModule:
 
     def __init__(self, config):
         self.batch_size = config.batch_size
+        self.seed = config.seed
         self.num_worker = config.num_worker
         self.pad_quantum_ms = config.length_bucket_ms
         self.dynamic_mixing = bool(config.train_set_dynamic_mixing)
@@ -349,12 +375,22 @@ class AudioDataModule:
         """``skip_batches`` fast-forwards the (deterministic, epoch-seeded)
         sampler on mid-epoch resume without loading the skipped items.
         Dynamic mixing renders in spawned processes where the host has more
-        than two cores, as the JAX package's loader does."""
-        if world_size != 1:
+        than two cores, as the JAX package's loader does.
+
+        ``world_size`` > 1 (the trainer passes its dp index and dp size) is
+        the SPMD row mode: global batches of ``batch_size * world_size`` rows,
+        the same sequence on every rank, of which this rank loads rows
+        ``[rank::world_size]`` padded to the global batch's length; each rank
+        keeps ``batch_size`` rows, the reference's batch a GPU."""
+        spmd = world_size > 1
+        if spmd and self.device_render:
             raise NotImplementedError(
-                "multi-process training is not ported yet (ROADMAP A14)")
-        sampler = GroupedBatchSampler(self.train_dataset, batch_size=self.batch_size,
-                                      rank=rank, world_size=world_size, drop_last=True)
+                "dynamic_mixing_on_device with multi-process training is not supported "
+                "(its dict collate has no global padding); use host dynamic mixing, as "
+                "the JAX package requires")
+        sampler = GroupedBatchSampler(self.train_dataset,
+                                      batch_size=self.batch_size * world_size,
+                                      drop_last=True, seed=self.seed if spmd else 0)
         sampler.set_epoch(epoch)
         if hasattr(self.train_dataset, "set_epoch"):
             self.train_dataset.set_epoch(epoch)
@@ -367,7 +403,8 @@ class AudioDataModule:
                 collate_device_render as collate)
         return PrefetchLoader(self.train_dataset, sampler, self.num_worker,
                               self.pad_quantum_ms, use_processes=use_processes,
-                              collate=collate)
+                              collate=collate,
+                              row_slice=(rank, world_size) if spmd else None)
 
     def val_dataloader(self) -> PrefetchLoader:
         sampler = GroupedBatchSampler(self.val_dataset, batch_size=self.batch_size,

@@ -288,10 +288,12 @@ class DualPathLayer(nn.Module):
 
     def forward(self, z: torch.Tensor, frames: Optional[torch.Tensor] = None,
                 fm: Optional[torch.Tensor] = None,
-                t: Optional[torch.Tensor] = None, lstate=None):
+                t: Optional[torch.Tensor] = None, lstate=None, shard=None):
         """``lstate``: one layer's streaming carry (``norm_time``,
         ``rnn_time`` (h, c), ``norm_freq``; needs ``cfg.causal`` and
-        ``cfg.streaming_norm``); the layer then returns (z, new_lstate)."""
+        ``cfg.streaming_norm``); the layer then returns (z, new_lstate).
+        ``shard``: a ``parallel.model_parallel.RowSharder`` that splits the
+        rows of each recurrence and its projection over the mp group."""
         B, T, K, N = z.shape
         cfg = self.cfg
         dt = cfg.dtype
@@ -310,13 +312,10 @@ class DualPathLayer(nn.Module):
         if cfg.causal and want:
             h, new_state["rnn_time"] = lstm_ops.lstm(
                 self.rnn_time, seq, initial_state=lstate["rnn_time"], return_state=True)
-        elif cfg.causal:
-            h = lstm_ops.lstm(self.rnn_time, seq)
-        elif frames is None:
-            h = lstm_ops.bilstm(self.rnn_time, seq)
+            h = _mm(h, self.fc_time_w, self.fc_time_b, dt)
         else:
-            h = lstm_ops.bilstm_masked(self.rnn_time, seq, frames.repeat_interleave(K))
-        h = _mm(h, self.fc_time_w, self.fc_time_b, dt)
+            lengths = None if cfg.causal or frames is None else frames.repeat_interleave(K)
+            h = _rows(shard, self._time_rows, seq, lengths)
         z = z + h.reshape(B, K, T, N).permute(0, 2, 1, 3)
         # --- band path (padded frames are independent rows here) ---
         out = self._norm(z, self.norm_freq_scale, self.norm_freq_bias, fm,
@@ -324,10 +323,32 @@ class DualPathLayer(nn.Module):
         if want:
             out, new_state["norm_freq"] = out
         seq = out.reshape(B * T, K, N).to(dt)
-        h = lstm_ops.bilstm(self.rnn_freq, seq)
-        h = _mm(h, self.fc_freq_w, self.fc_freq_b, dt)
+        h = _rows(shard, self._band_rows, seq)
         z = z + h.reshape(B, T, K, N)
         return (z, new_state) if want else z
+
+    def _time_rows(self, seq: torch.Tensor, lengths: Optional[torch.Tensor] = None):
+        """The time recurrence of (rows, T, N) and its projection to N."""
+        if self.cfg.causal:
+            h = lstm_ops.lstm(self.rnn_time, seq)
+        elif lengths is None:
+            h = lstm_ops.bilstm(self.rnn_time, seq)
+        else:
+            h = lstm_ops.bilstm_masked(self.rnn_time, seq, lengths)
+        return _mm(h, self.fc_time_w, self.fc_time_b, self.cfg.dtype)
+
+    def _band_rows(self, seq: torch.Tensor):
+        """The band recurrence of (rows, K, N) and its projection to N."""
+        return _mm(lstm_ops.bilstm(self.rnn_freq, seq), self.fc_freq_w, self.fc_freq_b,
+                   self.cfg.dtype)
+
+
+def _rows(shard, fn, seq: torch.Tensor, lengths: Optional[torch.Tensor] = None):
+    """``fn`` over every row of ``seq``, or with ``shard`` over this mp
+    rank's block, gathered."""
+    if shard is not None:
+        return shard(fn, seq, lengths)
+    return fn(seq) if lengths is None else fn(seq, lengths)
 
 
 class MaskDecoderHead(nn.Module):
@@ -419,12 +440,15 @@ def _stack_states(per_layer: list) -> dict:
 
 def run_layers(layers: nn.ModuleList, z: torch.Tensor, cfg: BSRNNConfig,
                frames: Optional[torch.Tensor] = None, fm: Optional[torch.Tensor] = None,
-               t: Optional[torch.Tensor] = None, states=None):
+               t: Optional[torch.Tensor] = None, states=None, shard=None):
     """The dual-path stack on (B, T, K, N); ``t`` (B,) is the flow time of
     the conditional network.  ``states``: the layer-stacked streaming carry
     (``models/streaming_causal.init_model_states``'s ``"layers"``); the call
-    then returns (z, new_states)."""
+    then returns (z, new_states).  ``shard``: the row sharder of
+    ``parallel/model_parallel.py`` (not with ``states``)."""
     if states is not None:
+        if shard is not None:
+            raise ValueError("a streaming carry runs unsharded")
         new = []
         for i, layer in enumerate(layers):
             z, ls = layer(z, frames, fm, t, _layer_state(states, i))
@@ -436,12 +460,13 @@ def run_layers(layers: nn.ModuleList, z: torch.Tensor, cfg: BSRNNConfig,
             # non-reentrant mode: the first pass records autograd, so it runs
             # the training kernels' forward (BiLSTMTrain, LSTMDirTrain,
             # LSTMRevMaskedTrain) and drops their residuals; the backward
-            # recomputes the layer with the same functions, as jax.checkpoint
-            # runs the custom-VJP forward rules in both passes
-            z = checkpoint(layer, z, frames, fm, t, use_reentrant=False,
+            # recomputes the layer with the same functions and the same row
+            # split, as jax.checkpoint runs the custom-VJP forward rules in
+            # both passes
+            z = checkpoint(layer, z, frames, fm, t, shard=shard, use_reentrant=False,
                            preserve_rng_state=False)
         else:
-            z = layer(z, frames, fm, t)
+            z = layer(z, frames, fm, t, shard=shard)
     return z
 
 
@@ -449,7 +474,8 @@ class BSRNN(nn.Module):
     """Discriminative BSRNN; ``forward(spec, fs, frames=None)`` returns
     mask * spec + residual for a (B, T, F) complex spectrum at rate fs;
     ``forward(spec, fs, states=...)`` processes the next chunk of a stream
-    and returns (out, new_states)."""
+    and returns (out, new_states); ``shard`` splits the recurrence rows over
+    an mp group (``parallel/model_parallel.py``)."""
 
     def __init__(self, cfg: BSRNNConfig):
         super().__init__()
@@ -461,7 +487,7 @@ class BSRNN(nn.Module):
         )
 
     def forward(self, spec: torch.Tensor, fs: int,
-                frames: Optional[torch.Tensor] = None, states=None):
+                frames: Optional[torch.Tensor] = None, states=None, shard=None):
         B, T, F = spec.shape
         cfg = self.cfg
         K = band_count(cfg.input_dim, cfg.target_fs, fs, F)
@@ -474,7 +500,7 @@ class BSRNN(nn.Module):
             r, rs = self.mask_decoder["residual"](z, K, F, nstate=states["residual"])
             return m * spec + r, {"band_split": bs, "layers": ls, "mask": ms, "residual": rs}
         fm = None if frames is None else dsp.frames_mask(frames, T)
-        z = run_layers(self.layers, self.band_split(spec, K, fm), cfg, frames, fm)
+        z = run_layers(self.layers, self.band_split(spec, K, fm), cfg, frames, fm, shard=shard)
         m = self.mask_decoder["mask"](z, K, F, fm)
         r = self.mask_decoder["residual"](z, K, F, fm)
         return m * spec + r
@@ -549,33 +575,35 @@ def init_bsrnn(cfg: BSRNNConfig, seed: int = 0, device="cuda") -> BSRNN:
 
 
 def bsrnn_apply(model: BSRNN, spec: torch.Tensor, fs: int,
-                frames: Optional[torch.Tensor] = None, states=None):
+                frames: Optional[torch.Tensor] = None, states=None, shard=None):
     """Core discriminative BSRNN on a (B, T, F) complex spectrum; ``frames``
     (B,) valid-frame counts select the length-exact path.  ``states`` (a
     causal ``streaming_norm`` model's carry, ``models/streaming_causal``)
     treats ``spec`` as the next chunk of a stream and returns
-    (enhanced_spec, new_states)."""
-    return model(spec, fs, frames, states)
+    (enhanced_spec, new_states).  ``shard``: the row sharder of
+    ``parallel/model_parallel.py``."""
+    return model(spec, fs, frames, states, shard)
 
 
 def bsrnn_se_apply(model: BSRNN, stft_cfg: dsp.STFTConfig, noisy: torch.Tensor,
-                   fs: int, lengths: Optional[torch.Tensor] = None):
+                   fs: int, lengths: Optional[torch.Tensor] = None, shard=None):
     """Waveform SE: noisy (B, T) -> (enhanced (B, T), enhanced_spec).
 
     With ``lengths`` (B,) the pipeline is length-exact (reflect tail, masked
     norms, masked time recurrence, masked-envelope iSTFT), so
     ``out[b, :lengths[b]]`` does not depend on the padding and the padding
-    comes out zero."""
+    comes out zero.  ``shard``: the row sharder of
+    ``parallel/model_parallel.py``."""
     if lengths is None:
         spec = dsp.stft_encode(noisy, fs, stft_cfg)
-        enh = model(spec, fs)
+        enh = model(spec, fs, shard=shard)
         return dsp.stft_decode(enh, fs, stft_cfg, length=noisy.shape[-1]), enh
     lengths = lengths.to(noisy.device)
     n_fft, _, hop = stft_cfg.geometry(fs)
     spec = dsp.stft_encode(dsp.reflect_tail(noisy, lengths, n_fft // 2), fs, stft_cfg)
     frames = dsp.valid_frames(lengths, n_fft, hop)
     fm = dsp.frames_mask(frames, spec.shape[1])
-    enh = model(spec, fs, frames)
+    enh = model(spec, fs, frames, shard=shard)
     wav = dsp.stft_decode(enh, fs, stft_cfg, length=noisy.shape[-1], frame_mask=fm)
     t = torch.arange(wav.shape[-1], device=wav.device)
     return wav * (t[None, :] < lengths[:, None]), enh

@@ -34,7 +34,8 @@ from torch import nn
 from urgent2026_challenge_track1_tpu_torch import resolve_device
 from urgent2026_challenge_track1_tpu_torch.dsp import stft as dsp
 from urgent2026_challenge_track1_tpu_torch.models import bsrnn as B
-from urgent2026_challenge_track1_tpu_torch.models.odes import FlowMatching, complex_normal_like
+from urgent2026_challenge_track1_tpu_torch.models.odes import (
+    FlowMatching, complex_normal, complex_normal_like)
 from urgent2026_challenge_track1_tpu_torch.sampling import sample_flow
 from urgent2026_challenge_track1_tpu_torch.train.losses import frame_mask
 
@@ -44,6 +45,8 @@ __all__ = [
     "FlowDNN",
     "init_flowse",
     "vector_field",
+    "draw_t",
+    "cfm_draws",
     "flowse_loss",
     "flowse_enhance",
 ]
@@ -171,7 +174,7 @@ class FlowDNN(nn.Module):
             {"mask": GradDecoderHead(cfg), "residual": GradDecoderHead(cfg)})
 
     def forward(self, x_spec: torch.Tensor, y_spec: torch.Tensor, t: torch.Tensor, fs: int,
-                frames: Optional[torch.Tensor] = None) -> torch.Tensor:
+                frames: Optional[torch.Tensor] = None, shard=None) -> torch.Tensor:
         _, T, F = x_spec.shape
         cfg = self.cfg
         K = B.band_count(cfg.input_dim, cfg.target_fs, fs, F)
@@ -179,7 +182,7 @@ class FlowDNN(nn.Module):
         zx = self.band_split(x_spec, K, fm)
         zy = self.band_split_y(y_spec, K, fm)
         z = torch.cat([zx, zy], dim=-1) @ self.condition_fc_w + self.condition_fc_b
-        z = B.run_layers(self.layers, z, cfg, frames, fm, t)
+        z = B.run_layers(self.layers, z, cfg, frames, fm, t, shard=shard)
         m = self.grad_decoder["mask"](z, K, F, fm)
         r = self.grad_decoder["residual"](z, K, F, fm)
         return m * x_spec + r
@@ -213,9 +216,10 @@ def init_flowse(cfg: FlowSEConfig, seed: int = 0, device="cuda") -> FlowDNN:
 
 
 def vector_field(model: FlowDNN, x: torch.Tensor, t: torch.Tensor, y: torch.Tensor, fs: int,
-                 frames: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """VF(x, t, y) = -dnn(x, y, t)."""
-    return -model(x, y, t, fs, frames)
+                 frames: Optional[torch.Tensor] = None, shard=None) -> torch.Tensor:
+    """VF(x, t, y) = -dnn(x, y, t); ``shard``: the row sharder of
+    ``parallel/model_parallel.py``."""
+    return -model(x, y, t, fs, frames, shard)
 
 
 # ---------------------------------------------------------------------------
@@ -223,16 +227,36 @@ def vector_field(model: FlowDNN, x: torch.Tensor, t: torch.Tensor, y: torch.Tens
 # ---------------------------------------------------------------------------
 
 
+def draw_t(cfg: FlowSEConfig, n: int, device, generator: Optional[torch.Generator] = None):
+    """The CFM times of n rows: (1 - U[0, 1)) * (T_rev - t_eps) + t_eps, in
+    (t_eps, T_rev], drawn on the generator's device and moved to ``device``."""
+    dev = generator.device if generator is not None else device
+    u = torch.rand((n,), generator=generator, device=dev).to(device)
+    return torch.clamp((1.0 - u) * (cfg.T_rev - cfg.t_eps) + cfg.t_eps, max=cfg.T_rev)
+
+
+def cfm_draws(cfg: FlowSEConfig, shape, rows: slice, device,
+              generator: Optional[torch.Generator] = None):
+    """``flowse_loss``'s draws (t, then the noise) for a global batch of
+    spectra of ``shape`` (B, T, F), of which this rank keeps ``rows``:
+    (noise[rows], t[rows])."""
+    t = draw_t(cfg, shape[0], device, generator)
+    noise = complex_normal(shape, device, generator)
+    return noise[rows], t[rows]
+
+
+
 def flowse_loss(model: FlowDNN, cfg: FlowSEConfig, clean: torch.Tensor, noisy: torch.Tensor,
                 fs: int, lengths: Optional[torch.Tensor] = None,
                 noise: Optional[torch.Tensor] = None, t: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None, shard=None) -> torch.Tensor:
     """Conditional-flow-matching loss of (B, T) waveforms: 0.5 * the sum over
     (T, F) of |VF(x_t) - (der_std z + y - x0)|^2 (or | |), mean over the
     batch.  With ``lengths`` (B,) the whole step is length-exact (reflect
     tails, the masked network, the sum over each utterance's valid frames).
     ``noise`` (B, T, F) complex and ``t`` (B,) replace the draws from
-    ``generator`` (t first, then the noise)."""
+    ``generator`` (t first, then the noise; ``cfm_draws``).  ``shard``: the
+    row sharder of ``parallel/model_parallel.py``."""
     clean = torch.nan_to_num(clean)
     noisy = torch.nan_to_num(noisy)
     stft_cfg = cfg.stft_cfg
@@ -245,17 +269,14 @@ def flowse_loss(model: FlowDNN, cfg: FlowSEConfig, clean: torch.Tensor, noisy: t
     y = dsp.stft_encode(noisy, fs, stft_cfg)
     Bsz = x0.shape[0]
     if t is None:
-        # (1 - U[0, 1)) * (T_rev - t_eps) + t_eps, in (t_eps, T_rev]
-        dev = generator.device if generator is not None else x0.device
-        u = torch.rand((Bsz,), generator=generator, device=dev).to(x0.device)
-        t = torch.clamp((1.0 - u) * (cfg.T_rev - cfg.t_eps) + cfg.t_eps, max=cfg.T_rev)
+        t = draw_t(cfg, Bsz, x0.device, generator)
     ode = cfg.ode
     mean, std = ode.marginal_prob(x0, t, y)
     z = complex_normal_like(x0, generator) if noise is None else noise
     xt = mean + std.reshape(-1, 1, 1) * z
     cond_vf = ode.der_std(t).reshape(-1, 1, 1) * z + ode.der_mean(x0, t, y)
     frames = None if lengths is None else dsp.valid_frames(lengths, n_fft, hop)
-    err = vector_field(model, xt, t, y, fs, frames) - cond_vf
+    err = vector_field(model, xt, t, y, fs, frames, shard) - cond_vf
     if cfg.loss_type == "mse":
         losses = err.abs().square()
     elif cfg.loss_type == "mae":
@@ -270,14 +291,19 @@ def flowse_loss(model: FlowDNN, cfg: FlowSEConfig, clean: torch.Tensor, noisy: t
 def flowse_enhance(model: FlowDNN, cfg: FlowSEConfig, noisy: torch.Tensor, fs: int,
                    N: int = 15, solver: str = "euler", lengths: Optional[torch.Tensor] = None,
                    scale_norm: bool = True, generator: Optional[torch.Generator] = None,
-                   x0: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   x0: Optional[torch.Tensor] = None, prior_rows=None,
+                   shard=None) -> torch.Tensor:
     """Sampler-based enhancement, (B, T) -> (B, T).
 
     ``scale_norm`` peak-normalises each input to 0.9 before sampling and
     undoes the scale after (the training data's scale; a no-op for inputs
     already at 0.9).  With ``lengths`` the network runs length-exact and the
     iSTFT uses the masked envelope; the prior is drawn at the padded shape.
-    ``x0`` (B, T, F) complex replaces the prior drawn from ``generator``."""
+    ``x0`` (B, T, F) complex replaces the prior drawn from ``generator``.
+    ``prior_rows`` (n, rows): the rows are ``rows`` of a global batch of n,
+    and the prior noise is drawn for all n and cut to ``rows``, as every
+    rank of ``parallel/model_parallel.make_sharded_flow_enhance`` does.
+    ``shard``: the row sharder of ``parallel/model_parallel.py``."""
     if scale_norm:
         # the padding is zero, so the global max is the valid region's
         peak = noisy.abs().amax(dim=-1, keepdim=True)
@@ -295,8 +321,10 @@ def flowse_enhance(model: FlowDNN, cfg: FlowSEConfig, noisy: torch.Tensor, fs: i
         y = dsp.stft_encode(noisy, fs, stft_cfg)
 
     def vf_fn(x, t, y_):
-        return vector_field(model, x, t, y_, fs, frames)
+        return vector_field(model, x, t, y_, fs, frames, shard)
 
+    if x0 is None and prior_rows is not None:
+        x0 = cfg.ode.prior_sampling(y, generator, rows=prior_rows)[0]
     sample, _ = sample_flow(vf_fn, cfg.ode, y, solver=solver, N=N, T_rev=cfg.T_rev,
                             t_eps=cfg.t_eps, generator=generator, x0=x0)
     wav = dsp.stft_decode(sample, fs, stft_cfg, length=noisy.shape[-1], frame_mask=fm)

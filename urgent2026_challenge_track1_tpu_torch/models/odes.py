@@ -20,17 +20,27 @@ from typing import Optional
 
 import torch
 
-__all__ = ["FlowMatching", "complex_normal_like"]
+__all__ = ["FlowMatching", "complex_normal", "complex_normal_like"]
 
 
-def complex_normal_like(x: torch.Tensor,
-                        generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Complex normal of x's shape with unit complex variance, drawn on the
-    generator's device and moved to x's."""
-    device = generator.device if generator is not None else x.device
-    re = torch.randn(x.shape, generator=generator, device=device)
-    im = torch.randn(x.shape, generator=generator, device=device)
-    return (torch.complex(re, im) * 0.5 ** 0.5).to(x.device)
+def complex_normal(shape, device, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Complex normal of ``shape`` with unit complex variance, drawn on the
+    generator's device and moved to ``device``."""
+    dev = generator.device if generator is not None else device
+    re = torch.randn(shape, generator=generator, device=dev)
+    im = torch.randn(shape, generator=generator, device=dev)
+    return (torch.complex(re, im) * 0.5 ** 0.5).to(device)
+
+
+def complex_normal_like(x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                        rows=None) -> torch.Tensor:
+    """Complex normal of x's shape (``complex_normal``).  ``rows`` (n,
+    slice): x is that slice of an n-row batch; the draw is the n rows',
+    cut to the slice."""
+    if rows is None:
+        return complex_normal(x.shape, x.device, generator)
+    n, sl = rows
+    return complex_normal((n,) + tuple(x.shape[1:]), x.device, generator)[sl]
 
 
 def _bcast(t: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -54,9 +64,10 @@ class FlowMatching:
     def marginal_prob(self, x0, t, y):
         return self.mean(x0, t, y), self.std(t)
 
-    def prior_sampling(self, y, generator: Optional[torch.Generator] = None):
-        """x_T = y + sigma_max * z.  Returns (x_T, z)."""
-        z = complex_normal_like(y, generator)
+    def prior_sampling(self, y, generator: Optional[torch.Generator] = None, rows=None):
+        """x_T = y + sigma_max * z.  Returns (x_T, z).  ``rows``: see
+        ``complex_normal_like``."""
+        z = complex_normal_like(y, generator, rows)
         std = self.std(torch.ones((y.shape[0],), device=y.device))
         return y + z * _bcast(std, y.ndim), z
 

@@ -17,6 +17,12 @@ GET  /stats        batching statistics (occupancy, waits, errors, retries)
 
 Usage:
   python -m urgent2026_challenge_track1_tpu_torch.serve --ckpt_path <ckpt> --port 8080
+
+Over a dp x mp mesh of processes, one a GPU:
+  torchrun --nproc_per_node 4 -m urgent2026_challenge_track1_tpu_torch.serve \
+      --ckpt_path <ckpt> --mesh dp=2,mp=2
+Global rank 0 serves HTTP and batches; every rank enhances its share of each
+batch (``serving.make_sharded_serving_fn``).
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from __future__ import annotations
 import argparse
 import json
 import signal
+import sys
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs
@@ -208,19 +215,48 @@ def make_streamer(kind: str, model, model_cfg, stft_cfg):
 def main(args) -> None:
     import torch
 
-    from urgent2026_challenge_track1_tpu_torch.serving import BatchingEngine, make_enhance_fn
+    from urgent2026_challenge_track1_tpu_torch.serving import (
+        BatchingEngine, make_enhance_fn, make_sharded_serving_fn)
     from urgent2026_challenge_track1_tpu_torch.utils.checkpoint import load_model_for_inference
 
+    mesh = None
     if args.mesh:
-        raise NotImplementedError(
-            f"--mesh {args.mesh!r}: model-parallel serving over a device mesh is not "
-            f"ported yet (ROADMAP A14)")
-    kind, model, model_cfg, stft_cfg = load_model_for_inference(args.ckpt_path, args.device)
+        from urgent2026_challenge_track1_tpu_torch.parallel.mesh import make_mesh
+        from urgent2026_challenge_track1_tpu_torch.train_se import init_distributed
+
+        joined = init_distributed(args.device)
+        try:
+            mesh = make_mesh(args.mesh, device=args.device)  # raises on a size mismatch
+        except BaseException:
+            if joined:
+                torch.distributed.destroy_process_group()
+            raise
+    device = args.device if mesh is None else mesh.device
+    kind, model, model_cfg, stft_cfg = load_model_for_inference(args.ckpt_path, device)
     device = next(model.parameters()).device
     device_name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     print(f"Loaded {kind} model from {args.ckpt_path} on {device} ({device_name})")
-    enhance = make_enhance_fn(kind, model, model_cfg, stft_cfg, nfe=args.nfe,
-                              solver=args.solver)
+    server = None
+
+    def leave(error):  # a mesh fault on rank 0: stop serving, then exit
+        print(f"sharded serving failed: {error!r}; stopping", file=sys.stderr)
+        if server is not None:
+            threading.Thread(target=server.shutdown, daemon=True).start()
+
+    if mesh is None:
+        enhance = make_enhance_fn(kind, model, model_cfg, stft_cfg, nfe=args.nfe,
+                                  solver=args.solver)
+    else:
+        print(f"sharded serving over mesh {mesh.sizes} (rank {mesh.rank}: dp index "
+              f"{mesh.dp_index}, mp index {mesh.mp_index})")
+        enhance = make_sharded_serving_fn(kind, model, model_cfg, stft_cfg, mesh,
+                                          nfe=args.nfe, solver=args.solver, on_fault=leave)
+        if not mesh.is_main:
+            # until rank 0 closes; an error leaves with the group still up
+            # (its peers may wait in a collective) and torchrun stops the rest
+            enhance.run_worker()
+            torch.distributed.destroy_process_group()
+            return
     for fs in args.warmup_fs:
         # the first call at a rate builds the kernels and the FFT plans
         enhance(torch.zeros((1, fs), device=device), fs,
@@ -249,6 +285,14 @@ def main(args) -> None:
         threading.Thread(target=server.shutdown, daemon=True).start()
         engine.close()
         server.server_close()
+        if mesh is not None and enhance.fault is None:
+            enhance.close()  # releases the worker ranks
+            if torch.distributed.is_initialized():
+                torch.distributed.destroy_process_group()
+    if mesh is not None and enhance.fault is not None:
+        # the worker ranks may wait in the failed batch's collectives: exit
+        # with an error, and torchrun stops them
+        raise SystemExit(1)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -273,7 +317,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="longer inputs stream as fixed overlap-add chunks "
                              "instead of joining a batch")
     parser.add_argument("--mesh", type=str, default="",
-                        help="a device mesh such as 'dp=2,mp=4': not ported (ROADMAP A14)")
+                        help="serve over a dp x mp mesh of processes, e.g. 'dp=2,mp=2' "
+                             "(one process a device, under torchrun)")
     parser.add_argument("--warmup_fs", type=int, nargs="*", default=[],
                         help="sampling rates to run once before accepting traffic")
     parser.add_argument("--stream_chunk_frames", type=int, default=8,

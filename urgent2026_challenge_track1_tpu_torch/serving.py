@@ -13,6 +13,11 @@ through the fixed-shape overlap-add streamer (``models/streaming.py``).
 
 PyTorch runs eagerly, so there is no per-(fs, bucket) program to compile:
 the closures call the model under ``torch.inference_mode()``.
+
+``make_sharded_serving_fn`` serves over a dp x mp mesh of processes
+(``serve.py --mesh`` under ``torchrun``): global rank 0 runs the engine and
+broadcasts each batch; every other rank runs the same enhancement on its
+share in ``run_worker()``.
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ from urgent2026_challenge_track1_tpu_torch import resolve_device
 from urgent2026_challenge_track1_tpu_torch.models import bsrnn as bsrnn_mod
 from urgent2026_challenge_track1_tpu_torch.models import bsrnn_flowse as flow_mod
 
-__all__ = ["BatchingEngine", "make_enhance_fn"]
+__all__ = ["BatchingEngine", "MeshFault", "make_enhance_fn", "make_sharded_serving_fn"]
 
 
 def make_enhance_fn(kind: str, model: nn.Module, model_cfg, stft_cfg, nfe: int = 15,
@@ -69,6 +74,122 @@ def make_enhance_fn(kind: str, model: nn.Module, model_cfg, stft_cfg, nfe: int =
     return enhance_flow
 
 
+_STOP, _BATCH = 0, 1
+
+
+class MeshFault(RuntimeError):
+    """A sharded batch failed on rank 0 after its broadcast.  The other
+    ranks may still wait inside that batch's collectives, where no later
+    broadcast can meet them, so the mesh serves no more batches: the
+    engine does not retry it, and the process should exit, which makes
+    ``torchrun`` stop the other ranks."""
+
+
+def make_sharded_serving_fn(kind: str, model: nn.Module, model_cfg, stft_cfg, mesh,
+                            nfe: int = 15, solver: str = "euler",
+                            on_fault: Optional[Callable[[BaseException], None]] = None
+                            ) -> Callable:
+    """``make_enhance_fn``'s ``enhance(wav, fs, lengths=None, generator=None)``
+    over ``mesh`` (``parallel/mesh.py``), for global rank 0, whose engine
+    calls it.  Each call broadcasts (fs, the batch, its lengths and, for a
+    flow model, the generator's state: the seed of the batch's prior) to
+    every rank, pads the rows to a dp multiple with full-length filler rows,
+    runs ``parallel.model_parallel``'s sharded enhancement there (the rows
+    over dp, the recurrence rows over mp) and cuts the padding off.  A flow
+    batch's prior is drawn for the padded batch from that state on every
+    rank, each keeping its rows, so the result equals ``make_enhance_fn``'s
+    on the padded batch with the same generator.  Every other rank calls
+    ``enhance.run_worker()``, which serves the broadcasts until rank 0 calls
+    ``enhance.close()``.  Programs are built once per fs.
+
+    A failure on rank 0 from the broadcast on leaves the ranks out of step:
+    that call, and every later one, raises ``MeshFault`` without another
+    broadcast, ``close()`` sends nothing, ``enhance.fault`` holds the
+    first error and ``on_fault(error)`` is called once (``serve.py`` stops
+    its server and exits).  A failure on another rank ends its
+    ``run_worker()`` with the error."""
+    from urgent2026_challenge_track1_tpu_torch.parallel import model_parallel as mpar
+    from urgent2026_challenge_track1_tpu_torch.parallel.mesh import broadcast_batch
+
+    if kind not in ("discriminative", "flowse"):
+        raise ValueError(f"model kind {kind!r}: expected discriminative or flowse")
+    device = mesh.device
+    flow = kind == "flowse"
+    programs: dict = {}
+    own = torch.Generator(device=device).manual_seed(0)
+
+    def run(wav: torch.Tensor, fs: int, lengths: torch.Tensor, generator) -> torch.Tensor:
+        if fs not in programs:
+            programs[fs] = (
+                mpar.make_sharded_flow_enhance(mesh, model, model_cfg, fs, N=nfe, solver=solver,
+                                               lengths=True) if flow
+                else mpar.make_sharded_enhance(mesh, model, stft_cfg, fs, lengths=True))
+        B, L = wav.shape
+        pad = -(-B // mesh.dp) * mesh.dp - B
+        if pad:
+            wav = torch.cat([wav, wav.new_zeros((pad, L))])
+            lengths = torch.cat([lengths, lengths.new_full((pad,), L)])
+        out = (programs[fs](wav, lengths, generator=generator) if flow
+               else programs[fs](wav, lengths))
+        return out[:B]
+
+    def send(header, *tensors):
+        if mesh.world_size > 1:
+            broadcast_batch(torch.tensor(header, dtype=torch.int64, device=device),
+                            *(t for t in tensors if t.numel()))
+
+    @torch.inference_mode()
+    def enhance(wav: torch.Tensor, fs: int, lengths: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        fs = int(fs)
+        wav = wav.to(device, torch.float32).contiguous()
+        if lengths is None:
+            lengths = torch.full((wav.shape[0],), wav.shape[1], dtype=torch.int32)
+        lengths = lengths.to(device, torch.int32).contiguous()
+        generator = generator or own
+        state = (generator.get_state() if flow else torch.zeros(0, dtype=torch.uint8)).to(device)
+        if enhance.fault is not None:
+            raise MeshFault("an earlier sharded batch failed; the mesh serves no more "
+                            "batches") from enhance.fault
+        try:
+            send([_BATCH, fs, *wav.shape, state.numel()], wav, lengths, state)
+            return run(wav, fs, lengths, generator)
+        except Exception as e:
+            enhance.fault = e
+            if on_fault is not None:
+                on_fault(e)
+            raise MeshFault("a sharded batch failed on rank 0 after its broadcast; the "
+                            "other ranks may wait in its collectives") from e
+
+    @torch.inference_mode()
+    def run_worker() -> None:
+        while True:
+            header = torch.zeros(5, dtype=torch.int64, device=device)
+            broadcast_batch(header)
+            op, fs, B, L, n_state = header.tolist()
+            if op == _STOP:
+                return
+            wav = torch.empty((B, L), dtype=torch.float32, device=device)
+            lengths = torch.empty((B,), dtype=torch.int32, device=device)
+            state = torch.empty((n_state,), dtype=torch.uint8, device=device)
+            broadcast_batch(wav, lengths, *([state] if n_state else []))
+            generator = None
+            if flow:
+                generator = torch.Generator(device=device)
+                generator.set_state(state.cpu())
+            run(wav, fs, lengths, generator)
+
+    def close() -> None:
+        if enhance.fault is None:
+            send([_STOP, 0, 0, 0, 0])
+
+    enhance.device = device
+    enhance.fault = None
+    enhance.run_worker = run_worker
+    enhance.close = close
+    return enhance
+
+
 class _Request:
     __slots__ = ("wav", "fs", "future", "t_submit")
 
@@ -99,7 +220,8 @@ class BatchingEngine:
                     chunks instead of joining a batch.
     normalize:      the CLI's 0.9 peak normalization of each output.
     max_retries:    re-dispatch a failed batch this many times before
-                    failing its requests (0: a kernel fault fails at once).
+                    failing its requests (0: a kernel fault fails at once;
+                    a ``MeshFault`` is never retried).
     seed:           the seed of the one ``torch.Generator`` on
                     ``enhance.device`` that every flow request draws its
                     prior from.
@@ -335,7 +457,8 @@ class BatchingEngine:
                 outs = self._compute(batch)
                 break
             except Exception as e:
-                if attempt < self.max_retries:
+                # a MeshFault leaves the mesh's ranks out of step: no retry
+                if attempt < self.max_retries and not isinstance(e, MeshFault):
                     with self._lock:
                         self._stats["retries"] += 1
                     continue

@@ -32,8 +32,20 @@ With ``dynamic_mixing_on_device`` the loader yields ``DeviceRenderBatch``
 dicts, and ``make_train_step_rendered`` renders each on the trainer's
 device (``data/dynamic_device.render_tensors``) before the same step.
 
-Not ported yet, and raising where asked for: dp/mp meshes and
-multi-process training (ROADMAP A14).
+``mesh_shape`` ("dp=-1", "dp=2,mp=4") places the trainer on a dp x mp mesh
+of processes, one a device (``parallel/mesh.py``; launched with
+``torchrun``, see ``train_se.py``).  Each dp rank loads its rows of every
+global batch (``train_dataloader(rank=dp_index, world_size=dp)``), every
+rank of an mp group the same rows, and trains on its group's first rank's
+copy of them (dynamic mixing renders an item differently in each
+process); the group splits their recurrences
+(``parallel/model_parallel.py``).  ``dynamic_mixing_on_device`` is refused
+on a mesh of more than one process.  After backward one all-reduce over the
+world turns each gradient into the global batch's (``step``'s docstring);
+the grad norm, the NaN skip, AdamW and the EMA then run on the same numbers
+on every rank, as the JAX step does on its one global gradient.  Global
+rank 0 alone writes the checkpoints and ``metrics.jsonl``; every rank reads
+the checkpoint on resume and validates on the whole validation set.
 """
 
 from __future__ import annotations
@@ -49,13 +61,16 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from urgent2026_challenge_track1_tpu_torch import resolve_device
 from urgent2026_challenge_track1_tpu_torch.config import Config
 from urgent2026_challenge_track1_tpu_torch.data.dynamic_device import RENDER_KEYS, render_tensors
+from urgent2026_challenge_track1_tpu_torch.dsp import stft as dsp
 from urgent2026_challenge_track1_tpu_torch.dsp.stft import STFTConfig
 from urgent2026_challenge_track1_tpu_torch.models import bsrnn_flowse as flow_mod
 from urgent2026_challenge_track1_tpu_torch.models.bsrnn import (
     BSRNNConfig, bsrnn_se_apply, init_bsrnn)
+from urgent2026_challenge_track1_tpu_torch.parallel.mesh import (
+    Mesh, all_reduce_gradients, broadcast_batch, make_mesh)
+from urgent2026_challenge_track1_tpu_torch.parallel.model_parallel import row_sharder
 from urgent2026_challenge_track1_tpu_torch.train import losses
 from urgent2026_challenge_track1_tpu_torch.utils.checkpoint import TRAIN_FORMAT
 from urgent2026_challenge_track1_tpu_torch.utils.convert import load_init_from
@@ -81,10 +96,6 @@ __all__ = [
     "MetricsLogger",
     "Trainer",
 ]
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to the PyTorch package yet ({item})")
 
 
 # ---------------------------------------------------------------------------
@@ -214,25 +225,53 @@ def _weighted_grad_norm(named_grads) -> torch.Tensor:
     return (norms * sizes).sum() / (sizes.sum() + 1e-5)
 
 
-def loss_and_metrics(bundle: ModelBundle, fs: int, model, clean, noisy, lengths):
-    """The training loss (a scalar, 0 where it is not finite) and the batch's
-    SI-SNR, both length-masked."""
-    wav, _ = bsrnn_se_apply(model, bundle.stft_cfg, noisy, fs, lengths)
+def _world_mean(values: list[torch.Tensor], mesh: Optional[Mesh]) -> list[torch.Tensor]:
+    """The scalars' means over the world (over dp: the mp ranks of a dp
+    block hold the same numbers), detached; themselves where it is one."""
+    if mesh is None or mesh.world_size == 1:
+        return [v.detach() for v in values]
+    v = torch.stack([x.detach().float() for x in values]) / mesh.world_size
+    torch.distributed.all_reduce(v)
+    return list(v.unbind())
+
+
+def loss_and_metrics(bundle: ModelBundle, fs: int, model, clean, noisy, lengths,
+                     shard=None, mesh: Optional[Mesh] = None):
+    """The training loss (a scalar, 0 where the global batch's loss is not
+    finite) and the metrics ``loss`` and ``sisnr`` of the global batch
+    (the means over the dp blocks of ``mesh``), all length-masked."""
+    wav, _ = bsrnn_se_apply(model, bundle.stft_cfg, noisy, fs, lengths, shard=shard)
     loss = losses.multi_res_l1_spec_loss(clean, wav, lengths).mean()
-    # NaN-loss skip: a constant 0, not loss * 0 (NaN * 0 is NaN)
-    loss = torch.where(torch.isfinite(loss), loss, torch.zeros_like(loss))
     with torch.no_grad():
         sisnr = losses.si_snr(clean, wav, lengths).mean()
-    return loss, {"sisnr": sisnr}
+    shown, sisnr = _world_mean([loss, sisnr], mesh)
+    # NaN-loss skip: a constant 0, not loss * 0 (NaN * 0 is NaN), on every
+    # rank where any rank's loss is not finite, as for JAX's global loss
+    finite = torch.isfinite(shown)
+    loss = torch.where(finite, loss, torch.zeros_like(loss))
+    return loss, {"loss": torch.where(finite, shown, torch.zeros_like(shown)), "sisnr": sisnr}
 
 
-def make_train_step(bundle: ModelBundle, cfg: Config, fs: int):
+def make_train_step(bundle: ModelBundle, cfg: Config, fs: int, mesh: Optional[Mesh] = None,
+                    shard=None):
     """(model, optimizer, clean (B, T), noisy (B, T), lengths (B,), ema=,
     generator=, noise=, t=) -> metrics; updates the model, the optimizer and
     (flow) the EMA model in place.  A flow step draws t and the CFM noise
-    from ``generator`` unless ``t`` (B,) and ``noise`` (B, T, F) are given."""
+    from ``generator`` unless ``t`` (B,) and ``noise`` (B, T, F) are given.
+
+    On a ``mesh`` the batch is this dp rank's rows and ``shard`` (its
+    ``row_sharder``) splits the recurrences over mp.  A flow step then draws
+    t and the noise for the global batch and keeps its rows, so that the
+    step equals one process's on the assembled batch.  After backward one
+    all-reduce takes every gradient's mean over the world, the frozen
+    ``t_proj_w``'s included: the global batch's gradient
+    (``parallel/model_parallel.py`` says why one weight serves every
+    parameter).  The mp ranks' equal copies of a gradient go through it
+    too: cuDNN's weight gradients are not bitwise repeatable on the card,
+    and the mp ranks' copies of the weights would drift apart."""
     max_norm = float(cfg.gradient_clip)
     decay = float(cfg.ema_decay)
+    dp = 1 if mesh is None else mesh.dp
 
     def step(model, optimizer: torch.optim.AdamW, clean, noisy, lengths, ema=None,
              generator=None, noise=None, t=None) -> dict:
@@ -240,16 +279,25 @@ def make_train_step(bundle: ModelBundle, cfg: Config, fs: int):
         # starts from zero: jax.grad gives each step a fresh one
         model.zero_grad(set_to_none=False)
         if bundle.kind == "flowse":
-            loss = flow_mod.flowse_loss(model, bundle.model_cfg, clean, noisy, fs, lengths,
-                                        noise=noise, t=t, generator=generator)
-            extra = {}
+            mcfg = bundle.model_cfg
+            if dp > 1 and noise is None and t is None:
+                n_fft, _, hop = bundle.stft_cfg.geometry(fs)
+                shape = (clean.shape[0] * dp, dsp.num_frames(clean.shape[-1], n_fft, hop),
+                         n_fft // 2 + 1)
+                noise, t = flow_mod.cfm_draws(mcfg, shape, mesh.dp_block(shape[0]),
+                                              clean.device, generator)
+            loss = flow_mod.flowse_loss(model, mcfg, clean, noisy, fs, lengths,
+                                        noise=noise, t=t, generator=generator, shard=shard)
+            extra = {"loss": _world_mean([loss], mesh)[0]}
         else:
-            loss, extra = loss_and_metrics(bundle, fs, model, clean, noisy, lengths)
+            loss, extra = loss_and_metrics(bundle, fs, model, clean, noisy, lengths, shard, mesh)
         loss.backward()
         named = list(model.named_parameters())
         for _, p in named:
             if p.grad is None:  # optax updates (and decays) every leaf
                 p.grad = torch.zeros_like(p)
+        if mesh is not None:
+            all_reduce_gradients((p.grad for _, p in named), mesh)
         grads = [p.grad for _, p in named]
         gnorm = _weighted_grad_norm((name, p.grad) for name, p in named)
         # a non-finite element of any gradient makes the norm non-finite
@@ -259,7 +307,7 @@ def make_train_step(bundle: ModelBundle, cfg: Config, fs: int):
             optimizer.step()
         if ema is not None:
             update_ema(ema, model, decay)
-        return {"loss": loss.detach(), "grad_norm": gnorm, "nan_grad": bad, **extra}
+        return {"loss": extra.pop("loss"), "grad_norm": gnorm, "nan_grad": bad, **extra}
 
     return step
 
@@ -268,7 +316,8 @@ def make_train_step_rendered(bundle: ModelBundle, cfg: Config, fs: int):
     """On-device dynamic mixing and the train step: (model, optimizer,
     *RENDER_KEYS tensors, ema=, generator=) -> metrics.  Renders the batch
     on its device, takes the host-rendered rows from ``clean_pre`` /
-    ``noisy_pre``, then runs ``make_train_step``'s step on it."""
+    ``noisy_pre``, then runs ``make_train_step``'s step on it (one
+    process: ``Trainer`` refuses the render on a mesh)."""
     core = make_train_step(bundle, cfg, fs)
     highpass = bool(cfg.use_high_pass)
 
@@ -279,15 +328,17 @@ def make_train_step_rendered(bundle: ModelBundle, cfg: Config, fs: int):
     return step
 
 
-def make_val_step(bundle: ModelBundle, fs: int):
+def make_val_step(bundle: ModelBundle, fs: int, shard=None):
     """(model, clean, noisy, lengths, generator=None) -> metrics: the loss
-    (the flow loss draws from ``generator``) and, discriminative, SI-SNR."""
+    (the flow loss draws from ``generator``) and, discriminative, SI-SNR;
+    ``shard`` splits the recurrences over an mp group."""
     def step(model, clean, noisy, lengths, generator=None) -> dict:
         with torch.no_grad():
             if bundle.kind == "flowse":
                 return {"loss": flow_mod.flowse_loss(model, bundle.model_cfg, clean, noisy,
-                                                     fs, lengths, generator=generator)}
-            wav, _ = bsrnn_se_apply(model, bundle.stft_cfg, noisy, fs, lengths)
+                                                     fs, lengths, generator=generator,
+                                                     shard=shard)}
+            wav, _ = bsrnn_se_apply(model, bundle.stft_cfg, noisy, fs, lengths, shard=shard)
             return {"loss": losses.multi_res_l1_spec_loss(clean, wav, lengths).mean(),
                     "sisnr": losses.si_snr(clean, wav, lengths).mean()}
 
@@ -449,22 +500,23 @@ class MetricsLogger:
 # ---------------------------------------------------------------------------
 
 
-def _check_single_device(mesh_shape: str) -> None:
-    """The port trains on one device: "dp=-1" (all devices, here one) or "dp=1"."""
-    if mesh_shape.replace(" ", "") not in ("dp=-1", "dp=1"):
-        raise _not_ported(f"mesh_shape={mesh_shape!r} (dp/mp meshes)", "ROADMAP A14")
-
-
 class Trainer:
     def __init__(self, cfg: Config, datamodule):
-        _check_single_device(cfg.mesh_shape)
         self.cfg = cfg
         self.dm = datamodule
-        self.device = resolve_device(cfg.device)
+        self.mesh = make_mesh(cfg.mesh_shape, device=cfg.device)
+        if self.mesh.world_size > 1 and cfg.train_set_dynamic_mixing \
+                and cfg.dynamic_mixing_on_device:
+            raise NotImplementedError(
+                "dynamic_mixing_on_device with multi-process training is not supported; "
+                "use host dynamic mixing, as the JAX package requires")
+        self.device = self.mesh.device
+        self.shard = row_sharder(self.mesh)
         self.bundle = build_model(cfg)
         self.exp_dir = os.path.join("exp", cfg.train_tag, cfg.train_name,
                                     f"version_{cfg.train_version}")
-        self.logger = MetricsLogger(self.exp_dir)
+        # one writer: two processes appending to one file corrupt it
+        self.logger = MetricsLogger(self.exp_dir) if self.mesh.is_main else None
         self.ckpt = CheckpointIO(os.path.join(self.exp_dir, "checkpoints"), cfg.save_top_k,
                                  save_last=cfg.save_last, metric=cfg.checkpoint_metric,
                                  mode=cfg.checkpoint_mode)
@@ -497,7 +549,8 @@ class Trainer:
 
     def _get_train_step(self, fs: int):
         if fs not in self._train_steps:
-            self._train_steps[fs] = make_train_step(self.bundle, self.cfg, fs)
+            self._train_steps[fs] = make_train_step(self.bundle, self.cfg, fs, self.mesh,
+                                                    self.shard)
         return self._train_steps[fs]
 
     def _get_train_step_rendered(self, fs: int):
@@ -508,7 +561,7 @@ class Trainer:
 
     def _get_val_step(self, fs: int):
         if fs not in self._val_steps:
-            self._val_steps[fs] = make_val_step(self.bundle, fs)
+            self._val_steps[fs] = make_val_step(self.bundle, fs, self.shard)
         return self._val_steps[fs]
 
     def _set_lr(self, state: TrainState, epoch: int) -> float:
@@ -516,6 +569,10 @@ class Trainer:
         for group in state.optimizer.param_groups:
             group["lr"] = lr
         return lr
+
+    def _log(self, step: int, metrics: dict) -> None:
+        if self.logger is not None:
+            self.logger.log(step, metrics)
 
     def _to_device(self, *arrays: np.ndarray) -> list[torch.Tensor]:
         return [torch.from_numpy(np.ascontiguousarray(a)).to(self.device) for a in arrays]
@@ -541,7 +598,7 @@ class Trainer:
                 with torch.no_grad():
                     enhanced = flow_mod.flowse_enhance(
                         model, self.bundle.model_cfg, batch[1], fs, N=10, lengths=batch[2],
-                        generator=generator)
+                        generator=generator, shard=self.shard)
                     m["sisnr"] = losses.si_snr(batch[0], enhanced, batch[2]).mean()
                 if first_flow_sisnr is None:
                     first_flow_sisnr = float(m["sisnr"])
@@ -566,8 +623,9 @@ class Trainer:
         for epoch in range(state.epoch, cfg.num_train_epochs):
             state.epoch = epoch
             lr = self._set_lr(state, epoch)
-            self.logger.log(state.step, {"lr": lr, "epoch": epoch})
-            loader = self.dm.train_dataloader(epoch=epoch, skip_batches=state.batch_in_epoch)
+            self._log(state.step, {"lr": lr, "epoch": epoch})
+            loader = self.dm.train_dataloader(rank=self.mesh.dp_index, world_size=self.mesh.dp,
+                                              epoch=epoch, skip_batches=state.batch_in_epoch)
             t_ready = time.perf_counter()
             for batch_item in loader:
                 t0 = time.perf_counter()
@@ -580,6 +638,11 @@ class Trainer:
                     clean, noisy, fs, lengths = batch_item
                     step_fn = self._get_train_step(fs)
                     tensors = self._to_device(clean[:, 0], noisy[:, 0], lengths)
+                    if self.mesh.mp > 1:
+                        # dynamic mixing draws every item anew in each
+                        # process: an mp group trains on its first rank's
+                        broadcast_batch(*tensors, group=self.mesh.mp_group,
+                                        src=self.mesh.dp_index * self.mesh.mp)
                 metrics = step_fn(state.model, state.optimizer, *tensors, ema=state.ema,
                                   generator=step_generator(cfg.seed, state.step))
                 state.step += 1
@@ -590,11 +653,12 @@ class Trainer:
                     logd["data_time"] = data_time
                     if "train_sisnr" in logd:  # the flow step has no SI-SNR
                         logd[f"train_sisnr_{fs}"] = logd["train_sisnr"]
-                    self.logger.log(state.step, logd)
+                    self._log(state.step, logd)
                 if state.step % cfg.val_check_interval == 0:
                     vm = self.validate(state)
-                    self.logger.log(state.step, vm)
-                    self.ckpt.save(state.step, state, vm, cfg.to_dict())
+                    self._log(state.step, vm)
+                    if self.mesh.is_main:
+                        self.ckpt.save(state.step, state, vm, cfg.to_dict())
                 t_ready = time.perf_counter()
             state.epoch = epoch + 1
             state.batch_in_epoch = 0
