@@ -128,7 +128,14 @@ Phases (any failure exits non-zero; each prints its seconds):
      RANK PORT DIR DEVICE``), each with its launch counts: the "dp=1,mp=2"
      enhancement of both families against one process's, and float32
      "dp=2" / "dp=1,mp=2" train steps (loss, grad norm, parameters)
-     against one process's step on the same global batch;
+     against one process's step on the same global batch; then the
+     evaluation path's ONNX executor (phase_onnx): the two stand-in DNSMOS
+     graphs (``evaluation/dnsmos_standin.py``) at DNSMOS's input shapes on
+     the card against the CPU within ONNX_TOL with the process's TF32 on
+     around the calls (the session turns it off and restores it), its
+     outputs CUDA tensors, the graph with its first conv's pads mirrored as
+     the control that must exceed the limit, and ``dnsmos.score_one`` on a
+     10 s signal with its time per 9.01 s window;
   6. time each kernel, its plain version and (for K1) cuDNN's LSTM, the
      end-to-end forward at the JAX bench geometry, the train step at the
      baseline geometry in float32 and bfloat16 with its peak memory and
@@ -3794,6 +3801,111 @@ def phase_flow_card_vs_cpu(device):
 
 
 # ---------------------------------------------------------------------------
+# the ONNX executor and DNSMOS (the evaluation path)
+# ---------------------------------------------------------------------------
+
+ONNX_TOL = 1e-5   # card vs CPU, max|d| / max|CPU|: float32 graphs, TF32 off in the session
+ONNX_SECONDS = 10.0  # the DNSMOS scoring input: one 9.01 s window (score_one's hop rule)
+
+
+def _speechlike(rng, n, fs=16000):
+    """A 16 kHz test signal: a 4 Hz-modulated 220 Hz tone and its harmonics
+    over noise."""
+    import numpy as np
+
+    t = np.arange(n) / fs
+    tone = sum(np.sin(2 * np.pi * 220 * k * t) / k for k in range(1, 6))
+    return 0.2 * tone * (0.55 + 0.45 * np.sin(2 * np.pi * 4 * t)) + 0.01 * rng.standard_normal(n)
+
+
+def _host_ms(fn) -> float:
+    t = time.perf_counter()
+    fn()
+    return 1e3 * (time.perf_counter() - t)
+
+
+def phase_onnx(device):
+    """The evaluation path's ONNX executor on the card: the two stand-in
+    DNSMOS graphs (``evaluation/dnsmos_standin.py``: conv SAME_UPPER at
+    stride 2, BatchNormalization, MaxPool ceil_mode, the Shape idiom,
+    GlobalAveragePool, Gemm, the opset-12 Softmax, one LSTM) at DNSMOS's
+    input shapes, on the card against the CPU within ONNX_TOL, the
+    process's TF32 flags turned on around the calls (the session must run at
+    full float32 and restore them), its outputs CUDA tensors; the CPU graph
+    with the first conv's pads mirrored (SAME_LOWER) must exceed the limit.
+    Then ``dnsmos.score_one`` on a 10 s signal with the card sessions
+    against the CPU ones, and its time per 9.01 s window (CUDA events,
+    median of 5)."""
+    import numpy as np
+    import torch
+    from urgent2026_challenge_track1_tpu_torch.evaluation import dnsmos
+    from urgent2026_challenge_track1_tpu_torch.evaluation import dnsmos_standin as S
+    from urgent2026_challenge_track1_tpu_torch.ops import onnx_torch
+
+    rng = np.random.default_rng(19)
+    audio = _speechlike(rng, int(ONNX_SECONDS * 16000))
+    window = np.asarray(audio[: S.PRIMARY_SHAPE[1]], np.float32)
+    feeds = {"primary": window[None], "p808": dnsmos.logmel_features(window[:-160])[None]}
+    builds = {"primary": S.primary_graph, "p808": S.p808_graph}
+    flags = (torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32)
+    card, cpu, result = {}, {}, {}
+    torch.set_float32_matmul_precision("high")  # TF32 on for the process:
+    torch.backends.cudnn.allow_tf32 = True      # the session turns it off for its calls
+    try:
+        for name, build in builds.items():
+            card[name] = onnx_torch.InferenceSession(build(), device=device)
+            cpu[name] = onnx_torch.InferenceSession(build(), device="cpu")
+            feed = {"input_1": feeds[name]}
+            outs = card[name].run_tensors(None, feed)
+            if not all(isinstance(o, torch.Tensor) and o.device.type == device.type
+                       for o in outs):
+                fail(f"onnx {name}: the card session's outputs are not {device.type} tensors")
+            if (torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32) != (
+                    "high", True):
+                fail(f"onnx {name}: the session did not restore the TF32 flags")
+            ref = cpu[name].run(None, feed)  # scores, logits, the head's features
+
+            def rel(outputs):  # the worst output's max|d| / max|CPU|
+                return max(float(np.abs(np.asarray(o) - r).max()) / float(np.abs(r).max())
+                           for o, r in zip(outputs, ref))
+
+            err = rel([o.cpu().numpy() for o in outs])
+            mirrored = onnx_torch.InferenceSession(build(auto_pad="SAME_LOWER"), device="cpu")
+            ctrl = rel(mirrored.run(None, feed))
+            with torch.inference_mode():  # no scope: the process's TF32 (information only)
+                tf32 = rel([o.cpu().numpy() for o in card[name]._exec(**feed)])
+            print(f"[onnx] {name} {tuple(feeds[name].shape)} -> "
+                  f"{[tuple(r.shape) for r in ref]}: card vs CPU max|d|/max|CPU| = {err:.3e} "
+                  f"(limit {ONNX_TOL}); mirrored conv pads {ctrl:.3e} (must exceed); with the "
+                  f"process's TF32 on {tf32:.3e}")
+            if not err <= ONNX_TOL:
+                fail(f"onnx {name}: card and CPU differ by {err:.3e} > {ONNX_TOL}")
+            if not ctrl > ONNX_TOL:
+                fail(f"onnx {name}: the mirrored-pad control {ctrl:.3e} is within {ONNX_TOL}")
+            result[name] = {"rel_err": err, "mirrored_rel": ctrl, "tf32_rel": tf32,
+                            "scores": ref[0].ravel().tolist()}
+    finally:
+        torch.set_float32_matmul_precision(flags[0])
+        torch.backends.cudnn.allow_tf32 = flags[1]
+    pair = (card["primary"], card["p808"])
+    got = dnsmos.score_one(pair, audio, 16000)
+    ref = dnsmos.score_one((cpu["primary"], cpu["p808"]), audio, 16000)
+    windows = int(np.floor(len(audio) / 16000) - dnsmos.INPUT_LENGTH) + 1
+    ms = _time_ms(lambda: dnsmos.score_one(pair, audio, 16000), reps=5, warmup=1) / windows
+    cpu_ms = statistics.median(_host_ms(lambda: dnsmos.score_one(
+        (cpu["primary"], cpu["p808"]), audio, 16000)) for _ in range(3)) / windows
+    for k in dnsmos.METRICS:
+        if not (np.isfinite(got[k]) and abs(got[k] - ref[k]) <= ONNX_TOL * abs(ref[k])):
+            fail(f"dnsmos {k}: card {got[k]} vs CPU {ref[k]}")
+    print(f"[onnx] dnsmos.score_one, {ONNX_SECONDS} s at 16 kHz ({windows} windows): card "
+          f"{got}, CPU {ref}; {ms:.3f} ms a 9.01 s window on the card (CUDA events, median of 5), "
+          f"CPU sessions {cpu_ms:.3f} ms (host clock, median of 3); {gpu_name_and_power()}")
+    result["score_one"] = {"card": got, "cpu": ref, "ms_per_window": ms,
+                           "cpu_ms_per_window": cpu_ms, "windows": windows}
+    return result
+
+
+# ---------------------------------------------------------------------------
 # flow and new-kernel times (phase 6)
 # ---------------------------------------------------------------------------
 
@@ -5445,6 +5557,7 @@ def main() -> int:
     timed("card vs cpu forward", phase_card_vs_cpu, device)
     timed("card vs cpu gradients", phase_grads_card_vs_cpu, device)
     timed("flow card vs cpu", phase_flow_card_vs_cpu, device)
+    onnx = timed("onnx executor and dnsmos", phase_onnx, device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=REPO) as tmp:
         parallel = timed("parallel", phase_parallel, device, Path(tmp))
     records = timed("times", phase_times, device, counts, errs, train_errs, k1_routes,
@@ -5475,7 +5588,7 @@ def main() -> int:
                                    "ab_arms": ab, "flow": flow_times, "dm": dm_times,
                                    "sgmse": sgmse, "codecs_available": codec,
                                    "causal": causal[3], "serving": serving,
-                                   "parallel": parallel,
+                                   "parallel": parallel, "onnx": onnx,
                                    "carry_routes": carry_rows}))
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(gpu_name_and_power())

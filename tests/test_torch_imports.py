@@ -39,6 +39,12 @@ def test_importing_every_module_loads_no_jax():
     assert not bad, bad
     assert {PKG + ".inference", PKG + ".train_se", PKG + ".train.trainer",
             PKG + ".models.streaming_causal", PKG + ".serving", PKG + ".serve"} <= set(loaded)
+    # the evaluation and export path: the ONNX executor, DNSMOS, the
+    # intrusive metrics and their CLI, the export and its CLI
+    assert {PKG + ".ops.onnx_torch", PKG + ".utils.onnx_lite", PKG + ".evaluation.dnsmos",
+            PKG + ".evaluation.intrusive", PKG + ".evaluation._shared", PKG + ".metrics.pesq",
+            PKG + ".metrics.pesq_tables", PKG + ".metrics.stoi", PKG + ".metrics.sdr",
+            PKG + ".metrics.text", PKG + ".utils.export_torch", PKG + ".export_ckpt"} <= set(loaded)
 
 
 def test_flow_family_imports_no_jax():
@@ -121,3 +127,28 @@ def test_model_constructors_pick_the_card_unless_asked_for_the_cpu(family, monke
         init(cfg)
     model = init(cfg, seed=1, device="cpu")
     assert {p.device.type for p in model.parameters()} == {"cpu"}
+
+
+def test_onnx_session_and_dnsmos_pick_the_card_unless_asked_for_the_cpu(monkeypatch, tmp_path):
+    """The ONNX session and the DNSMOS entry point default to the card:
+    without one they raise (no CPU fallback), and they build on the CPU
+    only where the caller asks for it."""
+    from urgent2026_challenge_track1_tpu_torch.evaluation import dnsmos, dnsmos_standin
+    from urgent2026_challenge_track1_tpu_torch.ops import onnx_torch
+
+    graph = dnsmos_standin.p808_graph()
+    for name in ("p.onnx", "q.onnx"):
+        (tmp_path / name).write_bytes(graph)
+    models = (str(tmp_path / "p.onnx"), str(tmp_path / "q.onnx"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        onnx_torch.InferenceSession(graph)
+    with pytest.raises(RuntimeError, match="cuda"):
+        dnsmos.load_dnsmos(*models)
+    args = dnsmos.parser().parse_args(["--inf_scp", "x", "--output_dir", str(tmp_path),
+                                       "--primary_model", models[0], "--p808_model", models[1]])
+    assert args.device == "cuda"
+    with pytest.raises(RuntimeError, match="cuda"):
+        dnsmos.load_dnsmos(args.primary_model, args.p808_model, args.device)
+    assert onnx_torch.InferenceSession(graph, device="cpu").device.type == "cpu"
+    assert {s.device.type for s in dnsmos.load_dnsmos(*models, device="cpu")} == {"cpu"}
