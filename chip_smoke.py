@@ -79,7 +79,13 @@ Phases (any failure exits non-zero; each prints its seconds):
      ``.ckpt`` at 196 x 6 warm-starts a trainer through ``init_from``
      (bitwise equal to the converted weights, then one step); one RK45
      flow enhancement (scipy solve_ivp, rtol = atol = 1e-5) from the flow
-     training's checkpoint in bfloat16 (nfev K1p forwards); then one
+     training's checkpoint in bfloat16 (nfev K1p forwards); the
+     model-scored evaluation CLIs (phase_eval_clis: UTMOS, speaker
+     similarity, LID and WER on seeded TorchScript stubs at --device cuda
+     against --device cpu within EVAL_TOL, ``evaluation.eval_all`` end to
+     end on the card with its produced and skipped lists, and
+     ``average_checkpoints`` over the training phase's three checkpoints,
+     bitwise their float64 mean, enhancing on the card); then one
      float32 train step at 510 channels (H = 1020, where no float32
      K4p/K6p plan fits) takes the walks of K4 and K6 and K5p-f32 / K7p-f32,
      the same step under STREAM_INPUT_TRAIN K8's walk, under
@@ -153,6 +159,8 @@ package beside this file, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import statistics
@@ -3905,6 +3913,230 @@ def phase_onnx(device):
     return result
 
 
+EVAL_TOL = 1e-5  # card vs CPU, relative: the model-scored CLIs' float32 stubs, TF32 off
+EVAL_LOUD = 2000.0  # sum |x| at 16 kHz: u0 (loud, English) lies above, u1 (quiet, German) below
+EVAL_CLIS = (  # (module of evaluation/, stub, needs the reference, extra inputs, result scp)
+    ("utmos", "mos_fs", False, (), "UTMOS"),
+    ("speaker_similarity", "embed", True, (), "SpeakerSimilarity"),
+    ("lid_accuracy", "lid", False, ("--meta_tsv", "utt2lang"), "LIDAccuracy"),
+    ("wer", "asr", False, ("--meta_tsv", "text", "--utt2lang", "utt2lang"), "WER"),
+)
+
+
+def _eval_stub_models(workdir: Path) -> dict:
+    """TorchScript stand-ins for the scoring models, with seeded weights so
+    that ``map_location`` moves real parameters: a MOS predictor with and
+    without the rate argument (a conv over the wave), an embedder (framed
+    wave through a linear map), a scripted ASR and a LID model (a word
+    chosen by the wave's energy on the device)."""
+    import torch
+
+    class Mos(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.conv = torch.nn.Conv1d(1, 8, 64, stride=16)
+
+        def forward(self, x: torch.Tensor, fs: int) -> torch.Tensor:
+            h = torch.tanh(self.conv(x[:, None]))
+            return 1.0 + 4.0 * torch.sigmoid(h.abs().mean(dim=(1, 2)) + 1e-6 * fs)
+
+    class Mos16k(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.conv = torch.nn.Conv1d(1, 8, 64, stride=16)
+
+        def forward(self, x: torch.Tensor) -> torch.Tensor:
+            return 1.0 + 4.0 * torch.sigmoid(torch.tanh(self.conv(x[:, None])).abs().mean(
+                dim=(1, 2)))
+
+    class Embed(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.proj = torch.nn.Linear(400, 32)
+
+        def forward(self, x: torch.Tensor) -> torch.Tensor:
+            frames = x[:, : (x.shape[1] // 400) * 400].reshape(x.shape[0], -1, 400)
+            return torch.tanh(self.proj(frames)).mean(dim=1)
+
+    class Asr(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.loud = EVAL_LOUD
+
+        def forward(self, x: torch.Tensor, lang_sym: str, task_sym: str) -> str:
+            if float(x.abs().sum()) > self.loud:
+                return "the cat sat on the mat"
+            return "die katze sass"
+
+    class Lid(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.loud = EVAL_LOUD
+
+        def forward(self, x: torch.Tensor, lang_sym: str, task_sym: str) -> str:
+            if float(x.abs().sum()) > self.loud:
+                return "<eng> the cat"
+            return "<deu> die katze"
+
+    torch.manual_seed(20)
+    paths = {}
+    for name, module in (("mos_fs", Mos()), ("mos", Mos16k()), ("embed", Embed()),
+                         ("asr", Asr()), ("lid", Lid())):
+        paths[name] = workdir / f"{name}.pt"
+        torch.jit.script(module).save(str(paths[name]))
+    return paths
+
+
+def _eval_inputs(workdir: Path) -> dict:
+    """Two utterances (u0 at 16 kHz, its reference itself; u1 a quieter
+    noisy pair at 8 kHz, so the host resampling runs), transcripts,
+    languages and a meta.tsv for the breakdown."""
+    import numpy as np
+    from urgent2026_challenge_track1_tpu_torch.utils import audio_io
+
+    rng = np.random.default_rng(20)
+    u0 = _speechlike(rng, 16000) * 2.5
+    t1 = np.arange(8000) / 8000
+    ref1 = 0.1 * np.sin(2 * np.pi * 200 * t1)
+    files = {"u0": (u0, 16000), "u1_ref": (ref1, 8000),
+             "u1_inf": (ref1 + 0.02 * rng.standard_normal(8000), 8000)}
+    for name, (wav, fs) in files.items():
+        audio_io.write(str(workdir / f"{name}.wav"), wav, fs)
+    (workdir / "inf.scp").write_text(f"u0 {workdir / 'u0.wav'}\nu1 {workdir / 'u1_inf.wav'}\n")
+    (workdir / "ref.scp").write_text(f"u0 {workdir / 'u0.wav'}\nu1 {workdir / 'u1_ref.wav'}\n")
+    (workdir / "text").write_text("u0 the cat sat on the mat\nu1 die katze sitzt\n")
+    (workdir / "utt2lang").write_text("u0 eng\nu1 deu\n")
+    (workdir / "meta.tsv").write_text(
+        "id\tfs\tsnr_dB\tlength\tspeech_sid\trir_uid\taugmentation\n"
+        "u0\t16000\t5\t16000\tlibrispeech_0\trir_1\tnone\n"
+        "u1\t8000\t10\t8000\tvctk_1\tnone\tclipping(min=0.1,max=0.9)\n")
+    return {k: workdir / k for k in ("inf.scp", "ref.scp", "text", "utt2lang", "meta.tsv")}
+
+
+def _scp_scores(path: Path) -> dict:
+    out = {}
+    for line in path.read_text().splitlines():
+        uid, value = line.split(maxsplit=1)
+        out[uid] = json.loads(value) if value.startswith("{") else float(value)
+    return out
+
+
+def phase_eval_clis(workdir: Path, device) -> dict:
+    """The model-scored evaluation path on the card (``evaluation/``):
+    (a) the TorchScript routes of UTMOS, speaker similarity, LID and WER at
+    ``--device cuda`` and at ``--device cpu`` on the same two utterances,
+    their scores within EVAL_TOL (TF32 off), the card run allocating on the
+    card; (b) ``evaluation.eval_all`` end to end on the card with stub
+    models for every TorchScript route and the stand-in DNSMOS graphs, its
+    produced and skipped lists (no hub is reached: the hub routes read
+    local caches only, so the transformers routes skip with 86);
+    (c) ``average_checkpoints`` over the three checkpoints the training
+    phase saved (steps 2, 4, 6), its means against a float64 mean of the
+    three, then the inference CLI on the card from the averaged directory."""
+    import numpy as np
+    import torch
+    from urgent2026_challenge_track1_tpu_torch import average_checkpoints, inference
+    from urgent2026_challenge_track1_tpu_torch.evaluation import dnsmos_standin, eval_all
+
+    root = workdir / "eval"
+    root.mkdir()
+    stubs = _eval_stub_models(root)
+    inputs = _eval_inputs(root)
+    result = {"card_vs_cpu": {}}
+    for module, stub, need_ref, extra, metric in EVAL_CLIS:
+        cli = __import__(f"{PKG}.evaluation.{module}", fromlist=["cli"]).cli
+        argv = ["--inf_scp", str(inputs["inf.scp"]), "--model_path", str(stubs[stub])]
+        if need_ref:
+            argv += ["--ref_scp", str(inputs["ref.scp"])]
+        argv += [extra[i] if i % 2 == 0 else str(inputs[extra[i]]) for i in range(len(extra))]
+        scores = {}
+        for dev in ("cuda", "cpu"):
+            allocated = torch.cuda.memory_stats().get("allocation.all.allocated", 0)
+            t = time.perf_counter()
+            cli(argv + ["--device", dev, "--output_dir", str(root / f"{module}_{dev}")])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t
+            on_card = torch.cuda.memory_stats().get("allocation.all.allocated", 0) - allocated
+            if dev == "cuda" and on_card <= 0:
+                fail(f"eval {module}: the --device cuda run allocated nothing on the card")
+            scores[dev] = _scp_scores(root / f"{module}_{dev}" / f"{metric}.scp")
+            print(f"[eval_clis] {module} --device {dev}: {scores[dev]} in {seconds:.2f} s "
+                  f"({on_card} allocations on the card)")
+        card, cpu = scores["cuda"], scores["cpu"]
+        if isinstance(cpu["u0"], dict):
+            if card != cpu:
+                fail(f"eval {module}: card records {card} differ from the CPU's {cpu}")
+            rel = 0.0
+        else:
+            rel = max(abs(card[u] - cpu[u]) / max(abs(cpu[u]), 1e-30) for u in cpu)
+            if not all(np.isfinite(list(card.values()))) or rel > EVAL_TOL:
+                fail(f"eval {module}: card {card} vs CPU {cpu}: rel {rel:.3e} > {EVAL_TOL}")
+        result["card_vs_cpu"][module] = {"card": card, "cpu": cpu, "rel_err": rel}
+    if result["card_vs_cpu"]["lid_accuracy"]["card"] != {"u0": 1.0, "u1": 1.0}:
+        fail("eval lid_accuracy: the stub's languages were not scored as expected")
+
+    for name, build in (("primary", dnsmos_standin.primary_graph),
+                        ("p808", dnsmos_standin.p808_graph)):
+        (root / f"{name}.onnx").write_bytes(build())
+    env = {"inf_scp": str(inputs["inf.scp"]), "ref_scp": str(inputs["ref.scp"]),
+           "output_dir": str(root / "suite"), "utt2lang": str(inputs["utt2lang"]),
+           "text": str(inputs["text"]), "meta_tsv": str(inputs["meta.tsv"]), "nj": "1",
+           "dnsmos_args": f"--primary_model {root / 'primary.onnx'} "
+                          f"--p808_model {root / 'p808.onnx'}",
+           "UTMOS_MODEL": str(stubs["mos_fs"]), "NISQA_MODEL": str(stubs["mos_fs"]),
+           "SCOREQ_MODEL": str(stubs["mos"]), "SPK_MODEL": str(stubs["embed"]),
+           "EMO_MODEL": str(stubs["embed"]), "LID_MODEL": str(stubs["lid"]),
+           "WER_MODEL": str(stubs["asr"])}
+    log = io.StringIO()  # the suite's output, breakdowns and all, goes to a file
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        produced, skipped = eval_all.main([], environ=env)  # --device: cuda, the default
+    seconds = time.perf_counter() - t
+    (root / "eval_all.log").write_text(log.getvalue())
+    print(f"[eval_clis] eval_all on the card in {seconds:.2f} s: produced {produced}, "
+          f"skipped {skipped}")
+    hub_only = ("speechbert_score", "phoneme_similarity")  # transformers routes, no stub
+    expected = [name for name, *_ in eval_all.SUITE if name not in hub_only] + ["breakdown"]
+    if [p for p in produced if p not in hub_only] != expected or not set(skipped) <= set(
+            hub_only):
+        fail(f"eval_all: produced {produced}, skipped {skipped}; expected {expected} and at "
+             f"most {hub_only} skipped")
+    suite_wer = _scp_scores(root / "suite" / "score" / "cer" / "WER.scp")
+    if suite_wer != result["card_vs_cpu"]["wer"]["card"]:
+        fail("eval_all: its WER records differ from the WER CLI's on the card")
+    result["eval_all"] = {"produced": produced, "skipped": skipped, "seconds": seconds}
+
+    ckpt_dir = workdir / "exp" / "chip_smoke" / "baseline" / "version_0" / "checkpoints"
+    steps = sorted(int(p.stem[5:]) for p in ckpt_dir.glob("step_*.pt"))
+    if len(steps) != 3:
+        fail(f"average: the training phase left steps {steps} in {ckpt_dir}; expected three")
+    info = average_checkpoints.main(["--ckpt_dir", str(ckpt_dir), "--output",
+                                     str(root / "avg"), "--top_k", "3"])
+    if info["steps"] != steps:
+        fail(f"average: averaged {info['steps']} of {steps}")
+    got = torch.load(info["path"], map_location="cpu", weights_only=True)["params"]
+    states = [torch.load(ckpt_dir / f"step_{s}.pt", map_location="cpu",
+                         weights_only=True)["params"] for s in steps]
+    unequal = [k for k in got if not torch.equal(
+        got[k], (sum(st[k].double() for st in states) / 3).to(got[k].dtype))]
+    print(f"[eval_clis] averaged steps {info['steps']} -> {info['path']}: {len(got) - len(unequal)}"
+          f" of {len(got)} tensors bitwise the float64 mean")
+    if unequal:
+        fail(f"average: {unequal[:3]} differ from the float64 mean of the three steps")
+    items = (("avg16", 16000, 1.0),)
+    scp = _write_inputs(root, items, "avg_in.scp", 20)
+    t = time.perf_counter()
+    inference.main(["--input_scp", str(scp), "--ckpt_path", str(root / "avg"),
+                    "--output_dir", str(root / "avg_out"), "--device", "cuda"])
+    torch.cuda.synchronize()
+    _check_outputs(root / "avg_out", items)
+    result["average"] = {"steps": info["steps"], "tensors": len(got),
+                         "enhance_s": time.perf_counter() - t}
+    print(f"[eval_clis] enhanced with the averaged checkpoint on the card in "
+          f"{result['average']['enhance_s']:.2f} s; {gpu_name_and_power()}")
+    return result
+
+
 # ---------------------------------------------------------------------------
 # flow and new-kernel times (phase 6)
 # ---------------------------------------------------------------------------
@@ -5551,6 +5783,7 @@ def main() -> int:
                               Path(tmp), device, dm_times))
         timed("init_from warm start", phase_init_from, Path(tmp), device)
         dm_times.update(timed("rk45 flow sampler", phase_rk45, Path(tmp), flow_ckpt, device))
+        eval_clis = timed("model-scored evaluation CLIs", phase_eval_clis, Path(tmp), device)
     sgmse = timed("sgmse", phase_sgmse, device)
     wide_routes = timed("walk route", phase_walk_route, device)
     ab, _ = timed("a/b arms", phase_ab_arms, device)
@@ -5589,6 +5822,7 @@ def main() -> int:
                                    "sgmse": sgmse, "codecs_available": codec,
                                    "causal": causal[3], "serving": serving,
                                    "parallel": parallel, "onnx": onnx,
+                                   "eval_clis": eval_clis,
                                    "carry_routes": carry_rows}))
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(gpu_name_and_power())

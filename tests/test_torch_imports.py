@@ -45,6 +45,18 @@ def test_importing_every_module_loads_no_jax():
             PKG + ".evaluation.intrusive", PKG + ".evaluation._shared", PKG + ".metrics.pesq",
             PKG + ".metrics.pesq_tables", PKG + ".metrics.stoi", PKG + ".metrics.sdr",
             PKG + ".metrics.text", PKG + ".utils.export_torch", PKG + ".export_ckpt"} <= set(loaded)
+    # the offline simulation CLIs, the model-scored evaluation CLIs with the
+    # suite and the breakdown, and checkpoint averaging
+    assert {PKG + ".simulation." + m for m in ("wind", "simulate_wind_noise",
+                                               "generate_data_param",
+                                               "simulate_data_from_param")} <= set(loaded)
+    assert {PKG + ".evaluation." + m for m in (
+        "_backends", "utmos", "scoreq", "nisqa", "speechbert_score", "phoneme_similarity",
+        "speaker_similarity", "emotion_similarity", "lid_accuracy", "wer", "breakdown",
+        "eval_all")} <= set(loaded)
+    assert PKG + ".average_checkpoints" in loaded
+    # importing them needs no PyYAML (the card machine may lack it)
+    assert "yaml" not in loaded
 
 
 def test_flow_family_imports_no_jax():

@@ -5,20 +5,44 @@ Every CLI reads ``inf.scp`` (and ``ref.scp`` where the metric is
 intrusive), shards the list by ``--nsplits/--job`` (output scps suffixed
 ``.{job}``), scores each utterance and writes one ``{METRIC}.scp`` per
 metric plus, for an unsharded run, ``RESULTS.txt`` with each metric's
-nanmean.
+nanmean.  A CLI whose model stack or weights are not here exits with
+``EXIT_BACKEND_UNAVAILABLE`` (86), which a suite records as skipped; any
+other failure is an error.
 """
 
 from __future__ import annotations
 
 import argparse
+import sys
 from pathlib import Path
 
 import numpy as np
 
-__all__ = ["base_parser", "read_pairs", "shard", "write_results"]
+__all__ = ["EXIT_BACKEND_UNAVAILABLE", "TARGET_FS", "base_parser", "exit_backend_unavailable",
+           "read_at", "read_pairs", "run_cli", "shard", "wave_tensor", "write_results"]
+
+EXIT_BACKEND_UNAVAILABLE = 86
+TARGET_FS = 16000  # the rate the model-scored metrics resample to
 
 
-def base_parser(need_ref=False):
+def exit_backend_unavailable(exc) -> None:
+    print(f"SKIPPED (backend unavailable): {exc}", file=sys.stderr, flush=True)
+    raise SystemExit(EXIT_BACKEND_UNAVAILABLE)
+
+
+def run_cli(main, parser, argv=None) -> None:
+    """Parse ``argv`` (the command line when None) and run ``main``; a
+    ``BackendUnavailable`` exits with ``EXIT_BACKEND_UNAVAILABLE``."""
+    from urgent2026_challenge_track1_tpu_torch.evaluation._backends import BackendUnavailable
+
+    args = parser.parse_args(argv)
+    try:
+        main(args)
+    except BackendUnavailable as e:
+        exit_backend_unavailable(e)
+
+
+def base_parser(need_ref=False, need_meta=False):
     """The JAX CLIs' flags; ``--device`` defaults to the card."""
     parser = argparse.ArgumentParser()
     parser.add_argument("--inf_scp", type=str, required=True,
@@ -26,11 +50,35 @@ def base_parser(need_ref=False):
     if need_ref:
         parser.add_argument("--ref_scp", type=str, required=True,
                             help="Path to the scp file containing reference signals")
+    if need_meta:
+        parser.add_argument("--meta_tsv", type=str, required=True,
+                            help="Path to label file (two columns: uid label)")
     parser.add_argument("--output_dir", type=str, required=True)
     parser.add_argument("--device", type=str, default="cuda", choices=("cuda", "cpu"))
     parser.add_argument("--nsplits", type=int, default=1)
     parser.add_argument("--job", type=int, default=1)
     return parser
+
+
+def read_at(path: str, fs_out: int = TARGET_FS) -> np.ndarray:
+    """A mono file's samples (float64), resampled to ``fs_out`` on the host
+    (``simulation/dsp.resample``, soxr_hq)."""
+    from urgent2026_challenge_track1_tpu_torch.simulation.dsp import resample
+    from urgent2026_challenge_track1_tpu_torch.utils import audio_io
+
+    audio, fs = audio_io.read(path)
+    if audio.ndim != 1:
+        raise ValueError(f"{path}: expected mono audio, got shape {audio.shape}")
+    if fs != fs_out:
+        audio = resample(audio[None], fs, fs_out, "soxr_hq")[0]
+    return audio
+
+
+def wave_tensor(audio, device):
+    """(1, T) float32 tensor of ``audio`` on ``device``."""
+    import torch
+
+    return torch.from_numpy(np.asarray(audio, np.float32))[None].to(device)
 
 
 def read_pairs(args, need_ref=False):

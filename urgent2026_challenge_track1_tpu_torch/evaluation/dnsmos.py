@@ -18,14 +18,15 @@ run on ``ops/onnx_torch.InferenceSession`` on ``--device`` (the card unless
 from __future__ import annotations
 
 import functools
-import sys
 from pathlib import Path
 
 import numpy as np
 
+from urgent2026_challenge_track1_tpu_torch.evaluation._backends import BackendUnavailable
 from urgent2026_challenge_track1_tpu_torch.evaluation._shared import (
     base_parser,
     read_pairs,
+    run_cli,
     shard,
     write_results,
 )
@@ -33,21 +34,11 @@ from urgent2026_challenge_track1_tpu_torch.simulation.dsp import resample
 from urgent2026_challenge_track1_tpu_torch.utils import audio_io
 
 __all__ = ["METRICS", "BackendUnavailable", "load_dnsmos", "logmel_features", "score_one",
-           "main"]
+           "main", "cli"]
 
 METRICS = ("DNSMOS_OVRL", "P808_MOS")
 INPUT_LENGTH = 9.01
 FS = 16000
-# the JAX CLIs' exit code for "this metric's model files are not here", so an
-# orchestrator can skip and report the metric and still abort on real failures
-EXIT_BACKEND_UNAVAILABLE = 86
-
-
-class BackendUnavailable(RuntimeError):
-    def __init__(self, name: str, hint: str):
-        super().__init__(f"backend for {name} is unavailable: {hint}")
-
-
 def load_dnsmos(primary_model: str, p808_model: str, device="cuda"):
     """(primary, p808) sessions of the two DNSMOS graphs on ``device`` (the
     card unless the caller asks for the CPU).  A missing model file, or an
@@ -180,9 +171,9 @@ def parser():
     return p
 
 
+def cli(argv=None):
+    run_cli(main, parser(), argv)
+
+
 if __name__ == "__main__":
-    try:
-        main(parser().parse_args())
-    except BackendUnavailable as e:
-        print(f"SKIPPED (backend unavailable): {e}", file=sys.stderr, flush=True)
-        raise SystemExit(EXIT_BACKEND_UNAVAILABLE)
+    cli()

@@ -13,7 +13,6 @@ The metrics are the port's numpy copies (``metrics/pesq.py``,
 from __future__ import annotations
 
 import logging
-import os
 from multiprocessing import get_context
 
 import numpy as np
@@ -21,20 +20,16 @@ import numpy as np
 from urgent2026_challenge_track1_tpu_torch.evaluation._shared import (
     base_parser,
     read_pairs,
+    run_cli,
     shard,
     write_results,
 )
-from urgent2026_challenge_track1_tpu_torch.utils import audio_io
+from urgent2026_challenge_track1_tpu_torch.utils import audio_io, capped_nj
 
-__all__ = ["METRICS", "estoi_metric", "pesq_metric", "sdr_metric", "process_one_pair", "main"]
+__all__ = ["METRICS", "estoi_metric", "pesq_metric", "sdr_metric", "process_one_pair", "main",
+           "cli"]
 
 METRICS = ("PESQ", "ESTOI")
-
-
-def capped_nj(nj: int) -> int:
-    """Worker-pool size capped at the host's CPU count: a spawn pool larger
-    than the core count only adds start-up and IPC cost."""
-    return min(nj, os.cpu_count() or 1)
 
 
 def estoi_metric(ref, inf, fs=16000):
@@ -98,5 +93,9 @@ def parser():
     return p
 
 
+def cli(argv=None):
+    run_cli(main, parser(), argv)
+
+
 if __name__ == "__main__":
-    main(parser().parse_args())
+    cli()

@@ -27,7 +27,7 @@ import numpy as np
 from urgent2026_challenge_track1_tpu_torch.simulation import dsp
 from urgent2026_challenge_track1_tpu_torch.utils import audio_io
 
-__all__ = ["read_audio", "apply_augmentations", "render_one"]
+__all__ = ["read_audio", "apply_augmentations", "render_one", "process_one_sample"]
 
 
 def read_audio(filename, force_1ch=False, fs=None, max_duration=-1, rng=None):
@@ -192,6 +192,9 @@ def render_one(
     if store_noise:
         _save_audio(noise_sample * scale, info["noise_path"], fs)
     return None
+
+
+process_one_sample = render_one  # the reference's name (simulate_data_from_param)
 
 
 def _save_audio(audio: np.ndarray, path: str, fs: int) -> None:

@@ -8,7 +8,9 @@ Three formats are read, for both model families:
   * the port's own file written by ``save_model`` (state_dict + config, and
     the EMA weights of a flow model);
   * a checkpoint of the port's trainer (``train/trainer.CheckpointIO``): its
-    config rebuilds the model, a flow model loads its EMA weights.
+    config rebuilds the model, a flow model loads its EMA weights; a
+    directory of them (``average_checkpoints``'s output) reads as its
+    newest ``step_<N>.pt``.
 Orbax directories of the JAX package are not read here: export them to a
 reference ``.ckpt`` with ``scripts/export_to_torch.py`` first.
 
@@ -19,6 +21,7 @@ and cell state); on the CPU in float32.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional
 
 import torch
@@ -107,13 +110,26 @@ def _from_reference(sd: dict, ckpt: dict, dtype: str):
     return "discriminative", model, model.cfg, STFTConfig(n_fft=960, hop_length=480)
 
 
+def _checkpoint_file(path: str) -> str:
+    """``path``, or the newest ``step_<N>.pt`` of a directory of trainer
+    checkpoints."""
+    if not os.path.isdir(path):
+        return path
+    from urgent2026_challenge_track1_tpu_torch.train.trainer import CheckpointIO
+
+    steps = CheckpointIO._steps(path)
+    if not steps:
+        raise FileNotFoundError(f"{path}: a directory without step_<N>.pt checkpoints")
+    return CheckpointIO._path(path, steps[-1], "pt")
+
+
 def load_model_for_inference(path: str, device="cuda"):
     """Returns (kind, model, model_cfg, stft_cfg) with the model on
     ``device`` in eval mode; ``model_cfg`` is the ``BSRNNConfig`` of a
     discriminative model and the ``FlowSEConfig`` of a flow model."""
     dev = resolve_device(device)
     dtype = inference_dtype(dev)
-    sd, ckpt = convert.load_torch_checkpoint(path)
+    sd, ckpt = convert.load_torch_checkpoint(_checkpoint_file(path))
     fmt = ckpt.get("format") if isinstance(ckpt, dict) else None
     if fmt == PORT_FORMAT:
         kind, model, model_cfg, stft_cfg = _from_port_file(ckpt, dtype)
