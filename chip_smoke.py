@@ -85,7 +85,14 @@ Phases (any failure exits non-zero; each prints its seconds):
      against --device cpu within EVAL_TOL, ``evaluation.eval_all`` end to
      end on the card with its produced and skipped lists, and
      ``average_checkpoints`` over the training phase's three checkpoints,
-     bitwise their float64 mean, enhancing on the card); then one
+     bitwise their float64 mean, enhancing on the card); the data-prep
+     chain of ``dataprep/prepare_train_data.sh`` on the host
+     (phase_dataprep: a dozen raw files at 8-48 kHz through the bandwidth
+     estimate, the resample to it, ``utt2numsamples``, the offline
+     simulation with two spawned workers and ``derive_data_dir``), one batch
+     of the derived directory through the port's loader onto the card, and
+     ``dataprep/inference.sh`` on its ``wav.scp`` with the training phase's
+     196 x 6 checkpoint; then one
      float32 train step at 510 channels (H = 1020, where no float32
      K4p/K6p plan fits) takes the walks of K4 and K6 and K5p-f32 / K7p-f32,
      the same step under STREAM_INPUT_TRAIN K8's walk, under
@@ -4137,6 +4144,209 @@ def phase_eval_clis(workdir: Path, device) -> dict:
     return result
 
 
+# the raw corpus of phase_dataprep: (uid, fs, seconds, band edge in Hz), so
+# that the estimated rates span the standard set and some files keep theirs
+DATAPREP_RAW = (("r48a", 48000, 1.2, 20000), ("r48b", 48000, 1.0, 10000),
+                ("r48c", 48000, 0.9, 24000), ("r44a", 44100, 1.1, 7000),
+                ("r44b", 44100, 0.9, 22050), ("r32", 32000, 1.05, 11000),
+                ("r24", 24000, 0.95, 3500), ("r22", 22050, 1.15, 11025),
+                ("r16a", 16000, 1.25, 8000), ("r16b", 16000, 0.9, 3000),
+                ("r8", 8000, 1.2, 4000), ("r48d", 48000, 1.1, 15000))
+# conf/simulation_train.yaml at this corpus's scale, without the codec
+# augmentation (the card machine has no FFmpeg) and so without three
+# augmentations at once (a wind-noise recipe redraws while clipping is in)
+DATAPREP_CONFIG = """\
+speech_scps: [{src}/speech_sources.scp]
+speech_utt2spk: [{src}/utt2spk]
+speech_text: [{src}/text]
+log_dir: {sim}/log
+output_dir: {sim}
+repeat_per_utt: 1
+seed: 0
+noise_scps: [{src}/noise_scoures.scp]
+wind_noise_scps: [{src}/wind_noise_scoures.scp]
+rir_scps: [{src}/rirs.scp]
+reuse_rir: true
+snr_low_bound: -5.0
+snr_high_bound: 20.0
+reuse_noise: true
+store_noise: false
+prob_wind_noise: 0.05
+wind_noise_config:
+  threshold: [0.1, 0.3]
+  ratio: [1, 20]
+  attack: [5, 100]
+  release: [5, 100]
+  sc_gain: [0.8, 1.2]
+  clipping_threshold: [0.85, 1.0]
+  clipping_chance: 0.75
+wind_noise_snr_low_bound: -10.0
+wind_noise_snr_high_bound: 15.0
+prob_reverberation: 0.5
+augmentations:
+  bandwidth_limitation: {{weight: 1.0, resample_methods: random}}
+  clipping: {{weight: 1.0, clipping_min_quantile: [0.0, 0.1], clipping_max_quantile: [0.9, 1.0]}}
+  packet_loss: {{weight: 1.0, packet_duration_ms: 20, max_continuous_packet_loss: 10,
+                packet_loss_rate: [0.05, 0.25]}}
+num_augmentations: {{0: 0.25, 1: 0.45, 2: 0.30}}
+"""
+
+
+def _python_on_path(bin_dir: Path) -> dict:
+    """An environment whose ``python`` runs this interpreter (the scripts
+    call ``python``): a wrapper, since a symlink to a virtual environment's
+    interpreter starts it outside that environment."""
+    bin_dir.mkdir(exist_ok=True)
+    (bin_dir / "python").write_text(f'#!/bin/sh\nexec "{sys.executable}" "$@"\n')
+    (bin_dir / "python").chmod(0o755)
+    return {**os.environ, "PATH": f"{bin_dir}{os.pathsep}{os.environ.get('PATH', '')}"}
+
+
+def phase_dataprep(workdir: Path, device, ckpt: Path) -> dict:
+    """The chain of ``dataprep/prepare_train_data.sh`` on the host, on a raw
+    corpus of a dozen files at 8-48 kHz: the bandwidth estimate, the
+    resample to it and ``utt2numsamples``; ``generate_data_param`` with a
+    config written here and ``simulate_data_from_param --nj 2``; then
+    ``derive_data_dir``.  Each resampled file must have the smallest
+    standard rate >= 2 x its bandwidth, and ``speech_length.scp`` the
+    simulated files' lengths.  Then onto the card: one batch of the derived
+    directory through ``PreSimulatedDataset`` and ``PrefetchLoader``, and
+    ``dataprep/inference.sh`` on its ``wav.scp`` with ``ckpt``."""
+    import numpy as np
+    import torch
+    from urgent2026_challenge_track1_tpu_torch.data.dataset import (
+        GroupedBatchSampler, PrefetchLoader, PreSimulatedDataset)
+    from urgent2026_challenge_track1_tpu_torch.dataprep import (
+        derive_data_dir, estimate_audio_bandwidth, resample_to_estimated_bandwidth,
+        utt2numsamples)
+    from urgent2026_challenge_track1_tpu_torch.simulation import (
+        generate_data_param, simulate_data_from_param)
+    from urgent2026_challenge_track1_tpu_torch.utils import audio_io
+
+    t_phase = time.perf_counter()
+    root = workdir / "dataprep"
+    raw, src, sim, data = root / "raw", root / "train_sources", root / "sim", root / "data"
+    for d in (raw, src):
+        d.mkdir(parents=True)
+    rng = np.random.default_rng(21)
+    for uid, fs, sec, edge in DATAPREP_RAW:
+        n = int(sec * fs)
+        spec = np.fft.rfft(rng.standard_normal(n))
+        spec[np.fft.rfftfreq(n, 1 / fs) > edge] = 0
+        t = np.arange(n) / fs
+        env = (np.sin(2 * np.pi * 3.0 * t) > -0.3).astype(np.float64)
+        wav = env * 0.3 * np.sin(2 * np.pi * rng.uniform(120, 300) * t)
+        audio_io.write(str(raw / f"{uid}.wav"), wav + 0.03 * np.fft.irfft(spec, n), fs)
+    pools = {"noise_scoures.scp": ("noise", 2, lambda n: 0.1 * rng.standard_normal(n)),
+             "wind_noise_scoures.scp": ("wind", 1, lambda n: 0.2 * rng.standard_normal(n)),
+             "rirs.scp": ("rir", 2, lambda n: np.concatenate(
+                 [[0.9], 0.2 * rng.standard_normal(n // 10 - 1)
+                  * np.exp(-np.arange(n // 10 - 1) / 960.0)]))}
+    for name, (stem, count, make) in pools.items():
+        lines = []
+        for i in range(count):
+            path = src / f"{stem}{i}.wav"
+            audio_io.write(str(path), make(96000), 48000)
+            lines.append(f"{stem}{i} 48000 {path}")
+        (src / name).write_text("\n".join(lines) + "\n")
+    times = {}
+
+    def step(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        times[name] = time.perf_counter() - t
+        return out
+
+    bw_json, resampled = root / "tmp" / "raw.json", src / "raw_resampled.scp"
+    step("bandwidth", estimate_audio_bandwidth.main,
+         ["--audio_dir", str(raw), "--audio_format", "wav", "--nj", "1",
+          "--outfile", str(bw_json)])
+    step("resample", resample_to_estimated_bandwidth.main,
+         ["--bandwidth_data", str(bw_json), "--out_scpfile", str(resampled),
+          "--outdir", str(root / "resampled"), "--nj", "1"])
+    bandwidth = {uid: bw for uid, (_, bw) in json.loads(bw_json.read_text()).items()}
+    rates, kept = {}, 0
+    for line in resampled.read_text().splitlines():
+        uid, fs, path = line.split()
+        want = min([r for r in resample_to_estimated_bandwidth.SAMPLING_RATES
+                    if r >= 2 * bandwidth[uid]], default=48000)
+        if int(fs) != want or audio_io.info(path)[1] != want:
+            fail(f"dataprep: {uid} (bandwidth {bandwidth[uid]} Hz) went to {fs} Hz, its file "
+                 f"{audio_io.info(path)[1]} Hz; expected {want}")
+        rates[uid], kept = want, kept + (path == str(raw / f"{uid}.wav"))
+    if sorted(rates) != sorted(u for u, *_ in DATAPREP_RAW) or len(set(rates.values())) < 5:
+        fail(f"dataprep: resampled rates {rates}")
+    (src / "speech_sources.scp").write_text(resampled.read_text())
+    (src / "utt2spk").write_text("".join(f"{u} {u}\n" for u in rates))
+    (src / "text").write_text("")
+    step("utt2numsamples", utt2numsamples.main,
+         ["--input_scp", str(src / "speech_sources.scp"),
+          "--outfile", str(src / "source_length.scp")])
+    config = root / "simulation.yaml"
+    config.write_text(DATAPREP_CONFIG.format(src=src, sim=sim))
+    step("generate_data_param", generate_data_param.cli, ["--config", str(config)])
+    step("simulate_data_from_param", simulate_data_from_param.main,
+         simulate_data_from_param.parser().parse_args(
+             ["--config", str(config), "--nj", "2", "--chunksize", "1", "--highpass", "True"]))
+    step("derive_data_dir", derive_data_dir.main,
+         ["--meta_tsv", str(sim / "log" / "meta.tsv"), "--output_dir", str(data)])
+    lengths = dict(line.split() for line in (data / "speech_length.scp").read_text().splitlines())
+    utt2fs = dict(line.split() for line in (data / "utt2fs").read_text().splitlines())
+    noisy = dict(line.split() for line in (data / "wav.scp").read_text().splitlines())
+    for uid, path in noisy.items():
+        y, fs = audio_io.read(path)
+        if len(y) != int(lengths[uid]) or fs != int(utt2fs[uid]):
+            fail(f"dataprep: {uid}: {len(y)} samples at {fs} Hz, but speech_length.scp says "
+                 f"{lengths[uid]} and utt2fs {utt2fs[uid]}")
+    if len(noisy) != len(DATAPREP_RAW) or len(set(utt2fs.values())) < 5:
+        fail(f"dataprep: derived {len(noisy)} rows at rates {sorted(set(utt2fs.values()))}")
+
+    t = time.perf_counter()
+    ds = PreSimulatedDataset(str(data / "spk1.scp"), str(data / "wav.scp"),
+                             str(data / "utt2fs"), str(data / "speech_length.scp"))
+    clean, noisy_b, fs, lens = next(iter(PrefetchLoader(
+        ds, GroupedBatchSampler(ds, batch_size=2), num_workers=2)))
+    clean, noisy_b = torch.from_numpy(clean).to(device), torch.from_numpy(noisy_b).to(device)
+    lens = torch.from_numpy(lens).to(device)
+    torch.cuda.synchronize()
+    times["batch to the card"] = time.perf_counter() - t
+    on = torch.device(device).type
+    if not (clean.device.type == noisy_b.device.type == on and clean.shape == noisy_b.shape
+            and clean.shape[1] == 1 and clean.shape[2] % fs == 0
+            and int(lens.max()) <= clean.shape[2] and bool(torch.isfinite(noisy_b).all())):
+        fail(f"dataprep: the loader's batch {tuple(clean.shape)} at {fs} Hz, lengths "
+             f"{lens.tolist()}")
+
+    t = time.perf_counter()
+    out_dir = root / "enhanced"
+    run = subprocess.run(
+        ["bash", str(REPO / PKG / "dataprep" / "inference.sh"), str(ckpt),
+         str(data / "wav.scp"), str(out_dir)],
+        cwd=REPO, env=_python_on_path(root / "bin"), capture_output=True, text=True)
+    times["inference.sh"] = time.perf_counter() - t
+    if run.returncode != 0 or f"on {on}" not in run.stdout:
+        fail(f"dataprep: inference.sh exited {run.returncode}: {run.stdout[-2000:]}"
+             f"{run.stderr[-2000:]}")
+    inf = dict(line.split() for line in (out_dir / "inf.scp").read_text().splitlines())
+    for uid in noisy:
+        y, yfs = audio_io.read(inf[uid])
+        peak = float(np.abs(y).max())
+        if (len(y) != int(lengths[uid]) or yfs != int(utt2fs[uid]) or not np.isfinite(y).all()
+                or not 0.85 <= peak <= 0.901):
+            fail(f"dataprep: enhanced {uid}: {len(y)} samples at {yfs} Hz, peak {peak}")
+    seconds = time.perf_counter() - t_phase
+    result = {"rates": rates, "kept": kept, "rows": len(noisy),
+              "batch": list(clean.shape), "batch_fs": fs,
+              "seconds": {k: round(v, 3) for k, v in times.items()}, "total_s": seconds}
+    print(f"[dataprep] {len(rates)} raw files to rates {sorted(set(rates.values()))} "
+          f"({kept} kept at their own), {len(noisy)} simulated rows, one batch "
+          f"{tuple(clean.shape)} at {fs} Hz on the card, {len(inf)} enhanced by inference.sh; "
+          f"seconds {result['seconds']}, {seconds:.1f} s in all; {gpu_name_and_power()}")
+    if seconds > 30.0:
+        fail(f"dataprep: the phase took {seconds:.1f} s of its 30 s")
+    return result
+
+
 # ---------------------------------------------------------------------------
 # flow and new-kernel times (phase 6)
 # ---------------------------------------------------------------------------
@@ -5784,6 +5994,9 @@ def main() -> int:
         timed("init_from warm start", phase_init_from, Path(tmp), device)
         dm_times.update(timed("rk45 flow sampler", phase_rk45, Path(tmp), flow_ckpt, device))
         eval_clis = timed("model-scored evaluation CLIs", phase_eval_clis, Path(tmp), device)
+        dataprep = timed("data preparation", phase_dataprep, Path(tmp), device,
+                         Path(tmp) / "exp" / "chip_smoke" / "baseline" / "version_0" /
+                         "checkpoints")
     sgmse = timed("sgmse", phase_sgmse, device)
     wide_routes = timed("walk route", phase_walk_route, device)
     ab, _ = timed("a/b arms", phase_ab_arms, device)
@@ -5822,7 +6035,7 @@ def main() -> int:
                                    "sgmse": sgmse, "codecs_available": codec,
                                    "causal": causal[3], "serving": serving,
                                    "parallel": parallel, "onnx": onnx,
-                                   "eval_clis": eval_clis,
+                                   "eval_clis": eval_clis, "dataprep": dataprep,
                                    "carry_routes": carry_rows}))
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(gpu_name_and_power())

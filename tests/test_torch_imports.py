@@ -59,6 +59,32 @@ def test_importing_every_module_loads_no_jax():
     assert "yaml" not in loaded
 
 
+def test_dataprep_modules_load_no_jax_and_leave_sys_path():
+    """The data-prep tools load without JAX, the JAX package or a root
+    ``utils/`` tool, and none of them puts the root ``utils/`` (or the repo
+    above it) on ``sys.path`` as the root tools do."""
+    mods = [m for m in _modules() if m.startswith(PKG + ".dataprep.")]
+    assert {PKG + ".dataprep." + m for m in (
+        "utt2numsamples", "extract_random_subset", "estimate_audio_bandwidth",
+        "resample_to_estimated_bandwidth", "derive_data_dir")} <= set(mods)
+    code = (
+        "import importlib, json, sys\n"
+        "before = list(sys.path)\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "print(json.dumps([sorted(sys.modules), before, sys.path]))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, check=True)
+    loaded, before, after = json.loads(out.stdout.splitlines()[-1])
+    root_tools = {p.stem for p in (REPO / "utils").glob("*.py")}
+    assert not [m for m in loaded if m.split(".")[0] in FORBIDDEN or m in root_tools]
+    assert set(mods) <= set(loaded)
+    assert after == before
+    assert not [p for p in after if Path(p or ".").resolve() == (REPO / "utils").resolve()]
+    for m in mods:
+        text = (REPO / Path(*m.split("."))).with_suffix(".py").read_text()
+        assert "sys.path" not in text, m
+
 def test_flow_family_imports_no_jax():
     """The flow-matching modules and the entry points' flow branches (trainer,
     checkpoint loader, serving) run a flow model without loading JAX."""

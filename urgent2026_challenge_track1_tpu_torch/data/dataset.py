@@ -61,11 +61,7 @@ def _worker_get(i):
     return _WORKER_DATASET[i]
 
 
-def read_audio(path: str):
-    """(channels, T) float64 and fs."""
-    audio, fs = audio_io.read(path)
-    audio = audio[None, :] if audio.ndim == 1 else audio.T
-    return audio, fs
+read_audio = audio_io.read_audio  # (channels, T) float64 and fs
 
 
 class PreSimulatedDataset:

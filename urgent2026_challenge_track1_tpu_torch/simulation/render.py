@@ -187,17 +187,11 @@ def render_one(
     )
     if on_the_fly:
         return speech_sample * scale, noisy_speech * scale, fs
-    _save_audio(speech_sample * scale, info["clean_path"], fs)
-    _save_audio(noisy_speech * scale, info["noisy_path"], fs)
+    audio_io.save_audio(speech_sample * scale, info["clean_path"], fs)
+    audio_io.save_audio(noisy_speech * scale, info["noisy_path"], fs)
     if store_noise:
-        _save_audio(noise_sample * scale, info["noise_path"], fs)
+        audio_io.save_audio(noise_sample * scale, info["noise_path"], fs)
     return None
 
 
 process_one_sample = render_one  # the reference's name (simulate_data_from_param)
-
-
-def _save_audio(audio: np.ndarray, path: str, fs: int) -> None:
-    """(C, T) -> a (T,) or (T, C) file."""
-    audio = np.asarray(audio).T
-    audio_io.write(path, audio[:, 0] if audio.shape[1] == 1 else audio, fs)

@@ -7,7 +7,8 @@ fs)`` from the header alone for WAV and FLAC, and for mp3/ogg/opus the
 exact decoded length; ``write(path, data, fs,
 subtype)`` writes FLAC when the path ends in ``.flac`` (PCM_16 or PCM_24)
 and RIFF/WAVE otherwise (PCM_16, the default, PCM_24 or FLOAT);
-``read_bytes`` / ``write_bytes`` do the same on in-memory buffers.  WAV
+``read_bytes`` / ``write_bytes`` do the same on in-memory buffers;
+``read_audio`` / ``save_audio`` take and give ``(C, T)`` arrays.  WAV
 reads PCM 16/24/32-bit and IEEE float 32/64, including
 WAVE_FORMAT_EXTENSIBLE; FLAC goes through ``utils/flac.py``; mp3 (an ID3
 tag or an MPEG frame sync) and ogg-vorbis/opus decode through the libavcodec
@@ -24,7 +25,8 @@ from typing import Optional
 
 import numpy as np
 
-__all__ = ["read", "info", "info_frames", "write", "read_bytes", "write_bytes"]
+__all__ = ["read", "info", "info_frames", "write", "read_bytes", "write_bytes", "read_audio",
+           "save_audio"]
 
 _PCM, _FLOAT, _EXTENSIBLE = 0x0001, 0x0003, 0xFFFE
 
@@ -183,3 +185,22 @@ def write(path: str, data: np.ndarray, samplerate: int,
         buf = write_bytes(data, samplerate, subtype)
     with open(path, "wb") as f:
         f.write(buf)
+
+
+def read_audio(path: str):
+    """(C, T) float64 and fs."""
+    data, fs = read(path)
+    if data.ndim == 1:
+        return data[None, :], fs
+    return data.T, fs
+
+
+def save_audio(audio: np.ndarray, path: str, fs: int) -> None:
+    """Write ``(T,)`` or ``(C, T)`` samples: ``(C, T)`` goes to a ``(T, C)``
+    file, and a single channel is written as mono."""
+    audio = np.asarray(audio)
+    if audio.ndim == 2:
+        audio = audio.T
+        if audio.shape[1] == 1:
+            audio = audio[:, 0]
+    write(path, audio, fs)
