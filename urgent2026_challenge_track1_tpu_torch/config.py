@@ -83,7 +83,7 @@ class Config:
         self.length_bucket_ms = 1000  # pad batches up to multiples of this
         self.log_every_steps = 50
         self.runahead_sync_steps = 4  # read by the JAX trainer only
-        self.profile_start_step = -1  # read by the JAX trainer only
+        self.profile_start_step = -1  # a torch.profiler trace window (-1 = off)
         self.profile_num_steps = 5
         self.use_pallas_lstm = "auto"  # read by the JAX trainer only: the port
         #                                always runs its kernels on the card

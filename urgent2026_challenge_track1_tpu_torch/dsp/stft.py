@@ -18,6 +18,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from urgent2026_challenge_track1_tpu_torch import tracing
+
 __all__ = [
     "hann_window",
     "stft",
@@ -77,6 +79,7 @@ def frames_mask(frames: torch.Tensor, n_frames: int,
     return (t[None, :] < frames[:, None]).to(dtype)
 
 
+@tracing.spanned(tracing.MODEL_STFT)
 def reflect_tail(x: torch.Tensor, lengths: torch.Tensor, margin: int) -> torch.Tensor:
     """Rewrite the padding of (B, T) rows so a later center-STFT sees exactly
     what an exact-length STFT would: samples [L, L+margin) become the
@@ -246,6 +249,7 @@ def spec_inverse_transform(spec: torch.Tensor, cfg: STFTConfig) -> torch.Tensor:
     return spec
 
 
+@tracing.spanned(tracing.MODEL_STFT)
 def stft_encode(x: torch.Tensor, fs: int, cfg: STFTConfig) -> torch.Tensor:
     """Waveform (..., T) -> compressed complex spectrum (..., frames, bins)."""
     n_fft, win, hop = cfg.geometry(fs)
@@ -254,6 +258,7 @@ def stft_encode(x: torch.Tensor, fs: int, cfg: STFTConfig) -> torch.Tensor:
     return spec_transform(spec, cfg)
 
 
+@tracing.spanned(tracing.MODEL_ISTFT)
 def stft_decode(spec: torch.Tensor, fs: int, cfg: STFTConfig,
                 length: Optional[int] = None,
                 frame_mask: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -22,6 +22,7 @@ from collections import defaultdict
 import numpy as np
 import torch
 
+from urgent2026_challenge_track1_tpu_torch import tracing
 from urgent2026_challenge_track1_tpu_torch.models.streaming import enhance_streaming
 from urgent2026_challenge_track1_tpu_torch.serving import make_enhance_fn
 from urgent2026_challenge_track1_tpu_torch.utils import audio_io
@@ -34,6 +35,7 @@ def _mono(wav: np.ndarray) -> np.ndarray:
     return wav[:, 0] if wav.ndim > 1 else wav
 
 
+@tracing.spanned(tracing.ENTRY_NORMALIZE)
 def _peak_normalize(y: np.ndarray) -> np.ndarray:
     return y / (np.abs(y).max() or 1.0) * 0.9
 
@@ -43,16 +45,25 @@ def _chunk_fn(enhance, fs: int, device):
     unmasked time path), the zero-padded last chunk passes its length."""
     def run(x: np.ndarray, n: int) -> np.ndarray:
         lengths = None if n == x.shape[1] else torch.tensor([n], dtype=torch.int32)
-        return enhance(torch.from_numpy(x).to(device), fs, lengths).cpu().numpy()
+        with tracing.span(tracing.ENTRY_H2D):
+            x = torch.from_numpy(x).to(device)
+        y = enhance(x, fs, lengths)
+        with tracing.span(tracing.ENTRY_D2H):
+            return y.cpu().numpy()
     return run
 
 
 def _enhance_bucketed(enhance, wavs, lengths, bucket: int, fs: int, device) -> np.ndarray:
-    x = np.zeros((len(wavs), bucket), np.float32)
-    for j, w in enumerate(wavs):
-        x[j, : len(w)] = w
-    lens = torch.tensor(lengths, dtype=torch.int32)
-    return enhance(torch.from_numpy(x).to(device), fs, lens).cpu().numpy()
+    with tracing.span(tracing.ENTRY_PAD):
+        x = np.zeros((len(wavs), bucket), np.float32)
+        for j, w in enumerate(wavs):
+            x[j, : len(w)] = w
+        lens = torch.tensor(lengths, dtype=torch.int32)
+    with tracing.span(tracing.ENTRY_H2D):
+        xd = torch.from_numpy(x).to(device)
+    y = enhance(xd, fs, lens)
+    with tracing.span(tracing.ENTRY_D2H):
+        return y.cpu().numpy()
 
 
 def main(argv=None) -> None:

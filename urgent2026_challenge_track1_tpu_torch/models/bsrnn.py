@@ -41,7 +41,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from urgent2026_challenge_track1_tpu_torch import resolve_device
+from urgent2026_challenge_track1_tpu_torch import resolve_device, tracing
 from urgent2026_challenge_track1_tpu_torch.dsp import stft as dsp
 from urgent2026_challenge_track1_tpu_torch.ops import lstm as lstm_ops
 from urgent2026_challenge_track1_tpu_torch.ops.norms import (
@@ -206,6 +206,7 @@ class BandSplit(nn.Module):
         self.w = _zeros(K, W, C)
         self.b = _zeros(K, C)
 
+    @tracing.spanned(tracing.MODEL_BAND_SPLIT)
     def forward(self, spec: torch.Tensor, n_bands: int,
                 fm: Optional[torch.Tensor] = None, nstate=None,
                 return_state: bool = False):
@@ -286,6 +287,7 @@ class DualPathLayer(nn.Module):
             return group_norm(z, scale, bias, axes=(1, 2, 3), eps=eps)
         return masked_group_norm(z, scale, bias, _frame_mask4(fm), axes=(1, 2, 3), eps=eps)
 
+    @tracing.spanned(tracing.MODEL_LAYER)
     def forward(self, z: torch.Tensor, frames: Optional[torch.Tensor] = None,
                 fm: Optional[torch.Tensor] = None,
                 t: Optional[torch.Tensor] = None, lstate=None, shard=None):
@@ -369,6 +371,7 @@ class MaskDecoderHead(nn.Module):
         self.bv = _zeros(K, W)
         self.bg = _zeros(K, W)
 
+    @tracing.spanned(tracing.MODEL_DECODER)
     def forward(self, z: torch.Tensor, n_bands: int, n_bins: int,
                 fm: Optional[torch.Tensor] = None, nstate=None, return_state: bool = False):
         """With ``cfg.streaming_norm`` the per-band norm is cumulative over
@@ -486,6 +489,7 @@ class BSRNN(nn.Module):
             {"mask": MaskDecoderHead(cfg), "residual": MaskDecoderHead(cfg)}
         )
 
+    @tracing.spanned(tracing.MODEL_FORWARD)
     def forward(self, spec: torch.Tensor, fs: int,
                 frames: Optional[torch.Tensor] = None, states=None, shard=None):
         B, T, F = spec.shape

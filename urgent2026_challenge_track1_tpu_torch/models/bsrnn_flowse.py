@@ -31,7 +31,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from urgent2026_challenge_track1_tpu_torch import resolve_device
+from urgent2026_challenge_track1_tpu_torch import resolve_device, tracing
 from urgent2026_challenge_track1_tpu_torch.dsp import stft as dsp
 from urgent2026_challenge_track1_tpu_torch.models import bsrnn as B
 from urgent2026_challenge_track1_tpu_torch.models.odes import (
@@ -111,6 +111,7 @@ class GradDecoderHead(nn.Module):
         self.conv_w = B._zeros(5, 5, sc, 4)
         self.conv_b = B._zeros(4)
 
+    @tracing.spanned(tracing.MODEL_DECODER)
     def forward(self, z: torch.Tensor, n_bands: int, n_bins: int,
                 fm: Optional[torch.Tensor] = None) -> torch.Tensor:
         Bb, T, K, N = z.shape
@@ -173,15 +174,17 @@ class FlowDNN(nn.Module):
         self.grad_decoder = nn.ModuleDict(
             {"mask": GradDecoderHead(cfg), "residual": GradDecoderHead(cfg)})
 
+    @tracing.spanned(tracing.MODEL_FORWARD)
     def forward(self, x_spec: torch.Tensor, y_spec: torch.Tensor, t: torch.Tensor, fs: int,
                 frames: Optional[torch.Tensor] = None, shard=None) -> torch.Tensor:
         _, T, F = x_spec.shape
         cfg = self.cfg
         K = B.band_count(cfg.input_dim, cfg.target_fs, fs, F)
         fm = None if frames is None else dsp.frames_mask(frames, T)
-        zx = self.band_split(x_spec, K, fm)
-        zy = self.band_split_y(y_spec, K, fm)
-        z = torch.cat([zx, zy], dim=-1) @ self.condition_fc_w + self.condition_fc_b
+        with tracing.span(tracing.MODEL_BAND_SPLIT):  # and the condition projection
+            zx = self.band_split(x_spec, K, fm)
+            zy = self.band_split_y(y_spec, K, fm)
+            z = torch.cat([zx, zy], dim=-1) @ self.condition_fc_w + self.condition_fc_b
         z = B.run_layers(self.layers, z, cfg, frames, fm, t, shard=shard)
         m = self.grad_decoder["mask"](z, K, F, fm)
         r = self.grad_decoder["residual"](z, K, F, fm)
@@ -276,16 +279,18 @@ def flowse_loss(model: FlowDNN, cfg: FlowSEConfig, clean: torch.Tensor, noisy: t
     xt = mean + std.reshape(-1, 1, 1) * z
     cond_vf = ode.der_std(t).reshape(-1, 1, 1) * z + ode.der_mean(x0, t, y)
     frames = None if lengths is None else dsp.valid_frames(lengths, n_fft, hop)
-    err = vector_field(model, xt, t, y, fs, frames, shard) - cond_vf
-    if cfg.loss_type == "mse":
-        losses = err.abs().square()
-    elif cfg.loss_type == "mae":
-        losses = err.abs()
-    else:
-        raise ValueError(cfg.loss_type)
-    if lengths is not None:
-        losses = losses * frame_mask(lengths, n_fft, hop, losses.shape[1])[..., None]
-    return (0.5 * losses.reshape(Bsz, -1).sum(dim=-1)).mean()
+    vf = vector_field(model, xt, t, y, fs, frames, shard)
+    with tracing.span(tracing.MODEL_LOSS):
+        err = vf - cond_vf
+        if cfg.loss_type == "mse":
+            losses = err.abs().square()
+        elif cfg.loss_type == "mae":
+            losses = err.abs()
+        else:
+            raise ValueError(cfg.loss_type)
+        if lengths is not None:
+            losses = losses * frame_mask(lengths, n_fft, hop, losses.shape[1])[..., None]
+        return (0.5 * losses.reshape(Bsz, -1).sum(dim=-1)).mean()
 
 
 def flowse_enhance(model: FlowDNN, cfg: FlowSEConfig, noisy: torch.Tensor, fs: int,

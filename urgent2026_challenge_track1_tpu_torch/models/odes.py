@@ -20,6 +20,8 @@ from typing import Optional
 
 import torch
 
+from urgent2026_challenge_track1_tpu_torch import tracing
+
 __all__ = ["FlowMatching", "complex_normal", "complex_normal_like"]
 
 
@@ -64,6 +66,7 @@ class FlowMatching:
     def marginal_prob(self, x0, t, y):
         return self.mean(x0, t, y), self.std(t)
 
+    @tracing.spanned(tracing.FLOW_PRIOR)
     def prior_sampling(self, y, generator: Optional[torch.Generator] = None, rows=None):
         """x_T = y + sigma_max * z.  Returns (x_T, z).  ``rows``: see
         ``complex_normal_like``."""

@@ -100,6 +100,8 @@ import functools
 
 import torch
 
+from urgent2026_challenge_track1_tpu_torch import tracing
+
 __all__ = [
     "fusedin_bilstm",
     "fusedin_bilstm_walk",
@@ -1959,6 +1961,7 @@ class LSTMDirTrain(torch.autograd.Function):
         return out
 
     @staticmethod
+    @tracing.spanned(tracing.LSTM_OP)
     def backward(ctx, dout):
         out, gates, c, w_hh_t = ctx.saved_tensors
         dxp, dw = lstm_train_bwd(out, gates, c, dout.to(out.dtype).contiguous(), w_hh_t,
@@ -1978,6 +1981,7 @@ class LSTMRevMaskedTrain(torch.autograd.Function):
         return out
 
     @staticmethod
+    @tracing.spanned(tracing.LSTM_OP)
     def backward(ctx, dout):
         out, gates, c, w_hh_t, lengths = ctx.saved_tensors
         dxp, dw = lstm_revmasked_bwd(out, gates, c, lengths,
@@ -2011,6 +2015,7 @@ class LSTMDirStreamIn(torch.autograd.Function):
         return out
 
     @staticmethod
+    @tracing.spanned(tracing.LSTM_OP)
     def backward(ctx, dout):
         x, out, gates, c, w_ih_t, w_hh_t = ctx.saved_tensors
         dxp, dw_hh = lstm_train_bwd(out, gates, c, dout.to(out.dtype).contiguous(), w_hh_t)
@@ -2048,6 +2053,7 @@ class BiLSTMTrain(torch.autograd.Function):
         return torch.cat([res_f[0], res_b[0]], dim=-1)
 
     @staticmethod
+    @tracing.spanned(tracing.LSTM_OP)
     def backward(ctx, dout):
         x, h_f, g_f, c_f, h_b, g_b, c_b, w_ih_f_t, w_ih_b_t, w_hh_f_t, w_hh_b_t = \
             ctx.saved_tensors

@@ -22,6 +22,7 @@ from typing import Mapping
 
 import torch
 
+from urgent2026_challenge_track1_tpu_torch import tracing
 from urgent2026_challenge_track1_tpu_torch.ops import cuda_lstm
 
 __all__ = ["lstm", "bilstm", "length_reverse", "bilstm_masked"]
@@ -48,6 +49,7 @@ def _bias(params: Mapping[str, torch.Tensor], sfx: str, dtype) -> torch.Tensor:
     return (params[f"b_ih{sfx}"] + params[f"b_hh{sfx}"]).to(dtype)
 
 
+@tracing.spanned(tracing.LSTM_OP)
 def lstm(params: Mapping[str, torch.Tensor], x: torch.Tensor, reverse: bool = False,
          suffix: str = "", initial_state=None, return_state: bool = False):
     """Unidirectional LSTM.  x: (B, T, I) -> (B, T, H).
@@ -69,6 +71,7 @@ def lstm(params: Mapping[str, torch.Tensor], x: torch.Tensor, reverse: bool = Fa
                                return_state=return_state)
 
 
+@tracing.spanned(tracing.LSTM_OP)
 def bilstm(params: Mapping[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     """Bidirectional LSTM.  x: (B, T, I) -> (B, T, 2H), forward ++ backward.
 
@@ -101,6 +104,7 @@ def length_reverse(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, 1, idx)
 
 
+@tracing.spanned(tracing.LSTM_OP)
 def bilstm_masked(params: Mapping[str, torch.Tensor], x: torch.Tensor,
                   lengths: torch.Tensor) -> torch.Tensor:
     """Length-exact bidirectional LSTM.  x: (B, T, I), lengths: (B,) ->

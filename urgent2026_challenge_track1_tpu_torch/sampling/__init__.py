@@ -17,6 +17,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from urgent2026_challenge_track1_tpu_torch import tracing
+
 __all__ = ["ODE_SOLVERS", "get_white_box_solver", "get_black_box_solver", "sample_flow"]
 
 
@@ -65,8 +67,9 @@ def sample_flow(vf_fn: Callable, ode, y: torch.Tensor, solver: str = "euler", N:
     x = ode.prior_sampling(y, generator)[0] if x0 is None else x0
     B = y.shape[0]
     for t, step in zip(ts.tolist(), steps.tolist()):
-        vec_t = torch.full((B,), t, dtype=torch.float32, device=y.device)
-        x = update(vf_fn, x, vec_t, y, step)
+        with tracing.span(tracing.FLOW_STEP):
+            vec_t = torch.full((B,), t, dtype=torch.float32, device=y.device)
+            x = update(vf_fn, x, vec_t, y, step)
     return x, N * _EVALS[solver]
 
 

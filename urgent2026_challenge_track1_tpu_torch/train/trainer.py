@@ -46,10 +46,15 @@ the grad norm, the NaN skip, AdamW and the EMA then run on the same numbers
 on every rank, as the JAX step does on its one global gradient.  Global
 rank 0 alone writes the checkpoints and ``metrics.jsonl``; every rank reads
 the checkpoint on resume and validates on the whole validation set.
+
+``profile_start_step`` / ``profile_num_steps`` open a ``torch.profiler``
+window over those steps with the spans of ``tracing`` on, as the JAX
+trainer opens its ``jax.profiler`` window (``Trainer.fit``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -61,6 +66,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from urgent2026_challenge_track1_tpu_torch import tracing
 from urgent2026_challenge_track1_tpu_torch.config import Config
 from urgent2026_challenge_track1_tpu_torch.data.dynamic_device import RENDER_KEYS, render_tensors
 from urgent2026_challenge_track1_tpu_torch.dsp import stft as dsp
@@ -86,6 +92,7 @@ __all__ = [
     "step_generator",
     "lr_for_epoch",
     "clip_by_global_norm",
+    "to_device",
     "TrainState",
     "loss_and_metrics",
     "make_train_step",
@@ -186,6 +193,12 @@ def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float) -> None:
         g.copy_(torch.where(keep, g, g / global_norm * max_norm))
 
 
+def to_device(device, *arrays: np.ndarray) -> list[torch.Tensor]:
+    """Host arrays (a batch from the loader) as tensors on ``device``."""
+    with tracing.span(tracing.TRAIN_H2D):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays]
+
+
 # ---------------------------------------------------------------------------
 # Train state and steps
 # ---------------------------------------------------------------------------
@@ -241,9 +254,10 @@ def loss_and_metrics(bundle: ModelBundle, fs: int, model, clean, noisy, lengths,
     finite) and the metrics ``loss`` and ``sisnr`` of the global batch
     (the means over the dp blocks of ``mesh``), all length-masked."""
     wav, _ = bsrnn_se_apply(model, bundle.stft_cfg, noisy, fs, lengths, shard=shard)
-    loss = losses.multi_res_l1_spec_loss(clean, wav, lengths).mean()
-    with torch.no_grad():
-        sisnr = losses.si_snr(clean, wav, lengths).mean()
+    with tracing.span(tracing.MODEL_LOSS):
+        loss = losses.multi_res_l1_spec_loss(clean, wav, lengths).mean()
+        with torch.no_grad():
+            sisnr = losses.si_snr(clean, wav, lengths).mean()
     shown, sisnr = _world_mean([loss, sisnr], mesh)
     # NaN-loss skip: a constant 0, not loss * 0 (NaN * 0 is NaN), on every
     # rank where any rank's loss is not finite, as for JAX's global loss
@@ -275,38 +289,45 @@ def make_train_step(bundle: ModelBundle, cfg: Config, fs: int, mesh: Optional[Me
 
     def step(model, optimizer: torch.optim.AdamW, clean, noisy, lengths, ema=None,
              generator=None, noise=None, t=None) -> dict:
-        # every gradient, the frozen t_proj_w's too (AdamW does not hold it),
-        # starts from zero: jax.grad gives each step a fresh one
-        model.zero_grad(set_to_none=False)
-        if bundle.kind == "flowse":
-            mcfg = bundle.model_cfg
-            if dp > 1 and noise is None and t is None:
-                n_fft, _, hop = bundle.stft_cfg.geometry(fs)
-                shape = (clean.shape[0] * dp, dsp.num_frames(clean.shape[-1], n_fft, hop),
-                         n_fft // 2 + 1)
-                noise, t = flow_mod.cfm_draws(mcfg, shape, mesh.dp_block(shape[0]),
-                                              clean.device, generator)
-            loss = flow_mod.flowse_loss(model, mcfg, clean, noisy, fs, lengths,
-                                        noise=noise, t=t, generator=generator, shard=shard)
-            extra = {"loss": _world_mean([loss], mesh)[0]}
-        else:
-            loss, extra = loss_and_metrics(bundle, fs, model, clean, noisy, lengths, shard, mesh)
-        loss.backward()
-        named = list(model.named_parameters())
-        for _, p in named:
-            if p.grad is None:  # optax updates (and decays) every leaf
-                p.grad = torch.zeros_like(p)
-        if mesh is not None:
-            all_reduce_gradients((p.grad for _, p in named), mesh)
-        grads = [p.grad for _, p in named]
-        gnorm = _weighted_grad_norm((name, p.grad) for name, p in named)
-        # a non-finite element of any gradient makes the norm non-finite
-        bad = not math.isfinite(float(gnorm))
+        with tracing.span(tracing.TRAIN_FORWARD):
+            # every gradient, the frozen t_proj_w's too (AdamW does not hold
+            # it), starts from zero: jax.grad gives each step a fresh one
+            model.zero_grad(set_to_none=False)
+            if bundle.kind == "flowse":
+                mcfg = bundle.model_cfg
+                if dp > 1 and noise is None and t is None:
+                    n_fft, _, hop = bundle.stft_cfg.geometry(fs)
+                    shape = (clean.shape[0] * dp, dsp.num_frames(clean.shape[-1], n_fft, hop),
+                             n_fft // 2 + 1)
+                    noise, t = flow_mod.cfm_draws(mcfg, shape, mesh.dp_block(shape[0]),
+                                                  clean.device, generator)
+                loss = flow_mod.flowse_loss(model, mcfg, clean, noisy, fs, lengths,
+                                            noise=noise, t=t, generator=generator, shard=shard)
+                extra = {"loss": _world_mean([loss], mesh)[0]}
+            else:
+                loss, extra = loss_and_metrics(bundle, fs, model, clean, noisy, lengths, shard,
+                                               mesh)
+        with tracing.span(tracing.TRAIN_BACKWARD):
+            loss.backward()
+        with tracing.span(tracing.TRAIN_GRAD_NORM):
+            named = list(model.named_parameters())
+            for _, p in named:
+                if p.grad is None:  # optax updates (and decays) every leaf
+                    p.grad = torch.zeros_like(p)
+            if mesh is not None:
+                all_reduce_gradients((p.grad for _, p in named), mesh)
+            grads = [p.grad for _, p in named]
+            gnorm = _weighted_grad_norm((name, p.grad) for name, p in named)
+            # a non-finite element of any gradient makes the norm non-finite
+            bad = not math.isfinite(float(gnorm))
         if not bad:
-            clip_by_global_norm(grads, max_norm)
-            optimizer.step()
+            with tracing.span(tracing.TRAIN_CLIP):
+                clip_by_global_norm(grads, max_norm)
+            with tracing.span(tracing.TRAIN_ADAMW):
+                optimizer.step()
         if ema is not None:
-            update_ema(ema, model, decay)
+            with tracing.span(tracing.TRAIN_EMA):
+                update_ema(ema, model, decay)
         return {"loss": extra.pop("loss"), "grad_norm": gnorm, "nan_grad": bad, **extra}
 
     return step
@@ -322,7 +343,8 @@ def make_train_step_rendered(bundle: ModelBundle, cfg: Config, fs: int):
     highpass = bool(cfg.use_high_pass)
 
     def step(model, optimizer, *tensors, ema=None, generator=None) -> dict:
-        target, noisy = render_tensors(tensors, fs, highpass)
+        with tracing.span(tracing.TRAIN_RENDER):
+            target, noisy = render_tensors(tensors, fs, highpass)
         return core(model, optimizer, target, noisy, tensors[-1], ema=ema, generator=generator)
 
     return step
@@ -522,6 +544,7 @@ class Trainer:
                                  mode=cfg.checkpoint_mode)
         self._train_steps: dict[Any, Any] = {}
         self._val_steps: dict[int, Any] = {}
+        self._trace = None  # the open trace window: (its exit stack, the profiler)
 
     # -- state -------------------------------------------------------------
 
@@ -575,7 +598,35 @@ class Trainer:
             self.logger.log(step, metrics)
 
     def _to_device(self, *arrays: np.ndarray) -> list[torch.Tensor]:
-        return [torch.from_numpy(np.ascontiguousarray(a)).to(self.device) for a in arrays]
+        return to_device(self.device, *arrays)
+
+    def _trace_window(self, step: int) -> None:
+        """Before step ``step``: open the trace window at
+        ``profile_start_step`` (``torch.profiler`` on the host and the card,
+        the port's spans on), close it ``profile_num_steps`` steps later."""
+        cfg = self.cfg
+        if self._trace is None and step == cfg.profile_start_step:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            stack = contextlib.ExitStack()
+            stack.enter_context(tracing.on())
+            self._trace = stack, stack.enter_context(torch.profiler.profile(activities=acts))
+        elif self._trace is not None and step >= cfg.profile_start_step + cfg.profile_num_steps:
+            self._close_trace()
+
+    def _close_trace(self) -> None:
+        """Close an open trace window and write its Chrome trace to
+        ``<exp_dir>/profile/trace_rank<rank>.json``."""
+        if self._trace is None:
+            return
+        (stack, prof), self._trace = self._trace, None
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        stack.close()
+        out = os.path.join(self.exp_dir, "profile")
+        os.makedirs(out, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(out, f"trace_rank{self.mesh.rank}.json"))
 
     # -- loops -------------------------------------------------------------
 
@@ -618,6 +669,29 @@ class Trainer:
         return out
 
     def fit(self, state: Optional[TrainState] = None) -> TrainState:
+        """Train from ``state`` (else a fresh or resumed one) to the last
+        epoch.  With ``profile_start_step`` >= 0 the steps [start, start +
+        ``profile_num_steps``) run under ``torch.profiler`` with the port's
+        spans on (``tracing``), and their trace goes to ``<exp_dir>/profile/``
+        when the window closes, or when training ends inside it."""
+        try:
+            return self._fit(state)
+        finally:
+            self._close_trace()
+
+    def _batches(self, loader, state: TrainState):
+        """The loader's batches, each wait for one under ``train.data_wait``;
+        before each wait the trace window opens or closes at ``state.step``."""
+        it = iter(loader)
+        while True:
+            self._trace_window(state.step)
+            with tracing.span(tracing.TRAIN_DATA_WAIT):
+                item = next(it, None)
+            if item is None:
+                return
+            yield item
+
+    def _fit(self, state: Optional[TrainState]) -> TrainState:
         cfg = self.cfg
         state = state if state is not None else self.maybe_resume(self.init_state())
         for epoch in range(state.epoch, cfg.num_train_epochs):
@@ -627,7 +701,7 @@ class Trainer:
             loader = self.dm.train_dataloader(rank=self.mesh.dp_index, world_size=self.mesh.dp,
                                               epoch=epoch, skip_batches=state.batch_in_epoch)
             t_ready = time.perf_counter()
-            for batch_item in loader:
+            for batch_item in self._batches(loader, state):
                 t0 = time.perf_counter()
                 data_time = t0 - t_ready  # this step's wait for the loader
                 if isinstance(batch_item, dict):  # a DeviceRenderBatch: render, then step
